@@ -9,35 +9,58 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 
 1. the card: ``nvidia-smi``'s name and power limit;
 2. build: every kernel of the port from ``fedtorch_tpu_torch/csrc``;
-3. kernels vs plain: the quantizer kernel against its plain PyTorch
-   version on the card, at the 13 uplink ``[b*10, n]`` and 13 downlink
-   ``[b, n]`` bucket shapes of a ResNet-20 payload, int8 and int16, plus
-   edge rows (constant, NaN, inf, n = 1, n not a multiple of 256) —
-   within one quantization step per element, bitwise on exact-sum
-   inputs — and timed (CUDA graphs of back-to-back launches, CUDA
-   events, median of repeats);
-4. reference: a float32 ResNet-20 forward and one quantized ResNet-8
-   round on the card against the same on the CPU (TF32 off), the CPU
-   path being the one the tests hold against the JAX package;
+3. kernels vs plain, each kernel against its plain PyTorch version on
+   the card — within one quantization step per element, bitwise on
+   exact-sum inputs — and timed (CUDA graphs of back-to-back launches,
+   CUDA events, median of repeats):
+   - the row kernel at the 13 uplink ``[b*10, n]`` and 13 downlink
+     ``[b, n]`` bucket shapes of a ResNet-20 payload, int8 and int16,
+     plus edge rows (constant, NaN, inf, n = 1, n not a multiple of
+     256);
+   - the multi-block pair (stats + apply) at the 3 uplink and 3
+     downlink bucket shapes of a WideResNet-28-10 payload past 524,288
+     elements, int8 and int16, plus edge rows (NaN in the first chunk,
+     inf in a middle one, -inf in a ragged last one, a constant row,
+     rows that are not 16-byte aligned, one chunk); its inputs rotate
+     over at least 128 MB so that each launch reads device memory;
+   - the single-tensor entry at n = 1, 4,097, 272,474, 524,288 (the row
+     kernel on one row) and 524,289 (the pair);
+4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
+   and one quantized WideResNet-16-4 round (whose stage-3 convs go
+   through the pair) on the card against the same on the CPU (TF32
+   off), the CPU path being the one the tests hold against the JAX
+   package. The WideResNet-16-4 round is held within
+   ``order_spread.SPREAD_FACTOR`` times the CPU's own spread over other
+   float32 orders, measured in the same run
+   (``fedtorch_tpu_torch/tools/order_spread.py`` says why);
 5. main path: the north-star round at full width through the library
    entry points (``define_model`` -> ``make_algorithm`` ->
    ``FederatedTrainer`` -> ``init_state`` -> ``run_rounds``): quantized
    FedAvg, ResNet-20 in bfloat16, 100 clients x 250 CIFAR-10-shaped
    samples made from ``--seed``, k = 10, batch 50, 10 local steps, flip
    and crop augmentation; 1 warm-up round, then 3 timed rounds. The
-   kernel's launch counter is set to 0 just before and must read 26
-   per round after;
+   launch counters are set to 0 just before and must read 26 row
+   launches per round after;
 6. profile: one more main-path round under ``torch.profiler`` — the
-   device's busy share and its time by kernel.
+   device's busy share and its time by kernel;
+7. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
+   36.5 M parameters, full width and depth) after the ResNet-20 objects
+   are freed; 1 warm-up round, then 2 timed rounds, then one profiled
+   round. The counters must read the launches derived from the model's
+   own leaf sizes (26 row, 6 stats, 6 apply per round).
 
 Prints a ``{"kernels": [...]}`` line, a ``{"main_path": {...}}`` line,
-a ``{"profile": {...}}`` line and, last, ``{"ok": true, "device":
+a ``{"profile": {...}}`` line, a ``{"wrn_main_path": {...}}`` line, a
+``{"wrn_profile": {...}}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing no result, without CUDA.
 """
 from __future__ import annotations
 
 import argparse
+import gc
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -53,13 +76,24 @@ FP32_OPS_PER_S = 67e12
 # float32 operations per element of the round trip: min, max and add for
 # the statistics; subtract, divide, add, round, two clips, subtract,
 # multiply and add for the output
-QDQ_OPS_PER_ELEM = 12
-TPU_KERNEL = "fedtorch_tpu/ops/pallas/quant_kernel.py:76"
+STATS_OPS_PER_ELEM = 3
+APPLY_OPS_PER_ELEM = 9
+QDQ_OPS_PER_ELEM = STATS_OPS_PER_ELEM + APPLY_OPS_PER_ELEM
+TPU_QUANT = "fedtorch_tpu/ops/pallas/quant_kernel.py"
+TPU_KERNEL = f"{TPU_QUANT}:76"
 KERNEL_SOURCE = "fedtorch_tpu_torch/csrc/qdq_batch.cu"
+TILED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_tiled.cu"
+NO_LIBRARY = ("no single PyTorch call computes a per-row adaptive "
+              "quantize -> dequantize round trip")
+# timed inputs of the pair rotate over at least this many bytes, twice
+# the 50 MB L2, so that each launch streams from device memory
+COLD_BYTES = 128 * 2 ** 20
 
 # north-star sizes (bench.py)
 NUM_CLIENTS, SAMPLES, BATCH, LOCAL_STEPS, ONLINE_RATE = 100, 250, 50, 10, 0.1
 TIMED_ROUNDS = 3
+WRN_TIMED_ROUNDS = 2
+SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
 
 
 def log(*a):
@@ -105,20 +139,79 @@ def device_ms(fn, inner: int = 20, reps: int = 15) -> float:
     return statistics.median(times)
 
 
-def resnet20_buckets(cfg_mod, define_model):
-    """(leaves, n) per distinct leaf size of a ResNet-20 payload."""
+def rotating(fn, inputs):
+    """``fn`` over ``inputs`` in turn, one per call."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(*next(it))
+
+
+def bound(elems: float, bytes_moved: float, ops_per_elem: int):
+    """(bound ms, what bounds it, bytes ms, operations ms)."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_per_elem * elems / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms,
+            ops_ms)
+
+
+def compare(qk, got, want, x, bits, bitwise=False, what=""):
+    """Raise unless ``got`` is within one quantization step of ``want``
+    per element (bitwise if asked) with the same NaN pattern; returns
+    (worst error in steps, worst absolute error)."""
+    if bitwise:
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain bitwise at {what} "
+                                 f"{tuple(x.shape)} bits {bits}")
+        return 0.0, 0.0
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_got, nan_want):
+        raise AssertionError(f"NaN pattern differs at {what} "
+                             f"{tuple(x.shape)}")
+    qmin, qmax = qk.qrange(bits)
+    fin = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    step = (fin.amax(1, keepdim=True) - fin.amin(1, keepdim=True)) \
+        / (qmax - qmin)
+    step = torch.where(step == 0, 1e-3, step)  # the scale floor
+    diff = torch.where(nan_got, torch.zeros_like(got), (got - want).abs())
+    # one step, plus the float32 rounding of the dequantized value
+    slack = step * (1 + 1e-5) + 1e-6 * want.abs().nan_to_num() + 1e-7
+    if bool((diff > slack).any()):
+        raise AssertionError(f"kernel off by more than one step at {what} "
+                             f"{tuple(x.shape)} bits {bits}")
+    return float((diff / step).max()), float(diff.max())
+
+
+def leaf_sizes(cfg_mod, define_model, arch, widen=None):
+    """{numel: leaves} of a model's params, from its shapes alone."""
+    kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
     cfg = cfg_mod.ExperimentConfig(
         data=cfg_mod.DataConfig(dataset="cifar10"),
-        model=cfg_mod.ModelConfig(arch="resnet20")).finalize()
-    params = define_model(cfg, device="cuda").init(torch.Generator())
+        model=cfg_mod.ModelConfig(arch=arch, **kw)).finalize()
     sizes = {}
-    for v in params.values():
+    for _, v in define_model(cfg, device="cpu").module.named_parameters():
         sizes[v.numel()] = sizes.get(v.numel(), 0) + 1
-    return sorted((b, n) for n, b in sizes.items())
+    return sizes
+
+
+def launches_per_round(qk, sizes) -> dict:
+    """Quantizer launches of one quantized round (uplink + downlink): one
+    per leaf size, on the row kernel up to ``_MAX_ROW_ELEMS`` elements,
+    one stats and one apply launch past it."""
+    pair = sum(1 for n in sizes if n > qk._MAX_ROW_ELEMS)
+    return dict(row=2 * (len(sizes) - pair), stats=2 * pair, apply=2 * pair)
+
+
+def counters(qk) -> dict:
+    return dict(row=qk.launches, stats=qk.stats_launches,
+                apply=qk.apply_launches)
+
+
+def reset_counters(qk):
+    qk.launches = qk.stats_launches = qk.apply_launches = 0
 
 
 def kernel_phase(qk, buckets, k_online):
-    """Kernel vs plain on the card; returns the kernels-line fields."""
+    """Row kernel vs plain on the card; returns the kernels-line fields."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(b * k_online, n) for b, n in buckets] \
         + [(b, n) for b, n in buckets]
@@ -129,28 +222,8 @@ def kernel_phase(qk, buckets, k_online):
         got = qk.qdq_batch(x, bits)
         want = qk.qdq_batch_ref(x, bits)
         torch.cuda.synchronize()
-        if bitwise:
-            if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain bitwise at "
-                                     f"{tuple(x.shape)} bits {bits}")
-            return
-        nan_got, nan_want = torch.isnan(got), torch.isnan(want)
-        if not torch.equal(nan_got, nan_want):
-            raise AssertionError(f"NaN pattern differs at {tuple(x.shape)}")
-        qmin, qmax = qk.qrange(bits)
-        fin = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-        step = (fin.amax(1, keepdim=True) - fin.amin(1, keepdim=True)) \
-            / (qmax - qmin)
-        step = torch.where(step == 0, 1e-3, step)  # the scale floor
-        diff = torch.where(nan_got, torch.zeros_like(got),
-                           (got - want).abs())
-        worst_steps = max(worst_steps, float((diff / step).max()))
-        worst_abs = max(worst_abs, float(diff.max()))
-        # one step, plus the float32 rounding of the dequantized value
-        slack = step * (1 + 1e-5) + 1e-6 * want.abs().nan_to_num() + 1e-7
-        if bool((diff > slack).any()):
-            raise AssertionError(f"kernel off by more than one step at "
-                                 f"{tuple(x.shape)} bits {bits}")
+        s, a = compare(qk, got, want, x, bits, bitwise, "qdq_batch")
+        worst_steps, worst_abs = max(worst_steps, s), max(worst_abs, a)
 
     for bits in (8, 16):
         for rows, n in shapes:
@@ -169,8 +242,8 @@ def kernel_phase(qk, buckets, k_online):
         check(edge, bits)
         for n in (1, 255, 257, 4097):
             check(torch.randn(7, n, generator=gen, device="cuda"), bits)
-    log(f"kernel vs plain: {2 * len(shapes)} bucket shapes + edge rows, "
-        f"max error {worst_steps:.6f} steps ({worst_abs:.3e} abs)")
+    log(f"row kernel vs plain: {2 * len(shapes)} bucket shapes + edge "
+        f"rows, max error {worst_steps:.6f} steps ({worst_abs:.3e} abs)")
 
     # timing at the int8 main-path shapes: one round = all 26 launches
     kernel_ms = plain_ms = elems = 0.0
@@ -180,25 +253,211 @@ def kernel_phase(qk, buckets, k_online):
         plain_ms += device_ms(lambda: qk.qdq_batch_ref(x, 8))
         elems += x.numel()
     bytes_moved = 2 * 4 * elems  # float32, read once, written once
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = QDQ_OPS_PER_ELEM * elems / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"per round ({len(shapes)} launches, int8): kernel {kernel_ms:.4f}"
-        f" ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
-        f"{bound_by} ({bytes_moved / 1e6:.2f} MB: {bytes_ms:.5f} ms; "
-        f"{QDQ_OPS_PER_ELEM * elems / 1e6:.1f} M float32 ops: "
-        f"{ops_ms:.5f} ms)")
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(elems, bytes_moved,
+                                                 QDQ_OPS_PER_ELEM)
+    log(f"row kernel per ResNet-20 round ({len(shapes)} launches, int8): "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by} ({bytes_moved / 1e6:.2f} MB: "
+        f"{bytes_ms:.5f} ms; {QDQ_OPS_PER_ELEM * elems / 1e6:.1f} M "
+        f"float32 ops: {ops_ms:.5f} ms)")
     return dict(max_abs_err=worst_abs, max_err_steps=worst_steps,
                 ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes_per_round=bytes_moved, launches_per_round=len(shapes))
 
 
-def reference_phase(tcfg, define_model, make_algorithm, stack_partitions,
-                    FederatedTrainer, bridge):
-    """float32 ResNet-20 logits and a quantized ResNet-8 round, card vs
-    CPU on the same weights and plan."""
+def tiled_phase(qk, buckets, k_online):
+    """The multi-block pair vs its plain version on the card, at the
+    WideResNet-28-10 bucket shapes past the row threshold; returns the
+    kernels-line fields of the stats and the apply kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(b * k_online, n) for b, n in buckets] \
+        + [(b, n) for b, n in buckets]
+    worst = dict(steps=0.0, abs=0.0, partial_abs=0.0)
+
+    def check(x, bits, bitwise=False):
+        got_p = qk.qdq_tiled_stats(x)
+        want_p = qk.qdq_tiled_stats_ref(x)
+        got = qk.qdq_tiled_apply(x, got_p, bits)
+        want = qk.qdq_tiled_apply_ref(x, want_p, bits)
+        torch.cuda.synchronize()
+        # min and max are exact in any order; a chunk's sum is within
+        # the float32 bound of recursive summation, (chunk - 1) u sum|x|
+        mm_got, mm_want = got_p[..., :2], want_p[..., :2]
+        if not torch.equal(mm_got.nan_to_num(7.0), mm_want.nan_to_num(7.0)) \
+                or not torch.equal(mm_got.isnan(), mm_want.isnan()):
+            raise AssertionError(f"partial min/max differ at "
+                                 f"{tuple(x.shape)}")
+        s_got, s_want = got_p[..., 2], want_p[..., 2]
+        tol = qk._CHUNK * 2.0 ** -24 * qk.qdq_tiled_stats_ref(
+            x.abs().nan_to_num(0.0, 0.0, 0.0))[..., 2]
+        d = (s_got - s_want).abs()
+        same = (s_got == s_want) | (s_got.isnan() & s_want.isnan())
+        if not bool((same | (d <= tol)).all()):
+            raise AssertionError(f"partial sums differ at {tuple(x.shape)}")
+        if bitwise and not torch.equal(s_got, s_want):
+            raise AssertionError(f"partial sums not exact at "
+                                 f"{tuple(x.shape)}")
+        fin = same.logical_not() & d.isfinite()
+        if bool(fin.any()):
+            worst["partial_abs"] = max(worst["partial_abs"],
+                                       float(d[fin].max()))
+        s, a = compare(qk, got, want, x, bits, bitwise, "qdq_tiled")
+        worst["steps"], worst["abs"] = max(worst["steps"], s), \
+            max(worst["abs"], a)
+
+    for bits in (8, 16):
+        for rows, n in shapes:
+            x = torch.randn(rows, n, generator=gen, device="cuda") * 1e-3
+            check(x, bits)
+            d = torch.randint(-64, 65, (rows, n), generator=gen,
+                              device="cuda").float() / 16.0
+            check(d, bits, bitwise=True)
+            del x, d
+        n = 3 * qk._CHUNK + 101  # ragged last chunk, rows misaligned
+        edge = torch.randn(6, n, generator=gen, device="cuda")
+        edge[1, 5] = float("nan")            # first chunk
+        edge[2, qk._CHUNK + 17] = float("inf")  # a middle chunk
+        edge[3, n - 1] = -float("inf")       # the ragged last chunk
+        edge[4] = 0.25                       # constant: the scale floor
+        check(edge, bits)
+        check(torch.randn(3, 600_001, generator=gen, device="cuda"), bits)
+        check(torch.randn(4, 1000, generator=gen, device="cuda"), bits)
+    log(f"pair vs plain: {2 * len(shapes)} bucket shapes + edge rows, "
+        f"max error {worst['steps']:.6f} steps ({worst['abs']:.3e} abs); "
+        f"partial sums max |diff| {worst['partial_abs']:.3e}")
+    torch.cuda.empty_cache()
+
+    # timing at the int8 main-path shapes: one round = 6 launches of each
+    ms = dict(stats=0.0, apply=0.0, stats_plain=0.0, apply_plain=0.0)
+    elems = rows_chunks = 0
+    for rows, n in shapes:
+        copies = max(1, math.ceil(COLD_BYTES / (4 * rows * n)))
+        xs = [torch.randn(rows, n, generator=gen, device="cuda") * 1e-3
+              for _ in range(copies)]
+        xps = [(x, qk.qdq_tiled_stats(x)) for x in xs]
+        for key, fn, args in (
+                ("stats", qk.qdq_tiled_stats, [(x,) for x in xs]),
+                ("stats_plain", qk.qdq_tiled_stats_ref, [(x,) for x in xs]),
+                ("apply", lambda x, p: qk.qdq_tiled_apply(x, p, 8), xps),
+                ("apply_plain", lambda x, p: qk.qdq_tiled_apply_ref(x, p, 8),
+                 xps)):
+            ms[key] += device_ms(rotating(fn, args), inner=10, reps=11)
+        elems += rows * n
+        rows_chunks += rows * -(-n // qk._CHUNK)
+        del xs, xps
+        torch.cuda.empty_cache()
+    partial_bytes = 12 * rows_chunks
+    # stats: read x once, write the partials; apply: read x and the
+    # partials once, write the output once
+    sb = bound(elems, 4 * elems + partial_bytes, STATS_OPS_PER_ELEM)
+    ab = bound(elems, 8 * elems + partial_bytes, APPLY_OPS_PER_ELEM)
+    log(f"pair per WideResNet-28-10 round ({len(shapes)} launches each, "
+        f"int8, {elems:,} elements): stats {ms['stats']:.4f} ms (plain "
+        f"{ms['stats_plain']:.4f}, bound {sb[0]:.4f} by {sb[1]}), apply "
+        f"{ms['apply']:.4f} ms (plain {ms['apply_plain']:.4f}, bound "
+        f"{ab[0]:.4f} by {ab[1]})")
+    common = dict(elements_per_round=elems,
+                  launches_per_round=len(shapes), chunk=qk._CHUNK)
+    stats = dict(max_abs_err=worst["partial_abs"], ms=ms["stats"],
+                 plain_ms=ms["stats_plain"], bound_ms=sb[0],
+                 bound_by=sb[1], bytes_per_round=4 * elems + partial_bytes,
+                 **common)
+    apply = dict(max_abs_err=worst["abs"], max_err_steps=worst["steps"],
+                 ms=ms["apply"], plain_ms=ms["apply_plain"],
+                 bound_ms=ab[0], bound_by=ab[1],
+                 bytes_per_round=8 * elems + partial_bytes, **common)
+    return stats, apply
+
+
+def single_phase(qk):
+    """The single-tensor entry vs plain on the card on both sides of
+    ``_MAX_ROW_ELEMS``; returns its kernels-line fields."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst_steps = worst_abs = 0.0
+    for n in SINGLE_NS:
+        plain = qk.qdq_batch_ref if n <= qk._MAX_ROW_ELEMS \
+            else qk.qdq_tiled_ref
+        for bits in (8, 16):
+            for bitwise in (False, True):
+                if bitwise:
+                    x = torch.randint(-64, 65, (n,), generator=gen,
+                                      device="cuda").float() / 16.0
+                else:
+                    x = torch.randn(n, generator=gen, device="cuda") \
+                        * 0.05 + 0.01
+                before = counters(qk)
+                got = qk.fused_quantize_dequantize(x, bits)
+                after = counters(qk)
+                want = plain(x.view(1, -1), bits)
+                torch.cuda.synchronize()
+                row = n <= qk._MAX_ROW_ELEMS
+                want_delta = dict(row=int(row), stats=int(not row),
+                                  apply=int(not row))
+                if any(after[c] - before[c] != want_delta[c] for c in after):
+                    raise AssertionError(f"single-tensor entry at n = {n} "
+                                         f"launched {before} -> {after}")
+                s, a = compare(qk, got.view(1, -1), want, x.view(1, -1),
+                               bits, bitwise, "fused_quantize_dequantize")
+                worst_steps, worst_abs = max(worst_steps, s), \
+                    max(worst_abs, a)
+    x = torch.randn(64, 3, 3, 16, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        out = qk.fused_quantize_dequantize(x.to(dtype), 8)
+        if out.shape != x.shape or out.dtype != dtype:
+            raise AssertionError(f"single-tensor entry gave {out.dtype} "
+                                 f"{tuple(out.shape)}")
+    log(f"single-tensor entry vs plain at n = {SINGLE_NS}: max error "
+        f"{worst_steps:.6f} steps ({worst_abs:.3e} abs)")
+
+    by_n = {}
+    for n in SINGLE_NS[:-1]:  # the row kernel's sizes
+        x = torch.randn(n, generator=gen, device="cuda") * 0.05
+        by_n[n] = dict(
+            ms=device_ms(lambda: qk.fused_quantize_dequantize(x, 8)),
+            plain_ms=device_ms(lambda: qk.qdq_batch_ref(x.view(1, -1), 8)),
+            bound_ms=bound(n, 8 * n, QDQ_OPS_PER_ELEM)[0])
+    n = SINGLE_NS[-2]
+    b = bound(n, 8 * n, QDQ_OPS_PER_ELEM)
+    log("single-tensor entry, int8: " + ", ".join(
+        f"n = {k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+        f"{v['bound_ms']:.5f})" for k, v in by_n.items()))
+    return dict(max_abs_err=worst_abs, max_err_steps=worst_steps,
+                ms=by_n[n]["ms"], plain_ms=by_n[n]["plain_ms"],
+                bound_ms=b[0], bound_by=b[1], timed_n=n,
+                by_n={str(k): v for k, v in by_n.items()})
+
+
+def _round_card_vs_cpu(os_mod, cfg, qk, seed, runs=("cpu", "cuda")):
+    """One quantized round, same weights and plan, in each of ``runs``
+    (``order_spread.run_round``'s names); returns the updates, the
+    card's quantizer launches, the initial params and the card's
+    wire-format calls (name, input, output)."""
+    updates, wire, launched = {}, [], {}
+
+    def record(alg):
+        for name in ("payload_batch_transform", "aggregate_transform"):
+            def recorded(tree, _real=getattr(alg, name), _name=name):
+                out = _real(tree)
+                wire.append((_name, {k: v.cpu() for k, v in tree.items()},
+                             {k: v.cpu() for k, v in out.items()}))
+                return out
+            setattr(alg, name, recorded)
+
+    for run in runs:
+        before = counters(qk)
+        updates[run], p0 = os_mod.run_round(
+            cfg, seed, run, record if run == "cuda" else None)
+        if run == "cuda":
+            after = counters(qk)
+            launched = {c: after[c] - before[c] for c in after}
+    return updates, launched, p0, wire
+
+
+def reference_phase(tcfg, define_model, os_mod, qk):
+    """float32 ResNet-20 logits, a quantized ResNet-8 round and a
+    quantized WideResNet-16-4 round, card vs CPU on the same weights and
+    plan."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tcfg.ExperimentConfig(
@@ -218,53 +477,87 @@ def reference_phase(tcfg, define_model, make_algorithm, stack_partitions,
         raise AssertionError(f"ResNet-20 logits card vs CPU: {err}")
     log(f"ResNet-20 f32 logits, card vs CPU: max |diff| {err:.3e}")
 
-    cfg = tcfg.ExperimentConfig(
-        data=tcfg.DataConfig(dataset="cifar10", batch_size=8),
-        federated=tcfg.FederatedConfig(
-            federated=True, num_clients=4, online_client_rate=0.5,
-            sync_type="local_step", quantized=True),
-        model=tcfg.ModelConfig(arch="resnet8"),
-        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
-        train=tcfg.TrainConfig(local_step=2)).finalize()
-    rng = np.random.RandomState(2)
-    data = stack_partitions(rng.randn(64, 32, 32, 3).astype(np.float32),
-                            rng.randint(0, 10, 64),
-                            [np.arange(16 * i, 16 * i + 16)
-                             for i in range(4)])
-    updates = {}
-    for dev in ("cpu", "cuda"):
-        tr = FederatedTrainer(cfg, define_model(cfg, 8, device=dev),
-                              make_algorithm(cfg), data, device=dev)
-        server, clients = tr.init_state(3)
-        p0 = bridge.params_to_jax(server.params)
-        server, clients, m = tr.round_fn(server, clients,
-                                         tr.draw_plan(server))
-        p1 = bridge.params_to_jax(server.params)
-        updates[dev] = {k: p1[k] - p0[k] for k in p0}
-    worst = 0.0
-    for k, u in updates["cpu"].items():
-        step = (u.max() - u.min()) / 255.0
-        worst = max(worst, float(np.abs(updates["cuda"][k] - u).max()
-                                 / max(step, 1e-12)))
+    ups, _, _, _ = _round_card_vs_cpu(
+        os_mod, os_mod.small_round_cfg("resnet8"), qk, seed=2)
+    worst, _ = os_mod.update_gap(ups["cpu"], ups["cuda"])
     if worst > 2.0:
         raise AssertionError(f"quantized round card vs CPU: {worst} steps")
     log(f"quantized ResNet-8 round, card vs CPU: max {worst:.4f} "
         "downlink steps")
+
+    # WideResNet-16-4: its stage-3 convs (589,824 elements) take the pair
+    cfg = os_mod.small_round_cfg("wideresnet16",
+                                 wideresnet_widen_factor=os_mod.WIDEN)
+    gpu, cpu = define_model(cfg, device="cuda"), define_model(cfg,
+                                                              device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = cpu.apply(params, x)
+        got = gpu.apply({k: v.cuda() for k, v in params.items()},
+                        x.cuda()).cpu()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"WideResNet-16-4 logits card vs CPU: {err}")
+    log(f"WideResNet-16-4 f32 logits, card vs CPU: max |diff| {err:.3e}")
+
+    ups, launched, p0, wire = _round_card_vs_cpu(
+        os_mod, cfg, qk, seed=4,
+        runs=("cpu", *os_mod.SPREAD_ORDERS, "cuda"))
+    want = launches_per_round(qk, {v.numel() for v in p0.values()})
+    if any(launched[c] != want[c] for c in want) or not want["stats"]:
+        raise AssertionError(f"WideResNet-16-4 round launched {launched}, "
+                             f"expected {want}")
+    # the card's wire format against the CPU's on the card's own payloads
+    wire_steps = 0.0
+    for name, tree, out in wire:
+        uplink = name == "payload_batch_transform"
+        ref = qk.fused_quantize_dequantize_tree(tree, 8, uplink)
+        for k, v in tree.items():
+            rows = v.shape[0] if uplink else 1
+            s, _ = compare(qk, out[k].reshape(rows, -1),
+                           ref[k].reshape(rows, -1), v.reshape(rows, -1), 8,
+                           what=f"{name} {k}")
+            wire_steps = max(wire_steps, s)
+    if len(wire) != 2:
+        raise AssertionError(f"recorded {len(wire)} wire-format calls")
+    # A pre-activation within float32 rounding of 0 can land on either
+    # side of its ReLU in two summation orders, and at this width that
+    # moves whole leaves of the update by several downlink steps between
+    # any two float32 orders, the CPU's own included (order_spread.py
+    # measures it). The card must stay within SPREAD_FACTOR times the
+    # CPU's spread over SPREAD_ORDERS in this run; the bar is never
+    # tighter than 2 steps and 1e-3 relative L2.
+    spread, spread_l2 = os_mod.spread(ups["cpu"], ups)
+    worst, worst_l2 = os_mod.update_gap(ups["cpu"], ups["cuda"])
+    f = os_mod.SPREAD_FACTOR
+    log(f"quantized WideResNet-16-4 round: wire format card vs CPU on the "
+        f"card's payloads max {wire_steps:.6f} steps; update card vs CPU "
+        f"max {worst:.4f} downlink steps, relative L2 {worst_l2:.3e}; CPU "
+        f"vs CPU in {os_mod.SPREAD_ORDERS} max {spread:.4f} steps, "
+        f"relative L2 {spread_l2:.3e}; launches {launched}")
+    if worst > max(2.0, f * spread) or worst_l2 > max(1e-3, f * spread_l2):
+        raise AssertionError(f"quantized WideResNet-16-4 round card vs "
+                             f"CPU: {worst} steps, relative L2 {worst_l2}")
     torch.backends.cudnn.allow_tf32 = True
 
 
 def main_path_phase(seed, tcfg, define_model, make_algorithm,
-                    stack_partitions, FederatedTrainer, qk):
+                    stack_partitions, FederatedTrainer, qk,
+                    arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS):
+    """Quantized FedAvg at the north-star sizes on ``arch`` through the
+    library entry points; returns (numbers, trainer, server, clients)."""
+    kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
     cfg = tcfg.ExperimentConfig(
         data=tcfg.DataConfig(dataset="cifar10", batch_size=BATCH),
         federated=tcfg.FederatedConfig(
             federated=True, num_clients=NUM_CLIENTS,
             online_client_rate=ONLINE_RATE, algorithm="fedavg",
             sync_type="local_step", quantized=True),
-        model=tcfg.ModelConfig(arch="resnet20"),
+        model=tcfg.ModelConfig(arch=arch, **kw),
         optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
         train=tcfg.TrainConfig(local_step=LOCAL_STEPS),
         mesh=tcfg.MeshConfig(compute_dtype="bfloat16")).finalize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rng = np.random.RandomState(seed)
     feats = rng.randn(NUM_CLIENTS * SAMPLES, 32, 32, 3).astype(np.float32)
@@ -272,14 +565,18 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     parts = [np.arange(i * SAMPLES, (i + 1) * SAMPLES)
              for i in range(NUM_CLIENTS)]
     data = stack_partitions(feats, labels, parts)
+    del feats
     model = define_model(cfg, batch_size=BATCH)
     trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
     server, clients = trainer.init_state(seed)
     init = {k: v.clone() for k, v in server.params.items()}
-    log(f"set-up {time.perf_counter() - t0:.2f} s (data, model, state; "
+    expect = launches_per_round(qk, {v.numel() for v in init.values()})
+    setup_s = time.perf_counter() - t0
+    log(f"{arch}: set-up {setup_s:.2f} s (data, model, state; "
+        f"{sum(v.numel() for v in init.values()):,} params; "
         f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB on the card)")
 
-    qk.launches = 0
+    reset_counters(qk)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     server, clients, _ = trainer.run_rounds(server, clients, 1)
@@ -290,21 +587,21 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     t0 = time.perf_counter()
     start.record()
     server, clients, metrics = trainer.run_rounds(server, clients,
-                                                  TIMED_ROUNDS)
+                                                  timed_rounds)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = qk.launches
+    launched = counters(qk)
     total_ms = start.elapsed_time(end)
 
-    rounds = 1 + TIMED_ROUNDS
-    per_round = launches / rounds
-    if launches != 26 * rounds:
-        raise AssertionError(f"quantizer launched {launches} times in "
-                             f"{rounds} rounds, expected 26 per round")
+    rounds = 1 + timed_rounds
+    want = {c: n * rounds for c, n in expect.items()}
+    if launched != want:
+        raise AssertionError(f"{arch}: quantizer launched {launched} in "
+                             f"{rounds} rounds, expected {want}")
     online = metrics.online_mask.bool()
     losses = metrics.train_loss[online]
-    if losses.numel() != TIMED_ROUNDS * trainer.k_online \
+    if losses.numel() != timed_rounds * trainer.k_online \
             or not bool(torch.isfinite(losses).all()):
         raise AssertionError(f"bad losses {losses.tolist()}")
     if not all(bool(torch.isfinite(v).all())
@@ -314,25 +611,29 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
                 for k in init)
     if not moved > 0.0:
         raise AssertionError("server params did not change")
-    steps = TIMED_ROUNDS * trainer.k_online * trainer.local_steps
-    round_ms = total_ms / TIMED_ROUNDS
-    out = dict(round_ms=round_ms, local_steps_per_s=steps / (total_ms
-                                                             / 1e3),
-               timed_rounds=TIMED_ROUNDS, warmup_round_s=warm_s,
-               host_wall_s=host_s, quantizer_launches=launches,
-               launches_per_round=per_round,
+    steps = timed_rounds * trainer.k_online * trainer.local_steps
+    round_ms = total_ms / timed_rounds
+    out = dict(arch=arch, widen=widen, params=sum(v.numel()
+                                                  for v in init.values()),
+               round_ms=round_ms,
+               local_steps_per_s=steps / (total_ms / 1e3),
+               timed_rounds=timed_rounds, setup_s=setup_s,
+               warmup_round_s=warm_s, host_wall_s=host_s, launches=launched,
+               tree_launches=want,
+               launches_per_round={c: n / rounds
+                                   for c, n in launched.items()},
                mean_loss=float(losses.mean()),
                max_param_change=moved,
                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
-    log(f"main path: {round_ms:.1f} ms/round, "
-        f"{out['local_steps_per_s']:.1f} local-steps/s, "
-        f"{launches} quantizer launches in {rounds} rounds")
+    log(f"{arch} main path: {round_ms:.1f} ms/round, "
+        f"{out['local_steps_per_s']:.1f} local-steps/s, launches in "
+        f"{rounds} rounds {launched}, peak {out['peak_mib']:.0f} MiB")
     return out, trainer, server, clients
 
 
 def _kind(name: str) -> str:
     n = name.lower()
-    if "qdq_batch" in n:
+    if "qdq_batch" in n or "tiled_stats" in n or "tiled_apply" in n:
         return "quantizer"
     if "norm" in n or "welford" in n:
         return "batch_norm"
@@ -374,6 +675,9 @@ def profile_phase(trainer, server, clients):
                busy_share=device_ms / wall_ms if kernels else None,
                kernel_launches=sum(k[2] for k in kernels),
                device_ms_by_kind=by_kind,
+               quantizer_kernels=[dict(name=n[:80], ms=ms, calls=c)
+                                  for ms, n, c in kernels
+                                  if _kind(n) == "quantizer"],
                top_kernels=[dict(name=n[:120], ms=ms, calls=c)
                             for ms, n, c in kernels[:8]],
                top_cpu_ops=[dict(name=n[:80], self_ms=ms, calls=c)
@@ -381,7 +685,8 @@ def profile_phase(trainer, server, clients):
     if kernels:
         log(f"profiled round: {wall_ms:.1f} ms wall, device busy "
             f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
-            f"{out['kernel_launches']} kernel launches")
+            f"{out['kernel_launches']} kernel launches, quantizer "
+            f"{by_kind.get('quantizer', 0.0):.3f} ms")
     else:
         log("profiled round: the profiler recorded no device time")
     return out
@@ -395,13 +700,15 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
 
-    from fedtorch_tpu_torch import bridge, config as tcfg
+    from fedtorch_tpu_torch import config as tcfg
     from fedtorch_tpu_torch.algorithms import make_algorithm
     from fedtorch_tpu_torch.data.batching import stack_partitions
     from fedtorch_tpu_torch.models import define_model
     from fedtorch_tpu_torch.ops.cuda import build, quant_kernel as qk
     from fedtorch_tpu_torch.parallel import FederatedTrainer
+    from fedtorch_tpu_torch.tools import order_spread
 
+    t_start = time.perf_counter()
     phase("card")
     card = card_line()
     log(card)
@@ -417,28 +724,78 @@ def main(argv=None) -> int:
     build.load_library()
 
     phase("kernels vs plain")
-    buckets = resnet20_buckets(tcfg, define_model)
     k_online = max(int(ONLINE_RATE * NUM_CLIENTS), 1)
-    fields = kernel_phase(qk, buckets, k_online)
+    sizes = leaf_sizes(tcfg, define_model, "resnet20")
+    fields = kernel_phase(qk, sorted((b, n) for n, b in sizes.items()),
+                          k_online)
+    wrn_sizes = leaf_sizes(tcfg, define_model, "wideresnet28", 10)
+    stats_fields, apply_fields = tiled_phase(
+        qk, sorted((b, n) for n, b in wrn_sizes.items()
+                   if n > qk._MAX_ROW_ELEMS), k_online)
+    single_fields = single_phase(qk)
 
     phase("reference")
-    reference_phase(tcfg, define_model, make_algorithm, stack_partitions,
-                    FederatedTrainer, bridge)
+    reference_phase(tcfg, define_model, order_spread, qk)
 
     phase("main path")
     main, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
         FederatedTrainer, qk)
+    if main["launches_per_round"]["row"] != 26:
+        raise AssertionError("expected 26 row launches per ResNet-20 round")
 
     phase("profile")
     prof = profile_phase(trainer, server, clients)
 
-    kernel = dict(name="qdq_batch_f32", route="cuda", source=KERNEL_SOURCE,
-                  replaces=TPU_KERNEL, launches=main["quantizer_launches"],
-                  library_ms=None, **fields)
-    print(json.dumps({"kernels": [kernel]}))
+    phase("WideResNet main path")
+    del trainer, server, clients
+    gc.collect()
+    torch.cuda.empty_cache()
+    wrn, trainer, server, clients = main_path_phase(
+        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, qk, arch="wideresnet28", widen=10,
+        timed_rounds=WRN_TIMED_ROUNDS)
+    if not all(wrn["launches"][c] for c in ("row", "stats", "apply")):
+        raise AssertionError(f"a kernel of the WideResNet path was not "
+                             f"launched: {wrn['launches']}")
+    wrn_prof = profile_phase(trainer, server, clients)
+    del trainer, server, clients
+
+    by_path = {c: dict(resnet20=main["launches"][c],
+                       wideresnet28_10=wrn["launches"][c])
+               for c in main["launches"]}
+    single_by_path = {
+        p: r["launches"]["row"] - r["tree_launches"]["row"]
+        for p, r in (("resnet20", main), ("wideresnet28_10", wrn))}
+    kernels = [
+        dict(name="qdq_batch_f32", route="cuda", source=KERNEL_SOURCE,
+             replaces=TPU_KERNEL, launches=main["launches"]["row"],
+             launches_by_path=by_path["row"], library_ms=None,
+             library_note=NO_LIBRARY, **fields),
+        dict(name="qdq_tiled_stats_f32", route="cuda", source=TILED_SOURCE,
+             replaces=f"{TPU_QUANT}:83", launches=wrn["launches"]["stats"],
+             launches_by_path=by_path["stats"], library_ms=None,
+             library_note="no single PyTorch call gives per-chunk "
+                          "[min, max, sum] partials", **stats_fields),
+        dict(name="qdq_tiled_apply_f32", route="cuda", source=TILED_SOURCE,
+             replaces=f"{TPU_QUANT}:111", launches=wrn["launches"]["apply"],
+             launches_by_path=by_path["apply"], library_ms=None,
+             library_note=NO_LIBRARY, **apply_fields),
+        # the entry launches qdq_batch_f32 on [1, n]; a main path's row
+        # launches past those of its tree function would be the entry's
+        dict(name="fused_quantize_dequantize (qdq_batch_f32 on [1, n])",
+             route="cuda", source=KERNEL_SOURCE, replaces=f"{TPU_QUANT}:72",
+             launches=sum(single_by_path.values()),
+             launches_by_path=single_by_path, on_main_path=False,
+             library_ms=None, library_note=NO_LIBRARY, **single_fields),
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"wrn_main_path": wrn, "card": card}))
+    print(json.dumps({"wrn_profile": wrn_prof}))
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+    log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,10 +10,10 @@ Every ``*.cu`` under ``fedtorch_tpu_torch/csrc`` is compiled by one
 ``--fmad=false`` keeps the quantizer's ``scale*(q - zp) + mean`` rounding
 as written (the kernels' sources say why). The library goes to
 ``fedtorch_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash
-of the sources and flags, so an edited source rebuilds and an unchanged
-one loads the existing library. Nothing here runs at import: the build
-happens inside the first launch. A failed build raises with nvcc's
-stderr.
+of the sources (``*.cu`` and the ``*.cuh`` they include) and flags, so an
+edited source rebuilds and an unchanged one loads the existing library.
+Nothing here runs at import: the build happens inside the first launch.
+A failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ def build() -> BuildResult:
     flags is already built."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libfedtorch_kernels_{h.hexdigest()[:16]}.so"
@@ -90,10 +90,19 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build().path))
-            fn = lib.qdq_batch_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            signatures = {
+                # (x, out, rows, n, num_bits, stream)
+                "qdq_batch_f32": [ptr, ptr, i64, i64, i32, ptr],
+                # (x, partials, rows, n, chunk, stream)
+                "qdq_tiled_stats_f32": [ptr, ptr, i64, i64, i64, ptr],
+                # (x, partials, out, rows, n, chunk, num_bits, stream)
+                "qdq_tiled_apply_f32": [ptr, ptr, ptr, i64, i64, i64, i32,
+                                        ptr],
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -62,6 +62,52 @@ def test_kernel_is_bitwise_on_exact_sums_and_propagates_nan(cuda):
     assert np.isnan(got[5]).all() and not np.isnan(got[:5]).any()
 
 
+@pytest.mark.parametrize("rows, n, bits", [(3, 600_001, 8), (2, 921_600, 16),
+                                           (5, 3 * 8192 + 101, 8),
+                                           (4, 1000, 16)])
+def test_pair_matches_plain_version(cuda, rows, n, bits):
+    rng = np.random.RandomState(n + bits)
+    x = torch.from_numpy(rng.randn(rows, n).astype(np.float32)).to(cuda)
+    p = qk.qdq_tiled_stats(x)
+    want_p = qk.qdq_tiled_stats_ref(x)
+    # min and max are exact in any order, sums within float32 rounding
+    assert torch.equal(p[..., :2], want_p[..., :2])
+    torch.testing.assert_close(p[..., 2], want_p[..., 2], rtol=1e-5,
+                               atol=1e-3)
+    got = qk.qdq_tiled_apply(x, p, bits).cpu().numpy()
+    want = qk.qdq_tiled_ref(x, bits).cpu().numpy()
+    steps = _steps(x.cpu().numpy(), bits)
+    assert np.all(np.abs(got - want)
+                  <= steps * (1 + 1e-5) + 1e-6 * np.abs(want) + 1e-7)
+
+
+def test_pair_is_bitwise_on_exact_sums_and_propagates_nan(cuda):
+    rng = np.random.RandomState(2)
+    n = 2 * 8192 + 33
+    x = (rng.randint(-64, 65, size=(5, n)) / 16.0).astype(np.float32)
+    x[3] = 1.5                  # constant row: the scale floor
+    x[4, 3] = np.nan            # in the first chunk, survives the fold
+    xt = torch.from_numpy(x).to(cuda)
+    got = qk.qdq_tiled(xt, 8).cpu().numpy()
+    np.testing.assert_array_equal(got, qk.qdq_tiled_ref(xt, 8).cpu().numpy())
+    assert np.isnan(got[4]).all() and not np.isnan(got[:4]).any()
+    np.testing.assert_array_equal(got[3], x[3])
+
+
+@pytest.mark.parametrize("n", [1, 4097, 524_288, 524_289])
+def test_single_tensor_entry_routes_and_matches(cuda, n):
+    x = torch.from_numpy((np.random.RandomState(n).randint(
+        -64, 65, size=n) / 16.0).astype(np.float32)).to(cuda)
+    before = (qk.launches, qk.stats_launches, qk.apply_launches)
+    got = qk.fused_quantize_dequantize(x, 8)
+    after = (qk.launches, qk.stats_launches, qk.apply_launches)
+    row = n <= qk._MAX_ROW_ELEMS
+    assert np.subtract(after, before).tolist() == (
+        [1, 0, 0] if row else [0, 1, 1])
+    plain = qk.qdq_batch_ref if row else qk.qdq_tiled_ref
+    assert torch.equal(got, plain(x.view(1, -1), 8).view(-1))
+
+
 def test_quantized_round_on_the_card_matches_the_cpu(cuda):
     """One quantized ResNet-8 round, same weights and plan, on the card
     (float32, TF32 off) and on the CPU: each leaf's update within two

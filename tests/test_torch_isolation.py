@@ -126,7 +126,8 @@ def test_unported_trainer_features_raise_by_name(override, name):
 
 @pytest.mark.parametrize("override, name", [
     (dict(model__arch="cnn"), "cnn"),
-    (dict(model__arch="wideresnet16"), "wideresnet16"),
+    (dict(model__arch="densenet40"), "densenet40"),
+    (dict(model__arch="wideresnet16", model__drop_rate=0.1), "drop_rate"),
     (dict(model__norm="gn"), "gn"),
     (dict(model__conv_impl="matmul"), "matmul"),
     (dict(mesh__remat=True), "remat"),

@@ -1,0 +1,46 @@
+"""``fedtorch_tpu_torch.tools.order_spread`` on the CPU: the helpers
+``chip_smoke.py``'s card-vs-CPU rounds use, and the scan itself at a
+small width.
+
+At ResNet-8 the round has few enough ReLU inputs that two float32
+orders agree within 2 int8 downlink steps, the bar ``chip_smoke.py``
+holds the card to there (measured: about 1.09 steps at any thread
+count).
+"""
+import json
+
+import torch
+
+from fedtorch_tpu_torch.tools import order_spread as os_mod
+
+
+def test_update_gap_counts_downlink_steps():
+    a = {"w": torch.tensor([0.0, 2.55, 1.0]), "b": torch.tensor([1.0, 1.0])}
+    assert os_mod.update_gap(a, a) == (0.0, 0.0)
+    b = {"w": a["w"] + torch.tensor([0.0, 0.0, 0.03]), "b": a["b"]}
+    steps, l2 = os_mod.update_gap(a, b)
+    assert abs(steps - 3.0) < 1e-4   # 0.03 in steps of 2.55 / 255
+    assert abs(l2 - 0.03 / float(torch.cat([a["w"], a["b"]]).norm())) < 1e-6
+
+
+def test_orders_agree_at_resnet8_and_threads_are_restored():
+    cfg = os_mod.small_round_cfg("resnet8")
+    threads = torch.get_num_threads()
+    ref, p0 = os_mod.run_round(cfg, 2, "cpu")
+    ups = {o: os_mod.run_round(cfg, 2, o)[0] for o in os_mod.SPREAD_ORDERS}
+    assert torch.get_num_threads() == threads
+    assert set(ref) == set(p0) and any(bool(u.abs().max() > 0)
+                                       for u in ref.values())
+    steps, _ = os_mod.spread(ref, ups)
+    assert steps <= 2.0
+
+
+def test_scan_prints_a_line_per_seed_and_the_ratio(monkeypatch, capsys):
+    monkeypatch.setattr(os_mod, "WIDEN", 1)
+    assert os_mod.main(["--seeds", "0-0"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert lines[0]["seed"] == 0
+    assert set(lines[0]["gaps"]) == set(os_mod.SPREAD_ORDERS
+                                        + os_mod.HELD_OUT_ORDERS)
+    assert lines[-1]["spread_factor"] == os_mod.SPREAD_FACTOR
+    assert lines[-1]["max_held_out_ratio_steps"] >= 0.0

@@ -46,7 +46,7 @@ C, N, B, K = 8, 16, 8, 2
 
 
 def _build(algorithm="fedavg", quantized=False, sync_type="local_step",
-           sizes=(N,) * C):
+           sizes=(N,) * C, model=None):
     sections = dict(
         data=("DataConfig", dict(dataset="cifar10", batch_size=B,
                                  augment=False)),
@@ -54,7 +54,7 @@ def _build(algorithm="fedavg", quantized=False, sync_type="local_step",
             federated=True, num_clients=C, online_client_rate=0.25,
             algorithm=algorithm, sync_type=sync_type,
             quantized=quantized)),
-        model=("ModelConfig", dict(arch="resnet8")),
+        model=("ModelConfig", model or dict(arch="resnet8")),
         optim=("OptimConfig", dict(lr=0.1, in_momentum=True)),
         train=("TrainConfig", dict(local_step=K)))
 
