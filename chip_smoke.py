@@ -25,6 +25,14 @@ of JAX or of the JAX package. Phases, each fatal on failure:
      over at least 128 MB so that each launch reads device memory;
    - the single-tensor entry at n = 1, 4,097, 272,474, 524,288 (the row
      kernel on one row) and 524,289 (the pair);
+   - the flash attention forward against its plain version (TF32 off)
+     on strided q, k, v views of one projection, bfloat16 and float32:
+     the transformer path's shape (B 8, T 2048, H 4, D 64) causal and
+     not, T in {1, 50, 257}, D in {16, 32, 128}, misaligned views, a NaN
+     q row with a +inf k row. float32 o and lse within atol = rtol =
+     2e-5, bfloat16 o within one bfloat16 spacing past that bar. Timed
+     at the path's shape (inputs rotating over at least 128 MB) against
+     its plain version and ``F.scaled_dot_product_attention``;
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
    through the pair) on the card against the same on the CPU (TF32
@@ -32,7 +40,10 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    package. The WideResNet-16-4 round is held within
    ``order_spread.SPREAD_FACTOR`` times the CPU's own spread over other
    float32 orders, measured in the same run
-   (``fedtorch_tpu_torch/tools/order_spread.py`` says why);
+   (``fedtorch_tpu_torch/tools/order_spread.py`` says why). Then a
+   float32 transformer (d_model 64, 4 heads of 16, 2 layers, T 256,
+   flash): logits and one FedAvg round, the card (the kernel) against
+   the CPU (the plain version), each within 1e-4;
 5. main path: the north-star round at full width through the library
    entry points (``define_model`` -> ``make_algorithm`` ->
    ``FederatedTrainer`` -> ``init_state`` -> ``run_rounds``): quantized
@@ -47,12 +58,21 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
    round. The counters must read the launches derived from the model's
-   own leaf sizes (26 row, 6 stats, 6 apply per round).
+   own leaf sizes (26 row, 6 stats, 6 apply per round);
+8. transformer main path: quantized FedAvg on the causal transformer LM
+   with flash attention at the widest configuration ``define_model``
+   gives (``rnn_hidden_size`` 128: d_model 256, 4 heads of 64, 4 layers,
+   T 2048, 3,723,862 params, bfloat16), 100 clients x 100 windows of
+   2048 characters with next-token labels made from ``--seed``, k = 10,
+   batch 8, 10 local steps, SGD lr 0.05; 1 warm-up, 2 timed and 1
+   profiled round. The counters must read 400 flash launches (layers x
+   local steps x k) and 16 row launches (its 8 leaf sizes) per round.
 
-Prints a ``{"kernels": [...]}`` line, a ``{"main_path": {...}}`` line,
-a ``{"profile": {...}}`` line, a ``{"wrn_main_path": {...}}`` line, a
-``{"wrn_profile": {...}}`` line and, last, ``{"ok": true, "device":
-{...}}``. Exits non-zero, printing no result, without CUDA.
+Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
+``wrn_main_path``, ``wrn_profile``, ``transformer_main_path`` and
+``transformer_profile`` lines, the card's name and power limit and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+result, without CUDA.
 """
 from __future__ import annotations
 
@@ -69,10 +89,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA's data sheet): device memory, and float32
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA's data sheet): device memory, float32 outside
+# the tensor cores, dense bfloat16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # float32 operations per element of the round trip: min, max and add for
 # the statistics; subtract, divide, add, round, two clips, subtract,
 # multiply and add for the output
@@ -85,6 +106,8 @@ KERNEL_SOURCE = "fedtorch_tpu_torch/csrc/qdq_batch.cu"
 TILED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_tiled.cu"
 NO_LIBRARY = ("no single PyTorch call computes a per-row adaptive "
               "quantize -> dequantize round trip")
+FLASH_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd.cu"
+FLASH_TPU_KERNEL = "fedtorch_tpu/ops/pallas/flash_attention.py:82"
 # timed inputs of the pair rotate over at least this many bytes, twice
 # the 50 MB L2, so that each launch streams from device memory
 COLD_BYTES = 128 * 2 ** 20
@@ -93,6 +116,12 @@ COLD_BYTES = 128 * 2 ** 20
 NUM_CLIENTS, SAMPLES, BATCH, LOCAL_STEPS, ONLINE_RATE = 100, 250, 50, 10, 0.1
 TIMED_ROUNDS = 3
 WRN_TIMED_ROUNDS = 2
+# the transformer path: define_model gives d_model 2 * 128 = 256, 4 heads
+# of 64, 4 layers; 100 windows of 2048 characters per client, batch 8
+LM = dict(rnn_hidden_size=128, mlp_num_layers=4, rnn_seq_len=2048,
+          vocab_size=86)
+LM_WINDOWS, LM_BATCH, LM_TIMED_ROUNDS = 100, 8, 2
+LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
 
 
@@ -100,8 +129,11 @@ def log(*a):
     print(*a, flush=True)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    log(f"== {name}")
+    log(f"== {name} (at {time.perf_counter() - _T0:.1f} s)")
 
 
 def card_line() -> str:
@@ -198,16 +230,18 @@ def launches_per_round(qk, sizes) -> dict:
     per leaf size, on the row kernel up to ``_MAX_ROW_ELEMS`` elements,
     one stats and one apply launch past it."""
     pair = sum(1 for n in sizes if n > qk._MAX_ROW_ELEMS)
-    return dict(row=2 * (len(sizes) - pair), stats=2 * pair, apply=2 * pair)
+    return dict(row=2 * (len(sizes) - pair), stats=2 * pair,
+                apply=2 * pair)
 
 
-def counters(qk) -> dict:
+def counters(qk, fa) -> dict:
     return dict(row=qk.launches, stats=qk.stats_launches,
-                apply=qk.apply_launches)
+                apply=qk.apply_launches, flash=fa.flash_launches)
 
 
-def reset_counters(qk):
+def reset_counters(qk, fa):
     qk.launches = qk.stats_launches = qk.apply_launches = 0
+    fa.flash_launches = 0
 
 
 def kernel_phase(qk, buckets, k_online):
@@ -370,7 +404,7 @@ def tiled_phase(qk, buckets, k_online):
     return stats, apply
 
 
-def single_phase(qk):
+def single_phase(qk, fa):
     """The single-tensor entry vs plain on the card on both sides of
     ``_MAX_ROW_ELEMS``; returns its kernels-line fields."""
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -386,14 +420,14 @@ def single_phase(qk):
                 else:
                     x = torch.randn(n, generator=gen, device="cuda") \
                         * 0.05 + 0.01
-                before = counters(qk)
+                before = counters(qk, fa)
                 got = qk.fused_quantize_dequantize(x, bits)
-                after = counters(qk)
+                after = counters(qk, fa)
                 want = plain(x.view(1, -1), bits)
                 torch.cuda.synchronize()
                 row = n <= qk._MAX_ROW_ELEMS
                 want_delta = dict(row=int(row), stats=int(not row),
-                                  apply=int(not row))
+                                  apply=int(not row), flash=0)
                 if any(after[c] - before[c] != want_delta[c] for c in after):
                     raise AssertionError(f"single-tensor entry at n = {n} "
                                          f"launched {before} -> {after}")
@@ -428,7 +462,161 @@ def single_phase(qk):
                 by_n={str(k): v for k, v in by_n.items()})
 
 
-def _round_card_vs_cpu(os_mod, cfg, qk, seed, runs=("cpu", "cuda")):
+def bf16_steps(got, want) -> float:
+    """Largest excess of |got - want| over the float32 bar (2e-5 abs +
+    2e-5 rel), in bfloat16 spacings at the larger of the two magnitudes:
+    two float32 results within the bar, each rounded once to bfloat16,
+    stay within 1. Equal values (infinities, NaN against NaN) count 0."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).nan_to_num(0.0, 0.0, 0.0)
+    spacing = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                         - 7)
+    excess = ((g - w).abs() - 2e-5 - 2e-5 * w.abs()).clamp_min(0.0)
+    same = (g == w) | (g.isnan() & w.isnan())
+    return float(torch.where(same, 0.0, excess / spacing).max())
+
+
+def close_f32(got, want, what) -> float:
+    """Raise unless ``got`` is within atol = rtol = 2e-5 of ``want`` with
+    the same NaN pattern; returns the largest finite |diff|."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(f"NaN pattern differs at {what}")
+    g = torch.where(got.isnan(), 0.0, got)
+    w = torch.where(want.isnan(), 0.0, want)
+    if not bool(torch.isclose(g, w, rtol=2e-5, atol=2e-5).all()):
+        raise AssertionError(f"flash kernel != plain at {what}: max |diff| "
+                             f"{float((g - w).abs().max())}")
+    d = (g - w).abs()
+    return float(d[d.isfinite()].max()) if bool(d.isfinite().any()) else 0.0
+
+
+def qkv_views(gen, B, T, H, D, dtype, offset=0):
+    """q, k, v as the model makes them: strided [B, T, H, D] chunks of
+    one projection (``offset`` > 0 misaligns them, the scalar loads)."""
+    x = torch.randn(B, T, 3 * H * D + offset, generator=gen,
+                    device="cuda").to(dtype)
+    x = x[..., offset:]
+    return tuple(c.view(B, T, H, D) for c in x.chunk(3, dim=-1))
+
+
+def flash_bound(B, T, H, D, elem, causal=True):
+    """(bound ms, what bounds it): 4 B H D T(T+1)/2 operations (causal;
+    T^2 pairs otherwise) at the bf16 tensor-core peak, q, k, v read and
+    o, lse written once at the memory rate."""
+    pairs = T * (T + 1) / 2 if causal else T * T
+    ops_ms = 4 * B * H * D * pairs / BF16_OPS_PER_S * 1e3
+    bytes_ms = (4 * B * T * H * D * elem + 4 * B * H * T) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The kernel PyTorch's scaled_dot_product_attention launched."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) > 0
+             and not e.key.startswith("Memset")]
+    return "; ".join(n[:100] for n in names) or "not recorded"
+
+
+def flash_phase(fa):
+    """The flash forward kernel vs its plain version on the card (TF32
+    off for the plain version), then timed at the transformer path's
+    shape against the plain version and PyTorch's SDPA; returns the
+    kernels-line fields."""
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = dict(abs=0.0, bf16_steps=0.0)
+    checks = 0
+
+    def check(q, k, v, causal, what):
+        nonlocal checks
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = fa.flash_fwd(q, k, v, scale, causal)
+        ro, rl = fa.flash_fwd_ref(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        what = f"{what} {tuple(q.shape)} {q.dtype} causal={causal}"
+        worst["abs"] = max(worst["abs"], close_f32(lse, rl, what + " lse"))
+        if q.dtype == torch.float32:
+            worst["abs"] = max(worst["abs"], close_f32(o, ro, what))
+        else:
+            if not torch.equal(o.isnan(), ro.isnan()):
+                raise AssertionError(f"NaN pattern differs at {what}")
+            steps = bf16_steps(o, ro)
+            if steps > 1.0:
+                raise AssertionError(f"flash kernel {steps} bf16 steps past "
+                                     f"the float32 bar at {what}")
+            worst["bf16_steps"] = max(worst["bf16_steps"], steps)
+        checks += 1
+
+    B, T, H, D = LM_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            check(*qkv_views(gen, B, T, H, D, dtype), causal, "main path")
+        for t in (1, 50, 257):
+            check(*qkv_views(gen, 2, t, H, D, dtype), True, "ragged T")
+        check(*qkv_views(gen, 2, 257, H, D, dtype), False, "ragged T")
+        for d in (16, 32, 128):
+            check(*qkv_views(gen, 2, 300, H, d, dtype), True, "head dim")
+        check(*qkv_views(gen, 2, 129, H, D, dtype, offset=1), True,
+              "misaligned")
+        q, k, v = qkv_views(gen, 2, 257, H, D, dtype)
+        q[0, 5, 1] = float("nan")
+        k[1, 3, 2] = float("inf")
+        check(q, k, v, True, "NaN q row, +inf k row")
+    log(f"flash kernel vs plain: {checks} cases, max |diff| "
+        f"{worst['abs']:.3e} (float32 o and lse), max "
+        f"{worst['bf16_steps']:.3f} bfloat16 steps past the float32 bar "
+        f"(bfloat16 o)")
+
+    # timing at the main path's shape: bf16, causal, strided qkv views
+    # rotating over at least COLD_BYTES
+    per = 3 * B * T * H * D * 2
+    views = [qkv_views(gen, B, T, H, D, torch.bfloat16)
+             for _ in range(max(1, math.ceil(COLD_BYTES / per)))]
+    scale = 1.0 / math.sqrt(D)
+    ms = device_ms(rotating(lambda q, k, v: fa.flash_fwd(q, k, v, scale,
+                                                         True), views),
+                   inner=10, reps=11)
+    plain_ms = device_ms(rotating(lambda q, k, v: fa.flash_fwd_ref(
+        q, k, v, scale, True), views), inner=3, reps=5)
+    torch.cuda.empty_cache()
+    lib_views = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
+    library_ms = device_ms(rotating(
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+        lib_views), inner=10, reps=11)
+    backend = sdpa_backend(*lib_views[0])
+    lib_o = F.scaled_dot_product_attention(*lib_views[0], is_causal=True)
+    lib_diff = float((lib_o.transpose(1, 2).float()
+                      - fa.flash_fwd(*views[0], scale, True)[0].float())
+                     .abs().max())
+    b = flash_bound(B, T, H, D, 2)
+    log(f"flash kernel at {LM_SHAPE} bf16 causal: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, SDPA {library_ms:.4f} via {backend}; bound "
+        f"{b[0]:.5f} ms by {b[1]}); SDPA vs kernel max |diff| "
+        f"{lib_diff:.3e}")
+    del views, lib_views, lib_o
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst["abs"],
+                max_bf16_steps=worst["bf16_steps"], cases=checks, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                library_ms=library_ms, library_backend=backend,
+                library_note="F.scaled_dot_product_attention(is_causal="
+                             "True) on the same bf16 tensors as [B, H, T, "
+                             "D] views; it returns no logsumexp",
+                library_vs_kernel_max_abs=lib_diff,
+                timed_shape=list(LM_SHAPE))
+
+
+def _round_card_vs_cpu(os_mod, cfg, qk, fa, seed, runs=("cpu", "cuda")):
     """One quantized round, same weights and plan, in each of ``runs``
     (``order_spread.run_round``'s names); returns the updates, the
     card's quantizer launches, the initial params and the card's
@@ -445,16 +633,16 @@ def _round_card_vs_cpu(os_mod, cfg, qk, seed, runs=("cpu", "cuda")):
             setattr(alg, name, recorded)
 
     for run in runs:
-        before = counters(qk)
+        before = counters(qk, fa)
         updates[run], p0 = os_mod.run_round(
             cfg, seed, run, record if run == "cuda" else None)
         if run == "cuda":
-            after = counters(qk)
+            after = counters(qk, fa)
             launched = {c: after[c] - before[c] for c in after}
     return updates, launched, p0, wire
 
 
-def reference_phase(tcfg, define_model, os_mod, qk):
+def reference_phase(tcfg, define_model, os_mod, qk, fa):
     """float32 ResNet-20 logits, a quantized ResNet-8 round and a
     quantized WideResNet-16-4 round, card vs CPU on the same weights and
     plan."""
@@ -478,7 +666,7 @@ def reference_phase(tcfg, define_model, os_mod, qk):
     log(f"ResNet-20 f32 logits, card vs CPU: max |diff| {err:.3e}")
 
     ups, _, _, _ = _round_card_vs_cpu(
-        os_mod, os_mod.small_round_cfg("resnet8"), qk, seed=2)
+        os_mod, os_mod.small_round_cfg("resnet8"), qk, fa, seed=2)
     worst, _ = os_mod.update_gap(ups["cpu"], ups["cuda"])
     if worst > 2.0:
         raise AssertionError(f"quantized round card vs CPU: {worst} steps")
@@ -501,7 +689,7 @@ def reference_phase(tcfg, define_model, os_mod, qk):
     log(f"WideResNet-16-4 f32 logits, card vs CPU: max |diff| {err:.3e}")
 
     ups, launched, p0, wire = _round_card_vs_cpu(
-        os_mod, cfg, qk, seed=4,
+        os_mod, cfg, qk, fa, seed=4,
         runs=("cpu", *os_mod.SPREAD_ORDERS, "cuda"))
     want = launches_per_round(qk, {v.numel() for v in p0.values()})
     if any(launched[c] != want[c] for c in want) or not want["stats"]:
@@ -541,42 +729,135 @@ def reference_phase(tcfg, define_model, os_mod, qk):
     torch.backends.cudnn.allow_tf32 = True
 
 
-def main_path_phase(seed, tcfg, define_model, make_algorithm,
-                    stack_partitions, FederatedTrainer, qk,
-                    arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS):
-    """Quantized FedAvg at the north-star sizes on ``arch`` through the
-    library entry points; returns (numbers, trainer, server, clients)."""
-    kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
+def lm_reference_phase(tcfg, define_model, make_algorithm,
+                       stack_partitions, FederatedTrainer, fa):
+    """A small float32 transformer with flash attention (d_model 64, 4
+    heads of 16, 2 layers, T 256): logits from the same weights and one
+    unquantized FedAvg round from the same state and plan, the card (the
+    kernel) against the CPU (the plain version), TF32 off. GELU and
+    softmax are smooth, so only float32 rounding separates the two: the
+    bars are 1e-4 on the logits and on the update's relative L2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, C, N, B = 256, 4, 8, 4
     cfg = tcfg.ExperimentConfig(
-        data=tcfg.DataConfig(dataset="cifar10", batch_size=BATCH),
+        data=tcfg.DataConfig(dataset="shakespeare", batch_size=B),
         federated=tcfg.FederatedConfig(
-            federated=True, num_clients=NUM_CLIENTS,
-            online_client_rate=ONLINE_RATE, algorithm="fedavg",
-            sync_type="local_step", quantized=True),
-        model=tcfg.ModelConfig(arch=arch, **kw),
-        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
-        train=tcfg.TrainConfig(local_step=LOCAL_STEPS),
-        mesh=tcfg.MeshConfig(compute_dtype="bfloat16")).finalize()
+            federated=True, num_clients=C, online_client_rate=0.5,
+            algorithm="fedavg", sync_type="local_step"),
+        model=tcfg.ModelConfig(arch="transformer", rnn_hidden_size=32,
+                               mlp_num_layers=2, rnn_seq_len=T,
+                               attention="flash"),
+        optim=tcfg.OptimConfig(lr=0.05, weight_decay=0.0),
+        train=tcfg.TrainConfig(local_step=2)).finalize()
+    stream = np.random.RandomState(5).randint(0, 86, C * N * T + 1)
+    x = stream[:-1].reshape(C * N, T).astype(np.int32)
+    y = stream[1:].reshape(C * N, T).astype(np.int32)
+    data = stack_partitions(x, y, [np.arange(i * N, (i + 1) * N)
+                                   for i in range(C)])
+    gpu, cpu = define_model(cfg, device="cuda"), define_model(cfg,
+                                                              device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(6))
+    toks = torch.from_numpy(x[:B])
+    with torch.no_grad():
+        want = cpu.apply(params, toks)
+        before = fa.flash_launches
+        got = gpu.apply({k: v.cuda() for k, v in params.items()},
+                        toks.cuda()).cpu()
+    if fa.flash_launches - before != cfg.model.mlp_num_layers:
+        raise AssertionError("the card's forward did not run the kernel")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"transformer logits card vs CPU: {err}")
+
+    updates, plan = {}, None
+    for dev in ("cpu", "cuda"):
+        tr = FederatedTrainer(cfg, define_model(cfg, B, device=dev),
+                              make_algorithm(cfg), data, device=dev)
+        server, clients = tr.init_state(7)
+        p0 = {k: v.cpu() for k, v in server.params.items()}
+        plan = plan or tr.draw_plan(server)
+        server, _, _ = tr.round_fn(server, clients, plan)
+        updates[dev] = torch.cat([(v.cpu() - p0[k]).reshape(-1)
+                                  for k, v in server.params.items()])
+    rel = float(torch.linalg.vector_norm(updates["cuda"] - updates["cpu"])
+                / torch.linalg.vector_norm(updates["cpu"]))
+    log(f"transformer (d 64, T 256) f32 flash: logits card vs CPU max "
+        f"|diff| {err:.3e}; FedAvg round update card vs CPU relative L2 "
+        f"{rel:.3e}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"transformer round card vs CPU: relative L2 "
+                             f"{rel}")
+    return dict(logits_max_abs_diff=err, round_update_rel_l2=rel)
+
+
+def path_config(tcfg, arch, widen=None):
+    """The quantized FedAvg round of a main path: the north-star round
+    (bench.py) on a CIFAR model, or the transformer path's round."""
+    fed = tcfg.FederatedConfig(
+        federated=True, num_clients=NUM_CLIENTS,
+        online_client_rate=ONLINE_RATE, algorithm="fedavg",
+        sync_type="local_step", quantized=True)
+    train = tcfg.TrainConfig(local_step=LOCAL_STEPS)
+    mesh = tcfg.MeshConfig(compute_dtype="bfloat16")
+    if arch == "transformer":
+        return tcfg.ExperimentConfig(
+            data=tcfg.DataConfig(dataset="shakespeare", batch_size=LM_BATCH),
+            federated=fed,
+            model=tcfg.ModelConfig(arch="transformer", attention="flash",
+                                   **LM),
+            optim=tcfg.OptimConfig(lr=0.05, weight_decay=0.0),
+            train=train, mesh=mesh).finalize()
+    kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
+    return tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset="cifar10", batch_size=BATCH),
+        federated=fed, model=tcfg.ModelConfig(arch=arch, **kw),
+        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True), train=train,
+        mesh=mesh).finalize()
+
+
+def path_data(cfg, seed, stack_partitions):
+    """``NUM_CLIENTS`` clients' data made from ``seed``: CIFAR-10-shaped
+    images and labels, or next-character windows of a random character
+    stream with their next-token labels."""
+    rng = np.random.RandomState(seed)
+    if cfg.model.arch == "transformer":
+        T, per = cfg.model.rnn_seq_len, LM_WINDOWS
+        stream = rng.randint(0, cfg.model.vocab_size,
+                             NUM_CLIENTS * per * T + 1).astype(np.int32)
+        feats = stream[:-1].reshape(-1, T)
+        labels = stream[1:].reshape(-1, T)
+    else:
+        per = SAMPLES
+        feats = rng.randn(NUM_CLIENTS * per, 32, 32, 3).astype(np.float32)
+        labels = rng.randint(0, 10, NUM_CLIENTS * per)
+    parts = [np.arange(i * per, (i + 1) * per) for i in range(NUM_CLIENTS)]
+    return stack_partitions(feats, labels, parts)
+
+
+def main_path_phase(seed, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer, qk, fa,
+                    arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS):
+    """A quantized FedAvg main path on ``arch`` through the library entry
+    points; returns (numbers, trainer, server, clients)."""
+    cfg = path_config(tcfg, arch, widen)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rng = np.random.RandomState(seed)
-    feats = rng.randn(NUM_CLIENTS * SAMPLES, 32, 32, 3).astype(np.float32)
-    labels = rng.randint(0, 10, NUM_CLIENTS * SAMPLES)
-    parts = [np.arange(i * SAMPLES, (i + 1) * SAMPLES)
-             for i in range(NUM_CLIENTS)]
-    data = stack_partitions(feats, labels, parts)
-    del feats
-    model = define_model(cfg, batch_size=BATCH)
+    data = path_data(cfg, seed, stack_partitions)
+    model = define_model(cfg, batch_size=cfg.data.batch_size)
     trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+    del data
     server, clients = trainer.init_state(seed)
     init = {k: v.clone() for k, v in server.params.items()}
     expect = launches_per_round(qk, {v.numel() for v in init.values()})
+    # one forward per attention layer and local step of each online client
+    expect["flash"] = (cfg.model.mlp_num_layers * trainer.local_steps
+                       * trainer.k_online if arch == "transformer" else 0)
     setup_s = time.perf_counter() - t0
     log(f"{arch}: set-up {setup_s:.2f} s (data, model, state; "
         f"{sum(v.numel() for v in init.values()):,} params; "
         f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB on the card)")
 
-    reset_counters(qk)
+    reset_counters(qk, fa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     server, clients, _ = trainer.run_rounds(server, clients, 1)
@@ -591,13 +872,13 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launched = counters(qk)
+    launched = counters(qk, fa)
     total_ms = start.elapsed_time(end)
 
     rounds = 1 + timed_rounds
     want = {c: n * rounds for c, n in expect.items()}
     if launched != want:
-        raise AssertionError(f"{arch}: quantizer launched {launched} in "
+        raise AssertionError(f"{arch}: kernels launched {launched} in "
                              f"{rounds} rounds, expected {want}")
     online = metrics.online_mask.bool()
     losses = metrics.train_loss[online]
@@ -633,8 +914,12 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
 
 def _kind(name: str) -> str:
     n = name.lower()
+    if "flash_fwd" in n:
+        return "flash attention"
     if "qdq_batch" in n or "tiled_stats" in n or "tiled_apply" in n:
         return "quantizer"
+    if "layer_norm" in n:
+        return "layer_norm"
     if "norm" in n or "welford" in n:
         return "batch_norm"
     if any(t in n for t in ("conv", "gemm", "xmma", "cutlass", "cudnn",
@@ -646,16 +931,18 @@ def _kind(name: str) -> str:
 def profile_phase(trainer, server, clients):
     """One more main-path round under torch.profiler: the device's busy
     share of the round and where its time goes. The profiler's own host
-    cost lengthens the round, so the busy share is a lower bound."""
+    cost lengthens the round, so the busy share is a lower bound. Only
+    CUDA activity is traced (kernels and the runtime calls that launch
+    them): operator-level host events would multiply the events, and the
+    time to process them, several times over."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.run_rounds(server, clients, 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, cpu_ops = [], []
+    kernels, runtime = [], []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
@@ -663,9 +950,9 @@ def profile_phase(trainer, server, clients):
         if "CUDA" in str(getattr(e, "device_type", "")) and dev_us > 0:
             kernels.append((dev_us / 1e3, e.key, e.count))
         elif e.self_cpu_time_total > 0:
-            cpu_ops.append((e.self_cpu_time_total / 1e3, e.key, e.count))
+            runtime.append((e.self_cpu_time_total / 1e3, e.key, e.count))
     kernels.sort(reverse=True)
-    cpu_ops.sort(reverse=True)
+    runtime.sort(reverse=True)
     device_ms = sum(k[0] for k in kernels)
     by_kind = {}
     for ms, name, _ in kernels:
@@ -680,8 +967,8 @@ def profile_phase(trainer, server, clients):
                                   if _kind(n) == "quantizer"],
                top_kernels=[dict(name=n[:120], ms=ms, calls=c)
                             for ms, n, c in kernels[:8]],
-               top_cpu_ops=[dict(name=n[:80], self_ms=ms, calls=c)
-                            for ms, n, c in cpu_ops[:8]])
+               top_runtime_calls=[dict(name=n[:80], self_ms=ms, calls=c)
+                                  for ms, n, c in runtime[:8]])
     if kernels:
         log(f"profiled round: {wall_ms:.1f} ms wall, device busy "
             f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
@@ -704,7 +991,9 @@ def main(argv=None) -> int:
     from fedtorch_tpu_torch.algorithms import make_algorithm
     from fedtorch_tpu_torch.data.batching import stack_partitions
     from fedtorch_tpu_torch.models import define_model
-    from fedtorch_tpu_torch.ops.cuda import build, quant_kernel as qk
+    from fedtorch_tpu_torch.ops.cuda import (
+        build, flash_attention as fa, quant_kernel as qk,
+    )
     from fedtorch_tpu_torch.parallel import FederatedTrainer
     from fedtorch_tpu_torch.tools import order_spread
 
@@ -732,15 +1021,18 @@ def main(argv=None) -> int:
     stats_fields, apply_fields = tiled_phase(
         qk, sorted((b, n) for n, b in wrn_sizes.items()
                    if n > qk._MAX_ROW_ELEMS), k_online)
-    single_fields = single_phase(qk)
+    single_fields = single_phase(qk, fa)
+    flash_fields = flash_phase(fa)
 
     phase("reference")
-    reference_phase(tcfg, define_model, order_spread, qk)
+    reference_phase(tcfg, define_model, order_spread, qk, fa)
+    lm_ref = lm_reference_phase(tcfg, define_model, make_algorithm,
+                                stack_partitions, FederatedTrainer, fa)
 
     phase("main path")
     main, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, qk)
+        FederatedTrainer, qk, fa)
     if main["launches_per_round"]["row"] != 26:
         raise AssertionError("expected 26 row launches per ResNet-20 round")
 
@@ -753,7 +1045,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, qk, arch="wideresnet28", widen=10,
+        FederatedTrainer, qk, fa, arch="wideresnet28", widen=10,
         timed_rounds=WRN_TIMED_ROUNDS)
     if not all(wrn["launches"][c] for c in ("row", "stats", "apply")):
         raise AssertionError(f"a kernel of the WideResNet path was not "
@@ -761,12 +1053,27 @@ def main(argv=None) -> int:
     wrn_prof = profile_phase(trainer, server, clients)
     del trainer, server, clients
 
-    by_path = {c: dict(resnet20=main["launches"][c],
-                       wideresnet28_10=wrn["launches"][c])
+    phase("transformer main path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, trainer, server, clients = main_path_phase(
+        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, qk, fa, arch="transformer",
+        timed_rounds=LM_TIMED_ROUNDS)
+    if lm["launches_per_round"]["flash"] != 400 \
+            or lm["launches_per_round"]["row"] != 16:
+        raise AssertionError("expected 400 flash and 16 row launches per "
+                             "transformer round")
+    lm["reference"] = lm_ref
+    lm_prof = profile_phase(trainer, server, clients)
+    del trainer, server, clients
+
+    paths = (("resnet20", main), ("wideresnet28_10", wrn),
+             ("transformer", lm))
+    by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
-    single_by_path = {
-        p: r["launches"]["row"] - r["tree_launches"]["row"]
-        for p, r in (("resnet20", main), ("wideresnet28_10", wrn))}
+    single_by_path = {p: r["launches"]["row"] - r["tree_launches"]["row"]
+                      for p, r in paths}
     kernels = [
         dict(name="qdq_batch_f32", route="cuda", source=KERNEL_SOURCE,
              replaces=TPU_KERNEL, launches=main["launches"]["row"],
@@ -788,12 +1095,19 @@ def main(argv=None) -> int:
              launches=sum(single_by_path.values()),
              launches_by_path=single_by_path, on_main_path=False,
              library_ms=None, library_note=NO_LIBRARY, **single_fields),
+        dict(name="flash_fwd", route="cuda", source=FLASH_SOURCE,
+             replaces=FLASH_TPU_KERNEL, launches=lm["launches"]["flash"],
+             launches_by_path=by_path["flash"],
+             launches_per_round=lm["launches_per_round"]["flash"],
+             **flash_fields),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
+    print(json.dumps({"transformer_main_path": lm, "card": card}))
+    print(json.dumps({"transformer_profile": lm_prof}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,22 @@
 
 The input is the flax params tree flattened to '/'-joined paths with
 numpy leaves (``{'BasicBlock_0/Conv_0/kernel': array, ...}``). The port
-names its modules like flax's auto-names, so a path maps onto a key by
-joining with '.' and renaming the leaf:
+names its modules as the flax modules are named, so a path maps onto a
+key by joining with '.' and renaming the leaf by the kind of the module
+that owns it:
 
-* conv ``kernel`` HWIO -> ``weight`` OIHW
-* ``Dense_0/kernel`` (in, out) -> ``Dense_0.weight`` (out, in), its
-  ``bias`` unchanged
-* ``BatchStatsNorm_*/scale``, ``bias`` -> ``weight``, ``bias``
+* ``Conv``: ``kernel`` HWIO -> ``weight`` OIHW
+* ``Dense``: ``kernel`` (in, out) -> ``weight`` (out, in), ``bias``
+* ``BatchStatsNorm``, ``LayerNorm``: ``scale``, ``bias`` -> ``weight``,
+  ``bias``
+* ``Embed``: ``embedding`` -> ``weight``
+* a param of the model itself (the transformer's ``pos_embed``): itself
+
+With ``module`` (the port's model) the kind is the class of the
+submodule that owns the leaf, so explicitly named layers (the
+transformer's ``qkv``, ``ln1``, ``tok_embed``) map too; without it, the
+kind is read off flax's auto-name (``Conv_0`` -> ``Conv``), which covers
+the ResNet and WideResNet trees.
 
 Both directions raise on any leaf they cannot map, and
 :func:`params_from_jax` raises when the result does not cover the model
@@ -25,51 +34,75 @@ import torch
 FlatParams = Dict[str, np.ndarray]
 
 
-def _to_torch_leaf(path: str, value: np.ndarray):
-    parts = path.split("/")
-    module, leaf = parts[:-1], parts[-1]
-    if not module:
-        raise ValueError(f"unmatched flax leaf {path!r}")
-    kind = module[-1].rsplit("_", 1)[0]
-    if leaf == "kernel" and value.ndim == 4 and kind == "Conv":
-        return ".".join(module + ["weight"]), value.transpose(3, 2, 0, 1)
-    if leaf == "kernel" and value.ndim == 2 and kind == "Dense":
-        return ".".join(module + ["weight"]), value.T
-    if leaf == "bias" and kind in ("Dense", "BatchStatsNorm"):
-        return ".".join(module + ["bias"]), value
-    if leaf == "scale" and kind == "BatchStatsNorm":
-        return ".".join(module + ["weight"]), value
+def _same(v):
+    return v
+
+
+def _t(v):
+    return v.T
+
+
+# kind -> {flax leaf: (torch leaf, flax->torch, torch->flax, ndim)};
+# ndim None takes any rank
+_RULES = {
+    "Conv": {"kernel": ("weight", lambda v: v.transpose(3, 2, 0, 1),
+                        lambda v: v.transpose(2, 3, 1, 0), 4)},
+    "Dense": {"kernel": ("weight", _t, _t, 2),
+              "bias": ("bias", _same, _same, None)},
+    "BatchStatsNorm": {"scale": ("weight", _same, _same, None),
+                       "bias": ("bias", _same, _same, None)},
+    "Embed": {"embedding": ("weight", _same, _same, 2)},
+}
+_RULES["LayerNorm"] = _RULES["BatchStatsNorm"]
+
+
+def _kind(owner: list, module) -> Optional[str]:
+    """The kind of the module at path ``owner``; None for the model
+    itself."""
+    if not owner:
+        return None if module is not None else "unknown"
+    if module is None:
+        return owner[-1].rsplit("_", 1)[0]
+    try:
+        return type(module.get_submodule(".".join(owner))).__name__
+    except AttributeError:
+        return "unknown"
+
+
+def _to_torch_leaf(path: str, value: np.ndarray, module=None):
+    *owner, leaf = path.split("/")
+    kind = _kind(owner, module)
+    if kind is None:
+        return leaf, value
+    rule = _RULES.get(kind, {}).get(leaf)
+    if rule is not None and rule[3] in (None, value.ndim):
+        return ".".join(owner + [rule[0]]), rule[1](value)
     raise ValueError(f"unmatched flax leaf {path!r} with shape "
                      f"{value.shape}")
 
 
-def _to_jax_leaf(key: str, value: np.ndarray):
-    parts = key.split(".")
-    module, leaf = parts[:-1], parts[-1]
-    if not module:
-        raise ValueError(f"unmatched torch leaf {key!r}")
-    kind = module[-1].rsplit("_", 1)[0]
-    if leaf == "weight" and value.ndim == 4 and kind == "Conv":
-        return "/".join(module + ["kernel"]), value.transpose(2, 3, 1, 0)
-    if leaf == "weight" and value.ndim == 2 and kind == "Dense":
-        return "/".join(module + ["kernel"]), value.T
-    if leaf == "bias" and kind in ("Dense", "BatchStatsNorm"):
-        return "/".join(module + ["bias"]), value
-    if leaf == "weight" and kind == "BatchStatsNorm":
-        return "/".join(module + ["scale"]), value
+def _to_jax_leaf(key: str, value: np.ndarray, module=None):
+    *owner, leaf = key.split(".")
+    kind = _kind(owner, module)
+    if kind is None:
+        return leaf, value
+    for flax_leaf, (name, _, back, ndim) in _RULES.get(kind, {}).items():
+        if name == leaf and ndim in (None, value.ndim):
+            return "/".join(owner + [flax_leaf]), back(value)
     raise ValueError(f"unmatched torch leaf {key!r} with shape "
                      f"{tuple(value.shape)}")
 
 
 def params_from_jax(flat: FlatParams,
-                    expect: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    expect: Optional[Dict[str, torch.Tensor]] = None,
+                    module=None) -> Dict[str, torch.Tensor]:
     """Flattened flax params -> the port's params dict (float32 CPU
     tensors). With ``expect`` (the model's params), the keys and shapes
-    must match exactly, in either direction."""
+    must match exactly, in either direction. ``module``: the port's
+    model, whose submodules say how each leaf maps."""
     out = {}
     for path, value in flat.items():
-        key, v = _to_torch_leaf(path, np.asarray(value))
+        key, v = _to_torch_leaf(path, np.asarray(value), module)
         out[key] = torch.from_numpy(np.array(v, np.float32))
     if expect is not None:
         missing = sorted(set(expect) - set(out))
@@ -85,10 +118,13 @@ def params_from_jax(flat: FlatParams,
     return out
 
 
-def params_to_jax(params: Dict[str, torch.Tensor]) -> FlatParams:
-    """The port's params dict -> flattened flax params (numpy)."""
+def params_to_jax(params: Dict[str, torch.Tensor],
+                  module=None) -> FlatParams:
+    """The port's params dict -> flattened flax params (numpy).
+    ``module`` as for :func:`params_from_jax`."""
     out = {}
     for key, value in params.items():
-        path, v = _to_jax_leaf(key, value.detach().float().cpu().numpy())
+        path, v = _to_jax_leaf(key, value.detach().float().cpu().numpy(),
+                               module)
         out[path] = np.ascontiguousarray(v)
     return out

@@ -7,8 +7,12 @@ import torch.nn.functional as F
 
 def per_sample_nll(logits: torch.Tensor,
                    labels: torch.Tensor) -> torch.Tensor:
-    """Per-sample negative log-likelihood, [B]."""
-    return F.cross_entropy(logits, labels.long(), reduction="none")
+    """Per-sample negative log-likelihood, [B]: log-softmax over the
+    last axis, the label's entry; for a sequence model's ``[B, T, V]``
+    logits the time axis is averaged per sample."""
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    return nll.mean(-1) if nll.dim() == 2 else nll
 
 
 def per_sample_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -22,7 +26,8 @@ def per_sample_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over the batch."""
+    """Mean CE over the batch (and the time axis of ``[B, T, V]``
+    logits)."""
     return per_sample_nll(logits, labels).mean()
 
 
@@ -37,6 +42,7 @@ def make_criterion(is_regression: bool):
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Top-1 accuracy in [0, 1] (the first maximal logit wins ties, as
-    ``lax.top_k`` does in the JAX package)."""
+    ``lax.top_k`` does in the JAX package), over all B*T tokens of
+    ``[B, T, V]`` logits."""
     pred = logits.argmax(dim=-1)
     return (pred == labels.to(pred.dtype)).to(torch.float32).mean()

@@ -21,8 +21,9 @@ from fedtorch_tpu_torch.config import OptimConfig
 from fedtorch_tpu_torch.core.state import tree_map, tree_zeros_like
 
 # the port's norm layers are named like the JAX package's flax modules
-# (BatchStatsNorm_N), their affine pair is weight/bias (flax: scale/bias)
-NORM_PREFIX = "BatchStatsNorm_"
+# (BatchStatsNorm_N in the ResNets, ln1/ln2/ln_f in the transformer),
+# their affine pair is weight/bias (flax: scale/bias)
+NORM_PREFIX = ("BatchStatsNorm_", "ln")
 
 
 class SGDState(NamedTuple):
@@ -58,7 +59,7 @@ def _wd_coef(cfg: OptimConfig):
     Every parameter is decayed uniformly by default, norm scale and
     biases included (the reference's sgd.py:96-101). With
     ``cfg.wd_skip_norm_bias`` norm scales (the JAX package's 'scale'
-    leaves, ``BatchStatsNorm_N.weight`` here) and every bias get 0."""
+    leaves, the norms' ``weight`` here) and every bias get 0."""
     wd = cfg.weight_decay
 
     def coef(name: str) -> float:

@@ -20,7 +20,8 @@ import torch
 
 class ClientData(NamedTuple):
     """Per-client padded tensors. ``x: [C, N_max, ...]``, ``y: [C,
-    N_max]``, ``sizes: [C]`` true sample counts."""
+    N_max, ...]`` (``[C, N_max, T]`` next-token labels for a sequence
+    model), ``sizes: [C]`` true sample counts."""
     x: torch.Tensor
     y: torch.Tensor
     sizes: torch.Tensor
@@ -58,7 +59,8 @@ def stack_partitions(features: np.ndarray, labels: np.ndarray,
     y = np.ascontiguousarray(labels[idx_all])
     return ClientData(
         x=torch.from_numpy(x.reshape((C, n_max) + x.shape[1:])),
-        y=torch.from_numpy(y.reshape((C, n_max)).astype(np.int64)),
+        y=torch.from_numpy(
+            y.reshape((C, n_max) + y.shape[1:]).astype(np.int64)),
         sizes=torch.from_numpy(sizes.astype(np.int32)))
 
 

@@ -1,7 +1,8 @@
 """Model registry (port of ``fedtorch_tpu/models/__init__.py``).
 
 The CIFAR-family ``resnet*`` and ``wideresnet*`` (without dropout) with
-``norm='bn'`` and the native conv lowering are ported; every other
+``norm='bn'`` and the native conv lowering, and the causal
+``transformer`` LM (dense MLP blocks) are ported; every other
 architecture and option is refused by name.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 from fedtorch_tpu_torch.config import ExperimentConfig
 from fedtorch_tpu_torch.models.common import ModelDef, image_shape
 from fedtorch_tpu_torch.models.resnet import build_resnet
+from fedtorch_tpu_torch.models.transformer import TransformerLM
 from fedtorch_tpu_torch.models.wideresnet import build_wideresnet
 from fedtorch_tpu_torch.utils import resolve_device
 
@@ -23,9 +25,18 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     unless the caller asks for another)."""
     device = resolve_device(device)
     arch, dataset, m = cfg.model.arch, cfg.data.dataset, cfg.model
+    if cfg.mesh.remat:
+        raise ValueError("remat is not yet ported")
+    if cfg.mesh.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.mesh.compute_dtype!r} is "
+                         "not yet ported")
+    dtype = COMPUTE_DTYPES[cfg.mesh.compute_dtype]
+    if arch == "transformer":
+        return _transformer(m, dtype, batch_size, device)
     if not arch.startswith(("resnet", "wideresnet")):
         raise ValueError(f"arch {arch!r} is not yet ported (the port has "
-                         "the cifar resnet* and wideresnet* families)")
+                         "the cifar resnet* and wideresnet* families and "
+                         "the transformer)")
     if arch.startswith("wideresnet") and m.drop_rate > 0:
         raise ValueError(f"drop_rate {m.drop_rate} (dropout in "
                          "wideresnet blocks) is not yet ported")
@@ -35,12 +46,6 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     if m.conv_impl not in ("conv", "auto"):
         raise ValueError(f"conv_impl {m.conv_impl!r} is not yet ported "
                          "(the port runs the native conv)")
-    if cfg.mesh.remat:
-        raise ValueError("remat is not yet ported")
-    if cfg.mesh.compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype {cfg.mesh.compute_dtype!r} is "
-                         "not yet ported")
-    dtype = COMPUTE_DTYPES[cfg.mesh.compute_dtype]
     if arch.startswith("wideresnet"):
         module = build_wideresnet(arch, dataset, m.wideresnet_widen_factor,
                                   dtype)
@@ -50,6 +55,23 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     sample = torch.zeros((batch_size,) + image_shape(dataset),
                          device=device)
     return ModelDef(arch, module, sample)
+
+
+def _transformer(m, dtype, batch_size: int, device) -> ModelDef:
+    """The JAX package's derivation (models/__init__.py:225-251): d_model
+    = 2 * rnn_hidden_size, the first head count of (4, 2, 1) that divides
+    it, mlp_num_layers blocks, the class's max_len of 2048."""
+    if m.moe_experts > 0:
+        raise ValueError(f"moe_experts {m.moe_experts} (MoE blocks) is not "
+                         "yet ported")
+    d_model = 2 * m.rnn_hidden_size
+    num_heads = next(h for h in (4, 2, 1) if d_model % h == 0)
+    module = TransformerLM(vocab_size=m.vocab_size, d_model=d_model,
+                           num_heads=num_heads, num_layers=m.mlp_num_layers,
+                           dtype=dtype, attention=m.attention).to(device)
+    sample = torch.zeros((batch_size, m.rnn_seq_len), dtype=torch.int64,
+                         device=device)
+    return ModelDef("transformer", module, sample)
 
 
 __all__ = ["ModelDef", "define_model"]

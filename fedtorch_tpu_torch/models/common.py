@@ -83,20 +83,31 @@ class Conv(nn.Module):
 
 
 class Dense(nn.Module):
-    """Affine layer in float32 (the classifier head)."""
+    """Affine layer ``x W^T + b`` computed in ``dtype`` (flax's
+    ``nn.Dense(dtype=...)``: params stay float32, input, weight and bias
+    are cast per call); float32 by default, as the classifier heads run.
+    ``bias=False`` drops the bias."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.empty(cout))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(cout))
+        else:
+            self.register_parameter("bias", None)
+        self.dtype = dtype
 
     def init_params(self, generator: torch.Generator) -> dict:
-        return {"weight": lecun_normal(self.weight.shape,
-                                       self.weight.shape[1], generator),
-                "bias": torch.zeros(self.bias.shape)}
+        out = {"weight": lecun_normal(self.weight.shape,
+                                      self.weight.shape[1], generator)}
+        if self.bias is not None:
+            out["bias"] = torch.zeros(self.bias.shape)
+        return out
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class BatchStatsNorm(nn.Module):
@@ -144,7 +155,7 @@ class ModelDef(NamedTuple):
         for name, mod in self.module.named_modules():
             if hasattr(mod, "init_params"):
                 for pname, t in mod.init_params(generator).items():
-                    out[f"{name}.{pname}"] = t.to(device)
+                    out[f"{name}.{pname}" if name else pname] = t.to(device)
         return {k: out[k] for k, _ in self.module.named_parameters()}
 
     def apply(self, params: dict, x: torch.Tensor):

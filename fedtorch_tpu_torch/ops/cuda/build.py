@@ -1,19 +1,24 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``*.cu`` under ``fedtorch_tpu_torch/csrc`` is compiled by one
-``nvcc`` call into one shared library with a plain C interface, for
-``sm_90a`` (Hopper):
+Every ``*.cu`` under ``fedtorch_tpu_torch/csrc`` is compiled for
+``sm_90a`` (Hopper) to an object of its own, all ``nvcc`` processes
+started together, and the objects are linked by one more ``nvcc`` call
+into one shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         --fmad=false -shared -Xcompiler -fPIC -o lib.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas=-v [per-source flags] -c src.cu -o src.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o lib.so *.o
 
-``--fmad=false`` keeps the quantizer's ``scale*(q - zp) + mean`` rounding
-as written (the kernels' sources say why). The library goes to
+The per-source flags (``SOURCE_FLAGS``, one entry for every source) give
+the quantizer ``--fmad=false``, which keeps its ``scale*(q - zp) + mean``
+rounding as written, and leave the attention kernel free to contract
+its multiply-adds (each source's header says why). The library goes to
 ``fedtorch_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash
-of the sources (``*.cu`` and the ``*.cuh`` they include) and flags, so an
-edited source rebuilds and an unchanged one loads the existing library.
-Nothing here runs at import: the build happens inside the first launch.
-A failed build raises with nvcc's stderr.
+of the sources (``*.cu`` and the ``*.cuh`` they include) and of every
+flag, so an edited source or flag rebuilds and an unchanged one loads
+the existing library. Nothing here runs at import: the build happens
+inside the first launch. A failed compile or link raises with nvcc's
+stderr.
 """
 from __future__ import annotations
 
@@ -30,9 +35,14 @@ from typing import NamedTuple
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas=-v")
+SOURCE_FLAGS = {
+    "qdq_batch.cu": ("--fmad=false",),
+    "qdq_tiled.cu": ("--fmad=false",),
+    "flash_fwd.cu": (),
+}
 
 
 class BuildResult(NamedTuple):
@@ -58,29 +68,55 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(src: Path) -> tuple:
+    if src.name not in SOURCE_FLAGS:
+        raise RuntimeError(f"{src.name} has no entry in SOURCE_FLAGS")
+    return (*COMPILE_FLAGS, *SOURCE_FLAGS[src.name])
+
+
+def _run_all(cmds) -> list:
+    """Run the commands at the same time; their stderr, or raise with the
+    first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    logs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:"
+                               f"\n{' '.join(cmd)}\n{err}")
+    return [err for _, err in logs]
+
+
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` unless a library of the same sources and
     flags is already built."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
+        if src.suffix == ".cu":
+            h.update(" ".join(_flags(src)).encode())
     out = BUILD_DIR / f"libfedtorch_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n"
-                           f"{' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build adopts either
-    return BuildResult(out, seconds, r.stderr)
+    try:
+        logs = _run_all([[nvcc, *_flags(src), "-c", str(src), "-o", str(obj)]
+                         for src, obj in zip(sources, objs)])
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent build adopts either
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return BuildResult(out, time.perf_counter() - t0, "".join(logs))
 
 
 def load_library() -> ctypes.CDLL:
@@ -99,6 +135,10 @@ def load_library() -> ctypes.CDLL:
                 # (x, partials, out, rows, n, chunk, num_bits, stream)
                 "qdq_tiled_apply_f32": [ptr, ptr, ptr, i64, i64, i64, i32,
                                         ptr],
+                # (q, k, v, o, lse, B, T, H, D, q/k/v strides of b, t, h,
+                #  scale, causal, bf16, vec, stream)
+                "flash_fwd": [ptr] * 5 + [i64] * 13
+                + [ctypes.c_float, i32, i32, i32, ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -1,0 +1,240 @@
+"""Flash attention: the Hopper forward kernel, its plain PyTorch version,
+the chunked backward and the public differentiable functions.
+
+Port of ``fedtorch_tpu/ops/pallas/flash_attention.py``. The forward is
+``csrc/flash_fwd.cu`` (``_fwd_kernel``), bound through ``ctypes``
+(``build.py``); its header says what bounds it and how it is built.
+:func:`flash_fwd` launches it on CUDA tensors and counts the launch in
+``flash_launches``; on CPU tensors it runs :func:`flash_fwd_ref`, the
+port of the JAX package's dense oracle ``_fwd_xla``. There is no
+fallback: a CUDA tensor goes to the kernel or raises.
+
+The backward is the JAX package's ``_bwd_chunked``: the probabilities
+are recomputed from the saved logsumexp one ``block_q`` chunk of query
+rows at a time, in float32 torch ops (it is plain XLA in the JAX
+package, with no Pallas kernel), with the ``g_lse`` term when the
+caller consumed the logsumexp. ``block_q`` follows the JAX package's
+``_default_blocks`` and ``_divisor_block``, so the recompute sums in the
+same chunks; the forward kernel's own tiles need not follow them, and
+since it takes any T the JAX package's route of oversized blocks to the
+dense oracle (a VMEM limit) has no counterpart here.
+
+Layouts are the JAX package's: q, k, v and o ``[B, T, H, D]``, the public
+logsumexp ``[B, T, H]``; inside, the logsumexp is ``[B, H, T]`` float32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from fedtorch_tpu_torch.ops.cuda.build import load_library
+
+# kernel launches so far (reset to 0 before the run they should count)
+flash_launches = 0
+
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instantiations
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BH = 65535                # gridDim.y
+
+
+def _default_blocks(T: int):
+    """The JAX package's default (block_q, block_k) for a sequence
+    length (flash_attention.py:368-383)."""
+    return (128, 128) if T <= 2048 else (512, 512)
+
+
+def _divisor_block(T: int, block: int) -> int:
+    """Largest usable block that divides T, at most ``block``; divisors
+    below 16 round up to one block of T (flash_attention.py:348-365)."""
+    if T <= block:
+        return T
+    if T % block == 0:
+        return block
+    d = math.gcd(T, block)
+    return d if d >= 16 else T
+
+
+def _prep(q, k, v, scale: Optional[float], block_q: Optional[int]):
+    """Check ``[B, T, H, D]`` q, k, v; the scale (default
+    ``1/sqrt(D)``) and the backward's query chunk."""
+    if q.dim() != 4:
+        raise ValueError(f"flash attention takes [B, T, H, D] tensors, got "
+                         f"q of shape {tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            "flash attention requires q, k, v of identical shape "
+            f"[B, T, H, D]; got q={tuple(q.shape)}, k={tuple(k.shape)}, "
+            f"v={tuple(v.shape)}. For disjoint K/V partitions, run the "
+            "kernel per equal-size block and merge with the returned "
+            "logsumexp.")
+    T, D = q.shape[1], q.shape[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if block_q is None:
+        block_q = _default_blocks(T)[0]
+    return scale, _divisor_block(T, block_q)
+
+
+# -- the forward: plain version and kernel -----------------------------------
+
+def _scores(q3, k3, scale: float, causal: bool, row0: int = 0):
+    """float32 scores of query rows ``row0..`` against every key, masked
+    to -inf past each row when causal. q3, k3: ``[BH, *, D]``."""
+    s = torch.einsum("bqd,bkd->bqk", q3, k3) * scale
+    if causal:
+        q_pos = torch.arange(row0, row0 + q3.shape[1], device=q3.device)
+        k_pos = torch.arange(k3.shape[1], device=q3.device)
+        s = s.masked_fill(q_pos[:, None] < k_pos[None, :], -math.inf)
+    return s
+
+
+def _to_bh(t: torch.Tensor) -> torch.Tensor:
+    """``[B, T, H, D]`` -> float32 ``[B*H, T, D]``."""
+    B, T, H, D = t.shape
+    return t.to(torch.float32).transpose(1, 2).reshape(B * H, T, D)
+
+
+def flash_fwd_ref(q, k, v, scale: float, causal: bool):
+    """Plain version of the forward (the JAX package's ``_fwd_xla``):
+    ``(o [B, T, H, D] in q's dtype, lse [B, H, T] float32)``."""
+    B, T, H, D = q.shape
+    s = _scores(_to_bh(q), _to_bh(k), scale, causal)
+    m = s.amax(dim=-1, keepdim=True)          # keeps NaN, as jnp.max
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m_safe)
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # keeps NaN
+    o = torch.einsum("bqk,bkd->bqd", p / l_safe, _to_bh(v))
+    lse = (m_safe + torch.log(l_safe))[..., 0]
+    o = o.reshape(B, H, T, D).transpose(1, 2).to(q.dtype)
+    return o, lse.reshape(B, H, T)
+
+
+def _check_kernel_inputs(q, k, v) -> None:
+    B, T, H, D = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd runs on cuda or cpu, got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_fwd takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_fwd needs one dtype, got q {q.dtype}, k "
+                         f"{k.dtype}, v {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_fwd needs q, k, v on one device")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd has head dims {HEAD_DIMS}, got D = {D}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_fwd needs a last-dim stride of 1")
+    if T < 1 or not 1 <= B * H <= _MAX_BH:
+        raise ValueError(f"flash_fwd needs T >= 1 and 1 <= B*H <= "
+                         f"{_MAX_BH}, got shape {tuple(q.shape)}")
+
+
+def flash_fwd(q, k, v, scale: float, causal: bool):
+    """The forward on ``[B, T, H, D]`` q, k, v (any strides with a
+    last-dim stride of 1): ``(o [B, T, H, D], lse [B, H, T] float32)``.
+    The kernel on CUDA tensors, which raises on a head dim, dtype or
+    layout it does not take; the plain version on CPU tensors."""
+    global flash_launches
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, scale, causal)
+    _check_kernel_inputs(q, k, v)
+    B, T, H, D = q.shape
+    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    # 4 elements per load where every pointer and stride allows it
+    align = 4 * q.element_size()
+    vec = all(t.data_ptr() % align == 0
+              and all(st % 4 == 0 for st in t.stride()[:3])
+              for t in (q, k, v))
+    with torch.cuda.device(q.device):
+        err = load_library().flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, T, H, D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], scale, int(causal), _DTYPES[q.dtype], int(vec),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+    flash_launches += 1
+    return o, lse
+
+
+# -- the backward ------------------------------------------------------------
+
+def _bwd_chunked(q, k, v, o, lse, g, g_lse, scale: float, causal: bool,
+                 block_q: int):
+    """The JAX package's ``_bwd_chunked``: q, k, v, o, g ``[B, T, H,
+    D]``, lse and g_lse (or None) ``[B, H, T]``; returns dq, dk, dv in
+    the inputs' dtypes. float32 inside; live memory O(T * block_q)."""
+    B, T, H, D = q.shape
+    q3, k3, v3, o3, g3 = (_to_bh(t) for t in (q, k, v, o, g))
+    lse3 = lse.reshape(B * H, T)
+    gl3 = None if g_lse is None else g_lse.to(torch.float32).reshape(B * H,
+                                                                      T)
+    delta = (g3 * o3).sum(dim=-1)                # rowsum(do * o), [BH, T]
+    dq = torch.empty_like(q3)
+    dk, dv = torch.zeros_like(k3), torch.zeros_like(v3)
+    for r0 in range(0, T, block_q):
+        rows = slice(r0, r0 + block_q)
+        q_i, g_i = q3[:, rows], g3[:, rows]
+        s = _scores(q_i, k3, scale, causal, r0)  # [BH, bq, T]
+        p = torch.exp(s - lse3[:, rows, None])
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        dv += torch.einsum("bqk,bqd->bkd", p, g_i)
+        dp = torch.einsum("bqd,bkd->bqk", g_i, v3)
+        dp = dp - delta[:, rows, None]
+        if gl3 is not None:
+            dp = dp + gl3[:, rows, None]
+        ds = p * dp * scale
+        dq[:, rows] = torch.einsum("bqk,bkd->bqd", ds, k3)
+        dk += torch.einsum("bqk,bqd->bkd", ds, q_i)
+
+    def back(t, like):
+        return t.reshape(B, H, T, D).transpose(1, 2).to(like.dtype)
+
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+class _Flash(torch.autograd.Function):
+    """The forward through :func:`flash_fwd`, the backward through
+    :func:`_bwd_chunked`; outputs ``(o, lse [B, H, T])``, both
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, block_q):
+        o, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, causal, block_q)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g_o is None:
+            g_o = torch.zeros_like(o)
+        dq, dk, dv = _bwd_chunked(q, k, v, o, lse, g_o, g_lse, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False,
+                             scale: Optional[float] = None,
+                             block_q: Optional[int] = None):
+    """Exact attention, ``[B, T, H, D]`` in and out, and its logsumexp
+    ``[B, T, H]`` float32 — the statistic that merges attention over
+    disjoint K/V blocks. Differentiable in both outputs. ``block_q`` is
+    the backward's query chunk (default: the JAX package's)."""
+    scale, block_q = _prep(q, k, v, scale, block_q)
+    o, lse = _Flash.apply(q, k, v, scale, causal, block_q)
+    return o, lse.transpose(1, 2)
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None,
+                    block_q: Optional[int] = None):
+    """Exact attention, ``[B, T, H, D]`` in and out, differentiable; the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    return flash_attention_with_lse(q, k, v, causal, scale, block_q)[0]

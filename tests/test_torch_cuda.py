@@ -1,5 +1,5 @@
-"""The port on a CUDA device: kernel against its plain version, and a
-small round on the card against the same round on the CPU.
+"""The port on a CUDA device: each kernel against its plain version, and
+small rounds on the card against the same rounds on the CPU.
 
 Imports neither JAX nor the JAX package, so it also runs where only
 PyTorch is installed; there the repo's conftest (which imports JAX) is
@@ -17,6 +17,7 @@ from fedtorch_tpu_torch import config as tcfg
 from fedtorch_tpu_torch.algorithms import make_algorithm
 from fedtorch_tpu_torch.data.batching import stack_partitions
 from fedtorch_tpu_torch.models import define_model
+from fedtorch_tpu_torch.ops.cuda import flash_attention as fa
 from fedtorch_tpu_torch.ops.cuda import quant_kernel as qk
 from fedtorch_tpu_torch.parallel import FederatedTrainer
 
@@ -144,3 +145,84 @@ def test_quantized_round_on_the_card_matches_the_cpu(cuda):
     for k, u in out["cpu"].items():
         step = float(u.max() - u.min()) / 255.0
         assert float((out["cuda"][k] - u).abs().max()) <= 2 * step + 1e-7
+
+
+def _bf16_spacing(x):
+    """bfloat16's spacing at |x| (8 significant bits)."""
+    mag = x.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype, causal, T, D, offset", [
+    (torch.float32, True, 257, 64, 0), (torch.float32, False, 50, 32, 0),
+    (torch.bfloat16, True, 300, 64, 0), (torch.float32, True, 1, 16, 0),
+    (torch.bfloat16, False, 129, 128, 0), (torch.float32, True, 129, 64, 1),
+])
+def test_flash_kernel_matches_plain_version(cuda, dtype, causal, T, D,
+                                            offset):
+    """On strided q, k, v chunks of one projection (``offset`` 1:
+    misaligned, the scalar loads); float32 within 2e-5, bfloat16 o
+    within that plus one bfloat16 spacing. TF32 off for the plain
+    version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(T + D)
+    x = torch.from_numpy(rng.randn(2, T, 3 * 4 * D + offset).astype(
+        np.float32)).to(cuda, dtype)[..., offset:]
+    q, k, v = (c.view(2, T, 4, D) for c in x.chunk(3, dim=-1))
+    before = fa.flash_launches
+    o, lse = fa.flash_fwd(q, k, v, D ** -0.5, causal)
+    assert fa.flash_launches == before + 1
+    ro, rl = fa.flash_fwd_ref(q, k, v, D ** -0.5, causal)
+    assert o.dtype == dtype and lse.shape == (2, 4, T)
+    torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    else:
+        # the two float32 results within 2e-5, then each rounded once
+        got, want = o.float(), ro.float()
+        slack = _bf16_spacing(torch.maximum(got.abs(), want.abs())) \
+            + 2e-5 + 2e-5 * want.abs()
+        diff = (got - want).abs()
+        assert bool((diff <= slack).all()), float((diff - slack).max())
+
+
+def test_flash_kernel_follows_the_nonfinite_rules(cuda):
+    """A q row of NaN attends to nothing (o = 0, lse = log 1e-30); a k
+    row of +inf scores NaN and is skipped, as in the plain version."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(2, 257, 4, 64).astype(
+        np.float32)).to(cuda) for _ in range(3))
+    q[0, 5, 1] = float("nan")
+    k[1, 3, 2] = float("inf")
+    o, lse = fa.flash_fwd(q, k, v, 0.125, True)
+    ro, rl = fa.flash_fwd_ref(q, k, v, 0.125, True)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
+    assert float(o[0, 5, 1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("D, dtype", [(24, torch.float32),
+                                      (64, torch.float16)])
+def test_flash_kernel_refuses_by_name(cuda, D, dtype):
+    q = torch.zeros(1, 8, 2, D, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="head dims|float32 or bfloat16"):
+        fa.flash_fwd(q, q, q, 1.0, True)
+
+
+def test_flash_attention_gradients_on_the_card_match_the_cpu(cuda):
+    """The kernel forward with the torch-op backward against the plain
+    forward with the same backward on the CPU, through a loss that
+    consumes the logsumexp."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    arrays = [rng.randn(2, 200, 4, 32).astype(np.float32) for _ in range(4)]
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                   for a in arrays[:3])
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        w = torch.from_numpy(arrays[3]).to(dev)
+        ((o * w).sum() + lse.square().sum()).backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-5)

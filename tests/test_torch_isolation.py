@@ -132,6 +132,8 @@ def test_unported_trainer_features_raise_by_name(override, name):
     (dict(model__conv_impl="matmul"), "matmul"),
     (dict(mesh__remat=True), "remat"),
     (dict(data__dataset="mnist"), "mnist"),
+    (dict(model__arch="transformer", model__moe_experts=2), "moe_experts"),
+    (dict(model__arch="transformer", mesh__remat=True), "remat"),
 ])
 def test_unported_models_raise_by_name(override, name):
     with pytest.raises(ValueError, match=f"{name}.*not yet ported"):

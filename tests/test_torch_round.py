@@ -98,29 +98,36 @@ def _plans(jtr, js, num_rounds):
     for r in range(num_rounds):
         rng_sample, rng_train = jax.random.split(
             jax.random.fold_in(key, r))
-        idx = participation_indices(rng_sample, C, k, jnp.int32(r))
+        idx = participation_indices(rng_sample, jtr.num_clients, k,
+                                    jnp.int32(r))
         rngs = jax.random.split(rng_train, k)
         rows = jax.vmap(lambda rc, s: j_round_row_plan(
-            rc, s, n_max, jtr.local_steps * B))(
+            rc, s, n_max, jtr.local_steps * jtr.batch_size))(
                 rngs, jnp.take(jtr.data.sizes, idx))
         plans.append(RoundPlan(torch.from_numpy(np.array(idx)).long(),
                                torch.from_numpy(np.array(rows)).long()))
     return plans
 
 
-def _copy_state(js, jcl, ts, tcl):
-    """The JAX package's server and client state, into the port's."""
-    params = params_from_jax(_flat(js.params), expect=ts.params)
+def _copy_state(js, jcl, ts, tcl, module=None):
+    """The JAX package's server and client state, into the port's
+    (``module``: the port's model, for the bridge)."""
+    params = params_from_jax(_flat(js.params), expect=ts.params,
+                             module=module)
+    n_clients = tcl.epoch.shape[0]
     for name, tree in (("params", jcl.params),
                        ("in_buf", jcl.opt.in_buf)):
         flat = _flat(tree)
         dst = tcl.params if name == "params" else tcl.opt.in_buf
-        for c in range(C):
-            row = params_from_jax({k: v[c] for k, v in flat.items()})
+        for c in range(n_clients):
+            row = params_from_jax({k: v[c] for k, v in flat.items()},
+                                  module=module)
             for n, v in row.items():
                 dst[n][c] = v
-    tcl.epoch[:] = torch.from_numpy(np.array(jcl.epoch))
-    tcl.local_index[:] = torch.from_numpy(np.array(jcl.local_index))
+    # the JAX package may pad its client axis to the device count
+    tcl.epoch[:] = torch.from_numpy(np.array(jcl.epoch)[:n_clients])
+    tcl.local_index[:] = torch.from_numpy(
+        np.array(jcl.local_index)[:n_clients])
     return ts._replace(params=params)
 
 
@@ -128,17 +135,19 @@ def _run(jtr, js, jcl, ttr, ts, tcl, num_rounds, resync=False):
     """Per round: (jax params, port params, jax losses, port losses),
     params as flat numpy dicts; index 0 is the starting point. With
     ``resync`` each round after the first starts from the JAX state."""
-    out = [(_flat(js.params), params_to_jax(ts.params), None, None)]
+    module = ttr.model.module
+    out = [(_flat(js.params), params_to_jax(ts.params, module), None,
+            None)]
     for r, plan in enumerate(_plans(jtr, js, num_rounds)):
         if resync and r:
-            ts = _copy_state(js, jcl, ts, tcl)
-            out[-1] = out[-1][:1] + (params_to_jax(ts.params),) \
+            ts = _copy_state(js, jcl, ts, tcl, module)
+            out[-1] = out[-1][:1] + (params_to_jax(ts.params, module),) \
                 + out[-1][2:]
         js, jcl, jm = jtr.run_round(js, jcl)
         ts, tcl, tm = ttr.round_fn(ts, tcl, plan)
         np.testing.assert_array_equal(tm.online_mask.numpy(),
                                       np.asarray(jm.online_mask))
-        out.append((_flat(js.params), params_to_jax(ts.params),
+        out.append((_flat(js.params), params_to_jax(ts.params, module),
                     np.array(jm.train_loss), tm.train_loss.numpy()))
     return out
 
