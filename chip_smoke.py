@@ -26,13 +26,18 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    - the single-tensor entry at n = 1, 4,097, 272,474, 524,288 (the row
      kernel on one row) and 524,289 (the pair);
    - the flash attention forward against its plain version (TF32 off)
-     on strided q, k, v views of one projection, bfloat16 and float32:
-     the transformer path's shape (B 8, T 2048, H 4, D 64) causal and
-     not, T in {1, 50, 257}, D in {16, 32, 128}, misaligned views, a NaN
-     q row with a +inf k row. float32 o and lse within atol = rtol =
-     2e-5, bfloat16 o within one bfloat16 spacing past that bar. Timed
-     at the path's shape (inputs rotating over at least 128 MB) against
-     its plain version and ``F.scaled_dot_product_attention``;
+     on strided q, k, v views of one projection, bfloat16 and float32,
+     each case through the kernel ``_route`` picks (the tensor-core
+     kernel for aligned bfloat16 at head dim 64, the SIMT kernel
+     otherwise) and checked to have taken it: the transformer path's
+     shape (B 8, T 2048, H 4, D 64) causal and not, T in {1, 50, 257},
+     D in {16, 32, 128}, misaligned views, a NaN q row with a +inf k
+     row, and the tensor-core cases bfloat16 D 64 at T in {1, 63, 65,
+     300, 2048}, causal and not. lse and float32 o within atol = rtol =
+     2e-5, bfloat16 o within one bfloat16 spacing past that bar, the
+     NaN pattern identical. Both kernels timed at the path's shape
+     (bfloat16, inputs rotating over at least 128 MB) against the plain
+     version and ``F.scaled_dot_product_attention``;
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
    through the pair) on the card against the same on the CPU (TF32
@@ -43,7 +48,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    (``fedtorch_tpu_torch/tools/order_spread.py`` says why). Then a
    float32 transformer (d_model 64, 4 heads of 16, 2 layers, T 256,
    flash): logits and one FedAvg round, the card (the kernel) against
-   the CPU (the plain version), each within 1e-4;
+   the CPU (the plain version), each within 1e-4; float32, so the card
+   must take the SIMT kernel;
 5. main path: the north-star round at full width through the library
    entry points (``define_model`` -> ``make_algorithm`` ->
    ``FederatedTrainer`` -> ``init_state`` -> ``run_rounds``): quantized
@@ -66,7 +72,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    2048 characters with next-token labels made from ``--seed``, k = 10,
    batch 8, 10 local steps, SGD lr 0.05; 1 warm-up, 2 timed and 1
    profiled round. The counters must read 400 flash launches (layers x
-   local steps x k) and 16 row launches (its 8 leaf sizes) per round.
+   local steps x k), all on the tensor-core kernel, and 16 row launches
+   (its 8 leaf sizes) per round.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path`` and
@@ -107,6 +114,7 @@ TILED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_tiled.cu"
 NO_LIBRARY = ("no single PyTorch call computes a per-row adaptive "
               "quantize -> dequantize round trip")
 FLASH_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd.cu"
+FLASH_TC_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd_sm90.cu"
 FLASH_TPU_KERNEL = "fedtorch_tpu/ops/pallas/flash_attention.py:82"
 # timed inputs of the pair rotate over at least this many bytes, twice
 # the 50 MB L2, so that each launch streams from device memory
@@ -236,12 +244,13 @@ def launches_per_round(qk, sizes) -> dict:
 
 def counters(qk, fa) -> dict:
     return dict(row=qk.launches, stats=qk.stats_launches,
-                apply=qk.apply_launches, flash=fa.flash_launches)
+                apply=qk.apply_launches, flash=fa.flash_launches,
+                flash_tc=fa.flash_tc_launches)
 
 
 def reset_counters(qk, fa):
     qk.launches = qk.stats_launches = qk.apply_launches = 0
-    fa.flash_launches = 0
+    fa.flash_launches = fa.flash_tc_launches = 0
 
 
 def kernel_phase(qk, buckets, k_online):
@@ -427,7 +436,7 @@ def single_phase(qk, fa):
                 torch.cuda.synchronize()
                 row = n <= qk._MAX_ROW_ELEMS
                 want_delta = dict(row=int(row), stats=int(not row),
-                                  apply=int(not row), flash=0)
+                                  apply=int(not row), flash=0, flash_tc=0)
                 if any(after[c] - before[c] != want_delta[c] for c in after):
                     raise AssertionError(f"single-tensor entry at n = {n} "
                                          f"launched {before} -> {after}")
@@ -526,35 +535,43 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def flash_phase(fa):
-    """The flash forward kernel vs its plain version on the card (TF32
-    off for the plain version), then timed at the transformer path's
-    shape against the plain version and PyTorch's SDPA; returns the
-    kernels-line fields."""
+    """Both flash forward kernels vs the plain version on the card (TF32
+    off for the plain version), each case through the route ``_route``
+    picks; then both timed at the transformer path's shape against the
+    plain version and PyTorch's SDPA. Returns the kernels-line fields of
+    the tensor-core and of the SIMT kernel."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = dict(abs=0.0, bf16_steps=0.0)
-    checks = 0
+    worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0)
+             for r in ("tc", "simt")}
 
     def check(q, k, v, causal, what):
-        nonlocal checks
         scale = 1.0 / math.sqrt(q.shape[-1])
+        route = fa._route(q, k, v)
+        before = (fa.flash_launches, fa.flash_tc_launches)
         o, lse = fa.flash_fwd(q, k, v, scale, causal)
+        launched = (fa.flash_launches - before[0],
+                    fa.flash_tc_launches - before[1])
         ro, rl = fa.flash_fwd_ref(q, k, v, scale, causal)
         torch.cuda.synchronize()
         what = f"{what} {tuple(q.shape)} {q.dtype} causal={causal}"
-        worst["abs"] = max(worst["abs"], close_f32(lse, rl, what + " lse"))
+        if launched != (1, int(route == "tc")):
+            raise AssertionError(f"{what}: route {route} but launches "
+                                 f"{launched}")
+        w = worst[route]
+        w["abs"] = max(w["abs"], close_f32(lse, rl, what + " lse"))
         if q.dtype == torch.float32:
-            worst["abs"] = max(worst["abs"], close_f32(o, ro, what))
+            w["abs"] = max(w["abs"], close_f32(o, ro, what))
         else:
             if not torch.equal(o.isnan(), ro.isnan()):
                 raise AssertionError(f"NaN pattern differs at {what}")
             steps = bf16_steps(o, ro)
             if steps > 1.0:
-                raise AssertionError(f"flash kernel {steps} bf16 steps past "
-                                     f"the float32 bar at {what}")
-            worst["bf16_steps"] = max(worst["bf16_steps"], steps)
-        checks += 1
+                raise AssertionError(f"flash kernel ({route}) {steps} bf16 "
+                                     f"steps past the float32 bar at {what}")
+            w["bf16_steps"] = max(w["bf16_steps"], steps)
+        w["cases"] += 1
 
     B, T, H, D = LM_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
@@ -571,20 +588,30 @@ def flash_phase(fa):
         q[0, 5, 1] = float("nan")
         k[1, 3, 2] = float("inf")
         check(q, k, v, True, "NaN q row, +inf k row")
-    log(f"flash kernel vs plain: {checks} cases, max |diff| "
-        f"{worst['abs']:.3e} (float32 o and lse), max "
-        f"{worst['bf16_steps']:.3f} bfloat16 steps past the float32 bar "
-        f"(bfloat16 o)")
+    for t in (1, 63, 65, 300, 2048):
+        for causal in (True, False):
+            check(*qkv_views(gen, 2, t, H, D, torch.bfloat16), causal,
+                  "tensor-core T")
+    for r, w in worst.items():
+        log(f"flash kernel ({r}) vs plain: {w['cases']} cases, max |diff| "
+            f"{w['abs']:.3e} (lse, float32 o), max {w['bf16_steps']:.3f} "
+            f"bfloat16 steps past the float32 bar (bfloat16 o)")
 
     # timing at the main path's shape: bf16, causal, strided qkv views
-    # rotating over at least COLD_BYTES
+    # rotating over at least COLD_BYTES; the SIMT kernel on the same
+    # views through its launcher (the route would pick the tensor cores)
     per = 3 * B * T * H * D * 2
     views = [qkv_views(gen, B, T, H, D, torch.bfloat16)
              for _ in range(max(1, math.ceil(COLD_BYTES / per)))]
+    if any(fa._route(*qkv) != "tc" for qkv in views):
+        raise AssertionError("the main path's views do not take the "
+                             "tensor-core route")
     scale = 1.0 / math.sqrt(D)
-    ms = device_ms(rotating(lambda q, k, v: fa.flash_fwd(q, k, v, scale,
-                                                         True), views),
-                   inner=10, reps=11)
+    ms = {}
+    for key, fn in (("tc", fa.flash_fwd), ("simt", fa._launch_simt)):
+        ms[key] = device_ms(rotating(
+            lambda q, k, v, fn=fn: fn(q, k, v, scale, True), views),
+            inner=10, reps=11)
     plain_ms = device_ms(rotating(lambda q, k, v: fa.flash_fwd_ref(
         q, k, v, scale, True), views), inner=3, reps=5)
     torch.cuda.empty_cache()
@@ -599,21 +626,29 @@ def flash_phase(fa):
                       - fa.flash_fwd(*views[0], scale, True)[0].float())
                      .abs().max())
     b = flash_bound(B, T, H, D, 2)
-    log(f"flash kernel at {LM_SHAPE} bf16 causal: {ms:.4f} ms (plain "
-        f"{plain_ms:.4f}, SDPA {library_ms:.4f} via {backend}; bound "
-        f"{b[0]:.5f} ms by {b[1]}); SDPA vs kernel max |diff| "
+    log(f"flash kernels at {LM_SHAPE} bf16 causal: tensor cores "
+        f"{ms['tc']:.4f} ms ({ms['tc'] / library_ms:.2f}x SDPA, "
+        f"{ms['tc'] / b[0]:.1f}x the bound), SIMT {ms['simt']:.4f} ms, "
+        f"plain {plain_ms:.4f}, SDPA {library_ms:.4f} via {backend}; bound "
+        f"{b[0]:.5f} ms by {b[1]}; SDPA vs tensor-core kernel max |diff| "
         f"{lib_diff:.3e}")
     del views, lib_views, lib_o
     torch.cuda.empty_cache()
-    return dict(max_abs_err=worst["abs"],
-                max_bf16_steps=worst["bf16_steps"], cases=checks, ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                library_ms=library_ms, library_backend=backend,
-                library_note="F.scaled_dot_product_attention(is_causal="
-                             "True) on the same bf16 tensors as [B, H, T, "
-                             "D] views; it returns no logsumexp",
-                library_vs_kernel_max_abs=lib_diff,
-                timed_shape=list(LM_SHAPE))
+    common = dict(plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                  library_ms=library_ms, library_backend=backend,
+                  library_note="F.scaled_dot_product_attention(is_causal="
+                               "True) on the same bf16 tensors as [B, H, T, "
+                               "D] views; it returns no logsumexp",
+                  timed_shape=list(LM_SHAPE))
+    out = {}
+    for r in ("tc", "simt"):
+        out[r] = dict(max_abs_err=worst[r]["abs"],
+                      max_bf16_steps=worst[r]["bf16_steps"],
+                      cases=worst[r]["cases"], ms=ms[r],
+                      vs_library=ms[r] / library_ms, vs_bound=ms[r] / b[0],
+                      **common)
+    out["tc"]["library_vs_kernel_max_abs"] = lib_diff
+    return out["tc"], out["simt"]
 
 
 def _round_card_vs_cpu(os_mod, cfg, qk, fa, seed, runs=("cpu", "cuda")):
@@ -760,11 +795,13 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
     toks = torch.from_numpy(x[:B])
     with torch.no_grad():
         want = cpu.apply(params, toks)
-        before = fa.flash_launches
+        before = (fa.flash_launches, fa.flash_tc_launches)
         got = gpu.apply({k: v.cuda() for k, v in params.items()},
                         toks.cuda()).cpu()
-    if fa.flash_launches - before != cfg.model.mlp_num_layers:
-        raise AssertionError("the card's forward did not run the kernel")
+    if (fa.flash_launches - before[0], fa.flash_tc_launches - before[1]) \
+            != (cfg.model.mlp_num_layers, 0):
+        raise AssertionError("the card's float32 forward did not run the "
+                             "SIMT kernel once per layer")
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"transformer logits card vs CPU: {err}")
@@ -850,8 +887,10 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     init = {k: v.clone() for k, v in server.params.items()}
     expect = launches_per_round(qk, {v.numel() for v in init.values()})
     # one forward per attention layer and local step of each online client
+    # (bfloat16 at head dim 64: all on the tensor-core kernel)
     expect["flash"] = (cfg.model.mlp_num_layers * trainer.local_steps
                        * trainer.k_online if arch == "transformer" else 0)
+    expect["flash_tc"] = expect["flash"]
     setup_s = time.perf_counter() - t0
     log(f"{arch}: set-up {setup_s:.2f} s (data, model, state; "
         f"{sum(v.numel() for v in init.values()):,} params; "
@@ -1022,7 +1061,7 @@ def main(argv=None) -> int:
         qk, sorted((b, n) for n, b in wrn_sizes.items()
                    if n > qk._MAX_ROW_ELEMS), k_online)
     single_fields = single_phase(qk, fa)
-    flash_fields = flash_phase(fa)
+    flash_tc_fields, flash_simt_fields = flash_phase(fa)
 
     phase("reference")
     reference_phase(tcfg, define_model, order_spread, qk, fa)
@@ -1061,9 +1100,10 @@ def main(argv=None) -> int:
         FederatedTrainer, qk, fa, arch="transformer",
         timed_rounds=LM_TIMED_ROUNDS)
     if lm["launches_per_round"]["flash"] != 400 \
+            or lm["launches_per_round"]["flash_tc"] != 400 \
             or lm["launches_per_round"]["row"] != 16:
-        raise AssertionError("expected 400 flash and 16 row launches per "
-                             "transformer round")
+        raise AssertionError("expected 400 tensor-core flash, 0 SIMT flash "
+                             "and 16 row launches per transformer round")
     lm["reference"] = lm_ref
     lm_prof = profile_phase(trainer, server, clients)
     del trainer, server, clients
@@ -1074,6 +1114,8 @@ def main(argv=None) -> int:
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["row"] - r["tree_launches"]["row"]
                       for p, r in paths}
+    simt_by_path = {p: r["launches"]["flash"] - r["launches"]["flash_tc"]
+                    for p, r in paths}
     kernels = [
         dict(name="qdq_batch_f32", route="cuda", source=KERNEL_SOURCE,
              replaces=TPU_KERNEL, launches=main["launches"]["row"],
@@ -1095,11 +1137,19 @@ def main(argv=None) -> int:
              launches=sum(single_by_path.values()),
              launches_by_path=single_by_path, on_main_path=False,
              library_ms=None, library_note=NO_LIBRARY, **single_fields),
-        dict(name="flash_fwd", route="cuda", source=FLASH_SOURCE,
-             replaces=FLASH_TPU_KERNEL, launches=lm["launches"]["flash"],
-             launches_by_path=by_path["flash"],
-             launches_per_round=lm["launches_per_round"]["flash"],
-             **flash_fields),
+        dict(name="flash_fwd_tc", route="cuda", source=FLASH_TC_SOURCE,
+             replaces=FLASH_TPU_KERNEL, launches=lm["launches"]["flash_tc"],
+             launches_by_path=by_path["flash_tc"],
+             launches_per_round=lm["launches_per_round"]["flash_tc"],
+             **flash_tc_fields),
+        # the SIMT kernel takes float32, other head dims and misaligned
+        # views; the main paths give it none (the reference phase does)
+        dict(name="flash_fwd (SIMT)", route="cuda", source=FLASH_SOURCE,
+             replaces=FLASH_TPU_KERNEL, launches=simt_by_path["transformer"],
+             launches_by_path=simt_by_path, on_main_path=False,
+             launches_per_round=lm["launches_per_round"]["flash"]
+             - lm["launches_per_round"]["flash_tc"],
+             **flash_simt_fields),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))

@@ -1,0 +1,459 @@
+// Exact attention forward with the online softmax on Hopper's tensor cores
+// (sm_90a): bfloat16 q, k, v with head dim 64.
+//
+// Replaces the TPU Pallas kernel `_fwd_kernel`
+// (fedtorch_tpu/ops/pallas/flash_attention.py:82), for the inputs that
+// `ops/cuda/flash_attention.py::_route` sends here; `flash_fwd.cu` takes
+// the rest (float32, other head dims, misaligned views). It computes what
+// that kernel and its oracle `_fwd_xla` compute: for each (batch, head)
+// and query row i, over the keys j it sees (j <= i when causal),
+//
+//   s_j = (q_i . k_j) * scale          in float32
+//   o_i = sum_j exp(s_j - lse_i) v_j,  lse_i = log sum_j exp(s_j)
+//
+// with o in bfloat16 and lse in float32 [B, H, T].
+//
+// What bounds it: operations. At the transformer path's shape (B 8, T
+// 2048, H 4, D 64, causal) the useful work is 4 B H D T(T+1)/2 = 17.2
+// GFLOP: 0.01738 ms at the card's 989 TFLOP/s of dense bf16 tensor-core
+// work, against 0.0101 ms for the 33.8 MB that must move. P V is issued
+// twice (p split in two bf16 halves, below), so the tensor cores do 1.5x
+// the useful work, 25.8 GFLOP: 0.0261 ms at peak.
+//
+// Design:
+// - One CTA of 288 threads per (batch*head, 128 query rows): two consumer
+//   warpgroups of 64 rows each and one producer warp. The heaviest causal
+//   query tiles are launched first (grid y runs from the last tile down).
+// - The producer's lane 0 loads the CTA's Q tile once and streams the K
+//   and V tiles (64 keys each) by TMA into a 4-stage shared-memory ring
+//   with full and empty mbarriers. The tensor maps are 4-D (d, h, t, b)
+//   over the views' byte strides, so the strided thirds of one qkv
+//   projection are read in place; TMA zero-fills rows past T, and the
+//   kernel scores keys >= T as -inf and never stores rows >= T. At D = 64
+//   a bf16 row is 128 bytes, one row of the 128-byte swizzle, which
+//   `wgmma` reads without bank conflicts.
+// - S = Q K^T: four `wgmma m64n64k16` from shared memory into float32
+//   accumulators, then the scale; the causal mask only on tiles that
+//   cross the diagonal (or T), and tiles wholly past the diagonal skipped
+//   (`_fwd_kernel`'s loop bound, :128-131). A row's max and sum are
+//   reduced over the 4 lanes that share it in the accumulator layout.
+// - P V keeps float32 precision: p = p_hi + p_lo with p_hi = bf16(p) and
+//   p_lo = bf16(p - p_hi) leaves p within ~2^-17 of its float32 value,
+//   where one bf16 rounding (2^-9) would break the bar the tests hold (the
+//   float32 bar plus one bf16 spacing of o). Both halves go through
+//   `wgmma` with A from registers (the S accumulator fragment re-packed
+//   as the A operand) and V from shared memory through the transpose bit.
+//   l is summed in float32 from p before the split.
+// - Inside a warpgroup, tile i's P V and tile i + 1's S are issued
+//   together, and tile i + 1's softmax runs while P V is on the tensor
+//   cores; each loop iteration ends with no wgmma in flight, so ptxas
+//   keeps the products asynchronous. The two warpgroups interleave too.
+// - As built, the softmax's float32 instructions (scale, mask, max, expf,
+//   sum, the split of p) bound it, not the tensor cores: it runs at ~6.6x
+//   the bound (PERF.md). 288 threads a CTA at 138 registers each leave one
+//   CTA (8 consumer warps) per SM.
+//
+// Non-finite rules, those of `flash_fwd.cu` (and of `_fwd_xla`):
+// - the running max keeps NaN; m_safe = m where finite, else 0;
+// - p = exp(s - m_safe) where s is finite, else 0;
+// - corr = exp(m_old - m_safe) where the old max is finite, 0 where it is
+//   -inf (nothing summed yet), 1 where it is +inf or NaN (the sums are
+//   already in the basis m_safe = 0);
+// - l_safe = max(l, 1e-30) keeping NaN; lse = m_fin + log(l_safe).
+//
+// Rounding: compiled without --fmad=false (build.py): attention has no
+// rounding contract beyond its tolerance, and splitting the multiply-adds
+// would lengthen an operations-bound kernel. expf, logf and the division
+// by l_safe are the IEEE-accurate ones (no fast math).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "sm90_ptx.cuh"
+
+namespace {
+
+constexpr int kD = 64;                      // head dim
+constexpr int kBQ = 128;                    // query rows per CTA
+constexpr int kBK = 64;                     // keys per K/V tile
+constexpr int kSN = kBK / 2;                // S accumulators a thread
+constexpr int kPN = kBK / 4;                // bf16 pairs of P a thread
+constexpr int kStages = 4;                  // K/V ring depth
+constexpr int kConsumers = 256;             // two warpgroups
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kRowBytes = kD * 2;           // one 128-byte swizzle row
+constexpr int kQBytes = kBQ * kRowBytes;    // 16 KB
+constexpr int kKVBytes = kBK * kRowBytes;   // 8 KB a tile
+constexpr int kSmemBytes = kQBytes + 2 * kStages * kKVBytes + 1024;  // +align
+
+__device__ __forceinline__ bool is_finite(float x) {
+  return fabsf(x) < INFINITY;  // false for NaN and +-inf
+}
+
+// two floats as a bf16 pair, `lo` in the low half (the lower k index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c ? a : b without a branch. Written as ?: around expf, ptxas made one
+// divergent branch per score, and the kernel took 1.7x as long (PERF.md)
+__device__ __forceinline__ float select(bool c, float a, float b) {
+  float d;
+  asm("{\n .reg .pred p;\n setp.ne.u32 p, %1, 0;\n"
+      " selp.f32 %0, %2, %3, p;\n}"
+      : "=f"(d)
+      : "r"(static_cast<uint32_t>(c)), "f"(a), "f"(b));
+  return d;
+}
+
+// S = Q K^T of one key tile into `s` (uncommitted): four k16 steps,
+// each 32 bytes along the swizzled 128-byte rows of Q and K
+__device__ __forceinline__ void issue_qk(float (&s)[kSN], uint64_t desc_q,
+                                         uint32_t k_tile) {
+  const uint64_t desc_k = sm90::desc_sw128(k_tile);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    sm90::wgmma_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk);
+  }
+}
+
+// The online-softmax update of one tile, in place: s holds a thread's
+// raw products of rows row0 and row0 + 8 (d[4 j + 2 r + e] is row row0 +
+// 8 r, key k0 + 8 j + 2 t4 + e) and leaves with their p; m and l move,
+// and corr[r] is the factor the accumulators of row r take. The two rows
+// go through each step together, so their shuffles and exps overlap.
+__device__ __forceinline__ void softmax(float (&s)[kSN], float (&m)[2],
+                                       float (&l)[2], float (&corr)[2],
+                                       int k0, int row0, int wg_first, int T,
+                                       float scale, int causal) {
+  const int t4 = threadIdx.x % 4;
+  // only tiles that cross the diagonal or T need the mask
+  const bool edge = (causal && k0 + kBK - 1 > wg_first) || k0 + kBK > T;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i / 2, idx = 4 * j + i;
+      float x = s[idx] * scale;
+      if (edge) {
+        const int key = k0 + 8 * j + 2 * t4 + i % 2;
+        if (key >= T || (causal && key > row0 + 8 * r)) x = -INFINITY;
+      }
+      s[idx] = x;
+      mx[r] = sm90::max_nan(mx[r], x);
+    }
+  }
+  // the 4 lanes of a row
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = sm90::max_nan(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+    }
+  }
+  float m_safe[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = sm90::max_nan(m[r], mx[r]);
+    m_safe[r] = is_finite(m_new) ? m_new : 0.f;
+    corr[r] = is_finite(m[r]) ? expf(m[r] - m_safe[r])
+                              : (m[r] == -INFINITY ? 0.f : 1.f);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i / 2, idx = 4 * j + i;
+      const float p = select(is_finite(s[idx]), expf(s[idx] - m_safe[r]),
+                             0.f);
+      s[idx] = p;
+      ps[r] += p;
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], off);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
+}
+
+// p (in s) as the A fragments of P V, split into bf16 halves: the
+// fragment of k16 step kk is the pairs (s[8 kk + 2 a], +1), a < 4
+__device__ __forceinline__ void split_p(const float (&s)[kSN],
+                                        uint32_t (&p_hi)[kPN],
+                                        uint32_t (&p_lo)[kPN]) {
+#pragma unroll
+  for (int a = 0; a < kPN; ++a) {
+    const float x0 = s[2 * a], x1 = s[2 * a + 1];
+    const uint32_t hi = pack_bf16(x0, x1);
+    // a bf16 widens to float32 exactly: its bits in the high half
+    p_hi[a] = hi;
+    p_lo[a] = pack_bf16(x0 - __uint_as_float(hi << 16),
+                        x1 - __uint_as_float(hi & 0xffff0000u));
+  }
+}
+
+// O = corr O + P_hi V + P_lo V for one 64-key tile (uncommitted): four
+// k16 steps of 16 V rows (2048 bytes) per half
+__device__ __forceinline__ void issue_pv(float (&acc)[32],
+                                         uint32_t (&p_hi)[kPN],
+                                         uint32_t (&p_lo)[kPN],
+                                         const float (&corr)[2],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      acc[4 * j + 2 * r] *= corr[r];
+      acc[4 * j + 2 * r + 1] *= corr[r];
+    }
+  }
+  const uint64_t desc_v = sm90::desc_sw128(v_tile);
+  sm90::fence_regs(acc);
+  sm90::fence_regs(p_hi);
+  sm90::fence_regs(p_lo);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    sm90::wgmma_m64n64k16_rs_tb(acc, p_hi + 4 * kk, desc_v + 128 * kk);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    sm90::wgmma_m64n64k16_rs_tb(acc, p_lo + 4 * kk, desc_v + 128 * kk);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int H, int T, float scale, int causal) {
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t empty[kStages];
+  extern __shared__ uint8_t smem_raw[];
+
+  // 1024-byte aligned tiles: the 128-byte swizzle repeats every 8 rows
+  const uint32_t base = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + kQBytes;
+  const uint32_t v_s = k_s + kStages * kKVBytes;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
+  // causal: no key past the tile's last row
+  const int k_end = causal ? min(q0 + kBQ, T) : T;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(sm90::smem_addr(&q_full), 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(sm90::smem_addr(&full[s]), 1);
+      sm90::mbar_init(sm90::smem_addr(&empty[s]), kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: one lane issues every load
+    if (threadIdx.x != kConsumers) return;
+    sm90::mbar_expect_tx(sm90::smem_addr(&q_full), kQBytes);
+    sm90::tma_load_4d(q_s, &qmap, sm90::smem_addr(&q_full), 0, h, q0, b);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      // the consumers' release of tile i - kStages (passes at once for
+      // the first kStages tiles)
+      sm90::mbar_wait(sm90::smem_addr(&empty[s]), ((i / kStages) & 1) ^ 1);
+      const uint32_t bar = sm90::smem_addr(&full[s]);
+      sm90::mbar_expect_tx(bar, 2 * kKVBytes);
+      sm90::tma_load_4d(k_s + s * kKVBytes, &kmap, bar, 0, h, i * kBK, b);
+      sm90::tma_load_4d(v_s + s * kKVBytes, &vmap, bar, 0, h, i * kBK, b);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; in the
+  // accumulator layout lane (g, t4) of warp w holds rows 16 w + g and
+  // 16 w + g + 8, columns 8 j + 2 t4 + {0, 1}: d[4 j + 2 r + e] is row
+  // 16 w + g + 8 r, column 8 j + 2 t4 + e
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wg_first = q0 + 64 * wg;
+  const int wg_last = wg_first + 63;
+  const int row0 = wg_first + 16 * warp + g;
+
+  // tiles this warpgroup scores: causal, none wholly past its last row
+  // (`_fwd_kernel`'s loop bound, :128-131)
+  const int n_wg = causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
+  const uint64_t desc_q = sm90::desc_sw128(q_s + wg * 64 * kRowBytes);
+
+  // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
+  float acc[32], s[kSN];
+  uint32_t p_hi[kPN], p_lo[kPN];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSN; ++i) s[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+
+  sm90::mbar_wait(sm90::smem_addr(&q_full), 0);
+  sm90::mbar_wait(sm90::smem_addr(&full[0]), 0);
+  __syncwarp();  // converged again for the .aligned wgmma
+  issue_qk(s, desc_q, k_s);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  softmax(s, m, l, corr, 0, row0, wg_first, T, scale, causal);
+  split_p(s, p_hi, p_lo);
+
+  // Tile i's P V runs under tile i + 1's softmax, and tile i + 1's S
+  // beside tile i's P V. Every iteration ends with nothing in flight, so
+  // each wait retires a known group (else ptxas serializes the wgmmas).
+  for (int i = 0; i + 1 < n_wg; ++i) {
+    const int nst = (i + 1) % kStages;
+    sm90::mbar_wait(sm90::smem_addr(&full[nst]), ((i + 1) / kStages) & 1);
+    __syncwarp();
+    sm90::fence_regs(s);
+    issue_qk(s, desc_q, k_s + nst * kKVBytes);
+    sm90::wgmma_commit();
+    issue_pv(acc, p_hi, p_lo, corr, v_s + (i % kStages) * kKVBytes);
+    sm90::wgmma_commit();
+
+    sm90::wgmma_wait<1>();  // S of tile i + 1
+    sm90::fence_regs(s);
+    softmax(s, m, l, corr, (i + 1) * kBK, row0, wg_first, T, scale, causal);
+
+    sm90::wgmma_wait<0>();  // P V of tile i: its stage and P are free
+    sm90::fence_regs(acc);
+    sm90::fence_regs(p_hi);
+    sm90::fence_regs(p_lo);
+    sm90::mbar_arrive(sm90::smem_addr(&empty[i % kStages]));
+    split_p(s, p_hi, p_lo);
+  }
+  issue_pv(acc, p_hi, p_lo, corr, v_s + ((n_wg - 1) % kStages) * kKVBytes);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::fence_regs(p_hi);
+  sm90::fence_regs(p_lo);
+  sm90::mbar_arrive(sm90::smem_addr(&empty[(n_wg - 1) % kStages]));
+  // tiles past this warpgroup's diagonal: released once they have landed
+  for (int i = n_wg; i < n_tiles; ++i) {
+    sm90::mbar_wait(sm90::smem_addr(&full[i % kStages]), (i / kStages) & 1);
+    sm90::mbar_arrive(sm90::smem_addr(&empty[i % kStages]));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= T) continue;
+    const float l_safe = l[r] != l[r] ? l[r] : fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h)
+                                  * kD;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+          pack_bf16(acc[4 * j + 2 * r] / l_safe,
+                    acc[4 * j + 2 * r + 1] / l_safe);
+    }
+    if (t4 == 0) {
+      lse[static_cast<int64_t>(bh) * T + row] =
+          (is_finite(m[r]) ? m[r] : 0.f) + logf(l_safe);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through the runtime, so the library
+// links without -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a 4-D (d, h, t, b) bf16 map over a [B, T, H, kD] view with the given
+// element strides, boxes of `rows` rows of one (b, h)
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int64_t B,
+              int64_t T, int64_t H, int64_t sb, int64_t st, int64_t sh,
+              uint32_t rows) {
+  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kD, 1, rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+// q, k, v: bfloat16 [B, T, H, 64] views on the current device with the
+// given element strides for b, t and h and a d stride of 1; base pointers
+// 16-byte aligned and strides multiples of 8 (the Python wrapper checks
+// both). o: contiguous bf16 [B, T, H, 64]; lse: contiguous float32 [B, H,
+// T]. T >= 1. Launches on `stream`; returns cudaGetLastError() (0 on
+// success), -2 if cuTensorMapEncodeTiled is missing, -3 if it
+// refuses a map.
+extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
+                            void* o, float* lse, int64_t B, int64_t T_len,
+                            int64_t H, int64_t sqb, int64_t sqt, int64_t sqh,
+                            int64_t skb, int64_t skt, int64_t skh,
+                            int64_t svb, int64_t svt, int64_t svh,
+                            float scale, int causal, void* stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return -2;
+  CUtensorMap qm, km, vm;
+  if (!make_map(enc, &qm, q, B, T_len, H, sqb, sqt, sqh, kBQ) ||
+      !make_map(enc, &km, k, B, T_len, H, skb, skt, skh, kBK) ||
+      !make_map(enc, &vm, v, B, T_len, H, svb, svt, svh, kBK)) {
+    return -3;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(B * H),
+                  static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
+  flash_fwd_tc_kernel<<<grid, kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(H),
+      static_cast<int>(T_len), scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -11,12 +11,15 @@ into one shared library with a plain C interface:
 
 The per-source flags (``SOURCE_FLAGS``, one entry for every source) give
 the quantizer ``--fmad=false``, which keeps its ``scale*(q - zp) + mean``
-rounding as written, and leave the attention kernel free to contract
-its multiply-adds (each source's header says why). The library goes to
-``fedtorch_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash
-of the sources (``*.cu`` and the ``*.cuh`` they include) and of every
-flag, so an edited source or flag rebuilds and an unchanged one loads
-the existing library. Nothing here runs at import: the build happens
+rounding as written, and leave the attention kernels free to contract
+their multiply-adds (each source's header says why). The tensor-core
+attention kernel writes its ``wgmma``, TMA and ``mbarrier`` PTX by hand
+(``csrc/sm90_ptx.cuh``) and looks up ``cuTensorMapEncodeTiled``
+through the runtime, so no CUTLASS header and no ``-lcuda`` is needed.
+The library goes to ``fedtorch_tpu_torch/_build/`` (git-ignored) under a
+name keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` they
+include) and of every flag, so an edited source or flag rebuilds and an
+unchanged one loads the existing library. Nothing here runs at import: the build happens
 inside the first launch. A failed compile or link raises with nvcc's
 stderr.
 """
@@ -42,6 +45,7 @@ SOURCE_FLAGS = {
     "qdq_batch.cu": ("--fmad=false",),
     "qdq_tiled.cu": ("--fmad=false",),
     "flash_fwd.cu": (),
+    "flash_fwd_sm90.cu": (),
 }
 
 
@@ -139,6 +143,10 @@ def load_library() -> ctypes.CDLL:
                 #  scale, causal, bf16, vec, stream)
                 "flash_fwd": [ptr] * 5 + [i64] * 13
                 + [ctypes.c_float, i32, i32, i32, ptr],
+                # (q, k, v, o, lse, B, T, H, q/k/v strides of b, t, h,
+                #  scale, causal, stream)
+                "flash_fwd_tc": [ptr] * 5 + [i64] * 12
+                + [ctypes.c_float, i32, ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

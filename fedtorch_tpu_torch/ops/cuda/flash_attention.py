@@ -1,13 +1,26 @@
-"""Flash attention: the Hopper forward kernel, its plain PyTorch version,
-the chunked backward and the public differentiable functions.
+"""Flash attention: the Hopper forward kernels, their plain PyTorch
+version, the chunked backward and the public differentiable functions.
 
-Port of ``fedtorch_tpu/ops/pallas/flash_attention.py``. The forward is
-``csrc/flash_fwd.cu`` (``_fwd_kernel``), bound through ``ctypes``
-(``build.py``); its header says what bounds it and how it is built.
-:func:`flash_fwd` launches it on CUDA tensors and counts the launch in
-``flash_launches``; on CPU tensors it runs :func:`flash_fwd_ref`, the
-port of the JAX package's dense oracle ``_fwd_xla``. There is no
-fallback: a CUDA tensor goes to the kernel or raises.
+Port of ``fedtorch_tpu/ops/pallas/flash_attention.py``. The forward
+(``_fwd_kernel``) has two hand-written kernels, bound through ``ctypes``
+(``build.py``); each source's header says what bounds it and how it is
+built. :func:`flash_fwd` picks one by :func:`_route`, from the inputs
+alone:
+
+- ``"tc"``, ``csrc/flash_fwd_sm90.cu`` (``flash_fwd_tc``): bfloat16 with
+  head dim 64, base pointers 16-byte aligned and the b, t and h strides
+  multiples of 8 elements (what its TMA loads need). bf16 ``wgmma`` on
+  the tensor cores, p split in two bf16 halves for P V.
+- ``"simt"``, ``csrc/flash_fwd.cu`` (``flash_fwd``): everything else the
+  wrapper takes: float32 (tensor cores in TF32 would break its 2e-5
+  bar), head dims 16, 32 and 128, misaligned views. float32 products on
+  the CUDA cores.
+
+Each launch counts in ``flash_launches``; tensor-core launches also in
+``flash_tc_launches``. On CPU tensors :func:`flash_fwd` runs
+:func:`flash_fwd_ref`, the port of the JAX package's dense oracle
+``_fwd_xla``. There is no fallback: a CUDA tensor goes to its route's
+kernel or raises, and a failed launch is never retried on the other.
 
 The backward is the JAX package's ``_bwd_chunked``: the probabilities
 are recomputed from the saved logsumexp one ``block_q`` chunk of query
@@ -15,8 +28,8 @@ rows at a time, in float32 torch ops (it is plain XLA in the JAX
 package, with no Pallas kernel), with the ``g_lse`` term when the
 caller consumed the logsumexp. ``block_q`` follows the JAX package's
 ``_default_blocks`` and ``_divisor_block``, so the recompute sums in the
-same chunks; the forward kernel's own tiles need not follow them, and
-since it takes any T the JAX package's route of oversized blocks to the
+same chunks; the forward kernels' own tiles need not follow them, and
+since they take any T the JAX package's route of oversized blocks to the
 dense oracle (a VMEM limit) has no counterpart here.
 
 Layouts are the JAX package's: q, k, v and o ``[B, T, H, D]``, the public
@@ -31,10 +44,13 @@ import torch
 
 from fedtorch_tpu_torch.ops.cuda.build import load_library
 
-# kernel launches so far (reset to 0 before the run they should count)
+# kernel launches so far, both routes, and those of the tensor-core route
+# (reset to 0 before the run they should count)
 flash_launches = 0
+flash_tc_launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instantiations
+HEAD_DIMS = (16, 32, 64, 128)  # the SIMT kernel's template instantiations
+TC_HEAD_DIM = 64               # the tensor-core kernel's one head dim
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BH = 65535                # gridDim.y
 
@@ -133,18 +149,41 @@ def _check_kernel_inputs(q, k, v) -> None:
                          f"{_MAX_BH}, got shape {tuple(q.shape)}")
 
 
-def flash_fwd(q, k, v, scale: float, causal: bool):
-    """The forward on ``[B, T, H, D]`` q, k, v (any strides with a
-    last-dim stride of 1): ``(o [B, T, H, D], lse [B, H, T] float32)``.
-    The kernel on CUDA tensors, which raises on a head dim, dtype or
-    layout it does not take; the plain version on CPU tensors."""
-    global flash_launches
-    if q.device.type == "cpu":
-        return flash_fwd_ref(q, k, v, scale, causal)
-    _check_kernel_inputs(q, k, v)
+def _tc_strides(t):
+    """b, t and h element strides for the tensor-core kernel's TMA maps:
+    a dimension of size 1 is never stepped, so its stride is replaced by
+    the contiguous one."""
+    B, T, H, D = t.shape
+    dense = (T * H * D, H * D, D)
+    return tuple(d if n == 1 else st
+                 for n, st, d in zip((B, T, H), t.stride()[:3], dense))
+
+
+def _route(q, k, v) -> str:
+    """``"tc"`` for bfloat16 q, k, v with head dim 64 whose base pointers
+    are 16-byte aligned and whose b, t, h strides are multiples of 8
+    elements (sizes of 1 excepted); ``"simt"`` for anything else.
+    Depends on dtype, head dim and alignment only."""
+    if q.dtype != torch.bfloat16 or q.shape[3] != TC_HEAD_DIM \
+            or any(t.dtype != torch.bfloat16 for t in (k, v)):
+        return "simt"
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(st % 8 == 0 for st in _tc_strides(t))
+                  for t in (q, k, v))
+    return "tc" if aligned else "simt"
+
+
+def _outputs(q):
     B, T, H, D = q.shape
-    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    return (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device),
+            torch.empty((B, H, T), dtype=torch.float32, device=q.device))
+
+
+def _launch_simt(q, k, v, scale: float, causal: bool):
+    """``csrc/flash_fwd.cu`` on checked CUDA inputs."""
+    global flash_launches
+    B, T, H, D = q.shape
+    o, lse = _outputs(q)
     # 4 elements per load where every pointer and stride allows it
     align = 4 * q.element_size()
     vec = all(t.data_ptr() % align == 0
@@ -160,6 +199,40 @@ def flash_fwd(q, k, v, scale: float, causal: bool):
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
     flash_launches += 1
     return o, lse
+
+
+def _launch_tc(q, k, v, scale: float, causal: bool):
+    """``csrc/flash_fwd_sm90.cu`` on checked CUDA inputs that
+    :func:`_route` sends to ``"tc"``."""
+    global flash_launches, flash_tc_launches
+    B, T, H, _ = q.shape
+    o, lse = _outputs(q)
+    with torch.cuda.device(q.device):
+        err = load_library().flash_fwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, T, H, *_tc_strides(q), *_tc_strides(k),
+            *_tc_strides(v), scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_tc launch failed: error {err} (-2: "
+                           "no tensor-map encoder, -3: a map refused, "
+                           "else a CUDA error)")
+    flash_launches += 1
+    flash_tc_launches += 1
+    return o, lse
+
+
+def flash_fwd(q, k, v, scale: float, causal: bool):
+    """The forward on ``[B, T, H, D]`` q, k, v (any strides with a
+    last-dim stride of 1): ``(o [B, T, H, D], lse [B, H, T] float32)``.
+    On CUDA tensors the kernel :func:`_route` picks, which raises on a
+    head dim, dtype or layout it does not take; the plain version on CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, scale, causal)
+    _check_kernel_inputs(q, k, v)
+    launch = _launch_tc if _route(q, k, v) == "tc" else _launch_simt
+    return launch(q, k, v, scale, causal)
 
 
 # -- the backward ------------------------------------------------------------

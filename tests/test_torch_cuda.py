@@ -153,51 +153,73 @@ def _bf16_spacing(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def _assert_bf16_close(o, ro):
+    """The two float32 results within 2e-5, then each rounded once to
+    bfloat16: within that plus one bfloat16 spacing, same NaN pattern."""
+    got, want = o.float(), ro.float()
+    assert torch.equal(got.isnan(), want.isnan())
+    got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+    slack = _bf16_spacing(torch.maximum(got.abs(), want.abs())) \
+        + 2e-5 + 2e-5 * want.abs()
+    diff = (got - want).abs()
+    assert bool((diff <= slack).all()), float((diff - slack).max())
+
+
+_TC_CASES = [(torch.bfloat16, causal, T, 64, 0)
+             for T in (1, 63, 65, 300, 2048) for causal in (True, False)]
+
+
 @pytest.mark.parametrize("dtype, causal, T, D, offset", [
     (torch.float32, True, 257, 64, 0), (torch.float32, False, 50, 32, 0),
     (torch.bfloat16, True, 300, 64, 0), (torch.float32, True, 1, 16, 0),
     (torch.bfloat16, False, 129, 128, 0), (torch.float32, True, 129, 64, 1),
-])
+] + _TC_CASES)
 def test_flash_kernel_matches_plain_version(cuda, dtype, causal, T, D,
                                             offset):
     """On strided q, k, v chunks of one projection (``offset`` 1:
     misaligned, the scalar loads); float32 within 2e-5, bfloat16 o
     within that plus one bfloat16 spacing. TF32 off for the plain
-    version."""
+    version. Aligned bfloat16 at head dim 64 takes the tensor-core
+    kernel, the rest the SIMT kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(T + D)
     x = torch.from_numpy(rng.randn(2, T, 3 * 4 * D + offset).astype(
         np.float32)).to(cuda, dtype)[..., offset:]
     q, k, v = (c.view(2, T, 4, D) for c in x.chunk(3, dim=-1))
-    before = fa.flash_launches
+    tc = dtype == torch.bfloat16 and D == 64 and offset == 0
+    before = (fa.flash_launches, fa.flash_tc_launches)
     o, lse = fa.flash_fwd(q, k, v, D ** -0.5, causal)
-    assert fa.flash_launches == before + 1
+    assert (fa.flash_launches, fa.flash_tc_launches) == (
+        before[0] + 1, before[1] + int(tc))
     ro, rl = fa.flash_fwd_ref(q, k, v, D ** -0.5, causal)
     assert o.dtype == dtype and lse.shape == (2, 4, T)
     torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
     if dtype == torch.float32:
         torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
     else:
-        # the two float32 results within 2e-5, then each rounded once
-        got, want = o.float(), ro.float()
-        slack = _bf16_spacing(torch.maximum(got.abs(), want.abs())) \
-            + 2e-5 + 2e-5 * want.abs()
-        diff = (got - want).abs()
-        assert bool((diff <= slack).all()), float((diff - slack).max())
+        _assert_bf16_close(o, ro)
 
 
-def test_flash_kernel_follows_the_nonfinite_rules(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     """A q row of NaN attends to nothing (o = 0, lse = log 1e-30); a k
-    row of +inf scores NaN and is skipped, as in the plain version."""
+    row of +inf scores NaN and is skipped, as in the plain version.
+    float32 goes through the SIMT kernel, bfloat16 through the tensor
+    cores."""
     rng = np.random.RandomState(7)
     q, k, v = (torch.from_numpy(rng.randn(2, 257, 4, 64).astype(
-        np.float32)).to(cuda) for _ in range(3))
+        np.float32)).to(cuda, dtype) for _ in range(3))
     q[0, 5, 1] = float("nan")
     k[1, 3, 2] = float("inf")
+    before = fa.flash_tc_launches
     o, lse = fa.flash_fwd(q, k, v, 0.125, True)
+    assert fa.flash_tc_launches == before + int(dtype == torch.bfloat16)
     ro, rl = fa.flash_fwd_ref(q, k, v, 0.125, True)
-    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_bf16_close(o, ro)
     assert float(o[0, 5, 1].abs().max()) == 0.0
 
 
@@ -226,3 +248,33 @@ def test_flash_attention_gradients_on_the_card_match_the_cpu(cuda):
         grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-5)
+
+
+def test_tensor_core_forward_gradients_match_the_plain_forward(cuda,
+                                                               monkeypatch):
+    """bfloat16 at the model's layout: the tensor-core forward with the
+    chunked backward against the plain forward with the same backward,
+    both on the card, through a loss that consumes the logsumexp. The
+    two forwards' o each round once to bfloat16 (at most one spacing
+    apart), which moves delta = rowsum(g * o) in the backward, and the
+    gradients round to bfloat16 at the end: each gradient within two
+    bfloat16 spacings (rtol 2^-6) plus 1% of its largest magnitude."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 256, 3 * 4 * 64).astype(np.float32)
+    w = torch.from_numpy(rng.randn(2, 256, 4, 64).astype(np.float32)).to(
+        cuda)
+    grads = {}
+    for route in ("tc", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_ref)
+        xt = torch.from_numpy(x).to(cuda, torch.bfloat16).requires_grad_(True)
+        q, k, v = (c.view(2, 256, 4, 64) for c in xt.chunk(3, dim=-1))
+        before = fa.flash_tc_launches
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        assert fa.flash_tc_launches - before == int(route == "tc")
+        ((o.float() * w).sum() + lse.square().sum()).backward()
+        grads[route] = xt.grad.float()
+    got, want = grads["tc"], grads["plain"]
+    torch.testing.assert_close(got, want, rtol=2.0 ** -6,
+                               atol=0.01 * float(want.abs().max()))

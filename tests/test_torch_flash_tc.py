@@ -1,0 +1,159 @@
+"""The tensor-core flash forward (``csrc/flash_fwd_sm90.cu``) on the CPU:
+its route, and its arithmetic against the JAX package's oracle.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` hold it against the plain version there). Here
+:func:`_route` is checked on CPU tensors laid out as the model makes them,
+and :func:`_emulate` repeats the kernel's arithmetic in float32 torch ops
+(64-key tiles, online softmax, p split into bf16 hi + lo for P V, float32
+sums) on the same numpy inputs as the JAX package's ``_fwd_xla``. The bar
+is the card's: lse within 2e-5 (abs and rel), bfloat16 o within the
+float32 bar plus one bfloat16 spacing, the same NaN pattern.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
+from fedtorch_tpu_torch.ops.cuda import flash_attention as fa
+
+BK = 64  # the kernel's keys per tile
+
+
+def _qkv_views(B, T, H, D, dtype, offset=0, seed=0):
+    """Strided [B, T, H, D] thirds of one projection, as the model makes
+    them (``offset`` > 0 shifts them off 16-byte alignment)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(B, T, 3 * H * D + offset).astype(
+        np.float32)).to(dtype)[..., offset:]
+    return tuple(c.view(B, T, H, D) for c in x.chunk(3, dim=-1))
+
+
+def test_route_sends_strided_bf16_head_dim_64_to_the_tensor_cores():
+    q, k, v = _qkv_views(2, 300, 4, 64, torch.bfloat16)
+    assert q.stride() == (300 * 768, 768, 64, 1)
+    assert fa._route(q, k, v) == "tc"
+    # contiguous inputs and a size-1 batch with an odd stride too
+    c = tuple(t.contiguous() for t in (q, k, v))
+    assert fa._route(*c) == "tc"
+    one = tuple(t[:1] for t in (q, k, v))
+    odd = tuple(torch.as_strided(t, t.shape, (7,) + t.stride()[1:])
+                for t in one)
+    assert fa._route(*odd) == "tc"
+    assert fa._tc_strides(odd[0]) == (300 * 4 * 64, 768, 64)
+
+
+@pytest.mark.parametrize("dtype, D, offset", [
+    (torch.float32, 64, 0), (torch.bfloat16, 16, 0), (torch.bfloat16, 32, 0),
+    (torch.bfloat16, 128, 0), (torch.bfloat16, 64, 1),
+    (torch.float32, 64, 1)])
+def test_route_sends_everything_else_to_the_simt_kernel(dtype, D, offset):
+    q, k, v = _qkv_views(2, 129, 4, D, dtype, offset)
+    assert fa._route(q, k, v) == "simt"
+
+
+def test_route_needs_strides_of_eight_elements():
+    x = torch.zeros(2, 40, 3 * 4 * 64 + 4, dtype=torch.bfloat16)[..., :768]
+    q, k, v = (c.view(2, 40, 4, 64) for c in x.chunk(3, dim=-1))
+    assert q.stride()[1] == 772 and fa._route(q, k, v) == "simt"
+
+
+def _emulate(q, k, v, scale, causal, split=True):
+    """The kernel's arithmetic on float32 [BH, T, D] tensors holding
+    bf16 values: o (float32, before its bf16 rounding) and lse."""
+    BH, T, D = q.shape
+    rows = torch.arange(T)
+    m = torch.full((BH, T), -np.inf)
+    l = torch.zeros(BH, T)
+    acc = torch.zeros(BH, T, D)
+    for k0 in range(0, T, BK):
+        kt, vt = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
+        s = torch.einsum("bqd,bkd->bqk", q, kt) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1])
+            s = s.masked_fill(keys[None, :] > rows[:, None], -np.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))      # both keep NaN
+        m_safe = torch.where(m_new.isfinite(), m_new, 0.0)
+        corr = torch.where(m.isfinite(), torch.exp(m - m_safe),
+                           torch.where(m == -np.inf, 0.0, 1.0))
+        p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    l_safe = torch.where(l.isnan(), l, l.clamp_min(1e-30))
+    lse = torch.where(m.isfinite(), m, 0.0) + torch.log(l_safe)
+    return acc / l_safe[..., None], lse
+
+
+def _bf16_excess(got, want):
+    """Largest excess of |got - want| over the float32 bar (2e-5 abs +
+    2e-5 rel), in bfloat16 spacings at the larger magnitude; NaN against
+    NaN counts 0. At most 1 passes."""
+    mag = torch.maximum(got.abs(), want.abs()).nan_to_num(0.0, 0.0, 0.0)
+    spacing = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                         - 7)
+    excess = ((got - want).abs() - 2e-5 - 2e-5 * want.abs()).clamp_min(0.0)
+    same = (got == want) | (got.isnan() & want.isnan())
+    return float(torch.where(same, 0.0, excess / spacing).max())
+
+
+def _inputs(nonfinite, B=2, T=300, H=2, D=64):
+    rng = np.random.RandomState(11)
+    q, k, v = (rng.randn(B * H, T, D).astype(np.float32) for _ in range(3))
+    if nonfinite:
+        q[1, 5] = np.nan
+        k[2, 3] = np.inf
+    # bf16 values, as the kernel reads them
+    return tuple(torch.from_numpy(a).to(torch.bfloat16).float()
+                 for a in (q, k, v))
+
+
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_emulated_kernel_holds_the_bf16_bar_against_the_oracle(causal,
+                                                               nonfinite):
+    q, k, v = _inputs(nonfinite)
+    scale = 0.125
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
+                        for t in (q, k, v)), scale, causal)
+    want = torch.from_numpy(np.array(jo, np.float32))
+    want_lse = torch.from_numpy(np.array(jl))
+    o, lse = _emulate(q, k, v, scale, causal)
+    got = o.to(torch.bfloat16).float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(lse.isnan(), want_lse.isnan())
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5,
+                               equal_nan=True)
+    assert _bf16_excess(got, want) <= 1.0
+    if nonfinite:  # the NaN q row attends to nothing: o = 0
+        assert float(got[1, 5].abs().max()) == 0.0
+
+    # one bf16 rounding of p instead of the split: the reason for it
+    o1, _ = _emulate(q, k, v, scale, causal, split=False)
+    print(f"causal={causal} nonfinite={nonfinite}: split p "
+          f"{_bf16_excess(got, want):.3f}, single bf16 p "
+          f"{_bf16_excess(o1.to(torch.bfloat16).float(), want):.3f} bf16 "
+          f"spacings past the float32 bar")
+
+
+def test_emulated_single_bf16_p_breaks_the_bar_at_the_main_path_length():
+    """At T 2048 (the transformer path's length) one bf16 rounding of p
+    lands outputs several bf16 spacings past the bar; the split stays
+    within it."""
+    q, k, v = _inputs(False, B=1, T=2048, H=1)
+    jo, _ = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
+                       for t in (q, k, v)), 0.125, True)
+    want = torch.from_numpy(np.array(jo, np.float32))
+    split = _bf16_excess(_emulate(q, k, v, 0.125, True)[0].to(
+        torch.bfloat16).float(), want)
+    single = _bf16_excess(_emulate(q, k, v, 0.125, True, split=False)[0].to(
+        torch.bfloat16).float(), want)
+    print(f"T 2048 causal: split p {split:.3f}, single bf16 p {single:.3f} "
+          f"bf16 spacings past the float32 bar")
+    assert split <= 1.0 < single
+
