@@ -1,4 +1,4 @@
-// Device helpers shared by the quantizer kernels (qdq_batch.cu,
+// Device helpers shared by the quantizer kernels (qdq_ragged.cu,
 // qdq_tiled.cu): NaN-propagating min/max/clip, a block-wide reduction of
 // (min, max, sum) in a fixed order, and the affine round trip of
 // `_affine_roundtrip` (fedtorch_tpu/ops/pallas/quant_kernel.py:43-54):

@@ -42,7 +42,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas=-v")
 SOURCE_FLAGS = {
-    "qdq_batch.cu": ("--fmad=false",),
+    "qdq_ragged.cu": ("--fmad=false",),
     "qdq_tiled.cu": ("--fmad=false",),
     "flash_fwd.cu": (),
     "flash_fwd_sm90.cu": (),
@@ -132,8 +132,11 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build().path))
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             signatures = {
-                # (x, out, rows, n, num_bits, stream)
-                "qdq_batch_f32": [ptr, ptr, i64, i64, i32, ptr],
+                # (table, count, partials, nblocks, chunk, stream); the
+                # table is a host array of 4 int64 per leaf
+                "qdq_ragged_stats_f32": [ptr, i32, ptr, i64, i64, ptr],
+                # (table, count, partials, nblocks, chunk, num_bits, stream)
+                "qdq_ragged_apply_f32": [ptr, i32, ptr, i64, i64, i32, ptr],
                 # (x, partials, rows, n, chunk, stream)
                 "qdq_tiled_stats_f32": [ptr, ptr, i64, i64, i64, ptr],
                 # (x, partials, out, rows, n, chunk, num_bits, stream)

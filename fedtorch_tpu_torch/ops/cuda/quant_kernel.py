@@ -1,44 +1,54 @@
 """Adaptive quantize -> dequantize: the Hopper kernels, their plain
-PyTorch versions, the single-tensor entry and the bucketing tree
-function.
+PyTorch versions, the single-tensor entry and the tree function.
 
 Port of ``fedtorch_tpu/ops/pallas/quant_kernel.py``. Two kernel files,
 bound through ``ctypes`` (``build.py``); their headers say what bounds
 them and why they are built the way they are:
 
-* ``csrc/qdq_batch.cu`` (``_qdq_batch_kernel``, and ``_qdq_kernel`` as
-  its one-row case): :func:`qdq_batch`, one block per row of a float32
-  ``[rows, n]`` tensor, for rows of at most ``_MAX_ROW_ELEMS`` elements;
+* ``csrc/qdq_ragged.cu`` (``_qdq_batch_kernel``, and ``_qdq_kernel`` as
+  its one-row case): :func:`qdq_ragged`, a stats launch that writes
+  per-chunk partial ``[min, max, sum]`` and an apply launch that folds
+  them and writes the round trip, over every row of a list of float32
+  ``[rows, n]`` leaves of at most ``_MAX_ROW_ELEMS`` elements per row,
+  read in place; :func:`qdq_batch` is its one-leaf call;
 * ``csrc/qdq_tiled.cu`` (``_tiled_stats_kernel`` + ``_tiled_apply_kernel``):
-  :func:`qdq_tiled`, a stats launch that writes per-chunk partial
-  ``[min, max, sum]`` and an apply launch that folds them and writes the
-  round trip, many blocks per row, for longer rows.
+  :func:`qdq_tiled`, the same two passes over one ``[rows, n]`` tensor of
+  longer rows.
 
 Each row gets its own statistics. On a CPU tensor a wrapper runs its
 plain version; on a CUDA tensor it launches the kernel or raises — there
 is no fallback. Each launch adds one to its kernel's counter
-(``launches``, ``stats_launches``, ``apply_launches``), so a run can
-show which kernels its path went through.
+(``ragged_stats_launches``, ``ragged_apply_launches``, ``stats_launches``,
+``apply_launches``; ``launches`` counts the ragged pair's launches, one
+per stats + apply), so a run can show which kernels its path went
+through.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from fedtorch_tpu_torch.ops.cuda.build import load_library
 
 # kernel launches so far (reset them to 0 before the run they should count)
-launches = 0         # qdq_batch_f32
-stats_launches = 0   # qdq_tiled_stats_f32
-apply_launches = 0   # qdq_tiled_apply_f32
+launches = 0               # the ragged pair (one per stats + apply launch)
+ragged_stats_launches = 0  # qdq_ragged_stats_f32
+ragged_apply_launches = 0  # qdq_ragged_apply_f32
+stats_launches = 0         # qdq_tiled_stats_f32
+apply_launches = 0         # qdq_tiled_apply_f32
 
-# Rows longer than this take the multi-block pair; the JAX package's
-# single-block ceiling (_MAX_VMEM_ELEMS), kept so both packages route a
-# tensor the same way.
+# Rows longer than this take the multi-block pair qdq_tiled; the JAX
+# package's single-block ceiling (_MAX_VMEM_ELEMS), kept so both packages
+# route a tensor the same way.
 _MAX_ROW_ELEMS = 512 * 1024
-# Elements per block of the multi-block pair (csrc/qdq_tiled.cu says why).
+# Elements per block of both pairs (csrc/qdq_tiled.cu says why).
 _CHUNK = 8192
-_MAX_ROWS = 2 ** 31 - 1       # gridDim.x of the row kernel
-_MAX_TILED_ROWS = 65535       # gridDim.y of the pair
+_MAX_ROWS = 2 ** 31 - 1       # gridDim.x of the ragged pair
+_MAX_TILED_ROWS = 65535       # gridDim.y of qdq_tiled
+# Leaves per launch of the ragged pair: its table's capacity
+# (kMaxLeaves in csrc/qdq_ragged.cu).
+_TABLE_LEAVES = 96
 
 
 def qrange(num_bits: int):
@@ -100,19 +110,162 @@ def _launch(fn, name: str, *args) -> None:
 
 def qdq_batch(x: torch.Tensor, num_bits: int = 8) -> torch.Tensor:
     """Per-row quantize -> dequantize of a float32 ``[rows, n]`` tensor:
-    the kernel on CUDA, the plain version on the CPU."""
-    global launches
+    the ragged pair on CUDA (one leaf), the plain version on the CPU."""
     _check_bits(num_bits)
     _check(x, "qdq_batch", _MAX_ROWS)
     if x.device.type == "cpu":
         return qdq_batch_ref(x, num_bits)
-    out = torch.empty_like(x)
-    rows, n = x.shape
-    with torch.cuda.device(x.device):
-        _launch(load_library().qdq_batch_f32, "qdq_batch_f32",
-                x.data_ptr(), out.data_ptr(), rows, n, num_bits)
-    launches += 1
+    return qdq_ragged([x], num_bits)[0]
+
+
+# -- the ragged pair ---------------------------------------------------------
+
+def qdq_ragged_stats_ref(leaves) -> torch.Tensor:
+    """Plain version of the ragged stats pass: the ``[total_chunks, 3]``
+    partial ``[min, max, sum]`` of each ``_CHUNK`` elements of each row of
+    each leaf (the last chunk of a row ragged), leaf by leaf, row by row,
+    as the kernel's grid lays them out."""
+    return torch.cat([qdq_tiled_stats_ref(x).reshape(-1, 3) for x in leaves])
+
+
+def qdq_ragged_apply_ref(leaves, partials: torch.Tensor,
+                         num_bits: int = 8) -> list:
+    """Plain version of the ragged apply pass: each row's partials folded
+    in a fixed order, then the round trip."""
+    out, base = [], 0
+    for x in leaves:
+        rows, n = x.shape
+        m = rows * _nchunks(n)
+        out.append(qdq_tiled_apply_ref(
+            x, partials[base:base + m].reshape(rows, -1, 3), num_bits))
+        base += m
     return out
+
+
+def qdq_ragged_ref(leaves, num_bits: int = 8) -> list:
+    """Plain version of :func:`qdq_ragged`."""
+    return qdq_ragged_apply_ref(leaves, qdq_ragged_stats_ref(leaves),
+                                num_bits)
+
+
+def _check_leaves(leaves, name: str) -> None:
+    for x in leaves:
+        _check(x, name, _MAX_ROWS)
+        if x.device != leaves[0].device:
+            raise ValueError(f"{name} takes leaves on one device, got "
+                             f"{leaves[0].device} and {x.device}")
+
+
+def ragged_launches(shapes) -> list:
+    """The ragged pair's launches for leaves of ``shapes`` ``[(rows, n)]``:
+    for each launch, the indices of its leaves and each leaf's first
+    chunk in the launch's grid. A launch takes at most ``_TABLE_LEAVES``
+    leaves and ``_MAX_ROWS`` chunks."""
+    out, cur, base = [], [], 0
+    for i, (rows, n) in enumerate(shapes):
+        m = rows * _nchunks(n)
+        if m > _MAX_ROWS:
+            raise ValueError(f"a [{rows}, {n}] leaf splits into more than "
+                             f"2^31 - 1 chunks of {_CHUNK}")
+        if cur and (len(cur) == _TABLE_LEAVES or base + m > _MAX_ROWS):
+            out.append(cur)
+            cur, base = [], 0
+        cur.append((i, base))
+        base += m
+    return out + [cur] if cur else out
+
+
+def _table(leaves, outs, launch):
+    """The kernel's leaf table for one launch: 4 int64 per leaf (input
+    pointer, output pointer, n, first chunk) in host memory."""
+    rec = []
+    for i, base in launch:
+        rec += [leaves[i].data_ptr(), outs[i].data_ptr(), leaves[i].shape[1],
+                base]
+    return (ctypes.c_int64 * len(rec))(*rec)
+
+
+def _launch_chunks(leaves, launch) -> int:
+    i, base = launch[-1]
+    rows, n = leaves[i].shape
+    return base + rows * _nchunks(n)
+
+
+def qdq_ragged_stats(leaves) -> torch.Tensor:
+    """Stats pass of the ragged pair over a list of float32 ``[rows, n]``
+    leaves: the ``[total_chunks, 3]`` partials. Kernel on CUDA, plain on
+    the CPU."""
+    global ragged_stats_launches
+    _check_leaves(leaves, "qdq_ragged_stats")
+    plan = ragged_launches([tuple(x.shape) for x in leaves])
+    if not leaves or leaves[0].device.type == "cpu":
+        return qdq_ragged_stats_ref(leaves) if leaves \
+            else torch.empty((0, 3))
+    sizes = [_launch_chunks(leaves, ln) for ln in plan]
+    partials = torch.empty((sum(sizes), 3), dtype=torch.float32,
+                           device=leaves[0].device)
+    lib = load_library()
+    with torch.cuda.device(partials.device):
+        base = 0
+        for launch, m in zip(plan, sizes):
+            # the stats pass writes no output: its table's output pointers
+            # are the inputs'
+            _launch(lib.qdq_ragged_stats_f32, "qdq_ragged_stats_f32",
+                    _table(leaves, leaves, launch), len(launch),
+                    partials[base:].data_ptr(), m, _CHUNK)
+            ragged_stats_launches += 1
+            base += m
+    return partials
+
+
+def qdq_ragged_apply(leaves, partials: torch.Tensor,
+                     num_bits: int = 8) -> list:
+    """Apply pass of the ragged pair: the round trip of each row of each
+    leaf with the statistics folded from its ``partials`` (as
+    :func:`qdq_ragged_stats` wrote them). Kernel on CUDA, plain on the
+    CPU. On CUDA the outputs are views of one buffer, each starting on a
+    16-byte boundary."""
+    global ragged_apply_launches, launches
+    _check_bits(num_bits)
+    _check_leaves(leaves, "qdq_ragged_apply")
+    plan = ragged_launches([tuple(x.shape) for x in leaves])
+    want = (sum(x.shape[0] * _nchunks(x.shape[1]) for x in leaves), 3)
+    dev = leaves[0].device if leaves else partials.device
+    if (tuple(partials.shape) != want or partials.dtype != torch.float32
+            or not partials.is_contiguous() or partials.device != dev):
+        raise ValueError(f"qdq_ragged_apply needs contiguous float32 "
+                         f"partials of shape {want} on {dev}, got "
+                         f"{partials.dtype} {tuple(partials.shape)} on "
+                         f"{partials.device}")
+    if not leaves or dev.type == "cpu":
+        return qdq_ragged_apply_ref(leaves, partials, num_bits)
+    offsets, total = [], 0
+    for x in leaves:
+        offsets.append(total)
+        total += -(-x.numel() // 4) * 4
+    buf = torch.empty(total, dtype=torch.float32, device=dev)
+    outs = [buf[o:o + x.numel()].view(x.shape)
+            for o, x in zip(offsets, leaves)]
+    lib = load_library()
+    with torch.cuda.device(dev):
+        base = 0
+        for launch in plan:
+            m = _launch_chunks(leaves, launch)
+            _launch(lib.qdq_ragged_apply_f32, "qdq_ragged_apply_f32",
+                    _table(leaves, outs, launch), len(launch),
+                    partials[base:].data_ptr(), m, _CHUNK, num_bits)
+            ragged_apply_launches += 1
+            launches += 1
+            base += m
+    return outs
+
+
+def qdq_ragged(leaves, num_bits: int = 8) -> list:
+    """Per-row quantize -> dequantize of every row of a list of
+    contiguous float32 ``[rows, n]`` leaves on one device, each row with
+    its own statistics: one stats and one apply launch on CUDA (more past
+    ``_TABLE_LEAVES`` leaves), the plain version on the CPU."""
+    return qdq_ragged_apply(leaves, qdq_ragged_stats(leaves), num_bits)
 
 
 # -- the multi-block pair ----------------------------------------------------
@@ -218,7 +371,7 @@ def fused_quantize_dequantize(x: torch.Tensor,
     """Quantize -> dequantize of one tensor of any shape with its own
     statistics; same shape and dtype out. Routed as the JAX package's
     function of this name (quant_kernel.py:331-358): at most
-    ``_MAX_ROW_ELEMS`` elements go through the row kernel as one row,
+    ``_MAX_ROW_ELEMS`` elements go through the ragged pair as one row,
     longer tensors through the multi-block pair."""
     flat = x.reshape(1, -1).to(torch.float32).contiguous()
     if flat.shape[1] > _MAX_ROW_ELEMS:
@@ -230,30 +383,36 @@ def fused_quantize_dequantize(x: torch.Tensor,
 
 def fused_quantize_dequantize_tree(tree: dict, num_bits: int = 8,
                                    leading_batch: bool = False) -> dict:
-    """Per-tensor quantize -> dequantize over a dict of tensors, bucketed
-    by size: leaves of one size are stacked and served by ONE
-    :func:`qdq_batch` launch, or, past ``_MAX_ROW_ELEMS`` elements, by one
-    :func:`qdq_tiled` stats and one apply launch (per-row stats keep exact
-    per-tensor semantics). A ResNet-20 payload has 65 leaves of 13 sizes,
-    so 13 row launches; a WideResNet-28-10 payload has 80 leaves of 16
-    sizes, 3 of them past the threshold, so 13 row launches and 3 of each
-    of the pair.
+    """Per-tensor quantize -> dequantize over a dict of tensors. Every
+    leaf of at most ``_MAX_ROW_ELEMS`` elements (per client) goes into
+    ONE :func:`qdq_ragged` call, read in place; leaves past it are
+    bucketed by size, stacked and served by one :func:`qdq_tiled` stats
+    and one apply launch per bucket. Per-row stats keep exact per-tensor
+    semantics. A ResNet-20 payload has 65 leaves, all on the ragged pair;
+    a WideResNet-28-10 payload 80, 65 on the ragged pair and 15 in 3
+    buckets of the tiled pair.
 
     ``leading_batch=True`` is the uplink layout: each leaf carries a
-    leading ``[k]`` client axis, buckets key on (k, per-client size) and
-    stack to ``[b*k, n]`` so stats stay per (tensor, client)."""
-    buckets = {}
+    leading ``[k]`` client axis and is read as ``[k, n]`` (buckets of the
+    tiled pair key on (k, per-client size) and stack to ``[b*k, n]``), so
+    stats stay per (tensor, client)."""
+    rows_path, buckets = [], {}
     for name, x in tree.items():
         k = x.shape[0] if leading_batch else 1
-        buckets.setdefault((k, x.numel() // k), []).append(name)
+        n = x.numel() // k
+        if n > _MAX_ROW_ELEMS:
+            buckets.setdefault((k, n), []).append(name)
+        else:
+            rows_path.append((name, k, n))
     out = {}
+    if rows_path:
+        leaves = [tree[m].reshape(k, n).to(torch.float32).contiguous()
+                  for m, k, n in rows_path]
+        for (m, _, _), q in zip(rows_path, qdq_ragged(leaves, num_bits)):
+            out[m] = q.reshape(tree[m].shape).to(tree[m].dtype)
     for (k, n), names in buckets.items():
         stacked = torch.stack([tree[m].reshape(k, n) for m in names])
-        stacked = stacked.reshape(-1, n).to(torch.float32)
-        if n > _MAX_ROW_ELEMS:
-            q = qdq_tiled(stacked, num_bits)
-        else:
-            q = qdq_batch(stacked, num_bits)
+        q = qdq_tiled(stacked.reshape(-1, n).to(torch.float32), num_bits)
         q = q.reshape(len(names), k, n)
         for j, m in enumerate(names):
             out[m] = q[j].reshape(tree[m].shape).to(tree[m].dtype)

@@ -1,6 +1,7 @@
 """How far float32 summation order alone moves one quantized round.
 
-    python -m fedtorch_tpu_torch.tools.order_spread [--seeds 0-31]
+    python -m fedtorch_tpu_torch.tools.order_spread [--arch resnet8]
+        [--seeds 0-31] [--card]
 
 A pre-activation within float32 rounding of 0 lands on either side of
 its ReLU in two summation orders, and that one element moves the
@@ -12,15 +13,24 @@ hold a fixed bar of a few steps. ``chip_smoke.py`` instead measures the
 spread of the CPU against itself in ``SPREAD_ORDERS`` in the same run and
 holds the card to ``SPREAD_FACTOR`` times it.
 
-This program measures, on the CPU, what that factor must be. For each
-seed it runs the round in the reference order (NHWC memory, torch's
-default thread count) and in ``SPREAD_ORDERS`` + ``HELD_OUT_ORDERS``, and
-prints one JSON line per seed with each order's gap to the reference
-(the worst leaf's max |diff| in int8 downlink steps of the reference
-update, and the update's relative L2). Last it prints the largest ratio,
-over seeds, of a held-out order's gap to the larger gap of
-``SPREAD_ORDERS``: the card is one more order, so its gap should stay
-within that ratio of the measured spread.
+At ResNet-8 the round has few ReLU inputs, so its gap is set by
+whether one or two of them flip: a held-out order lands up to 10x the
+spread of ``SPREAD_ORDERS`` and no spread measured in a run bounds the
+next order. ``chip_smoke.py`` holds the ResNet-8 round instead to
+``SPREAD_FACTOR`` times ``RESNET8_MAX_GAP``, the largest gap this
+program measured between any two CPU orders over many seeds.
+
+This program measures, on the CPU, what those bars must be. For each
+seed it runs the round of ``--arch`` in the reference order (NHWC
+memory, torch's default thread count) and in ``SPREAD_ORDERS`` +
+``HELD_OUT_ORDERS`` (and on the card with ``--card``), and prints one
+JSON line per seed with each order's gap to the reference (the worst
+leaf's max |diff| in int8 downlink steps of the reference update, and
+the update's relative L2). Last it prints the largest ratio, over
+seeds, of a held-out order's gap to the larger gap of
+``SPREAD_ORDERS`` (the card is one more order, so its gap should stay
+within that ratio of the measured spread), and the largest gap of any
+CPU order (and of the card).
 
 The helpers (:func:`small_round_cfg`, :func:`run_round`,
 :func:`update_gap`) are the ones ``chip_smoke.py``'s reference phase
@@ -50,6 +60,10 @@ HELD_OUT_ORDERS = ("cpu-2thread", "cpu-3thread", "cpu-nchw-1thread")
 # gaps at a median of 0.88x the spread in steps (0.79x in relative L2)
 # and at most 1.56x (1.55x); the factor sits above every one of them.
 SPREAD_FACTOR = 2.0
+# the largest (steps, relative L2) gap to the reference of any order in
+# SPREAD_ORDERS + HELD_OUT_ORDERS over seeds 0-63 of the ResNet-8 round
+# (``--arch resnet8 --seeds 0-63`` on an 8-core CPU)
+RESNET8_MAX_GAP = (24.07326656326615, 0.015189800411462784)
 SAMPLES_PER_CLIENT = 16
 WIDEN = 4  # chip_smoke.py's WideResNet-16-4 round
 
@@ -64,6 +78,13 @@ def small_round_cfg(arch: str, **model):
         model=tcfg.ModelConfig(arch=arch, **model),
         optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
         train=tcfg.TrainConfig(local_step=2)).finalize()
+
+
+def round_cfg(arch: str):
+    """The round of the card-vs-CPU check of ``arch``."""
+    if arch == "resnet8":
+        return small_round_cfg("resnet8")
+    return small_round_cfg("wideresnet16", wideresnet_widen_factor=WIDEN)
 
 
 def _nchw_inside(module, args):
@@ -133,23 +154,38 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", default="0-31",
                     help="inclusive range, e.g. 0-31")
+    ap.add_argument("--arch", default="wideresnet16",
+                    choices=("wideresnet16", "resnet8"))
+    ap.add_argument("--card", action="store_true",
+                    help="also run the round on the card")
     args = ap.parse_args(argv)
-    cfg = small_round_cfg("wideresnet16", wideresnet_widen_factor=WIDEN)
+    if args.card:  # float32 on the card as on the CPU, as chip_smoke.py
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = round_cfg(args.arch)
+    cpu_orders = SPREAD_ORDERS + HELD_OUT_ORDERS
     ratio_steps = ratio_l2 = 0.0
+    worst = {"cpu": [0.0, 0.0], "cuda": [0.0, 0.0]}
     for seed in _seeds(args.seeds):
         ref, _ = run_round(cfg, seed, "cpu")
         ups = {o: run_round(cfg, seed, o)[0]
-               for o in SPREAD_ORDERS + HELD_OUT_ORDERS}
+               for o in cpu_orders + (("cuda",) if args.card else ())}
+        gaps = {o: update_gap(ref, u) for o, u in ups.items()}
         s_steps, s_l2 = spread(ref, ups)
-        held = [update_gap(ref, ups[o]) for o in HELD_OUT_ORDERS]
-        ratio_steps = max(ratio_steps, max(h[0] for h in held) / s_steps)
-        ratio_l2 = max(ratio_l2, max(h[1] for h in held) / s_l2)
+        held = [gaps[o] for o in HELD_OUT_ORDERS]
+        ratio_steps = max(ratio_steps,
+                          max(h[0] for h in held) / max(s_steps, 1e-12))
+        ratio_l2 = max(ratio_l2, max(h[1] for h in held) / max(s_l2, 1e-12))
+        for o, g in gaps.items():
+            w = worst["cuda" if o == "cuda" else "cpu"]
+            w[:] = max(w[0], g[0]), max(w[1], g[1])
         print(json.dumps(dict(seed=seed, threads=torch.get_num_threads(),
-                              gaps={o: update_gap(ref, u)
-                                    for o, u in ups.items()})), flush=True)
-    print(json.dumps(dict(widen=WIDEN, seeds=args.seeds,
+                              gaps=gaps)), flush=True)
+    print(json.dumps(dict(arch=args.arch, widen=WIDEN, seeds=args.seeds,
                           max_held_out_ratio_steps=ratio_steps,
                           max_held_out_ratio_l2=ratio_l2,
+                          max_cpu_gap=worst["cpu"],
+                          max_card_gap=worst["cuda"] if args.card else None,
                           spread_factor=SPREAD_FACTOR)))
     return 0
 

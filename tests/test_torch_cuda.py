@@ -102,11 +102,104 @@ def test_single_tensor_entry_routes_and_matches(cuda, n):
     before = (qk.launches, qk.stats_launches, qk.apply_launches)
     got = qk.fused_quantize_dequantize(x, 8)
     after = (qk.launches, qk.stats_launches, qk.apply_launches)
+    # at most 524,288 elements: one launch of the ragged pair
     row = n <= qk._MAX_ROW_ELEMS
     assert np.subtract(after, before).tolist() == (
         [1, 0, 0] if row else [0, 1, 1])
     plain = qk.qdq_batch_ref if row else qk.qdq_tiled_ref
     assert torch.equal(got, plain(x.view(1, -1), 8).view(-1))
+
+
+def _row_path_shapes(arch, widen=None, k=10):
+    """The ragged pair's uplink and downlink leaves on a main path: every
+    parameter of at most ``_MAX_ROW_ELEMS`` elements, as [k, n] and
+    [1, n]."""
+    kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
+    data = tcfg.DataConfig(dataset="shakespeare" if arch == "transformer"
+                           else "cifar10")
+    model = tcfg.ModelConfig(arch=arch, **kw) if arch != "transformer" \
+        else tcfg.ModelConfig(arch=arch, rnn_hidden_size=128,
+                              mlp_num_layers=4, rnn_seq_len=2048)
+    cfg = tcfg.ExperimentConfig(data=data, model=model).finalize()
+    ns = [v.numel() for _, v in
+          define_model(cfg, device="cpu").module.named_parameters()]
+    ns = [n for n in ns if n <= qk._MAX_ROW_ELEMS]
+    return [(k, n) for n in ns], [(1, n) for n in ns]
+
+
+def _assert_ragged_matches(leaves, bits, bitwise=False):
+    """The pair against its plain version: the same NaN pattern, and each
+    element within one step of its row (bitwise if asked)."""
+    got = qk.qdq_ragged(leaves, bits)
+    want = qk.qdq_ragged_ref(leaves, bits)
+    for x, g, w in zip(leaves, got, want):
+        assert g.shape == x.shape
+        assert torch.equal(g.isnan(), w.isnan())
+        if bitwise:
+            assert bool(((g == w) | g.isnan()).all())
+            continue
+        x, g, w = (t.cpu().numpy() for t in (x, g, w))
+        fin = np.where(np.isfinite(x), x, 0.0)
+        steps = _steps(fin, bits)
+        d = np.nan_to_num(np.abs(g - w), nan=0.0)
+        assert np.all(d <= steps * (1 + 1e-5)
+                      + 1e-6 * np.abs(np.nan_to_num(w)) + 1e-7)
+
+
+@pytest.mark.parametrize("arch, widen", [("resnet20", None),
+                                         ("wideresnet28", 10),
+                                         ("transformer", None)])
+def test_ragged_pair_at_the_main_paths_row_trees(cuda, arch, widen):
+    """One launch of each kernel per tree call at each main path's
+    row-path trees, uplink (k = 10) and downlink; int8 random and int16
+    bitwise on dyadic inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for shapes in _row_path_shapes(arch, widen):
+        leaves = [torch.randn(s, generator=gen, device=cuda) * 1e-3
+                  for s in shapes]
+        before = (qk.ragged_stats_launches, qk.ragged_apply_launches)
+        _assert_ragged_matches(leaves, 8)
+        assert (qk.ragged_stats_launches - before[0],
+                qk.ragged_apply_launches - before[1]) == (1, 1)
+        dyadic = [torch.randint(-64, 65, s, generator=gen,
+                                device=cuda).float() / 16 for s in shapes]
+        _assert_ragged_matches(dyadic, 16, bitwise=True)
+
+
+def test_ragged_pair_on_misaligned_and_non_finite_rows(cuda):
+    """Rows of 1, 10 and 86 elements put later rows off 16-byte
+    alignment; a leaf of rows spanning chunks has NaN in a first chunk,
+    +inf in a middle one, -inf in a ragged last one and a constant row;
+    a dyadic tree with NaN stays bitwise with the NaN pattern kept."""
+    rng = np.random.RandomState(4)
+    n = 3 * qk._CHUNK + 101
+    edge = rng.randn(5, n).astype(np.float32)
+    edge[1, 5] = np.nan
+    edge[2, qk._CHUNK + 17] = np.inf
+    edge[3, n - 1] = -np.inf
+    edge[4] = 0.25
+    leaves = [rng.randn(10, m).astype(np.float32) for m in (1, 10, 86)]
+    leaves = [torch.from_numpy(x).to(cuda) for x in leaves + [edge]]
+    for bits in (8, 16):
+        _assert_ragged_matches(leaves, bits)
+    got = qk.qdq_ragged(leaves, 8)
+    assert torch.equal(got[3][4], leaves[3][4])
+    assert bool(got[3][1:4].isnan().all())
+    dy = [(rng.randint(-64, 65, size=s) / 16.0).astype(np.float32)
+          for s in ((10, 86), (4, 2 * qk._CHUNK + 3))]
+    dy[0][2, 7] = np.nan
+    dy[1][3, qk._CHUNK + 1] = np.nan
+    _assert_ragged_matches([torch.from_numpy(x).to(cuda) for x in dy], 8,
+                           bitwise=True)
+
+
+def test_a_tree_larger_than_one_table_takes_more_launches(cuda):
+    leaves = [torch.randn(2, 1 + i, device=cuda)
+              for i in range(qk._TABLE_LEAVES + 34)]
+    before = (qk.ragged_stats_launches, qk.ragged_apply_launches)
+    _assert_ragged_matches(leaves, 8)
+    assert (qk.ragged_stats_launches - before[0],
+            qk.ragged_apply_launches - before[1]) == (2, 2)
 
 
 def test_quantized_round_on_the_card_matches_the_cpu(cuda):
@@ -138,8 +231,8 @@ def test_quantized_round_on_the_card_matches_the_cpu(cuda):
         before = qk.launches
         server, clients, m = tr.round_fn(server, clients, plan)
         if dev != "cpu":
-            assert qk.launches - before == 2 * len(
-                {v.numel() for v in p0.values()})
+            # one ragged pair launch per tree call: uplink and downlink
+            assert qk.launches - before == 2
         out[str(dev)] = {k: v.cpu() - p0[k]
                          for k, v in server.params.items()}
     for k, u in out["cpu"].items():

@@ -207,14 +207,17 @@ def test_tree_matches_jax_on_a_resnet8_payload(leading_batch):
 
 
 def test_tree_launches_one_kernel_per_bucket(monkeypatch):
+    """Every leaf on the row path (all three here) goes into one call of
+    the ragged pair, as its [k, n] view, in tree order: one stats and one
+    apply launch for the whole tree."""
     calls = []
-    real = qk.qdq_batch
-    monkeypatch.setattr(qk, "qdq_batch",
-                        lambda x, b: calls.append(x.shape) or real(x, b))
+    real = qk.qdq_ragged
+    monkeypatch.setattr(qk, "qdq_ragged", lambda leaves, b: calls.append(
+        [tuple(x.shape) for x in leaves]) or real(leaves, b))
     tree = {"a": torch.ones(2, 3, 4), "b": torch.zeros(2, 12),
             "c": torch.ones(2, 5)}
     out = qk.fused_quantize_dequantize_tree(tree, 8, leading_batch=True)
-    assert sorted(calls) == [(2, 5), (4, 12)]
+    assert calls == [[(2, 12), (2, 12), (2, 5)]]
     assert {n: v.shape for n, v in out.items()} == \
         {n: v.shape for n, v in tree.items()}
 

@@ -192,16 +192,21 @@ def test_tree_routes_large_buckets_through_the_pair(monkeypatch,
                                                     leading_batch):
     """Both packages' thresholds shrunk to 256 elements: the JAX tree
     serves each oversize slice with the tiled Pallas pair, the port each
-    oversize bucket with ONE stats and ONE apply call; the values agree
-    within one step per (tensor, client)."""
+    oversize bucket with ONE stats and ONE apply call, and every leaf
+    under the threshold with ONE ragged call; the values agree within one
+    step per (tensor, client)."""
     monkeypatch.setattr(jqk, "_MAX_VMEM_ELEMS", 256)
     monkeypatch.setattr(qk, "_MAX_ROW_ELEMS", 256)
     calls = []
-    for name in ("qdq_batch", "qdq_tiled_stats", "qdq_tiled_apply"):
+    for name in ("qdq_tiled_stats", "qdq_tiled_apply"):
         real = getattr(qk, name)
         monkeypatch.setattr(qk, name, lambda x, *a, _n=name, _f=real:
                             calls.append((_n, tuple(x.shape)))
                             or _f(x, *a))
+    real_ragged = qk.qdq_ragged
+    monkeypatch.setattr(qk, "qdq_ragged", lambda leaves, b: calls.append(
+        ("qdq_ragged", tuple(tuple(x.shape) for x in leaves)))
+        or real_ragged(leaves, b))
     k, bits = 3, 8
     flat = _leaves(np.random.RandomState(9), k if leading_batch else 0)
     want = jqk.fused_quantize_dequantize_tree(
@@ -212,7 +217,7 @@ def test_tree_routes_large_buckets_through_the_pair(monkeypatch,
         leading_batch)
     rows = k if leading_batch else 1
     assert sorted(calls) == [
-        ("qdq_batch", (2 * rows, 200)),
+        ("qdq_ragged", ((rows, 200), (rows, 200))),
         ("qdq_tiled_apply", (rows, 1500)),
         ("qdq_tiled_apply", (2 * rows, 700)),
         ("qdq_tiled_stats", (rows, 1500)),
