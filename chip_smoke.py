@@ -44,8 +44,11 @@ of JAX or of the JAX package. Phases, each fatal on failure:
      2e-5, bfloat16 o within one bfloat16 spacing past that bar, the
      NaN pattern identical. Both kernels timed at the path's shape
      (bfloat16, inputs rotating over at least 128 MB) against the plain
-     version and ``F.scaled_dot_product_attention``, and the SIMT
-     kernel's float32 route against float32 SDPA with TF32 off;
+     version and ``F.scaled_dot_product_attention``; the SIMT kernel
+     also on its own routes at that shape: float32 (its kernels-line
+     numbers: against its plain version, float32 SDPA with TF32 off and
+     the float32 bound) and bfloat16 at head dim 128 (the route of a
+     ``rnn_hidden_size`` 256 transformer) against bf16 SDPA;
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
    through the pair) on the card against the same on the CPU (TF32
@@ -66,20 +69,33 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    ``FederatedTrainer`` -> ``init_state`` -> ``run_rounds``): quantized
    FedAvg, ResNet-20 in bfloat16, 100 clients x 250 CIFAR-10-shaped
    samples made from ``--seed``, k = 10, batch 50, 10 local steps, flip
-   and crop augmentation; 1 warm-up round, then 3 timed rounds. The
+   and crop augmentation; 1 warm-up round, then 2 timed rounds. The
    launch counters are set to 0 just before and must read 2 ragged
    stats and 2 ragged apply launches per round after;
 6. profile: one more main-path round under ``torch.profiler`` — the
    device's busy share and its time by kernel (another round, up to
    three in all, if the profiler lost the records of the round's
    quantizer launches);
-7. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
+7. cli: the port's program as a user runs it,
+   ``fedtorch_tpu_torch.cli.main`` on ``CLI_ARGV`` (the north-star
+   round: ResNet-20, 100 clients, k = 10, batch 50, 10 local steps,
+   int8 both ways, bf16, 3 rounds, the test set evaluated every round)
+   with ``-p`` a temporary directory holding CIFAR-10 python-pickle
+   files of random pixels and labels made from ``--seed`` (50,000
+   training and 10,000 test images, ~184 MB) and ``-c`` a directory
+   beside them for the run's log. The counters must read 2 ragged stats
+   and 2 ragged apply launches per round; the results dict must hold 3
+   rounds and a finite test and best top-1 in [0, 1]; the final server
+   params evaluated in float32 on the first 1,024 test images on the
+   card (TF32 off) and on the CPU must agree within ``CLI_EVAL_BAR``.
+   Prints the data-build seconds, round ms, eval ms per call and top-1;
+8. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
    round. The counters must read the launches derived from the model's
    own leaf sizes (2 ragged stats, 2 ragged apply, 6 tiled stats, 6
    tiled apply per round);
-8. transformer main path: quantized FedAvg on the causal transformer LM
+9. transformer main path: quantized FedAvg on the causal transformer LM
    with flash attention at the widest configuration ``define_model``
    gives (``rnn_hidden_size`` 128: d_model 256, 4 heads of 64, 4 layers,
    T 2048, 3,723,862 params, bfloat16), 100 clients x 100 windows of
@@ -87,10 +103,14 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    batch 8, 10 local steps, SGD lr 0.05; 1 warm-up, 2 timed and 1
    profiled round. The counters must read 400 flash launches (layers x
    local steps x k), all on the tensor-core kernel, and 2 ragged stats
-   and 2 ragged apply launches per round.
+   and 2 ragged apply launches per round. Then ``evaluate`` of its
+   server params on 32 windows of 2048 at batch 8: 16 tensor-core flash
+   launches (layers x batches) under inference mode, and its loss within
+   ``LM_EVAL_LOSS_BAR`` of the same evaluation through the plain flash
+   version on the card.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
-``wrn_main_path``, ``wrn_profile``, ``transformer_main_path`` and
+``cli``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path`` and
 ``transformer_profile`` lines, the card's name and power limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without CUDA.
@@ -102,6 +122,8 @@ import gc
 import itertools
 import json
 import math
+import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -137,7 +159,7 @@ COLD_BYTES = 128 * 2 ** 20
 
 # north-star sizes (bench.py)
 NUM_CLIENTS, SAMPLES, BATCH, LOCAL_STEPS, ONLINE_RATE = 100, 250, 50, 10, 0.1
-TIMED_ROUNDS = 3
+TIMED_ROUNDS = 2
 WRN_TIMED_ROUNDS = 2
 # the transformer path: define_model gives d_model 2 * 128 = 256, 4 heads
 # of 64, 4 layers; 100 windows of 2048 characters per client, batch 8
@@ -146,6 +168,26 @@ LM = dict(rnn_hidden_size=128, mlp_num_layers=4, rnn_seq_len=2048,
 LM_WINDOWS, LM_BATCH, LM_TIMED_ROUNDS = 100, 8, 2
 LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
+# the CLI path: the north-star round from CIFAR-10 files at full size
+# (50,000 training images over 100 clients, 10,000 test images evaluated
+# every round in 40 batches of 256)
+CLI_ROUNDS = 3
+CLI_ARGV = ["-d", "cifar10", "-a", "resnet20", "-f", "true", "--num_workers",
+            "100", "--online_client_rate", "0.1", "--federated_sync_type",
+            "local_step", "--local_step", "10", "-b", "50", "--lr", "0.1",
+            "--in_momentum", "true", "--quantized", "true", "--compute_dtype",
+            "bfloat16", "--num_comms", str(CLI_ROUNDS), "--evaluate", "true",
+            "--eval_freq", "1"]
+CLI_BATCH_IMAGES = 10_000
+CLI_SUBSET = 1024
+# float32 evaluate of the final params, card (TF32 off) vs CPU, on
+# CLI_SUBSET images: the two sum the convolutions in other orders
+CLI_EVAL_BAR = dict(loss_rel=1e-4, top_images=2)
+# the transformer path's evaluate: 4 batches of 8 windows
+LM_EVAL_WINDOWS = 32
+# its loss through the kernel vs through the plain version, both bf16:
+# one bfloat16 spacing at the loss's magnitude
+LM_EVAL_LOSS_BAR = 2.0 ** -8
 PROFILE_TRIES = 3
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
@@ -650,12 +692,13 @@ def qkv_views(gen, B, T, H, D, dtype, offset=0):
     return tuple(c.view(B, T, H, D) for c in x.chunk(3, dim=-1))
 
 
-def flash_bound(B, T, H, D, elem, causal=True):
+def flash_bound(B, T, H, D, elem, causal=True, peak=BF16_OPS_PER_S):
     """(bound ms, what bounds it): 4 B H D T(T+1)/2 operations (causal;
-    T^2 pairs otherwise) at the bf16 tensor-core peak, q, k, v read and
-    o, lse written once at the memory rate."""
+    T^2 pairs otherwise) at ``peak`` (the bf16 tensor-core rate; the
+    float32 route's is ``FP32_OPS_PER_S``), q, k, v read and o, lse
+    written once at the memory rate."""
     pairs = T * (T + 1) / 2 if causal else T * T
-    ops_ms = 4 * B * H * D * pairs / BF16_OPS_PER_S * 1e3
+    ops_ms = 4 * B * H * D * pairs / peak * 1e3
     bytes_ms = (4 * B * T * H * D * elem + 4 * B * H * T) \
         / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
@@ -777,6 +820,7 @@ def flash_phase(fa):
         f32_views), inner=5, reps=7)
     backend_f32 = sdpa_backend(*f32_views[0])
     del f32_views
+    simt = simt_route_times(fa, gen)
     b = flash_bound(B, T, H, D, 2)
     log(f"flash kernels at {LM_SHAPE} bf16 causal: tensor cores "
         f"{ms['tc']:.4f} ms ({ms['tc'] / library_ms:.2f}x SDPA, "
@@ -801,9 +845,71 @@ def flash_phase(fa):
                       vs_library=ms[r] / library_ms, vs_bound=ms[r] / b[0],
                       **common)
     out["tc"]["library_vs_kernel_max_abs"] = lib_diff
-    out["simt"].update(library_f32_ms=library_f32_ms,
-                       library_f32_backend=backend_f32)
+    # the SIMT kernel's line carries its own route's type, float32, at the
+    # path's shape; its bf16 time at head dim 64 and 128 ride beside it
+    bf16 = {f"bf16_{k}": v for k, v in out["simt"].items()
+            if k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                     "vs_library", "vs_bound")}
+    out["simt"].update(
+        bf16, ms=simt["f32_ms"], plain_ms=simt["f32_plain_ms"],
+        bound_ms=simt["f32_bound_ms"], bound_by=simt["f32_bound_by"],
+        library_ms=library_f32_ms, library_backend=backend_f32,
+        library_note="F.scaled_dot_product_attention(is_causal=True) on "
+                     "the same float32 tensors as [B, H, T, D] views, TF32 "
+                     "off",
+        vs_library=simt["f32_ms"] / library_f32_ms,
+        vs_bound=simt["f32_ms"] / simt["f32_bound_ms"],
+        timed_dtype="float32", **{k: v for k, v in simt.items()
+                                  if k.startswith("bf16_d128")})
     return out["tc"], out["simt"]
+
+
+def simt_route_times(fa, gen):
+    """The SIMT kernel on its own routes at the transformer path's
+    shape: float32 at head dim 64 (against its plain version and the
+    float32 bound), and bfloat16 at head dim 128, the route of a
+    ``rnn_hidden_size`` 256 transformer (4 heads of 128), against bf16
+    SDPA at that head dim. Inputs rotate over at least COLD_BYTES."""
+    import torch.nn.functional as F
+    B, T, H, D = LM_SHAPE
+    out = {}
+    for key, dtype, d in (("f32", torch.float32, D),
+                          ("bf16_d128", torch.bfloat16, 128)):
+        elem = torch.finfo(dtype).bits // 8
+        per = 3 * B * T * H * d * elem
+        views = [qkv_views(gen, B, T, H, d, dtype)
+                 for _ in range(max(1, math.ceil(COLD_BYTES / per)))]
+        if any(fa._route(*qkv) != "simt" for qkv in views):
+            raise AssertionError(f"{key} views do not take the SIMT route")
+        scale = 1.0 / math.sqrt(d)
+        out[f"{key}_ms"] = device_ms(rotating(
+            lambda q, k, v: fa.flash_fwd(q, k, v, scale, True), views),
+            inner=5, reps=7)
+        b = flash_bound(B, T, H, d, elem, peak=FP32_OPS_PER_S
+                        if dtype == torch.float32 else BF16_OPS_PER_S)
+        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = b
+        if dtype == torch.float32:
+            out["f32_plain_ms"] = device_ms(rotating(
+                lambda q, k, v: fa.flash_fwd_ref(q, k, v, scale, True),
+                views), inner=2, reps=5)
+        else:
+            lib = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
+            out[f"{key}_library_ms"] = device_ms(rotating(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), lib), inner=10, reps=11)
+            out[f"{key}_library_backend"] = sdpa_backend(*lib[0])
+            del lib
+        del views
+        torch.cuda.empty_cache()
+    log(f"SIMT flash kernel at {LM_SHAPE}: float32 {out['f32_ms']:.4f} ms "
+        f"(plain {out['f32_plain_ms']:.4f}, bound {out['f32_bound_ms']:.5f} "
+        f"by {out['f32_bound_by']}, {out['f32_ms'] / out['f32_bound_ms']:.1f}x"
+        f"); bf16 at head dim 128 {out['bf16_d128_ms']:.4f} ms against bf16 "
+        f"SDPA {out['bf16_d128_library_ms']:.4f} "
+        f"({out['bf16_d128_ms'] / out['bf16_d128_library_ms']:.1f}x) via "
+        f"{out['bf16_d128_library_backend']}, bound "
+        f"{out['bf16_d128_bound_ms']:.5f}")
+    return out
 
 
 def _round_card_vs_cpu(os_mod, cfg, qk, fa, seed, runs=("cpu", "cuda")):
@@ -1122,6 +1228,164 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     return out, trainer, server, clients
 
 
+def write_cifar10(root: str, seed: int) -> float:
+    """A CIFAR-10 python-pickle tree (``cifar-10-batches-py``: five
+    training batches of 10,000 images and a test batch of 10,000) of
+    random pixels and labels made from ``seed``, the layout the real
+    files have; returns the megabytes written."""
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name in names:
+        batch = {b"batch_label": name.encode(),
+                 b"labels": rng.randint(0, 10, CLI_BATCH_IMAGES).tolist(),
+                 b"data": rng.randint(0, 256, (CLI_BATCH_IMAGES, 3072),
+                                      dtype=np.uint8)}
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump(batch, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return sum(os.path.getsize(os.path.join(base, n)) for n in names) / 1e6
+
+
+def cli_phase(seed, tcfg, define_model, qk, fa):
+    """The port's CLI as a user runs it (``fedtorch_tpu_torch.cli.main``
+    on ``CLI_ARGV``) on CIFAR-10 files written from ``seed`` into a
+    temporary directory, which also takes the run's log (``-c``). The
+    counters are set to 0 just before and must read 2 ragged stats and 2
+    ragged apply launches per round after. Then the final server params
+    are evaluated on the first ``CLI_SUBSET`` test images on the card and
+    on the CPU, both in float32 (TF32 off), and must agree within
+    ``CLI_EVAL_BAR``. Returns the phase's numbers."""
+    import tempfile
+
+    from fedtorch_tpu_torch import cli
+    from fedtorch_tpu_torch.data.datasets import load_cifar
+    from fedtorch_tpu_torch.parallel.evaluate import evaluate
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        mb = write_cifar10(root, seed)
+        write_s = time.perf_counter() - t0
+        argv = CLI_ARGV + ["-p", root, "-c", os.path.join(root, "runs")]
+        final = {}
+
+        def keep_final(r, trainer, server, clients, metrics):
+            if r == CLI_ROUNDS - 1:
+                final["params"] = {k: v.detach().clone()
+                                   for k, v in server.params.items()}
+                final["cfg"] = trainer.cfg
+
+        reset_counters(qk, fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(argv, round_callback=keep_final)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launched = counters(qk, fa)
+        test_x, test_y = load_cifar("cifar10", root)[2:4]
+    want = dict(ragged_stats=2 * CLI_ROUNDS, ragged_apply=2 * CLI_ROUNDS,
+                stats=0, apply=0, flash=0, flash_tc=0)
+    if launched != want:
+        raise AssertionError(f"cli: kernels launched {launched}, expected "
+                             f"{want}")
+    if res.get("rounds") != CLI_ROUNDS or not all(
+            math.isfinite(res[k]) and 0.0 <= res[k] <= 1.0
+            for k in ("test_top1", "best_top1")):
+        raise AssertionError(f"cli results {res}")
+    timer = res["timer"]
+
+    # the final server params, evaluated on the card and on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import dataclasses
+    cfg = final["cfg"]
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, compute_dtype="float32"))
+    x, y = test_x[:CLI_SUBSET], test_y[:CLI_SUBSET]
+    got = [float(v) for v in evaluate(define_model(cfg, device="cuda"),
+                                      final["params"], x, y)]
+    want_cpu = [float(v) for v in evaluate(
+        define_model(cfg, device="cpu"),
+        {k: v.cpu() for k, v in final["params"].items()}, x, y)]
+    torch.backends.cudnn.allow_tf32 = True
+    loss_rel = abs(got[0] - want_cpu[0]) / abs(want_cpu[0])
+    top_gap = [abs(g - w) * CLI_SUBSET for g, w in zip(got[1:], want_cpu[1:])]
+    out = dict(argv=CLI_ARGV, rounds=res["rounds"],
+               test_top1=res["test_top1"], best_top1=res["best_top1"],
+               data_mb_written=mb, data_write_s=write_s,
+               data_build_s=timer["data"],
+               round_ms=timer["round"] / CLI_ROUNDS * 1e3,
+               eval_ms_per_call=timer["eval"] / CLI_ROUNDS * 1e3,
+               run_s=run_s, launches=launched,
+               launches_per_round={c: n / CLI_ROUNDS
+                                   for c, n in launched.items()},
+               subset_eval=dict(images=CLI_SUBSET, card=got, cpu=want_cpu,
+                                loss_rel_diff=loss_rel,
+                                top1_top5_diff_images=top_gap,
+                                bar=CLI_EVAL_BAR))
+    log(f"cli: {mb:.1f} MB of CIFAR-10 files written in {write_s:.2f} s; "
+        f"data build {timer['data']:.2f} s, {out['round_ms']:.1f} ms/round, "
+        f"eval {out['eval_ms_per_call']:.1f} ms per call "
+        f"({len(test_y):,} images), "
+        f"test top-1 {res['test_top1']:.4f} (best {res['best_top1']:.4f}); "
+        f"launches {launched}; final params on {CLI_SUBSET} test images, "
+        f"float32 card vs CPU: loss {got[0]:.6f} vs {want_cpu[0]:.6f} "
+        f"(relative {loss_rel:.3e}), top-1/top-5 apart by {top_gap} images")
+    if loss_rel > CLI_EVAL_BAR["loss_rel"] \
+            or max(top_gap) > CLI_EVAL_BAR["top_images"]:
+        raise AssertionError(f"cli: card evaluate vs CPU {got} vs "
+                             f"{want_cpu}")
+    return out
+
+
+def lm_eval_step(trainer, server, seed, qk, fa):
+    """``evaluate`` of the transformer path's server params on
+    ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
+    batch ``LM_BATCH``: one tensor-core flash launch per layer and batch
+    (the counters set to 0 just before), no saved tensors under
+    inference mode; then the same evaluation through the plain flash
+    version on the card, whose loss it must match within
+    ``LM_EVAL_LOSS_BAR``."""
+    from fedtorch_tpu_torch.parallel.evaluate import evaluate
+    cfg = trainer.cfg
+    T = cfg.model.rnn_seq_len
+    stream = np.random.RandomState(seed + 1).randint(
+        0, cfg.model.vocab_size, LM_EVAL_WINDOWS * T + 1).astype(np.int32)
+    x, y = stream[:-1].reshape(-1, T), stream[1:].reshape(-1, T)
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [float(v) for v in evaluate(trainer.model, server.params, x, y,
+                                      batch_size=LM_BATCH)]
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launched = counters(qk, fa)
+    batches = -(-LM_EVAL_WINDOWS // LM_BATCH)
+    want = dict(ragged_stats=0, ragged_apply=0, stats=0, apply=0,
+                flash=cfg.model.mlp_num_layers * batches)
+    want["flash_tc"] = want["flash"]
+    if launched != want:
+        raise AssertionError(f"transformer evaluate launched {launched}, "
+                             f"expected {want}")
+    kernel_fwd = fa.flash_fwd
+    fa.flash_fwd = fa.flash_fwd_ref  # the plain version, on the card
+    try:
+        plain = [float(v) for v in evaluate(trainer.model, server.params,
+                                            x, y, batch_size=LM_BATCH)]
+    finally:
+        fa.flash_fwd = kernel_fwd
+    rel = abs(got[0] - plain[0]) / abs(plain[0])
+    log(f"transformer evaluate ({LM_EVAL_WINDOWS} windows of {T}, batch "
+        f"{LM_BATCH}): {eval_ms:.1f} ms, launches {launched}; loss "
+        f"{got[0]:.6f}, plain flash {plain[0]:.6f} (relative {rel:.3e}, bar "
+        f"{LM_EVAL_LOSS_BAR:.3e}); top-1 {got[1]:.4f} vs {plain[1]:.4f}")
+    if not math.isfinite(got[0]) or rel > LM_EVAL_LOSS_BAR:
+        raise AssertionError(f"transformer evaluate {got} vs plain {plain}")
+    return dict(windows=LM_EVAL_WINDOWS, batch=LM_BATCH, eval_ms=eval_ms,
+                launches=launched, loss=got[0], top1=got[1], top5=got[2],
+                plain_loss=plain[0], plain_top1=plain[1],
+                loss_rel_diff=rel, bar=LM_EVAL_LOSS_BAR)
+
+
 def _kind(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
@@ -1281,10 +1545,15 @@ def main(argv=None) -> int:
     prof = profile_phase(trainer, server, clients,
                          main["launches_per_round"])
 
-    phase("WideResNet main path")
+    phase("cli")
     del trainer, server, clients
     gc.collect()
     torch.cuda.empty_cache()
+    cli_out = cli_phase(args.seed, tcfg, define_model, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
         FederatedTrainer, qk, fa, arch="wideresnet28", widen=10,
@@ -1313,11 +1582,13 @@ def main(argv=None) -> int:
                              "and 2 + 2 ragged launches per transformer "
                              "round")
     lm["reference"] = lm_ref
+    lm["evaluate"] = lm_eval_step(trainer, server, args.seed, qk, fa)
     lm_prof = profile_phase(trainer, server, clients,
                             lm["launches_per_round"])
     del trainer, server, clients
 
-    paths = (("resnet20", main), ("wideresnet28_10", wrn),
+    cli_out["tree_launches"] = cli_out["launches"]
+    paths = (("resnet20", main), ("cli", cli_out), ("wideresnet28_10", wrn),
              ("transformer", lm))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
@@ -1354,7 +1625,9 @@ def main(argv=None) -> int:
              library_ms=None, library_note=NO_LIBRARY, **single_fields),
         dict(name="flash_fwd_tc", route="cuda", source=FLASH_TC_SOURCE,
              replaces=FLASH_TPU_KERNEL, launches=lm["launches"]["flash_tc"],
-             launches_by_path=by_path["flash_tc"],
+             launches_by_path=dict(
+                 by_path["flash_tc"],
+                 transformer_evaluate=lm["evaluate"]["launches"]["flash_tc"]),
              launches_per_round=lm["launches_per_round"]["flash_tc"],
              **flash_tc_fields),
         # the SIMT kernel takes float32, other head dims and misaligned
@@ -1369,6 +1642,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"cli": cli_out, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

@@ -77,7 +77,8 @@ class FedAlgorithm:
                 client_aux=client_aux, server_aux=server_aux, lr=lr)
             params, opt = optim.local_step(params, grads, opt, lr,
                                            self.cfg.optim)
-            acc = accuracy(logits, by)
+            acc = accuracy(logits, by) if not self.model.is_regression \
+                else logits.new_zeros((), dtype=torch.float32)
         return params, opt, client_aux, loss.detach(), acc
 
     # -- aggregation -----------------------------------------------------

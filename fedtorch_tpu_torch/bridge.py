@@ -18,7 +18,11 @@ With ``module`` (the port's model) the kind is the class of the
 submodule that owns the leaf, so explicitly named layers (the
 transformer's ``qkv``, ``ln1``, ``tok_embed``) map too; without it, the
 kind is read off flax's auto-name (``Conv_0`` -> ``Conv``), which covers
-the ResNet and WideResNet trees.
+the ResNet, WideResNet and linear trees, and a layer named explicitly
+(the MLP's ``layer1`` and ``fc``) maps by its leaf and rank: a 2-D
+kernel is a ``Dense`` one, a 4-D kernel a ``Conv`` one, a 1-D scale a
+norm's (an ``Embed`` table, 2-D like a ``Dense`` weight, needs
+``module``).
 
 Both directions raise on any leaf they cannot map, and
 :func:`params_from_jax` raises when the result does not cover the model
@@ -55,6 +59,13 @@ _RULES = {
 }
 _RULES["LayerNorm"] = _RULES["BatchStatsNorm"]
 
+# without ``module``, the kind of an explicitly named layer's leaf, by
+# (leaf, rank) in either direction
+_BY_LEAF = {("kernel", 2): "Dense", ("kernel", 4): "Conv",
+            ("scale", 1): "BatchStatsNorm", ("weight", 2): "Dense",
+            ("weight", 4): "Conv", ("weight", 1): "BatchStatsNorm",
+            ("bias", 1): "Dense"}
+
 
 def _kind(owner: list, module) -> Optional[str]:
     """The kind of the module at path ``owner``; None for the model
@@ -69,9 +80,16 @@ def _kind(owner: list, module) -> Optional[str]:
         return "unknown"
 
 
+def _kind_of_leaf(owner: list, leaf: str, ndim: int, module):
+    kind = _kind(owner, module)
+    if module is None and kind not in _RULES and owner:
+        return _BY_LEAF.get((leaf, ndim), kind)
+    return kind
+
+
 def _to_torch_leaf(path: str, value: np.ndarray, module=None):
     *owner, leaf = path.split("/")
-    kind = _kind(owner, module)
+    kind = _kind_of_leaf(owner, leaf, value.ndim, module)
     if kind is None:
         return leaf, value
     rule = _RULES.get(kind, {}).get(leaf)
@@ -83,7 +101,7 @@ def _to_torch_leaf(path: str, value: np.ndarray, module=None):
 
 def _to_jax_leaf(key: str, value: np.ndarray, module=None):
     *owner, leaf = key.split(".")
-    kind = _kind(owner, module)
+    kind = _kind_of_leaf(owner, leaf, value.ndim, module)
     if kind is None:
         return leaf, value
     for flax_leaf, (name, _, back, ndim) in _RULES.get(kind, {}).items():

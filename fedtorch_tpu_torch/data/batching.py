@@ -57,10 +57,12 @@ def stack_partitions(features: np.ndarray, labels: np.ndarray,
     C = len(partitions)
     x = np.ascontiguousarray(features[idx_all])
     y = np.ascontiguousarray(labels[idx_all])
+    # class ids as int64; regression targets stay float32
+    y = y.astype(np.float32 if np.issubdtype(y.dtype, np.floating)
+                 else np.int64)
     return ClientData(
         x=torch.from_numpy(x.reshape((C, n_max) + x.shape[1:])),
-        y=torch.from_numpy(
-            y.reshape((C, n_max) + y.shape[1:]).astype(np.int64)),
+        y=torch.from_numpy(y.reshape((C, n_max) + y.shape[1:])),
         sizes=torch.from_numpy(sizes.astype(np.int32)))
 
 

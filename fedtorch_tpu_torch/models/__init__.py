@@ -1,8 +1,9 @@
 """Model registry (port of ``fedtorch_tpu/models/__init__.py``).
 
 The CIFAR-family ``resnet*`` and ``wideresnet*`` (without dropout) with
-``norm='bn'`` and the native conv lowering, and the causal
-``transformer`` LM (dense MLP blocks) are ported; every other
+``norm='bn'`` and the native conv lowering, the causal ``transformer``
+LM (dense MLP blocks), and the flat models ``logistic_regression``,
+``least_square`` and ``mlp`` (without dropout) are ported; every other
 architecture and option is refused by name.
 """
 from __future__ import annotations
@@ -10,7 +11,11 @@ from __future__ import annotations
 import torch
 
 from fedtorch_tpu_torch.config import ExperimentConfig
-from fedtorch_tpu_torch.models.common import ModelDef, image_shape
+from fedtorch_tpu_torch.models.common import (
+    REGRESSION_DIMS, ModelDef, flat_input_size, image_shape,
+)
+from fedtorch_tpu_torch.models.linear import LeastSquare, LogisticRegression
+from fedtorch_tpu_torch.models.mlp import MLP
 from fedtorch_tpu_torch.models.resnet import build_resnet
 from fedtorch_tpu_torch.models.transformer import TransformerLM
 from fedtorch_tpu_torch.models.wideresnet import build_wideresnet
@@ -33,10 +38,15 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     dtype = COMPUTE_DTYPES[cfg.mesh.compute_dtype]
     if arch == "transformer":
         return _transformer(m, dtype, batch_size, device)
+    if arch in _FLAT_ARCHS:
+        return _flat(cfg, dtype, batch_size, device)
+    if arch in _REFUSED_ARCHS:
+        raise ValueError(f"arch {arch!r} is not yet ported: "
+                         f"{_REFUSED_ARCHS[arch]}")
     if not arch.startswith(("resnet", "wideresnet")):
         raise ValueError(f"arch {arch!r} is not yet ported (the port has "
-                         "the cifar resnet* and wideresnet* families and "
-                         "the transformer)")
+                         "the cifar resnet* and wideresnet* families, the "
+                         f"transformer and {', '.join(_FLAT_ARCHS)})")
     if arch.startswith("wideresnet") and m.drop_rate > 0:
         raise ValueError(f"drop_rate {m.drop_rate} (dropout in "
                          "wideresnet blocks) is not yet ported")
@@ -55,6 +65,47 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     sample = torch.zeros((batch_size,) + image_shape(dataset),
                          device=device)
     return ModelDef(arch, module, sample)
+
+
+_FLAT_ARCHS = ("logistic_regression", "least_square", "mlp")
+_REFUSED_ARCHS = {
+    "robust_logistic_regression": "its input-noise ascent "
+                                  "(robust_noise_ascent) is not ported",
+    "robust_least_square": "its input-noise ascent (robust_noise_ascent) "
+                           "is not ported",
+    "robust_mlp": "its input-noise ascent (robust_noise_ascent) is not "
+                  "ported",
+    "LinearMAFL": "AFL's factorized linear model goes with the AFL "
+                  "algorithm",
+}
+
+
+def _flat(cfg, dtype, batch_size: int, device) -> ModelDef:
+    """The flat models on ``[B, features]`` inputs (the JAX package's
+    ``_sample_flat`` / ``_sample_regression`` widths)."""
+    arch, dataset, m = cfg.model.arch, cfg.data.dataset, cfg.model
+    synthetic = dataset == "synthetic"
+    if arch == "least_square":
+        width = cfg.data.synthetic_dim if synthetic \
+            else REGRESSION_DIMS[dataset]
+        module = LeastSquare(dataset, width, dtype)
+    else:
+        width = cfg.data.synthetic_dim if synthetic \
+            else flat_input_size(dataset)
+        if arch == "logistic_regression":
+            module = LogisticRegression(dataset, width, dtype)
+        else:
+            if m.drop_rate > 0:
+                raise ValueError(f"drop_rate {m.drop_rate} (dropout in the "
+                                 "mlp) is not yet ported")
+            if m.norm != "bn":
+                raise ValueError(f"norm {m.norm!r} is not yet ported (the "
+                                 "port has norm='bn')")
+            module = MLP(dataset, width, m.mlp_num_layers, m.mlp_hidden_size,
+                         dtype)
+    sample = torch.zeros((batch_size, width), device=device)
+    return ModelDef(arch, module.to(device), sample,
+                    is_regression=arch == "least_square")
 
 
 def _transformer(m, dtype, batch_size: int, device) -> ModelDef:

@@ -23,6 +23,33 @@ from torch.func import functional_call
 _TRUNC_STD = 0.87962566103423978
 
 
+# (num_features, num_classes) for convex models
+# (ref: logistic_regression.py:34-72).
+CONVEX_DIMS = {
+    "epsilon": (2000, 2),
+    "url": (3231961, 2),
+    "rcv1": (47236, 2),
+    "higgs": (28, 2),
+    "mnist": (784, 10),
+    "emnist": (784, 10),
+    "emnist_full": (784, 62),
+    "cifar10": (3072, 10),
+    "cifar100": (3072, 100),
+    "fashion_mnist": (784, 10),
+    "synthetic": (60, 10),
+    "adult": (14, 2),
+}
+
+# regression dims (ref: least_square.py:27-41); num_classes == 1.
+REGRESSION_DIMS = {
+    "epsilon": 2000,
+    "url": 3231961,
+    "rcv1": 47236,
+    "MSD": 90,
+    "synthetic": 60,
+}
+
+
 def num_classes_of(dataset: str) -> int:
     """ref: mlp.py:33-41 / cnn.py:31-37 / resnet.py ResNetBase."""
     table = {
@@ -34,6 +61,25 @@ def num_classes_of(dataset: str) -> int:
     if dataset not in table:
         raise ValueError(f"No class count known for dataset {dataset!r}")
     return table[dataset]
+
+
+def flat_input_size(dataset: str) -> int:
+    """ref: mlp.py:43-48."""
+    if "cifar" in dataset or dataset == "stl10":
+        return 32 * 32 * 3 if "cifar" in dataset else 96 * 96 * 3
+    if "mnist" in dataset:
+        return 28 * 28
+    if dataset == "adult":
+        return 14
+    if dataset == "synthetic":
+        return 60
+    if dataset == "higgs":
+        return 28
+    if dataset == "epsilon":
+        return 2000
+    if dataset == "rcv1":
+        return 47236
+    raise NotImplementedError(f"No flat input size for {dataset!r}")
 
 
 def image_shape(dataset: str):
@@ -86,21 +132,24 @@ class Dense(nn.Module):
     """Affine layer ``x W^T + b`` computed in ``dtype`` (flax's
     ``nn.Dense(dtype=...)``: params stay float32, input, weight and bias
     are cast per call); float32 by default, as the classifier heads run.
-    ``bias=False`` drops the bias."""
+    ``bias=False`` drops the bias; ``zero_init`` starts the weight at 0
+    (flax's ``kernel_init=zeros``) instead of lecun-normal."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 zero_init: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
         if bias:
             self.bias = nn.Parameter(torch.empty(cout))
         else:
             self.register_parameter("bias", None)
-        self.dtype = dtype
+        self.dtype, self.zero_init = dtype, zero_init
 
     def init_params(self, generator: torch.Generator) -> dict:
-        out = {"weight": lecun_normal(self.weight.shape,
-                                      self.weight.shape[1], generator)}
+        out = {"weight": torch.zeros(self.weight.shape) if self.zero_init
+               else lecun_normal(self.weight.shape, self.weight.shape[1],
+                                 generator)}
         if self.bias is not None:
             out["bias"] = torch.zeros(self.bias.shape)
         return out
@@ -113,7 +162,8 @@ class Dense(nn.Module):
 class BatchStatsNorm(nn.Module):
     """BatchNorm with ``track_running_stats=False`` semantics: always the
     current batch statistics with the BIASED variance, only the affine
-    pair in params. Normalizes NCHW over every axis but the channel."""
+    pair in params. Normalizes NCHW (or ``[B, C]``) over every axis but
+    the channel."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()

@@ -299,9 +299,14 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     """Exact attention, ``[B, T, H, D]`` in and out, and its logsumexp
     ``[B, T, H]`` float32 — the statistic that merges attention over
     disjoint K/V blocks. Differentiable in both outputs. ``block_q`` is
-    the backward's query chunk (default: the JAX package's)."""
+    the backward's query chunk (default: the JAX package's). Where no
+    gradient is recorded (evaluation under ``torch.inference_mode``) the
+    forward runs alone and saves nothing for a backward."""
     scale, block_q = _prep(q, k, v, scale, block_q)
-    o, lse = _Flash.apply(q, k, v, scale, causal, block_q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o, lse = _Flash.apply(q, k, v, scale, causal, block_q)
+    else:
+        o, lse = flash_fwd(q, k, v, scale, causal)
     return o, lse.transpose(1, 2)
 
 

@@ -279,6 +279,21 @@ class FederatedTrainer:
                                  rng=server.rng)
         return new_server, clients, metrics
 
+    def round_host_scalars(self, clients: ClientState,
+                           metrics: RoundMetrics) -> dict:
+        """Everything the CLI's round loop logs, in one transfer (which
+        waits for the round): the mean training epoch over the clients,
+        the learning rate at it, the online count, the online clients'
+        loss and accuracy sums and the uplink bytes (the fault-free
+        fields of the JAX package's ``round_scalars_dev``)."""
+        mean_epoch = clients.epoch.mean()
+        vals = torch.stack([
+            mean_epoch, lr_at(self.schedule, mean_epoch),
+            metrics.online_mask.sum(), metrics.train_loss.sum(),
+            metrics.train_acc.sum(), metrics.comm_bytes]).tolist()
+        return dict(zip(("mean_epoch", "lr", "n_online", "loss_sum",
+                         "acc_sum", "comm_bytes"), vals))
+
     # -- host-side round loop ---------------------------------------------
     def run_rounds(self, server, clients, num_rounds: int):
         """``num_rounds`` rounds; metrics come back with a leading
