@@ -32,23 +32,27 @@ of JAX or of the JAX package. Phases, each fatal on failure:
      over at least 128 MB so that each launch reads device memory;
    - the single-tensor entry at n = 1, 4,097, 272,474, 524,288 (the
      ragged pair on one row) and 524,289 (the tiled pair);
-   - the flash attention forward against its plain version (TF32 off)
-     on strided q, k, v views of one projection, bfloat16 and float32,
-     each case through the kernel ``_route`` picks (the tensor-core
-     kernel for aligned bfloat16 at head dim 64, the SIMT kernel
-     otherwise) and checked to have taken it: the transformer path's
-     shape (B 8, T 2048, H 4, D 64) causal and not, T in {1, 50, 257},
-     D in {16, 32, 128}, misaligned views, a NaN q row with a +inf k
-     row, and the tensor-core cases bfloat16 D 64 at T in {1, 63, 65,
-     300, 2048}, causal and not. lse and float32 o within atol = rtol =
-     2e-5, bfloat16 o within one bfloat16 spacing past that bar, the
-     NaN pattern identical. Both kernels timed at the path's shape
-     (bfloat16, inputs rotating over at least 128 MB) against the plain
-     version and ``F.scaled_dot_product_attention``; the SIMT kernel
-     also on its own routes at that shape: float32 (its kernels-line
-     numbers: against its plain version, float32 SDPA with TF32 off and
-     the float32 bound) and bfloat16 at head dim 128 (the route of a
-     ``rnn_hidden_size`` 256 transformer) against bf16 SDPA;
+   - the flash attention forward against its plain version (TF32 off) on
+     strided q, k, v views of one projection, bfloat16 and float32, each
+     case through the kernel ``_route`` picks (the wgmma kernel for aligned
+     bfloat16 at head dim 64 or 128, the TF32 kernel otherwise) and checked
+     to have taken it: each kernel at the shape its transformer path gives
+     it ((8, 2048, 4, 64) bfloat16 and float32, (8, 2048, 4, 128) bfloat16)
+     causal and not; the wgmma kernel at D 64 and 128, T in {1, 63, 65,
+     300, 2048}, causal and not; both dtypes at D in {16, 24, 25, 32, 64,
+     100, 128} and T in {1, 50, 257, 2048}, causal and not; misaligned
+     views; a NaN q row with a +inf k row and a -inf k element whose scores
+     stay -inf beside scores that overflow exp unless the running max is
+     kept. lse and float32 o within atol = rtol = 2e-5, bfloat16 o within
+     one bfloat16 spacing past that bar, the NaN pattern identical. Timed
+     (inputs rotating over at least 128 MB) against the plain version: the
+     wgmma kernel at (8, 2048, 4, 64) and (8, 2048, 4, 128) bfloat16
+     against ``F.scaled_dot_product_attention`` at each head dim; the TF32
+     kernel at (8, 2048, 4, 64) in float32 (against float32 SDPA, TF32 off,
+     against the 3xTF32 bound, the smaller of it and the CUDA-core float32
+     bound) and in bfloat16 (its launcher, as the route would pick the
+     wgmma kernel), and at (8, 2048, 4, 25) in float32 (the default width's
+     heads, with no library yardstick of its own);
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
    through the pair) on the card against the same on the CPU (TF32
@@ -59,11 +63,12 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    it (``fedtorch_tpu_torch/tools/order_spread.py`` says why): at
    WideResNet-16-4 the CPU's own spread over other orders, measured in
    the same run; at ResNet-8, where one or two ReLU flips set the gap,
-   the largest gap between CPU orders over 64 seeds. Then a
-   float32 transformer (d_model 64, 4 heads of 16, 2 layers, T 256,
-   flash): logits and one FedAvg round, the card (the kernel) against
-   the CPU (the plain version), each within 1e-4; float32, so the card
-   must take the SIMT kernel;
+   the largest gap between CPU orders over 64 seeds. Then two float32
+   transformers (2 layers, T 256, flash): d_model 64 (4 heads of 16) and
+   the default width, ``rnn_hidden_size`` 50 (d_model 100, 4 heads of
+   25): logits and one FedAvg round, the card (the kernel) against the
+   CPU (the plain version), each within 1e-4; float32, so the card must
+   take the TF32 kernel once per layer;
 5. main path: the north-star round at full width through the library
    entry points (``define_model`` -> ``make_algorithm`` ->
    ``FederatedTrainer`` -> ``init_state`` -> ``run_rounds``): quantized
@@ -96,9 +101,10 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    own leaf sizes (2 ragged stats, 2 ragged apply, 6 tiled stats, 6
    tiled apply per round);
 9. transformer main path: quantized FedAvg on the causal transformer LM
-   with flash attention at the widest configuration ``define_model``
-   gives (``rnn_hidden_size`` 128: d_model 256, 4 heads of 64, 4 layers,
-   T 2048, 3,723,862 params, bfloat16), 100 clients x 100 windows of
+   with flash attention (``rnn_hidden_size`` 128: d_model 256, 4 heads
+   of 64, 4 layers, T 2048, 3,723,862 params, bfloat16; ``define_model``
+   takes any width, d_model = 2 x rnn_hidden_size), 100 clients x 100
+   windows of
    2048 characters with next-token labels made from ``--seed``, k = 10,
    batch 8, 10 local steps, SGD lr 0.05; 1 warm-up, 2 timed and 1
    profiled round. The counters must read 400 flash launches (layers x
@@ -107,11 +113,24 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    server params on 32 windows of 2048 at batch 8: 16 tensor-core flash
    launches (layers x batches) under inference mode, and its loss within
    ``LM_EVAL_LOSS_BAR`` of the same evaluation through the plain flash
-   version on the card.
+   version on the card;
+10. transformer_d512: the same round at ``rnn_hidden_size`` 256 (d_model
+    512, 4 heads of 128, 4 layers, T 2048, 13,739,094 params,
+    bfloat16); 1 warm-up, timed and 1 profiled round. The counters must
+    read 400 flash launches a round, all on the wgmma kernel (head dim
+    128), 2 + 2 ragged launches and, for its leaves past 524,288
+    elements (the qkv weights of 786,432, the positional embedding and
+    MLP weights of 1,048,576: two sizes), 4 + 4 tiled launches;
+11. transformer_f32: the path of item 9 in float32, the library's
+    default ``compute_dtype``; 1 warm-up, timed and 1 profiled round.
+    The counters must read 400 flash launches a round, all on the TF32
+    kernel, and 2 + 2 ragged launches.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
-``cli``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path`` and
-``transformer_profile`` lines, the card's name and power limit and,
+``cli``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``transformer_profile``, ``transformer_d512_main_path``,
+``transformer_d512_profile``, ``transformer_f32_main_path`` and
+``transformer_f32_profile`` lines, the card's name and power limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without CUDA.
 """
@@ -133,10 +152,11 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory, float32 outside
-# the tensor cores, dense bfloat16 on the tensor cores
+# the tensor cores, dense bfloat16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 # float32 operations per element of the round trip: min, max and add for
 # the statistics; subtract, divide, add, round, two clips, subtract,
 # multiply and add for the output
@@ -149,7 +169,7 @@ RAGGED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_ragged.cu"
 TILED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_tiled.cu"
 NO_LIBRARY = ("no single PyTorch call computes a per-row adaptive "
               "quantize -> dequantize round trip")
-FLASH_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd.cu"
+FLASH_TF32_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd_tf32.cu"
 FLASH_TC_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd_sm90.cu"
 FLASH_TPU_KERNEL = "fedtorch_tpu/ops/pallas/flash_attention.py:82"
 # timed inputs of the quantizer pairs rotate over at least this many
@@ -167,6 +187,13 @@ LM = dict(rnn_hidden_size=128, mlp_num_layers=4, rnn_seq_len=2048,
           vocab_size=86)
 LM_WINDOWS, LM_BATCH, LM_TIMED_ROUNDS = 100, 8, 2
 LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
+# transformer_d512: d_model 512, 4 heads of 128, bf16; transformer_f32:
+# the LM path in the library's default dtype
+LM_D512 = dict(LM, rnn_hidden_size=256)
+LM_D512_SHAPE = (LM_BATCH, 2048, 4, 128)
+D512_TIMED_ROUNDS = F32_TIMED_ROUNDS = 1
+# the default transformer width's heads (rnn_hidden_size 50: 4 of 25)
+DEFAULT_WIDTH_SHAPE = (LM_BATCH, 2048, 4, 25)
 SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
 # the CLI path: the north-star round from CIFAR-10 files at full size
 # (50,000 training images over 100 clients, 10,000 test images evaluated
@@ -328,13 +355,14 @@ def counters(qk, fa) -> dict:
     return dict(ragged_stats=qk.ragged_stats_launches,
                 ragged_apply=qk.ragged_apply_launches,
                 stats=qk.stats_launches, apply=qk.apply_launches,
-                flash=fa.flash_launches, flash_tc=fa.flash_tc_launches)
+                flash=fa.flash_launches, flash_tc=fa.flash_tc_launches,
+                flash_tf32=fa.flash_tf32_launches)
 
 
 def reset_counters(qk, fa):
     qk.launches = qk.ragged_stats_launches = qk.ragged_apply_launches = 0
     qk.stats_launches = qk.apply_launches = 0
-    fa.flash_launches = fa.flash_tc_launches = 0
+    fa.flash_launches = fa.flash_tc_launches = fa.flash_tf32_launches = 0
 
 
 def ragged_phase(qk, fa, cells, k_online):
@@ -620,7 +648,8 @@ def single_phase(qk, fa):
                 row = n <= qk._MAX_ROW_ELEMS
                 want_delta = dict(ragged_stats=int(row),
                                   ragged_apply=int(row), stats=int(not row),
-                                  apply=int(not row), flash=0, flash_tc=0)
+                                  apply=int(not row), flash=0, flash_tc=0,
+                                  flash_tf32=0)
                 if any(after[c] - before[c] != want_delta[c] for c in after):
                     raise AssertionError(f"single-tensor entry at n = {n} "
                                          f"launched {before} -> {after}")
@@ -692,13 +721,15 @@ def qkv_views(gen, B, T, H, D, dtype, offset=0):
     return tuple(c.view(B, T, H, D) for c in x.chunk(3, dim=-1))
 
 
-def flash_bound(B, T, H, D, elem, causal=True, peak=BF16_OPS_PER_S):
-    """(bound ms, what bounds it): 4 B H D T(T+1)/2 operations (causal;
-    T^2 pairs otherwise) at ``peak`` (the bf16 tensor-core rate; the
-    float32 route's is ``FP32_OPS_PER_S``), q, k, v read and o, lse
-    written once at the memory rate."""
+def flash_bound(B, T, H, D, elem, causal=True, peak=BF16_OPS_PER_S,
+                products=1):
+    """(bound ms, what bounds it): ``products`` x 4 B H D T(T+1)/2
+    operations (causal; T^2 pairs otherwise) at ``peak`` (the bf16
+    tensor-core rate; float32 on the CUDA cores ``FP32_OPS_PER_S``; the
+    3xTF32 split, 3 products at ``TF32_OPS_PER_S``), q, k, v read and o,
+    lse written once at the memory rate."""
     pairs = T * (T + 1) / 2 if causal else T * T
-    ops_ms = 4 * B * H * D * pairs / peak * 1e3
+    ops_ms = products * 4 * B * H * D * pairs / peak * 1e3
     bytes_ms = (4 * B * T * H * D * elem + 4 * B * H * T) \
         / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
@@ -719,32 +750,39 @@ def sdpa_backend(q, k, v) -> str:
     return "; ".join(n[:100] for n in names) or "not recorded"
 
 
+# the kernels-line entries of the flash forward: the wgmma kernel at each
+# head dim, the TF32 kernel
+FLASH_KEYS = ("tc64", "tc128", "tf32")
+
+
 def flash_phase(fa):
     """Both flash forward kernels vs the plain version on the card (TF32
     off for the plain version), each case through the route ``_route``
-    picks; then both timed at the transformer path's shape against the
-    plain version and PyTorch's SDPA. Returns the kernels-line fields of
-    the tensor-core and of the SIMT kernel."""
-    import torch.nn.functional as F
+    picks; then timed at the transformer paths' shapes against the plain
+    version and PyTorch's SDPA. Returns the kernels-line fields of the
+    wgmma kernel at head dim 64 and 128 and of the TF32 kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0)
-             for r in ("tc", "simt")}
+    worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0) for r in FLASH_KEYS}
 
-    def check(q, k, v, causal, what):
+    def check(q, k, v, causal, what, want):
+        """One case, which must take route ``want``."""
         scale = 1.0 / math.sqrt(q.shape[-1])
         route = fa._route(q, k, v)
-        before = (fa.flash_launches, fa.flash_tc_launches)
+        before = (fa.flash_launches, fa.flash_tc_launches,
+                  fa.flash_tf32_launches)
         o, lse = fa.flash_fwd(q, k, v, scale, causal)
         launched = (fa.flash_launches - before[0],
-                    fa.flash_tc_launches - before[1])
+                    fa.flash_tc_launches - before[1],
+                    fa.flash_tf32_launches - before[2])
         ro, rl = fa.flash_fwd_ref(q, k, v, scale, causal)
         torch.cuda.synchronize()
         what = f"{what} {tuple(q.shape)} {q.dtype} causal={causal}"
-        if launched != (1, int(route == "tc")):
-            raise AssertionError(f"{what}: route {route} but launches "
-                                 f"{launched}")
-        w = worst[route]
+        if route != want or launched != (1, int(route == "tc"),
+                                         int(route == "tf32")):
+            raise AssertionError(f"{what}: route {route} (want {want}), "
+                                 f"launches {launched}")
+        w = worst[f"tc{q.shape[-1]}" if route == "tc" else route]
         w["abs"] = max(w["abs"], close_f32(lse, rl, what + " lse"))
         if q.dtype == torch.float32:
             w["abs"] = max(w["abs"], close_f32(o, ro, what))
@@ -758,158 +796,133 @@ def flash_phase(fa):
             w["bf16_steps"] = max(w["bf16_steps"], steps)
         w["cases"] += 1
 
+    def want(dtype, d, offset=0):
+        # aligned bf16 views at head dim 64 or 128 take the wgmma kernel
+        return "tc" if dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS \
+            and offset == 0 else "tf32"
+
+    # each kernel at the shape its main path gives it
+    for shape, dtype, route in ((LM_SHAPE, torch.bfloat16, "tc"),
+                                (LM_SHAPE, torch.float32, "tf32"),
+                                (LM_D512_SHAPE, torch.bfloat16, "tc")):
+        for causal in (True, False):
+            check(*qkv_views(gen, *shape, dtype), causal, "main path", route)
     B, T, H, D = LM_SHAPE
-    for dtype in (torch.bfloat16, torch.float32):
-        for causal in (True, False):
-            check(*qkv_views(gen, B, T, H, D, dtype), causal, "main path")
-        for t in (1, 50, 257):
-            check(*qkv_views(gen, 2, t, H, D, dtype), True, "ragged T")
-        check(*qkv_views(gen, 2, 257, H, D, dtype), False, "ragged T")
-        for d in (16, 32, 128):
-            check(*qkv_views(gen, 2, 300, H, d, dtype), True, "head dim")
-        check(*qkv_views(gen, 2, 129, H, D, dtype, offset=1), True,
-              "misaligned")
-        q, k, v = qkv_views(gen, 2, 257, H, D, dtype)
-        q[0, 5, 1] = float("nan")
-        k[1, 3, 2] = float("inf")
-        check(q, k, v, True, "NaN q row, +inf k row")
-    for t in (1, 63, 65, 300, 2048):
-        for causal in (True, False):
-            check(*qkv_views(gen, 2, t, H, D, torch.bfloat16), causal,
-                  "tensor-core T")
+    for d in fa.TC_HEAD_DIMS:
+        for t in (1, 63, 65, 300, 2048):
+            for causal in (True, False):
+                check(*qkv_views(gen, 2, t, H, d, torch.bfloat16), causal,
+                      "wgmma T", "tc")
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 24, 25, 32, 64, 100, 128):
+            for t in (1, 50, 257, 2048):
+                for causal in (True, False):
+                    check(*qkv_views(gen, 2, t, H, d, dtype), causal,
+                          "head dim, T", want(dtype, d))
+            check(*qkv_views(gen, 2, 129, H, d, dtype, offset=1), True,
+                  "misaligned", "tf32")
+        for offset in (0, 1):
+            q, k, v = qkv_views(gen, 2, 257, H, D, dtype, offset)
+            q[0, 5, 1] = float("nan")
+            k[1, 3, 2] = float("inf")
+            # a -inf k element under q elements > 0 scores -inf (p = 0, the
+            # max unmoved); key 5's scores (>= 125) overflow exp unless the
+            # max is kept
+            q[1, :, 3, 0] = q[1, :, 3, 0].abs() + 1
+            k[1, 3, 3, 0] = float("-inf")
+            k[1, 5, 3] = 0.0
+            k[1, 5, 3, 0] = 1000.0
+            check(q, k, v, True, "NaN q row, +inf k row, -inf k element",
+                  want(dtype, D, offset))
     for r, w in worst.items():
         log(f"flash kernel ({r}) vs plain: {w['cases']} cases, max |diff| "
             f"{w['abs']:.3e} (lse, float32 o), max {w['bf16_steps']:.3f} "
             f"bfloat16 steps past the float32 bar (bfloat16 o)")
 
-    # timing at the main path's shape: bf16, causal, strided qkv views
-    # rotating over at least COLD_BYTES; the SIMT kernel on the same
-    # views through its launcher (the route would pick the tensor cores)
-    per = 3 * B * T * H * D * 2
-    views = [qkv_views(gen, B, T, H, D, torch.bfloat16)
-             for _ in range(max(1, math.ceil(COLD_BYTES / per)))]
-    if any(fa._route(*qkv) != "tc" for qkv in views):
-        raise AssertionError("the main path's views do not take the "
-                             "tensor-core route")
-    scale = 1.0 / math.sqrt(D)
-    ms = {}
-    for key, fn in (("tc", fa.flash_fwd), ("simt", fa._launch_simt)):
-        ms[key] = device_ms(rotating(
-            lambda q, k, v, fn=fn: fn(q, k, v, scale, True), views),
-            inner=10, reps=11)
-    plain_ms = device_ms(rotating(lambda q, k, v: fa.flash_fwd_ref(
-        q, k, v, scale, True), views), inner=3, reps=5)
-    torch.cuda.empty_cache()
-    lib_views = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
-    library_ms = device_ms(rotating(
-        lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True),
-        lib_views), inner=10, reps=11)
-    backend = sdpa_backend(*lib_views[0])
-    lib_o = F.scaled_dot_product_attention(*lib_views[0], is_causal=True)
-    lib_diff = float((lib_o.transpose(1, 2).float()
-                      - fa.flash_fwd(*views[0], scale, True)[0].float())
-                     .abs().max())
-    del lib_o
-    # the SIMT route's own type: float32 SDPA at the same shape, TF32 off
-    f32_views = [tuple(t.float() for t in qkv)
-                 for qkv in lib_views[:max(1, len(lib_views) // 2)]]
-    library_f32_ms = device_ms(rotating(
-        lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True),
-        f32_views), inner=5, reps=7)
-    backend_f32 = sdpa_backend(*f32_views[0])
-    del f32_views
-    simt = simt_route_times(fa, gen)
-    b = flash_bound(B, T, H, D, 2)
-    log(f"flash kernels at {LM_SHAPE} bf16 causal: tensor cores "
-        f"{ms['tc']:.4f} ms ({ms['tc'] / library_ms:.2f}x SDPA, "
-        f"{ms['tc'] / b[0]:.1f}x the bound), SIMT {ms['simt']:.4f} ms, "
-        f"plain {plain_ms:.4f}, SDPA {library_ms:.4f} via {backend}; "
-        f"float32 SDPA (TF32 off) {library_f32_ms:.4f} via {backend_f32}; "
-        f"bound {b[0]:.5f} ms by {b[1]}; SDPA vs tensor-core kernel max "
-        f"|diff| {lib_diff:.3e}")
-    del views, lib_views
-    torch.cuda.empty_cache()
-    common = dict(plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                  library_ms=library_ms, library_backend=backend,
-                  library_note="F.scaled_dot_product_attention(is_causal="
-                               "True) on the same bf16 tensors as [B, H, T, "
-                               "D] views; it returns no logsumexp",
-                  timed_shape=list(LM_SHAPE))
-    out = {}
-    for r in ("tc", "simt"):
-        out[r] = dict(max_abs_err=worst[r]["abs"],
-                      max_bf16_steps=worst[r]["bf16_steps"],
-                      cases=worst[r]["cases"], ms=ms[r],
-                      vs_library=ms[r] / library_ms, vs_bound=ms[r] / b[0],
-                      **common)
-    out["tc"]["library_vs_kernel_max_abs"] = lib_diff
-    # the SIMT kernel's line carries its own route's type, float32, at the
-    # path's shape; its bf16 time at head dim 64 and 128 ride beside it
-    bf16 = {f"bf16_{k}": v for k, v in out["simt"].items()
-            if k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                     "vs_library", "vs_bound")}
-    out["simt"].update(
-        bf16, ms=simt["f32_ms"], plain_ms=simt["f32_plain_ms"],
-        bound_ms=simt["f32_bound_ms"], bound_by=simt["f32_bound_by"],
-        library_ms=library_f32_ms, library_backend=backend_f32,
-        library_note="F.scaled_dot_product_attention(is_causal=True) on "
-                     "the same float32 tensors as [B, H, T, D] views, TF32 "
-                     "off",
-        vs_library=simt["f32_ms"] / library_f32_ms,
-        vs_bound=simt["f32_ms"] / simt["f32_bound_ms"],
-        timed_dtype="float32", **{k: v for k, v in simt.items()
-                                  if k.startswith("bf16_d128")})
-    return out["tc"], out["simt"]
-
-
-def simt_route_times(fa, gen):
-    """The SIMT kernel on its own routes at the transformer path's
-    shape: float32 at head dim 64 (against its plain version and the
-    float32 bound), and bfloat16 at head dim 128, the route of a
-    ``rnn_hidden_size`` 256 transformer (4 heads of 128), against bf16
-    SDPA at that head dim. Inputs rotate over at least COLD_BYTES."""
-    import torch.nn.functional as F
-    B, T, H, D = LM_SHAPE
-    out = {}
-    for key, dtype, d in (("f32", torch.float32, D),
-                          ("bf16_d128", torch.bfloat16, 128)):
-        elem = torch.finfo(dtype).bits // 8
-        per = 3 * B * T * H * d * elem
-        views = [qkv_views(gen, B, T, H, d, dtype)
-                 for _ in range(max(1, math.ceil(COLD_BYTES / per)))]
-        if any(fa._route(*qkv) != "simt" for qkv in views):
-            raise AssertionError(f"{key} views do not take the SIMT route")
-        scale = 1.0 / math.sqrt(d)
-        out[f"{key}_ms"] = device_ms(rotating(
-            lambda q, k, v: fa.flash_fwd(q, k, v, scale, True), views),
-            inner=5, reps=7)
-        b = flash_bound(B, T, H, d, elem, peak=FP32_OPS_PER_S
-                        if dtype == torch.float32 else BF16_OPS_PER_S)
-        out[f"{key}_bound_ms"], out[f"{key}_bound_by"] = b
-        if dtype == torch.float32:
-            out["f32_plain_ms"] = device_ms(rotating(
-                lambda q, k, v: fa.flash_fwd_ref(q, k, v, scale, True),
-                views), inner=2, reps=5)
-        else:
-            lib = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
-            out[f"{key}_library_ms"] = device_ms(rotating(
-                lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), lib), inner=10, reps=11)
-            out[f"{key}_library_backend"] = sdpa_backend(*lib[0])
-            del lib
-        del views
-        torch.cuda.empty_cache()
-    log(f"SIMT flash kernel at {LM_SHAPE}: float32 {out['f32_ms']:.4f} ms "
-        f"(plain {out['f32_plain_ms']:.4f}, bound {out['f32_bound_ms']:.5f} "
-        f"by {out['f32_bound_by']}, {out['f32_ms'] / out['f32_bound_ms']:.1f}x"
-        f"); bf16 at head dim 128 {out['bf16_d128_ms']:.4f} ms against bf16 "
-        f"SDPA {out['bf16_d128_library_ms']:.4f} "
-        f"({out['bf16_d128_ms'] / out['bf16_d128_library_ms']:.1f}x) via "
-        f"{out['bf16_d128_library_backend']}, bound "
-        f"{out['bf16_d128_bound_ms']:.5f}")
+    out = {r: dict(max_abs_err=worst[r]["abs"],
+                   max_bf16_steps=worst[r]["bf16_steps"],
+                   cases=worst[r]["cases"]) for r in FLASH_KEYS}
+    for key, shape, dtype, launch in (
+            ("tc64", LM_SHAPE, torch.bfloat16, fa._launch_tc),
+            ("tc128", LM_D512_SHAPE, torch.bfloat16, fa._launch_tc),
+            ("tf32", LM_SHAPE, torch.float32, fa._launch_tf32)):
+        out[key].update(time_flash(fa, gen, shape, dtype, launch))
+    # the TF32 kernel beside its float32 line: bfloat16 at head dim 64
+    # (through its launcher) and the default width's heads in float32
+    for tag, shape, dtype in (("bf16", LM_SHAPE, torch.bfloat16),
+                              ("d25", DEFAULT_WIDTH_SHAPE, torch.float32)):
+        t = time_flash(fa, gen, shape, dtype, fa._launch_tf32,
+                       library=shape[-1] in fa.TC_HEAD_DIMS)
+        out["tf32"].update({f"{tag}_{k}": v for k, v in t.items()})
     return out
+
+
+def time_flash(fa, gen, shape, dtype, launch, library=True):
+    """One flash kernel's launcher at ``shape`` causal, inputs rotating
+    over at least COLD_BYTES, against the plain version and (``library``)
+    ``F.scaled_dot_product_attention`` on the same tensors as [B, H, T,
+    D] views (float32 with TF32 off). Bounds: bf16 on the tensor cores;
+    float32 on the CUDA cores and, the TF32 kernel's, three TF32
+    products. Returns the kernels-line fields."""
+    import torch.nn.functional as F
+    B, T, H, D = shape
+    elem = torch.finfo(dtype).bits // 8
+    views = [qkv_views(gen, B, T, H, D, dtype) for _ in range(
+        max(1, math.ceil(COLD_BYTES / (3 * B * T * H * D * elem))))]
+    scale = 1.0 / math.sqrt(D)
+    r = dict(timed_shape=list(shape), timed_dtype=str(dtype)[6:])
+    r["ms"] = device_ms(rotating(
+        lambda q, k, v: launch(q, k, v, scale, True), views), inner=10,
+        reps=11)
+    r["plain_ms"] = device_ms(rotating(
+        lambda q, k, v: fa.flash_fwd_ref(q, k, v, scale, True), views),
+        inner=2, reps=5)
+    if dtype == torch.float32:
+        # float32 on the CUDA cores, or the 3 TF32 products the kernel
+        # issues on the tensor cores: the smaller is the bound
+        cuda_core = flash_bound(B, T, H, D, elem, peak=FP32_OPS_PER_S)
+        r["bound_ms"], r["bound_by"] = min(cuda_core, flash_bound(
+            B, T, H, D, elem, peak=TF32_OPS_PER_S, products=3))
+        r["cuda_core_bound_ms"] = cuda_core[0]
+        r["bound_note"] = ("bound_ms: the smaller of 3 TF32 products at 495 "
+                           "TFLOP/s and cuda_core_bound_ms, float32 on the "
+                           "CUDA cores at 67 TFLOP/s")
+    else:
+        r["bound_ms"], r["bound_by"] = flash_bound(B, T, H, D, elem)
+    r["library_ms"] = None
+    if library:
+        torch.cuda.empty_cache()
+        lib = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
+        r["library_ms"] = device_ms(rotating(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), lib), inner=10, reps=11)
+        r["library_backend"] = sdpa_backend(*lib[0])
+        r["library_note"] = (
+            "F.scaled_dot_product_attention(is_causal=True) on the same "
+            f"{r['timed_dtype']} tensors as [B, H, T, D] views"
+            + (", TF32 off" if dtype == torch.float32 else "")
+            + "; it returns no logsumexp")
+        lib_o = F.scaled_dot_product_attention(*lib[0], is_causal=True)
+        r["library_vs_kernel_max_abs"] = float(
+            (lib_o.transpose(1, 2).float()
+             - launch(*views[0], scale, True)[0].float()).abs().max())
+        r["vs_library"] = r["ms"] / r["library_ms"]
+        del lib, lib_o
+    else:
+        r["library_note"] = ("not timed at this head dim: the yardstick "
+                             "is SDPA at head dim 64 (library_ms)")
+    r["vs_bound"] = r["ms"] / r["bound_ms"]
+    log(f"flash {launch.__name__} at {shape} {r['timed_dtype']} causal: "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+        f"{r['bound_ms']:.5f} by {r['bound_by']} ({r['vs_bound']:.1f}x)"
+        + (f", CUDA-core float32 bound {r['cuda_core_bound_ms']:.5f}"
+           if "cuda_core_bound_ms" in r else "")
+        + (f"; SDPA {r['library_ms']:.4f} ({r['vs_library']:.2f}x) via "
+           f"{r['library_backend']}, max |diff| "
+           f"{r['library_vs_kernel_max_abs']:.3e}" if library else ""))
+    del views
+    torch.cuda.empty_cache()
+    return r
 
 
 def _round_card_vs_cpu(os_mod, cfg, qk, fa, seed, runs=("cpu", "cuda")):
@@ -1042,13 +1055,14 @@ def reference_phase(tcfg, define_model, os_mod, qk, fa):
 
 
 def lm_reference_phase(tcfg, define_model, make_algorithm,
-                       stack_partitions, FederatedTrainer, fa):
-    """A small float32 transformer with flash attention (d_model 64, 4
-    heads of 16, 2 layers, T 256): logits from the same weights and one
-    unquantized FedAvg round from the same state and plan, the card (the
-    kernel) against the CPU (the plain version), TF32 off. GELU and
-    softmax are smooth, so only float32 rounding separates the two: the
-    bars are 1e-4 on the logits and on the update's relative L2."""
+                       stack_partitions, FederatedTrainer, fa, hidden=32):
+    """A small float32 transformer with flash attention (d_model 2 x
+    ``hidden``, 4 heads, 2 layers, T 256): logits from the same weights
+    and one unquantized FedAvg round from the same state and plan, the
+    card (the TF32 kernel) against the CPU (the plain version), TF32 off.
+    GELU and softmax are smooth, so only float32 rounding separates the
+    two: the bars are 1e-4 on the logits and on the update's relative
+    L2."""
     torch.backends.cuda.matmul.allow_tf32 = False
     T, C, N, B = 256, 4, 8, 4
     cfg = tcfg.ExperimentConfig(
@@ -1056,7 +1070,7 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
         federated=tcfg.FederatedConfig(
             federated=True, num_clients=C, online_client_rate=0.5,
             algorithm="fedavg", sync_type="local_step"),
-        model=tcfg.ModelConfig(arch="transformer", rnn_hidden_size=32,
+        model=tcfg.ModelConfig(arch="transformer", rnn_hidden_size=hidden,
                                mlp_num_layers=2, rnn_seq_len=T,
                                attention="flash"),
         optim=tcfg.OptimConfig(lr=0.05, weight_decay=0.0),
@@ -1072,13 +1086,15 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
     toks = torch.from_numpy(x[:B])
     with torch.no_grad():
         want = cpu.apply(params, toks)
-        before = (fa.flash_launches, fa.flash_tc_launches)
+        before = (fa.flash_launches, fa.flash_tc_launches,
+                  fa.flash_tf32_launches)
         got = gpu.apply({k: v.cuda() for k, v in params.items()},
                         toks.cuda()).cpu()
-    if (fa.flash_launches - before[0], fa.flash_tc_launches - before[1]) \
-            != (cfg.model.mlp_num_layers, 0):
+    layers = cfg.model.mlp_num_layers
+    if (fa.flash_launches - before[0], fa.flash_tc_launches - before[1],
+            fa.flash_tf32_launches - before[2]) != (layers, 0, layers):
         raise AssertionError("the card's float32 forward did not run the "
-                             "SIMT kernel once per layer")
+                             "TF32 kernel once per layer")
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"transformer logits card vs CPU: {err}")
@@ -1095,30 +1111,32 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
                                   for k, v in server.params.items()])
     rel = float(torch.linalg.vector_norm(updates["cuda"] - updates["cpu"])
                 / torch.linalg.vector_norm(updates["cpu"]))
-    log(f"transformer (d 64, T 256) f32 flash: logits card vs CPU max "
-        f"|diff| {err:.3e}; FedAvg round update card vs CPU relative L2 "
-        f"{rel:.3e}")
+    log(f"transformer (d {2 * hidden}, T 256) f32 flash: logits card vs "
+        f"CPU max |diff| {err:.3e}; FedAvg round update card vs CPU "
+        f"relative L2 {rel:.3e}")
     if not rel <= 1e-4:
         raise AssertionError(f"transformer round card vs CPU: relative L2 "
                              f"{rel}")
-    return dict(logits_max_abs_diff=err, round_update_rel_l2=rel)
+    return dict(d_model=2 * hidden, logits_max_abs_diff=err,
+                round_update_rel_l2=rel)
 
 
-def path_config(tcfg, arch, widen=None):
+def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16"):
     """The quantized FedAvg round of a main path: the north-star round
-    (bench.py) on a CIFAR model, or the transformer path's round."""
+    (bench.py) on a CIFAR model, or a transformer path's round (``lm``:
+    its model sizes, ``dtype`` its compute dtype)."""
     fed = tcfg.FederatedConfig(
         federated=True, num_clients=NUM_CLIENTS,
         online_client_rate=ONLINE_RATE, algorithm="fedavg",
         sync_type="local_step", quantized=True)
     train = tcfg.TrainConfig(local_step=LOCAL_STEPS)
-    mesh = tcfg.MeshConfig(compute_dtype="bfloat16")
+    mesh = tcfg.MeshConfig(compute_dtype=dtype)
     if arch == "transformer":
         return tcfg.ExperimentConfig(
             data=tcfg.DataConfig(dataset="shakespeare", batch_size=LM_BATCH),
             federated=fed,
             model=tcfg.ModelConfig(arch="transformer", attention="flash",
-                                   **LM),
+                                   **lm),
             optim=tcfg.OptimConfig(lr=0.05, weight_decay=0.0),
             train=train, mesh=mesh).finalize()
     kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
@@ -1150,10 +1168,11 @@ def path_data(cfg, seed, stack_partitions):
 
 def main_path_phase(seed, tcfg, define_model, make_algorithm,
                     stack_partitions, FederatedTrainer, qk, fa,
-                    arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS):
+                    arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS,
+                    lm=LM, dtype="bfloat16"):
     """A quantized FedAvg main path on ``arch`` through the library entry
     points; returns (numbers, trainer, server, clients)."""
-    cfg = path_config(tcfg, arch, widen)
+    cfg = path_config(tcfg, arch, widen, lm, dtype)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     data = path_data(cfg, seed, stack_partitions)
@@ -1163,11 +1182,15 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     server, clients = trainer.init_state(seed)
     init = {k: v.clone() for k, v in server.params.items()}
     expect = launches_per_round(qk, [v.numel() for v in init.values()])
-    # one forward per attention layer and local step of each online client
-    # (bfloat16 at head dim 64: all on the tensor-core kernel)
+    # one forward per attention layer and local step of each online client,
+    # all on one kernel: bfloat16 at head dim 64 or 128 on the wgmma
+    # kernel, anything else on the TF32 kernel
     expect["flash"] = (cfg.model.mlp_num_layers * trainer.local_steps
                        * trainer.k_online if arch == "transformer" else 0)
-    expect["flash_tc"] = expect["flash"]
+    head_dim = 2 * lm["rnn_hidden_size"] // 4
+    tc = dtype == "bfloat16" and head_dim in fa.TC_HEAD_DIMS
+    expect["flash_tc"] = expect["flash"] if tc else 0
+    expect["flash_tf32"] = expect["flash"] - expect["flash_tc"]
     setup_s = time.perf_counter() - t0
     log(f"{arch}: set-up {setup_s:.2f} s (data, model, state; "
         f"{sum(v.numel() for v in init.values()):,} params; "
@@ -1210,8 +1233,9 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
         raise AssertionError("server params did not change")
     steps = timed_rounds * trainer.k_online * trainer.local_steps
     round_ms = total_ms / timed_rounds
-    out = dict(arch=arch, widen=widen, params=sum(v.numel()
-                                                  for v in init.values()),
+    out = dict(arch=arch, widen=widen, dtype=dtype,
+               d_model=2 * lm["rnn_hidden_size"] if arch == "transformer"
+               else None, params=sum(v.numel() for v in init.values()),
                round_ms=round_ms,
                local_steps_per_s=steps / (total_ms / 1e3),
                timed_rounds=timed_rounds, setup_s=setup_s,
@@ -1284,7 +1308,7 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
         launched = counters(qk, fa)
         test_x, test_y = load_cifar("cifar10", root)[2:4]
     want = dict(ragged_stats=2 * CLI_ROUNDS, ragged_apply=2 * CLI_ROUNDS,
-                stats=0, apply=0, flash=0, flash_tc=0)
+                stats=0, apply=0, flash=0, flash_tc=0, flash_tf32=0)
     if launched != want:
         raise AssertionError(f"cli: kernels launched {launched}, expected "
                              f"{want}")
@@ -1361,7 +1385,7 @@ def lm_eval_step(trainer, server, seed, qk, fa):
     launched = counters(qk, fa)
     batches = -(-LM_EVAL_WINDOWS // LM_BATCH)
     want = dict(ragged_stats=0, ragged_apply=0, stats=0, apply=0,
-                flash=cfg.model.mlp_num_layers * batches)
+                flash=cfg.model.mlp_num_layers * batches, flash_tf32=0)
     want["flash_tc"] = want["flash"]
     if launched != want:
         raise AssertionError(f"transformer evaluate launched {launched}, "
@@ -1476,6 +1500,19 @@ def _profile_round(trainer, server, clients):
     return out
 
 
+def check_lm_launches(out, route):
+    """A transformer path's round: 400 flash launches (4 layers x 10
+    local steps x 10 clients), all on ``route``'s kernel, and 2 + 2
+    ragged launches."""
+    per = out["launches_per_round"]
+    other = "flash_tf32" if route == "flash_tc" else "flash_tc"
+    if per["flash"] != 400 or per[route] != 400 or per[other] != 0 \
+            or per["ragged_stats"] != 2 or per["ragged_apply"] != 2:
+        raise AssertionError(f"d_model {out['d_model']} {out['dtype']}: "
+                             f"expected 400 {route} and 2 + 2 ragged "
+                             f"launches per round, got {per}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1525,12 +1562,14 @@ def main(argv=None) -> int:
         qk, sorted((b, n) for n, b in wrn_sizes.items()
                    if n > qk._MAX_ROW_ELEMS), k_online)
     single_fields = single_phase(qk, fa)
-    flash_tc_fields, flash_simt_fields = flash_phase(fa)
+    flash_fields = flash_phase(fa)
 
     phase("reference")
     reference_phase(tcfg, define_model, order_spread, qk, fa)
-    lm_ref = lm_reference_phase(tcfg, define_model, make_algorithm,
-                                stack_partitions, FederatedTrainer, fa)
+    # d_model 64, and the default width (d_model 100: heads of 25)
+    lm_ref = [lm_reference_phase(tcfg, define_model, make_algorithm,
+                                 stack_partitions, FederatedTrainer, fa,
+                                 hidden) for hidden in (32, 50)]
 
     phase("main path")
     main, trainer, server, clients = main_path_phase(
@@ -1574,28 +1613,46 @@ def main(argv=None) -> int:
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
         FederatedTrainer, qk, fa, arch="transformer",
         timed_rounds=LM_TIMED_ROUNDS)
-    if lm["launches_per_round"]["flash"] != 400 \
-            or lm["launches_per_round"]["flash_tc"] != 400 \
-            or lm["launches_per_round"]["ragged_stats"] != 2 \
-            or lm["launches_per_round"]["ragged_apply"] != 2:
-        raise AssertionError("expected 400 tensor-core flash, 0 SIMT flash "
-                             "and 2 + 2 ragged launches per transformer "
-                             "round")
+    check_lm_launches(lm, "flash_tc")
     lm["reference"] = lm_ref
     lm["evaluate"] = lm_eval_step(trainer, server, args.seed, qk, fa)
     lm_prof = profile_phase(trainer, server, clients,
                             lm["launches_per_round"])
     del trainer, server, clients
 
+    lm_paths = {}
+    for name, sizes, dtype, rounds, route in (
+            ("transformer_d512", LM_D512, "bfloat16", D512_TIMED_ROUNDS,
+             "flash_tc"),
+            ("transformer_f32", LM, "float32", F32_TIMED_ROUNDS,
+             "flash_tf32")):
+        phase(f"{name} main path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out, trainer, server, clients = main_path_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa, arch="transformer",
+            timed_rounds=rounds, lm=sizes, dtype=dtype)
+        check_lm_launches(out, route)
+        lm_paths[name] = (out, profile_phase(trainer, server, clients,
+                                             out["launches_per_round"]))
+        del trainer, server, clients
+    d512, f32 = (lm_paths[n][0] for n in ("transformer_d512",
+                                           "transformer_f32"))
+
     cli_out["tree_launches"] = cli_out["launches"]
     paths = (("resnet20", main), ("cli", cli_out), ("wideresnet28_10", wrn),
-             ("transformer", lm))
+             ("transformer", lm), ("transformer_d512", d512),
+             ("transformer_f32", f32))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
                       - r["tree_launches"]["ragged_apply"] for p, r in paths}
-    simt_by_path = {p: r["launches"]["flash"] - r["launches"]["flash_tc"]
-                    for p, r in paths}
+    # one counter for both head dims of the wgmma kernel: a path's
+    # launches go to its head dim's entry
+    tc_by_dim = {d: {p: n for p, n in by_path["flash_tc"].items()
+                     if (p == "transformer_d512") == (d == 128)}
+                 for d in fa.TC_HEAD_DIMS}
     kernels = [
         dict(name="qdq_ragged_stats_f32", route="cuda", source=RAGGED_SOURCE,
              replaces=TPU_KERNEL, launches=main["launches"]["ragged_stats"],
@@ -1623,21 +1680,30 @@ def main(argv=None) -> int:
              launches=sum(single_by_path.values()),
              launches_by_path=single_by_path, on_main_path=False,
              library_ms=None, library_note=NO_LIBRARY, **single_fields),
-        dict(name="flash_fwd_tc", route="cuda", source=FLASH_TC_SOURCE,
-             replaces=FLASH_TPU_KERNEL, launches=lm["launches"]["flash_tc"],
+        # the wgmma kernel: head dim 64 on the transformer path, 128 on
+        # transformer_d512 (one counter for both)
+        dict(name="flash_fwd_tc (D 64)", route="cuda",
+             source=FLASH_TC_SOURCE, replaces=FLASH_TPU_KERNEL,
+             launches=lm["launches"]["flash_tc"],
              launches_by_path=dict(
-                 by_path["flash_tc"],
+                 tc_by_dim[64],
                  transformer_evaluate=lm["evaluate"]["launches"]["flash_tc"]),
              launches_per_round=lm["launches_per_round"]["flash_tc"],
-             **flash_tc_fields),
-        # the SIMT kernel takes float32, other head dims and misaligned
-        # views; the main paths give it none (the reference phase does)
-        dict(name="flash_fwd (SIMT)", route="cuda", source=FLASH_SOURCE,
-             replaces=FLASH_TPU_KERNEL, launches=simt_by_path["transformer"],
-             launches_by_path=simt_by_path, on_main_path=False,
-             launches_per_round=lm["launches_per_round"]["flash"]
-             - lm["launches_per_round"]["flash_tc"],
-             **flash_simt_fields),
+             **flash_fields["tc64"]),
+        dict(name="flash_fwd_tc (D 128)", route="cuda",
+             source=FLASH_TC_SOURCE, replaces=FLASH_TPU_KERNEL,
+             launches=d512["launches"]["flash_tc"],
+             launches_by_path=tc_by_dim[128],
+             launches_per_round=d512["launches_per_round"]["flash_tc"],
+             **flash_fields["tc128"]),
+        # the TF32 kernel: float32 (transformer_f32, the reference phase),
+        # other head dims, misaligned views
+        dict(name="flash_fwd_tf32", route="cuda", source=FLASH_TF32_SOURCE,
+             replaces=FLASH_TPU_KERNEL,
+             launches=f32["launches"]["flash_tf32"],
+             launches_by_path=by_path["flash_tf32"],
+             launches_per_round=f32["launches_per_round"]["flash_tf32"],
+             **flash_fields["tf32"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))
@@ -1647,6 +1713,9 @@ def main(argv=None) -> int:
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))
     print(json.dumps({"transformer_profile": lm_prof}))
+    for name, (out, prof_out) in lm_paths.items():
+        print(json.dumps({f"{name}_main_path": out, "card": card}))
+        print(json.dumps({f"{name}_profile": prof_out}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

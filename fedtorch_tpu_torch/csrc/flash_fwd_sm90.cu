@@ -1,12 +1,12 @@
 // Exact attention forward with the online softmax on Hopper's tensor cores
-// (sm_90a): bfloat16 q, k, v with head dim 64.
+// (sm_90a): bfloat16 q, k, v with head dim 64 or 128.
 //
 // Replaces the TPU Pallas kernel `_fwd_kernel`
 // (fedtorch_tpu/ops/pallas/flash_attention.py:82), for the inputs that
-// `ops/cuda/flash_attention.py::_route` sends here; `flash_fwd.cu` takes
-// the rest (float32, other head dims, misaligned views). It computes what
-// that kernel and its oracle `_fwd_xla` compute: for each (batch, head)
-// and query row i, over the keys j it sees (j <= i when causal),
+// `ops/cuda/flash_attention.py::_route` sends here; `flash_fwd_tf32.cu`
+// takes the rest (float32, other head dims, misaligned views). It computes
+// what that kernel and its oracle `_fwd_xla` compute: for each (batch,
+// head) and query row i, over the keys j it sees (j <= i when causal),
 //
 //   s_j = (q_i . k_j) * scale          in float32
 //   o_i = sum_j exp(s_j - lse_i) v_j,  lse_i = log sum_j exp(s_j)
@@ -18,7 +18,9 @@
 // GFLOP: 0.01738 ms at the card's 989 TFLOP/s of dense bf16 tensor-core
 // work, against 0.0101 ms for the 33.8 MB that must move. P V is issued
 // twice (p split in two bf16 halves, below), so the tensor cores do 1.5x
-// the useful work, 25.8 GFLOP: 0.0261 ms at peak.
+// the useful work, 25.8 GFLOP: 0.0261 ms at peak. At D = 128 (the heads
+// of a d_model-512 transformer) the products double, 34.4 GFLOP useful:
+// 0.03476 ms, while the softmax's work per score stays the same.
 //
 // Design:
 // - One CTA of 288 threads per (batch*head, 128 query rows): two consumer
@@ -29,31 +31,38 @@
 //   with full and empty mbarriers. The tensor maps are 4-D (d, h, t, b)
 //   over the views' byte strides, so the strided thirds of one qkv
 //   projection are read in place; TMA zero-fills rows past T, and the
-//   kernel scores keys >= T as -inf and never stores rows >= T. At D = 64
-//   a bf16 row is 128 bytes, one row of the 128-byte swizzle, which
-//   `wgmma` reads without bank conflicts.
-// - S = Q K^T: four `wgmma m64n64k16` from shared memory into float32
-//   accumulators, then the scale; the causal mask only on tiles that
-//   cross the diagonal (or T), and tiles wholly past the diagonal skipped
-//   (`_fwd_kernel`'s loop bound, :128-131). A row's max and sum are
-//   reduced over the 4 lanes that share it in the accumulator layout.
+//   kernel scores keys >= T as -inf and never stores rows >= T. A tile
+//   is kept as D / 64 column blocks ("atoms") of 128-byte rows, one TMA
+//   box each: a 128-byte row is one row of the 128-byte swizzle, which
+//   `wgmma` reads without bank conflicts. At D = 128, Q takes 32 KB and a
+//   K or V tile 16 KB, so the ring is 160 KB of the 227 KB.
+// - S = Q K^T: D / 16 `wgmma m64n64k16` from shared memory into float32
+//   accumulators, the descriptors stepping 32 bytes along an atom's rows
+//   and then to the next atom; then the scale; the causal mask only on
+//   tiles that cross the diagonal (or T), and tiles wholly past the
+//   diagonal skipped (`_fwd_kernel`'s loop bound, :128-131). A row's max
+//   and sum are reduced over the 4 lanes that share it in the
+//   accumulator layout.
 // - P V keeps float32 precision: p = p_hi + p_lo with p_hi = bf16(p) and
 //   p_lo = bf16(p - p_hi) leaves p within ~2^-17 of its float32 value,
 //   where one bf16 rounding (2^-9) would break the bar the tests hold (the
 //   float32 bar plus one bf16 spacing of o). Both halves go through
-//   `wgmma` with A from registers (the S accumulator fragment re-packed
-//   as the A operand) and V from shared memory through the transpose bit.
-//   l is summed in float32 from p before the split.
+//   `wgmma m64nDk16` with A from registers (the S accumulator fragment
+//   re-packed as the A operand) and V from shared memory through the
+//   transpose bit; at D = 128 the descriptor's leading byte offset steps
+//   from V's first atom to its second. l is summed in float32 from p
+//   before the split.
 // - Inside a warpgroup, tile i's P V and tile i + 1's S are issued
 //   together, and tile i + 1's softmax runs while P V is on the tensor
 //   cores; each loop iteration ends with no wgmma in flight, so ptxas
 //   keeps the products asynchronous. The two warpgroups interleave too.
-// - As built, the softmax's float32 instructions (scale, mask, max, expf,
-//   sum, the split of p) bound it, not the tensor cores: it runs at ~6.6x
-//   the bound (PERF.md). 288 threads a CTA at 138 registers each leave one
-//   CTA (8 consumer warps) per SM.
+// - As built at D = 64, the softmax's float32 instructions (scale, mask,
+//   max, expf, sum, the split of p) bound it, not the tensor cores: it
+//   runs at ~6.6x the bound (PERF.md). 288 threads a CTA leave one CTA (8
+//   consumer warps) per SM; at D = 128 the O accumulators double to 64
+//   float32 a thread, within the 224 registers a thread may hold.
 //
-// Non-finite rules, those of `flash_fwd.cu` (and of `_fwd_xla`):
+// Non-finite rules, those of `flash_fwd_tf32.cu` (and of `_fwd_xla`):
 // - the running max keeps NaN; m_safe = m where finite, else 0;
 // - p = exp(s - m_safe) where s is finite, else 0;
 // - corr = exp(m_old - m_safe) where the old max is finite, 0 where it is
@@ -76,7 +85,6 @@
 
 namespace {
 
-constexpr int kD = 64;                      // head dim
 constexpr int kBQ = 128;                    // query rows per CTA
 constexpr int kBK = 64;                     // keys per K/V tile
 constexpr int kSN = kBK / 2;                // S accumulators a thread
@@ -84,10 +92,20 @@ constexpr int kPN = kBK / 4;                // bf16 pairs of P a thread
 constexpr int kStages = 4;                  // K/V ring depth
 constexpr int kConsumers = 256;             // two warpgroups
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
-constexpr int kRowBytes = kD * 2;           // one 128-byte swizzle row
-constexpr int kQBytes = kBQ * kRowBytes;    // 16 KB
-constexpr int kKVBytes = kBK * kRowBytes;   // 8 KB a tile
-constexpr int kSmemBytes = kQBytes + 2 * kStages * kKVBytes + 1024;  // +align
+constexpr int kAtomCols = 64;               // bf16 columns of one atom
+constexpr int kRowBytes = kAtomCols * 2;    // one 128-byte swizzle row
+constexpr int kQAtomBytes = kBQ * kRowBytes;   // 16 KB
+constexpr int kKVAtomBytes = kBK * kRowBytes;  // 8 KB
+
+template <int kD>
+struct Cfg {
+  static_assert(kD % kAtomCols == 0, "head dim: whole 64-column atoms");
+  static constexpr int kAtoms = kD / kAtomCols;
+  static constexpr int kQBytes = kAtoms * kQAtomBytes;
+  static constexpr int kKVBytes = kAtoms * kKVAtomBytes;  // a K or V tile
+  static constexpr int kSmemBytes =
+      kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment
+};
 
 __device__ __forceinline__ bool is_finite(float x) {
   return fabsf(x) < INFINITY;  // false for NaN and +-inf
@@ -110,15 +128,18 @@ __device__ __forceinline__ float select(bool c, float a, float b) {
   return d;
 }
 
-// S = Q K^T of one key tile into `s` (uncommitted): four k16 steps,
-// each 32 bytes along the swizzled 128-byte rows of Q and K
-__device__ __forceinline__ void issue_qk(float (&s)[kSN], uint64_t desc_q,
+// S = Q K^T of one key tile into `s` (uncommitted): D / 16 k16 steps,
+// each 32 bytes along the swizzled 128-byte rows of one atom of Q and K
+template <int kD>
+__device__ __forceinline__ void issue_qk(float (&s)[kSN], uint32_t q_wg,
                                          uint32_t k_tile) {
-  const uint64_t desc_k = sm90::desc_sw128(k_tile);
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    sm90::wgmma_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk);
+    const int atom = kk / 4, step = kk % 4;
+    sm90::wgmma_ss(s, sm90::desc_sw128(q_wg + atom * kQAtomBytes) + 2 * step,
+                   sm90::desc_sw128(k_tile + atom * kKVAtomBytes) + 2 * step,
+                   kk);
   }
 }
 
@@ -204,9 +225,28 @@ __device__ __forceinline__ void split_p(const float (&s)[kSN],
   }
 }
 
+// one k16 step of P V: 16 V rows (2048 bytes into each atom)
+template <int kD>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[kD / 2],
+                                         const uint32_t* a, uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32],
+                                             const uint32_t* a,
+                                             uint64_t desc) {
+  sm90::wgmma_m64n64k16_rs_tb(acc, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
+                                              const uint32_t* a,
+                                              uint64_t desc) {
+  sm90::wgmma_m64n128k16_rs_tb(acc, a, desc);
+}
+
 // O = corr O + P_hi V + P_lo V for one 64-key tile (uncommitted): four
-// k16 steps of 16 V rows (2048 bytes) per half
-__device__ __forceinline__ void issue_pv(float (&acc)[32],
+// k16 steps per half; V's two atoms (D = 128) are the descriptor's leading
+// byte offset apart
+template <int kD>
+__device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
                                          uint32_t (&p_hi)[kPN],
                                          uint32_t (&p_lo)[kPN],
                                          const float (&corr)[2],
@@ -219,27 +259,42 @@ __device__ __forceinline__ void issue_pv(float (&acc)[32],
       acc[4 * j + 2 * r + 1] *= corr[r];
     }
   }
-  const uint64_t desc_v = sm90::desc_sw128(v_tile);
+  const uint64_t desc_v =
+      sm90::desc_sw128(v_tile, kD > kAtomCols ? kKVAtomBytes : 1024);
   sm90::fence_regs(acc);
   sm90::fence_regs(p_hi);
   sm90::fence_regs(p_lo);
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
-    sm90::wgmma_m64n64k16_rs_tb(acc, p_hi + 4 * kk, desc_v + 128 * kk);
+    wgmma_pv<kD>(acc, p_hi + 4 * kk, desc_v + 128 * kk);
   }
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
-    sm90::wgmma_m64n64k16_rs_tb(acc, p_lo + 4 * kk, desc_v + 128 * kk);
+    wgmma_pv<kD>(acc, p_lo + 4 * kk, desc_v + 128 * kk);
   }
 }
 
+// one tile of `rows` rows from (h, row, b) into `dst`, an atom at a time
+template <int kD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int atom_bytes, int h,
+                                         int row, int b) {
+#pragma unroll
+  for (int a = 0; a < kD / kAtomCols; ++a) {
+    sm90::tma_load_4d(dst + a * atom_bytes, map, bar, a * kAtomCols, h, row,
+                      b);
+  }
+}
+
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int H, int T, float scale, int causal) {
+  using C = Cfg<kD>;
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -248,8 +303,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // 1024-byte aligned tiles: the 128-byte swizzle repeats every 8 rows
   const uint32_t base = (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t k_s = base + kQBytes;
-  const uint32_t v_s = k_s + kStages * kKVBytes;
+  const uint32_t k_s = base + C::kQBytes;
+  const uint32_t v_s = k_s + kStages * C::kKVBytes;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -271,17 +326,20 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x >= kConsumers) {
     // producer: one lane issues every load
     if (threadIdx.x != kConsumers) return;
-    sm90::mbar_expect_tx(sm90::smem_addr(&q_full), kQBytes);
-    sm90::tma_load_4d(q_s, &qmap, sm90::smem_addr(&q_full), 0, h, q0, b);
+    sm90::mbar_expect_tx(sm90::smem_addr(&q_full), C::kQBytes);
+    tma_tile<kD>(q_s, &qmap, sm90::smem_addr(&q_full), kQAtomBytes, h, q0,
+                 b);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       // the consumers' release of tile i - kStages (passes at once for
       // the first kStages tiles)
       sm90::mbar_wait(sm90::smem_addr(&empty[s]), ((i / kStages) & 1) ^ 1);
       const uint32_t bar = sm90::smem_addr(&full[s]);
-      sm90::mbar_expect_tx(bar, 2 * kKVBytes);
-      sm90::tma_load_4d(k_s + s * kKVBytes, &kmap, bar, 0, h, i * kBK, b);
-      sm90::tma_load_4d(v_s + s * kKVBytes, &vmap, bar, 0, h, i * kBK, b);
+      sm90::mbar_expect_tx(bar, 2 * C::kKVBytes);
+      tma_tile<kD>(k_s + s * C::kKVBytes, &kmap, bar, kKVAtomBytes, h,
+                   i * kBK, b);
+      tma_tile<kD>(v_s + s * C::kKVBytes, &vmap, bar, kKVAtomBytes, h,
+                   i * kBK, b);
     }
     return;
   }
@@ -301,13 +359,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // tiles this warpgroup scores: causal, none wholly past its last row
   // (`_fwd_kernel`'s loop bound, :128-131)
   const int n_wg = causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
-  const uint64_t desc_q = sm90::desc_sw128(q_s + wg * 64 * kRowBytes);
+  // this warpgroup's 64 rows of each Q atom
+  const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
 
   // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
-  float acc[32], s[kSN];
+  float acc[kD / 2], s[kSN];
   uint32_t p_hi[kPN], p_lo[kPN];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kSN; ++i) s[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
@@ -315,7 +374,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   sm90::mbar_wait(sm90::smem_addr(&q_full), 0);
   sm90::mbar_wait(sm90::smem_addr(&full[0]), 0);
   __syncwarp();  // converged again for the .aligned wgmma
-  issue_qk(s, desc_q, k_s);
+  issue_qk<kD>(s, q_wg, k_s);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(s);
@@ -330,9 +389,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::mbar_wait(sm90::smem_addr(&full[nst]), ((i + 1) / kStages) & 1);
     __syncwarp();
     sm90::fence_regs(s);
-    issue_qk(s, desc_q, k_s + nst * kKVBytes);
+    issue_qk<kD>(s, q_wg, k_s + nst * C::kKVBytes);
     sm90::wgmma_commit();
-    issue_pv(acc, p_hi, p_lo, corr, v_s + (i % kStages) * kKVBytes);
+    issue_pv<kD>(acc, p_hi, p_lo, corr, v_s + (i % kStages) * C::kKVBytes);
     sm90::wgmma_commit();
 
     sm90::wgmma_wait<1>();  // S of tile i + 1
@@ -346,7 +405,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     sm90::mbar_arrive(sm90::smem_addr(&empty[i % kStages]));
     split_p(s, p_hi, p_lo);
   }
-  issue_pv(acc, p_hi, p_lo, corr, v_s + ((n_wg - 1) % kStages) * kKVBytes);
+  issue_pv<kD>(acc, p_hi, p_lo, corr,
+               v_s + ((n_wg - 1) % kStages) * C::kKVBytes);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(acc);
@@ -402,18 +462,20 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a 4-D (d, h, t, b) bf16 map over a [B, T, H, kD] view with the given
-// element strides, boxes of `rows` rows of one (b, h)
+// a 4-D (d, h, t, b) bf16 map over a [B, T, H, D] view with the given
+// element strides, boxes of one 64-column atom of `rows` rows of one
+// (b, h)
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int64_t B,
-              int64_t T, int64_t H, int64_t sb, int64_t st, int64_t sh,
-              uint32_t rows) {
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(H),
+              int64_t T, int64_t H, int64_t D, int64_t sb, int64_t st,
+              int64_t sh, uint32_t rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kD, 1, rows, 1};
+  const cuuint32_t box[4] = {kAtomCols, 1, rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
              const_cast<void*>(ptr), dims, strides, box, unit,
@@ -422,38 +484,51 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int64_t B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// q, k, v: bfloat16 [B, T, H, 64] views on the current device with the
-// given element strides for b, t and h and a d stride of 1; base pointers
-// 16-byte aligned and strides multiples of 8 (the Python wrapper checks
-// both). o: contiguous bf16 [B, T, H, 64]; lse: contiguous float32 [B, H,
-// T]. T >= 1. Launches on `stream`; returns cudaGetLastError() (0 on
-// success), -2 if cuTensorMapEncodeTiled is missing, -3 if it
-// refuses a map.
-extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
-                            void* o, float* lse, int64_t B, int64_t T_len,
-                            int64_t H, int64_t sqb, int64_t sqt, int64_t sqh,
-                            int64_t skb, int64_t skt, int64_t skh,
-                            int64_t svb, int64_t svt, int64_t svh,
-                            float scale, int causal, void* stream) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return -2;
-  CUtensorMap qm, km, vm;
-  if (!make_map(enc, &qm, q, B, T_len, H, sqb, sqt, sqh, kBQ) ||
-      !make_map(enc, &km, k, B, T_len, H, skb, skt, skh, kBK) ||
-      !make_map(enc, &vm, v, B, T_len, H, svb, svt, svh, kBK)) {
-    return -3;
-  }
+template <int kD>
+int launch(const CUtensorMap& qm, const CUtensorMap& km,
+           const CUtensorMap& vm, void* o, float* lse, int64_t B,
+           int64_t T_len, int64_t H, float scale, int causal,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_fwd_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<kD>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(B * H),
                   static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
-  flash_fwd_tc_kernel<<<grid, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_tc_kernel<kD><<<grid, kThreads, Cfg<kD>::kSmemBytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(H),
       static_cast<int>(T_len), scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v: bfloat16 [B, T, H, D] views (D = 64 or 128) on the current
+// device with the given element strides for b, t and h and a d stride of
+// 1; base pointers 16-byte aligned and strides multiples of 8 (the Python
+// wrapper checks both). o: contiguous bf16 [B, T, H, D]; lse: contiguous
+// float32 [B, H, T]. T >= 1. Launches on `stream`; returns
+// cudaGetLastError() (0 on success), -1 for another head dim, -2 if
+// cuTensorMapEncodeTiled is missing, -3 if it refuses a map.
+extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
+                            void* o, float* lse, int64_t B, int64_t T_len,
+                            int64_t H, int64_t D, int64_t sqb, int64_t sqt,
+                            int64_t sqh, int64_t skb, int64_t skt,
+                            int64_t skh, int64_t svb, int64_t svt,
+                            int64_t svh, float scale, int causal,
+                            void* stream) {
+  if (D != 64 && D != 128) return -1;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return -2;
+  CUtensorMap qm, km, vm;
+  if (!make_map(enc, &qm, q, B, T_len, H, D, sqb, sqt, sqh, kBQ) ||
+      !make_map(enc, &km, k, B, T_len, H, D, skb, skt, skh, kBK) ||
+      !make_map(enc, &vm, v, B, T_len, H, D, svb, svt, svh, kBK)) {
+    return -3;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch<64>(qm, km, vm, o, lse, B, T_len, H, scale, causal,
+                              st)
+                 : launch<128>(qm, km, vm, o, lse, B, T_len, H, scale,
+                               causal, st);
 }

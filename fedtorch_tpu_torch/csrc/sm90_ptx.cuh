@@ -81,14 +81,16 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 // Shared-memory matrix descriptor of a tile stored as 128-byte rows with
 // the 128-byte swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B),
-// 8-row groups 1024 bytes apart. The tile must start 1024-byte aligned.
-// Both byte offsets are 1024: for a K-major operand the leading offset is
-// unused; for an MN-major operand no wider than 64 elements only the
-// stride between 8-row groups of the K dimension is read, so either field
-// naming that stride gives the same layout.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+// 8-row groups 1024 bytes apart (the stride byte offset). The tile must
+// start 1024-byte aligned. The leading byte offset is read only by an
+// MN-major operand wider than one 128-byte row (64 bf16): the distance
+// between its 64-element column blocks (CUTLASS's canonical GMMA layout
+// ((T,8,m),(8,k)):((1,T,LBO),(8T,SBO)) in 16-byte units). A K-major
+// operand, or one no wider than 64 elements, never reads it.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo = 1024) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -154,8 +156,34 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+#define SM90_ACC64(d)                                                         \
+  SM90_ACC32(d), SM90_R8(d, 32), SM90_R8(d, 40), SM90_R8(d, 48),             \
+      SM90_R8(d, 56)
+#define SM90_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]: A from registers, B MN-major in
+// shared memory through the transpose bit, as two 64-column blocks
+// `desc_b`'s leading byte offset apart.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                       const uint32_t* a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : SM90_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 #undef SM90_R8
 #undef SM90_ACC32
+#undef SM90_ACC64
 #undef SM90_D32
+#undef SM90_D64
 
 }  // namespace sm90

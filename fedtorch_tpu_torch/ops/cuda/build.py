@@ -12,10 +12,12 @@ into one shared library with a plain C interface:
 The per-source flags (``SOURCE_FLAGS``, one entry for every source) give
 the quantizer ``--fmad=false``, which keeps its ``scale*(q - zp) + mean``
 rounding as written, and leave the attention kernels free to contract
-their multiply-adds (each source's header says why). The tensor-core
-attention kernel writes its ``wgmma``, TMA and ``mbarrier`` PTX by hand
+their multiply-adds (each source's header says why). The bf16 attention
+kernel writes its ``wgmma``, TMA and ``mbarrier`` PTX by hand
 (``csrc/sm90_ptx.cuh``) and looks up ``cuTensorMapEncodeTiled``
-through the runtime, so no CUTLASS header and no ``-lcuda`` is needed.
+through the runtime; the TF32 one writes its ``mma.sync`` and
+``cp.async`` PTX inline. So no CUTLASS header and no ``-lcuda`` is
+needed.
 The library goes to ``fedtorch_tpu_torch/_build/`` (git-ignored) under a
 name keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` they
 include) and of every flag, so an edited source or flag rebuilds and an
@@ -44,8 +46,8 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 SOURCE_FLAGS = {
     "qdq_ragged.cu": ("--fmad=false",),
     "qdq_tiled.cu": ("--fmad=false",),
-    "flash_fwd.cu": (),
     "flash_fwd_sm90.cu": (),
+    "flash_fwd_tf32.cu": (),
 }
 
 
@@ -143,13 +145,13 @@ def load_library() -> ctypes.CDLL:
                 "qdq_tiled_apply_f32": [ptr, ptr, ptr, i64, i64, i64, i32,
                                         ptr],
                 # (q, k, v, o, lse, B, T, H, D, q/k/v strides of b, t, h,
-                #  scale, causal, bf16, vec, stream)
-                "flash_fwd": [ptr] * 5 + [i64] * 13
-                + [ctypes.c_float, i32, i32, i32, ptr],
-                # (q, k, v, o, lse, B, T, H, q/k/v strides of b, t, h,
                 #  scale, causal, stream)
-                "flash_fwd_tc": [ptr] * 5 + [i64] * 12
+                "flash_fwd_tc": [ptr] * 5 + [i64] * 13
                 + [ctypes.c_float, i32, ptr],
+                # (q, k, v, o, lse, B, T, H, D, q/k/v strides of b, t, h,
+                #  scale, causal, bf16, load mode, stream)
+                "flash_fwd_tf32": [ptr] * 5 + [i64] * 13
+                + [ctypes.c_float, i32, i32, i32, ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

@@ -8,19 +8,22 @@ built. :func:`flash_fwd` picks one by :func:`_route`, from the inputs
 alone:
 
 - ``"tc"``, ``csrc/flash_fwd_sm90.cu`` (``flash_fwd_tc``): bfloat16 with
-  head dim 64, base pointers 16-byte aligned and the b, t and h strides
-  multiples of 8 elements (what its TMA loads need). bf16 ``wgmma`` on
-  the tensor cores, p split in two bf16 halves for P V.
-- ``"simt"``, ``csrc/flash_fwd.cu`` (``flash_fwd``): everything else the
-  wrapper takes: float32 (tensor cores in TF32 would break its 2e-5
-  bar), head dims 16, 32 and 128, misaligned views. float32 products on
-  the CUDA cores.
+  head dim 64 or 128, base pointers 16-byte aligned and the b, t and h
+  strides multiples of 8 elements (what its TMA loads need). bf16
+  ``wgmma`` on the tensor cores, p split in two bf16 halves for P V.
+- ``"tf32"``, ``csrc/flash_fwd_tf32.cu`` (``flash_fwd_tf32``):
+  everything else the wrapper takes: float32 at any head dim up to 128,
+  bfloat16 at the other head dims, misaligned or oddly strided views.
+  ``mma.sync`` TF32 on the tensor cores with the 3xTF32 split, which
+  keeps the float32 bar (one TF32 product would break it).
 
-Each launch counts in ``flash_launches``; tensor-core launches also in
-``flash_tc_launches``. On CPU tensors :func:`flash_fwd` runs
-:func:`flash_fwd_ref`, the port of the JAX package's dense oracle
-``_fwd_xla``. There is no fallback: a CUDA tensor goes to its route's
-kernel or raises, and a failed launch is never retried on the other.
+Each launch counts in ``flash_launches``, and in ``flash_tc_launches``
+or ``flash_tf32_launches`` by its kernel. Head dims past 128 are refused
+by name: the JAX package takes them, the port does not yet. On CPU
+tensors :func:`flash_fwd` runs :func:`flash_fwd_ref`, the port of the
+JAX package's dense oracle ``_fwd_xla``. There is no fallback: a CUDA
+tensor goes to its route's kernel or raises, and a failed launch is
+never retried on the other.
 
 The backward is the JAX package's ``_bwd_chunked``: the probabilities
 are recomputed from the saved logsumexp one ``block_q`` chunk of query
@@ -44,15 +47,16 @@ import torch
 
 from fedtorch_tpu_torch.ops.cuda.build import load_library
 
-# kernel launches so far, both routes, and those of the tensor-core route
-# (reset to 0 before the run they should count)
+# kernel launches so far: both routes, then each route's own (reset to 0
+# before the run they should count)
 flash_launches = 0
 flash_tc_launches = 0
+flash_tf32_launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)  # the SIMT kernel's template instantiations
-TC_HEAD_DIM = 64               # the tensor-core kernel's one head dim
+MAX_HEAD_DIM = 128        # the widest head either kernel takes
+TC_HEAD_DIMS = (64, 128)  # the bf16 wgmma kernel's instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BH = 65535                # gridDim.y
+_MAX_T = 65535 * 128  # gridDim.y: query tiles of 128 rows (both kernels)
 
 
 def _default_blocks(T: int):
@@ -128,25 +132,34 @@ def flash_fwd_ref(q, k, v, scale: float, causal: bool):
     return o, lse.reshape(B, H, T)
 
 
-def _check_kernel_inputs(q, k, v) -> None:
+def _check_inputs(q, k, v) -> None:
+    """What both kernels take, on any device: one dtype of float32 or
+    bfloat16, head dims 1..``MAX_HEAD_DIM``, a last-dim stride of 1,
+    1 <= T <= ``_MAX_T`` and at least one (batch, head) pair."""
     B, T, H, D = q.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu, got {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_fwd takes float32 or bfloat16, got "
                          f"{q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_fwd needs one dtype, got q {q.dtype}, k "
                          f"{k.dtype}, v {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_fwd needs q, k, v on one device")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd has head dims {HEAD_DIMS}, got D = {D}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_fwd takes head dims up to {MAX_HEAD_DIM} "
+                         f"on the card, got D = {D}; the JAX package "
+                         f"takes any head dim, the port not yet")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_fwd needs a last-dim stride of 1")
-    if T < 1 or not 1 <= B * H <= _MAX_BH:
-        raise ValueError(f"flash_fwd needs T >= 1 and 1 <= B*H <= "
-                         f"{_MAX_BH}, got shape {tuple(q.shape)}")
+    if not 1 <= T <= _MAX_T or B * H < 1:
+        raise ValueError(f"flash_fwd needs 1 <= T <= {_MAX_T} and B*H >= 1,"
+                         f" got shape {tuple(q.shape)}")
+
+
+def _check_kernel_inputs(q, k, v) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd runs on cuda or cpu, got {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_fwd needs q, k, v on one device")
+    _check_inputs(q, k, v)
 
 
 def _tc_strides(t):
@@ -160,17 +173,17 @@ def _tc_strides(t):
 
 
 def _route(q, k, v) -> str:
-    """``"tc"`` for bfloat16 q, k, v with head dim 64 whose base pointers
-    are 16-byte aligned and whose b, t, h strides are multiples of 8
-    elements (sizes of 1 excepted); ``"simt"`` for anything else.
+    """``"tc"`` for bfloat16 q, k, v with head dim 64 or 128 whose base
+    pointers are 16-byte aligned and whose b, t, h strides are multiples
+    of 8 elements (sizes of 1 excepted); ``"tf32"`` for anything else.
     Depends on dtype, head dim and alignment only."""
-    if q.dtype != torch.bfloat16 or q.shape[3] != TC_HEAD_DIM \
+    if q.dtype != torch.bfloat16 or q.shape[3] not in TC_HEAD_DIMS \
             or any(t.dtype != torch.bfloat16 for t in (k, v)):
-        return "simt"
+        return "tf32"
     aligned = all(t.data_ptr() % 16 == 0
                   and all(st % 8 == 0 for st in _tc_strides(t))
                   for t in (q, k, v))
-    return "tc" if aligned else "simt"
+    return "tc" if aligned else "tf32"
 
 
 def _outputs(q):
@@ -179,25 +192,39 @@ def _outputs(q):
             torch.empty((B, H, T), dtype=torch.float32, device=q.device))
 
 
-def _launch_simt(q, k, v, scale: float, causal: bool):
-    """``csrc/flash_fwd.cu`` on checked CUDA inputs."""
-    global flash_launches
+def _load_mode(q, k, v) -> int:
+    """How the TF32 kernel copies q, k and v into shared memory: 2 for
+    16-byte ``cp.async`` (every base pointer, b/t/h stride and row of D
+    elements on 16-byte boundaries), 1 for 4-byte ``cp.async`` (always
+    for float32; bfloat16 needs 4-byte pointers and even strides and D),
+    0 for element loads (the misaligned bfloat16 views)."""
+    el = q.element_size()
+
+    def fits(nbytes):
+        return (q.shape[3] * el) % nbytes == 0 and all(
+            t.data_ptr() % nbytes == 0
+            and all(st * el % nbytes == 0 for st in t.stride()[:3])
+            for t in (q, k, v))
+    return 2 if fits(16) else 1 if fits(4) else 0
+
+
+def _launch_tf32(q, k, v, scale: float, causal: bool):
+    """``csrc/flash_fwd_tf32.cu`` on checked CUDA inputs."""
+    global flash_launches, flash_tf32_launches
     B, T, H, D = q.shape
     o, lse = _outputs(q)
-    # 4 elements per load where every pointer and stride allows it
-    align = 4 * q.element_size()
-    vec = all(t.data_ptr() % align == 0
-              and all(st % 4 == 0 for st in t.stride()[:3])
-              for t in (q, k, v))
     with torch.cuda.device(q.device):
-        err = load_library().flash_fwd(
+        err = load_library().flash_fwd_tf32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, T, H, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], scale, int(causal), _DTYPES[q.dtype], int(vec),
-            torch.cuda.current_stream().cuda_stream)
+            *v.stride()[:3], scale, int(causal), _DTYPES[q.dtype],
+            _load_mode(q, k, v), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fwd_tf32 launch failed: error {err} "
+                           "(-1: a head dim it does not take, else a CUDA "
+                           "error)")
     flash_launches += 1
+    flash_tf32_launches += 1
     return o, lse
 
 
@@ -205,18 +232,19 @@ def _launch_tc(q, k, v, scale: float, causal: bool):
     """``csrc/flash_fwd_sm90.cu`` on checked CUDA inputs that
     :func:`_route` sends to ``"tc"``."""
     global flash_launches, flash_tc_launches
-    B, T, H, _ = q.shape
+    B, T, H, D = q.shape
     o, lse = _outputs(q)
     with torch.cuda.device(q.device):
         err = load_library().flash_fwd_tc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, T, H, *_tc_strides(q), *_tc_strides(k),
+            lse.data_ptr(), B, T, H, D, *_tc_strides(q), *_tc_strides(k),
             *_tc_strides(v), scale, int(causal),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_tc launch failed: error {err} (-2: "
                            "no tensor-map encoder, -3: a map refused, "
-                           "else a CUDA error)")
+                           "-1: a head dim it does not take, else a CUDA "
+                           "error)")
     flash_launches += 1
     flash_tc_launches += 1
     return o, lse
@@ -231,7 +259,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool):
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, scale, causal)
     _check_kernel_inputs(q, k, v)
-    launch = _launch_tc if _route(q, k, v) == "tc" else _launch_simt
+    launch = _launch_tc if _route(q, k, v) == "tc" else _launch_tf32
     return launch(q, k, v, scale, causal)
 
 

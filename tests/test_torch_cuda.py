@@ -258,32 +258,42 @@ def _assert_bf16_close(o, ro):
     assert bool((diff <= slack).all()), float((diff - slack).max())
 
 
-_TC_CASES = [(torch.bfloat16, causal, T, 64, 0)
-             for T in (1, 63, 65, 300, 2048) for causal in (True, False)]
+_TC_CASES = [(torch.bfloat16, causal, T, D, 0)
+             for T in (1, 63, 65, 300, 2048) for causal in (True, False)
+             for D in (64, 128)]
+# the TF32 kernel: every padded head dim and the default model's 25
+_TF32_CASES = [(dtype, causal, T, D, 0)
+               for dtype in (torch.float32, torch.bfloat16)
+               for causal in (True, False) for T in (1, 50, 257)
+               for D in (8, 25, 100)]
 
 
 @pytest.mark.parametrize("dtype, causal, T, D, offset", [
     (torch.float32, True, 257, 64, 0), (torch.float32, False, 50, 32, 0),
     (torch.bfloat16, True, 300, 64, 0), (torch.float32, True, 1, 16, 0),
     (torch.bfloat16, False, 129, 128, 0), (torch.float32, True, 129, 64, 1),
-] + _TC_CASES)
+] + _TC_CASES + _TF32_CASES + [
+    (torch.bfloat16, True, 129, 64, 1), (torch.bfloat16, True, 129, 25, 2),
+    (torch.float32, True, 2048, 128, 0), (torch.bfloat16, False, 2048, 25, 0)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, causal, T, D,
                                             offset):
     """On strided q, k, v chunks of one projection (``offset`` 1:
-    misaligned, the scalar loads); float32 within 2e-5, bfloat16 o
-    within that plus one bfloat16 spacing. TF32 off for the plain
-    version. Aligned bfloat16 at head dim 64 takes the tensor-core
-    kernel, the rest the SIMT kernel."""
+    misaligned, the element loads for bfloat16); float32 within 2e-5,
+    bfloat16 o within that plus one bfloat16 spacing. TF32 off for the
+    plain version. Aligned bfloat16 at head dim 64 or 128 takes the
+    wgmma kernel, the rest the TF32 kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(T + D)
     x = torch.from_numpy(rng.randn(2, T, 3 * 4 * D + offset).astype(
         np.float32)).to(cuda, dtype)[..., offset:]
     q, k, v = (c.view(2, T, 4, D) for c in x.chunk(3, dim=-1))
-    tc = dtype == torch.bfloat16 and D == 64 and offset == 0
-    before = (fa.flash_launches, fa.flash_tc_launches)
+    tc = dtype == torch.bfloat16 and D in (64, 128) and offset == 0
+    before = (fa.flash_launches, fa.flash_tc_launches,
+              fa.flash_tf32_launches)
     o, lse = fa.flash_fwd(q, k, v, D ** -0.5, causal)
-    assert (fa.flash_launches, fa.flash_tc_launches) == (
-        before[0] + 1, before[1] + int(tc))
+    assert (fa.flash_launches, fa.flash_tc_launches,
+            fa.flash_tf32_launches) == (before[0] + 1, before[1] + int(tc),
+                                        before[2] + int(not tc))
     ro, rl = fa.flash_fwd_ref(q, k, v, D ** -0.5, causal)
     assert o.dtype == dtype and lse.shape == (2, 4, T)
     torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
@@ -296,14 +306,20 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, causal, T, D,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     """A q row of NaN attends to nothing (o = 0, lse = log 1e-30); a k
-    row of +inf scores NaN and is skipped, as in the plain version.
-    float32 goes through the SIMT kernel, bfloat16 through the tensor
-    cores."""
+    row of +inf scores NaN and is skipped, as in the plain version. A
+    -inf k element under q elements > 0 scores -inf: p = 0 and the
+    running max stays where it was, so the scores of key 5 (>= 125) do
+    not overflow exp. float32 goes through the TF32 kernel, bfloat16
+    through the wgmma kernel."""
     rng = np.random.RandomState(7)
     q, k, v = (torch.from_numpy(rng.randn(2, 257, 4, 64).astype(
         np.float32)).to(cuda, dtype) for _ in range(3))
     q[0, 5, 1] = float("nan")
     k[1, 3, 2] = float("inf")
+    q[1, :, 3, 0] = q[1, :, 3, 0].abs() + 1
+    k[1, 3, 3, 0] = float("-inf")
+    k[1, 5, 3] = 0.0
+    k[1, 5, 3, 0] = 1000.0
     before = fa.flash_tc_launches
     o, lse = fa.flash_fwd(q, k, v, 0.125, True)
     assert fa.flash_tc_launches == before + int(dtype == torch.bfloat16)
@@ -314,9 +330,11 @@ def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     else:
         _assert_bf16_close(o, ro)
     assert float(o[0, 5, 1].abs().max()) == 0.0
+    assert bool(lse[1, 3].isfinite().all())
+    assert bool(o[1, :, 3].isfinite().all())
 
 
-@pytest.mark.parametrize("D, dtype", [(24, torch.float32),
+@pytest.mark.parametrize("D, dtype", [(136, torch.float32),
                                       (64, torch.float16)])
 def test_flash_kernel_refuses_by_name(cuda, D, dtype):
     q = torch.zeros(1, 8, 2, D, device=cuda, dtype=dtype)

@@ -42,12 +42,17 @@ def _np(t):
     return t.detach().float().numpy()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [False, True])
-def test_matches_the_interpret_kernel(causal, dtype):
+@pytest.mark.parametrize("causal, dtype, D", [
+    pytest.param(c, d, 64, id=f"{c}-{d}") for d in ("float32", "bfloat16")
+    for c in (False, True)] + [
+    # the default transformer's heads (d_model 100: 4 of 25) and those of
+    # d_model 512 (4 of 128), which the port's kernels take on the card
+    pytest.param(c, d, D, id=f"{c}-{d}-D{D}") for D in (25, 128)
+    for d in ("float32", "bfloat16") for c in (False, True)])
+def test_matches_the_interpret_kernel(causal, dtype, D):
     """T 256 in 128-blocks: the JAX kernel's multi-block online softmax
     and, causal, its block skip, against the port's plain version."""
-    qkv = _qkv()
+    qkv = _qkv(D=D, seed=0 if D == 64 else D)
     jo, jl = jflash_lse(*(jnp.asarray(a, dtype) for a in qkv),
                         causal=causal, block_q=128, block_k=128,
                         force="interpret")

@@ -1,9 +1,11 @@
-"""The tensor-core flash forward (``csrc/flash_fwd_sm90.cu``) on the CPU:
-its route, and its arithmetic against the JAX package's oracle.
+"""The bf16 tensor-core flash forward (``csrc/flash_fwd_sm90.cu``) on the
+CPU: the routes and input checks of both forward kernels, and the bf16
+kernel's arithmetic against the JAX package's oracle.
 
-The kernel runs only on the card (``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` hold it against the plain version there). Here
-:func:`_route` is checked on CPU tensors laid out as the model makes them,
+The kernels run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` hold them against the plain version there). Here
+:func:`_route` and :func:`_check_inputs` are checked on CPU tensors laid
+out as the model makes them,
 and :func:`_emulate` repeats the kernel's arithmetic in float32 torch ops
 (64-key tiles, online softmax, p split into bf16 hi + lo for P V, float32
 sums) on the same numpy inputs as the JAX package's ``_fwd_xla``. The bar
@@ -49,14 +51,51 @@ def test_route_sends_strided_bf16_head_dim_64_to_the_tensor_cores():
     (torch.bfloat16, 128, 0), (torch.bfloat16, 64, 1),
     (torch.float32, 64, 1)])
 def test_route_sends_everything_else_to_the_simt_kernel(dtype, D, offset):
+    """Everything but aligned bf16 at head dim 64 or 128 takes the TF32
+    kernel, which replaced the SIMT one (the name is the test's first)."""
     q, k, v = _qkv_views(2, 129, 4, D, dtype, offset)
-    assert fa._route(q, k, v) == "simt"
+    tc = dtype == torch.bfloat16 and D in (64, 128) and offset == 0
+    assert fa._route(q, k, v) == ("tc" if tc else "tf32")
 
 
 def test_route_needs_strides_of_eight_elements():
     x = torch.zeros(2, 40, 3 * 4 * 64 + 4, dtype=torch.bfloat16)[..., :768]
     q, k, v = (c.view(2, 40, 4, 64) for c in x.chunk(3, dim=-1))
-    assert q.stride()[1] == 772 and fa._route(q, k, v) == "simt"
+    assert q.stride()[1] == 772 and fa._route(q, k, v) == "tf32"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 8, 24, 25, 50, 100, 128])
+def test_every_head_dim_up_to_128_takes_a_kernel(D, dtype):
+    """The default transformer (rnn_hidden_size 50: 4 heads of 25) and
+    every other head dim up to 128 pass the kernels' input check and take
+    a route, as the JAX package takes any head dim."""
+    for offset in (0, 1):
+        q, k, v = _qkv_views(2, 33, 4, D, dtype, offset)
+        fa._check_inputs(q, k, v)
+        want = "tc" if dtype == torch.bfloat16 and D in fa.TC_HEAD_DIMS \
+            and offset == 0 else "tf32"
+        assert fa._route(q, k, v) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dims_past_128_are_refused_by_name(dtype):
+    q, k, v = _qkv_views(1, 8, 2, 136, dtype)
+    with pytest.raises(ValueError, match="head dims up to 128.*JAX package"):
+        fa._check_inputs(q, k, v)
+    fa._check_inputs(*_qkv_views(1, 8, 2, 128, dtype))
+
+
+def test_load_mode_follows_the_alignment():
+    """16-byte copies for the model's float32 views at D 64, 4-byte ones
+    at D 25 (rows of 100 bytes) and for even-aligned bf16, element loads
+    for bf16 views off 4-byte alignment."""
+    assert fa._load_mode(*_qkv_views(2, 9, 4, 64, torch.float32)) == 2
+    assert fa._load_mode(*_qkv_views(2, 9, 4, 25, torch.float32)) == 1
+    assert fa._load_mode(*_qkv_views(2, 9, 4, 64, torch.float32, 1)) == 1
+    assert fa._load_mode(*_qkv_views(2, 9, 4, 64, torch.bfloat16, 2)) == 1
+    assert fa._load_mode(*_qkv_views(2, 9, 4, 64, torch.bfloat16, 1)) == 0
+    assert fa._load_mode(*_qkv_views(2, 9, 4, 25, torch.bfloat16)) == 0
 
 
 def _emulate(q, k, v, scale, causal, split=True):

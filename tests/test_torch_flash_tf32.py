@@ -1,0 +1,153 @@
+"""The TF32 flash forward (``csrc/flash_fwd_tf32.cu``) on the CPU: why its
+products are 3xTF32, by emulation against the JAX package's oracle.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` hold it against the plain version there). Here
+:func:`_emulate` repeats its arithmetic in float32 torch ops on the same
+numpy inputs as the JAX package's ``_fwd_xla``: TF32 rounding emulated by
+bit operations (round to nearest on 10 mantissa bits, ties away from
+zero, as ``cvt.rna.tf32.f32``), the split x = hi + lo with hi = tf32(x)
+and lo = x - hi, which the tensor cores read truncated to TF32 (its low
+13 bits dropped), each product a_hi b_hi + a_hi b_lo + a_lo b_hi (TF32
+products are exact in float32), 32-key tiles with the online softmax, l
+summed from p before its split. The bar is the card's: o and lse within
+atol = rtol = 2e-5.
+
+What the CPU cannot show is the tensor cores' own accumulation (its order
+and rounding inside an ``mma.sync``); only the card checks that, in the
+tests and ``chip_smoke.py`` named above.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
+
+BK = 32  # the kernel's keys per tile
+
+
+def _tf32(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away
+    from zero; +-inf stay as they are."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _truncate(x):
+    """float32 -> TF32 by dropping the low 13 mantissa bits, as the tensor
+    cores read a float32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _truncate(x - hi)
+
+
+def _product(eq, a, b, split, guard=False):
+    """einsum of TF32 operands: three products of the split, or one of
+    the rounded values. ``guard``: the cross products are added only
+    where the hi products' sum is finite, as the kernel's q K^T adds
+    them."""
+    if not split:
+        return torch.einsum(eq, _tf32(a), _tf32(b))
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    hi = torch.einsum(eq, ah, bh)
+    cross = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+    return torch.where(hi.isfinite(), hi + cross, hi) if guard \
+        else cross + hi
+
+
+def _emulate(q, k, v, scale, causal, split=True, guard=True):
+    """The kernel's arithmetic on float32 [BH, T, D] tensors: o, lse
+    (``guard``: see :func:`_product`)."""
+    BH, T, D = q.shape
+    rows = torch.arange(T)
+    m = torch.full((BH, T), -np.inf)
+    l = torch.zeros(BH, T)
+    acc = torch.zeros(BH, T, D)
+    for k0 in range(0, T, BK):
+        kt, vt = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
+        s = _product("bqd,bkd->bqk", q, kt, split, guard) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[1])
+            s = s.masked_fill(keys[None, :] > rows[:, None], -np.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(m_new.isfinite(), m_new, 0.0)
+        corr = torch.where(m.isfinite(), torch.exp(m - m_safe),
+                           torch.where(m == -np.inf, 0.0, 1.0))
+        p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _product("bqk,bkd->bqd", p, vt, split)
+        m = m_new
+    l_safe = torch.where(l.isnan(), l, l.clamp_min(1e-30))
+    lse = torch.where(m.isfinite(), m, 0.0) + torch.log(l_safe)
+    return acc / l_safe[..., None], lse
+
+
+def _excess(got, want):
+    """Largest |got - want| past the bar 2e-5 + 2e-5 |want| (<= 0
+    passes)."""
+    return float(((got - want).abs() - 2e-5 - 2e-5 * want.abs()).max())
+
+
+def test_tf32_rounding_is_round_to_nearest_on_ten_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      3.0e-3])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0,
+                         float(np.float32(3.0e-3))])
+    got = _tf32(x)
+    assert torch.equal(got[:5], want[:5])
+    # 10 mantissa bits: the low 13 of 23 are zero, within half a spacing
+    assert int(got[5:].view(torch.int32) & 0x1FFF) == 0
+    assert abs(float(got[5]) - 3.0e-3) <= 2.0 ** -9 * 2.0 ** -11
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_3xtf32_holds_the_bar_where_one_tf32_product_breaks_it(D):
+    """At T 2048 (the transformer path's length), causal: the 3xTF32
+    split of Q K^T and P V stays within 2e-5 of the oracle in o and lse;
+    one TF32 product of each lands past it."""
+    rng = np.random.RandomState(21 + D)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2048, D).astype(np.float32))
+               for _ in range(3))
+    scale = D ** -0.5
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)), scale,
+                      True)
+    want_o = torch.from_numpy(np.array(jo))
+    want_l = torch.from_numpy(np.array(jl))
+    o3, l3 = _emulate(q, k, v, scale, True)
+    o1, l1 = _emulate(q, k, v, scale, True, split=False)
+    three = max(_excess(o3, want_o), _excess(l3, want_l))
+    one = max(_excess(o1, want_o), _excess(l1, want_l))
+    print(f"D {D}, T 2048 causal: 3xTF32 worst excess over the bar "
+          f"{three:.3e}, one TF32 product {one:.3e}")
+    assert three <= 0.0 < one
+
+
+def test_a_nonfinite_input_enters_only_the_hi_products():
+    """A -inf k element under q elements > 0: float32 scores -inf there
+    (p = 0, the running max unmoved). Its split is hi = -inf, lo = NaN,
+    so its cross products are NaN. Summed into the score, they make it
+    NaN, the max with it, and key 5's scores (>= 125) then overflow exp;
+    added only where the hi products' sum is finite, as the kernel adds
+    them, o and lse hold the bar and stay finite."""
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(1, 257, 64).astype(np.float32))
+               for _ in range(3))
+    q[0, :, 0] = q[0, :, 0].abs() + 1
+    k[0, 3, 0] = -np.inf
+    k[0, 5] = 0.0
+    k[0, 5, 0] = 1000.0
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)), 0.125,
+                      True)
+    want_o = torch.from_numpy(np.array(jo))
+    want_l = torch.from_numpy(np.array(jl))
+    o, lse = _emulate(q, k, v, 0.125, True)
+    assert bool(o.isfinite().all()) and bool(lse.isfinite().all())
+    assert max(_excess(o, want_o), _excess(lse, want_l)) <= 0.0
+    o, lse = _emulate(q, k, v, 0.125, True, guard=False)
+    assert not bool(lse[0, 5:].isfinite().any())

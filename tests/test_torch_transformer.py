@@ -54,10 +54,11 @@ def _cfg(mod, attention="flash", dtype="float32", hidden=32, layers=2,
 
 
 @functools.lru_cache(maxsize=None)
-def _models(attention="flash", dtype="float32"):
+def _models(attention="flash", dtype="float32", hidden=32, layers=2):
     """Both packages' models on the same (bridged) weights."""
-    jm = jdefine(_cfg(jcfg, attention, dtype), batch_size=3)
-    tm = tdefine(_cfg(tcfg, attention, dtype), batch_size=3, device="cpu")
+    jm = jdefine(_cfg(jcfg, attention, dtype, hidden, layers), batch_size=3)
+    tm = tdefine(_cfg(tcfg, attention, dtype, hidden, layers), batch_size=3,
+                 device="cpu")
     jp = jax.jit(jm.init)(jax.random.key(3))
     tp = params_from_jax(_flat(jp), expect=tm.init(torch.Generator()),
                          module=tm.module)
@@ -91,10 +92,16 @@ def test_bridge_round_trip():
                       tm.module)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("attention", ["dense", "flash"])
-def test_logits_match(attention, dtype):
-    jm, tm, jp, tp = _models(attention, dtype)
+@pytest.mark.parametrize("attention, dtype, hidden, layers", [
+    pytest.param(a, d, 32, 2, id=f"{a}-{d}") for d in ("float32", "bfloat16")
+    for a in ("dense", "flash")] + [
+    # the default width (rnn_hidden_size 50: d_model 100, 4 heads of 25)
+    # and d_model 512 (4 heads of 128), one layer each
+    pytest.param("flash", d, h, 1, id=f"flash-{d}-d{2 * h}")
+    for h in (50, 256) for d in ("float32", "bfloat16")])
+def test_logits_match(attention, dtype, hidden, layers):
+    jm, tm, jp, tp = _models(attention, dtype, hidden, layers)
+    assert tm.module.block_0.attn.num_heads == 4
     toks = _tokens()
     want = np.asarray(jm.apply(jp, jnp.asarray(toks, jnp.int32)))
     with torch.no_grad():
