@@ -43,7 +43,9 @@ of JAX or of the JAX package. Phases, each fatal on failure:
      100, 128} and T in {1, 50, 257, 2048}, causal and not; misaligned
      views; a NaN q row with a +inf k row and a -inf k element whose scores
      stay -inf beside scores that overflow exp unless the running max is
-     kept. lse and float32 o within atol = rtol = 2e-5, bfloat16 o within
+     kept; +inf and -inf float32 v elements (TF32 kernel, causal and not),
+     o +-inf where p > 0 meets them and NaN where the plain version
+     computes 0 inf or inf - inf. lse and float32 o within atol = rtol = 2e-5, bfloat16 o within
      one bfloat16 spacing past that bar, the NaN pattern identical. Timed
      (inputs rotating over at least 128 MB) against the plain version: the
      wgmma kernel at (8, 2048, 4, 64) and (8, 2048, 4, 128) bfloat16
@@ -94,13 +96,28 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    params evaluated in float32 on the first 1,024 test images on the
    card (TF32 off) and on the CPU must agree within ``CLI_EVAL_BAR``.
    Prints the data-build seconds, round ms, eval ms per call and top-1;
-8. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
+8. zoo: every algorithm beyond FedAvg on the north-star round at full
+   width through the library entry points (ResNet-20, bf16, 100 clients
+   x 250 samples from ``--seed``, k = 10, batch 50, 10 local steps, flip
+   and crop): SCAFFOLD (momentum off), FedGATE dense, FedCOMGATE (FedGATE
+   with int8 uplink and downlink through the ragged pair), Qsparse at
+   the CLI's default ratio, qFFL at q = 1, AFL (its one local step) and
+   DRFA over FedAvg; 1 warm-up and 1 timed round each, the counters set
+   to 0 just before each and read just after (2 + 2 ragged launches a
+   round on FedCOMGATE, none elsewhere); finite losses and aux trees,
+   moved server params, AFL's and DRFA's lambda on the simplex within
+   1e-6. Then each algorithm (and top-k FedGATE, DRFA over FedGATE and
+   over SCAFFOLD) one round card vs CPU on an MLP (float32, TF32 off,
+   the same plan): the update's and each aux tree's relative L2 within
+   ``ZOO_CARD_BAR``; and a quantized FedCOMGATE ResNet-8 round held as
+   the reference phase holds quantized FedAvg's;
+9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
    round. The counters must read the launches derived from the model's
    own leaf sizes (2 ragged stats, 2 ragged apply, 6 tiled stats, 6
    tiled apply per round);
-9. transformer main path: quantized FedAvg on the causal transformer LM
+10. transformer main path: quantized FedAvg on the causal transformer LM
    with flash attention (``rnn_hidden_size`` 128: d_model 256, 4 heads
    of 64, 4 layers, T 2048, 3,723,862 params, bfloat16; ``define_model``
    takes any width, d_model = 2 x rnn_hidden_size), 100 clients x 100
@@ -114,20 +131,20 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    launches (layers x batches) under inference mode, and its loss within
    ``LM_EVAL_LOSS_BAR`` of the same evaluation through the plain flash
    version on the card;
-10. transformer_d512: the same round at ``rnn_hidden_size`` 256 (d_model
+11. transformer_d512: the same round at ``rnn_hidden_size`` 256 (d_model
     512, 4 heads of 128, 4 layers, T 2048, 13,739,094 params,
     bfloat16); 1 warm-up, timed and 1 profiled round. The counters must
     read 400 flash launches a round, all on the wgmma kernel (head dim
     128), 2 + 2 ragged launches and, for its leaves past 524,288
     elements (the qkv weights of 786,432, the positional embedding and
     MLP weights of 1,048,576: two sizes), 4 + 4 tiled launches;
-11. transformer_f32: the path of item 9 in float32, the library's
+12. transformer_f32: the path of item 10 in float32, the library's
     default ``compute_dtype``; 1 warm-up, timed and 1 profiled round.
     The counters must read 400 flash launches a round, all on the TF32
     kernel, and 2 + 2 ragged launches.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
-``cli``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``cli``, ``zoo``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
 ``transformer_f32_profile`` lines, the card's name and power limit and,
@@ -137,6 +154,7 @@ result, without CUDA.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -215,6 +233,32 @@ LM_EVAL_WINDOWS = 32
 # its loss through the kernel vs through the plain version, both bf16:
 # one bfloat16 spacing at the loss's magnitude
 LM_EVAL_LOSS_BAR = 2.0 ** -8
+# the zoo phase: every algorithm beyond FedAvg on the north-star ResNet-20
+# round (bf16, 100 clients, k = 10, batch 50, 10 local steps, data from
+# --seed); (name, federated fields, optim fields). qsparse at the CLI's
+# default --compressed_ratio (1.0: top-k keeps half of each leaf), AFL at
+# the one local step its config forces
+ZOO_PATHS = (
+    ("scaffold", dict(algorithm="scaffold"), dict(in_momentum=False)),
+    ("fedgate", dict(algorithm="fedgate"), {}),
+    ("fedcomgate", dict(algorithm="fedgate", quantized=True), {}),
+    ("qsparse", dict(algorithm="qsparse"), {}),
+    ("qffl", dict(algorithm="qffl", qffl_q=1.0), {}),
+    ("afl", dict(algorithm="afl"), {}),
+    ("drfa", dict(algorithm="fedavg", drfa=True), {}),
+)
+ZOO_TIMED_ROUNDS = 1
+# each algorithm's round card vs CPU (an MLP on 60 features, float32,
+# unquantized, TF32 off): the relative L2 of the server update and of
+# each aux tree; top-k at ratio 0.5 besides qsparse's default
+ZOO_CARD_BAR = 1e-4
+ZOO_CARD_CASES = tuple((n, f, o) for n, f, o in ZOO_PATHS
+                       if n != "fedcomgate") + (
+    ("fedgate_topk", dict(algorithm="fedgate", compressed=True,
+                          compressed_ratio=0.5), {}),
+    ("drfa_fedgate", dict(algorithm="fedgate", drfa=True), {}),
+    ("drfa_scaffold", dict(algorithm="scaffold", drfa=True),
+     dict(in_momentum=False)))
 PROFILE_TRIES = 3
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
@@ -834,6 +878,19 @@ def flash_phase(fa):
             k[1, 5, 3, 0] = 1000.0
             check(q, k, v, True, "NaN q row, +inf k row, -inf k element",
                   want(dtype, D, offset))
+            if dtype == torch.float32:
+                # infinite v: +-inf where p > 0 meets it, NaN where the
+                # plain version computes 0 inf (the rows before the key,
+                # which the kernel's causal tiles skip) or inf - inf
+                q, k, v = qkv_views(gen, 2, 300, H, D, dtype, offset)
+                v[0, 0, 1, 11] = float("inf")
+                v[0, 40, 1, 3] = float("inf")
+                v[0, 100, 1, 3] = float("-inf")
+                v[0, 100, 1, 7] = float("-inf")
+                v[1, 200, 2, 9] = float("inf")
+                v[1, 299, 3, 0] = float("-inf")
+                for causal in (True, False):
+                    check(q, k, v, causal, "+-inf v elements", "tf32")
     for r, w in worst.items():
         log(f"flash kernel ({r}) vs plain: {w['cases']} cases, max |diff| "
             f"{w['abs']:.3e} (lse, float32 o), max {w['bf16_steps']:.3f} "
@@ -951,7 +1008,7 @@ def _round_card_vs_cpu(os_mod, cfg, qk, fa, seed, runs=("cpu", "cuda")):
     return updates, launched, p0, wire
 
 
-def _hold_round(os_mod, arch, qk, fa, seed):
+def _hold_round(os_mod, arch, qk, fa, seed, cfg=None):
     """One quantized round of ``os_mod.round_cfg(arch)``, card vs CPU:
     the card's quantizer launches, its wire format against the CPU's on
     the card's own payloads within one step, and its update against the
@@ -966,8 +1023,10 @@ def _hold_round(os_mod, arch, qk, fa, seed):
     in this run, never tighter than 2 steps and 1e-3 relative L2. At
     ResNet-8 one or two flips set the gap and no spread of a few orders
     bounds it, so the card must stay within SPREAD_FACTOR times
-    RESNET8_MAX_GAP, the largest gap between CPU orders over 64 seeds."""
-    cfg = os_mod.round_cfg(arch)
+    RESNET8_MAX_GAP, the largest gap between CPU orders over 64 seeds.
+    ``cfg`` (default ``os_mod.round_cfg(arch)``) may name another
+    algorithm with the same wire format (FedCOMGATE)."""
+    cfg = cfg or os_mod.round_cfg(arch)
     per_run = arch != "resnet8"
     runs = ("cpu", *os_mod.SPREAD_ORDERS, "cuda") if per_run else \
         ("cpu", "cuda")
@@ -1002,7 +1061,8 @@ def _hold_round(os_mod, arch, qk, fa, seed):
     else:
         bar, bar_l2 = (f * g for g in os_mod.RESNET8_MAX_GAP)
         against = f"RESNET8_MAX_GAP {os_mod.RESNET8_MAX_GAP}"
-    log(f"quantized {arch} round: wire format card vs CPU on the card's "
+    log(f"quantized {cfg.federated.algorithm} {arch} round: wire format "
+        f"card vs CPU on the card's "
         f"payloads max {wire_steps:.6f} steps; update card vs CPU max "
         f"{worst:.4f} downlink steps, relative L2 {worst_l2:.3e} (bars "
         f"{bar:.4f}, {bar_l2:.3e}); {against}; launches {launched}")
@@ -1362,6 +1422,221 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
     return out
 
 
+def zoo_config(tcfg, fed, optim, arch="resnet20", dtype="bfloat16",
+               clients=NUM_CLIENTS, rate=ONLINE_RATE, batch=BATCH,
+               steps=LOCAL_STEPS, dataset="cifar10", **model):
+    """A zoo path's round: the north-star round's sizes with ``fed``'s
+    algorithm and wire format and ``optim``'s overrides."""
+    return tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset=dataset, batch_size=batch),
+        federated=tcfg.FederatedConfig(
+            federated=True, num_clients=clients, online_client_rate=rate,
+            sync_type="local_step", **fed),
+        model=tcfg.ModelConfig(arch=arch, **model),
+        optim=tcfg.OptimConfig(**{"lr": 0.1, "in_momentum": True,
+                                  **optim}),
+        train=tcfg.TrainConfig(local_step=steps),
+        mesh=tcfg.MeshConfig(compute_dtype=dtype)).finalize()
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) of every tensor of a nested state tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def _check_lambda(name, lam):
+    """AFL's and DRFA's dual variable: on the simplex."""
+    total = float(lam.double().sum())
+    if abs(total - 1.0) > 1e-6 or not bool((lam >= 0).all()):
+        raise AssertionError(f"{name}: lambda sums to {total}, min "
+                             f"{float(lam.min())}")
+    return total
+
+
+def zoo_path(name, fed, optim, data, seed, tcfg, define_model,
+             make_algorithm, FederatedTrainer, qk, fa):
+    """One zoo path at the north-star sizes through the library entry
+    points: 1 warm-up and ``ZOO_TIMED_ROUNDS`` timed rounds, the counters
+    set to 0 just before and read just after; finite losses, moved and
+    finite server params, every aux tree finite, lambda on the simplex."""
+    cfg = zoo_config(tcfg, fed, optim)
+    model = define_model(cfg, batch_size=cfg.data.batch_size)
+    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+    server, clients = trainer.init_state(seed)
+    init = {k: v.clone() for k, v in server.params.items()}
+    per = launches_per_round(qk, [v.numel() for v in init.values()]) \
+        if cfg.federated.quantized else dict.fromkeys(
+            ("ragged_stats", "ragged_apply", "stats", "apply"), 0)
+    per.update(flash=0, flash_tc=0, flash_tf32=0)
+    rounds = 1 + ZOO_TIMED_ROUNDS
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    server, clients, _ = trainer.run_rounds(server, clients, 1)
+    # the timed rounds' wire-format calls between CUDA events
+    wire = []
+    for hook in ("payload_batch_transform", "aggregate_transform"):
+        def timed(tree, _real=getattr(trainer.algorithm, hook)):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = _real(tree)
+            ev[1].record()
+            wire.append(ev)
+            return out
+        setattr(trainer.algorithm, hook, timed)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    server, clients, metrics = trainer.run_rounds(server, clients,
+                                                  ZOO_TIMED_ROUNDS)
+    end.record()
+    torch.cuda.synchronize()
+    wire_ms = sum(a.elapsed_time(b) for a, b in wire) / ZOO_TIMED_ROUNDS
+    launched = counters(qk, fa)
+    want = {c: n * rounds for c, n in per.items()}
+    if launched != want:
+        raise AssertionError(f"zoo {name}: kernels launched {launched} in "
+                             f"{rounds} rounds, expected {want}")
+    losses = metrics.train_loss[metrics.online_mask.bool()]
+    if losses.numel() != ZOO_TIMED_ROUNDS * trainer.k_online \
+            or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"zoo {name}: bad losses {losses.tolist()}")
+    for where, t in itertools.chain(
+            _leaves(server.params, "params"), _leaves(server.aux, "server"),
+            _leaves(clients.aux, "clients")):
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"zoo {name}: non-finite {where}")
+    moved = max(float((server.params[k] - init[k]).abs().max())
+                for k in init)
+    if not moved > 0.0:
+        raise AssertionError(f"zoo {name}: server params did not change")
+    round_ms = start.elapsed_time(end) / ZOO_TIMED_ROUNDS
+    out = dict(path=name, algorithm=cfg.effective_algorithm,
+               quantized=cfg.federated.quantized,
+               compressed_ratio=cfg.federated.compressed_ratio
+               if cfg.federated.compressed else None,
+               local_steps=trainer.local_steps, round_ms=round_ms,
+               local_steps_per_s=trainer.k_online * trainer.local_steps
+               / (round_ms / 1e3),
+               timed_rounds=ZOO_TIMED_ROUNDS, launches=launched,
+               tree_launches=want,
+               launches_per_round={c: n / rounds
+                                   for c, n in launched.items()},
+               wire_format_ms_per_round=wire_ms,
+               losses_finite=True, aux_finite=True,
+               mean_loss=float(losses.mean()), max_param_change=moved)
+    if "lambda" in server.aux:
+        out["lambda_sum"] = _check_lambda(name, server.aux["lambda"])
+        out["lambda_min"] = float(server.aux["lambda"].min())
+    log(f"zoo {name}: {round_ms:.1f} ms/round ({trainer.local_steps} local "
+        f"steps; wire format {wire_ms:.4f} ms), losses finite, params "
+        f"moved {moved:.3e}, aux finite, "
+        f"launches per round {out['launches_per_round']}"
+        + (f", lambda sum {out['lambda_sum']:.9f} min "
+           f"{out['lambda_min']:.3e}" if "lambda_sum" in out else ""))
+    return out
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double().flatten(), want.double().flatten()
+    den = float(torch.linalg.vector_norm(want))
+    num = float(torch.linalg.vector_norm(got - want))
+    return num / den if den > 0 else num
+
+
+def zoo_card_vs_cpu(name, fed, optim, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer):
+    """One round of ``name`` at a small size (an MLP of 2 x 32 on 60
+    features, 8 clients, k = 2, batch 8, 2 local steps, float32,
+    unquantized), same weights and plan (drawn once, DRFA's draws
+    included), on the CPU and on the card with TF32 off: the update's
+    and each aux tree's relative L2 within ``ZOO_CARD_BAR``."""
+    C, N, B = 8, 16, 8
+    cfg = zoo_config(tcfg, fed, optim, arch="mlp", dtype="float32",
+                     clients=C, rate=0.25, batch=B, steps=2,
+                     dataset="synthetic", mlp_hidden_size=32)
+    rng = np.random.RandomState(11)
+    data = stack_partitions(rng.randn(C * N, 60).astype(np.float32),
+                            rng.randint(0, 10, C * N),
+                            [np.arange(N * i, N * i + N) for i in range(C)])
+    runs, plan = [], None
+    for dev in ("cpu", "cuda"):
+        tr = FederatedTrainer(cfg, define_model(cfg, B, device=dev),
+                              make_algorithm(cfg), data, device=dev)
+        server, clients = tr.init_state(12)
+        p0 = {k: v.cpu() for k, v in server.params.items()}
+        plan = plan or tr.draw_plan(server)
+        server, clients, _ = tr.round_fn(server, clients, plan)
+        runs.append(dict(
+            update={k: v.cpu() - p0[k] for k, v in server.params.items()},
+            aux={p: t.cpu() for p, t in itertools.chain(
+                _leaves(server.aux, "server"), _leaves(clients.aux,
+                                                       "clients"))}))
+    want, got = runs
+    gaps = {"update": _rel_l2(
+        torch.cat([v.flatten() for v in got["update"].values()]),
+        torch.cat([v.flatten() for v in want["update"].values()]))}
+    # one group per params-shaped tree (its leaves are named
+    # "module.param") or bare tensor
+    groups = {}
+    for p in want["aux"]:
+        head, last = p.rsplit("/", 1)
+        groups.setdefault(head if "." in last else p, []).append(p)
+    for g, paths in groups.items():
+        gaps[g] = _rel_l2(
+            torch.cat([got["aux"][p].flatten() for p in paths]),
+            torch.cat([want["aux"][p].flatten() for p in paths]))
+    worst = max(gaps.values())
+    log(f"zoo {name} card vs CPU (MLP, f32): relative L2 "
+        + ", ".join(f"{g} {v:.3e}" for g, v in gaps.items()))
+    if not worst <= ZOO_CARD_BAR:
+        raise AssertionError(f"zoo {name} card vs CPU: {gaps}")
+    return gaps
+
+
+def zoo_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+              FederatedTrainer, os_mod, qk, fa):
+    """Each zoo path at full width, then each algorithm card vs CPU at a
+    small size, and one quantized FedCOMGATE ResNet-8 round held as the
+    reference phase holds quantized FedAvg's."""
+    cfg = zoo_config(tcfg, {"algorithm": "fedavg"}, {})
+    t0 = time.perf_counter()
+    data = path_data(cfg, seed, stack_partitions)
+    out = {"data_s": time.perf_counter() - t0, "paths": {}, "card_vs_cpu":
+           {}}
+    for name, fed, optim in ZOO_PATHS:
+        out["paths"][name] = zoo_path(
+            name, fed, optim, data, seed, tcfg, define_model,
+            make_algorithm, FederatedTrainer, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del data
+    # TF32 off for the checks, then as it was (the later paths' backward
+    # runs its float32 products as the library's default leaves them)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, fed, optim in ZOO_CARD_CASES:
+        out["card_vs_cpu"][name] = zoo_card_vs_cpu(
+            name, fed, optim, tcfg, define_model, make_algorithm,
+            stack_partitions, FederatedTrainer)
+    cfg = os_mod.round_cfg("resnet8")
+    _hold_round(os_mod, "resnet8", qk, fa, seed=2, cfg=dataclasses.replace(
+        cfg, federated=dataclasses.replace(cfg.federated,
+                                           algorithm="fedgate")))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    return out
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -1592,6 +1867,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("zoo")
+    zoo = zoo_phase(args.seed, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer, order_spread, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -1643,7 +1924,8 @@ def main(argv=None) -> int:
     cli_out["tree_launches"] = cli_out["launches"]
     paths = (("resnet20", main), ("cli", cli_out), ("wideresnet28_10", wrn),
              ("transformer", lm), ("transformer_d512", d512),
-             ("transformer_f32", f32))
+             ("transformer_f32", f32)) + tuple(
+                 (f"zoo_{n}", r) for n, r in zoo["paths"].items())
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -1709,6 +1991,7 @@ def main(argv=None) -> int:
     print(json.dumps({"main_path": main, "card": card}))
     print(json.dumps({"profile": prof}))
     print(json.dumps({"cli": cli_out, "card": card}))
+    print(json.dumps({"zoo": zoo, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

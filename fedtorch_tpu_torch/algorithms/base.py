@@ -6,10 +6,18 @@ An algorithm is one object with hooks the engine
 (``local_step``, ``transform_grads``), per client after it
 (``client_payload``), on the stacked ``[k]`` payloads
 (``payload_batch_transform``), once on their sum
-(``aggregate_transform``) and for the server step (``server_update``).
-The hooks the ported algorithms leave at identity in the JAX package
-(participation, pre_round, client_post, post_round_global) are not part
-of the port yet.
+(``aggregate_transform``), for the server step (``server_update``),
+after it per client (``client_post``) and once more on the new server
+state (``post_round_global``). Around the local loop: ``setup`` at
+construction, ``participation`` before the default draw, ``pre_round``
+on the gathered online aux, and the full-data loss probe
+(``needs_full_loss``) on the incoming server model.
+
+Where the JAX package hands a hook a PRNG key, the port hands it the
+round's :class:`~fedtorch_tpu_torch.parallel.federated.RoundPlan`: every
+random draw of a round is made up front, from the server's
+``torch.Generator`` (:meth:`FedAlgorithm.plan_draws`) or injected, so
+the tests can feed both packages the same draws.
 """
 from __future__ import annotations
 
@@ -35,11 +43,22 @@ class FedAlgorithm:
     """Base = FedAvg behavior; subclasses override hooks."""
 
     name = "fedavg"
+    # the engine computes each online client's full-data loss on the
+    # incoming server model when set (qFFL)
+    needs_full_loss = False
 
     def __init__(self, cfg: ExperimentConfig):
         self.cfg = cfg
         self.model = None
         self.criterion = None
+        # set by the engine: the round's scan length and online count
+        self.local_steps_per_round = max(cfg.train.local_step, 1)
+        self.k_online = max(
+            int(cfg.federated.online_client_rate
+                * cfg.federated.num_clients), 1)
+
+    def setup(self, data) -> None:
+        """One-time hook with the ClientData (sample-size weighting)."""
 
     def bind(self, model, criterion) -> None:
         """The engine hands over the model and criterion."""
@@ -54,17 +73,44 @@ class FedAlgorithm:
     def init_server_aux(self, params, num_clients: int) -> Any:
         return ()
 
+    # -- round plan and participation -----------------------------------
+    def participation(self, generator: torch.Generator, num_clients: int,
+                      k: int, round_idx: int, server_aux):
+        """A [k] index tensor of online clients, or None for the engine's
+        uniform draw."""
+        return None
+
+    def plan_draws(self, generator: torch.Generator, sizes) -> dict:
+        """The algorithm's own random draws of a round, as
+        :class:`RoundPlan` fields (DRFA's snapshot step and probe);
+        ``sizes`` are the clients' sample counts."""
+        return {}
+
+    def pre_round(self, on_aux, *, server, sizes, lr, plan):
+        """Once per round on the online clients' stacked [k] aux, before
+        the local loops; ``lr``: [k] scheduled LR at each one's epoch."""
+        return on_aux
+
     # -- local loop hooks ----------------------------------------------
+    def forward_reset(self, params, bx):
+        """The forward of an auxiliary probe (DRFA's kth-model loss). The
+        JAX package starts a recurrent model's carry fresh here; the
+        port has no recurrent model yet, so this is the plain forward."""
+        return self.model.apply(params, bx)
+
     def transform_grads(self, grads, *, params, server_params, client_aux,
                         server_aux, lr):
         """Gradient correction before the optimizer step."""
         return grads
 
     def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, lr):
+                   server_aux, bx, by, lr, step_idx, step_budget):
         """One local step: forward, backward, gradient correction,
         dual-mode optimizer step. Returns (params, opt, client_aux, loss,
-        acc) with loss/acc as 0-d tensors (no host sync)."""
+        acc) with loss/acc as 0-d tensors (no host sync). ``step_idx``
+        counts from 0; ``step_budget`` is the steps the client takes this
+        round (its epoch-sync budget, else the round's K): the engine
+        skips the steps past it, so step-indexed logic anchors on it."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         logits = self.model.apply(leaves, bx)
@@ -89,10 +135,11 @@ class FedAlgorithm:
         return torch.full((k,), 1.0) / num_online_eff
 
     def client_payload(self, *, delta, client_aux, params, server_params,
-                       server_aux, lr, local_steps,
-                       weight) -> Tuple[Any, Any]:
+                       server_aux, lr, local_steps, weight,
+                       full_loss=None) -> Tuple[Any, Any]:
         """Per-client (already-weighted) payload, plus updated aux.
-        delta = server - client."""
+        delta = server - client; ``full_loss`` is given when
+        ``needs_full_loss`` is set."""
         return tree_scale(delta, weight), client_aux
 
     def payload_batch_transform(self, payloads):
@@ -114,10 +161,25 @@ class FedAlgorithm:
             self.cfg.optim.lr_scale_at_sync, self.cfg.optim)
         return new_params, new_opt, server_aux
 
+    def client_post(self, *, delta, client_aux, payload_sum, lr,
+                    local_steps, server_params, params, weight) -> Any:
+        """Per-client aux update that needs the transformed aggregate
+        (FedGATE's tracking variate, error-feedback memory): ``delta``
+        is the client's round delta, ``params`` its round-end params,
+        ``lr`` its round-end LR, ``local_steps`` its step budget."""
+        return client_aux
+
+    def post_round_global(self, server, data, plan):
+        """A second phase after the server step with access to every
+        client's data (DRFA's dual update); returns the ServerState."""
+        return server
+
     # -- payload accounting ----------------------------------------------
     def payload_scale(self) -> float:
         """Fraction of dense float32 bytes the wire format costs."""
         fed = self.cfg.federated
         if fed.quantized:
             return fed.quantized_bits / 32.0
+        if fed.compressed:
+            return fed.compressed_ratio
         return 1.0

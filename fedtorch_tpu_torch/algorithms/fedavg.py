@@ -27,7 +27,7 @@ class FedAvg(FedAlgorithm):
     name = "fedavg"
 
     def client_payload(self, *, delta, client_aux, params, server_params,
-                       server_aux, lr, local_steps, weight):
+                       server_aux, lr, local_steps, weight, full_loss=None):
         # uplink quantization happens on the stacked client axis in
         # payload_batch_transform, not here
         return tree_scale(delta, weight), client_aux

@@ -16,14 +16,21 @@ phase ``timer``.
 It runs on CUDA unless ``--backend cpu`` asks for the CPU; without a
 card and without that flag it raises. A flag that names a feature the
 port has not ported is refused by name when set to anything but its
-default (:data:`UNPORTED_FLAGS`), as are local-SGD mode
+default (:data:`UNPORTED_FLAGS`), as are the personalized algorithms
+(``--federated_type apfl|perfedme|perfedavg``), local-SGD mode
 (``--federated false``), the JAX package's subcommands and
-``--download``. The JAX run writes checkpoints and telemetry rows; the
+``--download``. Every other ``--federated_type`` runs (fedavg, fedprox,
+fedadam, scaffold, fedgate, qsparse, qffl, afl), with the top-k
+(``--compressed``) or quantized wire format and ``--federated_drfa``
+over fedavg, fedgate or scaffold. The JAX run writes checkpoints and telemetry rows; the
 port writes neither yet, and logs one line saying so.
 
 Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
         -a mlp --num_workers 10 --num_comms 5 --federated_type fedavg
+    python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
+        -a mlp --num_workers 10 --num_comms 5 --federated_type fedgate \
+        --federated_drfa true
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import time
 import torch
 
 from fedtorch_tpu_torch.config import (
-    CLIENT_STORES, PARTICIPATION_MODES,
+    CLIENT_STORES, PARTICIPATION_MODES, PERSONALIZED_ALGORITHMS,
     CheckpointConfig, DataConfig, ExperimentConfig, FaultConfig,
     FederatedConfig, LRConfig, MeshConfig, ModelConfig, OptimConfig,
     TelemetryConfig, TrainConfig,
@@ -448,16 +455,12 @@ def _unported(section: str, what: str, fields: dict) -> None:
 
 _unported("federated", "personalization (ROADMAP A4)",
           {"fed_personal": "personal"})
-_unported("federated", "the top-k wire format (ROADMAP A3)",
-          {"compressed": "compressed", "compressed_ratio": "compressed_ratio"})
 _unported("federated", "the async plane (ROADMAP A8)", {
     "sync_mode": "sync_mode", "async_buffer_size": "async_buffer_size",
     "async_concurrency": "async_concurrency",
     "staleness_weight": "staleness_weight",
     "staleness_exponent": "staleness_exponent",
     "snapshot_ring": "snapshot_ring"})
-_unported("federated", "drfa (ROADMAP A4)",
-          {"federated_drfa": "drfa", "drfa_gamma": "drfa_gamma"})
 _unported("federated", "sparse participation (ROADMAP A1)",
           {"participation_mode": "participation_mode"})
 _unported("data", "the streaming data plane (ROADMAP A5)", {
@@ -535,6 +538,9 @@ def refused_flags(cfg: ExperimentConfig) -> list:
         value = getattr(getattr(cfg, section), field)
         if value != getattr(getattr(default, section), field):
             out.append(f"--{flag} {value!r}: {what}")
+    if cfg.federated.algorithm in PERSONALIZED_ALGORITHMS:
+        out.append(f"--federated_type {cfg.federated.algorithm!r}: the "
+                   "personalized algorithms (ROADMAP A4)")
     if not cfg.federated.federated:
         out.append("--federated False: local-SGD mode "
                    "(parallel/local_sgd.py, ROADMAP A4)")

@@ -50,9 +50,23 @@ class RoundMetrics(NamedTuple):
     comm_bytes: torch.Tensor   # scalar — uplink payload volume
 
 
-def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over matching leaves of dicts with the same keys."""
-    return {k: fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+def _is_tuple(tree) -> bool:
+    return isinstance(tree, tuple)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over matching leaves of trees of one structure: dicts
+    (matched by key), tuples and NamedTuples, with tensors (or any other
+    object) as leaves. An algorithm's aux nests dicts (DRFA's
+    ``{"inner": ..., "kth": ...}``); a parameter tree is a flat dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_tuple(tree):
+        out = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(tree, *rest)
 
 
 def tree_sub(a: Tree, b: Tree) -> Tree:
@@ -76,32 +90,30 @@ def tree_broadcast_clients(tree: Tree, num_clients: int) -> Tree:
 
 
 def tree_take(tree, c):
-    """Row ``c`` of every [C] leaf of a dict or a NamedTuple of dicts."""
-    if isinstance(tree, dict):
-        return {k: v[c] for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_take(t, c) for t in tree))
-    if isinstance(tree, torch.Tensor):
-        return tree[c]
-    return tree
+    """Row(s) ``c`` (an int or an index tensor) of every [C] tensor leaf;
+    other leaves pass through."""
+    return tree_map(
+        lambda x: x[c] if isinstance(x, torch.Tensor) else x, tree)
 
 
 def tree_put(tree, rows, new) -> None:
-    """In place: ``tree[rows] = new`` for every leaf (dicts, NamedTuples
-    of dicts and bare tensors)."""
+    """In place: ``leaf[rows] = new_leaf`` for every tensor leaf."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            v[rows] = new[k]
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            tree_put(v, rows, new[k])
+    elif _is_tuple(tree):
         for t, n in zip(tree, new):
             tree_put(t, rows, n)
     elif isinstance(tree, torch.Tensor):
         tree[rows] = new
 
 
-def tree_stack(trees) -> Tree:
-    """List of same-keyed dicts -> one dict of stacked [k, ...] leaves."""
-    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+def tree_stack(trees: list):
+    """A list of trees of one structure -> one tree of stacked [k, ...]
+    tensor leaves (other leaves: the first tree's)."""
+    return tree_map(
+        lambda *xs: torch.stack(xs) if isinstance(xs[0], torch.Tensor)
+        else xs[0], *trees)
 
 
 def tree_bytes(tree: Tree) -> int:

@@ -78,8 +78,16 @@
 // products apart and adds them only where the hi products' sum is finite,
 // which it is exactly where every input of the score is: a score is +-inf
 // or NaN where float32's is, and a -inf score (p = 0, the max unmoved)
-// stays -inf. P V keeps the split as it is: an infinite v makes o's
-// column NaN in the rows whose tiles reach it.
+// stays -inf. In P V only the hi product sees a non-finite v: both cross
+// products take 0 in its place (p_lo can be 0, 0 inf = NaN, or negative,
+// -inf beside the hi product's +inf). So o is +-inf where p > 0 meets an
+// infinite v, and NaN where the plain version computes 0 inf: p = 0 in a
+// tile the warp computes (the hi product is 0 inf), and every key past
+// the tiles it computes (causal), which the plain version's dense product
+// still multiplies by p = 0. A pre-pass writes the last key of each
+// (batch*head, column) whose v is not finite, and of each (batch*head):
+// a causal column whose last such key lies past the warp's tiles is NaN,
+// and a (batch, head) with none takes P V without the masks.
 //
 // Rounding: compiled without --fmad=false (build.py), as the other
 // attention kernel. expf, logf and the division by l_safe are the
@@ -373,10 +381,16 @@ __device__ __forceinline__ uint32_t widen(__nv_bfloat16 x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
 }
 
+// all ones where the float32 bits are finite, else 0: a v element's mask
+// for the cross products
+__device__ __forceinline__ uint32_t finite_mask(uint32_t bits) {
+  return (bits & 0x7f800000u) == 0x7f800000u ? 0u : 0xffffffffu;
+}
+
 // O = corr O + P V for a warp's 16 rows. The k8 step j takes the keys 8 j
 // + 2t (A column t: the accumulator column 2t) and 8 j + 2t + 1 (column
 // t + 4: the accumulator column 2t + 1); V's rows are read in that order.
-template <typename T, int DP>
+template <typename T, int DP, bool kMask>
 __device__ __forceinline__ void pv(float (&acc)[DP / 2],
                                    const float (&s)[kSN],
                                    const float (&corr)[2], const T* vs) {
@@ -401,16 +415,31 @@ __device__ __forceinline__ void pv(float (&acc)[DP / 2],
     const T* vp = vs + (8 * j + 2 * t) * L::kVS + g;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
+      // kMask: a non-finite v enters the hi product only (the header's
+      // rules); without it every v of the (batch, head) is finite
       if constexpr (kF32) {
+        const float v0 = to_float(vp[8 * n]);
+        const float v1 = to_float(vp[L::kVS + 8 * n]);
         uint32_t bh0, bl0, bh1, bl1;
-        split(to_float(vp[8 * n]), bh0, bl0);
-        split(to_float(vp[L::kVS + 8 * n]), bh1, bl1);
-        mma(acc + 4 * n, pl, bh0, bh1);
-        mma(acc + 4 * n, ph, bl0, bl1);
+        split(v0, bh0, bl0);
+        split(v1, bh1, bl1);
+        if constexpr (kMask) {
+          const uint32_t f0 = finite_mask(__float_as_uint(v0));
+          const uint32_t f1 = finite_mask(__float_as_uint(v1));
+          mma(acc + 4 * n, pl, bh0 & f0, bh1 & f1);
+          mma(acc + 4 * n, ph, bl0 & f0, bl1 & f1);
+        } else {
+          mma(acc + 4 * n, pl, bh0, bh1);
+          mma(acc + 4 * n, ph, bl0, bl1);
+        }
         mma(acc + 4 * n, ph, bh0, bh1);
       } else {
         const uint32_t b0 = widen(vp[8 * n]), b1 = widen(vp[L::kVS + 8 * n]);
-        mma(acc + 4 * n, pl, b0, b1);
+        if constexpr (kMask) {
+          mma(acc + 4 * n, pl, b0 & finite_mask(b0), b1 & finite_mask(b1));
+        } else {
+          mma(acc + 4 * n, pl, b0, b1);
+        }
         mma(acc + 4 * n, ph, b0, b1);
       }
     }
@@ -421,7 +450,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, DP == 128 ? 1 : 2)
 flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
-                      float* __restrict__ lse, Strides sq, Strides sk,
+                      float* __restrict__ lse,
+                      const int* __restrict__ last, Strides sq, Strides sk,
                       Strides sv, int H, int T_len, int D, float scale,
                       int causal, int mode) {
   using L = Layout<T, DP>;
@@ -481,6 +511,10 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      : T_len;
   const float* q_row = qs + (16 * warp + g) * L::kQS + 2 * t;
 
+  // the pre-pass's verdict on this (batch, head): a non-finite v
+  // anywhere (the flags follow the B*H*D table)
+  const bool dirty = last[static_cast<int64_t>(gridDim.x) * D + bh] >= 0;
+
   float acc[DP / 2], s[kSN];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
@@ -498,11 +532,21 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (k0 < w_end) {
       qk<T, DP>(s, q_row, ks[i & 1]);
       softmax(s, m, l, corr, k0, row0, w_first, T_len, scale, causal);
-      pv<T, DP>(acc, s, corr, vs[i & 1]);
+      if (dirty) {
+        pv<T, DP, true>(acc, s, corr, vs[i & 1]);
+      } else {
+        pv<T, DP, false>(acc, s, corr, vs[i & 1]);
+      }
     }
     __syncthreads();  // every warp is done with the stage tile i + 2 takes
   }
 
+  // causal: the keys from kc on lie past every row of the warp and were
+  // not computed; a non-finite v among them makes the column NaN
+  const int kc = (w_end + kBK - 1) / kBK * kBK;
+  const int* last_bh = causal && dirty && kc < T_len
+                           ? last + static_cast<int64_t>(bh) * D
+                           : nullptr;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
@@ -511,10 +555,13 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
-      const int c = 8 * n + 2 * t;
-      if (c < D) orow[c] = from_float<T>(acc[4 * n + 2 * r] / l_safe);
-      if (c + 1 < D) {
-        orow[c + 1] = from_float<T>(acc[4 * n + 2 * r + 1] / l_safe);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c >= D) continue;
+        float x = acc[4 * n + 2 * r + e] / l_safe;
+        if (last_bh != nullptr && last_bh[c] >= kc) x = NAN;
+        orow[c] = from_float<T>(x);
       }
     }
     if (t == 0) {
@@ -524,12 +571,48 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The pre-pass: last[bh * D + c] = the last key whose v[b, key, h, c] is
+// not finite, and last[B * H * D + bh] = the last such key of any column
+// (both -1 where there is none; the caller sets -1). One block per
+// (batch*head, kLastRows keys), one thread per column; non-finite values
+// are rare, so the atomics are too.
+constexpr int kLastRows = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+v_last_nonfinite_kernel(const T* __restrict__ v, Strides sv, int H,
+                        int T_len, int D, int* __restrict__ last) {
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, c = threadIdx.x;
+  if (c >= D) return;
+  const int r0 = blockIdx.y * kLastRows;
+  const int r1 = min(r0 + kLastRows, T_len);
+  const T* col = v + b * sv.b + h * sv.h + c;
+  int found = -1;
+  for (int r = r0; r < r1; ++r) {
+    if (!is_finite(to_float(col[static_cast<int64_t>(r) * sv.t]))) found = r;
+  }
+  if (found >= 0) {
+    atomicMax(last + static_cast<int64_t>(bh) * D + c, found);
+    atomicMax(last + static_cast<int64_t>(gridDim.x) * D + bh, found);
+  }
+}
+
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int64_t B, int64_t T_len, int64_t H, int64_t D, Strides sq,
-           Strides sk, Strides sv, float scale, int causal, int mode,
-           cudaStream_t stream) {
+           int* last, int64_t B, int64_t T_len, int64_t H, int64_t D,
+           Strides sq, Strides sk, Strides sv, float scale, int causal,
+           int mode, cudaStream_t stream) {
   constexpr int bytes = Layout<T, DP>::kBytes;
+  cudaError_t e = cudaMemsetAsync(
+      last, 0xff, static_cast<size_t>(B * H * (D + 1)) * sizeof(int),
+      stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 pre(static_cast<unsigned int>(B * H),
+                 static_cast<unsigned int>((T_len + kLastRows - 1) /
+                                           kLastRows));
+  v_last_nonfinite_kernel<T><<<pre, 128, 0, stream>>>(
+      static_cast<const T*>(v), sv, static_cast<int>(H),
+      static_cast<int>(T_len), static_cast<int>(D), last);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tf32_kernel<T, DP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -538,7 +621,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                   static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
   flash_fwd_tf32_kernel<T, DP><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, sv,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, last, sq, sk, sv,
       static_cast<int>(H), static_cast<int>(T_len), static_cast<int>(D),
       scale, causal, mode);
   return static_cast<int>(cudaGetLastError());
@@ -546,24 +629,24 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             float* lse, int64_t B, int64_t T_len, int64_t H, int64_t D,
-             Strides sq, Strides sk, Strides sv, float scale, int causal,
-             int mode, cudaStream_t st) {
+             float* lse, int* last, int64_t B, int64_t T_len, int64_t H,
+             int64_t D, Strides sq, Strides sk, Strides sv, float scale,
+             int causal, int mode, cudaStream_t st) {
   if (D < 1) return -1;
   if (D <= 16) {
-    return launch<T, 16>(q, k, v, o, lse, B, T_len, H, D, sq, sk, sv, scale,
-                         causal, mode, st);
+    return launch<T, 16>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
+                         scale, causal, mode, st);
   }
   if (D <= 32) {
-    return launch<T, 32>(q, k, v, o, lse, B, T_len, H, D, sq, sk, sv, scale,
-                         causal, mode, st);
+    return launch<T, 32>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
+                         scale, causal, mode, st);
   }
   if (D <= 64) {
-    return launch<T, 64>(q, k, v, o, lse, B, T_len, H, D, sq, sk, sv, scale,
-                         causal, mode, st);
+    return launch<T, 64>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
+                         scale, causal, mode, st);
   }
   if (D <= 128) {
-    return launch<T, 128>(q, k, v, o, lse, B, T_len, H, D, sq, sk, sv,
+    return launch<T, 128>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
                           scale, causal, mode, st);
   }
   return -1;
@@ -574,24 +657,27 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // q, k, v: [B, T, H, D] views on the current device with the given element
 // strides for b, t and h and a d stride of 1, float32 (bf16 = 0) or
 // bfloat16 (bf16 = 1); o: contiguous [B, T, H, D] of the same dtype; lse:
-// contiguous float32 [B, H, T]. 1 <= D <= 128, 1 <= T <= 65535 * 128.
+// contiguous float32 [B, H, T]; last: B * H * (D + 1) int32 of scratch
+// for the pre-pass. 1 <= D <= 128, 1 <= T <= 65535 * 128.
 // mode: 2 if every pointer, b/t/h stride and D elements are 16-byte
 // multiples, 1 if they are 4-byte multiples, else 0 (the Python wrapper
 // checks all of it). Launches on `stream` and returns cudaGetLastError()
 // (0 on success), or -1 for a head dim it does not take.
 extern "C" int flash_fwd_tf32(const void* q, const void* k, const void* v,
-                              void* o, float* lse, int64_t B, int64_t T_len,
-                              int64_t H, int64_t D, int64_t sqb, int64_t sqt,
+                              void* o, float* lse, void* last, int64_t B,
+                              int64_t T_len, int64_t H, int64_t D,
+                              int64_t sqb, int64_t sqt,
                               int64_t sqh, int64_t skb, int64_t skt,
                               int64_t skh, int64_t svb, int64_t svt,
                               int64_t svh, float scale, int causal, int bf16,
                               int mode, void* stream) {
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* lst = static_cast<int*>(last);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, T_len, H, D, sq, sk,
-                                   sv, scale, causal, mode, st);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, lst, B, T_len, H, D, sq,
+                                   sk, sv, scale, causal, mode, st);
   }
-  return dispatch<float>(q, k, v, o, lse, B, T_len, H, D, sq, sk, sv, scale,
-                         causal, mode, st);
+  return dispatch<float>(q, k, v, o, lse, lst, B, T_len, H, D, sq, sk, sv,
+                         scale, causal, mode, st);
 }

@@ -91,3 +91,13 @@ def take_batch(data_x: torch.Tensor, data_y: torch.Tensor,
     offsets = step_in_epoch * batch_size + torch.arange(batch_size)
     idx = perm[offsets % max(size, 1)].to(data_x.device)
     return data_x[idx], data_y[idx]
+
+
+def sample_batch(generator: torch.Generator, size: int,
+                 batch_size: int) -> torch.Tensor:
+    """Uniform-with-replacement draw of ``batch_size`` storage rows of a
+    client of ``size`` samples (where the reference samples one random
+    batch: DRFA's loss probe). Returns the rows; index the client's data
+    with them."""
+    return torch.randint(0, max(int(size), 1), (batch_size,),
+                         generator=generator)

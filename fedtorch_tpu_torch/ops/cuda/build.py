@@ -148,9 +148,9 @@ def load_library() -> ctypes.CDLL:
                 #  scale, causal, stream)
                 "flash_fwd_tc": [ptr] * 5 + [i64] * 13
                 + [ctypes.c_float, i32, ptr],
-                # (q, k, v, o, lse, B, T, H, D, q/k/v strides of b, t, h,
-                #  scale, causal, bf16, load mode, stream)
-                "flash_fwd_tf32": [ptr] * 5 + [i64] * 13
+                # (q, k, v, o, lse, last, B, T, H, D, q/k/v strides of b,
+                #  t, h, scale, causal, bf16, load mode, stream)
+                "flash_fwd_tf32": [ptr] * 6 + [i64] * 13
                 + [ctypes.c_float, i32, i32, i32, ptr],
             }
             for name, argtypes in signatures.items():

@@ -213,11 +213,15 @@ def _launch_tf32(q, k, v, scale: float, causal: bool):
     global flash_launches, flash_tf32_launches
     B, T, H, D = q.shape
     o, lse = _outputs(q)
+    # the pre-pass's last non-finite v key of each (b*h, column), then of
+    # each b*h
+    last = torch.empty(B * H * (D + 1), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = load_library().flash_fwd_tf32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, T, H, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], scale, int(causal), _DTYPES[q.dtype],
+            lse.data_ptr(), last.data_ptr(), B, T, H, D, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], scale, int(causal),
+            _DTYPES[q.dtype],
             _load_mode(q, k, v), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_tf32 launch failed: error {err} "

@@ -1,11 +1,16 @@
 """The federated round engine (port of the synchronous, device-data,
 per-client path of ``fedtorch_tpu/parallel/federated.py``).
 
-One round: draw (or take) the round plan — the k online clients and
-each one's K*B storage rows —, run each online client's K local steps
-from the server model, weight and stack the payloads, apply the uplink
-wire format on the stacked ``[k]`` axis, sum, apply the downlink wire
-format, take the server step, and write the online clients' state back.
+One round: draw (or take) the round plan — the k online clients, each
+one's K*B storage rows and the algorithm's own draws —, run the
+algorithm's ``pre_round`` on the online clients' aux, run each online
+client's local steps from the server model (after its full-data loss
+probe, for qFFL), weight and stack the payloads, apply the uplink wire
+format on the stacked ``[k]`` axis, sum, apply the downlink wire
+format, take the server step, run ``client_post`` per client on the
+transformed sum, write the online clients' state back, then the
+algorithm's ``post_round_global`` (DRFA's dual update). These are the
+hooks and the order of the JAX package's ``_round_core``.
 
 What differs from the JAX package, and why:
 
@@ -22,7 +27,11 @@ What differs from the JAX package, and why:
   over the epoch permutation), so the port has one gather and no
   ``gather_mode``: each client's K*B rows.
 * Epoch-sync clients skip the steps past their own budget instead of
-  running them masked; state and metrics come out the same.
+  running them masked; state and metrics come out the same, and every
+  step-indexed hook anchors on the budget (DRFA's snapshot step).
+* Where the JAX package folds PRNG keys for an algorithm (DRFA's
+  snapshot step and probe), the port draws from the server's generator
+  into the plan (``FedAlgorithm.plan_draws``).
 * Client state is updated in place (see ``core/state.py``).
 
 Everything of ``_round_core`` that is off on this path — chaos, guards,
@@ -40,13 +49,15 @@ import torch
 from fedtorch_tpu_torch.algorithms.base import (
     FedAlgorithm, num_online_effective,
 )
-from fedtorch_tpu_torch.config import ExperimentConfig
+from fedtorch_tpu_torch.config import (
+    PERSONALIZED_ALGORITHMS, ExperimentConfig,
+)
 from fedtorch_tpu_torch.core import optim
-from fedtorch_tpu_torch.core.losses import make_criterion
+from fedtorch_tpu_torch.core.losses import make_criterion, per_sample_loss
 from fedtorch_tpu_torch.core.schedule import compile_schedule, lr_at
 from fedtorch_tpu_torch.core.state import (
     ClientState, RoundMetrics, ServerState, tree_broadcast_clients,
-    tree_bytes, tree_put, tree_stack, tree_sub, tree_take,
+    tree_bytes, tree_map, tree_put, tree_stack, tree_sub, tree_take,
 )
 from fedtorch_tpu_torch.data.batching import ClientData, round_row_plan
 from fedtorch_tpu_torch.models.common import ModelDef
@@ -56,13 +67,17 @@ from fedtorch_tpu_torch.utils import resolve_device
 
 class RoundPlan(NamedTuple):
     """What a round consumes of randomness, as CPU tensors: the online
-    client ids, each one's K*B storage rows, and (augmentation on) the
-    per-step flip/crop draws."""
+    client ids, each one's K*B storage rows, (augmentation on) the
+    per-step flip/crop draws and (DRFA) the shared snapshot step and the
+    second phase's cohort and rows."""
     idx: torch.Tensor                     # [k] int64 online client ids
     rows: torch.Tensor                    # [k, K*B] int64 storage rows
     flip: Optional[torch.Tensor] = None   # [k, K, B] bool
     tops: Optional[torch.Tensor] = None   # [k, K, B] int64 in [0, 8]
     lefts: Optional[torch.Tensor] = None  # [k, K, B] int64 in [0, 8]
+    k_rand: Optional[int] = None          # DRFA's snapshot step, [1, K)
+    probe_idx: Optional[torch.Tensor] = None   # [k] int64 probe cohort
+    probe_rows: Optional[torch.Tensor] = None  # [k, B] int64 its rows
 
 
 def participation_indices(generator: torch.Generator, num_clients: int,
@@ -92,13 +107,11 @@ def unported_features(cfg: ExperimentConfig, has_val: bool) -> list:
         (cfg.data.data_plane == "stream",
          "the stream data plane (data_plane='stream')"),
         (mesh.client_fusion == "fused", "client_fusion='fused'"),
-        (fed.compressed, "compressed"),
         (fed.participation_mode != "perm",
          f"participation_mode={fed.participation_mode!r}"),
-        (fed.personal, "personalization (personal)"),
-        (fed.drfa, "drfa"),
-        (fed.algorithm not in ("fedavg", "fedprox", "fedadam"),
-         f"algorithm {fed.algorithm!r}"),
+        (fed.personal, "personalization (personal; the next slice)"),
+        (fed.algorithm in PERSONALIZED_ALGORITHMS,
+         f"the personalized algorithm {fed.algorithm!r} (the next slice)"),
         (has_val, "per-client validation data"),
     ]
     return [name for bad, name in checks if bad]
@@ -138,7 +151,15 @@ class FederatedTrainer:
             cfg.lr_schedule, cfg.optim, cfg.train.num_epochs or 1,
             world_size=self.num_clients).to(self.device)
         self.criterion = make_criterion(model.is_regression)
+        algorithm.setup(data)
         algorithm.bind(model, self.criterion)
+        algorithm.local_steps_per_round = self.local_steps
+        algorithm.k_online = self.k_online
+        # hooks left at identity are not called (client_post: nothing
+        # of the round is kept for it)
+        self._pre_round, self._client_post = (
+            getattr(type(algorithm), h) is not getattr(FedAlgorithm, h)
+            for h in ("pre_round", "client_post"))
         self.sizes = [int(s) for s in data.sizes]
         self.data = data.to(self.device)
 
@@ -173,20 +194,25 @@ class FederatedTrainer:
         """This round's plan from the server's generator."""
         K, B, k = self.local_steps, self.batch_size, self.k_online
         gen = server.rng
-        idx = participation_indices(gen, self.num_clients, k, server.round)
+        idx = self.algorithm.participation(gen, self.num_clients, k,
+                                           server.round, server.aux)
+        if idx is None:
+            idx = participation_indices(gen, self.num_clients, k,
+                                        server.round)
         rows = torch.stack([
             round_row_plan(gen, self.sizes[c], self.data.n_max, K * B)
             for c in idx.tolist()])
-        if not self.augment:
-            return RoundPlan(idx, rows)
-        return RoundPlan(idx, rows, *draw_augment(gen, (k, K, B)))
+        plan = RoundPlan(idx, rows, *(draw_augment(gen, (k, K, B))
+                                      if self.augment else ()))
+        return plan._replace(**self.algorithm.plan_draws(gen, self.sizes))
 
     # -- one communication round -----------------------------------------
     def round_fn(self, server: ServerState, clients: ClientState,
                  plan: Optional[RoundPlan] = None):
         """One round: returns (server', clients, metrics). ``clients`` is
         updated in place and returned. ``plan`` (default: drawn from
-        ``server.rng``) fixes the cohort, rows and augmentation draws."""
+        ``server.rng``) fixes the cohort, rows, augmentation draws and
+        the algorithm's own draws."""
         if plan is None:
             plan = self.draw_plan(server)
         alg, dev = self.algorithm, self.device
@@ -194,24 +220,36 @@ class FederatedTrainer:
         idx = plan.idx.to(torch.int64)
         k = idx.shape[0]
         num_online_eff = num_online_effective(idx)
-        weights = alg.client_weights(
-            server.aux, idx, num_online_eff,
-            torch.tensor([self.sizes[c] for c in idx.tolist()])).to(dev)
+        on_sizes = torch.tensor([self.sizes[c] for c in idx.tolist()])
+        weights = alg.client_weights(server.aux, idx, num_online_eff,
+                                     on_sizes).to(dev)
         rows = plan.rows.to(dev)
+        rows_dev = idx.to(dev)
         if self.augment:
             draws = [t.to(dev) for t in (plan.flip, plan.tops, plan.lefts)]
 
-        payloads, client_opts, client_aux = [], [], []
+        # the cross-client hook on the online clients' gathered aux
+        on_aux = tree_take(clients.aux, rows_dev)
+        if self._pre_round:
+            on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
+                                  for c in idx.tolist()])
+            on_aux = alg.pre_round(on_aux, server=server, sizes=on_sizes,
+                                   lr=on_lrs, plan=plan)
+
+        payloads, client_opts, client_aux, budgets = [], [], [], []
         epochs, local_index, losses, accs = [], [], [], []
+        kept = []  # (delta, round-end params) for client_post
         for j, c in enumerate(idx.tolist()):
             size = self.sizes[c]
             nb = math.ceil(size / B)  # batches per local epoch
             # epoch-sync clients stop after their own budget
             budget = min(nb * self.cfg.federated.num_epochs_per_comm, K) \
                 if self.epoch_sync else K
+            full_loss = self._full_loss(server.params, c) \
+                if alg.needs_full_loss else None
             x = self.data.x[c][rows[j]]
             y = self.data.y[c][rows[j]]
-            params, aux = server.params, tree_take(clients.aux, c)
+            params, aux = server.params, tree_take(on_aux, j)
             opt = tree_take(clients.opt, c)
             epoch, li = clients.epoch[c], clients.local_index[c]
             step_loss, step_acc = [], []
@@ -223,43 +261,55 @@ class FederatedTrainer:
                 params, opt, aux, loss, acc = alg.local_step(
                     params=params, opt=opt, client_aux=aux,
                     server_params=server.params, server_aux=server.aux,
-                    bx=bx, by=by, lr=lr)
+                    bx=bx, by=by, lr=lr, step_idx=s, step_budget=budget)
                 epoch = epoch + 1.0 / nb
                 li = li + 1
                 step_loss.append(loss)
                 step_acc.append(acc)
-            delta = tree_sub(server.params, params)
-            payload, aux = alg.client_payload(
-                delta=delta, client_aux=aux, params=params,
-                server_params=server.params, server_aux=server.aux,
-                lr=lr_at(self.schedule, epoch), local_steps=budget,
-                weight=weights[j])
+            with torch.no_grad():
+                delta = tree_sub(server.params, params)
+                payload, aux = alg.client_payload(
+                    delta=delta, client_aux=aux, params=params,
+                    server_params=server.params, server_aux=server.aux,
+                    lr=lr_at(self.schedule, epoch), local_steps=budget,
+                    weight=weights[j], full_loss=full_loss)
             payloads.append(payload)
             client_opts.append(opt)
             client_aux.append(aux)
+            budgets.append(budget)
             epochs.append(epoch)
             local_index.append(li)
             losses.append(torch.stack(step_loss).sum() / budget)
             accs.append(torch.stack(step_acc).sum() / budget)
+            if self._client_post:
+                kept.append((delta, params))
 
         with torch.no_grad():
             # uplink wire format on the stacked [k] axis, sum, downlink
             stacked = alg.payload_batch_transform(tree_stack(payloads))
-            payload_sum = {n: p.sum(dim=0) for n, p in stacked.items()}
-            payload_sum = alg.aggregate_transform(payload_sum)
+            payload_sum = alg.aggregate_transform(
+                tree_map(lambda p: p.sum(dim=0), stacked))
             losses, accs = torch.stack(losses), torch.stack(accs)
             new_params, new_opt, new_saux = alg.server_update(
                 server.params, server.opt, server.aux, payload_sum,
                 online_idx=idx, num_online_eff=num_online_eff,
                 client_losses=losses)
+            if self._client_post:
+                # aux updates that need the transformed sum, each with
+                # the client's round-end LR and step budget
+                client_aux = [alg.client_post(
+                    delta=d, client_aux=a, payload_sum=payload_sum,
+                    lr=lr_at(self.schedule, e), local_steps=ks,
+                    server_params=server.params, params=p, weight=weights[j])
+                    for j, ((d, p), a, e, ks) in enumerate(
+                        zip(kept, client_aux, epochs, budgets))]
 
             # online clients leave holding the aggregated server model
             # (model_server = deepcopy(model_client), fedavg.py:97)
-            rows_dev = idx.to(dev)
             for n, p in clients.params.items():
                 p[rows_dev] = new_params[n]
-            tree_put(clients.opt, rows_dev, _stack_state(client_opts))
-            tree_put(clients.aux, rows_dev, _stack_state(client_aux))
+            tree_put(clients.opt, rows_dev, tree_stack(client_opts))
+            tree_put(clients.aux, rows_dev, tree_stack(client_aux))
             clients.epoch[rows_dev] = torch.stack(epochs)
             clients.local_index[rows_dev] = torch.stack(local_index)
 
@@ -277,7 +327,28 @@ class FederatedTrainer:
         new_server = ServerState(params=new_params, opt=new_opt,
                                  aux=new_saux, round=server.round + 1,
                                  rng=server.rng)
+        # the second global phase (DRFA's dual update)
+        new_server = alg.post_round_global(new_server, self.data, plan)
         return new_server, clients, metrics
+
+    def _full_loss(self, params, c: int) -> torch.Tensor:
+        """qFFL's F_k: the SUM of the per-batch mean losses over client
+        ``c``'s whole shard on ``params``, batch by batch in storage
+        order, the last batch's rows past its size masked out."""
+        B, size = self.batch_size, self.sizes[c]
+        x, y = self.data.x[c], self.data.y[c]
+        n_max = x.shape[0]
+        means = []
+        with torch.no_grad():
+            for r0 in range(0, size, B):
+                # a whole batch of B storage rows (wrapping), as the JAX
+                # package forwards it: batch statistics see all B
+                frows = torch.arange(r0, r0 + B, device=x.device)
+                logits = self.model.apply(params, x[frows % n_max])
+                per = per_sample_loss(logits, y[frows % n_max],
+                                      self.model.is_regression)
+                means.append(per[:min(B, size - r0)].mean())
+        return torch.stack(means).sum()
 
     def round_host_scalars(self, clients: ClientState,
                            metrics: RoundMetrics) -> dict:
@@ -308,17 +379,3 @@ class FederatedTrainer:
             history.append(metrics)
         return server, clients, RoundMetrics(
             *(torch.stack(f) for f in zip(*history)))
-
-
-def _stack_state(per_client: list):
-    """Stack per-client states (dicts, NamedTuples of dicts, 0-d tensors
-    or ()) on a new leading axis."""
-    first = per_client[0]
-    if isinstance(first, dict):
-        return tree_stack(per_client)
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*(_stack_state(list(f))
-                             for f in zip(*per_client)))
-    if isinstance(first, torch.Tensor):
-        return torch.stack(per_client)
-    return first

@@ -32,7 +32,9 @@ MODULE_MAP = {
     **_ported(
         "__init__.py", "cli.py", "config.py",
         "algorithms/__init__.py", "algorithms/base.py",
-        "algorithms/fedavg.py",
+        "algorithms/afl.py", "algorithms/drfa.py", "algorithms/fedavg.py",
+        "algorithms/fedgate.py", "algorithms/qffl.py",
+        "algorithms/qsparse.py", "algorithms/scaffold.py",
         "core/__init__.py", "core/losses.py", "core/optim.py",
         "core/schedule.py", "core/state.py", "core/sync.py",
         "data/__init__.py", "data/batching.py", "data/datasets.py",
@@ -41,7 +43,7 @@ MODULE_MAP = {
         "models/mlp.py", "models/resnet.py", "models/transformer.py",
         "models/wideresnet.py",
         "ops/__init__.py", "ops/attention_dispatch.py", "ops/augment.py",
-        "ops/quantize.py",
+        "ops/quantize.py", "ops/simplex.py", "ops/topk.py",
         "parallel/__init__.py", "parallel/evaluate.py",
         "parallel/federated.py",
         "utils/__init__.py", "utils/logging.py", "utils/meters.py",
@@ -53,13 +55,10 @@ MODULE_MAP = {
         ("ported", _P + "ops/cuda/flash_attention.py"),
     "fedtorch_tpu/ops/pallas/quant_kernel.py":
         ("ported", _P + "ops/cuda/quant_kernel.py"),
-    **_rows("queued", "ROADMAP A3: the top-k and FedGATE wire formats",
-            "algorithms/fedgate.py", "algorithms/qsparse.py", "ops/topk.py"),
-    **_rows("queued", "ROADMAP A4: the rest of the algorithm zoo",
-            "algorithms/afl.py", "algorithms/apfl.py", "algorithms/drfa.py",
-            "algorithms/perfedavg.py", "algorithms/perfedme.py",
-            "algorithms/qffl.py", "algorithms/scaffold.py", "ops/simplex.py",
-            "parallel/local_sgd.py"),
+    **_rows("queued", "ROADMAP A4: the personalized algorithms, then the "
+            "non-federated mode",
+            "algorithms/apfl.py", "algorithms/perfedavg.py",
+            "algorithms/perfedme.py", "parallel/local_sgd.py"),
     **_rows("queued", "ROADMAP A5: the round-program builder and the "
             "streaming plane, with the port's own host gather in place of "
             "the native pipeline",

@@ -113,6 +113,67 @@ def test_synthetic_cpu_run_returns_results_and_logs_both_lines(arch,
     assert "writes no checkpoints and no telemetry rows" in text
 
 
+def _replay_the_jax_run(monkeypatch, argv, rounds):
+    """Make the port's trainer start from the JAX CLI's initial weights
+    and take its cohorts, rows and DRFA draws, replayed from the key
+    chain of a JAX trainer built as the JAX CLI builds it."""
+    import jax
+    from fedtorch_tpu.algorithms import make_algorithm as jmake
+    from fedtorch_tpu.data import build_federated_data as jbuild
+    from fedtorch_tpu.models import define_model as jdefine
+    from fedtorch_tpu.parallel import FederatedTrainer as JTrainer
+    from fedtorch_tpu_torch.bridge import params_from_jax
+    from fedtorch_tpu_torch.parallel import FederatedTrainer
+    from test_torch_zoo import _flat, _plans
+
+    jc = jcli.args_to_config(jcli.build_parser().parse_args(argv))
+    jtr = JTrainer(jc, jdefine(jc, batch_size=jc.data.batch_size),
+                   jmake(jc), jbuild(jc).train)
+    js, _ = jtr.init_state(jax.random.key(jc.train.manual_seed))
+    flat = _flat(js.params)
+    plans = iter(_plans(jtr, js, rounds))
+    init_state = FederatedTrainer.init_state
+
+    def bridged_init_state(self, rng):
+        server, clients = init_state(self, rng)
+        params = params_from_jax(flat, expect=server.params,
+                                 module=self.model.module)
+        for n, p in clients.params.items():
+            p[:] = params[n]
+        return server._replace(params=params), clients
+
+    monkeypatch.setattr(FederatedTrainer, "init_state", bridged_init_state)
+    monkeypatch.setattr(FederatedTrainer, "draw_plan",
+                        lambda self, server: next(plans))
+
+
+@pytest.mark.parametrize("words", [
+    ["--federated_type", "scaffold"],
+    ["--federated_type", "fedgate", "--compressed", "true",
+     "--compressed_ratio", "0.5"],
+    ["--federated_type", "qsparse", "--compressed_ratio", "0.5"],
+    ["--federated_type", "qffl", "--qffl_q", "1.0"],
+    ["--federated_type", "afl"],
+    ["--federated_type", "fedgate", "--federated_drfa", "true",
+     "--drfa_gamma", "0.2"],
+], ids=["scaffold", "fedgate_topk", "qsparse", "qffl", "afl",
+        "drfa_fedgate"])
+def test_zoo_cpu_run_returns_the_jax_cli_s_results(words, tmp_path,
+                                                   monkeypatch):
+    """The port's CLI and the JAX package's on one command line: from the
+    same weights and draws, the results dict's test and best top-1
+    within 1/128 (the matrix products sum in other orders; the logs agree
+    at their printed digits) and the same rounds."""
+    base = _synthetic_argv(tmp_path, "mlp")
+    argv = base + words
+    want = jcli.main(base[:-2] + ["-c", str(tmp_path / "jax")] + words)
+    _replay_the_jax_run(monkeypatch, argv, 3)
+    got = tcli.main(argv)
+    assert got["rounds"] == 3
+    for key in ("test_top1", "best_top1"):
+        assert abs(got[key] - want[key]) <= 1.0 / 128, (key, got, want)
+
+
 def test_train_and_val_lines_are_the_jax_package_s():
     lines = []
     for logger in (JLogger(debug=False), TLogger(debug=False)):
@@ -187,6 +248,9 @@ def test_unported_flags_are_refused_by_name(flag, tmp_path):
 
 
 @pytest.mark.parametrize("words, name", [
+    (["--federated_type", "apfl"], "apfl"),
+    (["--federated_type", "perfedme"], "perfedme"),
+    (["--federated_type", "perfedavg"], "perfedavg"),
     (["-f", "false"], "--federated"),
     (["--client_fusion", "fused"], "--client_fusion"),
     (["--backend", "tpu"], "--backend"),

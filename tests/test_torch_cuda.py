@@ -240,6 +240,65 @@ def test_quantized_round_on_the_card_matches_the_cpu(cuda):
         assert float((out["cuda"][k] - u).abs().max()) <= 2 * step + 1e-7
 
 
+def test_quantized_fedgate_round_on_the_card_matches_the_cpu(cuda):
+    """One FedCOMGATE round (FedGATE, int8 uplink and downlink through the
+    ragged pair), same weights and plan, on the card (float32, TF32 off)
+    and on the CPU: each leaf's update, and each online client's
+    tracking variate, within two int8 downlink steps of the aggregate
+    (the variate moves by (delta_i - d) / (lr K))."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset="cifar10", batch_size=8),
+        federated=tcfg.FederatedConfig(
+            federated=True, num_clients=4, online_client_rate=0.5,
+            algorithm="fedgate", sync_type="local_step", quantized=True),
+        model=tcfg.ModelConfig(arch="resnet8"),
+        optim=tcfg.OptimConfig(lr=0.1),
+        train=tcfg.TrainConfig(local_step=2)).finalize()
+    rng = np.random.RandomState(0)
+    data = stack_partitions(rng.randn(64, 32, 32, 3).astype(np.float32),
+                            rng.randint(0, 10, 64),
+                            [np.arange(16 * i, 16 * i + 16)
+                             for i in range(4)])
+    out, tracking, plan = {}, {}, None
+    for dev in ("cpu", cuda):
+        tr = FederatedTrainer(cfg, define_model(cfg, 8, device=dev),
+                              make_algorithm(cfg), data, device=dev)
+        server, clients = tr.init_state(7)
+        p0 = {k: v.cpu() for k, v in server.params.items()}
+        plan = plan or tr.draw_plan(server)
+        before = (qk.ragged_stats_launches, qk.ragged_apply_launches)
+        server, clients, _ = tr.round_fn(server, clients, plan)
+        if dev != "cpu":
+            assert (qk.ragged_stats_launches - before[0],
+                    qk.ragged_apply_launches - before[1]) == (2, 2)
+        out[str(dev)] = {k: v.cpu() - p0[k]
+                         for k, v in server.params.items()}
+        tracking[str(dev)] = {k: v[plan.idx].cpu()
+                              for k, v in clients.aux["delta"].items()}
+    lr_k = 0.1 * 2
+    for k, u in out["cpu"].items():
+        step = float(u.max() - u.min()) / 255.0
+        assert float((out["cuda"][k] - u).abs().max()) <= 2 * step + 1e-7
+        assert float((tracking["cuda"][k] - tracking["cpu"][k]).abs()
+                     .max()) <= (2 * step + 1e-6) / lr_k, k
+
+
+def test_topk_keeps_the_lower_index_among_ties_on_the_card(cuda):
+    """x and -x tied at the k-th place, repeated magnitudes, zeros: the
+    card keeps what the CPU keeps (the lower index), bitwise."""
+    from fedtorch_tpu_torch.ops.topk import topk_roundtrip
+    rng = np.random.RandomState(9)
+    for n, ratio in ((8, 0.75), (4096, 0.1), (36_864, 1.0),
+                     (100_003, 0.02)):
+        x = torch.from_numpy((rng.randint(-4, 5, n) * 0.25).astype(
+            np.float32))
+        want = topk_roundtrip(x, ratio)
+        got = topk_roundtrip(x.to(cuda), ratio).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _bf16_spacing(x):
     """bfloat16's spacing at |x| (8 significant bits)."""
     mag = x.abs().float().clamp_min(2.0 ** -126)
@@ -332,6 +391,37 @@ def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     assert float(o[0, 5, 1].abs().max()) == 0.0
     assert bool(lse[1, 3].isfinite().all())
     assert bool(o[1, :, 3].isfinite().all())
+    if dtype == torch.float32:
+        _check_infinite_v(cuda)
+
+
+def _check_infinite_v(cuda):
+    """+inf and -inf float32 v elements: only the TF32 kernel's hi
+    product sees them, so o is +-inf where the plain version's p > 0
+    meets them and NaN where it computes 0 inf, including the rows
+    before the key, whose tiles past the diagonal the kernel skips (its
+    pre-pass marks those columns); causal and not, over three query
+    tiles."""
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(2, 300, 4, 64).astype(
+        np.float32)).to(cuda) for _ in range(3))
+    v[0, 0, 1, 11] = float("inf")
+    v[0, 40, 1, 3] = float("inf")
+    v[0, 100, 1, 3] = float("-inf")
+    v[0, 100, 1, 7] = float("-inf")
+    v[1, 200, 2, 9] = float("inf")
+    v[1, 299, 3, 0] = float("-inf")
+    for causal in (True, False):
+        o, lse = fa.flash_fwd(q, k, v, 0.125, causal)
+        ro, rl = fa.flash_fwd_ref(q, k, v, 0.125, causal)
+        torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
+        assert torch.equal(o.isnan(), ro.isnan())
+        assert torch.equal(o.isinf(), ro.isinf())
+        assert torch.equal(o[o.isinf()], ro[ro.isinf()])
+        fin = ro.isfinite()
+        torch.testing.assert_close(o[fin], ro[fin], rtol=2e-5, atol=2e-5)
+        assert bool((o[0, :, 1, 11] == float("inf")).all())
+        assert bool(o[1, :299, 3, 0].isnan().all()) == causal
 
 
 @pytest.mark.parametrize("D, dtype", [(136, torch.float32),

@@ -45,23 +45,32 @@ def _split(x):
     return hi, _truncate(x - hi)
 
 
-def _product(eq, a, b, split, guard=False):
+def _product(eq, a, b, split, guard=False, b_guard=False):
     """einsum of TF32 operands: three products of the split, or one of
     the rounded values. ``guard``: the cross products are added only
     where the hi products' sum is finite, as the kernel's q K^T adds
-    them."""
+    them. ``b_guard``: a non-finite element of b enters only the hi
+    product (its hi and lo are 0 in the cross products), as the kernel's
+    P V takes v."""
     if not split:
         return torch.einsum(eq, _tf32(a), _tf32(b))
     (ah, al), (bh, bl) = _split(a), _split(b)
     hi = torch.einsum(eq, ah, bh)
+    if b_guard:
+        fin = b.isfinite()
+        bh, bl = torch.where(fin, bh, 0.0), torch.where(fin, bl, 0.0)
     cross = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
     return torch.where(hi.isfinite(), hi + cross, hi) if guard \
         else cross + hi
 
 
-def _emulate(q, k, v, scale, causal, split=True, guard=True):
+def _emulate(q, k, v, scale, causal, split=True, guard=True,
+             v_guard=True):
     """The kernel's arithmetic on float32 [BH, T, D] tensors: o, lse
-    (``guard``: see :func:`_product`)."""
+    (``guard`` for q K^T and ``v_guard`` for P V: see :func:`_product`).
+    It computes every tile, the masked ones too: where the kernel skips
+    a tile past a warp's rows, its pre-pass reproduces what a masked
+    tile gives (a non-finite v there makes the column NaN)."""
     BH, T, D = q.shape
     rows = torch.arange(T)
     m = torch.full((BH, T), -np.inf)
@@ -79,7 +88,8 @@ def _emulate(q, k, v, scale, causal, split=True, guard=True):
                            torch.where(m == -np.inf, 0.0, 1.0))
         p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + _product("bqk,bkd->bqd", p, vt, split)
+        acc = acc * corr[..., None] + _product("bqk,bkd->bqd", p, vt, split,
+                                               b_guard=v_guard)
         m = m_new
     l_safe = torch.where(l.isnan(), l, l.clamp_min(1e-30))
     lse = torch.where(m.isfinite(), m, 0.0) + torch.log(l_safe)
@@ -151,3 +161,51 @@ def test_a_nonfinite_input_enters_only_the_hi_products():
     assert max(_excess(o, want_o), _excess(lse, want_l)) <= 0.0
     o, lse = _emulate(q, k, v, 0.125, True, guard=False)
     assert not bool(lse[0, 5:].isfinite().any())
+
+
+def _hold_nonfinite(got, want):
+    """The same NaN and +-inf pattern, the finite elements within the
+    bar."""
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    fin = want.isfinite()
+    assert _excess(got[fin], want[fin]) <= 0.0
+
+
+def test_an_infinite_v_enters_only_the_hi_product():
+    """+inf and -inf v elements, causal: the oracle's o is +-inf in the
+    column where the row's p > 0 meets them, NaN where +inf and -inf
+    meet, and NaN in the rows before the key, whose p = 0 multiplies
+    them (0 inf). With the cross products taking 0 for a non-finite v,
+    the split matches that pattern and holds the bar elsewhere; with the
+    split as it was (lo = inf - inf = NaN, and p_lo inf NaN where p_lo =
+    0 or of the other sign), a column whose rows see an infinity is NaN
+    throughout."""
+    rng = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(rng.randn(1, 257, 64).astype(np.float32))
+               for _ in range(3))
+    v[0, 0, 11] = np.inf
+    v[0, 40, 3] = np.inf
+    v[0, 100, 3] = -np.inf
+    v[0, 100, 7] = -np.inf
+    v[0, 200, 9] = np.inf
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)), 0.125,
+                      True)
+    want_o = torch.from_numpy(np.array(jo))
+    want_l = torch.from_numpy(np.array(jl))
+    # the oracle's pattern: NaN before the key (p = 0), +-inf from it on,
+    # NaN where +inf and -inf meet
+    assert bool((want_o[0, :, 11] == np.inf).all())
+    assert bool(want_o[0, :, 3].isnan().all())
+    assert bool(want_o[0, :100, 7].isnan().all())
+    assert bool((want_o[0, 100:, 7] == -np.inf).all())
+    assert bool(want_o[0, :200, 9].isnan().all())
+    assert bool((want_o[0, 200:, 9] == np.inf).all())
+    assert bool(want_o[0, :, [0, 1, 2, 4]].isfinite().all())
+    o, lse = _emulate(q, k, v, 0.125, True)
+    _hold_nonfinite(o, want_o)
+    assert _excess(lse, want_l) <= 0.0
+    o, _ = _emulate(q, k, v, 0.125, True, v_guard=False)
+    assert bool(o[0, :, 11].isnan().any())
+    assert bool(o[0, 200:, 9].isnan().any())

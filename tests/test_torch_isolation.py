@@ -112,8 +112,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     (dict(federated__sync_mode="async"), "async"),
     (dict(data__data_plane="stream"), "stream"),
     (dict(mesh__client_fusion="fused"), "fused"),
-    (dict(federated__compressed=True), "compressed"),
-    (dict(federated__algorithm="scaffold"), "scaffold"),
+    (dict(federated__personal=True), "personalization"),
+    (dict(federated__algorithm="perfedavg"), "perfedavg"),
     (dict(federated__participation_mode="sparse"), "participation_mode"),
 ])
 def test_unported_trainer_features_raise_by_name(override, name):
@@ -140,7 +140,7 @@ def test_unported_models_raise_by_name(override, name):
         define_model(_cfg(**override), device="cpu")
 
 
-@pytest.mark.parametrize("algorithm", ["scaffold", "apfl", "qffl"])
+@pytest.mark.parametrize("algorithm", ["perfedme", "apfl", "perfedavg"])
 def test_unported_algorithms_raise_by_name(algorithm):
     with pytest.raises(ValueError, match=f"{algorithm}.*not yet ported"):
         make_algorithm(_cfg(federated__algorithm=algorithm))
