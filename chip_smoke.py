@@ -43,10 +43,12 @@ of JAX or of the JAX package. Phases, each fatal on failure:
      100, 128} and T in {1, 50, 257, 2048}, causal and not; misaligned
      views; a NaN q row with a +inf k row and a -inf k element whose scores
      stay -inf beside scores that overflow exp unless the running max is
-     kept; +inf and -inf float32 v elements (TF32 kernel, causal and not),
-     o +-inf where p > 0 meets them and NaN where the plain version
-     computes 0 inf or inf - inf. lse and float32 o within atol = rtol = 2e-5, bfloat16 o within
-     one bfloat16 spacing past that bar, the NaN pattern identical. Timed
+     kept; +inf and -inf v elements in both dtypes (the wgmma kernel at
+     D 64 and 128, the TF32 kernel, causal and not), o +-inf where p > 0
+     meets them and NaN where the plain version computes 0 inf or inf -
+     inf. lse and float32 o within atol = rtol = 2e-5, bfloat16 o within
+     one bfloat16 spacing past that bar, the NaN and +-inf patterns
+     identical. Timed
      (inputs rotating over at least 128 MB) against the plain version: the
      wgmma kernel at (8, 2048, 4, 64) and (8, 2048, 4, 128) bfloat16
      against ``F.scaled_dot_product_attention`` at each head dim; the TF32
@@ -54,7 +56,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
      against the 3xTF32 bound, the smaller of it and the CUDA-core float32
      bound) and in bfloat16 (its launcher, as the route would pick the
      wgmma kernel), and at (8, 2048, 4, 25) in float32 (the default width's
-     heads, with no library yardstick of its own);
+     heads, against float32 SDPA); the wgmma kernel's non-finite-v
+     pre-pass alone at both head dims;
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
    through the pair) on the card against the same on the CPU (TF32
@@ -95,22 +98,34 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    rounds and a finite test and best top-1 in [0, 1]; the final server
    params evaluated in float32 on the first 1,024 test images on the
    card (TF32 off) and on the CPU must agree within ``CLI_EVAL_BAR``.
-   Prints the data-build seconds, round ms, eval ms per call and top-1;
+   Prints the data-build seconds, round ms, eval ms per call and top-1.
+   Then ``CLI_ARGV`` with ``--federated_type apfl`` (adaptive alpha, 2
+   rounds): 2 + 2 ragged launches a round and a finite
+   ``validation_personal`` line a round in its log;
 8. zoo: every algorithm beyond FedAvg on the north-star round at full
    width through the library entry points (ResNet-20, bf16, 100 clients
    x 250 samples from ``--seed``, k = 10, batch 50, 10 local steps, flip
    and crop): SCAFFOLD (momentum off), FedGATE dense, FedCOMGATE (FedGATE
    with int8 uplink and downlink through the ragged pair), Qsparse at
-   the CLI's default ratio, qFFL at q = 1, AFL (its one local step) and
-   DRFA over FedAvg; 1 warm-up and 1 timed round each, the counters set
-   to 0 just before each and read just after (2 + 2 ragged launches a
-   round on FedCOMGATE, none elsewhere); finite losses and aux trees,
-   moved server params, AFL's and DRFA's lambda on the simplex within
-   1e-6. Then each algorithm (and top-k FedGATE, DRFA over FedGATE and
-   over SCAFFOLD) one round card vs CPU on an MLP (float32, TF32 off,
-   the same plan): the update's and each aux tree's relative L2 within
-   ``ZOO_CARD_BAR``; and a quantized FedCOMGATE ResNet-8 round held as
-   the reference phase holds quantized FedAvg's;
+   the CLI's default ratio, qFFL at q = 1, AFL (its one local step),
+   DRFA over FedAvg, and on 200 train and 50 val rows a client APFL
+   (adaptive alpha), ``apfl_q`` (APFL with int8 both ways), PerFedMe (lr
+   0.05) and PerFedAvg; 1 warm-up and 1 timed round each, the counters
+   set to 0 just before each and read just after (2 + 2 ragged launches
+   a round on FedCOMGATE and ``apfl_q``, none elsewhere); finite losses
+   and aux trees, moved server params, AFL's and DRFA's lambda on the
+   simplex within 1e-6; the personalized paths' ``evaluate_personal``
+   once, timed, finite, APFL's online alpha one value in [0, 1]. Then
+   each algorithm (and top-k FedGATE, DRFA over FedGATE and over
+   SCAFFOLD) one round card vs CPU on an MLP (float32, TF32 off, the
+   same plan): the update's and each aux tree's relative L2 (and the
+   ``evaluate_personal`` summary) within ``ZOO_CARD_BAR``; and a
+   quantized FedCOMGATE ResNet-8 round held as the reference phase
+   holds quantized FedAvg's;
+8b. localsgd: ``LocalSGDTrainer.fit`` (``build_local_sgd``) on the zoo's
+   data pooled over 10 ResNet-20 workers, all online, 10 local steps of
+   batch 50 a round (iteration mode: 2 rounds, the second timed), no
+   kernel launched; finite losses, moved params;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
@@ -144,7 +159,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
     kernel, and 2 + 2 ragged launches.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
-``cli``, ``zoo``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
 ``transformer_f32_profile`` lines, the card's name and power limit and,
@@ -161,6 +176,7 @@ import json
 import math
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -246,19 +262,41 @@ ZOO_PATHS = (
     ("qffl", dict(algorithm="qffl", qffl_q=1.0), {}),
     ("afl", dict(algorithm="afl"), {}),
     ("drfa", dict(algorithm="fedavg", drfa=True), {}),
+    # the personalized algorithms on the val split (200 train and 50 val
+    # rows a client), evaluate_personal timed once after the rounds;
+    # apfl_q is APFL with FedAvg's int8 wire format both ways. PerFedMe
+    # at lr 0.05: with perfedme_lambda 15, lr 0.1 makes lr * lambda 1.5
+    # and the personal model oscillates
+    # (fedtorch_tpu/algorithms/perfedme.py:15-19)
+    ("apfl", dict(algorithm="apfl", adaptive_alpha=True), {}),
+    ("apfl_q", dict(algorithm="apfl", adaptive_alpha=True, quantized=True),
+     {}),
+    ("perfedme", dict(algorithm="perfedme"), dict(lr=0.05)),
+    ("perfedavg", dict(algorithm="perfedavg"), {}),
 )
 ZOO_TIMED_ROUNDS = 1
 # each algorithm's round card vs CPU (an MLP on 60 features, float32,
 # unquantized, TF32 off): the relative L2 of the server update and of
-# each aux tree; top-k at ratio 0.5 besides qsparse's default
+# each aux tree (and, personalized, each evaluate_personal summary
+# figure within it, relative or absolute); top-k at ratio 0.5 besides
+# qsparse's default
 ZOO_CARD_BAR = 1e-4
 ZOO_CARD_CASES = tuple((n, f, o) for n, f, o in ZOO_PATHS
-                       if n != "fedcomgate") + (
+                       if not f.get("quantized")) + (
     ("fedgate_topk", dict(algorithm="fedgate", compressed=True,
                           compressed_ratio=0.5), {}),
     ("drfa_fedgate", dict(algorithm="fedgate", drfa=True), {}),
     ("drfa_scaffold", dict(algorithm="scaffold", drfa=True),
      dict(in_momentum=False)))
+# local-SGD mode on the north-star data pooled over 10 workers (num_clients
+# cut from 100 so that a round is the FedAvg round's 100 client-steps:
+# 10 workers x 10 local steps of 50), every worker online; 2 rounds of
+# fit, the first a warm-up
+LOCALSGD_WORKERS, LOCALSGD_ROUNDS = 10, 2
+# the CLI's APFL run: CLI_ARGV (int8 both ways) with adaptive alpha
+CLI_APFL_ROUNDS = 2
+CLI_APFL_WORDS = ["--federated_type", "apfl", "--fed_adaptive_alpha", "true",
+                  "--num_comms", str(CLI_APFL_ROUNDS)]
 PROFILE_TRIES = 3
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
@@ -827,6 +865,9 @@ def flash_phase(fa):
             raise AssertionError(f"{what}: route {route} (want {want}), "
                                  f"launches {launched}")
         w = worst[f"tc{q.shape[-1]}" if route == "tc" else route]
+        if not torch.equal(o.isinf(), ro.isinf()) \
+                or not torch.equal(o[o.isinf()], ro[ro.isinf()]):
+            raise AssertionError(f"+-inf pattern differs at {what}")
         w["abs"] = max(w["abs"], close_f32(lse, rl, what + " lse"))
         if q.dtype == torch.float32:
             w["abs"] = max(w["abs"], close_f32(o, ro, what))
@@ -878,19 +919,22 @@ def flash_phase(fa):
             k[1, 5, 3, 0] = 1000.0
             check(q, k, v, True, "NaN q row, +inf k row, -inf k element",
                   want(dtype, D, offset))
-            if dtype == torch.float32:
-                # infinite v: +-inf where p > 0 meets it, NaN where the
-                # plain version computes 0 inf (the rows before the key,
-                # which the kernel's causal tiles skip) or inf - inf
-                q, k, v = qkv_views(gen, 2, 300, H, D, dtype, offset)
+            # infinite v: +-inf where p > 0 meets it, NaN where the plain
+            # version computes 0 inf (the rows before the key, whose tiles
+            # the kernels' causal loops skip) or inf - inf; the wgmma
+            # kernel (aligned bf16) at both its head dims
+            for d in (D, 128) if want(dtype, D, offset) == "tc" else (D,):
+                q, k, v = qkv_views(gen, 2, 300, H, d, dtype, offset)
                 v[0, 0, 1, 11] = float("inf")
                 v[0, 40, 1, 3] = float("inf")
                 v[0, 100, 1, 3] = float("-inf")
                 v[0, 100, 1, 7] = float("-inf")
                 v[1, 200, 2, 9] = float("inf")
                 v[1, 299, 3, 0] = float("-inf")
+                v[1, 150, 0, d - 1] = float("inf")
                 for causal in (True, False):
-                    check(q, k, v, causal, "+-inf v elements", "tf32")
+                    check(q, k, v, causal, "+-inf v elements",
+                          want(dtype, d, offset))
     for r, w in worst.items():
         log(f"flash kernel ({r}) vs plain: {w['cases']} cases, max |diff| "
             f"{w['abs']:.3e} (lse, float32 o), max {w['bf16_steps']:.3f} "
@@ -908,15 +952,39 @@ def flash_phase(fa):
     # (through its launcher) and the default width's heads in float32
     for tag, shape, dtype in (("bf16", LM_SHAPE, torch.bfloat16),
                               ("d25", DEFAULT_WIDTH_SHAPE, torch.float32)):
-        t = time_flash(fa, gen, shape, dtype, fa._launch_tf32,
-                       library=shape[-1] in fa.TC_HEAD_DIMS)
+        t = time_flash(fa, gen, shape, dtype, fa._launch_tf32)
         out["tf32"].update({f"{tag}_{k}": v for k, v in t.items()})
+    # the wgmma kernel's non-finite pre-pass alone (inside "ms" above)
+    for key, shape in (("tc64", LM_SHAPE), ("tc128", LM_D512_SHAPE)):
+        out[key]["prepass_ms"] = time_prepass(fa, gen, shape)
+        log(f"flash_fwd_tc's pre-pass at {shape}: "
+            f"{out[key]['prepass_ms']:.5f} ms of {out[key]['ms']:.4f}")
     return out
 
 
-def time_flash(fa, gen, shape, dtype, launch, library=True):
+def time_prepass(fa, gen, shape):
+    """``flash_tc_last_nonfinite`` (the pass ``_launch_tc`` launches
+    before the kernel) on the v of rotating bf16 views."""
+    from fedtorch_tpu_torch.ops.cuda.build import load_library
+    B, T, H, D = shape
+    views = [qkv_views(gen, B, T, H, D, torch.bfloat16) for _ in range(
+        max(1, math.ceil(COLD_BYTES / (3 * B * T * H * D * 2))))]
+    last = torch.empty(B * H * D, dtype=torch.int32, device="cuda")
+    fn = load_library().flash_tc_last_nonfinite
+
+    def prepass(q, k, v):
+        if fn(v.data_ptr(), last.data_ptr(), B, T, H, D, *fa._tc_strides(v),
+              torch.cuda.current_stream().cuda_stream) != 0:
+            raise AssertionError("flash_tc_last_nonfinite failed")
+    ms = device_ms(rotating(prepass, views), inner=10, reps=11)
+    del views
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_flash(fa, gen, shape, dtype, launch):
     """One flash kernel's launcher at ``shape`` causal, inputs rotating
-    over at least COLD_BYTES, against the plain version and (``library``)
+    over at least COLD_BYTES, against the plain version and
     ``F.scaled_dot_product_attention`` on the same tensors as [B, H, T,
     D] views (float32 with TF32 off). Bounds: bf16 on the tensor cores;
     float32 on the CUDA cores and, the TF32 kernel's, three TF32
@@ -946,37 +1014,32 @@ def time_flash(fa, gen, shape, dtype, launch, library=True):
                            "CUDA cores at 67 TFLOP/s")
     else:
         r["bound_ms"], r["bound_by"] = flash_bound(B, T, H, D, elem)
-    r["library_ms"] = None
-    if library:
-        torch.cuda.empty_cache()
-        lib = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
-        r["library_ms"] = device_ms(rotating(
-            lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), lib), inner=10, reps=11)
-        r["library_backend"] = sdpa_backend(*lib[0])
-        r["library_note"] = (
-            "F.scaled_dot_product_attention(is_causal=True) on the same "
-            f"{r['timed_dtype']} tensors as [B, H, T, D] views"
-            + (", TF32 off" if dtype == torch.float32 else "")
-            + "; it returns no logsumexp")
-        lib_o = F.scaled_dot_product_attention(*lib[0], is_causal=True)
-        r["library_vs_kernel_max_abs"] = float(
-            (lib_o.transpose(1, 2).float()
-             - launch(*views[0], scale, True)[0].float()).abs().max())
-        r["vs_library"] = r["ms"] / r["library_ms"]
-        del lib, lib_o
-    else:
-        r["library_note"] = ("not timed at this head dim: the yardstick "
-                             "is SDPA at head dim 64 (library_ms)")
+    torch.cuda.empty_cache()
+    lib = [tuple(t.transpose(1, 2) for t in qkv) for qkv in views]
+    r["library_ms"] = device_ms(rotating(
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), lib), inner=10, reps=11)
+    r["library_backend"] = sdpa_backend(*lib[0])
+    r["library_note"] = (
+        "F.scaled_dot_product_attention(is_causal=True) on the same "
+        f"{r['timed_dtype']} tensors as [B, H, T, D] views"
+        + (", TF32 off" if dtype == torch.float32 else "")
+        + "; it returns no logsumexp")
+    lib_o = F.scaled_dot_product_attention(*lib[0], is_causal=True)
+    r["library_vs_kernel_max_abs"] = float(
+        (lib_o.transpose(1, 2).float()
+         - launch(*views[0], scale, True)[0].float()).abs().max())
+    r["vs_library"] = r["ms"] / r["library_ms"]
+    del lib, lib_o
     r["vs_bound"] = r["ms"] / r["bound_ms"]
     log(f"flash {launch.__name__} at {shape} {r['timed_dtype']} causal: "
         f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
         f"{r['bound_ms']:.5f} by {r['bound_by']} ({r['vs_bound']:.1f}x)"
         + (f", CUDA-core float32 bound {r['cuda_core_bound_ms']:.5f}"
            if "cuda_core_bound_ms" in r else "")
-        + (f"; SDPA {r['library_ms']:.4f} ({r['vs_library']:.2f}x) via "
-           f"{r['library_backend']}, max |diff| "
-           f"{r['library_vs_kernel_max_abs']:.3e}" if library else ""))
+        + f"; SDPA {r['library_ms']:.4f} ({r['vs_library']:.2f}x) via "
+        f"{r['library_backend']}, max |diff| "
+        f"{r['library_vs_kernel_max_abs']:.3e}")
     del views
     torch.cuda.empty_cache()
     return r
@@ -1422,6 +1485,53 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
     return out
 
 
+PERSONAL_LINE = re.compile(r"Round: (\d+)\. Mode: validation_personal\. "
+                           r"Loss: (\S+) \| top1: (\S+)")
+
+
+def cli_apfl_phase(seed, qk, fa):
+    """The CLI's APFL run: ``CLI_ARGV`` plus ``CLI_APFL_WORDS`` on the
+    CIFAR-10 files written from ``seed``: 2 + 2 ragged launches a round,
+    and one ``validation_personal`` line a round in the run's log with a
+    finite loss and top-1 in [0, 1]."""
+    import glob
+    import tempfile
+
+    from fedtorch_tpu_torch import cli
+    with tempfile.TemporaryDirectory() as root:
+        write_cifar10(root, seed)
+        runs = os.path.join(root, "runs")
+        reset_counters(qk, fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(CLI_ARGV + CLI_APFL_WORDS + ["-p", root, "-c", runs])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launched = counters(qk, fa)
+        (record,) = glob.glob(os.path.join(runs, "cifar10", "resnet20", "*",
+                                           "record0"))
+        lines = [(int(r), float(loss), float(top1)) for r, loss, top1 in
+                 PERSONAL_LINE.findall(open(record).read())]
+    want = dict(ragged_stats=2 * CLI_APFL_ROUNDS,
+                ragged_apply=2 * CLI_APFL_ROUNDS, stats=0, apply=0, flash=0,
+                flash_tc=0, flash_tf32=0)
+    if launched != want or res.get("rounds") != CLI_APFL_ROUNDS:
+        raise AssertionError(f"cli apfl: launches {launched} (want {want}),"
+                             f" results {res}")
+    if [r for r, _, _ in lines] != list(range(CLI_APFL_ROUNDS)) or not all(
+            math.isfinite(loss) and 0.0 <= top1 <= 1.0
+            for _, loss, top1 in lines):
+        raise AssertionError(f"cli apfl: validation_personal lines {lines}")
+    out = dict(argv=CLI_ARGV + CLI_APFL_WORDS, rounds=res["rounds"],
+               test_top1=res["test_top1"], run_s=run_s,
+               round_ms=res["timer"]["round"] / CLI_APFL_ROUNDS * 1e3,
+               validation_personal=lines, launches=launched,
+               tree_launches=launched)
+    log(f"cli apfl: {out['round_ms']:.1f} ms/round, validation_personal "
+        f"{lines}, launches {launched}")
+    return out
+
+
 def zoo_config(tcfg, fed, optim, arch="resnet20", dtype="bfloat16",
                clients=NUM_CLIENTS, rate=ONLINE_RATE, batch=BATCH,
                steps=LOCAL_STEPS, dataset="cifar10", **model):
@@ -1460,15 +1570,30 @@ def _check_lambda(name, lam):
     return total
 
 
+def _check_alpha(name, alpha, online):
+    """APFL's alpha after a round: in [0, 1], one value for the round's
+    online clients (the mean that pre_round writes to each)."""
+    on = alpha[online.bool()]
+    if not (bool(((on >= 0) & (on <= 1)).all())
+            and float(on.max() - on.min()) == 0.0):
+        raise AssertionError(f"{name}: online alpha {on.tolist()}")
+    return float(on[0])
+
+
 def zoo_path(name, fed, optim, data, seed, tcfg, define_model,
-             make_algorithm, FederatedTrainer, qk, fa):
+             make_algorithm, FederatedTrainer, qk, fa, val=None):
     """One zoo path at the north-star sizes through the library entry
     points: 1 warm-up and ``ZOO_TIMED_ROUNDS`` timed rounds, the counters
     set to 0 just before and read just after; finite losses, moved and
-    finite server params, every aux tree finite, lambda on the simplex."""
+    finite server params, every aux tree finite, lambda on the simplex.
+    A personalized path trains on ``data`` with ``val`` as the clients'
+    validation rows, then runs ``evaluate_personal`` once, timed: finite
+    [C] losses and summary, APFL's online alpha one value in [0, 1]."""
+    from fedtorch_tpu_torch.parallel import evaluate_personal
     cfg = zoo_config(tcfg, fed, optim)
     model = define_model(cfg, batch_size=cfg.data.batch_size)
-    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data,
+                               val_data=val)
     server, clients = trainer.init_state(seed)
     init = {k: v.clone() for k, v in server.params.items()}
     per = launches_per_round(qk, [v.numel() for v in init.values()]) \
@@ -1535,12 +1660,31 @@ def zoo_path(name, fed, optim, data, seed, tcfg, define_model,
     if "lambda" in server.aux:
         out["lambda_sum"] = _check_lambda(name, server.aux["lambda"])
         out["lambda_min"] = float(server.aux["lambda"].min())
+    if val is not None:
+        t0 = time.perf_counter()
+        p_loss, _, summary = evaluate_personal(
+            model, clients.aux, clients.params, trainer.val_data,
+            cfg.effective_algorithm)
+        torch.cuda.synchronize()
+        out["evaluate_personal_ms"] = (time.perf_counter() - t0) * 1e3
+        if not (bool(torch.isfinite(p_loss).all()) and all(
+                math.isfinite(v) for v in summary.values())):
+            raise AssertionError(f"zoo {name}: evaluate_personal {summary}")
+        out.update(evaluate_personal=summary,
+                   val_rows_per_client=int(trainer.val_data.sizes[0]),
+                   train_rows_per_client=trainer.sizes[0])
+        if "alpha" in clients.aux:
+            out["alpha"] = _check_alpha(name, clients.aux["alpha"],
+                                        metrics.online_mask[-1])
     log(f"zoo {name}: {round_ms:.1f} ms/round ({trainer.local_steps} local "
         f"steps; wire format {wire_ms:.4f} ms), losses finite, params "
         f"moved {moved:.3e}, aux finite, "
         f"launches per round {out['launches_per_round']}"
         + (f", lambda sum {out['lambda_sum']:.9f} min "
-           f"{out['lambda_min']:.3e}" if "lambda_sum" in out else ""))
+           f"{out['lambda_min']:.3e}" if "lambda_sum" in out else "")
+        + (f"; evaluate_personal {out['evaluate_personal_ms']:.1f} ms: "
+           f"{out['evaluate_personal']}" if val is not None else "")
+        + (f", online alpha {out['alpha']:.6f}" if "alpha" in out else ""))
     return out
 
 
@@ -1558,27 +1702,42 @@ def zoo_card_vs_cpu(name, fed, optim, tcfg, define_model, make_algorithm,
     unquantized), same weights and plan (drawn once, DRFA's draws
     included), on the CPU and on the card with TF32 off: the update's
     and each aux tree's relative L2 within ``ZOO_CARD_BAR``."""
-    C, N, B = 8, 16, 8
+    from fedtorch_tpu_torch.data.batching import train_val_split
+    from fedtorch_tpu_torch.parallel import evaluate_personal
+    C, B = 8, 8
     cfg = zoo_config(tcfg, fed, optim, arch="mlp", dtype="float32",
                      clients=C, rate=0.25, batch=B, steps=2,
                      dataset="synthetic", mlp_hidden_size=32)
+    N = 20 if cfg.federated.personal else 16
     rng = np.random.RandomState(11)
-    data = stack_partitions(rng.randn(C * N, 60).astype(np.float32),
-                            rng.randint(0, 10, C * N),
-                            [np.arange(N * i, N * i + N) for i in range(C)])
+    feats = rng.randn(C * N, 60).astype(np.float32)
+    labels = rng.randint(0, 10, C * N)
+    parts = [np.arange(N * i, N * i + N) for i in range(C)]
+    val = None
+    if cfg.federated.personal:
+        # 16 train and 4 val rows a client
+        parts, vparts = train_val_split(parts, cfg.data.val_fraction)
+        val = stack_partitions(feats, labels, vparts)
+    data = stack_partitions(feats, labels, parts)
     runs, plan = [], None
     for dev in ("cpu", "cuda"):
         tr = FederatedTrainer(cfg, define_model(cfg, B, device=dev),
-                              make_algorithm(cfg), data, device=dev)
+                              make_algorithm(cfg), data, val_data=val,
+                              device=dev)
         server, clients = tr.init_state(12)
         p0 = {k: v.cpu() for k, v in server.params.items()}
         plan = plan or tr.draw_plan(server)
-        server, clients, _ = tr.round_fn(server, clients, plan)
+        server, clients, metrics = tr.round_fn(server, clients, plan)
+        if "alpha" in clients.aux:
+            _check_alpha(name, clients.aux["alpha"], metrics.online_mask)
         runs.append(dict(
             update={k: v.cpu() - p0[k] for k, v in server.params.items()},
             aux={p: t.cpu() for p, t in itertools.chain(
                 _leaves(server.aux, "server"), _leaves(clients.aux,
-                                                       "clients"))}))
+                                                       "clients"))},
+            personal=evaluate_personal(
+                tr.model, clients.aux, clients.params, tr.val_data,
+                cfg.effective_algorithm)[2] if val is not None else {}))
     want, got = runs
     gaps = {"update": _rel_l2(
         torch.cat([v.flatten() for v in got["update"].values()]),
@@ -1593,12 +1752,30 @@ def zoo_card_vs_cpu(name, fed, optim, tcfg, define_model, make_algorithm,
         gaps[g] = _rel_l2(
             torch.cat([got["aux"][p].flatten() for p in paths]),
             torch.cat([want["aux"][p].flatten() for p in paths]))
+    # evaluate_personal's summary: each figure relative, or absolute
+    # below 1
+    for key, w in want["personal"].items():
+        gaps[f"evaluate_personal/{key}"] = abs(got["personal"][key] - w) \
+            / max(abs(w), 1.0)
     worst = max(gaps.values())
     log(f"zoo {name} card vs CPU (MLP, f32): relative L2 "
         + ", ".join(f"{g} {v:.3e}" for g, v in gaps.items()))
     if not worst <= ZOO_CARD_BAR:
         raise AssertionError(f"zoo {name} card vs CPU: {gaps}")
     return gaps
+
+
+def personal_split(data, stack_partitions):
+    """The north-star clients' rows split by ``train_val_split`` (val
+    fraction 0.2, seed 0), as ``cfg.federated.personal`` splits a
+    dataset: 200 train and 50 val rows a client."""
+    from fedtorch_tpu_torch.data.batching import train_val_split
+    C, n = data.x.shape[:2]
+    parts, vparts = train_val_split(
+        [np.arange(c * n, (c + 1) * n) for c in range(C)], 0.2)
+    x = data.x.reshape((C * n,) + tuple(data.x.shape[2:])).numpy()
+    y = data.y.reshape(-1).numpy()
+    return stack_partitions(x, y, parts), stack_partitions(x, y, vparts)
 
 
 def zoo_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -1609,15 +1786,18 @@ def zoo_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     cfg = zoo_config(tcfg, {"algorithm": "fedavg"}, {})
     t0 = time.perf_counter()
     data = path_data(cfg, seed, stack_partitions)
+    train, val = personal_split(data, stack_partitions)
     out = {"data_s": time.perf_counter() - t0, "paths": {}, "card_vs_cpu":
            {}}
     for name, fed, optim in ZOO_PATHS:
+        personal = fed["algorithm"] in tcfg.PERSONALIZED_ALGORITHMS
         out["paths"][name] = zoo_path(
-            name, fed, optim, data, seed, tcfg, define_model,
-            make_algorithm, FederatedTrainer, qk, fa)
+            name, fed, optim, train if personal else data, seed, tcfg,
+            define_model, make_algorithm, FederatedTrainer, qk, fa,
+            val=val if personal else None)
         gc.collect()
         torch.cuda.empty_cache()
-    del data
+    del data, train, val
     # TF32 off for the checks, then as it was (the later paths' backward
     # runs its float32 products as the library's default leaves them)
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -1634,6 +1814,74 @@ def zoo_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
                                            algorithm="fedgate")))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
+    return out
+
+
+def localsgd_phase(seed, tcfg, define_model, stack_partitions, qk, fa):
+    """Local-SGD mode through its entry points (``build_local_sgd`` ->
+    ``LocalSGDTrainer.fit``): ResNet-20 in bf16 on the north-star data
+    pooled and re-partitioned IID over ``LOCALSGD_WORKERS`` workers, all
+    online, 10 local steps of batch 50 a round (iteration mode, so
+    ``fit`` stops after ``LOCALSGD_ROUNDS`` rounds), the counters set to
+    0 just before and read just after (no kernel: unquantized); finite
+    losses, every round K = 10, moved server params, the second round
+    timed."""
+    from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
+    cfg = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset="cifar10", batch_size=BATCH),
+        federated=tcfg.FederatedConfig(
+            federated=False, num_clients=LOCALSGD_WORKERS,
+            sync_type="local_step"),
+        model=tcfg.ModelConfig(arch="resnet20"),
+        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
+        train=tcfg.TrainConfig(
+            local_step=LOCAL_STEPS, stop_criteria="iteration",
+            num_iterations=LOCALSGD_ROUNDS * LOCAL_STEPS),
+        mesh=tcfg.MeshConfig(compute_dtype="bfloat16")).finalize()
+    t0 = time.perf_counter()
+    data = path_data(zoo_config(tcfg, {"algorithm": "fedavg"}, {}), seed,
+                     stack_partitions)
+    x = data.x.reshape((-1,) + tuple(data.x.shape[2:])).numpy()
+    trainer = build_local_sgd(cfg, define_model(cfg, batch_size=BATCH), x,
+                              data.y.reshape(-1).numpy())
+    del data, x
+    data_s = time.perf_counter() - t0
+    ends = []
+
+    def tick(server, clients, metrics):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, clients, history = trainer.fit(seed, callback=tick)
+    launched = counters(qk, fa)
+    init = trainer.init_state(seed)[0].params
+    moved = max(float((server.params[k] - init[k]).abs().max())
+                for k in init)
+    losses = torch.stack([m.train_loss for m in history])
+    if len(history) != LOCALSGD_ROUNDS or any(launched.values()) \
+            or not bool(torch.isfinite(losses).all()) or not moved > 0.0 \
+            or int(clients.local_index.max()) != LOCALSGD_ROUNDS \
+            * LOCAL_STEPS:
+        raise AssertionError(f"localsgd: {len(history)} rounds, launches "
+                             f"{launched}, losses {losses.tolist()}, moved "
+                             f"{moved}")
+    round_ms = (ends[-1] - ends[-2]) * 1e3
+    out = dict(workers=LOCALSGD_WORKERS, rounds=len(history),
+               local_steps=LOCAL_STEPS, batch=BATCH,
+               rows_per_worker=trainer.sizes[0], data_s=data_s,
+               warmup_round_ms=(ends[0] - t0) * 1e3, round_ms=round_ms,
+               local_steps_per_s=LOCALSGD_WORKERS * LOCAL_STEPS
+               / (round_ms / 1e3),
+               mean_loss=float(losses[-1].mean()), max_param_change=moved,
+               launches=launched, tree_launches=launched,
+               reduced="num_clients 100 -> 10 workers, so that a round is "
+                       "the FedAvg round's 100 client-steps")
+    log(f"localsgd: {LOCALSGD_WORKERS} workers x {trainer.sizes[0]} rows, "
+        f"{len(history)} rounds of K {LOCAL_STEPS}: {round_ms:.1f} ms/round "
+        f"(warm-up {out['warmup_round_ms']:.1f}), losses finite, params "
+        f"moved {moved:.3e}, launches {launched}")
     return out
 
 
@@ -1866,10 +2114,19 @@ def main(argv=None) -> int:
     cli_out = cli_phase(args.seed, tcfg, define_model, qk, fa)
     gc.collect()
     torch.cuda.empty_cache()
+    cli_apfl = cli_apfl_phase(args.seed, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     phase("zoo")
     zoo = zoo_phase(args.seed, tcfg, define_model, make_algorithm,
                     stack_partitions, FederatedTrainer, order_spread, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("localsgd")
+    localsgd = localsgd_phase(args.seed, tcfg, define_model,
+                              stack_partitions, qk, fa)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1922,7 +2179,8 @@ def main(argv=None) -> int:
                                            "transformer_f32"))
 
     cli_out["tree_launches"] = cli_out["launches"]
-    paths = (("resnet20", main), ("cli", cli_out), ("wideresnet28_10", wrn),
+    paths = (("resnet20", main), ("cli", cli_out), ("cli_apfl", cli_apfl),
+             ("localsgd", localsgd), ("wideresnet28_10", wrn),
              ("transformer", lm), ("transformer_d512", d512),
              ("transformer_f32", f32)) + tuple(
                  (f"zoo_{n}", r) for n, r in zoo["paths"].items())
@@ -1990,8 +2248,9 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))
     print(json.dumps({"profile": prof}))
-    print(json.dumps({"cli": cli_out, "card": card}))
+    print(json.dumps({"cli": cli_out, "cli_apfl": cli_apfl, "card": card}))
     print(json.dumps({"zoo": zoo, "card": card}))
+    print(json.dumps({"localsgd": localsgd, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

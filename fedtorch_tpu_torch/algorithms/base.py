@@ -10,8 +10,9 @@ An algorithm is one object with hooks the engine
 after it per client (``client_post``) and once more on the new server
 state (``post_round_global``). Around the local loop: ``setup`` at
 construction, ``participation`` before the default draw, ``pre_round``
-on the gathered online aux, and the full-data loss probe
-(``needs_full_loss``) on the incoming server model.
+on the gathered online aux (with each online client's first batch),
+the full-data loss probe (``needs_full_loss``) on the incoming server
+model, and a validation batch a step (``needs_val_batch``).
 
 Where the JAX package hands a hook a PRNG key, the port hands it the
 round's :class:`~fedtorch_tpu_torch.parallel.federated.RoundPlan`: every
@@ -46,6 +47,9 @@ class FedAlgorithm:
     # the engine computes each online client's full-data loss on the
     # incoming server model when set (qFFL)
     needs_full_loss = False
+    # the engine hands each local step a batch of the client's validation
+    # rows when set (PerFedAvg's outer step)
+    needs_val_batch = False
 
     def __init__(self, cfg: ExperimentConfig):
         self.cfg = cfg
@@ -86,9 +90,11 @@ class FedAlgorithm:
         ``sizes`` are the clients' sample counts."""
         return {}
 
-    def pre_round(self, on_aux, *, server, sizes, lr, plan):
+    def pre_round(self, on_aux, *, server, x, y, sizes, lr, plan):
         """Once per round on the online clients' stacked [k] aux, before
-        the local loops; ``lr``: [k] scheduled LR at each one's epoch."""
+        the local loops (APFL's adaptive alpha). ``x``/``y``: each online
+        client's first B storage rows ([k, B, ...]); ``lr``: [k]
+        scheduled LR at each one's epoch."""
         return on_aux
 
     # -- local loop hooks ----------------------------------------------
@@ -104,13 +110,17 @@ class FedAlgorithm:
         return grads
 
     def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, lr, step_idx, step_budget):
+                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
+                   local_index, step_budget):
         """One local step: forward, backward, gradient correction,
         dual-mode optimizer step. Returns (params, opt, client_aux, loss,
         acc) with loss/acc as 0-d tensors (no host sync). ``step_idx``
         counts from 0; ``step_budget`` is the steps the client takes this
         round (its epoch-sync budget, else the round's K): the engine
-        skips the steps past it, so step-indexed logic anchors on it."""
+        skips the steps past it, so step-indexed logic anchors on it.
+        ``local_index`` is the client's running step count (a 0-d int32
+        tensor on the device); ``bval_x``/``bval_y`` the step's
+        validation batch when ``needs_val_batch``, else None."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         logits = self.model.apply(leaves, bx)

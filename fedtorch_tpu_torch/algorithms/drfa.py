@@ -99,21 +99,24 @@ class DRFA(FedAlgorithm):
         return lam[online_idx.to(lam.device)] * n / num_online_eff
 
     # -- local loop --------------------------------------------------------
-    def pre_round(self, on_aux, *, server, sizes, lr, plan):
+    def pre_round(self, on_aux, *, server, x, y, sizes, lr, plan):
         inner_aux = self.inner.pre_round(
             on_aux["inner"], server=server._replace(aux=server.aux["inner"]),
-            sizes=sizes, lr=lr, plan=plan)
+            x=x, y=y, sizes=sizes, lr=lr, plan=plan)
         # the host copy the local steps read (no device sync a step)
         self._k_rand = int(plan.k_rand)
         k_rand = torch.full_like(on_aux["k_rand"], self._k_rand)
         return dict(on_aux, inner=inner_aux, k_rand=k_rand)
 
     def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, lr, step_idx, step_budget):
+                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
+                   local_index, step_budget):
         params, opt, inner_aux, loss, acc = self.inner.local_step(
             params=params, opt=opt, client_aux=client_aux["inner"],
             server_params=server_params, server_aux=server_aux["inner"],
-            bx=bx, by=by, lr=lr, step_idx=step_idx, step_budget=step_budget)
+            bx=bx, by=by, bval_x=bval_x, bval_y=bval_y, lr=lr,
+            step_idx=step_idx, local_index=local_index,
+            step_budget=step_budget)
         # the snapshot after min(k_rand, budget) steps; k_rand is the
         # plan's, the same for every client of the round
         k_snap = min(self._k_rand, step_budget)

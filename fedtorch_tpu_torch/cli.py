@@ -16,14 +16,22 @@ phase ``timer``.
 It runs on CUDA unless ``--backend cpu`` asks for the CPU; without a
 card and without that flag it raises. A flag that names a feature the
 port has not ported is refused by name when set to anything but its
-default (:data:`UNPORTED_FLAGS`), as are the personalized algorithms
-(``--federated_type apfl|perfedme|perfedavg``), local-SGD mode
-(``--federated false``), the JAX package's subcommands and
-``--download``. Every other ``--federated_type`` runs (fedavg, fedprox,
-fedadam, scaffold, fedgate, qsparse, qffl, afl), with the top-k
-(``--compressed``) or quantized wire format and ``--federated_drfa``
-over fedavg, fedgate or scaffold. The JAX run writes checkpoints and telemetry rows; the
-port writes neither yet, and logs one line saying so.
+default (:data:`UNPORTED_FLAGS`), as are the JAX package's subcommands
+and ``--download``. Every ``--federated_type`` runs (fedavg, fedprox,
+fedadam, scaffold, fedgate, qsparse, qffl, afl, apfl, perfedme,
+perfedavg), with the top-k (``--compressed``) or quantized wire format
+and ``--federated_drfa`` over fedavg, fedgate or scaffold. The
+personalized algorithms (and ``--fed_personal true``) split each
+client's rows into train and val (``--val_fraction`` of the JAX
+package's config), and after each evaluation the three algorithms log a
+``validation_personal`` line: ``evaluate_personal``'s mean loss and
+accuracy over the clients' val rows. ``--federated false`` runs
+local-SGD mode (``parallel/local_sgd.py``): the training set pooled and
+re-partitioned IID over ``--num_workers``, ``LocalSGDTrainer.fit`` to
+the epoch or iteration count, one test evaluation at the end, and the
+JAX package's ``{"test_top1", "rounds"}``. The JAX run writes
+checkpoints and telemetry rows; the port writes neither yet, and logs
+one line saying so.
 
 Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
@@ -31,6 +39,11 @@ Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
         -a mlp --num_workers 10 --num_comms 5 --federated_type fedgate \
         --federated_drfa true
+    python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
+        -a mlp --num_workers 10 --num_comms 5 --federated_type apfl \
+        --fed_adaptive_alpha true
+    python -m fedtorch_tpu_torch.cli --backend cpu -f false -d synthetic \
+        -a mlp --num_workers 4 --num_epochs 2 --local_step 4
 """
 from __future__ import annotations
 
@@ -453,8 +466,6 @@ def _unported(section: str, what: str, fields: dict) -> None:
         UNPORTED_FLAGS[flag] = (section, field, what)
 
 
-_unported("federated", "personalization (ROADMAP A4)",
-          {"fed_personal": "personal"})
 _unported("federated", "the async plane (ROADMAP A8)", {
     "sync_mode": "sync_mode", "async_buffer_size": "async_buffer_size",
     "async_concurrency": "async_concurrency",
@@ -538,12 +549,6 @@ def refused_flags(cfg: ExperimentConfig) -> list:
         value = getattr(getattr(cfg, section), field)
         if value != getattr(getattr(default, section), field):
             out.append(f"--{flag} {value!r}: {what}")
-    if cfg.federated.algorithm in PERSONALIZED_ALGORITHMS:
-        out.append(f"--federated_type {cfg.federated.algorithm!r}: the "
-                   "personalized algorithms (ROADMAP A4)")
-    if not cfg.federated.federated:
-        out.append("--federated False: local-SGD mode "
-                   "(parallel/local_sgd.py, ROADMAP A4)")
     if cfg.mesh.client_fusion == "fused":
         out.append("--client_fusion 'fused': client fusion (ROADMAP A9)")
     if cfg.mesh.backend not in (None, "cpu", "cuda", "gpu"):
@@ -579,16 +584,18 @@ def init_run_dir(cfg: ExperimentConfig) -> str:
 def run_experiment(cfg: ExperimentConfig, download: bool = False,
                    round_callback=None) -> dict:
     """The synchronous federated driver loop (federated/main.py:56-211;
-    the JAX package's ``run_experiment``). ``round_callback(r, trainer,
-    server, clients, metrics)`` (optional) fires after every round."""
+    the JAX package's ``run_experiment``), or local-SGD mode without
+    ``--federated``. ``round_callback(r, trainer, server, clients,
+    metrics)`` (optional) fires after every federated round."""
     from fedtorch_tpu_torch.algorithms import make_algorithm
     from fedtorch_tpu_torch.data import build_federated_data
     from fedtorch_tpu_torch.models import define_model
     from fedtorch_tpu_torch.models.common import num_classes_of
     from fedtorch_tpu_torch.parallel import FederatedTrainer
     from fedtorch_tpu_torch.parallel.evaluate import (
-        evaluate, evaluate_per_class,
+        evaluate, evaluate_per_class, evaluate_personal,
     )
+    from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
     from fedtorch_tpu_torch.utils import resolve_device
     from fedtorch_tpu_torch.utils.logging import RunLogger
     from fedtorch_tpu_torch.utils.meters import PhaseTimer
@@ -617,6 +624,22 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     model = define_model(cfg, batch_size=cfg.data.batch_size, device=device)
     timer.stop("data")
 
+    if not cfg.federated.federated:
+        # local-SGD mode: the workers' shards pooled back into one
+        # training set (padding rows included, as the JAX package pools
+        # them) and re-partitioned IID across the workers
+        x, y = (t.numpy() for t in fed_data.train[:2])
+        trainer = build_local_sgd(cfg, model,
+                                  x.reshape((-1,) + x.shape[2:]),
+                                  y.reshape(-1), device=device)
+        server, _, history = trainer.fit(cfg.train.manual_seed)
+        loss, top1, top5 = (float(v) for v in evaluate(
+            model, server.params, fed_data.test_x, fed_data.test_y))
+        logger.log_val(len(history), "test", loss, top1, top5)
+        return {"test_top1": top1, "rounds": len(history)}
+
+    personal = cfg.federated.personal and fed_data.val is not None \
+        and cfg.effective_algorithm in PERSONALIZED_ALGORITHMS
     trainer = FederatedTrainer(cfg, model, make_algorithm(cfg),
                                fed_data.train, val_data=fed_data.val,
                                device=device)
@@ -650,6 +673,13 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                     num_classes_of(cfg.data.dataset))
                 logger.log("Round: {}. Per-class acc: {}".format(
                     r, [round(a, 4) for a in accs.tolist()]))
+            if personal:
+                # the personalized models on the clients' val rows
+                _, _, summary = evaluate_personal(
+                    model, clients.aux, clients.params, trainer.val_data,
+                    cfg.effective_algorithm)
+                logger.log_val(r, "validation_personal",
+                               summary["loss_mean"], summary["acc_mean"])
             results["test_top1"] = top1
         results["rounds"] = r + 1
         if round_callback is not None:

@@ -169,6 +169,17 @@ def init_opt_state(params, cfg: OptimConfig):
     raise ValueError(f"Unknown optimizer {cfg.optimizer!r}")
 
 
+def init_client_opt_state(cparams, cfg: OptimConfig):
+    """Optimizer state of stacked ``[C, ...]`` client params: Adam's step
+    counter is ``[C]`` too (one per client)."""
+    state = init_opt_state(cparams, cfg)
+    if isinstance(state, AdamState):
+        c = next(iter(cparams.values()))
+        state = state._replace(step=torch.zeros(
+            c.shape[0], dtype=torch.int32, device=c.device))
+    return state
+
+
 def local_step(params, grads, state, lr, cfg: OptimConfig):
     if isinstance(state, SGDState):
         return sgd_local_step(params, grads, state, lr, cfg)

@@ -35,7 +35,8 @@
 //   is kept as D / 64 column blocks ("atoms") of 128-byte rows, one TMA
 //   box each: a 128-byte row is one row of the 128-byte swizzle, which
 //   `wgmma` reads without bank conflicts. At D = 128, Q takes 32 KB and a
-//   K or V tile 16 KB, so the ring is 160 KB of the 227 KB.
+//   K or V tile 16 KB, so Q and the ring take 160 KB of the 227 KB, and
+//   the two sanitized V tiles of the non-finite rules (below) 32 KB more.
 // - S = Q K^T: D / 16 `wgmma m64n64k16` from shared memory into float32
 //   accumulators, the descriptors stepping 32 bytes along an atom's rows
 //   and then to the next atom; then the scale; the causal mask only on
@@ -69,6 +70,23 @@
 //   -inf (nothing summed yet), 1 where it is +inf or NaN (the sums are
 //   already in the basis m_safe = 0);
 // - l_safe = max(l, 1e-30) keeping NaN; lse = m_fin + log(l_safe).
+// - In P V only the p_hi product sees a non-finite v: the p_lo product
+//   reads a copy of the V tile with every non-finite element 0 (p_lo can
+//   be 0, 0 inf = NaN, or of the other sign, -inf beside p_hi's +inf).
+//   So o is +-inf where p > 0 meets an infinite v, and NaN where the
+//   plain version computes 0 inf: p = 0 in a tile the warpgroup scores
+//   (the p_hi product is 0 inf), and every key past the tiles it scores
+//   (causal), which the plain version's dense product still multiplies
+//   by p = 0. A pre-pass (`v_last_nonfinite_kernel`) writes the last key
+//   of each (batch*head, column) whose v is not finite, one writer per
+//   column and no memset: a (batch, head) with none (the kernel reads
+//   all its columns first) runs as if the rule were not there (at D 64 in
+//   its own instantiation of the loop: `Dirty`), and one with some copies
+//   each V tile into its warpgroup's own 1024-aligned buffer (the same
+//   swizzled bytes, non-finite bf16 zeroed) before P V, and marks NaN
+//   each causal column whose last such key lies past the warpgroup's
+//   tiles. The two copies take 16 KB (D 64) or 32 KB (D 128) of shared
+//   memory beside the ring.
 //
 // Rounding: compiled without --fmad=false (build.py): attention has no
 // rounding contract beyond its tolerance, and splitting the multiply-adds
@@ -103,8 +121,10 @@ struct Cfg {
   static constexpr int kAtoms = kD / kAtomCols;
   static constexpr int kQBytes = kAtoms * kQAtomBytes;
   static constexpr int kKVBytes = kAtoms * kKVAtomBytes;  // a K or V tile
+  // Q, the K and V ring, one sanitized V tile per consumer warpgroup,
+  // and the alignment
   static constexpr int kSmemBytes =
-      kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment
+      kQBytes + 2 * kStages * kKVBytes + 2 * kKVBytes + 1024;
 };
 
 __device__ __forceinline__ bool is_finite(float x) {
@@ -126,6 +146,38 @@ __device__ __forceinline__ float select(bool c, float a, float b) {
       : "=f"(d)
       : "r"(static_cast<uint32_t>(c)), "f"(a), "f"(b));
   return d;
+}
+
+// a bf16 pair with each non-finite half zeroed
+__device__ __forceinline__ uint32_t finite_pair(uint32_t w) {
+  const uint32_t lo = (w & 0x7f80u) == 0x7f80u ? 0x0000ffffu : 0u;
+  const uint32_t hi = (w & 0x7f800000u) == 0x7f800000u ? 0xffff0000u : 0u;
+  return w & ~(lo | hi);
+}
+
+// The V tile at `src` into `dst` with every non-finite element 0: the
+// p_lo product's operand. Both are 1024-byte aligned, so a byte-for-byte
+// copy keeps the 128-byte swizzle. The warpgroup's 128 threads copy it,
+// fence it to the async proxy and meet at named barrier `bar` before any
+// of them issues the wgmma that reads it.
+template <int kD>
+__device__ __forceinline__ void sanitize_v(uint32_t dst, uint32_t src,
+                                           uint32_t bar) {
+  constexpr int kChunks = Cfg<kD>::kKVBytes / (16 * 128);
+  const uint32_t t = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const uint32_t off = (i * 128 + t) * 16;
+    uint4 x = sm90::lds128(src + off);
+    x.x = finite_pair(x.x);
+    x.y = finite_pair(x.y);
+    x.z = finite_pair(x.z);
+    x.w = finite_pair(x.w);
+    sm90::sts128(dst + off, x);
+  }
+  sm90::fence_proxy_async();
+  sm90::bar_sync(bar, 128);
+  __syncwarp();
 }
 
 // S = Q K^T of one key tile into `s` (uncommitted): D / 16 k16 steps,
@@ -242,15 +294,16 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
   sm90::wgmma_m64n128k16_rs_tb(acc, a, desc);
 }
 
-// O = corr O + P_hi V + P_lo V for one 64-key tile (uncommitted): four
-// k16 steps per half; V's two atoms (D = 128) are the descriptor's leading
-// byte offset apart
+// O = corr O + P_hi V + P_lo V_lo for one 64-key tile (uncommitted):
+// four k16 steps per half; V's two atoms (D = 128) are the descriptor's
+// leading byte offset apart. V_lo is V, or its sanitized copy (the
+// header's non-finite rules)
 template <int kD>
 __device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
                                          uint32_t (&p_hi)[kPN],
                                          uint32_t (&p_lo)[kPN],
                                          const float (&corr)[2],
-                                         uint32_t v_tile) {
+                                         uint32_t v_tile, uint32_t v_lo) {
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
 #pragma unroll
@@ -259,8 +312,9 @@ __device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
       acc[4 * j + 2 * r + 1] *= corr[r];
     }
   }
-  const uint64_t desc_v =
-      sm90::desc_sw128(v_tile, kD > kAtomCols ? kKVAtomBytes : 1024);
+  const uint32_t lbo = kD > kAtomCols ? kKVAtomBytes : 1024;
+  const uint64_t desc_v = sm90::desc_sw128(v_tile, lbo);
+  const uint64_t desc_lo = sm90::desc_sw128(v_lo, lbo);
   sm90::fence_regs(acc);
   sm90::fence_regs(p_hi);
   sm90::fence_regs(p_lo);
@@ -271,7 +325,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
   }
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
-    wgmma_pv<kD>(acc, p_lo + 4 * kk, desc_v + 128 * kk);
+    wgmma_pv<kD>(acc, p_lo + 4 * kk, desc_lo + 128 * kk);
   }
 }
 
@@ -287,13 +341,127 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
   }
 }
 
+// How a consumer knows whether its (batch, head) has a non-finite v:
+// kFinite and kNonfinite fix it at compile time (an instantiation of the
+// loop for each, chosen once a CTA), kRuntime tests the flag in every
+// tile. On an H100 at (8, 2048, 4, D) bf16 causal, D 64 took 0.1126-0.1150
+// ms a launch with the two instantiations and 0.1249-0.1275 with the
+// flag tested in the loop (0.1162-0.1167 before the non-finite rules); at
+// D 128 the two instantiations spilled (560 bytes loaded) and took
+// 0.1653-0.1658 ms against 0.1612-0.1621 (PERF.md)
+enum Dirty { kFinite, kNonfinite, kRuntime };
+
+// The consumer warpgroups' tiles and store
+template <int kD, Dirty kDirty>
+__device__ __forceinline__ void consume(
+    uint32_t q_wg, uint32_t k_s, uint32_t v_s, uint32_t v_clean,
+    uint32_t q_full, uint32_t full, uint32_t empty, int n_wg, int n_tiles,
+    int row0, int wg_first, int wg, int t4, int T, int H, int h, int b,
+    int bh, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ last, float scale, int causal,
+    bool dirty_flag) {
+  using C = Cfg<kD>;
+  const bool dirty = kDirty == kRuntime ? dirty_flag : kDirty == kNonfinite;
+  // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
+  float acc[kD / 2], s[kSN];
+  uint32_t p_hi[kPN], p_lo[kPN];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSN; ++i) s[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+
+  sm90::mbar_wait(q_full, 0);
+  sm90::mbar_wait(full, 0);
+  __syncwarp();  // converged again for the .aligned wgmma
+  issue_qk<kD>(s, q_wg, k_s);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  softmax(s, m, l, corr, 0, row0, wg_first, T, scale, causal);
+  split_p(s, p_hi, p_lo);
+
+  // Tile i's P V runs under tile i + 1's softmax, and tile i + 1's S
+  // beside tile i's P V. Every iteration ends with nothing in flight, so
+  // each wait retires a known group (else ptxas serializes the wgmmas).
+  for (int i = 0; i + 1 < n_wg; ++i) {
+    const int nst = (i + 1) % kStages;
+    const uint32_t v_tile = v_s + (i % kStages) * C::kKVBytes;
+    if (dirty) sanitize_v<kD>(v_clean, v_tile, 1 + wg);
+    sm90::mbar_wait(full + 8 * nst, ((i + 1) / kStages) & 1);
+    __syncwarp();
+    sm90::fence_regs(s);
+    issue_qk<kD>(s, q_wg, k_s + nst * C::kKVBytes);
+    sm90::wgmma_commit();
+    issue_pv<kD>(acc, p_hi, p_lo, corr, v_tile, dirty ? v_clean : v_tile);
+    sm90::wgmma_commit();
+
+    sm90::wgmma_wait<1>();  // S of tile i + 1
+    sm90::fence_regs(s);
+    softmax(s, m, l, corr, (i + 1) * kBK, row0, wg_first, T, scale, causal);
+
+    sm90::wgmma_wait<0>();  // P V of tile i: its stage and P are free
+    sm90::fence_regs(acc);
+    sm90::fence_regs(p_hi);
+    sm90::fence_regs(p_lo);
+    sm90::mbar_arrive(empty + 8 * (i % kStages));
+    split_p(s, p_hi, p_lo);
+  }
+  const uint32_t v_tile = v_s + ((n_wg - 1) % kStages) * C::kKVBytes;
+  if (dirty) sanitize_v<kD>(v_clean, v_tile, 1 + wg);
+  __syncwarp();
+  issue_pv<kD>(acc, p_hi, p_lo, corr, v_tile, dirty ? v_clean : v_tile);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::fence_regs(p_hi);
+  sm90::fence_regs(p_lo);
+  sm90::mbar_arrive(empty + 8 * ((n_wg - 1) % kStages));
+  // tiles past this warpgroup's diagonal: released once they have landed
+  for (int i = n_wg; i < n_tiles; ++i) {
+    sm90::mbar_wait(full + 8 * (i % kStages), (i / kStages) & 1);
+    sm90::mbar_arrive(empty + 8 * (i % kStages));
+  }
+
+  // causal: the keys from kc on lie past every row of the warpgroup and
+  // were not scored; a non-finite v among them makes the column NaN
+  const int kc = n_wg * kBK;
+  const int* last_bh =
+      dirty && causal && kc < T ? last + static_cast<int64_t>(bh) * kD
+                                : nullptr;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= T) continue;
+    const float l_safe = l[r] != l[r] ? l[r] : fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h)
+                                  * kD;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
+      float x0 = acc[4 * j + 2 * r] / l_safe;
+      float x1 = acc[4 * j + 2 * r + 1] / l_safe;
+      if (last_bh != nullptr) {
+        if (last_bh[c] >= kc) x0 = NAN;
+        if (last_bh[c + 1] >= kc) x1 = NAN;
+      }
+      *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(x0, x1);
+    }
+    if (t4 == 0) {
+      lse[static_cast<int64_t>(bh) * T + row] =
+          (is_finite(m[r]) ? m[r] : 0.f) + logf(l_safe);
+    }
+  }
+}
+
 template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int H, int T, float scale, int causal) {
+                    const int* __restrict__ last, int H, int T, float scale,
+                    int causal) {
   using C = Cfg<kD>;
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[kStages];
@@ -359,84 +527,100 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // tiles this warpgroup scores: causal, none wholly past its last row
   // (`_fwd_kernel`'s loop bound, :128-131)
   const int n_wg = causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
-  // this warpgroup's 64 rows of each Q atom
+  // this warpgroup's 64 rows of each Q atom, and its sanitized V tile
   const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
-
-  // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
-  float acc[kD / 2], s[kSN];
-  uint32_t p_hi[kPN], p_lo[kPN];
-#pragma unroll
-  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kSN; ++i) s[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
-
-  sm90::mbar_wait(sm90::smem_addr(&q_full), 0);
-  sm90::mbar_wait(sm90::smem_addr(&full[0]), 0);
-  __syncwarp();  // converged again for the .aligned wgmma
-  issue_qk<kD>(s, q_wg, k_s);
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(s);
-  softmax(s, m, l, corr, 0, row0, wg_first, T, scale, causal);
-  split_p(s, p_hi, p_lo);
-
-  // Tile i's P V runs under tile i + 1's softmax, and tile i + 1's S
-  // beside tile i's P V. Every iteration ends with nothing in flight, so
-  // each wait retires a known group (else ptxas serializes the wgmmas).
-  for (int i = 0; i + 1 < n_wg; ++i) {
-    const int nst = (i + 1) % kStages;
-    sm90::mbar_wait(sm90::smem_addr(&full[nst]), ((i + 1) / kStages) & 1);
-    __syncwarp();
-    sm90::fence_regs(s);
-    issue_qk<kD>(s, q_wg, k_s + nst * C::kKVBytes);
-    sm90::wgmma_commit();
-    issue_pv<kD>(acc, p_hi, p_lo, corr, v_s + (i % kStages) * C::kKVBytes);
-    sm90::wgmma_commit();
-
-    sm90::wgmma_wait<1>();  // S of tile i + 1
-    sm90::fence_regs(s);
-    softmax(s, m, l, corr, (i + 1) * kBK, row0, wg_first, T, scale, causal);
-
-    sm90::wgmma_wait<0>();  // P V of tile i: its stage and P are free
-    sm90::fence_regs(acc);
-    sm90::fence_regs(p_hi);
-    sm90::fence_regs(p_lo);
-    sm90::mbar_arrive(sm90::smem_addr(&empty[i % kStages]));
-    split_p(s, p_hi, p_lo);
+  const uint32_t v_clean = v_s + (kStages + wg) * C::kKVBytes;
+  // the pre-pass's verdict on this (batch, head): a non-finite v in any
+  // column (the same in every thread of the CTA)
+  int last_any = -1;
+  for (int c = lane; c < kD; c += 32) {
+    last_any = max(last_any, last[static_cast<int64_t>(bh) * kD + c]);
   }
-  issue_pv<kD>(acc, p_hi, p_lo, corr,
-               v_s + ((n_wg - 1) % kStages) * C::kKVBytes);
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-  sm90::fence_regs(p_hi);
-  sm90::fence_regs(p_lo);
-  sm90::mbar_arrive(sm90::smem_addr(&empty[(n_wg - 1) % kStages]));
-  // tiles past this warpgroup's diagonal: released once they have landed
-  for (int i = n_wg; i < n_tiles; ++i) {
-    sm90::mbar_wait(sm90::smem_addr(&full[i % kStages]), (i / kStages) & 1);
-    sm90::mbar_arrive(sm90::smem_addr(&empty[i % kStages]));
-  }
+  const bool dirty = __any_sync(0xffffffffu, last_any >= 0);
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= T) continue;
-    const float l_safe = l[r] != l[r] ? l[r] : fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h)
-                                  * kD;
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
-          pack_bf16(acc[4 * j + 2 * r] / l_safe,
-                    acc[4 * j + 2 * r + 1] / l_safe);
+  const uint32_t qf = sm90::smem_addr(&q_full);
+  const uint32_t fl = sm90::smem_addr(&full[0]);
+  const uint32_t em = sm90::smem_addr(&empty[0]);
+  if constexpr (kD == 64) {
+    if (dirty) {
+      consume<kD, kNonfinite>(q_wg, k_s, v_s, v_clean, qf, fl, em, n_wg,
+                              n_tiles, row0, wg_first, wg, t4, T, H, h, b, bh,
+                              o, lse, last, scale, causal, dirty);
+    } else {
+      consume<kD, kFinite>(q_wg, k_s, v_s, v_clean, qf, fl, em, n_wg,
+                           n_tiles, row0, wg_first, wg, t4, T, H, h, b, bh, o,
+                           lse, last, scale, causal, dirty);
     }
-    if (t4 == 0) {
-      lse[static_cast<int64_t>(bh) * T + row] =
-          (is_finite(m[r]) ? m[r] : 0.f) + logf(l_safe);
+  } else {
+    consume<kD, kRuntime>(q_wg, k_s, v_s, v_clean, qf, fl, em, n_wg, n_tiles,
+                          row0, wg_first, wg, t4, T, H, h, b, bh, o, lse, last,
+                          scale, causal, dirty);
+  }
+}
+
+// The pre-pass: last[bh * D + c] = the last key whose v[b, key, h, c] is
+// not finite, -1 where there is none. One CTA per (batch*head, 16
+// columns): each thread reads 32 bytes of every 256th row, the CTA takes
+// the max, and one thread writes each column, so nothing is reset first.
+constexpr int kPreCols = 16;
+constexpr int kPreThreads = 256;
+
+__global__ void __launch_bounds__(kPreThreads)
+v_last_nonfinite_kernel(const __nv_bfloat16* __restrict__ v, int64_t svb,
+                        int64_t svt, int64_t svh, int H, int T, int D,
+                        int* __restrict__ last) {
+  __shared__ int part[kPreThreads / 32][kPreCols];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int c0 = blockIdx.y * kPreCols;
+  const __nv_bfloat16* col = v + b * svb + h * svh + c0;
+  int found[kPreCols];
+#pragma unroll
+  for (int c = 0; c < kPreCols; ++c) found[c] = -1;
+#pragma unroll 4
+  for (int r = threadIdx.x; r < T; r += kPreThreads) {
+    const uint4* p =
+        reinterpret_cast<const uint4*>(col + static_cast<int64_t>(r) * svt);
+    uint4 x[kPreCols / 8];
+#pragma unroll
+    for (int i = 0; i < kPreCols / 8; ++i) x[i] = __ldg(p + i);
+#pragma unroll
+    for (int i = 0; i < kPreCols / 8; ++i) {
+      const uint32_t w[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // column c0 + 8 i + 2 e in the low half
+        const int c = 8 * i + 2 * e;
+        if ((w[e] & 0x7f80u) == 0x7f80u) found[c] = r;
+        if ((w[e] & 0x7f800000u) == 0x7f800000u) found[c + 1] = r;
+      }
     }
   }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = 0; c < kPreCols; ++c) {
+    const int m = __reduce_max_sync(0xffffffffu, found[c]);
+    if (lane == 0) part[warp][c] = m;
+  }
+  __syncthreads();
+  if (threadIdx.x < kPreCols) {
+    int m = -1;
+#pragma unroll
+    for (int w = 0; w < kPreThreads / 32; ++w) {
+      m = max(m, part[w][threadIdx.x]);
+    }
+    last[static_cast<int64_t>(bh) * D + c0 + threadIdx.x] = m;
+  }
+}
+
+int launch_last(const void* v, int* last, int64_t B, int64_t T_len,
+                int64_t H, int64_t D, int64_t svb, int64_t svt, int64_t svh,
+                cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>(B * H),
+                  static_cast<unsigned int>(D / kPreCols));
+  v_last_nonfinite_kernel<<<grid, kPreThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(v), svb, svt, svh,
+      static_cast<int>(H), static_cast<int>(T_len), static_cast<int>(D),
+      last);
+  return static_cast<int>(cudaGetLastError());
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -486,8 +670,8 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int64_t B,
 
 template <int kD>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, void* o, float* lse, int64_t B,
-           int64_t T_len, int64_t H, float scale, int causal,
+           const CUtensorMap& vm, void* o, float* lse, const int* last,
+           int64_t B, int64_t T_len, int64_t H, float scale, int causal,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -496,8 +680,8 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   const dim3 grid(static_cast<unsigned int>(B * H),
                   static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
   flash_fwd_tc_kernel<kD><<<grid, kThreads, Cfg<kD>::kSmemBytes, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(H),
-      static_cast<int>(T_len), scale, causal);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, last,
+      static_cast<int>(H), static_cast<int>(T_len), scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,16 +691,17 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 // device with the given element strides for b, t and h and a d stride of
 // 1; base pointers 16-byte aligned and strides multiples of 8 (the Python
 // wrapper checks both). o: contiguous bf16 [B, T, H, D]; lse: contiguous
-// float32 [B, H, T]. T >= 1. Launches on `stream`; returns
+// float32 [B, H, T]; last: B * H * D int32 of scratch for the pre-pass.
+// T >= 1. Launches the pre-pass and the kernel on `stream`; returns
 // cudaGetLastError() (0 on success), -1 for another head dim, -2 if
 // cuTensorMapEncodeTiled is missing, -3 if it refuses a map.
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
-                            void* o, float* lse, int64_t B, int64_t T_len,
-                            int64_t H, int64_t D, int64_t sqb, int64_t sqt,
-                            int64_t sqh, int64_t skb, int64_t skt,
-                            int64_t skh, int64_t svb, int64_t svt,
-                            int64_t svh, float scale, int causal,
-                            void* stream) {
+                            void* o, float* lse, void* last, int64_t B,
+                            int64_t T_len, int64_t H, int64_t D, int64_t sqb,
+                            int64_t sqt, int64_t sqh, int64_t skb,
+                            int64_t skt, int64_t skh, int64_t svb,
+                            int64_t svt, int64_t svh, float scale,
+                            int causal, void* stream) {
   if (D != 64 && D != 128) return -1;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return -2;
@@ -527,8 +712,22 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
     return -3;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch<64>(qm, km, vm, o, lse, B, T_len, H, scale, causal,
-                              st)
-                 : launch<128>(qm, km, vm, o, lse, B, T_len, H, scale,
+  int* lst = static_cast<int*>(last);
+  const int err = launch_last(v, lst, B, T_len, H, D, svb, svt, svh, st);
+  if (err != 0) return err;
+  return D == 64 ? launch<64>(qm, km, vm, o, lse, lst, B, T_len, H, scale,
+                              causal, st)
+                 : launch<128>(qm, km, vm, o, lse, lst, B, T_len, H, scale,
                                causal, st);
+}
+
+// The pre-pass alone, as flash_fwd_tc launches it (for timing it apart):
+// v and its strides as there, last: B * H * D int32.
+extern "C" int flash_tc_last_nonfinite(const void* v, void* last, int64_t B,
+                                       int64_t T_len, int64_t H, int64_t D,
+                                       int64_t svb, int64_t svt, int64_t svh,
+                                       void* stream) {
+  if (D != 64 && D != 128) return -1;
+  return launch_last(v, static_cast<int*>(last), B, T_len, H, D, svb, svt,
+                     svh, static_cast<cudaStream_t>(stream));
 }

@@ -70,6 +70,33 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// -- shared memory written by threads and read by wgmma ------------------------
+
+// 16 bytes at a shared-memory address
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// make this thread's shared-memory stores visible to the async proxy
+// (wgmma's operand reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // the larger of a and b, NaN if either is NaN (as jnp.maximum)
 __device__ __forceinline__ float max_nan(float a, float b) {
   float d;

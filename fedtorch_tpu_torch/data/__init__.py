@@ -4,8 +4,11 @@ partitioners and the padded per-client layout.
 ``build_federated_data`` loads a dataset, partitions it (the scheme is
 chosen as the JAX package chooses it) and stacks the partitions into
 padded ``[clients, N, ...]`` CPU tensors (``stack_partitions``); the
-trainer moves them to its device. The per-client train/val split of
-personalization (``fed_personal``) is not ported and is refused.
+trainer moves them to its device. With personalization
+(``cfg.federated.personal``, forced on for APFL, PerFedMe and
+PerFedAvg) each client's partition is split into train and val rows
+first (``train_val_split``) and ``FederatedData.val`` is stacked like
+``train``.
 """
 from __future__ import annotations
 
@@ -14,7 +17,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from fedtorch_tpu_torch.config import ExperimentConfig
-from fedtorch_tpu_torch.data.batching import ClientData, stack_partitions
+from fedtorch_tpu_torch.data.batching import (
+    ClientData, stack_partitions, train_val_split,
+)
 from fedtorch_tpu_torch.data.datasets import DatasetSplits, get_dataset
 from fedtorch_tpu_torch.data.partition import (
     dirichlet_partition, iid_partition, label_sorted_partition,
@@ -62,12 +67,14 @@ def choose_partitions(splits: DatasetSplits, cfg: ExperimentConfig,
 
 def build_federated_data(cfg: ExperimentConfig,
                          download: bool = False) -> FederatedData:
-    if cfg.federated.personal:
-        raise ValueError("fed_personal (the per-client validation split) "
-                         "is not yet ported")
     num_clients = cfg.federated.num_clients
     splits = get_dataset(cfg.data, num_clients, download=download)
     parts = choose_partitions(splits, cfg, num_clients)
+    val = None
+    if cfg.federated.personal:
+        parts, val_parts = train_val_split(parts, cfg.data.val_fraction,
+                                           seed=cfg.train.manual_seed)
+        val = stack_partitions(splits.train_x, splits.train_y, val_parts)
     train = stack_partitions(splits.train_x, splits.train_y, parts)
-    return FederatedData(train=train, val=None, test_x=splits.test_x,
+    return FederatedData(train=train, val=val, test_x=splits.test_x,
                          test_y=splits.test_y, num_clients=num_clients)

@@ -8,11 +8,14 @@ client is one random permutation of its real samples, indexed with
 wraparound by the flattened (step, row) counter — the same law as the
 JAX package's ``round_row_plan``, drawn from a ``torch.Generator``
 instead of threefry (the two give different numbers for one seed, so
-the tests inject the JAX package's plan).
+the tests inject the JAX package's plan). Also here, as numpy copies of
+the JAX package's: the per-client train/val split of personalization
+(``train_val_split``) and local-SGD mode's growing-minibatch schedule
+(``growing_batch_schedule``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,3 +104,54 @@ def sample_batch(generator: torch.Generator, size: int,
     with them."""
     return torch.randint(0, max(int(size), 1), (batch_size,),
                          generator=generator)
+
+
+def train_val_split(partitions: Sequence[np.ndarray], val_fraction: float,
+                    seed: int = 0):
+    """Per-client train/val random split for personalization
+    (components/dataset.py:168-211): one ``RandomState(seed)`` permutes
+    each partition in turn; ``max(int(n * val_fraction), 1)`` val rows,
+    none for a client of one sample. Returns (train parts, val parts)."""
+    rng = np.random.RandomState(seed)
+    train_parts, val_parts = [], []
+    for p in partitions:
+        p = np.asarray(p)
+        perm = rng.permutation(len(p))
+        n_val = max(int(len(p) * val_fraction), 1) if len(p) > 1 else 0
+        val_parts.append(p[perm[:n_val]])
+        train_parts.append(p[perm[n_val:]])
+    return train_parts, val_parts
+
+
+def growing_batch_schedule(base_batch_size: int = 2,
+                           max_batch_size: int = 0,
+                           num_samples_per_epoch: int = 0,
+                           num_epochs: Optional[int] = None,
+                           num_iterations: Optional[int] = None,
+                           rho: float = 1.01) -> List[int]:
+    """The per-step batch sizes of growing-minibatch mode
+    (GrowingMinibatchSampler, components/dataset.py:276-317):
+    ``int(base * rho^i) + 1``, the step count from ``num_epochs`` by the
+    geometric sum (or ``num_iterations``); sizes past ``max_batch_size``
+    become max-size batches over the same samples, then the remainder
+    (omitted when zero)."""
+    if num_epochs is None:
+        if num_iterations is None:
+            raise ValueError(
+                "One of num_epochs or num_iterations must be provided.")
+    else:
+        num_iterations = int(
+            np.log(num_samples_per_epoch * num_epochs * (rho - 1)
+                   / base_batch_size + 1) / np.log(rho)) + 1
+    batch_sizes = [int(base_batch_size * rho ** i) + 1
+                   for i in range(num_iterations)]
+    if max_batch_size:
+        b = np.asarray(batch_sizes)
+        over = np.flatnonzero(b > max_batch_size)
+        if len(over) >= 1:
+            overflow = int(np.sum(b[over]))
+            batch_sizes = batch_sizes[:over[0]] \
+                + [max_batch_size] * (overflow // max_batch_size)
+            if overflow % max_batch_size:
+                batch_sizes += [overflow % max_batch_size]
+    return batch_sizes

@@ -144,10 +144,13 @@ def load_library() -> ctypes.CDLL:
                 # (x, partials, out, rows, n, chunk, num_bits, stream)
                 "qdq_tiled_apply_f32": [ptr, ptr, ptr, i64, i64, i64, i32,
                                         ptr],
-                # (q, k, v, o, lse, B, T, H, D, q/k/v strides of b, t, h,
-                #  scale, causal, stream)
-                "flash_fwd_tc": [ptr] * 5 + [i64] * 13
+                # (q, k, v, o, lse, last, B, T, H, D, q/k/v strides of b,
+                #  t, h, scale, causal, stream)
+                "flash_fwd_tc": [ptr] * 6 + [i64] * 13
                 + [ctypes.c_float, i32, ptr],
+                # (v, last, B, T, H, D, v strides of b, t, h, stream): the
+                # wgmma kernel's pre-pass alone
+                "flash_tc_last_nonfinite": [ptr] * 2 + [i64] * 7 + [ptr],
                 # (q, k, v, o, lse, last, B, T, H, D, q/k/v strides of b,
                 #  t, h, scale, causal, bf16, load mode, stream)
                 "flash_fwd_tf32": [ptr] * 6 + [i64] * 13

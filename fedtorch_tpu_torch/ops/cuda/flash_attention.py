@@ -238,10 +238,13 @@ def _launch_tc(q, k, v, scale: float, causal: bool):
     global flash_launches, flash_tc_launches
     B, T, H, D = q.shape
     o, lse = _outputs(q)
+    # the pre-pass's last non-finite v key of each (b*h, column)
+    last = torch.empty(B * H * D, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = load_library().flash_fwd_tc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, T, H, D, *_tc_strides(q), *_tc_strides(k),
+            lse.data_ptr(), last.data_ptr(), B, T, H, D, *_tc_strides(q),
+            *_tc_strides(k),
             *_tc_strides(v), scale, int(causal),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -17,13 +17,15 @@ What the port keeps exactly, and why:
 * Each batch's masked sums are taken on the device, stacked, and summed
   once, as the JAX package's scan returns per-batch sums.
 
-``evaluate_clients`` loops over clients where the JAX package vmaps;
-size-0 clients (mesh padding there) stay out of the summary. The port
-has no recurrent model, so the JAX package's ``forward_fn`` (a fresh
-carry per call) is ``model.apply`` here. Not ported:
-``robust_noise_ascent`` and ``evaluate_personal`` (they go with the
-robust models and the personalized algorithms), and
-``lowered_eval_program``, which lowers an XLA program for its cost
+``evaluate_clients`` loops over clients where the JAX package vmaps,
+taking each client's row of any tree of ``[C, ...]`` tensors (APFL's
+``(personal, local_snapshot, alpha)``); size-0 clients (mesh padding
+there) stay out of the summary. ``evaluate_personal`` evaluates the
+personalized algorithms' per-client models on their validation rows.
+The port has no recurrent model, so the JAX package's ``forward_fn`` (a
+fresh carry per call) is ``model.apply`` here. Not ported:
+``robust_noise_ascent`` (it goes with the robust models, ROADMAP A1),
+and ``lowered_eval_program``, which lowers an XLA program for its cost
 analysis and has no torch meaning.
 """
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from fedtorch_tpu_torch.core.losses import (
     make_criterion, per_class_accuracy, topk_accuracy, topk_indices,
 )
+from fedtorch_tpu_torch.core.state import tree_take
 from fedtorch_tpu_torch.models.common import ModelDef
 
 
@@ -112,7 +115,8 @@ def evaluate_clients(model: ModelDef, client_params, data,
                      batch_size: int = 64, max_batches: int = 8,
                      apply_fn=None):
     """Per-client evaluation on per-client shards (``ClientData`` on the
-    model's device; ``client_params`` a dict of ``[C, ...]`` leaves):
+    model's device; ``client_params`` a tree of ``[C, ...]`` tensors,
+    each client's row handed to ``apply_fn``):
     ``[C]`` loss and accuracy, and the worst/best/variance summary over
     the clients of size > 0 (eval_centered.py:94-113). Each client reads
     ``min(max_batches, n_max // batch_size)`` batches (at least one),
@@ -126,7 +130,7 @@ def evaluate_clients(model: ModelDef, client_params, data,
     losses, accs = [], []
     with torch.inference_mode():
         for c, size in enumerate(sizes):
-            params = {k: v[c] for k, v in client_params.items()}
+            params = tree_take(client_params, c)
             step_loss, step_acc = [], []
             for i in range(n_b):
                 idx = (i * batch_size + torch.arange(batch_size, device=dev)) \
@@ -151,6 +155,39 @@ def evaluate_clients(model: ModelDef, client_params, data,
         ]).tolist()
     keys = ("loss_mean", "acc_mean", "acc_worst", "acc_best", "acc_var")
     return losses, accs, dict(zip(keys, summary))
+
+
+def evaluate_personal(model: ModelDef, client_aux, client_params, data,
+                      algorithm_name: str, batch_size: int = 64,
+                      max_batches: int = 8):
+    """Per-client evaluation of the personalized models on ``data`` (the
+    clients' validation rows), against the local model before the sync
+    that the algorithms keep in their aux (the reference validates
+    personal models before it, apfl.py:138-144):
+
+    * apfl: ``alpha * f(personal) + (1 - alpha) * f(local_snapshot)``
+      (inference_personal, eval.py:31-39);
+    * perfedme: the personal model theta;
+    * perfedavg: the adapted local model before the sync;
+    * any other algorithm: ``client_params``.
+
+    Returns what :func:`evaluate_clients` returns."""
+    apply_fn = None
+    if algorithm_name == "apfl":
+        eval_params = (client_aux["personal"],
+                       client_aux["local_snapshot"], client_aux["alpha"])
+
+        def apply_fn(ps, x):
+            return ps[2] * model.apply(ps[0], x) \
+                + (1 - ps[2]) * model.apply(ps[1], x)
+    elif algorithm_name == "perfedme":
+        eval_params = client_aux["personal"]
+    elif algorithm_name == "perfedavg":
+        eval_params = client_aux["local_snapshot"]
+    else:
+        eval_params = client_params
+    return evaluate_clients(model, eval_params, data, batch_size=batch_size,
+                            max_batches=max_batches, apply_fn=apply_fn)
 
 
 def evaluate_per_class(model: ModelDef, params, x: np.ndarray,

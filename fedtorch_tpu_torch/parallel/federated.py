@@ -2,8 +2,10 @@
 per-client path of ``fedtorch_tpu/parallel/federated.py``).
 
 One round: draw (or take) the round plan — the k online clients, each
-one's K*B storage rows and the algorithm's own draws —, run the
-algorithm's ``pre_round`` on the online clients' aux, run each online
+one's K*B storage rows (and K*B validation rows when the algorithm
+takes a validation batch a step) and the algorithm's own draws —, run
+the algorithm's ``pre_round`` on the online clients' aux and first
+batches, run each online
 client's local steps from the server model (after its full-data loss
 probe, for qFFL), weight and stack the payloads, apply the uplink wire
 format on the stacked ``[k]`` axis, sum, apply the downlink wire
@@ -25,7 +27,8 @@ What differs from the JAX package, and why:
 * The JAX package's 'batch' and 'shard' gather modes select the same
   rows (the flattened ``round_row_plan`` equals per-step ``take_batch``
   over the epoch permutation), so the port has one gather and no
-  ``gather_mode``: each client's K*B rows.
+  ``gather_mode``: each client's K*B rows, and as many validation rows
+  (the JAX package's ``VAL_FOLD`` stream, in either of its val modes).
 * Epoch-sync clients skip the steps past their own budget instead of
   running them masked; state and metrics come out the same, and every
   step-indexed hook anchors on the budget (DRFA's snapshot step).
@@ -49,9 +52,7 @@ import torch
 from fedtorch_tpu_torch.algorithms.base import (
     FedAlgorithm, num_online_effective,
 )
-from fedtorch_tpu_torch.config import (
-    PERSONALIZED_ALGORITHMS, ExperimentConfig,
-)
+from fedtorch_tpu_torch.config import ExperimentConfig
 from fedtorch_tpu_torch.core import optim
 from fedtorch_tpu_torch.core.losses import make_criterion, per_sample_loss
 from fedtorch_tpu_torch.core.schedule import compile_schedule, lr_at
@@ -68,8 +69,9 @@ from fedtorch_tpu_torch.utils import resolve_device
 class RoundPlan(NamedTuple):
     """What a round consumes of randomness, as CPU tensors: the online
     client ids, each one's K*B storage rows, (augmentation on) the
-    per-step flip/crop draws and (DRFA) the shared snapshot step and the
-    second phase's cohort and rows."""
+    per-step flip/crop draws, (DRFA) the shared snapshot step and the
+    second phase's cohort and rows, and (``needs_val_batch``) each online
+    client's K*B validation storage rows."""
     idx: torch.Tensor                     # [k] int64 online client ids
     rows: torch.Tensor                    # [k, K*B] int64 storage rows
     flip: Optional[torch.Tensor] = None   # [k, K, B] bool
@@ -78,6 +80,7 @@ class RoundPlan(NamedTuple):
     k_rand: Optional[int] = None          # DRFA's snapshot step, [1, K)
     probe_idx: Optional[torch.Tensor] = None   # [k] int64 probe cohort
     probe_rows: Optional[torch.Tensor] = None  # [k, B] int64 its rows
+    vrows: Optional[torch.Tensor] = None  # [k, K*B] int64 validation rows
 
 
 def participation_indices(generator: torch.Generator, num_clients: int,
@@ -91,7 +94,7 @@ def participation_indices(generator: torch.Generator, num_clients: int,
     return idx
 
 
-def unported_features(cfg: ExperimentConfig, has_val: bool) -> list:
+def unported_features(cfg: ExperimentConfig) -> list:
     """Names of the requested features this port does not have yet."""
     fed, flt, mesh = cfg.federated, cfg.fault, cfg.mesh
     checks = [
@@ -109,10 +112,6 @@ def unported_features(cfg: ExperimentConfig, has_val: bool) -> list:
         (mesh.client_fusion == "fused", "client_fusion='fused'"),
         (fed.participation_mode != "perm",
          f"participation_mode={fed.participation_mode!r}"),
-        (fed.personal, "personalization (personal; the next slice)"),
-        (fed.algorithm in PERSONALIZED_ALGORITHMS,
-         f"the personalized algorithm {fed.algorithm!r} (the next slice)"),
-        (has_val, "per-client validation data"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -124,9 +123,16 @@ class FederatedTrainer:
     def __init__(self, cfg: ExperimentConfig, model: ModelDef,
                  algorithm: FedAlgorithm, data: ClientData,
                  val_data: Optional[ClientData] = None, device=None):
-        refused = unported_features(cfg, val_data is not None)
+        refused = unported_features(cfg)
         if refused:
             raise ValueError(f"{', '.join(refused)}: not yet ported")
+        if algorithm.needs_val_batch and val_data is None:
+            raise ValueError(
+                f"{algorithm.name} needs per-client validation batches; "
+                "pass FederatedData.val (cfg.federated.personal builds it)")
+        if val_data is not None and val_data.num_clients != data.num_clients:
+            raise ValueError(f"val_data has {val_data.num_clients} clients, "
+                             f"data {data.num_clients}")
         self.device = resolve_device(device)
         if model.sample_input.device != self.device:
             raise ValueError(f"the model lives on "
@@ -162,6 +168,10 @@ class FederatedTrainer:
             for h in ("pre_round", "client_post"))
         self.sizes = [int(s) for s in data.sizes]
         self.data = data.to(self.device)
+        self.val_data = val_data.to(self.device) \
+            if val_data is not None else None
+        self.vsizes = [int(s) for s in val_data.sizes] \
+            if val_data is not None else None
 
     # -- state ----------------------------------------------------------
     def init_state(self, rng):
@@ -178,10 +188,7 @@ class FederatedTrainer:
             round=0, rng=gen)
         C = self.num_clients
         cparams = tree_broadcast_clients(params, C)
-        copt = optim.init_opt_state(cparams, ocfg)
-        if isinstance(copt, optim.AdamState):
-            copt = copt._replace(step=torch.zeros(
-                C, dtype=torch.int32, device=self.device))
+        copt = optim.init_client_opt_state(cparams, ocfg)
         clients = ClientState(
             params=cparams, opt=copt,
             aux=self.algorithm.init_client_aux(cparams),
@@ -204,6 +211,10 @@ class FederatedTrainer:
             for c in idx.tolist()])
         plan = RoundPlan(idx, rows, *(draw_augment(gen, (k, K, B))
                                       if self.augment else ()))
+        if self.algorithm.needs_val_batch:
+            plan = plan._replace(vrows=torch.stack([
+                round_row_plan(gen, self.vsizes[c], self.val_data.n_max,
+                               K * B) for c in idx.tolist()]))
         return plan._replace(**self.algorithm.plan_draws(gen, self.sizes))
 
     # -- one communication round -----------------------------------------
@@ -228,13 +239,20 @@ class FederatedTrainer:
         if self.augment:
             draws = [t.to(dev) for t in (plan.flip, plan.tops, plan.lefts)]
 
-        # the cross-client hook on the online clients' gathered aux
+        if alg.needs_val_batch:
+            vrows = plan.vrows.to(dev)
+
+        # the cross-client hook on the online clients' gathered aux and
+        # first B storage rows (the JAX package clamps rows past n_max)
         on_aux = tree_take(clients.aux, rows_dev)
         if self._pre_round:
             on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
                                   for c in idx.tolist()])
-            on_aux = alg.pre_round(on_aux, server=server, sizes=on_sizes,
-                                   lr=on_lrs, plan=plan)
+            first = (rows_dev[:, None], torch.arange(B, device=dev)
+                     .clamp_max(self.data.n_max - 1)[None, :])
+            on_aux = alg.pre_round(
+                on_aux, server=server, x=self.data.x[first],
+                y=self.data.y[first], sizes=on_sizes, lr=on_lrs, plan=plan)
 
         payloads, client_opts, client_aux, budgets = [], [], [], []
         epochs, local_index, losses, accs = [], [], [], []
@@ -249,6 +267,9 @@ class FederatedTrainer:
                 if alg.needs_full_loss else None
             x = self.data.x[c][rows[j]]
             y = self.data.y[c][rows[j]]
+            if alg.needs_val_batch:
+                vx = self.val_data.x[c][vrows[j]]
+                vy = self.val_data.y[c][vrows[j]]
             params, aux = server.params, tree_take(on_aux, j)
             opt = tree_take(clients.opt, c)
             epoch, li = clients.epoch[c], clients.local_index[c]
@@ -258,10 +279,14 @@ class FederatedTrainer:
                 bx, by = x[s * B:(s + 1) * B], y[s * B:(s + 1) * B]
                 if self.augment:
                     bx = augment_image_batch(bx, *(d[j, s] for d in draws))
+                bvx = bvy = None
+                if alg.needs_val_batch:
+                    bvx, bvy = vx[s * B:(s + 1) * B], vy[s * B:(s + 1) * B]
                 params, opt, aux, loss, acc = alg.local_step(
                     params=params, opt=opt, client_aux=aux,
                     server_params=server.params, server_aux=server.aux,
-                    bx=bx, by=by, lr=lr, step_idx=s, step_budget=budget)
+                    bx=bx, by=by, bval_x=bvx, bval_y=bvy, lr=lr,
+                    step_idx=s, local_index=li, step_budget=budget)
                 epoch = epoch + 1.0 / nb
                 li = li + 1
                 step_loss.append(loss)

@@ -32,9 +32,11 @@ MODULE_MAP = {
     **_ported(
         "__init__.py", "cli.py", "config.py",
         "algorithms/__init__.py", "algorithms/base.py",
-        "algorithms/afl.py", "algorithms/drfa.py", "algorithms/fedavg.py",
-        "algorithms/fedgate.py", "algorithms/qffl.py",
-        "algorithms/qsparse.py", "algorithms/scaffold.py",
+        "algorithms/afl.py", "algorithms/apfl.py", "algorithms/drfa.py",
+        "algorithms/fedavg.py", "algorithms/fedgate.py",
+        "algorithms/perfedavg.py", "algorithms/perfedme.py",
+        "algorithms/qffl.py", "algorithms/qsparse.py",
+        "algorithms/scaffold.py",
         "core/__init__.py", "core/losses.py", "core/optim.py",
         "core/schedule.py", "core/state.py", "core/sync.py",
         "data/__init__.py", "data/batching.py", "data/datasets.py",
@@ -45,7 +47,7 @@ MODULE_MAP = {
         "ops/__init__.py", "ops/attention_dispatch.py", "ops/augment.py",
         "ops/quantize.py", "ops/simplex.py", "ops/topk.py",
         "parallel/__init__.py", "parallel/evaluate.py",
-        "parallel/federated.py",
+        "parallel/federated.py", "parallel/local_sgd.py",
         "utils/__init__.py", "utils/logging.py", "utils/meters.py",
         "utils/platform.py"),
     # the Pallas kernels became hand-written Hopper kernels
@@ -55,10 +57,6 @@ MODULE_MAP = {
         ("ported", _P + "ops/cuda/flash_attention.py"),
     "fedtorch_tpu/ops/pallas/quant_kernel.py":
         ("ported", _P + "ops/cuda/quant_kernel.py"),
-    **_rows("queued", "ROADMAP A4: the personalized algorithms, then the "
-            "non-federated mode",
-            "algorithms/apfl.py", "algorithms/perfedavg.py",
-            "algorithms/perfedme.py", "parallel/local_sgd.py"),
     **_rows("queued", "ROADMAP A5: the round-program builder and the "
             "streaming plane, with the port's own host gather in place of "
             "the native pipeline",

@@ -15,6 +15,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -115,8 +116,9 @@ def test_synthetic_cpu_run_returns_results_and_logs_both_lines(arch,
 
 def _replay_the_jax_run(monkeypatch, argv, rounds):
     """Make the port's trainer start from the JAX CLI's initial weights
-    and take its cohorts, rows and DRFA draws, replayed from the key
-    chain of a JAX trainer built as the JAX CLI builds it."""
+    (and the client aux made from them) and take its cohorts, rows,
+    validation rows and DRFA draws, replayed from the key chain of a JAX
+    trainer built as the JAX CLI builds it."""
     import jax
     from fedtorch_tpu.algorithms import make_algorithm as jmake
     from fedtorch_tpu.data import build_federated_data as jbuild
@@ -124,11 +126,13 @@ def _replay_the_jax_run(monkeypatch, argv, rounds):
     from fedtorch_tpu.parallel import FederatedTrainer as JTrainer
     from fedtorch_tpu_torch.bridge import params_from_jax
     from fedtorch_tpu_torch.parallel import FederatedTrainer
-    from test_torch_zoo import _flat, _plans
+    from test_torch_personalized import _plans
+    from test_torch_zoo import _flat
 
     jc = jcli.args_to_config(jcli.build_parser().parse_args(argv))
+    jdata = jbuild(jc)
     jtr = JTrainer(jc, jdefine(jc, batch_size=jc.data.batch_size),
-                   jmake(jc), jbuild(jc).train)
+                   jmake(jc), jdata.train, val_data=jdata.val)
     js, _ = jtr.init_state(jax.random.key(jc.train.manual_seed))
     flat = _flat(js.params)
     plans = iter(_plans(jtr, js, rounds))
@@ -140,6 +144,8 @@ def _replay_the_jax_run(monkeypatch, argv, rounds):
                                  module=self.model.module)
         for n, p in clients.params.items():
             p[:] = params[n]
+        clients = clients._replace(
+            aux=self.algorithm.init_client_aux(clients.params))
         return server._replace(params=params), clients
 
     monkeypatch.setattr(FederatedTrainer, "init_state", bridged_init_state)
@@ -172,6 +178,87 @@ def test_zoo_cpu_run_returns_the_jax_cli_s_results(words, tmp_path,
     assert got["rounds"] == 3
     for key in ("test_top1", "best_top1"):
         assert abs(got[key] - want[key]) <= 1.0 / 128, (key, got, want)
+
+
+_PERSONAL = re.compile(r"Round: (\d+)\. Mode: validation_personal\. Loss: "
+                       r"([\d.]+) \| top1: ([\d.]+)")
+
+
+def _personal_lines(root):
+    (record,) = glob.glob(str(root / "synthetic" / "mlp" / "*" / "record0"))
+    return [(int(r), float(loss), float(top1))
+            for r, loss, top1 in _PERSONAL.findall(open(record).read())]
+
+
+@pytest.mark.parametrize("words", [
+    ["--federated_type", "apfl", "--fed_adaptive_alpha", "true"],
+    ["--federated_type", "perfedme", "--lr", "0.05"],
+    ["--federated_type", "perfedavg", "--perfedavg_beta", "0.05"],
+    ["--federated_type", "apfl", "--quantized", "true"],
+    ["--fed_personal", "true"],
+], ids=["apfl", "perfedme", "perfedavg", "apfl_quantized",
+        "fedavg_fed_personal"])
+def test_personalized_cpu_run_returns_the_jax_cli_s_results(
+        words, tmp_path, monkeypatch):
+    """The personalized algorithms (and FedAvg with the val split) on one
+    command line in both CLIs, from the same weights and draws: the
+    results dict as for the zoo, and each round's
+    ``validation_personal`` line (the three algorithms only) at the
+    JAX line's printed digits (loss within 1e-5 relative, top-1 within
+    1/128)."""
+    base = _synthetic_argv(tmp_path, "mlp")
+    argv = base + words
+    want = jcli.main(base[:-2] + ["-c", str(tmp_path / "jax")] + words)
+    _replay_the_jax_run(monkeypatch, argv, 3)
+    got = tcli.main(argv)
+    assert got["rounds"] == 3
+    for key in ("test_top1", "best_top1"):
+        assert abs(got[key] - want[key]) <= 1.0 / 128, (key, got, want)
+    jlines = _personal_lines(tmp_path / "jax")
+    tlines = _personal_lines(tmp_path / "ck")
+    assert [r for r, _, _ in tlines] == [r for r, _, _ in jlines] == (
+        [] if words == ["--fed_personal", "true"] else [0, 1, 2])
+    for (_, tl, ta), (_, jl, ja) in zip(tlines, jlines):
+        assert abs(tl - jl) <= 1e-5 * jl + 1e-6, (tl, jl)
+        assert abs(ta - ja) <= 1.0 / 128, (ta, ja)
+
+
+@pytest.mark.parametrize("words", [
+    [],
+    ["--local_step_warmup_type", "linear", "--local_step_warmup_period",
+     "2", "--reshuffle_per_epoch", "true"],
+], ids=["plain", "warmup_reshuffle"])
+def test_local_sgd_cpu_run_returns_the_jax_cli_s_results(words, tmp_path,
+                                                         monkeypatch):
+    """``--federated false``: the pooled training set re-partitioned over
+    the workers, ``fit`` to the epoch count, one test evaluation. From
+    the JAX CLI's weights and each round's draws (at that round's K):
+    the JAX package's results dict, its keys and its round count, and
+    the test top-1 within 1/128."""
+    import jax
+    from fedtorch_tpu.data import build_federated_data as jbuild
+    from fedtorch_tpu.models import define_model as jdefine
+    from fedtorch_tpu.parallel.local_sgd import build_local_sgd as j_build
+    from test_torch_local_sgd import bridge_jax_weights, replay_jax_plans
+
+    argv = ["--backend", "cpu", "-f", "false", "-d", "synthetic", "-a",
+            "mlp", "--num_workers", "4", "--num_epochs", "3",
+            "--local_step", "4", "-b", "16", "--lr", "0.1",
+            "--mlp_hidden_size", "32", "--debug", "false"] + words
+    want = jcli.main(argv + ["-c", str(tmp_path / "jax")])
+    jc = jcli.args_to_config(jcli.build_parser().parse_args(argv))
+    train = jbuild(jc).train
+    x, y = np.asarray(train.x), np.asarray(train.y)
+    jtr = j_build(jc, jdefine(jc, batch_size=jc.data.batch_size),
+                  x.reshape((-1,) + x.shape[2:]), y.reshape(-1))
+    js, _ = jtr.init_state(jax.random.key(jc.train.manual_seed))
+    bridge_jax_weights(monkeypatch, js)
+    replay_jax_plans(monkeypatch, js)
+    got = tcli.main(argv + ["-c", str(tmp_path / "ck")])
+    assert set(got) == set(want) == {"test_top1", "rounds"}
+    assert got["rounds"] == want["rounds"] > 1
+    assert abs(got["test_top1"] - want["test_top1"]) <= 1.0 / 128, (got,
+                                                                    want)
 
 
 def test_train_and_val_lines_are_the_jax_package_s():
@@ -248,10 +335,6 @@ def test_unported_flags_are_refused_by_name(flag, tmp_path):
 
 
 @pytest.mark.parametrize("words, name", [
-    (["--federated_type", "apfl"], "apfl"),
-    (["--federated_type", "perfedme"], "perfedme"),
-    (["--federated_type", "perfedavg"], "perfedavg"),
-    (["-f", "false"], "--federated"),
     (["--client_fusion", "fused"], "--client_fusion"),
     (["--backend", "tpu"], "--backend"),
     (["--download", "true"], "--download"),

@@ -391,37 +391,47 @@ def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     assert float(o[0, 5, 1].abs().max()) == 0.0
     assert bool(lse[1, 3].isfinite().all())
     assert bool(o[1, :, 3].isfinite().all())
-    if dtype == torch.float32:
-        _check_infinite_v(cuda)
+    for D in (64, 128) if dtype == torch.bfloat16 else (64,):
+        _check_infinite_v(cuda, dtype, D)
 
 
-def _check_infinite_v(cuda):
-    """+inf and -inf float32 v elements: only the TF32 kernel's hi
-    product sees them, so o is +-inf where the plain version's p > 0
-    meets them and NaN where it computes 0 inf, including the rows
-    before the key, whose tiles past the diagonal the kernel skips (its
-    pre-pass marks those columns); causal and not, over three query
-    tiles."""
+def _check_infinite_v(cuda, dtype, D):
+    """+inf and -inf v elements: only the hi product of p sees them (the
+    TF32 kernel masks the cross products, the wgmma kernel's p_lo
+    product reads a sanitized copy of the tile), so o is +-inf where the
+    plain version's p > 0 meets them and NaN where it computes 0 inf,
+    including the rows before the key, whose tiles past the diagonal the
+    kernel skips (its pre-pass marks those columns); causal and not,
+    over three query tiles, a column of V's second atom at D 128."""
     rng = np.random.RandomState(8)
-    q, k, v = (torch.from_numpy(rng.randn(2, 300, 4, 64).astype(
-        np.float32)).to(cuda) for _ in range(3))
+    q, k, v = (torch.from_numpy(rng.randn(2, 300, 4, D).astype(
+        np.float32)).to(cuda, dtype) for _ in range(3))
     v[0, 0, 1, 11] = float("inf")
     v[0, 40, 1, 3] = float("inf")
     v[0, 100, 1, 3] = float("-inf")
     v[0, 100, 1, 7] = float("-inf")
     v[1, 200, 2, 9] = float("inf")
     v[1, 299, 3, 0] = float("-inf")
+    v[1, 150, 0, D - 1] = float("inf")
     for causal in (True, False):
-        o, lse = fa.flash_fwd(q, k, v, 0.125, causal)
-        ro, rl = fa.flash_fwd_ref(q, k, v, 0.125, causal)
+        before = fa.flash_tc_launches
+        o, lse = fa.flash_fwd(q, k, v, D ** -0.5, causal)
+        assert fa.flash_tc_launches == before + int(dtype == torch.bfloat16)
+        ro, rl = fa.flash_fwd_ref(q, k, v, D ** -0.5, causal)
         torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
         assert torch.equal(o.isnan(), ro.isnan())
         assert torch.equal(o.isinf(), ro.isinf())
         assert torch.equal(o[o.isinf()], ro[ro.isinf()])
         fin = ro.isfinite()
-        torch.testing.assert_close(o[fin], ro[fin], rtol=2e-5, atol=2e-5)
+        if dtype == torch.float32:
+            torch.testing.assert_close(o[fin], ro[fin], rtol=2e-5,
+                                       atol=2e-5)
+        else:
+            _assert_bf16_close(o[fin], ro[fin])
         assert bool((o[0, :, 1, 11] == float("inf")).all())
         assert bool(o[1, :299, 3, 0].isnan().all()) == causal
+        assert bool(o[1, :150, 0, D - 1].isnan().all()) == causal
+        assert bool((o[1, 150:, 0, D - 1] == float("inf")).all())
 
 
 @pytest.mark.parametrize("D, dtype", [(136, torch.float32),

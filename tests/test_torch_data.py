@@ -16,6 +16,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.data import build_federated_data as jbuild
@@ -297,9 +298,22 @@ def test_build_federated_data_keeps_regression_targets():
     assert stacked.y.tolist() == [[0, 1], [2, 2]]
 
 
-def test_personal_split_is_refused_by_name():
+def test_personal_split_keeps_every_row_once():
+    """``personal``: each client's partition splits into train and val
+    rows, together each row once, ``val_fraction`` of it in val (at
+    least one row)."""
     cfg = _experiment(tcfg, dict(dataset="synthetic"), clients=2)
+    plain = tbuild(cfg)
     cfg = dataclasses.replace(cfg, federated=dataclasses.replace(
         cfg.federated, personal=True))
-    with pytest.raises(ValueError, match="fed_personal.*not yet ported"):
-        tbuild(cfg)
+    split = tbuild(cfg)
+    assert plain.val is None and split.val is not None
+    for c, size in enumerate(plain.train.sizes.tolist()):
+        n_val = int(split.val.sizes[c])
+        assert n_val == max(int(size * cfg.data.val_fraction), 1)
+        assert int(split.train.sizes[c]) + n_val == size
+        rows = torch.cat([split.train.x[c, :size - n_val],
+                          split.val.x[c, :n_val]])
+        want = plain.train.x[c, :size]
+        assert sorted(map(tuple, rows.tolist())) == \
+            sorted(map(tuple, want.tolist()))

@@ -98,9 +98,14 @@ def test_load_mode_follows_the_alignment():
     assert fa._load_mode(*_qkv_views(2, 9, 4, 25, torch.bfloat16)) == 0
 
 
-def _emulate(q, k, v, scale, causal, split=True):
+def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
     """The kernel's arithmetic on float32 [BH, T, D] tensors holding
-    bf16 values: o (float32, before its bf16 rounding) and lse."""
+    bf16 values: o (float32, before its bf16 rounding) and lse. Causal,
+    the rows of each 64-row warpgroup take no tile wholly past their
+    last row. ``sanitize``: the non-finite v rule (the p_lo product reads
+    the tile with non-finite elements 0, and a causal column is NaN in
+    the rows of a warpgroup whose skipped tiles hold a non-finite v);
+    without it, the kernel before that rule."""
     BH, T, D = q.shape
     rows = torch.arange(T)
     m = torch.full((BH, T), -np.inf)
@@ -117,16 +122,27 @@ def _emulate(q, k, v, scale, causal, split=True):
         corr = torch.where(m.isfinite(), torch.exp(m - m_safe),
                            torch.where(m == -np.inf, 0.0, 1.0))
         p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
-        l = l * corr + p.sum(dim=-1)
         hi = p.to(torch.bfloat16).float()
         pv = hi @ vt
         if split:
-            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
-        acc = acc * corr[..., None] + pv
-        m = m_new
+            v_lo = torch.where(vt.isfinite(), vt, 0.0) if sanitize else vt
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ v_lo
+        take = (rows // BK >= k0 // BK) if causal \
+            else torch.ones(T, dtype=torch.bool)
+        l = torch.where(take, l * corr + p.sum(dim=-1), l)
+        acc = torch.where(take[:, None], acc * corr[..., None] + pv, acc)
+        m = torch.where(take, m_new, m)
     l_safe = torch.where(l.isnan(), l, l.clamp_min(1e-30))
     lse = torch.where(m.isfinite(), m, 0.0) + torch.log(l_safe)
-    return acc / l_safe[..., None], lse
+    o = acc / l_safe[..., None]
+    if causal and sanitize:
+        # the pre-pass: each column's last non-finite key; the first key
+        # a row's warpgroup skips
+        bad = ~v.isfinite()
+        last = torch.where(bad, torch.arange(T)[None, :, None], -1).amax(1)
+        kc = (rows // BK + 1) * BK
+        o = torch.where(last[:, None, :] >= kc[None, :, None], np.nan, o)
+    return o, lse
 
 
 def _bf16_excess(got, want):
@@ -196,3 +212,47 @@ def test_emulated_single_bf16_p_breaks_the_bar_at_the_main_path_length():
           f"bf16 spacings past the float32 bar")
     assert split <= 1.0 < single
 
+
+
+def _infinite_v(D, B=2, T=300, H=2):
+    q, k, v = _inputs(False, B=B, T=T, H=H, D=D)
+    v[1, 0, 11] = np.inf
+    v[1, 40, 3] = np.inf
+    v[1, 100, 3] = -np.inf
+    v[1, 100, 7] = -np.inf
+    v[2, 200, 9] = np.inf
+    v[3, 299, 0] = -np.inf
+    v[0, 150, D - 1] = np.inf
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_emulated_kernel_follows_the_infinite_v_rule(D, causal):
+    """+inf and -inf v elements: with the p_lo product on the sanitized
+    tile and the pre-pass's NaN columns, the kernel's arithmetic has the
+    oracle's +-inf and NaN pattern and holds the bf16 bar elsewhere;
+    without them (the kernel before the rule) p_lo beside an infinite v
+    makes NaN where the oracle has +-inf, and the rows whose warpgroup
+    skips the key's tile miss the oracle's NaN."""
+    q, k, v = _infinite_v(D)
+    scale = D ** -0.5
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
+                        for t in (q, k, v)), scale, causal)
+    want = torch.from_numpy(np.array(jo, np.float32))
+    o, lse = _emulate(q, k, v, scale, causal)
+    got = o.to(torch.bfloat16).float()
+    torch.testing.assert_close(lse, torch.from_numpy(np.array(jl)),
+                               rtol=2e-5, atol=2e-5)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    fin = want.isfinite()
+    assert _bf16_excess(got[fin], want[fin]) <= 1.0
+    assert bool((got[1, :, 11] == np.inf).all())
+    assert bool(got[3, :299, 0].isnan().all()) == causal
+    assert bool(got[0, :150, D - 1].isnan().all()) == causal
+
+    old = _emulate(q, k, v, scale, causal, sanitize=False)[0].to(
+        torch.bfloat16).float()
+    assert not torch.equal(old.isnan(), want.isnan())

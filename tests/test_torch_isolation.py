@@ -112,8 +112,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     (dict(federated__sync_mode="async"), "async"),
     (dict(data__data_plane="stream"), "stream"),
     (dict(mesh__client_fusion="fused"), "fused"),
-    (dict(federated__personal=True), "personalization"),
-    (dict(federated__algorithm="perfedavg"), "perfedavg"),
     (dict(federated__participation_mode="sparse"), "participation_mode"),
 ])
 def test_unported_trainer_features_raise_by_name(override, name):
@@ -141,9 +139,26 @@ def test_unported_models_raise_by_name(override, name):
 
 
 @pytest.mark.parametrize("algorithm", ["perfedme", "apfl", "perfedavg"])
-def test_unported_algorithms_raise_by_name(algorithm):
-    with pytest.raises(ValueError, match=f"{algorithm}.*not yet ported"):
-        make_algorithm(_cfg(federated__algorithm=algorithm))
+def test_personalized_algorithms_run_a_round_on_the_cpu(algorithm):
+    """Through ``make_algorithm`` and ``FederatedTrainer`` with the
+    clients' validation rows: a finite round, and ``evaluate_personal``'s
+    finite [C] losses."""
+    from fedtorch_tpu_torch.parallel import evaluate_personal
+    cfg = _cfg(federated__algorithm=algorithm)
+    rng = np.random.RandomState(1)
+    val = stack_partitions(rng.randn(8, 32, 32, 3).astype(np.float32),
+                           rng.randint(0, 10, 8),
+                           [np.arange(2 * i, 2 * i + 2) for i in range(4)])
+    trainer = FederatedTrainer(cfg, define_model(cfg, device="cpu"),
+                               make_algorithm(cfg), _data(), val_data=val,
+                               device="cpu")
+    server, clients = trainer.init_state(0)
+    server, clients, metrics = trainer.run_rounds(server, clients, 1)
+    assert bool(torch.isfinite(metrics.train_loss).all())
+    losses, _, _ = evaluate_personal(trainer.model, clients.aux,
+                                     clients.params, trainer.val_data,
+                                     algorithm)
+    assert losses.shape == (4,) and bool(torch.isfinite(losses).all())
 
 
 def test_config_is_a_copy_not_an_import():

@@ -343,14 +343,6 @@ def test_lambda_sampling_draws_the_cohort_from_lambda():
         assert len(set(idx.tolist())) == 2 and 5 in idx.tolist()
 
 
-@pytest.mark.parametrize("name", ["apfl", "perfedme", "perfedavg"])
-def test_personalized_algorithms_are_refused_by_name(name):
-    cfg = tcfg.ExperimentConfig(federated=tcfg.FederatedConfig(
-        federated=True, num_clients=C, algorithm=name)).finalize()
-    with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
-        tmake(cfg)
-
-
 def test_drfa_over_another_algorithm_raises_the_jax_message():
     cfg = tcfg.ExperimentConfig(federated=tcfg.FederatedConfig(
         federated=True, num_clients=C, algorithm="qffl",
