@@ -86,6 +86,23 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    device's busy share and its time by kernel (another round, up to
    three in all, if the profiler lost the records of the round's
    quantizer launches);
+6b. stream: the main path's round on the stream data plane. The
+   population (100 clients x 250 samples from ``--seed``) is written
+   with ``save_client_store`` into a temporary directory (bytes and
+   seconds logged); then from one seed, with cuDNN deterministic,
+   ``resident`` twice (its own spread), ``stream_ram``,
+   ``stream_mmap``, ``stream_mmap_scan`` (``run_rounds(2)``: windows of
+   2) and ``stream_mmap_depth1`` (producer depth 1, 6 rounds back to
+   back), each 1 warm-up and 2 timed rounds but the last. Every feed a
+   stream path consumes is held bitwise against a fresh host gather of
+   its plan copied over synchronously (the pinned-buffer race check);
+   each of the first three stream paths' server params after its 3
+   rounds within ``SPREAD_FACTOR`` times the resident runs' gap (0:
+   bitwise) of ``resident``'s, its generator state bitwise; 2 + 2
+   ragged launches a round on every path; round ms beside
+   ``resident``'s, ``stream_stats`` a round (gather, H2D, wait), the
+   feed's bytes, and the device memory held for data (at construction,
+   and after the rounds with the producer's queue full);
 7. cli: the port's program as a user runs it,
    ``fedtorch_tpu_torch.cli.main`` on ``CLI_ARGV`` (the north-star
    round: ResNet-20, 100 clients, k = 10, batch 50, 10 local steps,
@@ -99,7 +116,11 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    params evaluated in float32 on the first 1,024 test images on the
    card (TF32 off) and on the CPU must agree within ``CLI_EVAL_BAR``.
    Prints the data-build seconds, round ms, eval ms per call and top-1.
-   Then ``CLI_ARGV`` with ``--federated_type apfl`` (adaptive alpha, 2
+   Then ``CLI_ARGV`` on the stream plane, ``--data_plane stream
+   --data_store mmap`` from a store written with ``save_client_store``
+   from the same files: 2 + 2 ragged launches a round, the device-plane
+   run's round-0 cohort, finite loss lines. Then ``CLI_ARGV`` with
+   ``--federated_type apfl`` (adaptive alpha, 2
    rounds): 2 + 2 ragged launches a round and a finite
    ``validation_personal`` line a round in its log;
 8. zoo: every algorithm beyond FedAvg on the north-star round at full
@@ -159,7 +180,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
     kernel, and 2 + 2 ragged launches.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
-``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
+``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
 ``transformer_f32_profile`` lines, the card's name and power limit and,
@@ -180,6 +202,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -226,6 +249,10 @@ LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 LM_D512 = dict(LM, rnn_hidden_size=256)
 LM_D512_SHAPE = (LM_BATCH, 2048, 4, 128)
 D512_TIMED_ROUNDS = F32_TIMED_ROUNDS = 1
+# the stream phase: 1 warm-up and this many timed rounds a path, and the
+# depth-1 path's rounds back to back
+STREAM_TIMED_ROUNDS = 2
+STREAM_STRESS_ROUNDS = 6
 # the default transformer width's heads (rnn_hidden_size 50: 4 of 25)
 DEFAULT_WIDTH_SHAPE = (LM_BATCH, 2048, 4, 25)
 SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
@@ -1375,6 +1402,217 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     return out, trainer, server, clients
 
 
+def _params_gap(got, want) -> float:
+    return max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want)
+
+
+def stream_path(name, cfg, data, seed, define_model, make_algorithm,
+                FederatedTrainer, qk, fa, ref_store, *, scan=False,
+                depth=2, rounds=1 + STREAM_TIMED_ROUNDS):
+    """One path of the stream phase: a trainer on ``cfg``'s data plane,
+    ``rounds`` rounds from ``seed`` (the first a warm-up) through
+    ``run_round`` (``run_rounds(STREAM_TIMED_ROUNDS)`` after a
+    ``run_rounds(1)`` warm-up when ``scan``). On a stream path every
+    consumed feed's device rows are held bitwise against a fresh gather
+    of its plan from ``ref_store`` (the population in RAM), copied over
+    synchronously. Returns (numbers, final server params, generator
+    state)."""
+    from fedtorch_tpu_torch.data.streaming import feed_nbytes
+
+    stream = cfg.data.data_plane == "stream"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = define_model(cfg, batch_size=cfg.data.batch_size)
+    m_model = torch.cuda.memory_allocated()
+    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+    m_data = torch.cuda.memory_allocated() - m_model
+    trainer.stream_depth = depth
+    server, clients = trainer.init_state(seed)
+    torch.cuda.synchronize()
+    m_state = torch.cuda.memory_allocated()
+    checked = dict(feeds=0, rows=0, check_s=0.0, nbytes=0, device_nbytes=0)
+    if stream:
+        round_stream_fn = trainer.round_stream_fn
+
+        def checked_round(server, clients, feed):
+            t0 = time.perf_counter()
+            want = ref_store.pack(feed.idx.numpy(), feed.rows.numpy(),
+                                  cfg.data.batch_size)
+            for f in ("x", "y", "pre_x", "pre_y"):
+                got = getattr(feed, f)
+                if got.device != trainer.device or not torch.equal(
+                        got, getattr(want, f).to(got.device)):
+                    raise AssertionError(
+                        f"stream {name}: feed {f} of round {server.round} "
+                        "differs from a fresh host gather of its plan")
+            checked["feeds"] += 1
+            checked["rows"] += int(feed.x.shape[0] * feed.x.shape[1])
+            checked["check_s"] += time.perf_counter() - t0
+            checked["nbytes"] = feed_nbytes(feed)
+            checked["device_nbytes"] = sum(
+                getattr(feed, f).numel() * getattr(feed, f).element_size()
+                for f in ("x", "y", "pre_x", "pre_y"))
+            return round_stream_fn(server, clients, feed)
+
+        trainer.round_stream_fn = checked_round
+
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if scan:
+        server, clients, _ = trainer.run_rounds(server, clients, 1)
+    else:
+        server, clients, _ = trainer.run_round(server, clients)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = dict(trainer.stream_stats() or {})
+    producer = trainer._stream
+    timed = rounds - 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    if scan:
+        server, clients, _ = trainer.run_rounds(server, clients, timed)
+    else:
+        for _ in range(timed):
+            server, clients, _ = trainer.run_round(server, clients)
+    end.record()
+    torch.cuda.synchronize()
+    round_ms = start.elapsed_time(end) / timed
+    launched = counters(qk, fa)
+    want = dict(ragged_stats=2 * rounds, ragged_apply=2 * rounds, stats=0,
+                apply=0, flash=0, flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"stream {name}: kernels launched {launched} "
+                             f"in {rounds} rounds, expected {want}")
+    if stream and checked["feeds"] != rounds:
+        raise AssertionError(f"stream {name}: {checked['feeds']} feeds "
+                             f"checked in {rounds} rounds")
+    stats = trainer.stream_stats() or {}
+    if trainer._stream is not producer:
+        # the window changed: the timed rounds ran on a new producer
+        before = dict.fromkeys(before, 0.0)
+    per_round = {k: (stats[k] - before[k]) / timed
+                 for k in ("gather_s", "h2d_s", "wait_s")} if stream else {}
+    # the feeds the producer holds ahead, once its queue is full
+    deadline = time.monotonic() + 5.0
+    while stream and trainer.stream_stats()["depth"] < depth \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    ahead = torch.cuda.memory_allocated() - m_state
+    params = {k: v.detach().clone() for k, v in server.params.items()}
+    rng_state = server.rng.get_state()
+    trainer.close()
+    if stream and any(t.name == "stream-feed-producer" and t.is_alive()
+                      for t in threading.enumerate()):
+        raise AssertionError(f"stream {name}: producer thread outlived "
+                             "close()")
+    out = dict(path=name, data_plane=cfg.data.data_plane,
+               store=cfg.data.store if stream else None,
+               dispatch="scan" if scan else "round", depth=depth,
+               rounds=rounds, timed_rounds=timed, round_ms=round_ms,
+               warmup_round_s=warm_s, launches=launched, tree_launches=want,
+               launches_per_round={c: n / rounds
+                                   for c, n in launched.items()},
+               stream_stats_per_round=per_round,
+               stream_stats_total=stats,
+               feeds_checked=checked["feeds"],
+               rows_checked=checked["rows"],
+               check_ms_per_round=checked["check_s"] / rounds * 1e3,
+               feed_nbytes=checked["nbytes"],
+               feed_device_nbytes=checked["device_nbytes"],
+               data_mib_at_construction=m_data / 2**20,
+               mib_held_after_rounds=ahead / 2**20,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    log(f"stream {name}: {round_ms:.1f} ms/round over {timed}, data on the "
+        f"card {m_data / 2**20:.1f} MiB at construction, "
+        f"{ahead / 2**20:.1f} MiB held after the rounds, feeds checked "
+        f"{checked['feeds']}, per round {per_round}")
+    return out, params, rng_state
+
+
+def stream_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+                 FederatedTrainer, qk, fa):
+    """The north-star quantized FedAvg round on the stream data plane: the
+    100-client population written with ``save_client_store``, then from
+    one seed ``resident`` (twice: its own spread), ``stream_ram``,
+    ``stream_mmap``, ``stream_mmap_scan`` (windows of 2), each 1 warm-up
+    and 2 timed rounds, and ``stream_mmap_depth1`` (depth 1, 6 rounds
+    back to back). cuDNN runs deterministic here, so that the paths can be
+    held to each other: each stream path's server params after its 3
+    rounds within ``SPREAD_FACTOR`` times the two resident runs' gap (0:
+    bitwise), its generator state bitwise."""
+    import dataclasses
+    import tempfile
+
+    from fedtorch_tpu_torch.data.streaming import (
+        HostClientStore, save_client_store,
+    )
+    from fedtorch_tpu_torch.tools.order_spread import SPREAD_FACTOR
+
+    cfg = path_config(tcfg, "resnet20")
+    data = path_data(cfg, seed, stack_partitions)
+    ref_store = HostClientStore(data)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as store_dir:
+            t0 = time.perf_counter()
+            save_client_store(store_dir, data)
+            write_s = time.perf_counter() - t0
+            store_bytes = sum(os.path.getsize(os.path.join(store_dir, n))
+                              for n in os.listdir(store_dir))
+            log(f"stream: store of {NUM_CLIENTS} clients, {store_bytes:,} "
+                f"bytes, written in {write_s:.2f} s")
+
+            def plane(**kw):
+                return dataclasses.replace(cfg, data=dataclasses.replace(
+                    cfg.data, **kw))
+
+            mmap = plane(data_plane="stream", store="mmap",
+                         store_dir=store_dir)
+            runs = [("resident", cfg, {}), ("resident_again", cfg, {}),
+                    ("stream_ram", plane(data_plane="stream"), {}),
+                    ("stream_mmap", mmap, {}),
+                    ("stream_mmap_scan", mmap, dict(scan=True)),
+                    ("stream_mmap_depth1", mmap,
+                     dict(depth=1, rounds=STREAM_STRESS_ROUNDS))]
+            paths, finals = {}, {}
+            for name, run_cfg, kw in runs:
+                paths[name], params, rng = stream_path(
+                    name, run_cfg, data, seed, define_model, make_algorithm,
+                    FederatedTrainer, qk, fa, ref_store, **kw)
+                finals[name] = (params, rng)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    spread = _params_gap(finals["resident_again"][0], finals["resident"][0])
+    bar = SPREAD_FACTOR * spread
+    trajectory = {}
+    for name in ("resident_again", "stream_ram", "stream_mmap",
+                 "stream_mmap_scan"):
+        params, rng = finals[name]
+        gap = _params_gap(params, finals["resident"][0])
+        same_rng = bool(torch.equal(rng, finals["resident"][1]))
+        trajectory[name] = dict(max_abs_gap=gap, rng_state_equal=same_rng)
+        if gap > bar or not same_rng:
+            raise AssertionError(
+                f"stream {name}: server params {gap} from resident's (bar "
+                f"{bar}: {SPREAD_FACTOR} x the resident runs' {spread}), "
+                f"generator state equal: {same_rng}")
+    resident_ms = paths["resident"]["round_ms"]
+    for out in paths.values():
+        out["round_ms_over_resident"] = out["round_ms"] / resident_ms
+    log(f"stream: resident spread {spread}, trajectories {trajectory}")
+    return dict(store_bytes=store_bytes, store_write_s=write_s,
+                clients=NUM_CLIENTS, resident_spread=spread,
+                spread_factor=SPREAD_FACTOR, trajectory=trajectory,
+                cudnn_deterministic=True, paths=paths)
+
+
 def write_cifar10(root: str, seed: int) -> float:
     """A CIFAR-10 python-pickle tree (``cifar-10-batches-py``: five
     training batches of 10,000 images and a test batch of 10,000) of
@@ -1394,6 +1632,65 @@ def write_cifar10(root: str, seed: int) -> float:
     return sum(os.path.getsize(os.path.join(base, n)) for n in names) / 1e6
 
 
+def cli_stream_run(root, cohort, qk, fa, extra=()):
+    """``CLI_ARGV`` on the CIFAR-10 files in ``root`` on the stream plane,
+    from an on-disk store written from the same files (``--data_plane
+    stream --data_store mmap``): 2 + 2 ragged launches a round, round 0's
+    cohort the device-plane run's ``cohort``, finite loss lines."""
+    import glob
+
+    from fedtorch_tpu_torch import cli
+    from fedtorch_tpu_torch.data import build_federated_data
+    from fedtorch_tpu_torch.data.streaming import save_client_store
+
+    argv = CLI_ARGV + list(extra) + ["-p", root]
+    store_dir = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    save_client_store(store_dir, build_federated_data(
+        cli.args_to_config(cli.build_parser().parse_args(argv))).train)
+    store_s = time.perf_counter() - t0
+    seen = {}
+
+    def keep_cohort(r, trainer, server, clients, metrics):
+        if r == 0:
+            seen["cohort"] = metrics.online_mask.nonzero().flatten().tolist()
+            seen["stats"] = trainer.stream_stats()
+
+    reset_counters(qk, fa)
+    res = cli.main(argv + ["-c", os.path.join(root, "runs_stream"),
+                           "--data_plane", "stream", "--data_store", "mmap",
+                           "--data_store_dir", store_dir],
+                   round_callback=keep_cohort)
+    launched = counters(qk, fa)
+    (record,) = glob.glob(os.path.join(root, "runs_stream", "**", "record0"),
+                          recursive=True)
+    with open(record) as f:
+        losses = [float(v) for v in re.findall(
+            r"Round: \d+\. Epoch: .*? Loss: (\S+) \|", f.read())]
+    want = dict(ragged_stats=2 * CLI_ROUNDS, ragged_apply=2 * CLI_ROUNDS,
+                stats=0, apply=0, flash=0, flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"cli stream: kernels launched {launched}, "
+                             f"expected {want}")
+    if seen["cohort"] != cohort or res["data_plane"] != "stream":
+        raise AssertionError(f"cli stream: round-0 cohort {seen['cohort']},"
+                             f" the device plane's {cohort}")
+    if len(losses) != CLI_ROUNDS \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cli stream: loss lines {losses}")
+    out = dict(rounds=res["rounds"], test_top1=res["test_top1"],
+               store_write_s=store_s, round0_cohort=seen["cohort"],
+               losses=losses,
+               round_ms=res["timer"]["round"] / CLI_ROUNDS * 1e3,
+               stream_stats_after_round0=seen["stats"], launches=launched,
+               tree_launches=launched)
+    log(f"cli stream (mmap store written in {store_s:.2f} s): "
+        f"{out['round_ms']:.1f} ms/round, round-0 cohort {seen['cohort']} "
+        f"as the device plane's, losses {losses}, test top-1 "
+        f"{res['test_top1']:.4f}")
+    return out
+
+
 def cli_phase(seed, tcfg, define_model, qk, fa):
     """The port's CLI as a user runs it (``fedtorch_tpu_torch.cli.main``
     on ``CLI_ARGV``) on CIFAR-10 files written from ``seed`` into a
@@ -1402,7 +1699,10 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
     ragged apply launches per round after. Then the final server params
     are evaluated on the first ``CLI_SUBSET`` test images on the card and
     on the CPU, both in float32 (TF32 off), and must agree within
-    ``CLI_EVAL_BAR``. Returns the phase's numbers."""
+    ``CLI_EVAL_BAR``. Then the same command on the stream plane from a
+    store written from the same files (``--data_plane stream --data_store
+    mmap``): 2 + 2 ragged launches a round, the device-plane run's round-0
+    cohort and finite loss lines. Returns the phase's numbers."""
     import tempfile
 
     from fedtorch_tpu_torch import cli
@@ -1417,6 +1717,9 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
         final = {}
 
         def keep_final(r, trainer, server, clients, metrics):
+            if r == 0:
+                final["cohort"] = \
+                    metrics.online_mask.nonzero().flatten().tolist()
             if r == CLI_ROUNDS - 1:
                 final["params"] = {k: v.detach().clone()
                                    for k, v in server.params.items()}
@@ -1430,6 +1733,10 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
         run_s = time.perf_counter() - t0
         launched = counters(qk, fa)
         test_x, test_y = load_cifar("cifar10", root)[2:4]
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        stream_out = cli_stream_run(root, final["cohort"], qk, fa)
     want = dict(ragged_stats=2 * CLI_ROUNDS, ragged_apply=2 * CLI_ROUNDS,
                 stats=0, apply=0, flash=0, flash_tc=0, flash_tf32=0)
     if launched != want:
@@ -1469,7 +1776,8 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
                subset_eval=dict(images=CLI_SUBSET, card=got, cpu=want_cpu,
                                 loss_rel_diff=loss_rel,
                                 top1_top5_diff_images=top_gap,
-                                bar=CLI_EVAL_BAR))
+                                bar=CLI_EVAL_BAR),
+               stream_mmap=stream_out)
     log(f"cli: {mb:.1f} MB of CIFAR-10 files written in {write_s:.2f} s; "
         f"data build {timer['data']:.2f} s, {out['round_ms']:.1f} ms/round, "
         f"eval {out['eval_ms_per_call']:.1f} ms per call "
@@ -2107,8 +2415,12 @@ def main(argv=None) -> int:
     prof = profile_phase(trainer, server, clients,
                          main["launches_per_round"])
 
-    phase("cli")
+    phase("stream")
     del trainer, server, clients
+    stream = stream_phase(args.seed, tcfg, define_model, make_algorithm,
+                          stack_partitions, FederatedTrainer, qk, fa)
+
+    phase("cli")
     gc.collect()
     torch.cuda.empty_cache()
     cli_out = cli_phase(args.seed, tcfg, define_model, qk, fa)
@@ -2182,8 +2494,11 @@ def main(argv=None) -> int:
     paths = (("resnet20", main), ("cli", cli_out), ("cli_apfl", cli_apfl),
              ("localsgd", localsgd), ("wideresnet28_10", wrn),
              ("transformer", lm), ("transformer_d512", d512),
-             ("transformer_f32", f32)) + tuple(
-                 (f"zoo_{n}", r) for n, r in zoo["paths"].items())
+             ("transformer_f32", f32),
+             ("cli_stream_mmap", cli_out["stream_mmap"])) + tuple(
+                 (f"zoo_{n}", r) for n, r in zoo["paths"].items()) + tuple(
+                 (n, r) for n, r in stream["paths"].items()
+                 if n.startswith("stream_"))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -2248,6 +2563,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"main_path": main, "card": card}))
     print(json.dumps({"profile": prof}))
+    print(json.dumps({"stream": stream, "card": card}))
     print(json.dumps({"cli": cli_out, "cli_apfl": cli_apfl, "card": card}))
     print(json.dumps({"zoo": zoo, "card": card}))
     print(json.dumps({"localsgd": localsgd, "card": card}))

@@ -50,6 +50,16 @@ class FedAlgorithm:
     # the engine hands each local step a batch of the client's validation
     # rows when set (PerFedAvg's outer step)
     needs_val_batch = False
+    # True when the stream plane's host schedule can draw this
+    # algorithm's cohort ahead of the round: ``participation`` reads no
+    # server state (DRFA's lambda-distributed draw does, and the feed
+    # source refuses it; ``parallel/round_program.py``)
+    participation_replayable = True
+    # True when ``post_round_global`` has a stream-plane twin,
+    # ``post_round_global_feed``, over probe batches packed into the feed
+    # (DRFA's dual update); an override of ``post_round_global`` without
+    # one is refused on the feed source
+    needs_post_probe = False
 
     def __init__(self, cfg: ExperimentConfig):
         self.cfg = cfg
@@ -182,6 +192,14 @@ class FedAlgorithm:
     def post_round_global(self, server, data, plan):
         """A second phase after the server step with access to every
         client's data (DRFA's dual update); returns the ServerState."""
+        return server
+
+    def post_round_global_feed(self, server, probe):
+        """The stream plane's ``post_round_global``: the same math over
+        the probe batches packed into the round's feed (``probe``, a
+        ``RoundFeed`` with ``probe_idx``/``probe_x``/``probe_y``) in
+        place of the whole population; bitwise the resident phase for
+        the same plan. Returns the ServerState."""
         return server
 
     # -- payload accounting ----------------------------------------------

@@ -19,9 +19,10 @@ an inner aggregation algorithm (fedavg, fedgate or scaffold).
 
 The round's draws (``k_rand``, the probe cohort and its rows) are
 :class:`RoundPlan` fields, drawn by :meth:`plan_draws` from the server's
-generator or injected. The JAX package's stream-plane twins
-(``host_probe_fn``, ``post_round_global_feed``) come with the stream
-plane (ROADMAP A5).
+generator or injected. On the stream plane the host schedule draws the
+same plan through the same :meth:`plan_draws`, so the port needs no
+``host_probe_fn``: the producer packs the probe rows into the feed and
+:meth:`post_round_global_feed` takes the dual update over them.
 """
 from __future__ import annotations
 
@@ -38,10 +39,18 @@ from fedtorch_tpu_torch.ops.simplex import project_simplex_floor
 
 class DRFA(FedAlgorithm):
     name = "drfa"
+    needs_post_probe = True
 
     def __init__(self, cfg, inner: FedAlgorithm):
         super().__init__(cfg)
         self.inner = inner
+
+    @property
+    def participation_replayable(self):
+        # the uniform draw comes from the generator alone; the
+        # lambda-distributed draw reads the dual variable, which the
+        # host schedule cannot see ahead of the round
+        return not self.cfg.federated.drfa_lambda_sampling
 
     def setup(self, data):
         self.inner.setup(data)
@@ -165,16 +174,23 @@ class DRFA(FedAlgorithm):
 
     # -- the dual update (second phase) ------------------------------------
     def post_round_global(self, server, data, plan):
-        kth_avg = server.aux["kth_avg"]
-        idx2 = plan.probe_idx
         rows = plan.probe_rows.to(data.x.device)
-        losses = []
+        batches = [(data.x[c][rows[j]], data.y[c][rows[j]])
+                   for j, c in enumerate(plan.probe_idx.tolist())]
+        return self._probe_update(server, plan.probe_idx, batches)
+
+    def post_round_global_feed(self, server, probe):
+        batches = zip(probe.probe_x, probe.probe_y)
+        return self._probe_update(server, probe.probe_idx.long(), batches)
+
+    def _probe_update(self, server, idx2, batches):
+        """The k-th average model's mean loss on each probe batch, then
+        the dual update."""
+        kth_avg = server.aux["kth_avg"]
         with torch.no_grad():
-            for j, c in enumerate(idx2.tolist()):
-                bx, by = data.x[c][rows[j]], data.y[c][rows[j]]
-                logits = self.forward_reset(kth_avg, bx)
-                losses.append(per_sample_loss(
-                    logits, by, self.model.is_regression).mean())
+            losses = [per_sample_loss(self.forward_reset(kth_avg, bx), by,
+                                      self.model.is_regression).mean()
+                      for bx, by in batches]
             return self._dual_update(server, idx2, torch.stack(losses))
 
     def _dual_update(self, server, idx2, losses):

@@ -11,7 +11,12 @@ rounds. Each round logs the JAX package's train line; every
 and the val line (with the best top-1 so far) and, with
 ``--per_class_acc``, the per-class line are logged. The result is the
 JAX package's dict: ``test_top1``, ``best_top1``, ``rounds`` and the
-phase ``timer``.
+phase ``timer``, and the ``data_plane`` the run's telemetry records in
+the JAX package. ``--data_plane stream`` keeps the population on the
+host (``--data_store ram``) or reads it from a store written by
+``data/streaming.py``'s ``save_client_store`` (``--data_store mmap
+--data_store_dir DIR``) and streams each round's rows to the device;
+``--participation_mode sparse`` draws the cohort in O(k) memory.
 
 It runs on CUDA unless ``--backend cpu`` asks for the CPU; without a
 card and without that flag it raises. A flag that names a feature the
@@ -44,6 +49,9 @@ Usage:
         --fed_adaptive_alpha true
     python -m fedtorch_tpu_torch.cli --backend cpu -f false -d synthetic \
         -a mlp --num_workers 4 --num_epochs 2 --local_step 4
+    python -m fedtorch_tpu_torch.cli -f true -d cifar10 -p DATA -a resnet20 \
+        --num_workers 100 --online_client_rate 0.1 --data_plane stream \
+        --data_store mmap --data_store_dir STORE
 """
 from __future__ import annotations
 
@@ -472,11 +480,6 @@ _unported("federated", "the async plane (ROADMAP A8)", {
     "staleness_weight": "staleness_weight",
     "staleness_exponent": "staleness_exponent",
     "snapshot_ring": "snapshot_ring"})
-_unported("federated", "sparse participation (ROADMAP A1)",
-          {"participation_mode": "participation_mode"})
-_unported("data", "the streaming data plane (ROADMAP A5)", {
-    "data_plane": "data_plane", "data_store": "store",
-    "data_store_dir": "store_dir"})
 _unported("checkpoint", "checkpoints and resuming (ROADMAP A7)", {
     "resume": "resume", "checkpoint_index": "checkpoint_index",
     "save_all_models": "save_all_models",
@@ -643,47 +646,55 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     trainer = FederatedTrainer(cfg, model, make_algorithm(cfg),
                                fed_data.train, val_data=fed_data.val,
                                device=device)
+    logger.log(f"data plane: {cfg.data.data_plane}"
+               + (f" ({cfg.data.store} store)"
+                  if cfg.data.data_plane == "stream" else ""))
     server, clients = trainer.init_state(cfg.train.manual_seed)
-    results, best_prec1 = {}, 0.0
-    for r in range(cfg.federated.num_comms):
-        timer.new_round()
-        timer.start("round")
-        server, clients, metrics = trainer.round_fn(server, clients)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        round_time = timer.stop("round")
-        sc = trainer.round_host_scalars(clients, metrics)
-        timer.add_comm(num_bytes=sc["comm_bytes"])
-        n_online = max(sc["n_online"], 1.0)
-        logger.log_train(r, sc["mean_epoch"], sc["loss_sum"] / n_online,
-                         sc["acc_sum"] / n_online, sc["lr"],
-                         comm_bytes=sc["comm_bytes"], round_time=round_time)
-        if (r + 1) % cfg.train.eval_freq == 0:
-            timer.start("eval")
-            res = [float(v) for v in evaluate(model, server.params,
-                                              fed_data.test_x,
-                                              fed_data.test_y)]
-            timer.stop("eval")
-            loss, top1, top5 = res
-            best_prec1 = max(best_prec1, top1)
-            logger.log_val(r, "test", loss, top1, top5, best=best_prec1)
-            if cfg.train.per_class_acc:
-                accs, _ = evaluate_per_class(
-                    model, server.params, fed_data.test_x, fed_data.test_y,
-                    num_classes_of(cfg.data.dataset))
-                logger.log("Round: {}. Per-class acc: {}".format(
-                    r, [round(a, 4) for a in accs.tolist()]))
-            if personal:
-                # the personalized models on the clients' val rows
-                _, _, summary = evaluate_personal(
-                    model, clients.aux, clients.params, trainer.val_data,
-                    cfg.effective_algorithm)
-                logger.log_val(r, "validation_personal",
-                               summary["loss_mean"], summary["acc_mean"])
-            results["test_top1"] = top1
-        results["rounds"] = r + 1
-        if round_callback is not None:
-            round_callback(r, trainer, server, clients, metrics)
+    results, best_prec1 = {"data_plane": cfg.data.data_plane}, 0.0
+    try:
+        for r in range(cfg.federated.num_comms):
+            timer.new_round()
+            timer.start("round")
+            server, clients, metrics = trainer.run_round(server, clients)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            round_time = timer.stop("round")
+            sc = trainer.round_host_scalars(clients, metrics)
+            timer.add_comm(num_bytes=sc["comm_bytes"])
+            n_online = max(sc["n_online"], 1.0)
+            logger.log_train(r, sc["mean_epoch"], sc["loss_sum"] / n_online,
+                             sc["acc_sum"] / n_online, sc["lr"],
+                             comm_bytes=sc["comm_bytes"],
+                             round_time=round_time)
+            if (r + 1) % cfg.train.eval_freq == 0:
+                timer.start("eval")
+                res = [float(v) for v in evaluate(model, server.params,
+                                                  fed_data.test_x,
+                                                  fed_data.test_y)]
+                timer.stop("eval")
+                loss, top1, top5 = res
+                best_prec1 = max(best_prec1, top1)
+                logger.log_val(r, "test", loss, top1, top5, best=best_prec1)
+                if cfg.train.per_class_acc:
+                    accs, _ = evaluate_per_class(
+                        model, server.params, fed_data.test_x,
+                        fed_data.test_y, num_classes_of(cfg.data.dataset))
+                    logger.log("Round: {}. Per-class acc: {}".format(
+                        r, [round(a, 4) for a in accs.tolist()]))
+                if personal:
+                    # the personalized models on the clients' val rows
+                    _, _, summary = evaluate_personal(
+                        model, clients.aux, clients.params,
+                        trainer.val_data, cfg.effective_algorithm)
+                    logger.log_val(r, "validation_personal",
+                                   summary["loss_mean"], summary["acc_mean"])
+                results["test_top1"] = top1
+            results["rounds"] = r + 1
+            if round_callback is not None:
+                round_callback(r, trainer, server, clients, metrics)
+    finally:
+        # the stream plane's producer thread ends with the run
+        trainer.close()
     results["best_top1"] = best_prec1
     results["timer"] = timer.summary()
     logger.log(f"phase timers: {timer.summary()}")

@@ -1,5 +1,6 @@
-"""The federated round engine (port of the synchronous, device-data,
-per-client path of ``fedtorch_tpu/parallel/federated.py``).
+"""The federated round engine (port of the synchronous, per-client
+path of ``fedtorch_tpu/parallel/federated.py``), on the device data plane
+and on the stream plane.
 
 One round: draw (or take) the round plan — the k online clients, each
 one's K*B storage rows (and K*B validation rows when the algorithm
@@ -14,6 +15,14 @@ transformed sum, write the online clients' state back, then the
 algorithm's ``post_round_global`` (DRFA's dual update). These are the
 hooks and the order of the JAX package's ``_round_core``.
 
+Two data planes feed :meth:`FederatedTrainer._round_core`:
+``round_fn`` gathers the round's rows from the population on the
+device (``data_plane='device'``); ``round_stream_fn`` takes them from a
+feed that a background producer packed on the host and copied over
+(``data_plane='stream'``, ``data/streaming.py``). The same rows give the
+same round. :class:`~fedtorch_tpu_torch.parallel.round_program.
+RoundProgramBuilder` decides which cells a trainer serves.
+
 What differs from the JAX package, and why:
 
 * The k clients run one after another in a Python loop over one shared
@@ -23,12 +32,15 @@ What differs from the JAX package, and why:
 * The round plan is drawn from the server's ``torch.Generator``, not
   threefry, so the two packages pick other cohorts and rows from one
   seed; :meth:`FederatedTrainer.round_fn` takes an injected
-  :class:`RoundPlan` so tests can feed both the same cohort.
+  :class:`RoundPlan` so tests can feed both the same cohort. The stream
+  plane draws the same plans ahead on a clone of the generator
+  (``data/streaming.py`` ``RoundSchedule``).
 * The JAX package's 'batch' and 'shard' gather modes select the same
   rows (the flattened ``round_row_plan`` equals per-step ``take_batch``
   over the epoch permutation), so the port has one gather and no
   ``gather_mode``: each client's K*B rows, and as many validation rows
   (the JAX package's ``VAL_FOLD`` stream, in either of its val modes).
+  On the stream plane qFFL's feed carries whole shards instead.
 * Epoch-sync clients skip the steps past their own budget instead of
   running them masked; state and metrics come out the same, and every
   step-indexed hook anchors on the budget (DRFA's snapshot step).
@@ -38,13 +50,17 @@ What differs from the JAX package, and why:
 * Client state is updated in place (see ``core/state.py``).
 
 Everything of ``_round_core`` that is off on this path — chaos, guards,
-robust rules, DP, availability, pod-scale sharding, cohort stats, the
-async and stream planes, client fusion — is refused by name at
-construction.
+robust rules, DP, availability, pod-scale sharding, cohort stats, client
+fusion, the async plane — is refused by name at construction; so are
+the JAX package's bounded retry of a failed gather, its host-fault
+seams and its producer rebuild (ROADMAP A7): a gather error reaches the
+caller as itself.
 """
 from __future__ import annotations
 
+import bisect
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -61,8 +77,15 @@ from fedtorch_tpu_torch.core.state import (
     tree_bytes, tree_map, tree_put, tree_stack, tree_sub, tree_take,
 )
 from fedtorch_tpu_torch.data.batching import ClientData, round_row_plan
+from fedtorch_tpu_torch.data.streaming import (
+    HostClientStore, MmapClientStore, RoundFeed, RoundSchedule,
+    StreamFeedProducer, StreamItem, np_dtype, window_round,
+)
 from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
+from fedtorch_tpu_torch.parallel.round_program import (
+    RoundProgramBuilder, feed_layout,
+)
 from fedtorch_tpu_torch.utils import resolve_device
 
 
@@ -83,19 +106,88 @@ class RoundPlan(NamedTuple):
     vrows: Optional[torch.Tensor] = None  # [k, K*B] int64 validation rows
 
 
+def sparse_participation(generator: torch.Generator, num_clients: int,
+                         k: int) -> torch.Tensor:
+    """k ids drawn uniformly without replacement from [0, C) in O(k)
+    memory (no [C] permutation): draw i picks a rank ``j ~ U[0, C-i)``
+    among the ids not yet chosen and maps it to an id by walking the
+    chosen ones in ascending order (``j += 1`` for each chosen id <= j).
+    The law of ``randperm(C)[:k]``, another stream (as in the JAX
+    package's 'sparse' mode)."""
+    chosen, idx = [], []
+    for i in range(k):
+        j = int(torch.randint(0, num_clients - i, (), generator=generator))
+        for s in chosen:
+            if j < s:
+                break
+            j += 1
+        bisect.insort(chosen, j)
+        idx.append(j)
+    return torch.tensor(idx, dtype=torch.int64)
+
+
 def participation_indices(generator: torch.Generator, num_clients: int,
-                          k: int, round_idx: int) -> torch.Tensor:
-    """k online clients uniformly without replacement (misc.py:10-19);
-    round 0 forces client 0 online by replacing the last slot
-    (main.py:62-63)."""
-    idx = torch.randperm(num_clients, generator=generator)[:k]
+                          k: int, round_idx: int,
+                          mode: str = "perm") -> torch.Tensor:
+    """k online clients uniformly without replacement (misc.py:10-19):
+    ``mode`` 'perm' takes the first k of a permutation, 'sparse' the
+    O(k)-memory draw; round 0 forces client 0 online by replacing the
+    last slot (main.py:62-63)."""
+    if mode == "sparse":
+        idx = sparse_participation(generator, num_clients, k)
+    else:
+        idx = torch.randperm(num_clients, generator=generator)[:k]
     if round_idx == 0 and not bool((idx == 0).any()):
         idx[k - 1] = 0
     return idx
 
 
+class PlanDrawer:
+    """Draws a round's :class:`RoundPlan` from a generator, in one fixed
+    order: the cohort, each online client's rows, the augmentation draws,
+    the validation rows, the algorithm's own draws. The trainer's
+    ``draw_plan`` and the stream plane's host schedule both call it, so
+    the two planes draw the same plans. It holds no reference to the
+    trainer (the producer thread keeps it)."""
+
+    def __init__(self, algorithm: FedAlgorithm, sizes, n_max: int,
+                 k_online: int, local_steps: int, batch_size: int,
+                 augment: bool, participation_mode: str = "perm",
+                 vsizes=None, v_n_max: Optional[int] = None):
+        self.algorithm = algorithm
+        self.sizes = list(sizes)
+        self.n_max = n_max
+        self.k_online = k_online
+        self.local_steps = local_steps
+        self.batch_size = batch_size
+        self.augment = augment
+        self.participation_mode = participation_mode
+        self.vsizes, self.v_n_max = vsizes, v_n_max
+
+    def __call__(self, generator: torch.Generator, round_idx: int,
+                 server_aux=None) -> RoundPlan:
+        K, B, k = self.local_steps, self.batch_size, self.k_online
+        alg, C = self.algorithm, len(self.sizes)
+        idx = alg.participation(generator, C, k, round_idx, server_aux)
+        if idx is None:
+            idx = participation_indices(generator, C, k, round_idx,
+                                        self.participation_mode)
+        rows = torch.stack([
+            round_row_plan(generator, self.sizes[c], self.n_max, K * B)
+            for c in idx.tolist()])
+        plan = RoundPlan(idx, rows, *(draw_augment(generator, (k, K, B))
+                                      if self.augment else ()))
+        if alg.needs_val_batch:
+            plan = plan._replace(vrows=torch.stack([
+                round_row_plan(generator, self.vsizes[c], self.v_n_max,
+                               K * B) for c in idx.tolist()]))
+        return plan._replace(**alg.plan_draws(generator, self.sizes))
+
+
 def unported_features(cfg: ExperimentConfig) -> list:
-    """Names of the requested features this port does not have yet."""
+    """Names of the requested features this port does not have yet (the
+    async plane and client fusion are refused by the round-program
+    builder, as cells)."""
     fed, flt, mesh = cfg.federated, cfg.fault, cfg.mesh
     checks = [
         (flt.chaos_enabled, "chaos (client_drop/straggler/nan_inject/"
@@ -106,19 +198,23 @@ def unported_features(cfg: ExperimentConfig) -> list:
         (flt.avail_armed, "availability (avail_* / over_select_frac)"),
         (mesh.client_shards != 0, "client_shards"),
         (cfg.telemetry.cohort_stats, "cohort stats"),
-        (fed.sync_mode == "async", "the async plane (sync_mode='async')"),
-        (cfg.data.data_plane == "stream",
-         "the stream data plane (data_plane='stream')"),
-        (mesh.client_fusion == "fused", "client_fusion='fused'"),
-        (fed.participation_mode != "perm",
-         f"participation_mode={fed.participation_mode!r}"),
     ]
     return [name for bad, name in checks if bad]
 
 
 class FederatedTrainer:
     """Runs the round program on ``device`` (``cuda`` unless the caller
-    asks for another)."""
+    asks for another).
+
+    With ``cfg.data.data_plane == 'stream'`` the population stays on the
+    host — ``data`` in RAM (``data.store == 'ram'``) or the on-disk store
+    at ``cfg.data.store_dir`` (``'mmap'``; ``data`` then gives only its
+    shape and sizes) — and :meth:`run_round` / :meth:`run_rounds` consume
+    feeds from a background producer, started on first use from the live
+    (generator, round) and up to ``stream_depth`` feeds ahead. Call
+    :meth:`invalidate_stream` after replaying or rewriting the server
+    state, and :meth:`close` at the end (a dropped trainer closes its
+    producer too)."""
 
     def __init__(self, cfg: ExperimentConfig, model: ModelDef,
                  algorithm: FedAlgorithm, data: ClientData,
@@ -133,18 +229,24 @@ class FederatedTrainer:
         if val_data is not None and val_data.num_clients != data.num_clients:
             raise ValueError(f"val_data has {val_data.num_clients} clients, "
                              f"data {data.num_clients}")
+        self.cfg = cfg
+        self.algorithm = algorithm
+        self.data_plane = cfg.data.data_plane
+        self.has_val = val_data is not None
+        self.programs = RoundProgramBuilder(self)
+        self.programs.validate(
+            "commit" if cfg.federated.sync_mode == "async" else "round")
         self.device = resolve_device(device)
         if model.sample_input.device != self.device:
             raise ValueError(f"the model lives on "
                              f"{model.sample_input.device}, the trainer "
                              f"on {self.device}")
-        self.cfg = cfg
         self.model = model
-        self.algorithm = algorithm
         self.num_clients = data.num_clients
         self.batch_size = cfg.data.batch_size
         self.k_online = max(
             int(cfg.federated.online_client_rate * self.num_clients), 1)
+        self.participation_mode = cfg.federated.participation_mode
         self.epoch_sync = cfg.federated.sync_type == "epoch"
         if self.epoch_sync:
             nb_max = math.ceil(data.n_max / self.batch_size)
@@ -167,11 +269,47 @@ class FederatedTrainer:
             getattr(type(algorithm), h) is not getattr(FedAlgorithm, h)
             for h in ("pre_round", "client_post"))
         self.sizes = [int(s) for s in data.sizes]
-        self.data = data.to(self.device)
-        self.val_data = val_data.to(self.device) \
-            if val_data is not None else None
         self.vsizes = [int(s) for s in val_data.sizes] \
             if val_data is not None else None
+        if self.data_plane == "stream":
+            # the device never holds the population: each round gets
+            # its feed, and only client state is [C]-sized on the device
+            self.host_store = self._open_store(cfg, data)
+            self.data = self.val_data = None
+        else:
+            self.host_store = None
+            self.data = data.to(self.device)
+            self.val_data = val_data.to(self.device) \
+                if val_data is not None else None
+        self.feed_layout = feed_layout(algorithm)
+        # the stream plane's producer: feeds queued ahead, and how long
+        # a consumer waits for one before it raises
+        self.stream_depth = 2
+        self.stream_timeout_s = 120.0
+        self._stream: Optional[StreamFeedProducer] = None
+        self._stream_finalizer = None
+
+    @staticmethod
+    def _open_store(cfg, data: ClientData):
+        if cfg.data.store != "mmap":
+            return HostClientStore(data)
+        store = MmapClientStore(cfg.data.store_dir)
+        if (store.num_clients != data.num_clients
+                or store.n_max != data.n_max):
+            raise ValueError(
+                f"mmap client store at {cfg.data.store_dir!r} "
+                f"holds [{store.num_clients}, {store.n_max}] "
+                "clients x rows but the run's data is "
+                f"[{data.num_clients}, {data.n_max}]")
+        for name, t in (("x", data.x), ("y", data.y)):
+            want = (tuple(t.shape[2:]), np_dtype(t.dtype))
+            if (store.feat(name), store.dtype(name)) != want:
+                raise ValueError(
+                    f"mmap client store at {cfg.data.store_dir!r} holds "
+                    f"{name} rows of {store.feat(name)} "
+                    f"{store.dtype(name)} but the run's are {want[0]} "
+                    f"{want[1]}")
+        return store
 
     # -- state ----------------------------------------------------------
     def init_state(self, rng):
@@ -197,35 +335,77 @@ class FederatedTrainer:
                                     device=self.device))
         return server, clients
 
+    def plan_drawer(self) -> PlanDrawer:
+        """The plan drawer for the trainer's current sizes, steps and
+        batch size."""
+        rows_of = self.data if self.data is not None else self.host_store
+        return PlanDrawer(
+            self.algorithm, self.sizes, rows_of.n_max, self.k_online,
+            self.local_steps, self.batch_size, self.augment,
+            self.participation_mode, self.vsizes,
+            self.val_data.n_max if self.val_data is not None else None)
+
     def draw_plan(self, server: ServerState) -> RoundPlan:
         """This round's plan from the server's generator."""
-        K, B, k = self.local_steps, self.batch_size, self.k_online
-        gen = server.rng
-        idx = self.algorithm.participation(gen, self.num_clients, k,
-                                           server.round, server.aux)
-        if idx is None:
-            idx = participation_indices(gen, self.num_clients, k,
-                                        server.round)
-        rows = torch.stack([
-            round_row_plan(gen, self.sizes[c], self.data.n_max, K * B)
-            for c in idx.tolist()])
-        plan = RoundPlan(idx, rows, *(draw_augment(gen, (k, K, B))
-                                      if self.augment else ()))
-        if self.algorithm.needs_val_batch:
-            plan = plan._replace(vrows=torch.stack([
-                round_row_plan(gen, self.vsizes[c], self.val_data.n_max,
-                               K * B) for c in idx.tolist()]))
-        return plan._replace(**self.algorithm.plan_draws(gen, self.sizes))
+        return self.plan_drawer()(server.rng, server.round, server.aux)
 
     # -- one communication round -----------------------------------------
     def round_fn(self, server: ServerState, clients: ClientState,
                  plan: Optional[RoundPlan] = None):
-        """One round: returns (server', clients, metrics). ``clients`` is
-        updated in place and returned. ``plan`` (default: drawn from
-        ``server.rng``) fixes the cohort, rows, augmentation draws and
-        the algorithm's own draws."""
+        """One round on the device plane: returns (server', clients,
+        metrics). ``clients`` is updated in place and returned. ``plan``
+        (default: drawn from ``server.rng``) fixes the cohort, rows,
+        augmentation draws and the algorithm's own draws."""
         if plan is None:
             plan = self.draw_plan(server)
+        data, dev = self.data, self.device
+        idx = plan.idx.to(torch.int64)
+        on = idx.to(dev)[:, None]
+        rows = plan.rows.to(dev)
+        pre_x = pre_y = None
+        if self._pre_round:
+            # each online client's first B storage rows (the JAX
+            # package clamps rows past n_max)
+            first = torch.arange(self.batch_size, device=dev).clamp_max(
+                data.n_max - 1)[None, :]
+            pre_x, pre_y = data.x[on, first], data.y[on, first]
+        shards = [(data.x[c], data.y[c]) for c in idx.tolist()] \
+            if self.algorithm.needs_full_loss else None
+        return self._round_core(server, clients, plan, data.x[on, rows],
+                                data.y[on, rows], pre_x, pre_y, shards)
+
+    def round_stream_fn(self, server: ServerState, clients: ClientState,
+                        feed: RoundFeed):
+        """One round on the stream plane, from a packed feed (rows and
+        plan on the host, tensors on the device): the round core of
+        :meth:`round_fn` on the feed's rows. ``server.rng`` is left as
+        it is; :meth:`run_round` advances it."""
+        dev = self.device
+        plan = RoundPlan(
+            feed.idx.to(torch.int64), feed.rows, feed.flip, feed.tops,
+            feed.lefts,
+            None if feed.k_rand is None else int(feed.k_rand),
+            None if feed.probe_idx is None else feed.probe_idx.long(),
+            feed.probe_rows)
+        x, y, shards = feed.x, feed.y, None
+        if self.feed_layout == "shard":
+            # whole shards: the round's rows are selected here
+            on = torch.arange(plan.idx.shape[0], device=dev)[:, None]
+            rows = plan.rows.to(dev)
+            x, y = feed.x[on, rows], feed.y[on, rows]
+            shards = list(zip(feed.x, feed.y))
+        return self._round_core(
+            server, clients, plan, x, y, feed.pre_x, feed.pre_y, shards,
+            probe=feed if feed.probe_idx is not None else None)
+
+    def _round_core(self, server: ServerState, clients: ClientState,
+                    plan: RoundPlan, x, y, pre_x, pre_y, shards=None,
+                    probe: Optional[RoundFeed] = None):
+        """The round on gathered rows: ``x``/``y`` [k, K*B, ...] in plan
+        order, ``pre_x``/``pre_y`` [k, B, ...] (when ``pre_round`` runs),
+        ``shards`` each online client's (x, y) shard (qFFL's full loss),
+        ``probe`` the feed whose probe batches DRFA's dual update takes
+        (None: ``post_round_global`` on the resident data)."""
         alg, dev = self.algorithm, self.device
         K, B, C = self.local_steps, self.batch_size, self.num_clients
         idx = plan.idx.to(torch.int64)
@@ -234,7 +414,6 @@ class FederatedTrainer:
         on_sizes = torch.tensor([self.sizes[c] for c in idx.tolist()])
         weights = alg.client_weights(server.aux, idx, num_online_eff,
                                      on_sizes).to(dev)
-        rows = plan.rows.to(dev)
         rows_dev = idx.to(dev)
         if self.augment:
             draws = [t.to(dev) for t in (plan.flip, plan.tops, plan.lefts)]
@@ -243,16 +422,14 @@ class FederatedTrainer:
             vrows = plan.vrows.to(dev)
 
         # the cross-client hook on the online clients' gathered aux and
-        # first B storage rows (the JAX package clamps rows past n_max)
+        # first B storage rows
         on_aux = tree_take(clients.aux, rows_dev)
         if self._pre_round:
             on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
                                   for c in idx.tolist()])
-            first = (rows_dev[:, None], torch.arange(B, device=dev)
-                     .clamp_max(self.data.n_max - 1)[None, :])
             on_aux = alg.pre_round(
-                on_aux, server=server, x=self.data.x[first],
-                y=self.data.y[first], sizes=on_sizes, lr=on_lrs, plan=plan)
+                on_aux, server=server, x=pre_x, y=pre_y, sizes=on_sizes,
+                lr=on_lrs, plan=plan)
 
         payloads, client_opts, client_aux, budgets = [], [], [], []
         epochs, local_index, losses, accs = [], [], [], []
@@ -263,10 +440,9 @@ class FederatedTrainer:
             # epoch-sync clients stop after their own budget
             budget = min(nb * self.cfg.federated.num_epochs_per_comm, K) \
                 if self.epoch_sync else K
-            full_loss = self._full_loss(server.params, c) \
+            full_loss = self._full_loss(server.params, *shards[j], size) \
                 if alg.needs_full_loss else None
-            x = self.data.x[c][rows[j]]
-            y = self.data.y[c][rows[j]]
+            xj, yj = x[j], y[j]
             if alg.needs_val_batch:
                 vx = self.val_data.x[c][vrows[j]]
                 vy = self.val_data.y[c][vrows[j]]
@@ -276,7 +452,7 @@ class FederatedTrainer:
             step_loss, step_acc = [], []
             for s in range(budget):
                 lr = lr_at(self.schedule, epoch)
-                bx, by = x[s * B:(s + 1) * B], y[s * B:(s + 1) * B]
+                bx, by = xj[s * B:(s + 1) * B], yj[s * B:(s + 1) * B]
                 if self.augment:
                     bx = augment_image_batch(bx, *(d[j, s] for d in draws))
                 bvx = bvy = None
@@ -353,15 +529,18 @@ class FederatedTrainer:
                                  aux=new_saux, round=server.round + 1,
                                  rng=server.rng)
         # the second global phase (DRFA's dual update)
-        new_server = alg.post_round_global(new_server, self.data, plan)
+        if probe is not None:
+            new_server = alg.post_round_global_feed(new_server, probe)
+        else:
+            new_server = alg.post_round_global(new_server, self.data, plan)
         return new_server, clients, metrics
 
-    def _full_loss(self, params, c: int) -> torch.Tensor:
-        """qFFL's F_k: the SUM of the per-batch mean losses over client
-        ``c``'s whole shard on ``params``, batch by batch in storage
-        order, the last batch's rows past its size masked out."""
-        B, size = self.batch_size, self.sizes[c]
-        x, y = self.data.x[c], self.data.y[c]
+    def _full_loss(self, params, x, y, size: int) -> torch.Tensor:
+        """qFFL's F_k: the SUM of the per-batch mean losses over one
+        client's whole shard (``x``/``y`` [n_max, ...]) on ``params``,
+        batch by batch in storage order, the last batch's rows past its
+        ``size`` masked out."""
+        B = self.batch_size
         n_max = x.shape[0]
         means = []
         with torch.no_grad():
@@ -390,17 +569,95 @@ class FederatedTrainer:
         return dict(zip(("mean_epoch", "lr", "n_online", "loss_sum",
                          "acc_sum", "comm_bytes"), vals))
 
+    # -- the stream plane's feeds ------------------------------------------
+    def next_stream_item(self, server: ServerState,
+                         window: int = 0) -> StreamItem:
+        """The producer's next feed (``window == 0``, one round) or feed
+        window (``window`` rounds). The producer is (re)started from the
+        live generator and round on first use, after
+        :meth:`invalidate_stream`, and when the window changes (feeds
+        are sequential per producer)."""
+        if self._stream is not None and self._stream.window != window:
+            self.invalidate_stream()
+        if self._stream is None:
+            self._stream = StreamFeedProducer(
+                self.host_store, batch_size=self.batch_size,
+                start_round=server.round,
+                schedule=RoundSchedule(self.plan_drawer(), server.rng,
+                                       server.round),
+                depth=self.stream_depth, window=window,
+                feed_layout=self.feed_layout, device=self.device,
+                timeout_s=self.stream_timeout_s)
+            # a trainer dropped without close() must not leave the
+            # producer thread running (the producer holds no reference
+            # back to the trainer)
+            self._stream_finalizer = weakref.finalize(
+                self, StreamFeedProducer.close, self._stream)
+        return self._stream.next_feed()
+
+    def consume_stream_round(self, server: ServerState,
+                             clients: ClientState, item: StreamItem,
+                             r: Optional[int] = None):
+        """Round ``r`` of a feed window (``r`` None: a one-round feed):
+        check that the feed is this round's and that the server's
+        generator stands where the schedule's stood before the round's
+        draws, set it to where the draws left it, and run the round."""
+        before, after = item.rng[0 if r is None else r]
+        label = item.label + (r or 0)
+        if label != server.round or not torch.equal(
+                before, server.rng.get_state()):
+            self.invalidate_stream()
+            raise RuntimeError(
+                f"stream feed for round {label} does not match the server "
+                f"state at round {server.round}: the round or the "
+                "generator moved outside the producer's schedule (call "
+                "invalidate_stream after replaying or rewriting state)")
+        server.rng.set_state(after)
+        feed = item.feed if r is None else window_round(item.feed, r)
+        return self.round_stream_fn(server, clients, feed)
+
+    def invalidate_stream(self) -> None:
+        """Drop the producer and every prefetched feed; the next streamed
+        round restarts it from the live state. Call after replaying a
+        round on saved state or rewriting the server's round or
+        generator. No-op on the device plane."""
+        if self._stream is not None:
+            self._stream_finalizer.detach()
+            self._stream_finalizer = None
+            self._stream.close()
+            self._stream = None
+
+    def close(self) -> None:
+        """Stop the stream plane's producer (no-op on the device
+        plane)."""
+        self.invalidate_stream()
+
+    def stream_stats(self) -> Optional[dict]:
+        """The producer's host counters (``StreamFeedProducer.stats``),
+        or None on the device plane and before the first streamed
+        round."""
+        return self._stream.stats() if self._stream is not None else None
+
     # -- host-side round loop ---------------------------------------------
+    def run_round(self, server, clients):
+        """One communication round on the trainer's data plane. On the
+        stream plane each call consumes the producer's next feed, so
+        calls must advance the state round by round; replaying a round
+        on saved state needs :meth:`invalidate_stream` first."""
+        if self.data_plane == "stream":
+            item = self.next_stream_item(server)
+            return self.consume_stream_round(server, clients, item)
+        return self.round_fn(server, clients)
+
     def run_rounds(self, server, clients, num_rounds: int):
-        """``num_rounds`` rounds; metrics come back with a leading
-        [num_rounds] axis, as the JAX package's scanned round program returns
-        them."""
+        """``num_rounds`` rounds through the scan cell of the round
+        program (on the stream plane: one feed window of
+        ``num_rounds`` rounds); metrics come back with a leading
+        [num_rounds] axis, as the JAX package's scanned round program
+        returns them."""
         if num_rounds < 1:
+            # refused before a feed is consumed
             raise ValueError(
                 f"run_rounds needs num_rounds >= 1, got {num_rounds}")
-        history = []
-        for _ in range(num_rounds):
-            server, clients, metrics = self.round_fn(server, clients)
-            history.append(metrics)
-        return server, clients, RoundMetrics(
-            *(torch.stack(f) for f in zip(*history)))
+        fn = self.programs.build("scan", scan_length=num_rounds)
+        return fn(server, clients)

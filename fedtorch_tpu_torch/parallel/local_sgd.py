@@ -55,6 +55,10 @@ class LocalSGDTrainer(FederatedTrainer):
 
     def __init__(self, cfg: ExperimentConfig, model: ModelDef,
                  data: ClientData, raw_splits=None, device=None):
+        if cfg.data.data_plane != "device":
+            raise ValueError("local-SGD mode runs on the device data "
+                             "plane; data_plane='stream' is for "
+                             "federated runs")
         if cfg.federated.online_client_rate != 1.0:
             cfg = dataclasses.replace(cfg, federated=dataclasses.replace(
                 cfg.federated, online_client_rate=1.0))

@@ -40,7 +40,7 @@ MODULE_MAP = {
         "core/__init__.py", "core/losses.py", "core/optim.py",
         "core/schedule.py", "core/state.py", "core/sync.py",
         "data/__init__.py", "data/batching.py", "data/datasets.py",
-        "data/partition.py", "data/synthetic.py",
+        "data/partition.py", "data/streaming.py", "data/synthetic.py",
         "models/__init__.py", "models/common.py", "models/linear.py",
         "models/mlp.py", "models/resnet.py", "models/transformer.py",
         "models/wideresnet.py",
@@ -48,6 +48,7 @@ MODULE_MAP = {
         "ops/quantize.py", "ops/simplex.py", "ops/topk.py",
         "parallel/__init__.py", "parallel/evaluate.py",
         "parallel/federated.py", "parallel/local_sgd.py",
+        "parallel/round_program.py",
         "utils/__init__.py", "utils/logging.py", "utils/meters.py",
         "utils/platform.py"),
     # the Pallas kernels became hand-written Hopper kernels
@@ -57,11 +58,12 @@ MODULE_MAP = {
         ("ported", _P + "ops/cuda/flash_attention.py"),
     "fedtorch_tpu/ops/pallas/quant_kernel.py":
         ("ported", _P + "ops/cuda/quant_kernel.py"),
-    **_rows("queued", "ROADMAP A5: the round-program builder and the "
-            "streaming plane, with the port's own host gather in place of "
-            "the native pipeline",
-            "parallel/round_program.py", "data/streaming.py",
-            "native/__init__.py", "native/host_pipeline.py"),
+    # the host pipeline's gather, padding and prefetcher; the port's
+    # gather is ATen's index_select, so native/pipeline.cpp (and its
+    # seeded permutation and svmlight parser) has no counterpart.
+    # round_program.collective_budget (the pod-scale FTP004 budget) waits
+    # for multi-GPU runs and a program audit (ROADMAP A10, A12)
+    **_ported("native/__init__.py", "native/host_pipeline.py"),
     **_rows("queued", "ROADMAP A6: in-round robustness",
             "robustness/__init__.py", "robustness/aggregators.py",
             "robustness/availability.py", "robustness/chaos.py",

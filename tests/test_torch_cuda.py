@@ -240,6 +240,48 @@ def test_quantized_round_on_the_card_matches_the_cpu(cuda):
         assert float((out["cuda"][k] - u).abs().max()) <= 2 * step + 1e-7
 
 
+def test_stream_plane_on_the_card_is_bitwise_the_resident_plane(cuda,
+                                                                 tmp_path):
+    """Quantized FedAvg on an MLP, 3 rounds from one seed: the stream
+    plane (pinned feeds copied on a side stream, from the on-disk store,
+    depth 1, then a window of 2) against the resident plane on the card,
+    bitwise, the generator's state too; the feeds on the card."""
+    from fedtorch_tpu_torch.data.streaming import save_client_store
+    rng = np.random.RandomState(3)
+    data = stack_partitions(rng.randn(96, 32, 32, 3).astype(np.float32),
+                            rng.randint(0, 10, 96),
+                            [np.arange(12 * i, 12 * i + 12)
+                             for i in range(8)])
+    save_client_store(str(tmp_path), data, clients_per_shard=3)
+    finals = {}
+    for plane in ("device", "stream"):
+        cfg = tcfg.ExperimentConfig(
+            data=tcfg.DataConfig(dataset="cifar10", batch_size=4,
+                                 data_plane=plane,
+                                 store="mmap" if plane == "stream"
+                                 else "ram", store_dir=str(tmp_path)),
+            federated=tcfg.FederatedConfig(
+                federated=True, num_clients=8, online_client_rate=0.25,
+                algorithm="fedavg", sync_type="local_step", quantized=True),
+            model=tcfg.ModelConfig(arch="mlp", mlp_hidden_size=32),
+            optim=tcfg.OptimConfig(lr=0.1),
+            train=tcfg.TrainConfig(local_step=2)).finalize()
+        tr = FederatedTrainer(cfg, define_model(cfg, 4, device=cuda),
+                              make_algorithm(cfg), data, device=cuda)
+        tr.stream_depth = 1
+        tr.stream_timeout_s = 30.0
+        server, clients = tr.init_state(11)
+        server, clients, _ = tr.run_round(server, clients)
+        server, clients, _ = tr.run_rounds(server, clients, 2)
+        if plane == "stream":
+            assert tr.stream_stats()["rounds_produced"] >= 3
+        tr.close()
+        finals[plane] = (server.params, server.rng.get_state())
+    for k, p in finals["device"][0].items():
+        assert torch.equal(p, finals["stream"][0][k]), k
+    assert torch.equal(finals["device"][1], finals["stream"][1])
+
+
 def test_quantized_fedgate_round_on_the_card_matches_the_cpu(cuda):
     """One FedCOMGATE round (FedGATE, int8 uplink and downlink through the
     ragged pair), same weights and plan, on the card (float32, TF32 off)

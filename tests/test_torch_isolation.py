@@ -110,9 +110,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     (dict(mesh__client_shards=2), "client_shards"),
     (dict(telemetry__cohort_stats=True), "cohort stats"),
     (dict(federated__sync_mode="async"), "async"),
-    (dict(data__data_plane="stream"), "stream"),
     (dict(mesh__client_fusion="fused"), "fused"),
-    (dict(federated__participation_mode="sparse"), "participation_mode"),
 ])
 def test_unported_trainer_features_raise_by_name(override, name):
     cfg = _cfg(**override)
@@ -120,6 +118,25 @@ def test_unported_trainer_features_raise_by_name(override, name):
     with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
         FederatedTrainer(cfg, model, make_algorithm(_cfg()), _data(),
                          device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    dict(data__data_plane="stream"),
+    dict(federated__participation_mode="sparse"),
+], ids=["stream", "participation_mode"])
+def test_stream_plane_and_sparse_participation_run_a_round(override):
+    """Once refused by name, now ported: a finite round through
+    ``run_round``, with no population on the stream plane's device
+    side."""
+    cfg = _cfg(**override)
+    trainer = FederatedTrainer(cfg, define_model(cfg, device="cpu"),
+                               make_algorithm(cfg), _data(), device="cpu")
+    server, clients = trainer.init_state(0)
+    server, clients, metrics = trainer.run_round(server, clients)
+    trainer.close()
+    assert server.round == 1 and int(metrics.online_mask.sum()) == 2
+    assert bool(torch.isfinite(metrics.train_loss).all())
+    assert (trainer.data is None) == (cfg.data.data_plane == "stream")
 
 
 @pytest.mark.parametrize("override, name", [
