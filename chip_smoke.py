@@ -147,6 +147,30 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    data pooled over 10 ResNet-20 workers, all online, 10 local steps of
    batch 50 a round (iteration mode: 2 rounds, the second timed), no
    kernel launched; finite losses, moved params;
+8c. tasks: the federated tasks through the library entry points
+   (``define_model`` -> ``make_algorithm`` -> ``FederatedTrainer`` ->
+   ``run_rounds`` -> ``evaluate``), int8 both ways, k = 10, batch 50, 10
+   local steps, data from ``--seed`` (``TASK_PATHS``): ``cnn_mnist`` (the
+   LeNet ``cnn``, FedAvg, 10 clients IID all online, float32, 28x28x1),
+   ``cnn_cifar`` (100 clients, bf16, 32x32x3: its ``Dense_0`` kernel of
+   640,000 elements takes the tiled pair), ``rnn_shakespeare`` (the
+   char-GRU, vocab 86, hidden 50, windows of 50 from text that the port's
+   window encoder turns into tokens and next-character labels, 100
+   characters, float32), ``mlp_emnist_apfl`` and ``mlp_emnist_drfa``
+   (an MLP of width 200 on 500 EMNIST-shaped writers of 50-150 rows:
+   APFL at alpha 0.5 on the val split, DRFA at gamma 0.1). Each path: its
+   round cut to 4 clients and 2 steps card vs CPU (TF32 off; the card's
+   wire format within one step of the plain version on its payloads, the
+   update within ``TASK_CARD_FLOOR`` or ``SPREAD_FACTOR`` times the CPU's
+   own order spread, which for the bf16 path includes the round in
+   float32); then 1 warm-up and 2 timed rounds with the counters set to 0
+   just before and read just after (2 + 2 ragged a round, and 2 + 2 tiled
+   on ``cnn_cifar``, from the leaf buckets), metrics of
+   ``[2, metrics_width]``, finite losses, and ``evaluate`` on 1,000 test
+   rows (the rnn's from a fresh carry per batch). Then ``cli_tff``: TFF
+   HDF5 files written here and read back through the CLI (``-d
+   shakespeare -a rnn``, ``-d emnist -a cnn``; 2 quantized rounds), or,
+   where ``import h5py`` fails, ``"not run: no h5py"``;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
@@ -181,7 +205,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
-``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``tasks``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
 ``transformer_f32_profile`` lines, the card's name and power limit and,
@@ -324,6 +348,55 @@ LOCALSGD_WORKERS, LOCALSGD_ROUNDS = 10, 2
 CLI_APFL_ROUNDS = 2
 CLI_APFL_WORDS = ["--federated_type", "apfl", "--fed_adaptive_alpha", "true",
                   "--num_comms", str(CLI_APFL_ROUNDS)]
+# the tasks phase: the federated tasks through the library entry points,
+# each quantized FedAvg-family round int8 both ways, data made from
+# --seed: (name, arch, dataset, compute dtype, clients, federated fields).
+# k = 10 online, batch 50, 10 local steps on every path; 1 warm-up and
+# TASK_TIMED_ROUNDS timed rounds. The MLP paths are BASELINE config 5
+# (APFL -pa 0.5 -fp, DRFA -fd -dg 0.1) at run_tpu.py's EMNIST width (200)
+TASK_PATHS = (
+    ("cnn_mnist", "cnn", "mnist", "float32", 10, dict(algorithm="fedavg")),
+    ("cnn_cifar", "cnn", "cifar10", "bfloat16", 100,
+     dict(algorithm="fedavg")),
+    ("rnn_shakespeare", "rnn", "shakespeare", "float32", 100,
+     dict(algorithm="fedavg")),
+    ("mlp_emnist_apfl", "mlp", "emnist", "float32", 500,
+     dict(algorithm="apfl", personal_alpha=0.5, personal=True)),
+    ("mlp_emnist_drfa", "mlp", "emnist", "float32", 500,
+     dict(algorithm="fedavg", drfa=True, drfa_gamma=0.1)),
+)
+TASK_ONLINE, TASK_TIMED_ROUNDS, TASK_MLP_HIDDEN = 10, 2, 200
+# rows a client: the IID image paths' (a cut: MNIST's 60,000 over 10
+# clients would be 6,000), EMNIST writers' and Shakespeare characters'
+# windows of 50 drawn uniformly from these ranges with --seed
+TASK_IMAGE_ROWS = dict(mnist=600, cifar10=250)
+EMNIST_ROWS, SHAKESPEARE_WINDOWS = (50, 150), (20, 60)
+TASK_EVAL_ROWS = 1000
+# card vs CPU: each path's round cut to 4 clients, 2 online, 2 local
+# steps (the same model, dtype, batch and wire format), from one seed,
+# TF32 off. The card's wire-format calls must be within one step of the
+# plain version on the card's own payloads; the update's relative L2
+# within the larger of TASK_CARD_FLOOR and SPREAD_FACTOR times the CPU's
+# own spread over other CPU orders measured in this run (NCHW memory
+# inside an image model, or 2 threads, and 1 thread). The bf16 cnn_cifar
+# round's orders add the same round in float32: CPU layouts and threads
+# barely move a bf16 round, but the card rounds to bf16 at other points
+# than the CPU (on an H100 at seed 0 the card sat 1.79e-2 relative L2
+# and 4.97 steps from the CPU, the CPU's own orders 2.5e-4 and 1.0), and
+# the float32 round measures what bf16 rounding moves (3.6e-2 and 11.0
+# steps at seed 0 on the CPU). It is also held in int8 downlink
+# steps, within the larger of 2 and SPREAD_FACTOR times the spread, as
+# the WideResNet round is held. The floor: what sets a float32 path's
+# gap is one-step flips of int8 wire values, and their count moves from
+# run to run with cuDNN's nondeterministic backward (cnn_mnist on an
+# H100: 1.1e-4, 1.3e-4 and 8.1e-4 relative L2 in three runs of seed 0;
+# the rnn 1.3e-4 to 4.9e-7); a wrong forward or backward moves the update
+# by order 1, and the wire format is held to one step on its own
+TASK_CARD_FLOOR = 1e-2
+TASK_CARD_CUT = dict(num_clients=4, online_client_rate=0.5, local_step=2)
+# cli_tff: the CLI on TFF HDF5 files written here (20 EMNIST writers and
+# 20 Shakespeare characters; k = 10 of them, 2 rounds)
+TFF_CLIENTS, TFF_ROUNDS = 20, 2
 PROFILE_TRIES = 3
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
@@ -440,11 +513,16 @@ def check_partials(qk, got_p, want_p, abs_sums, bitwise, what) -> float:
     return float(d[fin].max()) if bool(fin.any()) else 0.0
 
 
-def leaf_shapes(tcfg, define_model, arch, widen=None):
-    """The parameter shapes of a main path's model, in order."""
-    cfg = path_config(tcfg, arch, widen)
+def model_shapes(cfg, define_model):
+    """The parameter shapes of ``cfg``'s model, in order (built on the
+    CPU)."""
     model = define_model(cfg, batch_size=cfg.data.batch_size, device="cpu")
     return [tuple(v.shape) for _, v in model.module.named_parameters()]
+
+
+def leaf_shapes(tcfg, define_model, arch, widen=None):
+    """The parameter shapes of a main path's model, in order."""
+    return model_shapes(path_config(tcfg, arch, widen), define_model)
 
 
 def launches_per_round(qk, numels) -> dict:
@@ -2193,6 +2271,347 @@ def localsgd_phase(seed, tcfg, define_model, stack_partitions, qk, fa):
     return out
 
 
+def task_config(tcfg, arch, dataset, dtype, clients, fed, **cut):
+    """A tasks path's round: quantized, k = ``TASK_ONLINE``, batch
+    ``BATCH``, ``LOCAL_STEPS`` steps; ``cut`` overrides the client
+    count, online rate and local steps (the card-vs-CPU round)."""
+    fed = dict(fed, quantized=True, num_clients=clients,
+               online_client_rate=TASK_ONLINE / clients)
+    steps = cut.pop("local_step", LOCAL_STEPS)
+    fed.update(cut)
+    return tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset=dataset, batch_size=BATCH),
+        federated=tcfg.FederatedConfig(federated=True,
+                                       sync_type="local_step", **fed),
+        model=tcfg.ModelConfig(arch=arch, mlp_hidden_size=TASK_MLP_HIDDEN),
+        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
+        train=tcfg.TrainConfig(local_step=steps),
+        mesh=tcfg.MeshConfig(compute_dtype=dtype)).finalize()
+
+
+def shakespeare_text(rng, n_windows: int, seq_len: int) -> str:
+    """Random play text of ``n_windows`` windows of ``seq_len`` and one
+    more character, from the 86-character vocabulary with one character
+    in 50 outside it (the readers map those to 0)."""
+    from fedtorch_tpu_torch.data.datasets import _SHAKESPEARE_CHARS
+    chars = np.array(list(_SHAKESPEARE_CHARS + "{"))
+    p = np.full(len(chars), 0.98 / (len(chars) - 1))
+    p[-1] = 0.02
+    return "".join(rng.choice(chars, n_windows * seq_len + 1, p=p))
+
+
+def task_data(cfg, seed, stack_partitions):
+    """(train ClientData, personal val ClientData or None, test x, test
+    y) of a tasks path, from ``seed``: IID normalized images for the
+    cnn paths; for the rnn, each character's text made into windows of
+    ``rnn_seq_len`` with next-character labels by the port's own window
+    encoder; for EMNIST, writers of 28x28 pixels in [0, 1] (the TFF
+    files' range) whose row counts are drawn from ``EMNIST_ROWS``. The
+    clients' rows are split into train and val by ``train_val_split``
+    when the config is personalized."""
+    from fedtorch_tpu_torch.data.batching import train_val_split
+    from fedtorch_tpu_torch.data.datasets import shakespeare_windows
+    rng = np.random.RandomState(seed)
+    C, ds = cfg.federated.num_clients, cfg.data.dataset
+    if ds == "shakespeare":
+        T = cfg.model.rnn_seq_len
+        wins = [shakespeare_windows(
+            [shakespeare_text(rng, n, T).encode()], T)
+            for n in [*rng.randint(*SHAKESPEARE_WINDOWS, C), TASK_EVAL_ROWS]]
+        x = np.concatenate([w[0] for w in wins[:C]])
+        y = np.concatenate([w[1] for w in wins[:C]])
+        sizes = [len(w[0]) for w in wins[:C]]
+        test_x, test_y = wins[C]
+    else:
+        if ds == "emnist":
+            sizes = rng.randint(EMNIST_ROWS[0], EMNIST_ROWS[1] + 1, C)
+        else:
+            sizes = [TASK_IMAGE_ROWS[ds]] * C
+        shape = (28, 28, 1) if ds in ("mnist", "emnist") else (32, 32, 3)
+        n = int(np.sum(sizes)) + TASK_EVAL_ROWS
+        x = (rng.rand(n, *shape) if ds == "emnist"
+             else rng.randn(n, *shape)).astype(np.float32)
+        y = rng.randint(0, 10, n)
+        x, test_x = x[:-TASK_EVAL_ROWS], x[-TASK_EVAL_ROWS:]
+        y, test_y = y[:-TASK_EVAL_ROWS], y[-TASK_EVAL_ROWS:]
+    ends = np.cumsum(sizes)
+    parts = [np.arange(e - s, e) for s, e in zip(sizes, ends)]
+    val = None
+    if cfg.federated.personal:
+        parts, vparts = train_val_split(parts, cfg.data.val_fraction)
+        val = stack_partitions(x, y, vparts)
+    return stack_partitions(x, y, parts), val, test_x, test_y
+
+
+def _first(data, n):
+    """The first ``n`` clients of a ClientData."""
+    return None if data is None else type(data)(*(t[:n] for t in data))
+
+
+def task_card_vs_cpu(name, cfg, data, val, seed, os_mod, qk):
+    """A tasks path's round cut by ``TASK_CARD_CUT``, card vs CPU (TF32
+    off): the card's wire format within one step of the plain version on
+    its own payloads, the update held to ``TASK_CARD_FLOOR`` / the CPU
+    order spread."""
+    n = cfg.federated.num_clients
+    data, val = _first(data, n), _first(val, n)
+    bf16 = cfg.mesh.compute_dtype == "bfloat16"
+    orders = ("cpu-nchw", "cpu-1thread") if cfg.model.arch == "cnn" \
+        else ("cpu-2thread", "cpu-1thread")
+    orders += ("cpu-float32",) if bf16 else ()
+    wire = []
+
+    def record(alg):
+        # DRFA quantizes its inner algorithm's payload only
+        alg = getattr(alg, "inner", alg)
+        for hook in ("payload_batch_transform", "aggregate_transform"):
+            def recorded(tree, _real=getattr(alg, hook), _hook=hook):
+                out = _real(tree)
+                wire.append((_hook, {k: v.cpu() for k, v in tree.items()},
+                             {k: v.cpu() for k, v in out.items()}))
+                return out
+            setattr(alg, hook, recorded)
+    ups = {run: os_mod.run_round(cfg, seed, run,
+                                 record if run == "cuda" else None,
+                                 data=data, val_data=val)[0]
+           for run in ("cpu", *orders, "cuda")}
+    if len(wire) != 2:
+        raise AssertionError(f"tasks {name}: recorded {len(wire)} "
+                             "wire-format calls")
+    wire_steps = 0.0
+    for hook, tree, got in wire:
+        uplink = hook == "payload_batch_transform"
+        want = qk.fused_quantize_dequantize_tree(tree, 8, uplink)
+        for k, v in tree.items():
+            rows = v.shape[0] if uplink else 1
+            wire_steps = max(wire_steps, compare(
+                qk, got[k].reshape(rows, -1), want[k].reshape(rows, -1),
+                v.reshape(rows, -1), 8, what=f"tasks {name} {hook} {k}")[0])
+    steps, l2 = os_mod.update_gap(ups["cpu"], ups["cuda"])
+    gaps = [os_mod.update_gap(ups["cpu"], ups[o]) for o in orders]
+    s_steps, s_l2 = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    f = os_mod.SPREAD_FACTOR
+    bar_l2 = max(TASK_CARD_FLOOR, f * s_l2)
+    bar_steps = max(2.0, f * s_steps) if bf16 else None
+    out = dict(update_rel_l2=l2, update_steps=steps, spread_rel_l2=s_l2,
+               spread_steps=s_steps, bar_rel_l2=bar_l2, bar_steps=bar_steps,
+               orders=list(orders), wire_steps=wire_steps,
+               cut=TASK_CARD_CUT)
+    log(f"tasks {name} card vs CPU ({n} clients, "
+        f"{cfg.train.local_step} steps): wire format max {wire_steps:.6f} "
+        f"steps; update relative L2 {l2:.3e} (bar {bar_l2:.3e}), "
+        f"{steps:.3f} downlink steps (bar {bar_steps}); CPU order spread "
+        f"{s_l2:.3e}, {s_steps:.3f} steps")
+    if l2 > bar_l2 or (bar_steps is not None and steps > bar_steps):
+        raise AssertionError(f"tasks {name} card vs CPU: {out}")
+    return out
+
+
+def task_path(name, arch, dataset, dtype, clients, fed, seed, tcfg,
+              define_model, make_algorithm, stack_partitions,
+              FederatedTrainer, os_mod, qk, fa):
+    """One tasks path through the library entry points (``define_model``
+    -> ``make_algorithm`` -> ``FederatedTrainer`` -> ``run_rounds`` ->
+    ``evaluate``): its cut round card vs CPU, then 1 warm-up and
+    ``TASK_TIMED_ROUNDS`` timed rounds on the card with the counters set
+    to 0 just before and read just after (the leaf buckets' launches a
+    round), finite losses of the timed rounds, and the server model's
+    test loss and top-1 (the rnn's from a fresh carry per batch)."""
+    from fedtorch_tpu_torch.parallel.evaluate import evaluate
+    cfg = task_config(tcfg, arch, dataset, dtype, clients, fed)
+    t0 = time.perf_counter()
+    data, val, test_x, test_y = task_data(cfg, seed, stack_partitions)
+    data_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        held = task_card_vs_cpu(
+            name, task_config(tcfg, arch, dataset, dtype, clients, fed,
+                              **TASK_CARD_CUT),
+            data, val, seed, os_mod, qk)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    model = define_model(cfg, batch_size=cfg.data.batch_size)
+    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data,
+                               val_data=val)
+    server, clients_state = trainer.init_state(seed)
+    numels = [v.numel() for v in server.params.values()]
+    per = launches_per_round(qk, numels)
+    per.update(flash=0, flash_tc=0, flash_tf32=0)
+    rounds = 1 + TASK_TIMED_ROUNDS
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, clients_state, _ = trainer.run_rounds(server, clients_state, 1)
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    server, clients_state, metrics = trainer.run_rounds(
+        server, clients_state, TASK_TIMED_ROUNDS)
+    end.record()
+    torch.cuda.synchronize()
+    launched = counters(qk, fa)
+    want = {c: n * rounds for c, n in per.items()}
+    if launched != want:
+        raise AssertionError(f"tasks {name}: kernels launched {launched} in "
+                             f"{rounds} rounds, expected {want}")
+    if tuple(metrics.train_loss.shape) != (TASK_TIMED_ROUNDS,
+                                           trainer.metrics_width):
+        raise AssertionError(f"tasks {name}: metrics of shape "
+                             f"{tuple(metrics.train_loss.shape)}")
+    losses = (metrics.train_loss.sum(1)
+              / metrics.online_mask.sum(1)).tolist()
+    round_ms = start.elapsed_time(end) / TASK_TIMED_ROUNDS
+    t0 = time.perf_counter()
+    ev = evaluate(model, server.params, test_x, test_y)
+    loss, top1, top5 = (float(v) for v in ev)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    if not (all(math.isfinite(v) for v in losses) and math.isfinite(loss)
+            and 0.0 <= top1 <= 1.0):
+        raise AssertionError(f"tasks {name}: losses {losses}, evaluate "
+                             f"{loss} {top1}")
+    out = dict(path=name, arch=arch, dataset=dataset, dtype=dtype,
+               algorithm=cfg.effective_algorithm, quantized=True,
+               clients=clients, k=trainer.k_online, batch=BATCH,
+               local_steps=trainer.local_steps,
+               rows_per_client=[int(data.sizes.min()),
+                                int(data.sizes.max())],
+               params=sum(numels), largest_leaf=max(numels),
+               data_s=data_s, card_vs_cpu=held, warmup_round_ms=warmup_ms,
+               round_ms=round_ms,
+               local_steps_per_s=trainer.k_online * trainer.local_steps
+               / (round_ms / 1e3),
+               timed_rounds=TASK_TIMED_ROUNDS, losses=losses,
+               launches=launched, tree_launches=want,
+               launches_per_round={c: n / rounds
+                                   for c, n in launched.items()},
+               eval=dict(rows=len(test_y), loss=loss, top1=top1, top5=top5,
+                         ms=eval_ms))
+    log(f"tasks {name}: {cfg.effective_algorithm} {arch} {dtype}, "
+        f"{sum(numels)} params: {round_ms:.1f} ms/round (warm-up "
+        f"{warmup_ms:.1f}), losses {losses}, launches per round "
+        f"{out['launches_per_round']}, evaluate {eval_ms:.1f} ms: loss "
+        f"{loss:.4f} top-1 {top1:.4f}")
+    return out
+
+
+def write_tff_files(root: str, seed: int, h5py) -> dict:
+    """TFF HDF5 files in the layout the readers take (``examples/<client
+    id>/{pixels, label}`` and ``examples/<client id>/snippets``, as
+    ``tests/format_fixtures.py`` writes them): ``TFF_CLIENTS`` EMNIST
+    writers (train and test files) and Shakespeare characters from
+    ``seed``. Returns the files' bytes."""
+    rng = np.random.RandomState(seed)
+    paths = {}
+    for split, n_clients in (("train", TFF_CLIENTS), ("test", 5)):
+        p = os.path.join(root, "emnist",
+                         f"fed_emnist_digitsonly_{split}.h5")
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with h5py.File(p, "w") as f:
+            ex = f.create_group("examples")
+            for i in range(n_clients):
+                n = int(rng.randint(*EMNIST_ROWS))
+                g = ex.create_group(f"f{i:04d}_{(i * 7) % 100:02d}")
+                g.create_dataset("pixels", data=rng.rand(n, 28, 28)
+                                 .astype(np.float32))
+                g.create_dataset("label", data=rng.randint(0, 10, n)
+                                 .astype(np.int32))
+        paths[f"emnist_{split}"] = p
+    p = os.path.join(root, "shakespeare", "shakespeare_train.h5")
+    os.makedirs(os.path.dirname(p), exist_ok=True)
+    with h5py.File(p, "w") as f:
+        ex = f.create_group("examples")
+        for i in range(TFF_CLIENTS):
+            text = shakespeare_text(rng, int(rng.randint(
+                *SHAKESPEARE_WINDOWS)), 50)
+            cut = len(text) // 3
+            g = ex.create_group(f"PLAY_{i:02d}_CHARACTER")
+            g.create_dataset("snippets", data=np.asarray(
+                [text[:cut].encode(), text[cut:].encode()], dtype=object),
+                dtype=h5py.string_dtype())
+    paths["shakespeare"] = p
+    return {k: os.path.getsize(v) for k, v in paths.items()}
+
+
+def cli_tff_phase(seed, define_model, qk, fa):
+    """The CLI on TFF HDF5 files written into a temporary directory:
+    ``-d shakespeare -a rnn`` and ``-d emnist -a cnn``, quantized, 2
+    rounds of k = 10 of the first ``TFF_CLIENTS`` clients, the test set
+    evaluated every round; the counters set to 0 just before each run
+    and read just after (the model's leaf buckets' launches a round);
+    finite loss lines and test top-1. Not run, and said so, where
+    ``import h5py`` fails."""
+    import glob
+    import tempfile
+    try:
+        import h5py
+    except ImportError:
+        return "not run: no h5py"
+    from fedtorch_tpu_torch import cli
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        out["file_bytes"] = write_tff_files(root, seed, h5py)
+        for name, words in (("shakespeare_rnn", ["-d", "shakespeare", "-a",
+                                                 "rnn"]),
+                            ("emnist_cnn", ["-d", "emnist", "-a", "cnn"])):
+            argv = words + [
+                "-f", "true", "--num_workers", str(TFF_CLIENTS),
+                "--online_client_rate", "0.5", "--federated_sync_type",
+                "local_step", "--local_step", str(LOCAL_STEPS), "-b",
+                str(BATCH), "--lr", "0.1", "--quantized", "true",
+                "--num_comms", str(TFF_ROUNDS), "--eval_freq", "1", "-p",
+                root, "-c", os.path.join(root, "runs_" + name)]
+            cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+            numels = [math.prod(s) for s in model_shapes(cfg, define_model)]
+            want = {c: n * TFF_ROUNDS for c, n in
+                    launches_per_round(qk, numels).items()}
+            want.update(flash=0, flash_tc=0, flash_tf32=0)
+            reset_counters(qk, fa)
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            run_s = time.perf_counter() - t0
+            launched = counters(qk, fa)
+            (record,) = glob.glob(os.path.join(root, "runs_" + name, "**",
+                                               "record0"), recursive=True)
+            with open(record) as f:
+                losses = [float(v) for v in re.findall(
+                    r"Round: \d+\. Epoch: .*? Loss: (\S+) \|", f.read())]
+            if launched != want or len(losses) != TFF_ROUNDS or not all(
+                    math.isfinite(v) for v in losses) \
+                    or not 0.0 <= res["test_top1"] <= 1.0:
+                raise AssertionError(f"cli_tff {name}: launches {launched} "
+                                     f"(expected {want}), losses {losses},"
+                                     f" {res}")
+            out[name] = dict(rounds=res["rounds"], losses=losses,
+                             test_top1=res["test_top1"], run_s=run_s,
+                             round_ms=res["timer"]["round"] / TFF_ROUNDS
+                             * 1e3, launches=launched, tree_launches=want)
+            log(f"cli_tff {name}: {TFF_ROUNDS} rounds in {run_s:.1f} s "
+                f"({out[name]['round_ms']:.1f} ms/round), losses {losses}, "
+                f"test top-1 {res['test_top1']:.4f}, launches {launched}")
+    return out
+
+
+def tasks_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+                FederatedTrainer, os_mod, qk, fa):
+    """Every tasks path (``TASK_PATHS``), then ``cli_tff``."""
+    out = {"paths": {}}
+    for name, arch, dataset, dtype, clients, fed in TASK_PATHS:
+        out["paths"][name] = task_path(
+            name, arch, dataset, dtype, clients, fed, seed, tcfg,
+            define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, os_mod, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cli_tff"] = cli_tff_phase(seed, define_model, qk, fa)
+    return out
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -2442,6 +2861,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("tasks")
+    tasks = tasks_phase(args.seed, tcfg, define_model, make_algorithm,
+                        stack_partitions, FederatedTrainer, order_spread,
+                        qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -2497,6 +2923,10 @@ def main(argv=None) -> int:
              ("transformer_f32", f32),
              ("cli_stream_mmap", cli_out["stream_mmap"])) + tuple(
                  (f"zoo_{n}", r) for n, r in zoo["paths"].items()) + tuple(
+                 (f"tasks_{n}", r) for n, r in tasks["paths"].items()) + tuple(
+                 (f"cli_tff_{n}", tasks["cli_tff"][n])
+                 for n in ("shakespeare_rnn", "emnist_cnn")
+                 if isinstance(tasks["cli_tff"], dict)) + tuple(
                  (n, r) for n, r in stream["paths"].items()
                  if n.startswith("stream_"))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
@@ -2567,6 +2997,7 @@ def main(argv=None) -> int:
     print(json.dumps({"cli": cli_out, "cli_apfl": cli_apfl, "card": card}))
     print(json.dumps({"zoo": zoo, "card": card}))
     print(json.dumps({"localsgd": localsgd, "card": card}))
+    print(json.dumps({"tasks": tasks, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

@@ -77,14 +77,15 @@ class APFL(FedAvg):
         mean = torch.stack(alphas).mean()
         return dict(on_aux, alpha=mean.expand_as(on_aux["alpha"]).clone())
 
-    def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
-                   local_index, step_budget):
+    def local_step(self, *, params, opt, client_aux, rnn_carry,
+                   server_params, server_aux, bx, by, bval_x, bval_y, lr,
+                   step_idx, local_index, step_budget):
         # 1) the standard step of the local model (apfl.py:95-103)
-        params, opt, client_aux, loss, acc = super().local_step(
+        params, opt, client_aux, rnn_carry, loss, acc = super().local_step(
             params=params, opt=opt, client_aux=client_aux,
-            server_params=server_params, server_aux=server_aux, bx=bx,
-            by=by, bval_x=bval_x, bval_y=bval_y, lr=lr, step_idx=step_idx,
+            rnn_carry=rnn_carry, server_params=server_params,
+            server_aux=server_aux, bx=bx, by=by, bval_x=bval_x,
+            bval_y=bval_y, lr=lr, step_idx=step_idx,
             local_index=local_index, step_budget=step_budget)
         # 2) the personal step on the mixed output with the updated local
         #    model (apfl.py:105-116)
@@ -97,7 +98,7 @@ class APFL(FedAvg):
                 client_aux["personal"], dict(zip(personal, g_p)),
                 client_aux["personal_opt"], lr, self.cfg.optim)
         return params, opt, dict(client_aux, personal=new_personal,
-                                 personal_opt=p_opt), loss, acc
+                                 personal_opt=p_opt), rnn_carry, loss, acc
 
     def client_payload(self, *, delta, client_aux, params, server_params,
                        server_aux, lr, local_steps, weight, full_loss=None):

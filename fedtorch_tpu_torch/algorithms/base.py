@@ -109,22 +109,27 @@ class FedAlgorithm:
 
     # -- local loop hooks ----------------------------------------------
     def forward_reset(self, params, bx):
-        """The forward of an auxiliary probe (DRFA's kth-model loss). The
-        JAX package starts a recurrent model's carry fresh here; the
-        port has no recurrent model yet, so this is the plain forward."""
-        return self.model.apply(params, bx)
+        """The forward of every auxiliary probe (personal models, the
+        outer MAML step, DRFA's kth-model loss): a recurrent model starts
+        from a fresh zero carry here; only the engine's main local loop
+        threads a carry across steps."""
+        return self.model.forward(params, bx)
 
     def transform_grads(self, grads, *, params, server_params, client_aux,
                         server_aux, lr):
         """Gradient correction before the optimizer step."""
         return grads
 
-    def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
-                   local_index, step_budget):
+    def local_step(self, *, params, opt, client_aux, rnn_carry,
+                   server_params, server_aux, bx, by, bval_x, bval_y, lr,
+                   step_idx, local_index, step_budget):
         """One local step: forward, backward, gradient correction,
-        dual-mode optimizer step. Returns (params, opt, client_aux, loss,
-        acc) with loss/acc as 0-d tensors (no host sync). ``step_idx``
+        dual-mode optimizer step. Returns (params, opt, client_aux,
+        rnn_carry, loss, acc) with loss/acc as 0-d tensors (no host
+        sync). ``rnn_carry`` is a recurrent model's hidden state entering
+        the step (None for a feed-forward model); the returned one is the
+        forward's, detached: the gradient is taken with respect to the
+        params only. ``step_idx``
         counts from 0; ``step_budget`` is the steps the client takes this
         round (its epoch-sync budget, else the round's K): the engine
         skips the steps past it, so step-indexed logic anchors on it.
@@ -133,7 +138,11 @@ class FedAlgorithm:
         validation batch when ``needs_val_batch``, else None."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
-        logits = self.model.apply(leaves, bx)
+        if self.model.is_recurrent:
+            logits, rnn_carry = self.model.apply(leaves, bx, rnn_carry)
+            rnn_carry = rnn_carry.detach()
+        else:
+            logits = self.model.apply(leaves, bx)
         loss = self.criterion(logits, by)
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
@@ -145,7 +154,7 @@ class FedAlgorithm:
                                            self.cfg.optim)
             acc = accuracy(logits, by) if not self.model.is_regression \
                 else logits.new_zeros((), dtype=torch.float32)
-        return params, opt, client_aux, loss.detach(), acc
+        return params, opt, client_aux, rnn_carry, loss.detach(), acc
 
     # -- aggregation -----------------------------------------------------
     def client_weights(self, server_aux, online_idx, num_online_eff,

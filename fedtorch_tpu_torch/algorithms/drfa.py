@@ -117,21 +117,22 @@ class DRFA(FedAlgorithm):
         k_rand = torch.full_like(on_aux["k_rand"], self._k_rand)
         return dict(on_aux, inner=inner_aux, k_rand=k_rand)
 
-    def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
-                   local_index, step_budget):
-        params, opt, inner_aux, loss, acc = self.inner.local_step(
-            params=params, opt=opt, client_aux=client_aux["inner"],
-            server_params=server_params, server_aux=server_aux["inner"],
-            bx=bx, by=by, bval_x=bval_x, bval_y=bval_y, lr=lr,
-            step_idx=step_idx, local_index=local_index,
-            step_budget=step_budget)
+    def local_step(self, *, params, opt, client_aux, rnn_carry,
+                   server_params, server_aux, bx, by, bval_x, bval_y, lr,
+                   step_idx, local_index, step_budget):
+        params, opt, inner_aux, rnn_carry, loss, acc = \
+            self.inner.local_step(
+                params=params, opt=opt, client_aux=client_aux["inner"],
+                rnn_carry=rnn_carry, server_params=server_params,
+                server_aux=server_aux["inner"], bx=bx, by=by,
+                bval_x=bval_x, bval_y=bval_y, lr=lr, step_idx=step_idx,
+                local_index=local_index, step_budget=step_budget)
         # the snapshot after min(k_rand, budget) steps; k_rand is the
         # plan's, the same for every client of the round
         k_snap = min(self._k_rand, step_budget)
         kth = params if step_idx + 1 == k_snap else client_aux["kth"]
         return params, opt, dict(client_aux, inner=inner_aux, kth=kth), \
-            loss, acc
+            rnn_carry, loss, acc
 
     # -- aggregation -------------------------------------------------------
     def client_payload(self, *, delta, client_aux, params, server_params,

@@ -32,14 +32,15 @@ class PerFedAvg(FedAvg):
             local_steps=local_steps, weight=weight, full_loss=full_loss)
         return payload, dict(aux, local_snapshot=params)
 
-    def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
-                   local_index, step_budget):
+    def local_step(self, *, params, opt, client_aux, rnn_carry,
+                   server_params, server_aux, bx, by, bval_x, bval_y, lr,
+                   step_idx, local_index, step_budget):
         # the inner step (centered/main.py:127-141)
-        params, opt, client_aux, loss, acc = super().local_step(
+        params, opt, client_aux, rnn_carry, loss, acc = super().local_step(
             params=params, opt=opt, client_aux=client_aux,
-            server_params=server_params, server_aux=server_aux, bx=bx,
-            by=by, bval_x=bval_x, bval_y=bval_y, lr=lr, step_idx=step_idx,
+            rnn_carry=rnn_carry, server_params=server_params,
+            server_aux=server_aux, bx=bx, by=by, bval_x=bval_x,
+            bval_y=bval_y, lr=lr, step_idx=step_idx,
             local_index=local_index, step_budget=step_budget)
         # the outer step at beta on the val batch (centered/main.py:156-170)
         leaves = {k: v.detach().requires_grad_(True)
@@ -51,4 +52,4 @@ class PerFedAvg(FedAvg):
             params, opt = optim.local_step(
                 params, dict(zip(leaves, g)), opt,
                 self.cfg.federated.perfedavg_beta, self.cfg.optim)
-        return params, opt, client_aux, loss, acc
+        return params, opt, client_aux, rnn_carry, loss, acc

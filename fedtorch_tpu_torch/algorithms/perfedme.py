@@ -37,9 +37,9 @@ class PerFedMe(FedAvg):
                                                         self.cfg.optim),
         }
 
-    def local_step(self, *, params, opt, client_aux, server_params,
-                   server_aux, bx, by, bval_x, bval_y, lr, step_idx,
-                   local_index, step_budget):
+    def local_step(self, *, params, opt, client_aux, rnn_carry,
+                   server_params, server_aux, bx, by, bval_x, bval_y, lr,
+                   step_idx, local_index, step_budget):
         lam = self.cfg.federated.perfedme_lambda
         ocfg = self.cfg.optim
         personal = client_aux["personal"]
@@ -68,4 +68,5 @@ class PerFedMe(FedAvg):
             acc = logits.new_zeros((), dtype=torch.float32) \
                 if self.model.is_regression else accuracy(logits, by)
         return params, opt, dict(client_aux, personal=personal,
-                                 personal_opt=p_opt), loss.detach(), acc
+                                 personal_opt=p_opt), rnn_carry, \
+            loss.detach(), acc

@@ -7,7 +7,7 @@ names its modules as the flax modules are named, so a path maps onto a
 key by joining with '.' and renaming the leaf by the kind of the module
 that owns it:
 
-* ``Conv``: ``kernel`` HWIO -> ``weight`` OIHW
+* ``Conv``: ``kernel`` HWIO -> ``weight`` OIHW, ``bias``
 * ``Dense``: ``kernel`` (in, out) -> ``weight`` (out, in), ``bias``
 * ``BatchStatsNorm``, ``LayerNorm``: ``scale``, ``bias`` -> ``weight``,
   ``bias``
@@ -18,11 +18,13 @@ With ``module`` (the port's model) the kind is the class of the
 submodule that owns the leaf, so explicitly named layers (the
 transformer's ``qkv``, ``ln1``, ``tok_embed``) map too; without it, the
 kind is read off flax's auto-name (``Conv_0`` -> ``Conv``), which covers
-the ResNet, WideResNet and linear trees, and a layer named explicitly
-(the MLP's ``layer1`` and ``fc``) maps by its leaf and rank: a 2-D
-kernel is a ``Dense`` one, a 4-D kernel a ``Conv`` one, a 1-D scale a
-norm's (an ``Embed`` table, 2-D like a ``Dense`` weight, needs
-``module``).
+the ResNet, WideResNet, LeNet ``cnn`` and linear trees, and a layer
+named explicitly (the MLP's ``layer1`` and ``fc``, the char-GRU's gates
+``gru_l0.ir`` ... ``hn`` and ``decoder``) maps by its leaf and rank: a
+2-D kernel is a ``Dense`` one, a 4-D kernel a ``Conv`` one, a 1-D scale
+a norm's (an explicitly named ``Embed`` table, 2-D like a ``Dense``
+weight, needs ``module``). A gate without a bias (the GRU's ``hr`` and
+``hz``) has no bias leaf on either side.
 
 Both directions raise on any leaf they cannot map, and
 :func:`params_from_jax` raises when the result does not cover the model
@@ -50,7 +52,8 @@ def _t(v):
 # ndim None takes any rank
 _RULES = {
     "Conv": {"kernel": ("weight", lambda v: v.transpose(3, 2, 0, 1),
-                        lambda v: v.transpose(2, 3, 1, 0), 4)},
+                        lambda v: v.transpose(2, 3, 1, 0), 4),
+             "bias": ("bias", _same, _same, None)},
     "Dense": {"kernel": ("weight", _t, _t, 2),
               "bias": ("bias", _same, _same, None)},
     "BatchStatsNorm": {"scale": ("weight", _same, _same, None),

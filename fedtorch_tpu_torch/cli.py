@@ -34,7 +34,12 @@ accuracy over the clients' val rows. ``--federated false`` runs
 local-SGD mode (``parallel/local_sgd.py``): the training set pooled and
 re-partitioned IID over ``--num_workers``, ``LocalSGDTrainer.fit`` to
 the epoch or iteration count, one test evaluation at the end, and the
-JAX package's ``{"test_top1", "rounds"}``. The JAX run writes
+JAX package's ``{"test_top1", "rounds"}``. Every dataset of the JAX
+package is read from ``--data_dir`` (EMNIST and Shakespeare from their
+TFF HDF5 files with ``--allow_train_as_test``, adult with
+``--sensitive_feature``), and ``-a cnn`` and ``-a rnn`` run beside the
+earlier models (``define_model`` refuses the rest by name). The JAX run
+writes
 checkpoints and telemetry rows; the port writes neither yet, and logs
 one line saying so.
 
@@ -630,11 +635,14 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     if not cfg.federated.federated:
         # local-SGD mode: the workers' shards pooled back into one
         # training set (padding rows included, as the JAX package pools
-        # them) and re-partitioned IID across the workers
+        # them) and re-partitioned IID across the workers; a sequence
+        # model's [T] label rows stay rows (the JAX CLI flattens them
+        # into single labels and fails on them)
         x, y = (t.numpy() for t in fed_data.train[:2])
         trainer = build_local_sgd(cfg, model,
                                   x.reshape((-1,) + x.shape[2:]),
-                                  y.reshape(-1), device=device)
+                                  y.reshape((-1,) + y.shape[2:]),
+                                  device=device)
         server, _, history = trainer.fit(cfg.train.manual_seed)
         loss, top1, top5 = (float(v) for v in evaluate(
             model, server.params, fed_data.test_x, fed_data.test_y))

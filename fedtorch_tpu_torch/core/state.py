@@ -42,11 +42,16 @@ class ServerState(NamedTuple):
 
 class RoundMetrics(NamedTuple):
     """The per-round metrics of the JAX package's ``RoundMetrics`` that
-    the ported (fault-free) round produces; the per-client vectors are
-    [C] with offline rows zero."""
-    train_loss: torch.Tensor   # [C] mean local loss of each online client
-    train_acc: torch.Tensor    # [C] mean local top-1 of each online client
-    online_mask: torch.Tensor  # [C] 1.0 for this round's online clients
+    the ported (fault-free) round produces. The three per-client leaves
+    are [C] under 'perm' participation, offline rows zero, and the
+    cohort-aligned [k] (in the round plan's order) under 'sparse';
+    ``FederatedTrainer.metrics_width`` names the width. Consumers that
+    sum them get the same numbers in either layout. The JAX package's
+    ``cohort_idx`` rides only with its cohort statistics, which the port
+    refuses."""
+    train_loss: torch.Tensor   # [C]|[k] mean local loss of each online client
+    train_acc: torch.Tensor    # [C]|[k] mean local top-1 of each online client
+    online_mask: torch.Tensor  # [C]|[k] 1.0 for this round's online clients
     comm_bytes: torch.Tensor   # scalar — uplink payload volume
 
 

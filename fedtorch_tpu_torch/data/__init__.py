@@ -40,8 +40,8 @@ def choose_partitions(splits: DatasetSplits, cfg: ExperimentConfig,
     """Partition-scheme dispatch (partition.py:106-220)."""
     d = cfg.data
     if splits.client_partitions is not None:
-        # naturally-federated (synthetic): client i's file is its
-        # partition; when there are more natural clients than requested,
+        # naturally-federated (emnist/shakespeare/synthetic): client i's
+        # file is its partition; when there are more natural clients than requested,
         # take the first num_clients
         parts = splits.client_partitions
         if len(parts) < num_clients:
@@ -68,7 +68,8 @@ def choose_partitions(splits: DatasetSplits, cfg: ExperimentConfig,
 def build_federated_data(cfg: ExperimentConfig,
                          download: bool = False) -> FederatedData:
     num_clients = cfg.federated.num_clients
-    splits = get_dataset(cfg.data, num_clients, download=download)
+    splits = get_dataset(cfg.data, num_clients, download=download,
+                         seq_len=cfg.model.rnn_seq_len)
     parts = choose_partitions(splits, cfg, num_clients)
     val = None
     if cfg.federated.personal:

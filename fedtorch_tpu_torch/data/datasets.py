@@ -1,25 +1,23 @@
 """Dataset factory (port of ``fedtorch_tpu/data/datasets.py``).
 
-The loaders that need only numpy, each the JAX package's, so the arrays
-are equal: the MNIST family (idx files), CIFAR-10/100 (the python pickle
-batches, normalised to NHWC with ``MEAN_STD``), STL-10 (binary), the
-synthetic tasks, and the LibSVM datasets through a numpy svmlight parser
-that takes what the JAX package's native parser takes and refuses what
-it refuses. Every loader returns :class:`DatasetSplits` of numpy arrays.
+Each loader is the JAX package's, so the arrays are equal: the MNIST
+family (idx files), CIFAR-10/100 (the python pickle batches, normalised
+to NHWC with ``MEAN_STD``), STL-10 (binary), the synthetic tasks, the
+TFF federated HDF5 files of EMNIST (digits and full) and Shakespeare
+(read through ``h5py``, with their natural per-writer or per-character
+partitions), UCI adult (``pandas`` and ``sklearn``'s ``StandardScaler``,
+with the sensitive feature's values for the fair partition), and the
+LibSVM datasets through a numpy svmlight parser that takes what the JAX
+package's native parser takes; text it rejects goes to ``sklearn``'s
+parser, as in the JAX package. ``h5py``, ``pandas`` and ``sklearn`` are
+imported inside the readers that need them, so the module imports
+without them. Every loader returns :class:`DatasetSplits` of numpy
+arrays.
 
-Refused by name, with the reason:
-
-- ``emnist``, ``emnist_full`` and ``shakespeare``: their TFF files are
-  HDF5, read through ``h5py``;
-- ``adult``, and svmlight text the numpy parser rejects: the JAX package
-  reads them through ``sklearn`` (``StandardScaler``, its svmlight
-  fallback);
-- ``download=True``: the machines the port is built and tested on have
-  no network, so a fetch could never be tested. Place the files under
-  ``data_dir``.
-
-A missing file raises the JAX package's error, which names the expected
-files and their source.
+``download=True`` is refused by name: the machines the port is built and
+tested on have no network, so a fetch could never be tested. Place the
+files under ``data_dir``. A missing file raises the JAX package's error,
+which names the expected files and their source.
 """
 from __future__ import annotations
 
@@ -28,6 +26,7 @@ import gzip
 import os
 import pickle
 import struct
+import sys
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -50,17 +49,16 @@ URLS = {
                      ".amazonaws.com/",
     "cifar10": "https://www.cs.toronto.edu/~kriz/cifar-10-python.tar.gz",
     "cifar100": "https://www.cs.toronto.edu/~kriz/cifar-100-python.tar.gz",
+    "emnist": "https://storage.googleapis.com/tff-datasets-public/"
+              "fed_emnist_digitsonly.tar.bz2",
+    "emnist_full": "https://storage.googleapis.com/tff-datasets-public/"
+                   "fed_emnist.tar.bz2",
+    "shakespeare": "https://storage.googleapis.com/tff-datasets-public/"
+                   "shakespeare.tar.bz2",
+    "adult": "https://archive.ics.uci.edu/ml/machine-learning-databases/"
+             "adult/",
     "stl10": "http://ai.stanford.edu/~acoates/stl10/stl10_binary.tar.gz",
     "libsvm": "https://www.csie.ntu.edu.tw/~cjlin/libsvmtools/datasets/",
-}
-
-# datasets whose readers need a package the port does not use
-_REFUSED = {
-    "emnist": "its TFF files are HDF5 and need h5py",
-    "emnist_full": "its TFF files are HDF5 and need h5py",
-    "shakespeare": "its TFF files are HDF5 and need h5py",
-    "adult": "its loader encodes and standardises through pandas and "
-             "sklearn",
 }
 
 
@@ -165,6 +163,119 @@ def load_cifar(dataset: str, data_dir: str) -> DatasetSplits:
                          test_y=test_y.astype(np.int64))
 
 
+# -- TFF federated HDF5 (EMNIST / Shakespeare) ------------------------------
+
+def load_emnist(data_dir: str, full: bool = False,
+                allow_train_as_test: bool = False) -> DatasetSplits:
+    """TFF fed_emnist HDF5: naturally federated handwriting, one client
+    per writer in ``sorted()`` key order (ref:
+    federated_datasets.py:15-138). A missing test split raises unless
+    ``allow_train_as_test``, which takes the first 256 training rows as
+    the test set (and says so on stderr): that reports train accuracy as
+    test accuracy."""
+    import h5py
+    name = "fed_emnist" if full else "fed_emnist_digitsonly"
+    base = os.path.join(data_dir, "emnist_full" if full else "emnist")
+    train_p = os.path.join(base, f"{name}_train.h5")
+    test_p = os.path.join(base, f"{name}_test.h5")
+    if not os.path.exists(train_p):
+        raise _missing("emnist_full" if full else "emnist", train_p)
+
+    def read(path):
+        xs, ys, parts = [], [], []
+        with h5py.File(path, "r") as f:
+            ex = f["examples"]
+            offset = 0
+            for client in sorted(ex.keys()):
+                px = np.asarray(ex[client]["pixels"])
+                py = np.asarray(ex[client]["label"])
+                xs.append(px)
+                ys.append(py)
+                parts.append(np.arange(offset, offset + len(py)))
+                offset += len(py)
+        x = np.concatenate(xs).astype(np.float32)[..., None]
+        y = np.concatenate(ys).astype(np.int64)
+        return x, y, parts
+
+    train_x, train_y, parts = read(train_p)
+    if os.path.exists(test_p):
+        test_x, test_y, _ = read(test_p)
+    else:
+        if not allow_train_as_test:
+            raise FileNotFoundError(
+                f"EMNIST test split missing: {test_p}. Refusing to "
+                "silently substitute training rows as the test set — "
+                "that reports train accuracy as test accuracy. Fetch "
+                "the full archive (--download), or opt in explicitly "
+                "with --allow_train_as_test if a train-slice pseudo "
+                "test set is acceptable for this run.")
+        print(f"warning: {test_p} missing — using a 256-sample slice of "
+              "the training data as the test set (allow_train_as_test "
+              "opt-in)", file=sys.stderr)
+        test_x, test_y = train_x[:256], train_y[:256]
+    return DatasetSplits(train_x, train_y, test_x, test_y,
+                         client_partitions=parts)
+
+
+# The 86-character TFF shakespeare vocabulary: a character's place is
+# its token id; characters outside it map to id 0 (the JAX package's
+# _SHAKESPEARE_CHARS, byte for byte).
+_SHAKESPEARE_CHARS = (
+    "dhlptx@DHLPTX $(,048cgkoswCGKOSW[_#'/37;?bfjnrvzBFJNRVZ\"&*.26:"
+    "\naeimquyAEIMQUY]!%)-159\r"
+)
+
+
+def shakespeare_vocab():
+    """char -> id mapping over the 86-char TFF vocabulary."""
+    return {c: i for i, c in enumerate(_SHAKESPEARE_CHARS)}
+
+
+def shakespeare_windows(snippets, seq_len: int = 50):
+    """One client's snippets (UTF-8 bytes, undecodable bytes dropped) ->
+    ``[n_win, seq_len]`` int32 token windows and their next-character
+    targets, ``n_win = (len - 1) // seq_len``; (None, None) for a client
+    with no whole window (ref: federated_datasets.py:366-368)."""
+    vocab = shakespeare_vocab()
+    text = b"".join(np.asarray(snippets).tolist()).decode(
+        "utf-8", errors="ignore")
+    ids = np.asarray([vocab.get(c, 0) for c in text], np.int32)
+    n_win = (len(ids) - 1) // seq_len
+    if n_win == 0:
+        return None, None
+    x = ids[:n_win * seq_len].reshape(n_win, seq_len)
+    y = ids[1:n_win * seq_len + 1].reshape(n_win, seq_len)
+    return x, y
+
+
+def load_shakespeare(data_dir: str, seq_len: int = 50) -> DatasetSplits:
+    """TFF shakespeare HDF5 -> per-client char windows with next-char
+    targets (ref: federated_datasets.py:309-479). Clients in ``sorted()``
+    key order; a client with no whole window is skipped, so the
+    partitions stay contiguous. The test split is the first training
+    window, as in the JAX package."""
+    import h5py
+    train_p = os.path.join(data_dir, "shakespeare", "shakespeare_train.h5")
+    if not os.path.exists(train_p):
+        raise _missing("shakespeare", train_p)
+    xs, ys, parts = [], [], []
+    offset = 0
+    with h5py.File(train_p, "r") as f:
+        ex = f["examples"]
+        for client in sorted(ex.keys()):
+            x, y = shakespeare_windows(ex[client]["snippets"], seq_len)
+            if x is None:
+                continue
+            xs.append(x)
+            ys.append(y)
+            parts.append(np.arange(offset, offset + len(x)))
+            offset += len(x)
+    train_x = np.concatenate(xs)
+    train_y = np.concatenate(ys)
+    return DatasetSplits(train_x, train_y, train_x[:1], train_y[:1],
+                         client_partitions=parts)
+
+
 # -- LibSVM datasets --------------------------------------------------------
 
 _LIBSVM_FILES = {
@@ -226,30 +337,42 @@ def _svmlight_rows(data: bytes):
     return rows
 
 
-def _read_svmlight_dense(path: str, n_features=None):
-    """One svmlight file -> (dense float32 ``[n, f]``, float32 labels),
-    ``f`` the largest index unless given. Values go through Python's
-    float (a double) to float32, where the JAX package's native parser
-    reads float32 directly: the two differ only for a decimal within
-    2^-53 of a float32 rounding midpoint. Input the native parser refuses
-    (where the JAX package falls back to sklearn) raises."""
-    try:
-        rows = _svmlight_rows(_read_file_bytes(path))
-        if n_features is None:
-            n_features = max((p[-1][0] for _, p in rows if p), default=0)
-        labels = np.asarray([lab for lab, _ in rows], np.float32)
-        dense = np.zeros((len(rows), n_features), np.float32)
-        for r, (_, pairs) in enumerate(rows):
-            if pairs and pairs[-1][0] > n_features:
-                raise ValueError(f"index {pairs[-1][0]} past {n_features}")
-            for idx, val in pairs:
-                dense[r, idx - 1] = float(val)
-    except ValueError as e:
-        raise ValueError(
-            f"{path}: svmlight text the port's parser refuses ({e}); the "
-            "JAX package falls back to sklearn's parser there, which is "
-            "not ported") from e
+def _parse_svmlight(data: bytes, n_features=None):
+    """svmlight text -> (dense float32 ``[n, f]``, float32 labels), ``f``
+    the largest index unless given; ValueError where the JAX package's
+    native parser refuses the text. Values go through Python's float (a
+    double) to float32, where the native parser reads float32 directly:
+    the two differ only for a decimal within 2^-53 of a float32 rounding
+    midpoint."""
+    rows = _svmlight_rows(data)
+    if n_features is None:
+        n_features = max((p[-1][0] for _, p in rows if p), default=0)
+    labels = np.asarray([lab for lab, _ in rows], np.float32)
+    dense = np.zeros((len(rows), n_features), np.float32)
+    for r, (_, pairs) in enumerate(rows):
+        if pairs and pairs[-1][0] > n_features:
+            raise ValueError(f"index {pairs[-1][0]} past {n_features}")
+        for idx, val in pairs:
+            dense[r, idx - 1] = float(val)
     return dense, labels
+
+
+def _read_svmlight_dense(path: str, n_features=None):
+    """One svmlight file -> (dense float32 ``[n, f]``, labels): the numpy
+    parser, which takes the place of the JAX package's native one; text
+    it rejects, and a corrupt ``.bz2``, go to
+    ``sklearn.datasets.load_svmlight_file`` after the JAX package's
+    warning on stderr."""
+    try:
+        return _parse_svmlight(_read_file_bytes(path), n_features)
+    # ValueError: the parser rejected the text; OSError/EOFError: a
+    # corrupt or trailing-garbage .bz2 — sklearn gets its own chance
+    except (ValueError, OSError, EOFError) as e:
+        print(f"warning: native svmlight parser rejected {path} "
+              f"({e}); falling back to sklearn", file=sys.stderr)
+    from sklearn.datasets import load_svmlight_file
+    x, y = load_svmlight_file(path, n_features=n_features)
+    return np.asarray(x.todense(), np.float32), y
 
 
 def load_libsvm(dataset: str, data_dir: str) -> DatasetSplits:
@@ -283,6 +406,52 @@ def load_libsvm(dataset: str, data_dir: str) -> DatasetSplits:
     return DatasetSplits(x, y, tx, ty)
 
 
+# -- Adult ------------------------------------------------------------------
+
+_ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
+                  "marital-status", "occupation", "relationship", "race",
+                  "sex", "capital-gain", "capital-loss", "hours-per-week",
+                  "native-country", "income"]
+
+
+def load_adult(data_dir: str, sensitive_feature: int = 9) -> DatasetSplits:
+    """UCI adult CSV: categorical codes, standardisation, and the
+    sensitive feature's unscaled values (ref: loader/adult_loader.py:
+    28-160; default sensitive feature 9 = sex, parameters.py:37). The
+    categorical codes are taken over the concatenated train and test
+    frames, so both files share them."""
+    import pandas as pd
+    from sklearn.preprocessing import StandardScaler
+    base = os.path.join(data_dir, "adult")
+    train_p = os.path.join(base, "adult.data")
+    test_p = os.path.join(base, "adult.test")
+    for p in (train_p, test_p):
+        if not os.path.exists(p):
+            raise _missing("adult", p)
+
+    def read(path, skip=0):
+        return pd.read_csv(path, names=_ADULT_COLUMNS, skiprows=skip,
+                           skipinitialspace=True, na_values="?").dropna()
+
+    df_train, df_test = read(train_p), read(test_p, skip=1)
+    df = pd.concat([df_train, df_test], keys=["train", "test"])
+    y_all = df["income"].str.contains(">50K").astype(np.int64)
+    df = df.drop(columns=["income"])
+    for col in df.columns:
+        if not pd.api.types.is_numeric_dtype(df[col]):
+            df[col] = df[col].astype("category").cat.codes
+    train_x = df.loc["train"].to_numpy(np.float32)
+    test_x = df.loc["test"].to_numpy(np.float32)
+    train_y = y_all.loc["train"].to_numpy()
+    test_y = y_all.loc["test"].to_numpy()
+    sensitive = train_x[:, sensitive_feature].copy()
+    scaler = StandardScaler().fit(train_x)
+    return DatasetSplits(scaler.transform(train_x).astype(np.float32),
+                         train_y,
+                         scaler.transform(test_x).astype(np.float32),
+                         test_y, sensitive_values=sensitive)
+
+
 # -- STL10 ------------------------------------------------------------------
 
 def load_stl10(data_dir: str) -> DatasetSplits:
@@ -307,17 +476,15 @@ def load_stl10(data_dir: str) -> DatasetSplits:
 # -- Factory ----------------------------------------------------------------
 
 def get_dataset(cfg: DataConfig, num_clients: int,
-                download: bool = False) -> DatasetSplits:
-    """Dispatch on dataset name (prepare_data.py:124-163)."""
+                download: bool = False, seq_len: int = 50) -> DatasetSplits:
+    """Dispatch on dataset name (prepare_data.py:124-163); ``seq_len``
+    is the Shakespeare window (the model's ``rnn_seq_len``)."""
     name, root = cfg.dataset, cfg.data_dir
     if download:
         raise ValueError("download=True (fetching a dataset) is not yet "
                          "ported: no machine the port runs on has a "
                          f"network to test it; place the {name} files "
                          f"under {root}")
-    if name in _REFUSED:
-        raise ValueError(f"dataset {name!r} is not yet ported: "
-                         f"{_REFUSED[name]}, which the port does not use")
     if name == "synthetic":
         # synthetic_samples_per_client scales the reference's 500/1000
         # lognormal size window (federated_datasets.py:253 defaults)
@@ -343,8 +510,15 @@ def get_dataset(cfg: DataConfig, num_clients: int,
         return load_mnist_family(name, root)
     if name in ("cifar10", "cifar100"):
         return load_cifar(name, root)
+    if name in ("emnist", "emnist_full"):
+        return load_emnist(root, full=name == "emnist_full",
+                           allow_train_as_test=cfg.allow_train_as_test)
+    if name == "shakespeare":
+        return load_shakespeare(root, seq_len=seq_len)
     if name in _LIBSVM_FILES:
         return load_libsvm(name, root)
+    if name == "adult":
+        return load_adult(root, cfg.sensitive_feature)
     if name == "stl10":
         return load_stl10(root)
     raise ValueError(f"Unknown dataset {name!r}")

@@ -1,22 +1,26 @@
 """Model registry (port of ``fedtorch_tpu/models/__init__.py``).
 
 The CIFAR-family ``resnet*`` and ``wideresnet*`` (without dropout) with
-``norm='bn'`` and the native conv lowering, the causal ``transformer``
-LM (dense MLP blocks), and the flat models ``logistic_regression``,
-``least_square`` and ``mlp`` (without dropout) are ported; every other
-architecture and option is refused by name.
+``norm='bn'`` and the native conv lowering, the LeNet ``cnn``, the
+char-GRU ``rnn`` (a recurrent :class:`ModelDef` on ``[batch,
+rnn_seq_len]`` int64 tokens), the causal ``transformer`` LM (dense MLP
+blocks), and the flat models ``logistic_regression``, ``least_square``
+and ``mlp`` (without dropout) are ported; every other architecture and
+option is refused by name.
 """
 from __future__ import annotations
 
 import torch
 
 from fedtorch_tpu_torch.config import ExperimentConfig
+from fedtorch_tpu_torch.models.cnn import CNN
 from fedtorch_tpu_torch.models.common import (
     REGRESSION_DIMS, ModelDef, flat_input_size, image_shape,
 )
 from fedtorch_tpu_torch.models.linear import LeastSquare, LogisticRegression
 from fedtorch_tpu_torch.models.mlp import MLP
 from fedtorch_tpu_torch.models.resnet import build_resnet
+from fedtorch_tpu_torch.models.rnn import CharGRU
 from fedtorch_tpu_torch.models.transformer import TransformerLM
 from fedtorch_tpu_torch.models.wideresnet import build_wideresnet
 from fedtorch_tpu_torch.utils import resolve_device
@@ -38,25 +42,32 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     dtype = COMPUTE_DTYPES[cfg.mesh.compute_dtype]
     if arch == "transformer":
         return _transformer(m, dtype, batch_size, device)
+    if arch == "rnn":
+        module = CharGRU(m.vocab_size, m.rnn_hidden_size, dtype=dtype)
+        sample = torch.zeros((batch_size, m.rnn_seq_len), dtype=torch.int64,
+                             device=device)
+        return ModelDef(arch, module.to(device), sample, is_recurrent=True)
     if arch in _FLAT_ARCHS:
         return _flat(cfg, dtype, batch_size, device)
     if arch in _REFUSED_ARCHS:
         raise ValueError(f"arch {arch!r} is not yet ported: "
                          f"{_REFUSED_ARCHS[arch]}")
-    if not arch.startswith(("resnet", "wideresnet")):
+    if not arch.startswith(("resnet", "wideresnet")) and arch != "cnn":
         raise ValueError(f"arch {arch!r} is not yet ported (the port has "
-                         "the cifar resnet* and wideresnet* families, the "
-                         f"transformer and {', '.join(_FLAT_ARCHS)})")
+                         "the cifar resnet* and wideresnet* families, cnn, "
+                         f"rnn, the transformer and {', '.join(_FLAT_ARCHS)})")
     if arch.startswith("wideresnet") and m.drop_rate > 0:
         raise ValueError(f"drop_rate {m.drop_rate} (dropout in "
                          "wideresnet blocks) is not yet ported")
-    if m.norm != "bn":
+    if m.norm != "bn" and arch != "cnn":  # the cnn has no norm
         raise ValueError(f"norm {m.norm!r} is not yet ported (the port "
                          "has norm='bn')")
     if m.conv_impl not in ("conv", "auto"):
         raise ValueError(f"conv_impl {m.conv_impl!r} is not yet ported "
                          "(the port runs the native conv)")
-    if arch.startswith("wideresnet"):
+    if arch == "cnn":
+        module = CNN(dataset, image_shape(dataset), dtype)
+    elif arch.startswith("wideresnet"):
         module = build_wideresnet(arch, dataset, m.wideresnet_widen_factor,
                                   dtype)
     else:

@@ -103,28 +103,48 @@ def lecun_normal(shape, fan_in: int,
                                  generator=generator)
 
 
+def orthogonal(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``initializers.orthogonal()`` law: the Q of a standard
+    normal matrix's QR, its columns' signs fixed by R's diagonal (drawn
+    on the CPU)."""
+    rows, cols = shape
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return (q if rows >= cols else q.T).contiguous()
+
+
 class Conv(nn.Module):
-    """Bias-free 2-D convolution computed in ``dtype`` (the compute
-    dtype: params stay float32, input and weight are cast per call, as
-    flax's ``nn.Conv(dtype=...)`` does). NCHW in and out; ``padding`` is
-    the explicit symmetric pad (flax's 'SAME' for the 1x1 shortcut is
-    0)."""
+    """2-D convolution computed in ``dtype`` (the compute dtype: params
+    stay float32, input, weight and bias are cast per call, as flax's
+    ``nn.Conv(dtype=...)`` does). NCHW in and out; ``padding`` is the
+    explicit symmetric pad (flax's 'SAME' for the 1x1 shortcut is 0).
+    Bias-free unless ``bias`` (the LeNet ``cnn``'s convs), the bias
+    starting at 0."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(cout, cin, kernel_size, kernel_size))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(cout))
+        else:
+            self.register_parameter("bias", None)
         self.stride, self.padding, self.dtype = stride, padding, dtype
 
     def init_params(self, generator: torch.Generator) -> dict:
         cout, cin, kh, kw = self.weight.shape
-        return {"weight": lecun_normal(self.weight.shape, cin * kh * kw,
-                                       generator)}
+        out = {"weight": lecun_normal(self.weight.shape, cin * kh * kw,
+                                      generator)}
+        if self.bias is not None:
+            out["bias"] = torch.zeros(self.bias.shape)
+        return out
 
     def forward(self, x):
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
                         stride=self.stride, padding=self.padding)
 
 
@@ -132,24 +152,30 @@ class Dense(nn.Module):
     """Affine layer ``x W^T + b`` computed in ``dtype`` (flax's
     ``nn.Dense(dtype=...)``: params stay float32, input, weight and bias
     are cast per call); float32 by default, as the classifier heads run.
-    ``bias=False`` drops the bias; ``zero_init`` starts the weight at 0
-    (flax's ``kernel_init=zeros``) instead of lecun-normal."""
+    ``bias=False`` drops the bias; ``kernel_init`` is flax's initializer
+    of the weight: ``'lecun_normal'`` (flax's default), ``'zeros'`` or
+    ``'orthogonal'`` (a GRU cell's hidden-to-hidden kernels)."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 zero_init: bool = False):
+                 kernel_init: str = "lecun_normal"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
         if bias:
             self.bias = nn.Parameter(torch.empty(cout))
         else:
             self.register_parameter("bias", None)
-        self.dtype, self.zero_init = dtype, zero_init
+        self.dtype, self.kernel_init = dtype, kernel_init
 
     def init_params(self, generator: torch.Generator) -> dict:
-        out = {"weight": torch.zeros(self.weight.shape) if self.zero_init
-               else lecun_normal(self.weight.shape, self.weight.shape[1],
-                                 generator)}
+        shape = self.weight.shape
+        if self.kernel_init == "zeros":
+            weight = torch.zeros(shape)
+        elif self.kernel_init == "orthogonal":
+            weight = orthogonal(shape, generator)
+        else:
+            weight = lecun_normal(shape, shape[1], generator)
+        out = {"weight": weight}
         if self.bias is not None:
             out["bias"] = torch.zeros(self.bias.shape)
         return out
@@ -157,6 +183,23 @@ class Dense(nn.Module):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class Embed(nn.Module):
+    """flax's ``nn.Embed``: a float32 ``[vocab, dim]`` table drawn from
+    N(0, 1/dim) (flax's default embed init)."""
+
+    def __init__(self, vocab: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(vocab, dim))
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        vocab, dim = self.weight.shape
+        return {"weight": torch.randn(vocab, dim, generator=generator)
+                / math.sqrt(dim)}
+
+    def forward(self, tokens):
+        return F.embedding(tokens, self.weight)
 
 
 class BatchStatsNorm(nn.Module):
@@ -190,11 +233,15 @@ class ModelDef(NamedTuple):
     package's ``ModelDef``): ``init(generator)`` draws a fresh params
     dict and ``apply(params, x)`` runs the shared module with those
     params (``torch.func.functional_call``), so one module serves every
-    client's weights."""
+    client's weights. A recurrent model (``is_recurrent``, the char-GRU)
+    takes its hidden state explicitly: ``apply(params, x, carry)``
+    returns ``(logits, new_carry)``, and ``init_carry(batch)`` is the
+    fresh zero carry (None for a feed-forward model)."""
     name: str
     module: Any
     sample_input: torch.Tensor
     is_regression: bool = False
+    is_recurrent: bool = False
 
     def init(self, generator: torch.Generator) -> dict:
         """Fresh params (flax's default initializers): drawn on the CPU
@@ -208,5 +255,21 @@ class ModelDef(NamedTuple):
                     out[f"{name}.{pname}" if name else pname] = t.to(device)
         return {k: out[k] for k, _ in self.module.named_parameters()}
 
-    def apply(self, params: dict, x: torch.Tensor):
+    def apply(self, params: dict, x: torch.Tensor, carry=None):
+        if self.is_recurrent:
+            return functional_call(self.module, params, (x, carry))
         return functional_call(self.module, params, (x,))
+
+    def init_carry(self, batch_size: int):
+        if not self.is_recurrent:
+            return None
+        return self.module.initial_carry(batch_size).to(
+            self.sample_input.device)
+
+    def forward(self, params: dict, x: torch.Tensor):
+        """The logits of ``x``, a recurrent model's from a fresh zero
+        carry: the forward of evaluation and of every auxiliary probe
+        (the JAX package's ``forward_fn``)."""
+        if self.is_recurrent:
+            return self.apply(params, x, self.init_carry(x.shape[0]))[0]
+        return self.apply(params, x)

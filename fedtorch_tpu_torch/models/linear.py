@@ -34,7 +34,7 @@ class LogisticRegression(nn.Module):
                 f"convex models do not support dataset {dataset!r}")
         # zero init matches logistic_regression.py:75-80
         self.Dense_0 = Dense(in_features, CONVEX_DIMS[dataset][1],
-                             dtype=dtype, zero_init=True)
+                             dtype=dtype, kernel_init="zeros")
         self.flatten = dataset in _FLATTEN_DATASETS
 
     def forward(self, x):

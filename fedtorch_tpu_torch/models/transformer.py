@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fedtorch_tpu_torch.models.common import Dense
+from fedtorch_tpu_torch.models.common import Dense, Embed
 from fedtorch_tpu_torch.ops.attention_dispatch import resolve_attention
 from fedtorch_tpu_torch.ops.cuda.flash_attention import flash_attention
 
@@ -54,23 +54,6 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x.to(torch.float32), self.weight.shape,
                             self.weight, self.bias, self.eps)
-
-
-class Embed(nn.Module):
-    """flax's ``nn.Embed``: a float32 ``[vocab, dim]`` table drawn from
-    N(0, 1/dim) (flax's default embed init)."""
-
-    def __init__(self, vocab: int, dim: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(vocab, dim))
-
-    def init_params(self, generator: torch.Generator) -> dict:
-        vocab, dim = self.weight.shape
-        return {"weight": torch.randn(vocab, dim, generator=generator)
-                / math.sqrt(dim)}
-
-    def forward(self, tokens):
-        return F.embedding(tokens, self.weight)
 
 
 class _SelfAttention(nn.Module):

@@ -22,8 +22,8 @@ taking each client's row of any tree of ``[C, ...]`` tensors (APFL's
 ``(personal, local_snapshot, alpha)``); size-0 clients (mesh padding
 there) stay out of the summary. ``evaluate_personal`` evaluates the
 personalized algorithms' per-client models on their validation rows.
-The port has no recurrent model, so the JAX package's ``forward_fn`` (a
-fresh carry per call) is ``model.apply`` here. Not ported:
+Every forward is ``model.forward``, the JAX package's ``forward_fn``: a
+recurrent model gets a fresh zero carry per batch. Not ported:
 ``robust_noise_ascent`` (it goes with the robust models, ROADMAP A1),
 and ``lowered_eval_program``, which lowers an XLA program for its cost
 analysis and has no torch meaning.
@@ -93,7 +93,8 @@ def evaluate(model: ModelDef, params, x: np.ndarray, y: np.ndarray,
     sums = []
     with torch.inference_mode():
         for xb, yb, mb in zip(bx, by, bm):
-            logits, yb_f, mb_f = _flat_tokens(model.apply(params, xb), yb, mb)
+            logits, yb_f, mb_f = _flat_tokens(model.forward(params, xb),
+                                              yb, mb)
             if model.is_regression:
                 per = torch.square(logits.reshape(-1) - yb_f)
                 t1 = t5 = torch.zeros_like(per)
@@ -123,7 +124,7 @@ def evaluate_clients(model: ModelDef, client_params, data,
     its rows cycling over its true size. ``apply_fn(params, x)``
     overrides the forward."""
     criterion = make_criterion(model.is_regression)
-    apply_fn = apply_fn or model.apply
+    apply_fn = apply_fn or model.forward
     n_b = min(max_batches, max(data.n_max // batch_size, 1))
     sizes = [int(s) for s in data.sizes]
     dev = data.x.device
@@ -178,8 +179,8 @@ def evaluate_personal(model: ModelDef, client_aux, client_params, data,
                        client_aux["local_snapshot"], client_aux["alpha"])
 
         def apply_fn(ps, x):
-            return ps[2] * model.apply(ps[0], x) \
-                + (1 - ps[2]) * model.apply(ps[1], x)
+            return ps[2] * model.forward(ps[0], x) \
+                + (1 - ps[2]) * model.forward(ps[1], x)
     elif algorithm_name == "perfedme":
         eval_params = client_aux["personal"]
     elif algorithm_name == "perfedavg":
@@ -201,7 +202,8 @@ def evaluate_per_class(model: ModelDef, params, x: np.ndarray,
     t_sum = torch.zeros(num_classes, device=bx.device)
     with torch.inference_mode():
         for xb, yb, mb in zip(bx, by, bm):
-            logits, yb_f, mb_f = _flat_tokens(model.apply(params, xb), yb, mb)
+            logits, yb_f, mb_f = _flat_tokens(model.forward(params, xb),
+                                              yb, mb)
             correct, total = per_class_accuracy(logits, yb_f, num_classes,
                                                 mask=mb_f)
             c_sum += correct

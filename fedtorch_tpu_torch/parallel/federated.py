@@ -449,6 +449,9 @@ class FederatedTrainer:
             params, aux = server.params, tree_take(on_aux, j)
             opt = tree_take(clients.opt, c)
             epoch, li = clients.epoch[c], clients.local_index[c]
+            # a recurrent model's hidden state: fresh each round, carried
+            # through this client's steps
+            carry = self.model.init_carry(B)
             step_loss, step_acc = [], []
             for s in range(budget):
                 lr = lr_at(self.schedule, epoch)
@@ -458,8 +461,8 @@ class FederatedTrainer:
                 bvx = bvy = None
                 if alg.needs_val_batch:
                     bvx, bvy = vx[s * B:(s + 1) * B], vy[s * B:(s + 1) * B]
-                params, opt, aux, loss, acc = alg.local_step(
-                    params=params, opt=opt, client_aux=aux,
+                params, opt, aux, carry, loss, acc = alg.local_step(
+                    params=params, opt=opt, client_aux=aux, rnn_carry=carry,
                     server_params=server.params, server_aux=server.aux,
                     bx=bx, by=by, bval_x=bvx, bval_y=bvy, lr=lr,
                     step_idx=s, local_index=li, step_budget=budget)
@@ -514,14 +517,21 @@ class FederatedTrainer:
             clients.epoch[rows_dev] = torch.stack(epochs)
             clients.local_index[rows_dev] = torch.stack(local_index)
 
-            online = torch.zeros(C, device=dev)
-            online[rows_dev] = 1.0
+            # per-client metric leaves: 'perm' scatters into [C],
+            # 'sparse' keeps the cohort-aligned [k] rows (every client of
+            # the cohort reports: no chaos or availability plane here)
+            if self.participation_mode == "sparse":
+                online = torch.ones(k, device=dev)
+                loss_m, acc_m = losses, accs
+            else:
+                online = torch.zeros(C, device=dev)
+                online[rows_dev] = 1.0
+                loss_m = torch.zeros(C, device=dev).index_put(
+                    (rows_dev,), losses)
+                acc_m = torch.zeros(C, device=dev).index_put(
+                    (rows_dev,), accs)
             metrics = RoundMetrics(
-                train_loss=torch.zeros(C, device=dev).index_put(
-                    (rows_dev,), losses),
-                train_acc=torch.zeros(C, device=dev).index_put(
-                    (rows_dev,), accs),
-                online_mask=online,
+                train_loss=loss_m, train_acc=acc_m, online_mask=online,
                 comm_bytes=torch.tensor(
                     tree_bytes(server.params) * k * alg.payload_scale(),
                     dtype=torch.float32, device=dev))
@@ -539,7 +549,8 @@ class FederatedTrainer:
         """qFFL's F_k: the SUM of the per-batch mean losses over one
         client's whole shard (``x``/``y`` [n_max, ...]) on ``params``,
         batch by batch in storage order, the last batch's rows past its
-        ``size`` masked out."""
+        ``size`` masked out; a recurrent model from a fresh carry each
+        batch."""
         B = self.batch_size
         n_max = x.shape[0]
         means = []
@@ -548,7 +559,7 @@ class FederatedTrainer:
                 # a whole batch of B storage rows (wrapping), as the JAX
                 # package forwards it: batch statistics see all B
                 frows = torch.arange(r0, r0 + B, device=x.device)
-                logits = self.model.apply(params, x[frows % n_max])
+                logits = self.model.forward(params, x[frows % n_max])
                 per = per_sample_loss(logits, y[frows % n_max],
                                       self.model.is_regression)
                 means.append(per[:min(B, size - r0)].mean())
@@ -568,6 +579,14 @@ class FederatedTrainer:
             metrics.train_acc.sum(), metrics.comm_bytes]).tolist()
         return dict(zip(("mean_epoch", "lr", "n_online", "loss_sum",
                          "acc_sum", "comm_bytes"), vals))
+
+    @property
+    def metrics_width(self) -> int:
+        """Leading dim of the per-client :class:`RoundMetrics` leaves:
+        [C] in 'perm' mode, the cohort-aligned [k] in 'sparse' mode (the
+        JAX package's ``metrics_width``)."""
+        return self.k_online if self.participation_mode == "sparse" \
+            else self.num_clients
 
     # -- the stream plane's feeds ------------------------------------------
     def next_stream_item(self, server: ServerState,

@@ -41,9 +41,9 @@ MODULE_MAP = {
         "core/schedule.py", "core/state.py", "core/sync.py",
         "data/__init__.py", "data/batching.py", "data/datasets.py",
         "data/partition.py", "data/streaming.py", "data/synthetic.py",
-        "models/__init__.py", "models/common.py", "models/linear.py",
-        "models/mlp.py", "models/resnet.py", "models/transformer.py",
-        "models/wideresnet.py",
+        "models/__init__.py", "models/cnn.py", "models/common.py",
+        "models/linear.py", "models/mlp.py", "models/resnet.py",
+        "models/rnn.py", "models/transformer.py", "models/wideresnet.py",
         "ops/__init__.py", "ops/attention_dispatch.py", "ops/augment.py",
         "ops/quantize.py", "ops/simplex.py", "ops/topk.py",
         "parallel/__init__.py", "parallel/evaluate.py",
@@ -93,8 +93,7 @@ MODULE_MAP = {
             "async_plane/scheduler.py", "async_plane/staleness.py"),
     **_rows("queued", "ROADMAP A9: the rest of the model zoo, then client "
             "fusion",
-            "models/cnn.py", "models/densenet.py", "models/rnn.py",
-            "parallel/fusion.py"),
+            "models/densenet.py", "parallel/fusion.py"),
     **_rows("queued", "ROADMAP A10: multi-GPU on torch.distributed",
             "parallel/mesh.py", "parallel/podscale.py"),
     **_rows("queued", "ROADMAP A11: sequence, expert, tensor and pipeline "

@@ -39,6 +39,7 @@ uses.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -93,31 +94,41 @@ def _nchw_inside(module, args):
     return (args[0].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),)
 
 
-def run_round(cfg, seed: int, run: str, wrap_algorithm=None):
+def run_round(cfg, seed: int, run: str, wrap_algorithm=None, data=None,
+              val_data=None):
     """One quantized round from the weights and plan of ``seed``, in
     ``run``: ``"cuda"``, ``"cpu"``, or ``"cpu-"`` followed by ``nchw``
-    (NCHW memory inside the model) and/or ``<n>thread`` (``n`` CPU
-    threads). ``wrap_algorithm`` may wrap the algorithm's methods before
-    the round. Returns (update, initial params), both on the CPU."""
-    C = cfg.federated.num_clients
-    n = SAMPLES_PER_CLIENT
-    rng = np.random.RandomState(seed)
-    data = stack_partitions(rng.randn(n * C, 32, 32, 3).astype(np.float32),
-                            rng.randint(0, 10, n * C),
-                            [np.arange(n * i, n * i + n) for i in range(C)])
+    (NCHW memory inside the model), ``<n>thread`` (``n`` CPU threads)
+    and/or ``float32`` (the round in float32 whatever the config's compute
+    dtype). ``wrap_algorithm`` may wrap the algorithm's methods before
+    the round. ``data`` (and ``val_data``): the clients' ``ClientData``,
+    by default ``SAMPLES_PER_CLIENT`` CIFAR-10-shaped rows a client from
+    ``seed``. Returns (update, initial params), both on the CPU."""
+    if data is None:
+        C = cfg.federated.num_clients
+        n = SAMPLES_PER_CLIENT
+        rng = np.random.RandomState(seed)
+        data = stack_partitions(
+            rng.randn(n * C, 32, 32, 3).astype(np.float32),
+            rng.randint(0, 10, n * C),
+            [np.arange(n * i, n * i + n) for i in range(C)])
     dev, *opts = run.split("-")
+    if "float32" in opts:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, compute_dtype="float32"))
     threads = torch.get_num_threads()
     try:
         for opt in opts:
             if opt.endswith("thread"):
                 torch.set_num_threads(int(opt[:-len("thread")]))
-        model = define_model(cfg, 8, device=dev)
+        model = define_model(cfg, cfg.data.batch_size, device=dev)
         if "nchw" in opts:
             model.module.register_forward_pre_hook(_nchw_inside)
         alg = make_algorithm(cfg)
         if wrap_algorithm is not None:
             wrap_algorithm(alg)
-        tr = FederatedTrainer(cfg, model, alg, data, device=dev)
+        tr = FederatedTrainer(cfg, model, alg, data, val_data=val_data,
+                              device=dev)
         server, clients = tr.init_state(seed + 1)
         p0 = {k: v.cpu() for k, v in server.params.items()}
         server, _, _ = tr.round_fn(server, clients, tr.draw_plan(server))

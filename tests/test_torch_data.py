@@ -4,8 +4,9 @@ The partitioners and the synthetic generator are numpy in both packages
 and must be bitwise equal (the same ``RandomState`` draws in the same
 order). The loaders read files this test writes (no dataset is in the
 repo) and must return equal arrays; ``build_federated_data`` must give
-equal per-client tensors for each partition scheme. The readers that
-need h5py or sklearn, and ``--download``, are refused by name.
+equal per-client tensors for each partition scheme. ``--download`` is
+refused by name. The readers that need h5py, pandas or sklearn are held
+in ``test_torch_readers.py``.
 """
 import bz2
 import dataclasses
@@ -214,16 +215,6 @@ def test_get_dataset_synthetic_is_the_jax_package_s():
     _same_parts(got.client_partitions, want.client_partitions)
 
 
-def test_malformed_svmlight_is_refused_by_name(tmp_path):
-    base = tmp_path / "rcv1"
-    base.mkdir()
-    (base / "rcv1_train.binary").write_text("1 3:0.5 2:0.1\n")
-    (base / "rcv1_test.binary").write_text("1 1:0.5\n")
-    with pytest.raises(ValueError, match="sklearn"):
-        tds.get_dataset(tcfg.DataConfig(dataset="rcv1",
-                                        data_dir=str(tmp_path)), 2)
-
-
 @pytest.mark.parametrize("dataset", ["cifar10", "mnist", "stl10", "MSD"])
 def test_a_missing_file_raises_the_jax_package_s_error(dataset, tmp_path):
     jc, tc = _data_cfgs(dataset=dataset, data_dir=str(tmp_path))
@@ -232,17 +223,6 @@ def test_a_missing_file_raises_the_jax_package_s_error(dataset, tmp_path):
     with pytest.raises(FileNotFoundError) as got:
         tds.get_dataset(tc, 2)
     assert str(got.value) == str(want.value)
-
-
-@pytest.mark.parametrize("dataset, reason", [
-    ("emnist", "h5py"), ("emnist_full", "h5py"), ("shakespeare", "h5py"),
-    ("adult", "sklearn")])
-def test_h5py_and_sklearn_datasets_are_refused_by_name(dataset, reason,
-                                                       tmp_path):
-    cfg = tcfg.DataConfig(dataset=dataset, data_dir=str(tmp_path))
-    with pytest.raises(ValueError, match=f"{dataset}.*not yet ported.*"
-                                         f"{reason}"):
-        tds.get_dataset(cfg, 2)
 
 
 def test_download_is_refused_by_name(tmp_path):

@@ -140,7 +140,6 @@ def test_stream_plane_and_sparse_participation_run_a_round(override):
 
 
 @pytest.mark.parametrize("override, name", [
-    (dict(model__arch="cnn"), "cnn"),
     (dict(model__arch="densenet40"), "densenet40"),
     (dict(model__arch="wideresnet16", model__drop_rate=0.1), "drop_rate"),
     (dict(model__norm="gn"), "gn"),

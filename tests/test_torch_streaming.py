@@ -530,11 +530,15 @@ def test_stream_plane_matches_the_jax_stream_plane(arch, mode, closing):
     closing(producer)
     try:
         for r in range(3):
-            js, jcl, _ = jtr.run_round(js, jcl)
+            js, jcl, jm = jtr.run_round(js, jcl)
             ts, tcl, tm = ttr.round_stream_fn(ts, tcl,
                                               producer.next_feed().feed)
-            assert np.flatnonzero(tm.online_mask.numpy()).tolist() == \
-                cohorts[r]
+            # [C] in 'perm' mode, the cohort-aligned [k] in 'sparse'
+            np.testing.assert_array_equal(tm.online_mask.numpy(),
+                                          np.asarray(jm.online_mask))
+            if mode == "perm":
+                assert np.flatnonzero(tm.online_mask.numpy()).tolist() \
+                    == cohorts[r]
     finally:
         jtr.invalidate_stream()
     assert _assert_state_close(js, jcl, ts, tcl, ttr.model.module) > 0
