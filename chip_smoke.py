@@ -171,6 +171,30 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    HDF5 files written here and read back through the CLI (``-d
    shakespeare -a rnn``, ``-d emnist -a cnn``; 2 quantized rounds), or,
    where ``import h5py`` fails, ``"not run: no h5py"``;
+8d. models: the rest of the model zoo and the robust rules.
+   ``densenet_bc100_main_path``: quantized FedAvg (int8 both ways) on
+   DenseNet-BC-100 (growth 12, compression 0.5; 769,162 params in 299
+   leaves), bf16, the north-star round (100 clients x 250 samples from
+   ``--seed``, k = 10, batch 50, 10 local steps): its round cut by
+   ``TASK_CARD_CUT`` card vs CPU as a bf16 tasks path is held, then 1
+   warm-up, 2 timed and 1 profiled rounds, 2 + 2 ragged launches a round
+   (2,990 uplink rows in one launch of each kernel) and no tiled one;
+   round ms, local steps/s, device busy share, launches a local step and
+   peak MiB. ``resnet18_imagenet``: the ImageNet ResNet-18 class built
+   directly, a float32 forward and one local step at (50, 224, 224, 3)
+   card (TF32 off) vs CPU within ``SPREAD_FACTOR`` times the CPU's NCHW
+   spread (never tighter than ``MODELS_CARD_BAR``), and one uplink tree
+   call on its params (k = 10): 1 + 1 ragged and 3 + 3 tiled launches,
+   each row within one step of the plain version. ``resnet20_gn``,
+   ``resnet20_matmul_conv`` and ``wrn16_4_dropout_0.3``: one small
+   quantized round each held card vs CPU as the reference phase holds
+   its rounds (the dropout round's CPU runs replay the card's masks),
+   and the im2col conv timed against the native conv (a ResNet-20 local
+   step at batch 50, bf16). ``robust_logistic_regression``: its cut
+   round card vs CPU, a round, then ``evaluate`` with the noise ascent
+   card vs CPU within ``MODELS_CARD_BAR``. ``robust_agg``: a guarded
+   quantized ResNet-20 round per rule of ``ROBUST_RULES`` (8 clients, k
+   = 4), each held card vs CPU;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
@@ -205,7 +229,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
-``tasks``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``tasks``, ``models``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
 ``transformer_f32_profile`` lines, the card's name and power limit and,
@@ -394,6 +418,18 @@ TASK_EVAL_ROWS = 1000
 # by order 1, and the wire format is held to one step on its own
 TASK_CARD_FLOOR = 1e-2
 TASK_CARD_CUT = dict(num_clients=4, online_client_rate=0.5, local_step=2)
+# the models phase: DenseNet-BC-100 (Huang et al., CVPR 2017, Table 2:
+# growth 12, compression 0.5) on the north-star round; ResNet-18 (ImageNet)
+# at this batch of 224x224 images; float32 card vs CPU bars never tighter
+# than MODELS_CARD_BAR (the zoo's ZOO_CARD_BAR); the robust rules' rounds
+# on ROBUST_CLIENTS clients (k = 4: krum has candidates to rank), the
+# robust logistic regression on ROBUST_LR_CLIENTS
+DENSENET = dict(densenet_bc_mode=True, densenet_growth_rate=12,
+                densenet_compression=0.5)
+RESNET18_BATCH = 50
+MODELS_CARD_BAR = 1e-4
+ROBUST_RULES = ("median", "trimmed_mean", "krum", "multikrum", "norm_bound")
+ROBUST_CLIENTS, ROBUST_LR_CLIENTS = 8, 20
 # cli_tff: the CLI on TFF HDF5 files written here (20 EMNIST writers and
 # 20 Shakespeare characters; k = 10 of them, 2 rounds)
 TFF_CLIENTS, TFF_ROUNDS = 20, 2
@@ -520,9 +556,10 @@ def model_shapes(cfg, define_model):
     return [tuple(v.shape) for _, v in model.module.named_parameters()]
 
 
-def leaf_shapes(tcfg, define_model, arch, widen=None):
+def leaf_shapes(tcfg, define_model, arch, widen=None, model=None):
     """The parameter shapes of a main path's model, in order."""
-    return model_shapes(path_config(tcfg, arch, widen), define_model)
+    return model_shapes(path_config(tcfg, arch, widen, model=model),
+                        define_model)
 
 
 def launches_per_round(qk, numels) -> dict:
@@ -1176,7 +1213,8 @@ def _round_card_vs_cpu(os_mod, cfg, qk, fa, seed, runs=("cpu", "cuda")):
     return updates, launched, p0, wire
 
 
-def _hold_round(os_mod, arch, qk, fa, seed, cfg=None):
+def _hold_round(os_mod, arch, qk, fa, seed, cfg=None, card_first=False,
+                floor_l2=1e-3):
     """One quantized round of ``os_mod.round_cfg(arch)``, card vs CPU:
     the card's quantizer launches, its wire format against the CPU's on
     the card's own payloads within one step, and its update against the
@@ -1193,11 +1231,16 @@ def _hold_round(os_mod, arch, qk, fa, seed, cfg=None):
     bounds it, so the card must stay within SPREAD_FACTOR times
     RESNET8_MAX_GAP, the largest gap between CPU orders over 64 seeds.
     ``cfg`` (default ``os_mod.round_cfg(arch)``) may name another
-    algorithm with the same wire format (FedCOMGATE)."""
+    algorithm with the same wire format (FedCOMGATE). ``card_first``
+    runs the card's round before the CPU's (the dropout path's CPU runs
+    replay the card's masks); ``floor_l2`` the relative L2 bar's floor.
+    Returns the bars and gaps."""
     cfg = cfg or os_mod.round_cfg(arch)
     per_run = arch != "resnet8"
     runs = ("cpu", *os_mod.SPREAD_ORDERS, "cuda") if per_run else \
         ("cpu", "cuda")
+    if card_first:
+        runs = ("cuda",) + runs[:-1]
     ups, launched, p0, wire = _round_card_vs_cpu(os_mod, cfg, qk, fa, seed,
                                                  runs)
     want = launches_per_round(qk, [v.numel() for v in p0.values()])
@@ -1223,7 +1266,7 @@ def _hold_round(os_mod, arch, qk, fa, seed, cfg=None):
     f = os_mod.SPREAD_FACTOR
     if per_run:
         spread, spread_l2 = os_mod.spread(ups["cpu"], ups)
-        bar, bar_l2 = max(2.0, f * spread), max(1e-3, f * spread_l2)
+        bar, bar_l2 = max(2.0, f * spread), max(floor_l2, f * spread_l2)
         against = (f"CPU vs CPU in {os_mod.SPREAD_ORDERS} max {spread:.4f} "
                    f"steps, relative L2 {spread_l2:.3e}")
     else:
@@ -1237,6 +1280,9 @@ def _hold_round(os_mod, arch, qk, fa, seed, cfg=None):
     if worst > bar or worst_l2 > bar_l2:
         raise AssertionError(f"quantized {arch} round card vs CPU: {worst} "
                              f"steps, relative L2 {worst_l2}")
+    return dict(wire_steps=wire_steps, update_steps=worst,
+                update_rel_l2=worst_l2, bar_steps=bar, bar_rel_l2=bar_l2,
+                launches=launched)
 
 
 def reference_phase(tcfg, define_model, os_mod, qk, fa):
@@ -1349,10 +1395,12 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
                 round_update_rel_l2=rel)
 
 
-def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16"):
+def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16",
+                model=None):
     """The quantized FedAvg round of a main path: the north-star round
-    (bench.py) on a CIFAR model, or a transformer path's round (``lm``:
-    its model sizes, ``dtype`` its compute dtype)."""
+    (bench.py) on a CIFAR model (``model``: more of its ModelConfig), or
+    a transformer path's round (``lm``: its model sizes, ``dtype`` its
+    compute dtype)."""
     fed = tcfg.FederatedConfig(
         federated=True, num_clients=NUM_CLIENTS,
         online_client_rate=ONLINE_RATE, algorithm="fedavg",
@@ -1368,6 +1416,7 @@ def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16"):
             optim=tcfg.OptimConfig(lr=0.05, weight_decay=0.0),
             train=train, mesh=mesh).finalize()
     kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
+    kw.update(model or {})
     return tcfg.ExperimentConfig(
         data=tcfg.DataConfig(dataset="cifar10", batch_size=BATCH),
         federated=fed, model=tcfg.ModelConfig(arch=arch, **kw),
@@ -1397,10 +1446,10 @@ def path_data(cfg, seed, stack_partitions):
 def main_path_phase(seed, tcfg, define_model, make_algorithm,
                     stack_partitions, FederatedTrainer, qk, fa,
                     arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS,
-                    lm=LM, dtype="bfloat16"):
+                    lm=LM, dtype="bfloat16", model=None):
     """A quantized FedAvg main path on ``arch`` through the library entry
     points; returns (numbers, trainer, server, clients)."""
-    cfg = path_config(tcfg, arch, widen, lm, dtype)
+    cfg = path_config(tcfg, arch, widen, lm, dtype, model)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     data = path_data(cfg, seed, stack_partitions)
@@ -2348,17 +2397,20 @@ def _first(data, n):
     return None if data is None else type(data)(*(t[:n] for t in data))
 
 
-def task_card_vs_cpu(name, cfg, data, val, seed, os_mod, qk):
+def task_card_vs_cpu(name, cfg, data, val, seed, os_mod, qk, orders=None):
     """A tasks path's round cut by ``TASK_CARD_CUT``, card vs CPU (TF32
     off): the card's wire format within one step of the plain version on
     its own payloads, the update held to ``TASK_CARD_FLOOR`` / the CPU
-    order spread."""
+    order spread (``orders``: the CPU orders to measure it over, by
+    default the model's layout or threads, and float32 for a bf16
+    round)."""
     n = cfg.federated.num_clients
     data, val = _first(data, n), _first(val, n)
     bf16 = cfg.mesh.compute_dtype == "bfloat16"
-    orders = ("cpu-nchw", "cpu-1thread") if cfg.model.arch == "cnn" \
-        else ("cpu-2thread", "cpu-1thread")
-    orders += ("cpu-float32",) if bf16 else ()
+    if orders is None:
+        orders = ("cpu-nchw", "cpu-1thread") if cfg.model.arch == "cnn" \
+            else ("cpu-2thread", "cpu-1thread")
+        orders += ("cpu-float32",) if bf16 else ()
     wire = []
 
     def record(alg):
@@ -2612,6 +2664,471 @@ def tasks_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     return out
 
 
+def cut_config(cfg, **cut):
+    """``cfg`` cut as ``TASK_CARD_CUT`` cuts a tasks path's round."""
+    steps = cut.pop("local_step")
+    return dataclasses.replace(
+        cfg, federated=dataclasses.replace(cfg.federated, **cut),
+        train=dataclasses.replace(cfg.train, local_step=steps)).finalize()
+
+
+def densenet_path(seed, tcfg, define_model, make_algorithm,
+                  stack_partitions, FederatedTrainer, os_mod, qk, fa):
+    """The slice's main path: quantized FedAvg (int8 both ways) on
+    DenseNet-BC-100 (growth 12, compression 0.5), bf16, the north-star
+    round's 100 clients x 250 CIFAR-10-shaped samples from ``seed``, k =
+    10, batch 50, 10 local steps. Its round cut by ``TASK_CARD_CUT`` in
+    float32 card (TF32 off) vs CPU first, held to twice what NCHW memory
+    moves it on the CPU (the bf16 round moves ~1,000x as far between
+    float32 and bf16 as between CPU orders, so it is timed, not held),
+    then 1 warm-up, 2 timed and 1 profiled bf16 rounds with 2 + 2 ragged
+    launches a round and no tiled one."""
+    cfg = path_config(tcfg, "densenet100", model=DENSENET)
+    t0 = time.perf_counter()
+    data = path_data(cfg, seed, stack_partitions)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32 = path_config(tcfg, "densenet100", dtype="float32",
+                          model=DENSENET)
+        held = task_card_vs_cpu("densenet_bc100_float32",
+                                cut_config(f32, **TASK_CARD_CUT), data, None,
+                                seed, os_mod, qk, orders=("cpu-nchw",))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    del data
+    gc.collect()
+    held["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, trainer, server, clients = main_path_phase(
+        seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, qk, fa, arch="densenet100", model=DENSENET)
+    per = out["launches_per_round"]
+    if [per[c] for c in ("ragged_stats", "ragged_apply", "stats",
+                         "apply")] != [2, 2, 0, 0]:
+        raise AssertionError(f"DenseNet-BC-100: expected 2 + 2 ragged and "
+                             f"no tiled launches a round, got {per}")
+    rounds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_phase(trainer, server, clients, per)
+    prof["s"] = time.perf_counter() - t0
+    steps = trainer.k_online * trainer.local_steps
+    out.update(card_vs_cpu=held, profile=prof,
+               leaves=len(server.params),
+               uplink_rows=len(server.params) * trainer.k_online,
+               launches_per_local_step=prof["kernel_launches"] / steps,
+               busy_share=prof["busy_share"], rounds_s=rounds_s)
+    log(f"densenet_bc100: {out['round_ms']:.1f} ms/round, "
+        f"{out['local_steps_per_s']:.1f} local-steps/s, device busy "
+        f"{prof['busy_share']}, {out['launches_per_local_step']:.0f} "
+        f"launches a local step, peak {out['peak_mib']:.0f} MiB, "
+        f"{out['leaves']} leaves ({out['uplink_rows']} uplink rows); "
+        f"card vs CPU {held['s']:.1f} s, rounds {rounds_s:.1f} s, profile "
+        f"{prof['s']:.1f} s")
+    del trainer, server, clients
+    return out
+
+
+def _resnet18_step(x, y, cfg, make_algorithm, seed, device, nchw=None):
+    """ResNet-18 (the ImageNet class built directly) from ``seed``'s
+    weights on ``device``: the float32 logits of ``x`` and one FedAvg
+    local step's update (lr 0.1, momentum), both on the CPU; ``nchw``
+    (a forward pre-hook) runs the model on NCHW memory (another float32
+    order)."""
+    from fedtorch_tpu_torch.core import optim
+    from fedtorch_tpu_torch.core.losses import make_criterion
+    from fedtorch_tpu_torch.core.state import (
+        tree_broadcast_clients, tree_take,
+    )
+    from fedtorch_tpu_torch.models.common import ModelDef
+    from fedtorch_tpu_torch.models.resnet import ResNetImageNet
+    module = ResNetImageNet("imagenet", 18).to(device)
+    if nchw is not None:
+        module.register_forward_pre_hook(nchw)
+    model = ModelDef("resnet18", module, x[:1].to(device))
+    params = model.init(torch.Generator().manual_seed(seed))
+    alg = make_algorithm(cfg)
+    alg.bind(model, make_criterion(False))
+    opt = tree_take(optim.init_client_opt_state(
+        tree_broadcast_clients(params, 1), cfg.optim), 0)
+    bx, by = x.to(device), y.to(device)
+    with torch.no_grad():
+        logits = model.apply(params, bx).cpu()
+    new = alg.local_step(
+        params=params, opt=opt, client_aux=(), rnn_carry=None,
+        server_params=params, server_aux=(), bx=bx, by=by, bval_x=None,
+        bval_y=None, lr=0.1, step_idx=0,
+        local_index=torch.zeros((), dtype=torch.int32, device=device),
+        step_budget=1)[0]
+    return logits, {k: (new[k] - params[k]).cpu() for k in params}, params
+
+
+def resnet18_path(seed, tcfg, make_algorithm, os_mod, qk, fa):
+    """The ImageNet ResNet-18, built directly (``define_model`` cannot
+    reach it, as the JAX package's cannot): a float32 forward and one
+    local step at (50, 224, 224, 3) on the card (TF32 off) against the
+    CPU, within ``SPREAD_FACTOR`` times what NCHW memory moves on the
+    CPU (never tighter than ``MODELS_CARD_BAR``); then one quantized
+    uplink tree call on its params stacked for k = 10: 1 + 1 ragged and
+    3 + 3 tiled launches (its three bucket sizes past 524,288 elements),
+    each row within one step of the plain version."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(RESNET18_BATCH, 224, 224, 3)
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, RESNET18_BATCH))
+    cfg = tcfg.ExperimentConfig(
+        model=tcfg.ModelConfig(arch="resnet20"),
+        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True)).finalize()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        card = _resnet18_step(x, y, cfg, make_algorithm, seed, "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = _resnet18_step(x, y, cfg, make_algorithm, seed, "cpu")
+        nchw = _resnet18_step(x, y, cfg, make_algorithm, seed, "cpu",
+                              nchw=os_mod._nchw_inside)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def rel(a, b):
+        if isinstance(a, dict):
+            a = torch.cat([v.flatten() for v in a.values()])
+            b = torch.cat([b[k].flatten() for k in b])
+        return float((a - b).norm() / b.norm())
+    f = os_mod.SPREAD_FACTOR
+    gaps = dict(logits=rel(card[0], cpu[0]), update=rel(card[1], cpu[1]))
+    spread = dict(logits=rel(nchw[0], cpu[0]), update=rel(nchw[1], cpu[1]))
+    bars = {k: max(MODELS_CARD_BAR, f * spread[k]) for k in gaps}
+    log(f"resnet18_imagenet (50, 224, 224, 3) float32 card vs CPU: logits "
+        f"relative L2 {gaps['logits']:.3e}, update {gaps['update']:.3e} "
+        f"(bars {bars}; CPU NCHW spread {spread}); card {card_s:.1f} s, "
+        f"CPU two orders {cpu_s:.1f} s")
+    if any(gaps[k] > bars[k] for k in gaps):
+        raise AssertionError(f"resnet18_imagenet card vs CPU: {gaps}, "
+                             f"bars {bars}")
+    params = card[2]
+    del card, cpu, nchw
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tree = {k: v.unsqueeze(0).repeat((TASK_ONLINE,) + (1,) * v.dim())
+            + 1e-3 * torch.randn((TASK_ONLINE,) + tuple(v.shape),
+                                 generator=gen, device="cuda")
+            for k, v in params.items()}
+    numels = [v.numel() for v in params.values()]
+    sizes = sorted({n for n in numels if n > qk._MAX_ROW_ELEMS})
+    reset_counters(qk, fa)
+    got = qk.fused_quantize_dequantize_tree(tree, 8, True)
+    torch.cuda.synchronize()
+    launched = counters(qk, fa)
+    want = dict(launches_per_round(qk, numels))
+    want = {c: n // 2 for c, n in want.items()}  # one tree call
+    if any(launched[c] != want[c] for c in want) or want["stats"] != 3:
+        raise AssertionError(f"ResNet-18 uplink tree call launched "
+                             f"{launched}, expected {want}")
+    cpu_tree = {k: v.cpu() for k, v in tree.items()}
+    plain = qk.fused_quantize_dequantize_tree(cpu_tree, 8, True)
+    steps = 0.0
+    for k, v in cpu_tree.items():
+        rows = v.shape[0]
+        steps = max(steps, compare(qk, got[k].cpu().reshape(rows, -1),
+                                   plain[k].reshape(rows, -1),
+                                   v.reshape(rows, -1), 8,
+                                   what=f"resnet18 {k}")[0])
+    log(f"resnet18_imagenet uplink tree call ({len(numels)} leaves, k = "
+        f"{TASK_ONLINE}, buckets {sizes}): launches {launched}, max "
+        f"{steps:.6f} steps from the plain version")
+    del tree, got, params
+    torch.cuda.empty_cache()
+    return dict(batch=RESNET18_BATCH, image=224, params=sum(numels),
+                card_vs_cpu=dict(gaps=gaps, cpu_nchw_spread=spread,
+                                 bars=bars), card_s=card_s, cpu_s=cpu_s,
+                tree_call=dict(launches=launched, buckets=sizes,
+                               max_err_steps=steps),
+                launches=launched, tree_launches=launched)
+
+
+def _record_card_masks():
+    """Patch ``drop_source`` so a card forward records its masks per
+    dropout key and a CPU forward replays them; returns the undo."""
+    from fedtorch_tpu_torch.models import common
+    real = common.drop_source
+    masks = {}
+
+    def source(key, device):
+        if torch.device(device).type == "cuda":
+            draw = real(key, device)
+            masks[key] = []
+
+            def recording(shape, keep):
+                m = draw(shape, keep)
+                masks[key].append(m.cpu())
+                return m
+            return recording
+        it = iter(masks[key])
+        return lambda shape, keep: next(it)
+
+    common.drop_source = source
+    return lambda: setattr(common, "drop_source", real), masks
+
+
+def local_step_ms(seed, tcfg, define_model, make_algorithm, arch, model,
+                  keys=False):
+    """One local step (forward, backward, optimizer step) of ``arch``
+    (``model``: more of its ModelConfig) at batch 50 in bf16 on the card,
+    timed by CUDA events over 20 steps after 3; ``keys`` gives each step
+    its own dropout key, as the round does."""
+    from fedtorch_tpu_torch.core import optim
+    from fedtorch_tpu_torch.core.losses import make_criterion
+    from fedtorch_tpu_torch.core.state import (
+        tree_broadcast_clients, tree_take,
+    )
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(BATCH, 32, 32, 3).astype(np.float32)) \
+        .cuda()
+    y = torch.from_numpy(rng.randint(0, 10, BATCH)).cuda()
+    cfg = path_config(tcfg, arch, model=model)
+    model = define_model(cfg, batch_size=BATCH)
+    params = model.init(torch.Generator().manual_seed(seed))
+    alg = make_algorithm(cfg)
+    alg.bind(model, make_criterion(False))
+    opt = tree_take(optim.init_client_opt_state(
+        tree_broadcast_clients(params, 1), cfg.optim), 0)
+    li = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def step(i):
+        alg.local_step(params=params, opt=opt, client_aux=(), rnn_carry=None,
+                       server_params=params, server_aux=(), bx=x, by=y,
+                       bval_x=None, bval_y=None, lr=0.1, step_idx=0,
+                       local_index=li, step_budget=1,
+                       rng=seed + i if keys else None)
+    for i in range(3):
+        step(i)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(20):
+        step(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 20
+
+
+def conv_ab(seed, tcfg, define_model, make_algorithm):
+    """The im2col conv against the native conv on the card: one
+    ResNet-20 local step at batch 50 in bf16 each (``local_step_ms``)."""
+    out = {f"{impl}_step_ms": local_step_ms(
+        seed, tcfg, define_model, make_algorithm, "resnet20",
+        dict(conv_impl=impl)) for impl in ("conv", "matmul")}
+    out["matmul_over_conv"] = out["matmul_step_ms"] / out["conv_step_ms"]
+    log(f"conv A/B, ResNet-20 local step at batch {BATCH} bf16: native "
+        f"conv {out['conv_step_ms']:.3f} ms, im2col matmul "
+        f"{out['matmul_step_ms']:.3f} ms ({out['matmul_over_conv']:.2f}x)")
+    return out
+
+
+def dropout_cost(seed, tcfg, define_model, make_algorithm):
+    """What the dropout draw costs the local step: a WideResNet-16-4
+    local step at batch 50 in bf16 without dropout, and at 0.3 with its
+    own key a step (a device generator reseeded, 6 masks drawn), and the
+    reseed alone (host ms, 1,000 calls)."""
+    from fedtorch_tpu_torch.models.common import drop_source
+    wrn = dict(wideresnet_widen_factor=4)
+    out = dict(plain_step_ms=local_step_ms(
+        seed, tcfg, define_model, make_algorithm, "wideresnet16", wrn),
+        dropout_step_ms=local_step_ms(
+            seed, tcfg, define_model, make_algorithm, "wideresnet16",
+            dict(wrn, drop_rate=0.3), keys=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1000):
+        drop_source(i, "cuda")
+    # seconds for 1,000 calls: ms a call
+    out["reseed_host_ms"] = time.perf_counter() - t0
+    log(f"dropout, WideResNet-16-4 local step at batch {BATCH} bf16: "
+        f"{out['plain_step_ms']:.3f} ms without, {out['dropout_step_ms']:.3f}"
+        f" ms at 0.3 with a key a step; a reseed {out['reseed_host_ms']:.4f}"
+        f" ms of host time")
+    return out
+
+
+def robust_lr_path(seed, tcfg, define_model, make_algorithm,
+                   stack_partitions, FederatedTrainer, os_mod, qk, fa):
+    """``robust_logistic_regression`` on MNIST-shaped rows: its round cut
+    by ``TASK_CARD_CUT`` card vs CPU, then one round of 20 clients x 50
+    rows (k = 10, batch 50, 10 local steps, int8 both ways) and
+    ``evaluate`` on 1,000 rows with the noise ascent, card (TF32 off) vs
+    CPU on the same params: the loss within ``MODELS_CARD_BAR``."""
+    from fedtorch_tpu_torch.parallel.evaluate import evaluate
+    cfg = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset="mnist", batch_size=BATCH),
+        federated=tcfg.FederatedConfig(
+            federated=True, num_clients=ROBUST_LR_CLIENTS,
+            online_client_rate=TASK_ONLINE / ROBUST_LR_CLIENTS,
+            sync_type="local_step", quantized=True),
+        model=tcfg.ModelConfig(arch="robust_logistic_regression"),
+        optim=tcfg.OptimConfig(lr=0.1, in_momentum=True),
+        train=tcfg.TrainConfig(local_step=LOCAL_STEPS)).finalize()
+    rng = np.random.RandomState(seed)
+    n = ROBUST_LR_CLIENTS * 50
+    x = rng.rand(n + TASK_EVAL_ROWS, 28, 28, 1).astype(np.float32)
+    y = rng.randint(0, 10, n + TASK_EVAL_ROWS)
+    data = stack_partitions(x[:n], y[:n], [np.arange(i * 50, (i + 1) * 50)
+                                           for i in range(ROBUST_LR_CLIENTS)])
+    held = task_card_vs_cpu("robust_logistic_regression",
+                            cut_config(cfg, **TASK_CARD_CUT), data, None,
+                            seed, os_mod, qk)
+    model = define_model(cfg, batch_size=BATCH)
+    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+    server, clients = trainer.init_state(seed)
+    reset_counters(qk, fa)
+    server, clients, m = trainer.run_rounds(server, clients, 1)
+    torch.cuda.synchronize()
+    launched = counters(qk, fa)
+    tx, ty = x[n:], y[n:]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        got = [float(v) for v in evaluate(model, server.params, tx, ty)]
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        cpu_model = define_model(cfg, batch_size=BATCH, device="cpu")
+        want = [float(v) for v in evaluate(
+            cpu_model, {k: v.cpu() for k, v in server.params.items()},
+            tx, ty)]
+        plain = [float(v) for v in evaluate(model, server.params, tx, ty,
+                                            robust_ascent=False)]
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    log(f"robust_logistic_regression: round launches {launched}, "
+        f"evaluate with the ascent {eval_ms:.1f} ms: loss {got[0]:.6f} "
+        f"(CPU {want[0]:.6f}, relative {rel:.3e}; without the ascent "
+        f"{plain[0]:.6f}), top-1 {got[1]:.4f}")
+    if not math.isfinite(got[0]) or rel > MODELS_CARD_BAR \
+            or not got[0] >= plain[0] - 1e-6:
+        raise AssertionError(f"robust_logistic_regression evaluate {got}, "
+                             f"CPU {want}, without the ascent {plain}")
+    return dict(card_vs_cpu=held, launches=launched, tree_launches=launched,
+                eval=dict(ms=eval_ms, loss=got[0], top1=got[1],
+                          cpu_loss=want[0], loss_rel_diff=rel,
+                          loss_without_ascent=plain[0]),
+                losses=float(m.train_loss.sum() / m.online_mask.sum()))
+
+
+def models_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+                 FederatedTrainer, os_mod, qk, fa):
+    """The rest of the model zoo and the robust rules: the DenseNet-BC-100
+    main path, ResNet-18 (ImageNet), one round card vs CPU each of
+    ResNet-20 with GroupNorm, with the im2col conv (and the conv A/B) and
+    WideResNet-16-4 with dropout 0.3 (the CPU replaying the card's
+    masks), ``robust_logistic_regression`` with its evaluation ascent,
+    and a guarded quantized ResNet-20 round per robust rule. The small
+    float32 rounds' relative L2 floor is ``TASK_CARD_FLOOR``, as the
+    tasks paths': ResNet-20 with GroupNorm read 3.2e-4 and 1.05e-3 in two
+    runs of one seed (one-step int8 flips whose count moves with
+    cuDNN's nondeterministic backward)."""
+    out = {"paths": {}}
+    t_phase = time.perf_counter()
+    out["paths"]["densenet_bc100_main_path"] = densenet_path(
+        seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, os_mod, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["paths"]["resnet18_imagenet"] = resnet18_path(
+        seed, tcfg, make_algorithm, os_mod, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"models: DenseNet-BC-100 and ResNet-18 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # float32 rounds card vs CPU: TF32 off on the card
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _models_rounds(out, seed, tcfg, define_model, make_algorithm,
+                       stack_partitions, FederatedTrainer, os_mod, qk, fa)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"models phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _models_rounds(out, seed, tcfg, define_model, make_algorithm,
+                   stack_partitions, FederatedTrainer, os_mod, qk, fa):
+    """The models phase's small rounds card vs CPU, the conv A/B, the
+    robust logistic regression and the robust rules, into ``out``."""
+    t0 = time.perf_counter()
+    small = {
+        "resnet20_gn": ("resnet20", dict(norm="gn")),
+        "resnet20_matmul_conv": ("resnet20", dict(conv_impl="matmul")),
+        "wrn16_4_dropout_0.3": ("wideresnet16",
+                                dict(wideresnet_widen_factor=4,
+                                     drop_rate=0.3)),
+    }
+    for name, (arch, model) in small.items():
+        cfg = os_mod.small_round_cfg(arch, **model)
+        before = counters(qk, fa)
+        if model.get("drop_rate"):
+            undo, masks = _record_card_masks()
+            try:
+                r = _hold_round(os_mod, arch, qk, fa, seed, cfg,
+                                card_first=True, floor_l2=TASK_CARD_FLOOR)
+            finally:
+                undo()
+            r["masks_replayed"] = sum(len(v) for v in masks.values())
+        else:
+            r = _hold_round(os_mod, arch, qk, fa, seed, cfg,
+                            floor_l2=TASK_CARD_FLOOR)
+        after = counters(qk, fa)
+        r["tree_launches"] = r["launches"]
+        r["launches"] = {c: after[c] - before[c] for c in after}
+        out["paths"][name] = r
+    out["paths"]["resnet20_matmul_conv"]["ab"] = conv_ab(
+        seed, tcfg, define_model, make_algorithm)
+    out["paths"]["wrn16_4_dropout_0.3"]["cost"] = dropout_cost(
+        seed, tcfg, define_model, make_algorithm)
+    out["paths"]["robust_logistic_regression"] = robust_lr_path(
+        seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, os_mod, qk, fa)
+    rules = {}
+    for rule in ROBUST_RULES:
+        base = os_mod.small_round_cfg("resnet20")
+        cfg = dataclasses.replace(
+            base, federated=dataclasses.replace(
+                base.federated, num_clients=ROBUST_CLIENTS),
+            fault=dataclasses.replace(base.fault, robust_agg=rule,
+                                      guard_updates=True)).finalize()
+        before = counters(qk, fa)
+        rules[rule] = _hold_round(os_mod, "resnet20", qk, fa, seed, cfg,
+                                  floor_l2=TASK_CARD_FLOOR)
+        after = counters(qk, fa)
+        rules[rule]["tree_launches"] = rules[rule]["launches"]
+        rules[rule]["launches"] = {c: after[c] - before[c] for c in after}
+    out["paths"]["robust_agg"] = dict(
+        rules=rules, launches={c: sum(r["launches"][c]
+                                      for r in rules.values())
+                               for c in counters(qk, fa)})
+    out["paths"]["robust_agg"]["tree_launches"] = \
+        out["paths"]["robust_agg"]["launches"]
+    log(f"models: the small rounds, the A/B and the robust paths in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -2713,17 +3230,21 @@ def _profile_round(trainer, server, clients):
         trainer.run_rounds(server, clients, 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels, runtime = [], []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if "CUDA" in str(getattr(e, "device_type", "")) and dev_us > 0:
-            kernels.append((dev_us / 1e3, e.key, e.count))
-        elif e.self_cpu_time_total > 0:
-            runtime.append((e.self_cpu_time_total / 1e3, e.key, e.count))
-    kernels.sort(reverse=True)
-    runtime.sort(reverse=True)
+    # the raw events, summed by name: the same sums as key_averages()
+    # (a kernel or a runtime call has no children), without building a
+    # Python event a record, which took 133 s for DenseNet-BC-100's
+    # 462,561 launches
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        key = ("CUDA" in str(e.device_type()), e.name())
+        ms, n = sums.get(key, (0.0, 0))
+        sums[key] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = sorted((ms, name, n) for (dev, name), (ms, n) in sums.items()
+                     if dev and ms > 0)
+    runtime = sorted((ms, name, n) for (dev, name), (ms, n) in sums.items()
+                     if not dev and ms > 0)
+    kernels.reverse()
+    runtime.reverse()
     device_ms = sum(k[0] for k in kernels)
     by_kind = {}
     for ms, name, _ in kernels:
@@ -2802,6 +3323,9 @@ def main(argv=None) -> int:
              for cell, arch, widen in (("resnet20", "resnet20", None),
                                        ("wideresnet28_10", "wideresnet28", 10),
                                        ("transformer", "transformer", None))}
+    # DenseNet-BC-100: 299 leaves, 2,990 rows an uplink call
+    cells["densenet_bc100"] = leaf_shapes(tcfg, define_model, "densenet100",
+                                          model=DENSENET)
     ragged_stats_fields, ragged_apply_fields = ragged_phase(qk, fa, cells,
                                                             k_online)
     wrn_sizes = {}
@@ -2868,6 +3392,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("models")
+    models = models_phase(args.seed, tcfg, define_model, make_algorithm,
+                          stack_partitions, FederatedTrainer, order_spread,
+                          qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -2924,6 +3455,7 @@ def main(argv=None) -> int:
              ("cli_stream_mmap", cli_out["stream_mmap"])) + tuple(
                  (f"zoo_{n}", r) for n, r in zoo["paths"].items()) + tuple(
                  (f"tasks_{n}", r) for n, r in tasks["paths"].items()) + tuple(
+                 (f"models_{n}", r) for n, r in models["paths"].items()) + tuple(
                  (f"cli_tff_{n}", tasks["cli_tff"][n])
                  for n in ("shakespeare_rnn", "emnist_cnn")
                  if isinstance(tasks["cli_tff"], dict)) + tuple(
@@ -2998,6 +3530,7 @@ def main(argv=None) -> int:
     print(json.dumps({"zoo": zoo, "card": card}))
     print(json.dumps({"localsgd": localsgd, "card": card}))
     print(json.dumps({"tasks": tasks, "card": card}))
+    print(json.dumps({"models": models, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

@@ -26,6 +26,7 @@ import torch
 from fedtorch_tpu_torch.algorithms.fedavg import FedAvg
 from fedtorch_tpu_torch.core import optim
 from fedtorch_tpu_torch.core.state import tree_map, tree_take
+from fedtorch_tpu_torch.models.common import fold_key
 
 
 def _grad_leaves(tree):
@@ -48,9 +49,12 @@ class APFL(FedAvg):
             "local_snapshot": tree_map(torch.clone, params),
         }
 
-    def _mixed_loss(self, personal, local, alpha, bx, by):
-        out = alpha * self.forward_reset(personal, bx) \
-            + (1 - alpha) * self.forward_reset(local, bx)
+    def _mixed_loss(self, personal, local, alpha, bx, by, rng=None):
+        # with a dropout key both forwards drop with the same masks, as
+        # the JAX package's two applies under one key do
+        train = rng is not None
+        out = alpha * self.forward_reset(personal, bx, train, rng) \
+            + (1 - alpha) * self.forward_reset(local, bx, train, rng)
         return self.criterion(out, by)
 
     def pre_round(self, on_aux, *, server, x, y, sizes, lr, plan):
@@ -79,19 +83,20 @@ class APFL(FedAvg):
 
     def local_step(self, *, params, opt, client_aux, rnn_carry,
                    server_params, server_aux, bx, by, bval_x, bval_y, lr,
-                   step_idx, local_index, step_budget):
+                   step_idx, local_index, step_budget, rng=None):
         # 1) the standard step of the local model (apfl.py:95-103)
         params, opt, client_aux, rnn_carry, loss, acc = super().local_step(
             params=params, opt=opt, client_aux=client_aux,
             rnn_carry=rnn_carry, server_params=server_params,
             server_aux=server_aux, bx=bx, by=by, bval_x=bval_x,
             bval_y=bval_y, lr=lr, step_idx=step_idx,
-            local_index=local_index, step_budget=step_budget)
+            local_index=local_index, step_budget=step_budget, rng=rng)
         # 2) the personal step on the mixed output with the updated local
-        #    model (apfl.py:105-116)
+        #    model (apfl.py:105-116), under its own dropout key
         personal = _grad_leaves(client_aux["personal"])
         g_p = torch.autograd.grad(
-            self._mixed_loss(personal, params, client_aux["alpha"], bx, by),
+            self._mixed_loss(personal, params, client_aux["alpha"], bx, by,
+                             None if rng is None else fold_key(rng, 1)),
             list(personal.values()))
         with torch.no_grad():
             new_personal, p_opt = optim.local_step(

@@ -18,7 +18,10 @@ Where the JAX package hands a hook a PRNG key, the port hands it the
 round's :class:`~fedtorch_tpu_torch.parallel.federated.RoundPlan`: every
 random draw of a round is made up front, from the server's
 ``torch.Generator`` (:meth:`FedAlgorithm.plan_draws`) or injected, so
-the tests can feed both packages the same draws.
+the tests can feed both packages the same draws. A model with dropout
+gets its step's dropout key from the plan as ``local_step``'s ``rng``
+(``models/common.py`` ``drop_source``); a hook's own forward derives
+another with ``fold_key``, as the JAX package folds its key.
 """
 from __future__ import annotations
 
@@ -108,12 +111,13 @@ class FedAlgorithm:
         return on_aux
 
     # -- local loop hooks ----------------------------------------------
-    def forward_reset(self, params, bx):
+    def forward_reset(self, params, bx, train: bool = False, rng=None):
         """The forward of every auxiliary probe (personal models, the
         outer MAML step, DRFA's kth-model loss): a recurrent model starts
         from a fresh zero carry here; only the engine's main local loop
-        threads a carry across steps."""
-        return self.model.forward(params, bx)
+        threads a carry across steps. ``train``/``rng``: a training
+        forward's dropout (``ModelDef.apply``)."""
+        return self.model.forward(params, bx, train=train, rng=rng)
 
     def transform_grads(self, grads, *, params, server_params, client_aux,
                         server_aux, lr):
@@ -122,8 +126,9 @@ class FedAlgorithm:
 
     def local_step(self, *, params, opt, client_aux, rnn_carry,
                    server_params, server_aux, bx, by, bval_x, bval_y, lr,
-                   step_idx, local_index, step_budget):
-        """One local step: forward, backward, gradient correction,
+                   step_idx, local_index, step_budget, rng=None):
+        """One local step: a training forward, backward, gradient
+        correction, gradient ascent on a robust model's input noise,
         dual-mode optimizer step. Returns (params, opt, client_aux,
         rnn_carry, loss, acc) with loss/acc as 0-d tensors (no host
         sync). ``rnn_carry`` is a recurrent model's hidden state entering
@@ -135,14 +140,15 @@ class FedAlgorithm:
         skips the steps past it, so step-indexed logic anchors on it.
         ``local_index`` is the client's running step count (a 0-d int32
         tensor on the device); ``bval_x``/``bval_y`` the step's
-        validation batch when ``needs_val_batch``, else None."""
+        validation batch when ``needs_val_batch``, else None; ``rng``
+        the step's dropout key (None without dropout)."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         if self.model.is_recurrent:
             logits, rnn_carry = self.model.apply(leaves, bx, rnn_carry)
             rnn_carry = rnn_carry.detach()
         else:
-            logits = self.model.apply(leaves, bx)
+            logits = self.model.apply(leaves, bx, train=True, rng=rng)
         loss = self.criterion(logits, by)
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
@@ -150,6 +156,10 @@ class FedAlgorithm:
             grads = self.transform_grads(
                 grads, params=params, server_params=server_params,
                 client_aux=client_aux, server_aux=server_aux, lr=lr)
+            if self.model.has_noise_param:
+                # robust archs: gradient ASCENT on the adversarial input
+                # noise (federated/main.py:131-141)
+                grads = dict(grads, noise=-grads["noise"])
             params, opt = optim.local_step(params, grads, opt, lr,
                                            self.cfg.optim)
             acc = accuracy(logits, by) if not self.model.is_regression \

@@ -119,14 +119,14 @@ class DRFA(FedAlgorithm):
 
     def local_step(self, *, params, opt, client_aux, rnn_carry,
                    server_params, server_aux, bx, by, bval_x, bval_y, lr,
-                   step_idx, local_index, step_budget):
+                   step_idx, local_index, step_budget, rng=None):
         params, opt, inner_aux, rnn_carry, loss, acc = \
             self.inner.local_step(
                 params=params, opt=opt, client_aux=client_aux["inner"],
                 rnn_carry=rnn_carry, server_params=server_params,
                 server_aux=server_aux["inner"], bx=bx, by=by,
                 bval_x=bval_x, bval_y=bval_y, lr=lr, step_idx=step_idx,
-                local_index=local_index, step_budget=step_budget)
+                local_index=local_index, step_budget=step_budget, rng=rng)
         # the snapshot after min(k_rand, budget) steps; k_rand is the
         # plan's, the same for every client of the round
         k_snap = min(self._k_rand, step_budget)

@@ -15,6 +15,7 @@ import torch
 from fedtorch_tpu_torch.algorithms.fedavg import FedAvg
 from fedtorch_tpu_torch.core import optim
 from fedtorch_tpu_torch.core.state import tree_map
+from fedtorch_tpu_torch.models.common import fold_key
 
 
 class PerFedAvg(FedAvg):
@@ -34,19 +35,22 @@ class PerFedAvg(FedAvg):
 
     def local_step(self, *, params, opt, client_aux, rnn_carry,
                    server_params, server_aux, bx, by, bval_x, bval_y, lr,
-                   step_idx, local_index, step_budget):
+                   step_idx, local_index, step_budget, rng=None):
         # the inner step (centered/main.py:127-141)
         params, opt, client_aux, rnn_carry, loss, acc = super().local_step(
             params=params, opt=opt, client_aux=client_aux,
             rnn_carry=rnn_carry, server_params=server_params,
             server_aux=server_aux, bx=bx, by=by, bval_x=bval_x,
             bval_y=bval_y, lr=lr, step_idx=step_idx,
-            local_index=local_index, step_budget=step_budget)
-        # the outer step at beta on the val batch (centered/main.py:156-170)
+            local_index=local_index, step_budget=step_budget, rng=rng)
+        # the outer step at beta on the val batch (centered/main.py:156-170),
+        # a training forward under its own dropout key
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
+        rng_v = None if rng is None else fold_key(rng, 2)
         g = torch.autograd.grad(
-            self.criterion(self.forward_reset(leaves, bval_x), bval_y),
+            self.criterion(self.forward_reset(leaves, bval_x, train=True,
+                                              rng=rng_v), bval_y),
             list(leaves.values()))
         with torch.no_grad():
             params, opt = optim.local_step(

@@ -39,13 +39,13 @@ class PerFedMe(FedAvg):
 
     def local_step(self, *, params, opt, client_aux, rnn_carry,
                    server_params, server_aux, bx, by, bval_x, bval_y, lr,
-                   step_idx, local_index, step_budget):
+                   step_idx, local_index, step_budget, rng=None):
         lam = self.cfg.federated.perfedme_lambda
         ocfg = self.cfg.optim
         personal = client_aux["personal"]
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in personal.items()}
-        logits = self.forward_reset(leaves, bx)
+        logits = self.forward_reset(leaves, bx, train=True, rng=rng)
         loss = self.criterion(logits, by)
         g_p = torch.autograd.grad(loss, list(leaves.values()))
         with torch.no_grad():

@@ -9,10 +9,13 @@ that owns it:
 
 * ``Conv``: ``kernel`` HWIO -> ``weight`` OIHW, ``bias``
 * ``Dense``: ``kernel`` (in, out) -> ``weight`` (out, in), ``bias``
-* ``BatchStatsNorm``, ``LayerNorm``: ``scale``, ``bias`` -> ``weight``,
-  ``bias``
+* ``BatchStatsNorm``, ``LayerNorm``, ``GroupNorm`` (the child of a
+  ``_GN``): ``scale``, ``bias`` -> ``weight``, ``bias``
 * ``Embed``: ``embedding`` -> ``weight``
-* a param of the model itself (the transformer's ``pos_embed``): itself
+* a param of the model itself (the transformer's ``pos_embed``, a robust
+  model's ``noise``): itself
+
+``MatmulConv`` (the im2col conv) has ``Conv``'s tree.
 
 With ``module`` (the port's model) the kind is the class of the
 submodule that owns the leaf, so explicitly named layers (the
@@ -60,7 +63,10 @@ _RULES = {
                        "bias": ("bias", _same, _same, None)},
     "Embed": {"embedding": ("weight", _same, _same, 2)},
 }
-_RULES["LayerNorm"] = _RULES["BatchStatsNorm"]
+_RULES["LayerNorm"] = _RULES["GroupNorm"] = _RULES["BatchStatsNorm"]
+_RULES["MatmulConv"] = _RULES["Conv"]
+# params of the model itself that map without ``module``
+_ROOT_LEAVES = ("noise",)
 
 # without ``module``, the kind of an explicitly named layer's leaf, by
 # (leaf, rank) in either direction
@@ -84,6 +90,8 @@ def _kind(owner: list, module) -> Optional[str]:
 
 
 def _kind_of_leaf(owner: list, leaf: str, ndim: int, module):
+    if not owner and leaf in _ROOT_LEAVES:
+        return None
     kind = _kind(owner, module)
     if module is None and kind not in _RULES and owner:
         return _BY_LEAF.get((leaf, ndim), kind)

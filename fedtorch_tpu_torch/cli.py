@@ -37,9 +37,16 @@ the epoch or iteration count, one test evaluation at the end, and the
 JAX package's ``{"test_top1", "rounds"}``. Every dataset of the JAX
 package is read from ``--data_dir`` (EMNIST and Shakespeare from their
 TFF HDF5 files with ``--allow_train_as_test``, adult with
-``--sensitive_feature``), and ``-a cnn`` and ``-a rnn`` run beside the
-earlier models (``define_model`` refuses the rest by name). The JAX run
-writes
+``--sensitive_feature``), and every architecture of the JAX package
+runs: ``-a densenet*`` (``--densenet_bc_mode``, ``--densenet_growth_rate``,
+``--densenet_compression``), ``--norm gn``, ``--drop_rate``, ``--conv_impl
+matmul`` and the ``robust_*`` models beside ``resnet*``, ``wideresnet*``,
+``cnn``, ``rnn``, the transformer and the flat models. The update guards
+(``--guard_updates``, ``--guard_norm_multiplier``, ``--guard_mode``) and
+the robust rules (``--robust_agg``, ``--robust_trim_frac``,
+``--robust_norm_tau``) run in the round, and a guarded round with a
+rejected or clipped update logs the JAX CLI's ``faults`` line. The JAX
+run writes
 checkpoints and telemetry rows; the port writes neither yet, and logs
 one line saying so.
 
@@ -57,6 +64,11 @@ Usage:
     python -m fedtorch_tpu_torch.cli -f true -d cifar10 -p DATA -a resnet20 \
         --num_workers 100 --online_client_rate 0.1 --data_plane stream \
         --data_store mmap --data_store_dir STORE
+    python -m fedtorch_tpu_torch.cli -f true -d cifar10 -p DATA \
+        -a densenet100 --densenet_bc_mode true --densenet_growth_rate 12 \
+        --densenet_compression 0.5 --num_workers 100 \
+        --online_client_rate 0.1 --quantized true --robust_agg median \
+        --guard_updates true
 """
 from __future__ import annotations
 
@@ -503,13 +515,6 @@ _unported("fault", "chaos injection (ROADMAP A6)", {
     "fault_byzantine_rate": "byzantine_rate",
     "fault_byzantine_mode": "byzantine_mode",
     "fault_byzantine_scale": "byzantine_scale"})
-_unported("fault", "robust aggregation (ROADMAP A6)", {
-    "robust_agg": "robust_agg", "robust_trim_frac": "robust_trim_frac",
-    "robust_norm_tau": "robust_norm_tau"})
-_unported("fault", "update guards (ROADMAP A6)", {
-    "guard_updates": "guard_updates",
-    "guard_norm_multiplier": "guard_norm_multiplier",
-    "guard_mode": "guard_mode"})
 _unported("fault", "the round supervisor (ROADMAP A7)", {
     "supervisor": "supervisor", "supervisor_loss_blowup": "loss_blowup_factor",
     "supervisor_max_retries": "max_retries",
@@ -604,6 +609,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
         evaluate, evaluate_per_class, evaluate_personal,
     )
     from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
+    from fedtorch_tpu_torch.robustness.guards import all_rejected_scalars
     from fedtorch_tpu_torch.utils import resolve_device
     from fedtorch_tpu_torch.utils.logging import RunLogger
     from fedtorch_tpu_torch.utils.meters import PhaseTimer
@@ -674,6 +680,15 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                              sc["acc_sum"] / n_online, sc["lr"],
                              comm_bytes=sc["comm_bytes"],
                              round_time=round_time)
+            if cfg.fault.guard_updates:
+                if sc["rejected"] or sc["clipped"]:
+                    # the JAX CLI's line; the port has no chaos plane
+                    logger.log(f"Round {r}: faults — dropped=0 "
+                               f"stragglers=0 rejected={sc['rejected']:.0f} "
+                               f"clipped={sc['clipped']:.0f} byzantine=0")
+                if all_rejected_scalars(sc):
+                    logger.log(f"Round {r}: guards rejected EVERY "
+                               "update — server held (renorm scale 0)")
             if (r + 1) % cfg.train.eval_freq == 0:
                 timer.start("eval")
                 res = [float(v) for v in evaluate(model, server.params,

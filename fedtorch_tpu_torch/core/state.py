@@ -42,17 +42,22 @@ class ServerState(NamedTuple):
 
 class RoundMetrics(NamedTuple):
     """The per-round metrics of the JAX package's ``RoundMetrics`` that
-    the ported (fault-free) round produces. The three per-client leaves
-    are [C] under 'perm' participation, offline rows zero, and the
-    cohort-aligned [k] (in the round plan's order) under 'sparse';
-    ``FederatedTrainer.metrics_width`` names the width. Consumers that
-    sum them get the same numbers in either layout. The JAX package's
-    ``cohort_idx`` rides only with its cohort statistics, which the port
-    refuses."""
+    the ported round produces (no chaos, availability or DP plane). The
+    three per-client leaves are [C] under 'perm' participation, offline
+    rows zero, and the cohort-aligned [k] (in the round plan's order)
+    under 'sparse'; ``FederatedTrainer.metrics_width`` names the width.
+    Consumers that sum them get the same numbers in either layout. The
+    guards' and the robust rule's counts are 0 when they are off. The
+    JAX package's ``cohort_idx`` rides only with its cohort statistics,
+    which the port refuses."""
     train_loss: torch.Tensor   # [C]|[k] mean local loss of each online client
     train_acc: torch.Tensor    # [C]|[k] mean local top-1 of each online client
     online_mask: torch.Tensor  # [C]|[k] 1.0 for this round's online clients
     comm_bytes: torch.Tensor   # scalar — uplink payload volume
+    rejected_updates: torch.Tensor  # scalar — guard drops
+    clipped_updates: torch.Tensor   # scalar — guard clips
+    robust_selected: torch.Tensor   # scalar — updates the rule kept
+    robust_trimmed: torch.Tensor    # scalar — updates the rule cut
 
 
 def _is_tuple(tree) -> bool:
@@ -72,6 +77,14 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(*out) if hasattr(tree, "_fields") \
             else type(tree)(out)
     return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a tree, in :func:`tree_map`'s order."""
+    out = []
+    tree_map(lambda x: out.append(x) if isinstance(x, torch.Tensor)
+             else None, tree)
+    return out
 
 
 def tree_sub(a: Tree, b: Tree) -> Tree:

@@ -26,11 +26,13 @@
 //   first chunk in the grid) is a kernel parameter passed by value
 //   (__grid_constant__, read from the parameter bank): no table in device
 //   memory, no copy from the host per call, and a launch that a CUDA graph
-//   can capture. kMaxLeaves leaves x 32 bytes stay under the classic 4 KB
-//   parameter limit; a tree with more leaves takes more launches (the
-//   wrapper splits it). Block b finds its leaf by a binary search over the
-//   table's first chunks (7 compares at 96 leaves), then its row and its
-//   chunk within the row.
+//   can capture. kMaxLeaves leaves x 32 bytes stay under the 32,764-byte
+//   parameter limit of CUDA 12.1 on Volta and later (DenseNet-BC-100's
+//   299 leaves: one launch of each kernel a tree call, where the classic
+//   4 KB limit's 96 leaves took four). A tree of more than kMaxLeaves
+//   leaves takes more launches (the wrapper splits it). Block b finds its
+//   leaf by a binary search over the table's first chunks (9 compares at
+//   299 leaves), then its row and its chunk within the row.
 // * qdq_ragged_stats_f32 reduces its chunk to a partial [min, max, sum],
 //   written to the float32 workspace [total_chunks, 3]. No float atomics:
 //   every sum has a fixed order, so a rerun gives the same bits.
@@ -74,10 +76,14 @@
 
 #include "qdq_common.cuh"
 
+#if CUDART_VERSION < 12010
+#error "the leaf table needs CUDA 12.1's 32 KB kernel parameters"
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLeaves = 96;  // the wrapper's _TABLE_LEAVES
+constexpr int kMaxLeaves = 1000;  // the wrapper's _TABLE_LEAVES
 
 struct Leaf {
   const float* x;
@@ -92,8 +98,8 @@ struct LeafTable {
 };
 
 static_assert(sizeof(Leaf) == 32, "one table record is 32 bytes");
-static_assert(sizeof(LeafTable) + 64 <= 4096,
-              "the table and the other parameters fit in 4 KB");
+static_assert(sizeof(LeafTable) + 64 <= 32764,
+              "the table and the other parameters fit in 32,764 B");
 
 // Where block b's chunk lies: its leaf, the chunk's first element and
 // length within the leaf, and the grid index and count of its row's chunks.
@@ -222,7 +228,7 @@ int fill(const int64_t* rec, int count, LeafTable& t) {
 
 }  // namespace
 
-// table: `count` host records as fill() reads them, 1 <= count <= 96, the
+// table: `count` host records as fill() reads them, 1 <= count <= 1000, the
 // first chunks ascending from 0 with each leaf's rows x ceil(n / chunk)
 // chunks; x: contiguous float32 [rows, n] on the current device; partials:
 // float32 [nblocks, 3] with nblocks the table's total chunks,

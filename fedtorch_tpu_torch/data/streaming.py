@@ -76,7 +76,8 @@ class RoundFeed(NamedTuple):
     online client's first B storage rows (``pre_round``'s batch);
     ``probe_*`` the post-round probe batches (DRFA's dual phase). The
     rest is the round plan beside the rows: the rows themselves, the
-    augmentation draws and DRFA's snapshot step and probe rows."""
+    augmentation draws, DRFA's snapshot step and probe rows and the
+    dropout keys."""
     idx: torch.Tensor      # [k] int32 online client ids
     sizes: torch.Tensor    # [k] int32 their sample counts
     x: torch.Tensor        # [k, K*B, ...] (batch) or [k, n_max, ...] (shard)
@@ -92,6 +93,7 @@ class RoundFeed(NamedTuple):
     lefts: Optional[torch.Tensor] = None
     k_rand: Optional[torch.Tensor] = None      # 0-d int64
     probe_rows: Optional[torch.Tensor] = None  # [k2, B] int64
+    drop_keys: Optional[torch.Tensor] = None   # [k, K] int64
 
 
 def feed_nbytes(feed: RoundFeed) -> int:
@@ -600,6 +602,7 @@ class StreamFeedProducer:
         return feed._replace(
             rows=plan.rows, flip=plan.flip, tops=plan.tops,
             lefts=plan.lefts, probe_rows=plan.probe_rows,
+            drop_keys=plan.drop_keys,
             k_rand=None if plan.k_rand is None
             else torch.tensor(int(plan.k_rand)))
 
@@ -631,7 +634,7 @@ class StreamFeedProducer:
         return feed._replace(
             rows=stacked("rows"), flip=stacked("flip"),
             tops=stacked("tops"), lefts=stacked("lefts"),
-            probe_rows=stacked("probe_rows"),
+            probe_rows=stacked("probe_rows"), drop_keys=stacked("drop_keys"),
             k_rand=None if plans[0].k_rand is None
             else torch.tensor([int(p.k_rand) for p in plans]))
 

@@ -1,14 +1,22 @@
 """Model registry (port of ``fedtorch_tpu/models/__init__.py``).
 
-The CIFAR-family ``resnet*`` and ``wideresnet*`` (without dropout) with
-``norm='bn'`` and the native conv lowering, the LeNet ``cnn``, the
-char-GRU ``rnn`` (a recurrent :class:`ModelDef` on ``[batch,
-rnn_seq_len]`` int64 tokens), the causal ``transformer`` LM (dense MLP
-blocks), and the flat models ``logistic_regression``, ``least_square``
-and ``mlp`` (without dropout) are ported; every other architecture and
-option is refused by name.
+Every architecture of the JAX package's ``define_model``: the CIFAR
+``resnet*`` family (and the ImageNet variant's class, which neither
+package's ``define_model`` can reach: it raises as the JAX package does),
+``wideresnet*`` and ``densenet*`` (plain and BC) with dropout, either
+norm ('bn', 'gn') and either conv lowering ('conv', 'matmul'), the LeNet
+``cnn``, the char-GRU ``rnn`` (a recurrent :class:`ModelDef` on
+``[batch, rnn_seq_len]`` int64 tokens), the causal ``transformer`` LM
+(dense MLP blocks), and the flat models ``logistic_regression``,
+``least_square`` and ``mlp`` (with dropout and either norm) with their
+``robust_*`` variants. ``conv_impl='auto'`` resolves as the JAX
+package's ``resolve_conv_impl`` does for an accelerator: the native
+conv, whatever the device. Refused by name: remat, MoE blocks and
+compute dtypes other than float32 and bfloat16.
 """
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -17,6 +25,7 @@ from fedtorch_tpu_torch.models.cnn import CNN
 from fedtorch_tpu_torch.models.common import (
     REGRESSION_DIMS, ModelDef, flat_input_size, image_shape,
 )
+from fedtorch_tpu_torch.models.densenet import build_densenet
 from fedtorch_tpu_torch.models.linear import LeastSquare, LogisticRegression
 from fedtorch_tpu_torch.models.mlp import MLP
 from fedtorch_tpu_torch.models.resnet import build_resnet
@@ -26,6 +35,16 @@ from fedtorch_tpu_torch.models.wideresnet import build_wideresnet
 from fedtorch_tpu_torch.utils import resolve_device
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_CONV_FAMILIES = ("resnet", "wideresnet", "densenet", "cnn")
+
+
+def resolve_conv_impl(conv_impl: str) -> str:
+    """``conv_impl`` with 'auto' resolved as the JAX package resolves it
+    on an accelerator: XLA's native conv there measured 5.06x the im2col
+    matmul on a TPU v5e, and the port's native conv is cuDNN's; the JAX
+    package's CPU choice of the matmul tracks XLA's CPU conv emitter,
+    which the port does not have."""
+    return "conv" if conv_impl == "auto" else conv_impl
 
 
 def define_model(cfg: ExperimentConfig, batch_size: int = 2,
@@ -40,6 +59,14 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
         raise ValueError(f"compute_dtype {cfg.mesh.compute_dtype!r} is "
                          "not yet ported")
     dtype = COMPUTE_DTYPES[cfg.mesh.compute_dtype]
+    if m.conv_impl not in ("conv", "auto") \
+            and not arch.startswith(_CONV_FAMILIES):
+        warnings.warn(
+            f"--conv_impl {m.conv_impl!r} has no effect for arch "
+            f"{arch!r} (implemented for the conv families: resnet*/"
+            "wideresnet*/densenet*/cnn); running with the native conv",
+            stacklevel=2)
+    conv_impl = resolve_conv_impl(m.conv_impl)
     if arch == "transformer":
         return _transformer(m, dtype, batch_size, device)
     if arch == "rnn":
@@ -49,46 +76,28 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
         return ModelDef(arch, module.to(device), sample, is_recurrent=True)
     if arch in _FLAT_ARCHS:
         return _flat(cfg, dtype, batch_size, device)
-    if arch in _REFUSED_ARCHS:
-        raise ValueError(f"arch {arch!r} is not yet ported: "
-                         f"{_REFUSED_ARCHS[arch]}")
-    if not arch.startswith(("resnet", "wideresnet")) and arch != "cnn":
-        raise ValueError(f"arch {arch!r} is not yet ported (the port has "
-                         "the cifar resnet* and wideresnet* families, cnn, "
-                         f"rnn, the transformer and {', '.join(_FLAT_ARCHS)})")
-    if arch.startswith("wideresnet") and m.drop_rate > 0:
-        raise ValueError(f"drop_rate {m.drop_rate} (dropout in "
-                         "wideresnet blocks) is not yet ported")
-    if m.norm != "bn" and arch != "cnn":  # the cnn has no norm
-        raise ValueError(f"norm {m.norm!r} is not yet ported (the port "
-                         "has norm='bn')")
-    if m.conv_impl not in ("conv", "auto"):
-        raise ValueError(f"conv_impl {m.conv_impl!r} is not yet ported "
-                         "(the port runs the native conv)")
     if arch == "cnn":
-        module = CNN(dataset, image_shape(dataset), dtype)
+        module = CNN(dataset, image_shape(dataset), dtype, conv_impl)
     elif arch.startswith("wideresnet"):
         module = build_wideresnet(arch, dataset, m.wideresnet_widen_factor,
-                                  dtype)
+                                  dtype, m.drop_rate, m.norm, conv_impl)
+    elif arch.startswith("resnet"):
+        module = build_resnet(arch, dataset, dtype, m.norm, conv_impl)
+    elif arch.startswith("densenet"):
+        module = build_densenet(arch, dataset, m.densenet_growth_rate,
+                                m.densenet_bc_mode, m.densenet_compression,
+                                m.drop_rate, m.norm, dtype, conv_impl)
     else:
-        module = build_resnet(arch, dataset, dtype)
-    module = module.to(device)
+        raise ValueError(f"Unknown architecture {arch!r}")
     sample = torch.zeros((batch_size,) + image_shape(dataset),
                          device=device)
-    return ModelDef(arch, module, sample)
+    return ModelDef(arch, module.to(device), sample,
+                    has_dropout=arch.startswith(("wideresnet", "densenet"))
+                    and m.drop_rate > 0)
 
 
-_FLAT_ARCHS = ("logistic_regression", "least_square", "mlp")
-_REFUSED_ARCHS = {
-    "robust_logistic_regression": "its input-noise ascent "
-                                  "(robust_noise_ascent) is not ported",
-    "robust_least_square": "its input-noise ascent (robust_noise_ascent) "
-                           "is not ported",
-    "robust_mlp": "its input-noise ascent (robust_noise_ascent) is not "
-                  "ported",
-    "LinearMAFL": "AFL's factorized linear model goes with the AFL "
-                  "algorithm",
-}
+_FLAT_ARCHS = ("logistic_regression", "robust_logistic_regression",
+               "least_square", "robust_least_square", "mlp", "robust_mlp")
 
 
 def _flat(cfg, dtype, batch_size: int, device) -> ModelDef:
@@ -96,27 +105,25 @@ def _flat(cfg, dtype, batch_size: int, device) -> ModelDef:
     ``_sample_flat`` / ``_sample_regression`` widths)."""
     arch, dataset, m = cfg.model.arch, cfg.data.dataset, cfg.model
     synthetic = dataset == "synthetic"
-    if arch == "least_square":
+    robust = arch.startswith("robust_")
+    base = arch[len("robust_"):] if robust else arch
+    if base == "least_square":
         width = cfg.data.synthetic_dim if synthetic \
             else REGRESSION_DIMS[dataset]
-        module = LeastSquare(dataset, width, dtype)
+        module = LeastSquare(dataset, width, dtype, robust)
     else:
         width = cfg.data.synthetic_dim if synthetic \
             else flat_input_size(dataset)
-        if arch == "logistic_regression":
-            module = LogisticRegression(dataset, width, dtype)
+        if base == "logistic_regression":
+            module = LogisticRegression(dataset, width, dtype, robust)
         else:
-            if m.drop_rate > 0:
-                raise ValueError(f"drop_rate {m.drop_rate} (dropout in the "
-                                 "mlp) is not yet ported")
-            if m.norm != "bn":
-                raise ValueError(f"norm {m.norm!r} is not yet ported (the "
-                                 "port has norm='bn')")
             module = MLP(dataset, width, m.mlp_num_layers, m.mlp_hidden_size,
-                         dtype)
+                         dtype, m.drop_rate, m.norm, robust)
     sample = torch.zeros((batch_size, width), device=device)
     return ModelDef(arch, module.to(device), sample,
-                    is_regression=arch == "least_square")
+                    is_regression=base == "least_square",
+                    has_noise_param=robust,
+                    has_dropout=base == "mlp" and m.drop_rate > 0)
 
 
 def _transformer(m, dtype, batch_size: int, device) -> ModelDef:

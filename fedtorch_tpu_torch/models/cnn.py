@@ -19,15 +19,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fedtorch_tpu_torch.models.common import Conv, Dense, num_classes_of
+from fedtorch_tpu_torch.models.common import Dense, conv_of, num_classes_of
 
 
 class CNN(nn.Module):
     def __init__(self, dataset: str, in_shape,
-                 dtype: torch.dtype = torch.float32):
-        """``in_shape``: the NHWC sample shape (H, W, C)."""
+                 dtype: torch.dtype = torch.float32, conv_impl: str = "conv"):
+        """``in_shape``: the NHWC sample shape (H, W, C); ``conv_impl``
+        'matmul' takes the im2col conv (same params)."""
         super().__init__()
         h, w, c = in_shape
+        Conv = conv_of(conv_impl)
         self.Conv_0 = Conv(c, 20, 5, dtype=dtype, bias=True)
         self.Conv_1 = Conv(20, 50, 5, dtype=dtype, bias=True)
         # two VALID 5x5 convs, each followed by a 2x2 pool

@@ -148,6 +148,42 @@ class Conv(nn.Module):
                         stride=self.stride, padding=self.padding)
 
 
+class MatmulConv(Conv):
+    """The im2col convolution (``conv_impl='matmul'``): the input's
+    patches (``F.unfold``, features in (cin, kh, kw) order, as
+    ``lax.conv_general_dilated_patches`` orders them) times the weight
+    as one ``[B, P, cin*kh*kw] x [cin*kh*kw, cout]`` matmul, in
+    ``dtype``. Same parameters and initializer as :class:`Conv`, so a
+    params dict loads under either. The output is the NCHW view of
+    ``[B, H, W, cout]`` memory, as the native conv gives it. The JAX
+    package's ``MatmulConv`` is XLA code, not Pallas, so it stays torch
+    ops here."""
+
+    def forward(self, x):
+        cout, cin, kh, kw = self.weight.shape
+        B, _, H, W = x.shape
+        ho = (H + 2 * self.padding - kh) // self.stride + 1
+        wo = (W + 2 * self.padding - kw) // self.stride + 1
+        patches = F.unfold(x.to(self.dtype), (kh, kw), padding=self.padding,
+                           stride=self.stride)  # [B, cin*kh*kw, P]
+        w = self.weight.to(self.dtype).reshape(cout, cin * kh * kw)
+        y = torch.matmul(patches.transpose(1, 2), w.t())  # [B, P, cout]
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y.reshape(B, ho, wo, cout).permute(0, 3, 1, 2)
+
+
+def conv_of(impl: str):
+    """The conv layer of a ``conv_impl``: 'conv' (the native conv) or
+    'matmul' (:class:`MatmulConv`); both build the same params."""
+    if impl == "conv":
+        return Conv
+    if impl == "matmul":
+        return MatmulConv
+    raise ValueError(f"unknown conv_impl {impl!r} "
+                     "(expected 'conv' or 'matmul')")
+
+
 class Dense(nn.Module):
     """Affine layer ``x W^T + b`` computed in ``dtype`` (flax's
     ``nn.Dense(dtype=...)``: params stay float32, input, weight and bias
@@ -223,6 +259,135 @@ class BatchStatsNorm(nn.Module):
                             training=True, eps=self.eps)
 
 
+class GroupNorm(nn.Module):
+    """flax's ``nn.GroupNorm`` on NCHW (or ``[B, C]``) input: per sample
+    and group of ``C / groups`` channels, float32 statistics with flax's
+    fast variance ``max(E[x^2] - E[x]^2, 0)`` and epsilon 1e-6 (flax's
+    default, not torch's 1e-5), then the per-channel affine pair."""
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.groups, self.eps = groups, eps
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        return {"weight": torch.ones(self.weight.shape),
+                "bias": torch.zeros(self.bias.shape)}
+
+    def forward(self, x):
+        B, C = x.shape[:2]
+        g = x.to(torch.float32).reshape(B, self.groups, -1)
+        mean = g.mean(dim=2)
+        var = torch.clamp(torch.square(g).mean(dim=2) - torch.square(mean),
+                          min=0.0)
+        # per-channel stats, then flax's (x - mean) * (rsqrt * scale) + bias
+        shape = (B, C) + (1,) * (x.dim() - 2)
+        per = C // self.groups
+        mean = mean.repeat_interleave(per, dim=1).reshape(shape)
+        mul = torch.rsqrt(var.repeat_interleave(per, dim=1) + self.eps) \
+            * self.weight
+        return (x.to(torch.float32) - mean) * mul.reshape(shape) \
+            + self.bias.reshape(shape[1:])
+
+
+class _GN(nn.Module):
+    """The JAX package's ``_GN``: a GroupNorm of 32 groups, halved until
+    they divide the channels, as the child ``GroupNorm_0`` (flax's
+    param path ``_GN_<i>/GroupNorm_0``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        groups = 32
+        while channels % groups != 0:
+            groups //= 2
+        self.GroupNorm_0 = GroupNorm(channels, max(groups, 1))
+
+    def forward(self, x):
+        return self.GroupNorm_0(x)
+
+
+NORM_KINDS = {"bn": "BatchStatsNorm", "gn": "_GN"}
+
+
+def make_norm(kind: str, channels: int) -> nn.Module:
+    """Norm factory: 'bn' the batch-statistics norm, 'gn' GroupNorm."""
+    if kind == "bn":
+        return BatchStatsNorm(channels)
+    if kind == "gn":
+        return _GN(channels)
+    raise ValueError(f"Unknown norm kind {kind!r}")
+
+
+def norm_name(kind: str, i: int) -> str:
+    """flax's auto-name of a parent's ``i``-th norm of ``kind``."""
+    return f"{NORM_KINDS[kind]}_{i}"
+
+
+class Normed(nn.Module):
+    """A module whose norms are named as flax auto-names them for its
+    ``norm`` kind (``BatchStatsNorm_<i>`` or ``_GN_<i>``):
+    ``add_norm(i, channels)`` registers one, ``nrm(i)`` returns it."""
+
+    def __init__(self, norm: str = "bn"):
+        super().__init__()
+        self.norm = norm
+
+    def add_norm(self, i: int, channels: int) -> None:
+        norm = make_norm(self.norm, channels)
+        self.add_module(norm_name(self.norm, i), norm)
+
+    def nrm(self, i: int) -> nn.Module:
+        return getattr(self, norm_name(self.norm, i))
+
+
+def dropout(x: torch.Tensor, rate: float, drop) -> torch.Tensor:
+    """flax's ``nn.Dropout``: identity without ``drop`` (evaluation) or at
+    rate 0; else each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, zero where dropped. ``drop(shape,
+    keep)`` gives the bool keep mask (see :func:`drop_source`)."""
+    if drop is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    return torch.where(drop(tuple(x.shape), keep), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_key(key: int, n: int) -> int:
+    """A new dropout key from ``key`` and ``n`` (splitmix64 of their
+    sum): the port's counterpart of ``jax.random.fold_in`` for the
+    personal and outer forwards' own masks."""
+    z = (key + (n + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1  # a non-negative int64
+
+
+_DROP_GENERATORS: dict = {}
+
+
+def drop_source(key, device):
+    """The keep-mask source of one training forward: from an integer
+    ``key``, a generator on ``device`` reseeded with it, each mask
+    ``rand(shape) < keep`` in the forward's call order (the same key
+    gives the same masks); a callable ``key(shape, keep)`` is the source
+    itself (the tests inject the JAX package's masks so)."""
+    if callable(key):
+        return key
+    device = torch.device(device)
+    gen = _DROP_GENERATORS.get(device)
+    if gen is None:
+        gen = _DROP_GENERATORS[device] = torch.Generator(device=device)
+    gen.manual_seed(int(key))
+    return lambda shape, keep: torch.rand(shape, generator=gen,
+                                          device=device) < keep
+
+
 def norm_f32(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Normalize in float32, return in the input's (compute) dtype."""
     return norm(x.to(torch.float32)).to(x.dtype)
@@ -231,17 +396,23 @@ def norm_f32(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
 class ModelDef(NamedTuple):
     """A model as functions over a params dict (port of the JAX
     package's ``ModelDef``): ``init(generator)`` draws a fresh params
-    dict and ``apply(params, x)`` runs the shared module with those
-    params (``torch.func.functional_call``), so one module serves every
-    client's weights. A recurrent model (``is_recurrent``, the char-GRU)
-    takes its hidden state explicitly: ``apply(params, x, carry)``
-    returns ``(logits, new_carry)``, and ``init_carry(batch)`` is the
-    fresh zero carry (None for a feed-forward model)."""
+    dict and ``apply(params, x, carry, train=..., rng=...)`` runs the
+    shared module with those params (``torch.func.functional_call``), so
+    one module serves every client's weights. A recurrent model
+    (``is_recurrent``, the char-GRU) takes its hidden state explicitly:
+    ``apply(params, x, carry)`` returns ``(logits, new_carry)``, and
+    ``init_carry(batch)`` is the fresh zero carry (None for a
+    feed-forward model). A model with dropout (``has_dropout``) drops
+    only in a training forward given ``rng``, a dropout key
+    (:func:`drop_source`); a robust model (``has_noise_param``) carries
+    the adversarial input noise as its ``noise`` param."""
     name: str
     module: Any
     sample_input: torch.Tensor
     is_regression: bool = False
     is_recurrent: bool = False
+    has_noise_param: bool = False
+    has_dropout: bool = False
 
     def init(self, generator: torch.Generator) -> dict:
         """Fresh params (flax's default initializers): drawn on the CPU
@@ -255,9 +426,13 @@ class ModelDef(NamedTuple):
                     out[f"{name}.{pname}" if name else pname] = t.to(device)
         return {k: out[k] for k, _ in self.module.named_parameters()}
 
-    def apply(self, params: dict, x: torch.Tensor, carry=None):
+    def apply(self, params: dict, x: torch.Tensor, carry=None,
+              train: bool = False, rng=None):
         if self.is_recurrent:
             return functional_call(self.module, params, (x, carry))
+        if self.has_dropout and train and rng is not None:
+            return functional_call(self.module, params, (x,), {
+                "drop": drop_source(rng, self.sample_input.device)})
         return functional_call(self.module, params, (x,))
 
     def init_carry(self, batch_size: int):
@@ -266,10 +441,12 @@ class ModelDef(NamedTuple):
         return self.module.initial_carry(batch_size).to(
             self.sample_input.device)
 
-    def forward(self, params: dict, x: torch.Tensor):
+    def forward(self, params: dict, x: torch.Tensor, train: bool = False,
+                rng=None):
         """The logits of ``x``, a recurrent model's from a fresh zero
         carry: the forward of evaluation and of every auxiliary probe
-        (the JAX package's ``forward_fn``)."""
+        (the JAX package's ``forward_fn``; ``train``/``rng`` as for
+        :meth:`apply`)."""
         if self.is_recurrent:
             return self.apply(params, x, self.init_carry(x.shape[0]))[0]
-        return self.apply(params, x)
+        return self.apply(params, x, train=train, rng=rng)

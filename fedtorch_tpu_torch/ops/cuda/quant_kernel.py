@@ -26,7 +26,9 @@ through.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from fedtorch_tpu_torch.ops.cuda.build import load_library
@@ -48,7 +50,7 @@ _MAX_ROWS = 2 ** 31 - 1       # gridDim.x of the ragged pair
 _MAX_TILED_ROWS = 65535       # gridDim.y of qdq_tiled
 # Leaves per launch of the ragged pair: its table's capacity
 # (kMaxLeaves in csrc/qdq_ragged.cu).
-_TABLE_LEAVES = 96
+_TABLE_LEAVES = 1000
 
 
 def qrange(num_bits: int):
@@ -175,20 +177,37 @@ def ragged_launches(shapes) -> list:
     return out + [cur] if cur else out
 
 
-def _table(leaves, outs, launch):
-    """The kernel's leaf table for one launch: 4 int64 per leaf (input
-    pointer, output pointer, n, first chunk) in host memory."""
-    rec = []
-    for i, base in launch:
-        rec += [leaves[i].data_ptr(), outs[i].data_ptr(), leaves[i].shape[1],
-                base]
-    return (ctypes.c_int64 * len(rec))(*rec)
+@functools.lru_cache(maxsize=256)
+def _structure(shapes: tuple, table_leaves: int, max_rows: int,
+               chunk: int) -> tuple:
+    """The ragged pair's launches for leaves of ``shapes``, built once
+    per tree structure (and capacity): for each launch, its leaves'
+    indices, its table's int64 records with the n and first-chunk
+    columns filled, and its chunk count."""
+    out = []
+    for launch in ragged_launches(shapes):
+        rec = np.zeros((len(launch), 4), np.int64)
+        rec[:, 2] = [shapes[i][1] for i, _ in launch]
+        rec[:, 3] = [base for _, base in launch]
+        i, base = launch[-1]
+        out.append(([i for i, _ in launch], rec,
+                    base + shapes[i][0] * _nchunks(shapes[i][1])))
+    return tuple(out)
 
 
-def _launch_chunks(leaves, launch) -> int:
-    i, base = launch[-1]
-    rows, n = leaves[i].shape
-    return base + rows * _nchunks(n)
+def _launches(leaves) -> tuple:
+    return _structure(tuple(tuple(x.shape) for x in leaves), _TABLE_LEAVES,
+                      _MAX_ROWS, _CHUNK)
+
+
+def _table(rec: np.ndarray, leaves, outs, idx) -> int:
+    """One launch's leaf table (4 int64 per leaf: input pointer, output
+    pointer, n, first chunk) in host memory: the structure's records
+    with this call's pointers. Returns its address; ``rec`` must live
+    through the launch."""
+    rec[:, 0] = [leaves[i].data_ptr() for i in idx]
+    rec[:, 1] = [outs[i].data_ptr() for i in idx]
+    return rec.ctypes.data
 
 
 def qdq_ragged_stats(leaves) -> torch.Tensor:
@@ -197,21 +216,21 @@ def qdq_ragged_stats(leaves) -> torch.Tensor:
     the CPU."""
     global ragged_stats_launches
     _check_leaves(leaves, "qdq_ragged_stats")
-    plan = ragged_launches([tuple(x.shape) for x in leaves])
+    plan = _launches(leaves)
     if not leaves or leaves[0].device.type == "cpu":
         return qdq_ragged_stats_ref(leaves) if leaves \
             else torch.empty((0, 3))
-    sizes = [_launch_chunks(leaves, ln) for ln in plan]
-    partials = torch.empty((sum(sizes), 3), dtype=torch.float32,
-                           device=leaves[0].device)
+    partials = torch.empty((sum(m for _, _, m in plan), 3),
+                           dtype=torch.float32, device=leaves[0].device)
     lib = load_library()
     with torch.cuda.device(partials.device):
         base = 0
-        for launch, m in zip(plan, sizes):
+        for idx, rec, m in plan:
             # the stats pass writes no output: its table's output pointers
             # are the inputs'
+            rec = rec.copy()
             _launch(lib.qdq_ragged_stats_f32, "qdq_ragged_stats_f32",
-                    _table(leaves, leaves, launch), len(launch),
+                    _table(rec, leaves, leaves, idx), len(idx),
                     partials[base:].data_ptr(), m, _CHUNK)
             ragged_stats_launches += 1
             base += m
@@ -228,7 +247,7 @@ def qdq_ragged_apply(leaves, partials: torch.Tensor,
     global ragged_apply_launches, launches
     _check_bits(num_bits)
     _check_leaves(leaves, "qdq_ragged_apply")
-    plan = ragged_launches([tuple(x.shape) for x in leaves])
+    plan = _launches(leaves)
     want = (sum(x.shape[0] * _nchunks(x.shape[1]) for x in leaves), 3)
     dev = leaves[0].device if leaves else partials.device
     if (tuple(partials.shape) != want or partials.dtype != torch.float32
@@ -249,10 +268,10 @@ def qdq_ragged_apply(leaves, partials: torch.Tensor,
     lib = load_library()
     with torch.cuda.device(dev):
         base = 0
-        for launch in plan:
-            m = _launch_chunks(leaves, launch)
+        for idx, rec, m in plan:
+            rec = rec.copy()
             _launch(lib.qdq_ragged_apply_f32, "qdq_ragged_apply_f32",
-                    _table(leaves, outs, launch), len(launch),
+                    _table(rec, leaves, outs, idx), len(idx),
                     partials[base:].data_ptr(), m, _CHUNK, num_bits)
             ragged_apply_launches += 1
             launches += 1

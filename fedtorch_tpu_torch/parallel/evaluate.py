@@ -23,10 +23,11 @@ taking each client's row of any tree of ``[C, ...]`` tensors (APFL's
 there) stay out of the summary. ``evaluate_personal`` evaluates the
 personalized algorithms' per-client models on their validation rows.
 Every forward is ``model.forward``, the JAX package's ``forward_fn``: a
-recurrent model gets a fresh zero carry per batch. Not ported:
-``robust_noise_ascent`` (it goes with the robust models, ROADMAP A1),
-and ``lowered_eval_program``, which lowers an XLA program for its cost
-analysis and has no torch meaning.
+recurrent model gets a fresh zero carry per batch. A robust model
+(``has_noise_param``) first takes :func:`robust_noise_ascent` over the
+eval set in :func:`evaluate` and :func:`evaluate_per_class`, unless
+``robust_ascent=False``. Not ported: ``lowered_eval_program``, which
+lowers an XLA program for its cost analysis and has no torch meaning.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from fedtorch_tpu_torch.core.losses import (
-    make_criterion, per_class_accuracy, topk_accuracy, topk_indices,
+    make_criterion, per_class_accuracy, per_sample_loss, topk_accuracy,
+    topk_indices,
 )
 from fedtorch_tpu_torch.core.state import tree_take
 from fedtorch_tpu_torch.models.common import ModelDef
@@ -84,12 +86,48 @@ def _flat_tokens(logits, yb, mb):
     return logits, yb, mb
 
 
+def _ascent_on_batches(model: ModelDef, params, bx, by, bm,
+                       step_size: float = 0.01) -> dict:
+    """The noise ascent over padded batches, batch by batch: the
+    gradient of the batch's masked mean loss in ``noise`` alone, a step
+    up it, the noise projected onto the unit ball."""
+    noise = params["noise"].detach()
+    for xb, yb, mb in zip(bx, by, bm):
+        leaf = noise.clone().requires_grad_(True)
+        per = per_sample_loss(model.forward(dict(params, noise=leaf), xb),
+                              yb, model.is_regression)
+        loss = (per * mb).sum() / torch.clamp(mb.sum(), min=1.0)
+        (g,) = torch.autograd.grad(loss, [leaf])
+        with torch.no_grad():
+            noise = noise + step_size * g
+            norm = torch.linalg.vector_norm(noise)
+            noise = torch.where(norm > 1.0, noise / norm, noise)
+    return dict(params, noise=noise)
+
+
+def robust_noise_ascent(model: ModelDef, params, x: np.ndarray,
+                        y: np.ndarray, batch_size: int = 256,
+                        step_size: float = 0.01) -> dict:
+    """The adversarial evaluation prelude of the robust archs
+    (eval.py:59-68): one gradient-ascent pass over the eval set on the
+    input noise, projected onto the unit ball after each step. Returns
+    the params with that noise (``params`` itself for other models)."""
+    if not model.has_noise_param:
+        return params
+    return _ascent_on_batches(
+        model, params, *_device_batches(model, x, y, batch_size), step_size)
+
+
 def evaluate(model: ModelDef, params, x: np.ndarray, y: np.ndarray,
-             batch_size: int = 256) -> EvalResult:
+             batch_size: int = 256,
+             robust_ascent: bool = True) -> EvalResult:
     """Server-side test evaluation (eval.py:83-99): mean loss, top-1 and
     top-5 (top-k capped at the class count) over the real rows, as 0-d
-    float32 tensors on the model's device."""
+    float32 tensors on the model's device; a robust model after the
+    noise ascent on the same batches unless ``robust_ascent=False``."""
     bx, by, bm = _device_batches(model, x, y, batch_size)
+    if model.has_noise_param and robust_ascent:
+        params = _ascent_on_batches(model, params, bx, by, bm)
     sums = []
     with torch.inference_mode():
         for xb, yb, mb in zip(bx, by, bm):
@@ -193,11 +231,14 @@ def evaluate_personal(model: ModelDef, client_aux, client_params, data,
 
 def evaluate_per_class(model: ModelDef, params, x: np.ndarray,
                        y: np.ndarray, num_classes: int,
-                       batch_size: int = 256):
+                       batch_size: int = 256, robust_ascent: bool = True):
     """Per-class accuracy (components/metrics.py:77-91; the
     ``--per_class_acc`` flag): ``[num_classes]`` accuracy and the
-    per-class sample counts, float32 on the model's device."""
+    per-class sample counts, float32 on the model's device; a robust
+    model after the same noise ascent as :func:`evaluate`."""
     bx, by, bm = _device_batches(model, x, y, batch_size)
+    if model.has_noise_param and robust_ascent:
+        params = _ascent_on_batches(model, params, bx, by, bm)
     c_sum = torch.zeros(num_classes, device=bx.device)
     t_sum = torch.zeros(num_classes, device=bx.device)
     with torch.inference_mode():

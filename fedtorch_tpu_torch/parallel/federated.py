@@ -13,7 +13,14 @@ format on the stacked ``[k]`` axis, sum, apply the downlink wire
 format, take the server step, run ``client_post`` per client on the
 transformed sum, write the online clients' state back, then the
 algorithm's ``post_round_global`` (DRFA's dual update). These are the
-hooks and the order of the JAX package's ``_round_core``.
+hooks and the order of the JAX package's ``_round_core``. With the
+update guards on (``guard_updates``), the stacked payloads are screened
+on the clients' raw deltas after the uplink wire format; a robust rule
+(``robust_agg`` other than 'mean') then takes the place of the sum, and
+the guards' (or the rule's) accept mask renormalizes the sum to the full
+round weight before the downlink wire format (``robustness/``).
+``norm_bound`` keeps its momentum in the server aux, wrapped as the JAX
+package wraps it (``{'alg': ..., 'norm_bound_m': ...}``).
 
 Two data planes feed :meth:`FederatedTrainer._round_core`:
 ``round_fn`` gathers the round's rows from the population on the
@@ -46,12 +53,18 @@ What differs from the JAX package, and why:
   step-indexed hook anchors on the budget (DRFA's snapshot step).
 * Where the JAX package folds PRNG keys for an algorithm (DRFA's
   snapshot step and probe), the port draws from the server's generator
-  into the plan (``FedAlgorithm.plan_draws``).
+  into the plan (``FedAlgorithm.plan_draws``). So for dropout: where the
+  JAX package folds a key per client and step (``fold_in(rng_c, k +
+  1)``), the plan holds a ``[k, K]`` int64 dropout key drawn from the
+  server's generator, and each step's training forward reseeds a device
+  generator with its key (``models/common.py`` ``drop_source``).
 * Client state is updated in place (see ``core/state.py``).
 
-Everything of ``_round_core`` that is off on this path — chaos, guards,
-robust rules, DP, availability, pod-scale sharding, cohort stats, client
-fusion, the async plane — is refused by name at construction; so are
+Everything of ``_round_core`` that is off on this path — chaos, DP,
+availability, pod-scale sharding, cohort stats, client fusion, the async
+plane — is refused by name at construction (with no chaos or
+availability plane every online client reports: the guards' ``survive``
+mask is all ones); so are
 the JAX package's bounded retry of a failed gather, its host-fault
 seams and its producer rebuild (ROADMAP A7): a gather error reaches the
 caller as itself.
@@ -86,6 +99,12 @@ from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
 )
+from fedtorch_tpu_torch.robustness.aggregators import (
+    robust_aggregate, unwrap_norm_bound, wrap_norm_bound,
+)
+from fedtorch_tpu_torch.robustness.guards import (
+    renormalize_accepted, screen_payloads,
+)
 from fedtorch_tpu_torch.utils import resolve_device
 
 
@@ -93,8 +112,9 @@ class RoundPlan(NamedTuple):
     """What a round consumes of randomness, as CPU tensors: the online
     client ids, each one's K*B storage rows, (augmentation on) the
     per-step flip/crop draws, (DRFA) the shared snapshot step and the
-    second phase's cohort and rows, and (``needs_val_batch``) each online
-    client's K*B validation storage rows."""
+    second phase's cohort and rows, (``needs_val_batch``) each online
+    client's K*B validation storage rows, and (a model with dropout) each
+    online client's dropout key a step."""
     idx: torch.Tensor                     # [k] int64 online client ids
     rows: torch.Tensor                    # [k, K*B] int64 storage rows
     flip: Optional[torch.Tensor] = None   # [k, K, B] bool
@@ -104,6 +124,7 @@ class RoundPlan(NamedTuple):
     probe_idx: Optional[torch.Tensor] = None   # [k] int64 probe cohort
     probe_rows: Optional[torch.Tensor] = None  # [k, B] int64 its rows
     vrows: Optional[torch.Tensor] = None  # [k, K*B] int64 validation rows
+    drop_keys: Optional[torch.Tensor] = None  # [k, K] int64 dropout keys
 
 
 def sparse_participation(generator: torch.Generator, num_clients: int,
@@ -145,7 +166,8 @@ def participation_indices(generator: torch.Generator, num_clients: int,
 class PlanDrawer:
     """Draws a round's :class:`RoundPlan` from a generator, in one fixed
     order: the cohort, each online client's rows, the augmentation draws,
-    the validation rows, the algorithm's own draws. The trainer's
+    the dropout keys (``dropout``: the model drops), the validation rows,
+    the algorithm's own draws. The trainer's
     ``draw_plan`` and the stream plane's host schedule both call it, so
     the two planes draw the same plans. It holds no reference to the
     trainer (the producer thread keeps it)."""
@@ -153,7 +175,8 @@ class PlanDrawer:
     def __init__(self, algorithm: FedAlgorithm, sizes, n_max: int,
                  k_online: int, local_steps: int, batch_size: int,
                  augment: bool, participation_mode: str = "perm",
-                 vsizes=None, v_n_max: Optional[int] = None):
+                 vsizes=None, v_n_max: Optional[int] = None,
+                 dropout: bool = False):
         self.algorithm = algorithm
         self.sizes = list(sizes)
         self.n_max = n_max
@@ -163,6 +186,7 @@ class PlanDrawer:
         self.augment = augment
         self.participation_mode = participation_mode
         self.vsizes, self.v_n_max = vsizes, v_n_max
+        self.dropout = dropout
 
     def __call__(self, generator: torch.Generator, round_idx: int,
                  server_aux=None) -> RoundPlan:
@@ -177,6 +201,9 @@ class PlanDrawer:
             for c in idx.tolist()])
         plan = RoundPlan(idx, rows, *(draw_augment(generator, (k, K, B))
                                       if self.augment else ()))
+        if self.dropout:
+            plan = plan._replace(drop_keys=torch.randint(
+                0, 2 ** 62, (k, K), generator=generator))
         if alg.needs_val_batch:
             plan = plan._replace(vrows=torch.stack([
                 round_row_plan(generator, self.vsizes[c], self.v_n_max,
@@ -192,8 +219,6 @@ def unported_features(cfg: ExperimentConfig) -> list:
     checks = [
         (flt.chaos_enabled, "chaos (client_drop/straggler/nan_inject/"
                             "byzantine rates)"),
-        (flt.guard_updates, "guards (guard_updates)"),
-        (flt.robust_agg != "mean", f"robust_agg={flt.robust_agg!r}"),
         (flt.dp_armed, "DP (dp_noise_multiplier)"),
         (flt.avail_armed, "availability (avail_* / over_select_frac)"),
         (mesh.client_shards != 0, "client_shards"),
@@ -259,6 +284,10 @@ class FederatedTrainer:
             cfg.lr_schedule, cfg.optim, cfg.train.num_epochs or 1,
             world_size=self.num_clients).to(self.device)
         self.criterion = make_criterion(model.is_regression)
+        self.fault = cfg.fault
+        self.guard_on = cfg.fault.guard_updates
+        self.robust_rule = cfg.fault.robust_agg
+        self.robust_momentum = self.robust_rule == "norm_bound"
         algorithm.setup(data)
         algorithm.bind(model, self.criterion)
         algorithm.local_steps_per_round = self.local_steps
@@ -320,10 +349,12 @@ class FederatedTrainer:
             else torch.Generator().manual_seed(int(rng))
         params = self.model.init(gen)
         ocfg = self.cfg.optim
+        aux = self.algorithm.init_server_aux(params, self.num_clients)
+        if self.robust_momentum:
+            aux = wrap_norm_bound(aux, params)
         server = ServerState(
             params=params, opt=optim.init_opt_state(params, ocfg),
-            aux=self.algorithm.init_server_aux(params, self.num_clients),
-            round=0, rng=gen)
+            aux=aux, round=0, rng=gen)
         C = self.num_clients
         cparams = tree_broadcast_clients(params, C)
         copt = optim.init_client_opt_state(cparams, ocfg)
@@ -343,11 +374,17 @@ class FederatedTrainer:
             self.algorithm, self.sizes, rows_of.n_max, self.k_online,
             self.local_steps, self.batch_size, self.augment,
             self.participation_mode, self.vsizes,
-            self.val_data.n_max if self.val_data is not None else None)
+            self.val_data.n_max if self.val_data is not None else None,
+            self.model.has_dropout)
+
+    def _alg_aux(self, aux):
+        """The algorithm's server aux (``norm_bound`` wraps it)."""
+        return unwrap_norm_bound(aux)[0] if self.robust_momentum else aux
 
     def draw_plan(self, server: ServerState) -> RoundPlan:
         """This round's plan from the server's generator."""
-        return self.plan_drawer()(server.rng, server.round, server.aux)
+        return self.plan_drawer()(server.rng, server.round,
+                                  self._alg_aux(server.aux))
 
     # -- one communication round -----------------------------------------
     def round_fn(self, server: ServerState, clients: ClientState,
@@ -386,7 +423,7 @@ class FederatedTrainer:
             feed.lefts,
             None if feed.k_rand is None else int(feed.k_rand),
             None if feed.probe_idx is None else feed.probe_idx.long(),
-            feed.probe_rows)
+            feed.probe_rows, drop_keys=feed.drop_keys)
         x, y, shards = feed.x, feed.y, None
         if self.feed_layout == "shard":
             # whole shards: the round's rows are selected here
@@ -408,6 +445,11 @@ class FederatedTrainer:
         (None: ``post_round_global`` on the resident data)."""
         alg, dev = self.algorithm, self.device
         K, B, C = self.local_steps, self.batch_size, self.num_clients
+        robust_m = None
+        if self.robust_momentum:
+            # every algorithm hook reads the unwrapped aux
+            alg_aux, robust_m = unwrap_norm_bound(server.aux)
+            server = server._replace(aux=alg_aux)
         idx = plan.idx.to(torch.int64)
         k = idx.shape[0]
         num_online_eff = num_online_effective(idx)
@@ -434,6 +476,7 @@ class FederatedTrainer:
         payloads, client_opts, client_aux, budgets = [], [], [], []
         epochs, local_index, losses, accs = [], [], [], []
         kept = []  # (delta, round-end params) for client_post
+        deltas = []  # the raw deltas the guards judge
         for j, c in enumerate(idx.tolist()):
             size = self.sizes[c]
             nb = math.ceil(size / B)  # batches per local epoch
@@ -461,11 +504,14 @@ class FederatedTrainer:
                 bvx = bvy = None
                 if alg.needs_val_batch:
                     bvx, bvy = vx[s * B:(s + 1) * B], vy[s * B:(s + 1) * B]
+                rng = None if plan.drop_keys is None \
+                    else int(plan.drop_keys[j, s])
                 params, opt, aux, carry, loss, acc = alg.local_step(
                     params=params, opt=opt, client_aux=aux, rnn_carry=carry,
                     server_params=server.params, server_aux=server.aux,
                     bx=bx, by=by, bval_x=bvx, bval_y=bvy, lr=lr,
-                    step_idx=s, local_index=li, step_budget=budget)
+                    step_idx=s, local_index=li, step_budget=budget,
+                    rng=rng)
                 epoch = epoch + 1.0 / nb
                 li = li + 1
                 step_loss.append(loss)
@@ -487,12 +533,16 @@ class FederatedTrainer:
             accs.append(torch.stack(step_acc).sum() / budget)
             if self._client_post:
                 kept.append((delta, params))
+            if self.guard_on:
+                deltas.append(delta)
 
         with torch.no_grad():
-            # uplink wire format on the stacked [k] axis, sum, downlink
+            # uplink wire format on the stacked [k] axis
             stacked = alg.payload_batch_transform(tree_stack(payloads))
-            payload_sum = alg.aggregate_transform(
-                tree_map(lambda p: p.sum(dim=0), stacked))
+            payload_sum, new_robust_m, fault_counts = self._aggregate(
+                stacked, deltas, weights, robust_m)
+            # the downlink wire format, once, whatever the rule
+            payload_sum = alg.aggregate_transform(payload_sum)
             losses, accs = torch.stack(losses), torch.stack(accs)
             new_params, new_opt, new_saux = alg.server_update(
                 server.params, server.opt, server.aux, payload_sum,
@@ -534,7 +584,10 @@ class FederatedTrainer:
                 train_loss=loss_m, train_acc=acc_m, online_mask=online,
                 comm_bytes=torch.tensor(
                     tree_bytes(server.params) * k * alg.payload_scale(),
-                    dtype=torch.float32, device=dev))
+                    dtype=torch.float32, device=dev),
+                **dict(zip(("rejected_updates", "clipped_updates",
+                            "robust_selected", "robust_trimmed"),
+                           fault_counts.unbind())))
         new_server = ServerState(params=new_params, opt=new_opt,
                                  aux=new_saux, round=server.round + 1,
                                  rng=server.rng)
@@ -543,7 +596,41 @@ class FederatedTrainer:
             new_server = alg.post_round_global_feed(new_server, probe)
         else:
             new_server = alg.post_round_global(new_server, self.data, plan)
+        if self.robust_momentum:
+            # the updated center rides the server aux
+            new_server = new_server._replace(aux={
+                "alg": new_server.aux, "norm_bound_m": new_robust_m})
         return new_server, clients, metrics
+
+    def _aggregate(self, stacked, deltas, weights, robust_m):
+        """The aggregation seam on the stacked [k] wire payloads: with
+        the guards on, screen them on the raw ``deltas`` (every online
+        client reports: ``survive`` is all ones); then the robust rule,
+        or the plain sum renormalized over the accepted clients. Returns
+        (sum, the new ``norm_bound`` momentum or None, the [4] counts
+        rejected, clipped, selected, trimmed)."""
+        k = weights.shape[0]
+        counts = torch.zeros(4, device=weights.device)
+        accept = None
+        if self.guard_on:
+            stacked, report = screen_payloads(
+                tree_stack(deltas), stacked,
+                torch.ones(k, device=weights.device), self.fault)
+            accept = report.accept
+            counts[0], counts[1] = report.rejected, report.clipped
+        if self.robust_rule != "mean":
+            payload_sum, new_m, rep = robust_aggregate(
+                self.robust_rule, stacked, weights,
+                accept if accept is not None else torch.ones_like(weights),
+                self.fault, momentum=robust_m)
+            counts[2], counts[3] = rep.selected, rep.trimmed
+            return payload_sum, new_m, counts
+        payload_sum = tree_map(lambda p: p.sum(dim=0), stacked)
+        if accept is not None:
+            # rejected weight redistributed over the accepted clients;
+            # an all-rejected round sums to 0 and the server holds
+            payload_sum = renormalize_accepted(payload_sum, weights, accept)
+        return payload_sum, None, counts
 
     def _full_loss(self, params, x, y, size: int) -> torch.Tensor:
         """qFFL's F_k: the SUM of the per-batch mean losses over one
@@ -576,9 +663,14 @@ class FederatedTrainer:
         vals = torch.stack([
             mean_epoch, lr_at(self.schedule, mean_epoch),
             metrics.online_mask.sum(), metrics.train_loss.sum(),
-            metrics.train_acc.sum(), metrics.comm_bytes]).tolist()
+            metrics.train_acc.sum(), metrics.comm_bytes,
+            metrics.rejected_updates, metrics.clipped_updates,
+            metrics.robust_selected, metrics.robust_trimmed]).tolist()
+        # no chaos plane: nothing drops
         return dict(zip(("mean_epoch", "lr", "n_online", "loss_sum",
-                         "acc_sum", "comm_bytes"), vals))
+                         "acc_sum", "comm_bytes", "rejected", "clipped",
+                         "robust_selected", "robust_trimmed"), vals),
+                    dropped=0.0)
 
     @property
     def metrics_width(self) -> int:

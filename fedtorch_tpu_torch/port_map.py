@@ -42,13 +42,15 @@ MODULE_MAP = {
         "data/__init__.py", "data/batching.py", "data/datasets.py",
         "data/partition.py", "data/streaming.py", "data/synthetic.py",
         "models/__init__.py", "models/cnn.py", "models/common.py",
-        "models/linear.py", "models/mlp.py", "models/resnet.py",
+        "models/densenet.py", "models/linear.py", "models/mlp.py", "models/resnet.py",
         "models/rnn.py", "models/transformer.py", "models/wideresnet.py",
         "ops/__init__.py", "ops/attention_dispatch.py", "ops/augment.py",
         "ops/quantize.py", "ops/simplex.py", "ops/topk.py",
         "parallel/__init__.py", "parallel/evaluate.py",
         "parallel/federated.py", "parallel/local_sgd.py",
         "parallel/round_program.py",
+        "robustness/__init__.py", "robustness/aggregators.py",
+        "robustness/guards.py",
         "utils/__init__.py", "utils/logging.py", "utils/meters.py",
         "utils/platform.py"),
     # the Pallas kernels became hand-written Hopper kernels
@@ -64,10 +66,10 @@ MODULE_MAP = {
     # round_program.collective_budget (the pod-scale FTP004 budget) waits
     # for multi-GPU runs and a program audit (ROADMAP A10, A12)
     **_ported("native/__init__.py", "native/host_pipeline.py"),
-    **_rows("queued", "ROADMAP A6: in-round robustness",
-            "robustness/__init__.py", "robustness/aggregators.py",
+    **_rows("queued", "ROADMAP A6: chaos, availability and DP, on one "
+            "design for fault draws in RoundPlan",
             "robustness/availability.py", "robustness/chaos.py",
-            "robustness/guards.py", "robustness/privacy.py"),
+            "robustness/privacy.py"),
     **_rows("queued", "ROADMAP A7: lifecycle and telemetry",
             "robustness/harness.py", "robustness/host_chaos.py",
             "robustness/host_recovery.py", "robustness/preemption.py",
@@ -91,9 +93,8 @@ MODULE_MAP = {
     **_rows("queued", "ROADMAP A8: the async plane",
             "async_plane/__init__.py", "async_plane/commit.py",
             "async_plane/scheduler.py", "async_plane/staleness.py"),
-    **_rows("queued", "ROADMAP A9: the rest of the model zoo, then client "
-            "fusion",
-            "models/densenet.py", "parallel/fusion.py"),
+    **_rows("queued", "ROADMAP A9: client fusion",
+            "parallel/fusion.py"),
     **_rows("queued", "ROADMAP A10: multi-GPU on torch.distributed",
             "parallel/mesh.py", "parallel/podscale.py"),
     **_rows("queued", "ROADMAP A11: sequence, expert, tensor and pipeline "

@@ -15,10 +15,10 @@ import re
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import cli as jcli
 from fedtorch_tpu.utils.logging import RunLogger as JLogger
 from fedtorch_tpu_torch import cli as tcli
@@ -115,6 +115,25 @@ def test_synthetic_cpu_run_returns_results_and_logs_both_lines(arch,
     assert "writes no checkpoints and no telemetry rows" in text
 
 
+@pytest.mark.parametrize("arch, words", [
+    ("mlp", ["--drop_rate", "0.3", "--norm", "gn"]),
+    ("robust_mlp", ["--robust_agg", "krum", "--guard_updates", "true"]),
+], ids=["mlp_dropout_gn", "robust_mlp_krum"])
+def test_zoo_model_and_robustness_flags_run_on_the_cpu(arch, words,
+                                                       tmp_path):
+    """Flags the port once refused by name now run: dropout and
+    GroupNorm, a robust model, a robust rule with the guards; a guarded
+    round that rejects nothing logs no ``faults`` line."""
+    res = tcli.main(_synthetic_argv(tmp_path, arch) + words)
+    assert res["rounds"] == 3
+    assert 0.0 <= res["test_top1"] <= res["best_top1"] <= 1.0
+    (record,) = glob.glob(str(tmp_path / "ck" / "synthetic" / arch / "*"
+                              / "record0"))
+    text = open(record).read()
+    assert [int(m) for m in _VAL.findall(text)] == [0, 1, 2]
+    assert "guards rejected EVERY" not in text
+
+
 def _replay_the_jax_run(monkeypatch, argv, rounds):
     """Make the port's trainer start from the JAX CLI's initial weights
     (and the client aux made from them) and take its cohorts, rows,
@@ -152,114 +171,6 @@ def _replay_the_jax_run(monkeypatch, argv, rounds):
     monkeypatch.setattr(FederatedTrainer, "init_state", bridged_init_state)
     monkeypatch.setattr(FederatedTrainer, "draw_plan",
                         lambda self, server: next(plans))
-
-
-@pytest.mark.parametrize("words", [
-    ["--federated_type", "scaffold"],
-    ["--federated_type", "fedgate", "--compressed", "true",
-     "--compressed_ratio", "0.5"],
-    ["--federated_type", "qsparse", "--compressed_ratio", "0.5"],
-    ["--federated_type", "qffl", "--qffl_q", "1.0"],
-    ["--federated_type", "afl"],
-    ["--federated_type", "fedgate", "--federated_drfa", "true",
-     "--drfa_gamma", "0.2"],
-], ids=["scaffold", "fedgate_topk", "qsparse", "qffl", "afl",
-        "drfa_fedgate"])
-def test_zoo_cpu_run_returns_the_jax_cli_s_results(words, tmp_path,
-                                                   monkeypatch):
-    """The port's CLI and the JAX package's on one command line: from the
-    same weights and draws, the results dict's test and best top-1
-    within 1/128 (the matrix products sum in other orders; the logs agree
-    at their printed digits) and the same rounds."""
-    base = _synthetic_argv(tmp_path, "mlp")
-    argv = base + words
-    want = jcli.main(base[:-2] + ["-c", str(tmp_path / "jax")] + words)
-    _replay_the_jax_run(monkeypatch, argv, 3)
-    got = tcli.main(argv)
-    assert got["rounds"] == 3
-    for key in ("test_top1", "best_top1"):
-        assert abs(got[key] - want[key]) <= 1.0 / 128, (key, got, want)
-
-
-_PERSONAL = re.compile(r"Round: (\d+)\. Mode: validation_personal\. Loss: "
-                       r"([\d.]+) \| top1: ([\d.]+)")
-
-
-def _personal_lines(root):
-    (record,) = glob.glob(str(root / "synthetic" / "mlp" / "*" / "record0"))
-    return [(int(r), float(loss), float(top1))
-            for r, loss, top1 in _PERSONAL.findall(open(record).read())]
-
-
-@pytest.mark.parametrize("words", [
-    ["--federated_type", "apfl", "--fed_adaptive_alpha", "true"],
-    ["--federated_type", "perfedme", "--lr", "0.05"],
-    ["--federated_type", "perfedavg", "--perfedavg_beta", "0.05"],
-    ["--federated_type", "apfl", "--quantized", "true"],
-    ["--fed_personal", "true"],
-], ids=["apfl", "perfedme", "perfedavg", "apfl_quantized",
-        "fedavg_fed_personal"])
-def test_personalized_cpu_run_returns_the_jax_cli_s_results(
-        words, tmp_path, monkeypatch):
-    """The personalized algorithms (and FedAvg with the val split) on one
-    command line in both CLIs, from the same weights and draws: the
-    results dict as for the zoo, and each round's
-    ``validation_personal`` line (the three algorithms only) at the
-    JAX line's printed digits (loss within 1e-5 relative, top-1 within
-    1/128)."""
-    base = _synthetic_argv(tmp_path, "mlp")
-    argv = base + words
-    want = jcli.main(base[:-2] + ["-c", str(tmp_path / "jax")] + words)
-    _replay_the_jax_run(monkeypatch, argv, 3)
-    got = tcli.main(argv)
-    assert got["rounds"] == 3
-    for key in ("test_top1", "best_top1"):
-        assert abs(got[key] - want[key]) <= 1.0 / 128, (key, got, want)
-    jlines = _personal_lines(tmp_path / "jax")
-    tlines = _personal_lines(tmp_path / "ck")
-    assert [r for r, _, _ in tlines] == [r for r, _, _ in jlines] == (
-        [] if words == ["--fed_personal", "true"] else [0, 1, 2])
-    for (_, tl, ta), (_, jl, ja) in zip(tlines, jlines):
-        assert abs(tl - jl) <= 1e-5 * jl + 1e-6, (tl, jl)
-        assert abs(ta - ja) <= 1.0 / 128, (ta, ja)
-
-
-@pytest.mark.parametrize("words", [
-    [],
-    ["--local_step_warmup_type", "linear", "--local_step_warmup_period",
-     "2", "--reshuffle_per_epoch", "true"],
-], ids=["plain", "warmup_reshuffle"])
-def test_local_sgd_cpu_run_returns_the_jax_cli_s_results(words, tmp_path,
-                                                         monkeypatch):
-    """``--federated false``: the pooled training set re-partitioned over
-    the workers, ``fit`` to the epoch count, one test evaluation. From
-    the JAX CLI's weights and each round's draws (at that round's K):
-    the JAX package's results dict, its keys and its round count, and
-    the test top-1 within 1/128."""
-    import jax
-    from fedtorch_tpu.data import build_federated_data as jbuild
-    from fedtorch_tpu.models import define_model as jdefine
-    from fedtorch_tpu.parallel.local_sgd import build_local_sgd as j_build
-    from test_torch_local_sgd import bridge_jax_weights, replay_jax_plans
-
-    argv = ["--backend", "cpu", "-f", "false", "-d", "synthetic", "-a",
-            "mlp", "--num_workers", "4", "--num_epochs", "3",
-            "--local_step", "4", "-b", "16", "--lr", "0.1",
-            "--mlp_hidden_size", "32", "--debug", "false"] + words
-    want = jcli.main(argv + ["-c", str(tmp_path / "jax")])
-    jc = jcli.args_to_config(jcli.build_parser().parse_args(argv))
-    train = jbuild(jc).train
-    x, y = np.asarray(train.x), np.asarray(train.y)
-    jtr = j_build(jc, jdefine(jc, batch_size=jc.data.batch_size),
-                  x.reshape((-1,) + x.shape[2:]), y.reshape(-1))
-    js, _ = jtr.init_state(jax.random.key(jc.train.manual_seed))
-    bridge_jax_weights(monkeypatch, js)
-    replay_jax_plans(monkeypatch, js)
-    got = tcli.main(argv + ["-c", str(tmp_path / "ck")])
-    assert set(got) == set(want) == {"test_top1", "rounds"}
-    assert got["rounds"] == want["rounds"] > 1
-    assert abs(got["test_top1"] - want["test_top1"]) <= 1.0 / 128, (got,
-                                                                    want)
 
 
 def test_train_and_val_lines_are_the_jax_package_s():
@@ -331,79 +242,6 @@ def test_unported_flags_are_refused_by_name(flag, tmp_path):
     with pytest.raises(ValueError, match=re.escape(f"--{flag} ")):
         tcli.main(argv)
     assert not os.path.exists(tmp_path / "ck")  # refused before it ran
-
-
-def _store_of(argv, store_dir):
-    """The CLI's training population for ``argv``, written as an on-disk
-    client store."""
-    from fedtorch_tpu_torch.data import build_federated_data
-    from fedtorch_tpu_torch.data.streaming import save_client_store
-    cfg = tcli.args_to_config(tcli.build_parser().parse_args(argv))
-    save_client_store(str(store_dir), build_federated_data(cfg).train,
-                      clients_per_shard=3)
-    return ["--data_store", "mmap", "--data_store_dir", str(store_dir)]
-
-
-@pytest.mark.parametrize("store, words", [
-    ("ram", []),
-    ("mmap", []),
-    ("ram", ["--participation_mode", "sparse"]),
-    ("mmap", ["--participation_mode", "sparse", "--federated_type",
-              "qffl", "--qffl_q", "1.0"]),
-], ids=["ram", "mmap", "ram_sparse", "mmap_sparse_qffl"])
-def test_stream_plane_cli_run_returns_the_device_plane_s_results(
-        store, words, tmp_path):
-    """``--data_plane stream`` (the population in RAM, or in a store
-    written from the same data) from one seed draws the device plane's
-    cohorts and rows: the same results dict, bitwise, but for the plane
-    and the timer; its log holds the same train and val lines."""
-    base = _synthetic_argv(tmp_path, "mlp")[:-2] + words
-    want = tcli.main(base + ["-c", str(tmp_path / "dev")])
-    argv = base + ["-c", str(tmp_path / "ck"), "--data_plane", "stream"]
-    if store == "mmap":
-        argv += _store_of(base, tmp_path / "store")
-    got = tcli.main(argv)
-    assert (got.pop("data_plane"), want.pop("data_plane")) == ("stream",
-                                                               "device")
-    got.pop("timer"), want.pop("timer")
-    assert got == want
-
-    def lines(root):
-        (record,) = glob.glob(str(root / "synthetic" / "mlp" / "*"
-                                  / "record0"))
-        text = open(record).read()
-        return _TRAIN.findall(text), _VAL.findall(text)
-
-    assert lines(tmp_path / "ck") == lines(tmp_path / "dev")
-    assert len(lines(tmp_path / "ck")[0]) == 3
-
-
-def test_stream_plane_results_carry_the_jax_cli_s_data_plane(tmp_path):
-    """The JAX CLI records its run's data plane in the run's metrics
-    header; the port's results dict carries the same field."""
-    import json
-    argv = _synthetic_argv(tmp_path, "mlp", rounds=1)[:-2] + [
-        "--data_plane", "stream"]
-    jcli.main(argv + ["-c", str(tmp_path / "jax")])
-    (metrics,) = glob.glob(str(tmp_path / "jax" / "**" / "metrics.jsonl"),
-                           recursive=True)
-    with open(metrics) as f:
-        header = json.loads(f.readline())
-    got = tcli.main(argv + ["-c", str(tmp_path / "ck")])
-    assert got["data_plane"] == header["run"]["data_plane"] == "stream"
-
-
-def test_mmap_store_without_a_directory_is_refused_as_the_jax_cli_does(
-        tmp_path):
-    argv = _synthetic_argv(tmp_path, "mlp")[:-2] + [
-        "--data_plane", "stream", "--data_store", "mmap"]
-    with pytest.raises(ValueError) as want:
-        jcli.main(argv + ["-c", str(tmp_path / "jax")])
-    with pytest.raises(ValueError) as got:
-        tcli.main(argv + ["-c", str(tmp_path / "ck")])
-    assert "store_dir" in str(got.value)
-    assert str(got.value) == str(want.value)
-    assert not os.path.exists(tmp_path / "ck")
 
 
 @pytest.mark.parametrize("words, name", [

@@ -115,6 +115,9 @@ def _row_path_shapes(arch, widen=None, k=10):
     parameter of at most ``_MAX_ROW_ELEMS`` elements, as [k, n] and
     [1, n]."""
     kw = {} if widen is None else dict(wideresnet_widen_factor=widen)
+    if arch == "densenet100":  # DenseNet-BC-100, growth 12
+        kw = dict(densenet_bc_mode=True, densenet_growth_rate=12,
+                  densenet_compression=0.5)
     data = tcfg.DataConfig(dataset="shakespeare" if arch == "transformer"
                            else "cifar10")
     model = tcfg.ModelConfig(arch=arch, **kw) if arch != "transformer" \
@@ -148,11 +151,13 @@ def _assert_ragged_matches(leaves, bits, bitwise=False):
 
 @pytest.mark.parametrize("arch, widen", [("resnet20", None),
                                          ("wideresnet28", 10),
-                                         ("transformer", None)])
+                                         ("transformer", None),
+                                         ("densenet100", None)])
 def test_ragged_pair_at_the_main_paths_row_trees(cuda, arch, widen):
     """One launch of each kernel per tree call at each main path's
     row-path trees, uplink (k = 10) and downlink; int8 random and int16
-    bitwise on dyadic inputs."""
+    bitwise on dyadic inputs. DenseNet-BC-100's 299 leaves take the
+    large leaf table: still one launch of each (2,990 uplink rows)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     for shapes in _row_path_shapes(arch, widen):
         leaves = [torch.randn(s, generator=gen, device=cuda) * 1e-3
@@ -200,6 +205,24 @@ def test_a_tree_larger_than_one_table_takes_more_launches(cuda):
     _assert_ragged_matches(leaves, 8)
     assert (qk.ragged_stats_launches - before[0],
             qk.ragged_apply_launches - before[1]) == (2, 2)
+
+
+def test_dropout_draws_on_the_card_keep_at_the_rate(cuda):
+    """A dropout key reseeds a generator on the card: the kept share
+    within 4 sigma of 1 - rate, kept elements scaled by 1 / (1 - rate),
+    the same key the same masks, another key others."""
+    from fedtorch_tpu_torch.models.common import (
+        drop_source, dropout, fold_key,
+    )
+    x = torch.rand(256, 1024, device=cuda) + 1.0
+    out = dropout(x, 0.3, drop_source(11, cuda))
+    kept = out != 0
+    sigma = (0.3 * 0.7 / x.numel()) ** 0.5
+    assert abs(float(kept.float().mean()) - 0.7) <= 4 * sigma
+    assert torch.equal(out[kept], x[kept] / 0.7)
+    assert torch.equal(out, dropout(x, 0.3, drop_source(11, cuda)))
+    assert not torch.equal(out, dropout(x, 0.3,
+                                        drop_source(fold_key(11, 1), cuda)))
 
 
 def test_quantized_round_on_the_card_matches_the_cpu(cuda):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.data import build_federated_data as jbuild
 from fedtorch_tpu.data import datasets as jds

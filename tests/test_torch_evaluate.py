@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.core.losses import (
     metrics_topk as j_metrics_topk, topk_accuracy as j_topk,

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.attention_dispatch import (
     FLASH_MIN_SEQ_LEN as J_MIN, resolve_attention as j_resolve,
 )

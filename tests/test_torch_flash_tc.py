@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
 from fedtorch_tpu_torch.ops.cuda import flash_attention as fa
 

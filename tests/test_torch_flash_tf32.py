@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
 
 BK = 32  # the kernel's keys per tile

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 import fedtorch_tpu_torch
 from fedtorch_tpu_torch import config as tcfg
 from fedtorch_tpu_torch.algorithms import make_algorithm
@@ -103,8 +104,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 @pytest.mark.parametrize("override, name", [
     (dict(fault__client_drop_rate=0.1), "chaos"),
-    (dict(fault__guard_updates=True), "guards"),
-    (dict(fault__robust_agg="median"), "robust_agg"),
     (dict(fault__dp_noise_multiplier=1.0), "DP"),
     (dict(fault__avail_dropout_rate=0.1), "availability"),
     (dict(mesh__client_shards=2), "client_shards"),
@@ -140,10 +139,6 @@ def test_stream_plane_and_sparse_participation_run_a_round(override):
 
 
 @pytest.mark.parametrize("override, name", [
-    (dict(model__arch="densenet40"), "densenet40"),
-    (dict(model__arch="wideresnet16", model__drop_rate=0.1), "drop_rate"),
-    (dict(model__norm="gn"), "gn"),
-    (dict(model__conv_impl="matmul"), "matmul"),
     (dict(mesh__remat=True), "remat"),
     (dict(data__dataset="mnist"), "mnist"),
     (dict(model__arch="transformer", model__moe_experts=2), "moe_experts"),

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.data.batching import (
     growing_batch_schedule as j_growing, round_row_plan as j_round_row_plan,

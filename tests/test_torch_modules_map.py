@@ -5,6 +5,7 @@ every other row gives its ROADMAP item or its reason."""
 import glob
 import os
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu_torch.port_map import MODULE_MAP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.algorithms import make_algorithm as jmake
 from fedtorch_tpu.data import build_federated_data as jbuild
@@ -86,9 +87,12 @@ def _plans(jtr, js, num_rounds):
     return plans
 
 
-def _trajectories(jc, tc, num_rounds, plans=_plans):
+def _trajectories(jc, tc, num_rounds, plans=_plans, port_threads=()):
     """Per round, after it: (jax loss, port loss, jax top-1, port top-1)
-    on the test set, and the test set's size."""
+    on the test set, and the test set's size. With ``port_threads``,
+    also the port's own float32 order spread: per round, the largest
+    relative gap in test loss between the port's run at the ambient
+    torch thread count and its runs at each of these counts."""
     jfd, tfd = jbuild(jc), tbuild(tc)
     np.testing.assert_array_equal(tfd.test_x, jfd.test_x)
     B = jc.data.batch_size
@@ -97,34 +101,54 @@ def _trajectories(jc, tc, num_rounds, plans=_plans):
     js, jcl = jtr.init_state(jax.random.key(0))
     tmodel = tdefine(tc, batch_size=B, device="cpu")
     ttr = FederatedTrainer(tc, tmodel, tmake(tc), tfd.train, device="cpu")
-    ts, tcl = ttr.init_state(0)
-    bridged = params_from_jax(_flat(js.params), expect=ts.params,
+    round_plans = plans(jtr, js, num_rounds)
+    bridged = params_from_jax(_flat(js.params),
+                              expect=ttr.init_state(0)[0].params,
                               module=tmodel.module)
-    ts = ts._replace(params=bridged)
-    for n, p in tcl.params.items():
-        p[:] = bridged[n]
+
+    def port_run():
+        ts, tcl = ttr.init_state(0)
+        ts = ts._replace(params={n: v.clone() for n, v in bridged.items()})
+        for n, p in tcl.params.items():
+            p[:] = bridged[n]
+        for plan in round_plans:
+            ts, tcl, tm = ttr.round_fn(ts, tcl, plan)
+            if tmodel.is_regression:  # no accuracy on a regression
+                assert not tm.train_acc.any()
+            tr = tevaluate(tmodel, ts.params, tfd.test_x, tfd.test_y)
+            yield float(tr.loss), float(tr.top1)
+
     out = []
-    for plan in plans(jtr, js, num_rounds):
+    for (tl, ta), _ in zip(port_run(), round_plans):
         js, jcl, jm = jtr.run_round(js, jcl)
-        ts, tcl, tm = ttr.round_fn(ts, tcl, plan)
-        if tmodel.is_regression:  # no accuracy on a regression
+        if tmodel.is_regression:
             assert not np.asarray(jm.train_acc).any()
-            assert not tm.train_acc.any()
         jr = jevaluate(jmodel, js.params, jfd.test_x, jfd.test_y)
-        tr = tevaluate(tmodel, ts.params, tfd.test_x, tfd.test_y)
-        out.append((float(jr.loss), float(tr.loss), float(jr.top1),
-                    float(tr.top1)))
-    return np.asarray(out), len(jfd.test_y)
+        out.append((float(jr.loss), tl, float(jr.top1), ta))
+    out = np.asarray(out)
+    if not port_threads:
+        return out, len(jfd.test_y)
+    spread = np.zeros(num_rounds)
+    for n in port_threads:
+        with torch_threads.threads(n):
+            other = np.array([loss for loss, _ in port_run()])
+        spread = np.maximum(spread, np.abs(other - out[:, 1])
+                            / np.abs(out[:, 1]))
+    return out, len(jfd.test_y), spread
 
 
-def _hold(traj, n_test, loss_rel, top1_samples):
+def _hold(traj, n_test, loss_rel, top1_samples, spread=None):
+    """Test loss within ``loss_rel`` relative of the JAX package's each
+    round, or within twice the port's own order ``spread`` where that is
+    larger; top-1 within ``top1_samples`` test samples."""
     jl, tl, ja, ta = traj.T
     loss_gap = np.abs(tl - jl) / np.abs(jl)
+    bar = loss_rel if spread is None else np.maximum(loss_rel, 2 * spread)
     top1_gap = np.abs(ta - ja) * n_test
-    assert loss_gap.max() <= loss_rel, loss_gap
+    assert (loss_gap <= bar).all(), (loss_gap, bar)
     assert top1_gap.max() <= top1_samples + 1e-6, top1_gap
     # the bar is far below how much the trajectory itself moves
-    assert np.ptp(jl) > 10 * loss_rel * np.abs(jl).max()
+    assert np.ptp(jl) > 10 * np.max(bar) * np.abs(jl).max()
 
 
 def test_mlp_30_fedavg_rounds_track_the_jax_package():
@@ -148,9 +172,16 @@ def test_mlp_30_fedavg_rounds_track_the_jax_package():
 def test_mlp_30_zoo_rounds_track_the_jax_package(algorithm, drfa):
     """SCAFFOLD (plain local SGD) and DRFA over FedAvg on the MLP
     trajectory above, with DRFA's snapshot steps and probes replayed
-    too. Largest gaps over the 30 rounds, measured (CPU): test loss
-    2.35e-7 (SCAFFOLD) and 1.93e-7 (DRFA) relative, top-1 0 samples.
-    Bars as FedAvg's."""
+    too. Bars as FedAvg's, or twice the port's own order spread (its
+    trajectory at the ambient torch thread count against its runs at 1
+    and 4) where that is larger: a ReLU input within rounding of 0
+    parts SCAFFOLD's trajectory at round 30 from the JAX one by 4.96e-4
+    at 2 and 3 threads, by <= 2.35e-7 at 1, 4 and 8, and the port's own
+    runs part by as much. Largest gaps over the 30 rounds, measured
+    (CPU) at an ambient 1, 2, 3, 4 and 8 threads: SCAFFOLD 2.35e-7,
+    4.96e-4, 4.96e-4, 3.01e-7, 2.35e-7 relative (the two large ones at
+    round 30, where the spread read 4.96e-4), DRFA <= 2.26e-7 at each
+    (spread <= 2.45e-7); top-1 at most 1 sample."""
     from test_torch_zoo import _plans as zoo_plans
     jc, tc = _cfgs(dict(
         data=("DataConfig", dict(dataset="synthetic", batch_size=8,
@@ -161,8 +192,9 @@ def test_mlp_30_zoo_rounds_track_the_jax_package(algorithm, drfa):
         model=("ModelConfig", dict(arch="mlp", mlp_hidden_size=32)),
         optim=("OptimConfig", dict(lr=0.05)),
         train=("TrainConfig", dict(local_step=2))))
-    traj, n_test = _trajectories(jc, tc, 30, plans=zoo_plans)
-    _hold(traj, n_test, loss_rel=1e-5, top1_samples=2)
+    traj, n_test, spread = _trajectories(jc, tc, 30, plans=zoo_plans,
+                                         port_threads=(1, 4))
+    _hold(traj, n_test, loss_rel=1e-5, top1_samples=2, spread=spread)
     assert traj[-1, 0] < traj[0, 0]
 
 

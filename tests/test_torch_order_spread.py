@@ -12,6 +12,7 @@ import json
 
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu_torch.tools import order_spread as os_mod
 
 

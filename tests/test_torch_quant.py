@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.pallas.quant_kernel import (
     fused_quantize_dequantize_batch, fused_quantize_dequantize_tree as
     jax_tree,

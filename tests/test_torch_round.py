@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.algorithms import make_algorithm as jmake
 from fedtorch_tpu.data.batching import (

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops import simplex as jsimplex
 from fedtorch_tpu_torch.ops import simplex as tsimplex
 

@@ -2,6 +2,7 @@
 lists are bitwise equal for every warmup scheme and on/off gate."""
 import pytest
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.core import sync as jsync
 from fedtorch_tpu_torch import config as tcfg

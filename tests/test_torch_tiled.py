@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 import fedtorch_tpu.ops.pallas.quant_kernel as jqk
 from fedtorch_tpu.ops.quantize import quantize_dequantize
 from fedtorch_tpu_torch.ops.cuda import quant_kernel as qk

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu import config as jcfg
 from fedtorch_tpu.core.losses import softmax_cross_entropy as jce
 from fedtorch_tpu.models import define_model as jdefine
