@@ -195,6 +195,32 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    card vs CPU within ``MODELS_CARD_BAR``. ``robust_agg``: a guarded
    quantized ResNet-20 round per rule of ``ROBUST_RULES`` (8 clients, k
    = 4), each held card vs CPU;
+8e. faults: the fault planes on the main path's round (ResNet-20, bf16,
+   100 clients x 250 samples from ``--seed``, k = 10, batch 50, 10 local
+   steps, int8 both ways), cuDNN deterministic: ``faults_free`` (no
+   knob, the phase's own reference, run first and last),
+   ``faults_drill`` (``FAULTS_DRILL``: over-selection to k' = 13, the
+   trace availability model with dropout 0.1, a diurnal period of 24 and
+   a quorum of 0.8, crashes 0.1, stragglers 0.2, nan poison 0.1, a
+   byzantine cohort of 0.1 sign-flipping at scale 3, the guards,
+   ``trimmed_mean`` 0.2), the drill again on the
+   stream plane and ``faults_dp`` (``FAULTS_DP``: DP-FedAvg at noise
+   multiplier 1 and clip 1, with ``trimmed_mean``); each 1 warm-up and 2
+   timed rounds with the counters set to 0 just before and read just
+   after (2 + 2 ragged launches a round), every round's fault counters
+   and DP gauges, round ms beside ``faults_free``'s and the main path's,
+   then one profiled round (device busy share, launches a local step of
+   the k' dispatched clients); the warm-up round's uplink stack of k'
+   rows held against the plain version within one step; the stream
+   drill's server params and generator state after its 3 rounds bitwise
+   the resident drill's. Then a ``zero`` and a ``collude`` drill round
+   that send crafted uploads (colluding rows identical, zero rows zero),
+   their uplink stacks held against the plain version; then the drill's
+   and the DP path's rounds cut to 4 clients and 2 steps (one adversary:
+   ``FAULTS_CUT_BYZANTINE_RATE``) in float32 card (TF32 off) vs CPU,
+   every count equal, the update within the larger of ``TASK_CARD_FLOOR``
+   and ``SPREAD_FACTOR`` times the CPU's order spread, the CPU runs
+   replaying the card's DP normals;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
@@ -229,7 +255,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
-``tasks``, ``models``, ``wrn_main_path``, ``wrn_profile``, ``transformer_main_path``,
+``tasks``, ``models``, ``faults``, ``wrn_main_path``, ``wrn_profile``,
+``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
 ``transformer_f32_profile`` lines, the card's name and power limit and,
@@ -433,6 +460,26 @@ ROBUST_CLIENTS, ROBUST_LR_CLIENTS = 8, 20
 # cli_tff: the CLI on TFF HDF5 files written here (20 EMNIST writers and
 # 20 Shakespeare characters; k = 10 of them, 2 rounds)
 TFF_CLIENTS, TFF_ROUNDS = 20, 2
+# the faults phase (the fault planes on the north-star round): the drill
+# arms every sync plane, the DP path DP-FedAvg with a robust rule
+FAULTS_DRILL = dict(over_select_frac=1.3, avail_model="trace",
+                    avail_dropout_rate=0.1, avail_diurnal_period=24,
+                    avail_quorum_frac=0.8, client_drop_rate=0.1,
+                    straggler_rate=0.2, nan_inject_rate=0.1,
+                    byzantine_rate=0.1, byzantine_mode="sign_flip",
+                    byzantine_scale=3.0, guard_updates=True,
+                    robust_agg="trimmed_mean", robust_trim_frac=0.2)
+FAULTS_DP = dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0,
+                 robust_agg="trimmed_mean", robust_trim_frac=0.2)
+FAULTS_TIMED_ROUNDS = 2
+# rounds a zero or collude drill runs until one sends crafted uploads
+FAULTS_CRAFT_ROUNDS = 6
+# floor(0.1 x 4) is no adversary: the cut round keeps one of its 4 clients
+FAULTS_CUT_BYZANTINE_RATE = 0.25
+FAULT_COUNTERS = ("dropped_clients", "straggler_clients",
+                  "rejected_updates", "clipped_updates", "byzantine_clients",
+                  "robust_selected", "robust_trimmed", "avail_dropped",
+                  "deadline_missed", "quorum_degraded")
 PROFILE_TRIES = 3
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
@@ -3129,6 +3176,323 @@ def _models_rounds(out, seed, tcfg, define_model, make_algorithm,
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def faults_config(tcfg, fault: dict, plane: str = "device", dtype="bfloat16"):
+    """The north-star round (``path_config``'s ResNet-20) with the fault
+    planes ``fault`` armed, on ``plane``."""
+    cfg = path_config(tcfg, "resnet20", dtype=dtype)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_plane=plane),
+        fault=tcfg.FaultConfig(**fault)).finalize()
+
+
+def fault_counts(metrics) -> dict:
+    """A round's fault-plane counters (and the DP gauges when armed) as
+    floats."""
+    out = {f: float(getattr(metrics, f)) for f in FAULT_COUNTERS}
+    out["reporters"] = float(metrics.online_mask.sum())
+    for f in ("dp_clipped_frac", "dp_noise_sigma"):
+        if getattr(metrics, f) is not None:
+            out[f] = float(getattr(metrics, f))
+    return out
+
+
+def _record_uplink(trainer, calls: list, plans: list):
+    """Record each round's plan and the uplink wire format's stacked
+    input and output (on the CPU) on ``trainer``."""
+    alg = trainer.algorithm
+    real_transform, real_draw = alg.payload_batch_transform, \
+        trainer.draw_plan
+
+    def transform(tree):
+        out = real_transform(tree)
+        calls.append(({k: v.cpu() for k, v in tree.items()},
+                      {k: v.cpu() for k, v in out.items()}))
+        return out
+
+    def draw(server):
+        plan = real_draw(server)
+        plans.append(plan)
+        return plan
+    alg.payload_batch_transform = transform
+    trainer.draw_plan = draw
+    return lambda: (setattr(alg, "payload_batch_transform", real_transform),
+                    setattr(trainer, "draw_plan", real_draw))
+
+
+def _hold_uplink(qk, name, tree, out) -> dict:
+    """The card's uplink wire format on a round's stacked payloads
+    against the plain version on the same stack (``compare``'s bars)."""
+    want = qk.fused_quantize_dequantize_tree(tree, 8, True)
+    steps = absd = 0.0
+    rows = 0
+    for k, v in tree.items():
+        n = v.shape[0]
+        s, a = compare(qk, out[k].reshape(n, -1), want[k].reshape(n, -1),
+                       v.reshape(n, -1), 8, what=f"faults {name} {k}")
+        steps, absd, rows = max(steps, s), max(absd, a), rows + n
+    return dict(max_err_steps=steps, max_abs_err=absd, rows=rows,
+                leaves=len(tree))
+
+
+def faults_path(name, cfg, data, seed, define_model, make_algorithm,
+                FederatedTrainer, qk, fa, timed=FAULTS_TIMED_ROUNDS,
+                profile=True):
+    """One faults path: ``cfg``'s trainer from ``seed``, 1 warm-up and
+    ``timed`` timed rounds through ``run_round`` with the counters set to
+    0 just before (2 + 2 ragged launches a round, no other kernel), the
+    warm-up round's uplink stack held against the plain version, each
+    round's fault counters, then (``profile``) one profiled round.
+    Returns (numbers, server params and generator state after the
+    1 + ``timed`` rounds)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = FederatedTrainer(cfg, define_model(
+        cfg, batch_size=cfg.data.batch_size), make_algorithm(cfg), data)
+    trainer.stream_timeout_s = 60.0
+    server, clients = trainer.init_state(seed)
+    calls, plans = [], []
+    undo = _record_uplink(trainer, calls, plans)
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    server, clients, m = trainer.run_round(server, clients)
+    torch.cuda.synchronize()
+    undo()
+    per_round = [fault_counts(m)]
+    held = _hold_uplink(qk, name, *calls[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    start.record()
+    for _ in range(timed):
+        server, clients, m = trainer.run_round(server, clients)
+        ms.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    round_ms = start.elapsed_time(end) / timed
+    launched = counters(qk, fa)
+    rounds = 1 + timed
+    want = dict(ragged_stats=2 * rounds, ragged_apply=2 * rounds, stats=0,
+                apply=0, flash=0, flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"faults {name}: kernels launched {launched} "
+                             f"in {rounds} rounds, expected {want}")
+    per_round += [fault_counts(m) for m in ms]
+    params = {k: v.detach().clone() for k, v in server.params.items()}
+    rng_state = server.rng.get_state()
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError(f"faults {name}: non-finite server params")
+    steps = trainer.k_dispatch * trainer.local_steps
+    out = dict(path=name, data_plane=cfg.data.data_plane,
+               k_online=trainer.k_online, k_dispatch=trainer.k_dispatch,
+               rounds=rounds, timed_rounds=timed, round_ms=round_ms,
+               launches=launched, tree_launches=want,
+               launches_per_round={c: n / rounds
+                                   for c, n in launched.items()},
+               per_round=per_round, uplink_vs_plain=held)
+    if plans:  # the stream plane's plans are drawn by its producer
+        out["plan_fields"] = sorted(f for f in plans[0]._fields
+                                    if getattr(plans[0], f) is not None)
+    if profile:
+        prof = profile_phase(trainer, server, clients,
+                             out["launches_per_round"])
+        out.update(profile=prof, busy_share=prof["busy_share"],
+                   launches_per_local_step=prof["kernel_launches"] / steps)
+    trainer.close()
+    log(f"faults {name}: {round_ms:.1f} ms/round over {timed}, k' "
+        f"{trainer.k_dispatch}, launches {launched}, per round "
+        f"{per_round}, uplink stack vs plain {held}, busy "
+        f"{out.get('busy_share')}, launches a local step "
+        f"{out.get('launches_per_local_step')}")
+    del trainer, server, clients
+    return out, params, rng_state
+
+
+def crafted_stack(name, cfg, data, seed, define_model, make_algorithm,
+                  FederatedTrainer, qk, need: int):
+    """Rounds of ``cfg`` (a byzantine mode) until one sends at least
+    ``need`` crafted uploads (at most ``FAULTS_CRAFT_ROUNDS``); that
+    round's uplink stack held against the plain version, and under
+    ``collude`` its crafted rows checked identical (every client carries
+    the same weight here)."""
+    trainer = FederatedTrainer(cfg, define_model(
+        cfg, batch_size=cfg.data.batch_size), make_algorithm(cfg), data)
+    server, clients = trainer.init_state(seed)
+    key = int(server.aux["fault_key"])
+    cohort = trainer._byzantine_cohort(key)
+    for r in range(FAULTS_CRAFT_ROUNDS):
+        calls, plans = [], []
+        undo = _record_uplink(trainer, calls, plans)
+        server, clients, m = trainer.run_round(server, clients)
+        undo()
+        byz = cohort[plans[0].idx].bool()
+        if int(byz.sum()) >= need:
+            break
+    else:
+        raise AssertionError(f"faults {name}: no round of "
+                             f"{FAULTS_CRAFT_ROUNDS} sent {need} crafted "
+                             "uploads")
+    tree, out = calls[0]
+    identical = None
+    if cfg.fault.byzantine_mode == "collude":
+        rows = byz.nonzero().flatten().tolist()
+        identical = all(torch.equal(v[rows[0]], v[j]) for v in tree.values()
+                        for j in rows[1:])
+        if not identical:
+            raise AssertionError(f"faults {name}: colluding rows differ")
+    if cfg.fault.byzantine_mode == "zero" and not all(
+            float(v[byz].abs().max()) == 0.0 for v in tree.values()):
+        raise AssertionError(f"faults {name}: a zero row is not zero")
+    held = _hold_uplink(qk, name, tree, out)
+    held.update(round=r, crafted_rows=int(byz.sum()),
+                identical_rows=identical, counts=fault_counts(m))
+    log(f"faults {name}: round {r}'s uplink stack ({int(byz.sum())} "
+        f"crafted rows) vs plain {held}")
+    del trainer, server, clients
+    return held
+
+
+def faults_card_vs_cpu(name, cfg, data, seed, os_mod, qk,
+                       orders=("cpu-nchw", "cpu-1thread")):
+    """A faults path's round cut by ``TASK_CARD_CUT`` (one adversary of 4
+    clients: ``FAULTS_CUT_BYZANTINE_RATE``) in float32, card (TF32 off)
+    vs CPU: every fault count and the DP gauges equal, the update within
+    the larger of ``TASK_CARD_FLOOR`` and ``SPREAD_FACTOR`` times the
+    CPU's own order spread. The CPU runs replay the card's DP and gauss
+    normals (a CUDA and a CPU generator draw other normals from one
+    seed)."""
+    from fedtorch_tpu_torch.robustness import chaos
+    n = cfg.federated.num_clients
+    data = _first(data, n)
+    real = chaos.leaf_normals
+    normals = {}
+
+    def source(seed_, shape, device):
+        if torch.device(device).type == "cuda":
+            xi = real(seed_, shape, device)
+            normals[(seed_, tuple(shape))] = xi.cpu()
+            return xi
+        return normals[(seed_, tuple(shape))].to(device)
+    chaos.leaf_normals = source
+    try:
+        runs = {run: os_mod.run_round(cfg, seed, run, data=data,
+                                      with_metrics=True)
+                for run in ("cuda", "cpu", *orders)}
+    finally:
+        chaos.leaf_normals = real
+    counts = {run: fault_counts(r[2]) for run, r in runs.items()}
+    if counts["cuda"] != counts["cpu"] or not torch.equal(
+            runs["cuda"][2].online_mask, runs["cpu"][2].online_mask):
+        raise AssertionError(f"faults {name} card vs CPU: counts "
+                             f"{counts['cuda']} against {counts['cpu']}")
+    ups = {run: r[0] for run, r in runs.items()}
+    steps, l2 = os_mod.update_gap(ups["cpu"], ups["cuda"])
+    gaps = [os_mod.update_gap(ups["cpu"], ups[o]) for o in orders]
+    s_l2 = max(g[1] for g in gaps)
+    bar_l2 = max(TASK_CARD_FLOOR, os_mod.SPREAD_FACTOR * s_l2)
+    out = dict(update_rel_l2=l2, update_steps=steps, spread_rel_l2=s_l2,
+               spread_steps=max(g[0] for g in gaps), bar_rel_l2=bar_l2,
+               orders=list(orders), counts=counts["cuda"],
+               normals_replayed=len(normals),
+               cut=dict(TASK_CARD_CUT,
+                        byzantine_rate=cfg.fault.byzantine_rate))
+    log(f"faults {name} card vs CPU ({n} clients, float32): counts equal "
+        f"{counts['cuda']}; update relative L2 {l2:.3e} (bar "
+        f"{bar_l2:.3e}), CPU order spread {s_l2:.3e}; {len(normals)} "
+        "normals replayed")
+    if l2 > bar_l2:
+        raise AssertionError(f"faults {name} card vs CPU: {out}")
+    return out
+
+
+def faults_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+                 FederatedTrainer, os_mod, qk, fa, main_round_ms):
+    """The fault planes on the north-star round (quantized FedAvg,
+    ResNet-20, bf16, 100 clients, k = 10, batch 50, 10 local steps):
+    ``faults_free`` (no fault knob; run first and last, the armed paths'
+    round ms over the two runs' mean), ``faults_drill`` (``FAULTS_DRILL``:
+    over-selection to k' = 13, the trace availability model, crashes,
+    stragglers, nan poison, a sign-flipping cohort, the guards and
+    ``trimmed_mean``), the drill on the stream plane (bitwise the
+    resident run's params and generator state after its 3 rounds) and
+    ``faults_dp`` (``FAULTS_DP``: DP-FedAvg composed with
+    ``trimmed_mean``), each 1 warm-up and 2 timed rounds and (but the
+    stream run) 1 profiled; cuDNN deterministic for the phase. Then the
+    uplink stack of a ``zero`` and a ``collude`` round held against the
+    plain version, and the drill's and the DP path's rounds cut to 4
+    clients and 2 steps card vs CPU in float32."""
+    t_phase = time.perf_counter()
+    base = path_config(tcfg, "resnet20")
+    data = path_data(base, seed, stack_partitions)
+    out = {"paths": {}}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # the fault-free round before and after the armed ones: round
+        # ms move from run to run (PERF.md section 5)
+        runs = (("faults_free", {}, "device"),
+                ("faults_drill", FAULTS_DRILL, "device"),
+                ("faults_drill_stream", FAULTS_DRILL, "stream"),
+                ("faults_dp", FAULTS_DP, "device"),
+                ("faults_free_again", {}, "device"))
+        finals = {}
+        for name, fault, plane in runs:
+            out["paths"][name], *finals[name] = faults_path(
+                name, faults_config(tcfg, fault, plane), data, seed,
+                define_model, make_algorithm, FederatedTrainer, qk, fa,
+                profile=plane == "device")
+        crafted = {}
+        for mode, need in (("zero", 1), ("collude", 2)):
+            crafted[mode] = crafted_stack(
+                f"drill_{mode}",
+                faults_config(tcfg, dict(FAULTS_DRILL, byzantine_mode=mode)),
+                data, seed, define_model, make_algorithm, FederatedTrainer,
+                qk, need)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (rp, rr), (sp, sr) = finals["faults_drill"], \
+        finals["faults_drill_stream"]
+    gap = _params_gap(sp, rp)
+    same_rng = bool(torch.equal(sr, rr))
+    if gap != 0.0 or not same_rng:
+        raise AssertionError(f"faults_drill on the stream plane: params "
+                             f"{gap} from the resident run's, generator "
+                             f"state equal: {same_rng}")
+    free_ms = statistics.mean(out["paths"][n]["round_ms"] for n in (
+        "faults_free", "faults_free_again"))
+    for p in out["paths"].values():
+        p["round_ms_over_faults_free"] = p["round_ms"] / free_ms
+        p["round_ms_over_main_path"] = p["round_ms"] / main_round_ms
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = {}
+    try:
+        for name, fault in (("faults_drill", FAULTS_DRILL),
+                            ("faults_dp", FAULTS_DP)):
+            cut = dict(fault)
+            if cut.get("byzantine_rate"):
+                cut["byzantine_rate"] = FAULTS_CUT_BYZANTINE_RATE
+            cfg = cut_config(faults_config(tcfg, cut, dtype="float32"),
+                             **TASK_CARD_CUT)
+            card[name] = faults_card_vs_cpu(name, cfg, data, seed, os_mod,
+                                            qk)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    out.update(stream_bitwise=dict(max_abs_gap=gap, rng_state_equal=same_rng),
+               crafted_stacks=crafted, card_vs_cpu=card,
+               main_path_round_ms=main_round_ms, cudnn_deterministic=True,
+               drill=FAULTS_DRILL, dp=FAULTS_DP,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"faults phase: {out['phase_s']:.1f} s; round ms "
+        + ", ".join(f"{n} {p['round_ms']:.1f} "
+                    f"({p['round_ms_over_faults_free']:.3f}x faults_free, "
+                    f"{p['round_ms_over_main_path']:.3f}x the main path)"
+                    for n, p in out["paths"].items()))
+    return out
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -3399,6 +3763,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("faults")
+    faults = faults_phase(args.seed, tcfg, define_model, make_algorithm,
+                          stack_partitions, FederatedTrainer, order_spread,
+                          qk, fa, main["round_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -3456,6 +3827,7 @@ def main(argv=None) -> int:
                  (f"zoo_{n}", r) for n, r in zoo["paths"].items()) + tuple(
                  (f"tasks_{n}", r) for n, r in tasks["paths"].items()) + tuple(
                  (f"models_{n}", r) for n, r in models["paths"].items()) + tuple(
+                 (n, r) for n, r in faults["paths"].items()) + tuple(
                  (f"cli_tff_{n}", tasks["cli_tff"][n])
                  for n in ("shakespeare_rnn", "emnist_cnn")
                  if isinstance(tasks["cli_tff"], dict)) + tuple(
@@ -3531,6 +3903,7 @@ def main(argv=None) -> int:
     print(json.dumps({"localsgd": localsgd, "card": card}))
     print(json.dumps({"tasks": tasks, "card": card}))
     print(json.dumps({"models": models, "card": card}))
+    print(json.dumps({"faults": faults, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

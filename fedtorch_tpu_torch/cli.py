@@ -42,13 +42,25 @@ runs: ``-a densenet*`` (``--densenet_bc_mode``, ``--densenet_growth_rate``,
 ``--densenet_compression``), ``--norm gn``, ``--drop_rate``, ``--conv_impl
 matmul`` and the ``robust_*`` models beside ``resnet*``, ``wideresnet*``,
 ``cnn``, ``rnn``, the transformer and the flat models. The update guards
-(``--guard_updates``, ``--guard_norm_multiplier``, ``--guard_mode``) and
+(``--guard_updates``, ``--guard_norm_multiplier``, ``--guard_mode``),
 the robust rules (``--robust_agg``, ``--robust_trim_frac``,
-``--robust_norm_tau``) run in the round, and a guarded round with a
-rejected or clipped update logs the JAX CLI's ``faults`` line. The JAX
-run writes
-checkpoints and telemetry rows; the port writes neither yet, and logs
-one line saying so.
+``--robust_norm_tau``), chaos injection (``--fault_client_drop_rate``,
+``--fault_straggler_rate``, ``--fault_straggler_step_frac``,
+``--fault_nan_inject_rate``, ``--fault_byzantine_rate``,
+``--fault_byzantine_mode``, ``--fault_byzantine_scale``), the
+availability lifecycle (``--avail_model``, ``--avail_dropout_rate``,
+``--avail_diurnal_period``, ``--over_select_frac``,
+``--avail_quorum_frac``; ``--avail_quorum_action abort`` needs the
+supervisor, ROADMAP A7) and DP-FedAvg (``--dp_noise_multiplier``,
+``--dp_clip_norm``, ``--dp_delta``) run in the round. A round with a
+fault logs the JAX CLI's ``faults`` line, and a round that aggregated
+nothing its all-rejected line. With DP armed an in-memory RDP
+accountant charges each round at ``q = min(1, k_online / C)``, and
+``--dp_epsilon_budget`` with ``--dp_budget_action`` stops the run at
+the last affordable round or degrades it to noise-free rounds;
+``results["dp"]`` reports the spend. The JAX run writes checkpoints,
+telemetry rows and the accountant's file; the port writes none of them
+yet, and logs one line saying so.
 
 Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
@@ -507,14 +519,6 @@ _unported("checkpoint", "the model diagnostics of utils/diagnostics.py "
           "(ROADMAP A7)", {"check_model_at_sync": "check_model_at_sync",
                            "track_model_aggregation":
                                "track_model_aggregation"})
-_unported("fault", "chaos injection (ROADMAP A6)", {
-    "fault_client_drop_rate": "client_drop_rate",
-    "fault_straggler_rate": "straggler_rate",
-    "fault_straggler_step_frac": "straggler_step_frac",
-    "fault_nan_inject_rate": "nan_inject_rate",
-    "fault_byzantine_rate": "byzantine_rate",
-    "fault_byzantine_mode": "byzantine_mode",
-    "fault_byzantine_scale": "byzantine_scale"})
 _unported("fault", "the round supervisor (ROADMAP A7)", {
     "supervisor": "supervisor", "supervisor_loss_blowup": "loss_blowup_factor",
     "supervisor_max_retries": "max_retries",
@@ -528,16 +532,6 @@ _unported("fault", "host-plane chaos and recovery (ROADMAP A7)", {
     "host_retry_backoff_s": "host_retry_backoff_s"})
 _unported("fault", "the stall watchdog (ROADMAP A7)",
           {"watchdog_timeout_s": "watchdog_timeout_s"})
-_unported("fault", "the availability plane (ROADMAP A6)", {
-    "avail_model": "avail_model", "avail_dropout_rate": "avail_dropout_rate",
-    "avail_diurnal_period": "avail_diurnal_period",
-    "over_select_frac": "over_select_frac",
-    "avail_quorum_frac": "avail_quorum_frac",
-    "avail_quorum_action": "avail_quorum_action"})
-_unported("fault", "DP aggregation (ROADMAP A6)", {
-    "dp_noise_multiplier": "dp_noise_multiplier",
-    "dp_clip_norm": "dp_clip_norm", "dp_epsilon_budget": "dp_epsilon_budget",
-    "dp_delta": "dp_delta", "dp_budget_action": "dp_budget_action"})
 _unported("mesh", "multi-device and multi-host runs (ROADMAP A10)", {
     "num_devices": "num_devices",
     "coordinator_address": "coordinator_address",
@@ -610,6 +604,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     )
     from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
     from fedtorch_tpu_torch.robustness.guards import all_rejected_scalars
+    from fedtorch_tpu_torch.robustness.privacy import PrivacyAccountant
     from fedtorch_tpu_torch.utils import resolve_device
     from fedtorch_tpu_torch.utils.logging import RunLogger
     from fedtorch_tpu_torch.utils.meters import PhaseTimer
@@ -629,8 +624,9 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     logger.log(f"device: {device}"
                + (f" ({torch.cuda.get_device_name(device)})"
                   if device.type == "cuda" else ""))
-    logger.log("the port writes no checkpoints and no telemetry rows yet "
-               "(ROADMAP A7): this run's record is this log")
+    logger.log("the port writes no checkpoints and no telemetry rows yet, "
+               "nor the privacy accountant's file (ROADMAP A7): this "
+               "run's record is this log")
     timer = PhaseTimer()
 
     timer.start("data")
@@ -665,8 +661,34 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                   if cfg.data.data_plane == "stream" else ""))
     server, clients = trainer.init_state(cfg.train.manual_seed)
     results, best_prec1 = {"data_plane": cfg.data.data_plane}, 0.0
+    flt = cfg.fault
+    # the privacy plane's accountant, charged each committed round at
+    # the run's participation probability (k_online of C)
+    accountant, dp_q, dp_degraded = None, 0.0, False
+    if flt.dp_armed:
+        accountant = PrivacyAccountant(flt.dp_noise_multiplier,
+                                       flt.dp_delta)
+        dp_q = min(1.0, trainer.k_online
+                   / float(cfg.federated.num_clients))
     try:
         for r in range(cfg.federated.num_comms):
+            if accountant is not None and not dp_degraded \
+                    and flt.dp_epsilon_budget > 0.0 \
+                    and accountant.preview_epsilon(dp_q) \
+                    > flt.dp_epsilon_budget:
+                # round r is not affordable: 'stop' ends the run at the
+                # last affordable round, 'degrade' goes on noise-free
+                logger.log(
+                    f"privacy budget exhausted before round {r}: "
+                    f"eps_spent={accountant.epsilon():.4f} of "
+                    f"{flt.dp_epsilon_budget} (action="
+                    f"{flt.dp_budget_action})")
+                results["dp_exhausted"] = True
+                results["dp_exhausted_at_round"] = r
+                if flt.dp_budget_action == "stop":
+                    break
+                server = trainer.dp_set_noise_scale(server, 0.0)
+                dp_degraded = True
             timer.new_round()
             timer.start("round")
             server, clients, metrics = trainer.run_round(server, clients)
@@ -675,17 +697,23 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
             round_time = timer.stop("round")
             sc = trainer.round_host_scalars(clients, metrics)
             timer.add_comm(num_bytes=sc["comm_bytes"])
+            if accountant is not None and not dp_degraded:
+                # noise-free rounds after a 'degrade' spend nothing
+                accountant.charge_round(r, dp_q)
             n_online = max(sc["n_online"], 1.0)
             logger.log_train(r, sc["mean_epoch"], sc["loss_sum"] / n_online,
                              sc["acc_sum"] / n_online, sc["lr"],
                              comm_bytes=sc["comm_bytes"],
                              round_time=round_time)
-            if cfg.fault.guard_updates:
-                if sc["rejected"] or sc["clipped"]:
-                    # the JAX CLI's line; the port has no chaos plane
-                    logger.log(f"Round {r}: faults — dropped=0 "
-                               f"stragglers=0 rejected={sc['rejected']:.0f} "
-                               f"clipped={sc['clipped']:.0f} byzantine=0")
+            if flt.chaos_enabled or flt.guard_updates:
+                if sc["dropped"] or sc["rejected"] or sc["clipped"] \
+                        or sc["stragglers"] or sc["byzantine"]:
+                    logger.log(f"Round {r}: faults — "
+                               f"dropped={sc['dropped']:.0f} "
+                               f"stragglers={sc['stragglers']:.0f} "
+                               f"rejected={sc['rejected']:.0f} "
+                               f"clipped={sc['clipped']:.0f} "
+                               f"byzantine={sc['byzantine']:.0f}")
                 if all_rejected_scalars(sc):
                     logger.log(f"Round {r}: guards rejected EVERY "
                                "update — server held (renorm scale 0)")
@@ -719,6 +747,14 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
         # the stream plane's producer thread ends with the run
         trainer.close()
     results["best_top1"] = best_prec1
+    if accountant is not None:
+        results["dp"] = {
+            "epsilon_spent": accountant.epsilon(),
+            "delta": flt.dp_delta,
+            "charged_rounds": accountant.charged_rounds,
+            "exhausted": bool(results.get("dp_exhausted")),
+            "degraded": dp_degraded,
+        }
     results["timer"] = timer.summary()
     logger.log(f"phase timers: {timer.summary()}")
     return results

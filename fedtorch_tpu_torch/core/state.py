@@ -16,7 +16,7 @@ JAX package's pytrees map onto it leaf by leaf (``bridge.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -41,23 +41,33 @@ class ServerState(NamedTuple):
 
 
 class RoundMetrics(NamedTuple):
-    """The per-round metrics of the JAX package's ``RoundMetrics`` that
-    the ported round produces (no chaos, availability or DP plane). The
-    three per-client leaves are [C] under 'perm' participation, offline
-    rows zero, and the cohort-aligned [k] (in the round plan's order)
-    under 'sparse'; ``FederatedTrainer.metrics_width`` names the width.
-    Consumers that sum them get the same numbers in either layout. The
-    guards' and the robust rule's counts are 0 when they are off. The
-    JAX package's ``cohort_idx`` rides only with its cohort statistics,
-    which the port refuses."""
-    train_loss: torch.Tensor   # [C]|[k] mean local loss of each online client
-    train_acc: torch.Tensor    # [C]|[k] mean local top-1 of each online client
-    online_mask: torch.Tensor  # [C]|[k] 1.0 for this round's online clients
+    """The JAX package's per-round metrics but its cohort statistics
+    (which the port refuses). The three per-client leaves are [C] under
+    'perm' participation, offline rows zero, and the cohort-aligned [k']
+    (the round's dispatched clients, in plan order) under 'sparse';
+    ``FederatedTrainer.metrics_width`` names the width. A client that
+    crashed, dropped out or missed the deadline is not online. Consumers
+    that sum them get the same numbers in either layout. Every count is
+    0 when its plane is off; the two DP gauges are None when DP is off,
+    and :func:`~fedtorch_tpu_torch.parallel.round_program.stack_metrics`
+    keeps them None."""
+    train_loss: torch.Tensor   # [C]|[k'] mean local loss of each reporter
+    train_acc: torch.Tensor    # [C]|[k'] mean local top-1 of each reporter
+    online_mask: torch.Tensor  # [C]|[k'] 1.0 for this round's reporters
     comm_bytes: torch.Tensor   # scalar — uplink payload volume
-    rejected_updates: torch.Tensor  # scalar — guard drops
-    clipped_updates: torch.Tensor   # scalar — guard clips
-    robust_selected: torch.Tensor   # scalar — updates the rule kept
-    robust_trimmed: torch.Tensor    # scalar — updates the rule cut
+    dropped_clients: torch.Tensor    # scalar — chaos crashes
+    straggler_clients: torch.Tensor  # scalar — step-budget cuts
+    rejected_updates: torch.Tensor   # scalar — guard drops
+    clipped_updates: torch.Tensor    # scalar — guard clips
+    staleness_mean: torch.Tensor     # scalar — 0 on the sync planes
+    byzantine_clients: torch.Tensor  # scalar — crafted uploads received
+    robust_selected: torch.Tensor    # scalar — updates the rule kept
+    robust_trimmed: torch.Tensor     # scalar — updates the rule cut
+    avail_dropped: torch.Tensor      # scalar — mid-round dropouts
+    deadline_missed: torch.Tensor    # scalar — late survivors
+    quorum_degraded: torch.Tensor    # scalar {0,1} — sub-quorum round
+    dp_clipped_frac: Optional[torch.Tensor] = None  # share the DP clip cut
+    dp_noise_sigma: Optional[torch.Tensor] = None   # applied noise stddev
 
 
 def _is_tuple(tree) -> bool:

@@ -76,8 +76,9 @@ class RoundFeed(NamedTuple):
     online client's first B storage rows (``pre_round``'s batch);
     ``probe_*`` the post-round probe batches (DRFA's dual phase). The
     rest is the round plan beside the rows: the rows themselves, the
-    augmentation draws, DRFA's snapshot step and probe rows and the
-    dropout keys."""
+    augmentation draws, DRFA's snapshot step and probe rows, the
+    dropout keys and the armed fault planes' uniforms and seeds (``k``
+    is the round's dispatched clients, ``k'`` under over-selection)."""
     idx: torch.Tensor      # [k] int32 online client ids
     sizes: torch.Tensor    # [k] int32 their sample counts
     x: torch.Tensor        # [k, K*B, ...] (batch) or [k, n_max, ...] (shard)
@@ -94,6 +95,18 @@ class RoundFeed(NamedTuple):
     k_rand: Optional[torch.Tensor] = None      # 0-d int64
     probe_rows: Optional[torch.Tensor] = None  # [k2, B] int64
     drop_keys: Optional[torch.Tensor] = None   # [k, K] int64
+    u_crash: Optional[torch.Tensor] = None     # [k] float32
+    u_strag: Optional[torch.Tensor] = None     # [k] float32
+    u_nan: Optional[torch.Tensor] = None       # [k] float32
+    u_avail: Optional[torch.Tensor] = None     # [k, 2] float32
+    u_drop: Optional[torch.Tensor] = None      # [k] float32
+    byz_seed: Optional[torch.Tensor] = None    # 0-d int64
+    dp_seed: Optional[torch.Tensor] = None     # 0-d int64
+
+# the plan's fault fields a feed carries: tensors as they are, seeds as
+# 0-d int64 tensors
+FAULT_TENSORS = ("u_crash", "u_strag", "u_nan", "u_avail", "u_drop")
+FAULT_SEEDS = ("byz_seed", "dp_seed")
 
 
 def feed_nbytes(feed: RoundFeed) -> int:
@@ -604,7 +617,11 @@ class StreamFeedProducer:
             lefts=plan.lefts, probe_rows=plan.probe_rows,
             drop_keys=plan.drop_keys,
             k_rand=None if plan.k_rand is None
-            else torch.tensor(int(plan.k_rand)))
+            else torch.tensor(int(plan.k_rand)),
+            **{f: getattr(plan, f) for f in FAULT_TENSORS},
+            **{f: None if getattr(plan, f) is None
+               else torch.tensor(int(getattr(plan, f)))
+               for f in FAULT_SEEDS})
 
     def _pack_window(self, plans) -> RoundFeed:
         alloc, B, R = self._alloc, self.batch_size, len(plans)
@@ -636,7 +653,11 @@ class StreamFeedProducer:
             tops=stacked("tops"), lefts=stacked("lefts"),
             probe_rows=stacked("probe_rows"), drop_keys=stacked("drop_keys"),
             k_rand=None if plans[0].k_rand is None
-            else torch.tensor([int(p.k_rand) for p in plans]))
+            else torch.tensor([int(p.k_rand) for p in plans]),
+            **{f: stacked(f) for f in FAULT_TENSORS},
+            **{f: None if getattr(plans[0], f) is None
+               else torch.tensor([int(getattr(p, f)) for p in plans])
+               for f in FAULT_SEEDS})
 
     def _place(self, feed: RoundFeed):
         """The device copies of a packed feed, and the event after them

@@ -20,7 +20,13 @@ on the clients' raw deltas after the uplink wire format; a robust rule
 the guards' (or the rule's) accept mask renormalizes the sum to the full
 round weight before the downlink wire format (``robustness/``).
 ``norm_bound`` keeps its momentum in the server aux, wrapped as the JAX
-package wraps it (``{'alg': ..., 'norm_bound_m': ...}``).
+package wraps it (``{'alg': ..., 'norm_bound_m': ...}``). The fault
+planes compose at the wire and the aggregation seam in the JAX order:
+chaos (crashes, straggler step cuts, nan poison, byzantine uploads),
+the availability lifecycle (over-selection to ``k'`` dispatched
+clients, dropouts, the deadline on the first ``k_online`` arrivals, the
+quorum flag) and DP-FedAvg (accept mask -> DP clip -> robust rule ->
+DP noise).
 
 Two data planes feed :meth:`FederatedTrainer._round_core`:
 ``round_fn`` gathers the round's rows from the population on the
@@ -60,14 +66,34 @@ What differs from the JAX package, and why:
   generator with its key (``models/common.py`` ``drop_source``).
 * Client state is updated in place (see ``core/state.py``).
 
-Everything of ``_round_core`` that is off on this path — chaos, DP,
-availability, pod-scale sharding, cohort stats, client fusion, the async
-plane — is refused by name at construction (with no chaos or
-availability plane every online client reports: the guards' ``survive``
-mask is all ones); so are
-the JAX package's bounded retry of a failed gather, its host-fault
-seams and its producer rebuild (ROADMAP A7): a gather error reaches the
-caller as itself.
+* The fault planes (``robustness/{chaos,availability,privacy}.py``):
+  where the JAX package folds the round key (``chaos_salt``,
+  ``AVAIL_SYNC_SALT``, ``AVAIL_DROP_SALT``, ``DP_SALT``), the plan holds
+  uniforms and seeds drawn from the server's generator after everything
+  above, each only when its knob is armed, in this order: the chaos
+  uniforms (``u_crash``, ``u_strag``, ``u_nan``, [k'] each, a class only
+  when its rate is above 0), the availability uniforms (``u_avail``
+  [k', 2] and, where the model draws it, ``u_drop`` [k']), the gauss
+  attack's seed (``byzantine_mode='gauss'``) and the DP noise's seed. A
+  disarmed ``FaultConfig()`` draws nothing more, so its plans are the
+  fault-free plans. What is fixed for a run (the byzantine cohort, each
+  client's device class and diurnal phase) is hashed off one int64
+  fault key that ``init_state`` draws after the params (only when
+  ``byzantine_rate > 0`` or ``avail_model == 'trace'``) and keeps in the
+  server aux, wrapped as the JAX package wraps its ``norm_bound``
+  momentum and DP noise scale: ``{'alg': ..., 'norm_bound_m': ...,
+  'dp_noise_scale': ..., 'fault_key': ...}``, each member only when
+  armed. The per-leaf normals of the DP noise and the gauss attack are
+  drawn on the round's device from the plan's seed, or taken from the
+  plan's ``noise`` (tests inject the JAX package's).
+* Every dispatched client trains, also one that crashes or drops out,
+  as the JAX package's vmap does; only the clients that keep their
+  round (not crashed, not dropped out) have their state written back.
+
+Pod-scale sharding, cohort stats, client fusion and the async plane are
+refused by name at construction; so are the JAX package's bounded retry
+of a failed gather, its host-fault seams and its producer rebuild
+(ROADMAP A7): a gather error reaches the caller as itself.
 """
 from __future__ import annotations
 
@@ -76,6 +102,7 @@ import math
 import weakref
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from fedtorch_tpu_torch.algorithms.base import (
@@ -91,40 +118,80 @@ from fedtorch_tpu_torch.core.state import (
 )
 from fedtorch_tpu_torch.data.batching import ClientData, round_row_plan
 from fedtorch_tpu_torch.data.streaming import (
-    HostClientStore, MmapClientStore, RoundFeed, RoundSchedule,
-    StreamFeedProducer, StreamItem, np_dtype, window_round,
+    FAULT_SEEDS, FAULT_TENSORS, HostClientStore, MmapClientStore, RoundFeed,
+    RoundSchedule, StreamFeedProducer, StreamItem, np_dtype, window_round,
 )
 from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
 )
-from fedtorch_tpu_torch.robustness.aggregators import (
-    robust_aggregate, unwrap_norm_bound, wrap_norm_bound,
-)
+from fedtorch_tpu_torch.robustness import availability, chaos
+from fedtorch_tpu_torch.robustness.aggregators import robust_aggregate
 from fedtorch_tpu_torch.robustness.guards import (
-    renormalize_accepted, screen_payloads,
+    mask_bcast, renormalize_accepted, screen_payloads,
+)
+from fedtorch_tpu_torch.robustness.privacy import (
+    dp_add_noise, dp_clip_payloads, dp_noise_stddev,
 )
 from fedtorch_tpu_torch.utils import resolve_device
 
 
 class RoundPlan(NamedTuple):
-    """What a round consumes of randomness, as CPU tensors: the online
-    client ids, each one's K*B storage rows, (augmentation on) the
+    """What a round consumes of randomness, as CPU tensors: the
+    dispatched client ids (k' of them: ``k_online``, or more under
+    over-selection), each one's K*B storage rows, (augmentation on) the
     per-step flip/crop draws, (DRFA) the shared snapshot step and the
-    second phase's cohort and rows, (``needs_val_batch``) each online
-    client's K*B validation storage rows, and (a model with dropout) each
-    online client's dropout key a step."""
-    idx: torch.Tensor                     # [k] int64 online client ids
-    rows: torch.Tensor                    # [k, K*B] int64 storage rows
-    flip: Optional[torch.Tensor] = None   # [k, K, B] bool
-    tops: Optional[torch.Tensor] = None   # [k, K, B] int64 in [0, 8]
-    lefts: Optional[torch.Tensor] = None  # [k, K, B] int64 in [0, 8]
+    second phase's cohort and rows, (``needs_val_batch``) each client's
+    K*B validation storage rows, (a model with dropout) each client's
+    dropout key a step, and the armed fault planes' uniforms and seeds
+    (the module docstring gives their order). ``noise`` is never drawn:
+    it injects standard normals, by the port's leaf names, in place of
+    those the seeds would draw (``{"dp": {...}}``, and for the gauss
+    attack ``{"deltas": {...}, "payloads": {...}}``)."""
+    idx: torch.Tensor                     # [k'] int64 dispatched client ids
+    rows: torch.Tensor                    # [k', K*B] int64 storage rows
+    flip: Optional[torch.Tensor] = None   # [k', K, B] bool
+    tops: Optional[torch.Tensor] = None   # [k', K, B] int64 in [0, 8]
+    lefts: Optional[torch.Tensor] = None  # [k', K, B] int64 in [0, 8]
     k_rand: Optional[int] = None          # DRFA's snapshot step, [1, K)
     probe_idx: Optional[torch.Tensor] = None   # [k] int64 probe cohort
     probe_rows: Optional[torch.Tensor] = None  # [k, B] int64 its rows
-    vrows: Optional[torch.Tensor] = None  # [k, K*B] int64 validation rows
-    drop_keys: Optional[torch.Tensor] = None  # [k, K] int64 dropout keys
+    vrows: Optional[torch.Tensor] = None  # [k', K*B] int64 validation rows
+    drop_keys: Optional[torch.Tensor] = None  # [k', K] int64 dropout keys
+    u_crash: Optional[torch.Tensor] = None  # [k'] float32 crash uniforms
+    u_strag: Optional[torch.Tensor] = None  # [k'] float32 straggler
+    u_nan: Optional[torch.Tensor] = None    # [k'] float32 nan poison
+    u_avail: Optional[torch.Tensor] = None  # [k', 2] float32 arrival
+    u_drop: Optional[torch.Tensor] = None   # [k'] float32 dropout
+    byz_seed: Optional[int] = None        # the gauss attack's noise seed
+    dp_seed: Optional[int] = None         # the DP noise's seed
+    noise: Optional[dict] = None          # injected standard normals
+
+
+
+def draw_fault_plan(generator: torch.Generator, k: int, fault,
+                    avail_sync: bool) -> dict:
+    """The armed fault planes' draws of one round as :class:`RoundPlan`
+    fields, in the order of the fields, each only when its knob is
+    armed: nothing at all for a disarmed ``FaultConfig()``."""
+    out = {}
+    for name, rate in (("u_crash", fault.client_drop_rate),
+                       ("u_strag", fault.straggler_rate),
+                       ("u_nan", fault.nan_inject_rate)):
+        if rate > 0.0:
+            out[name] = torch.rand(k, generator=generator)
+    if avail_sync:
+        out["u_avail"] = torch.rand(k, 2, generator=generator)
+        if fault.avail_model == "trace" or fault.avail_dropout_rate > 0.0:
+            out["u_drop"] = torch.rand(k, generator=generator)
+    if fault.byzantine_rate > 0.0 and fault.byzantine_mode == "gauss":
+        out["byz_seed"] = int(torch.randint(0, 2 ** 62, (),
+                                            generator=generator))
+    if fault.dp_armed:
+        out["dp_seed"] = int(torch.randint(0, 2 ** 62, (),
+                                           generator=generator))
+    return out
 
 
 def sparse_participation(generator: torch.Generator, num_clients: int,
@@ -165,32 +232,35 @@ def participation_indices(generator: torch.Generator, num_clients: int,
 
 class PlanDrawer:
     """Draws a round's :class:`RoundPlan` from a generator, in one fixed
-    order: the cohort, each online client's rows, the augmentation draws,
-    the dropout keys (``dropout``: the model drops), the validation rows,
-    the algorithm's own draws. The trainer's
-    ``draw_plan`` and the stream plane's host schedule both call it, so
-    the two planes draw the same plans. It holds no reference to the
-    trainer (the producer thread keeps it)."""
+    order: the cohort of ``k`` dispatched clients, each one's rows, the
+    augmentation draws, the dropout keys (``dropout``: the model drops),
+    the validation rows, the algorithm's own draws, then the armed fault
+    planes' (:func:`draw_fault_plan`; ``fault`` None: none). The
+    trainer's ``draw_plan`` and the stream plane's host schedule both
+    call it, so the two planes draw the same plans. It holds no reference
+    to the trainer (the producer thread keeps it)."""
 
     def __init__(self, algorithm: FedAlgorithm, sizes, n_max: int,
-                 k_online: int, local_steps: int, batch_size: int,
+                 k: int, local_steps: int, batch_size: int,
                  augment: bool, participation_mode: str = "perm",
                  vsizes=None, v_n_max: Optional[int] = None,
-                 dropout: bool = False):
+                 dropout: bool = False, fault=None,
+                 avail_sync: bool = False):
         self.algorithm = algorithm
         self.sizes = list(sizes)
         self.n_max = n_max
-        self.k_online = k_online
+        self.k = k
         self.local_steps = local_steps
         self.batch_size = batch_size
         self.augment = augment
         self.participation_mode = participation_mode
         self.vsizes, self.v_n_max = vsizes, v_n_max
         self.dropout = dropout
+        self.fault, self.avail_sync = fault, avail_sync
 
     def __call__(self, generator: torch.Generator, round_idx: int,
                  server_aux=None) -> RoundPlan:
-        K, B, k = self.local_steps, self.batch_size, self.k_online
+        K, B, k = self.local_steps, self.batch_size, self.k
         alg, C = self.algorithm, len(self.sizes)
         idx = alg.participation(generator, C, k, round_idx, server_aux)
         if idx is None:
@@ -208,19 +278,19 @@ class PlanDrawer:
             plan = plan._replace(vrows=torch.stack([
                 round_row_plan(generator, self.vsizes[c], self.v_n_max,
                                K * B) for c in idx.tolist()]))
-        return plan._replace(**alg.plan_draws(generator, self.sizes))
+        plan = plan._replace(**alg.plan_draws(generator, self.sizes))
+        if self.fault is not None:
+            plan = plan._replace(**draw_fault_plan(
+                generator, k, self.fault, self.avail_sync))
+        return plan
 
 
 def unported_features(cfg: ExperimentConfig) -> list:
     """Names of the requested features this port does not have yet (the
     async plane and client fusion are refused by the round-program
     builder, as cells)."""
-    fed, flt, mesh = cfg.federated, cfg.fault, cfg.mesh
+    mesh = cfg.mesh
     checks = [
-        (flt.chaos_enabled, "chaos (client_drop/straggler/nan_inject/"
-                            "byzantine rates)"),
-        (flt.dp_armed, "DP (dp_noise_multiplier)"),
-        (flt.avail_armed, "availability (avail_* / over_select_frac)"),
         (mesh.client_shards != 0, "client_shards"),
         (cfg.telemetry.cohort_stats, "cohort stats"),
     ]
@@ -271,6 +341,14 @@ class FederatedTrainer:
         self.batch_size = cfg.data.batch_size
         self.k_online = max(
             int(cfg.federated.online_client_rate * self.num_clients), 1)
+        # the availability lifecycle (robustness/availability.py): the
+        # round dispatches k' = ceil(over_select_frac * k_online)
+        # clients and closes on the first k_online arrivals
+        flt = cfg.fault
+        self.avail_sync = flt.avail_armed
+        self.k_dispatch = max(math.ceil(
+            flt.over_select_frac * self.k_online), self.k_online) \
+            if self.avail_sync else self.k_online
         self.participation_mode = cfg.federated.participation_mode
         self.epoch_sync = cfg.federated.sync_type == "epoch"
         if self.epoch_sync:
@@ -284,10 +362,22 @@ class FederatedTrainer:
             cfg.lr_schedule, cfg.optim, cfg.train.num_epochs or 1,
             world_size=self.num_clients).to(self.device)
         self.criterion = make_criterion(model.is_regression)
-        self.fault = cfg.fault
-        self.guard_on = cfg.fault.guard_updates
-        self.robust_rule = cfg.fault.robust_agg
+        self.fault = flt
+        self.chaos_on = flt.chaos_enabled
+        self.guard_on = flt.guard_updates
+        self.robust_rule = flt.robust_agg
         self.robust_momentum = self.robust_rule == "norm_bound"
+        self.dp_on = flt.dp_armed
+        # what is fixed for a run (the byzantine cohort, the trace
+        # model's device classes) is hashed off a fault key in the
+        # server aux
+        self.fault_keyed = flt.byzantine_rate > 0.0 \
+            or (self.avail_sync and flt.avail_model == "trace")
+        # the server aux is wrapped ({'alg': aux, ...}) when it carries
+        # any of the norm_bound momentum, the DP noise scale or the key
+        self.aux_wrapped = self.robust_momentum or self.dp_on \
+            or self.fault_keyed
+        self._cohort = None  # (fault key, [C] byzantine mask), cached
         algorithm.setup(data)
         algorithm.bind(model, self.criterion)
         algorithm.local_steps_per_round = self.local_steps
@@ -350,8 +440,20 @@ class FederatedTrainer:
         params = self.model.init(gen)
         ocfg = self.cfg.optim
         aux = self.algorithm.init_server_aux(params, self.num_clients)
-        if self.robust_momentum:
-            aux = wrap_norm_bound(aux, params)
+        if self.aux_wrapped:
+            aux = {"alg": aux}
+            if self.robust_momentum:
+                # the first round clips toward the origin at the
+                # median-update radius
+                aux["norm_bound_m"] = tree_map(torch.zeros_like, params)
+            if self.dp_on:
+                # 1.0 armed; the budget's 'degrade' sets 0.0
+                # (dp_set_noise_scale)
+                aux["dp_noise_scale"] = torch.tensor(
+                    1.0, dtype=torch.float32, device=self.device)
+            if self.fault_keyed:
+                aux["fault_key"] = torch.randint(0, 2 ** 62, (),
+                                                 generator=gen)
         server = ServerState(
             params=params, opt=optim.init_opt_state(params, ocfg),
             aux=aux, round=0, rng=gen)
@@ -371,15 +473,24 @@ class FederatedTrainer:
         batch size."""
         rows_of = self.data if self.data is not None else self.host_store
         return PlanDrawer(
-            self.algorithm, self.sizes, rows_of.n_max, self.k_online,
+            self.algorithm, self.sizes, rows_of.n_max, self.k_dispatch,
             self.local_steps, self.batch_size, self.augment,
             self.participation_mode, self.vsizes,
             self.val_data.n_max if self.val_data is not None else None,
-            self.model.has_dropout)
+            self.model.has_dropout, self.fault, self.avail_sync)
 
     def _alg_aux(self, aux):
-        """The algorithm's server aux (``norm_bound`` wraps it)."""
-        return unwrap_norm_bound(aux)[0] if self.robust_momentum else aux
+        """The algorithm's server aux (unwrapped)."""
+        return aux["alg"] if self.aux_wrapped else aux
+
+    def _byzantine_cohort(self, fault_key: int) -> torch.Tensor:
+        """[C] float32 mask of the run's byzantine cohort, from its fault
+        key (cached: the key is fixed for a run)."""
+        if self._cohort is None or self._cohort[0] != fault_key:
+            u = chaos.cohort_uniforms(fault_key, self.num_clients)
+            self._cohort = (fault_key, chaos.byzantine_cohort_mask(
+                u, self.fault.byzantine_rate))
+        return self._cohort[1]
 
     def draw_plan(self, server: ServerState) -> RoundPlan:
         """This round's plan from the server's generator."""
@@ -423,7 +534,10 @@ class FederatedTrainer:
             feed.lefts,
             None if feed.k_rand is None else int(feed.k_rand),
             None if feed.probe_idx is None else feed.probe_idx.long(),
-            feed.probe_rows, drop_keys=feed.drop_keys)
+            feed.probe_rows, drop_keys=feed.drop_keys,
+            **{f: getattr(feed, f) for f in FAULT_TENSORS},
+            **{f: None if getattr(feed, f) is None
+               else int(getattr(feed, f)) for f in FAULT_SEEDS})
         x, y, shards = feed.x, feed.y, None
         if self.feed_layout == "shard":
             # whole shards: the round's rows are selected here
@@ -438,18 +552,19 @@ class FederatedTrainer:
     def _round_core(self, server: ServerState, clients: ClientState,
                     plan: RoundPlan, x, y, pre_x, pre_y, shards=None,
                     probe: Optional[RoundFeed] = None):
-        """The round on gathered rows: ``x``/``y`` [k, K*B, ...] in plan
-        order, ``pre_x``/``pre_y`` [k, B, ...] (when ``pre_round`` runs),
-        ``shards`` each online client's (x, y) shard (qFFL's full loss),
-        ``probe`` the feed whose probe batches DRFA's dual update takes
-        (None: ``post_round_global`` on the resident data)."""
-        alg, dev = self.algorithm, self.device
+        """The round on gathered rows: ``x``/``y`` [k', K*B, ...] in plan
+        order, ``pre_x``/``pre_y`` [k', B, ...] (when ``pre_round``
+        runs), ``shards`` each dispatched client's (x, y) shard (qFFL's
+        full loss), ``probe`` the feed whose probe batches DRFA's dual
+        update takes (None: ``post_round_global`` on the resident
+        data)."""
+        alg, dev, flt = self.algorithm, self.device, self.fault
         K, B, C = self.local_steps, self.batch_size, self.num_clients
-        robust_m = None
-        if self.robust_momentum:
+        extras = {}
+        if self.aux_wrapped:
             # every algorithm hook reads the unwrapped aux
-            alg_aux, robust_m = unwrap_norm_bound(server.aux)
-            server = server._replace(aux=alg_aux)
+            extras = {n: v for n, v in server.aux.items() if n != "alg"}
+            server = server._replace(aux=server.aux["alg"])
         idx = plan.idx.to(torch.int64)
         k = idx.shape[0]
         num_online_eff = num_online_effective(idx)
@@ -463,8 +578,35 @@ class FederatedTrainer:
         if alg.needs_val_batch:
             vrows = plan.vrows.to(dev)
 
-        # the cross-client hook on the online clients' gathered aux and
-        # first B storage rows
+        # the fault planes' decisions, on the host from the plan's
+        # uniforms (robustness/chaos.py, availability.py)
+        cplan = chaos.draw_chaos_plan(k, flt, plan.u_crash, plan.u_strag,
+                                      plan.u_nan) \
+            if self.chaos_on else chaos.no_chaos_plan(k)
+        if flt.byzantine_rate > 0.0:
+            # the run's fixed cohort; the plan carries its online slice
+            cplan = cplan._replace(byzantine=self._byzantine_cohort(
+                int(extras["fault_key"]))[idx])
+        avail = None
+        if self.avail_sync:
+            class_u = availability.class_uniforms(
+                int(extras["fault_key"]), idx) \
+                if flt.avail_model == "trace" else None
+            avail = availability.sync_lifecycle(
+                plan.u_avail, plan.u_drop, class_u, server.round, flt,
+                self.k_online)
+        # reporters: not crashed, and (availability armed) arrived by
+        # the deadline; a crash or a dropout leaves the client's state
+        # as it was at round start, a deadline miss keeps what it
+        # trained
+        survive = cplan.survive if avail is None \
+            else cplan.survive * avail[0].to(torch.float32)
+        keep = cplan.survive.bool() if avail is None \
+            else cplan.survive.bool() & ~avail[1]
+        budget_scale = cplan.budget_scale.tolist()
+
+        # the cross-client hook on the dispatched clients' gathered aux
+        # and first B storage rows
         on_aux = tree_take(clients.aux, rows_dev)
         if self._pre_round:
             on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
@@ -483,6 +625,10 @@ class FederatedTrainer:
             # epoch-sync clients stop after their own budget
             budget = min(nb * self.cfg.federated.num_epochs_per_comm, K) \
                 if self.epoch_sync else K
+            if flt.straggler_rate > 0.0:
+                # a straggler's cut, in float32 as the JAX package's
+                budget = max(math.ceil(float(
+                    np.float32(budget) * np.float32(budget_scale[j]))), 1)
             full_loss = self._full_loss(server.params, *shards[j], size) \
                 if alg.needs_full_loss else None
             xj, yj = x[j], y[j]
@@ -537,12 +683,44 @@ class FederatedTrainer:
                 deltas.append(delta)
 
         with torch.no_grad():
-            # uplink wire format on the stacked [k] axis
-            stacked = alg.payload_batch_transform(tree_stack(payloads))
-            payload_sum, new_robust_m, fault_counts = self._aggregate(
-                stacked, deltas, weights, robust_m)
+            stacked = tree_stack(payloads)
+            # what the guards judge: the deltas as the server saw them
+            wire_deltas = tree_stack(deltas) if self.guard_on else None
+            if flt.byzantine_rate > 0.0:
+                # an adversary crafts what it sends, before the wire
+                # format; its local state stays honest
+                wire_deltas, stacked = chaos.apply_byzantine(
+                    chaos.ChaosPlan(*(t.to(dev) for t in cplan)),
+                    wire_deltas, stacked, weights, flt, seed=plan.byz_seed,
+                    noise=plan.noise)
+            nan_dev = cplan.nan_inject.to(dev) \
+                if flt.nan_inject_rate > 0.0 else None
+            if nan_dev is not None and wire_deltas is not None:
+                wire_deltas = chaos.poison_tree(wire_deltas, nan_dev)
+            # uplink wire format on the stacked [k'] axis
+            stacked = alg.payload_batch_transform(stacked)
+            if nan_dev is not None:
+                # a fried wire trumps whatever was on it
+                stacked = chaos.poison_tree(stacked, nan_dev)
+            survive_dev = survive.to(dev) \
+                if self.chaos_on or self.avail_sync else None
+            payload_sum, new_robust_m, fault_counts, accept, dp_frac = \
+                self._aggregate(stacked, wire_deltas, weights,
+                                extras.get("norm_bound_m"), survive_dev)
             # the downlink wire format, once, whatever the rule
             payload_sum = alg.aggregate_transform(payload_sum)
+            dp_sigma = None
+            if self.dp_on:
+                # noise on the released estimate, at the round's real
+                # width k_online
+                scale = extras["dp_noise_scale"]
+                sigma = dp_noise_stddev(self.fault.dp_noise_multiplier,
+                                        self.fault.dp_clip_norm,
+                                        self.k_online)
+                payload_sum = dp_add_noise(
+                    payload_sum, plan.dp_seed, weights, sigma, scale,
+                    noise=(plan.noise or {}).get("dp"))
+                dp_sigma = (sigma * scale).to(torch.float32)
             losses, accs = torch.stack(losses), torch.stack(accs)
             new_params, new_opt, new_saux = alg.server_update(
                 server.params, server.opt, server.aux, payload_sum,
@@ -558,36 +736,30 @@ class FederatedTrainer:
                     for j, ((d, p), a, e, ks) in enumerate(
                         zip(kept, client_aux, epochs, budgets))]
 
-            # online clients leave holding the aggregated server model
-            # (model_server = deepcopy(model_client), fedavg.py:97)
-            for n, p in clients.params.items():
-                p[rows_dev] = new_params[n]
-            tree_put(clients.opt, rows_dev, tree_stack(client_opts))
-            tree_put(clients.aux, rows_dev, tree_stack(client_aux))
-            clients.epoch[rows_dev] = torch.stack(epochs)
-            clients.local_index[rows_dev] = torch.stack(local_index)
+            # the clients that keep their round leave holding the
+            # aggregated server model (model_server =
+            # deepcopy(model_client), fedavg.py:97); a crashed or
+            # dropped-out client's rows are not written
+            js = [j for j in range(k) if keep[j]]
+            if js:
+                rows_keep = rows_dev if len(js) == k \
+                    else idx[js].to(dev)
 
-            # per-client metric leaves: 'perm' scatters into [C],
-            # 'sparse' keeps the cohort-aligned [k] rows (every client of
-            # the cohort reports: no chaos or availability plane here)
-            if self.participation_mode == "sparse":
-                online = torch.ones(k, device=dev)
-                loss_m, acc_m = losses, accs
-            else:
-                online = torch.zeros(C, device=dev)
-                online[rows_dev] = 1.0
-                loss_m = torch.zeros(C, device=dev).index_put(
-                    (rows_dev,), losses)
-                acc_m = torch.zeros(C, device=dev).index_put(
-                    (rows_dev,), accs)
-            metrics = RoundMetrics(
-                train_loss=loss_m, train_acc=acc_m, online_mask=online,
-                comm_bytes=torch.tensor(
-                    tree_bytes(server.params) * k * alg.payload_scale(),
-                    dtype=torch.float32, device=dev),
-                **dict(zip(("rejected_updates", "clipped_updates",
-                            "robust_selected", "robust_trimmed"),
-                           fault_counts.unbind())))
+                def kept_rows(items):
+                    return items if len(js) == k else [items[j] for j in js]
+                for n, p in clients.params.items():
+                    p[rows_keep] = new_params[n]
+                tree_put(clients.opt, rows_keep,
+                         tree_stack(kept_rows(client_opts)))
+                tree_put(clients.aux, rows_keep,
+                         tree_stack(kept_rows(client_aux)))
+                clients.epoch[rows_keep] = torch.stack(kept_rows(epochs))
+                clients.local_index[rows_keep] = torch.stack(
+                    kept_rows(local_index))
+
+            metrics = self._round_metrics(
+                server, k, rows_dev, losses, accs, cplan, survive, avail,
+                accept, fault_counts, dp_frac, dp_sigma)
         new_server = ServerState(params=new_params, opt=new_opt,
                                  aux=new_saux, round=server.round + 1,
                                  rng=server.rng)
@@ -596,41 +768,124 @@ class FederatedTrainer:
             new_server = alg.post_round_global_feed(new_server, probe)
         else:
             new_server = alg.post_round_global(new_server, self.data, plan)
-        if self.robust_momentum:
-            # the updated center rides the server aux
-            new_server = new_server._replace(aux={
-                "alg": new_server.aux, "norm_bound_m": new_robust_m})
+        if self.aux_wrapped:
+            # the updated norm_bound center, the noise scale and the
+            # fault key ride the server aux
+            if self.robust_momentum:
+                extras["norm_bound_m"] = new_robust_m
+            new_server = new_server._replace(
+                aux={"alg": new_server.aux, **extras})
         return new_server, clients, metrics
 
-    def _aggregate(self, stacked, deltas, weights, robust_m):
-        """The aggregation seam on the stacked [k] wire payloads: with
-        the guards on, screen them on the raw ``deltas`` (every online
-        client reports: ``survive`` is all ones); then the robust rule,
-        or the plain sum renormalized over the accepted clients. Returns
-        (sum, the new ``norm_bound`` momentum or None, the [4] counts
-        rejected, clipped, selected, trimmed)."""
+    def _round_metrics(self, server, k, rows_dev, losses, accs, cplan,
+                       survive, avail, accept, fault_counts, dp_frac,
+                       dp_sigma) -> RoundMetrics:
+        """The round's :class:`RoundMetrics`: per-client leaves of the
+        reporters ('perm': scattered into [C]; 'sparse': the [k']
+        rows), the uplink bytes of the reporters, and the fault
+        planes' counts (the chaos and availability counts known on the
+        host, moved in one copy)."""
+        dev, flt, C = self.device, self.fault, self.num_clients
+        if self.chaos_on or self.avail_sync:
+            online = torch.ones(k)
+            if flt.client_drop_rate > 0.0:
+                online = cplan.survive
+            if avail is not None:
+                online = online * avail[0].to(torch.float32)
+            online_k = online.to(dev)
+            loss_k, acc_k = losses * online_k, accs * online_k
+        else:
+            online = None
+            online_k = torch.ones(k, device=dev)
+            loss_k, acc_k = losses, accs
+        if self.participation_mode == "sparse":
+            mask_m, loss_m, acc_m = online_k, loss_k, acc_k
+        else:
+            mask_m, loss_m, acc_m = (
+                torch.zeros(C, device=dev).index_put((rows_dev,), v)
+                for v in (online_k, loss_k, acc_k))
+        comm_bytes = torch.tensor(
+            tree_bytes(server.params) * k * self.algorithm.payload_scale(),
+            dtype=torch.float32, device=dev)
+        if flt.client_drop_rate > 0.0 or avail is not None:
+            # the uploads that never reached the server
+            comm_bytes = comm_bytes * online_k.sum() / k
+        if online is None:
+            host = torch.zeros(6, device=dev)
+        else:
+            byz = cplan.byzantine * (survive if avail is not None
+                                     else cplan.survive)
+            # 'dropped' counts chaos crashes; the availability plane
+            # reports its own counts
+            dropped = (1.0 - cplan.survive).sum() if avail is not None \
+                else k - online.sum()
+            host = torch.tensor([
+                float(dropped), float((cplan.budget_scale < 1.0).sum()),
+                0.0, float(byz.sum()),
+                float(avail[1].sum()) if avail is not None else 0.0,
+                float(avail[2].sum()) if avail is not None else 0.0],
+                dtype=torch.float32).to(dev)
+        quorum = torch.zeros((), device=dev)
+        if avail is not None and flt.avail_quorum_frac > 0.0:
+            need = math.ceil(flt.avail_quorum_frac * self.k_online)
+            quorum = (accept.sum() < need).to(torch.float32)
+        dropped, stragglers, staleness, byz, avail_dropped, missed = \
+            host.unbind()
+        rejected, clipped, selected, trimmed = fault_counts.unbind()
+        return RoundMetrics(
+            train_loss=loss_m, train_acc=acc_m, online_mask=mask_m,
+            comm_bytes=comm_bytes, dropped_clients=dropped,
+            straggler_clients=stragglers, rejected_updates=rejected,
+            clipped_updates=clipped, staleness_mean=staleness,
+            byzantine_clients=byz, robust_selected=selected,
+            robust_trimmed=trimmed, avail_dropped=avail_dropped,
+            deadline_missed=missed, quorum_degraded=quorum,
+            dp_clipped_frac=None if dp_frac is None
+            else dp_frac.to(torch.float32),
+            dp_noise_sigma=dp_sigma)
+
+    def _aggregate(self, stacked, wire_deltas, weights, robust_m, survive):
+        """The aggregation seam on the stacked [k'] wire payloads:
+        ``survive`` [k'] the reporters (None: every client reports, no
+        chaos or availability plane). With the guards on, screen the
+        payloads on ``wire_deltas``; else zero the payloads that did not
+        report. Then the DP clip, then the robust rule, or the plain sum
+        renormalized over the accepted clients. Returns (sum, the new
+        ``norm_bound`` momentum or None, the [4] counts rejected,
+        clipped, selected, trimmed, the accept mask or None, the DP
+        clip's share or None)."""
         k = weights.shape[0]
         counts = torch.zeros(4, device=weights.device)
         accept = None
         if self.guard_on:
             stacked, report = screen_payloads(
-                tree_stack(deltas), stacked,
-                torch.ones(k, device=weights.device), self.fault)
+                wire_deltas, stacked, survive if survive is not None
+                else torch.ones(k, device=weights.device), self.fault)
             accept = report.accept
             counts[0], counts[1] = report.rejected, report.clipped
+        elif survive is not None:
+            accept = survive
+            stacked = tree_map(lambda p: torch.where(
+                mask_bcast(accept.bool(), p), p, torch.zeros_like(p)),
+                stacked)
+        dp_frac = None
+        if self.dp_on:
+            # every reporter's sensitivity bounded before any rule
+            stacked, dp_frac = dp_clip_payloads(
+                stacked, weights, accept, self.fault.dp_clip_norm)
         if self.robust_rule != "mean":
             payload_sum, new_m, rep = robust_aggregate(
                 self.robust_rule, stacked, weights,
                 accept if accept is not None else torch.ones_like(weights),
                 self.fault, momentum=robust_m)
             counts[2], counts[3] = rep.selected, rep.trimmed
-            return payload_sum, new_m, counts
+            return payload_sum, new_m, counts, accept, dp_frac
         payload_sum = tree_map(lambda p: p.sum(dim=0), stacked)
         if accept is not None:
             # rejected weight redistributed over the accepted clients;
             # an all-rejected round sums to 0 and the server holds
             payload_sum = renormalize_accepted(payload_sum, weights, accept)
-        return payload_sum, None, counts
+        return payload_sum, None, counts, accept, dp_frac
 
     def _full_loss(self, params, x, y, size: int) -> torch.Tensor:
         """qFFL's F_k: the SUM of the per-batch mean losses over one
@@ -656,29 +911,54 @@ class FederatedTrainer:
                            metrics: RoundMetrics) -> dict:
         """Everything the CLI's round loop logs, in one transfer (which
         waits for the round): the mean training epoch over the clients,
-        the learning rate at it, the online count, the online clients'
-        loss and accuracy sums and the uplink bytes (the fault-free
-        fields of the JAX package's ``round_scalars_dev``)."""
+        the learning rate at it, the reporters' count, loss and accuracy
+        sums, the uplink bytes and the fault planes' counts (the JAX
+        package's ``round_scalars_dev``), and with DP armed the clip's
+        share and the applied noise stddev."""
         mean_epoch = clients.epoch.mean()
-        vals = torch.stack([
-            mean_epoch, lr_at(self.schedule, mean_epoch),
-            metrics.online_mask.sum(), metrics.train_loss.sum(),
-            metrics.train_acc.sum(), metrics.comm_bytes,
-            metrics.rejected_updates, metrics.clipped_updates,
-            metrics.robust_selected, metrics.robust_trimmed]).tolist()
-        # no chaos plane: nothing drops
-        return dict(zip(("mean_epoch", "lr", "n_online", "loss_sum",
-                         "acc_sum", "comm_bytes", "rejected", "clipped",
-                         "robust_selected", "robust_trimmed"), vals),
-                    dropped=0.0)
+        names = ["mean_epoch", "lr", "n_online", "loss_sum", "acc_sum",
+                 "comm_bytes", "dropped", "stragglers", "rejected",
+                 "clipped", "staleness", "byzantine", "robust_selected",
+                 "robust_trimmed", "avail_dropped", "deadline_missed",
+                 "quorum_degraded"]
+        vals = [mean_epoch, lr_at(self.schedule, mean_epoch),
+                metrics.online_mask.sum(), metrics.train_loss.sum(),
+                metrics.train_acc.sum(), metrics.comm_bytes,
+                metrics.dropped_clients, metrics.straggler_clients,
+                metrics.rejected_updates, metrics.clipped_updates,
+                metrics.staleness_mean, metrics.byzantine_clients,
+                metrics.robust_selected, metrics.robust_trimmed,
+                metrics.avail_dropped, metrics.deadline_missed,
+                metrics.quorum_degraded]
+        if metrics.dp_clipped_frac is not None:
+            names += ["dp_clipped_frac", "dp_noise_sigma"]
+            vals += [metrics.dp_clipped_frac, metrics.dp_noise_sigma]
+        return dict(zip(names, torch.stack(
+            [v.to(torch.float32) for v in vals]).tolist()))
 
     @property
     def metrics_width(self) -> int:
         """Leading dim of the per-client :class:`RoundMetrics` leaves:
-        [C] in 'perm' mode, the cohort-aligned [k] in 'sparse' mode (the
-        JAX package's ``metrics_width``)."""
-        return self.k_online if self.participation_mode == "sparse" \
+        [C] in 'perm' mode, the cohort-aligned [k'] in 'sparse' mode:
+        the dispatched clients, ``k_dispatch`` (the JAX package's
+        ``metrics_width`` names ``k_online``, but its round emits
+        ``k_dispatch`` rows under over-selection)."""
+        return self.k_dispatch if self.participation_mode == "sparse" \
             else self.num_clients
+
+    def dp_set_noise_scale(self, server: ServerState,
+                           value: float) -> ServerState:
+        """The server with its DP noise scale set to ``value`` (the
+        budget's 'degrade' sets 0.0: the round keeps clipping and stops
+        noising)."""
+        if not self.dp_on:
+            raise ValueError(
+                "dp_set_noise_scale on a trainer without DP armed "
+                "(fault.dp_noise_multiplier == 0)")
+        leaf = server.aux["dp_noise_scale"]
+        aux = dict(server.aux, dp_noise_scale=torch.tensor(
+            value, dtype=torch.float32, device=leaf.device))
+        return server._replace(aux=aux)
 
     # -- the stream plane's feeds ------------------------------------------
     def next_stream_item(self, server: ServerState,

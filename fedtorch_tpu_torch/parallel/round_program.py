@@ -159,8 +159,10 @@ def feed_layout(algorithm: FedAlgorithm) -> str:
 
 
 def stack_metrics(history) -> RoundMetrics:
-    """Per-round metrics stacked on a leading [R] axis."""
-    return RoundMetrics(*(torch.stack(f) for f in zip(*history)))
+    """Per-round metrics stacked on a leading [R] axis (a field that is
+    None in every round, the DP gauges with DP off, stays None)."""
+    return RoundMetrics(*(None if f[0] is None else torch.stack(f)
+                          for f in zip(*history)))
 
 
 class RoundProgramBuilder:

@@ -50,7 +50,8 @@ MODULE_MAP = {
         "parallel/federated.py", "parallel/local_sgd.py",
         "parallel/round_program.py",
         "robustness/__init__.py", "robustness/aggregators.py",
-        "robustness/guards.py",
+        "robustness/availability.py", "robustness/chaos.py",
+        "robustness/guards.py", "robustness/privacy.py",
         "utils/__init__.py", "utils/logging.py", "utils/meters.py",
         "utils/platform.py"),
     # the Pallas kernels became hand-written Hopper kernels
@@ -66,10 +67,6 @@ MODULE_MAP = {
     # round_program.collective_budget (the pod-scale FTP004 budget) waits
     # for multi-GPU runs and a program audit (ROADMAP A10, A12)
     **_ported("native/__init__.py", "native/host_pipeline.py"),
-    **_rows("queued", "ROADMAP A6: chaos, availability and DP, on one "
-            "design for fault draws in RoundPlan",
-            "robustness/availability.py", "robustness/chaos.py",
-            "robustness/privacy.py"),
     **_rows("queued", "ROADMAP A7: lifecycle and telemetry",
             "robustness/harness.py", "robustness/host_chaos.py",
             "robustness/host_recovery.py", "robustness/preemption.py",

@@ -28,7 +28,7 @@ refuses ``cohort_stats``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -243,15 +243,3 @@ def robust_aggregate(rule: str, payloads, weights: torch.Tensor,
     n_clipped = (cand * (scale < 1.0).to(cand.dtype)).sum()
     return payload_sum, new_momentum, RobustReport(selected=a,
                                                    trimmed=n_clipped)
-
-
-def wrap_norm_bound(aux, params) -> dict:
-    """The server aux under ``norm_bound``: ``{'alg': aux,
-    'norm_bound_m': zeros}`` (the first round clips toward the origin at
-    the median-update radius)."""
-    return {"alg": aux, "norm_bound_m": tree_map(torch.zeros_like, params)}
-
-
-def unwrap_norm_bound(aux) -> "tuple[object, Optional[dict]]":
-    """(the algorithm's aux, the momentum) of a wrapped server aux."""
-    return aux["alg"], aux["norm_bound_m"]

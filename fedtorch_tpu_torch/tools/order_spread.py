@@ -95,7 +95,7 @@ def _nchw_inside(module, args):
 
 
 def run_round(cfg, seed: int, run: str, wrap_algorithm=None, data=None,
-              val_data=None):
+              val_data=None, with_metrics: bool = False):
     """One quantized round from the weights and plan of ``seed``, in
     ``run``: ``"cuda"``, ``"cpu"``, or ``"cpu-"`` followed by ``nchw``
     (NCHW memory inside the model), ``<n>thread`` (``n`` CPU threads)
@@ -103,7 +103,8 @@ def run_round(cfg, seed: int, run: str, wrap_algorithm=None, data=None,
     dtype). ``wrap_algorithm`` may wrap the algorithm's methods before
     the round. ``data`` (and ``val_data``): the clients' ``ClientData``,
     by default ``SAMPLES_PER_CLIENT`` CIFAR-10-shaped rows a client from
-    ``seed``. Returns (update, initial params), both on the CPU."""
+    ``seed``. Returns (update, initial params), both on the CPU, and with
+    ``with_metrics`` the round's ``RoundMetrics`` on the CPU too."""
     if data is None:
         C = cfg.federated.num_clients
         n = SAMPLES_PER_CLIENT
@@ -131,8 +132,12 @@ def run_round(cfg, seed: int, run: str, wrap_algorithm=None, data=None,
                               device=dev)
         server, clients = tr.init_state(seed + 1)
         p0 = {k: v.cpu() for k, v in server.params.items()}
-        server, _, _ = tr.round_fn(server, clients, tr.draw_plan(server))
-        return {k: v.cpu() - p0[k] for k, v in server.params.items()}, p0
+        server, _, m = tr.round_fn(server, clients, tr.draw_plan(server))
+        update = {k: v.cpu() - p0[k] for k, v in server.params.items()}
+        if with_metrics:
+            return update, p0, type(m)(*(None if f is None else f.cpu()
+                                         for f in m))
+        return update, p0
     finally:
         torch.set_num_threads(threads)
 

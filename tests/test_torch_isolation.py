@@ -103,9 +103,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("override, name", [
-    (dict(fault__client_drop_rate=0.1), "chaos"),
-    (dict(fault__dp_noise_multiplier=1.0), "DP"),
-    (dict(fault__avail_dropout_rate=0.1), "availability"),
     (dict(mesh__client_shards=2), "client_shards"),
     (dict(telemetry__cohort_stats=True), "cohort stats"),
     (dict(federated__sync_mode="async"), "async"),

@@ -142,7 +142,8 @@ def test_round_metrics_have_the_jax_package_s_layout(mode, plane):
         assert tms.train_loss.shape == (2, width)
         _assert_metrics_match(tms, j_scan)
         # every consumer sums the leaves: the same in either layout
-        sc = ttr.round_host_scalars(tcl, type(tms)(*(f[-1] for f in tms)))
+        sc = ttr.round_host_scalars(tcl, type(tms)(*(
+            None if f is None else f[-1] for f in tms)))
         assert sc["n_online"] == ttr.k_online
     finally:
         if producer is not None:

@@ -403,7 +403,7 @@ def _run(t, dispatch, rounds):
             server, clients, metrics = t.run_round(server, clients)
         else:
             server, clients, ms = t.run_rounds(server, clients, n)
-            metrics = type(ms)(*(f[-1] for f in ms))
+            metrics = type(ms)(*(None if f is None else f[-1] for f in ms))
     return server, clients, metrics
 
 
@@ -447,7 +447,7 @@ def test_switching_dispatch_mid_run_keeps_the_trajectory(closing):
             s, c, m = t.run_round(s, c)
         else:
             s, c, ms = t.run_rounds(s, c, step)
-            m = type(ms)(*(f[-1] for f in ms))
+            m = type(ms)(*(None if f is None else f[-1] for f in ms))
     _assert_same((s, c, m), (rs, rc, rm))
     assert s.round == 5
 

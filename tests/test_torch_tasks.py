@@ -196,7 +196,7 @@ def test_rnn_on_the_stream_plane_is_bitwise_the_resident_plane(dispatch):
                     server, clients, m = t.run_round(server, clients)
                 else:
                     server, clients, ms = t.run_rounds(server, clients, n)
-                    m = type(ms)(*(f[-1] for f in ms))
+                    m = type(ms)(*(None if f is None else f[-1] for f in ms))
         finally:
             t.close()
         assert (t.data is None) == (plane == "stream")
