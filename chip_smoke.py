@@ -221,6 +221,23 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    every count equal, the update within the larger of ``TASK_CARD_FLOOR``
    and ``SPREAD_FACTOR`` times the CPU's order spread, the CPU runs
    replaying the card's DP normals;
+8f. lifecycle: the run lifecycle through the CLI on the main path's
+   round from CIFAR-10 files written from ``--seed``, cuDNN
+   deterministic (``lifecycle_phase``): a 4-round reference with a
+   checkpoint and a keep every round (each round's server params and
+   generator hashed, 2 + 2 ragged launches a round, every metrics row
+   valid, health ``complete``, the checkpoint's MB and the sync save's
+   ms), run three times in this process: saves off, sync saves and
+   ``--async_checkpoint``, bitwise one another, their round and
+   checkpoint ms side by side; telemetry default and off with the same device-to-host memcpys
+   a round; a torn checkpoint and keep resumed from the previous keep,
+   named; two kill drills (sync and ``--async_checkpoint``) of ``python
+   -m fedtorch_tpu_torch.cli`` children under the restart harness,
+   SIGTERM after round 2: exit codes [75, 0], every keep bitwise the
+   reference's, the resumed child's 2 + 2 ragged launches a round, no
+   rebuild; the supervisor with nan poison, every rollback bitwise the
+   pre-round state, the cut round's counts card = CPU; stream-plane
+   gather faults bitwise a fault-free run; within ``LIFECYCLE_BUDGET_S``;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
@@ -255,7 +272,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
-``tasks``, ``models``, ``faults``, ``wrn_main_path``, ``wrn_profile``,
+``tasks``, ``models``, ``faults``, ``lifecycle``, ``wrn_main_path``,
+``wrn_profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path`` and
@@ -268,6 +286,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
+import io
 import itertools
 import json
 import math
@@ -481,6 +501,32 @@ FAULT_COUNTERS = ("dropped_clients", "straggler_clients",
                   "robust_selected", "robust_trimmed", "avail_dropped",
                   "deadline_missed", "quorum_degraded")
 PROFILE_TRIES = 3
+# the lifecycle phase: the reference's rounds (an evaluation, a
+# checkpoint and a keep each, the newest LIFECYCLE_KEEP kept; the same
+# rounds with saves off, evaluations off with them, and async); the kill
+# drills' rounds (SIGTERM once round 2 is logged; the signal can land
+# after that round's boundary check, and the child then drains a round
+# later, so the drill runs as many rounds as the reference and the
+# resumed child runs 1 or 2 of them); the stream runs' rounds (telemetry default and off, round index
+# 1 watched, and the chaos run); the supervisor drill (nan poison at 0.05
+# on the main path's round, guards off, 2 retries) and its cut round's
+# poison rate (4 clients, k = 2: 0.05 would leave the cut's counts at 0);
+# the stream chaos drill (gather faults at rate 0.3 from seed 1, which
+# fires at the gather's second check, 3 retries); the phase's budget
+LIFECYCLE_ROUNDS = 4
+LIFECYCLE_DRILL_ROUNDS = 4
+LIFECYCLE_KEEP = 2
+LIFECYCLE_SUP = dict(nan_inject_rate=0.05, supervisor=True, max_retries=2,
+                     backoff_base_s=0.0)
+LIFECYCLE_SUP_ROUNDS = 4
+LIFECYCLE_SUP_MAX_ROUNDS = 10
+LIFECYCLE_CUT_NAN_RATE = 0.3
+LIFECYCLE_CUT_ROUNDS = 3
+LIFECYCLE_STREAM_ROUNDS = 2
+LIFECYCLE_CHAOS = ("--host_fault_seams", "stream.gather", "--host_fault_rate",
+                   "0.3", "--host_fault_seed", "1", "--host_retry_max", "3",
+                   "--host_retry_backoff_s", "0")
+LIFECYCLE_BUDGET_S = 150.0
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
 SHORT_ROW = 64
@@ -3493,6 +3539,541 @@ def faults_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     return out
 
 
+def leaf_hashes(params, rng_state) -> dict:
+    """sha256 of each server param's bytes (by name) and of the
+    generator state (``"rng"``): a round's bitwise fingerprint."""
+    out = {}
+    for name, t in params.items():
+        raw = t.detach().reshape(-1).contiguous().view(torch.uint8)
+        out[name] = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+    out["rng"] = hashlib.sha256(rng_state.numpy().tobytes()).hexdigest()
+    return out
+
+
+def keep_hashes(run_dir) -> dict:
+    """{round: :func:`leaf_hashes`} of every per-round keep a run wrote,
+    read from the files."""
+    from fedtorch_tpu_torch.utils.checkpoint import _unframe_payload
+    out = {}
+    for name in os.listdir(run_dir):
+        m = re.match(r"checkpoint_r(\d+)\.ckpt$", name)
+        if m:
+            with open(os.path.join(run_dir, name), "rb") as f:
+                data, bad = _unframe_payload(f.read())
+            if bad is not None:
+                raise AssertionError(f"{name}: {bad}")
+            s = torch.load(io.BytesIO(data), weights_only=True)["server"]
+            out[int(m.group(1))] = leaf_hashes(s["params"], s["rng_state"])
+    return dict(sorted(out.items()))
+
+
+def first_difference(got: dict, want: dict):
+    """The first (round, leaf) whose hash differs, or None."""
+    for r in sorted(set(got) | set(want)):
+        g, w = got.get(r), want.get(r)
+        if g is None or w is None:
+            return (r, "missing")
+        for leaf in w:
+            if g.get(leaf) != w[leaf]:
+                return (r, leaf)
+    return None
+
+
+def lifecycle_argv(root, rounds=LIFECYCLE_ROUNDS, extra=()):
+    """``CLI_ARGV`` for ``rounds`` rounds on the CIFAR-10 files in
+    ``root``: an evaluation and a checkpoint every round, a keep every
+    round (the newest ``LIFECYCLE_KEEP`` kept), telemetry at its
+    default."""
+    argv = list(CLI_ARGV)
+    argv[argv.index("--num_comms") + 1] = str(rounds)
+    return argv + ["-p", root, "--save_all_models", "true",
+                   "--checkpoint_keep_last_n", str(LIFECYCLE_KEEP),
+                   "--telemetry", "default", "--debug", "false"] + list(extra)
+
+
+def _d2h_count(prof) -> dict:
+    n = {"dtoh": 0, "htod": 0, "quantizer": 0}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("Memcpy DtoH"):
+            n["dtoh"] += 1
+        elif name.startswith("Memcpy HtoD"):
+            n["htod"] += 1
+        elif "CUDA" in str(e.device_type()) and _kind(name) == "quantizer":
+            n["quantizer"] += 1
+    return n
+
+
+def lifecycle_run(argv, run_dir, qk, fa, window_round=None):
+    """``fedtorch_tpu_torch.cli.main`` in this process on ``argv +
+    --run_dir run_dir``: the results, the kernel launches (counters set
+    to 0 just before), each round's :func:`leaf_hashes`, the wall, and
+    (``window_round``) what that round's loop body, from the end of the
+    round before to the end of its own, copied and synchronized: the
+    profiler's memcpy and quantizer records, and the synchronizing CUDA
+    calls PyTorch's sync debug mode reports (one warning each, counted
+    on the host: lossless, where the profiler can lose records)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedtorch_tpu_torch import cli
+    hashes, window, live = [], {}, []
+
+    def callback(r, trainer, server, clients, metrics):
+        if live:
+            torch.cuda.synchronize()
+            prof, caught, seen = live.pop()
+            torch.cuda.set_sync_debug_mode(0)
+            caught.__exit__(None, None, None)
+            prof.stop()
+            window.update(_d2h_count(prof), round=r, syncs=sum(
+                "synchronizing CUDA operation" in str(w.message)
+                for w in seen))
+        hashes.append(leaf_hashes(server.params, server.rng.get_state()))
+        if window_round is not None and r + 1 == window_round:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            caught = warnings.catch_warnings(record=True)
+            seen = caught.__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            live.append((prof, caught, seen))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counters(qk, fa)
+    t0 = time.perf_counter()
+    res = cli.main(argv + ["--run_dir", run_dir], round_callback=callback)
+    wall = time.perf_counter() - t0
+    return res, counters(qk, fa), hashes, wall, window
+
+
+def _rows(run_dir, name="metrics.jsonl"):
+    from fedtorch_tpu_torch.telemetry import load_jsonl
+    return load_jsonl(os.path.join(run_dir, name))[1]
+
+
+def lifecycle_drill(root, name, extra, want, qk):
+    """The kill drill (``fedtorch_tpu_torch/tools/kill_drill.py``): ``python
+    -m fedtorch_tpu_torch.cli`` on ``lifecycle_argv`` + ``extra`` under
+    the port's ``ElasticRunner``, SIGTERM once it logged round index 1,
+    the relaunch with ``--resume``; exit codes [75, 0], every round's
+    keep (all kept) bitwise ``want``, the resumed process's 2 + 2 ragged
+    launches a round (its ``kernels.launches`` event), and the kernel
+    library not rebuilt. The children get cuDNN's deterministic mode, as
+    this process has it for the phase, from a ``sitecustomize`` on their
+    path."""
+    from fedtorch_tpu_torch.ops.cuda import build
+    from fedtorch_tpu_torch.tools.kill_drill import kill_drill
+    run_dir = os.path.join(root, name)
+    site = os.path.join(root, "site")
+    os.makedirs(site, exist_ok=True)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write("import torch\ntorch.backends.cudnn.deterministic = True\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [site, os.path.dirname(os.path.abspath(__file__)),
+         env.get("PYTHONPATH", "")])
+    cmd = [sys.executable, "-m", "fedtorch_tpu_torch.cli"] + lifecycle_argv(
+        root, rounds=LIFECYCLE_DRILL_ROUNDS,
+        extra=list(extra) + ["--checkpoint_keep_last_n", "0", "--debug",
+                             "true", "--run_dir", run_dir])
+    libs = {p.name: p.stat().st_mtime_ns
+            for p in build.BUILD_DIR.glob("*.so")}
+    out = kill_drill(cmd, run_dir, kill_after=1, timeout_s=300, env=env)
+    rebuilt = {p.name: p.stat().st_mtime_ns
+               for p in build.BUILD_DIR.glob("*.so")} != libs
+    got = keep_hashes(run_dir)
+    diff = first_difference(got, {r: want[r] for r in range(
+        1, LIFECYCLE_DRILL_ROUNDS + 1)})
+    events = _rows(run_dir, "events.jsonl")
+    resumed = [e for e in events if e.get("event") == "kernels.launches"]
+    last = resumed[-1] if resumed else {}
+    per_round = {k: last.get(k, 0) / max(last.get("rounds", 0), 1)
+                 for k in ("ragged_stats", "ragged_apply")}
+    res = dict(rcs=out["rcs"], harness_rc=out["rc"],
+               killed_after_round_index=out["killed_after"],
+               seconds=out["seconds"], keeps=sorted(got),
+               first_difference=diff, resumed_rounds=last.get("rounds"),
+               resumed_launches_per_round=per_round,
+               kernel_library_rebuilt=rebuilt)
+    log(f"lifecycle {name}: exit codes {out['rcs']} in "
+        f"{out['seconds']:.1f} s; keeps {sorted(got)}, first difference "
+        f"{diff}; the resumed process ran {last.get('rounds')} round(s) "
+        f"at {per_round} ragged launches a round")
+    if out["rcs"] != [75, 0] or diff is not None \
+            or last.get("rounds", 0) < 1 \
+            or per_round != {"ragged_stats": 2.0, "ragged_apply": 2.0} \
+            or rebuilt or out["killed_after"] != 1:
+        tail = "\n".join(ln for lines in out["outputs"]
+                         for ln in lines[-15:])
+        raise AssertionError(f"lifecycle {name}: {res}\n{tail}\n"
+                             + "\n".join(out["harness_log"]))
+    return res
+
+
+def lifecycle_supervisor(seed, tcfg, define_model, make_algorithm,
+                         stack_partitions, FederatedTrainer, data):
+    """``LIFECYCLE_SUP`` (nan poison at 0.05, guards off, 2 retries) on
+    the main path's round under ``RoundSupervisor`` for
+    ``LIFECYCLE_SUP_ROUNDS`` rounds (more, up to
+    ``LIFECYCLE_SUP_MAX_ROUNDS``, until one rolled back): after every
+    rollback the restored
+    server (params, optimizer state, aux, round), every client tensor
+    and the generator are bitwise the pre-round state; the final params
+    finite. Then the round cut by ``TASK_CARD_CUT`` in float32 with nan
+    poison at ``LIFECYCLE_CUT_NAN_RATE``, ``LIFECYCLE_CUT_ROUNDS``
+    supervised rounds on the card and on the CPU: the same counts."""
+    from fedtorch_tpu_torch.core.state import tree_leaves
+    from fedtorch_tpu_torch.robustness.supervisor import RoundSupervisor
+    from fedtorch_tpu_torch.utils.diagnostics import check_finite
+
+    def supervised(cfg, d, device, rounds, checked=False):
+        model = define_model(cfg, device=device)
+        trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), d,
+                                   device=device)
+        sup = RoundSupervisor(trainer, sleep_fn=lambda s: None)
+        pre, restores = {}, []
+        if checked:
+            orig = sup._restore
+
+            def restore(snap, server, clients):
+                s, c = orig(snap, server, clients)
+                same = s.round == pre["round"] and torch.equal(
+                    s.rng.get_state(), pre["rng"]) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        tree_leaves((s.params, s.opt, s.aux, c)),
+                        pre["leaves"]))
+                restores.append(bool(same))
+                return s, c
+            sup._restore = restore
+        s, c = trainer.init_state(seed)
+        t0 = time.perf_counter()
+        # a checked drill goes on past ``rounds`` until a rollback came
+        # (up to LIFECYCLE_SUP_MAX_ROUNDS): the check must have run
+        while s.round < rounds or (checked and not sup.stats.rollbacks
+                                   and s.round < LIFECYCLE_SUP_MAX_ROUNDS):
+            if checked:
+                pre.update(round=s.round, rng=s.rng.get_state(),
+                           leaves=[t.clone() for t in tree_leaves(
+                               (s.params, s.opt, s.aux, c))])
+            s, c, _ = sup.run_round(s, c)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        st = sup.stats
+        counts = dict(rounds=s.round, rollbacks=st.rollbacks,
+                      retries=st.retries, skipped=st.skipped_rounds,
+                      healthy=st.healthy_rounds)
+        return counts, restores, check_finite(s.params), \
+            time.perf_counter() - t0
+
+    cfg = faults_config(tcfg, LIFECYCLE_SUP)
+    counts, restores, finite, sup_s = supervised(
+        cfg, data, "cuda", LIFECYCLE_SUP_ROUNDS, checked=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = cut_config(faults_config(tcfg, dict(
+        LIFECYCLE_SUP, nan_inject_rate=LIFECYCLE_CUT_NAN_RATE),
+        dtype="float32"), **TASK_CARD_CUT)
+    small = _first(data, cut.federated.num_clients)
+    cut_counts = {dev: supervised(cut, small, dev, LIFECYCLE_CUT_ROUNDS)[0]
+                  for dev in ("cuda", "cpu")}
+    out = dict(config=LIFECYCLE_SUP, rounds=LIFECYCLE_SUP_ROUNDS,
+               rounds_run=counts["rounds"], counts=counts,
+               restores_bitwise=restores,
+               final_params_finite=finite, seconds=sup_s,
+               cut=dict(TASK_CARD_CUT, nan_inject_rate=LIFECYCLE_CUT_NAN_RATE,
+                        rounds=LIFECYCLE_CUT_ROUNDS),
+               cut_counts=cut_counts)
+    log(f"lifecycle supervisor: {counts} over {counts['rounds']} rounds "
+        f"in {sup_s:.1f} s, restores bitwise {restores}, final params "
+        f"finite {finite}; cut round card {cut_counts['cuda']} vs CPU "
+        f"{cut_counts['cpu']}")
+    if not restores or not all(restores) \
+            or len(restores) != counts["rollbacks"] or not finite \
+            or cut_counts["cuda"] != cut_counts["cpu"]:
+        raise AssertionError(f"lifecycle supervisor: {out}")
+    return out
+
+
+def lifecycle_stream_and_supervisor(root, seed, tcfg, define_model,
+                                    make_algorithm, stack_partitions,
+                                    FederatedTrainer, qk, fa, want,
+                                    want_launch, out, lap):
+    """The lifecycle phase's in-process runs beside the kill drills: the
+    stream plane's telemetry pair and chaos run, then the supervisor
+    drill (:func:`lifecycle_phase`); fills ``out``."""
+    # -- the stream plane without saves: telemetry default and off (round
+    # index 1 watched: equal synchronizing calls, the profiled memcpys
+    # beside them), then stream.gather faults bitwise the fault-free
+    # (default) run
+    runs = {}
+    for name, extra in (
+            ("stream_default", ("--telemetry", "default")),
+            ("stream_off", ("--telemetry", "off")),
+            ("stream_chaos", LIFECYCLE_CHAOS)):
+        argv = lifecycle_argv(
+            root, rounds=LIFECYCLE_STREAM_ROUNDS,
+            extra=["--data_plane", "stream", "--eval_freq", "1000",
+                   *extra])
+        run_dir = os.path.join(root, name)
+        res, launched, hashes, wall, window = lifecycle_run(
+            argv, run_dir, qk, fa,
+            window_round=None if name == "stream_chaos" else 1)
+        runs[name] = hashes
+        out[name] = dict(
+            wall_s=wall, launches=launched, window=window,
+            round_ms=res["timer"]["round"]
+            / LIFECYCLE_STREAM_ROUNDS * 1e3,
+            host_recovery=res.get("host_recovery"))
+        if name != "stream_off":
+            last = _rows(run_dir)[-1]
+            out[name].update(
+                stream_wait_s=last["stream_wait_s"],
+                stream_gather_s=last["stream_gather_s"],
+                stream_rebuilds=last["stream_rebuilds"],
+                host_retries=last["host_retries"])
+        if launched != {k: v * LIFECYCLE_STREAM_ROUNDS
+                        for k, v in want_launch.items()}:
+            raise AssertionError(f"lifecycle {name}: {out[name]}")
+    lap("stream")
+    on, off = (out[n]["window"] for n in ("stream_default",
+                                          "stream_off"))
+    out["telemetry"] = dict(
+        syncs_default=on["syncs"], syncs_off=off["syncs"],
+        profiled_dtoh_default=on["dtoh"],
+        profiled_dtoh_off=off["dtoh"],
+        profiled_quantizer=[on["quantizer"], off["quantizer"]],
+        stream_bitwise_reference=runs["stream_default"]
+        == [want[r + 1] for r in range(LIFECYCLE_STREAM_ROUNDS)])
+    if on["syncs"] != off["syncs"]:
+        raise AssertionError(f"lifecycle telemetry: {out['telemetry']}")
+    rec = out["stream_chaos"]["host_recovery"] or {}
+    if runs["stream_chaos"][-1] != runs["stream_default"][-1] \
+            or rec.get("host_retries", 0) < 1:
+        raise AssertionError(
+            f"lifecycle stream chaos: {out['stream_chaos']}, "
+            "difference "
+            f"{first_difference({0: runs['stream_chaos'][-1]}, {0: runs['stream_default'][-1]})}")
+    # -- the supervisor, on the main path's synthetic data
+    cfg = faults_config(tcfg, LIFECYCLE_SUP)
+    data = path_data(cfg, seed, stack_partitions)
+    out["supervisor"] = lifecycle_supervisor(
+        seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, data)
+    lap("supervisor")
+
+
+def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer, qk, fa):
+    """The run lifecycle on the ResNet-20 main path's round (quantized
+    int8 both ways, 100 clients, k = 10, batch 50, 10 local steps) from
+    CIFAR-10 files written from ``seed``, through the CLI, cuDNN
+    deterministic:
+
+    * ``reference``: ``LIFECYCLE_ROUNDS`` rounds, an evaluation, a
+      checkpoint and a keep every round (the newest 2 kept), telemetry at
+      its default; each round's server params and generator hashed; 2 +
+      2 ragged launches a round; every metrics row valid, one a round,
+      the final health intent ``complete``; the checkpoint's size and the
+      sync save's ms. Run three times on the device plane, one after
+      another: ``reference_off`` (no evaluations and so no saves),
+      ``reference_sync`` and ``reference_async`` (``--async_checkpoint``),
+      each bitwise the others round by round, the async keeps bitwise the
+      sync ones; their round ms (the timer's round, saves outside it) and
+      the loop's checkpoint ms a round (the save call in the loop; the
+      async writer's final flush apart) side by side.
+    * ``stream_default``, ``stream_off``: ``LIFECYCLE_STREAM_ROUNDS``
+      rounds on the stream plane without evaluations or saves at
+      ``--telemetry default`` and ``off``, round index 1's loop body
+      watched: the same count of synchronizing CUDA calls (sync debug
+      mode, every device-to-host copy that waits among them), and the
+      profiler's memcpy records beside it (reported: its records can be
+      lost).
+    * ``torn``: the reference run directory copied, its newest keep and
+      its checkpoint torn through the ``ckpt.torn`` seam; ``--resume``
+      takes the previous valid keep, names both skipped files, and its
+      round is bitwise the reference's; its resume ms.
+    * ``drill_sync`` and ``drill_async``: the kill drill
+      (:func:`lifecycle_drill`), with sync and with ``--async_checkpoint``
+      saves, beside this process's stream and supervisor runs (their
+      round ms are not comparable and not reported).
+    * ``supervisor``: :func:`lifecycle_supervisor`.
+    * ``stream_chaos``: the same rounds with ``stream.gather`` faults
+      (``LIFECYCLE_CHAOS``): params and generator bitwise
+      ``stream_default``'s, retries counted, the consumer's wait
+      reported.
+    """
+    import shutil
+    import tempfile
+    import warnings
+
+    from fedtorch_tpu_torch.robustness import host_chaos
+    from fedtorch_tpu_torch.telemetry import read_health, validate_metrics_row
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"laps_s": {}}
+
+    def lap(name):
+        out["laps_s"][name] = time.perf_counter() - t_phase
+        log(f"lifecycle: {name} done at {out['laps_s'][name]:.1f} s")
+    R = LIFECYCLE_ROUNDS
+    want_launch = dict(ragged_stats=2, ragged_apply=2, stats=0, apply=0,
+                       flash=0, flash_tc=0, flash_tf32=0)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            write_cifar10(root, seed)
+            # -- the reference: saves off, sync and async, in this
+            # process on the device plane, one after another
+            refs, want = {}, None
+            for name, extra in (
+                    ("reference_off", ("--eval_freq", "1000")),
+                    ("reference_sync", ()),
+                    ("reference_async", ("--async_checkpoint",))):
+                run_dir = os.path.join(root, name)
+                res, launched, hashes, wall, _ = lifecycle_run(
+                    lifecycle_argv(root, extra=extra), run_dir, qk, fa)
+                rows = _rows(run_dir)
+                for row in rows:
+                    validate_metrics_row(row)
+                health = read_health(run_dir)
+                saves = [r.get("checkpoint_s", 0.0) * 1e3 for r in rows]
+                refs[name] = dict(
+                    rounds=res["rounds"], wall_s=wall, launches=launched,
+                    round_ms=res["timer"]["round"] / R * 1e3,
+                    round_ms_each=[r["round_s"] * 1e3 for r in rows],
+                    round_ms_median=statistics.median(
+                        r["round_s"] for r in rows) * 1e3,
+                    save_ms=saves, checkpoint_ms=statistics.mean(saves),
+                    final_flush_ms=res["timer"].get("checkpoint", 0.0)
+                    * 1e3 - sum(saves),
+                    eval_ms=res["timer"].get("eval", 0.0) / R * 1e3,
+                    rows=len(rows), health=health["intent"],
+                    keeps=sorted(keep_hashes(run_dir)))
+                refs[name]["loop_ms"] = refs[name]["round_ms"] \
+                    + refs[name]["checkpoint_ms"]
+                if name != "reference_off":
+                    refs[name]["ckpt_mb"] = os.path.getsize(os.path.join(
+                        run_dir, "checkpoint.ckpt")) / 1e6
+                got = {r + 1: h for r, h in enumerate(hashes)}
+                if want is None:
+                    want = got
+                if launched != {k: v * R for k, v in want_launch.items()} \
+                        or [r["round"] for r in rows] != list(range(R)) \
+                        or health["intent"] != "complete" \
+                        or res["rounds"] != R:
+                    raise AssertionError(f"lifecycle {name}: {refs[name]}")
+                if got != want:
+                    raise AssertionError(
+                        f"lifecycle {name}: its rounds differ from "
+                        f"reference_off's: {first_difference(got, want)}")
+                if name != "reference_off" and keep_hashes(run_dir) \
+                        != {r: want[r] for r in (R - 1, R)}:
+                    raise AssertionError(
+                        f"lifecycle {name}: its keeps differ from its "
+                        f"rounds: "
+                        f"{first_difference(keep_hashes(run_dir), want)}")
+            out["reference"] = refs
+            lap("reference")
+            # -- a torn newest keep: resume takes the previous valid one
+            torn_dir = os.path.join(root, "torn")
+            shutil.copytree(os.path.join(root, "reference_sync"), torn_dir)
+            inj = host_chaos.HostFaultInjector(("ckpt.torn",),
+                                               rate=1.0).install()
+            try:
+                for fname in ("checkpoint.ckpt", f"checkpoint_r{R}.ckpt"):
+                    path = os.path.join(torn_dir, fname)
+                    with open(path, "rb") as f:
+                        blob = host_chaos.maybe_truncate("ckpt.torn",
+                                                         f.read())
+                    with open(path, "wb") as f:
+                        f.write(blob)
+            finally:
+                inj.uninstall()
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                res, launched, hashes, _, _ = lifecycle_run(
+                    lifecycle_argv(root, extra=["--resume", torn_dir]),
+                    torn_dir, qk, fa)
+            said = " ".join(str(w.message) for w in seen)
+            named = [f for f in ("checkpoint.ckpt", f"checkpoint_r{R}.ckpt",
+                                 f"checkpoint_r{R - 1}.ckpt")
+                     if f in said]
+            out["torn"] = dict(
+                warning=said[:400], named=named, rounds_run=len(hashes),
+                resume_ms=res["timer"]["resume"] * 1e3,
+                launches=launched)
+            lap("torn")
+            if len(named) != 3 or len(hashes) != 1 \
+                    or hashes[0] != want[R]:
+                raise AssertionError(f"lifecycle torn: {out['torn']}")
+            # -- the kill drills: their children run beside this process's
+            # stream and supervisor runs (a drill waits on its children;
+            # the card and the host cores have room for three processes)
+            drills = {}
+
+            def drill(name, extra):
+                try:
+                    drills[name] = lifecycle_drill(root, name, extra, want,
+                                                   qk)
+                except BaseException as e:  # re-raised after the join
+                    drills[name] = e
+
+            threads = [threading.Thread(target=drill, args=a,
+                                        name=f"lifecycle-{a[0]}")
+                       for a in (("drill_sync", ()),
+                                 ("drill_async", ("--async_checkpoint",)))]
+            for t in threads:
+                t.start()
+            try:
+                lifecycle_stream_and_supervisor(
+                    root, seed, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer, qk, fa, want,
+                    want_launch, out, lap)
+            finally:
+                for t in threads:
+                    t.join(600)
+            for name in ("drill_sync", "drill_async"):
+                if isinstance(drills.get(name), BaseException):
+                    raise drills[name]
+                out[name] = drills[name]
+                rows = _rows(os.path.join(root, name))
+                out[name]["last_row_ckpt"] = {
+                    k: v for k, v in rows[-1].items()
+                    if k.startswith("ckpt_")}
+            lap("drills")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = out["reference"]
+    writers = (("saves_off", "reference_off"), ("sync", "reference_sync"),
+               ("async", "reference_async"))
+    out.update(
+        ckpt_mb=ref["reference_sync"]["ckpt_mb"],
+        save_ms=ref["reference_sync"]["checkpoint_ms"],
+        resume_ms=out["torn"]["resume_ms"],
+        round_ms={w: ref[n]["round_ms"] for w, n in writers},
+        round_ms_median={w: ref[n]["round_ms_median"] for w, n in writers},
+        checkpoint_ms={w: ref[n]["checkpoint_ms"] for w, n in writers},
+        loop_ms={w: ref[n]["loop_ms"] for w, n in writers},
+        cudnn_deterministic=True, phase_s=time.perf_counter() - t_phase,
+        budget_s=LIFECYCLE_BUDGET_S)
+    log(f"lifecycle phase: {out['phase_s']:.1f} s; checkpoint "
+        f"{out['ckpt_mb']:.1f} MB, sync save {out['save_ms']:.1f} ms, resume "
+        f"{out['resume_ms']:.1f} ms; round ms "
+        f"{out['round_ms']} (medians {out['round_ms_median']}); the loop's "
+        "checkpoint ms "
+        f"{out['checkpoint_ms']}; round + checkpoint ms {out['loop_ms']}")
+    if out["phase_s"] > LIFECYCLE_BUDGET_S:
+        log(json.dumps(out))
+        raise AssertionError(f"lifecycle phase took {out['phase_s']:.1f} s, "
+                             f"over its {LIFECYCLE_BUDGET_S} s budget")
+    return out
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -3770,6 +4351,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("lifecycle")
+    lifecycle = lifecycle_phase(args.seed, tcfg, define_model, make_algorithm,
+                                stack_partitions, FederatedTrainer, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -3904,6 +4491,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tasks": tasks, "card": card}))
     print(json.dumps({"models": models, "card": card}))
     print(json.dumps({"faults": faults, "card": card}))
+    print(json.dumps({"lifecycle": lifecycle, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

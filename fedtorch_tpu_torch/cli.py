@@ -50,17 +50,38 @@ the robust rules (``--robust_agg``, ``--robust_trim_frac``,
 ``--fault_byzantine_mode``, ``--fault_byzantine_scale``), the
 availability lifecycle (``--avail_model``, ``--avail_dropout_rate``,
 ``--avail_diurnal_period``, ``--over_select_frac``,
-``--avail_quorum_frac``; ``--avail_quorum_action abort`` needs the
-supervisor, ROADMAP A7) and DP-FedAvg (``--dp_noise_multiplier``,
+``--avail_quorum_frac``, ``--avail_quorum_action``, whose ``abort``
+needs ``--supervisor``) and DP-FedAvg (``--dp_noise_multiplier``,
 ``--dp_clip_norm``, ``--dp_delta``) run in the round. A round with a
 fault logs the JAX CLI's ``faults`` line, and a round that aggregated
 nothing its all-rejected line. With DP armed an in-memory RDP
 accountant charges each round at ``q = min(1, k_online / C)``, and
 ``--dp_epsilon_budget`` with ``--dp_budget_action`` stops the run at
 the last affordable round or degrades it to noise-free rounds;
-``results["dp"]`` reports the spend. The JAX run writes checkpoints,
-telemetry rows and the accountant's file; the port writes none of them
-yet, and logs one line saying so.
+``results["dp"]`` reports the spend.
+
+The run lifecycle is the JAX package's (its ``cli.py:700-1000,
+1180-1200``). The run directory (``--run_dir`` exactly, else a
+hyperparam-encoding directory under ``-c``) holds the log (``record0``),
+``metrics.jsonl`` (one schema-versioned row a round, from the round's
+one batched fetch: telemetry adds no device-to-host sync),
+``events.jsonl``, ``health.json``, ``trace.json`` (``--telemetry
+off|default|debug``), the accountant's ``privacy_accountant.json`` (DP
+armed, saved before each checkpoint) and, at every evaluation, a
+checkpoint (``checkpoint.ckpt`` + ``checkpoint.json``, ``model_best.*``,
+per-round keeps with ``--save_all_models`` / ``--save_some_models`` and
+``--checkpoint_keep_last_n``; ``--async_checkpoint`` writes them on a
+thread). ``--resume DIR`` (``--checkpoint_index N``) continues a run
+bitwise. ``--supervisor`` rolls a diverged round back and retries it;
+``--host_fault_*`` arm the seeded host-plane chaos and ``--host_retry_*``
+its recovery; ``--watchdog_timeout_s`` exits 75 when no round completes;
+``--check_model_at_sync`` and ``--track_model_aggregation`` log the
+server model's norms and the aggregation's cosine. SIGTERM, SIGINT or
+SIGUSR1 drain the run at the next round boundary: a final checkpoint,
+``results["preempted"]``, and :func:`main` exits with 75, which the
+``supervise`` subcommand (``robustness/harness.py``) relaunches with
+``--resume``. A port run does not yet write the client ledger, the
+anomaly events or the stream overlap gauge (ROADMAP A7, second half).
 
 Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
@@ -85,7 +106,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import torch
@@ -96,10 +116,11 @@ from fedtorch_tpu_torch.config import (
     FederatedConfig, LRConfig, MeshConfig, ModelConfig, OptimConfig,
     TelemetryConfig, TrainConfig,
 )
+from fedtorch_tpu_torch.robustness.preemption import RESTART_EXIT_CODE
 
-# the JAX package's subcommands (``fedtorch-tpu lint ...``)
-SUBCOMMANDS = ("lint", "audit", "report", "watch", "compare", "runs",
-               "supervise")
+# the JAX package's subcommands (``fedtorch-tpu lint ...``) that the port
+# does not run; ``supervise`` runs (robustness/harness.py)
+SUBCOMMANDS = ("lint", "audit", "report", "watch", "compare", "runs")
 
 
 def str2bool(v) -> bool:
@@ -509,29 +530,6 @@ _unported("federated", "the async plane (ROADMAP A8)", {
     "staleness_weight": "staleness_weight",
     "staleness_exponent": "staleness_exponent",
     "snapshot_ring": "snapshot_ring"})
-_unported("checkpoint", "checkpoints and resuming (ROADMAP A7)", {
-    "resume": "resume", "checkpoint_index": "checkpoint_index",
-    "save_all_models": "save_all_models",
-    "save_some_models": "save_some_models",
-    "checkpoint_keep_last_n": "keep_last_n",
-    "async_checkpoint": "async_save"})
-_unported("checkpoint", "the model diagnostics of utils/diagnostics.py "
-          "(ROADMAP A7)", {"check_model_at_sync": "check_model_at_sync",
-                           "track_model_aggregation":
-                               "track_model_aggregation"})
-_unported("fault", "the round supervisor (ROADMAP A7)", {
-    "supervisor": "supervisor", "supervisor_loss_blowup": "loss_blowup_factor",
-    "supervisor_max_retries": "max_retries",
-    "supervisor_backoff_base": "backoff_base_s"})
-_unported("fault", "host-plane chaos and recovery (ROADMAP A7)", {
-    "host_fault_seams": "host_fault_seams",
-    "host_fault_rate": "host_fault_rate",
-    "host_fault_seed": "host_fault_seed",
-    "host_fault_delay_s": "host_fault_delay_s",
-    "host_fault_max": "host_fault_max", "host_retry_max": "host_retry_max",
-    "host_retry_backoff_s": "host_retry_backoff_s"})
-_unported("fault", "the stall watchdog (ROADMAP A7)",
-          {"watchdog_timeout_s": "watchdog_timeout_s"})
 _unported("mesh", "multi-device and multi-host runs (ROADMAP A10)", {
     "num_devices": "num_devices",
     "coordinator_address": "coordinator_address",
@@ -539,12 +537,14 @@ _unported("mesh", "multi-device and multi-host runs (ROADMAP A10)", {
     "client_shards": "client_shards"})
 _unported("mesh", "XLA's scan unrolling, which has no eager-torch "
           "counterpart", {"scan_unroll": "scan_unroll"})
-_unported("telemetry", "run telemetry (ROADMAP A7)", {
-    "telemetry": "level",
-    "cost_capture_scan_rounds": "cost_capture_scan_rounds",
-    "cohort_stats": "cohort_stats",
-    "ledger_sketch_budget": "ledger_sketch_budget",
-    "anomaly_zscore": "anomaly_zscore"})
+_unported("telemetry", "XLA's cost analysis, which has no torch port",
+          {"cost_capture_scan_rounds": "cost_capture_scan_rounds"})
+_unported("telemetry", "the federation plane's observers: cohort "
+          "statistics, the client ledger and the anomaly detector "
+          "(ROADMAP A7, second half)", {
+              "cohort_stats": "cohort_stats",
+              "ledger_sketch_budget": "ledger_sketch_budget",
+              "anomaly_zscore": "anomaly_zscore"})
 
 
 def refused_flags(cfg: ExperimentConfig) -> list:
@@ -556,6 +556,11 @@ def refused_flags(cfg: ExperimentConfig) -> list:
         value = getattr(getattr(cfg, section), field)
         if value != getattr(getattr(default, section), field):
             out.append(f"--{flag} {value!r}: {what}")
+    from fedtorch_tpu_torch.robustness.host_chaos import UNPORTED_SEAMS
+    for seam in cfg.fault.host_fault_seam_tuple:
+        if seam in UNPORTED_SEAMS:
+            out.append(f"--host_fault_seams {seam!r}: "
+                       f"{UNPORTED_SEAMS[seam]}")
     if cfg.mesh.client_fusion == "fused":
         out.append("--client_fusion 'fused': client fusion (ROADMAP A9)")
     if cfg.mesh.backend not in (None, "cpu", "cuda", "gpu"):
@@ -564,28 +569,16 @@ def refused_flags(cfg: ExperimentConfig) -> list:
     return out
 
 
-def init_run_dir(cfg: ExperimentConfig) -> str:
-    """The run directory the JAX package's ``init_checkpoint_dir`` makes
-    (checkpoint.py:12-45's hyperparam-encoding name), which holds the
-    run's log (``record0``): ``--run_dir`` exactly, else
-    ``<checkpoint>/<dataset>/<arch>/<time>_l2-..._lr-..._...``."""
-    if cfg.checkpoint.run_dir:
-        os.makedirs(cfg.checkpoint.run_dir, exist_ok=True)
-        return cfg.checkpoint.run_dir
-    fed = cfg.federated
-    parts = [time.strftime("%Y-%m-%d_%H-%M-%S"),
-             f"l2-{cfg.optim.weight_decay}", f"lr-{cfg.optim.lr}",
-             f"momentum-{cfg.optim.in_momentum_factor}",
-             f"batchsize-{cfg.data.batch_size}",
-             f"arch-{cfg.model.arch}", f"data-{cfg.data.dataset}"]
-    if fed.federated:
-        parts += [f"alg-{cfg.effective_algorithm}",
-                  f"clients-{fed.num_clients}",
-                  f"rate-{fed.online_client_rate}"]
-    root = os.path.join(cfg.checkpoint.checkpoint_dir, cfg.data.dataset,
-                        cfg.model.arch, "_".join(parts))
-    os.makedirs(root, exist_ok=True)
-    return root
+def _launch_counts() -> dict:
+    """The hand kernels' launch counters (host ints the wrappers keep)."""
+    from fedtorch_tpu_torch.ops.cuda import flash_attention as fa
+    from fedtorch_tpu_torch.ops.cuda import quant_kernel as qk
+    return dict(ragged_stats=qk.ragged_stats_launches,
+                ragged_apply=qk.ragged_apply_launches,
+                tiled_stats=qk.stats_launches,
+                tiled_apply=qk.apply_launches,
+                flash_tc=fa.flash_tc_launches,
+                flash_tf32=fa.flash_tf32_launches)
 
 
 def run_experiment(cfg: ExperimentConfig, download: bool = False,
@@ -593,7 +586,14 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     """The synchronous federated driver loop (federated/main.py:56-211;
     the JAX package's ``run_experiment``), or local-SGD mode without
     ``--federated``. ``round_callback(r, trainer, server, clients,
-    metrics)`` (optional) fires after every federated round."""
+    metrics)`` (optional) fires after every completed federated round.
+
+    Process lifecycle: SIGTERM/SIGINT/SIGUSR1 request a drain — the loop
+    finishes the round in flight (its CUDA work synchronized), writes a
+    final checkpoint after any in-flight async write, and the result
+    carries ``preempted=True`` (:func:`main` turns that into exit code
+    75). ``fault.watchdog_timeout_s > 0`` arms a stall watchdog that
+    exits 75 from its own thread when no round completes in time."""
     from fedtorch_tpu_torch.algorithms import make_algorithm
     from fedtorch_tpu_torch.data import build_federated_data
     from fedtorch_tpu_torch.models import define_model
@@ -603,9 +603,23 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
         evaluate, evaluate_per_class, evaluate_personal,
     )
     from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
+    from fedtorch_tpu_torch.robustness import host_chaos, host_recovery
     from fedtorch_tpu_torch.robustness.guards import all_rejected_scalars
-    from fedtorch_tpu_torch.robustness.privacy import PrivacyAccountant
+    from fedtorch_tpu_torch.robustness.preemption import PreemptionHandler
+    from fedtorch_tpu_torch.robustness.privacy import (
+        ACCOUNTANT_FILE, PrivacyAccountant,
+    )
+    from fedtorch_tpu_torch.robustness.supervisor import RoundSupervisor
+    from fedtorch_tpu_torch.robustness.watchdog import StallWatchdog
+    from fedtorch_tpu_torch.telemetry import Telemetry
     from fedtorch_tpu_torch.utils import resolve_device
+    from fedtorch_tpu_torch.utils.checkpoint import (
+        AsyncCheckpointer, init_checkpoint_dir, maybe_resume,
+        save_checkpoint,
+    )
+    from fedtorch_tpu_torch.utils.diagnostics import (
+        aggregation_tracking, model_norms,
+    )
     from fedtorch_tpu_torch.utils.logging import RunLogger
     from fedtorch_tpu_torch.utils.meters import PhaseTimer
 
@@ -618,69 +632,170 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     # the CPU only when --backend cpu asks; else CUDA, which raises
     # without a card
     device = resolve_device("cpu" if cfg.mesh.backend == "cpu" else None)
-    run_dir = init_run_dir(cfg)
+    run_dir = init_checkpoint_dir(cfg)
     logger = RunLogger(run_dir, debug=cfg.checkpoint.debug)
     logger.log_args(cfg)
     logger.log(f"device: {device}"
                + (f" ({torch.cuda.get_device_name(device)})"
                   if device.type == "cuda" else ""))
-    logger.log("the port writes no checkpoints and no telemetry rows yet, "
-               "nor the privacy accountant's file (ROADMAP A7): this "
-               "run's record is this log")
+    logger.log("the port writes no client ledger, no anomaly events and "
+               "no stream overlap gauge yet (ROADMAP A7, second half)")
     timer = PhaseTimer()
-
-    timer.start("data")
-    fed_data = build_federated_data(cfg)
-    model = define_model(cfg, batch_size=cfg.data.batch_size, device=device)
-    timer.stop("data")
-
-    if not cfg.federated.federated:
-        # local-SGD mode: the workers' shards pooled back into one
-        # training set (padding rows included, as the JAX package pools
-        # them) and re-partitioned IID across the workers; a sequence
-        # model's [T] label rows stay rows (the JAX CLI flattens them
-        # into single labels and fails on them)
-        x, y = (t.numpy() for t in fed_data.train[:2])
-        trainer = build_local_sgd(cfg, model,
-                                  x.reshape((-1,) + x.shape[2:]),
-                                  y.reshape((-1,) + y.shape[2:]),
-                                  device=device)
-        server, _, history = trainer.fit(cfg.train.manual_seed)
-        loss, top1, top5 = (float(v) for v in evaluate(
-            model, server.params, fed_data.test_x, fed_data.test_y))
-        logger.log_val(len(history), "test", loss, top1, top5)
-        return {"test_top1": top1, "rounds": len(history)}
-
-    personal = cfg.federated.personal and fed_data.val is not None \
-        and cfg.effective_algorithm in PERSONALIZED_ALGORITHMS
-    trainer = FederatedTrainer(cfg, model, make_algorithm(cfg),
-                               fed_data.train, val_data=fed_data.val,
-                               device=device)
-    logger.log(f"data plane: {cfg.data.data_plane}"
-               + (f" ({cfg.data.store} store)"
-                  if cfg.data.data_plane == "stream" else ""))
-    server, clients = trainer.init_state(cfg.train.manual_seed)
-    results, best_prec1 = {"data_plane": cfg.data.data_plane}, 0.0
     flt = cfg.fault
-    # the privacy plane's accountant, charged each committed round at
-    # the run's participation probability (k_online of C)
-    accountant, dp_q, dp_degraded = None, 0.0, False
-    if flt.dp_armed:
-        accountant = PrivacyAccountant(flt.dp_noise_multiplier,
-                                       flt.dp_delta)
-        dp_q = min(1.0, trainer.k_online
-                   / float(cfg.federated.num_clients))
+
+    # run telemetry: metrics/events/health/trace in the run dir, every
+    # value a host counter or from the round's one batched fetch
+    tel = Telemetry(
+        run_dir, level=cfg.telemetry.level,
+        run_meta={"algorithm": cfg.effective_algorithm,
+                  "dataset": cfg.data.dataset, "arch": cfg.model.arch,
+                  "sync_mode": cfg.federated.sync_mode,
+                  "data_plane": cfg.data.data_plane,
+                  "num_clients": cfg.federated.num_clients,
+                  "num_comms": cfg.federated.num_comms,
+                  "experiment": cfg.experiment},
+        max_span_events=cfg.telemetry.max_span_events)
+    tel.install()
+    tel.health_update("starting")
+    # host-plane recovery is always installed (real host faults retry
+    # and count); the seeded injector only when seams are armed
+    recovery = host_recovery.HostRecovery(
+        policy=host_recovery.RetryPolicy(
+            max_retries=flt.host_retry_max,
+            backoff_base_s=flt.host_retry_backoff_s)).install()
+    injector = host_chaos.HostFaultInjector.from_config(flt)
+    if injector is not None:
+        injector.install()
+        logger.log("host chaos armed: seams="
+                   f"{','.join(sorted(injector.seams))} "
+                   f"rate={injector.rate} seed={injector.seed}")
+
+    def _uninstall_host_plane():
+        if injector is not None:
+            injector.uninstall()
+        recovery.uninstall()
+
+    launches_at_start = _launch_counts()
     try:
-        for r in range(cfg.federated.num_comms):
+        timer.start("data")
+        with tel.span("data.build"):
+            fed_data = build_federated_data(cfg)
+            model = define_model(cfg, batch_size=cfg.data.batch_size,
+                                 device=device)
+        timer.stop("data")
+
+        if not cfg.federated.federated:
+            # local-SGD mode: the workers' shards pooled back into one
+            # training set (padding rows included, as the JAX package
+            # pools them) and re-partitioned IID across the workers; a
+            # sequence model's [T] label rows stay rows
+            try:
+                x, y = (t.numpy() for t in fed_data.train[:2])
+                trainer = build_local_sgd(cfg, model,
+                                          x.reshape((-1,) + x.shape[2:]),
+                                          y.reshape((-1,) + y.shape[2:]),
+                                          device=device)
+                server, _, history = trainer.fit(cfg.train.manual_seed)
+                loss, top1, top5 = (float(v) for v in evaluate(
+                    model, server.params, fed_data.test_x,
+                    fed_data.test_y))
+                logger.log_val(len(history), "test", loss, top1, top5)
+                tel.health_update("complete", round_idx=len(history))
+            finally:
+                _uninstall_host_plane()
+                tel.close()
+            return {"test_top1": top1, "rounds": len(history)}
+
+        personal = cfg.federated.personal and fed_data.val is not None \
+            and cfg.effective_algorithm in PERSONALIZED_ALGORITHMS
+        trainer = FederatedTrainer(cfg, model, make_algorithm(cfg),
+                                   fed_data.train, val_data=fed_data.val,
+                                   device=device)
+        logger.log(f"data plane: {cfg.data.data_plane}"
+                   + (f" ({cfg.data.store} store)"
+                      if cfg.data.data_plane == "stream" else ""))
+        server, clients = trainer.init_state(cfg.train.manual_seed)
+        timer.start("resume")
+        server, clients, best_prec1, resumed = maybe_resume(
+            cfg.checkpoint.resume, server, clients, cfg,
+            cfg.checkpoint.checkpoint_index)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timer.stop("resume")
+        if resumed:
+            # a producer must start from the restored generator and round
+            trainer.invalidate_stream()
+            logger.log(f"resumed from round {server.round}")
+        save_rounds = tuple(
+            int(x) for x in cfg.checkpoint.save_some_models.split(","))
+        async_ckpt = AsyncCheckpointer() if cfg.checkpoint.async_save \
+            else None
+        saver = async_ckpt.save if async_ckpt is not None \
+            else save_checkpoint
+        supervisor = None
+        run_round = trainer.run_round
+        if flt.supervisor:
+            supervisor = RoundSupervisor(trainer, checkpoint_dir=run_dir,
+                                         logger=logger)
+            run_round = supervisor.run_round
+        # the privacy plane's accountant, charged each committed round
+        # at the run's participation probability (k_online of C); an
+        # elastic restart adopts the run dir's spend
+        accountant, dp_q = None, 0.0
+        if flt.dp_armed:
+            accountant = PrivacyAccountant(flt.dp_noise_multiplier,
+                                           flt.dp_delta)
+            dp_q = min(1.0, trainer.k_online
+                       / float(cfg.federated.num_clients))
+            if accountant.load_existing(run_dir):
+                logger.log(
+                    "privacy accountant: adopted existing "
+                    f"{ACCOUNTANT_FILE} (eps_spent="
+                    f"{accountant.epsilon():.4f} over "
+                    f"{accountant.charged_rounds} rounds)")
+        start_round = server.round
+        tel.event("run.start", start_round=start_round, resumed=resumed,
+                  num_comms=cfg.federated.num_comms)
+        # process lifecycle: the signal-driven drain and the watchdog
+        # (the timeout must exceed the first round's warm-up + eval +
+        # checkpoint)
+        preempt = PreemptionHandler(logger=logger)
+        preempt.install()
+        watchdog = StallWatchdog(flt.watchdog_timeout_s, logger=logger)
+        watchdog.start()
+    except BaseException:
+        tel.health_update("error")
+        _uninstall_host_plane()
+        tel.close()
+        raise
+
+    results = {"data_plane": cfg.data.data_plane}
+    loop_raised = False
+    byz_attack_seen = False
+    host_retries_seen = 0
+    quorum_streak = 0
+    dp_degraded = False
+    last_saved_round = None
+    lost_at_save = 0
+    rounds_run = 0
+    try:
+        for r in range(start_round, cfg.federated.num_comms):
             if accountant is not None and not dp_degraded \
                     and flt.dp_epsilon_budget > 0.0 \
                     and accountant.preview_epsilon(dp_q) \
                     > flt.dp_epsilon_budget:
                 # round r is not affordable: 'stop' ends the run at the
                 # last affordable round, 'degrade' goes on noise-free
+                spent = accountant.epsilon()
+                tel.event("privacy.budget_exhausted", round=r,
+                          action=flt.dp_budget_action,
+                          epsilon_spent=spent,
+                          epsilon_budget=flt.dp_epsilon_budget,
+                          delta=flt.dp_delta,
+                          charged_rounds=accountant.charged_rounds)
                 logger.log(
                     f"privacy budget exhausted before round {r}: "
-                    f"eps_spent={accountant.epsilon():.4f} of "
+                    f"eps_spent={spent:.4f} of "
                     f"{flt.dp_epsilon_budget} (action="
                     f"{flt.dp_budget_action})")
                 results["dp_exhausted"] = True
@@ -690,21 +805,46 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                 server = trainer.dp_set_noise_scale(server, 0.0)
                 dp_degraded = True
             timer.new_round()
+            prev_params = {n: v.detach().clone()
+                           for n, v in server.params.items()} \
+                if cfg.checkpoint.track_model_aggregation else None
             timer.start("round")
-            server, clients, metrics = trainer.run_round(server, clients)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with tel.span("round", round=r):
+                server, clients, metrics = run_round(server, clients)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
             round_time = timer.stop("round")
-            sc = trainer.round_host_scalars(clients, metrics)
+            rounds_run += 1
+            # the diagnostics ride the round's one batched fetch
+            extra = {}
+            if cfg.checkpoint.check_model_at_sync:
+                norms = model_norms(server.params)
+                extra.update(norm_l2=norms["l2"],
+                             norm_max_abs=norms["max_abs"])
+            if prev_params is not None:
+                tr = aggregation_tracking(prev_params, server.params)
+                extra.update(agg_cosine=tr["cosine"],
+                             agg_distance=tr["distance"])
+            fetch_t0 = time.perf_counter()
+            if supervisor is not None \
+                    and supervisor.last_scalars is not None:
+                # the supervisor's health check fetched the scalars
+                sc = dict(supervisor.last_scalars)
+                if extra:
+                    sc.update(zip(extra, torch.stack(
+                        [v.float() for v in extra.values()]).tolist()))
+            else:
+                with tel.span("scalar_fetch", round=r):
+                    sc = trainer.round_host_scalars(clients, metrics,
+                                                    extra=extra)
+            fetch_s = time.perf_counter() - fetch_t0
             timer.add_comm(num_bytes=sc["comm_bytes"])
+            # the fetch waited for the round: it completed
+            watchdog.heartbeat(r)
             if accountant is not None and not dp_degraded:
-                # noise-free rounds after a 'degrade' spend nothing
+                # noise-free rounds after a 'degrade' spend nothing;
+                # charge_round dedups by round index
                 accountant.charge_round(r, dp_q)
-            n_online = max(sc["n_online"], 1.0)
-            logger.log_train(r, sc["mean_epoch"], sc["loss_sum"] / n_online,
-                             sc["acc_sum"] / n_online, sc["lr"],
-                             comm_bytes=sc["comm_bytes"],
-                             round_time=round_time)
             if flt.chaos_enabled or flt.guard_updates:
                 if sc["dropped"] or sc["rejected"] or sc["clipped"] \
                         or sc["stragglers"] or sc["byzantine"]:
@@ -714,16 +854,43 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                                f"rejected={sc['rejected']:.0f} "
                                f"clipped={sc['clipped']:.0f} "
                                f"byzantine={sc['byzantine']:.0f}")
-                if all_rejected_scalars(sc):
+                if sc["byzantine"] and not byz_attack_seen:
+                    byz_attack_seen = True
+                    tel.event("chaos.byzantine_attack", round=r,
+                              mode=flt.byzantine_mode,
+                              rate=flt.byzantine_rate,
+                              scale=flt.byzantine_scale,
+                              robust_agg=flt.robust_agg)
+                if supervisor is None and all_rejected_scalars(sc):
                     logger.log(f"Round {r}: guards rejected EVERY "
                                "update — server held (renorm scale 0)")
+                    tel.event("guards.all_rejected", round=r,
+                              n_online=sc["n_online"],
+                              rejected=sc["rejected"],
+                              dropped=sc["dropped"])
+            if cfg.checkpoint.check_model_at_sync:
+                logger.log(f"Round {r}: server model l2="
+                           f"{sc['norm_l2']:.4f} "
+                           f"max|w|={sc['norm_max_abs']:.4f}")
+            if prev_params is not None:
+                logger.log(f"Round {r}: aggregation cosine="
+                           f"{sc['agg_cosine']:.6f} "
+                           f"distance={sc['agg_distance']:.6f}")
+            n_online = max(sc["n_online"], 1.0)
+            logger.log_train(r, sc["mean_epoch"], sc["loss_sum"] / n_online,
+                             sc["acc_sum"] / n_online, sc["lr"],
+                             comm_bytes=sc["comm_bytes"],
+                             round_time=round_time)
+
+            eval_s = checkpoint_s = None
             if (r + 1) % cfg.train.eval_freq == 0:
                 timer.start("eval")
-                res = [float(v) for v in evaluate(model, server.params,
-                                                  fed_data.test_x,
-                                                  fed_data.test_y)]
-                timer.stop("eval")
-                loss, top1, top5 = res
+                with tel.span("eval", round=r):
+                    loss, top1, top5 = (float(v) for v in evaluate(
+                        model, server.params, fed_data.test_x,
+                        fed_data.test_y))
+                eval_s = timer.stop("eval")
+                is_best = top1 > best_prec1
                 best_prec1 = max(best_prec1, top1)
                 logger.log_val(r, "test", loss, top1, top5, best=best_prec1)
                 if cfg.train.per_class_acc:
@@ -732,6 +899,20 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                         fed_data.test_y, num_classes_of(cfg.data.dataset))
                     logger.log("Round: {}. Per-class acc: {}".format(
                         r, [round(a, 4) for a in accs.tolist()]))
+                if accountant is not None:
+                    # spend through any resume point is durable first
+                    accountant.save(run_dir)
+                timer.start("checkpoint")
+                with tel.span("checkpoint", round=r):
+                    saver(run_dir, server, clients, cfg, best_prec1,
+                          is_best, save_all=cfg.checkpoint.save_all_models,
+                          save_some_rounds=save_rounds)
+                last_saved_round = r
+                # the drain compares against it to see THIS round's
+                # async write lost behind its back
+                lost_at_save = async_ckpt.lost_writes \
+                    if async_ckpt is not None else 0
+                checkpoint_s = timer.stop("checkpoint")
                 if personal:
                     # the personalized models on the clients' val rows
                     _, _, summary = evaluate_personal(
@@ -741,11 +922,153 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                                    summary["loss_mean"], summary["acc_mean"])
                 results["test_top1"] = top1
             results["rounds"] = r + 1
+
+            # one schema-versioned metrics row a round, from the fetched
+            # scalars and host counters only
+            row = {
+                "round": r, "round_s": round_time,
+                "loss": sc["loss_sum"] / n_online,
+                "acc": sc["acc_sum"] / n_online, "lr": sc["lr"],
+                "n_online": sc["n_online"],
+                "comm_bytes": sc["comm_bytes"],
+                "mean_epoch": sc["mean_epoch"], "fetch_s": fetch_s,
+                "dropped": sc["dropped"], "stragglers": sc["stragglers"],
+                "rejected": sc["rejected"], "clipped": sc["clipped"],
+                "staleness": sc["staleness"], "byzantine": sc["byzantine"],
+                "robust_selected": sc["robust_selected"],
+                "robust_trimmed": sc["robust_trimmed"],
+                "avail_dropped": sc["avail_dropped"],
+                "deadline_missed": sc["deadline_missed"],
+                "quorum_degraded": sc["quorum_degraded"],
+            }
+            if eval_s is not None:
+                row.update(eval_s=eval_s, test_top1=top1,
+                           best_top1=best_prec1)
+            if checkpoint_s is not None:
+                row["checkpoint_s"] = checkpoint_s
+            if "dp_clipped_frac" in sc:
+                row["dp_clipped_frac"] = sc["dp_clipped_frac"]
+                row["dp_noise_sigma"] = sc["dp_noise_sigma"]
+            if accountant is not None:
+                row["dp_epsilon_spent"] = accountant.epsilon()
+            row.update(trainer.telemetry_gauges())
+            if async_ckpt is not None:
+                row.update(async_ckpt.stats())
+            if supervisor is not None:
+                st = supervisor.stats
+                row.update(sup_rollbacks=float(st.rollbacks),
+                           sup_retries=float(st.retries),
+                           sup_skipped=float(st.skipped_rounds),
+                           sup_skipped_fault=float(st.skipped_fault),
+                           sup_skipped_quorum=float(st.skipped_quorum))
+            row.update(recovery.stats())
+            if injector is not None:
+                row.update(injector.stats())
+            tel.round_row(row)
+            if sc["quorum_degraded"] > 0:
+                tel.event("lifecycle.quorum_degraded", round=r,
+                          n_online=sc["n_online"],
+                          avail_dropped=sc["avail_dropped"],
+                          deadline_missed=sc["deadline_missed"])
+            # health: r + 1 rounds complete (checkpoint.json's "round"
+            # convention); the intent reflects the host plane's state
+            host_retries_now = recovery.total_retries()
+            quorum_streak = quorum_streak + 1 \
+                if sc["quorum_degraded"] > 0 else 0
+            if recovery.degraded or quorum_streak >= 3 or dp_degraded:
+                intent = "degraded"
+            elif host_retries_now > host_retries_seen:
+                intent = "recovering"
+            else:
+                intent = "running"
+            host_retries_seen = host_retries_now
+            tel.health_update(intent, round_idx=r + 1,
+                              staleness=sc["staleness"])
+
             if round_callback is not None:
                 round_callback(r, trainer, server, clients, metrics)
+            if preempt.stop_requested:
+                # drain at the round boundary (the round's CUDA work has
+                # finished above): a final checkpoint, then the
+                # restartable exit. The watchdog disarms first: a slow
+                # final write must not read as a stall.
+                watchdog.stop()
+                reason = preempt.reason or "request_stop"
+                logger.log(f"preemption: stop requested ({reason}); "
+                           f"draining after round {r}")
+                tel.event("preempt.drain", round=r, reason=reason)
+                tel.health_update("drain", round_idx=r + 1)
+                # the resume point must be DURABLE before exit 75: when
+                # this round's eval already saved, drain the async queue
+                # and redo the write only if that queued write was lost
+                final_ckpt_needed = last_saved_round != r
+                if not final_ckpt_needed and async_ckpt is not None:
+                    async_ckpt.wait()
+                    final_ckpt_needed = \
+                        async_ckpt.lost_writes > lost_at_save
+                    if final_ckpt_needed:
+                        logger.log("preemption: this round's async "
+                                   "checkpoint was lost — rewriting "
+                                   "synchronously before exit")
+                if final_ckpt_needed:
+                    timer.start("checkpoint")
+                    with tel.span("checkpoint", round=r, drain=True):
+                        if async_ckpt is not None:
+                            # an older queued write must not land after
+                            # the final one
+                            async_ckpt.wait()
+                        save_checkpoint(
+                            run_dir, server, clients, cfg, best_prec1,
+                            False, save_all=cfg.checkpoint.save_all_models,
+                            save_some_rounds=save_rounds)
+                    timer.stop("checkpoint")
+                results["preempted"] = True
+                results["preempted_at_round"] = r
+                break
+    except BaseException:
+        loop_raised = True
+        raise
     finally:
+        watchdog.stop()
+        preempt.restore()
         # the stream plane's producer thread ends with the run
         trainer.close()
+        flush_raised = False
+        try:
+            if async_ckpt is not None:
+                # flush pending writes even when the loop raised; a
+                # flush error must not mask the loop's own exception
+                timer.start("checkpoint")
+                try:
+                    async_ckpt.close()
+                except Exception as e:
+                    flush_raised = True
+                    if loop_raised:
+                        logger.log("WARNING: async checkpoint flush "
+                                   "failed while handling another "
+                                   f"error: {e}")
+                    else:
+                        raise
+                finally:
+                    timer.stop("checkpoint")
+        finally:
+            if accountant is not None:
+                accountant.save(run_dir)
+            done = _launch_counts()
+            tel.event("kernels.launches", rounds=rounds_run,
+                      **{k: done[k] - launches_at_start[k] for k in done})
+            tel.event("run.end", preempted=bool(results.get("preempted")),
+                      raised=loop_raised or flush_raised)
+            if loop_raised or flush_raised:
+                tel.health_update("error")
+            elif results.get("preempted"):
+                tel.health_update("preempted")
+            elif quorum_streak >= 3 or dp_degraded:
+                tel.health_update("degraded")
+            else:
+                tel.health_update("complete")
+            _uninstall_host_plane()
+            tel.close()
     results["best_top1"] = best_prec1
     if accountant is not None:
         results["dp"] = {
@@ -755,26 +1078,64 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
             "exhausted": bool(results.get("dp_exhausted")),
             "degraded": dp_degraded,
         }
+    if supervisor is not None:
+        st = supervisor.stats
+        results["supervisor"] = {
+            "rounds": st.rounds, "retries": st.retries,
+            "rollbacks": st.rollbacks,
+            "skipped_rounds": st.skipped_rounds,
+            "skipped_fault": st.skipped_fault,
+            "skipped_quorum": st.skipped_quorum,
+            "disk_restores": st.disk_restores,
+            "all_rejected_rounds": st.all_rejected_rounds,
+            "last_good_round": st.last_good_round}
+        if st.rollbacks:
+            logger.log(f"supervisor: {st.rollbacks} rollback(s), "
+                       f"{st.retries} retrie(s), {st.skipped_rounds} "
+                       "skipped round(s)")
+    rec_stats = recovery.stats()
+    if injector is not None:
+        rec_stats.update(injector.stats())
+        rec_stats["host_fault_fires"] = injector.fire_counts()
+    if any(bool(v) for v in rec_stats.values()):
+        results["host_recovery"] = rec_stats
+        logger.log(f"host plane: {rec_stats}")
     results["timer"] = timer.summary()
     logger.log(f"phase timers: {timer.summary()}")
+    if results.get("preempted"):
+        logger.log("preemption: final checkpoint drained and flushed; "
+                   f"restartable exit (code {RESTART_EXIT_CODE}) — "
+                   "supervise relaunches with --resume")
     return results
 
 
 def main(argv=None, round_callback=None):
     """Parse ``argv`` (default ``sys.argv[1:]``), build the config and
-    run it; returns the results dict. ``round_callback`` as for
-    :func:`run_experiment`."""
+    run it; returns the results dict, and raises ``SystemExit(75)`` when
+    the run drained on a stop signal. ``supervise [options] -- <command>``
+    runs the restart harness (``robustness/harness.py``) and returns its
+    exit code. ``round_callback`` as for :func:`run_experiment`."""
     if argv is None:
         import sys
         argv = sys.argv[1:]
+    if argv and argv[0] == "supervise":
+        from fedtorch_tpu_torch.robustness.harness import main as harness
+        return harness(argv[1:])
     if argv and argv[0] in SUBCOMMANDS:
         raise ValueError(f"the {argv[0]!r} subcommand is not yet ported "
-                         "(the JAX package's tools read run directories; "
-                         "ROADMAP A7, A12)")
+                         "(the JAX package's tools read the port's run "
+                         "directories: python -m fedtorch_tpu.cli "
+                         f"{argv[0]} ...; ROADMAP A12)")
     args = build_parser().parse_args(argv)
-    return run_experiment(args_to_config(args), download=args.download,
-                          round_callback=round_callback)
+    results = run_experiment(args_to_config(args), download=args.download,
+                             round_callback=round_callback)
+    if results.get("preempted"):
+        # EX_TEMPFAIL: the restart harness's contract
+        raise SystemExit(RESTART_EXIT_CODE)
+    return results
 
 
 if __name__ == "__main__":
-    main()
+    _result = main()
+    if isinstance(_result, int):  # the supervise exit code
+        raise SystemExit(_result)

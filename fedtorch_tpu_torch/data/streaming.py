@@ -35,6 +35,14 @@ round before it runs.
 * **Windows.** With ``window = R`` each item packs R consecutive rounds
   in one gather per tensor (``[R, k, ...]``): the feed source of the
   scan dispatch (``parallel/round_program.py``).
+* **Self-healing.** The gather (host-chaos seams ``stream.delay`` and
+  ``stream.gather``) and the copy to the device (``stream.h2d``) each
+  run under the bounded ``host_recovery.retry`` (the JAX package's
+  ``streaming.py:742-810``): both are pure over the drawn plan, so a
+  retry is an exact replay. A gather that exhausts its retries kills the
+  producer with a seam-named ``HostSeamError``; the trainer then
+  rebuilds the producer from the live (generator, round)
+  (``FederatedTrainer._pop_stream_with_rebuild``).
 
 The trainer side is ``FederatedTrainer.round_stream_fn``, which runs the
 same round core as the device plane's ``round_fn``.
@@ -50,6 +58,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fedtorch_tpu_torch import telemetry
 from fedtorch_tpu_torch.data.batching import ClientData
 from fedtorch_tpu_torch.native.host_pipeline import (
     HostPrefetcher, gather_rows,
@@ -675,24 +684,52 @@ class StreamFeedProducer:
         event.synchronize()
         return feed._replace(**moved), event
 
+    def _gather(self, pack, plans):
+        """One gather attempt under the bounded retry of the
+        ``stream.gather`` seam, with the ``stream.delay`` and
+        ``stream.gather`` host-chaos seams inside the retried closure:
+        each retry re-draws the injector, and a real transient error (an
+        mmap read hiccup) takes the same path. Pure over ``plans``."""
+        from fedtorch_tpu_torch.robustness import host_chaos, host_recovery
+
+        def attempt():
+            host_chaos.maybe_delay("stream.delay")
+            host_chaos.maybe_raise("stream.gather")
+            return pack(plans)
+        return host_recovery.retry(attempt, "stream.gather")
+
+    def _place_retried(self, feed: RoundFeed):
+        """The copy to the device under the ``stream.h2d`` seam's bounded
+        retry: another copy of the same host bytes is idempotent."""
+        from fedtorch_tpu_torch.robustness import host_chaos, host_recovery
+
+        def attempt():
+            host_chaos.maybe_raise("stream.h2d")
+            return self._place(feed)
+        return host_recovery.retry(attempt, "stream.h2d")
+
     def _produce(self, step: int):
         t0 = time.perf_counter()
-        if self._plan_fn is not None:
-            label, plan = self._plan_fn(step)
-            rng = None
-            feed = self._pack(plan)
-        elif self.window == 0:
-            label = self.start_round + step
-            plan, states = self._schedule(label)
-            rng = [states]
-            feed = self._pack(plan)
-        else:
-            label = self.start_round + step * self.window
-            drawn = [self._schedule(label + j) for j in range(self.window)]
-            rng = [states for _, states in drawn]
-            feed = self._pack_window([plan for plan, _ in drawn])
+        with telemetry.span("stream.gather", step=step):
+            if self._plan_fn is not None:
+                label, plan = self._plan_fn(step)
+                rng = None
+                feed = self._gather(self._pack, plan)
+            elif self.window == 0:
+                label = self.start_round + step
+                plan, states = self._schedule(label)
+                rng = [states]
+                feed = self._gather(self._pack, plan)
+            else:
+                label = self.start_round + step * self.window
+                drawn = [self._schedule(label + j)
+                         for j in range(self.window)]
+                rng = [states for _, states in drawn]
+                feed = self._gather(self._pack_window,
+                                    [plan for plan, _ in drawn])
         t1 = time.perf_counter()
-        feed, event = self._place(feed)
+        with telemetry.span("stream.h2d", step=step):
+            feed, event = self._place_retried(feed)
         self.gather_s += t1 - t0
         self.h2d_s += time.perf_counter() - t1
         self.rounds_produced += self._stride

@@ -91,9 +91,14 @@ What differs from the JAX package, and why:
   round (not crashed, not dropped out) have their state written back.
 
 Pod-scale sharding, cohort stats, client fusion and the async plane are
-refused by name at construction; so are the JAX package's bounded retry
-of a failed gather, its host-fault seams and its producer rebuild
-(ROADMAP A7): a gather error reaches the caller as itself.
+refused by name at construction. On the stream plane a producer that
+died (its gather exhausted the ``stream.gather`` retries, it wedged past
+``stream_timeout_s``, or it desynced) is rebuilt from the live
+(generator, round) up to ``fault.host_retry_max`` times a pop
+(:meth:`FederatedTrainer._pop_stream_with_rebuild`, the JAX package's
+``federated.py:1617-1644``); the rebuilt producer replays the same plans,
+which :meth:`FederatedTrainer.consume_stream_round` checks against the
+generator, so recovery is bitwise.
 """
 from __future__ import annotations
 
@@ -105,6 +110,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from fedtorch_tpu_torch import telemetry
 from fedtorch_tpu_torch.algorithms.base import (
     FedAlgorithm, num_online_effective,
 )
@@ -126,7 +132,9 @@ from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
 )
-from fedtorch_tpu_torch.robustness import availability, chaos
+from fedtorch_tpu_torch.robustness import (
+    availability, chaos, host_recovery,
+)
 from fedtorch_tpu_torch.robustness.aggregators import robust_aggregate
 from fedtorch_tpu_torch.robustness.guards import (
     mask_bcast, renormalize_accepted, screen_payloads,
@@ -407,6 +415,7 @@ class FederatedTrainer:
         self.stream_timeout_s = 120.0
         self._stream: Optional[StreamFeedProducer] = None
         self._stream_finalizer = None
+        self._stream_rebuilds = 0
 
     @staticmethod
     def _open_store(cfg, data: ClientData):
@@ -908,13 +917,15 @@ class FederatedTrainer:
         return torch.stack(means).sum()
 
     def round_host_scalars(self, clients: ClientState,
-                           metrics: RoundMetrics) -> dict:
+                           metrics: RoundMetrics,
+                           extra: Optional[dict] = None) -> dict:
         """Everything the CLI's round loop logs, in one transfer (which
         waits for the round): the mean training epoch over the clients,
         the learning rate at it, the reporters' count, loss and accuracy
         sums, the uplink bytes and the fault planes' counts (the JAX
-        package's ``round_scalars_dev``), and with DP armed the clip's
-        share and the applied noise stddev."""
+        package's ``round_scalars_dev``), with DP armed the clip's share
+        and the applied noise stddev, and ``extra``'s 0-d tensors by
+        name (the supervisor's finite flag rides the same transfer)."""
         mean_epoch = clients.epoch.mean()
         names = ["mean_epoch", "lr", "n_online", "loss_sum", "acc_sum",
                  "comm_bytes", "dropped", "stragglers", "rejected",
@@ -933,6 +944,9 @@ class FederatedTrainer:
         if metrics.dp_clipped_frac is not None:
             names += ["dp_clipped_frac", "dp_noise_sigma"]
             vals += [metrics.dp_clipped_frac, metrics.dp_noise_sigma]
+        for name, v in (extra or {}).items():
+            names.append(name)
+            vals.append(v.to(mean_epoch.device))
         return dict(zip(names, torch.stack(
             [v.to(torch.float32) for v in vals]).tolist()))
 
@@ -1029,6 +1043,50 @@ class FederatedTrainer:
         round."""
         return self._stream.stats() if self._stream is not None else None
 
+    def telemetry_gauges(self) -> dict:
+        """Host-side gauges for the telemetry round row, by the JAX
+        package's catalog names: the stream producer's counters (since
+        its last (re)start) and the rebuild count. Host counters only:
+        reading them costs no device sync."""
+        out = {}
+        ss = self.stream_stats()
+        if ss is not None:
+            out.update(
+                stream_depth=float(ss["depth"]),
+                stream_wait_s=ss["wait_s"], stream_gather_s=ss["gather_s"],
+                stream_h2d_s=ss["h2d_s"],
+                stream_produced=float(ss["rounds_produced"]),
+                stream_store_resident_mb=ss["store_resident_mb"],
+                stream_store_mapped_mb=ss["store_mapped_mb"])
+        if self.data_plane == "stream":
+            out["stream_rebuilds"] = float(self._stream_rebuilds)
+        return out
+
+    def _pop_stream_with_rebuild(self, pop):
+        """Self-healing feed pop: when the producer fails — its thread
+        died on an exhausted gather retry, wedged past
+        ``stream_timeout_s``, or desynced — tear it down and rebuild it
+        through :meth:`invalidate_stream` instead of aborting the run.
+        ``pop`` restarts the producer from the live (generator, round),
+        so the rebuilt one draws the same plans (bitwise recovery).
+        Bounded by ``fault.host_retry_max`` rebuilds per pop; exhaustion
+        raises a ``HostSeamError`` naming ``stream.producer``."""
+        limit = self.cfg.fault.host_retry_max
+        for attempt in range(limit + 1):
+            try:
+                return pop()
+            except Exception as e:
+                self.invalidate_stream()
+                if attempt >= limit:
+                    raise host_recovery.HostSeamError(
+                        "stream.producer",
+                        f"stream feed producer failed {limit + 1} "
+                        f"consecutive pops; last error: {e!r}") from e
+                self._stream_rebuilds += 1
+                host_recovery.get_active().note_retry("stream.producer")
+                telemetry.event("stream.producer_rebuilt",
+                                attempt=attempt + 1, error=repr(e))
+
     # -- host-side round loop ---------------------------------------------
     def run_round(self, server, clients):
         """One communication round on the trainer's data plane. On the
@@ -1036,7 +1094,8 @@ class FederatedTrainer:
         calls must advance the state round by round; replaying a round
         on saved state needs :meth:`invalidate_stream` first."""
         if self.data_plane == "stream":
-            item = self.next_stream_item(server)
+            item = self._pop_stream_with_rebuild(
+                lambda: self.next_stream_item(server))
             return self.consume_stream_round(server, clients, item)
         return self.round_fn(server, clients)
 

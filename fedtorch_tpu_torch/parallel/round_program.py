@@ -217,7 +217,8 @@ class RoundProgramBuilder:
                 return server, clients, stack_metrics(history)
         else:
             def rounds_fn(server, clients):
-                window = t.next_stream_item(server, window=num_rounds)
+                window = t._pop_stream_with_rebuild(
+                    lambda: t.next_stream_item(server, window=num_rounds))
                 history = []
                 for r in range(num_rounds):
                     server, clients, metrics = t.consume_stream_round(

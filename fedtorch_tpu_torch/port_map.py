@@ -67,19 +67,22 @@ MODULE_MAP = {
     # round_program.collective_budget (the pod-scale FTP004 budget) waits
     # for multi-GPU runs and a program audit (ROADMAP A10, A12)
     **_ported("native/__init__.py", "native/host_pipeline.py"),
-    **_rows("queued", "ROADMAP A7: lifecycle and telemetry",
-            "robustness/harness.py", "robustness/host_chaos.py",
-            "robustness/host_recovery.py", "robustness/preemption.py",
-            "robustness/supervisor.py", "robustness/watchdog.py",
-            "telemetry/__init__.py", "telemetry/anomaly.py",
-            "telemetry/critical_path.py", "telemetry/faults.py",
-            "telemetry/health.py", "telemetry/ledger.py",
-            "telemetry/metrics.py", "telemetry/runtime.py",
-            "telemetry/schema.py", "telemetry/spans.py",
-            "utils/checkpoint.py", "utils/diagnostics.py"),
+    # the run lifecycle and the telemetry writer (ROADMAP A7, first half)
+    **_ported("robustness/harness.py", "robustness/host_chaos.py",
+              "robustness/host_recovery.py", "robustness/preemption.py",
+              "robustness/supervisor.py", "robustness/watchdog.py",
+              "telemetry/__init__.py", "telemetry/faults.py",
+              "telemetry/health.py", "telemetry/metrics.py",
+              "telemetry/runtime.py", "telemetry/schema.py",
+              "telemetry/spans.py", "utils/checkpoint.py",
+              "utils/diagnostics.py"),
+    **_rows("queued", "ROADMAP A7: its second half, the federation "
+            "plane's observers",
+            "telemetry/anomaly.py", "telemetry/critical_path.py",
+            "telemetry/ledger.py"),
     **_rows("no port", "a separate program that reads run directories; "
-            "once the port writes the telemetry schema (ROADMAP A7) it "
-            "reads port runs without the port importing it",
+            "the port writes the telemetry schema, so it reads port runs "
+            "without the port importing it",
             "telemetry/runs.py", "tools/__init__.py", "tools/compare.py",
             "tools/plots.py", "tools/records.py", "tools/report.py",
             "tools/watch.py"),

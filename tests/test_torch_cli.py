@@ -112,7 +112,10 @@ def test_synthetic_cpu_run_returns_results_and_logs_both_lines(arch,
     assert [int(m) for m in _TRAIN.findall(text)] == [0, 1, 2]
     assert [int(m) for m in _VAL.findall(text)] == [0, 1, 2]
     assert text.count("Per-class acc:") == 3
-    assert "writes no checkpoints and no telemetry rows" in text
+    assert "writes no client ledger, no anomaly events" in text
+    run = os.path.dirname(record)
+    assert {"checkpoint.ckpt", "metrics.jsonl", "health.json"} <= \
+        set(os.listdir(run))
 
 
 @pytest.mark.parametrize("arch, words", [

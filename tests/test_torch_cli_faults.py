@@ -14,8 +14,9 @@ on the CPU.
   within 1e-12, and the same exhaustion round. The accountant charges
   what the rounds' participation says, whatever either package's noise
   draws, so the two runs compare at these rates.
-* ``--avail_quorum_action abort`` stays refused, by name: without
-  ``--supervisor`` by the config, with it by the supervisor's flag.
+* ``--avail_quorum_action abort`` without ``--supervisor`` stays
+  refused by the config, by name (with it, it runs:
+  ``tests/test_torch_supervisor.py``).
 """
 import glob
 import re
@@ -115,8 +116,6 @@ def test_dp_budget_lifecycle_matches_the_jax_cli(action, tmp_path):
 @pytest.mark.parametrize("words, name", [
     (["--avail_quorum_frac", "0.5", "--avail_quorum_action", "abort"],
      "supervisor"),
-    (["--avail_quorum_frac", "0.5", "--avail_quorum_action", "abort",
-      "--supervisor", "true"], "--supervisor "),
 ])
 def test_quorum_abort_stays_refused_by_name(words, name, tmp_path):
     with pytest.raises(ValueError, match=re.escape(name)):

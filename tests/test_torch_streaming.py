@@ -574,21 +574,6 @@ def test_a_dropped_trainer_leaves_no_live_producer():
     assert not _live_producers()
 
 
-def test_a_gather_error_reaches_the_round_as_itself(closing):
-    t = _trainer("stream")
-    closing(t)
-
-    def broken(tensor, flat_rows, out):
-        raise GatherBroke(f"cannot read {tensor}")
-
-    t.host_store._gather_flat = broken
-    server, clients = t.init_state(0)
-    for _ in range(2):
-        with pytest.raises(GatherBroke, match="cannot read x"):
-            t.run_round(server, clients)
-        t.invalidate_stream()
-
-
 def test_stats_counters_rise(closing):
     t = _trainer("stream")
     closing(t)
