@@ -238,6 +238,35 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    rebuild; the supervisor with nan poison, every rollback bitwise the
    pre-round state, the cut round's counts card = CPU; stream-plane
    gather faults bitwise a fault-free run; within ``LIFECYCLE_BUDGET_S``;
+8g. federation: the federation plane's observers and the async commit
+   plane on the main path's round (ResNet-20, bf16, int8 both ways, 100
+   clients x 250 samples from ``--seed``, batch 50, 10 local steps),
+   cuDNN deterministic (``federation_phase``): ``cohort_stats_off`` and
+   ``cohort_stats_on`` (k = 10; 1 warm-up round, round index 1's
+   ``run_round`` and its one fetch watched in sync debug mode, 2 timed
+   rounds): params and generator state bitwise, the same synchronizing
+   CUDA calls, 2 + 2 ragged launches a round, the cohort vectors [k] with
+   ids the round's cohort; a float32 cut round under ``krum`` card vs
+   CPU with the same selection mask, its sum ``robust_selected``. Then
+   ``async_resnet20`` (``ASYNC_FED``: 10 in flight, m = 5, a ring of 8,
+   poly staleness 0.5; ``ASYNC_FAULT``: stragglers 0.4 at a tenth of the
+   speed) on the device and the stream plane (1 warm-up, 4 timed and 1
+   profiled commit; 2 + 2 ragged launches a commit; the warm-up commit's
+   uplink stack of m rows within one step of the plain version; the
+   stream plane's params, ring and generator bitwise the device
+   plane's; ms a commit over the sync round's, staleness a commit, the
+   histogram, dispatches and ring clamps), ``async_trace`` (the trace
+   availability model, 2 commits), the commit cut to 4 clients in
+   flight, m = 2 and 2 steps (``ASYNC_CUT``) card vs CPU in float32 over
+   3 commits (every commit's numbers equal, the update within
+   ``faults_card_vs_cpu``'s bar), and the CLI with ``--sync_mode async
+   --cohort_stats true`` (``ASYNC_CLI_WORDS``) from CIFAR-10 files
+   written from ``--seed``: 4 commits with an evaluation and a keep each
+   (``client_ledger.json``'s participation m x commits, the staleness
+   histogram and the anomaly summary in the events), its kill drill
+   (exit codes [75, 0], every keep bitwise), and 3 stream-plane commits
+   whose rows carry ``overlap_efficiency`` in [0, 1]; within
+   ``FEDERATION_BUDGET_S``;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
    are freed; 1 warm-up round, then 2 timed rounds, then one profiled
@@ -272,7 +301,8 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
-``tasks``, ``models``, ``faults``, ``lifecycle``, ``wrn_main_path``,
+``tasks``, ``models``, ``faults``, ``lifecycle``, ``federation``,
+``wrn_main_path``,
 ``wrn_profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
@@ -527,6 +557,32 @@ LIFECYCLE_CHAOS = ("--host_fault_seams", "stream.gather", "--host_fault_rate",
                    "0.3", "--host_fault_seed", "1", "--host_retry_max", "3",
                    "--host_retry_backoff_s", "0")
 LIFECYCLE_BUDGET_S = 150.0
+# the federation phase: cohort statistics on the main path's round, and
+# ``async_resnet20``, the FedBuff commit loop on it (ASYNC_AB.json's
+# arrival knobs; concurrency and buffer auto: k_online = 10 in flight,
+# m = 5 a commit)
+FED_COHORT_TIMED = 2
+ASYNC_FED = dict(sync_mode="async", async_concurrency=0,
+                 async_buffer_size=0, snapshot_ring=8,
+                 staleness_weight="poly", staleness_exponent=0.5)
+ASYNC_FAULT = dict(straggler_rate=0.4, straggler_step_frac=0.1)
+ASYNC_TRACE = dict(avail_model="trace", avail_dropout_rate=0.1,
+                   avail_diurnal_period=24)
+ASYNC_TIMED_COMMITS = 4
+ASYNC_TRACE_COMMITS = 2
+# the commit cut for card vs CPU: 4 clients in flight, m = 2, 2 steps
+ASYNC_CUT = dict(num_clients=8, online_client_rate=0.5, async_concurrency=4,
+                 async_buffer_size=2, local_step=2)
+ASYNC_CUT_COMMITS = 3
+ASYNC_CLI_COMMITS = LIFECYCLE_DRILL_ROUNDS
+ASYNC_CLI_STREAM_COMMITS = 3
+ASYNC_CLI_WORDS = ("--sync_mode", "async", "--cohort_stats", "true",
+                   "--fault_straggler_rate", "0.4",
+                   "--fault_straggler_step_frac", "0.1", "--snapshot_ring",
+                   "8")
+# the phase took 142.3 s alone on an H100; whole-script runs have read
+# phases up to 1.3x slower
+FEDERATION_BUDGET_S = 240.0
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
 SHORT_ROW = 64
@@ -4074,6 +4130,537 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
     return out
 
 
+def federation_config(tcfg, fed=None, fault=None, cohort=False,
+                      plane="device", dtype="bfloat16"):
+    """The north-star round (``path_config``'s ResNet-20) with federated
+    fields ``fed`` (``ASYNC_FED``: the commit plane), the fault planes
+    ``fault``, cohort statistics on or off, on ``plane``."""
+    cfg = path_config(tcfg, "resnet20", dtype=dtype)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_plane=plane),
+        federated=dataclasses.replace(cfg.federated, **(fed or {})),
+        fault=tcfg.FaultConfig(**(fault or {})),
+        telemetry=dataclasses.replace(cfg.telemetry,
+                                      cohort_stats=cohort)).finalize()
+
+
+def watch_syncs(fn):
+    """``fn()`` watched as the lifecycle phase watches a loop body: the
+    synchronizing CUDA calls PyTorch's sync debug mode reports (one
+    warning each, counted on the host), the profiler's memcpy records
+    and its kernel launches. Returns (fn's result, numbers)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    prof.stop()
+    n = _d2h_count(prof)
+    n["kernel_launches"] = sum(
+        1 for e in prof.profiler.kineto_results.events()
+        if "CUDA" in str(e.device_type())
+        and not e.name().startswith(("Memcpy", "Memset")))
+    n["syncs"] = sum("synchronizing CUDA operation" in str(w.message)
+                     for w in seen)
+    return out, n
+
+
+def _record_plans(trainer, plans: list):
+    """Record each round's drawn plan on ``trainer`` (its cohort)."""
+    real = trainer.draw_plan
+
+    def draw(server):
+        plan = real(server)
+        plans.append(plan)
+        return plan
+    trainer.draw_plan = draw
+
+
+def cohort_path(name, cfg, data, seed, define_model, make_algorithm,
+                FederatedTrainer, qk, fa):
+    """The main path's round with cohort statistics ``cfg`` on or off:
+    1 warm-up round (its uplink stack held against the plain version),
+    round index 1 watched (``watch_syncs``: its ``run_round`` and the
+    loop's one fetch, ``round_host_scalars(..., ledger=True)``), then
+    ``FED_COHORT_TIMED`` timed rounds; the counters set to 0 just before
+    (2 + 2 ragged launches a round); with the statistics on, each
+    round's cohort vectors [k] with ids the round's cohort."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = FederatedTrainer(cfg, define_model(
+        cfg, batch_size=cfg.data.batch_size), make_algorithm(cfg), data)
+    server, clients = trainer.init_state(seed)
+    calls, plans = [], []
+    undo = _record_uplink(trainer, calls, [])
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    server, clients, m = trainer.run_round(server, clients)
+    trainer.round_host_scalars(clients, m, ledger=True)
+    undo()
+    held = _hold_uplink(qk, name, *calls[0])
+    del calls
+    _record_plans(trainer, plans)
+    vectors = []
+
+    def body():
+        s, c, mm = trainer.run_round(server, clients)
+        return s, c, mm, trainer.round_host_scalars(c, mm, ledger=True)
+    (server, clients, m, (sc, led1)), watched = watch_syncs(body)
+    vectors.append(led1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    start.record()
+    for _ in range(FED_COHORT_TIMED):
+        server, clients, m = trainer.run_round(server, clients)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    round_ms = start.elapsed_time(end) / FED_COHORT_TIMED
+    vectors += [trainer.round_host_scalars(clients, m, ledger=True)[1]
+                for m in metrics]
+    launched = counters(qk, fa)
+    rounds = 2 + FED_COHORT_TIMED
+    want = dict(ragged_stats=2 * rounds, ragged_apply=2 * rounds, stats=0,
+                apply=0, flash=0, flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"federation {name}: kernels launched "
+                             f"{launched} in {rounds} rounds, expected "
+                             f"{want}")
+    k = trainer.k_online
+    cohort = None
+    if cfg.telemetry.cohort_stats:
+        for plan, v in zip(plans, vectors):
+            if v is None or v["idx"].shape != (k,) or v["idx"].tolist() \
+                    != plan.idx.tolist() or v["norm_q"].shape != (5,) \
+                    or not all(np.isfinite(x).all() for x in v.values()):
+                raise AssertionError(f"federation {name}: cohort vectors "
+                                     f"{v} for the cohort {plan.idx}")
+        cohort = dict(
+            dispersion_round_1=sc["cohort_dispersion"],
+            norm_q_last=vectors[-1]["norm_q"].tolist(),
+            suspicion_last=vectors[-1]["suspicion"].tolist(),
+            selected=[float(v["selected"].sum()) for v in vectors])
+    elif any(v is not None for v in vectors):
+        raise AssertionError(f"federation {name}: cohort vectors with the "
+                             "statistics off")
+    out = dict(path=name, cohort_stats=cfg.telemetry.cohort_stats,
+               rounds=rounds, timed_rounds=FED_COHORT_TIMED,
+               round_ms=round_ms, launches=launched, tree_launches=want,
+               launches_per_round={c: n / rounds
+                                   for c, n in launched.items()},
+               round_index_1=watched, uplink_vs_plain=held, cohort=cohort)
+    params = {n: v.detach().clone() for n, v in server.params.items()}
+    rng_state = server.rng.get_state()
+    log(f"federation {name}: {round_ms:.1f} ms/round over "
+        f"{FED_COHORT_TIMED}; round index 1: {watched}; launches "
+        f"{launched}; uplink stack vs plain {held}; cohort {cohort}")
+    trainer.close()
+    del trainer, server, clients
+    return out, params, rng_state
+
+
+def commit_numbers(m) -> dict:
+    return dict(staleness_mean=float(m.staleness_mean),
+                stragglers=float(m.straggler_clients),
+                reporters=float(m.online_mask.sum()),
+                dropped=float(m.dropped_clients))
+
+
+def async_path(name, cfg, data, seed, define_model, make_algorithm,
+               AsyncFederatedTrainer, qk, fa, timed=ASYNC_TIMED_COMMITS,
+               profile=True):
+    """``async_resnet20`` (``cfg``) on its plane: 1 warm-up commit (its
+    uplink stack of m rows held against the plain version), ``timed``
+    timed commits, the counters set to 0 just before (2 + 2 ragged
+    launches a commit), then (``profile``) one profiled commit. Returns
+    (numbers, server params, ring params and generator state after the
+    1 + ``timed`` commits)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = AsyncFederatedTrainer(cfg, define_model(
+        cfg, batch_size=cfg.data.batch_size), make_algorithm(cfg), data)
+    trainer.stream_timeout_s = 60.0
+    server, clients = trainer.init_state(seed)
+    calls = []
+    undo = _record_uplink(trainer, calls, [])
+    reset_counters(qk, fa)
+    torch.cuda.synchronize()
+    server, clients, m = trainer.run_round(server, clients)
+    torch.cuda.synchronize()
+    undo()
+    held = _hold_uplink(qk, name, *calls[0])
+    del calls
+    per_commit = [commit_numbers(m)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    start.record()
+    for _ in range(timed):
+        server, clients, m = trainer.run_round(server, clients)
+        ms.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    commit_ms = start.elapsed_time(end) / timed
+    launched = counters(qk, fa)
+    commits = 1 + timed
+    want = dict(ragged_stats=2 * commits, ragged_apply=2 * commits,
+                stats=0, apply=0, flash=0, flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"federation {name}: kernels launched "
+                             f"{launched} in {commits} commits, expected "
+                             f"{want}")
+    per_commit += [commit_numbers(m) for m in ms]
+    params = {n: v.detach().clone() for n, v in server.params.items()}
+    ring = {n: v.detach().clone()
+            for n, v in server.aux["ring"]["params"].items()}
+    rng_state = server.rng.get_state()
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError(f"federation {name}: non-finite server params")
+    gauges = trainer.telemetry_gauges()
+    m_buf = trainer.buffer_size
+    out = dict(path=name, data_plane=cfg.data.data_plane,
+               avail_model=cfg.fault.avail_model,
+               concurrency=trainer.concurrency, buffer=m_buf,
+               snapshot_ring=trainer.snapshot_ring, commits=commits,
+               timed_commits=timed, commit_ms=commit_ms, launches=launched,
+               tree_launches=want,
+               launches_per_round={c: n / commits
+                                   for c, n in launched.items()},
+               per_commit=per_commit,
+               staleness_histogram=trainer.staleness_histogram(),
+               dispatches=gauges.get("async_dispatches"),
+               stragglers_dispatched=gauges.get("async_stragglers"),
+               ring_clamped=gauges.get("async_ring_clamped"),
+               dropouts=gauges.get("async_dropouts"),
+               uplink_vs_plain=held)
+    if profile:
+        prof = profile_phase(trainer, server, clients,
+                             out["launches_per_round"], commit=True)
+        out.update(profile=prof, busy_share=prof["busy_share"],
+                   launches_per_local_step=prof["kernel_launches"]
+                   / (m_buf * trainer.local_steps))
+    trainer.close()
+    log(f"federation {name}: {commit_ms:.1f} ms/commit over {timed}, "
+        f"{trainer.concurrency} in flight, m {m_buf}, launches {launched}, "
+        f"per commit {per_commit}, histogram {out['staleness_histogram']}"
+        f", dispatches {out['dispatches']}, clamped {out['ring_clamped']}, "
+        f"uplink stack vs plain {held}, busy {out.get('busy_share')}, "
+        f"launches a local step {out.get('launches_per_local_step')}")
+    del trainer, server, clients
+    return out, params, ring, rng_state
+
+
+def async_cut_run(cfg, seed, run, data, os_mod, AsyncFederatedTrainer,
+                  define_model, make_algorithm, commits=ASYNC_CUT_COMMITS):
+    """``commits`` commits of ``cfg`` from the weights of ``seed`` in
+    ``run`` (``order_spread.run_round``'s runs: ``cuda``, ``cpu``,
+    ``cpu-nchw``, ``cpu-1thread``): (the update on the CPU, each
+    commit's numbers and cohort)."""
+    dev, *opts = run.split("-")
+    threads = torch.get_num_threads()
+    try:
+        for opt in opts:
+            if opt.endswith("thread"):
+                torch.set_num_threads(int(opt[:-len("thread")]))
+        model = define_model(cfg, cfg.data.batch_size, device=dev)
+        if "nchw" in opts:
+            model.module.register_forward_pre_hook(os_mod._nchw_inside)
+        tr = AsyncFederatedTrainer(cfg, model, make_algorithm(cfg), data,
+                                   device=dev)
+        server, clients = tr.init_state(seed + 1)
+        p0 = {k: v.cpu() for k, v in server.params.items()}
+        numbers = []
+        for _ in range(commits):
+            server, clients, m = tr.run_round(server, clients)
+            numbers.append(dict(commit_numbers(m), online=m.online_mask.cpu()
+                                .tolist()))
+        return {k: v.cpu() - p0[k] for k, v in server.params.items()}, \
+            numbers
+    finally:
+        torch.set_num_threads(threads)
+
+
+def async_card_vs_cpu(cfg, data, seed, os_mod, AsyncFederatedTrainer,
+                      define_model, make_algorithm,
+                      orders=("cpu-nchw", "cpu-1thread")):
+    """The commit cut (``ASYNC_CUT``) in float32, card (TF32 off) vs CPU,
+    ``ASYNC_CUT_COMMITS`` commits: every commit's numbers equal, the
+    update's relative L2 within the larger of ``TASK_CARD_FLOOR`` and
+    ``SPREAD_FACTOR`` times the CPU's order spread (``faults_card_vs_cpu``'s
+    bar)."""
+    data = _first(data, cfg.federated.num_clients)
+    runs = {run: async_cut_run(cfg, seed, run, data, os_mod,
+                               AsyncFederatedTrainer, define_model,
+                               make_algorithm)
+            for run in ("cuda", "cpu", *orders)}
+    if runs["cuda"][1] != runs["cpu"][1]:
+        raise AssertionError(f"async card vs CPU: commits "
+                             f"{runs['cuda'][1]} against {runs['cpu'][1]}")
+    ups = {run: r[0] for run, r in runs.items()}
+    steps, l2 = os_mod.update_gap(ups["cpu"], ups["cuda"])
+    gaps = [os_mod.update_gap(ups["cpu"], ups[o]) for o in orders]
+    s_l2 = max(g[1] for g in gaps)
+    bar_l2 = max(TASK_CARD_FLOOR, os_mod.SPREAD_FACTOR * s_l2)
+    out = dict(update_rel_l2=l2, update_steps=steps, spread_rel_l2=s_l2,
+               spread_steps=max(g[0] for g in gaps), bar_rel_l2=bar_l2,
+               orders=list(orders), commits=runs["cuda"][1],
+               cut=ASYNC_CUT)
+    log(f"async card vs CPU ({ASYNC_CUT}, {ASYNC_CUT_COMMITS} commits, "
+        f"float32): commits equal {runs['cuda'][1]}; update relative L2 "
+        f"{l2:.3e} (bar {bar_l2:.3e}), CPU order spread {s_l2:.3e}")
+    if l2 > bar_l2:
+        raise AssertionError(f"async card vs CPU: {out}")
+    return out
+
+
+def krum_card_vs_cpu(cfg, data, seed, os_mod):
+    """A float32 cut round under ``krum`` with cohort statistics on, card
+    (TF32 off) vs CPU: the same ``sel_mask`` (``cohort_selected``), its
+    sum the round's ``robust_selected``."""
+    data = _first(data, cfg.federated.num_clients)
+    ms = {run: os_mod.run_round(cfg, seed, run, data=data,
+                                with_metrics=True)[2]
+          for run in ("cuda", "cpu")}
+    sel = {run: m.cohort_selected.tolist() for run, m in ms.items()}
+    out = dict(sel_mask=sel["cuda"], robust_selected=float(
+        ms["cuda"].robust_selected), suspicion_cuda=ms[
+            "cuda"].cohort_suspicion.tolist(),
+        suspicion_cpu=ms["cpu"].cohort_suspicion.tolist())
+    log(f"federation krum card vs CPU: {out}")
+    if sel["cuda"] != sel["cpu"] \
+            or sum(sel["cuda"]) != out["robust_selected"]:
+        raise AssertionError(f"federation krum card vs CPU: {sel}, {out}")
+    return out
+
+
+def async_cli(root, seed, qk, fa, out, lap):
+    """The CLI's commit plane (``ASYNC_CLI_WORDS``: ``--sync_mode async
+    --cohort_stats true``) on the main path's round from the CIFAR-10
+    files in ``root``, telemetry at its default: a reference of
+    ``ASYNC_CLI_COMMITS`` commits in this process (an evaluation, a
+    checkpoint and a keep a commit; 2 + 2 ragged launches a commit;
+    ``client_ledger.json``'s participation m x commits; the staleness
+    histogram and the anomaly summary in the events; rows valid, health
+    ``complete``), the kill drill on it (``lifecycle_drill``: exit codes
+    [75, 0], every keep bitwise the reference's) beside a stream-plane
+    run without evaluations whose rows carry ``overlap_efficiency`` in
+    [0, 1]."""
+    from fedtorch_tpu_torch.telemetry import read_health, validate_metrics_row
+    words = list(ASYNC_CLI_WORDS)
+    run_dir = os.path.join(root, "async_cli")
+    res, launched, hashes, wall, _ = lifecycle_run(
+        lifecycle_argv(root, rounds=ASYNC_CLI_COMMITS, extra=words),
+        run_dir, qk, fa)
+    C = ASYNC_CLI_COMMITS
+    rows = _rows(run_dir)
+    for row in rows:
+        validate_metrics_row(row)
+    events = _rows(run_dir, "events.jsonl")
+    with open(os.path.join(run_dir, "client_ledger.json")) as f:
+        ledger = json.load(f)
+    hist = [e for e in events if e.get("event") == "async.staleness_hist"]
+    m = int(rows[-1]["async_buffer"])
+    want_launch = dict(ragged_stats=2 * C, ragged_apply=2 * C, stats=0,
+                       apply=0, flash=0, flash_tc=0, flash_tf32=0)
+    cli = dict(commits=res["rounds"], wall_s=wall, launches=launched,
+               tree_launches=want_launch,
+               commit_ms=res["timer"]["round"] / C * 1e3,
+               buffer=m, ledger_rounds=ledger["rounds"],
+               ledger_participation=sum(
+                   ledger["counters"]["participation"]),
+               staleness_histogram=hist[-1]["hist"] if hist else None,
+               staleness=[r["staleness"] for r in rows],
+               anomaly_events=sum(e.get("event") == "anomaly.detected"
+                                  for e in events),
+               health=read_health(run_dir)["intent"])
+    log(f"federation async_cli: {cli}")
+    if launched != want_launch or res["rounds"] != C \
+            or cli["ledger_participation"] != m * C \
+            or ledger["rounds"] != C or not hist \
+            or sum(hist[-1]["hist"].values()) != m * C \
+            or cli["health"] != "complete" \
+            or not any(e.get("event") == "anomaly.summary" for e in events):
+        raise AssertionError(f"federation async_cli: {cli}")
+    out["async_cli"] = cli
+    lap("async_cli")
+    want = {r + 1: h for r, h in enumerate(hashes)}
+    drills = {}
+
+    def drill():
+        try:
+            drills["drill"] = lifecycle_drill(root, "async_drill", words,
+                                              want, qk)
+        except BaseException as e:  # re-raised after the join
+            drills["drill"] = e
+
+    thread = threading.Thread(target=drill, name="federation-drill")
+    thread.start()
+    try:
+        stream_dir = os.path.join(root, "async_cli_stream")
+        res, launched, _, wall, _ = lifecycle_run(
+            lifecycle_argv(root, rounds=ASYNC_CLI_STREAM_COMMITS,
+                           extra=words + ["--data_plane", "stream",
+                                          "--eval_freq", "1000"]),
+            stream_dir, qk, fa)
+        effs = [r.get("overlap_efficiency") for r in _rows(stream_dir)]
+        S = ASYNC_CLI_STREAM_COMMITS
+        stream = dict(commits=res["rounds"], launches=launched,
+                      tree_launches={k: v // C * S
+                                     for k, v in want_launch.items()},
+                      commit_ms=res["timer"]["round"] / S * 1e3,
+                      overlap_efficiency=effs, wall_s=wall)
+        log(f"federation async_cli_stream: {stream}")
+        if launched != stream["tree_launches"] or effs[0] is not None \
+                or not all(e is not None and 0.0 <= e <= 1.0
+                           for e in effs[1:]):
+            raise AssertionError(f"federation async_cli_stream: {stream}")
+        out["async_cli_stream"] = stream
+    finally:
+        thread.join(600)
+    if isinstance(drills.get("drill"), BaseException):
+        raise drills["drill"]
+    if "drill" not in drills:
+        raise AssertionError("federation async_drill: did not finish")
+    out["async_drill"] = drills["drill"]
+    lap("async_drill")
+
+
+def federation_phase(seed, tcfg, define_model, make_algorithm,
+                     stack_partitions, FederatedTrainer,
+                     AsyncFederatedTrainer, os_mod, qk, fa):
+    """The federation plane's observers and the async commit plane on
+    the main path's round (quantized FedAvg, ResNet-20, bf16, 100
+    clients, batch 50, 10 local steps), cuDNN deterministic:
+
+    * ``cohort_stats_off`` / ``cohort_stats_on`` (:func:`cohort_path`):
+      params and generator state bitwise after their rounds, the same
+      synchronizing CUDA calls in round index 1's body; then a float32
+      cut round under ``krum`` card vs CPU (:func:`krum_card_vs_cpu`);
+    * ``async_device`` / ``async_stream``: ``async_resnet20``
+      (``ASYNC_FED``, ``ASYNC_FAULT``; :func:`async_path`), the stream
+      plane's params, ring and generator bitwise the device plane's;
+      ``async_trace`` (``ASYNC_TRACE``, ``ASYNC_TRACE_COMMITS`` commits);
+    * ``async_card_vs_cpu`` (:func:`async_card_vs_cpu`);
+    * ``async_cli``, ``async_drill``, ``async_cli_stream``
+      (:func:`async_cli`);
+    within ``FEDERATION_BUDGET_S``."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {"paths": {}, "laps_s": {}}
+
+    def lap(name):
+        out["laps_s"][name] = time.perf_counter() - t_phase
+        log(f"federation: {name} done at {out['laps_s'][name]:.1f} s")
+    base = path_config(tcfg, "resnet20")
+    data = path_data(base, seed, stack_partitions)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    finals = {}
+    try:
+        for name, cohort in (("cohort_stats_off", False),
+                             ("cohort_stats_on", True)):
+            out["paths"][name], *finals[name] = cohort_path(
+                name, federation_config(tcfg, cohort=cohort), data, seed,
+                define_model, make_algorithm, FederatedTrainer, qk, fa)
+        lap("cohort_stats")
+        (p_off, r_off), (p_on, r_on) = finals["cohort_stats_off"], \
+            finals["cohort_stats_on"]
+        w_off = out["paths"]["cohort_stats_off"]["round_index_1"]
+        w_on = out["paths"]["cohort_stats_on"]["round_index_1"]
+        gap = _params_gap(p_on, p_off)
+        same_rng = bool(torch.equal(r_on, r_off))
+        out["cohort_bitwise"] = dict(max_abs_gap=gap,
+                                     rng_state_equal=same_rng,
+                                     syncs_off=w_off["syncs"],
+                                     syncs_on=w_on["syncs"])
+        if gap != 0.0 or not same_rng or w_off["syncs"] != w_on["syncs"]:
+            raise AssertionError(f"federation cohort stats on vs off: "
+                                 f"{out['cohort_bitwise']}")
+        for name, plane, fault, timed in (
+                ("async_device", "device", ASYNC_FAULT,
+                 ASYNC_TIMED_COMMITS),
+                ("async_stream", "stream", ASYNC_FAULT,
+                 ASYNC_TIMED_COMMITS),
+                ("async_trace", "device", ASYNC_TRACE,
+                 ASYNC_TRACE_COMMITS - 1)):
+            out["paths"][name], *finals[name] = async_path(
+                name, federation_config(tcfg, fed=ASYNC_FED, fault=fault,
+                                        cohort=True, plane=plane),
+                data, seed, define_model, make_algorithm,
+                AsyncFederatedTrainer, qk, fa, timed=timed,
+                profile=name != "async_trace")
+        lap("async")
+        (dp, dring, dr), (sp, sring, sr) = finals["async_device"], \
+            finals["async_stream"]
+        gaps = (_params_gap(sp, dp), _params_gap(sring, dring))
+        same_rng = bool(torch.equal(sr, dr))
+        out["async_stream_bitwise"] = dict(
+            params_max_abs_gap=gaps[0], ring_max_abs_gap=gaps[1],
+            rng_state_equal=same_rng)
+        if gaps != (0.0, 0.0) or not same_rng:
+            raise AssertionError(f"federation async_stream vs async_device: "
+                                 f"{out['async_stream_bitwise']}")
+        sync_ms = statistics.mean(out["paths"][n]["round_ms"] for n in (
+            "cohort_stats_off", "cohort_stats_on"))
+        for n in ("async_device", "async_stream"):
+            p = out["paths"][n]
+            p["commit_ms_over_sync_round"] = p["commit_ms"] / sync_ms
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out["krum_card_vs_cpu"] = krum_card_vs_cpu(
+                cut_config(federation_config(
+                    tcfg, fault=dict(robust_agg="krum",
+                                     robust_trim_frac=0.2),
+                    cohort=True, dtype="float32"),
+                    num_clients=8, online_client_rate=0.5, local_step=2),
+                data, seed, os_mod)
+            out["async_card_vs_cpu"] = async_card_vs_cpu(
+                cut_config(federation_config(
+                    tcfg, fed=ASYNC_FED, fault=ASYNC_FAULT, cohort=True,
+                    dtype="float32"), **ASYNC_CUT),
+                data, seed, os_mod, AsyncFederatedTrainer, define_model,
+                make_algorithm)
+        finally:
+            torch.backends.cudnn.allow_tf32, \
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+        lap("card_vs_cpu")
+        del data
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root:
+            write_cifar10(root, seed)
+            async_cli(root, seed, qk, fa, out, lap)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out.update(sync_round_ms=sync_ms, cudnn_deterministic=True,
+               phase_s=time.perf_counter() - t_phase,
+               budget_s=FEDERATION_BUDGET_S, async_fed=ASYNC_FED,
+               async_fault=ASYNC_FAULT, async_trace=ASYNC_TRACE)
+    log(f"federation phase: {out['phase_s']:.1f} s; sync round "
+        f"{sync_ms:.1f} ms; commit ms "
+        + ", ".join(f"{n} {out['paths'][n]['commit_ms']:.1f} "
+                    f"({out['paths'][n]['commit_ms_over_sync_round']:.3f}x)"
+                    for n in ("async_device", "async_stream")))
+    if out["phase_s"] > FEDERATION_BUDGET_S:
+        log(json.dumps(out))
+        raise AssertionError(f"federation phase took {out['phase_s']:.1f} "
+                             f"s, over its {FEDERATION_BUDGET_S} s budget")
+    return out
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -4138,7 +4725,8 @@ def _kind(name: str) -> str:
     return "elementwise/reduce/copy"
 
 
-def profile_phase(trainer, server, clients, launched: dict):
+def profile_phase(trainer, server, clients, launched: dict,
+                  commit: bool = False):
     """One more main-path round under torch.profiler: the device's busy
     share of the round and where its time goes. The profiler's own host
     cost lengthens the round, so the busy share is a lower bound. Only
@@ -4156,7 +4744,7 @@ def profile_phase(trainer, server, clients, launched: dict):
     want = round(sum(launched[c] for c in ("ragged_stats", "ragged_apply",
                                            "stats", "apply")))
     for attempt in range(1, PROFILE_TRIES + 1):
-        out = _profile_round(trainer, server, clients)
+        out = _profile_round(trainer, server, clients, commit)
         got = sum(q["calls"] for q in out["quantizer_kernels"])
         out.update(attempt=attempt, quantizer_calls=got,
                    quantizer_launches=want, records_complete=got == want)
@@ -4167,12 +4755,17 @@ def profile_phase(trainer, server, clients, launched: dict):
     return out
 
 
-def _profile_round(trainer, server, clients):
+def _profile_round(trainer, server, clients, commit=False):
+    """One round (``commit``: one async commit, whose plane has no scan
+    dispatch) under the profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run_rounds(server, clients, 1)
+        if commit:
+            trainer.run_round(server, clients)
+        else:
+            trainer.run_rounds(server, clients, 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # the raw events, summed by name: the same sums as key_averages()
@@ -4244,6 +4837,7 @@ def main(argv=None) -> int:
     from fedtorch_tpu_torch.ops.cuda import (
         build, flash_attention as fa, quant_kernel as qk,
     )
+    from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
     from fedtorch_tpu_torch.parallel import FederatedTrainer
     from fedtorch_tpu_torch.tools import order_spread
 
@@ -4357,6 +4951,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("federation")
+    federation = federation_phase(
+        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, AsyncFederatedTrainer, order_spread, qk, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -4419,7 +5020,10 @@ def main(argv=None) -> int:
                  for n in ("shakespeare_rnn", "emnist_cnn")
                  if isinstance(tasks["cli_tff"], dict)) + tuple(
                  (n, r) for n, r in stream["paths"].items()
-                 if n.startswith("stream_"))
+                 if n.startswith("stream_")) + tuple(
+                 federation["paths"].items()) + tuple(
+                 (n, federation[n]) for n in ("async_cli",
+                                              "async_cli_stream"))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -4492,6 +5096,7 @@ def main(argv=None) -> int:
     print(json.dumps({"models": models, "card": card}))
     print(json.dumps({"faults": faults, "card": card}))
     print(json.dumps({"lifecycle": lifecycle, "card": card}))
+    print(json.dumps({"federation": federation, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

@@ -80,8 +80,17 @@ server model's norms and the aggregation's cosine. SIGTERM, SIGINT or
 SIGUSR1 drain the run at the next round boundary: a final checkpoint,
 ``results["preempted"]``, and :func:`main` exits with 75, which the
 ``supervise`` subcommand (``robustness/harness.py``) relaunches with
-``--resume``. A port run does not yet write the client ledger, the
-anomaly events or the stream overlap gauge (ROADMAP A7, second half).
+``--resume``. The federation plane's observers run as the JAX CLI's:
+with ``--cohort_stats true`` each round's cohort vectors ride the
+round's one fetch into ``client_ledger.json`` (``--ledger_sketch_budget``)
+and the rows carry the dispersion and the norm quantiles; with telemetry
+on, the EWMA anomaly detector (``--anomaly_zscore``, 0 turns it off)
+watches every row and the stream plane's rows carry
+``overlap_efficiency``. ``--sync_mode async`` runs the FedBuff commit
+loop (``async_plane/``: ``--async_concurrency``, ``--async_buffer_size``,
+``--snapshot_ring``, ``--staleness_weight``, ``--staleness_exponent``):
+each loop iteration is one commit, and the rows carry the async gauges
+and the events the staleness histogram.
 
 Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
@@ -524,12 +533,6 @@ def _unported(section: str, what: str, fields: dict) -> None:
         UNPORTED_FLAGS[flag] = (section, field, what)
 
 
-_unported("federated", "the async plane (ROADMAP A8)", {
-    "sync_mode": "sync_mode", "async_buffer_size": "async_buffer_size",
-    "async_concurrency": "async_concurrency",
-    "staleness_weight": "staleness_weight",
-    "staleness_exponent": "staleness_exponent",
-    "snapshot_ring": "snapshot_ring"})
 _unported("mesh", "multi-device and multi-host runs (ROADMAP A10)", {
     "num_devices": "num_devices",
     "coordinator_address": "coordinator_address",
@@ -539,12 +542,6 @@ _unported("mesh", "XLA's scan unrolling, which has no eager-torch "
           "counterpart", {"scan_unroll": "scan_unroll"})
 _unported("telemetry", "XLA's cost analysis, which has no torch port",
           {"cost_capture_scan_rounds": "cost_capture_scan_rounds"})
-_unported("telemetry", "the federation plane's observers: cohort "
-          "statistics, the client ledger and the anomaly detector "
-          "(ROADMAP A7, second half)", {
-              "cohort_stats": "cohort_stats",
-              "ledger_sketch_budget": "ledger_sketch_budget",
-              "anomaly_zscore": "anomaly_zscore"})
 
 
 def refused_flags(cfg: ExperimentConfig) -> list:
@@ -581,6 +578,16 @@ def _launch_counts() -> dict:
                 flash_tf32=fa.flash_tf32_launches)
 
 
+def _staleness_event(tel, trainer, **fields) -> None:
+    """The async plane's staleness histogram as an event (nothing on the
+    sync planes)."""
+    hist = trainer.staleness_histogram()
+    if hist:
+        tel.event("async.staleness_hist",
+                  hist={str(k): v for k, v in sorted(hist.items())},
+                  **fields)
+
+
 def run_experiment(cfg: ExperimentConfig, download: bool = False,
                    round_callback=None) -> dict:
     """The synchronous federated driver loop (federated/main.py:56-211;
@@ -612,6 +619,11 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     from fedtorch_tpu_torch.robustness.supervisor import RoundSupervisor
     from fedtorch_tpu_torch.robustness.watchdog import StallWatchdog
     from fedtorch_tpu_torch.telemetry import Telemetry
+    from fedtorch_tpu_torch.telemetry.anomaly import EwmaAnomalyDetector
+    from fedtorch_tpu_torch.telemetry.critical_path import (
+        StreamOverlapTracker,
+    )
+    from fedtorch_tpu_torch.telemetry.ledger import ClientLedger
     from fedtorch_tpu_torch.utils import resolve_device
     from fedtorch_tpu_torch.utils.checkpoint import (
         AsyncCheckpointer, init_checkpoint_dir, maybe_resume,
@@ -638,8 +650,6 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     logger.log(f"device: {device}"
                + (f" ({torch.cuda.get_device_name(device)})"
                   if device.type == "cuda" else ""))
-    logger.log("the port writes no client ledger, no anomaly events and "
-               "no stream overlap gauge yet (ROADMAP A7, second half)")
     timer = PhaseTimer()
     flt = cfg.fault
 
@@ -708,9 +718,16 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
 
         personal = cfg.federated.personal and fed_data.val is not None \
             and cfg.effective_algorithm in PERSONALIZED_ALGORITHMS
-        trainer = FederatedTrainer(cfg, model, make_algorithm(cfg),
-                                   fed_data.train, val_data=fed_data.val,
-                                   device=device)
+        if cfg.federated.sync_mode == "async":
+            # the commit plane: run_round is one commit and server.round
+            # counts commit versions, so the loop runs unchanged
+            from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
+            trainer_cls = AsyncFederatedTrainer
+        else:
+            trainer_cls = FederatedTrainer
+        trainer = trainer_cls(cfg, model, make_algorithm(cfg),
+                              fed_data.train, val_data=fed_data.val,
+                              device=device)
         logger.log(f"data plane: {cfg.data.data_plane}"
                    + (f" ({cfg.data.store} store)"
                       if cfg.data.data_plane == "stream" else ""))
@@ -738,15 +755,37 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
             supervisor = RoundSupervisor(trainer, checkpoint_dir=run_dir,
                                          logger=logger)
             run_round = supervisor.run_round
+        # the federation plane's observers: the per-client ledger of
+        # the cohort vectors the round's fetch carries (cohort stats on)
+        # and the observe-only anomaly detector over the rows; an
+        # elastic restart adopts the run dir's ledger
+        ledger = anomaly = None
+        if tel.enabled and cfg.telemetry.cohort_stats:
+            ledger = ClientLedger(
+                run_dir, num_clients=cfg.federated.num_clients,
+                sketch_budget=cfg.telemetry.ledger_sketch_budget,
+                seed=cfg.train.manual_seed,
+                run_meta={"algorithm": cfg.effective_algorithm,
+                          "robust_agg": flt.robust_agg,
+                          "sync_mode": cfg.federated.sync_mode},
+                log=logger.log)
+            if ledger.load_existing():
+                logger.log("client ledger: adopted existing "
+                           f"client_ledger.json ({ledger.rounds} rounds)")
+        if tel.enabled and cfg.telemetry.anomaly_zscore > 0.0:
+            anomaly = EwmaAnomalyDetector(
+                zscore=cfg.telemetry.anomaly_zscore)
         # the privacy plane's accountant, charged each committed round
-        # at the run's participation probability (k_online of C); an
-        # elastic restart adopts the run dir's spend
+        # at the run's participation probability (the commit buffer m on
+        # the async plane, else k_online, of C); an elastic restart
+        # adopts the run dir's spend
         accountant, dp_q = None, 0.0
         if flt.dp_armed:
             accountant = PrivacyAccountant(flt.dp_noise_multiplier,
                                            flt.dp_delta)
-            dp_q = min(1.0, trainer.k_online
-                       / float(cfg.federated.num_clients))
+            width = getattr(trainer, "buffer_size", None) \
+                or trainer.k_online
+            dp_q = min(1.0, width / float(cfg.federated.num_clients))
             if accountant.load_existing(run_dir):
                 logger.log(
                     "privacy accountant: adopted existing "
@@ -778,6 +817,9 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     last_saved_round = None
     lost_at_save = 0
     rounds_run = 0
+    # the stream plane's overlap efficiency, from the deltas of the
+    # producer's cumulative gauges the rows carry
+    overlap_tracker = StreamOverlapTracker()
     try:
         for r in range(start_round, cfg.federated.num_comms):
             if accountant is not None and not dp_degraded \
@@ -826,6 +868,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                 extra.update(agg_cosine=tr["cosine"],
                              agg_distance=tr["distance"])
             fetch_t0 = time.perf_counter()
+            led = None
             if supervisor is not None \
                     and supervisor.last_scalars is not None:
                 # the supervisor's health check fetched the scalars
@@ -833,10 +876,19 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                 if extra:
                     sc.update(zip(extra, torch.stack(
                         [v.float() for v in extra.values()]).tolist()))
+                if ledger is not None:
+                    # the cohort vectors alone: a second transfer
+                    _, led = trainer.round_host_scalars(
+                        clients, metrics, ledger=True)
             else:
                 with tel.span("scalar_fetch", round=r):
-                    sc = trainer.round_host_scalars(clients, metrics,
-                                                    extra=extra)
+                    if ledger is None:
+                        sc = trainer.round_host_scalars(clients, metrics,
+                                                        extra=extra)
+                    else:
+                        # the ledger's vectors ride the same transfer
+                        sc, led = trainer.round_host_scalars(
+                            clients, metrics, extra=extra, ledger=True)
             fetch_s = time.perf_counter() - fetch_t0
             timer.add_comm(num_bytes=sc["comm_bytes"])
             # the fetch waited for the round: it completed
@@ -946,12 +998,25 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                            best_top1=best_prec1)
             if checkpoint_s is not None:
                 row["checkpoint_s"] = checkpoint_s
+            if "cohort_dispersion" in sc:
+                row["cohort_dispersion"] = sc["cohort_dispersion"]
             if "dp_clipped_frac" in sc:
                 row["dp_clipped_frac"] = sc["dp_clipped_frac"]
                 row["dp_noise_sigma"] = sc["dp_noise_sigma"]
             if accountant is not None:
                 row["dp_epsilon_spent"] = accountant.epsilon()
+            if led is not None:
+                # the norm quantiles and the ledger's O(k) fold, from
+                # the same fetch
+                nq = led["norm_q"]
+                row.update({f"cohort_norm_{n}": float(v) for n, v in zip(
+                    ("min", "q25", "med", "q75", "max"), nq)})
+                ledger.update(r, led)
+                row.update(ledger.stats())
             row.update(trainer.telemetry_gauges())
+            overlap_eff = overlap_tracker.observe(row)
+            if overlap_eff is not None:
+                row["overlap_efficiency"] = overlap_eff
             if async_ckpt is not None:
                 row.update(async_ckpt.stats())
             if supervisor is not None:
@@ -970,6 +1035,12 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                           n_online=sc["n_online"],
                           avail_dropped=sc["avail_dropped"],
                           deadline_missed=sc["deadline_missed"])
+            if anomaly is not None:
+                # observe-only: events, no control flow
+                for a in anomaly.observe(row):
+                    tel.event("anomaly.detected", round=r, **a)
+            if cfg.telemetry.level == "debug" and (r + 1) % 25 == 0:
+                _staleness_event(tel, trainer, round=r, snapshot="debug")
             # health: r + 1 rounds complete (checkpoint.json's "round"
             # convention); the intent reflects the host plane's state
             host_retries_now = recovery.total_retries()
@@ -997,6 +1068,9 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                 logger.log(f"preemption: stop requested ({reason}); "
                            f"draining after round {r}")
                 tel.event("preempt.drain", round=r, reason=reason)
+                # the preempted run's histogram, durable even if the
+                # drain's own write raises
+                _staleness_event(tel, trainer, round=r, snapshot="drain")
                 tel.health_update("drain", round_idx=r + 1)
                 # the resume point must be DURABLE before exit 75: when
                 # this round's eval already saved, drain the async queue
@@ -1031,6 +1105,9 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     finally:
         watchdog.stop()
         preempt.restore()
+        # read before the teardown drops the async schedule (the trainer
+        # also keeps it across the teardown)
+        final_hist = trainer.staleness_histogram()
         # the stream plane's producer thread ends with the run
         trainer.close()
         flush_raised = False
@@ -1052,8 +1129,16 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                 finally:
                     timer.stop("checkpoint")
         finally:
+            if final_hist:
+                tel.event("async.staleness_hist", snapshot="final",
+                          hist={str(k): v
+                                for k, v in sorted(final_hist.items())})
+            if ledger is not None:
+                ledger.flush()
             if accountant is not None:
                 accountant.save(run_dir)
+            if anomaly is not None:
+                tel.event("anomaly.summary", fields=anomaly.summary())
             done = _launch_counts()
             tel.event("kernels.launches", rounds=rounds_run,
                       **{k: done[k] - launches_at_start[k] for k in done})

@@ -41,8 +41,8 @@ class ServerState(NamedTuple):
 
 
 class RoundMetrics(NamedTuple):
-    """The JAX package's per-round metrics but its cohort statistics
-    (which the port refuses). The three per-client leaves are [C] under
+    """The JAX package's per-round metrics. The three per-client leaves
+    are [C] under
     'perm' participation, offline rows zero, and the cohort-aligned [k']
     (the round's dispatched clients, in plan order) under 'sparse';
     ``FederatedTrainer.metrics_width`` names the width. A client that
@@ -50,7 +50,13 @@ class RoundMetrics(NamedTuple):
     that sum them get the same numbers in either layout. Every count is
     0 when its plane is off; the two DP gauges are None when DP is off,
     and :func:`~fedtorch_tpu_torch.parallel.round_program.stack_metrics`
-    keeps them None."""
+    keeps them None. The eight ``cohort_*`` fields (the federation
+    plane's cohort statistics, ``telemetry.cohort_stats``) are None with
+    the statistics off; on, each is per dispatched client ([k], the
+    commit's [m] jobs on the async plane) in plan order, but the [5]
+    norm quantiles and the 0-d dispersion. They ride the round loop's
+    one batched fetch into the client ledger (``telemetry/ledger.py``).
+    """
     train_loss: torch.Tensor   # [C]|[k'] mean local loss of each reporter
     train_acc: torch.Tensor    # [C]|[k'] mean local top-1 of each reporter
     online_mask: torch.Tensor  # [C]|[k'] 1.0 for this round's reporters
@@ -68,6 +74,14 @@ class RoundMetrics(NamedTuple):
     quorum_degraded: torch.Tensor    # scalar {0,1} — sub-quorum round
     dp_clipped_frac: Optional[torch.Tensor] = None  # share the DP clip cut
     dp_noise_sigma: Optional[torch.Tensor] = None   # applied noise stddev
+    cohort_idx: Optional[torch.Tensor] = None        # [k] int32 client ids
+    cohort_online: Optional[torch.Tensor] = None     # [k] {0,1} reported
+    cohort_accept: Optional[torch.Tensor] = None     # [k] {0,1} candidate
+    cohort_selected: Optional[torch.Tensor] = None   # [k] {0,1} aggregated
+    cohort_suspicion: Optional[torch.Tensor] = None  # [k] the rule's score
+    cohort_staleness: Optional[torch.Tensor] = None  # [k] commits stale
+    cohort_norm_q: Optional[torch.Tensor] = None     # [5] norm quantiles
+    cohort_dispersion: Optional[torch.Tensor] = None  # 1 - mean cosine
 
 
 def _is_tuple(tree) -> bool:

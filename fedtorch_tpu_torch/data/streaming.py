@@ -111,6 +111,7 @@ class RoundFeed(NamedTuple):
     u_drop: Optional[torch.Tensor] = None      # [k] float32
     byz_seed: Optional[torch.Tensor] = None    # 0-d int64
     dp_seed: Optional[torch.Tensor] = None     # 0-d int64
+    jobs: Optional[tuple] = None               # the async commit's jobs
 
 # the plan's fault fields a feed carries: tensors as they are, seeds as
 # 0-d int64 tensors
@@ -624,7 +625,7 @@ class StreamFeedProducer:
         return feed._replace(
             rows=plan.rows, flip=plan.flip, tops=plan.tops,
             lefts=plan.lefts, probe_rows=plan.probe_rows,
-            drop_keys=plan.drop_keys,
+            drop_keys=plan.drop_keys, jobs=plan.jobs,
             k_rand=None if plan.k_rand is None
             else torch.tensor(int(plan.k_rand)),
             **{f: getattr(plan, f) for f in FAULT_TENSORS},

@@ -79,7 +79,8 @@ What differs from the JAX package, and why:
   fault-free plans. What is fixed for a run (the byzantine cohort, each
   client's device class and diurnal phase) is hashed off one int64
   fault key that ``init_state`` draws after the params (only when
-  ``byzantine_rate > 0`` or ``avail_model == 'trace'``) and keeps in the
+  ``byzantine_rate > 0``, ``avail_model == 'trace'`` or under
+  ``sync_mode='async'``, whose event schedule hangs off it) and keeps in the
   server aux, wrapped as the JAX package wraps its ``norm_bound``
   momentum and DP noise scale: ``{'alg': ..., 'norm_bound_m': ...,
   'dp_noise_scale': ..., 'fault_key': ...}``, each member only when
@@ -90,7 +91,14 @@ What differs from the JAX package, and why:
   as the JAX package's vmap does; only the clients that keep their
   round (not crashed, not dropped out) have their state written back.
 
-Pod-scale sharding, cohort stats, client fusion and the async plane are
+With ``telemetry.cohort_stats`` the aggregation seam keeps the per-client
+evidence (the accept and selection masks, the robust rule's suspicion)
+and the cohort's heterogeneity gauges in the ``cohort_*`` fields of
+:class:`RoundMetrics`, riding the round's one fetch
+(:meth:`FederatedTrainer.round_host_scalars` with ``ledger=True``); off,
+the round runs exactly as before. The async plane's commit
+(``async_plane/``) re-dispatches :meth:`FederatedTrainer._round_core`
+through its commit seam. Pod-scale sharding and client fusion are
 refused by name at construction. On the stream plane a producer that
 died (its gather exhausted the ``stream.gather`` retries, it wedged past
 ``stream_timeout_s``, or it desynced) is rebuilt from the live
@@ -135,7 +143,9 @@ from fedtorch_tpu_torch.parallel.round_program import (
 from fedtorch_tpu_torch.robustness import (
     availability, chaos, host_recovery,
 )
-from fedtorch_tpu_torch.robustness.aggregators import robust_aggregate
+from fedtorch_tpu_torch.robustness.aggregators import (
+    cohort_statistics, robust_aggregate,
+)
 from fedtorch_tpu_torch.robustness.guards import (
     mask_bcast, renormalize_accepted, screen_payloads,
 )
@@ -156,7 +166,10 @@ class RoundPlan(NamedTuple):
     (the module docstring gives their order). ``noise`` is never drawn:
     it injects standard normals, by the port's leaf names, in place of
     those the seeds would draw (``{"dp": {...}}``, and for the gauss
-    attack ``{"deltas": {...}, "payloads": {...}}``)."""
+    attack ``{"deltas": {...}, "payloads": {...}}``). ``jobs`` is the
+    async plane's :class:`~fedtorch_tpu_torch.parallel.round_program.
+    CommitJobs` (the cohort's snapshot versions, dispatch ids and
+    straggler flags; None on the sync planes)."""
     idx: torch.Tensor                     # [k'] int64 dispatched client ids
     rows: torch.Tensor                    # [k', K*B] int64 storage rows
     flip: Optional[torch.Tensor] = None   # [k', K, B] bool
@@ -175,7 +188,7 @@ class RoundPlan(NamedTuple):
     byz_seed: Optional[int] = None        # the gauss attack's noise seed
     dp_seed: Optional[int] = None         # the DP noise's seed
     noise: Optional[dict] = None          # injected standard normals
-
+    jobs: Optional[tuple] = None          # the commit's CommitJobs (async)
 
 
 def draw_fault_plan(generator: torch.Generator, k: int, fault,
@@ -267,10 +280,14 @@ class PlanDrawer:
         self.fault, self.avail_sync = fault, avail_sync
 
     def __call__(self, generator: torch.Generator, round_idx: int,
-                 server_aux=None) -> RoundPlan:
+                 server_aux=None, idx: Optional[torch.Tensor] = None
+                 ) -> RoundPlan:
+        """The plan; ``idx`` (the async commit's buffered clients, [k])
+        takes the place of the cohort draw."""
         K, B, k = self.local_steps, self.batch_size, self.k
         alg, C = self.algorithm, len(self.sizes)
-        idx = alg.participation(generator, C, k, round_idx, server_aux)
+        if idx is None:
+            idx = alg.participation(generator, C, k, round_idx, server_aux)
         if idx is None:
             idx = participation_indices(generator, C, k, round_idx,
                                         self.participation_mode)
@@ -294,14 +311,10 @@ class PlanDrawer:
 
 
 def unported_features(cfg: ExperimentConfig) -> list:
-    """Names of the requested features this port does not have yet (the
-    async plane and client fusion are refused by the round-program
-    builder, as cells)."""
-    mesh = cfg.mesh
-    checks = [
-        (mesh.client_shards != 0, "client_shards"),
-        (cfg.telemetry.cohort_stats, "cohort stats"),
-    ]
+    """Names of the requested features this port does not have yet
+    (client fusion is refused by the round-program builder, as a
+    cell)."""
+    checks = [(cfg.mesh.client_shards != 0, "client_shards")]
     return [name for bad, name in checks if bad]
 
 
@@ -319,9 +332,21 @@ class FederatedTrainer:
     state, and :meth:`close` at the end (a dropped trainer closes its
     producer too)."""
 
+    # the async plane's trainer (async_plane/commit.py) serves the
+    # commit dispatch; this class serves rounds
+    supports_async = False
+    construction_dispatch = "round"
+
     def __init__(self, cfg: ExperimentConfig, model: ModelDef,
                  algorithm: FedAlgorithm, data: ClientData,
                  val_data: Optional[ClientData] = None, device=None):
+        if cfg.federated.sync_mode == "async" and not self.supports_async:
+            raise ValueError(
+                "sync_mode='async' is unsupported here: the base "
+                "FederatedTrainer is round-synchronous — build the "
+                "trainer through the CLI or fedtorch_tpu_torch."
+                "async_plane.AsyncFederatedTrainer; use --sync_mode sync "
+                "for this class")
         refused = unported_features(cfg)
         if refused:
             raise ValueError(f"{', '.join(refused)}: not yet ported")
@@ -337,8 +362,7 @@ class FederatedTrainer:
         self.data_plane = cfg.data.data_plane
         self.has_val = val_data is not None
         self.programs = RoundProgramBuilder(self)
-        self.programs.validate(
-            "commit" if cfg.federated.sync_mode == "async" else "round")
+        self.programs.validate(self.construction_dispatch)
         self.device = resolve_device(device)
         if model.sample_input.device != self.device:
             raise ValueError(f"the model lives on "
@@ -353,7 +377,9 @@ class FederatedTrainer:
         # round dispatches k' = ceil(over_select_frac * k_online)
         # clients and closes on the first k_online arrivals
         flt = cfg.fault
-        self.avail_sync = flt.avail_armed
+        # the async plane's arrivals come from its event scheduler, not
+        # the sync lifecycle
+        self.avail_sync = flt.avail_armed and not self.supports_async
         self.k_dispatch = max(math.ceil(
             flt.over_select_frac * self.k_online), self.k_online) \
             if self.avail_sync else self.k_online
@@ -380,7 +406,12 @@ class FederatedTrainer:
         # model's device classes) is hashed off a fault key in the
         # server aux
         self.fault_keyed = flt.byzantine_rate > 0.0 \
-            or (self.avail_sync and flt.avail_model == "trace")
+            or (self.avail_sync and flt.avail_model == "trace") \
+            or self.supports_async
+        # the federation plane's cohort statistics: per-client evidence
+        # at the aggregation seam and the heterogeneity gauges, riding
+        # the round's one batched fetch (off: the round is unchanged)
+        self.cohort_stats = bool(cfg.telemetry.cohort_stats)
         # the server aux is wrapped ({'alg': aux, ...}) when it carries
         # any of the norm_bound momentum, the DP noise scale or the key
         self.aux_wrapped = self.robust_momentum or self.dp_on \
@@ -515,6 +546,12 @@ class FederatedTrainer:
         augmentation draws and the algorithm's own draws."""
         if plan is None:
             plan = self.draw_plan(server)
+        return self._round_core(server, clients, plan,
+                                *self.gather_resident(plan))
+
+    def gather_resident(self, plan: RoundPlan):
+        """The plan's rows from the population on the device: (x, y,
+        pre_x, pre_y, shards) for :meth:`_round_core`."""
         data, dev = self.data, self.device
         idx = plan.idx.to(torch.int64)
         on = idx.to(dev)[:, None]
@@ -528,17 +565,12 @@ class FederatedTrainer:
             pre_x, pre_y = data.x[on, first], data.y[on, first]
         shards = [(data.x[c], data.y[c]) for c in idx.tolist()] \
             if self.algorithm.needs_full_loss else None
-        return self._round_core(server, clients, plan, data.x[on, rows],
-                                data.y[on, rows], pre_x, pre_y, shards)
+        return data.x[on, rows], data.y[on, rows], pre_x, pre_y, shards
 
-    def round_stream_fn(self, server: ServerState, clients: ClientState,
-                        feed: RoundFeed):
-        """One round on the stream plane, from a packed feed (rows and
-        plan on the host, tensors on the device): the round core of
-        :meth:`round_fn` on the feed's rows. ``server.rng`` is left as
-        it is; :meth:`run_round` advances it."""
-        dev = self.device
-        plan = RoundPlan(
+    @staticmethod
+    def feed_plan(feed: RoundFeed) -> RoundPlan:
+        """The round plan a packed feed carries."""
+        return RoundPlan(
             feed.idx.to(torch.int64), feed.rows, feed.flip, feed.tops,
             feed.lefts,
             None if feed.k_rand is None else int(feed.k_rand),
@@ -546,40 +578,72 @@ class FederatedTrainer:
             feed.probe_rows, drop_keys=feed.drop_keys,
             **{f: getattr(feed, f) for f in FAULT_TENSORS},
             **{f: None if getattr(feed, f) is None
-               else int(getattr(feed, f)) for f in FAULT_SEEDS})
-        x, y, shards = feed.x, feed.y, None
-        if self.feed_layout == "shard":
-            # whole shards: the round's rows are selected here
-            on = torch.arange(plan.idx.shape[0], device=dev)[:, None]
-            rows = plan.rows.to(dev)
-            x, y = feed.x[on, rows], feed.y[on, rows]
-            shards = list(zip(feed.x, feed.y))
+               else int(getattr(feed, f)) for f in FAULT_SEEDS},
+            jobs=feed.jobs)
+
+    def gather_feed(self, feed: RoundFeed, plan: RoundPlan):
+        """(x, y, shards) of a feed: its rows ('batch' layout), or the
+        plan's rows selected from its whole shards ('shard')."""
+        if self.feed_layout != "shard":
+            return feed.x, feed.y, None
+        on = torch.arange(plan.idx.shape[0], device=self.device)[:, None]
+        rows = plan.rows.to(self.device)
+        return feed.x[on, rows], feed.y[on, rows], list(zip(feed.x, feed.y))
+
+    def round_stream_fn(self, server: ServerState, clients: ClientState,
+                        feed: RoundFeed):
+        """One round on the stream plane, from a packed feed (rows and
+        plan on the host, tensors on the device): the round core of
+        :meth:`round_fn` on the feed's rows. ``server.rng`` is left as
+        it is; :meth:`run_round` advances it."""
+        plan = self.feed_plan(feed)
+        x, y, shards = self.gather_feed(feed, plan)
         return self._round_core(
             server, clients, plan, x, y, feed.pre_x, feed.pre_y, shards,
             probe=feed if feed.probe_idx is not None else None)
 
     def _round_core(self, server: ServerState, clients: ClientState,
                     plan: RoundPlan, x, y, pre_x, pre_y, shards=None,
-                    probe: Optional[RoundFeed] = None):
+                    probe: Optional[RoundFeed] = None, base_params=None,
+                    base_aux=None, weight_scale=None):
         """The round on gathered rows: ``x``/``y`` [k', K*B, ...] in plan
         order, ``pre_x``/``pre_y`` [k', B, ...] (when ``pre_round``
         runs), ``shards`` each dispatched client's (x, y) shard (qFFL's
         full loss), ``probe`` the feed whose probe batches DRFA's dual
         update takes (None: ``post_round_global`` on the resident
-        data)."""
+        data).
+
+        The commit seam (``parallel/round_program.py``, the async
+        plane's commit): ``base_params``/``base_aux`` give each client
+        its own server snapshot (lists of k trees: the params and the
+        server aux of the commit version it trained against), read by
+        every local hook in place of the live server state;
+        ``weight_scale`` [k] (the staleness weights) is composed into the
+        aggregation weights before the guards' renormalization; the
+        straggler step cut is neutralized (an async straggler arrived
+        late instead) and the DP noise is calibrated to the commit's
+        width. None, the default, runs the synchronous round."""
         alg, dev, flt = self.algorithm, self.device, self.fault
         K, B, C = self.local_steps, self.batch_size, self.num_clients
+        commit = base_params is not None
         extras = {}
         if self.aux_wrapped:
             # every algorithm hook reads the unwrapped aux
             extras = {n: v for n, v in server.aux.items() if n != "alg"}
             server = server._replace(aux=server.aux["alg"])
+            if base_aux is not None:
+                base_aux = [a["alg"] for a in base_aux]
         idx = plan.idx.to(torch.int64)
         k = idx.shape[0]
         num_online_eff = num_online_effective(idx)
         on_sizes = torch.tensor([self.sizes[c] for c in idx.tolist()])
         weights = alg.client_weights(server.aux, idx, num_online_eff,
                                      on_sizes).to(dev)
+        if weight_scale is not None:
+            # the staleness weights, composed into the aggregation
+            # weights: the renormalization redistributes the composed
+            # weight
+            weights = weights * weight_scale.to(dev)
         rows_dev = idx.to(dev)
         if self.augment:
             draws = [t.to(dev) for t in (plan.flip, plan.tops, plan.lefts)]
@@ -592,6 +656,9 @@ class FederatedTrainer:
         cplan = chaos.draw_chaos_plan(k, flt, plan.u_crash, plan.u_strag,
                                       plan.u_nan) \
             if self.chaos_on else chaos.no_chaos_plan(k)
+        if commit:
+            # an async straggler already arrived late: no step cut too
+            cplan = cplan._replace(budget_scale=torch.ones(k))
         if flt.byzantine_rate > 0.0:
             # the run's fixed cohort; the plan carries its online slice
             cplan = cplan._replace(byzantine=self._byzantine_cohort(
@@ -638,13 +705,17 @@ class FederatedTrainer:
                 # a straggler's cut, in float32 as the JAX package's
                 budget = max(math.ceil(float(
                     np.float32(budget) * np.float32(budget_scale[j]))), 1)
-            full_loss = self._full_loss(server.params, *shards[j], size) \
+            # the client's server snapshot: the live state on the sync
+            # planes, its dispatch version's on the commit
+            base_p = base_params[j] if commit else server.params
+            base_a = base_aux[j] if commit else server.aux
+            full_loss = self._full_loss(base_p, *shards[j], size) \
                 if alg.needs_full_loss else None
             xj, yj = x[j], y[j]
             if alg.needs_val_batch:
                 vx = self.val_data.x[c][vrows[j]]
                 vy = self.val_data.y[c][vrows[j]]
-            params, aux = server.params, tree_take(on_aux, j)
+            params, aux = base_p, tree_take(on_aux, j)
             opt = tree_take(clients.opt, c)
             epoch, li = clients.epoch[c], clients.local_index[c]
             # a recurrent model's hidden state: fresh each round, carried
@@ -663,7 +734,7 @@ class FederatedTrainer:
                     else int(plan.drop_keys[j, s])
                 params, opt, aux, carry, loss, acc = alg.local_step(
                     params=params, opt=opt, client_aux=aux, rnn_carry=carry,
-                    server_params=server.params, server_aux=server.aux,
+                    server_params=base_p, server_aux=base_a,
                     bx=bx, by=by, bval_x=bvx, bval_y=bvy, lr=lr,
                     step_idx=s, local_index=li, step_budget=budget,
                     rng=rng)
@@ -672,10 +743,10 @@ class FederatedTrainer:
                 step_loss.append(loss)
                 step_acc.append(acc)
             with torch.no_grad():
-                delta = tree_sub(server.params, params)
+                delta = tree_sub(base_p, params)
                 payload, aux = alg.client_payload(
                     delta=delta, client_aux=aux, params=params,
-                    server_params=server.params, server_aux=server.aux,
+                    server_params=base_p, server_aux=base_a,
                     lr=lr_at(self.schedule, epoch), local_steps=budget,
                     weight=weights[j], full_loss=full_loss)
             payloads.append(payload)
@@ -713,19 +784,20 @@ class FederatedTrainer:
                 stacked = chaos.poison_tree(stacked, nan_dev)
             survive_dev = survive.to(dev) \
                 if self.chaos_on or self.avail_sync else None
-            payload_sum, new_robust_m, fault_counts, accept, dp_frac = \
-                self._aggregate(stacked, wire_deltas, weights,
-                                extras.get("norm_bound_m"), survive_dev)
+            payload_sum, new_robust_m, fault_counts, accept, dp_frac, \
+                cohort = self._aggregate(stacked, wire_deltas, weights,
+                                         extras.get("norm_bound_m"),
+                                         survive_dev)
             # the downlink wire format, once, whatever the rule
             payload_sum = alg.aggregate_transform(payload_sum)
             dp_sigma = None
             if self.dp_on:
                 # noise on the released estimate, at the round's real
-                # width k_online
+                # width: k_online, or the commit's buffer m
                 scale = extras["dp_noise_scale"]
                 sigma = dp_noise_stddev(self.fault.dp_noise_multiplier,
                                         self.fault.dp_clip_norm,
-                                        self.k_online)
+                                        k if commit else self.k_online)
                 payload_sum = dp_add_noise(
                     payload_sum, plan.dp_seed, weights, sigma, scale,
                     noise=(plan.noise or {}).get("dp"))
@@ -768,7 +840,7 @@ class FederatedTrainer:
 
             metrics = self._round_metrics(
                 server, k, rows_dev, losses, accs, cplan, survive, avail,
-                accept, fault_counts, dp_frac, dp_sigma)
+                accept, fault_counts, dp_frac, dp_sigma, cohort)
         new_server = ServerState(params=new_params, opt=new_opt,
                                  aux=new_saux, round=server.round + 1,
                                  rng=server.rng)
@@ -788,12 +860,14 @@ class FederatedTrainer:
 
     def _round_metrics(self, server, k, rows_dev, losses, accs, cplan,
                        survive, avail, accept, fault_counts, dp_frac,
-                       dp_sigma) -> RoundMetrics:
+                       dp_sigma, cohort=None) -> RoundMetrics:
         """The round's :class:`RoundMetrics`: per-client leaves of the
         reporters ('perm': scattered into [C]; 'sparse': the [k']
-        rows), the uplink bytes of the reporters, and the fault
-        planes' counts (the chaos and availability counts known on the
-        host, moved in one copy)."""
+        rows), the uplink bytes of the reporters, the fault planes'
+        counts (the chaos and availability counts known on the host,
+        moved in one copy) and, with cohort statistics on, the cohort
+        fields (the staleness the sync planes' zeros; the commit
+        overwrites it)."""
         dev, flt, C = self.device, self.fault, self.num_clients
         if self.chaos_on or self.avail_sync:
             online = torch.ones(k)
@@ -841,6 +915,17 @@ class FederatedTrainer:
         dropped, stragglers, staleness, byz, avail_dropped, missed = \
             host.unbind()
         rejected, clipped, selected, trimmed = fault_counts.unbind()
+        cohort_fields = {}
+        if cohort is not None:
+            cohort_fields = dict(
+                cohort_idx=rows_dev.to(torch.int32),
+                cohort_online=online_k * torch.ones(k, device=dev),
+                cohort_accept=cohort["accept"],
+                cohort_selected=cohort["sel"],
+                cohort_suspicion=cohort["susp"],
+                cohort_staleness=torch.zeros(k, device=dev),
+                cohort_norm_q=cohort["norm_q"],
+                cohort_dispersion=cohort["disp"])
         return RoundMetrics(
             train_loss=loss_m, train_acc=acc_m, online_mask=mask_m,
             comm_bytes=comm_bytes, dropped_clients=dropped,
@@ -851,7 +936,7 @@ class FederatedTrainer:
             deadline_missed=missed, quorum_degraded=quorum,
             dp_clipped_frac=None if dp_frac is None
             else dp_frac.to(torch.float32),
-            dp_noise_sigma=dp_sigma)
+            dp_noise_sigma=dp_sigma, **cohort_fields)
 
     def _aggregate(self, stacked, wire_deltas, weights, robust_m, survive):
         """The aggregation seam on the stacked [k'] wire payloads:
@@ -862,7 +947,9 @@ class FederatedTrainer:
         renormalized over the accepted clients. Returns (sum, the new
         ``norm_bound`` momentum or None, the [4] counts rejected,
         clipped, selected, trimmed, the accept mask or None, the DP
-        clip's share or None)."""
+        clip's share or None, and with cohort statistics on the cohort's
+        evidence: the accept and selection masks, the suspicion, the
+        update-norm quantiles and the dispersion; else None)."""
         k = weights.shape[0]
         counts = torch.zeros(4, device=weights.device)
         accept = None
@@ -882,19 +969,34 @@ class FederatedTrainer:
             # every reporter's sensitivity bounded before any rule
             stacked, dp_frac = dp_clip_payloads(
                 stacked, weights, accept, self.fault.dp_clip_norm)
+        accept_f = accept if accept is not None \
+            else torch.ones_like(weights)
+        cohort = None
         if self.robust_rule != "mean":
             payload_sum, new_m, rep = robust_aggregate(
-                self.robust_rule, stacked, weights,
-                accept if accept is not None else torch.ones_like(weights),
-                self.fault, momentum=robust_m)
+                self.robust_rule, stacked, weights, accept_f, self.fault,
+                momentum=robust_m, per_client=self.cohort_stats)
             counts[2], counts[3] = rep.selected, rep.trimmed
-            return payload_sum, new_m, counts, accept, dp_frac
+            if self.cohort_stats:
+                # the rule's own evidence is the suspicion; the gauges
+                # come from the shared cohort statistics
+                cs = cohort_statistics(stacked, weights, accept_f)
+                cohort = {"accept": accept_f, "sel": rep.sel_mask,
+                          "susp": rep.suspicion, "norm_q": cs.norm_q,
+                          "disp": cs.dispersion}
+            return payload_sum, new_m, counts, accept, dp_frac, cohort
         payload_sum = tree_map(lambda p: p.sum(dim=0), stacked)
         if accept is not None:
             # rejected weight redistributed over the accepted clients;
             # an all-rejected round sums to 0 and the server holds
             payload_sum = renormalize_accepted(payload_sum, weights, accept)
-        return payload_sum, None, counts, accept, dp_frac
+        if self.cohort_stats:
+            cs = cohort_statistics(stacked, weights, accept_f)
+            cohort = {"accept": accept_f,
+                      "sel": accept_f * (weights > 0.0).to(accept_f.dtype),
+                      "susp": cs.suspicion, "norm_q": cs.norm_q,
+                      "disp": cs.dispersion}
+        return payload_sum, None, counts, accept, dp_frac, cohort
 
     def _full_loss(self, params, x, y, size: int) -> torch.Tensor:
         """qFFL's F_k: the SUM of the per-batch mean losses over one
@@ -918,14 +1020,19 @@ class FederatedTrainer:
 
     def round_host_scalars(self, clients: ClientState,
                            metrics: RoundMetrics,
-                           extra: Optional[dict] = None) -> dict:
+                           extra: Optional[dict] = None,
+                           ledger: bool = False):
         """Everything the CLI's round loop logs, in one transfer (which
         waits for the round): the mean training epoch over the clients,
         the learning rate at it, the reporters' count, loss and accuracy
         sums, the uplink bytes and the fault planes' counts (the JAX
-        package's ``round_scalars_dev``), with DP armed the clip's share
-        and the applied noise stddev, and ``extra``'s 0-d tensors by
-        name (the supervisor's finite flag rides the same transfer)."""
+        package's ``round_scalars_dev``), with cohort statistics on the
+        dispersion, with DP armed the clip's share and the applied noise
+        stddev, and ``extra``'s 0-d tensors by name (the supervisor's
+        finite flag rides the same transfer). ``ledger=True`` returns
+        ``(scalars, vectors)``: the ledger's cohort vectors
+        (:meth:`cohort_vectors`, None with stats off) ride the same
+        transfer (ids as float32: exact below 2^24 clients)."""
         mean_epoch = clients.epoch.mean()
         names = ["mean_epoch", "lr", "n_online", "loss_sum", "acc_sum",
                  "comm_bytes", "dropped", "stragglers", "rejected",
@@ -941,14 +1048,49 @@ class FederatedTrainer:
                 metrics.robust_selected, metrics.robust_trimmed,
                 metrics.avail_dropped, metrics.deadline_missed,
                 metrics.quorum_degraded]
+        if metrics.cohort_dispersion is not None:
+            names.append("cohort_dispersion")
+            vals.append(metrics.cohort_dispersion)
         if metrics.dp_clipped_frac is not None:
             names += ["dp_clipped_frac", "dp_noise_sigma"]
             vals += [metrics.dp_clipped_frac, metrics.dp_noise_sigma]
         for name, v in (extra or {}).items():
             names.append(name)
             vals.append(v.to(mean_epoch.device))
-        return dict(zip(names, torch.stack(
-            [v.to(torch.float32) for v in vals]).tolist()))
+        flat = torch.stack([v.to(torch.float32) for v in vals])
+        vecs = self.cohort_vectors(metrics) if ledger else None
+        if vecs is not None:
+            flat = torch.cat([flat] + [v.to(torch.float32).reshape(-1)
+                                       for v in vecs.values()])
+        host = flat.tolist()
+        sc = dict(zip(names, host[:len(names)]))
+        if not ledger:
+            return sc
+        led = None
+        if vecs is not None:
+            led, at = {}, len(names)
+            for name, v in vecs.items():
+                led[name] = np.asarray(host[at:at + v.numel()],
+                                       np.float32).reshape(v.shape)
+                at += v.numel()
+            led["idx"] = led["idx"].astype(np.int64)
+        return sc, led
+
+    @staticmethod
+    def cohort_vectors(metrics: RoundMetrics) -> Optional[dict]:
+        """The ledger's per-client cohort vectors on the device (the
+        JAX package's ``cohort_fetch_dev``): the cohort's ids, its
+        online, accept and selection masks, the rule's suspicion, the
+        per-job staleness and the [5] update-norm quantiles; None with
+        cohort statistics off."""
+        if metrics.cohort_idx is None:
+            return None
+        return {"idx": metrics.cohort_idx, "online": metrics.cohort_online,
+                "accept": metrics.cohort_accept,
+                "selected": metrics.cohort_selected,
+                "suspicion": metrics.cohort_suspicion,
+                "staleness": metrics.cohort_staleness,
+                "norm_q": metrics.cohort_norm_q}
 
     @property
     def metrics_width(self) -> int:
@@ -964,14 +1106,19 @@ class FederatedTrainer:
                            value: float) -> ServerState:
         """The server with its DP noise scale set to ``value`` (the
         budget's 'degrade' sets 0.0: the round keeps clipping and stops
-        noising)."""
+        noising); under the async plane's ring wrap too."""
         if not self.dp_on:
             raise ValueError(
                 "dp_set_noise_scale on a trainer without DP armed "
                 "(fault.dp_noise_multiplier == 0)")
-        leaf = server.aux["dp_noise_scale"]
-        aux = dict(server.aux, dp_noise_scale=torch.tensor(
+        aux, ring = server.aux, None
+        if "ring" in aux:
+            ring, aux = aux["ring"], aux["alg"]
+        leaf = aux["dp_noise_scale"]
+        aux = dict(aux, dp_noise_scale=torch.tensor(
             value, dtype=torch.float32, device=leaf.device))
+        if ring is not None:
+            aux = {"alg": aux, "ring": ring}
         return server._replace(aux=aux)
 
     # -- the stream plane's feeds ------------------------------------------
@@ -988,8 +1135,7 @@ class FederatedTrainer:
             self._stream = StreamFeedProducer(
                 self.host_store, batch_size=self.batch_size,
                 start_round=server.round,
-                schedule=RoundSchedule(self.plan_drawer(), server.rng,
-                                       server.round),
+                schedule=self._stream_schedule(server),
                 depth=self.stream_depth, window=window,
                 feed_layout=self.feed_layout, device=self.device,
                 timeout_s=self.stream_timeout_s)
@@ -999,6 +1145,19 @@ class FederatedTrainer:
             self._stream_finalizer = weakref.finalize(
                 self, StreamFeedProducer.close, self._stream)
         return self._stream.next_feed()
+
+    def _stream_schedule(self, server: ServerState) -> RoundSchedule:
+        """The producer's plan schedule from the live generator and
+        round (the async trainer's draws commits)."""
+        return RoundSchedule(self.plan_drawer(), server.rng, server.round)
+
+    def peek_plan(self, server: ServerState,
+                  generator: torch.Generator) -> RoundPlan:
+        """The plan the next round on ``server`` draws, drawn from
+        ``generator`` (a clone of ``server.rng``: the supervisor learns
+        which clients' rows the round writes)."""
+        return self.plan_drawer()(generator, server.round,
+                                  self._alg_aux(server.aux))
 
     def consume_stream_round(self, server: ServerState,
                              clients: ClientState, item: StreamItem,
@@ -1061,6 +1220,11 @@ class FederatedTrainer:
         if self.data_plane == "stream":
             out["stream_rebuilds"] = float(self._stream_rebuilds)
         return out
+
+    def staleness_histogram(self) -> Optional[dict]:
+        """The async plane's staleness histogram; None on the sync
+        planes."""
+        return None
 
     def _pop_stream_with_rebuild(self, pop):
         """Self-healing feed pop: when the producer fails — its thread

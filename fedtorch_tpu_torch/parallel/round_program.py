@@ -14,21 +14,29 @@ function that serves each.
 
 :func:`validate_cell` is the one place a cell is refused: with the JAX
 package's reason where the JAX package refuses it, and as not yet
-ported for the commit dispatch (ROADMAP A8) and the fused execution
-(ROADMAP A9). The port has no pod-scale client shards (ROADMAP A10)
-and no ``gather_mode``, so those rules of the JAX validator have no
-counterpart here.
+ported for the fused execution (ROADMAP A9). The port has no pod-scale
+client shards (ROADMAP A10) and no ``gather_mode``, so those rules of
+the JAX validator have no counterpart here.
 
 On the port a "scan" is a host loop over the R rounds (over one feed
 window on the feed source), not a captured graph: the per-client loop
-syncs with the host.
+syncs with the host. The commit is the JAX package's ``_commit_core``:
+each buffered job's server snapshot taken from the snapshot ring (views
+of its slot, no copy), the staleness weights, the round core through its
+commit seam, then the ring rotated out of place with the new version.
+Where the JAX package keys each job's training stream by its dispatch id
+(``ASYNC_TRAIN_SALT``), the port draws each commit's rows, augmentation
+and fault draws from the server's generator, one commit after another,
+as its sync rounds draw theirs; so it has no ``ASYNC_TRAIN_SALT``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from fedtorch_tpu_torch.algorithms.base import FedAlgorithm
-from fedtorch_tpu_torch.core.state import RoundMetrics
+from fedtorch_tpu_torch.core.state import RoundMetrics, tree_map, tree_take
 
 SOURCES = ("resident", "feed")
 DISPATCHES = ("round", "scan", "commit")
@@ -38,10 +46,16 @@ EXECUTIONS = ("vmap", "fused")
 ASYNC_ALGORITHMS = ("fedavg", "fedprox", "fedadam", "scaffold")
 
 NOT_PORTED = {
-    "commit": ("the commit dispatch (sync_mode='async', the async plane) "
-               "is not yet ported (ROADMAP A8)"),
     "fused": "client_fusion='fused' is not yet ported (ROADMAP A9)",
 }
+
+
+class CommitJobs(NamedTuple):
+    """One commit's buffered updates (all [m], CPU tensors)."""
+    idx: torch.Tensor        # int64 client ids (distinct)
+    version: torch.Tensor    # int64 snapshot version each trained on
+    dispatch: torch.Tensor   # int64 global dispatch counter
+    straggler: torch.Tensor  # float32 {0,1} tail-delay dispatches
 
 
 def cell_name(source: str, dispatch: str, execution: str) -> str:
@@ -132,8 +146,6 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
                     "(cfg.federated.personal) are not streamed yet")
 
     # -- what the port has not ported ------------------------------------
-    if dispatch == "commit":
-        return NOT_PORTED["commit"]
     if execution == "fused":
         return NOT_PORTED["fused"]
     return None
@@ -178,6 +190,10 @@ class RoundProgramBuilder:
     resident scan-of-R  ``fn(server, clients)``: R ``round_fn`` calls
     feed     scan-of-R  ``fn(server, clients)``: one feed window, R
                         ``round_stream_fn`` calls
+    resident commit     ``fn(server, clients, plan)``: the commit on
+                        the plan's rows gathered on the device
+    feed     commit     ``fn(server, clients, feed)``: the commit on
+                        a commit-keyed feed
     ======== ========== =========================================
     """
 
@@ -204,6 +220,8 @@ class RoundProgramBuilder:
         if dispatch == "round":
             return self._t.round_fn if self.source == "resident" \
                 else self._t.round_stream_fn
+        if dispatch == "commit":
+            return self._commit_program()
         return self._scan_program(scan_length)
 
     def _scan_program(self, num_rounds: int):
@@ -226,3 +244,69 @@ class RoundProgramBuilder:
                     history.append(metrics)
                 return server, clients, stack_metrics(history)
         return rounds_fn
+
+    # -- commit dispatch --------------------------------------------------
+    def _commit_program(self):
+        """The async plane's buffered commit: each job's rows gathered
+        (on the device, or from the commit-keyed feed), then the round
+        core once through its commit seam."""
+        t = self._t
+        if self.source == "resident":
+            def commit_fn(server, clients, plan):
+                x, y, pre_x, pre_y, shards = t.gather_resident(plan)
+                return self._commit_core(server, clients, plan, x, y,
+                                         pre_x, pre_y, shards)
+        else:
+            def commit_fn(server, clients, feed):
+                plan = t.feed_plan(feed)
+                x, y, shards = t.gather_feed(feed, plan)
+                return self._commit_core(server, clients, plan, x, y,
+                                         feed.pre_x, feed.pre_y, shards)
+        return commit_fn
+
+    def _commit_core(self, server, clients, plan, x, y, pre_x, pre_y,
+                     shards):
+        """Unwrap the snapshot ring, take each job's snapshot, run the
+        round core through its commit seam, rotate the ring."""
+        # lazy: the async plane's package imports parallel.federated,
+        # which imports this module
+        from fedtorch_tpu_torch.async_plane.staleness import (
+            normalized_staleness_weights,
+        )
+        t = self._t
+        fed = t.cfg.federated
+        jobs = plan.jobs
+        ring = server.aux["ring"]
+        inner = server._replace(aux=server.aux["alg"])
+        R = t.snapshot_ring
+        slots = (jobs.version % R).tolist()
+        base_params = [tree_take(ring["params"], s) for s in slots]
+        base_aux = [tree_take(ring["aux"], s) for s in slots]
+        stale = (server.round - jobs.version).to(torch.float32)
+        weight_scale = normalized_staleness_weights(
+            stale, fed.staleness_weight, fed.staleness_exponent)
+        new_inner, clients, metrics = t._round_core(
+            inner, clients, plan, x, y, pre_x, pre_y, shards,
+            base_params=base_params, base_aux=base_aux,
+            weight_scale=weight_scale)
+        # the new version overwrites the ring's oldest slot, out of place
+        # (a snapshot of the previous server keeps its ring)
+        slot = torch.tensor([new_inner.round % R])
+
+        def rotate(r, v):
+            if not isinstance(r, torch.Tensor):
+                return r
+            return r.index_copy(0, slot.to(r.device), v[None].to(r.device))
+        new_ring = {"params": tree_map(rotate, ring["params"],
+                                       new_inner.params),
+                    "aux": tree_map(rotate, ring["aux"], new_inner.aux)}
+        new_server = new_inner._replace(
+            aux={"alg": new_inner.aux, "ring": new_ring})
+        dev = t.device
+        metrics = metrics._replace(
+            straggler_clients=jobs.straggler.sum().to(dev),
+            staleness_mean=stale.mean().to(dev))
+        if metrics.cohort_staleness is not None:
+            # each job's commit staleness in place of the sync zeros
+            metrics = metrics._replace(cohort_staleness=stale.to(dev))
+        return new_server, clients, metrics

@@ -76,10 +76,14 @@ MODULE_MAP = {
               "telemetry/runtime.py", "telemetry/schema.py",
               "telemetry/spans.py", "utils/checkpoint.py",
               "utils/diagnostics.py"),
-    **_rows("queued", "ROADMAP A7: its second half, the federation "
-            "plane's observers",
-            "telemetry/anomaly.py", "telemetry/critical_path.py",
-            "telemetry/ledger.py"),
+    # the federation plane's observers (ROADMAP A7, second half) and the
+    # async plane (A8). async_plane/commit.py's lowered_cost_programs has
+    # no port: it lowers the commit program for XLA's cost analysis
+    # (telemetry/costs.py, no port below)
+    **_ported("telemetry/anomaly.py", "telemetry/critical_path.py",
+              "telemetry/ledger.py",
+              "async_plane/__init__.py", "async_plane/commit.py",
+              "async_plane/scheduler.py", "async_plane/staleness.py"),
     **_rows("no port", "a separate program that reads run directories; "
             "the port writes the telemetry schema, so it reads port runs "
             "without the port importing it",
@@ -90,9 +94,6 @@ MODULE_MAP = {
             "torch-profiler analog only if a later item needs one "
             "(ROADMAP A7)",
             "telemetry/costs.py", "tools/trace_attrib.py"),
-    **_rows("queued", "ROADMAP A8: the async plane",
-            "async_plane/__init__.py", "async_plane/commit.py",
-            "async_plane/scheduler.py", "async_plane/staleness.py"),
     **_rows("queued", "ROADMAP A9: client fusion",
             "parallel/fusion.py"),
     **_rows("queued", "ROADMAP A10: multi-GPU on torch.distributed",

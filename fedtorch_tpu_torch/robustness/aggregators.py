@@ -22,20 +22,24 @@ the round (``parallel/federated.py``):
 Payloads arrive client-weighted (``w_i * u_i``): the statistics run on
 ``u_i = payload_i / w_i`` and every estimate is rescaled by the round's
 total weight ``W = sum(w)``, so each rule keeps the round's weight and
-identical updates give the mean's answer. The per-client evidence the
-JAX package reports with its cohort statistics is not ported (the port
-refuses ``cohort_stats``).
+identical updates give the mean's answer. With ``per_client=True``
+(the engine's ``cohort_stats``) each rule also reports the per-client
+evidence it computed (:class:`RobustReport`), and
+:func:`cohort_statistics` gives the cohort's heterogeneity gauges; the
+aggregate is the same either way.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from fedtorch_tpu_torch.config import ROBUST_AGGREGATORS
 from fedtorch_tpu_torch.core.state import tree_leaves, tree_map
 from fedtorch_tpu_torch.robustness.guards import (
-    _is_float, mask_bcast as _bcast, nanmedian, renormalize_accepted,
+    _is_float, mask_bcast as _bcast, nanmedian, nanquantile,
+    renormalize_accepted,
 )
 # stand-in for +inf in the distance matrix: never wins an argmin, and k
 # of them sum without overflowing float32
@@ -43,9 +47,25 @@ _BIG = 1e30
 
 
 class RobustReport(NamedTuple):
-    """What the rule did this round (device scalars)."""
+    """What the rule did this round (device tensors). ``sel_mask`` and
+    ``suspicion`` are filled only under ``per_client=True``; suspicion
+    per rule:
+
+    * ``mean``/``median``: l2 distance of the unit update to the
+      (weighted mean | coordinate median) estimate over the candidates'
+      median distance (honest cluster ~1, outliers >> 1);
+    * ``krum``/``multikrum``: the Krum score over the candidates' median
+      score;
+    * ``trimmed_mean``: the fraction of the client's coordinates the
+      trim window excluded;
+    * ``norm_bound``: distance to the momentum over the clip radius
+      (> 1: clipped).
+
+    Non-candidates (crashed, guard-rejected, zero weight) score 0."""
     selected: torch.Tensor  # updates the rule aggregated
     trimmed: torch.Tensor   # updates excluded or clipped beyond the guards
+    sel_mask: Optional[torch.Tensor] = None   # [k] {0,1} aggregated
+    suspicion: Optional[torch.Tensor] = None  # [k] suspicion score
 
 
 def _unit_updates(payloads, weights: torch.Tensor):
@@ -152,13 +172,84 @@ def _trimmed_window(a: torch.Tensor, frac: float):
     return lo, hi, torch.clamp(hi - lo, min=1.0)
 
 
+def _nan_where_not(candb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(candb, x, torch.full_like(x, float("nan")))
+
+
+def _normalized_score(score: torch.Tensor, candb: torch.Tensor
+                      ) -> torch.Tensor:
+    """Score over the candidates' median score (scale-free: the honest
+    cluster ~1); non-candidates and a degenerate round score 0."""
+    med = nanmedian(_nan_where_not(candb, score))
+    s = score / torch.clamp(med, min=1e-30)
+    return torch.where(torch.isnan(s) | ~candb, torch.zeros_like(s), s)
+
+
+class CohortStats(NamedTuple):
+    """The heterogeneity gauges of one round's accepted cohort."""
+    norm_q: torch.Tensor      # [5] unit-update-norm quantiles
+                              # (min, q25, median, q75, max)
+    dispersion: torch.Tensor  # 0-d: 1 - mean cos(u_i, weighted mean)
+    suspicion: torch.Tensor   # [k] normalized distance to the mean
+
+
+_QUANTILES = (0.0, 0.25, 0.5, 0.75, 1.0)
+
+
+def cohort_statistics(payloads, weights: torch.Tensor,
+                      accept: torch.Tensor) -> CohortStats:
+    """The cohort statistics over the stacked ``[k]`` payloads at the
+    aggregation seam, on the unit updates of the accepted candidates:
+    update-norm quantiles, the cosine dispersion (an IID cohort reads
+    ~0), and the distance to the weighted mean as suspicion (the
+    ``mean`` rule's evidence). Leaf by leaf (``||u_i||^2``,
+    ``<u_i, mean>``, ``||mean||^2``; the distance by the inner-product
+    expansion), with no [k, D] concatenation."""
+    cand = accept * (weights > 0.0).to(accept.dtype)
+    candb = cand.to(torch.bool)
+    unit = _unit_updates(payloads, weights)
+    w = weights * cand
+    W = torch.clamp(w.sum(), min=1e-30)
+    k = weights.shape[0]
+    dev = weights.device
+    sq = torch.zeros(k, device=dev)   # ||u_i||^2
+    dot = torch.zeros(k, device=dev)  # <u_i, mean>
+    msq = torch.zeros((), device=dev)  # ||mean||^2
+    for u in tree_leaves(unit):
+        if not _is_float(u):
+            continue
+        uf = u.to(torch.float32)
+        dims = tuple(range(1, uf.dim()))
+        mean_l = (uf * _bcast(w, uf)).sum(dim=0) / W
+        sq = sq + (uf * uf).sum(dim=dims) if dims else sq + uf * uf
+        dot = dot + ((uf * mean_l[None]).sum(dim=dims) if dims
+                     else uf * mean_l[None])
+        msq = msq + (mean_l * mean_l).sum()
+    norms = torch.sqrt(sq)
+    masked = _nan_where_not(candb, norms)
+    norm_q = torch.stack([nanquantile(masked, q) for q in _QUANTILES])
+    norm_q = torch.where(torch.isnan(norm_q), torch.zeros_like(norm_q),
+                         norm_q)
+    mnorm = torch.sqrt(msq)
+    cos = dot / torch.clamp(norms * mnorm, min=1e-30)
+    dispersion = 1.0 - (cos * cand).sum() / torch.clamp(cand.sum(),
+                                                          min=1.0)
+    # ||u_i - mean||^2 = ||u_i||^2 - 2<u_i, mean> + ||mean||^2, clamped
+    dist = torch.sqrt(torch.clamp(sq - 2.0 * dot + msq, min=0.0))
+    return CohortStats(norm_q=norm_q, dispersion=dispersion,
+                       suspicion=_normalized_score(dist, candb))
+
+
 def robust_aggregate(rule: str, payloads, weights: torch.Tensor,
-                     accept: torch.Tensor, fault, momentum=None):
+                     accept: torch.Tensor, fault, momentum=None,
+                     per_client: bool = False):
     """Aggregate the stacked ``[k, ...]`` payloads under ``rule``:
     ``accept`` the engine's {0,1} mask, ``weights`` the aggregation
-    weights. Returns ``(payload_sum, new_momentum, RobustReport)``, the
+    weights (the algorithm's base weights x the async staleness
+    weights). Returns ``(payload_sum, new_momentum, RobustReport)``, the
     sum scaled to the full round weight ``sum(weights)``; the momentum is
-    None except under ``norm_bound``."""
+    None except under ``norm_bound``. ``per_client=True`` also fills the
+    report's ``sel_mask`` and ``suspicion``; the sum is unchanged."""
     if rule not in ROBUST_AGGREGATORS:
         raise ValueError(f"unknown robust_agg {rule!r}; expected one of "
                          f"{ROBUST_AGGREGATORS}")
@@ -172,19 +263,27 @@ def robust_aggregate(rule: str, payloads, weights: torch.Tensor,
     if rule == "mean":
         payload_sum = renormalize_accepted(_masked_sum(payloads, cand),
                                            weights, cand)
-        return payload_sum, None, RobustReport(selected=a, trimmed=zero)
+        rep = RobustReport(selected=a, trimmed=zero)
+        if per_client:
+            cs = cohort_statistics(payloads, weights, accept)
+            rep = rep._replace(sel_mask=cand, suspicion=cs.suspicion)
+        return payload_sum, None, rep
 
     unit = _unit_updates(payloads, weights)
     if rule in ("krum", "multikrum"):
-        sel, _ = krum_selection(unit, cand, fault.robust_trim_frac,
-                                multi=rule == "multikrum")
+        sel, scores = krum_selection(unit, cand, fault.robust_trim_frac,
+                                     multi=rule == "multikrum")
         # the selection rides the same renormalization as the guards'
         # rejections: the selected clients carry the full round weight
         payload_sum = renormalize_accepted(_masked_sum(payloads, sel),
                                            weights, sel)
         n_sel = sel.sum()
-        return payload_sum, None, RobustReport(
-            selected=n_sel, trimmed=torch.clamp(a - n_sel, min=0.0))
+        rep = RobustReport(selected=n_sel,
+                           trimmed=torch.clamp(a - n_sel, min=0.0))
+        if per_client:
+            rep = rep._replace(sel_mask=sel,
+                               suspicion=_normalized_score(scores, candb))
+        return payload_sum, None, rep
 
     def masked(u, fill):
         return torch.where(_bcast(candb, u), u.to(torch.float32),
@@ -194,14 +293,29 @@ def robust_aggregate(rule: str, payloads, weights: torch.Tensor,
         return torch.where(_bcast(candb, u), u, torch.zeros_like(u)).sum(0)
 
     if rule == "median":
+        def med(u):
+            m = nanmedian(masked(u, float("nan")), dim=0)
+            return torch.where(torch.isnan(m), torch.zeros_like(m), m) \
+                .to(u.dtype)
+
         def agg(u):
             if not _is_float(u):
                 return candidates_sum(u)
-            m = nanmedian(masked(u, float("nan")), dim=0)
-            m = torch.where(torch.isnan(m), torch.zeros_like(m), m)
-            return (m.to(u.dtype).to(torch.float32) * W).to(u.dtype)
-        return tree_map(agg, unit), None, RobustReport(selected=a,
-                                                       trimmed=zero)
+            return (med(u).to(torch.float32) * W).to(u.dtype)
+        rep = RobustReport(selected=a, trimmed=zero)
+        if per_client:
+            # distance to the coordinate-median estimate
+            sq = zero
+            for u in tree_leaves(unit):
+                if not _is_float(u):
+                    continue
+                diff = u.to(torch.float32) - med(u)[None].to(torch.float32)
+                sq = sq + torch.square(diff).reshape(
+                    diff.shape[0], -1).sum(dim=1)
+            rep = rep._replace(
+                sel_mask=cand,
+                suspicion=_normalized_score(torch.sqrt(sq), candb))
+        return tree_map(agg, unit), None, rep
 
     if rule == "trimmed_mean":
         lo, hi, width = _trimmed_window(a, fault.robust_trim_frac)
@@ -217,8 +331,28 @@ def robust_aggregate(rule: str, payloads, weights: torch.Tensor,
             keep = (i >= lo) & (i < hi)
             s = torch.where(keep, srt, torch.zeros_like(srt)).sum(dim=0)
             return (s / width * W).to(u.dtype)
-        return tree_map(agg, unit), None, RobustReport(
-            selected=width, trimmed=torch.clamp(a - width, min=0.0))
+        rep = RobustReport(selected=width,
+                           trimmed=torch.clamp(a - width, min=0.0))
+        if per_client:
+            # each client's share of coordinates outside the kept
+            # [lo, hi) window of its coordinate's sorted candidates (the
+            # rank of each row: a double argsort)
+            out_coords = torch.zeros(k, device=weights.device)
+            n_coords = 0
+            for u in tree_leaves(unit):
+                if not _is_float(u):
+                    continue
+                ranks = torch.argsort(torch.argsort(
+                    masked(u, float("inf")), dim=0, stable=True), dim=0,
+                    stable=True).to(torch.float32)
+                out = (ranks < lo) | (ranks >= hi)
+                out_coords = out_coords + out.to(torch.float32).reshape(
+                    k, -1).sum(dim=1)
+                n_coords += int(math.prod(u.shape[1:]))
+            frac = out_coords / max(float(n_coords), 1.0)
+            rep = rep._replace(sel_mask=cand, suspicion=torch.where(
+                candb, frac, torch.zeros_like(frac)))
+        return tree_map(agg, unit), None, rep
 
     # norm_bound: radial clip toward the server momentum, then the
     # renormalized weighted mean over the candidates
@@ -241,5 +375,10 @@ def robust_aggregate(rule: str, payloads, weights: torch.Tensor,
         lambda p, m: (p.to(torch.float32) * inv_w).to(m.dtype)
         if _is_float(p) else m, payload_sum, momentum)
     n_clipped = (cand * (scale < 1.0).to(cand.dtype)).sum()
-    return payload_sum, new_momentum, RobustReport(selected=a,
-                                                   trimmed=n_clipped)
+    rep = RobustReport(selected=a, trimmed=n_clipped)
+    if per_client:
+        # distance to the momentum over the clip radius: > 1 == clipped
+        susp = dist / torch.clamp(tau, min=1e-30)
+        rep = rep._replace(sel_mask=cand, suspicion=torch.where(
+            candb, susp, torch.zeros_like(susp)))
+    return payload_sum, new_momentum, rep

@@ -227,7 +227,7 @@ class RoundSupervisor:
         t = self.trainer
         gen = torch.Generator()
         gen.set_state(server.rng.get_state())
-        plan = t.plan_drawer()(gen, server.round, t._alg_aux(server.aux))
+        plan = t.peek_plan(server, gen)
         return plan.idx.to(torch.int64).to(t.device), gen.get_state()
 
     def _save_rows(self, snap: _Snapshot, server, clients) -> torch.Tensor:

@@ -17,8 +17,9 @@ Three pillars, one subsystem, as in the JAX package:
 The files carry the JAX package's schema names, so its offline readers
 (``python -m fedtorch_tpu.cli report <run dir>``, ``compare``,
 ``watch``) take a port run directory; the port does not import them.
-The federation plane's observers (the client ledger, the anomaly
-detector, the critical-path overlap gauge) are ROADMAP A7's second half.
+The federation plane's observers sit beside the writer: the client
+ledger (``ledger.py``), the anomaly detector (``anomaly.py``) and the
+critical path's overlap gauge (``critical_path.py``).
 
 The package is stdlib-only (no torch import): importing the hooks into
 hot modules costs nothing.

@@ -104,8 +104,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 @pytest.mark.parametrize("override, name", [
     (dict(mesh__client_shards=2), "client_shards"),
-    (dict(telemetry__cohort_stats=True), "cohort stats"),
-    (dict(federated__sync_mode="async"), "async"),
     (dict(mesh__client_fusion="fused"), "fused"),
 ])
 def test_unported_trainer_features_raise_by_name(override, name):
@@ -133,6 +131,31 @@ def test_stream_plane_and_sparse_participation_run_a_round(override):
     assert server.round == 1 and int(metrics.online_mask.sum()) == 2
     assert bool(torch.isfinite(metrics.train_loss).all())
     assert (trainer.data is None) == (cfg.data.data_plane == "stream")
+
+
+@pytest.mark.parametrize("override", [
+    dict(telemetry__cohort_stats=True),
+    dict(federated__sync_mode="async"),
+    dict(federated__sync_mode="async", data__data_plane="stream"),
+], ids=["cohort_stats", "async", "async_stream"])
+def test_cohort_stats_and_the_async_plane_run_a_round(override):
+    """Once refused by name, now ported: a finite round (a commit, on
+    the async trainer) through ``run_round``, with the cohort vectors
+    [k] when the statistics are on."""
+    from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
+    cfg = _cfg(**dict(override, federated__num_clients=4))
+    cls = AsyncFederatedTrainer \
+        if cfg.federated.sync_mode == "async" else FederatedTrainer
+    trainer = cls(cfg, define_model(cfg, device="cpu"),
+                  make_algorithm(cfg), _data(), device="cpu")
+    server, clients = trainer.init_state(0)
+    server, clients, metrics = trainer.run_round(server, clients)
+    trainer.close()
+    assert server.round == 1
+    assert bool(torch.isfinite(metrics.train_loss).all())
+    if cfg.telemetry.cohort_stats:
+        assert metrics.cohort_idx.shape == (2,)
+        assert bool(torch.isfinite(metrics.cohort_suspicion).all())
 
 
 @pytest.mark.parametrize("override, name", [
