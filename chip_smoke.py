@@ -79,9 +79,9 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    ``FederatedTrainer`` -> ``init_state`` -> ``run_rounds``): quantized
    FedAvg, ResNet-20 in bfloat16, 100 clients x 250 CIFAR-10-shaped
    samples made from ``--seed``, k = 10, batch 50, 10 local steps, flip
-   and crop augmentation; 1 warm-up round, then 2 timed rounds. The
-   launch counters are set to 0 just before and must read 2 ragged
-   stats and 2 ragged apply launches per round after;
+   and crop augmentation; 1 warm-up round, then ``TIMED_ROUNDS`` timed
+   round(s). The launch counters are set to 0 just before and must read
+   2 ragged stats and 2 ragged apply launches per round after;
 6. profile: one more main-path round under ``torch.profiler`` — the
    device's busy share and its time by kernel (another round, up to
    three in all, if the profiler lost the records of the round's
@@ -92,7 +92,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    seconds logged); then from one seed, with cuDNN deterministic,
    ``resident`` twice (its own spread), ``stream_ram``,
    ``stream_mmap``, ``stream_mmap_scan`` (``run_rounds(2)``: windows of
-   2) and ``stream_mmap_depth1`` (producer depth 1, 6 rounds back to
+   2) and ``stream_mmap_depth1`` (producer depth 1, 4 rounds back to
    back), each 1 warm-up and 2 timed rounds but the last. Every feed a
    stream path consumes is held bitwise against a fresh host gather of
    its plan copied over synchronously (the pinned-buffer race check);
@@ -106,7 +106,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 7. cli: the port's program as a user runs it,
    ``fedtorch_tpu_torch.cli.main`` on ``CLI_ARGV`` (the north-star
    round: ResNet-20, 100 clients, k = 10, batch 50, 10 local steps,
-   int8 both ways, bf16, 3 rounds, the test set evaluated every round)
+   int8 both ways, bf16, 2 rounds, the test set evaluated every round)
    with ``-p`` a temporary directory holding CIFAR-10 python-pickle
    files of random pixels and labels made from ``--seed`` (50,000
    training and 10,000 test images, ~184 MB) and ``-c`` a directory
@@ -122,7 +122,10 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    run's round-0 cohort, finite loss lines. Then ``CLI_ARGV`` with
    ``--federated_type apfl`` (adaptive alpha, 2
    rounds): 2 + 2 ragged launches a round and a finite
-   ``validation_personal`` line a round in its log;
+   ``validation_personal`` line a round in its log. Then ``CLI_ARGV``
+   with ``--client_fusion fused`` for ``CLI_FUSED_ROUNDS`` rounds on the
+   same files: 2 + 2 ragged launches a round, the device-plane run's
+   round-0 cohort, finite loss lines (reported in the fusion line);
 8. zoo: every algorithm beyond FedAvg on the north-star round at full
    width through the library entry points (ResNet-20, bf16, 100 clients
    x 250 samples from ``--seed``, k = 10, batch 50, 10 local steps, flip
@@ -163,7 +166,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    wire format within one step of the plain version on its payloads, the
    update within ``TASK_CARD_FLOOR`` or ``SPREAD_FACTOR`` times the CPU's
    own order spread, which for the bf16 path includes the round in
-   float32); then 1 warm-up and 2 timed rounds with the counters set to 0
+   float32); then 1 warm-up and 1 timed round with the counters set to 0
    just before and read just after (2 + 2 ragged a round, and 2 + 2 tiled
    on ``cnn_cifar``, from the leaf buckets), metrics of
    ``[2, metrics_width]``, finite losses, and ``evaluate`` on 1,000 test
@@ -177,7 +180,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    leaves), bf16, the north-star round (100 clients x 250 samples from
    ``--seed``, k = 10, batch 50, 10 local steps): its round cut by
    ``TASK_CARD_CUT`` card vs CPU as a bf16 tasks path is held, then 1
-   warm-up, 2 timed and 1 profiled rounds, 2 + 2 ragged launches a round
+   warm-up, 1 timed and 1 profiled rounds, 2 + 2 ragged launches a round
    (2,990 uplink rows in one launch of each kernel) and no tiled one;
    round ms, local steps/s, device busy share, launches a local step and
    peak MiB. ``resnet18_imagenet``: the ImageNet ResNet-18 class built
@@ -205,14 +208,14 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    byzantine cohort of 0.1 sign-flipping at scale 3, the guards,
    ``trimmed_mean`` 0.2), the drill again on the
    stream plane and ``faults_dp`` (``FAULTS_DP``: DP-FedAvg at noise
-   multiplier 1 and clip 1, with ``trimmed_mean``); each 1 warm-up and 2
-   timed rounds with the counters set to 0 just before and read just
+   multiplier 1 and clip 1, with ``trimmed_mean``); each 1 warm-up and 1
+   timed round with the counters set to 0 just before and read just
    after (2 + 2 ragged launches a round), every round's fault counters
    and DP gauges, round ms beside ``faults_free``'s and the main path's,
    then one profiled round (device busy share, launches a local step of
    the k' dispatched clients); the warm-up round's uplink stack of k'
    rows held against the plain version within one step; the stream
-   drill's server params and generator state after its 3 rounds bitwise
+   drill's server params and generator state after its 2 rounds bitwise
    the resident drill's. Then a ``zero`` and a ``collude`` drill round
    that send crafted uploads (colluding rows identical, zero rows zero),
    their uplink stacks held against the plain version; then the drill's
@@ -243,7 +246,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    clients x 250 samples from ``--seed``, batch 50, 10 local steps),
    cuDNN deterministic (``federation_phase``): ``cohort_stats_off`` and
    ``cohort_stats_on`` (k = 10; 1 warm-up round, round index 1's
-   ``run_round`` and its one fetch watched in sync debug mode, 2 timed
+   ``run_round`` and its one fetch watched in sync debug mode, 1 timed
    rounds): params and generator state bitwise, the same synchronizing
    CUDA calls, 2 + 2 ragged launches a round, the cohort vectors [k] with
    ids the round's cohort; a float32 cut round under ``krum`` card vs
@@ -267,9 +270,34 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    (exit codes [75, 0], every keep bitwise), and 3 stream-plane commits
    whose rows carry ``overlap_efficiency`` in [0, 1]; within
    ``FEDERATION_BUDGET_S``;
+8h. fusion: client fusion and remat (``fusion_phase``). The ResNet-20
+   cell (bf16, int8 both ways, 100 clients x 250 samples from
+   ``--seed``, k = 10, batch 50, 10 local steps, flip and crop) with
+   ``client_fusion='fused'`` beside ``'vmap'``, both from one seed: a
+   warm-up round each (the fused uplink stack held to the plain version
+   within one step), ``FUSION_TIMED_ROUNDS`` timed rounds each in
+   alternation, 2 + 2 ragged launches every round; per path the memory a
+   round adds over the resident state, a round's synchronizing CUDA
+   calls (``run_round`` + the loop's one fetch, sync debug mode) and a
+   profiled round (busy share, launches a local step). The cell cut by
+   ``TASK_CARD_CUT`` in float32 (TF32 off): the card's fused round
+   against the CPU's fused round and against the card's vmap round,
+   each update within the larger of ``TASK_CARD_FLOOR`` and
+   ``SPREAD_FACTOR`` times the CPU's order spread
+   (``FUSION_CUT_ORDERS``), every count equal; the same for SCAFFOLD
+   under epoch sync with stragglers at batch 8. SCAFFOLD under epoch
+   sync with stragglers (``FUSION_STRAGGLERS``) on the cell, one round
+   fused and one vmap in bf16 and in float32: the same clients frozen
+   after the same steps, the same straggler count, the update fused vs
+   vmap within ``SPREAD_FACTOR`` times what NCHW memory (and bf16
+   rounding) moves the vmap round. ``cnn_cifar`` fused: 2 + 2 ragged and 2 + 2
+   tiled launches a round. WideResNet-28-10 with remat off and on
+   (``FUSION_WRN_CLIENTS`` clients, all online; cuDNN deterministic): a
+   warm-up and a timed round each, the memory a round adds, the params
+   bitwise the same. Within ``FUSION_BUDGET_S``;
 9. WideResNet main path: the same round on WideResNet-28-10 (widen 10,
    36.5 M parameters, full width and depth) after the ResNet-20 objects
-   are freed; 1 warm-up round, then 2 timed rounds, then one profiled
+   are freed; 1 warm-up round, then 1 timed round, then one profiled
    round. The counters must read the launches derived from the model's
    own leaf sizes (2 ragged stats, 2 ragged apply, 6 tiled stats, 6
    tiled apply per round);
@@ -279,7 +307,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    takes any width, d_model = 2 x rnn_hidden_size), 100 clients x 100
    windows of
    2048 characters with next-token labels made from ``--seed``, k = 10,
-   batch 8, 10 local steps, SGD lr 0.05; 1 warm-up, 2 timed and 1
+   batch 8, 10 local steps, SGD lr 0.05; 1 warm-up, 1 timed and 1
    profiled round. The counters must read 400 flash launches (layers x
    local steps x k), all on the tensor-core kernel, and 2 ragged stats
    and 2 ragged apply launches per round. Then ``evaluate`` of its
@@ -302,7 +330,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
 ``tasks``, ``models``, ``faults``, ``lifecycle``, ``federation``,
-``wrn_main_path``,
+``fusion``, ``wrn_main_path``,
 ``wrn_profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
@@ -361,13 +389,13 @@ COLD_BYTES = 128 * 2 ** 20
 
 # north-star sizes (bench.py)
 NUM_CLIENTS, SAMPLES, BATCH, LOCAL_STEPS, ONLINE_RATE = 100, 250, 50, 10, 0.1
-TIMED_ROUNDS = 2
-WRN_TIMED_ROUNDS = 2
+TIMED_ROUNDS = 1
+WRN_TIMED_ROUNDS = 1
 # the transformer path: define_model gives d_model 2 * 128 = 256, 4 heads
 # of 64, 4 layers; 100 windows of 2048 characters per client, batch 8
 LM = dict(rnn_hidden_size=128, mlp_num_layers=4, rnn_seq_len=2048,
           vocab_size=86)
-LM_WINDOWS, LM_BATCH, LM_TIMED_ROUNDS = 100, 8, 2
+LM_WINDOWS, LM_BATCH, LM_TIMED_ROUNDS = 100, 8, 1
 LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 # transformer_d512: d_model 512, 4 heads of 128, bf16; transformer_f32:
 # the LM path in the library's default dtype
@@ -377,20 +405,22 @@ D512_TIMED_ROUNDS = F32_TIMED_ROUNDS = 1
 # the stream phase: 1 warm-up and this many timed rounds a path, and the
 # depth-1 path's rounds back to back
 STREAM_TIMED_ROUNDS = 2
-STREAM_STRESS_ROUNDS = 6
+STREAM_STRESS_ROUNDS = 4
 # the default transformer width's heads (rnn_hidden_size 50: 4 of 25)
 DEFAULT_WIDTH_SHAPE = (LM_BATCH, 2048, 4, 25)
 SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
 # the CLI path: the north-star round from CIFAR-10 files at full size
 # (50,000 training images over 100 clients, 10,000 test images evaluated
 # every round in 40 batches of 256)
-CLI_ROUNDS = 3
+CLI_ROUNDS = 2
 CLI_ARGV = ["-d", "cifar10", "-a", "resnet20", "-f", "true", "--num_workers",
             "100", "--online_client_rate", "0.1", "--federated_sync_type",
             "local_step", "--local_step", "10", "-b", "50", "--lr", "0.1",
             "--in_momentum", "true", "--quantized", "true", "--compute_dtype",
             "bfloat16", "--num_comms", str(CLI_ROUNDS), "--evaluate", "true",
             "--eval_freq", "1"]
+# the CLI's fused run (``--client_fusion fused``) on the same files
+CLI_FUSED_ROUNDS = 2
 CLI_BATCH_IMAGES = 10_000
 CLI_SUBSET = 1024
 # float32 evaluate of the final params, card (TF32 off) vs CPU, on
@@ -466,7 +496,7 @@ TASK_PATHS = (
     ("mlp_emnist_drfa", "mlp", "emnist", "float32", 500,
      dict(algorithm="fedavg", drfa=True, drfa_gamma=0.1)),
 )
-TASK_ONLINE, TASK_TIMED_ROUNDS, TASK_MLP_HIDDEN = 10, 2, 200
+TASK_ONLINE, TASK_TIMED_ROUNDS, TASK_MLP_HIDDEN = 10, 1, 200
 # rows a client: the IID image paths' (a cut: MNIST's 60,000 over 10
 # clients would be 6,000), EMNIST writers' and Shakespeare characters'
 # windows of 50 drawn uniformly from these ranges with --seed
@@ -521,7 +551,7 @@ FAULTS_DRILL = dict(over_select_frac=1.3, avail_model="trace",
                     robust_agg="trimmed_mean", robust_trim_frac=0.2)
 FAULTS_DP = dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0,
                  robust_agg="trimmed_mean", robust_trim_frac=0.2)
-FAULTS_TIMED_ROUNDS = 2
+FAULTS_TIMED_ROUNDS = 1
 # rounds a zero or collude drill runs until one sends crafted uploads
 FAULTS_CRAFT_ROUNDS = 6
 # floor(0.1 x 4) is no adversary: the cut round keeps one of its 4 clients
@@ -561,14 +591,14 @@ LIFECYCLE_BUDGET_S = 150.0
 # ``async_resnet20``, the FedBuff commit loop on it (ASYNC_AB.json's
 # arrival knobs; concurrency and buffer auto: k_online = 10 in flight,
 # m = 5 a commit)
-FED_COHORT_TIMED = 2
+FED_COHORT_TIMED = 1
 ASYNC_FED = dict(sync_mode="async", async_concurrency=0,
                  async_buffer_size=0, snapshot_ring=8,
                  staleness_weight="poly", staleness_exponent=0.5)
 ASYNC_FAULT = dict(straggler_rate=0.4, straggler_step_frac=0.1)
 ASYNC_TRACE = dict(avail_model="trace", avail_dropout_rate=0.1,
                    avail_diurnal_period=24)
-ASYNC_TIMED_COMMITS = 4
+ASYNC_TIMED_COMMITS = 2
 ASYNC_TRACE_COMMITS = 2
 # the commit cut for card vs CPU: 4 clients in flight, m = 2, 2 steps
 ASYNC_CUT = dict(num_clients=8, online_client_rate=0.5, async_concurrency=4,
@@ -583,6 +613,20 @@ ASYNC_CLI_WORDS = ("--sync_mode", "async", "--cohort_stats", "true",
 # the phase took 142.3 s alone on an H100; whole-script runs have read
 # phases up to 1.3x slower
 FEDERATION_BUDGET_S = 240.0
+# the fusion phase: the north-star cell with client_fusion='fused' beside
+# 'vmap' (timed rounds a path, in alternation); the card-vs-CPU cut's
+# CPU orders (the fused forward copies every batch into one packed
+# layout, so 'cpu-nchw' would move nothing); the SCAFFOLD epoch-sync cell
+# with stragglers (250 rows a client, batch 50: 5 steps, a straggler
+# frozen after its cut); WideResNet-28-10 with remat on and off on a
+# population cut to FUSION_WRN_CLIENTS clients, all online (k = 10 as
+# on the cell); the phase's budget
+FUSION_TIMED_ROUNDS = 2
+FUSION_CUT_ORDERS = ("cpu-1thread", "cpu-2thread")
+FUSION_SCAFFOLD = dict(algorithm="scaffold", sync_type="epoch")
+FUSION_STRAGGLERS = dict(straggler_rate=0.5, straggler_step_frac=0.5)
+FUSION_WRN_CLIENTS = 10
+FUSION_BUDGET_S = 100.0
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
 SHORT_ROW = 64
@@ -1967,6 +2011,58 @@ def cli_stream_run(root, cohort, qk, fa, extra=()):
     return out
 
 
+def cli_fused_run(root, cohort, qk, fa):
+    """``CLI_ARGV`` for ``CLI_FUSED_ROUNDS`` rounds with ``--client_fusion
+    fused`` on the CIFAR-10 files in ``root``: 2 + 2 ragged launches a
+    round, round 0's cohort the per-client ('vmap') run's ``cohort``,
+    finite loss lines and a test top-1 in [0, 1]."""
+    import glob
+
+    from fedtorch_tpu_torch import cli
+
+    seen = {}
+
+    def keep_cohort(r, trainer, server, clients, metrics):
+        if r == 0:
+            seen["cohort"] = metrics.online_mask.nonzero().flatten().tolist()
+            seen["execution"] = trainer.client_fusion
+
+    argv = CLI_ARGV + ["-p", root, "-c", os.path.join(root, "runs_fused"),
+                       "--num_comms", str(CLI_FUSED_ROUNDS),
+                       "--client_fusion", "fused"]
+    reset_counters(qk, fa)
+    res = cli.main(argv, round_callback=keep_cohort)
+    launched = counters(qk, fa)
+    (record,) = glob.glob(os.path.join(root, "runs_fused", "**", "record0"),
+                          recursive=True)
+    with open(record) as f:
+        losses = [float(v) for v in re.findall(
+            r"Round: \d+\. Epoch: .*? Loss: (\S+) \|", f.read())]
+    want = dict(ragged_stats=2 * CLI_FUSED_ROUNDS,
+                ragged_apply=2 * CLI_FUSED_ROUNDS, stats=0, apply=0,
+                flash=0, flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"cli fused: kernels launched {launched}, "
+                             f"expected {want}")
+    if seen["cohort"] != cohort or seen["execution"] != "fused" \
+            or res["rounds"] != CLI_FUSED_ROUNDS \
+            or not 0.0 <= res["test_top1"] <= 1.0:
+        raise AssertionError(f"cli fused: {seen}, the vmap run's cohort "
+                             f"{cohort}; results {res}")
+    if len(losses) != CLI_FUSED_ROUNDS \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cli fused: loss lines {losses}")
+    out = dict(rounds=res["rounds"], test_top1=res["test_top1"],
+               round0_cohort=seen["cohort"], losses=losses,
+               round_ms=res["timer"]["round"] / CLI_FUSED_ROUNDS * 1e3,
+               data_build_s=res["timer"]["data"], launches=launched,
+               tree_launches=launched)
+    log(f"cli fused: {out['round_ms']:.1f} ms/round, round-0 cohort "
+        f"{seen['cohort']} as the vmap run's, losses {losses}, test top-1 "
+        f"{res['test_top1']:.4f}")
+    return out
+
+
 def cli_phase(seed, tcfg, define_model, qk, fa):
     """The port's CLI as a user runs it (``fedtorch_tpu_torch.cli.main``
     on ``CLI_ARGV``) on CIFAR-10 files written from ``seed`` into a
@@ -2013,6 +2109,9 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
         gc.collect()
         torch.cuda.empty_cache()
         stream_out = cli_stream_run(root, final["cohort"], qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_out = cli_fused_run(root, final["cohort"], qk, fa)
     want = dict(ragged_stats=2 * CLI_ROUNDS, ragged_apply=2 * CLI_ROUNDS,
                 stats=0, apply=0, flash=0, flash_tc=0, flash_tf32=0)
     if launched != want:
@@ -2053,7 +2152,7 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
                                 loss_rel_diff=loss_rel,
                                 top1_top5_diff_images=top_gap,
                                 bar=CLI_EVAL_BAR),
-               stream_mmap=stream_out)
+               stream_mmap=stream_out, fused=fused_out)
     log(f"cli: {mb:.1f} MB of CIFAR-10 files written in {write_s:.2f} s; "
         f"data build {timer['data']:.2f} s, {out['round_ms']:.1f} ms/round, "
         f"eval {out['eval_ms_per_call']:.1f} ms per call "
@@ -3515,9 +3614,9 @@ def faults_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     over-selection to k' = 13, the trace availability model, crashes,
     stragglers, nan poison, a sign-flipping cohort, the guards and
     ``trimmed_mean``), the drill on the stream plane (bitwise the
-    resident run's params and generator state after its 3 rounds) and
+    resident run's params and generator state after its 2 rounds) and
     ``faults_dp`` (``FAULTS_DP``: DP-FedAvg composed with
-    ``trimmed_mean``), each 1 warm-up and 2 timed rounds and (but the
+    ``trimmed_mean``), each 1 warm-up and 1 timed round and (but the
     stream run) 1 profiled; cuDNN deterministic for the phase. Then the
     uplink stack of a ``zero`` and a ``collude`` round held against the
     plain version, and the drill's and the DP path's rounds cut to 4
@@ -4661,6 +4760,448 @@ def federation_phase(seed, tcfg, define_model, make_algorithm,
     return out
 
 
+def with_fusion(cfg, execution, **fed):
+    """``cfg`` with ``client_fusion=execution`` and the federated fields
+    ``fed``."""
+    return dataclasses.replace(
+        cfg, mesh=dataclasses.replace(cfg.mesh, client_fusion=execution),
+        federated=dataclasses.replace(cfg.federated, **fed)).finalize()
+
+
+def _ragged_round(qk, fa, fn, what):
+    """``fn()`` (one round) with the counters set to 0 just before: its
+    result, after checking 2 + 2 ragged launches and no other kernel."""
+    reset_counters(qk, fa)
+    out = fn()
+    launched = counters(qk, fa)
+    want = dict(ragged_stats=2, ragged_apply=2, stats=0, apply=0, flash=0,
+                flash_tc=0, flash_tf32=0)
+    if launched != want:
+        raise AssertionError(f"fusion {what}: kernels launched {launched} "
+                             f"in a round, expected {want}")
+    return out
+
+
+def fusion_cell(seed, tcfg, define_model, make_algorithm, stack_partitions,
+                FederatedTrainer, qk, fa):
+    """The ResNet-20 north-star cell (quantized, bf16, 100 clients, k =
+    10, batch 50, 10 steps, flip and crop) on ``client_fusion='fused'``
+    and on ``'vmap'``, both trainers from one seed (so every round trains
+    the same cohort on the same rows): a warm-up round each (the fused
+    uplink stack held to the plain version), ``FUSION_TIMED_ROUNDS``
+    timed rounds each in alternation (fused, vmap, vmap, fused, ...),
+    every round 2 + 2 ragged launches; then per path the device memory a
+    round adds over the resident state, round index 3's synchronizing
+    CUDA calls (``run_round`` + the loop's one fetch) and one profiled
+    round (busy share, launches a local step)."""
+    base = path_config(tcfg, "resnet20")
+    data = path_data(base, seed, stack_partitions)
+    paths = {}
+    for ex in ("fused", "vmap"):
+        cfg = with_fusion(base, ex)
+        t = FederatedTrainer(cfg, define_model(cfg, batch_size=BATCH),
+                             make_algorithm(cfg), data)
+        if t.client_fusion != ex:
+            raise AssertionError(f"fusion: {ex} resolved {t.client_fusion}")
+        paths[ex] = [t, *t.init_state(seed)]
+    del data
+    calls = []
+    t, server, clients = paths["fused"]
+    undo = _record_uplink(t, calls, [])
+    for ex in ("fused", "vmap"):
+        t, server, clients = paths[ex]
+        server, clients, _ = _ragged_round(
+            qk, fa, lambda: t.run_round(server, clients), f"{ex} warm-up")
+        torch.cuda.synchronize()
+        paths[ex][1:] = server, clients
+        if ex == "fused":
+            undo()
+    held = _hold_uplink(qk, "fusion fused", *calls[0])
+    del calls
+    round_ms = {"fused": [], "vmap": []}
+    order = []
+    for i in range(FUSION_TIMED_ROUNDS):
+        order += ["fused", "vmap"] if i % 2 == 0 else ["vmap", "fused"]
+    for ex in order:
+        t, server, clients = paths[ex]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        server, clients, m = _ragged_round(
+            qk, fa, lambda: t.run_round(server, clients), ex)
+        end.record()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(m.train_loss).all()):
+            raise AssertionError(f"fusion {ex}: losses {m.train_loss}")
+        round_ms[ex].append(start.elapsed_time(end))
+        paths[ex][1:] = server, clients
+    out = {}
+    del m
+    for ex in ("fused", "vmap"):
+        t, server, clients = paths[ex]
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def body():
+            s, c, mm = t.run_round(server, clients)
+            return s, c, mm, t.round_host_scalars(c, mm)
+        (server, clients, m, sc), watched = watch_syncs(body)
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_phase(t, server, clients, dict(
+            ragged_stats=2, ragged_apply=2, stats=0, apply=0))
+        per_step = prof["kernel_launches"] / (t.k_online * t.local_steps)
+        counted = dict(ragged_stats=2 * (1 + FUSION_TIMED_ROUNDS),
+                       ragged_apply=2 * (1 + FUSION_TIMED_ROUNDS), stats=0,
+                       apply=0, flash=0, flash_tc=0, flash_tf32=0)
+        out[ex] = dict(round_ms=round_ms[ex],
+                       mean_round_ms=statistics.mean(round_ms[ex]),
+                       launches=counted, tree_launches=counted,
+                       round_peak_over_resident_mib=(peak - resident)
+                       / 2**20, resident_mib=resident / 2**20,
+                       round_index_3=watched, profile=prof,
+                       launches_per_local_step=per_step,
+                       mean_loss_last=sc["loss_sum"] / sc["n_online"])
+        log(f"fusion {ex}: rounds {round_ms[ex]} ms, a round adds "
+            f"{out[ex]['round_peak_over_resident_mib']:.0f} MiB over "
+            f"{resident / 2**20:.0f} resident, round index 3 {watched}, "
+            f"{per_step:.1f} launches a local step, busy "
+            f"{prof['busy_share']}")
+        paths[ex][1:] = server, clients
+    for ex in ("fused", "vmap"):
+        paths[ex][0].close()
+    del paths
+    out.update(order=order, uplink_vs_plain=held,
+               fused_over_vmap=out["fused"]["mean_round_ms"]
+               / out["vmap"]["mean_round_ms"])
+    return out
+
+
+def fusion_card_vs_cpu(name, cfg, seed, os_mod, data=None):
+    """``cfg``'s fused round in float32 (TF32 off) on the card against the
+    same round on the CPU and against the card's own vmap round: each
+    update within the larger of ``TASK_CARD_FLOOR`` and
+    ``SPREAD_FACTOR`` times the CPU's order spread over
+    ``FUSION_CUT_ORDERS`` measured here, and (``with_metrics``) each
+    run's step counts and fault counters equal."""
+    vmap = with_fusion(cfg, "vmap")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {run: os_mod.run_round(cfg, seed, run, data=data,
+                                      with_metrics=True)
+                for run in ("cpu", *FUSION_CUT_ORDERS, "cuda")}
+        runs["cuda-vmap"] = os_mod.run_round(vmap, seed, "cuda", data=data,
+                                             with_metrics=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = {run: fault_counts(r[2]) for run, r in runs.items()}
+    if any(c != counts["cpu"] for c in counts.values()):
+        raise AssertionError(f"fusion {name}: counts {counts}")
+    ups = {run: r[0] for run, r in runs.items()}
+    f = os_mod.SPREAD_FACTOR
+    gaps = [os_mod.update_gap(ups["cpu"], ups[o]) for o in FUSION_CUT_ORDERS]
+    s_l2 = max(g[1] for g in gaps)
+    bar_l2 = max(TASK_CARD_FLOOR, f * s_l2)
+    steps, l2 = os_mod.update_gap(ups["cpu"], ups["cuda"])
+    v_steps, v_l2 = os_mod.update_gap(ups["cuda-vmap"], ups["cuda"])
+    out = dict(update_rel_l2=l2, update_steps=steps, vs_vmap_rel_l2=v_l2,
+               vs_vmap_steps=v_steps, spread_rel_l2=s_l2,
+               spread_steps=max(g[0] for g in gaps), bar_rel_l2=bar_l2,
+               orders=list(FUSION_CUT_ORDERS), counts=counts["cuda"])
+    log(f"fusion {name} (float32, {cfg.federated.num_clients} clients, "
+        f"{cfg.train.local_step} steps): card vs CPU relative L2 {l2:.3e}, "
+        f"card fused vs card vmap {v_l2:.3e} (bar {bar_l2:.3e}; CPU order "
+        f"spread {s_l2:.3e}); counts {counts['cuda']}")
+    if l2 > bar_l2 or v_l2 > bar_l2:
+        raise AssertionError(f"fusion {name}: {out}")
+    return out
+
+
+def fusion_scaffold(seed, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer, os_mod):
+    """SCAFFOLD under epoch sync with stragglers on the ResNet-20 cell
+    (plain local SGD), one round fused and one vmap from one seed (the
+    same cohort, rows and straggler cuts), in bf16 and in float32 (TF32
+    off): the same clients freeze after the same steps (each dispatched
+    client's local index and epoch equal), the same straggler count (at
+    least one), finite state. At this size a round's update moves far
+    under any change of float order (the batch-statistics norms of
+    channels that are nearly constant at init amplify a last-bit change
+    about a thousandfold a step), so the update fused vs vmap is held to
+    what another order moves the vmap round: within the larger of
+    ``TASK_CARD_FLOOR`` and ``SPREAD_FACTOR`` times its float32 vmap
+    round in NCHW memory against the same round (and in bf16 also its
+    bf16 round against its float32 one)."""
+    base = path_config(tcfg, "resnet20")
+    base = dataclasses.replace(
+        base, optim=dataclasses.replace(base.optim, in_momentum=False),
+        fault=tcfg.FaultConfig(**FUSION_STRAGGLERS))
+    data = path_data(base, seed, stack_partitions)
+    res = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    runs = [("bfloat16", "fused"), ("bfloat16", "vmap"), ("float32", "fused"),
+            ("float32", "vmap"), ("float32", "vmap-nchw")]
+    try:
+        for dtype, ex in runs:
+            torch.backends.cudnn.allow_tf32 = \
+                torch.backends.cuda.matmul.allow_tf32 = dtype == "bfloat16"
+            cfg = with_fusion(base, ex.split("-")[0], **FUSION_SCAFFOLD)
+            cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+                cfg.mesh, compute_dtype=dtype)).finalize()
+            model = define_model(cfg, batch_size=BATCH)
+            if ex.endswith("nchw"):
+                # another float32 order on the card: NCHW memory inside
+                model.module.register_forward_pre_hook(os_mod._nchw_inside)
+            t = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+            server, clients = t.init_state(seed)
+            p0 = {k: v.clone() for k, v in server.params.items()}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            server, clients, m = t.run_round(server, clients)
+            end.record()
+            torch.cuda.synchronize()
+            on = m.online_mask.bool()
+            res[dtype, ex] = dict(
+                ms=start.elapsed_time(end), steps=t.local_steps,
+                stragglers=float(m.straggler_clients),
+                local_index=clients.local_index[on].tolist(),
+                epoch=clients.epoch[on].tolist(),
+                update=torch.cat([(server.params[k] - p0[k]).float()
+                                  .flatten() for k in p0]),
+                finite=all(bool(torch.isfinite(v).all()) for v in
+                           list(server.params.values())
+                           + list(server.aux["control"].values())))
+            t.close()
+            del t, server, clients, model
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    del data
+
+    def rel(a, b):
+        return float((res[a]["update"] - res[b]["update"]).norm()
+                     / res[b]["update"].norm())
+    order = rel(("float32", "vmap-nchw"), ("float32", "vmap"))
+    rounding = rel(("bfloat16", "vmap"), ("float32", "vmap"))
+    gaps = {d: rel((d, "fused"), (d, "vmap")) for d in ("bfloat16",
+                                                         "float32")}
+    factor = os_mod.SPREAD_FACTOR
+    bars = dict(float32=max(TASK_CARD_FLOOR, factor * order),
+                bfloat16=max(TASK_CARD_FLOOR,
+                              factor * max(order, rounding)))
+    f = res["bfloat16", "fused"]
+    frozen = sum(1 for li in f["local_index"] if li < f["steps"])
+    out = dict(steps=f["steps"], stragglers=f["stragglers"],
+               frozen_clients=frozen, local_index=f["local_index"],
+               ms={f"{d}_{e}": r["ms"] for (d, e), r in res.items()},
+               update_rel_l2_fused_vs_vmap=gaps,
+               nchw_order_rel_l2=order, bf16_rounding_rel_l2=rounding,
+               bar_rel_l2=bars)
+    log(f"fusion scaffold (epoch sync, stragglers): {frozen} of "
+        f"{len(f['local_index'])} clients frozen before step {f['steps']} "
+        f"({f['local_index']}), the same on every run; ms {out['ms']}; "
+        f"update fused vs vmap relative L2 {gaps} (bars {bars}; the vmap "
+        f"round moves {order:.3e} in NCHW memory, {rounding:.3e} in bf16)")
+    same = all(r[k] == f[k] for r in res.values()
+               for k in ("local_index", "epoch", "stragglers"))
+    if not same or not frozen or not all(r["finite"] for r in res.values()) \
+            or any(gaps[d] > bars[d] for d in gaps):
+        raise AssertionError(f"fusion scaffold: {out}; " + str(
+            [(k, r["local_index"], r["stragglers"])
+             for k, r in res.items()]))
+    return out
+
+
+def fusion_cnn(seed, tcfg, define_model, make_algorithm, stack_partitions,
+               FederatedTrainer, qk, fa):
+    """The ``cnn_cifar`` task (bf16, int8 both ways, 100 clients, k = 10)
+    fused: a warm-up and a timed round, each 2 + 2 ragged and 2 + 2 tiled
+    launches (its 640,000-element ``Dense_0`` takes the tiled pair)."""
+    cfg = with_fusion(task_config(tcfg, "cnn", "cifar10", "bfloat16", 100,
+                                  dict(algorithm="fedavg")), "fused")
+    data = task_data(cfg, seed, stack_partitions)[0]
+    t = FederatedTrainer(cfg, define_model(cfg, batch_size=BATCH),
+                         make_algorithm(cfg), data)
+    server, clients = t.init_state(seed)
+    per = launches_per_round(qk, [v.numel() for v in server.params.values()])
+    per.update(flash=0, flash_tc=0, flash_tf32=0)
+    reset_counters(qk, fa)
+    server, clients, _ = t.run_round(server, clients)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    server, clients, m = t.run_round(server, clients)
+    end.record()
+    torch.cuda.synchronize()
+    launched = counters(qk, fa)
+    want = {c: 2 * n for c, n in per.items()}
+    if launched != want or per["stats"] != 2 \
+            or not bool(torch.isfinite(m.train_loss).all()):
+        raise AssertionError(f"fusion cnn_cifar: launched {launched}, "
+                             f"expected {want}; losses {m.train_loss}")
+    out = dict(round_ms=start.elapsed_time(end), launches=launched,
+               tree_launches=want,
+               launches_per_round={c: n / 2 for c, n in launched.items()})
+    log(f"fusion cnn_cifar: {out['round_ms']:.1f} ms/round, launches per "
+        f"round {out['launches_per_round']}")
+    t.close()
+    return out
+
+
+def fusion_remat(seed, tcfg, define_model, make_algorithm,
+                 stack_partitions, FederatedTrainer):
+    """WideResNet-28-10 (quantized, bf16, batch 50, 10 steps) with remat
+    off and on, on a population cut to ``FUSION_WRN_CLIENTS`` clients all
+    online (k = 10 as on the cell), cuDNN deterministic: a warm-up round,
+    then one round each: its ms, the device memory it adds over the
+    resident state, and the server params after it bitwise the same."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    try:
+        for remat in (False, True):
+            cfg = path_config(tcfg, "wideresnet28", 10)
+            cfg = dataclasses.replace(
+                cfg, mesh=dataclasses.replace(cfg.mesh, remat=remat),
+                federated=dataclasses.replace(
+                    cfg.federated, num_clients=FUSION_WRN_CLIENTS,
+                    online_client_rate=1.0)).finalize()
+            rng = np.random.RandomState(seed)
+            n = FUSION_WRN_CLIENTS * SAMPLES
+            data = stack_partitions(
+                rng.randn(n, 32, 32, 3).astype(np.float32),
+                rng.randint(0, 10, n),
+                [np.arange(i * SAMPLES, (i + 1) * SAMPLES)
+                 for i in range(FUSION_WRN_CLIENTS)])
+            model = define_model(cfg, batch_size=BATCH)
+            t = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
+            del data
+            server, clients = t.init_state(seed)
+            server, clients, _ = t.run_round(server, clients)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            server, clients, _ = t.run_round(server, clients)
+            end.record()
+            torch.cuda.synchronize()
+            round_peak = torch.cuda.max_memory_allocated() - resident
+            # one client step's forward and backward alone (a batch of
+            # 50 through the server params): the activations remat trades
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in server.params.items()}
+            x = t.data.x[0, :BATCH]
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = model.apply(leaves, x, train=True).float().square().mean()
+            torch.autograd.grad(loss, list(leaves.values()))
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated() - before
+            del leaves, loss
+            res[remat] = dict(
+                ms=start.elapsed_time(end),
+                peak_over_resident_mib=round_peak / 2**20,
+                step_peak_mib=step_peak / 2**20,
+                resident_mib=resident / 2**20, remat=model.module.remat,
+                params={k: v.detach().clone()
+                        for k, v in server.params.items()})
+            t.close()
+            del t, server, clients, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    off, on = res[False], res[True]
+    bitwise = all(torch.equal(off["params"][k], on["params"][k])
+                  for k in off["params"])
+    out = {("remat_on" if r else "remat_off"): {
+        k: v for k, v in res[r].items() if k != "params"} for r in res}
+    out.update(params_bitwise=bitwise, clients=FUSION_WRN_CLIENTS,
+               cudnn_deterministic=True,
+               ms_ratio=on["ms"] / off["ms"],
+               round_peak_ratio=on["peak_over_resident_mib"]
+               / off["peak_over_resident_mib"],
+               step_peak_ratio=on["step_peak_mib"] / off["step_peak_mib"])
+    log(f"fusion remat (WideResNet-28-10, {FUSION_WRN_CLIENTS} clients): "
+        f"off {off['ms']:.1f} ms, a round +{off['peak_over_resident_mib']:.0f}"
+        f" MiB, a step +{off['step_peak_mib']:.0f} MiB; on {on['ms']:.1f} "
+        f"ms, +{on['peak_over_resident_mib']:.0f} MiB, a step "
+        f"+{on['step_peak_mib']:.0f} MiB; params bitwise {bitwise}")
+    if not bitwise or not on["remat"] or off["remat"] \
+            or not on["step_peak_mib"] < off["step_peak_mib"]:
+        raise AssertionError(f"fusion remat: {out}")
+    return out
+
+
+def fusion_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+                 FederatedTrainer, os_mod, qk, fa, cli_fused):
+    """Client fusion and remat: ``fusion_cell`` (fused vs vmap
+    on the ResNet-20 cell), the cell's float32 cut card vs CPU and fused
+    vs vmap (``fusion_card_vs_cpu``), SCAFFOLD's epoch-sync freeze and its
+    cut, the fused ``cnn_cifar`` with its tiled pair, the CLI's fused
+    run (``cli_fused``, run in the cli phase on its CIFAR files) and
+    WideResNet-28-10 with remat off and on; within
+    ``FUSION_BUDGET_S``."""
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase
+    cell = fusion_cell(seed, tcfg, define_model, make_algorithm,
+                       stack_partitions, FederatedTrainer, qk, fa)
+    lap("cell")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = cut_config(with_fusion(path_config(tcfg, "resnet20",
+                                             dtype="float32"), "fused"),
+                     **TASK_CARD_CUT)
+    cut_out = fusion_card_vs_cpu("resnet20_cut", cut, seed, os_mod)
+    # the SCAFFOLD cut at batch 8: 16 rows a client, 2 steps, a straggler
+    # frozen after 1
+    scut = with_fusion(cut, "fused", **FUSION_SCAFFOLD)
+    scut = dataclasses.replace(
+        scut, data=dataclasses.replace(scut.data, batch_size=8),
+        optim=dataclasses.replace(scut.optim, in_momentum=False),
+        fault=tcfg.FaultConfig(**FUSION_STRAGGLERS)).finalize()
+    scut_out = fusion_card_vs_cpu("scaffold_cut", scut, seed, os_mod)
+    lap("card_vs_cpu")
+    scaffold = fusion_scaffold(seed, tcfg, define_model, make_algorithm,
+                               stack_partitions, FederatedTrainer, os_mod)
+    lap("scaffold")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cnn = fusion_cnn(seed, tcfg, define_model, make_algorithm,
+                     stack_partitions, FederatedTrainer, qk, fa)
+    lap("cnn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = fusion_remat(seed, tcfg, define_model, make_algorithm,
+                         stack_partitions, FederatedTrainer)
+    lap("remat")
+    out = dict(cell=cell, cut=cut_out, scaffold_cut=scut_out,
+               scaffold=scaffold, cnn_cifar=cnn, cli=cli_fused, remat=remat,
+               laps_s=laps, phase_s=time.perf_counter() - t_phase,
+               budget_s=FUSION_BUDGET_S)
+    log(f"fusion phase: {out['phase_s']:.1f} s ({laps}); fused/vmap round "
+        f"{cell['fused_over_vmap']:.3f}; launches a local step fused "
+        f"{cell['fused']['launches_per_local_step']:.1f}, vmap "
+        f"{cell['vmap']['launches_per_local_step']:.1f}")
+    if out["phase_s"] > FUSION_BUDGET_S:
+        raise AssertionError(f"fusion phase took {out['phase_s']:.1f} s, "
+                             f"over its {FUSION_BUDGET_S} s budget")
+    return out
+
+
 def lm_eval_step(trainer, server, seed, qk, fa):
     """``evaluate`` of the transformer path's server params on
     ``LM_EVAL_WINDOWS`` windows of 2048 characters made from ``seed``, at
@@ -4958,6 +5499,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("fusion")
+    fusion = fusion_phase(args.seed, tcfg, define_model, make_algorithm,
+                          stack_partitions, FederatedTrainer, order_spread,
+                          qk, fa, cli_out["fused"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("WideResNet main path")
     wrn, trainer, server, clients = main_path_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
@@ -5023,7 +5571,11 @@ def main(argv=None) -> int:
                  if n.startswith("stream_")) + tuple(
                  federation["paths"].items()) + tuple(
                  (n, federation[n]) for n in ("async_cli",
-                                              "async_cli_stream"))
+                                              "async_cli_stream")) + (
+                 ("fusion_cell_fused", fusion["cell"]["fused"]),
+                 ("fusion_cell_vmap", fusion["cell"]["vmap"]),
+                 ("fusion_cnn_cifar", fusion["cnn_cifar"]),
+                 ("cli_fused", cli_out["fused"]))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -5097,6 +5649,7 @@ def main(argv=None) -> int:
     print(json.dumps({"faults": faults, "card": card}))
     print(json.dumps({"lifecycle": lifecycle, "card": card}))
     print(json.dumps({"federation": federation, "card": card}))
+    print(json.dumps({"fusion": fusion, "card": card}))
     print(json.dumps({"wrn_main_path": wrn, "card": card}))
     print(json.dumps({"wrn_profile": wrn_prof}))
     print(json.dumps({"transformer_main_path": lm, "card": card}))

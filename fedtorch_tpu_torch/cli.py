@@ -41,7 +41,11 @@ TFF HDF5 files with ``--allow_train_as_test``, adult with
 runs: ``-a densenet*`` (``--densenet_bc_mode``, ``--densenet_growth_rate``,
 ``--densenet_compression``), ``--norm gn``, ``--drop_rate``, ``--conv_impl
 matmul`` and the ``robust_*`` models beside ``resnet*``, ``wideresnet*``,
-``cnn``, ``rnn``, the transformer and the flat models. The update guards
+``cnn``, ``rnn``, the transformer and the flat models;
+``--client_fusion fused`` trains the online clients of the resnet-cifar
+family and the ``cnn`` as one grouped-convolution step
+(``parallel/fusion.py``), and ``--remat`` recomputes each block in the
+backward. The update guards
 (``--guard_updates``, ``--guard_norm_multiplier``, ``--guard_mode``),
 the robust rules (``--robust_agg``, ``--robust_trim_frac``,
 ``--robust_norm_tau``), chaos injection (``--fault_client_drop_rate``,
@@ -558,8 +562,6 @@ def refused_flags(cfg: ExperimentConfig) -> list:
         if seam in UNPORTED_SEAMS:
             out.append(f"--host_fault_seams {seam!r}: "
                        f"{UNPORTED_SEAMS[seam]}")
-    if cfg.mesh.client_fusion == "fused":
-        out.append("--client_fusion 'fused': client fusion (ROADMAP A9)")
     if cfg.mesh.backend not in (None, "cpu", "cuda", "gpu"):
         out.append(f"--backend {cfg.mesh.backend!r}: the port runs on "
                    "CUDA or, asked with --backend cpu, on the CPU")

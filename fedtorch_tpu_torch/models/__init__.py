@@ -11,7 +11,11 @@ norm ('bn', 'gn') and either conv lowering ('conv', 'matmul'), the LeNet
 ``least_square`` and ``mlp`` (with dropout and either norm) with their
 ``robust_*`` variants. ``conv_impl='auto'`` resolves as the JAX
 package's ``resolve_conv_impl`` does for an accelerator: the native
-conv, whatever the device. Refused by name: remat, MoE blocks and
+conv, whatever the device. ``cfg.mesh.remat`` recomputes each block of
+the resnet, wideresnet, densenet and transformer families in the
+backward, and warns that it has no effect on the others, as the JAX
+package does. :func:`define_fused_model` builds the client-fused module
+(``cfg.mesh.client_fusion='fused'``). Refused by name: MoE blocks and
 compute dtypes other than float32 and bfloat16.
 """
 from __future__ import annotations
@@ -21,14 +25,14 @@ import warnings
 import torch
 
 from fedtorch_tpu_torch.config import ExperimentConfig
-from fedtorch_tpu_torch.models.cnn import CNN
+from fedtorch_tpu_torch.models.cnn import CNN, FusedCNN
 from fedtorch_tpu_torch.models.common import (
     REGRESSION_DIMS, ModelDef, flat_input_size, image_shape,
 )
 from fedtorch_tpu_torch.models.densenet import build_densenet
 from fedtorch_tpu_torch.models.linear import LeastSquare, LogisticRegression
 from fedtorch_tpu_torch.models.mlp import MLP
-from fedtorch_tpu_torch.models.resnet import build_resnet
+from fedtorch_tpu_torch.models.resnet import build_fused_resnet, build_resnet
 from fedtorch_tpu_torch.models.rnn import CharGRU
 from fedtorch_tpu_torch.models.transformer import TransformerLM
 from fedtorch_tpu_torch.models.wideresnet import build_wideresnet
@@ -53,8 +57,14 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
     unless the caller asks for another)."""
     device = resolve_device(device)
     arch, dataset, m = cfg.model.arch, cfg.data.dataset, cfg.model
-    if cfg.mesh.remat:
-        raise ValueError("remat is not yet ported")
+    remat = cfg.mesh.remat
+    if remat and not (arch.startswith(("resnet", "wideresnet", "densenet"))
+                      or arch == "transformer"):
+        warnings.warn(
+            f"--remat has no effect for arch {arch!r} (supported: "
+            "resnet*/wideresnet*/densenet*/transformer — the deep "
+            "activation-heavy families); running without "
+            "rematerialization", stacklevel=2)
     if cfg.mesh.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.mesh.compute_dtype!r} is "
                          "not yet ported")
@@ -68,7 +78,7 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
             stacklevel=2)
     conv_impl = resolve_conv_impl(m.conv_impl)
     if arch == "transformer":
-        return _transformer(m, dtype, batch_size, device)
+        return _transformer(m, dtype, batch_size, device, remat)
     if arch == "rnn":
         module = CharGRU(m.vocab_size, m.rnn_hidden_size, dtype=dtype)
         sample = torch.zeros((batch_size, m.rnn_seq_len), dtype=torch.int64,
@@ -80,13 +90,15 @@ def define_model(cfg: ExperimentConfig, batch_size: int = 2,
         module = CNN(dataset, image_shape(dataset), dtype, conv_impl)
     elif arch.startswith("wideresnet"):
         module = build_wideresnet(arch, dataset, m.wideresnet_widen_factor,
-                                  dtype, m.drop_rate, m.norm, conv_impl)
+                                  dtype, m.drop_rate, m.norm, conv_impl,
+                                  remat)
     elif arch.startswith("resnet"):
-        module = build_resnet(arch, dataset, dtype, m.norm, conv_impl)
+        module = build_resnet(arch, dataset, dtype, m.norm, conv_impl, remat)
     elif arch.startswith("densenet"):
         module = build_densenet(arch, dataset, m.densenet_growth_rate,
                                 m.densenet_bc_mode, m.densenet_compression,
-                                m.drop_rate, m.norm, dtype, conv_impl)
+                                m.drop_rate, m.norm, dtype, conv_impl,
+                                remat)
     else:
         raise ValueError(f"Unknown architecture {arch!r}")
     sample = torch.zeros((batch_size,) + image_shape(dataset),
@@ -126,7 +138,35 @@ def _flat(cfg, dtype, batch_size: int, device) -> ModelDef:
                     has_dropout=base == "mlp" and m.drop_rate > 0)
 
 
-def _transformer(m, dtype, batch_size: int, device) -> ModelDef:
+def define_fused_model(cfg: ExperimentConfig, num_clients: int,
+                       device=None):
+    """The client-fused module of ``cfg.mesh.client_fusion='fused'`` on
+    ``device`` (``cuda`` unless the caller asks for another): its params
+    are the per-client params stacked on a leading ``[num_clients]``
+    axis, and it maps stacked ``[k, B, H, W, C]`` inputs to ``[k, B,
+    classes]`` logits through grouped convolutions; None when the
+    (arch, dataset, norm) triple has no fused form (the resnet-cifar
+    family and the ``cnn`` with ``norm='bn'`` have one). Fusion is
+    another lowering of the same math, so ``conv_impl`` does not apply
+    to it."""
+    device = resolve_device(device)
+    arch, dataset, m = cfg.model.arch, cfg.data.dataset, cfg.model
+    dtype = COMPUTE_DTYPES[cfg.mesh.compute_dtype]
+    module = None
+    if arch.startswith("resnet"):
+        module = build_fused_resnet(arch, dataset, num_clients, m.norm,
+                                    dtype, cfg.mesh.remat)
+    elif arch == "cnn":
+        try:
+            shape = image_shape(dataset)
+        except NotImplementedError:
+            return None
+        module = FusedCNN(dataset, shape, num_clients, dtype)
+    return None if module is None else module.to(device)
+
+
+def _transformer(m, dtype, batch_size: int, device,
+                 remat: bool = False) -> ModelDef:
     """The JAX package's derivation (models/__init__.py:225-251): d_model
     = 2 * rnn_hidden_size, the first head count of (4, 2, 1) that divides
     it, mlp_num_layers blocks, the class's max_len of 2048."""
@@ -137,10 +177,11 @@ def _transformer(m, dtype, batch_size: int, device) -> ModelDef:
     num_heads = next(h for h in (4, 2, 1) if d_model % h == 0)
     module = TransformerLM(vocab_size=m.vocab_size, d_model=d_model,
                            num_heads=num_heads, num_layers=m.mlp_num_layers,
-                           dtype=dtype, attention=m.attention).to(device)
+                           dtype=dtype, attention=m.attention,
+                           remat=remat).to(device)
     sample = torch.zeros((batch_size, m.rnn_seq_len), dtype=torch.int64,
                          device=device)
     return ModelDef("transformer", module, sample)
 
 
-__all__ = ["ModelDef", "define_model"]
+__all__ = ["ModelDef", "define_fused_model", "define_model"]

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 # flax's lecun_normal draws a standard normal truncated to [-2, 2] and
 # rescales by this constant, the std of that truncated normal
@@ -371,6 +372,18 @@ def fold_key(key: int, n: int) -> int:
 _DROP_GENERATORS: dict = {}
 
 
+class GeneratorDrop:
+    """A keep-mask source on a generator: each call draws
+    ``rand(shape) < keep`` on ``device``."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device):
+        self.gen, self.device = gen, device
+
+    def __call__(self, shape, keep):
+        return torch.rand(shape, generator=self.gen,
+                          device=self.device) < keep
+
+
 def drop_source(key, device):
     """The keep-mask source of one training forward: from an integer
     ``key``, a generator on ``device`` reseeded with it, each mask
@@ -384,13 +397,185 @@ def drop_source(key, device):
     if gen is None:
         gen = _DROP_GENERATORS[device] = torch.Generator(device=device)
     gen.manual_seed(int(key))
-    return lambda shape, keep: torch.rand(shape, generator=gen,
-                                          device=device) < keep
+    return GeneratorDrop(gen, device)
+
+
+def _replayed_sources(drop):
+    """The mask sources of a rematerialized block's calls: ``drop`` for
+    its forward, then for each recompute a source that gives the same
+    masks again. A generator source replays from its state at block
+    entry (a fresh generator, so the forward's own draws go on from
+    where they were); any other source's masks are kept and handed out
+    again in call order."""
+    if isinstance(drop, GeneratorDrop):
+        state = drop.gen.get_state()
+        yield drop
+        while True:
+            gen = torch.Generator(device=drop.device)
+            gen.set_state(state)
+            yield GeneratorDrop(gen, drop.device)
+    masks = []
+
+    def record(shape, keep):
+        masks.append(drop(shape, keep))
+        return masks[-1]
+    yield record
+    while True:
+        it = iter(masks)
+        yield lambda shape, keep: next(it)
+
+
+def rematerialized(block, x, drop=None):
+    """``block(x)`` (``block(x, drop)`` with a mask source) with per-block
+    rematerialization (the JAX package's ``nn.remat``): the forward
+    keeps only the block's input, and the backward recomputes the block
+    from it (``torch.utils.checkpoint``, non-reentrant). The recompute
+    draws the forward's dropout masks (:func:`_replayed_sources`), so
+    outputs and gradients are the same as without it. Outside autograd
+    (evaluation) it is the plain call."""
+    if not torch.is_grad_enabled():
+        return block(x) if drop is None else block(x, drop)
+    # the block's tensors as they are now: under ModelDef.apply's
+    # functional_call they are the caller's params, and the recompute
+    # runs in the backward, after functional_call has put the module's
+    # own back
+    tensors = dict(block.named_parameters())
+    tensors.update(block.named_buffers())
+    sources = None if drop is None else _replayed_sources(drop)
+
+    def run(t):
+        args = (t,) if sources is None else (t, next(sources))
+        return functional_call(block, tensors, args)
+    # the models draw no global random numbers (dropout masks come from
+    # the source), so there is no global generator state to stash
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def norm_f32(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Normalize in float32, return in the input's (compute) dtype."""
     return norm(x.to(torch.float32)).to(x.dtype)
+
+
+# -- client-fused layers (cfg.mesh.client_fusion='fused') ------------------
+#
+# The k online clients packed into the channel axis: activations travel
+# as NCHW views ``[B, k*C, H, W]`` of channels-last memory (the JAX
+# package's ``[B, H, W, k, C]``; channel ``g*C + c`` is client g's
+# channel c), and every conv is ONE ``F.conv2d(groups=k)``: group g sees
+# exactly client g's channels and filters, so the math per client is the
+# per-client layer's. Contract shared by every Fused* layer: its
+# parameters are the per-client parameters stacked on a leading [k]
+# axis under the same names, so ``functional_call(fused, stacked, (x,))``
+# consumes the stacked tree the engine's ClientState holds, and the two
+# client executions are checkpoint- and state-compatible. The convs are
+# XLA code in the JAX package, not Pallas, so cuDNN's grouped conv
+# computes them here.
+
+
+class FusedConv(nn.Module):
+    """k per-client :class:`Conv` layers as one grouped convolution: the
+    stacked ``[k, cout, cin, kh, kw]`` weight is ``[k*cout, cin, kh,
+    kw]`` with no transpose, the stacked ``[k, cout]`` bias ``[k*cout]``.
+    ``[B, k*cin, H, W]`` in, ``[B, k*cout, H', W']`` out."""
+
+    def __init__(self, num_clients: int, cin: int, cout: int,
+                 kernel_size: int, stride: int = 1, padding: int = 0,
+                 dtype: torch.dtype = torch.float32, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            num_clients, cout, cin, kernel_size, kernel_size))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(num_clients, cout))
+        else:
+            self.register_parameter("bias", None)
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x):
+        k, cout = self.weight.shape[:2]
+        w = self.weight.reshape((k * cout,) + tuple(self.weight.shape[2:]))
+        bias = None if self.bias is None \
+            else self.bias.reshape(-1).to(self.dtype)
+        return F.conv2d(x.to(self.dtype), w.to(self.dtype), bias,
+                        stride=self.stride, padding=self.padding, groups=k)
+
+
+class FusedDense(nn.Module):
+    """k per-client :class:`Dense` layers as one batched matmul:
+    ``[B, k, cin]`` in, ``[B, k, cout]`` out, the stacked ``[k, cout,
+    cin]`` weight and ``[k, cout]`` bias, computed in ``dtype``."""
+
+    def __init__(self, num_clients: int, cin: int, cout: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_clients, cout, cin))
+        if bias:
+            self.bias = nn.Parameter(torch.empty(num_clients, cout))
+        else:
+            self.register_parameter("bias", None)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = torch.einsum("bki,koi->bko", x.to(self.dtype),
+                         self.weight.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class FusedBatchStatsNorm(nn.Module):
+    """Per-client :class:`BatchStatsNorm` on client-packed activations
+    (``[B, k*C, H, W]`` or ``[B, k*C]``): the statistics of each
+    (client, channel) over every other axis, the same element set as the
+    per-client norm, with the stacked ``[k, C]`` affine pair."""
+
+    def __init__(self, num_clients: int, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_clients, channels))
+        self.bias = nn.Parameter(torch.empty(num_clients, channels))
+        self.eps = eps
+
+    def forward(self, x):
+        return F.batch_norm(x, None, None, self.weight.reshape(-1),
+                            self.bias.reshape(-1), training=True,
+                            eps=self.eps)
+
+
+def fused_norm(kind: str, num_clients: int, channels: int) -> nn.Module:
+    """The client-packed counterpart of :func:`make_norm`; only 'bn' has
+    a fused form (the fusion gate keeps the per-client execution for
+    other norms)."""
+    if kind != "bn":
+        raise ValueError(
+            f"client fusion supports norm='bn' only, got {kind!r}")
+    return FusedBatchStatsNorm(num_clients, channels)
+
+
+class FusedNormed(Normed):
+    """A :class:`Normed` whose norms are client-packed (named as the
+    per-client module names its norms)."""
+
+    def __init__(self, num_clients: int, norm: str = "bn"):
+        super().__init__(norm)
+        self.num_clients = num_clients
+
+    def add_norm(self, i: int, channels: int) -> None:
+        self.add_module(norm_name(self.norm, i),
+                        fused_norm(self.norm, self.num_clients, channels))
+
+
+def fused_max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Per-client max pool of client-packed activations (a pool is per
+    channel, so every client's channels pool on their own)."""
+    return F.max_pool2d(x, window, stride=stride)
+
+
+def pack_clients(x: torch.Tensor) -> torch.Tensor:
+    """``[k, B, H, W, C]`` stacked batches -> ``[B, k*C, H, W]``, the NCHW
+    view of channels-last ``[B, H, W, k, C]`` memory (the fused layers'
+    layout)."""
+    k, B, H, W, C = x.shape
+    return x.permute(1, 2, 3, 0, 4).reshape(B, H, W, k * C).permute(
+        0, 3, 1, 2)
 
 
 class ModelDef(NamedTuple):
@@ -413,6 +598,9 @@ class ModelDef(NamedTuple):
     is_recurrent: bool = False
     has_noise_param: bool = False
     has_dropout: bool = False
+    # the JAX package's MoE load-balance loss; MoE blocks are refused by
+    # define_model, so no port model sets it
+    has_aux_loss: bool = False
 
     def init(self, generator: torch.Generator) -> dict:
         """Fresh params (flax's default initializers): drawn on the CPU

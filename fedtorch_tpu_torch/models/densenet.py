@@ -16,7 +16,9 @@ in the compute dtype, every norm in float32; module names are flax's
 (``Conv_0``, ``_DenseLayer_<i>``, the transitions' ``Conv_1``/``Conv_2``,
 norms auto-named per parent in call order, ``Dense_0``). Inside a dense
 layer the 3x3 conv is ``Conv_1`` after a bottleneck and ``Conv_0``
-without one, as flax auto-names them.
+without one, as flax auto-names them. ``remat`` recomputes each dense
+layer in the backward (the JAX package's per-layer ``nn.remat``), its
+dropout masks replayed (``models/common.py`` ``rematerialized``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from fedtorch_tpu_torch.models.common import (
     Dense, Normed, conv_of, dropout, image_shape, norm_f32, num_classes_of,
+    rematerialized,
 )
 
 
@@ -60,14 +63,15 @@ class DenseNet(Normed):
     def __init__(self, dataset: str, depth: int = 40, growth_rate: int = 12,
                  bc_mode: bool = False, compression: float = 1.0,
                  drop_rate: float = 0.0, norm: str = "bn",
-                 dtype: torch.dtype = torch.float32, conv_impl: str = "conv"):
+                 dtype: torch.dtype = torch.float32, conv_impl: str = "conv",
+                 remat: bool = False):
         super().__init__(norm)
         Conv = conv_of(conv_impl)
         layers_per_block = (depth - 4) // 3
         if bc_mode:
             layers_per_block //= 2
         ch = 2 * growth_rate if bc_mode else 16
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.Conv_0 = Conv(image_shape(dataset)[-1], ch, 3, 1, 1, dtype)
         li = 0
         for block in range(3):
@@ -92,7 +96,9 @@ class DenseNet(Normed):
         the keep-mask source of a training forward."""
         x = self.Conv_0(x.to(self.dtype).permute(0, 3, 1, 2))
         for li in range(self.num_layers):
-            x = getattr(self, f"_DenseLayer_{li}")(x, drop)
+            layer = getattr(self, f"_DenseLayer_{li}")
+            x = rematerialized(layer, x, drop) if self.remat \
+                else layer(x, drop)
             block, last = divmod(li + 1, self.layers_per_block)
             if last == 0 and block < 3:  # a transition after blocks 1, 2
                 x = F.relu(norm_f32(self.nrm(block - 1), x))
@@ -106,9 +112,9 @@ class DenseNet(Normed):
 def build_densenet(arch: str, dataset: str, growth_rate: int, bc_mode: bool,
                    compression: float, drop_rate: float, norm: str = "bn",
                    dtype: torch.dtype = torch.float32,
-                   conv_impl: str = "conv") -> nn.Module:
+                   conv_impl: str = "conv", remat: bool = False) -> nn.Module:
     """arch string 'densenet<depth>' (factory densenet.py:200-208)."""
     depth = int(arch.replace("densenet", ""))
     return DenseNet(dataset, depth, growth_rate, bc_mode,
                     compression if bc_mode else 1.0, drop_rate, norm, dtype,
-                    conv_impl)
+                    conv_impl, remat)

@@ -19,7 +19,17 @@ layout cuDNN's NHWC kernels take. Convs run in the compute dtype
 ``norm`` is 'bn' (batch statistics) or 'gn' (GroupNorm), named as flax
 auto-names them; ``conv_impl`` 'matmul' swaps in the im2col conv with
 the same params. The convs are XLA code in the JAX package, not Pallas,
-so they stay torch ops here.
+so they stay torch ops here. ``remat`` recomputes each residual block in
+the backward instead of keeping its activations (the JAX package's
+per-block ``nn.remat``; ``models/common.py`` ``rematerialized``): same
+params, same outputs and gradients.
+
+The client-fused variant (``cfg.mesh.client_fusion='fused'``):
+:class:`FusedResNetCifar` maps the k online clients' stacked ``[k, B, H,
+W, C]`` batches to ``[k, B, classes]`` logits, every conv one grouped
+convolution over the clients' packed channels (``models/common.py``
+"client-fused layers"); its blocks are named without the ``Fused``
+prefix, so its params are the stacked ``ResNetCifar`` params.
 """
 from __future__ import annotations
 
@@ -28,7 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fedtorch_tpu_torch.models.common import (
-    Dense, Normed, conv_of, norm_f32, num_classes_of,
+    Dense, FusedConv, FusedDense, FusedNormed, Normed, conv_of, norm_f32,
+    num_classes_of, pack_clients, rematerialized,
 )
 
 
@@ -106,10 +117,14 @@ class _ResNet(Normed):
         self.block_name = block.__name__
         return cin
 
-    def _blocks_and_head(self, x):
+    def _blocks(self, x):
         for bi in range(self.num_blocks):
-            x = getattr(self, f"{self.block_name}_{bi}")(x)
-        x = x.mean(dim=(2, 3))
+            block = getattr(self, f"{self.block_name}_{bi}")
+            x = rematerialized(block, x) if self.remat else block(x)
+        return x
+
+    def _blocks_and_head(self, x):
+        x = self._blocks(x).mean(dim=(2, 3))
         # classifier head in f32 for logit fidelity
         return self.Dense_0(x.to(torch.float32))
 
@@ -117,11 +132,11 @@ class _ResNet(Normed):
 class ResNetCifar(_ResNet):
     def __init__(self, dataset: str, size: int,
                  dtype: torch.dtype = torch.float32, norm: str = "bn",
-                 conv_impl: str = "conv"):
+                 conv_impl: str = "conv", remat: bool = False):
         super().__init__(norm)
         if size % 6 != 2:
             raise ValueError(f"resnet_size must be 6n+2, got {size}")
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         n_blocks = (size - 2) // 6
         block = Bottleneck if size >= 44 else BasicBlock
         self.Conv_0 = conv_of(conv_impl)(3, 16, 3, 1, 1, dtype)
@@ -148,9 +163,9 @@ class ResNetImageNet(_ResNet):
 
     def __init__(self, dataset: str, size: int,
                  dtype: torch.dtype = torch.float32, norm: str = "bn",
-                 conv_impl: str = "conv"):
+                 conv_impl: str = "conv", remat: bool = False):
         super().__init__(norm)
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         block, layers = self._PARAMS[size]
         self.Conv_0 = conv_of(conv_impl)(3, 64, 7, 2, 3, dtype)
         self.add_norm(0, 64)
@@ -167,17 +182,127 @@ class ResNetImageNet(_ResNet):
         return self._blocks_and_head(x)
 
 
+def _cifar_family(dataset: str) -> bool:
+    return "cifar" in dataset or "svhn" in dataset \
+        or "downsampled_imagenet" in dataset or dataset == "stl10"
+
+
 def build_resnet(arch: str, dataset: str, dtype: torch.dtype = torch.float32,
-                 norm: str = "bn", conv_impl: str = "conv") -> nn.Module:
+                 norm: str = "bn", conv_impl: str = "conv",
+                 remat: bool = False) -> nn.Module:
     """Factory matching resnet.py:260-274 arch-string parsing: the CIFAR
     variant for the CIFAR family, the ImageNet one for ``imagenet``
     datasets."""
     size = int(arch.replace("resnet", ""))
-    if "cifar" in dataset or "svhn" in dataset \
-            or "downsampled_imagenet" in dataset or dataset == "stl10":
-        return ResNetCifar(dataset, size, dtype, norm, conv_impl)
+    if _cifar_family(dataset):
+        return ResNetCifar(dataset, size, dtype, norm, conv_impl, remat)
     if "imagenet" in dataset:
-        return ResNetImageNet(dataset, size, dtype, norm, conv_impl)
+        return ResNetImageNet(dataset, size, dtype, norm, conv_impl, remat)
     raise ValueError(f"resnet on dataset {dataset!r} is not yet ported "
                      "(the JAX package has the cifar and imagenet "
                      "families)")
+
+
+# -- client-fused variants (cfg.mesh.client_fusion='fused') ----------------
+
+
+class FusedBasicBlock(FusedNormed):
+    """:class:`BasicBlock` on client-packed activations: the same forward
+    over grouped convs and per-client norms."""
+    expansion = 1
+    forward = BasicBlock.forward
+
+    def __init__(self, num_clients: int, cin: int, planes: int,
+                 stride: int = 1, dtype: torch.dtype = torch.float32,
+                 norm: str = "bn"):
+        super().__init__(num_clients, norm)
+        k = num_clients
+        self.Conv_0 = FusedConv(k, cin, planes, 3, stride, 1, dtype)
+        self.add_norm(0, planes)
+        self.Conv_1 = FusedConv(k, planes, planes, 3, 1, 1, dtype)
+        self.add_norm(1, planes)
+        self.shortcut = stride != 1 or cin != planes
+        if self.shortcut:
+            self.Conv_2 = FusedConv(k, cin, planes, 1, stride, 0, dtype)
+            self.add_norm(2, planes)
+
+
+class FusedBottleneck(FusedNormed):
+    """:class:`Bottleneck` on client-packed activations."""
+    expansion = 4
+    forward = Bottleneck.forward
+
+    def __init__(self, num_clients: int, cin: int, planes: int,
+                 stride: int = 1, dtype: torch.dtype = torch.float32,
+                 norm: str = "bn"):
+        super().__init__(num_clients, norm)
+        k = num_clients
+        out_planes = planes * self.expansion
+        self.Conv_0 = FusedConv(k, cin, planes, 1, 1, 0, dtype)
+        self.add_norm(0, planes)
+        self.Conv_1 = FusedConv(k, planes, planes, 3, stride, 1, dtype)
+        self.add_norm(1, planes)
+        self.Conv_2 = FusedConv(k, planes, out_planes, 1, 1, 0, dtype)
+        self.add_norm(2, out_planes)
+        self.shortcut = stride != 1 or cin != out_planes
+        if self.shortcut:
+            self.Conv_3 = FusedConv(k, cin, out_planes, 1, stride, 0, dtype)
+            self.add_norm(3, out_planes)
+
+
+class FusedResNetCifar(FusedNormed):
+    """Client-fused :class:`ResNetCifar`: ``[k, B, H, W, C]`` stacked
+    inputs -> ``[k, B, classes]`` logits. Its params are the stacked
+    ``ResNetCifar`` params (``BasicBlock_<i>``/``Bottleneck_<i>``
+    blocks)."""
+
+    _blocks = _ResNet._blocks
+
+    def __init__(self, dataset: str, size: int, num_clients: int,
+                 dtype: torch.dtype = torch.float32, norm: str = "bn",
+                 remat: bool = False):
+        super().__init__(num_clients, norm)
+        if size % 6 != 2:
+            raise ValueError(f"resnet_size must be 6n+2, got {size}")
+        self.dtype, self.remat = dtype, remat
+        k = num_clients
+        n_blocks = (size - 2) // 6
+        block = FusedBottleneck if size >= 44 else FusedBasicBlock
+        self.Conv_0 = FusedConv(k, 3, 16, 3, 1, 1, dtype)
+        self.add_norm(0, 16)
+        cin, bi = 16, 0
+        # the per-client names: BasicBlock_<i> / Bottleneck_<i>
+        self.block_name = block.__name__.replace("Fused", "")
+        for stage, planes in enumerate((16, 32, 64)):
+            for i in range(n_blocks):
+                stride = 2 if (stage > 0 and i == 0) else 1
+                self.add_module(f"{self.block_name}_{bi}",
+                                block(k, cin, planes, stride, dtype, norm))
+                cin = planes * block.expansion
+                bi += 1
+        self.num_blocks = bi
+        self.Dense_0 = FusedDense(k, cin, num_classes_of(dataset))
+
+    def forward(self, x):
+        """x: [k, B, H, W, C] -> logits [k, B, classes] (float32)."""
+        k, B = x.shape[:2]
+        x = pack_clients(x.to(self.dtype))
+        x = F.relu(norm_f32(self.nrm(0), self.Conv_0(x)))
+        x = self._blocks(x).mean(dim=(2, 3)).reshape(B, k, -1)
+        # classifier head in f32 for logit fidelity
+        return self.Dense_0(x.to(torch.float32)).transpose(0, 1)
+
+
+def build_fused_resnet(arch: str, dataset: str, num_clients: int,
+                       norm: str = "bn", dtype: torch.dtype = torch.float32,
+                       remat: bool = False):
+    """Client-fused counterpart of :func:`build_resnet`: None where no
+    fused form exists (the ImageNet variant, a norm other than 'bn'), and
+    the fusion gate then keeps the per-client execution."""
+    if norm != "bn":
+        return None
+    size = int(arch.replace("resnet", ""))
+    if _cifar_family(dataset):
+        return FusedResNetCifar(dataset, size, num_clients, dtype, norm,
+                                remat)
+    return None

@@ -19,10 +19,15 @@ scores) or flash (``ops/cuda/flash_attention.py``: the Hopper kernel on
 CUDA, its plain version on the CPU), resolved per sequence length by
 ``ops/attention_dispatch.py``.
 
+``remat`` recomputes each block in the backward (the JAX package's
+per-block ``nn.remat``; ``models/common.py`` ``rematerialized``); under
+it the flash ``autograd.Function``'s forward runs again in the recompute
+and saves its o and lse anew, so a remat step launches the flash kernel
+twice a layer.
+
 Not ported, refused by ``define_model``: MoE blocks (``moe_experts >
-0``), per-block rematerialization (``remat``); and
-:func:`long_context_apply` (sequence-parallel ring/Ulysses attention)
-raises.
+0``); and :func:`long_context_apply` (sequence-parallel ring/Ulysses
+attention) raises.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fedtorch_tpu_torch.models.common import Dense, Embed
+from fedtorch_tpu_torch.models.common import Dense, Embed, rematerialized
 from fedtorch_tpu_torch.ops.attention_dispatch import resolve_attention
 from fedtorch_tpu_torch.ops.cuda.flash_attention import flash_attention
 
@@ -108,7 +113,7 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int = 86, d_model: int = 128,
                  num_heads: int = 4, num_layers: int = 2,
                  max_len: int = 2048, dtype: torch.dtype = torch.float32,
-                 attention: str = "dense"):
+                 attention: str = "dense", remat: bool = False):
         super().__init__()
         resolve_attention(attention, 1)  # refuse an unknown mode now
         self.tok_embed = Embed(vocab_size, d_model)
@@ -119,7 +124,7 @@ class TransformerLM(nn.Module):
                     _Block(d_model, num_heads, dtype, attention))
         self.ln_f = LayerNorm(d_model)
         self.head = Dense(d_model, vocab_size)
-        self.dtype, self.attention = dtype, attention
+        self.dtype, self.attention, self.remat = dtype, attention, remat
 
     def init_params(self, generator: torch.Generator) -> dict:
         return {"pos_embed": torch.randn(self.pos_embed.shape,
@@ -137,7 +142,8 @@ class TransformerLM(nn.Module):
     def forward(self, tokens):
         x = self.embed(tokens)
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            x = rematerialized(block, x) if self.remat else block(x)
         return self.head_apply(x)
 
 

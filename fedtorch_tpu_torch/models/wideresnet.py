@@ -14,7 +14,9 @@ names (``Conv_0``, ``_WideBasic_<i>``, norms auto-named
 them ``_GN_<i>`` as flax does; ``conv_impl='matmul'`` swaps in the
 im2col conv. Dropout between the two convolutions of a block
 (``drop_rate > 0``) drops only in a training forward given a mask source
-(``drop``, see ``ModelDef.apply``).
+(``drop``, see ``ModelDef.apply``). ``remat`` recomputes each block in
+the backward (the JAX package's per-block ``nn.remat``), its dropout
+masks replayed (``models/common.py`` ``rematerialized``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from fedtorch_tpu_torch.models.common import (
     Dense, Normed, conv_of, dropout, image_shape, norm_f32, num_classes_of,
+    rematerialized,
 )
 
 
@@ -59,11 +62,12 @@ class _WideBasic(Normed):
 class WideResNet(Normed):
     def __init__(self, dataset: str, depth: int = 28, widen_factor: int = 4,
                  dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
-                 norm: str = "bn", conv_impl: str = "conv"):
+                 norm: str = "bn", conv_impl: str = "conv",
+                 remat: bool = False):
         super().__init__(norm)
         if (depth - 4) % 6 != 0:
             raise ValueError("wideresnet depth must be 6n+4")
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         n = (depth - 4) // 6
         k = widen_factor
         cin = 16
@@ -87,7 +91,9 @@ class WideResNet(Normed):
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC
         x = self.Conv_0(x)
         for bi in range(self.num_blocks):
-            x = getattr(self, f"_WideBasic_{bi}")(x, drop)
+            block = getattr(self, f"_WideBasic_{bi}")
+            x = rematerialized(block, x, drop) if self.remat \
+                else block(x, drop)
         # the head stays in float32, with no cast back
         x = F.relu(self.nrm(0)(x.to(torch.float32)))
         return self.Dense_0(x.mean(dim=(2, 3)))
@@ -96,8 +102,9 @@ class WideResNet(Normed):
 def build_wideresnet(arch: str, dataset: str, widen_factor: int,
                      dtype: torch.dtype = torch.float32,
                      drop_rate: float = 0.0, norm: str = "bn",
-                     conv_impl: str = "conv") -> nn.Module:
+                     conv_impl: str = "conv",
+                     remat: bool = False) -> nn.Module:
     """arch string 'wideresnet<depth>' (wideresnet.py:89-98)."""
     depth = int(arch.replace("wideresnet", ""))
     return WideResNet(dataset, depth, widen_factor, dtype, drop_rate, norm,
-                      conv_impl)
+                      conv_impl, remat)

@@ -58,13 +58,13 @@ def compress(x: torch.Tensor, ratio: float = 0.5, comp_type: str = "topk",
 
 
 def decompress(sp: Sparse) -> torch.Tensor:
-    """Scatter the values back into a dense zero tensor."""
+    """Scatter the values back into a dense zero tensor (out of place, so
+    that it runs per client under ``torch.func.vmap`` too)."""
     n = 1
     for d in sp.shape:
         n *= d
-    dense = sp.values.new_zeros((n,))
-    dense[sp.indices.long()] = sp.values
-    return dense.reshape(sp.shape)
+    dense = torch.zeros(n, dtype=sp.values.dtype, device=sp.values.device)
+    return dense.scatter(0, sp.indices.long(), sp.values).reshape(sp.shape)
 
 
 def topk_roundtrip(x: torch.Tensor, ratio: float = 0.5) -> torch.Tensor:

@@ -38,10 +38,13 @@ RoundProgramBuilder` decides which cells a trainer serves.
 
 What differs from the JAX package, and why:
 
-* The k clients run one after another in a Python loop over one shared
-  module (``torch.func.functional_call`` with each client's params); the
-  JAX package vmaps them. A batched or grouped-conv client axis is later
-  performance work.
+* With ``client_fusion`` 'vmap' (and 'auto') the k clients run one after
+  another in a Python loop over one shared module
+  (``torch.func.functional_call`` with each client's params); the JAX
+  package vmaps them. With 'fused' (``parallel/fusion.py``) all k run
+  each local step as one forward and backward of the client-fused
+  module, the hooks under ``torch.func.vmap``, as the JAX package's
+  fused round (:meth:`FederatedTrainer._fused_client_round`).
 * The round plan is drawn from the server's ``torch.Generator``, not
   threefry, so the two packages pick other cohorts and rows from one
   seed; :meth:`FederatedTrainer.round_fn` takes an injected
@@ -54,9 +57,11 @@ What differs from the JAX package, and why:
   ``gather_mode``: each client's K*B rows, and as many validation rows
   (the JAX package's ``VAL_FOLD`` stream, in either of its val modes).
   On the stream plane qFFL's feed carries whole shards instead.
-* Epoch-sync clients skip the steps past their own budget instead of
-  running them masked; state and metrics come out the same, and every
-  step-indexed hook anchors on the budget (DRFA's snapshot step).
+* On the per-client execution, epoch-sync clients skip the steps past
+  their own budget instead of running them masked; state and metrics
+  come out the same, and every step-indexed hook anchors on the budget
+  (DRFA's snapshot step). The fused execution masks them, as the JAX
+  package does.
 * Where the JAX package folds PRNG keys for an algorithm (DRFA's
   snapshot step and probe), the port draws from the server's generator
   into the plan (``FedAlgorithm.plan_draws``). So for dropout: where the
@@ -98,8 +103,8 @@ and the cohort's heterogeneity gauges in the ``cohort_*`` fields of
 (:meth:`FederatedTrainer.round_host_scalars` with ``ledger=True``); off,
 the round runs exactly as before. The async plane's commit
 (``async_plane/``) re-dispatches :meth:`FederatedTrainer._round_core`
-through its commit seam. Pod-scale sharding and client fusion are
-refused by name at construction. On the stream plane a producer that
+through its commit seam. Pod-scale sharding is refused by name at
+construction. On the stream plane a producer that
 died (its gather exhausted the ``stream.gather`` retries, it wedged past
 ``stream_timeout_s``, or it desynced) is rebuilt from the live
 (generator, round) up to ``fault.host_retry_max`` times a pop
@@ -117,6 +122,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call, vmap
 
 from fedtorch_tpu_torch import telemetry
 from fedtorch_tpu_torch.algorithms.base import (
@@ -124,7 +130,9 @@ from fedtorch_tpu_torch.algorithms.base import (
 )
 from fedtorch_tpu_torch.config import ExperimentConfig
 from fedtorch_tpu_torch.core import optim
-from fedtorch_tpu_torch.core.losses import make_criterion, per_sample_loss
+from fedtorch_tpu_torch.core.losses import (
+    make_criterion, per_sample_loss, topk_indices,
+)
 from fedtorch_tpu_torch.core.schedule import compile_schedule, lr_at
 from fedtorch_tpu_torch.core.state import (
     ClientState, RoundMetrics, ServerState, tree_broadcast_clients,
@@ -137,6 +145,7 @@ from fedtorch_tpu_torch.data.streaming import (
 )
 from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
+from fedtorch_tpu_torch.parallel.fusion import resolve_client_fusion
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
 )
@@ -311,9 +320,7 @@ class PlanDrawer:
 
 
 def unported_features(cfg: ExperimentConfig) -> list:
-    """Names of the requested features this port does not have yet
-    (client fusion is refused by the round-program builder, as a
-    cell)."""
+    """Names of the requested features this port does not have yet."""
     checks = [(cfg.mesh.client_shards != 0, "client_shards")]
     return [name for bad, name in checks if bad]
 
@@ -361,8 +368,6 @@ class FederatedTrainer:
         self.algorithm = algorithm
         self.data_plane = cfg.data.data_plane
         self.has_val = val_data is not None
-        self.programs = RoundProgramBuilder(self)
-        self.programs.validate(self.construction_dispatch)
         self.device = resolve_device(device)
         if model.sample_input.device != self.device:
             raise ValueError(f"the model lives on "
@@ -383,6 +388,13 @@ class FederatedTrainer:
         self.k_dispatch = max(math.ceil(
             flt.over_select_frac * self.k_online), self.k_online) \
             if self.avail_sync else self.k_online
+        # the client execution (parallel/fusion.py): 'fused' runs each
+        # local step of all k' clients as one forward and backward of the
+        # client-fused module; the builder refuses what it cannot serve
+        self.client_fusion, self.fused_module = resolve_client_fusion(
+            cfg, model, algorithm, 1, self.k_dispatch)
+        self.programs = RoundProgramBuilder(self)
+        self.programs.validate(self.construction_dispatch)
         self.participation_mode = cfg.federated.participation_mode
         self.epoch_sync = cfg.federated.sync_type == "epoch"
         if self.epoch_sync:
@@ -390,6 +402,8 @@ class FederatedTrainer:
             self.local_steps = nb_max * cfg.federated.num_epochs_per_comm
         else:
             self.local_steps = max(cfg.train.local_step, 1)
+        # the fused round masks the steps past a client's budget
+        self.mask_steps = self.epoch_sync or flt.straggler_rate > 0.0
         # train-time flip+crop for image batches ([C, N, H, W, C] data)
         self.augment = bool(cfg.data.augment) and data.x.dim() == 5
         self.schedule = compile_schedule(
@@ -624,7 +638,6 @@ class FederatedTrainer:
         late instead) and the DP noise is calibrated to the commit's
         width. None, the default, runs the synchronous round."""
         alg, dev, flt = self.algorithm, self.device, self.fault
-        K, B, C = self.local_steps, self.batch_size, self.num_clients
         commit = base_params is not None
         extras = {}
         if self.aux_wrapped:
@@ -691,20 +704,239 @@ class FederatedTrainer:
                 on_aux, server=server, x=pre_x, y=pre_y, sizes=on_sizes,
                 lr=on_lrs, plan=plan)
 
-        payloads, client_opts, client_aux, budgets = [], [], [], []
+        # each client's steps this round: its epoch-sync budget, cut for a
+        # straggler
+        budgets = [self._step_budget(self.sizes[c], budget_scale[j])
+                   for j, c in enumerate(idx.tolist())]
+        if self.client_fusion == "fused":
+            (stacked, wire_deltas, client_opts, client_aux, epochs,
+             local_index, losses, accs, kept) = self._fused_client_round(
+                server, clients, idx, x, y, on_aux, weights, budgets,
+                draws if self.augment else None)
+        else:
+            (stacked, wire_deltas, client_opts, client_aux, epochs,
+             local_index, losses, accs, kept) = self._client_loops(
+                server, clients, plan, idx, x, y, on_aux, weights, budgets,
+                shards, base_params, base_aux,
+                draws if self.augment else None,
+                vrows if alg.needs_val_batch else None)
+
+        with torch.no_grad():
+            if flt.byzantine_rate > 0.0:
+                # an adversary crafts what it sends, before the wire
+                # format; its local state stays honest
+                wire_deltas, stacked = chaos.apply_byzantine(
+                    chaos.ChaosPlan(*(t.to(dev) for t in cplan)),
+                    wire_deltas, stacked, weights, flt, seed=plan.byz_seed,
+                    noise=plan.noise)
+            nan_dev = cplan.nan_inject.to(dev) \
+                if flt.nan_inject_rate > 0.0 else None
+            if nan_dev is not None and wire_deltas is not None:
+                wire_deltas = chaos.poison_tree(wire_deltas, nan_dev)
+            # uplink wire format on the stacked [k'] axis
+            stacked = alg.payload_batch_transform(stacked)
+            if nan_dev is not None:
+                # a fried wire trumps whatever was on it
+                stacked = chaos.poison_tree(stacked, nan_dev)
+            survive_dev = survive.to(dev) \
+                if self.chaos_on or self.avail_sync else None
+            payload_sum, new_robust_m, fault_counts, accept, dp_frac, \
+                cohort = self._aggregate(stacked, wire_deltas, weights,
+                                         extras.get("norm_bound_m"),
+                                         survive_dev)
+            # the downlink wire format, once, whatever the rule
+            payload_sum = alg.aggregate_transform(payload_sum)
+            dp_sigma = None
+            if self.dp_on:
+                # noise on the released estimate, at the round's real
+                # width: k_online, or the commit's buffer m
+                scale = extras["dp_noise_scale"]
+                sigma = dp_noise_stddev(self.fault.dp_noise_multiplier,
+                                        self.fault.dp_clip_norm,
+                                        k if commit else self.k_online)
+                payload_sum = dp_add_noise(
+                    payload_sum, plan.dp_seed, weights, sigma, scale,
+                    noise=(plan.noise or {}).get("dp"))
+                dp_sigma = (sigma * scale).to(torch.float32)
+            new_params, new_opt, new_saux = alg.server_update(
+                server.params, server.opt, server.aux, payload_sum,
+                online_idx=idx, num_online_eff=num_online_eff,
+                client_losses=losses)
+            if self._client_post:
+                # aux updates that need the transformed sum, each with
+                # the client's round-end LR and step budget
+                client_aux = tree_stack([alg.client_post(
+                    delta=d, client_aux=tree_take(client_aux, j),
+                    payload_sum=payload_sum, lr=lr_at(self.schedule,
+                                                      epochs[j]),
+                    local_steps=budgets[j], server_params=server.params,
+                    params=p, weight=weights[j])
+                    for j, (d, p) in enumerate(kept)])
+
+            # the clients that keep their round leave holding the
+            # aggregated server model (model_server =
+            # deepcopy(model_client), fedavg.py:97); a crashed or
+            # dropped-out client's rows are not written
+            js = [j for j in range(k) if keep[j]]
+            if js:
+                whole = len(js) == k
+                rows_keep = rows_dev if whole else idx[js].to(dev)
+                sel = None if whole else torch.tensor(js, device=dev)
+
+                def kept_rows(tree):
+                    return tree if whole else tree_take(tree, sel)
+                for n, p in clients.params.items():
+                    p[rows_keep] = new_params[n]
+                tree_put(clients.opt, rows_keep, kept_rows(client_opts))
+                tree_put(clients.aux, rows_keep, kept_rows(client_aux))
+                clients.epoch[rows_keep] = kept_rows(epochs)
+                clients.local_index[rows_keep] = kept_rows(local_index)
+
+            metrics = self._round_metrics(
+                server, k, rows_dev, losses, accs, cplan, survive, avail,
+                accept, fault_counts, dp_frac, dp_sigma, cohort)
+        new_server = ServerState(params=new_params, opt=new_opt,
+                                 aux=new_saux, round=server.round + 1,
+                                 rng=server.rng)
+        # the second global phase (DRFA's dual update)
+        if probe is not None:
+            new_server = alg.post_round_global_feed(new_server, probe)
+        else:
+            new_server = alg.post_round_global(new_server, self.data, plan)
+        if self.aux_wrapped:
+            # the updated norm_bound center, the noise scale and the
+            # fault key ride the server aux
+            if self.robust_momentum:
+                extras["norm_bound_m"] = new_robust_m
+            new_server = new_server._replace(
+                aux={"alg": new_server.aux, **extras})
+        return new_server, clients, metrics
+
+    def _step_budget(self, size: int, scale: float) -> int:
+        """A client's local steps this round: ``K``, or under epoch sync
+        its own ``ceil(size / B) * E``; a straggler's cut (``scale`` < 1)
+        in float32, as the JAX package's."""
+        K, B = self.local_steps, self.batch_size
+        budget = min(math.ceil(size / B)
+                     * self.cfg.federated.num_epochs_per_comm, K) \
+            if self.epoch_sync else K
+        if self.fault.straggler_rate > 0.0:
+            budget = max(math.ceil(float(
+                np.float32(budget) * np.float32(scale))), 1)
+        return budget
+
+    def _fused_client_round(self, server, clients, idx, x, y, on_aux,
+                            weights, budgets, draws):
+        """:meth:`_client_loops` for ``client_fusion='fused'``: K steps,
+        each ONE forward and backward of the client-fused module
+        (``self.fused_module``: a grouped convolution a layer over the k
+        clients' packed channels) on all k clients' batches, the loss
+        the sum of the per-client batch means, so that each client's
+        gradient is its own. ``transform_grads``, the optimizer step and
+        ``client_payload`` run per client on the stacked state under
+        ``torch.func.vmap``, as the JAX package's fused round runs them
+        under ``jax.vmap``. Epoch-sync budgets and straggler cuts mask
+        the steps past a client's budget with ``torch.where`` (the JAX
+        package's ``mask_steps``) instead of skipping them; epoch, local
+        index, loss and accuracy count the active steps only, in the JAX
+        package's arithmetic (``epoch + active / nb``). The fusion gate
+        (``parallel/fusion.py``) keeps what this step does not thread
+        (validation batches, the full-data loss, a carry, dropout, the
+        commit's per-client snapshots) off this path."""
+        alg, cfg, dev = self.algorithm, self.cfg, self.device
+        K, B, k = self.local_steps, self.batch_size, idx.shape[0]
+        fused, sp, sa = self.fused_module, server.params, server.aux
+        rows = idx.to(dev)
+        nb = torch.tensor([float(math.ceil(self.sizes[c] / B))
+                           for c in idx.tolist()], device=dev)
+        # [K, k]: step s runs for client j while s < its budget
+        active = (torch.arange(K)[:, None] < torch.tensor(budgets)[None, :]
+                  ).to(dev)
+        lrs_of = vmap(lambda e: lr_at(self.schedule, e))
+        step_grads = vmap(lambda g, p, a, lr: alg.transform_grads(
+            g, params=p, server_params=sp, client_aux=a, server_aux=sa,
+            lr=lr))
+        step_opt = vmap(lambda p, g, o, lr: optim.local_step(
+            p, g, o, lr, cfg.optim))
+
+        params = tree_broadcast_clients(sp, k)
+        opt, aux = tree_take(clients.opt, rows), on_aux
+        epoch, li = clients.epoch[rows], clients.local_index[rows]
+        step_loss, step_acc = [], []
+        for s in range(K):
+            lr = lrs_of(epoch)  # [k]
+            bx, by = x[:, s * B:(s + 1) * B], y[:, s * B:(s + 1) * B]
+            if draws is not None:
+                # every client's batch at once: the flips and crops are
+                # per sample
+                bx = augment_image_batch(
+                    bx.reshape((k * B,) + tuple(bx.shape[2:])),
+                    *(d[:, s].reshape(-1) for d in draws)).reshape(bx.shape)
+            leaves = {n: v.detach().requires_grad_(True)
+                      for n, v in params.items()}
+            logits = functional_call(fused, leaves, (bx,))  # [k, B, V]
+            loss_k = per_sample_loss(logits.reshape(k * B, -1),
+                                     by.reshape(-1), False).reshape(
+                k, B).mean(dim=1)
+            # clients are independent: the gradient of the sum is each
+            # client's own
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss_k.sum(), list(leaves.values()))))
+            with torch.no_grad():
+                grads = step_grads(grads, params, aux, lr)
+                n_params, n_opt = step_opt(params, grads, opt, lr)
+                act = active[s]
+                if self.mask_steps:
+                    def sel(new, old):
+                        return torch.where(mask_bcast(act, new), new, old)
+                    n_params = tree_map(sel, n_params, params)
+                    n_opt = tree_map(sel, n_opt, opt)
+                params, opt = n_params, n_opt
+                epoch = epoch + act.to(torch.float32) / nb
+                li = li + act.to(li.dtype)
+                pred = topk_indices(logits, 1)[..., 0]  # [k, B] top-1
+                step_loss.append(loss_k.detach())
+                step_acc.append((pred == by.to(pred.dtype)).to(
+                    torch.float32).mean(dim=1))
+
+        with torch.no_grad():
+            deltas = tree_sub(sp, params)
+            payloads, aux = vmap(
+                lambda d, a, p, lr, ks, w: alg.client_payload(
+                    delta=d, client_aux=a, params=p, server_params=sp,
+                    server_aux=sa, lr=lr, local_steps=ks, weight=w,
+                    full_loss=None))(
+                deltas, aux, params, lrs_of(epoch),
+                torch.tensor(budgets, device=dev), weights)
+            act = active.to(torch.float32)
+            n_act = act.sum(dim=0).clamp_min(1.0)
+            losses = (torch.stack(step_loss) * act).sum(dim=0) / n_act
+            accs = (torch.stack(step_acc) * act).sum(dim=0) / n_act
+            kept = [(tree_take(deltas, j), tree_take(params, j))
+                    for j in range(k)] if self._client_post else []
+        return (payloads, deltas if self.guard_on else None, opt, aux,
+                epoch, li, losses, accs, kept)
+
+    def _client_loops(self, server, clients, plan, idx, x, y, on_aux,
+                      weights, budgets, shards, base_params, base_aux,
+                      draws, vrows):
+        """The dispatched clients' local loops, one client after another
+        (the 'vmap' execution): each client's ``budgets[j]`` steps
+        through ``alg.local_step``, then its payload. Returns the stacked
+        payloads, the stacked raw deltas (guards on, else None), the
+        stacked optimizer state and aux, the round-end epochs and local
+        indices [k], the mean loss and accuracy over the steps taken [k]
+        and (``client_post`` runs) each client's (delta, round-end
+        params)."""
+        alg, B = self.algorithm, self.batch_size
+        commit = base_params is not None
+        payloads, client_opts, client_aux = [], [], []
         epochs, local_index, losses, accs = [], [], [], []
         kept = []  # (delta, round-end params) for client_post
         deltas = []  # the raw deltas the guards judge
         for j, c in enumerate(idx.tolist()):
-            size = self.sizes[c]
+            size, budget = self.sizes[c], budgets[j]
             nb = math.ceil(size / B)  # batches per local epoch
-            # epoch-sync clients stop after their own budget
-            budget = min(nb * self.cfg.federated.num_epochs_per_comm, K) \
-                if self.epoch_sync else K
-            if flt.straggler_rate > 0.0:
-                # a straggler's cut, in float32 as the JAX package's
-                budget = max(math.ceil(float(
-                    np.float32(budget) * np.float32(budget_scale[j]))), 1)
             # the client's server snapshot: the live state on the sync
             # planes, its dispatch version's on the commit
             base_p = base_params[j] if commit else server.params
@@ -752,7 +984,6 @@ class FederatedTrainer:
             payloads.append(payload)
             client_opts.append(opt)
             client_aux.append(aux)
-            budgets.append(budget)
             epochs.append(epoch)
             local_index.append(li)
             losses.append(torch.stack(step_loss).sum() / budget)
@@ -763,100 +994,11 @@ class FederatedTrainer:
                 deltas.append(delta)
 
         with torch.no_grad():
-            stacked = tree_stack(payloads)
-            # what the guards judge: the deltas as the server saw them
-            wire_deltas = tree_stack(deltas) if self.guard_on else None
-            if flt.byzantine_rate > 0.0:
-                # an adversary crafts what it sends, before the wire
-                # format; its local state stays honest
-                wire_deltas, stacked = chaos.apply_byzantine(
-                    chaos.ChaosPlan(*(t.to(dev) for t in cplan)),
-                    wire_deltas, stacked, weights, flt, seed=plan.byz_seed,
-                    noise=plan.noise)
-            nan_dev = cplan.nan_inject.to(dev) \
-                if flt.nan_inject_rate > 0.0 else None
-            if nan_dev is not None and wire_deltas is not None:
-                wire_deltas = chaos.poison_tree(wire_deltas, nan_dev)
-            # uplink wire format on the stacked [k'] axis
-            stacked = alg.payload_batch_transform(stacked)
-            if nan_dev is not None:
-                # a fried wire trumps whatever was on it
-                stacked = chaos.poison_tree(stacked, nan_dev)
-            survive_dev = survive.to(dev) \
-                if self.chaos_on or self.avail_sync else None
-            payload_sum, new_robust_m, fault_counts, accept, dp_frac, \
-                cohort = self._aggregate(stacked, wire_deltas, weights,
-                                         extras.get("norm_bound_m"),
-                                         survive_dev)
-            # the downlink wire format, once, whatever the rule
-            payload_sum = alg.aggregate_transform(payload_sum)
-            dp_sigma = None
-            if self.dp_on:
-                # noise on the released estimate, at the round's real
-                # width: k_online, or the commit's buffer m
-                scale = extras["dp_noise_scale"]
-                sigma = dp_noise_stddev(self.fault.dp_noise_multiplier,
-                                        self.fault.dp_clip_norm,
-                                        k if commit else self.k_online)
-                payload_sum = dp_add_noise(
-                    payload_sum, plan.dp_seed, weights, sigma, scale,
-                    noise=(plan.noise or {}).get("dp"))
-                dp_sigma = (sigma * scale).to(torch.float32)
-            losses, accs = torch.stack(losses), torch.stack(accs)
-            new_params, new_opt, new_saux = alg.server_update(
-                server.params, server.opt, server.aux, payload_sum,
-                online_idx=idx, num_online_eff=num_online_eff,
-                client_losses=losses)
-            if self._client_post:
-                # aux updates that need the transformed sum, each with
-                # the client's round-end LR and step budget
-                client_aux = [alg.client_post(
-                    delta=d, client_aux=a, payload_sum=payload_sum,
-                    lr=lr_at(self.schedule, e), local_steps=ks,
-                    server_params=server.params, params=p, weight=weights[j])
-                    for j, ((d, p), a, e, ks) in enumerate(
-                        zip(kept, client_aux, epochs, budgets))]
-
-            # the clients that keep their round leave holding the
-            # aggregated server model (model_server =
-            # deepcopy(model_client), fedavg.py:97); a crashed or
-            # dropped-out client's rows are not written
-            js = [j for j in range(k) if keep[j]]
-            if js:
-                rows_keep = rows_dev if len(js) == k \
-                    else idx[js].to(dev)
-
-                def kept_rows(items):
-                    return items if len(js) == k else [items[j] for j in js]
-                for n, p in clients.params.items():
-                    p[rows_keep] = new_params[n]
-                tree_put(clients.opt, rows_keep,
-                         tree_stack(kept_rows(client_opts)))
-                tree_put(clients.aux, rows_keep,
-                         tree_stack(kept_rows(client_aux)))
-                clients.epoch[rows_keep] = torch.stack(kept_rows(epochs))
-                clients.local_index[rows_keep] = torch.stack(
-                    kept_rows(local_index))
-
-            metrics = self._round_metrics(
-                server, k, rows_dev, losses, accs, cplan, survive, avail,
-                accept, fault_counts, dp_frac, dp_sigma, cohort)
-        new_server = ServerState(params=new_params, opt=new_opt,
-                                 aux=new_saux, round=server.round + 1,
-                                 rng=server.rng)
-        # the second global phase (DRFA's dual update)
-        if probe is not None:
-            new_server = alg.post_round_global_feed(new_server, probe)
-        else:
-            new_server = alg.post_round_global(new_server, self.data, plan)
-        if self.aux_wrapped:
-            # the updated norm_bound center, the noise scale and the
-            # fault key ride the server aux
-            if self.robust_momentum:
-                extras["norm_bound_m"] = new_robust_m
-            new_server = new_server._replace(
-                aux={"alg": new_server.aux, **extras})
-        return new_server, clients, metrics
+            return (tree_stack(payloads),
+                    tree_stack(deltas) if self.guard_on else None,
+                    tree_stack(client_opts), tree_stack(client_aux),
+                    torch.stack(epochs), torch.stack(local_index),
+                    torch.stack(losses), torch.stack(accs), kept)
 
     def _round_metrics(self, server, k, rows_dev, losses, accs, cplan,
                        survive, avail, accept, fault_counts, dp_frac,

@@ -9,14 +9,14 @@ function that serves each.
 * **dispatch**: ``'round'`` (one call a round), ``'scan'`` (R rounds a
   call) or ``'commit'`` (the async plane's buffered commit);
 * **execution**: ``'vmap'`` (the clients one after another on one
-  module; the port has no batched client axis yet) or ``'fused'``
-  (grouped convolutions).
+  module) or ``'fused'`` (all k clients' forward and backward as one
+  grouped convolution a layer; ``parallel/fusion.py``).
 
-:func:`validate_cell` is the one place a cell is refused: with the JAX
-package's reason where the JAX package refuses it, and as not yet
-ported for the fused execution (ROADMAP A9). The port has no pod-scale
-client shards (ROADMAP A10) and no ``gather_mode``, so those rules of
-the JAX validator have no counterpart here.
+:func:`validate_cell` is the one place a cell is refused, with the JAX
+package's reason where the JAX package refuses it. The port has no
+pod-scale client shards (ROADMAP A10; the trainer refuses them by name)
+and no ``gather_mode``, so of those rules of the JAX validator only the
+fused x ``client_shards > 1`` text has a counterpart here.
 
 On the port a "scan" is a host loop over the R rounds (over one feed
 window on the feed source), not a captured graph: the per-client loop
@@ -37,6 +37,7 @@ import torch
 
 from fedtorch_tpu_torch.algorithms.base import FedAlgorithm
 from fedtorch_tpu_torch.core.state import RoundMetrics, tree_map, tree_take
+from fedtorch_tpu_torch.parallel.fusion import fusion_supported
 
 SOURCES = ("resident", "feed")
 DISPATCHES = ("round", "scan", "commit")
@@ -44,10 +45,6 @@ EXECUTIONS = ("vmap", "fused")
 
 # algorithms the JAX package wires for stale-snapshot commits
 ASYNC_ALGORITHMS = ("fedavg", "fedprox", "fedadam", "scaffold")
-
-NOT_PORTED = {
-    "fused": "client_fusion='fused' is not yet ported (ROADMAP A9)",
-}
 
 
 class CommitJobs(NamedTuple):
@@ -93,8 +90,15 @@ def cell_build_facts(source: str, dispatch: str, execution: str, *,
 
 
 def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
-                   algorithm: FedAlgorithm, has_val: bool = False):
-    """Why the port cannot serve a cell, or None."""
+                   algorithm: FedAlgorithm, model, mesh_devices: int,
+                   k_online: int, has_val: bool = False,
+                   fused_resolved: bool = False):
+    """Why the port cannot serve a cell, or None. ``model`` (the
+    per-client ModelDef), ``mesh_devices`` and ``k_online`` (the
+    dispatch width) are the fused execution's facts;
+    ``fused_resolved=True`` skips its precondition check, which a
+    trainer whose ``resolve_client_fusion`` resolved 'fused' has
+    passed with the same reasons."""
     _check_axes(source, dispatch, execution)
 
     # -- dispatch axis: the JAX package's rules --------------------------
@@ -145,9 +149,29 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
             return ("per-client validation splits "
                     "(cfg.federated.personal) are not streamed yet")
 
-    # -- what the port has not ported ------------------------------------
-    if execution == "fused":
-        return NOT_PORTED["fused"]
+    # -- client-shard fact: the one rule with a fused counterpart --------
+    shards = cfg.mesh.client_shards
+    if shards > 1 and execution == "fused":
+        return ("client_fusion='fused' packs all k clients into "
+                "one grouped conv on one device, while "
+                f"mesh.client_shards={shards} splits the cohort "
+                "across device groups — fused x multi-shard stays "
+                "refused until a sharded grouped-conv lowering is "
+                "measured (use the vmap execution, which shards "
+                "the client axis)")
+
+    # -- execution axis: the JAX package's rules -------------------------
+    if execution == "fused" and mesh_devices > 1:
+        return ("mesh.client_fusion='fused' is unsupported: mesh has "
+                f"{mesh_devices} devices — the packed client/channel "
+                "axis must not be sharded (use the vmap path's "
+                "client-axis sharding)")
+    if execution == "fused" and dispatch != "commit" \
+            and not fused_resolved:
+        fused, why = fusion_supported(cfg, model, algorithm,
+                                      mesh_devices, k_online)
+        if fused is None:
+            return f"mesh.client_fusion='fused' is unsupported: {why}"
     return None
 
 
@@ -206,13 +230,14 @@ class RoundProgramBuilder:
 
     @property
     def execution(self) -> str:
-        return "fused" if self._t.cfg.mesh.client_fusion == "fused" \
-            else "vmap"
+        return self._t.client_fusion
 
     def validate(self, dispatch: str) -> None:
         t = self._t
         validate_cell(self.source, dispatch, self.execution, cfg=t.cfg,
-                      algorithm=t.algorithm, has_val=t.has_val)
+                      algorithm=t.algorithm, model=t.model, mesh_devices=1,
+                      k_online=t.k_dispatch, has_val=t.has_val,
+                      fused_resolved=t.fused_module is not None)
 
     def build(self, dispatch: str, *, scan_length: int = 1):
         """Validate the cell, then return its function."""

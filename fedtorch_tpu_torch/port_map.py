@@ -94,12 +94,14 @@ MODULE_MAP = {
             "torch-profiler analog only if a later item needs one "
             "(ROADMAP A7)",
             "telemetry/costs.py", "tools/trace_attrib.py"),
-    **_rows("queued", "ROADMAP A9: client fusion",
-            "parallel/fusion.py"),
+    # client fusion (ROADMAP A9); the fused layers and models sit in the
+    # ported models/{common,resnet,cnn,__init__}.py, and remat (A11's
+    # per-block rematerialization) in each model family's module
+    **_ported("parallel/fusion.py"),
     **_rows("queued", "ROADMAP A10: multi-GPU on torch.distributed",
             "parallel/mesh.py", "parallel/podscale.py"),
     **_rows("queued", "ROADMAP A11: sequence, expert, tensor and pipeline "
-            "parallelism",
+            "parallelism (remat is ported)",
             "parallel/sequence.py", "parallel/expert.py",
             "parallel/tensor.py", "parallel/pipeline.py"),
     **_rows("no port", "the JAX tracing-hazard lint (FTL rules) and the "

@@ -104,7 +104,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 @pytest.mark.parametrize("override, name", [
     (dict(mesh__client_shards=2), "client_shards"),
-    (dict(mesh__client_fusion="fused"), "fused"),
 ])
 def test_unported_trainer_features_raise_by_name(override, name):
     cfg = _cfg(**override)
@@ -158,15 +157,46 @@ def test_cohort_stats_and_the_async_plane_run_a_round(override):
         assert bool(torch.isfinite(metrics.cohort_suspicion).all())
 
 
+def test_client_fusion_runs_a_round():
+    """Once refused by name, now ported: the fused execution's finite
+    round through ``run_round``."""
+    cfg = _cfg(mesh__client_fusion="fused")
+    trainer = FederatedTrainer(cfg, define_model(cfg, device="cpu"),
+                               make_algorithm(cfg), _data(), device="cpu")
+    assert trainer.client_fusion == "fused"
+    server, clients = trainer.init_state(0)
+    server, clients, metrics = trainer.run_round(server, clients)
+    assert server.round == 1 and int(metrics.online_mask.sum()) == 2
+    assert bool(torch.isfinite(metrics.train_loss).all())
+
+
 @pytest.mark.parametrize("override, name", [
-    (dict(mesh__remat=True), "remat"),
     (dict(data__dataset="mnist"), "mnist"),
     (dict(model__arch="transformer", model__moe_experts=2), "moe_experts"),
-    (dict(model__arch="transformer", mesh__remat=True), "remat"),
 ])
 def test_unported_models_raise_by_name(override, name):
     with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
         define_model(_cfg(**override), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    dict(mesh__remat=True),
+    dict(model__arch="transformer", mesh__remat=True),
+], ids=["resnet8", "transformer"])
+def test_remat_builds_and_trains(override):
+    """Once refused by name, now ported: ``remat`` builds, and its
+    training forward and backward give finite gradients."""
+    cfg = _cfg(**override)
+    model = define_model(cfg, device="cpu")
+    assert model.module.remat
+    params = {n: v.detach().requires_grad_(True) for n, v in
+              model.init(torch.Generator().manual_seed(0)).items()}
+    x = torch.randn(2, 32, 32, 3) if cfg.model.arch == "resnet8" \
+        else torch.randint(0, 86, (2, 16))
+    out = model.apply(params, x, train=True)
+    grads = torch.autograd.grad(out.float().square().mean(),
+                                list(params.values()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 @pytest.mark.parametrize("algorithm", ["perfedme", "apfl", "perfedavg"])

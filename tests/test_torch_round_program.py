@@ -1,14 +1,14 @@
 """The round-program builder (``fedtorch_tpu_torch/parallel/round_program.py``)
 against the JAX package's, on the CPU.
 
-Over every (source x dispatch x execution) cell and five algorithm
-setups, the port refuses a cell where the JAX ``illegal_reason`` does,
-with the JAX package's words; the fused execution, which the JAX package
-serves, the port refuses as not yet ported (ROADMAP A9), also where the
-JAX package's reason is its fused module's own. Then the builder as a
+Over every (source x dispatch x execution) cell and six setups (five
+algorithms on an MLP, FedAvg on the ``cnn``, which has a fused module),
+the port refuses a cell where the JAX ``illegal_reason`` does, with the
+JAX package's words, the fused execution's too. Then the builder as a
 trainer uses it: refusals at construction (the base trainer refuses the
 async plane, whose commits ``AsyncFederatedTrainer`` serves), the scan
-cell at call time, ``run_rounds`` against ``run_round``.
+cell at call time, ``run_rounds`` against ``run_round``, and the fused
+execution in the four cells it serves (resident/feed x round/scan).
 """
 import re
 
@@ -30,6 +30,7 @@ from fedtorch_tpu_torch.parallel import round_program as trp
 
 SETUPS = {
     "fedavg": dict(algorithm="fedavg"),
+    "fedavg_cnn": dict(algorithm="fedavg", arch="cnn"),
     "qffl": dict(algorithm="qffl", qffl_q=1.0),
     "drfa": dict(algorithm="fedavg", drfa=True),
     "drfa_lambda": dict(algorithm="fedavg", drfa=True,
@@ -38,14 +39,15 @@ SETUPS = {
 }
 
 
-def _cfg(mod, *, plane="device", sync_mode="sync", fusion="auto", **fed):
+def _cfg(mod, *, plane="device", sync_mode="sync", fusion="auto",
+         arch="mlp", **fed):
     return mod.ExperimentConfig(
         data=mod.DataConfig(dataset="cifar10", batch_size=4, augment=False,
                             data_plane=plane),
         federated=mod.FederatedConfig(
             federated=True, num_clients=8, online_client_rate=0.25,
             sync_type="local_step", sync_mode=sync_mode, **fed),
-        model=mod.ModelConfig(arch="mlp", mlp_hidden_size=16),
+        model=mod.ModelConfig(arch=arch, mlp_hidden_size=16),
         optim=mod.OptimConfig(lr=0.1), train=mod.TrainConfig(local_step=2),
         mesh=mod.MeshConfig(client_fusion=fusion)).finalize()
 
@@ -60,7 +62,8 @@ def test_axes_and_cell_names_are_the_jax_package_s():
             jrp.cell_build_facts(*cell, client_shards=2)
     assert trp.ASYNC_ALGORITHMS == jrp.ASYNC_ALGORITHMS
     with pytest.raises(ValueError, match="unknown round-program cell"):
-        trp.illegal_reason("disk", "round", "vmap", cfg=None, algorithm=None)
+        trp.illegal_reason("disk", "round", "vmap", cfg=None, algorithm=None,
+                           model=None, mesh_devices=1, k_online=2)
 
 
 @pytest.mark.parametrize("setup", sorted(SETUPS))
@@ -78,15 +81,35 @@ def test_port_refuses_where_the_jax_package_refuses(source, dispatch,
         model=jdefine(jc, batch_size=4), mesh_devices=1, k_online=2,
         has_val=has_val)
     got = trp.illegal_reason(source, dispatch, execution, cfg=tc,
-                             algorithm=tmake(tc), has_val=has_val)
-    if want is not None and want.startswith(
-            "mesh.client_fusion='fused' is unsupported"):
-        # the JAX fused module's own preconditions
-        assert got == trp.NOT_PORTED["fused"], (want, got)
-    elif want is None and execution == "fused":
-        assert got == trp.NOT_PORTED["fused"]
-    else:
-        assert got == want
+                             algorithm=tmake(tc),
+                             model=tdefine(tc, batch_size=4, device="cpu"),
+                             mesh_devices=1, k_online=2, has_val=has_val)
+    assert got == want
+
+
+@pytest.mark.parametrize("shards, devices", [(2, 1), (0, 4)],
+                         ids=["client_shards", "mesh_devices"])
+def test_fused_multi_device_refusals_are_the_jax_text(shards, devices):
+    """The fused execution on more than one device group: client shards
+    (unported, refused by the trainer, but the cell names the JAX
+    reason) and a mesh of several devices."""
+    def cfg(mod):
+        c = _cfg(mod, fusion="fused", arch="cnn")
+        return mod.ExperimentConfig(**dict(
+            {f: getattr(c, f) for f in c.__dataclass_fields__},
+            mesh=mod.MeshConfig(client_fusion="fused",
+                                client_shards=shards))).finalize()
+    jc, tc = cfg(jcfg), cfg(tcfg)
+    for source, dispatch in (("resident", "round"), ("feed", "scan")):
+        want = jrp.illegal_reason(
+            source, dispatch, "fused", cfg=jc, algorithm=jmake(jc),
+            model=jdefine(jc, batch_size=4), mesh_devices=devices,
+            k_online=2)
+        got = trp.illegal_reason(
+            source, dispatch, "fused", cfg=tc, algorithm=tmake(tc),
+            model=tdefine(tc, batch_size=4, device="cpu"),
+            mesh_devices=devices, k_online=2)
+        assert want is not None and got == want
 
 
 def test_feed_layout_is_the_jax_stream_plane_s_gather_mode():
@@ -115,23 +138,37 @@ def _trainer(**kw):
     return t
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(sync_mode="async"), None),
-    (dict(fusion="fused"), "A9"),
-    (dict(plane="stream", sync_mode="async"), None),
+@pytest.mark.parametrize("kw", [
+    dict(sync_mode="async"),
+    dict(plane="stream", sync_mode="async"),
 ])
-def test_commit_and_fused_are_refused_as_not_yet_ported(kw, item):
-    """The fused execution is not yet ported; the commit dispatch is, on
-    ``AsyncFederatedTrainer``, and the round-synchronous base trainer
-    refuses it by name as the JAX package's does."""
+def test_the_base_trainer_refuses_the_commit_dispatch(kw):
+    """The commit dispatch runs on ``AsyncFederatedTrainer``; the
+    round-synchronous base trainer refuses it by name as the JAX
+    package's does."""
     with pytest.raises(ValueError) as err:
         _trainer(**kw)
-    if item is None:
-        assert "base FederatedTrainer is round-synchronous" \
-            in str(err.value)
-        return
-    assert str(err.value).startswith("round-program cell (")
-    assert f"not yet ported (ROADMAP {item})" in str(err.value)
+    assert "base FederatedTrainer is round-synchronous" in str(err.value)
+
+
+@pytest.mark.parametrize("plane", ["device", "stream"])
+def test_the_fused_execution_serves_the_round_and_scan_cells(plane):
+    """``client_fusion='fused'`` on the ``cnn``: ``run_round`` and
+    ``run_rounds(2)`` (the round and scan cells) on either source, the
+    scan bitwise the rounds."""
+    a, b = (_trainer(plane=plane, fusion="fused", arch="cnn")
+            for _ in range(2))
+    assert a.client_fusion == "fused" and a.programs.execution == "fused"
+    sa, ca = a.init_state(3)
+    sb, cb = b.init_state(3)
+    for _ in range(2):
+        sa, ca, m = a.run_round(sa, ca)
+    sb, cb, ms = b.run_rounds(sb, cb, 2)
+    a.close()
+    b.close()
+    assert torch.equal(ms.train_loss[-1], m.train_loss)
+    for n, p in sa.params.items():
+        assert torch.equal(p, sb.params[n]), n
 
 
 @pytest.mark.parametrize("fed, match", [
