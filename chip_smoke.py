@@ -325,7 +325,27 @@ of JAX or of the JAX package. Phases, each fatal on failure:
 12. transformer_f32: the path of item 10 in float32, the library's
     default ``compute_dtype``; 1 warm-up, timed and 1 profiled round.
     The counters must read 400 flash launches a round, all on the TF32
-    kernel, and 2 + 2 ragged launches.
+    kernel, and 2 + 2 ragged launches;
+13. moe (``moe_phase``): the transformer path of item 10 with Switch MoE
+    blocks (``MOE``: 16 experts, capacity factor 1.25, aux weight 0.01;
+    35,274,326 params) through the library entry points; 1 warm-up, 1
+    timed and 1 profiled round, the counters set to 0 just before: 400
+    wgmma flash launches, 2 + 2 ragged and, for the 8 expert-weight leaves
+    of 4,194,304 elements, 2 + 2 tiled launches a round; the mean aux loss
+    and each block's routed and dropped fractions on a batch of the
+    server params; launches a local step and busy share from the
+    profiled round's raw records; peak MiB. Then its round cut to 2
+    clients, 2 steps, T 128 and 4 experts in float32 (TF32 off) card vs
+    CPU in both dispatch modes, held as a tasks path's cut, with the
+    tokens that route otherwise; the flash ring's per-step pieces over one
+    card at (8, 2048, 4, 64), bf16 (the wgmma kernel) and float32 (the
+    TF32 kernel), n in ``RING_NS``: the merged o and lse against the
+    whole-sequence kernel and its plain version, and a backward through
+    the pieces against the whole-sequence backward; ``long_context_apply``
+    (ring and Ulysses, flash), ``ep_moe_apply`` (both modes), ``tp_apply``
+    and ``pipeline_apply`` at one NCCL rank against the module's own
+    forward; and the CLI on the cell at T 256 for one round
+    (``MOE_CLI_WORDS``). Within ``MOE_BUDGET_S``.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
@@ -334,8 +354,9 @@ Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``wrn_profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
-``transformer_d512_profile``, ``transformer_f32_main_path`` and
-``transformer_f32_profile`` lines, the card's name and power limit and,
+``transformer_d512_profile``, ``transformer_f32_main_path``,
+``transformer_f32_profile`` and ``moe`` lines, the card's name and power
+limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without CUDA.
 """
@@ -402,6 +423,39 @@ LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 LM_D512 = dict(LM, rnn_hidden_size=256)
 LM_D512_SHAPE = (LM_BATCH, 2048, 4, 128)
 D512_TIMED_ROUNDS = F32_TIMED_ROUNDS = 1
+# the moe phase: the transformer cell with Switch MoE blocks (MOE_AB.json's
+# 16 experts, the README's capacity factor 1.25 for E >= 8, Switch's aux
+# weight 0.01); its float32 cut card vs CPU (2 clients, 2 steps, T 128, 4
+# experts, both dispatch modes); the ring's flash blocks over one card at
+# the transformer's attention shape, n blocks each; the CLI at T 256
+MOE = dict(LM, moe_experts=16, moe_capacity_factor=1.25, moe_aux_weight=0.01)
+MOE_CUT = dict(LM, rnn_seq_len=128, moe_experts=4, moe_aux_weight=0.01)
+MOE_CUT_CFS = (0.0, 1.25)
+RING_NS = (2, 4, 8)
+MOE_NCCL_BATCH = 2
+# the merged bf16 o: each merge rounds o1 * w1, o2 * w2 and their sum
+# over the weights to bf16 (3 spacings of at most 2^-8 of max |o| each),
+# and the whole-sequence kernel rounds its o once
+RING_BF16_SPACING = 2.0 ** -8
+# the ring's gradients against the whole-sequence backward, relative L2:
+# float32 (the TF32 kernel's forward, the float32 backward) sums in
+# other groupings only; bf16 through the merges' bf16 roundings
+RING_GRAD_BAR = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+# the model-parallel forwards at one NCCL rank against the module's own
+# forward, float32 with TF32 off: the same products in the same order
+MOE_NCCL_BAR = 1e-4
+MOE_CLI_WORDS = ["-d", "shakespeare", "-a", "transformer",
+                 "--rnn_hidden_size", "128", "--mlp_num_layers", "4",
+                 "--rnn_seq_len", "256", "--attention", "flash",
+                 "--compute_dtype", "bfloat16", "--moe_experts", "16",
+                 "--moe_capacity_factor", "1.25", "--moe_aux_weight", "0.01",
+                 "-f", "true", "--num_workers", "5",
+                 "--online_client_rate", "1.0", "--federated_sync_type",
+                 "local_step", "--local_step", "10", "-b", "8", "--lr",
+                 "0.05", "--quantized", "true", "--num_comms", "1",
+                 "--eval_freq", "1"]
+MOE_CLI_WINDOWS = 12
+MOE_BUDGET_S = 150.0
 # the stream phase: 1 warm-up and this many timed rounds a path, and the
 # depth-1 path's rounds back to back
 STREAM_TIMED_ROUNDS = 2
@@ -5350,6 +5404,358 @@ def _profile_round(trainer, server, clients, commit=False):
     return out
 
 
+def _moe_routes(model, params, toks):
+    """``{block_<i>: sel}``: each MoE block's routed expert per token, from
+    its input through ``moe_route``."""
+    from fedtorch_tpu_torch.models.transformer import moe_route
+    routes, hooks = {}, []
+    for i in range(model.module.num_layers):
+        moe = getattr(model.module, f"block_{i}").moe
+
+        def hook(mod, args, _i=i):
+            routes[f"block_{_i}"] = moe_route(args[0],
+                                              mod.gate.kernel)[2].cpu()
+        hooks.append(moe.register_forward_pre_hook(hook))
+    try:
+        with torch.no_grad():
+            model.apply(params, toks)
+    finally:
+        for h in hooks:
+            h.remove()
+    return routes
+
+
+def moe_cut_card_vs_cpu(seed, tcfg, define_model, stack_partitions, os_mod,
+                        qk, capacity_factor):
+    """The MoE cell cut (``MOE_CUT``: T 128, 4 experts, 2 clients, 2
+    steps, float32, TF32 off) card vs CPU at ``capacity_factor``: the
+    round held as a tasks path's cut (``task_card_vs_cpu``: the update
+    within ``SPREAD_FACTOR`` times the CPU orders' spread, never tighter
+    than ``TASK_CARD_FLOOR``), and the tokens of the first batch that
+    route to another expert on the card than on the CPU, from the same
+    weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = path_config(tcfg, "transformer",
+                      lm=dict(MOE_CUT, moe_capacity_factor=capacity_factor),
+                      dtype="float32")
+    cfg = cut_config(cfg, num_clients=2, online_client_rate=1.0,
+                     local_step=2)
+    T, per = cfg.model.rnn_seq_len, 2 * LM_BATCH
+    rng = np.random.RandomState(seed)
+    stream = rng.randint(0, cfg.model.vocab_size, 2 * per * T + 1)
+    data = stack_partitions(stream[:-1].reshape(-1, T).astype(np.int32),
+                            stream[1:].reshape(-1, T).astype(np.int32),
+                            [np.arange(i * per, (i + 1) * per)
+                             for i in range(2)])
+    out = task_card_vs_cpu(f"moe_cut_cf{capacity_factor}", cfg, data, None,
+                           seed, os_mod, qk,
+                           orders=("cpu-2thread", "cpu-1thread"))
+    routes = {}
+    params = define_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    toks = data.x[0, :LM_BATCH].long()
+    for dev in ("cpu", "cuda"):
+        model = define_model(cfg, LM_BATCH, device=dev)
+        routes[dev] = _moe_routes(model, {k: v.to(dev) for k, v in
+                                          params.items()}, toks.to(dev))
+    out["tokens_routed_otherwise"] = {
+        b: int((routes["cuda"][b] != sel).sum())
+        for b, sel in routes["cpu"].items()}
+    out["tokens"] = int(toks.numel())
+    log(f"moe cut cf {capacity_factor}: tokens routed otherwise card vs "
+        f"CPU {out['tokens_routed_otherwise']} of {out['tokens']}")
+    return out
+
+
+def ring_blocks_check(fa):
+    """The flash ring's per-step pieces over one card: q, k, v at
+    ``LM_SHAPE`` (bf16: the wgmma kernel; float32: the TF32 kernel), and
+    for each n of ``RING_NS`` the blocks each of n ranks would see, in
+    ring order, through ``_flash_block`` (the non-causal kernel off the
+    diagonal, the causal one on it, later blocks skipped) and
+    ``_merge_lse``. The merged o and lse against the whole-sequence
+    kernel and its plain version, and a backward through the pieces
+    (``_bwd_chunked`` with each piece's nonzero lse gradient) against the
+    whole-sequence backward."""
+    from fedtorch_tpu_torch.parallel.sequence import _flash_block, _merge_lse
+    B, T, H, D = LM_SHAPE
+    scale = 1.0 / math.sqrt(D)
+    out = {}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v = (torch.randn(B, T, H, D, device="cuda", generator=gen)
+                   .to(dtype).requires_grad_(True) for _ in range(3))
+        g = torch.randn(B, T, H, D, device="cuda", generator=gen)
+        o_ref, lse_ref = fa.flash_attention_with_lse(q, k, v, causal=True)
+        want = torch.autograd.grad((o_ref.float() * g).sum(), (q, k, v))
+        with torch.no_grad():
+            o_plain, lse_plain = fa.flash_fwd_ref(q, k, v, scale, True)
+        lse_plain = lse_plain.transpose(1, 2)
+        top = float(o_ref.detach().float().abs().max())
+        for n in RING_NS:
+            rows = T // n
+            pieces_o, pieces_lse = [], []
+            for r in range(n):
+                qr = q[:, r * rows:(r + 1) * rows]
+                o = torch.zeros_like(qr)
+                lse = torch.full(qr.shape[:-1], -math.inf, device="cuda")
+                for s in range(n):
+                    src = (r - s) % n
+                    blk = slice(src * rows, (src + 1) * rows)
+                    o, lse = _merge_lse(o, lse, *_flash_block(
+                        qr, k[:, blk], v[:, blk], r, src, True, scale))
+                pieces_o.append(o.to(dtype))
+                pieces_lse.append(lse)
+            o_ring = torch.cat(pieces_o, dim=1)
+            lse_ring = torch.cat(pieces_lse, dim=1)
+            got = torch.autograd.grad((o_ring.float() * g).sum(), (q, k, v))
+            o_ring, lse_ring = o_ring.detach().float(), lse_ring.detach()
+            res = dict(
+                o_vs_kernel=float((o_ring - o_ref.detach().float())
+                                  .abs().max()),
+                o_vs_plain=float((o_ring - o_plain.float()).abs().max()),
+                lse_vs_kernel=float((lse_ring - lse_ref.detach())
+                                    .abs().max()),
+                lse_vs_plain=float((lse_ring - lse_plain).abs().max()),
+                grad_rel_l2=max(float(torch.linalg.vector_norm(
+                    (a.float() - b.float())) / torch.linalg.vector_norm(
+                    b.float())) for a, b in zip(got, want)))
+            if name == "float32":
+                o_bar = None
+                ok = torch.allclose(o_ring, o_ref.detach(), rtol=2e-5,
+                                    atol=2e-5) and torch.allclose(
+                    o_ring, o_plain, rtol=2e-5, atol=2e-5)
+            else:
+                o_bar = (3 * (n - 1) + 2) * RING_BF16_SPACING * top
+                ok = res["o_vs_kernel"] <= o_bar \
+                    and res["o_vs_plain"] <= o_bar
+            ok = ok and torch.allclose(lse_ring, lse_ref.detach(), rtol=2e-5,
+                                       atol=2e-5) \
+                and torch.allclose(lse_ring, lse_plain, rtol=2e-5, atol=2e-5)
+            res.update(o_bar=o_bar, grad_bar=RING_GRAD_BAR[name])
+            log(f"ring blocks {name} n {n}: o vs kernel "
+                f"{res['o_vs_kernel']:.3e}, vs plain {res['o_vs_plain']:.3e}"
+                f" (bar {o_bar if o_bar is not None else '2e-5 + 2e-5 |o|'})"
+                f", lse vs kernel {res['lse_vs_kernel']:.3e}, vs plain "
+                f"{res['lse_vs_plain']:.3e}; gradients relative L2 "
+                f"{res['grad_rel_l2']:.3e} (bar {RING_GRAD_BAR[name]})")
+            if not ok or res["grad_rel_l2"] > RING_GRAD_BAR[name]:
+                raise AssertionError(f"ring blocks {name} n {n}: {res}")
+            out[f"{name}_n{n}"] = res
+    return out
+
+
+def moe_nccl_check(tcfg, define_model):
+    """The model-parallel forwards at one NCCL rank on the card (a
+    ``HashStore`` group, destroyed at the end), on the MoE cell's model in
+    float32 (TF32 off) at batch ``MOE_NCCL_BATCH``: ``long_context_apply``
+    (ring and Ulysses, flash), ``ep_moe_apply`` (block 0's layer, both
+    dispatch modes), ``tp_apply`` and ``pipeline_apply``, each against
+    the module's own forward within ``MOE_NCCL_BAR`` of its scale."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.func import functional_call
+    from fedtorch_tpu_torch.models.transformer import (
+        MoEMLP, long_context_apply,
+    )
+    from fedtorch_tpu_torch.parallel import (
+        ep_moe_apply, pipeline_apply, tp_apply,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = path_config(tcfg, "transformer", lm=MOE, dtype="float32")
+    model = define_model(cfg, MOE_NCCL_BATCH, device="cuda")
+    module = model.module
+    params = {k: v.cuda() for k, v in model.init(
+        torch.Generator().manual_seed(5)).items()}
+    toks = torch.from_numpy(np.random.RandomState(6).randint(
+        0, cfg.model.vocab_size, (MOE_NCCL_BATCH, cfg.model.rnn_seq_len))
+    ).cuda()
+    layer = {k[len("block_0.moe."):]: v for k, v in params.items()
+             if k.startswith("block_0.moe.")}
+    x = torch.randn(MOE_NCCL_BATCH, cfg.model.rnn_seq_len,
+                    2 * cfg.model.rnn_hidden_size, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+        with torch.no_grad():
+            ref = model.apply(params, toks)
+            dense_layer = MoEMLP(x.shape[-1], cfg.model.moe_experts).cuda()
+            checks = {
+                "long_context_ring_flash": (lambda: long_context_apply(
+                    module, params, toks, mesh, strategy="ring",
+                    block_impl="flash"), ref),
+                "long_context_ulysses_flash": (lambda: long_context_apply(
+                    module, params, toks, mesh, strategy="ulysses",
+                    block_impl="flash"), ref),
+                "ep_moe_sparse": (lambda: ep_moe_apply(
+                    layer, x, mesh, axis_name="sp",
+                    capacity_factor=cfg.model.moe_capacity_factor),
+                    functional_call(module.block_0.moe, layer, (x,))[0]),
+                "ep_moe_dense": (lambda: ep_moe_apply(
+                    layer, x, mesh, axis_name="sp"),
+                    functional_call(dense_layer, layer, (x,))[0]),
+                "tp_apply": (lambda: tp_apply(module, params, toks, mesh,
+                                              axis_name="sp"), ref),
+                "pipeline_apply": (lambda: pipeline_apply(
+                    module, params, toks, mesh, axis_name="sp",
+                    num_microbatches=1), ref),
+            }
+            for name, (run, want) in checks.items():
+                got = run()
+                err = float((got - want).abs().max())
+                bar = MOE_NCCL_BAR * float(want.abs().max())
+                out[name] = dict(max_abs_diff=err, bar=bar)
+                log(f"one NCCL rank {name}: max |diff| {err:.3e} (bar "
+                    f"{bar:.3e})")
+                if not err <= bar:
+                    raise AssertionError(f"{name} at one NCCL rank: {err}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def moe_cli_run(seed, tcfg, define_model, qk, fa):
+    """``MOE_CLI_WORDS``: the CLI on the MoE cell at T 256 for one round,
+    on in-memory Shakespeare windows from ``seed`` (``MOE_CLI_WINDOWS`` a
+    character, through the port's window encoder; the
+    TFF reader needs h5py, which the card's machine may lack), 5
+    clients, all online (its checkpoint holds every client's state: 20
+    clients' took 35.5 s to write): the counters set to 0 before, 200
+    wgmma flash launches a round (4 layers x 10 steps x 5 clients, and
+    the evaluation's), the tiled and ragged pairs from the leaf sizes, a
+    finite loss line and test top-1 in [0, 1]."""
+    import glob
+    import tempfile
+    from fedtorch_tpu_torch import cli
+    from fedtorch_tpu_torch.data import datasets
+    T = 256
+    rng = np.random.RandomState(seed)
+    xs, ys, parts = [], [], []
+    for i in range(5):
+        x, y = datasets.shakespeare_windows(
+            [shakespeare_text(rng, MOE_CLI_WINDOWS, T).encode()], T)
+        parts.append(np.arange(i * len(x), (i + 1) * len(x)))
+        xs.append(x)
+        ys.append(y)
+    train_x, train_y = np.concatenate(xs), np.concatenate(ys)
+    splits = datasets.DatasetSplits(train_x, train_y, train_x[:1],
+                                    train_y[:1], client_partitions=parts)
+    real = datasets.load_shakespeare
+    datasets.load_shakespeare = lambda data_dir, seq_len=50: splits
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            argv = MOE_CLI_WORDS + ["-p", root, "-c",
+                                    os.path.join(root, "runs")]
+            cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+            numels = [math.prod(s) for s in model_shapes(cfg, define_model)]
+            want = launches_per_round(qk, numels)
+            reset_counters(qk, fa)
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            run_s = time.perf_counter() - t0
+            launched = counters(qk, fa)
+            (record,) = glob.glob(os.path.join(root, "runs", "**",
+                                               "record0"), recursive=True)
+            with open(record) as f:
+                losses = [float(v) for v in re.findall(
+                    r"Round: \d+\. Epoch: .*? Loss: (\S+) \|", f.read())]
+    finally:
+        datasets.load_shakespeare = real
+    if any(launched[c] != n for c, n in want.items()) \
+            or launched["flash_tc"] < 200 or launched["flash_tf32"] \
+            or len(losses) != 1 or not math.isfinite(losses[0]) \
+            or not 0.0 <= res["test_top1"] <= 1.0:
+        raise AssertionError(f"moe cli: launches {launched} (quantizer "
+                             f"{want}), losses {losses}, {res}")
+    out = dict(rounds=res["rounds"], losses=losses,
+               test_top1=res["test_top1"], run_s=run_s,
+               round_ms=res["timer"]["round"] * 1e3, launches=launched,
+               tree_launches=dict(want, flash=0, flash_tc=0, flash_tf32=0))
+    log(f"moe cli (T {T}): 1 round in {run_s:.1f} s ({out['round_ms']:.1f} "
+        f"ms), loss {losses}, test top-1 {res['test_top1']:.4f}, launches "
+        f"{launched}")
+    return out
+
+
+def moe_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
+              FederatedTrainer, os_mod, qk, fa):
+    """The Switch-MoE transformer cell (``MOE``) through the library entry
+    points: 1 warm-up, 1 timed and 1 profiled round (the counters set to 0
+    just before the warm-up: 400 wgmma flash launches a round, 2 + 2
+    ragged and, for the expert weights of 4,194,304 elements, 2 + 2 tiled
+    launches), the mean aux loss and each block's routed and dropped
+    fractions on a batch of the server params, launches a local step and
+    busy share from the profiled round's raw records, peak MiB; then its
+    float32 cut card vs CPU in both dispatch modes, the ring's blocks over
+    one card, the model-parallel forwards at one NCCL rank and the CLI at
+    T 256. Within ``MOE_BUDGET_S``."""
+    from fedtorch_tpu_torch.models.transformer import (
+        drop_fractions, routing_fractions,
+    )
+    t0 = time.perf_counter()
+    out, trainer, server, clients = main_path_phase(
+        seed, tcfg, define_model, make_algorithm, stack_partitions,
+        FederatedTrainer, qk, fa, arch="transformer", timed_rounds=1,
+        lm=MOE)
+    check_lm_launches(out, "flash_tc")
+    per = out["launches_per_round"]
+    if per["stats"] != 2 or per["apply"] != 2:
+        raise AssertionError(f"moe_transformer: expected 2 + 2 tiled "
+                             f"launches a round, got {per}")
+    toks = torch.from_numpy(np.random.RandomState(seed + 1).randint(
+        0, MOE["vocab_size"], (LM_BATCH, MOE["rnn_seq_len"]))).cuda()
+    model = trainer.model
+    with torch.no_grad():
+        _, aux = model.apply_with_aux(server.params, toks)
+    layers = MOE["mlp_num_layers"]
+    out["aux_loss_sum"] = float(aux)
+    out["aux_loss_mean"] = float(aux) / layers
+    out["routing_fractions"] = {
+        b: f.tolist() for b, f in routing_fractions(
+            model.module, server.params, toks).items()}
+    out["drop_fractions"] = {
+        b: float(f) for b, f in drop_fractions(
+            model.module, server.params, toks).items()}
+    if not math.isfinite(out["aux_loss_sum"]) \
+            or len(out["routing_fractions"]) != layers \
+            or len(out["drop_fractions"]) != layers:
+        raise AssertionError(f"moe_transformer aux and fractions: {out}")
+    log(f"moe_transformer: aux loss {out['aux_loss_sum']:.4f} (a block "
+        f"{out['aux_loss_mean']:.4f}); drop fractions "
+        f"{out['drop_fractions']}")
+    prof = profile_phase(trainer, server, clients, per)
+    steps = trainer.k_online * trainer.local_steps
+    out["profile"] = prof
+    out["launches_per_local_step"] = prof["kernel_launches"] / steps
+    out["busy_share"] = prof["busy_share"]
+    del trainer, server, clients, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["main_path_s"] = time.perf_counter() - t0
+    out["cut"] = {f"cf{cf}": moe_cut_card_vs_cpu(
+        seed, tcfg, define_model, stack_partitions, os_mod, qk, cf)
+        for cf in MOE_CUT_CFS}
+    out["ring_blocks"] = ring_blocks_check(fa)
+    out["one_nccl_rank"] = moe_nccl_check(tcfg, define_model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = moe_cli_run(seed, tcfg, define_model, qk, fa)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"moe phase: {out['phase_s']:.1f} s (budget {MOE_BUDGET_S}); "
+        f"round {out['round_ms']:.1f} ms, "
+        f"{out['launches_per_local_step']:.1f} launches a local step, busy "
+        f"{100 * (out['busy_share'] or 0):.1f}%, peak "
+        f"{out['peak_mib']:.0f} MiB")
+    if out["phase_s"] > MOE_BUDGET_S:
+        raise AssertionError(f"moe phase took {out['phase_s']:.1f} s, over "
+                             f"its {MOE_BUDGET_S} s budget")
+    return out
+
+
 def check_lm_launches(out, route):
     """A transformer path's round: 400 flash launches (4 layers x 10
     local steps x 10 clients), all on ``route``'s kernel, and 2 + 2
@@ -5554,6 +5960,12 @@ def main(argv=None) -> int:
     d512, f32 = (lm_paths[n][0] for n in ("transformer_d512",
                                            "transformer_f32"))
 
+    phase("moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(args.seed, tcfg, define_model, make_algorithm,
+                    stack_partitions, FederatedTrainer, order_spread, qk, fa)
+
     cli_out["tree_launches"] = cli_out["launches"]
     paths = (("resnet20", main), ("cli", cli_out), ("cli_apfl", cli_apfl),
              ("localsgd", localsgd), ("wideresnet28_10", wrn),
@@ -5575,7 +5987,8 @@ def main(argv=None) -> int:
                  ("fusion_cell_fused", fusion["cell"]["fused"]),
                  ("fusion_cell_vmap", fusion["cell"]["vmap"]),
                  ("fusion_cnn_cifar", fusion["cnn_cifar"]),
-                 ("cli_fused", cli_out["fused"]))
+                 ("cli_fused", cli_out["fused"]),
+                 ("moe_transformer", moe), ("cli_moe", moe["cli"]))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -5657,6 +6070,7 @@ def main(argv=None) -> int:
     for name, (out, prof_out) in lm_paths.items():
         print(json.dumps({f"{name}_main_path": out, "card": card}))
         print(json.dumps({f"{name}_profile": prof_out}))
+    print(json.dumps({"moe": moe, "card": card}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -141,15 +141,26 @@ class FedAlgorithm:
         ``local_index`` is the client's running step count (a 0-d int32
         tensor on the device); ``bval_x``/``bval_y`` the step's
         validation batch when ``needs_val_batch``, else None; ``rng``
-        the step's dropout key (None without dropout)."""
+        the step's dropout key (None without dropout). An MoE model's
+        load-balance loss enters the loss at ``cfg.model.moe_aux_weight``
+        when that is positive, as in the JAX package (only this base step
+        adds it)."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
+        moe_w = self.cfg.model.moe_aux_weight
+        aux_reg = None
         if self.model.is_recurrent:
             logits, rnn_carry = self.model.apply(leaves, bx, rnn_carry)
             rnn_carry = rnn_carry.detach()
+        elif self.model.has_aux_loss and moe_w > 0:
+            logits, aux = self.model.apply_with_aux(leaves, bx, train=True,
+                                                    rng=rng)
+            aux_reg = moe_w * aux
         else:
             logits = self.model.apply(leaves, bx, train=True, rng=rng)
         loss = self.criterion(logits, by)
+        if aux_reg is not None:
+            loss = loss + aux_reg
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()))))
         with torch.no_grad():

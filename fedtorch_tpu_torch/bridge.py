@@ -12,6 +12,9 @@ that owns it:
 * ``BatchStatsNorm``, ``LayerNorm``, ``GroupNorm`` (the child of a
   ``_GN``): ``scale``, ``bias`` -> ``weight``, ``bias``
 * ``Embed``: ``embedding`` -> ``weight``
+* ``MoEMLP``: ``w_in``, ``b_in``, ``w_out``, ``b_out``, and its
+  ``MoEGate``'s ``kernel``: themselves, in the JAX layout (the expert
+  weights are not ``Dense`` kernels: nothing is transposed)
 * a param of the model itself (the transformer's ``pos_embed``, a robust
   model's ``noise``): itself
 
@@ -62,6 +65,9 @@ _RULES = {
     "BatchStatsNorm": {"scale": ("weight", _same, _same, None),
                        "bias": ("bias", _same, _same, None)},
     "Embed": {"embedding": ("weight", _same, _same, 2)},
+    "MoEMLP": {leaf: (leaf, _same, _same, ndim) for leaf, ndim in (
+        ("w_in", 3), ("b_in", 2), ("w_out", 3), ("b_out", 2))},
+    "MoEGate": {"kernel": ("kernel", _same, _same, 2)},
 }
 _RULES["LayerNorm"] = _RULES["GroupNorm"] = _RULES["BatchStatsNorm"]
 _RULES["MatmulConv"] = _RULES["Conv"]

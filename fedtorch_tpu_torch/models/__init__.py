@@ -7,7 +7,7 @@ package's ``define_model`` can reach: it raises as the JAX package does),
 norm ('bn', 'gn') and either conv lowering ('conv', 'matmul'), the LeNet
 ``cnn``, the char-GRU ``rnn`` (a recurrent :class:`ModelDef` on
 ``[batch, rnn_seq_len]`` int64 tokens), the causal ``transformer`` LM
-(dense MLP blocks), and the flat models ``logistic_regression``,
+(dense MLP or Switch MoE blocks), and the flat models ``logistic_regression``,
 ``least_square`` and ``mlp`` (with dropout and either norm) with their
 ``robust_*`` variants. ``conv_impl='auto'`` resolves as the JAX
 package's ``resolve_conv_impl`` does for an accelerator: the native
@@ -15,8 +15,8 @@ conv, whatever the device. ``cfg.mesh.remat`` recomputes each block of
 the resnet, wideresnet, densenet and transformer families in the
 backward, and warns that it has no effect on the others, as the JAX
 package does. :func:`define_fused_model` builds the client-fused module
-(``cfg.mesh.client_fusion='fused'``). Refused by name: MoE blocks and
-compute dtypes other than float32 and bfloat16.
+(``cfg.mesh.client_fusion='fused'``). Refused by name: compute dtypes
+other than float32 and bfloat16.
 """
 from __future__ import annotations
 
@@ -169,19 +169,30 @@ def _transformer(m, dtype, batch_size: int, device,
                  remat: bool = False) -> ModelDef:
     """The JAX package's derivation (models/__init__.py:225-251): d_model
     = 2 * rnn_hidden_size, the first head count of (4, 2, 1) that divides
-    it, mlp_num_layers blocks, the class's max_len of 2048."""
-    if m.moe_experts > 0:
-        raise ValueError(f"moe_experts {m.moe_experts} (MoE blocks) is not "
-                         "yet ported")
+    it, mlp_num_layers blocks, the class's max_len of 2048; MoE blocks of
+    ``moe_experts`` experts at ``moe_capacity_factor`` (with the JAX
+    package's warning when 8 or more experts take the dense dispatch),
+    whose load-balance loss the local step adds (``has_aux_loss``)."""
     d_model = 2 * m.rnn_hidden_size
     num_heads = next(h for h in (4, 2, 1) if d_model % h == 0)
+    if m.moe_experts >= 8 and m.moe_capacity_factor == 0:
+        warnings.warn(
+            f"--moe_experts {m.moe_experts} with dense dispatch "
+            f"executes {m.moe_experts}x the expert-MLP FLOPs "
+            "(exactness-oracle mode). For training at scale set "
+            "--moe_capacity_factor 1.25: measured 8.6x fewer "
+            "executed FLOPs at E=16 with bounded token drop "
+            "(docs/performance.md 'Dispatch A/B', MOE_AB_CPU.json)",
+            stacklevel=3)
     module = TransformerLM(vocab_size=m.vocab_size, d_model=d_model,
                            num_heads=num_heads, num_layers=m.mlp_num_layers,
-                           dtype=dtype, attention=m.attention,
-                           remat=remat).to(device)
+                           dtype=dtype, attention=m.attention, remat=remat,
+                           num_experts=m.moe_experts,
+                           capacity_factor=m.moe_capacity_factor).to(device)
     sample = torch.zeros((batch_size, m.rnn_seq_len), dtype=torch.int64,
                          device=device)
-    return ModelDef("transformer", module, sample)
+    return ModelDef("transformer", module, sample,
+                    has_aux_loss=m.moe_experts > 0)
 
 
 __all__ = ["ModelDef", "define_fused_model", "define_model"]

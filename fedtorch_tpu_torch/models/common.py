@@ -425,16 +425,18 @@ def _replayed_sources(drop):
         yield lambda shape, keep: next(it)
 
 
-def rematerialized(block, x, drop=None):
-    """``block(x)`` (``block(x, drop)`` with a mask source) with per-block
-    rematerialization (the JAX package's ``nn.remat``): the forward
-    keeps only the block's input, and the backward recomputes the block
-    from it (``torch.utils.checkpoint``, non-reentrant). The recompute
-    draws the forward's dropout masks (:func:`_replayed_sources`), so
-    outputs and gradients are the same as without it. Outside autograd
-    (evaluation) it is the plain call."""
+def rematerialized(block, x, drop=None, **kwargs):
+    """``block(x, **kwargs)`` (``block(x, drop, **kwargs)`` with a mask
+    source) with per-block rematerialization (the JAX package's
+    ``nn.remat``): the forward keeps only the block's input, and the
+    backward recomputes the block from it (``torch.utils.checkpoint``,
+    non-reentrant). The recompute draws the forward's dropout masks
+    (:func:`_replayed_sources`), so outputs and gradients are the same as
+    without it. ``kwargs`` (the transformer's ``attn_override``) reach
+    both calls. Outside autograd (evaluation) it is the plain call."""
     if not torch.is_grad_enabled():
-        return block(x) if drop is None else block(x, drop)
+        return block(x, **kwargs) if drop is None \
+            else block(x, drop, **kwargs)
     # the block's tensors as they are now: under ModelDef.apply's
     # functional_call they are the caller's params, and the recompute
     # runs in the backward, after functional_call has put the module's
@@ -445,10 +447,32 @@ def rematerialized(block, x, drop=None):
 
     def run(t):
         args = (t,) if sources is None else (t, next(sources))
-        return functional_call(block, tensors, args)
+        return functional_call(block, tensors, args, kwargs)
     # the models draw no global random numbers (dropout masks come from
     # the source), so there is no global generator state to stash
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+class _Method(nn.Module):
+    """``module.<name>`` as a module's forward, for :func:`call_method`."""
+
+    def __init__(self, module: nn.Module, name: str):
+        super().__init__()
+        self.m, self.name = module, name
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.m, self.name)(*args, **kwargs)
+
+
+def call_method(module: nn.Module, params: dict, name: str, *args,
+                **kwargs):
+    """``module.<name>(*args, **kwargs)`` run on ``params`` (the flax
+    ``module.apply(..., method=name)``): ``functional_call`` for a method
+    other than ``forward``, so that a caller runs the model's own code
+    (the transformer's ``embed``, ``head_apply`` and ``apply_block``)."""
+    return functional_call(_Method(module, name),
+                           {f"m.{k}": v for k, v in params.items()}, args,
+                           kwargs)
 
 
 def norm_f32(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -598,8 +622,8 @@ class ModelDef(NamedTuple):
     is_recurrent: bool = False
     has_noise_param: bool = False
     has_dropout: bool = False
-    # the JAX package's MoE load-balance loss; MoE blocks are refused by
-    # define_model, so no port model sets it
+    # the transformer with MoE blocks: its Switch load-balance loss
+    # enters the local step's loss (apply_with_aux)
     has_aux_loss: bool = False
 
     def init(self, generator: torch.Generator) -> dict:
@@ -622,6 +646,18 @@ class ModelDef(NamedTuple):
             return functional_call(self.module, params, (x,), {
                 "drop": drop_source(rng, self.sample_input.device)})
         return functional_call(self.module, params, (x,))
+
+    def apply_with_aux(self, params: dict, x: torch.Tensor,
+                       train: bool = False, rng=None):
+        """``(logits, aux)``: ``aux`` the sum over blocks of the Switch
+        load-balance losses (the JAX package sums its ``aux_loss``
+        collection, arXiv:2101.03961 §2.2), a float32 0-d tensor. The
+        model with an aux loss (the MoE transformer) has no dropout, so
+        ``train`` and ``rng`` change nothing."""
+        del train, rng
+        logits, aux = functional_call(self.module, params, (x,),
+                                      {"with_aux": True})
+        return logits, aux["load_balance"]
 
     def init_carry(self, batch_size: int):
         if not self.is_recurrent:

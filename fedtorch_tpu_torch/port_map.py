@@ -100,10 +100,10 @@ MODULE_MAP = {
     **_ported("parallel/fusion.py"),
     **_rows("queued", "ROADMAP A10: multi-GPU on torch.distributed",
             "parallel/mesh.py", "parallel/podscale.py"),
-    **_rows("queued", "ROADMAP A11: sequence, expert, tensor and pipeline "
-            "parallelism (remat is ported)",
-            "parallel/sequence.py", "parallel/expert.py",
-            "parallel/tensor.py", "parallel/pipeline.py"),
+    # ROADMAP A11: the model-parallel forwards on torch.distributed, a
+    # DeviceMesh in place of jax.sharding.Mesh
+    **_ported("parallel/sequence.py", "parallel/expert.py",
+              "parallel/tensor.py", "parallel/pipeline.py"),
     **_rows("no port", "the JAX tracing-hazard lint (FTL rules) and the "
             "StableHLO program audit are JAX-specific; a torch analog (host "
             "syncs in the round) is ROADMAP A12",

@@ -277,17 +277,25 @@ def test_gate_refuses_with_the_jax_reason(case):
 
 
 def test_moe_aux_loss_refusal_is_the_jax_text():
-    """The port refuses MoE blocks in ``define_model``, so a model with
-    an aux loss only reaches the gate by hand."""
-    jc = jcfg.ExperimentConfig(
-        data=jcfg.DataConfig(dataset="shakespeare"),
-        model=jcfg.ModelConfig(arch="transformer", moe_experts=2),
-        mesh=jcfg.MeshConfig(client_fusion="fused")).finalize()
-    want = jfusion.fusion_supported(jc, jdefine(jc), jmake(jc), 1, 2)
-    tc = _cfg(tcfg)
-    model = tdefine(tc, device="cpu")._replace(has_aux_loss=True)
-    assert tfusion.fusion_supported(tc, model, tmake(tc), 1, 2) == \
+    """An MoE transformer from ``define_model`` reaches the gate's
+    aux-loss reason, and ``'fused'`` on it is refused with the JAX
+    text."""
+    def cfg(mod):
+        return mod.ExperimentConfig(
+            data=mod.DataConfig(dataset="shakespeare"),
+            model=mod.ModelConfig(arch="transformer", moe_experts=2),
+            mesh=mod.MeshConfig(client_fusion="fused")).finalize()
+    jc, tc = cfg(jcfg), cfg(tcfg)
+    jmodel, tmodel = jdefine(jc), tdefine(tc, device="cpu")
+    assert tmodel.has_aux_loss
+    want = jfusion.fusion_supported(jc, jmodel, jmake(jc), 1, 2)
+    assert tfusion.fusion_supported(tc, tmodel, tmake(tc), 1, 2) == \
         (None, want[1])
+    with pytest.raises(ValueError) as jerr:
+        jfusion.resolve_client_fusion(jc, jmodel, jmake(jc), 1, 2)
+    with pytest.raises(ValueError) as terr:
+        tfusion.resolve_client_fusion(tc, tmodel, tmake(tc), 1, 2)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_supported_configurations_resolve_to_fused_and_auto_to_vmap():

@@ -42,6 +42,14 @@ names = [m.name for m in pkgutil.walk_packages(
     fedtorch_tpu_torch.__path__, "fedtorch_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the model-parallel forwards and the MoE transformer are among them
+assert {"fedtorch_tpu_torch.parallel." + m for m in (
+    "sequence", "expert", "tensor", "pipeline")} <= set(names), names
+from fedtorch_tpu_torch.models.transformer import (  # noqa: F401
+    MoEMLP, long_context_apply, routing_fractions)
+from fedtorch_tpu_torch.parallel import (  # noqa: F401
+    ep_moe_apply, pipeline_apply, ring_attention, tp_apply,
+    ulysses_attention)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax") or m == "fedtorch_tpu"
              or m.startswith(("jax.", "flax.", "fedtorch_tpu.")))
@@ -172,7 +180,6 @@ def test_client_fusion_runs_a_round():
 
 @pytest.mark.parametrize("override, name", [
     (dict(data__dataset="mnist"), "mnist"),
-    (dict(model__arch="transformer", model__moe_experts=2), "moe_experts"),
 ])
 def test_unported_models_raise_by_name(override, name):
     with pytest.raises(ValueError, match=f"{name}.*not yet ported"):

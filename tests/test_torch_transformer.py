@@ -35,7 +35,6 @@ from fedtorch_tpu_torch.core import losses as tlosses
 from fedtorch_tpu_torch.core.optim import _wd_coef as t_wd_coef
 from fedtorch_tpu_torch.data.batching import stack_partitions as tstack
 from fedtorch_tpu_torch.models import define_model as tdefine
-from fedtorch_tpu_torch.models.transformer import long_context_apply
 from fedtorch_tpu_torch.parallel import FederatedTrainer
 from test_torch_round import _assert_params_close, _flat, _run
 
@@ -279,9 +278,3 @@ def test_quantized_fedavg_rounds_match():
             step = (u.max() - u.min()) / 255.0
             assert np.abs((tp[k] - tp0[k]) - u).max() <= 2 * step + 1e-7, k
         np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-5)
-
-
-def test_long_context_apply_is_refused_by_name():
-    with pytest.raises(ValueError, match="long_context_apply.*not yet "
-                                         "ported"):
-        long_context_apply(None, None, None, None)
