@@ -91,12 +91,13 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    with ``save_client_store`` into a temporary directory (bytes and
    seconds logged); then from one seed, with cuDNN deterministic,
    ``resident`` twice (its own spread), ``stream_ram``,
-   ``stream_mmap``, ``stream_mmap_scan`` (``run_rounds(2)``: windows of
-   2) and ``stream_mmap_depth1`` (producer depth 1, 4 rounds back to
-   back), each 1 warm-up and 2 timed rounds but the last. Every feed a
+   ``stream_mmap``, ``stream_mmap_scan`` (one timed ``run_rounds(2)``:
+   a window of 2, no warm-up) and ``stream_mmap_depth1`` (producer depth
+   1, 3 rounds back to back), each 1 warm-up and 1 timed round but the
+   last two. Every feed a
    stream path consumes is held bitwise against a fresh host gather of
    its plan copied over synchronously (the pinned-buffer race check);
-   each of the first three stream paths' server params after its 3
+   each of the first three stream paths' server params after its 2
    rounds within ``SPREAD_FACTOR`` times the resident runs' gap (0:
    bitwise) of ``resident``'s, its generator state bitwise; 2 + 2
    ragged launches a round on every path; round ms beside
@@ -179,7 +180,7 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    DenseNet-BC-100 (growth 12, compression 0.5; 769,162 params in 299
    leaves), bf16, the north-star round (100 clients x 250 samples from
    ``--seed``, k = 10, batch 50, 10 local steps): its round cut by
-   ``TASK_CARD_CUT`` card vs CPU as a bf16 tasks path is held, then 1
+   ``DENSENET_CARD_CUT`` card vs CPU as a bf16 tasks path is held, then 1
    warm-up, 1 timed and 1 profiled rounds, 2 + 2 ragged launches a round
    (2,990 uplink rows in one launch of each kernel) and no tiled one;
    round ms, local steps/s, device busy share, launches a local step and
@@ -236,9 +237,11 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    a round; a torn checkpoint and keep resumed from the previous keep,
    named; two kill drills (sync and ``--async_checkpoint``) of ``python
    -m fedtorch_tpu_torch.cli`` children under the restart harness,
-   SIGTERM after round 2: exit codes [75, 0], every keep bitwise the
-   reference's, the resumed child's 2 + 2 ragged launches a round, no
-   rebuild; the supervisor with nan poison, every rollback bitwise the
+   SIGTERM once round index ``LIFECYCLE_KILL_AFTER`` is logged: exit
+   codes [75, 0], every keep bitwise the reference's, the resumed
+   child's 2 + 2 ragged launches a round, no rebuild (beside them, the
+   federation phase's async kill drill and the podscale phase's CLI
+   pair, whose results those phases hold); the supervisor with nan poison, every rollback bitwise the
    pre-round state, the cut round's counts card = CPU; stream-plane
    gather faults bitwise a fault-free run; within ``LIFECYCLE_BUDGET_S``;
 8g. federation: the federation plane's observers and the async commit
@@ -264,10 +267,11 @@ of JAX or of the JAX package. Phases, each fatal on failure:
    3 commits (every commit's numbers equal, the update within
    ``faults_card_vs_cpu``'s bar), and the CLI with ``--sync_mode async
    --cohort_stats true`` (``ASYNC_CLI_WORDS``) from CIFAR-10 files
-   written from ``--seed``: 4 commits with an evaluation and a keep each
-   (``client_ledger.json``'s participation m x commits, the staleness
-   histogram and the anomaly summary in the events), its kill drill
-   (exit codes [75, 0], every keep bitwise), and 3 stream-plane commits
+   written from ``--seed``: ``ASYNC_CLI_COMMITS`` commits with an
+   evaluation and a keep each (``client_ledger.json``'s participation m
+   x commits, the staleness histogram and the anomaly summary in the
+   events), its kill drill (run beside the lifecycle phase's untimed
+   runs; exit codes [75, 0], every keep bitwise), and 3 stream-plane commits
    whose rows carry ``overlap_efficiency`` in [0, 1]; within
    ``FEDERATION_BUDGET_S``;
 8h. fusion: client fusion and remat (``fusion_phase``). The ResNet-20
@@ -346,6 +350,20 @@ of JAX or of the JAX package. Phases, each fatal on failure:
     and ``pipeline_apply`` at one NCCL rank against the module's own
     forward; and the CLI on the cell at T 256 for one round
     (``MOE_CLI_WORDS``). Within ``MOE_BUDGET_S``.
+14. podscale (``podscale_phase``): client sharding on the ResNet-20 main
+    path's round, cuDNN deterministic: ``client_shards`` 1 in this
+    process (the armed twin, no collective), then S=2 as two spawned
+    ranks on the one card over gloo (``init_multihost`` on a ``file://``
+    store), each running its 5 clients on the device plane and then on
+    the stream plane: every rank's server params, generator, client
+    state and metrics bitwise the S=1 twin's, 2 + 2 ragged launches and
+    1 collective a round a rank, the gather's gauges; round ms at S 0
+    (the main path's), 1 and 2, nothing else running beside them. And
+    the CLI on two ranks (``--client_shards 2 --num_processes 2
+    --coordinator_address 127.0.0.1:<a free port>``, synthetic data, 2
+    rounds and a resume; run beside the lifecycle phase's untimed runs):
+    equal metric lines, rank 0's checkpoints the only ones. Within
+    ``PODSCALE_BUDGET_S``.
 
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
@@ -355,7 +373,7 @@ Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path``,
-``transformer_f32_profile`` and ``moe`` lines, the card's name and power
+``transformer_f32_profile``, ``moe`` and ``podscale`` lines, the card's name and power
 limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without CUDA.
@@ -417,6 +435,7 @@ WRN_TIMED_ROUNDS = 1
 LM = dict(rnn_hidden_size=128, mlp_num_layers=4, rnn_seq_len=2048,
           vocab_size=86)
 LM_WINDOWS, LM_BATCH, LM_TIMED_ROUNDS = 100, 8, 1
+LM_FLASH_PER_ROUND = LM["mlp_num_layers"] * LOCAL_STEPS * 10  # k = 10
 LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 # transformer_d512: d_model 512, 4 heads of 128, bf16; transformer_f32:
 # the LM path in the library's default dtype
@@ -456,10 +475,12 @@ MOE_CLI_WORDS = ["-d", "shakespeare", "-a", "transformer",
                  "--eval_freq", "1"]
 MOE_CLI_WINDOWS = 12
 MOE_BUDGET_S = 150.0
-# the stream phase: 1 warm-up and this many timed rounds a path, and the
-# depth-1 path's rounds back to back
-STREAM_TIMED_ROUNDS = 2
-STREAM_STRESS_ROUNDS = 4
+# the stream phase: 1 warm-up and this many timed rounds a path (the scan
+# path: one timed window of 1 + this many rounds, no warm-up), and the
+# depth-1 path's rounds back to back; 2 timed rounds before the cut for
+# the script's time
+STREAM_TIMED_ROUNDS = 1
+STREAM_STRESS_ROUNDS = 3
 # the default transformer width's heads (rnn_hidden_size 50: 4 of 25)
 DEFAULT_WIDTH_SHAPE = (LM_BATCH, 2048, 4, 25)
 SINGLE_NS = (1, 4097, 272_474, 524_288, 524_289)
@@ -486,8 +507,8 @@ LM_EVAL_WINDOWS = 32
 # one bfloat16 spacing at the loss's magnitude
 LM_EVAL_LOSS_BAR = 2.0 ** -8
 # the zoo phase: every algorithm beyond FedAvg on the north-star ResNet-20
-# round (bf16, 100 clients, k = 10, batch 50, 10 local steps, data from
-# --seed); (name, federated fields, optim fields). qsparse at the CLI's
+# round (bf16, 100 clients, k = ZOO_ONLINE_RATE x 100, batch 50, 10 local
+# steps, data from --seed); (name, federated fields, optim fields). qsparse at the CLI's
 # default --compressed_ratio (1.0: top-k keeps half of each leaf), AFL at
 # the one local step its config forces
 ZOO_PATHS = (
@@ -511,6 +532,9 @@ ZOO_PATHS = (
     ("perfedavg", dict(algorithm="perfedavg"), {}),
 )
 ZOO_TIMED_ROUNDS = 1
+# the zoo paths' cohort: k = 5 of the 100 clients (half the cell's k: the
+# cohort cut for the script's time; model, data and steps as the cell's)
+ZOO_ONLINE_RATE = 0.05
 # each algorithm's round card vs CPU (an MLP on 60 features, float32,
 # unquantized, TF32 off): the relative L2 of the server update and of
 # each aux tree (and, personalized, each evaluate_personal summary
@@ -530,7 +554,7 @@ ZOO_CARD_CASES = tuple((n, f, o) for n, f, o in ZOO_PATHS
 # fit, the first a warm-up
 LOCALSGD_WORKERS, LOCALSGD_ROUNDS = 10, 2
 # the CLI's APFL run: CLI_ARGV (int8 both ways) with adaptive alpha
-CLI_APFL_ROUNDS = 2
+CLI_APFL_ROUNDS = 1
 CLI_APFL_WORDS = ["--federated_type", "apfl", "--fed_adaptive_alpha", "true",
                   "--num_comms", str(CLI_APFL_ROUNDS)]
 # the tasks phase: the federated tasks through the library entry points,
@@ -579,6 +603,9 @@ TASK_EVAL_ROWS = 1000
 # by order 1, and the wire format is held to one step on its own
 TASK_CARD_FLOOR = 1e-2
 TASK_CARD_CUT = dict(num_clients=4, online_client_rate=0.5, local_step=2)
+# DenseNet-BC-100's cut: the same with 1 local step (cut for the
+# script's time: its CPU runs take most of the check's time)
+DENSENET_CARD_CUT = dict(TASK_CARD_CUT, local_step=1)
 # the models phase: DenseNet-BC-100 (Huang et al., CVPR 2017, Table 2:
 # growth 12, compression 0.5) on the north-star round; ResNet-18 (ImageNet)
 # at this batch of 224x224 images; float32 card vs CPU bars never tighter
@@ -618,17 +645,19 @@ PROFILE_TRIES = 3
 # the lifecycle phase: the reference's rounds (an evaluation, a
 # checkpoint and a keep each, the newest LIFECYCLE_KEEP kept; the same
 # rounds with saves off, evaluations off with them, and async); the kill
-# drills' rounds (SIGTERM once round 2 is logged; the signal can land
-# after that round's boundary check, and the child then drains a round
-# later, so the drill runs as many rounds as the reference and the
-# resumed child runs 1 or 2 of them); the stream runs' rounds (telemetry default and off, round index
+# drills' rounds (SIGTERM once round index LIFECYCLE_KILL_AFTER is logged;
+# the signal can land after that round's boundary check, and the child
+# then drains a round later, so the drill runs as many rounds as the
+# reference and the resumed child runs 1 or 2 of them; the fewest
+# rounds that allow it, for the script's time); the stream runs' rounds (telemetry default and off, round index
 # 1 watched, and the chaos run); the supervisor drill (nan poison at 0.05
 # on the main path's round, guards off, 2 retries) and its cut round's
 # poison rate (4 clients, k = 2: 0.05 would leave the cut's counts at 0);
 # the stream chaos drill (gather faults at rate 0.3 from seed 1, which
 # fires at the gather's second check, 3 retries); the phase's budget
-LIFECYCLE_ROUNDS = 4
-LIFECYCLE_DRILL_ROUNDS = 4
+LIFECYCLE_ROUNDS = 3
+LIFECYCLE_DRILL_ROUNDS = 3
+LIFECYCLE_KILL_AFTER = 0
 LIFECYCLE_KEEP = 2
 LIFECYCLE_SUP = dict(nan_inject_rate=0.05, supervisor=True, max_retries=2,
                      backoff_base_s=0.0)
@@ -673,13 +702,14 @@ FEDERATION_BUDGET_S = 240.0
 # layout, so 'cpu-nchw' would move nothing); the SCAFFOLD epoch-sync cell
 # with stragglers (250 rows a client, batch 50: 5 steps, a straggler
 # frozen after its cut); WideResNet-28-10 with remat on and off on a
-# population cut to FUSION_WRN_CLIENTS clients, all online (k = 10 as
-# on the cell); the phase's budget
+# population cut to FUSION_WRN_CLIENTS clients, all online (k = 5, half
+# the cell's k: the cohort cut for the script's time; a step's memory
+# does not depend on it); the phase's budget
 FUSION_TIMED_ROUNDS = 2
 FUSION_CUT_ORDERS = ("cpu-1thread", "cpu-2thread")
 FUSION_SCAFFOLD = dict(algorithm="scaffold", sync_type="epoch")
 FUSION_STRAGGLERS = dict(straggler_rate=0.5, straggler_step_frac=0.5)
-FUSION_WRN_CLIENTS = 10
+FUSION_WRN_CLIENTS = 5
 FUSION_BUDGET_S = 100.0
 # rows of at most this many elements count as short (ResNet-20's norm
 # scales and biases: 16, 32 and 64)
@@ -939,7 +969,11 @@ def ragged_phase(qk, fa, cells, k_online):
                 ("apply_plain_ms", lambda u, d, pu, pd: (
                     qk.qdq_ragged_apply_ref(u, pu, 8),
                     qk.qdq_ragged_apply_ref(d, pd, 8)), with_p)):
-            r[key] = device_ms(rotating(fn, args), inner=10, reps=11)
+            # the plain versions take milliseconds: fewer replays (as
+            # the flash plain version's) give a steady median
+            r[key] = device_ms(rotating(fn, args), inner=2, reps=5) \
+                if "plain" in key else device_ms(rotating(fn, args),
+                                                 inner=10, reps=11)
         if cell == "resnet20":  # hot in L2, as the row kernel was timed
             u, d = rounds[0]
             r["round_hot_ms"] = device_ms(lambda: (qk.qdq_ragged(u, 8),
@@ -1067,7 +1101,9 @@ def tiled_phase(qk, buckets, k_online):
                 ("apply", lambda x, p: qk.qdq_tiled_apply(x, p, 8), xps),
                 ("apply_plain", lambda x, p: qk.qdq_tiled_apply_ref(x, p, 8),
                  xps)):
-            ms[key] += device_ms(rotating(fn, args), inner=10, reps=11)
+            ms[key] += device_ms(rotating(fn, args), inner=2, reps=5) \
+                if "plain" in key else device_ms(rotating(fn, args),
+                                                 inner=10, reps=11)
         elems += rows * n
         rows_chunks += rows * -(-n // qk._CHUNK)
         del xs, xps
@@ -1786,8 +1822,8 @@ def stream_path(name, cfg, data, seed, define_model, make_algorithm,
                 depth=2, rounds=1 + STREAM_TIMED_ROUNDS):
     """One path of the stream phase: a trainer on ``cfg``'s data plane,
     ``rounds`` rounds from ``seed`` (the first a warm-up) through
-    ``run_round`` (``run_rounds(STREAM_TIMED_ROUNDS)`` after a
-    ``run_rounds(1)`` warm-up when ``scan``). On a stream path every
+    ``run_round``; with ``scan``, one timed ``run_rounds(rounds)`` window
+    and no warm-up (the paths before it warmed the process up). On a stream path every
     consumed feed's device rows are held bitwise against a fresh gather
     of its plan from ``ref_store`` (the population in RAM), copied over
     synchronously. Returns (numbers, final server params, generator
@@ -1836,15 +1872,13 @@ def stream_path(name, cfg, data, seed, define_model, make_algorithm,
     reset_counters(qk, fa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if scan:
-        server, clients, _ = trainer.run_rounds(server, clients, 1)
-    else:
+    if not scan:
         server, clients, _ = trainer.run_round(server, clients)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     before = dict(trainer.stream_stats() or {})
     producer = trainer._stream
-    timed = rounds - 1
+    timed = rounds if scan else rounds - 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1869,7 +1903,7 @@ def stream_path(name, cfg, data, seed, define_model, make_algorithm,
     if trainer._stream is not producer:
         # the window changed: the timed rounds ran on a new producer
         before = dict.fromkeys(before, 0.0)
-    per_round = {k: (stats[k] - before[k]) / timed
+    per_round = {k: (stats[k] - before.get(k, 0.0)) / timed
                  for k in ("gather_s", "h2d_s", "wait_s")} if stream else {}
     # the feeds the producer holds ahead, once its queue is full
     deadline = time.monotonic() + 5.0
@@ -1914,10 +1948,11 @@ def stream_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     """The north-star quantized FedAvg round on the stream data plane: the
     100-client population written with ``save_client_store``, then from
     one seed ``resident`` (twice: its own spread), ``stream_ram``,
-    ``stream_mmap``, ``stream_mmap_scan`` (windows of 2), each 1 warm-up
-    and 2 timed rounds, and ``stream_mmap_depth1`` (depth 1, 6 rounds
-    back to back). cuDNN runs deterministic here, so that the paths can be
-    held to each other: each stream path's server params after its 3
+    ``stream_mmap``, each 1 warm-up and 1 timed round,
+    ``stream_mmap_scan`` (one timed window of 2, no warm-up), and
+    ``stream_mmap_depth1`` (depth 1,
+    ``STREAM_STRESS_ROUNDS`` rounds back to back). cuDNN runs
+    deterministic here, so that the paths can be held to each other: each stream path's server params after its 2
     rounds within ``SPREAD_FACTOR`` times the two resident runs' gap (0:
     bitwise), its generator state bitwise."""
     import dataclasses
@@ -2327,7 +2362,7 @@ def zoo_path(name, fed, optim, data, seed, tcfg, define_model,
     validation rows, then runs ``evaluate_personal`` once, timed: finite
     [C] losses and summary, APFL's online alpha one value in [0, 1]."""
     from fedtorch_tpu_torch.parallel import evaluate_personal
-    cfg = zoo_config(tcfg, fed, optim)
+    cfg = zoo_config(tcfg, fed, optim, rate=ZOO_ONLINE_RATE)
     model = define_model(cfg, batch_size=cfg.data.batch_size)
     trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data,
                                val_data=val)
@@ -2979,7 +3014,7 @@ def densenet_path(seed, tcfg, define_model, make_algorithm,
     """The slice's main path: quantized FedAvg (int8 both ways) on
     DenseNet-BC-100 (growth 12, compression 0.5), bf16, the north-star
     round's 100 clients x 250 CIFAR-10-shaped samples from ``seed``, k =
-    10, batch 50, 10 local steps. Its round cut by ``TASK_CARD_CUT`` in
+    10, batch 50, 10 local steps. Its round cut by ``DENSENET_CARD_CUT`` in
     float32 card (TF32 off) vs CPU first, held to twice what NCHW memory
     moves it on the CPU (the bf16 round moves ~1,000x as far between
     float32 and bf16 as between CPU orders, so it is timed, not held),
@@ -2996,8 +3031,8 @@ def densenet_path(seed, tcfg, define_model, make_algorithm,
         f32 = path_config(tcfg, "densenet100", dtype="float32",
                           model=DENSENET)
         held = task_card_vs_cpu("densenet_bc100_float32",
-                                cut_config(f32, **TASK_CARD_CUT), data, None,
-                                seed, os_mod, qk, orders=("cpu-nchw",))
+                                cut_config(f32, **DENSENET_CARD_CUT), data,
+                                None, seed, os_mod, qk, orders=("cpu-nchw",))
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -3867,9 +3902,11 @@ def _rows(run_dir, name="metrics.jsonl"):
 def lifecycle_drill(root, name, extra, want, qk):
     """The kill drill (``fedtorch_tpu_torch/tools/kill_drill.py``): ``python
     -m fedtorch_tpu_torch.cli`` on ``lifecycle_argv`` + ``extra`` under
-    the port's ``ElasticRunner``, SIGTERM once it logged round index 1,
+    the port's ``ElasticRunner``, SIGTERM once it logged round index
+    ``LIFECYCLE_KILL_AFTER``,
     the relaunch with ``--resume``; exit codes [75, 0], every round's
-    keep (all kept) bitwise ``want``, the resumed process's 2 + 2 ragged
+    keep (all kept) bitwise ``want`` (or what ``want()`` gives once the
+    drill ends, for a reference run beside it), the resumed process's 2 + 2 ragged
     launches a round (its ``kernels.launches`` event), and the kernel
     library not rebuilt. The children get cuDNN's deterministic mode, as
     this process has it for the phase, from a ``sitecustomize`` on their
@@ -3891,9 +3928,13 @@ def lifecycle_drill(root, name, extra, want, qk):
                              "true", "--run_dir", run_dir])
     libs = {p.name: p.stat().st_mtime_ns
             for p in build.BUILD_DIR.glob("*.so")}
-    out = kill_drill(cmd, run_dir, kill_after=1, timeout_s=300, env=env)
+    out = kill_drill(cmd, run_dir, kill_after=LIFECYCLE_KILL_AFTER,
+                     timeout_s=300, env=env)
     rebuilt = {p.name: p.stat().st_mtime_ns
                for p in build.BUILD_DIR.glob("*.so")} != libs
+    if callable(want):
+        # the reference ran beside the drill
+        want = want()
     got = keep_hashes(run_dir)
     diff = first_difference(got, {r: want[r] for r in range(
         1, LIFECYCLE_DRILL_ROUNDS + 1)})
@@ -3915,7 +3956,7 @@ def lifecycle_drill(root, name, extra, want, qk):
     if out["rcs"] != [75, 0] or diff is not None \
             or last.get("rounds", 0) < 1 \
             or per_round != {"ragged_stats": 2.0, "ragged_apply": 2.0} \
-            or rebuilt or out["killed_after"] != 1:
+            or rebuilt or out["killed_after"] != LIFECYCLE_KILL_AFTER:
         tail = "\n".join(ln for lines in out["outputs"]
                          for ln in lines[-15:])
         raise AssertionError(f"lifecycle {name}: {res}\n{tail}\n"
@@ -4076,7 +4117,7 @@ def lifecycle_stream_and_supervisor(root, seed, tcfg, define_model,
 
 
 def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
-                    stack_partitions, FederatedTrainer, qk, fa):
+                    stack_partitions, FederatedTrainer, qk, fa, beside=None):
     """The run lifecycle on the ResNet-20 main path's round (quantized
     int8 both ways, 100 clients, k = 10, batch 50, 10 local steps) from
     CIFAR-10 files written from ``seed``, through the CLI, cuDNN
@@ -4108,7 +4149,9 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
     * ``drill_sync`` and ``drill_async``: the kill drill
       (:func:`lifecycle_drill`), with sync and with ``--async_checkpoint``
       saves, beside this process's stream and supervisor runs (their
-      round ms are not comparable and not reported).
+      round ms are not comparable and not reported). ``beside()``, when
+      given, is called as the drills start: it starts other phases'
+      child processes that belong in this untimed window.
     * ``supervisor``: :func:`lifecycle_supervisor`.
     * ``stream_chaos``: the same rounds with ``stream.gather`` faults
       (``LIFECYCLE_CHAOS``): params and generator bitwise
@@ -4222,7 +4265,8 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
                 raise AssertionError(f"lifecycle torn: {out['torn']}")
             # -- the kill drills: their children run beside this process's
             # stream and supervisor runs (a drill waits on its children;
-            # the card and the host cores have room for three processes)
+            # one child a drill runs at a time), and so do the children
+            # ``beside()`` starts (a third drill, the podscale CLI pair)
             drills = {}
 
             def drill(name, extra):
@@ -4238,6 +4282,8 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
                                  ("drill_async", ("--async_checkpoint",)))]
             for t in threads:
                 t.start()
+            if beside is not None:
+                beside()
             try:
                 lifecycle_stream_and_supervisor(
                     root, seed, tcfg, define_model, make_algorithm,
@@ -4596,7 +4642,38 @@ def krum_card_vs_cpu(cfg, data, seed, os_mod):
     return out
 
 
-def async_cli(root, seed, qk, fa, out, lap):
+def start_async_drill(root, qk) -> dict:
+    """The kill drill of :func:`async_cli`'s reference
+    (``lifecycle_drill`` on ``ASYNC_CLI_WORDS``), started at once on a
+    thread: its children run beside whatever this process runs next
+    (``children`` is set once they have ended), and its keeps are held,
+    when it ends, to the hashes the reference puts in ``ref["want"]``
+    (``ready`` set)."""
+    drills, ready, children, ref = {}, threading.Event(), \
+        threading.Event(), {}
+
+    def want_fn():
+        children.set()
+        if not ready.wait(600) or "want" not in ref:
+            raise AssertionError("federation async_drill: no reference")
+        return ref["want"]
+
+    def drill():
+        try:
+            drills["drill"] = lifecycle_drill(
+                root, "async_drill", list(ASYNC_CLI_WORDS), want_fn, qk)
+        except BaseException as e:  # re-raised after the join
+            drills["drill"] = e
+        finally:
+            children.set()
+
+    thread = threading.Thread(target=drill, name="federation-drill")
+    thread.start()
+    return dict(thread=thread, result=drills, ready=ready, ref=ref,
+                children=children)
+
+
+def async_cli(root, seed, qk, fa, out, lap, drill):
     """The CLI's commit plane (``ASYNC_CLI_WORDS``: ``--sync_mode async
     --cohort_stats true``) on the main path's round from the CIFAR-10
     files in ``root``, telemetry at its default: a reference of
@@ -4604,16 +4681,36 @@ def async_cli(root, seed, qk, fa, out, lap):
     checkpoint and a keep a commit; 2 + 2 ragged launches a commit;
     ``client_ledger.json``'s participation m x commits; the staleness
     histogram and the anomaly summary in the events; rows valid, health
-    ``complete``), the kill drill on it (``lifecycle_drill``: exit codes
-    [75, 0], every keep bitwise the reference's) beside a stream-plane
-    run without evaluations whose rows carry ``overlap_efficiency`` in
-    [0, 1]."""
-    from fedtorch_tpu_torch.telemetry import read_health, validate_metrics_row
+    ``complete``), the kill drill on it (``drill``, from
+    :func:`start_async_drill`: exit codes [75, 0], every keep bitwise the
+    reference's) and a stream-plane run without evaluations whose rows
+    carry ``overlap_efficiency`` in [0, 1]."""
     words = list(ASYNC_CLI_WORDS)
     run_dir = os.path.join(root, "async_cli")
+    try:
+        async_cli_runs(root, words, run_dir, qk, fa, out, lap, drill["ref"],
+                       drill["ready"])
+    finally:
+        drill["ready"].set()
+        drill["thread"].join(600)
+    drills = drill["result"]
+    if isinstance(drills.get("drill"), BaseException):
+        raise drills["drill"]
+    if "drill" not in drills:
+        raise AssertionError("federation async_drill: did not finish")
+    out["async_drill"] = drills["drill"]
+    lap("async_drill")
+
+
+def async_cli_runs(root, words, run_dir, qk, fa, out, lap, ref, ready):
+    """:func:`async_cli`'s reference and stream-plane runs; the
+    reference's hashes go to ``ref["want"]`` (``ready`` set)."""
+    from fedtorch_tpu_torch.telemetry import read_health, validate_metrics_row
     res, launched, hashes, wall, _ = lifecycle_run(
         lifecycle_argv(root, rounds=ASYNC_CLI_COMMITS, extra=words),
         run_dir, qk, fa)
+    ref["want"] = {r + 1: h for r, h in enumerate(hashes)}
+    ready.set()
     C = ASYNC_CLI_COMMITS
     rows = _rows(run_dir)
     for row in rows:
@@ -4646,51 +4743,30 @@ def async_cli(root, seed, qk, fa, out, lap):
         raise AssertionError(f"federation async_cli: {cli}")
     out["async_cli"] = cli
     lap("async_cli")
-    want = {r + 1: h for r, h in enumerate(hashes)}
-    drills = {}
-
-    def drill():
-        try:
-            drills["drill"] = lifecycle_drill(root, "async_drill", words,
-                                              want, qk)
-        except BaseException as e:  # re-raised after the join
-            drills["drill"] = e
-
-    thread = threading.Thread(target=drill, name="federation-drill")
-    thread.start()
-    try:
-        stream_dir = os.path.join(root, "async_cli_stream")
-        res, launched, _, wall, _ = lifecycle_run(
-            lifecycle_argv(root, rounds=ASYNC_CLI_STREAM_COMMITS,
-                           extra=words + ["--data_plane", "stream",
-                                          "--eval_freq", "1000"]),
-            stream_dir, qk, fa)
-        effs = [r.get("overlap_efficiency") for r in _rows(stream_dir)]
-        S = ASYNC_CLI_STREAM_COMMITS
-        stream = dict(commits=res["rounds"], launches=launched,
-                      tree_launches={k: v // C * S
-                                     for k, v in want_launch.items()},
-                      commit_ms=res["timer"]["round"] / S * 1e3,
-                      overlap_efficiency=effs, wall_s=wall)
-        log(f"federation async_cli_stream: {stream}")
-        if launched != stream["tree_launches"] or effs[0] is not None \
-                or not all(e is not None and 0.0 <= e <= 1.0
-                           for e in effs[1:]):
-            raise AssertionError(f"federation async_cli_stream: {stream}")
-        out["async_cli_stream"] = stream
-    finally:
-        thread.join(600)
-    if isinstance(drills.get("drill"), BaseException):
-        raise drills["drill"]
-    if "drill" not in drills:
-        raise AssertionError("federation async_drill: did not finish")
-    out["async_drill"] = drills["drill"]
-    lap("async_drill")
+    stream_dir = os.path.join(root, "async_cli_stream")
+    res, launched, _, wall, _ = lifecycle_run(
+        lifecycle_argv(root, rounds=ASYNC_CLI_STREAM_COMMITS,
+                       extra=words + ["--data_plane", "stream",
+                                      "--eval_freq", "1000"]),
+        stream_dir, qk, fa)
+    effs = [r.get("overlap_efficiency") for r in _rows(stream_dir)]
+    S = ASYNC_CLI_STREAM_COMMITS
+    stream = dict(commits=res["rounds"], launches=launched,
+                  tree_launches={k: v // C * S
+                                 for k, v in want_launch.items()},
+                  commit_ms=res["timer"]["round"] / S * 1e3,
+                  overlap_efficiency=effs, wall_s=wall)
+    log(f"federation async_cli_stream: {stream}")
+    if launched != stream["tree_launches"] or effs[0] is not None \
+            or not all(e is not None and 0.0 <= e <= 1.0
+                       for e in effs[1:]):
+        raise AssertionError(f"federation async_cli_stream: {stream}")
+    out["async_cli_stream"] = stream
 
 
 def federation_phase(seed, tcfg, define_model, make_algorithm,
                      stack_partitions, FederatedTrainer,
-                     AsyncFederatedTrainer, os_mod, qk, fa):
+                     AsyncFederatedTrainer, os_mod, qk, fa, root, drill):
     """The federation plane's observers and the async commit plane on
     the main path's round (quantized FedAvg, ResNet-20, bf16, 100
     clients, batch 50, 10 local steps), cuDNN deterministic:
@@ -4705,9 +4781,12 @@ def federation_phase(seed, tcfg, define_model, make_algorithm,
       ``async_trace`` (``ASYNC_TRACE``, ``ASYNC_TRACE_COMMITS`` commits);
     * ``async_card_vs_cpu`` (:func:`async_card_vs_cpu`);
     * ``async_cli``, ``async_drill``, ``async_cli_stream``
-      (:func:`async_cli`);
+      (:func:`async_cli`) from the CIFAR-10 files in ``root``; the drill
+      (``drill``, from :func:`start_async_drill`) was started beside the
+      lifecycle phase's untimed runs, so that nothing runs beside this
+      phase's timed rounds and commits, and its keeps are held here to
+      the reference's;
     within ``FEDERATION_BUDGET_S``."""
-    import tempfile
     t_phase = time.perf_counter()
     out = {"paths": {}, "laps_s": {}}
 
@@ -4793,10 +4872,10 @@ def federation_phase(seed, tcfg, define_model, make_algorithm,
         del data
         gc.collect()
         torch.cuda.empty_cache()
-        with tempfile.TemporaryDirectory() as root:
-            write_cifar10(root, seed)
-            async_cli(root, seed, qk, fa, out, lap)
+        async_cli(root, seed, qk, fa, out, lap, drill)
     finally:
+        drill["ready"].set()
+        drill["thread"].join(600)
         torch.backends.cudnn.deterministic = deterministic
     out.update(sync_round_ms=sync_ms, cudnn_deterministic=True,
                phase_s=time.perf_counter() - t_phase,
@@ -5113,7 +5192,7 @@ def fusion_remat(seed, tcfg, define_model, make_algorithm,
                  stack_partitions, FederatedTrainer):
     """WideResNet-28-10 (quantized, bf16, batch 50, 10 steps) with remat
     off and on, on a population cut to ``FUSION_WRN_CLIENTS`` clients all
-    online (k = 10 as on the cell), cuDNN deterministic: a warm-up round,
+    online, cuDNN deterministic: a warm-up round,
     then one round each: its ms, the device memory it adds over the
     resident state, and the server params after it bitwise the same."""
     deterministic = torch.backends.cudnn.deterministic
@@ -5756,16 +5835,386 @@ def moe_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     return out
 
 
+# the podscale phase: the ResNet-20 main path's round at client_shards S
+# in {0, 1} in this process and S=2 as two spawned ranks on the one card
+# (gloo: NCCL refuses two ranks on one device), resident and feed; the
+# CLI on two ranks; rounds each, the ranks' collective timeout, budget
+PODSCALE_ROUNDS = 2
+PODSCALE_TIMEOUT_S = 180
+PODSCALE_BUDGET_S = 90.0
+PODSCALE_CLI = ["-d", "synthetic", "-a", "logistic_regression", "-f",
+                "true", "--num_workers", "8", "--online_client_rate", "0.5",
+                "--local_step", "2", "-b", "8", "--eval_freq", "1",
+                "--debug", "false"]
+
+
+def podscale_config(tcfg, shards, plane="device", **mesh):
+    """The ResNet-20 main path's quantized round at ``shards``."""
+    cfg = path_config(tcfg, "resnet20")
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_plane=plane),
+        mesh=dataclasses.replace(cfg.mesh, client_shards=shards, **mesh))
+
+
+def state_hashes(server, clients, metrics) -> dict:
+    """sha256 of the server params and generator (:func:`leaf_hashes`),
+    of every client-state leaf, and of each round's metrics: the
+    round's bitwise fingerprint, small enough to send between ranks."""
+    from fedtorch_tpu_torch.core.state import tree_leaves
+    out = leaf_hashes(server.params, server.rng.get_state())
+    for what, tree in (("clients", clients), ("metrics", tuple(metrics))):
+        h = hashlib.sha256()
+        for t in tree_leaves(tree):
+            raw = t.detach().reshape(-1).contiguous()
+            if raw.dtype == torch.bool:
+                raw = raw.to(torch.uint8)
+            h.update(raw.view(torch.uint8).cpu().numpy().tobytes())
+        out[what] = h.hexdigest()
+    return out
+
+
+def podscale_rounds(cfg, seed, qk, fa, data=None):
+    """``PODSCALE_ROUNDS`` rounds of the main path's round at ``cfg``
+    through ``run_round``, cuDNN deterministic: each round's ms, the
+    ragged launches and collectives each round issued (counters set to 0
+    just before it), the gauges, and :func:`state_hashes` at the end.
+    ``data``: the path's data, when already built."""
+    from fedtorch_tpu_torch.algorithms import make_algorithm
+    from fedtorch_tpu_torch.data.batching import stack_partitions
+    from fedtorch_tpu_torch.models import define_model
+    from fedtorch_tpu_torch.parallel import FederatedTrainer, podscale
+
+    if data is None:
+        data = path_data(cfg, seed, stack_partitions)
+    trainer = FederatedTrainer(cfg, define_model(
+        cfg, batch_size=cfg.data.batch_size), make_algorithm(cfg), data)
+    del data
+    server, clients = trainer.init_state(seed)
+    ms, launches, collectives, metrics = [], [], [], []
+    try:
+        for _ in range(PODSCALE_ROUNDS):
+            torch.cuda.synchronize()
+            reset_counters(qk, fa)
+            podscale.reset_collective_count()
+            t0 = time.perf_counter()
+            server, clients, m = trainer.run_round(server, clients)
+            trainer.round_host_scalars(clients, m)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(counters(qk, fa))
+            collectives.append(podscale.collective_count())
+            metrics.append(m)
+        gauges = trainer.telemetry_gauges()
+    finally:
+        trainer.close()
+    hashes = state_hashes(server, clients, metrics)
+    return dict(round_ms=ms, launches=launches, collectives=collectives,
+                gauges=gauges, client_shards=trainer.client_shards,
+                rows=list(trainer.cohort_rows(trainer.k_dispatch)),
+                hashes=hashes, fingerprint=hashlib.sha256(json.dumps(
+                    hashes, sort_keys=True).encode()).hexdigest())
+
+
+def podscale_rank(rank, store, seed, queue):
+    """One spawned rank of the S=2 rounds: the process group through
+    ``init_multihost`` (a ``file://`` store), then
+    :func:`podscale_rounds` on the device plane and on the stream plane
+    from one build of the path's data; its results (or its traceback)
+    on ``queue``."""
+    import traceback
+    try:
+        from fedtorch_tpu_torch import config as tcfg
+        from fedtorch_tpu_torch.data.batching import stack_partitions
+        from fedtorch_tpu_torch.ops.cuda import (
+            flash_attention as fa, quant_kernel as qk,
+        )
+        from fedtorch_tpu_torch.parallel.mesh import init_multihost
+        torch.backends.cudnn.deterministic = True
+        out = {}
+        data = None
+        for plane in ("device", "stream"):
+            cfg = podscale_config(
+                tcfg, 2, plane, coordinator_address=f"file://{store}",
+                num_processes=2, process_id=rank,
+                init_timeout_s=float(PODSCALE_TIMEOUT_S))
+            if data is None:
+                out["backend"] = init_multihost(cfg.mesh)
+                data = path_data(cfg, seed, stack_partitions)
+            out[plane] = podscale_rounds(cfg, seed, qk, fa, data)
+            out[plane]["backend"] = out["backend"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        queue.put((rank, "ok", out))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def podscale_pair(root, seed) -> list:
+    """Both ranks' :func:`podscale_rank` at S=2, spawned together;
+    raises with a rank's traceback, or when a rank is silent for
+    ``PODSCALE_TIMEOUT_S`` (both are killed)."""
+    import multiprocessing
+    import queue as queue_mod
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    store = os.path.join(root, "store")
+    procs = [ctx.Process(target=podscale_rank,
+                         args=(r, store, seed, q), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + PODSCALE_TIMEOUT_S
+        while len(got) < 2:
+            try:
+                rank, status, value = q.get(timeout=1.0)
+            except queue_mod.Empty:
+                if time.monotonic() > deadline or any(
+                        p.exitcode not in (None, 0) for p in procs):
+                    raise AssertionError(
+                        f"podscale S=2: a rank died or hung "
+                        f"(exit codes {[p.exitcode for p in procs]})")
+                continue
+            if status != "ok":
+                raise AssertionError(f"podscale S=2 rank {rank}:\n{value}")
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[0], got[1]]
+
+
+def podscale_cli(root) -> dict:
+    """The CLI on two ranks on the card (``--client_shards 2
+    --num_processes 2 --process_id {0,1} --coordinator_address
+    127.0.0.1:<a free port>``), synthetic data, 2 rounds, then both
+    resumed for a third: the two ranks' metric lines equal, rank 0's
+    checkpoints the only ones (rank 1's run directory holds its log and
+    health file only), and the resumed rounds go on in step."""
+    import socket
+    line = re.compile(r"Round: (\d+)\. ((?:Epoch|Mode).*?)$", re.M)
+
+    def lines(path):
+        with open(path) as f:
+            return [re.sub(r"Load: .*?Global: [\d.]+s \| ", "", m.group(2))
+                    for m in line.finditer(f.read())]
+
+    def pair(rounds, resume):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = []
+        for rank in (0, 1):
+            run_dir = os.path.join(root, f"rank{rank}")
+            argv = [sys.executable, "-m", "fedtorch_tpu_torch.cli"] \
+                + PODSCALE_CLI + [
+                    "--num_comms", str(rounds), "--client_shards", "2",
+                    "--num_processes", "2", "--process_id", str(rank),
+                    "--coordinator_address", f"127.0.0.1:{port}",
+                    "--run_dir", run_dir]
+            if resume:
+                # every rank resumes from rank 0's files
+                argv += ["--resume", os.path.join(root, "rank0")]
+            procs.append(subprocess.Popen(
+                argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=PODSCALE_TIMEOUT_S)
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (rc, out, err) in enumerate(outs):
+            if rc != 0:
+                raise AssertionError(f"podscale cli rank {rank}: exit {rc}"
+                                     f"\n{err[-3000:]}")
+        return [o for _, o, _ in outs]
+
+    t0 = time.perf_counter()
+    said = pair(2, False)
+    first = [lines(os.path.join(root, f"rank{r}", f"record{r}"))
+             for r in (0, 1)]
+    files = {r: sorted(os.listdir(os.path.join(root, f"rank{r}")))
+             for r in (0, 1)}
+    ckpts = {r: [f for f in files[r] if f.endswith(".ckpt")] for r in (0, 1)}
+    pair(3, True)
+    after = [lines(os.path.join(root, f"rank{r}", f"record{r}"))
+             for r in (0, 1)]
+    out = dict(lines=first[0], rank1_files=files[1], rank0_ckpts=ckpts[0],
+               resumed_lines=after[0][len(first[0]):],
+               backend=[re.findall(r"init_multihost: backend (\w+)", o)
+                        for o in said],
+               s=time.perf_counter() - t0)
+    if first[0] != first[1] or len(first[0]) != 4:
+        raise AssertionError(f"podscale cli: rank lines differ {first}")
+    if ckpts[1] or not ckpts[0]:
+        raise AssertionError(f"podscale cli: checkpoints {ckpts}")
+    if after[0] != after[1] or after[0][:4] != first[0] \
+            or len(after[0]) != 6:
+        raise AssertionError(f"podscale cli: resumed lines {after}")
+    return out
+
+
+def start_podscale_cli():
+    """:func:`podscale_cli` in a temporary directory of its own, on a
+    thread started now; returns a callable that joins it and returns its
+    result (or raises what it raised)."""
+    import tempfile
+    box = {}
+
+    def run():
+        try:
+            with tempfile.TemporaryDirectory() as root:
+                box["out"] = podscale_cli(root)
+        except BaseException as e:  # re-raised by the join
+            box["out"] = e
+    thread = threading.Thread(target=run, name="podscale-cli")
+    thread.start()
+
+    def join():
+        thread.join(2 * PODSCALE_TIMEOUT_S + 60)
+        if isinstance(box.get("out"), BaseException):
+            raise box["out"]
+        if "out" not in box:
+            raise AssertionError("podscale cli: did not finish")
+        return box["out"]
+    return join
+
+
+def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
+    """Client sharding (``parallel/podscale.py``) on the ResNet-20 main
+    path's round (quantized FedAvg, int8 both ways, bf16, 100 clients, k
+    = 10, batch 50, 10 local steps), cuDNN deterministic:
+
+    * ``S0`` and ``S1``: ``PODSCALE_ROUNDS`` rounds in this process at
+      ``client_shards`` 0 and 1 (the armed twin: the grouped sum, no
+      collective); each round's ms, 2 + 2 ragged launches a round. With
+      ``s0_round_ms`` (the main path's round ms: the same round at
+      ``client_shards`` 0, in the same process) the S0 run is not
+      repeated;
+    * ``S2_resident`` and ``S2_feed``: two spawned ranks on this card
+      (``init_multihost`` through a ``file://`` store, the backend gloo by
+      the module's rule), each running its 5 clients of the cohort on the
+      device plane, then on the stream plane (``feed``: its producer
+      packing only its rows): after the rounds every rank's server
+      params, generator, client state and metrics hash bitwise the S1
+      twin's; each rank launches the ragged pair 2 + 2 times a round (its
+      [5]-row uplink, the downlink) and issues 1 collective a round;
+      ``cohort_allreduce_bytes`` and ``cohort_gather_bytes`` as the
+      gauges say;
+    * ``cli``: what :func:`podscale_cli` returned, run beside the
+      lifecycle phase's untimed runs (:func:`start_podscale_cli`), so
+      that nothing runs beside the timed rounds above.
+
+    Two processes on one card: their round ms is no multi-card speed. No
+    NCCL collective crosses two cards here (this machine has one)."""
+    import tempfile
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    try:
+        from fedtorch_tpu_torch.data.batching import stack_partitions
+        data = path_data(podscale_config(tcfg, 0), seed, stack_partitions)
+        for shards in (0, 1) if s0_round_ms is None else (1,):
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[f"S{shards}"] = podscale_rounds(
+                podscale_config(tcfg, shards), seed, qk, fa, data)
+        del data
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = podscale_pair(root, seed)
+        out["S2_resident"] = [r["device"] for r in ranks]
+        out["S2_feed"] = [r["stream"] for r in ranks]
+        out["cli"] = cli
+    finally:
+        tmp.cleanup()
+        torch.backends.cudnn.deterministic = deterministic
+    want = dict(ragged_stats=2, ragged_apply=2, stats=0, apply=0, flash=0,
+                flash_tc=0, flash_tf32=0)
+    twin = out["S1"]["hashes"]
+    for name in [n for n in ("S0", "S1") if n in out]:
+        if any(l != want for l in out[name]["launches"]) \
+                or any(out[name]["collectives"]):
+            raise AssertionError(f"podscale {name}: {out[name]}")
+    for name in ("S2_resident", "S2_feed"):
+        for rank, r in enumerate(out[name]):
+            if r["hashes"] != twin:
+                diff = [k for k in twin if r["hashes"].get(k) != twin[k]]
+                raise AssertionError(
+                    f"podscale {name} rank {rank}: not bitwise the S=1 twin "
+                    f"({len(diff)} of {len(twin)} hashes differ: {diff[:8]})")
+            if any(l != want for l in r["launches"]) \
+                    or r["collectives"] != [1] * PODSCALE_ROUNDS \
+                    or r["backend"] != "gloo" or r["client_shards"] != 2 \
+                    or r["rows"] != [5 * rank, 5 * rank + 5]:
+                raise AssertionError(f"podscale {name} rank {rank}: {r}")
+    gauges = out["S2_resident"][0]["gauges"]
+    out.update(
+        cohort_allreduce_bytes=gauges["cohort_allreduce_bytes"],
+        cohort_gather_bytes=gauges["cohort_gather_bytes"],
+        round_ms=dict(S0=out["S0"]["round_ms"][-1] if "S0" in out
+                      else s0_round_ms, S1=out["S1"]["round_ms"][-1]),
+        launches_per_round_a_rank=out["S2_resident"][0]["launches"][-1],
+        collectives_per_round=out["S2_resident"][0]["collectives"][-1],
+        backend=out["S2_resident"][0]["backend"], bitwise=True,
+        phase_s=time.perf_counter() - t0, budget_s=PODSCALE_BUDGET_S)
+    for name in ("S2_resident", "S2_feed"):
+        out["round_ms"][name] = [r["round_ms"][-1] for r in out[name]]
+    # the per-leaf hashes are held above; the output keeps each run's
+    # fingerprint of them
+    for name in [n for n in ("S0", "S1") if n in out]:
+        del out[name]["hashes"]
+    for name in ("S2_resident", "S2_feed"):
+        for r in out[name]:
+            del r["hashes"]
+    # rank 0's launches over its rounds (the kernels line's
+    # launches_by_path); each rank's a round are checked above
+    out["launches"] = {c: sum(l[c] for l in out["S2_resident"][0]["launches"])
+                       for c in want}
+    out["tree_launches"] = out["launches"]
+    log(f"podscale phase: {out['phase_s']:.1f} s (budget "
+        f"{PODSCALE_BUDGET_S}); backend {out['backend']}; S=2 resident and "
+        "feed bitwise the S=1 twin on every rank; a rank a round: ragged "
+        f"{out['launches_per_round_a_rank']}, collectives "
+        f"{out['collectives_per_round']}; cohort_allreduce_bytes "
+        f"{out['cohort_allreduce_bytes']:.0f}, cohort_gather_bytes "
+        f"{out['cohort_gather_bytes']:.0f}; round ms {out['round_ms']} "
+        "(two ranks share one card: no multi-card speed); cli "
+        f"{out['cli']['s']:.1f} s, rank 0's checkpoints "
+        f"{out['cli']['rank0_ckpts']}, rank 1 wrote {out['cli']['rank1_files']}")
+    if out["phase_s"] > PODSCALE_BUDGET_S:
+        log(json.dumps(out))
+        raise AssertionError(f"podscale phase took {out['phase_s']:.1f} s, "
+                             f"over its {PODSCALE_BUDGET_S} s budget")
+    return out
+
+
 def check_lm_launches(out, route):
-    """A transformer path's round: 400 flash launches (4 layers x 10
-    local steps x 10 clients), all on ``route``'s kernel, and 2 + 2
-    ragged launches."""
+    """A transformer path's round: ``LM_FLASH_PER_ROUND`` flash launches
+    (layers x 10 local steps x 10 clients), all on ``route``'s kernel,
+    and 2 + 2 ragged launches."""
     per = out["launches_per_round"]
     other = "flash_tf32" if route == "flash_tc" else "flash_tc"
-    if per["flash"] != 400 or per[route] != 400 or per[other] != 0 \
+    n = LM_FLASH_PER_ROUND
+    if per["flash"] != n or per[route] != n or per[other] != 0 \
             or per["ragged_stats"] != 2 or per["ragged_apply"] != 2:
         raise AssertionError(f"d_model {out['d_model']} {out['dtype']}: "
-                             f"expected 400 {route} and 2 + 2 ragged "
+                             f"expected {n} {route} and 2 + 2 ragged "
                              f"launches per round, got {per}")
 
 
@@ -5892,16 +6341,36 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the child processes that run beside the lifecycle phase's untimed
+    # stream and supervisor runs: the federation phase's async kill drill
+    # (on CIFAR-10 files in beside_dir, where that phase's reference runs
+    # too) and the podscale phase's CLI pair
+    import tempfile
+    beside_dir = tempfile.TemporaryDirectory()
+    beside = {}
+
+    def start_beside():
+        write_cifar10(beside_dir.name, args.seed)
+        beside["async_drill"] = start_async_drill(beside_dir.name, qk)
+        beside["podscale_cli"] = start_podscale_cli()
+
     phase("lifecycle")
     lifecycle = lifecycle_phase(args.seed, tcfg, define_model, make_algorithm,
-                                stack_partitions, FederatedTrainer, qk, fa)
+                                stack_partitions, FederatedTrainer, qk, fa,
+                                beside=start_beside)
+    # their children end before the next timed round
+    if not beside["async_drill"]["children"].wait(600):
+        raise AssertionError("federation async_drill: its children did not "
+                             "end")
+    podscale_cli_out = beside["podscale_cli"]()
     gc.collect()
     torch.cuda.empty_cache()
 
     phase("federation")
     federation = federation_phase(
         args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, AsyncFederatedTrainer, order_spread, qk, fa)
+        FederatedTrainer, AsyncFederatedTrainer, order_spread, qk, fa,
+        beside_dir.name, beside["async_drill"])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5966,6 +6435,13 @@ def main(argv=None) -> int:
     moe = moe_phase(args.seed, tcfg, define_model, make_algorithm,
                     stack_partitions, FederatedTrainer, order_spread, qk, fa)
 
+    phase("podscale")
+    gc.collect()
+    torch.cuda.empty_cache()
+    podscale = podscale_phase(args.seed, tcfg, qk, fa, podscale_cli_out,
+                              main["round_ms"])
+    beside_dir.cleanup()
+
     cli_out["tree_launches"] = cli_out["launches"]
     paths = (("resnet20", main), ("cli", cli_out), ("cli_apfl", cli_apfl),
              ("localsgd", localsgd), ("wideresnet28_10", wrn),
@@ -5988,7 +6464,8 @@ def main(argv=None) -> int:
                  ("fusion_cell_vmap", fusion["cell"]["vmap"]),
                  ("fusion_cnn_cifar", fusion["cnn_cifar"]),
                  ("cli_fused", cli_out["fused"]),
-                 ("moe_transformer", moe), ("cli_moe", moe["cli"]))
+                 ("moe_transformer", moe), ("cli_moe", moe["cli"]),
+                 ("podscale_S2_rank0", podscale))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -6071,6 +6548,7 @@ def main(argv=None) -> int:
         print(json.dumps({f"{name}_main_path": out, "card": card}))
         print(json.dumps({f"{name}_profile": prof_out}))
     print(json.dumps({"moe": moe, "card": card}))
+    print(json.dumps({"podscale": podscale, "card": card}))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"ok": True, "device": {

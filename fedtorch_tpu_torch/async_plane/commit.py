@@ -39,7 +39,12 @@ versions on other rows.
 Refused by name (``round_program.validate_cell``): algorithms outside
 ``ASYNC_ALGORITHMS``, the personalized families and their val streams,
 and client fusion; here: a buffer larger than the concurrency, and a
-population smaller than concurrency + buffer. The JAX package's
+population smaller than concurrency + buffer. Under client sharding
+(``mesh.client_shards``) the commit's ``[m]`` buffer splits over the
+shards as a round's cohort does (:attr:`AsyncFederatedTrainer.
+cohort_width`): each rank runs, and on the stream plane packs, its
+``m/S`` jobs, as the JAX package's commit places them (``commit.py``
+``cohort_sharding``). The JAX package's
 ``lowered_cost_programs`` has no port (it lowers XLA programs).
 """
 from __future__ import annotations
@@ -123,6 +128,12 @@ class AsyncFederatedTrainer(FederatedTrainer):
         # the last scheduler's staleness histogram, kept across
         # invalidate_stream for the run-end event
         self._hist_stash: Optional[dict] = None
+
+    @property
+    def cohort_width(self) -> int:
+        """The commit's m buffered jobs are its cohort: under client
+        sharding each rank runs and packs its block of them."""
+        return self.buffer_size
 
     @property
     def metrics_width(self) -> int:

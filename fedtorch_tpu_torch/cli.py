@@ -537,11 +537,6 @@ def _unported(section: str, what: str, fields: dict) -> None:
         UNPORTED_FLAGS[flag] = (section, field, what)
 
 
-_unported("mesh", "multi-device and multi-host runs (ROADMAP A10)", {
-    "num_devices": "num_devices",
-    "coordinator_address": "coordinator_address",
-    "num_processes": "num_processes", "process_id": "process_id",
-    "client_shards": "client_shards"})
 _unported("mesh", "XLA's scan unrolling, which has no eager-torch "
           "counterpart", {"scan_unroll": "scan_unroll"})
 _unported("telemetry", "XLA's cost analysis, which has no torch port",
@@ -592,6 +587,27 @@ def _staleness_event(tel, trainer, **fields) -> None:
 
 def run_experiment(cfg: ExperimentConfig, download: bool = False,
                    round_callback=None) -> dict:
+    """:func:`_run_experiment` inside the run's process group: with
+    ``--coordinator_address`` each process joins it first
+    (``parallel/mesh.py`` :func:`init_multihost`, before the data are
+    built) and leaves it at the end. Every rank runs the same loop and
+    logs the same metric lines (``record<rank>``); only rank 0 writes
+    checkpoints and telemetry files, and every rank resumes from them."""
+    from fedtorch_tpu_torch.parallel.mesh import init_multihost
+    refused = refused_flags(cfg)
+    if refused:
+        raise ValueError("not yet ported: " + "; ".join(refused))
+    started = init_multihost(cfg.mesh) is not None
+    try:
+        return _run_experiment(cfg, download, round_callback)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run_experiment(cfg: ExperimentConfig, download: bool = False,
+                    round_callback=None) -> dict:
     """The synchronous federated driver loop (federated/main.py:56-211;
     the JAX package's ``run_experiment``), or local-SGD mode without
     ``--federated``. ``round_callback(r, trainer, server, clients,
@@ -612,6 +628,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
         evaluate, evaluate_per_class, evaluate_personal,
     )
     from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
+    from fedtorch_tpu_torch.parallel.mesh import rank
     from fedtorch_tpu_torch.robustness import host_chaos, host_recovery
     from fedtorch_tpu_torch.robustness.guards import all_rejected_scalars
     from fedtorch_tpu_torch.robustness.preemption import PreemptionHandler
@@ -637,17 +654,15 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     from fedtorch_tpu_torch.utils.logging import RunLogger
     from fedtorch_tpu_torch.utils.meters import PhaseTimer
 
-    refused = refused_flags(cfg)
     if download:
-        refused.append("--download True: fetching a dataset (no machine "
-                       "the port runs on has a network to test it)")
-    if refused:
-        raise ValueError("not yet ported: " + "; ".join(refused))
+        raise ValueError(
+            "not yet ported: --download True: fetching a dataset (no "
+            "machine the port runs on has a network to test it)")
     # the CPU only when --backend cpu asks; else CUDA, which raises
     # without a card
     device = resolve_device("cpu" if cfg.mesh.backend == "cpu" else None)
     run_dir = init_checkpoint_dir(cfg)
-    logger = RunLogger(run_dir, debug=cfg.checkpoint.debug)
+    logger = RunLogger(run_dir, debug=cfg.checkpoint.debug, rank=rank())
     logger.log_args(cfg)
     logger.log(f"device: {device}"
                + (f" ({torch.cuda.get_device_name(device)})"
@@ -658,7 +673,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
     # run telemetry: metrics/events/health/trace in the run dir, every
     # value a host counter or from the round's one batched fetch
     tel = Telemetry(
-        run_dir, level=cfg.telemetry.level,
+        run_dir, level=cfg.telemetry.level, process_index=rank(),
         run_meta={"algorithm": cfg.effective_algorithm,
                   "dataset": cfg.data.dataset, "arch": cfg.model.arch,
                   "sync_mode": cfg.federated.sync_mode,
@@ -762,7 +777,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
         # and the observe-only anomaly detector over the rows; an
         # elastic restart adopts the run dir's ledger
         ledger = anomaly = None
-        if tel.enabled and cfg.telemetry.cohort_stats:
+        if tel.enabled and tel.is_writer and cfg.telemetry.cohort_stats:
             ledger = ClientLedger(
                 run_dir, num_clients=cfg.federated.num_clients,
                 sketch_budget=cfg.telemetry.ledger_sketch_budget,
@@ -955,7 +970,8 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                         r, [round(a, 4) for a in accs.tolist()]))
                 if accountant is not None:
                     # spend through any resume point is durable first
-                    accountant.save(run_dir)
+                    if tel.is_writer:
+                        accountant.save(run_dir)
                 timer.start("checkpoint")
                 with tel.span("checkpoint", round=r):
                     saver(run_dir, server, clients, cfg, best_prec1,
@@ -1137,7 +1153,7 @@ def run_experiment(cfg: ExperimentConfig, download: bool = False,
                                 for k, v in sorted(final_hist.items())})
             if ledger is not None:
                 ledger.flush()
-            if accountant is not None:
+            if accountant is not None and tel.is_writer:
                 accountant.save(run_dir)
             if anomaly is not None:
                 tel.event("anomaly.summary", fields=anomaly.summary())

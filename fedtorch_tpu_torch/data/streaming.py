@@ -380,8 +380,13 @@ class MmapClientStore(ClientStore):
                 mm = np.memmap(str(path), dtype=self._dtypes[tensor],
                                mode="c", shape=shape)
             except (ValueError, OSError) as e:
+                # name the owner: under client sharding each rank packs
+                # its own rows, and the recovery chain must say whose
+                # store shard tore
+                from fedtorch_tpu_torch.parallel.mesh import rank
                 raise ValueError(
-                    f"client-store shard {sid} of tensor {tensor!r} is "
+                    f"client-store shard {sid} of tensor {tensor!r} "
+                    f"(owning host: process {rank()}) is "
                     f"torn or truncated at {path} — expected "
                     f"{int(np.prod(shape))} x {self._dtypes[tensor]} "
                     f"elements; {e}") from e
@@ -568,14 +573,22 @@ class StreamFeedProducer:
     ``[R]`` axis (the scan dispatch; schedule producers only);
     ``feed_layout='shard'`` packs whole padded shards. Feeds come out in
     order from ``start_round``; a consumer that sees another label must
-    drop the producer (``FederatedTrainer.invalidate_stream``)."""
+    drop the producer (``FederatedTrainer.invalidate_stream``).
+
+    ``cohort_rows = (lo, hi)`` (client sharding, ``parallel/mesh.py``):
+    the producer packs, pins and copies only the rows ``[lo, hi)`` of
+    each round's cohort into ``x``/``y``/``pre_x``/``pre_y``; the plan,
+    ``idx`` and ``sizes`` stay whole (every rank reads them), as the
+    JAX package's ``podscale_feed_placer`` replicates its ``[k]``
+    vectors."""
 
     def __init__(self, store: ClientStore, *, batch_size: int,
                  start_round: int = 0,
                  schedule: Optional[RoundSchedule] = None,
                  plan_fn: Optional[Callable] = None, depth: int = 2,
                  window: int = 0, feed_layout: str = "batch",
-                 device=None, timeout_s: float = 120.0):
+                 device=None, timeout_s: float = 120.0,
+                 cohort_rows: Optional[Tuple[int, int]] = None):
         if (schedule is None) == (plan_fn is None):
             raise ValueError("give the producer a schedule or a plan_fn")
         if feed_layout not in FEED_LAYOUTS:
@@ -592,6 +605,15 @@ class StreamFeedProducer:
         self.start_round = int(start_round)
         self.feed_layout = feed_layout
         self._schedule, self._plan_fn = schedule, plan_fn
+        if cohort_rows is not None:
+            lo, hi = int(cohort_rows[0]), int(cohort_rows[1])
+            if not 0 <= lo < hi:
+                raise ValueError(
+                    f"cohort_rows must be a [lo, hi) block with "
+                    f"0 <= lo < hi, got {cohort_rows!r}")
+            cohort_rows = (lo, hi)
+        self._cohort_rows = cohort_rows
+        self.shard_pack_s = 0.0  # producer: this rank's block's packs
         self._timeout_s = timeout_s
         self._stride = max(self.window, 1)
         self._expected = self.start_round
@@ -614,10 +636,22 @@ class StreamFeedProducer:
     def _pack(self, plan) -> RoundFeed:
         alloc, B = self._alloc, self.batch_size
         idx = plan.idx.numpy()
+        cr = self._cohort_rows
+        t0 = time.perf_counter()
+        mine = idx if cr is None else idx[cr[0]:cr[1]]
         if self.feed_layout == "shard":
-            feed = self.store.pack_shards(idx, B, alloc)
+            feed = self.store.pack_shards(mine, B, alloc)
         else:
-            feed = self.store.pack(idx, plan.rows.numpy(), B, alloc)
+            rows = plan.rows.numpy()
+            feed = self.store.pack(
+                mine, rows if cr is None else rows[cr[0]:cr[1]], B, alloc)
+        if cr is not None:
+            # the whole cohort's ids and sizes, this rank's rows
+            full = np.asarray(idx, np.int64)
+            feed = feed._replace(
+                idx=torch.from_numpy(full.astype(np.int32)),
+                sizes=torch.from_numpy(self.store.sizes[full]))
+            self.shard_pack_s += time.perf_counter() - t0
         if plan.probe_idx is not None:
             qi, qx, qy = self.store.pack_probe(
                 plan.probe_idx.numpy(), plan.probe_rows.numpy(), alloc)
@@ -642,7 +676,19 @@ class StreamFeedProducer:
                 idxs.shape + (self.store.n_max,))
         else:
             rowss = np.stack([p.rows.numpy() for p in plans])
-        feed = self.store.pack_window(idxs, rowss, B, alloc)
+        cr = self._cohort_rows
+        t0 = time.perf_counter()
+        if cr is None:
+            feed = self.store.pack_window(idxs, rowss, B, alloc)
+        else:
+            # the client axis is axis 1 of [R, k, ...]
+            feed = self.store.pack_window(idxs[:, cr[0]:cr[1]],
+                                          rowss[:, cr[0]:cr[1]], B, alloc)
+            full = idxs.astype(np.int64)
+            feed = feed._replace(
+                idx=torch.from_numpy(full.astype(np.int32)),
+                sizes=torch.from_numpy(self.store.sizes[full]))
+            self.shard_pack_s += time.perf_counter() - t0
 
         def stacked(name):
             ts = [getattr(p, name) for p in plans]
@@ -765,7 +811,8 @@ class StreamFeedProducer:
     def stats(self) -> dict:
         """Host counters: feeds queued now, rounds produced, the
         producer's cumulative gather and H2D seconds, the consumer's
-        cumulative wait, and the store's RAM and mapped megabytes."""
+        cumulative wait, the store's RAM and mapped megabytes and, under
+        client sharding, the rows this rank packs and its pack seconds."""
         return {
             "depth": self._prefetcher.depth(),
             "rounds_produced": self.rounds_produced,
@@ -774,6 +821,9 @@ class StreamFeedProducer:
             "wait_s": self.wait_s,
             "store_resident_mb": self.store.resident_nbytes / 1e6,
             "store_mapped_mb": self.store.mapped_nbytes / 1e6,
+            **({} if self._cohort_rows is None else {
+                "shard_rows": self._cohort_rows[1] - self._cohort_rows[0],
+                "shard_pack_s": self.shard_pack_s}),
         }
 
     def close(self) -> bool:

@@ -103,8 +103,20 @@ and the cohort's heterogeneity gauges in the ``cohort_*`` fields of
 (:meth:`FederatedTrainer.round_host_scalars` with ``ledger=True``); off,
 the round runs exactly as before. The async plane's commit
 (``async_plane/``) re-dispatches :meth:`FederatedTrainer._round_core`
-through its commit seam. Pod-scale sharding is refused by name at
-construction. On the stream plane a producer that
+through its commit seam.
+
+Pod-scale client sharding (``mesh.client_shards`` S, the JAX package's
+``federated.py:341-371``; ``parallel/podscale.py``, ``parallel/mesh.py``):
+one process a rank, each holding the whole replicated server and client
+state. Every rank draws the whole :class:`RoundPlan` from the server's
+generator (so every draw is S-invariant) and runs only its contiguous
+block of the cohort's rows through the local loops (the stream plane's
+producer packs only those rows); the aggregation seam's grouped sum,
+whose association depends on k alone, issues the round's one
+``all_gather``, which also brings every rank the per-client rows the
+replicated rest of the round reads (metrics, client state, DP clip
+flags). S = 1 (armed) runs the same sum with no collective, the twin the
+sharded rounds are bitwise equal to. On the stream plane a producer that
 died (its gather exhausted the ``stream.gather`` retries, it wedged past
 ``stream_timeout_s``, or it desynced) is rebuilt from the live
 (generator, round) up to ``fault.host_retry_max`` times a pop
@@ -146,6 +158,12 @@ from fedtorch_tpu_torch.data.streaming import (
 from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
 from fedtorch_tpu_torch.parallel.fusion import resolve_client_fusion
+from fedtorch_tpu_torch.parallel.mesh import (
+    cohort_sharding, make_mesh, mesh_client_shards, world_size,
+)
+from fedtorch_tpu_torch.parallel.podscale import (
+    cohort_allreduce_bytes, cohort_hierarchical_sum, gathered_bytes,
+)
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
 )
@@ -159,7 +177,7 @@ from fedtorch_tpu_torch.robustness.guards import (
     mask_bcast, renormalize_accepted, screen_payloads,
 )
 from fedtorch_tpu_torch.robustness.privacy import (
-    dp_add_noise, dp_clip_payloads, dp_noise_stddev,
+    dp_add_noise, dp_clip_rows, dp_clip_share, dp_noise_stddev,
 )
 from fedtorch_tpu_torch.utils import resolve_device
 
@@ -319,12 +337,6 @@ class PlanDrawer:
         return plan
 
 
-def unported_features(cfg: ExperimentConfig) -> list:
-    """Names of the requested features this port does not have yet."""
-    checks = [(cfg.mesh.client_shards != 0, "client_shards")]
-    return [name for bad, name in checks if bad]
-
-
 class FederatedTrainer:
     """Runs the round program on ``device`` (``cuda`` unless the caller
     asks for another).
@@ -354,9 +366,6 @@ class FederatedTrainer:
                 "trainer through the CLI or fedtorch_tpu_torch."
                 "async_plane.AsyncFederatedTrainer; use --sync_mode sync "
                 "for this class")
-        refused = unported_features(cfg)
-        if refused:
-            raise ValueError(f"{', '.join(refused)}: not yet ported")
         if algorithm.needs_val_batch and val_data is None:
             raise ValueError(
                 f"{algorithm.name} needs per-client validation batches; "
@@ -391,10 +400,29 @@ class FederatedTrainer:
         # the client execution (parallel/fusion.py): 'fused' runs each
         # local step of all k' clients as one forward and backward of the
         # client-fused module; the builder refuses what it cannot serve
+        # the ranks the round spreads over (parallel/mesh.py): the
+        # validator refuses what the client-shard seam cannot serve
+        # before the mesh is built
+        self.mesh_devices = world_size()
         self.client_fusion, self.fused_module = resolve_client_fusion(
-            cfg, model, algorithm, 1, self.k_dispatch)
+            cfg, model, algorithm, self.mesh_devices, self.k_dispatch)
         self.programs = RoundProgramBuilder(self)
         self.programs.validate(self.construction_dispatch)
+        self.mesh = make_mesh(cfg.mesh)
+        # pod-scale client sharding (parallel/podscale.py): S, the
+        # effective shard count (1 without a 2-D mesh); armed also at
+        # mesh.client_shards == 1, the unsharded twin that runs the same
+        # grouped sum with no collective. Disarmed (0) the round is the
+        # plain one.
+        self.client_shards = mesh_client_shards(self.mesh)
+        self.podscale_armed = self.client_shards > 1 \
+            or cfg.mesh.client_shards >= 1
+        # the [G, P] bytes the seam's gather moves a round, and the
+        # bytes of its whole buffer (the partials and the riders; 0
+        # without a gather): set by the first armed round, telemetry
+        # gauges
+        self._allreduce_bytes: Optional[float] = None
+        self._gather_bytes: Optional[float] = None
         self.participation_mode = cfg.federated.participation_mode
         self.epoch_sync = cfg.federated.sync_type == "epoch"
         if self.epoch_sync:
@@ -563,13 +591,19 @@ class FederatedTrainer:
         return self._round_core(server, clients, plan,
                                 *self.gather_resident(plan))
 
+    def cohort_rows(self, k: int):
+        """``[lo, hi)``, the rows of a k-wide cohort this rank runs (all
+        of them unless the cohort is sharded)."""
+        return cohort_sharding(self.mesh, k)
+
     def gather_resident(self, plan: RoundPlan):
-        """The plan's rows from the population on the device: (x, y,
-        pre_x, pre_y, shards) for :meth:`_round_core`."""
+        """This rank's rows of the plan from the population on the
+        device: (x, y, pre_x, pre_y, shards) for :meth:`_round_core`."""
         data, dev = self.data, self.device
-        idx = plan.idx.to(torch.int64)
+        lo, hi = self.cohort_rows(plan.idx.shape[0])
+        idx = plan.idx[lo:hi].to(torch.int64)
         on = idx.to(dev)[:, None]
-        rows = plan.rows.to(dev)
+        rows = plan.rows[lo:hi].to(dev)
         pre_x = pre_y = None
         if self._pre_round:
             # each online client's first B storage rows (the JAX
@@ -625,7 +659,11 @@ class FederatedTrainer:
         runs), ``shards`` each dispatched client's (x, y) shard (qFFL's
         full loss), ``probe`` the feed whose probe batches DRFA's dual
         update takes (None: ``post_round_global`` on the resident
-        data).
+        data). Under client sharding (``client_shards`` S > 1) the
+        per-client inputs are this rank's rows of the cohort only
+        (:meth:`cohort_rows`): the rank runs those clients' loops, and
+        the aggregation seam's one gather brings every rank the rest of
+        what the replicated remainder of the round reads.
 
         The commit seam (``parallel/round_program.py``, the async
         plane's commit): ``base_params``/``base_aux`` give each client
@@ -694,9 +732,14 @@ class FederatedTrainer:
             else cplan.survive.bool() & ~avail[1]
         budget_scale = cplan.budget_scale.tolist()
 
+        # this rank's rows of the cohort (all of them unless sharded):
+        # every per-client input below is cut to them
+        lo, hi = self.cohort_rows(k)
+        mine = idx[lo:hi]
+
         # the cross-client hook on the dispatched clients' gathered aux
         # and first B storage rows
-        on_aux = tree_take(clients.aux, rows_dev)
+        on_aux = tree_take(clients.aux, mine.to(dev))
         if self._pre_round:
             on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
                                   for c in idx.tolist()])
@@ -708,16 +751,22 @@ class FederatedTrainer:
         # straggler
         budgets = [self._step_budget(self.sizes[c], budget_scale[j])
                    for j, c in enumerate(idx.tolist())]
+        if self.augment:
+            draws = [d[lo:hi] for d in draws]
         if self.client_fusion == "fused":
             (stacked, wire_deltas, client_opts, client_aux, epochs,
              local_index, losses, accs, kept) = self._fused_client_round(
                 server, clients, idx, x, y, on_aux, weights, budgets,
                 draws if self.augment else None)
         else:
+            if plan.drop_keys is not None:
+                plan = plan._replace(drop_keys=plan.drop_keys[lo:hi])
             (stacked, wire_deltas, client_opts, client_aux, epochs,
              local_index, losses, accs, kept) = self._client_loops(
-                server, clients, plan, idx, x, y, on_aux, weights, budgets,
-                shards, base_params, base_aux,
+                server, clients, plan, mine, x, y, on_aux, weights[lo:hi],
+                budgets[lo:hi], shards,
+                None if base_params is None else base_params[lo:hi],
+                None if base_aux is None else base_aux[lo:hi],
                 draws if self.augment else None,
                 vrows if alg.needs_val_batch else None)
 
@@ -726,24 +775,37 @@ class FederatedTrainer:
                 # an adversary crafts what it sends, before the wire
                 # format; its local state stays honest
                 wire_deltas, stacked = chaos.apply_byzantine(
-                    chaos.ChaosPlan(*(t.to(dev) for t in cplan)),
-                    wire_deltas, stacked, weights, flt, seed=plan.byz_seed,
-                    noise=plan.noise)
-            nan_dev = cplan.nan_inject.to(dev) \
+                    chaos.ChaosPlan(*(t[lo:hi].to(dev) for t in cplan)),
+                    wire_deltas, stacked, weights[lo:hi], flt,
+                    seed=plan.byz_seed, noise=plan.noise)
+            nan_dev = cplan.nan_inject[lo:hi].to(dev) \
                 if flt.nan_inject_rate > 0.0 else None
             if nan_dev is not None and wire_deltas is not None:
                 wire_deltas = chaos.poison_tree(wire_deltas, nan_dev)
-            # uplink wire format on the stacked [k'] axis
+            # uplink wire format on the stacked [k'] axis (this rank's
+            # rows)
             stacked = alg.payload_batch_transform(stacked)
             if nan_dev is not None:
                 # a fried wire trumps whatever was on it
                 stacked = chaos.poison_tree(stacked, nan_dev)
             survive_dev = survive.to(dev) \
                 if self.chaos_on or self.avail_sync else None
+            riders = None
+            if self.client_shards > 1:
+                # what the replicated rest of the round reads of every
+                # client rides the seam's one gather
+                riders = {"opt": client_opts, "aux": client_aux,
+                          "epoch": epochs, "local_index": local_index,
+                          "loss": losses, "acc": accs}
             payload_sum, new_robust_m, fault_counts, accept, dp_frac, \
                 cohort = self._aggregate(stacked, wire_deltas, weights,
                                          extras.get("norm_bound_m"),
-                                         survive_dev)
+                                         survive_dev, riders)
+            if riders is not None:
+                client_opts, client_aux, epochs, local_index, losses, \
+                    accs = (riders[n] for n in (
+                        "opt", "aux", "epoch", "local_index", "loss",
+                        "acc"))
             # the downlink wire format, once, whatever the rule
             payload_sum = alg.aggregate_transform(payload_sum)
             dp_sigma = None
@@ -1080,19 +1142,27 @@ class FederatedTrainer:
             else dp_frac.to(torch.float32),
             dp_noise_sigma=dp_sigma, **cohort_fields)
 
-    def _aggregate(self, stacked, wire_deltas, weights, robust_m, survive):
+    def _aggregate(self, stacked, wire_deltas, weights, robust_m, survive,
+                   riders=None):
         """The aggregation seam on the stacked [k'] wire payloads:
         ``survive`` [k'] the reporters (None: every client reports, no
         chaos or availability plane). With the guards on, screen the
         payloads on ``wire_deltas``; else zero the payloads that did not
         report. Then the DP clip, then the robust rule, or the plain sum
+        (armed: the grouped sum of ``parallel/podscale.py``)
         renormalized over the accepted clients. Returns (sum, the new
         ``norm_bound`` momentum or None, the [4] counts rejected,
         clipped, selected, trimmed, the accept mask or None, the DP
         clip's share or None, and with cohort statistics on the cohort's
         evidence: the accept and selection masks, the suspicion, the
-        update-norm quantiles and the dispersion; else None)."""
+        update-norm quantiles and the dispersion; else None).
+
+        Under client sharding ``stacked`` holds this rank's rows of the
+        cohort (``weights`` and ``survive`` stay [k']), and ``riders``, a
+        dict of per-client trees of those rows, rides the seam's one
+        gather: its entries are replaced in place by all k' rows."""
         k = weights.shape[0]
+        lo, hi = self.cohort_rows(k)
         counts = torch.zeros(4, device=weights.device)
         accept = None
         if self.guard_on:
@@ -1104,17 +1174,19 @@ class FederatedTrainer:
         elif survive is not None:
             accept = survive
             stacked = tree_map(lambda p: torch.where(
-                mask_bcast(accept.bool(), p), p, torch.zeros_like(p)),
+                mask_bcast(accept[lo:hi].bool(), p), p, torch.zeros_like(p)),
                 stacked)
-        dp_frac = None
+        dp_frac = clip_flags = None
         if self.dp_on:
             # every reporter's sensitivity bounded before any rule
-            stacked, dp_frac = dp_clip_payloads(
-                stacked, weights, accept, self.fault.dp_clip_norm)
+            stacked, clip_flags = dp_clip_rows(
+                stacked, weights[lo:hi], self.fault.dp_clip_norm)
         accept_f = accept if accept is not None \
             else torch.ones_like(weights)
         cohort = None
         if self.robust_rule != "mean":
+            if self.dp_on:
+                dp_frac = dp_clip_share(clip_flags, weights, accept)
             payload_sum, new_m, rep = robust_aggregate(
                 self.robust_rule, stacked, weights, accept_f, self.fault,
                 momentum=robust_m, per_client=self.cohort_stats)
@@ -1127,7 +1199,28 @@ class FederatedTrainer:
                           "susp": rep.suspicion, "norm_q": cs.norm_q,
                           "disp": cs.dispersion}
             return payload_sum, new_m, counts, accept, dp_frac, cohort
-        payload_sum = tree_map(lambda p: p.sum(dim=0), stacked)
+        if self.podscale_armed:
+            # the grouped sum, association a function of k alone; under
+            # sharding its one gather also brings the riders (and the DP
+            # clip flags) of every rank
+            self._allreduce_bytes = cohort_allreduce_bytes(stacked, k)
+            if self.client_shards > 1:
+                ride = dict(riders)
+                if clip_flags is not None:
+                    ride["dp_clip"] = clip_flags
+                before = gathered_bytes()
+                payload_sum, ride = cohort_hierarchical_sum(
+                    stacked, self.mesh, self.client_shards, ride)
+                self._gather_bytes = float(gathered_bytes() - before)
+                clip_flags = ride.pop("dp_clip", None)
+                riders.update(ride)
+            else:
+                payload_sum = cohort_hierarchical_sum(stacked)
+                self._gather_bytes = 0.0
+        else:
+            payload_sum = tree_map(lambda p: p.sum(dim=0), stacked)
+        if self.dp_on:
+            dp_frac = dp_clip_share(clip_flags, weights, accept)
         if accept is not None:
             # rejected weight redistributed over the accepted clients;
             # an all-rejected round sums to 0 and the server holds
@@ -1235,6 +1328,12 @@ class FederatedTrainer:
                 "norm_q": metrics.cohort_norm_q}
 
     @property
+    def cohort_width(self) -> int:
+        """The width of a round's cohort: ``k_dispatch`` (the commit
+        buffer on the async plane)."""
+        return self.k_dispatch
+
+    @property
     def metrics_width(self) -> int:
         """Leading dim of the per-client :class:`RoundMetrics` leaves:
         [C] in 'perm' mode, the cohort-aligned [k'] in 'sparse' mode:
@@ -1280,7 +1379,9 @@ class FederatedTrainer:
                 schedule=self._stream_schedule(server),
                 depth=self.stream_depth, window=window,
                 feed_layout=self.feed_layout, device=self.device,
-                timeout_s=self.stream_timeout_s)
+                timeout_s=self.stream_timeout_s,
+                cohort_rows=self.cohort_rows(self.cohort_width)
+                if self.podscale_armed else None)
             # a trainer dropped without close() must not leave the
             # producer thread running (the producer holds no reference
             # back to the trainer)
@@ -1347,8 +1448,9 @@ class FederatedTrainer:
     def telemetry_gauges(self) -> dict:
         """Host-side gauges for the telemetry round row, by the JAX
         package's catalog names: the stream producer's counters (since
-        its last (re)start) and the rebuild count. Host counters only:
-        reading them costs no device sync."""
+        its last (re)start), the rebuild count and, armed, the client
+        shards and the seam's gather bytes. Host counters only: reading
+        them costs no device sync."""
         out = {}
         ss = self.stream_stats()
         if ss is not None:
@@ -1359,8 +1461,19 @@ class FederatedTrainer:
                 stream_produced=float(ss["rounds_produced"]),
                 stream_store_resident_mb=ss["store_resident_mb"],
                 stream_store_mapped_mb=ss["store_mapped_mb"])
+            if "shard_rows" in ss:
+                out.update(stream_shard_rows=float(ss["shard_rows"]),
+                           stream_shard_pack_s=ss["shard_pack_s"])
         if self.data_plane == "stream":
             out["stream_rebuilds"] = float(self._stream_rebuilds)
+        if self.podscale_armed:
+            # the shard count, the [G, P] bytes of the seam's gather and
+            # the bytes of its whole buffer a round (both absent before
+            # the first round)
+            out["client_shards"] = float(self.client_shards)
+            if self._allreduce_bytes is not None:
+                out["cohort_allreduce_bytes"] = self._allreduce_bytes
+                out["cohort_gather_bytes"] = self._gather_bytes
         return out
 
     def staleness_histogram(self) -> Optional[dict]:

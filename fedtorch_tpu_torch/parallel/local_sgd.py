@@ -35,6 +35,7 @@ from fedtorch_tpu_torch.data.batching import (
 from fedtorch_tpu_torch.data.partition import iid_partition
 from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.parallel.federated import FederatedTrainer, RoundPlan
+from fedtorch_tpu_torch.parallel.mesh import world_size
 
 
 class LocalSGDAggregation(FedAvg):
@@ -55,6 +56,14 @@ class LocalSGDTrainer(FederatedTrainer):
 
     def __init__(self, cfg: ExperimentConfig, model: ModelDef,
                  data: ClientData, raw_splits=None, device=None):
+        if world_size() > 1:
+            # the JAX package shards the workers over its mesh
+            # (shard_clients); the port has no such placement yet
+            raise ValueError(
+                f"local-SGD mode on {world_size()} ranks is not yet ported: "
+                "its workers would shard over the JAX package's 1-D "
+                "device mesh, which the port does not build (run it in "
+                "one process; ROADMAP A10)")
         if cfg.data.data_plane != "device":
             raise ValueError("local-SGD mode runs on the device data "
                              "plane; data_plane='stream' is for "

@@ -13,10 +13,17 @@ function that serves each.
   grouped convolution a layer; ``parallel/fusion.py``).
 
 :func:`validate_cell` is the one place a cell is refused, with the JAX
-package's reason where the JAX package refuses it. The port has no
-pod-scale client shards (ROADMAP A10; the trainer refuses them by name)
-and no ``gather_mode``, so of those rules of the JAX validator only the
-fused x ``client_shards > 1`` text has a counterpart here.
+package's reason where the JAX package refuses it. Its client-shard
+rules (``mesh.client_shards`` S > 1, ``parallel/podscale.py``) are the
+JAX package's word for word, but one: the port has no ``gather_mode``
+(its one gather selects the rows of the JAX 'batch' mode), so the JAX
+rule against ``gather_mode='shard'`` has nothing to refuse. Three more
+are the port's own, each for a cross-rank exchange the JAX package
+leaves to GSPMD and the port's one gather does not carry: the update
+guards (their median over the cohort's norms precedes the sum), the
+'gauss' byzantine attack (its noise is drawn over the whole ``[k]``
+stack) and, on more than one rank, ``client_shards`` 0 (the JAX
+package's 1-D multi-device mesh).
 
 On the port a "scan" is a host loop over the R rounds (over one feed
 window on the feed source), not a captured graph: the per-client loop
@@ -89,6 +96,25 @@ def cell_build_facts(source: str, dispatch: str, execution: str, *,
     }
 
 
+def collective_budget(source: str, dispatch: str, execution: str, *,
+                      mesh_devices: int, num_rounds: int = 1,
+                      client_shards: int = 0) -> int:
+    """The JAX package's budget of collectives for the cell's program:
+    one a round (the aggregation seam's), ``num_rounds`` for a scan
+    across devices, none on one device. Under ``client_shards > 1`` it
+    is 1 and exact, read a round: the client-shard seam issues exactly
+    one ``all_gather`` each round (``parallel/podscale.py``; the JAX
+    package counts the scan body's one gather once), and a sharded round
+    with none dropped the cross-shard reduction. The port counts what it
+    issues in ``podscale.collective_count()``."""
+    _check_axes(source, dispatch, execution)
+    if client_shards > 1:
+        return 1
+    if mesh_devices <= 1:
+        return 0
+    return num_rounds if dispatch == "scan" else 1
+
+
 def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
                    algorithm: FedAlgorithm, model, mesh_devices: int,
                    k_online: int, has_val: bool = False,
@@ -149,16 +175,79 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
             return ("per-client validation splits "
                     "(cfg.federated.personal) are not streamed yet")
 
-    # -- client-shard fact: the one rule with a fused counterpart --------
-    shards = cfg.mesh.client_shards
-    if shards > 1 and execution == "fused":
-        return ("client_fusion='fused' packs all k clients into "
-                "one grouped conv on one device, while "
-                f"mesh.client_shards={shards} splits the cohort "
-                "across device groups — fused x multi-shard stays "
-                "refused until a sharded grouped-conv lowering is "
-                "measured (use the vmap execution, which shards "
-                "the client axis)")
+    # -- client-shard fact: the JAX package's rules ---------------------
+    shards = int(cfg.mesh.client_shards or 0)
+    if shards > 1:
+        if execution == "fused":
+            return ("client_fusion='fused' packs all k clients into "
+                    "one grouped conv on one device, while "
+                    f"mesh.client_shards={shards} splits the cohort "
+                    "across device groups — fused x multi-shard stays "
+                    "refused until a sharded grouped-conv lowering is "
+                    "measured (use the vmap execution, which shards "
+                    "the client axis)")
+        if k_online % shards:
+            return (f"mesh.client_shards={shards} does not divide the "
+                    f"dispatch cohort width k={k_online} — contiguous "
+                    "k/shards client blocks are the unit of the "
+                    "bitwise hierarchical sum, so the cohort must "
+                    "split evenly (adjust online_client_rate or the "
+                    "shard count)")
+        if cfg.fault.robust_agg != "mean":
+            return (f"robust_agg={cfg.fault.robust_agg!r} reduces "
+                    "across the FULL cohort axis (median/trim "
+                    "selection and norm-bound renormalization are "
+                    "cross-client order-sensitive floats) — only the "
+                    "hierarchical 'mean' seam is certified bitwise "
+                    "under client sharding")
+        if cfg.telemetry.cohort_stats:
+            return ("telemetry.cohort_stats computes cross-cohort "
+                    "dispersion (cosine-to-mean reductions) whose "
+                    "float association is not shard-invariant — "
+                    "disable cohort_stats under "
+                    "mesh.client_shards > 1")
+        alg_name = cfg.effective_algorithm
+        if alg_name not in ASYNC_ALGORITHMS:
+            return (f"algorithm {alg_name!r} is not certified for the "
+                    "sharded aggregation seam: only the FedAvg family "
+                    f"({', '.join(ASYNC_ALGORITHMS)}) confines its "
+                    "cross-client float reductions to the one "
+                    "hierarchical weighted sum (AFL/qFFL aggregate "
+                    "cohort-global losses, DRFA adds a dual phase, "
+                    "and qsparse's tracking variate assumes the "
+                    "round's full payload sum)")
+        if has_val or algorithm.needs_val_batch \
+                or cfg.federated.personal:
+            return ("per-client validation splits "
+                    "(cfg.federated.personal) reduce across the full "
+                    "cohort outside the sharded seam — disable them "
+                    "under mesh.client_shards > 1")
+        # (the JAX rule against gather_mode='shard' has no counterpart:
+        # the port has one gather, the JAX 'batch' mode's rows)
+        if dispatch == "commit":
+            conc = cfg.federated.async_concurrency or k_online
+            m = cfg.federated.async_buffer_size or max(1, conc // 2)
+            if m % shards:
+                return ("the async commit buffer width m="
+                        f"{m} does not divide over "
+                        f"mesh.client_shards={shards} — each shard "
+                        "must own whole buffered jobs for the commit "
+                        "program's hierarchical sum (set "
+                        "async_buffer_size to a multiple of the "
+                        "shard count)")
+        # the port's own rules (module docstring)
+        if cfg.fault.guard_updates:
+            return ("fault.guard_updates screens each update against the "
+                    "median norm of the whole cohort before the sum, a "
+                    "cross-rank exchange the client-shard seam's one "
+                    "gather does not carry — disable the guards under "
+                    "mesh.client_shards > 1 (ROADMAP A10)")
+        if cfg.fault.byzantine_rate > 0.0 \
+                and cfg.fault.byzantine_mode == "gauss":
+            return ("byzantine_mode='gauss' draws its noise over the "
+                    "whole [k] payload stack, which no rank holds under "
+                    f"mesh.client_shards={shards} — use another "
+                    "byzantine_mode under client sharding (ROADMAP A10)")
 
     # -- execution axis: the JAX package's rules -------------------------
     if execution == "fused" and mesh_devices > 1:
@@ -172,6 +261,15 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
                                       mesh_devices, k_online)
         if fused is None:
             return f"mesh.client_fusion='fused' is unsupported: {why}"
+
+    # -- the port's own rule of the rank count (module docstring) -------
+    if shards == 0 and mesh_devices > 1:
+        return (f"mesh.client_shards=0 on {mesh_devices} ranks is the JAX "
+                "package's 1-D multi-device mesh, where GSPMD places "
+                "every cross-client sum; the port spreads a round over "
+                "ranks only through the client-shard seam (set "
+                "mesh.client_shards to a power of two dividing the "
+                "rank count)")
     return None
 
 
@@ -235,7 +333,8 @@ class RoundProgramBuilder:
     def validate(self, dispatch: str) -> None:
         t = self._t
         validate_cell(self.source, dispatch, self.execution, cfg=t.cfg,
-                      algorithm=t.algorithm, model=t.model, mesh_devices=1,
+                      algorithm=t.algorithm, model=t.model,
+                      mesh_devices=t.mesh_devices,
                       k_online=t.k_dispatch, has_val=t.has_val,
                       fused_resolved=t.fused_module is not None)
 

@@ -64,8 +64,10 @@ MODULE_MAP = {
     # the host pipeline's gather, padding and prefetcher; the port's
     # gather is ATen's index_select, so native/pipeline.cpp (and its
     # seeded permutation and svmlight parser) has no counterpart.
-    # round_program.collective_budget (the pod-scale FTP004 budget) waits
-    # for multi-GPU runs and a program audit (ROADMAP A10, A12)
+    # round_program.collective_budget is ported (ROADMAP A10): the port
+    # counts the collectives its client-shard seam issues
+    # (podscale.collective_count); the program audit that certifies it
+    # in the JAX package is ROADMAP A12
     **_ported("native/__init__.py", "native/host_pipeline.py"),
     # the run lifecycle and the telemetry writer (ROADMAP A7, first half)
     **_ported("robustness/harness.py", "robustness/host_chaos.py",
@@ -98,8 +100,9 @@ MODULE_MAP = {
     # ported models/{common,resnet,cnn,__init__}.py, and remat (A11's
     # per-block rematerialization) in each model family's module
     **_ported("parallel/fusion.py"),
-    **_rows("queued", "ROADMAP A10: multi-GPU on torch.distributed",
-            "parallel/mesh.py", "parallel/podscale.py"),
+    # ROADMAP A10: pod-scale client sharding on torch.distributed (a
+    # DeviceMesh over the ranks, the grouped sum's one all_gather)
+    **_ported("parallel/mesh.py", "parallel/podscale.py"),
     # ROADMAP A11: the model-parallel forwards on torch.distributed, a
     # DeviceMesh in place of jax.sharding.Mesh
     **_ported("parallel/sequence.py", "parallel/expert.py",

@@ -376,22 +376,36 @@ def dp_noise_stddev(noise_multiplier: float, clip_norm: float,
             / float(cohort_k))
 
 
-def dp_clip_payloads(payloads, weights: torch.Tensor, accept,
-                     clip_norm: float):
+def dp_clip_rows(payloads, weights: torch.Tensor, clip_norm: float):
     """Each client's stacked ``[k]`` payload L2-clipped to ``clip_norm``
     in unit-weight space, through the radial clip of ``norm_bound``
-    (toward the origin at a fixed radius). Returns ``(clipped,
-    clipped_frac)``: the share of the accepted candidates (``accept``
-    None: every client) the clip shrank."""
+    (toward the origin at a fixed radius); row by row, so a rank clips
+    its own rows of a sharded cohort. Returns ``(clipped, flags)``:
+    float32 ``[k]``, 1 where the clip shrank the row."""
     unit = _unit_updates(payloads, weights)
     dist = radial_distances(unit)  # [k] unit-update l2 norms
     scale = torch.clamp(clip_norm / torch.clamp(dist, min=1e-30), max=1.0)
-    clipped = radial_clip(payloads, weights, scale)
+    return radial_clip(payloads, weights, scale), \
+        (scale < 1.0).to(torch.float32)
+
+
+def dp_clip_share(flags: torch.Tensor, weights: torch.Tensor, accept):
+    """The share of the accepted candidates (``accept`` None: every
+    client) whose row the clip shrank (``flags`` of :func:`dp_clip_rows`,
+    all k of them)."""
     acc = accept if accept is not None else torch.ones_like(weights)
     cand = acc * (weights > 0.0).to(acc.dtype)
-    frac = (cand * (scale < 1.0).to(cand.dtype)).sum() \
+    return (cand * flags.to(cand.dtype)).sum() \
         / torch.clamp(cand.sum(), min=1.0)
-    return clipped, frac
+
+
+def dp_clip_payloads(payloads, weights: torch.Tensor, accept,
+                     clip_norm: float):
+    """:func:`dp_clip_rows` on the whole cohort. Returns ``(clipped,
+    clipped_frac)``: the share of the accepted candidates (``accept``
+    None: every client) the clip shrank."""
+    clipped, flags = dp_clip_rows(payloads, weights, clip_norm)
+    return clipped, dp_clip_share(flags, weights, accept)
 
 
 def dp_add_noise(payload_sum, seed: Optional[int], weights: torch.Tensor,
@@ -422,6 +436,7 @@ __all__ = [
     "ACCOUNTANT_FILE", "ACCOUNTANT_SCHEMA", "DEFAULT_ORDERS",
     "PrivacyAccountant", "calibrate_noise_multiplier",
     "closed_form_epsilon", "dp_add_noise", "dp_clip_payloads",
+    "dp_clip_rows", "dp_clip_share",
     "dp_noise_stddev", "gaussian_rdp", "rdp_to_epsilon",
     "subsampled_gaussian_rdp",
 ]

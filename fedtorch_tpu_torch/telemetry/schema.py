@@ -101,6 +101,11 @@ METRICS_OPTIONAL = {
                               "seam's ONE cross-shard all-reduce "
                               "moves per round (stashed at trace "
                               "time)",
+    "cohort_gather_bytes": "bytes of the whole buffer the seam's one "
+                           "gather brings each rank per round: the "
+                           "partials and the per-client rows that ride "
+                           "with them (0 at client_shards 1; the port's "
+                           "own gauge)",
     "stream_shard_rows": "cohort rows THIS host's producer packed "
                          "(its owned shard slices; k/S per shard)",
     "stream_shard_pack_s": "producer wall spent packing this host's "

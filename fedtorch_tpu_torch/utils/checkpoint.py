@@ -420,13 +420,25 @@ def _meta_for(cfg: ExperimentConfig, round_idx: int,
     }
 
 
+def is_writer_process() -> bool:
+    """Only rank 0 writes (the reference's rank-0 checkpointing,
+    eval.py:120-144): under client sharding every rank holds the same
+    replicated state, and N writers would race on the same files."""
+    from fedtorch_tpu_torch.parallel.mesh import rank
+    return rank() == 0
+
+
 def save_checkpoint(directory: str, server, clients,
                     cfg: ExperimentConfig, best_prec1: float,
                     is_best: bool, save_all: bool = False,
                     save_some_rounds: Tuple[int, ...] = ()) -> str:
     """Write the full round state (checkpoint.py:68-82 semantics),
     synchronously. See :class:`AsyncCheckpointer` for the non-blocking
-    variant."""
+    variant. Only rank 0 of a process group writes
+    (:func:`is_writer_process`); every rank holds the same replicated
+    state."""
+    if not is_writer_process():
+        return os.path.join(directory, "checkpoint.ckpt")
     with telemetry.span("checkpoint.snapshot"):
         host_state = _snapshot(server, clients)
     round_idx = int(server.round)
@@ -531,6 +543,8 @@ class AsyncCheckpointer:
              cfg: ExperimentConfig, best_prec1: float, is_best: bool,
              save_all: bool = False,
              save_some_rounds: Tuple[int, ...] = ()) -> None:
+        if not is_writer_process():
+            return
         with telemetry.span("checkpoint.snapshot"):
             host_state = _snapshot(server, clients)
         round_idx = int(server.round)

@@ -42,14 +42,20 @@ names = [m.name for m in pkgutil.walk_packages(
     fedtorch_tpu_torch.__path__, "fedtorch_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-# the model-parallel forwards and the MoE transformer are among them
+# the model-parallel forwards, the client-shard seam and the MoE
+# transformer are among them
 assert {"fedtorch_tpu_torch.parallel." + m for m in (
-    "sequence", "expert", "tensor", "pipeline")} <= set(names), names
+    "sequence", "expert", "tensor", "pipeline", "mesh", "podscale")
+    } <= set(names), names
 from fedtorch_tpu_torch.models.transformer import (  # noqa: F401
     MoEMLP, long_context_apply, routing_fractions)
 from fedtorch_tpu_torch.parallel import (  # noqa: F401
     ep_moe_apply, pipeline_apply, ring_attention, tp_apply,
     ulysses_attention)
+from fedtorch_tpu_torch.parallel.mesh import (  # noqa: F401
+    init_multihost, local_cohort_rows, make_mesh)
+from fedtorch_tpu_torch.parallel.podscale import (  # noqa: F401
+    cohort_allreduce_bytes, cohort_group_count, cohort_hierarchical_sum)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax") or m == "fedtorch_tpu"
              or m.startswith(("jax.", "flax.", "fedtorch_tpu.")))
@@ -108,17 +114,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     # asked for the CPU, it runs there
     FederatedTrainer(cfg, model, make_algorithm(cfg), _data(),
                      device="cpu")
-
-
-@pytest.mark.parametrize("override, name", [
-    (dict(mesh__client_shards=2), "client_shards"),
-])
-def test_unported_trainer_features_raise_by_name(override, name):
-    cfg = _cfg(**override)
-    model = define_model(_cfg(), device="cpu")
-    with pytest.raises(ValueError, match=f"{name}.*not yet ported"):
-        FederatedTrainer(cfg, model, make_algorithm(_cfg()), _data(),
-                         device="cpu")
 
 
 @pytest.mark.parametrize("override", [

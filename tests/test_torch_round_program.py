@@ -91,8 +91,8 @@ def test_port_refuses_where_the_jax_package_refuses(source, dispatch,
                          ids=["client_shards", "mesh_devices"])
 def test_fused_multi_device_refusals_are_the_jax_text(shards, devices):
     """The fused execution on more than one device group: client shards
-    (unported, refused by the trainer, but the cell names the JAX
-    reason) and a mesh of several devices."""
+    (the JAX package's fused x multi-shard rule, word for word) and a
+    mesh of several devices."""
     def cfg(mod):
         c = _cfg(mod, fusion="fused", arch="cnn")
         return mod.ExperimentConfig(**dict(

@@ -50,7 +50,11 @@ def test_the_catalog_and_the_schema_names_are_the_jax_package_s():
     assert tschema.EVENTS_SCHEMA == jtel.EVENTS_SCHEMA
     assert tschema.HEALTH_SCHEMA == jtel.HEALTH_SCHEMA
     assert tschema.METRICS_REQUIRED == jtel.METRICS_REQUIRED
-    assert set(tschema.METRICS_OPTIONAL) == set(jtel.METRICS_OPTIONAL)
+    # the port's one gauge of its own: the bytes of the client-shard
+    # seam's whole gather (its riders ride where GSPMD moves the JAX
+    # package's)
+    assert set(tschema.METRICS_OPTIONAL) == set(jtel.METRICS_OPTIONAL) \
+        | {"cohort_gather_bytes"}
     assert tschema.HEALTH_INTENTS == jtel.HEALTH_INTENTS
 
 

@@ -84,11 +84,28 @@ class Group:
         self.results = None
 
     def _collect(self):
-        results = {}
+        """Every rank's results; a rank that died without sending them
+        fails every case at once instead of after ``JOIN_S``."""
+        import queue
+        import time
+        results, deadline = {}, time.monotonic() + JOIN_S
         try:
-            for _ in self.procs:
-                rank, out = self.queue.get(timeout=JOIN_S)
-                results[rank] = out
+            while len(results) < self.world:
+                try:
+                    rank, out = self.queue.get(timeout=1.0)
+                    results[rank] = out
+                    continue
+                except queue.Empty:
+                    pass
+                dead = [r for r, p in enumerate(self.procs)
+                        if r not in results and p.exitcode is not None]
+                if dead or time.monotonic() > deadline:
+                    why = f"rank(s) {dead} exited without results" if dead \
+                        else f"no results within {JOIN_S} s"
+                    for r in range(self.world):
+                        results.setdefault(r, {})
+                    self.failure = why
+                    break
         finally:
             self.close()
         return results
@@ -105,7 +122,9 @@ class Group:
         traceback if the case failed."""
         if self.results is None:
             self.results = self._collect()
-        per_rank = [self.results[r][name] for r in range(self.world)]
+        per_rank = [self.results[r].get(
+            name, ("error", getattr(self, "failure", "no result")))
+            for r in range(self.world)]
         for status, value in per_rank:
             if status == "error":
                 raise AssertionError(f"case {name} failed:\n{value}")
@@ -194,3 +213,193 @@ def pipeline(mesh_of, world, model, params, tokens, num_microbatches):
     return pipeline_apply(module, p, torch.from_numpy(tokens),
                           mesh_of((world,), ("pp",)),
                           num_microbatches=num_microbatches)
+
+
+# -- client sharding (parallel/podscale.py) -----------------------------------
+
+def pod_cfg(source, dispatch, shards, *, num_clients=8, rate=0.5,
+            store="ram", store_dir="", algorithm="fedavg", buffer_size=4,
+            fault_kw=None, telemetry_kw=None, mod=None):
+    """The JAX package's ``tests/test_podscale.py`` cell (``make_cfg``):
+    synthetic 16 features, ``logistic_regression``, 8 clients at rate
+    0.5, batch 8, 2 local steps; in the config module ``mod`` (the
+    port's by default, or the JAX package's)."""
+    if mod is None:
+        from fedtorch_tpu_torch import config as mod
+    c = mod
+    return c.ExperimentConfig(
+        data=c.DataConfig(dataset="synthetic", synthetic_dim=16,
+                          batch_size=8, synthetic_alpha=0.5,
+                          synthetic_beta=0.5,
+                          data_plane="stream" if source == "feed"
+                          else "device", store=store, store_dir=store_dir),
+        federated=c.FederatedConfig(
+            federated=True, num_clients=num_clients,
+            online_client_rate=rate, algorithm=algorithm,
+            sync_type="local_step",
+            sync_mode="async" if dispatch == "commit" else "sync",
+            async_buffer_size=buffer_size, async_concurrency=4),
+        model=c.ModelConfig(arch="logistic_regression"),
+        optim=c.OptimConfig(lr=0.3, weight_decay=0.0),
+        train=c.TrainConfig(local_step=2),
+        mesh=c.MeshConfig(client_shards=shards),
+        fault=c.FaultConfig(**(fault_kw or {})),
+        telemetry=c.TelemetryConfig(**(telemetry_kw or {}))).finalize()
+
+
+def pod_trainer(cfg, data=None):
+    from fedtorch_tpu_torch.algorithms import make_algorithm
+    from fedtorch_tpu_torch.data import build_federated_data
+    from fedtorch_tpu_torch.models import define_model
+    from fedtorch_tpu_torch.parallel import FederatedTrainer
+    data = data if data is not None else build_federated_data(cfg).train
+    model = define_model(cfg, batch_size=cfg.data.batch_size, device="cpu")
+    cls = FederatedTrainer
+    if cfg.federated.sync_mode == "async":
+        from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
+        cls = AsyncFederatedTrainer
+    t = cls(cfg, model, make_algorithm(cfg), data, device="cpu")
+    t.stream_timeout_s = COLLECTIVE_TIMEOUT_S
+    return t
+
+
+def pod_run(trainer, dispatch, rounds=2, seed=3, state=None):
+    """``rounds`` rounds (one ``run_rounds`` for 'scan'): the server
+    params and aux, the client state, the metrics, and the collectives
+    the client-shard seam issued each round."""
+    from fedtorch_tpu_torch.parallel import podscale
+    server, clients = state if state is not None \
+        else trainer.init_state(seed)
+    metrics, counts = [], []
+    try:
+        if dispatch == "scan":
+            podscale.reset_collective_count()
+            server, clients, m = trainer.run_rounds(server, clients, rounds)
+            metrics.append(m)
+            counts.append(podscale.collective_count() / rounds)
+        else:
+            for _ in range(rounds):
+                podscale.reset_collective_count()
+                server, clients, m = trainer.run_round(server, clients)
+                metrics.append(m)
+                counts.append(podscale.collective_count())
+        gauges = trainer.telemetry_gauges()
+    finally:
+        trainer.invalidate_stream()
+    return dict(params=server.params, aux=server.aux, clients=clients,
+                metrics=metrics, collectives=counts, gauges=gauges,
+                rng=server.rng.get_state())
+
+
+def podscale_cell(mesh_of, source, dispatch, shards, algorithm="fedavg",
+                  fault_kw=None):
+    """A cell at S=``shards`` and its armed S=1 twin on every rank."""
+    got = pod_run(pod_trainer(pod_cfg(source, dispatch, shards,
+                                      algorithm=algorithm,
+                                      fault_kw=fault_kw)), dispatch)
+    twin = pod_run(pod_trainer(pod_cfg(source, dispatch, 1,
+                                       algorithm=algorithm,
+                                       fault_kw=fault_kw)), dispatch)
+    return dict(got=got, twin=twin)
+
+
+def podscale_sum(mesh_of, shards, k, seed):
+    """cohort_hierarchical_sum of a float and an integer leaf over this
+    rank's rows (riders too), and over all k rows in one process."""
+    from fedtorch_tpu_torch.config import MeshConfig
+    from fedtorch_tpu_torch.parallel.mesh import local_cohort_rows, make_mesh
+    from fedtorch_tpu_torch.parallel.podscale import (
+        cohort_hierarchical_sum, gathered_bytes, reset_collective_count,
+    )
+    rng = np.random.RandomState(seed)
+    payloads = {"w": torch.from_numpy(
+        (rng.randn(k, 5, 3) * 10.0 ** rng.uniform(-3, 3, (k, 1, 1))
+         ).astype(np.float32)),
+        "n": torch.from_numpy(rng.randint(0, 9, (k,)).astype(np.int32))}
+    riders = {"loss": torch.from_numpy(rng.randn(k).astype(np.float32)),
+              "step": torch.arange(k, dtype=torch.int64)}
+    mesh = make_mesh(MeshConfig(client_shards=shards))
+    lo, hi = local_cohort_rows(mesh, k, shards)
+    reset_collective_count()
+    got, ride = cohort_hierarchical_sum(
+        {n: v[lo:hi] for n, v in payloads.items()}, mesh, shards,
+        {n: v[lo:hi] for n, v in riders.items()})
+    return dict(got=got, ride=ride, twin=cohort_hierarchical_sum(payloads),
+                riders=riders, rows=[lo, hi], gathered=gathered_bytes())
+
+
+def podscale_resume(mesh_of, store_dir):
+    """2 rounds at S=4, a checkpoint (rank 0 writes), 2 rounds resumed at
+    S=2 on the same 4 ranks; the S=1 run of 4 rounds; and which ranks'
+    own checkpoint calls wrote a file."""
+    import torch.distributed as dist
+    from fedtorch_tpu_torch.utils.checkpoint import (
+        maybe_resume, save_checkpoint,
+    )
+    ref = pod_run(pod_trainer(pod_cfg("resident", "round", 1)), "round",
+                  rounds=4, seed=7)
+    cfg4 = pod_cfg("resident", "round", 4)
+    t4 = pod_trainer(cfg4)
+    server, clients = t4.init_state(7)
+    for _ in range(2):
+        server, clients, _ = t4.run_round(server, clients)
+    shared = os.path.join(str(store_dir), "ckpt")
+    save_checkpoint(shared, server, clients, cfg4, 0.25, False)
+    own = os.path.join(str(store_dir), f"own{dist.get_rank()}")
+    save_checkpoint(own, server, clients, cfg4, 0.25, False)
+    dist.barrier()
+    cfg2 = pod_cfg("resident", "round", 2)
+    t2 = pod_trainer(cfg2)
+    s2, c2 = t2.init_state(1)
+    s2, c2, best, resumed = maybe_resume(shared, s2, c2, cfg2, None)
+    got = pod_run(t2, "round", rounds=2, state=(s2, c2))
+    return dict(ref=ref, got=got, resumed=resumed, best=best,
+                shards=t2.client_shards, wrote=os.path.exists(own))
+
+
+def podscale_torn(mesh_of, store_dir):
+    """Per-rank packing from an mmap store whose x shards tear: the
+    failure chain's messages; then, healed, 2 rounds against an
+    untouched twin."""
+    import torch.distributed as dist
+    from fedtorch_tpu_torch.data import build_federated_data
+    from fedtorch_tpu_torch.data.streaming import save_client_store
+    from fedtorch_tpu_torch.robustness.host_recovery import HostSeamError
+    root = os.path.join(str(store_dir), "torn")
+    cfg = pod_cfg("feed", "round", 2, store="mmap", store_dir=root,
+                  fault_kw=dict(host_retry_backoff_s=0.0))
+    data = build_federated_data(cfg).train
+    if dist.get_rank() == 0:
+        save_client_store(root, data, clients_per_shard=3)
+    dist.barrier()
+    ref = pod_run(pod_trainer(cfg, data), "round", seed=5)
+    t = pod_trainer(cfg, data)
+    rows = t.cohort_rows(t.k_dispatch)
+    server, clients = t.init_state(5)
+    paths = sorted(p for p in os.listdir(root) if p.startswith("x."))
+    whole = {p: open(os.path.join(root, p), "rb").read() for p in paths}
+    dist.barrier()
+    if dist.get_rank() == 0:
+        for p, b in whole.items():
+            with open(os.path.join(root, p), "wb") as f:
+                f.write(b[:16])
+    dist.barrier()
+    chain, seam = [], None
+    try:
+        for _ in range(3):
+            server, clients, _ = t.run_round(server, clients)
+    except HostSeamError as e:
+        seam, exc = e.seam, e
+        while exc is not None:
+            chain.append(str(exc))
+            exc = exc.__cause__
+    dist.barrier()
+    if dist.get_rank() == 0:
+        for p, b in whole.items():
+            with open(os.path.join(root, p), "wb") as f:
+                f.write(b)
+    dist.barrier()
+    t.invalidate_stream()
+    got = pod_run(t, "round", state=(server, clients))
+    return dict(ref=ref, got=got, seam=seam, chain=" | ".join(chain),
+                rows=list(rows), rank=dist.get_rank())
