@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases NAME[,NAME...] | list]
 
 Run from the root of a checkout on a machine with a CUDA GPU, ``nvcc``
 (``$CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch. It imports nothing
-of JAX or of the JAX package. Phases, each fatal on failure:
+of JAX or of the JAX package. With no ``--phases`` it runs every phase;
+``--phases`` runs the card, the build and the named phases only
+(``PHASES``; ``faults`` brings ``main`` along) and prints no ``kernels``
+line. Phases, each fatal on failure:
 
 1. the card: ``nvidia-smi``'s name and power limit;
 2. build: every kernel of the port from ``fedtorch_tpu_torch/csrc``;
@@ -365,16 +368,35 @@ of JAX or of the JAX package. Phases, each fatal on failure:
     equal metric lines, rank 0's checkpoints the only ones. Within
     ``PODSCALE_BUDGET_S``.
 
+The observability checks (``fedtorch_tpu_torch/utils/tracing.py``,
+``tools/trace_attrib.py``, ``telemetry/costs.py``,
+``utils/lock_sentinel.py``) ride those phases' existing rounds: every
+profiled round is attributed by ``trace_attrib`` (>= 95% into named
+categories, its hand-kernel rows and PERF.md's E/M/N/F/Q columns; the
+ResNet-20 round's profile is ``capture_round_trace``'s, its trace file
+attributed too, within 1% of the in-memory records and holding the
+round's 2 + 2 ragged launches; the transformer round's holds its 400
+flash launches); the watched rounds (ResNet-20's round index 1 in
+``federation``, the fused and vmap rounds in ``fusion``) name each
+synchronizing CUDA call by its site with the ``SyncSentinel``, its total
+held to the profiler's record of the synchronizing runtime calls (as
+many ``cudaStreamSynchronize``, no other beyond the window's own
+drains); each main path's round FLOPs (``costs.round_flops``) give its
+MFU against the card's peak (the flash forward at its kernel's rate); the ``cli`` run's
+``program_costs.json`` and its rows' five device gauges are asserted;
+the ``lifecycle`` CLI runs go under a strict ``LockOrderSentinel``. An
+``observability`` line gathers them.
+
 Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
-``stream``, ``cli`` (with ``cli_apfl``), ``zoo``, ``localsgd``,
+``stream``, ``cli``, ``cli_apfl``, ``zoo``, ``localsgd``,
 ``tasks``, ``models``, ``faults``, ``lifecycle``, ``federation``,
 ``fusion``, ``wrn_main_path``,
 ``wrn_profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_f32_main_path``,
-``transformer_f32_profile``, ``moe`` and ``podscale`` lines, the card's name and power
-limit and,
+``transformer_f32_profile``, ``moe``, ``podscale`` and ``observability``
+lines, the card's name and power limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without CUDA.
 """
@@ -1806,10 +1828,33 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
                mean_loss=float(losses.mean()),
                max_param_change=moved,
                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    out["costs"] = round_costs(trainer, server, round_ms, dtype)
     log(f"{arch} main path: {round_ms:.1f} ms/round, "
         f"{out['local_steps_per_s']:.1f} local-steps/s, launches in "
         f"{rounds} rounds {launched}, peak {out['peak_mib']:.0f} MiB")
     return out, trainer, server, clients
+
+
+def round_costs(trainer, server, round_ms, dtype) -> dict:
+    """The round's FLOPs as the CLI's cost capture counts them
+    (``telemetry.costs.round_flops``: a training step on copies of the
+    params and the first client's first batch, outside every counted
+    window) and its MFU at ``round_ms`` against the card's peak for
+    ``dtype`` (``round_peak_tflops``: the flash forward at its kernel's
+    own rate)."""
+    from fedtorch_tpu_torch.telemetry.costs import (
+        round_flops, round_peak_tflops,
+    )
+    B = trainer.batch_size
+    t0 = time.perf_counter()
+    counted = round_flops(trainer, server.params, trainer.data.x[0, :B],
+                          trainer.data.y[0, :B])
+    peak, source = round_peak_tflops(counted, dtype,
+                                     torch.cuda.get_device_name(0))
+    return dict(flops=counted, peak_tflops=peak, peak_source=source,
+                mfu=counted["round"] / (round_ms / 1e3 * peak * 1e12)
+                if peak else None,
+                count_s=time.perf_counter() - t0)
 
 
 def _params_gap(got, want) -> float:
@@ -2152,6 +2197,43 @@ def cli_fused_run(root, cohort, qk, fa):
     return out
 
 
+DEVICE_GAUGES = ("model_flops_utilization", "hbm_program_peak_bytes",
+                 "hbm_live_bytes", "round_device_min_s", "round_host_frac")
+
+
+def cli_costs(runs_root: str) -> dict:
+    """The CLI run's cost capture (telemetry on): ``program_costs.json``
+    must exist and validate, its ``cost.capture`` event say ok, and every
+    metrics row carry the five device gauges; a capture that failed (and
+    was logged, as the CLI must) fails the phase."""
+    import glob
+
+    from fedtorch_tpu_torch.telemetry import load_jsonl
+    from fedtorch_tpu_torch.telemetry.costs import read_program_costs
+    (metrics,) = glob.glob(os.path.join(runs_root, "**", "metrics.jsonl"),
+                           recursive=True)
+    run_dir = os.path.dirname(metrics)
+    doc = read_program_costs(run_dir)
+    rows = _rows(run_dir)
+    _, events, _ = load_jsonl(os.path.join(run_dir, "events.jsonl"))
+    capture = [e.get("ok") for e in events if e["event"] == "cost.capture"]
+    missing = {r["round"]: [g for g in DEVICE_GAUGES if g not in r]
+               for r in rows}
+    if doc is None or capture != [True] \
+            or any(missing.values()) or not rows:
+        raise AssertionError(f"cli cost capture: document "
+                             f"{doc is not None}, events {capture}, "
+                             f"gauges missing {missing}")
+    primary = doc["programs"][doc["primary"]]
+    out = dict(primary=doc["primary"], flops=primary["flops"],
+               flops_breakdown=doc["run"]["flops_breakdown"],
+               peak_tflops=doc["peak_tflops_per_chip"],
+               peak_source=doc["peak_source"], card=doc["run"]["card"],
+               **{g: [r[g] for r in rows] for g in DEVICE_GAUGES})
+    log(f"cli cost capture: {out}")
+    return out
+
+
 def cli_phase(seed, tcfg, define_model, qk, fa):
     """The port's CLI as a user runs it (``fedtorch_tpu_torch.cli.main``
     on ``CLI_ARGV``) on CIFAR-10 files written from ``seed`` into a
@@ -2193,6 +2275,7 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launched = counters(qk, fa)
+        costs = cli_costs(os.path.join(root, "runs"))
         test_x, test_y = load_cifar("cifar10", root)[2:4]
 
         gc.collect()
@@ -2241,7 +2324,7 @@ def cli_phase(seed, tcfg, define_model, qk, fa):
                                 loss_rel_diff=loss_rel,
                                 top1_top5_diff_images=top_gap,
                                 bar=CLI_EVAL_BAR),
-               stream_mmap=stream_out, fused=fused_out)
+               stream_mmap=stream_out, fused=fused_out, costs=costs)
     log(f"cli: {mb:.1f} MB of CIFAR-10 files written in {write_s:.2f} s; "
         f"data build {timer['data']:.2f} s, {out['round_ms']:.1f} ms/round, "
         f"eval {out['eval_ms_per_call']:.1f} ms per call "
@@ -3835,62 +3918,66 @@ def lifecycle_argv(root, rounds=LIFECYCLE_ROUNDS, extra=()):
                    "--telemetry", "default", "--debug", "false"] + list(extra)
 
 
-def _d2h_count(prof) -> dict:
-    n = {"dtoh": 0, "htod": 0, "quantizer": 0}
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if name.startswith("Memcpy DtoH"):
-            n["dtoh"] += 1
-        elif name.startswith("Memcpy HtoD"):
-            n["htod"] += 1
-        elif "CUDA" in str(e.device_type()) and _kind(name) == "quantizer":
-            n["quantizer"] += 1
-    return n
+def log_sync_sites(what: str, n: dict) -> None:
+    """A watched round's named synchronizing calls (``tracing.Watch``),
+    the sites on lines of their own. The sentinel's total (the sync-debug
+    warnings) is held against the profiler's record of the runtime
+    calls, which no warning feeds: it fails unless the profiler holds as
+    many ``cudaStreamSynchronize`` (the call under every warning) and no
+    other synchronizing call beyond the window's own drains (a sync the
+    debug mode missed)."""
+    from fedtorch_tpu_torch.utils.tracing import (
+        WARNED_SYNC_CALL, WINDOW_DRAINS,
+    )
+    rt = n["runtime_syncs"]
+    calls = ", ".join(f"{k} {v}" for k, v in rt.items()
+                      if k not in ("total", "unwarned") and v)
+    log(f"{what}: {n['syncs']} synchronizing CUDA calls named by the "
+        f"sentinel; the profiler's runtime syncs {rt['total']} ({calls}; "
+        f"{WINDOW_DRAINS} the window's own drains, {rt['unwarned']} "
+        "unwarned)")
+    for site in n["sync_sites"]:
+        log(f"  {site['count']:4d}  {site['site']} ({site['function']})")
+    if n["syncs"] != rt[WARNED_SYNC_CALL] or rt["unwarned"] != 0:
+        raise AssertionError(
+            f"{what}: the sentinel's {n['syncs']} synchronizing calls "
+            f"against the profiler's {rt}: {rt['unwarned']} sync(s) the "
+            "debug mode did not report, or a warning without its call")
 
 
 def lifecycle_run(argv, run_dir, qk, fa, window_round=None):
     """``fedtorch_tpu_torch.cli.main`` in this process on ``argv +
-    --run_dir run_dir``: the results, the kernel launches (counters set
-    to 0 just before), each round's :func:`leaf_hashes`, the wall, and
-    (``window_round``) what that round's loop body, from the end of the
-    round before to the end of its own, copied and synchronized: the
-    profiler's memcpy and quantizer records, and the synchronizing CUDA
-    calls PyTorch's sync debug mode reports (one warning each, counted
-    on the host: lossless, where the profiler can lose records)."""
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile
-
+    --run_dir run_dir``, under a strict ``LockOrderSentinel`` (every
+    host-plane lock the run makes records its acquisition order; an
+    inversion or a re-entrant acquire fails the run): the results, the
+    kernel launches (counters set to 0 just before), each round's
+    :func:`leaf_hashes`, the wall, and (``window_round``) what that
+    round's loop body, from the end of the round before to the end of
+    its own, copied and synchronized (``tracing.Watch``), with the
+    sentinel's lock names and order edges under ``locks``."""
     from fedtorch_tpu_torch import cli
+    from fedtorch_tpu_torch.utils.lock_sentinel import LockOrderSentinel
+    from fedtorch_tpu_torch.utils.tracing import Watch
     hashes, window, live = [], {}, []
 
     def callback(r, trainer, server, clients, metrics):
         if live:
-            torch.cuda.synchronize()
-            prof, caught, seen = live.pop()
-            torch.cuda.set_sync_debug_mode(0)
-            caught.__exit__(None, None, None)
-            prof.stop()
-            window.update(_d2h_count(prof), round=r, syncs=sum(
-                "synchronizing CUDA operation" in str(w.message)
-                for w in seen))
+            window.update(live.pop().close(), round=r)
         hashes.append(leaf_hashes(server.params, server.rng.get_state()))
         if window_round is not None and r + 1 == window_round:
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CUDA])
-            prof.start()
-            caught = warnings.catch_warnings(record=True)
-            seen = caught.__enter__()
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode(1)
-            live.append((prof, caught, seen))
+            live.append(Watch())
 
     gc.collect()
     torch.cuda.empty_cache()
     reset_counters(qk, fa)
     t0 = time.perf_counter()
-    res = cli.main(argv + ["--run_dir", run_dir], round_callback=callback)
+    with LockOrderSentinel(strict=True) as locks:
+        res = cli.main(argv + ["--run_dir", run_dir],
+                       round_callback=callback)
     wall = time.perf_counter() - t0
+    window["locks"] = dict(names=locks.lock_names(),
+                           order_edges=locks.order_edges(),
+                           violations=locks.violations)
     return res, counters(qk, fa), hashes, wall, window
 
 
@@ -4187,7 +4274,7 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
                     ("reference_sync", ()),
                     ("reference_async", ("--async_checkpoint",))):
                 run_dir = os.path.join(root, name)
-                res, launched, hashes, wall, _ = lifecycle_run(
+                res, launched, hashes, wall, win = lifecycle_run(
                     lifecycle_argv(root, extra=extra), run_dir, qk, fa)
                 rows = _rows(run_dir)
                 for row in rows:
@@ -4205,7 +4292,8 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
                     * 1e3 - sum(saves),
                     eval_ms=res["timer"].get("eval", 0.0) / R * 1e3,
                     rows=len(rows), health=health["intent"],
-                    keeps=sorted(keep_hashes(run_dir)))
+                    keeps=sorted(keep_hashes(run_dir)),
+                    lock_sentinel=win["locks"])
                 refs[name]["loop_ms"] = refs[name]["round_ms"] \
                     + refs[name]["checkpoint_ms"]
                 if name != "reference_off":
@@ -4343,36 +4431,6 @@ def federation_config(tcfg, fed=None, fault=None, cohort=False,
                                       cohort_stats=cohort)).finalize()
 
 
-def watch_syncs(fn):
-    """``fn()`` watched as the lifecycle phase watches a loop body: the
-    synchronizing CUDA calls PyTorch's sync debug mode reports (one
-    warning each, counted on the host), the profiler's memcpy records
-    and its kernel launches. Returns (fn's result, numbers)."""
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    prof.start()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode(1)
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    prof.stop()
-    n = _d2h_count(prof)
-    n["kernel_launches"] = sum(
-        1 for e in prof.profiler.kineto_results.events()
-        if "CUDA" in str(e.device_type())
-        and not e.name().startswith(("Memcpy", "Memset")))
-    n["syncs"] = sum("synchronizing CUDA operation" in str(w.message)
-                     for w in seen)
-    return out, n
-
-
 def _record_plans(trainer, plans: list):
     """Record each round's drawn plan on ``trainer`` (its cohort)."""
     real = trainer.draw_plan
@@ -4388,7 +4446,7 @@ def cohort_path(name, cfg, data, seed, define_model, make_algorithm,
                 FederatedTrainer, qk, fa):
     """The main path's round with cohort statistics ``cfg`` on or off:
     1 warm-up round (its uplink stack held against the plain version),
-    round index 1 watched (``watch_syncs``: its ``run_round`` and the
+    round index 1 watched (``tracing.watch``: its ``run_round`` and the
     loop's one fetch, ``round_host_scalars(..., ledger=True)``), then
     ``FED_COHORT_TIMED`` timed rounds; the counters set to 0 just before
     (2 + 2 ragged launches a round); with the statistics on, each
@@ -4413,7 +4471,10 @@ def cohort_path(name, cfg, data, seed, define_model, make_algorithm,
     def body():
         s, c, mm = trainer.run_round(server, clients)
         return s, c, mm, trainer.round_host_scalars(c, mm, ledger=True)
-    (server, clients, m, (sc, led1)), watched = watch_syncs(body)
+    from fedtorch_tpu_torch.utils.tracing import watch
+    (server, clients, m, (sc, led1)), watched = watch(body)
+    log_sync_sites(f"federation {name}: round index 1 (run_round and its "
+                   "one fetch)", watched)
     vectors.append(led1)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -4980,8 +5041,11 @@ def fusion_cell(seed, tcfg, define_model, make_algorithm, stack_partitions,
         def body():
             s, c, mm = t.run_round(server, clients)
             return s, c, mm, t.round_host_scalars(c, mm)
-        (server, clients, m, sc), watched = watch_syncs(body)
+        from fedtorch_tpu_torch.utils.tracing import watch
+        (server, clients, m, sc), watched = watch(body)
         peak = torch.cuda.max_memory_allocated()
+        log_sync_sites(f"fusion {ex}: round index 3 (run_round and its one "
+                       "fetch)", watched)
         prof = profile_phase(t, server, clients, dict(
             ragged_stats=2, ragged_apply=2, stats=0, apply=0))
         per_step = prof["kernel_launches"] / (t.k_online * t.local_steps)
@@ -5383,103 +5447,112 @@ def lm_eval_step(trainer, server, seed, qk, fa):
                 loss_rel_diff=rel, bar=LM_EVAL_LOSS_BAR)
 
 
-def _kind(name: str) -> str:
-    n = name.lower()
-    if "flash_fwd" in n:
-        return "flash attention"
-    if "qdq_ragged" in n or "tiled_stats" in n or "tiled_apply" in n:
-        return "quantizer"
-    if "layer_norm" in n:
-        return "layer_norm"
-    if "norm" in n or "welford" in n:
-        return "batch_norm"
-    if any(t in n for t in ("conv", "gemm", "xmma", "cutlass", "cudnn",
-                            "wgrad", "dgrad", "sm90", "nchw", "nhwc")):
-        return "conv/matmul"
-    return "elementwise/reduce/copy"
-
-
 def profile_phase(trainer, server, clients, launched: dict,
-                  commit: bool = False):
+                  commit: bool = False, log_dir=None):
     """One more main-path round under torch.profiler: the device's busy
-    share of the round and where its time goes. The profiler's own host
-    cost lengthens the round, so the busy share is a lower bound. Only
-    CUDA activity is traced (kernels and the runtime calls that launch
-    them): operator-level host events would multiply the events, and the
-    time to process them, several times over.
+    share of the round and where its time goes, attributed by
+    ``tools/trace_attrib.py`` (its categories, >= 95% attributed or the
+    phase fails, its hand-kernel rows and PERF.md's E/M/N/F/Q columns)
+    from the per-name sums of the raw records (``attribute_sums``: three
+    reads a record; kernels on a stream do not nest). The profiler's own
+    host cost lengthens the round, so the busy share is a lower bound.
+    Only CUDA activity is traced (kernels and the runtime calls that
+    launch them): operator-level host events would multiply the events,
+    and the time to process them, several times over. With ``log_dir``
+    the round is ``capture_round_trace``'s: its Chrome trace is written
+    there and attributed from the file too, held to the sums.
 
     The profiler can lose the records of a round's last kernels (one run
     lost the last ~16% of a ResNet-20 round's, the quantizer's among
-    them), and the quantizer runs at the end of the round. So a profile
-    must hold as many quantizer kernels as ``launched`` (a round's
-    launches per kernel) says the round made; otherwise another round is
-    profiled, up to ``PROFILE_TRIES`` in all, and the last is returned
-    with ``records_complete`` false."""
+    them), and the quantizer runs at the end of the round; others lost
+    a transformer round's first flash record. So a profile
+    must hold as many quantizer and flash kernels as ``launched`` (a
+    round's launches per kernel) says the round made; otherwise another
+    round is profiled, up to ``PROFILE_TRIES`` in all, and the last is
+    returned with ``records_complete`` false."""
     want = round(sum(launched[c] for c in ("ragged_stats", "ragged_apply",
                                            "stats", "apply")))
+    want_flash = round(launched.get("flash", 0))
     for attempt in range(1, PROFILE_TRIES + 1):
-        out = _profile_round(trainer, server, clients, commit)
+        out = _profile_round(trainer, server, clients, commit, log_dir)
         got = sum(q["calls"] for q in out["quantizer_kernels"])
+        flash = sum(out["hand_kernels"].get(r, {}).get("launches", 0)
+                    for r in ("flash_fwd_tc", "flash_fwd_tf32"))
+        complete = got == want and flash == want_flash
         out.update(attempt=attempt, quantizer_calls=got,
-                   quantizer_launches=want, records_complete=got == want)
-        if got == want:
+                   quantizer_launches=want, flash_calls=flash,
+                   flash_launches=want_flash, records_complete=complete)
+        if complete:
             break
-        log(f"the profile holds {got} of the round's {want} quantizer "
-            f"launches: records lost (attempt {attempt})")
+        log(f"the profile holds {got} of the round's {want} quantizer and "
+            f"{flash} of its {want_flash} flash launches: records lost "
+            f"(attempt {attempt})")
     return out
 
 
-def _profile_round(trainer, server, clients, commit=False):
+def _profile_round(trainer, server, clients, commit=False, log_dir=None):
     """One round (``commit``: one async commit, whose plane has no scan
-    dispatch) under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    dispatch) in a ``utils.tracing.profile_window``, attributed in
+    memory (the raw kineto records; ``key_averages()`` took 133 s for
+    DenseNet-BC-100's 462,561 launches)."""
+    from fedtorch_tpu_torch.tools import trace_attrib
+    from fedtorch_tpu_torch.utils.tracing import profile_window
+    wall = []
+
+    def one():
         t0 = time.perf_counter()
         if commit:
-            trainer.run_round(server, clients)
+            res = trainer.run_round(server, clients)
         else:
-            trainer.run_rounds(server, clients, 1)
+            res = trainer.run_rounds(server, clients, 1)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # the raw events, summed by name: the same sums as key_averages()
-    # (a kernel or a runtime call has no children), without building a
-    # Python event a record, which took 133 s for DenseNet-BC-100's
-    # 462,561 launches
-    sums = {}
-    for e in prof.profiler.kineto_results.events():
-        key = ("CUDA" in str(e.device_type()), e.name())
-        ms, n = sums.get(key, (0.0, 0))
-        sums[key] = (ms + e.duration_ns() / 1e6, n + 1)
-    kernels = sorted((ms, name, n) for (dev, name), (ms, n) in sums.items()
-                     if dev and ms > 0)
-    runtime = sorted((ms, name, n) for (dev, name), (ms, n) in sums.items()
-                     if not dev and ms > 0)
-    kernels.reverse()
-    runtime.reverse()
-    device_ms = sum(k[0] for k in kernels)
-    by_kind = {}
-    for ms, name, _ in kernels:
-        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
-    out = dict(round_wall_ms=wall_ms,
-               device_ms=device_ms if kernels else None,
-               busy_share=device_ms / wall_ms if kernels else None,
-               kernel_launches=sum(k[2] for k in kernels),
-               device_ms_by_kind=by_kind,
-               quantizer_kernels=[dict(name=n[:80], ms=ms, calls=c)
-                                  for ms, n, c in kernels
-                                  if _kind(n) == "quantizer"],
-               top_kernels=[dict(name=n[:120], ms=ms, calls=c)
-                            for ms, n, c in kernels[:8]],
-               top_runtime_calls=[dict(name=n[:80], self_ms=ms, calls=c)
-                                  for ms, n, c in runtime[:8]])
-    if kernels:
-        log(f"profiled round: {wall_ms:.1f} ms wall, device busy "
-            f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
-            f"{out['kernel_launches']} kernel launches, quantizer "
-            f"{by_kind.get('quantizer', 0.0):.3f} ms")
-    else:
-        log("profiled round: the profiler recorded no device time")
+        wall.append((time.perf_counter() - t0) * 1e3)
+        return res
+    _, window = profile_window(one, log_dir=log_dir)
+    t0 = time.perf_counter()
+    doc = trace_attrib.attribute_sums(window)
+    out = trace_attrib.summary(doc, wall[0], window)
+    out["attribution"]["attribute_s"] = time.perf_counter() - t0
+    out["quantizer_kernels"] = [
+        dict(name=r, ms=v["ms"], calls=v["launches"])
+        for r, v in out["hand_kernels"].items() if r.startswith("qdq_")]
+    busy = out["device_ms"]
+    if not busy:
+        raise AssertionError("a profiled round with no device time")
+    log(f"profiled round: {wall[0]:.1f} ms wall, device busy {busy:.1f} ms "
+        f"({100 * busy / wall[0]:.1f}%), {out['kernel_launches']} device "
+        f"records, attributed {100 * doc['attributed_frac']:.2f}% "
+        f"({out['attribution']['attribute_s']:.1f} s), columns "
+        f"{out['device_ms_by_column']}")
+    if not doc["attributed_ok"]:
+        raise AssertionError(f"trace_attrib attributes "
+                             f"{doc['attributed_frac']} of the round, under "
+                             f"the 95% invariant: {doc.get('other_ops')}")
+    if log_dir is not None:
+        # the file entry on the trace capture_round_trace wrote: its
+        # records summed as read are the in-memory sums' (within 1%); its
+        # self-time split takes out the overlap of a stream's kernels
+        t0 = time.perf_counter()
+        disk = trace_attrib.attribute(log_dir)
+        disk_ms = trace_attrib.device_ms(disk)
+        raw = trace_attrib.event_sums(log_dir).values()
+        summed_ms = sum(ms for ms, _ in raw)
+        out["file_attribution"] = dict(
+            trace_files=len(disk["trace_files"]),
+            attributed_frac=disk["attributed_frac"],
+            summed_ms=summed_ms, records=sum(n for _, n in raw),
+            summed_over_in_memory=summed_ms / busy,
+            self_time_ms=disk_ms, self_time_over_summed=disk_ms / summed_ms,
+            hand_kernels=disk["hand_kernels"],
+            attribute_s=time.perf_counter() - t0)
+        log(f"its trace file attributed: {out['file_attribution']}")
+        launches = {r: v["launches"] for r, v in disk["hand_kernels"].items()}
+        if not disk["attributed_ok"] or abs(summed_ms / busy - 1) > 0.01 \
+                or launches != {r: v["launches"]
+                                for r, v in out["hand_kernels"].items()}:
+            raise AssertionError(f"the trace file's attribution "
+                                 f"{out['file_attribution']} against the "
+                                 f"in-memory one ({out['hand_kernels']})")
     return out
 
 
@@ -6218,233 +6291,45 @@ def check_lm_launches(out, route):
                              f"launches per round, got {per}")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
+# the phases after the card and the build, in their order; ``--phases``
+# runs a subset (a phase that needs another's numbers brings it along)
+PHASES = ("kernels", "reference", "main", "stream", "cli", "zoo", "localsgd",
+          "tasks", "models", "faults", "lifecycle", "federation", "fusion",
+          "wideresnet", "transformer", "transformer_d512", "transformer_f32",
+          "moe", "podscale")
+PHASE_NEEDS = {"faults": ("main",)}
 
-    from fedtorch_tpu_torch import config as tcfg
-    from fedtorch_tpu_torch.algorithms import make_algorithm
-    from fedtorch_tpu_torch.data.batching import stack_partitions
-    from fedtorch_tpu_torch.models import define_model
-    from fedtorch_tpu_torch.ops.cuda import (
-        build, flash_attention as fa, quant_kernel as qk,
-    )
-    from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
-    from fedtorch_tpu_torch.parallel import FederatedTrainer
-    from fedtorch_tpu_torch.tools import order_spread
 
-    t_start = time.perf_counter()
-    phase("card")
-    card = card_line()
-    log(card)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+def chosen_phases(spec) -> set:
+    """The phases ``--phases`` names (all without it)."""
+    if spec is None:
+        return set(PHASES)
+    names = {n.strip() for n in spec.split(",") if n.strip()}
+    unknown = names - set(PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; "
+                         f"the phases: {' '.join(PHASES)}")
+    for n in list(names):
+        names.update(PHASE_NEEDS.get(n, ()))
+    return names
 
-    phase("build")
-    res = build.build()
-    log(f"built {res.path.name} in {res.seconds:.2f} s with "
-        f"{build.nvcc_path()}")
-    if res.log.strip():
-        log(res.log.strip())
-    build.load_library()
 
-    phase("kernels vs plain")
-    k_online = max(int(ONLINE_RATE * NUM_CLIENTS), 1)
-    cells = {cell: leaf_shapes(tcfg, define_model, arch, widen)
-             for cell, arch, widen in (("resnet20", "resnet20", None),
-                                       ("wideresnet28_10", "wideresnet28", 10),
-                                       ("transformer", "transformer", None))}
-    # DenseNet-BC-100: 299 leaves, 2,990 rows an uplink call
-    cells["densenet_bc100"] = leaf_shapes(tcfg, define_model, "densenet100",
-                                          model=DENSENET)
-    ragged_stats_fields, ragged_apply_fields = ragged_phase(qk, fa, cells,
-                                                            k_online)
-    wrn_sizes = {}
-    for shape in cells["wideresnet28_10"]:
-        n = math.prod(shape)
-        wrn_sizes[n] = wrn_sizes.get(n, 0) + 1
-    stats_fields, apply_fields = tiled_phase(
-        qk, sorted((b, n) for n, b in wrn_sizes.items()
-                   if n > qk._MAX_ROW_ELEMS), k_online)
-    single_fields = single_phase(qk, fa)
-    flash_fields = flash_phase(fa)
-
-    phase("reference")
-    reference_phase(tcfg, define_model, order_spread, qk, fa)
-    # d_model 64, and the default width (d_model 100: heads of 25)
-    lm_ref = [lm_reference_phase(tcfg, define_model, make_algorithm,
-                                 stack_partitions, FederatedTrainer, fa,
-                                 hidden) for hidden in (32, 50)]
-
-    phase("main path")
-    main, trainer, server, clients = main_path_phase(
-        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, qk, fa)
-    if main["launches_per_round"]["ragged_stats"] != 2 \
-            or main["launches_per_round"]["ragged_apply"] != 2:
-        raise AssertionError("expected 2 ragged stats and 2 ragged apply "
-                             "launches per ResNet-20 round")
-
-    phase("profile")
-    prof = profile_phase(trainer, server, clients,
-                         main["launches_per_round"])
-
-    phase("stream")
-    del trainer, server, clients
-    stream = stream_phase(args.seed, tcfg, define_model, make_algorithm,
-                          stack_partitions, FederatedTrainer, qk, fa)
-
-    phase("cli")
-    gc.collect()
-    torch.cuda.empty_cache()
-    cli_out = cli_phase(args.seed, tcfg, define_model, qk, fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-    cli_apfl = cli_apfl_phase(args.seed, qk, fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("zoo")
-    zoo = zoo_phase(args.seed, tcfg, define_model, make_algorithm,
-                    stack_partitions, FederatedTrainer, order_spread, qk, fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("localsgd")
-    localsgd = localsgd_phase(args.seed, tcfg, define_model,
-                              stack_partitions, qk, fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("tasks")
-    tasks = tasks_phase(args.seed, tcfg, define_model, make_algorithm,
-                        stack_partitions, FederatedTrainer, order_spread,
-                        qk, fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("models")
-    models = models_phase(args.seed, tcfg, define_model, make_algorithm,
-                          stack_partitions, FederatedTrainer, order_spread,
-                          qk, fa)
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("faults")
-    faults = faults_phase(args.seed, tcfg, define_model, make_algorithm,
-                          stack_partitions, FederatedTrainer, order_spread,
-                          qk, fa, main["round_ms"])
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the child processes that run beside the lifecycle phase's untimed
-    # stream and supervisor runs: the federation phase's async kill drill
-    # (on CIFAR-10 files in beside_dir, where that phase's reference runs
-    # too) and the podscale phase's CLI pair
-    import tempfile
-    beside_dir = tempfile.TemporaryDirectory()
-    beside = {}
-
-    def start_beside():
-        write_cifar10(beside_dir.name, args.seed)
-        beside["async_drill"] = start_async_drill(beside_dir.name, qk)
-        beside["podscale_cli"] = start_podscale_cli()
-
-    phase("lifecycle")
-    lifecycle = lifecycle_phase(args.seed, tcfg, define_model, make_algorithm,
-                                stack_partitions, FederatedTrainer, qk, fa,
-                                beside=start_beside)
-    # their children end before the next timed round
-    if not beside["async_drill"]["children"].wait(600):
-        raise AssertionError("federation async_drill: its children did not "
-                             "end")
-    podscale_cli_out = beside["podscale_cli"]()
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("federation")
-    federation = federation_phase(
-        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, AsyncFederatedTrainer, order_spread, qk, fa,
-        beside_dir.name, beside["async_drill"])
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("fusion")
-    fusion = fusion_phase(args.seed, tcfg, define_model, make_algorithm,
-                          stack_partitions, FederatedTrainer, order_spread,
-                          qk, fa, cli_out["fused"])
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    phase("WideResNet main path")
-    wrn, trainer, server, clients = main_path_phase(
-        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, qk, fa, arch="wideresnet28", widen=10,
-        timed_rounds=WRN_TIMED_ROUNDS)
-    if [wrn["launches_per_round"][c] for c in (
-            "ragged_stats", "ragged_apply", "stats", "apply")] != [2, 2, 6, 6]:
-        raise AssertionError(f"expected 2 + 2 ragged and 6 + 6 tiled "
-                             f"launches per WideResNet round: "
-                             f"{wrn['launches_per_round']}")
-    wrn_prof = profile_phase(trainer, server, clients,
-                             wrn["launches_per_round"])
-    del trainer, server, clients
-
-    phase("transformer main path")
-    gc.collect()
-    torch.cuda.empty_cache()
-    lm, trainer, server, clients = main_path_phase(
-        args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-        FederatedTrainer, qk, fa, arch="transformer",
-        timed_rounds=LM_TIMED_ROUNDS)
-    check_lm_launches(lm, "flash_tc")
-    lm["reference"] = lm_ref
-    lm["evaluate"] = lm_eval_step(trainer, server, args.seed, qk, fa)
-    lm_prof = profile_phase(trainer, server, clients,
-                            lm["launches_per_round"])
-    del trainer, server, clients
-
-    lm_paths = {}
-    for name, sizes, dtype, rounds, route in (
-            ("transformer_d512", LM_D512, "bfloat16", D512_TIMED_ROUNDS,
-             "flash_tc"),
-            ("transformer_f32", LM, "float32", F32_TIMED_ROUNDS,
-             "flash_tf32")):
-        phase(f"{name} main path")
-        gc.collect()
-        torch.cuda.empty_cache()
-        out, trainer, server, clients = main_path_phase(
-            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
-            FederatedTrainer, qk, fa, arch="transformer",
-            timed_rounds=rounds, lm=sizes, dtype=dtype)
-        check_lm_launches(out, route)
-        lm_paths[name] = (out, profile_phase(trainer, server, clients,
-                                             out["launches_per_round"]))
-        del trainer, server, clients
-    d512, f32 = (lm_paths[n][0] for n in ("transformer_d512",
-                                           "transformer_f32"))
-
-    phase("moe")
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe = moe_phase(args.seed, tcfg, define_model, make_algorithm,
-                    stack_partitions, FederatedTrainer, order_spread, qk, fa)
-
-    phase("podscale")
-    gc.collect()
-    torch.cuda.empty_cache()
-    podscale = podscale_phase(args.seed, tcfg, qk, fa, podscale_cli_out,
-                              main["round_ms"])
-    beside_dir.cleanup()
-
+def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
+                 stats_fields, apply_fields, single_fields, flash_fields):
+    """The ``kernels`` entries, every kernel's launches by path (the full
+    run's)."""
+    main, cli_out = results["main_path"], results["cli"]
+    wrn, lm = results["wrn_main_path"], results["transformer_main_path"]
+    d512, f32 = (results[f"{n}_main_path"]
+                 for n in ("transformer_d512", "transformer_f32"))
+    zoo, tasks, models = (results[n] for n in ("zoo", "tasks", "models"))
+    faults, stream = results["faults"], results["stream"]
+    federation, fusion = results["federation"], results["fusion"]
+    moe, podscale = results["moe"], results["podscale"]
     cli_out["tree_launches"] = cli_out["launches"]
-    paths = (("resnet20", main), ("cli", cli_out), ("cli_apfl", cli_apfl),
-             ("localsgd", localsgd), ("wideresnet28_10", wrn),
+    paths = (("resnet20", main), ("cli", cli_out),
+             ("cli_apfl", results["cli_apfl"]),
+             ("localsgd", results["localsgd"]), ("wideresnet28_10", wrn),
              ("transformer", lm), ("transformer_d512", d512),
              ("transformer_f32", f32),
              ("cli_stream_mmap", cli_out["stream_mmap"])) + tuple(
@@ -6527,34 +6412,381 @@ def main(argv=None) -> int:
              launches_per_round=f32["launches_per_round"]["flash_tf32"],
              **flash_fields["tf32"]),
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"main_path": main, "card": card}))
-    print(json.dumps({"profile": prof}))
-    print(json.dumps({"stream": stream, "card": card}))
-    print(json.dumps({"cli": cli_out, "cli_apfl": cli_apfl, "card": card}))
-    print(json.dumps({"zoo": zoo, "card": card}))
-    print(json.dumps({"localsgd": localsgd, "card": card}))
-    print(json.dumps({"tasks": tasks, "card": card}))
-    print(json.dumps({"models": models, "card": card}))
-    print(json.dumps({"faults": faults, "card": card}))
-    print(json.dumps({"lifecycle": lifecycle, "card": card}))
-    print(json.dumps({"federation": federation, "card": card}))
-    print(json.dumps({"fusion": fusion, "card": card}))
-    print(json.dumps({"wrn_main_path": wrn, "card": card}))
-    print(json.dumps({"wrn_profile": wrn_prof}))
-    print(json.dumps({"transformer_main_path": lm, "card": card}))
-    print(json.dumps({"transformer_profile": lm_prof}))
-    for name, (out, prof_out) in lm_paths.items():
-        print(json.dumps({f"{name}_main_path": out, "card": card}))
-        print(json.dumps({f"{name}_profile": prof_out}))
-    print(json.dumps({"moe": moe, "card": card}))
-    print(json.dumps({"podscale": podscale, "card": card}))
-    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+    return kernels
+
+
+def _sync_summary(n: dict) -> dict:
+    return dict(syncs=n["syncs"], runtime_syncs=n["runtime_syncs"], sites=n["sync_sites"])
+
+
+def observability(results: dict, card: str) -> dict:
+    """The observability checks' numbers from the phases that ran: the
+    named synchronizing calls of ResNet-20's round index 1 (the
+    federation phase's cohort-stats paths) and of the fused and vmap
+    rounds (the fusion phase), the profiled rounds' attribution, each
+    cell's MFU and memory gauges, and the lock sentinel's locks."""
+    out = {"card": card}
+    fed = results.get("federation")
+    if fed:
+        out["syncs_resnet20_round_1"] = {
+            n: _sync_summary(fed["paths"][n]["round_index_1"])
+            for n in ("cohort_stats_off", "cohort_stats_on")}
+    fusion = results.get("fusion")
+    if fusion:
+        out["syncs_fusion_round_3"] = {
+            ex: _sync_summary(fusion["cell"][ex]["round_index_3"])
+            for ex in ("fused", "vmap")}
+    out["attribution"] = {
+        name: dict(p["attribution"], hand_kernels=p["hand_kernels"],
+                   device_ms_by_column=p["device_ms_by_column"],
+                   device_ms=p["device_ms"], busy_share=p["busy_share"],
+                   file=p.get("file_attribution"))
+        for name, p in results.items()
+        if name.endswith("profile") and isinstance(p, dict)}
+    out["mfu"] = {name[:-len("_main_path")] if name != "main_path"
+                  else "resnet20": dict(
+                      mfu=r["costs"]["mfu"], round_ms=r["round_ms"],
+                      round_flops=r["costs"]["flops"]["round"],
+                      peak_tflops=r["costs"]["peak_tflops"],
+                      peak_mib=r["peak_mib"])
+                  for name, r in results.items()
+                  if name.endswith("main_path")}
+    if results.get("cli"):
+        out["cli_costs"] = results["cli"]["costs"]
+    life = results.get("lifecycle")
+    if life:
+        out["lock_sentinel"] = {n: r["lock_sentinel"]
+                                for n, r in life["reference"].items()}
+    return out
+
+
+def log_observability(obs: dict) -> None:
+    for name, m in obs["mfu"].items():
+        log(f"MFU {name}: {m['mfu']:.6f} ({m['round_flops']:.4g} FLOPs a "
+            f"round in {m['round_ms']:.1f} ms at {m['peak_tflops']} TFLOP/s; "
+            f"{obs['card']})")
+    if "cli_costs" in obs:
+        c = obs["cli_costs"]
+        log(f"CLI gauges: MFU {c['model_flops_utilization']}, program peak "
+            f"{c['hbm_program_peak_bytes']} B, live {c['hbm_live_bytes']} B "
+            f"({c['card']})")
+    for name, a in obs["attribution"].items():
+        log(f"attribution {name}: {100 * a['attributed_frac']:.2f}%, "
+            f"columns {a['device_ms_by_column']}, hand kernels "
+            + ", ".join(f"{r} {v['launches']}"
+                        for r, v in a["hand_kernels"].items()))
+    for name, locks in obs.get("lock_sentinel", {}).items():
+        log(f"lock sentinel {name}: clean, {len(locks['names'])} locks "
+            f"({', '.join(locks['names'])}), edges {locks['order_edges']}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after the card and "
+                         "the build (default: all; 'list' names them)")
+    args = ap.parse_args(argv)
+    if args.phases == "list":
+        print(" ".join(PHASES))
+        return 0
+    phases = chosen_phases(args.phases)
+    want = phases.__contains__
+    full = phases == set(PHASES)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+
+    from fedtorch_tpu_torch import config as tcfg
+    from fedtorch_tpu_torch.algorithms import make_algorithm
+    from fedtorch_tpu_torch.data.batching import stack_partitions
+    from fedtorch_tpu_torch.models import define_model
+    from fedtorch_tpu_torch.ops.cuda import (
+        build, flash_attention as fa, quant_kernel as qk,
+    )
+    from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
+    from fedtorch_tpu_torch.parallel import FederatedTrainer
+    from fedtorch_tpu_torch.tools import order_spread
+
+    t_start = time.perf_counter()
+    phase("card")
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    phase("build")
+    res = build.build()
+    log(f"built {res.path.name} in {res.seconds:.2f} s with "
+        f"{build.nvcc_path()}")
+    if res.log.strip():
+        log(res.log.strip())
+    build.load_library()
+
+    if want("kernels"):
+        phase("kernels vs plain")
+        k_online = max(int(ONLINE_RATE * NUM_CLIENTS), 1)
+        cells = {cell: leaf_shapes(tcfg, define_model, arch, widen)
+                 for cell, arch, widen in (
+                     ("resnet20", "resnet20", None),
+                     ("wideresnet28_10", "wideresnet28", 10),
+                     ("transformer", "transformer", None))}
+        # DenseNet-BC-100: 299 leaves, 2,990 rows an uplink call
+        cells["densenet_bc100"] = leaf_shapes(
+            tcfg, define_model, "densenet100", model=DENSENET)
+        ragged_stats_fields, ragged_apply_fields = ragged_phase(
+            qk, fa, cells, k_online)
+        wrn_sizes = {}
+        for shape in cells["wideresnet28_10"]:
+            n = math.prod(shape)
+            wrn_sizes[n] = wrn_sizes.get(n, 0) + 1
+        stats_fields, apply_fields = tiled_phase(
+            qk, sorted((b, n) for n, b in wrn_sizes.items()
+                       if n > qk._MAX_ROW_ELEMS), k_online)
+        single_fields = single_phase(qk, fa)
+        flash_fields = flash_phase(fa)
+
+    lm_ref = None
+    if want("reference"):
+        phase("reference")
+        reference_phase(tcfg, define_model, order_spread, qk, fa)
+        # d_model 64, and the default width (d_model 100: heads of 25)
+        lm_ref = [lm_reference_phase(tcfg, define_model, make_algorithm,
+                                     stack_partitions, FederatedTrainer, fa,
+                                     hidden) for hidden in (32, 50)]
+
+    import tempfile
+    results = {}
+    main = None
+    if want("main"):
+        phase("main path")
+        main, trainer, server, clients = main_path_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa)
+        if main["launches_per_round"]["ragged_stats"] != 2 \
+                or main["launches_per_round"]["ragged_apply"] != 2:
+            raise AssertionError("expected 2 ragged stats and 2 ragged apply "
+                                 "launches per ResNet-20 round")
+
+        phase("profile")
+        # capture_round_trace's round: its trace file attributed beside
+        # the in-memory records
+        with tempfile.TemporaryDirectory() as cap:
+            prof = profile_phase(trainer, server, clients,
+                                 main["launches_per_round"], log_dir=cap)
+        ragged = {r: prof["hand_kernels"].get(r, {}).get("launches")
+                  for r in ("qdq_ragged_stats", "qdq_ragged_apply")}
+        if ragged != {"qdq_ragged_stats": 2, "qdq_ragged_apply": 2}:
+            raise AssertionError(f"the ResNet-20 round's attribution holds "
+                                 f"{ragged} ragged launches, not 2 + 2")
+        results["main_path"] = main
+        results["profile"] = prof
+        del trainer, server, clients
+
+    if want("stream"):
+        phase("stream")
+        results["stream"] = stream_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa)
+
+    cli_out = None
+    if want("cli"):
+        phase("cli")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_out = cli_phase(args.seed, tcfg, define_model, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["cli"] = cli_out
+        results["cli_apfl"] = cli_apfl_phase(args.seed, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("zoo"):
+        phase("zoo")
+        results["zoo"] = zoo_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, order_spread, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("localsgd"):
+        phase("localsgd")
+        results["localsgd"] = localsgd_phase(
+            args.seed, tcfg, define_model, stack_partitions, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("tasks"):
+        phase("tasks")
+        results["tasks"] = tasks_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, order_spread, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("models"):
+        phase("models")
+        results["models"] = models_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, order_spread, qk, fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("faults"):
+        phase("faults")
+        results["faults"] = faults_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, order_spread, qk, fa, main["round_ms"])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the child processes that run beside the lifecycle phase's untimed
+    # stream and supervisor runs: the federation phase's async kill drill
+    # (on CIFAR-10 files in beside_dir, where that phase's reference runs
+    # too) and the podscale phase's CLI pair
+    beside_dir = tempfile.TemporaryDirectory()
+    beside = {}
+
+    def start_beside():
+        if want("federation"):
+            write_cifar10(beside_dir.name, args.seed)
+            beside["async_drill"] = start_async_drill(beside_dir.name, qk)
+        if want("podscale"):
+            beside["podscale_cli"] = start_podscale_cli()
+
+    if want("lifecycle"):
+        phase("lifecycle")
+        results["lifecycle"] = lifecycle_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa, beside=start_beside)
+    else:
+        start_beside()
+    # their children end before the next timed round
+    if "async_drill" in beside \
+            and not beside["async_drill"]["children"].wait(600):
+        raise AssertionError("federation async_drill: its children did not "
+                             "end")
+    podscale_cli_out = beside["podscale_cli"]() \
+        if "podscale_cli" in beside else None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if want("federation"):
+        phase("federation")
+        results["federation"] = federation_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, AsyncFederatedTrainer, order_spread, qk, fa,
+            beside_dir.name, beside["async_drill"])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("fusion"):
+        phase("fusion")
+        results["fusion"] = fusion_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, order_spread, qk, fa,
+            cli_out["fused"] if cli_out else None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    if want("wideresnet"):
+        phase("WideResNet main path")
+        wrn, trainer, server, clients = main_path_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa, arch="wideresnet28", widen=10,
+            timed_rounds=WRN_TIMED_ROUNDS)
+        if [wrn["launches_per_round"][c] for c in (
+                "ragged_stats", "ragged_apply", "stats", "apply")] \
+                != [2, 2, 6, 6]:
+            raise AssertionError(f"expected 2 + 2 ragged and 6 + 6 tiled "
+                                 f"launches per WideResNet round: "
+                                 f"{wrn['launches_per_round']}")
+        results["wrn_main_path"] = wrn
+        results["wrn_profile"] = profile_phase(trainer, server, clients,
+                                               wrn["launches_per_round"])
+        del trainer, server, clients
+
+    if want("transformer"):
+        phase("transformer main path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm, trainer, server, clients = main_path_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa, arch="transformer",
+            timed_rounds=LM_TIMED_ROUNDS)
+        check_lm_launches(lm, "flash_tc")
+        lm["reference"] = lm_ref
+        lm["evaluate"] = lm_eval_step(trainer, server, args.seed, qk, fa)
+        lm_prof = profile_phase(trainer, server, clients,
+                                lm["launches_per_round"])
+        flash = lm_prof["hand_kernels"].get("flash_fwd_tc", {})
+        if flash.get("launches") != LM_FLASH_PER_ROUND:
+            raise AssertionError(f"the transformer round's attribution "
+                                 f"holds {flash} flash launches, not "
+                                 f"{LM_FLASH_PER_ROUND}")
+        results["transformer_main_path"] = lm
+        results["transformer_profile"] = lm_prof
+        del trainer, server, clients
+
+    for name, sizes, dtype, rounds, route in (
+            ("transformer_d512", LM_D512, "bfloat16", D512_TIMED_ROUNDS,
+             "flash_tc"),
+            ("transformer_f32", LM, "float32", F32_TIMED_ROUNDS,
+             "flash_tf32")):
+        if not want(name):
+            continue
+        phase(f"{name} main path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out, trainer, server, clients = main_path_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, qk, fa, arch="transformer",
+            timed_rounds=rounds, lm=sizes, dtype=dtype)
+        check_lm_launches(out, route)
+        results[f"{name}_main_path"] = out
+        results[f"{name}_profile"] = profile_phase(
+            trainer, server, clients, out["launches_per_round"])
+        del trainer, server, clients
+
+    if want("moe"):
+        phase("moe")
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["moe"] = moe_phase(
+            args.seed, tcfg, define_model, make_algorithm, stack_partitions,
+            FederatedTrainer, order_spread, qk, fa)
+
+    if want("podscale"):
+        phase("podscale")
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["podscale"] = podscale_phase(
+            args.seed, tcfg, qk, fa, podscale_cli_out,
+            main["round_ms"] if main else None)
+    beside_dir.cleanup()
+
+    if full:
+        print(json.dumps({"kernels": kernels_line(
+            results, fa, ragged_stats_fields, ragged_apply_fields,
+            stats_fields, apply_fields, single_fields, flash_fields)}))
+    for key, value in results.items():
+        line = {key: value}
+        if not key.endswith("_profile") and key != "profile":
+            line["card"] = card
+        print(json.dumps(line))
+    obs = observability(results, card)
+    log_observability(obs)
+    print(json.dumps({"observability": obs}))
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s"
+        + ("" if full else f" (phases: {', '.join(sorted(phases))})"))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
 
 
 if __name__ == "__main__":

@@ -94,7 +94,15 @@ watches every row and the stream plane's rows carry
 loop (``async_plane/``: ``--async_concurrency``, ``--async_buffer_size``,
 ``--snapshot_ring``, ``--staleness_weight``, ``--staleness_exponent``):
 each loop iteration is one commit, and the rows carry the async gauges
-and the events the staleness histogram.
+and the events the staleness histogram. With telemetry on, the writing
+process counts the round's FLOPs once after its first round
+(``telemetry/costs.py``) into ``program_costs.json`` (``rounds_scan[R]``
+too with ``--cost_capture_scan_rounds R``; a resumed run adopts it) and
+every row after carries ``model_flops_utilization``,
+``round_device_min_s``, ``round_host_frac`` and, on a card,
+``hbm_program_peak_bytes`` and ``hbm_live_bytes``; a failed count is
+logged and turns them off. ``lint`` and ``audit`` run the port's static
+analysis (``fedtorch_tpu_torch/lint``).
 
 Usage:
     python -m fedtorch_tpu_torch.cli --backend cpu -f true -d synthetic \
@@ -131,9 +139,12 @@ from fedtorch_tpu_torch.config import (
 )
 from fedtorch_tpu_torch.robustness.preemption import RESTART_EXIT_CODE
 
-# the JAX package's subcommands (``fedtorch-tpu lint ...``) that the port
-# does not run; ``supervise`` runs (robustness/harness.py)
-SUBCOMMANDS = ("lint", "audit", "report", "watch", "compare", "runs")
+# the JAX package's subcommands that the port does not run: they read run
+# directories as separate programs, and the JAX package's read the port's
+# (``python -m fedtorch_tpu.cli report DIR``). ``supervise``
+# (robustness/harness.py), ``lint`` and ``audit`` (fedtorch_tpu_torch/lint)
+# run
+SUBCOMMANDS = ("report", "watch", "compare", "runs")
 
 
 def str2bool(v) -> bool:
@@ -539,8 +550,6 @@ def _unported(section: str, what: str, fields: dict) -> None:
 
 _unported("mesh", "XLA's scan unrolling, which has no eager-torch "
           "counterpart", {"scan_unroll": "scan_unroll"})
-_unported("telemetry", "XLA's cost analysis, which has no torch port",
-          {"cost_capture_scan_rounds": "cost_capture_scan_rounds"})
 
 
 def refused_flags(cfg: ExperimentConfig) -> list:
@@ -819,6 +828,38 @@ def _run_experiment(cfg: ExperimentConfig, download: bool = False,
         preempt.install()
         watchdog = StallWatchdog(flt.watchdog_timeout_s, logger=logger)
         watchdog.start()
+        # the round's cost, captured once after the first round by the
+        # writing process (telemetry/costs.py): program_costs.json, and
+        # the MFU and memory gauges on every row after it
+        cost_capture = None
+        if tel.enabled and tel.is_writer:
+            from fedtorch_tpu_torch.parallel.mesh import world_size
+            from fedtorch_tpu_torch.telemetry.costs import ProgramCostCapture
+            async_mode = cfg.federated.sync_mode == "async"
+            if async_mode and cfg.telemetry.cost_capture_scan_rounds > 0:
+                logger.log(
+                    "cost capture: --cost_capture_scan_rounds is ignored "
+                    "under sync_mode='async' (the commit plane refuses "
+                    "the scan dispatch; capturing the commit only)")
+            cost_capture = ProgramCostCapture(
+                run_dir, compute_dtype=cfg.mesh.compute_dtype,
+                arch=cfg.model.arch, batch_size=cfg.data.batch_size,
+                local_steps=trainer.local_steps, k_online=trainer.k_online,
+                num_devices=world_size(), backend=device.type,
+                device_name=torch.cuda.get_device_name(device)
+                if device.type == "cuda" else None,
+                primary=("commit" if async_mode else "round")
+                + ("_stream" if cfg.data.data_plane == "stream" else ""),
+                scan_rounds=0 if async_mode
+                else cfg.telemetry.cost_capture_scan_rounds,
+                run_meta={"algorithm": cfg.effective_algorithm,
+                          "dataset": cfg.data.dataset,
+                          "k_online": trainer.k_online,
+                          "local_steps": trainer.local_steps},
+                log=logger.log)
+            if device.type == "cuda":
+                # the first round's peak is the hbm_program_peak_bytes
+                torch.cuda.reset_peak_memory_stats(device)
     except BaseException:
         tel.health_update("error")
         _uninstall_host_plane()
@@ -874,6 +915,8 @@ def _run_experiment(cfg: ExperimentConfig, download: bool = False,
                     torch.cuda.synchronize(device)
             round_time = timer.stop("round")
             rounds_run += 1
+            round0_peak = torch.cuda.max_memory_allocated(device) \
+                if rounds_run == 1 and device.type == "cuda" else None
             # the diagnostics ride the round's one batched fetch
             extra = {}
             if cfg.checkpoint.check_model_at_sync:
@@ -993,6 +1036,29 @@ def _run_experiment(cfg: ExperimentConfig, download: bool = False,
                 results["test_top1"] = top1
             results["rounds"] = r + 1
 
+            if cost_capture is not None and not cost_capture.captured \
+                    and not cost_capture.load_existing():
+                # once, at this process's first completed round (a
+                # resumed run adopts the run dir's capture); a failure
+                # turns the gauges off, never the run
+                with tel.span("cost_capture", round=r):
+                    try:
+                        from fedtorch_tpu_torch.telemetry.costs import (
+                            round_flops,
+                        )
+                        B = cfg.data.batch_size
+                        counted = round_flops(
+                            trainer, server.params,
+                            fed_data.train.x[0, :B].to(device),
+                            fed_data.train.y[0, :B].to(device))
+                        cost_capture.capture(counted, round0_peak)
+                    except Exception as e:
+                        cost_capture.captured = True
+                        logger.log(f"cost capture: counting failed ({e}); "
+                                   "device gauges off")
+                tel.event("cost.capture", round=r,
+                          ok=cost_capture.doc is not None)
+
             # one schema-versioned metrics row a round, from the fetched
             # scalars and host counters only
             row = {
@@ -1026,12 +1092,17 @@ def _run_experiment(cfg: ExperimentConfig, download: bool = False,
             if led is not None:
                 # the norm quantiles and the ledger's O(k) fold, from
                 # the same fetch
-                nq = led["norm_q"]
-                row.update({f"cohort_norm_{n}": float(v) for n, v in zip(
-                    ("min", "q25", "med", "q75", "max"), nq)})
+                nq = [float(v) for v in led["norm_q"]]
+                row.update(cohort_norm_min=nq[0], cohort_norm_q25=nq[1],
+                           cohort_norm_med=nq[2], cohort_norm_q75=nq[3],
+                           cohort_norm_max=nq[4])
                 ledger.update(r, led)
                 row.update(ledger.stats())
             row.update(trainer.telemetry_gauges())
+            if cost_capture is not None:
+                # MFU and the memory pair, host-side; empty until the
+                # capture above succeeded
+                row.update(cost_capture.round_gauges(round_time))
             overlap_eff = overlap_tracker.observe(row)
             if overlap_eff is not None:
                 row["overlap_efficiency"] = overlap_eff
@@ -1216,19 +1287,27 @@ def main(argv=None, round_callback=None):
     """Parse ``argv`` (default ``sys.argv[1:]``), build the config and
     run it; returns the results dict, and raises ``SystemExit(75)`` when
     the run drained on a stop signal. ``supervise [options] -- <command>``
-    runs the restart harness (``robustness/harness.py``) and returns its
-    exit code. ``round_callback`` as for :func:`run_experiment`."""
+    runs the restart harness (``robustness/harness.py``), ``lint
+    [options]`` the port's lint and ``audit [--registry-only]`` its
+    registry and concurrency audit (``fedtorch_tpu_torch/lint``); each
+    returns its exit code. ``round_callback`` as for :func:`run_experiment`."""
     if argv is None:
         import sys
         argv = sys.argv[1:]
     if argv and argv[0] == "supervise":
         from fedtorch_tpu_torch.robustness.harness import main as harness
         return harness(argv[1:])
+    if argv and argv[0] in ("lint", "audit"):
+        # the port's static analysis and registry audit
+        # (fedtorch_tpu_torch/lint); ``audit`` has no program half
+        from fedtorch_tpu_torch.lint.cli import main as lint_main
+        return lint_main((["--audit"] if argv[0] == "audit" else [])
+                         + list(argv[1:]))
     if argv and argv[0] in SUBCOMMANDS:
         raise ValueError(f"the {argv[0]!r} subcommand is not yet ported "
                          "(the JAX package's tools read the port's run "
                          "directories: python -m fedtorch_tpu.cli "
-                         f"{argv[0]} ...; ROADMAP A12)")
+                         f"{argv[0]} ...)")
     args = build_parser().parse_args(argv)
     results = run_experiment(args_to_config(args), download=args.download,
                              round_callback=round_callback)

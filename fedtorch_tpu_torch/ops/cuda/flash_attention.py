@@ -208,6 +208,14 @@ def _load_mode(q, k, v) -> int:
     return 2 if fits(16) else 1 if fits(4) else 0
 
 
+def fwd_ops(B: int, T: int, H: int, D: int, causal: bool) -> float:
+    """The forward's operations: q K^T and P V, 2 x D each per (query,
+    key) pair, over T(T+1)/2 pairs a (batch, head) when causal, T^2
+    otherwise (17.2 GFLOP at (8, 2048, 4, 64), causal)."""
+    pairs = T * (T + 1) / 2 if causal else T * T
+    return 4.0 * B * H * D * pairs
+
+
 def _launch_tf32(q, k, v, scale: float, causal: bool):
     """``csrc/flash_fwd_tf32.cu`` on checked CUDA inputs."""
     global flash_launches, flash_tf32_launches

@@ -66,8 +66,8 @@ MODULE_MAP = {
     # seeded permutation and svmlight parser) has no counterpart.
     # round_program.collective_budget is ported (ROADMAP A10): the port
     # counts the collectives its client-shard seam issues
-    # (podscale.collective_count); the program audit that certifies it
-    # in the JAX package is ROADMAP A12
+    # (podscale.collective_count), where the JAX package's program audit
+    # (FTP004) certifies them
     **_ported("native/__init__.py", "native/host_pipeline.py"),
     # the run lifecycle and the telemetry writer (ROADMAP A7, first half)
     **_ported("robustness/harness.py", "robustness/host_chaos.py",
@@ -92,10 +92,10 @@ MODULE_MAP = {
             "telemetry/runs.py", "tools/__init__.py", "tools/compare.py",
             "tools/plots.py", "tools/records.py", "tools/report.py",
             "tools/watch.py"),
-    **_rows("no port", "reads XLA's cost analysis and XLA traces; a "
-            "torch-profiler analog only if a later item needs one "
-            "(ROADMAP A7)",
-            "telemetry/costs.py", "tools/trace_attrib.py"),
+    # ROADMAP A12: the round's cost capture (torch.utils.flop_counter, the
+    # CUDA allocator's peak) and the trace attribution over torch
+    # profiler traces
+    **_ported("telemetry/costs.py", "tools/trace_attrib.py"),
     # client fusion (ROADMAP A9); the fused layers and models sit in the
     # ported models/{common,resnet,cnn,__init__}.py, and remat (A11's
     # per-block rematerialization) in each model family's module
@@ -107,22 +107,28 @@ MODULE_MAP = {
     # DeviceMesh in place of jax.sharding.Mesh
     **_ported("parallel/sequence.py", "parallel/expert.py",
               "parallel/tensor.py", "parallel/pipeline.py"),
-    **_rows("no port", "the JAX tracing-hazard lint (FTL rules) and the "
-            "StableHLO program audit are JAX-specific; a torch analog (host "
-            "syncs in the round) is ROADMAP A12",
-            "lint/__init__.py", "lint/__main__.py", "lint/analyzer.py",
-            "lint/cli.py", "lint/findings.py", "lint/rules.py",
+    # ROADMAP A12: the static analysis over the port (a host-sync lint in
+    # the FTL ids whose meaning carries over, the concurrency audit's own
+    # copy, the registry audit over the port's registries), the lock-order
+    # sentinel, and tracing.py's capture, with SyncSentinel in place of
+    # RecompilationSentinel: eager torch never retraces, so the JAX
+    # module's RecompilationSentinel, instrument_trace, record_trace_event
+    # and trace_counts have no meaning here
+    **_ported("lint/__init__.py", "lint/__main__.py", "lint/analyzer.py",
+              "lint/cli.py", "lint/findings.py", "lint/rules.py",
+              "lint/concurrency_audit.py", "lint/registry_audit.py",
+              "utils/lock_sentinel.py", "utils/tracing.py"),
+    **_rows("no port", "lowers every round-program cell to XLA and checks "
+            "the HLO; eager torch lowers no program. Runtime checks stand "
+            "for its rules: FTP002 utils.tracing.SyncSentinel, FTP004 "
+            "podscale.collective_count against "
+            "round_program.collective_budget, FTP006 the "
+            "hbm_program_peak_bytes gauge, FTP001 the models' refusal of "
+            "compute dtypes other than float32 and bfloat16 "
+            "(lint/rules.py PROGRAM_RULES)",
             "lint/program_audit.py"),
-    **_rows("no port", "a stdlib AST pass: run it over the port as a tool; "
-            "the port does not import it (ROADMAP A12)",
-            "lint/concurrency_audit.py", "lint/registry_audit.py"),
-    **_rows("queued", "ROADMAP A12: comes with the host threads of A5 and "
-            "A7",
-            "utils/lock_sentinel.py"),
     **_rows("no port", "XLA's persistent compilation cache; eager torch "
-            "compiles nothing to cache (ROADMAP A12)",
+            "compiles nothing to cache (the hand kernels' build keys its "
+            "library by the sources' hash, ops/cuda/build.py)",
             "utils/compile_cache.py"),
-    **_rows("queued", "ROADMAP A12: its profiler-trace capture; its "
-            "recompilation sentinel has no eager-torch meaning",
-            "utils/tracing.py"),
 }

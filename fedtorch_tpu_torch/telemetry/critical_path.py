@@ -14,8 +14,9 @@ metrics rows already carry; no device sync.
   clamped to [0, 1]; ``None`` when the producer did no work.
 * :func:`round_wall_decomposition`: the round wall split into the host
   phases and, where ``program_costs.json`` gives the primary program's
-  FLOPs, the device-time floor. The port writes no such file (XLA's
-  cost analysis has no torch port), so on a port run
+  FLOPs, the device-time floor. The port writes that document itself
+  (``telemetry/costs.py``: the round's counted FLOPs against the H100's
+  peak); without it (telemetry off, a failed capture)
   :func:`device_floor_s` returns None and the decomposition holds the
   host phases only, as the JAX functions do without costs.
 """

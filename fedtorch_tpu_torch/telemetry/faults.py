@@ -20,8 +20,7 @@ which compile to a None-test when nothing is armed.
 * :func:`new_lock` — the lock factory the host-plane subsystems create
   their mutexes through. Unarmed it returns a plain
   ``threading.Lock`` (zero overhead); the runtime lock-order sentinel
-  (the JAX package's ``utils/lock_sentinel.py``; the port's waits for
-  ROADMAP A12) registers a factory hook
+  (``utils/lock_sentinel.py``) registers a factory hook
   while armed, so every lock created inside its scope is instrumented
   with a stable name and per-thread acquisition-order recording.
 """

@@ -2,11 +2,13 @@
 a copy: docs/observability.md "Metric catalog").
 
 The port writes the JAX package's schema names (``fedtorch_tpu.metrics/v1``,
-``events/v1``, ``health/v1``) and its catalog unchanged, so the JAX
-package's readers (``fedtorch-tpu report``, ``compare``, ``watch``) take a
-port run directory as they take their own. Gauges the port does not
-measure (the XLA cost capture's, the client ledger's) stay cataloged and
-are absent from its rows.
+``events/v1``, ``health/v1``) and its catalog's field names unchanged, so
+the JAX package's readers (``fedtorch-tpu report``, ``compare``,
+``watch``) take a port run directory as they take their own. The device
+gauges keep their names with the port's meanings (the catalog's texts).
+:data:`EVENT_NAMES` is the port's own list of the events it emits
+(held to the emit sites by ``fedtorch_tpu_torch.lint.registry_audit``,
+FTC002).
 
 Everything the run emits machine-readably is versioned here: the
 ``metrics.jsonl`` per-round row, the ``events.jsonl`` event record, and
@@ -152,20 +154,25 @@ METRICS_OPTIONAL = {
     "stream_rebuilds": "stream feed producers rebuilt via the "
                        "invalidate_stream resync after a death",
     # device-side gauges (telemetry.costs.ProgramCostCapture; present
-    # once program_costs.json was captured — docs/observability.md
-    # "Device-side")
-    "model_flops_utilization": "round-program FLOPs / (round wall x "
-                               "peak x chips) — measured MFU fraction",
-    "hbm_program_peak_bytes": "compiled round program's static device-"
-                              "memory watermark (memory_analysis)",
-    "hbm_live_bytes": "live jax.Array bytes at row time "
-                      "(live_buffer_summary — metadata walk, no sync)",
+    # once program_costs.json was captured). The port's meanings: FLOPs
+    # from torch.utils.flop_counter over one round on a twin (plus the
+    # hand kernels' counts), peaks of the H100 by compute dtype, memory
+    # from the CUDA caching allocator; on the CPU the memory pair is
+    # absent (graceful None)
+    "model_flops_utilization": "round FLOPs / (round wall x peak x "
+                               "cards) — measured MFU fraction",
+    "hbm_program_peak_bytes": "torch.cuda.max_memory_allocated over "
+                              "round 0 — the round's measured device-"
+                              "memory peak",
+    "hbm_live_bytes": "torch.cuda.memory_allocated() at row time — "
+                      "bytes the CUDA allocator holds for live tensors "
+                      "(a host counter, no sync)",
     "round_device_min_s": "FLOPs-at-peak device-time floor of the "
-                          "captured primary program (the analytic "
-                          "lower bound on device-busy seconds)",
+                          "captured round (the analytic lower bound on "
+                          "device-busy seconds)",
     "round_host_frac": "1 - round_device_min_s/round_s — the round-"
                        "wall share NOT explained by the device floor "
-                       "(host phases, dispatch gap, sub-peak MXU)",
+                       "(host dispatch, launch gaps, sub-peak kernels)",
     # federation-plane cohort statistics (telemetry.cohort_stats;
     # robustness/aggregators.py:cohort_statistics — docs/
     # observability.md "Federation plane")
@@ -197,11 +204,22 @@ METRICS_OPTIONAL = {
 def all_metric_fields() -> frozenset:
     """Every cataloged metrics-row field name (required + optional) —
     the single catalog surface consumers key on. The registry-drift
-    checker (``fedtorch_tpu.lint.registry_audit``, FTC001) gates this
-    set against the actual emit sites and the docs/observability.md
-    tables in tier-1, so a field cannot exist in only one of the
-    three places."""
+    checker (``fedtorch_tpu_torch.lint.registry_audit``, FTC001) gates
+    this set against the port's emit sites."""
     return frozenset(METRICS_REQUIRED) | frozenset(METRICS_OPTIONAL)
+
+
+# every event name the port emits into events.jsonl (FTC002)
+EVENT_NAMES = (
+    "anomaly.detected", "anomaly.summary", "async.staleness_hist",
+    "chaos.byzantine_attack", "chaos.host_fault", "ckpt.degraded",
+    "cost.capture", "guards.all_rejected", "host.degraded",
+    "host.recovered", "kernels.launches", "lifecycle.quorum_degraded",
+    "preempt.drain", "privacy.budget_exhausted", "run.end", "run.start",
+    "stream.producer_rebuilt", "supervisor.host_fault",
+    "supervisor.rollback", "supervisor.round_skipped",
+    "telemetry.degraded", "watchdog.fired",
+)
 
 
 HEALTH_INTENTS = (

@@ -298,6 +298,31 @@ def test_the_jax_package_s_subcommands_are_refused_by_name(sub):
         tcli.main([sub, "--help"])
 
 
+@pytest.mark.parametrize("argv, says", [
+    (["lint"], "fedtorch_tpu_torch.lint: 0 NEW finding(s)"),
+    (["lint", "--explain"], "no eager-torch meaning"),
+    (["audit", "--registry-only"], "0 NEW finding(s) (0 registry, 0 "
+                                   "concurrency); no program audit")])
+def test_the_lint_and_audit_subcommands_run(argv, says, capsys):
+    """Once refused by name, now the port's own (fedtorch_tpu_torch/lint):
+    each returns its exit code, 0 on the tree."""
+    assert tcli.main(argv) == 0
+    assert says in capsys.readouterr().out
+
+
+def test_cost_capture_scan_rounds_runs_from_the_cli(tmp_path):
+    """Once refused by name: ``--cost_capture_scan_rounds 3`` adds the
+    host loop's ``rounds_scan[3]`` entry, 3 rounds' FLOPs."""
+    import json
+    tcli.main(_synthetic_argv(tmp_path, "mlp") + [
+        "--cost_capture_scan_rounds", "3"])
+    (path,) = glob.glob(str(tmp_path / "ck" / "**" / "program_costs.json"),
+                        recursive=True)
+    programs = json.load(open(path))["programs"]
+    assert programs["rounds_scan[3]"]["flops"] == \
+        3 * programs["round"]["flops"] > 0
+
+
 def test_the_port_names_its_console_script():
     text = open(os.path.join(REPO, "pyproject.toml")).read()
     assert 'fedtorch-tpu-torch = "fedtorch_tpu_torch.cli:main"' in text

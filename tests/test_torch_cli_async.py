@@ -33,9 +33,10 @@ COMMITS = 4
 ASYNC = ["--sync_mode", "async", "--cohort_stats", "true",
          "--fault_straggler_rate", "0.4",
          "--fault_straggler_step_frac", "0.1"]
-# the JAX package's device-side gauges (XLA cost analysis; no port)
-COST_GAUGES = {"model_flops_utilization", "hbm_program_peak_bytes",
-               "hbm_live_bytes", "round_device_min_s", "round_host_frac"}
+# the device gauges with no meaning on the CPU: the CUDA allocator's
+# memory pair (absent from a CPU row, the JAX "graceful None" rule); the
+# MFU trio rides both packages' rows (telemetry/costs.py)
+COST_GAUGES = {"hbm_program_peak_bytes", "hbm_live_bytes"}
 
 
 def _events(run):

@@ -75,8 +75,9 @@ def test_the_fixture_runs_give_the_jax_numbers(run):
 
 
 def test_without_program_costs_the_decomposition_has_no_device_floor():
-    """The port writes no ``program_costs.json``: the decomposition holds
-    the host phases only, as the JAX function's does without costs."""
+    """Without a ``program_costs.json`` (a run with telemetry off, or a
+    failed capture) the decomposition holds the host phases only, as the
+    JAX function's does without costs."""
     rows = ROW_SEQUENCES["restart"]
     dec = tcp.round_wall_decomposition(rows, None)
     assert dec == jcp.round_wall_decomposition(rows, None)

@@ -41,3 +41,30 @@ def test_every_other_row_says_why():
                 roadmap, (module, item)
         elif status == "no port":
             assert len(detail) > 30, module
+
+
+def test_the_static_analysis_and_observability_modules_are_ported():
+    """ROADMAP A12: the lint package but the program audit, the lock
+    sentinel, tracing, the cost capture and the trace attribution; no
+    row is queued; the program audit names the runtime checks that stand
+    for its rules, and tracing says which JAX names have no eager
+    meaning."""
+    from fedtorch_tpu_torch.utils import tracing
+    for m in ("lint/__init__.py", "lint/__main__.py", "lint/analyzer.py",
+              "lint/cli.py", "lint/findings.py", "lint/rules.py",
+              "lint/concurrency_audit.py", "lint/registry_audit.py",
+              "utils/lock_sentinel.py", "utils/tracing.py",
+              "telemetry/costs.py", "tools/trace_attrib.py"):
+        assert MODULE_MAP[f"fedtorch_tpu/{m}"] == (
+            "ported", f"fedtorch_tpu_torch/{m}"), m
+    status, why = MODULE_MAP["fedtorch_tpu/lint/program_audit.py"]
+    assert status == "no port"
+    for stand_in in ("SyncSentinel", "collective_count",
+                     "hbm_program_peak_bytes", "bfloat16"):
+        assert stand_in in why
+    assert MODULE_MAP["fedtorch_tpu/utils/compile_cache.py"][0] == "no port"
+    assert not [k for k, (s, _) in MODULE_MAP.items() if s == "queued"]
+    doc = tracing.__doc__
+    for name in ("RecompilationSentinel", "instrument_trace",
+                 "record_trace_event", "trace_counts"):
+        assert name in doc

@@ -8,8 +8,8 @@ readers, on the CPU.
   fedtorch_tpu.cli report <port run dir>`` exits with 0 (the test runs
   the JAX package; the port never imports it).
 * The JAX CLI and the port's CLI on one synthetic configuration write
-  rows of the same keys — but the JAX package's XLA cost-capture gauges
-  (``telemetry/costs.py``, which has no port) — and equal ``round``,
+  rows of the same keys — but the device-memory pair of the cost
+  capture, which has no meaning on the CPU — and equal ``round``,
   ``n_online`` and ``comm_bytes`` (exact: counts and byte sums).
 * The writers themselves: the schema catalog is the JAX package's, rows
   carry ``seq`` and ``t``, a torn tail is skipped, the trace exports,
@@ -30,9 +30,10 @@ from fedtorch_tpu_torch import telemetry as ttel
 from fedtorch_tpu_torch.telemetry import schema as tschema
 from torch_lifecycle import REPO, cli_argv
 
-# the JAX package's device-side gauges (XLA cost analysis; no port)
-COST_GAUGES = {"model_flops_utilization", "hbm_program_peak_bytes",
-               "hbm_live_bytes", "round_device_min_s", "round_host_frac"}
+# the device gauges with no meaning on the CPU: the CUDA allocator's
+# memory pair (absent from a CPU row, the JAX "graceful None" rule); the
+# MFU trio rides both packages' rows (telemetry/costs.py)
+COST_GAUGES = {"hbm_program_peak_bytes", "hbm_live_bytes"}
 ROW = {"round": 0, "round_s": 0.5, "loss": 1.0, "acc": 0.5, "lr": 0.1,
        "n_online": 3.0, "comm_bytes": 10.0}
 
