@@ -38,29 +38,33 @@ line. Phases, each fatal on failure:
    - the flash attention forward against its plain version (TF32 off) on
      strided q, k, v views of one projection, bfloat16 and float32, each
      case through the kernel ``_route`` picks (the wgmma kernel for aligned
-     bfloat16 at head dim 64 or 128, the TF32 kernel otherwise) and checked
-     to have taken it: each kernel at the shape its transformer path gives
-     it ((8, 2048, 4, 64) bfloat16 and float32, (8, 2048, 4, 128) bfloat16)
-     causal and not; the wgmma kernel at D 64 and 128, T in {1, 63, 65,
-     300, 2048}, causal and not; both dtypes at D in {16, 24, 25, 32, 64,
-     100, 128} and T in {1, 50, 257, 2048}, causal and not; misaligned
-     views; a NaN q row with a +inf k row and a -inf k element whose scores
-     stay -inf beside scores that overflow exp unless the running max is
-     kept; +inf and -inf v elements in both dtypes (the wgmma kernel at
-     D 64 and 128, the TF32 kernel, causal and not), o +-inf where p > 0
-     meets them and NaN where the plain version computes 0 inf or inf -
-     inf. lse and float32 o within atol = rtol = 2e-5, bfloat16 o within
-     one bfloat16 spacing past that bar, the NaN and +-inf patterns
-     identical. Timed
+     bfloat16 at head dim 64, 128, 192 or 256, the TF32 kernel otherwise)
+     and checked to have taken it: each kernel at the shape its
+     transformer path gives it ((8, 2048, 4, 64) bfloat16 and float32,
+     (8, 2048, 4, 128) bfloat16, (8, 2048, 4, 256) bfloat16 and float32)
+     causal and not; the wgmma kernel at D 64, 128, 192 and 256, T in {1,
+     63, 65, 300, 2048}, causal and not; both dtypes at D in {16, 24, 25,
+     32, 64, 100, 128} and T in {1, 50, 257, 2048}, causal and not, and at
+     D in {136, 192, 200, 256} (the kernels' instances past 128) and T in
+     {1, 129, 2048}, causal and not; misaligned views; a NaN q row with a
+     +inf k row and a -inf k element whose scores stay -inf beside scores
+     that overflow exp unless the running max is kept (D 64 and 256);
+     +inf and -inf v elements in both dtypes (the wgmma kernel at D 64,
+     128 and 256, the TF32 kernel at 64 and 256, causal and not), o +-inf
+     where p > 0 meets them and NaN where the plain version computes 0
+     inf or inf - inf. lse and float32 o within atol = rtol = 2e-5,
+     bfloat16 o within one bfloat16 spacing past that bar, the NaN and
+     +-inf patterns identical. Timed
      (inputs rotating over at least 128 MB) against the plain version: the
-     wgmma kernel at (8, 2048, 4, 64) and (8, 2048, 4, 128) bfloat16
+     wgmma kernel at (8, 2048, 4, D) bfloat16, D in {64, 128, 256},
      against ``F.scaled_dot_product_attention`` at each head dim; the TF32
      kernel at (8, 2048, 4, 64) in float32 (against float32 SDPA, TF32 off,
      against the 3xTF32 bound, the smaller of it and the CUDA-core float32
      bound) and in bfloat16 (its launcher, as the route would pick the
-     wgmma kernel), and at (8, 2048, 4, 25) in float32 (the default width's
-     heads, against float32 SDPA); the wgmma kernel's non-finite-v
-     pre-pass alone at both head dims;
+     wgmma kernel), and at (8, 2048, 4, 25) and (8, 2048, 4, 256) in
+     float32 (the default width's heads and heads of 256, against float32
+     SDPA); the wgmma kernel's non-finite-v pre-pass alone at its three
+     main-path head dims;
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
    through the pair) on the card against the same on the CPU (TF32
@@ -138,7 +142,8 @@ line. Phases, each fatal on failure:
    the CLI's default ratio, qFFL at q = 1, AFL (its one local step),
    DRFA over FedAvg, and on 200 train and 50 val rows a client APFL
    (adaptive alpha), ``apfl_q`` (APFL with int8 both ways), PerFedMe (lr
-   0.05) and PerFedAvg; 1 warm-up and 1 timed round each, the counters
+   0.05) and PerFedAvg; 1 timed round each (no warm-up: the main path
+   warmed ResNet-20's kernels), the counters
    set to 0 just before each and read just after (2 + 2 ragged launches
    a round on FedCOMGATE and ``apfl_q``, none elsewhere); finite losses
    and aux trees, moved server params, AFL's and DRFA's lambda on the
@@ -216,8 +221,9 @@ line. Phases, each fatal on failure:
    timed round with the counters set to 0 just before and read just
    after (2 + 2 ragged launches a round), every round's fault counters
    and DP gauges, round ms beside ``faults_free``'s and the main path's,
-   then one profiled round (device busy share, launches a local step of
-   the k' dispatched clients); the warm-up round's uplink stack of k'
+   then (but the stream drill and ``faults_free_again``) one profiled
+   round (device busy share, launches a local step of the k' dispatched
+   clients); the warm-up round's uplink stack of k'
    rows held against the plain version within one step; the stream
    drill's server params and generator state after its 2 rounds bitwise
    the resident drill's. Then a ``zero`` and a ``collude`` drill round
@@ -230,7 +236,7 @@ line. Phases, each fatal on failure:
    replaying the card's DP normals;
 8f. lifecycle: the run lifecycle through the CLI on the main path's
    round from CIFAR-10 files written from ``--seed``, cuDNN
-   deterministic (``lifecycle_phase``): a 4-round reference with a
+   deterministic (``lifecycle_phase``): a reference with a
    checkpoint and a keep every round (each round's server params and
    generator hashed, 2 + 2 ragged launches a round, every metrics row
    valid, health ``complete``, the checkpoint's MB and the sync save's
@@ -329,6 +335,16 @@ line. Phases, each fatal on failure:
     128), 2 + 2 ragged launches and, for its leaves past 524,288
     elements (the qkv weights of 786,432, the positional embedding and
     MLP weights of 1,048,576: two sizes), 4 + 4 tiled launches;
+11b. transformer_d1024: the same round at ``rnn_hidden_size`` 512
+    (d_model 1024, 4 heads of 256, 4 layers, T 2048, 52,643,926 params,
+    bfloat16); 1 warm-up, timed and 1 profiled round. The counters must
+    read 400 flash launches a round, all on the wgmma kernel's head-dim-256
+    instance, 2 + 2 ragged launches and, for its 17 leaves past 524,288
+    elements (four sizes: 1,048,576, 2,097,152, 3,145,728, 4,194,304),
+    8 + 8 tiled launches. Then its round cut by ``D1024_CUT`` (2 clients,
+    2 local steps, T 128, 1 layer) in float32 (TF32 off): logits and the
+    FedAvg round's update card (the TF32 kernel at D 256) vs CPU within
+    1e-4, as the reference phase holds its transformers;
 12. transformer_f32: the path of item 10 in float32, the library's
     default ``compute_dtype``; 1 warm-up, timed and 1 profiled round.
     The counters must read 400 flash launches a round, all on the TF32
@@ -394,7 +410,8 @@ Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``wrn_profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
-``transformer_d512_profile``, ``transformer_f32_main_path``,
+``transformer_d512_profile``, ``transformer_d1024_main_path``,
+``transformer_d1024_profile``, ``transformer_f32_main_path``,
 ``transformer_f32_profile``, ``moe``, ``podscale`` and ``observability``
 lines, the card's name and power limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -464,6 +481,17 @@ LM_SHAPE = (LM_BATCH, 2048, 4, 64)  # its attention's [B, T, H, D]
 LM_D512 = dict(LM, rnn_hidden_size=256)
 LM_D512_SHAPE = (LM_BATCH, 2048, 4, 128)
 D512_TIMED_ROUNDS = F32_TIMED_ROUNDS = 1
+# transformer_d1024: d_model 1024, 4 heads of 256 (Gemma 7B's head width),
+# bf16; beside it its round cut to 2 clients, 2 steps, T 128 and 1 layer
+# in float32 card vs CPU (the TF32 kernel at D 256 inside a round)
+LM_D1024 = dict(LM, rnn_hidden_size=512)
+LM_D1024_SHAPE = (LM_BATCH, 2048, 4, 256)
+D1024_TIMED_ROUNDS = 1
+D1024_CUT = dict(hidden=512, layers=1, T=128, clients=2, rate=1.0)
+# the flash phase's head dims past 128 (both kernels' wide instances) and
+# their sequence lengths
+FLASH_WIDE_DIMS = (136, 192, 200, 256)
+FLASH_WIDE_TS = (1, 129, 2048)
 # the moe phase: the transformer cell with Switch MoE blocks (MOE_AB.json's
 # 16 experts, the README's capacity factor 1.25 for E >= 8, Switch's aux
 # weight 0.01); its float32 cut card vs CPU (2 clients, 2 steps, T 128, 4
@@ -664,9 +692,11 @@ FAULT_COUNTERS = ("dropped_clients", "straggler_clients",
                   "robust_selected", "robust_trimmed", "avail_dropped",
                   "deadline_missed", "quorum_degraded")
 PROFILE_TRIES = 3
-# the lifecycle phase: the reference's rounds (an evaluation, a
-# checkpoint and a keep each, the newest LIFECYCLE_KEEP kept; the same
-# rounds with saves off, evaluations off with them, and async); the kill
+# the lifecycle phase: the reference's rounds with saves off (evaluations
+# off with them), whose hashes the drills hold their keeps to; the rounds
+# of the reference with sync saves and with async ones (an evaluation, a
+# checkpoint and a keep each, the newest LIFECYCLE_KEEP kept: two rounds
+# show both keeps, for the phase's budget); the kill
 # drills' rounds (SIGTERM once round index LIFECYCLE_KILL_AFTER is logged;
 # the signal can land after that round's boundary check, and the child
 # then drains a round later, so the drill runs as many rounds as the
@@ -678,12 +708,13 @@ PROFILE_TRIES = 3
 # the stream chaos drill (gather faults at rate 0.3 from seed 1, which
 # fires at the gather's second check, 3 retries); the phase's budget
 LIFECYCLE_ROUNDS = 3
+LIFECYCLE_SAVED_ROUNDS = 2
 LIFECYCLE_DRILL_ROUNDS = 3
 LIFECYCLE_KILL_AFTER = 0
 LIFECYCLE_KEEP = 2
 LIFECYCLE_SUP = dict(nan_inject_rate=0.05, supervisor=True, max_retries=2,
                      backoff_base_s=0.0)
-LIFECYCLE_SUP_ROUNDS = 4
+LIFECYCLE_SUP_ROUNDS = 2
 LIFECYCLE_SUP_MAX_ROUNDS = 10
 LIFECYCLE_CUT_NAN_RATE = 0.3
 LIFECYCLE_CUT_ROUNDS = 3
@@ -1280,8 +1311,9 @@ def sdpa_backend(q, k, v) -> str:
 
 
 # the kernels-line entries of the flash forward: the wgmma kernel at each
-# head dim, the TF32 kernel
-FLASH_KEYS = ("tc64", "tc128", "tf32")
+# head dim of a main path, the TF32 kernel; the wgmma kernel's instance at
+# 192, on no main path, is checked and reported inside the tc256 entry
+FLASH_KEYS = ("tc64", "tc128", "tc256", "tf32")
 
 
 def flash_phase(fa):
@@ -1292,7 +1324,8 @@ def flash_phase(fa):
     wgmma kernel at head dim 64 and 128 and of the TF32 kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0) for r in FLASH_KEYS}
+    worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0)
+             for r in FLASH_KEYS + ("tc192",)}
 
     def check(q, k, v, causal, what, want):
         """One case, which must take route ``want``."""
@@ -1329,14 +1362,17 @@ def flash_phase(fa):
         w["cases"] += 1
 
     def want(dtype, d, offset=0):
-        # aligned bf16 views at head dim 64 or 128 take the wgmma kernel
+        # aligned bf16 views at head dim 64, 128, 192 or 256 take the
+        # wgmma kernel
         return "tc" if dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS \
             and offset == 0 else "tf32"
 
     # each kernel at the shape its main path gives it
     for shape, dtype, route in ((LM_SHAPE, torch.bfloat16, "tc"),
                                 (LM_SHAPE, torch.float32, "tf32"),
-                                (LM_D512_SHAPE, torch.bfloat16, "tc")):
+                                (LM_D512_SHAPE, torch.bfloat16, "tc"),
+                                (LM_D1024_SHAPE, torch.bfloat16, "tc"),
+                                (LM_D1024_SHAPE, torch.float32, "tf32")):
         for causal in (True, False):
             check(*qkv_views(gen, *shape, dtype), causal, "main path", route)
     B, T, H, D = LM_SHAPE
@@ -1353,8 +1389,18 @@ def flash_phase(fa):
                           "head dim, T", want(dtype, d))
             check(*qkv_views(gen, 2, 129, H, d, dtype, offset=1), True,
                   "misaligned", "tf32")
-        for offset in (0, 1):
-            q, k, v = qkv_views(gen, 2, 257, H, D, dtype, offset)
+        # past head dim 128: the TF32 kernel's 16-key tiles at padded
+        # widths 192 and 256, the wgmma kernel's 32-key instances
+        for d in FLASH_WIDE_DIMS:
+            for t in FLASH_WIDE_TS:
+                for causal in (True, False):
+                    check(*qkv_views(gen, 2, t, H, d, dtype), causal,
+                          "wide head dim, T", want(dtype, d))
+            for offset in (1, 2):
+                check(*qkv_views(gen, 2, 129, H, d, dtype, offset), True,
+                      "wide misaligned", "tf32")
+        for offset, d in itertools.product((0, 1), (D, 256)):
+            q, k, v = qkv_views(gen, 2, 257, H, d, dtype, offset)
             q[0, 5, 1] = float("nan")
             k[1, 3, 2] = float("inf")
             # a -inf k element under q elements > 0 scores -inf (p = 0, the
@@ -1365,12 +1411,15 @@ def flash_phase(fa):
             k[1, 5, 3] = 0.0
             k[1, 5, 3, 0] = 1000.0
             check(q, k, v, True, "NaN q row, +inf k row, -inf k element",
-                  want(dtype, D, offset))
+                  want(dtype, d, offset))
+        for offset in (0, 1):
             # infinite v: +-inf where p > 0 meets it, NaN where the plain
             # version computes 0 inf (the rows before the key, whose tiles
             # the kernels' causal loops skip) or inf - inf; the wgmma
-            # kernel (aligned bf16) at both its head dims
-            for d in (D, 128) if want(dtype, D, offset) == "tc" else (D,):
+            # kernel (aligned bf16) at 64, 128 and 256, the TF32 kernel
+            # at 64 and 256
+            for d in (D, 128, 256) if want(dtype, D, offset) == "tc" \
+                    else (D, 256):
                 q, k, v = qkv_views(gen, 2, 300, H, d, dtype, offset)
                 v[0, 0, 1, 11] = float("inf")
                 v[0, 40, 1, 3] = float("inf")
@@ -1390,19 +1439,26 @@ def flash_phase(fa):
     out = {r: dict(max_abs_err=worst[r]["abs"],
                    max_bf16_steps=worst[r]["bf16_steps"],
                    cases=worst[r]["cases"]) for r in FLASH_KEYS}
+    out["tc256"]["d192"] = dict(max_abs_err=worst["tc192"]["abs"],
+                                max_bf16_steps=worst["tc192"]["bf16_steps"],
+                                cases=worst["tc192"]["cases"])
     for key, shape, dtype, launch in (
             ("tc64", LM_SHAPE, torch.bfloat16, fa._launch_tc),
             ("tc128", LM_D512_SHAPE, torch.bfloat16, fa._launch_tc),
+            ("tc256", LM_D1024_SHAPE, torch.bfloat16, fa._launch_tc),
             ("tf32", LM_SHAPE, torch.float32, fa._launch_tf32)):
         out[key].update(time_flash(fa, gen, shape, dtype, launch))
     # the TF32 kernel beside its float32 line: bfloat16 at head dim 64
-    # (through its launcher) and the default width's heads in float32
+    # (through its launcher), the default width's heads and heads of 256
+    # (its 16-key tiles) in float32
     for tag, shape, dtype in (("bf16", LM_SHAPE, torch.bfloat16),
-                              ("d25", DEFAULT_WIDTH_SHAPE, torch.float32)):
+                              ("d25", DEFAULT_WIDTH_SHAPE, torch.float32),
+                              ("d256", LM_D1024_SHAPE, torch.float32)):
         t = time_flash(fa, gen, shape, dtype, fa._launch_tf32)
         out["tf32"].update({f"{tag}_{k}": v for k, v in t.items()})
     # the wgmma kernel's non-finite pre-pass alone (inside "ms" above)
-    for key, shape in (("tc64", LM_SHAPE), ("tc128", LM_D512_SHAPE)):
+    for key, shape in (("tc64", LM_SHAPE), ("tc128", LM_D512_SHAPE),
+                       ("tc256", LM_D1024_SHAPE)):
         out[key]["prepass_ms"] = time_prepass(fa, gen, shape)
         log(f"flash_fwd_tc's pre-pass at {shape}: "
             f"{out[key]['prepass_ms']:.5f} ms of {out[key]['ms']:.4f}")
@@ -1634,23 +1690,26 @@ def reference_phase(tcfg, define_model, os_mod, qk, fa):
 
 
 def lm_reference_phase(tcfg, define_model, make_algorithm,
-                       stack_partitions, FederatedTrainer, fa, hidden=32):
+                       stack_partitions, FederatedTrainer, fa, hidden=32,
+                       layers=2, T=256, clients=4, rate=0.5):
     """A small float32 transformer with flash attention (d_model 2 x
-    ``hidden``, 4 heads, 2 layers, T 256): logits from the same weights
-    and one unquantized FedAvg round from the same state and plan, the
-    card (the TF32 kernel) against the CPU (the plain version), TF32 off.
-    GELU and softmax are smooth, so only float32 rounding separates the
-    two: the bars are 1e-4 on the logits and on the update's relative
-    L2."""
+    ``hidden``, 4 heads, ``layers`` layers, length ``T``; ``clients``
+    clients at online ``rate``, 2 local steps): logits from the same
+    weights and one unquantized FedAvg round from the same state and
+    plan, the card (the TF32 kernel) against the CPU (the plain version),
+    TF32 off. GELU and softmax are smooth, so only float32 rounding
+    separates the two: the bars are 1e-4 on the logits and on the
+    update's relative L2. Returns the numbers and the card round's
+    kernel launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    T, C, N, B = 256, 4, 8, 4
+    C, N, B = clients, 8, 4
     cfg = tcfg.ExperimentConfig(
         data=tcfg.DataConfig(dataset="shakespeare", batch_size=B),
         federated=tcfg.FederatedConfig(
-            federated=True, num_clients=C, online_client_rate=0.5,
+            federated=True, num_clients=C, online_client_rate=rate,
             algorithm="fedavg", sync_type="local_step"),
         model=tcfg.ModelConfig(arch="transformer", rnn_hidden_size=hidden,
-                               mlp_num_layers=2, rnn_seq_len=T,
+                               mlp_num_layers=layers, rnn_seq_len=T,
                                attention="flash"),
         optim=tcfg.OptimConfig(lr=0.05, weight_decay=0.0),
         train=tcfg.TrainConfig(local_step=2)).finalize()
@@ -1678,26 +1737,42 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
     if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
         raise AssertionError(f"transformer logits card vs CPU: {err}")
 
-    updates, plan = {}, None
+    updates, plan, launched = {}, None, None
     for dev in ("cpu", "cuda"):
         tr = FederatedTrainer(cfg, define_model(cfg, B, device=dev),
                               make_algorithm(cfg), data, device=dev)
-        server, clients = tr.init_state(7)
+        server, state = tr.init_state(7)
         p0 = {k: v.cpu() for k, v in server.params.items()}
         plan = plan or tr.draw_plan(server)
-        server, _, _ = tr.round_fn(server, clients, plan)
+        before = dict(flash=fa.flash_launches, flash_tc=fa.flash_tc_launches,
+                      flash_tf32=fa.flash_tf32_launches)
+        server, _, _ = tr.round_fn(server, state, plan)
+        if dev == "cuda":
+            launched = dict(flash=fa.flash_launches - before["flash"],
+                            flash_tc=fa.flash_tc_launches
+                            - before["flash_tc"],
+                            flash_tf32=fa.flash_tf32_launches
+                            - before["flash_tf32"])
         updates[dev] = torch.cat([(v.cpu() - p0[k]).reshape(-1)
                                   for k, v in server.params.items()])
     rel = float(torch.linalg.vector_norm(updates["cuda"] - updates["cpu"])
                 / torch.linalg.vector_norm(updates["cpu"]))
-    log(f"transformer (d {2 * hidden}, T 256) f32 flash: logits card vs "
-        f"CPU max |diff| {err:.3e}; FedAvg round update card vs CPU "
-        f"relative L2 {rel:.3e}")
+    # one forward a layer, local step and online client, all on the TF32
+    # kernel (float32)
+    want = layers * tr.local_steps * tr.k_online
+    log(f"transformer (d {2 * hidden}, {layers} layers, T {T}) f32 flash: "
+        f"logits card vs CPU max |diff| {err:.3e}; FedAvg round update "
+        f"card vs CPU relative L2 {rel:.3e}; flash launches {launched}")
     if not rel <= 1e-4:
         raise AssertionError(f"transformer round card vs CPU: relative L2 "
                              f"{rel}")
-    return dict(d_model=2 * hidden, logits_max_abs_diff=err,
-                round_update_rel_l2=rel)
+    if launched != dict(flash=want, flash_tc=0, flash_tf32=want):
+        raise AssertionError(f"transformer round (d {2 * hidden}): flash "
+                             f"launches {launched}, expected {want} on the "
+                             f"TF32 kernel")
+    return dict(d_model=2 * hidden, layers=layers, T=T,
+                logits_max_abs_diff=err, round_update_rel_l2=rel,
+                round_flash_launches=launched)
 
 
 def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16",
@@ -2438,8 +2513,9 @@ def _check_alpha(name, alpha, online):
 def zoo_path(name, fed, optim, data, seed, tcfg, define_model,
              make_algorithm, FederatedTrainer, qk, fa, val=None):
     """One zoo path at the north-star sizes through the library entry
-    points: 1 warm-up and ``ZOO_TIMED_ROUNDS`` timed rounds, the counters
-    set to 0 just before and read just after; finite losses, moved and
+    points: ``ZOO_TIMED_ROUNDS`` timed rounds (no warm-up: the main path
+    warmed the model's kernels), the counters set to 0 just before and
+    read just after; finite losses, moved and
     finite server params, every aux tree finite, lambda on the simplex.
     A personalized path trains on ``data`` with ``val`` as the clients'
     validation rows, then runs ``evaluate_personal`` once, timed: finite
@@ -2455,10 +2531,8 @@ def zoo_path(name, fed, optim, data, seed, tcfg, define_model,
         if cfg.federated.quantized else dict.fromkeys(
             ("ragged_stats", "ragged_apply", "stats", "apply"), 0)
     per.update(flash=0, flash_tc=0, flash_tf32=0)
-    rounds = 1 + ZOO_TIMED_ROUNDS
+    rounds = ZOO_TIMED_ROUNDS
     reset_counters(qk, fa)
-    torch.cuda.synchronize()
-    server, clients, _ = trainer.run_rounds(server, clients, 1)
     # the timed rounds' wire-format calls between CUDA events
     wire = []
     for hook in ("payload_batch_transform", "aggregate_transform"):
@@ -3789,7 +3863,7 @@ def faults_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     resident run's params and generator state after its 2 rounds) and
     ``faults_dp`` (``FAULTS_DP``: DP-FedAvg composed with
     ``trimmed_mean``), each 1 warm-up and 1 timed round and (but the
-    stream run) 1 profiled; cuDNN deterministic for the phase. Then the
+    stream run and the second fault-free run) 1 profiled; cuDNN deterministic for the phase. Then the
     uplink stack of a ``zero`` and a ``collude`` round held against the
     plain version, and the drill's and the DP path's rounds cut to 4
     clients and 2 steps card vs CPU in float32."""
@@ -3809,10 +3883,11 @@ def faults_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
                 ("faults_free_again", {}, "device"))
         finals = {}
         for name, fault, plane in runs:
+            # faults_free_again's profile would be faults_free's again
             out["paths"][name], *finals[name] = faults_path(
                 name, faults_config(tcfg, fault, plane), data, seed,
                 define_model, make_algorithm, FederatedTrainer, qk, fa,
-                profile=plane == "device")
+                profile=plane == "device" and name != "faults_free_again")
         crafted = {}
         for mode, need in (("zero", 1), ("collude", 2)):
             crafted[mode] = crafted_stack(
@@ -4210,16 +4285,18 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
     CIFAR-10 files written from ``seed``, through the CLI, cuDNN
     deterministic:
 
-    * ``reference``: ``LIFECYCLE_ROUNDS`` rounds, an evaluation, a
-      checkpoint and a keep every round (the newest 2 kept), telemetry at
-      its default; each round's server params and generator hashed; 2 +
-      2 ragged launches a round; every metrics row valid, one a round,
-      the final health intent ``complete``; the checkpoint's size and the
-      sync save's ms. Run three times on the device plane, one after
-      another: ``reference_off`` (no evaluations and so no saves),
-      ``reference_sync`` and ``reference_async`` (``--async_checkpoint``),
-      each bitwise the others round by round, the async keeps bitwise the
-      sync ones; their round ms (the timer's round, saves outside it) and
+    * ``reference``: rounds with an evaluation, a checkpoint and a keep
+      every round (the newest 2 kept), telemetry at its default; each
+      round's server params and generator hashed; 2 + 2 ragged launches
+      a round; every metrics row valid, one a round, the final health
+      intent ``complete``; the checkpoint's size and the sync save's ms.
+      Run three times on the device plane, one after another:
+      ``reference_off`` (no evaluations and so no saves;
+      ``LIFECYCLE_ROUNDS`` rounds, the hashes the drills are held to),
+      ``reference_sync`` and ``reference_async`` (``--async_checkpoint``;
+      ``LIFECYCLE_SAVED_ROUNDS`` rounds each), each bitwise the others
+      round by round, the async keeps bitwise the sync ones; their round
+      ms (the timer's round, saves outside it) and
       the loop's checkpoint ms a round (the save call in the loop; the
       async writer's final flush apart) side by side.
     * ``stream_default``, ``stream_off``: ``LIFECYCLE_STREAM_ROUNDS``
@@ -4235,8 +4312,8 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
       round is bitwise the reference's; its resume ms.
     * ``drill_sync`` and ``drill_async``: the kill drill
       (:func:`lifecycle_drill`), with sync and with ``--async_checkpoint``
-      saves, beside this process's stream and supervisor runs (their
-      round ms are not comparable and not reported). ``beside()``, when
+      saves, beside this process's torn, stream and supervisor runs
+      (their round ms are not comparable and not reported). ``beside()``, when
       given, is called as the drills start: it starts other phases'
       child processes that belong in this untimed window.
     * ``supervisor``: :func:`lifecycle_supervisor`.
@@ -4260,7 +4337,7 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
     def lap(name):
         out["laps_s"][name] = time.perf_counter() - t_phase
         log(f"lifecycle: {name} done at {out['laps_s'][name]:.1f} s")
-    R = LIFECYCLE_ROUNDS
+    S = LIFECYCLE_SAVED_ROUNDS
     want_launch = dict(ragged_stats=2, ragged_apply=2, stats=0, apply=0,
                        flash=0, flash_tc=0, flash_tf32=0)
     try:
@@ -4269,13 +4346,15 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
             # -- the reference: saves off, sync and async, in this
             # process on the device plane, one after another
             refs, want = {}, None
-            for name, extra in (
-                    ("reference_off", ("--eval_freq", "1000")),
-                    ("reference_sync", ()),
-                    ("reference_async", ("--async_checkpoint",))):
+            for name, extra, R in (
+                    ("reference_off", ("--eval_freq", "1000"),
+                     LIFECYCLE_ROUNDS),
+                    ("reference_sync", (), S),
+                    ("reference_async", ("--async_checkpoint",), S)):
                 run_dir = os.path.join(root, name)
                 res, launched, hashes, wall, win = lifecycle_run(
-                    lifecycle_argv(root, extra=extra), run_dir, qk, fa)
+                    lifecycle_argv(root, rounds=R, extra=extra), run_dir,
+                    qk, fa)
                 rows = _rows(run_dir)
                 for row in rows:
                     validate_metrics_row(row)
@@ -4307,7 +4386,7 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
                         or health["intent"] != "complete" \
                         or res["rounds"] != R:
                     raise AssertionError(f"lifecycle {name}: {refs[name]}")
-                if got != want:
+                if got != {r: want[r] for r in got}:
                     raise AssertionError(
                         f"lifecycle {name}: its rounds differ from "
                         f"reference_off's: {first_difference(got, want)}")
@@ -4319,42 +4398,11 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
                         f"{first_difference(keep_hashes(run_dir), want)}")
             out["reference"] = refs
             lap("reference")
-            # -- a torn newest keep: resume takes the previous valid one
-            torn_dir = os.path.join(root, "torn")
-            shutil.copytree(os.path.join(root, "reference_sync"), torn_dir)
-            inj = host_chaos.HostFaultInjector(("ckpt.torn",),
-                                               rate=1.0).install()
-            try:
-                for fname in ("checkpoint.ckpt", f"checkpoint_r{R}.ckpt"):
-                    path = os.path.join(torn_dir, fname)
-                    with open(path, "rb") as f:
-                        blob = host_chaos.maybe_truncate("ckpt.torn",
-                                                         f.read())
-                    with open(path, "wb") as f:
-                        f.write(blob)
-            finally:
-                inj.uninstall()
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
-                res, launched, hashes, _, _ = lifecycle_run(
-                    lifecycle_argv(root, extra=["--resume", torn_dir]),
-                    torn_dir, qk, fa)
-            said = " ".join(str(w.message) for w in seen)
-            named = [f for f in ("checkpoint.ckpt", f"checkpoint_r{R}.ckpt",
-                                 f"checkpoint_r{R - 1}.ckpt")
-                     if f in said]
-            out["torn"] = dict(
-                warning=said[:400], named=named, rounds_run=len(hashes),
-                resume_ms=res["timer"]["resume"] * 1e3,
-                launches=launched)
-            lap("torn")
-            if len(named) != 3 or len(hashes) != 1 \
-                    or hashes[0] != want[R]:
-                raise AssertionError(f"lifecycle torn: {out['torn']}")
             # -- the kill drills: their children run beside this process's
-            # stream and supervisor runs (a drill waits on its children;
-            # one child a drill runs at a time), and so do the children
-            # ``beside()`` starts (a third drill, the podscale CLI pair)
+            # torn, stream and supervisor runs (a drill waits on its
+            # children; one child a drill runs at a time), and so do the
+            # children ``beside()`` starts (a third drill, the podscale
+            # CLI pair)
             drills = {}
 
             def drill(name, extra):
@@ -4373,6 +4421,42 @@ def lifecycle_phase(seed, tcfg, define_model, make_algorithm,
             if beside is not None:
                 beside()
             try:
+                # -- a torn newest keep: resume takes the previous valid
+                # one
+                torn_dir = os.path.join(root, "torn")
+                shutil.copytree(os.path.join(root, "reference_sync"),
+                                torn_dir)
+                inj = host_chaos.HostFaultInjector(("ckpt.torn",),
+                                                   rate=1.0).install()
+                try:
+                    for fname in ("checkpoint.ckpt", f"checkpoint_r{S}.ckpt"):
+                        path = os.path.join(torn_dir, fname)
+                        with open(path, "rb") as f:
+                            blob = host_chaos.maybe_truncate("ckpt.torn",
+                                                             f.read())
+                        with open(path, "wb") as f:
+                            f.write(blob)
+                finally:
+                    inj.uninstall()
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    res, launched, hashes, _, _ = lifecycle_run(
+                        lifecycle_argv(root, rounds=S,
+                                       extra=["--resume", torn_dir]),
+                        torn_dir, qk, fa)
+                said = " ".join(str(w.message) for w in seen)
+                named = [f for f in ("checkpoint.ckpt",
+                                     f"checkpoint_r{S}.ckpt",
+                                     f"checkpoint_r{S - 1}.ckpt")
+                         if f in said]
+                out["torn"] = dict(
+                    warning=said[:400], named=named, rounds_run=len(hashes),
+                    resume_ms=res["timer"]["resume"] * 1e3,
+                    launches=launched)
+                lap("torn")
+                if len(named) != 3 or len(hashes) != 1 \
+                        or hashes[0] != want[S]:
+                    raise AssertionError(f"lifecycle torn: {out['torn']}")
                 lifecycle_stream_and_supervisor(
                     root, seed, tcfg, define_model, make_algorithm,
                     stack_partitions, FederatedTrainer, qk, fa, want,
@@ -6295,8 +6379,8 @@ def check_lm_launches(out, route):
 # runs a subset (a phase that needs another's numbers brings it along)
 PHASES = ("kernels", "reference", "main", "stream", "cli", "zoo", "localsgd",
           "tasks", "models", "faults", "lifecycle", "federation", "fusion",
-          "wideresnet", "transformer", "transformer_d512", "transformer_f32",
-          "moe", "podscale")
+          "wideresnet", "transformer", "transformer_d512", "transformer_d1024",
+          "transformer_f32", "moe", "podscale")
 PHASE_NEEDS = {"faults": ("main",)}
 
 
@@ -6320,8 +6404,9 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
     run's)."""
     main, cli_out = results["main_path"], results["cli"]
     wrn, lm = results["wrn_main_path"], results["transformer_main_path"]
-    d512, f32 = (results[f"{n}_main_path"]
-                 for n in ("transformer_d512", "transformer_f32"))
+    d512, d1024, f32 = (results[f"{n}_main_path"]
+                        for n in ("transformer_d512", "transformer_d1024",
+                                  "transformer_f32"))
     zoo, tasks, models = (results[n] for n in ("zoo", "tasks", "models"))
     faults, stream = results["faults"], results["stream"]
     federation, fusion = results["federation"], results["fusion"]
@@ -6331,7 +6416,7 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
              ("cli_apfl", results["cli_apfl"]),
              ("localsgd", results["localsgd"]), ("wideresnet28_10", wrn),
              ("transformer", lm), ("transformer_d512", d512),
-             ("transformer_f32", f32),
+             ("transformer_d1024", d1024), ("transformer_f32", f32),
              ("cli_stream_mmap", cli_out["stream_mmap"])) + tuple(
                  (f"zoo_{n}", r) for n, r in zoo["paths"].items()) + tuple(
                  (f"tasks_{n}", r) for n, r in tasks["paths"].items()) + tuple(
@@ -6355,11 +6440,14 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
                       - r["tree_launches"]["ragged_apply"] for p, r in paths}
-    # one counter for both head dims of the wgmma kernel: a path's
-    # launches go to its head dim's entry
+    # one counter for every head dim of the wgmma kernel: a path's
+    # launches go to its head dim's entry (64 but on these two)
+    dims = {"transformer_d512": 128, "transformer_d1024": 256}
     tc_by_dim = {d: {p: n for p, n in by_path["flash_tc"].items()
-                     if (p == "transformer_d512") == (d == 128)}
-                 for d in fa.TC_HEAD_DIMS}
+                     if dims.get(p, 64) == d} for d in (64, 128, 256)}
+    # the TF32 kernel at D 256: the float32 cut of transformer_d1024
+    tf32_by_path = dict(by_path["flash_tf32"], transformer_d1024_f32_cut=(
+        d1024["f32_cut"]["round_flash_launches"]["flash_tf32"]))
     kernels = [
         dict(name="qdq_ragged_stats_f32", route="cuda", source=RAGGED_SOURCE,
              replaces=TPU_KERNEL, launches=main["launches"]["ragged_stats"],
@@ -6388,7 +6476,7 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
              launches_by_path=single_by_path, on_main_path=False,
              library_ms=None, library_note=NO_LIBRARY, **single_fields),
         # the wgmma kernel: head dim 64 on the transformer path, 128 on
-        # transformer_d512 (one counter for both)
+        # transformer_d512, 256 on transformer_d1024 (one counter for all)
         dict(name="flash_fwd_tc (D 64)", route="cuda",
              source=FLASH_TC_SOURCE, replaces=FLASH_TPU_KERNEL,
              launches=lm["launches"]["flash_tc"],
@@ -6403,12 +6491,19 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
              launches_by_path=tc_by_dim[128],
              launches_per_round=d512["launches_per_round"]["flash_tc"],
              **flash_fields["tc128"]),
-        # the TF32 kernel: float32 (transformer_f32, the reference phase),
-        # other head dims, misaligned views
+        dict(name="flash_fwd_tc (D 256)", route="cuda",
+             source=FLASH_TC_SOURCE, replaces=FLASH_TPU_KERNEL,
+             launches=d1024["launches"]["flash_tc"],
+             launches_by_path=tc_by_dim[256],
+             launches_per_round=d1024["launches_per_round"]["flash_tc"],
+             **flash_fields["tc256"]),
+        # the TF32 kernel: float32 (transformer_f32, the reference phase,
+        # transformer_d1024's float32 cut at D 256), other head dims,
+        # misaligned views
         dict(name="flash_fwd_tf32", route="cuda", source=FLASH_TF32_SOURCE,
              replaces=FLASH_TPU_KERNEL,
              launches=f32["launches"]["flash_tf32"],
-             launches_by_path=by_path["flash_tf32"],
+             launches_by_path=tf32_by_path,
              launches_per_round=f32["launches_per_round"]["flash_tf32"],
              **flash_fields["tf32"]),
     ]
@@ -6732,6 +6827,8 @@ def main(argv=None) -> int:
     for name, sizes, dtype, rounds, route in (
             ("transformer_d512", LM_D512, "bfloat16", D512_TIMED_ROUNDS,
              "flash_tc"),
+            ("transformer_d1024", LM_D1024, "bfloat16", D1024_TIMED_ROUNDS,
+             "flash_tc"),
             ("transformer_f32", LM, "float32", F32_TIMED_ROUNDS,
              "flash_tf32")):
         if not want(name):
@@ -6748,6 +6845,18 @@ def main(argv=None) -> int:
         results[f"{name}_profile"] = profile_phase(
             trainer, server, clients, out["launches_per_round"])
         del trainer, server, clients
+        if name == "transformer_d1024":
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"{name}: tiled launches a round "
+                f"{out['launches_per_round']['stats']:g} + "
+                f"{out['launches_per_round']['apply']:g} (one of each per "
+                f"leaf size past {qk._MAX_ROW_ELEMS:,}, uplink and downlink)")
+            # its round cut in float32: the TF32 kernel at D 256, card vs
+            # CPU
+            out["f32_cut"] = lm_reference_phase(
+                tcfg, define_model, make_algorithm, stack_partitions,
+                FederatedTrainer, fa, **D1024_CUT)
 
     if want("moe"):
         phase("moe")

@@ -1,5 +1,5 @@
 // Exact attention forward with the online softmax on Hopper's tensor cores
-// (sm_90a): bfloat16 q, k, v with head dim 64 or 128.
+// (sm_90a): bfloat16 q, k, v with head dim 64, 128, 192 or 256.
 //
 // Replaces the TPU Pallas kernel `_fwd_kernel`
 // (fedtorch_tpu/ops/pallas/flash_attention.py:82), for the inputs that
@@ -20,11 +20,14 @@
 // twice (p split in two bf16 halves, below), so the tensor cores do 1.5x
 // the useful work, 25.8 GFLOP: 0.0261 ms at peak. At D = 128 (the heads
 // of a d_model-512 transformer) the products double, 34.4 GFLOP useful:
-// 0.03476 ms, while the softmax's work per score stays the same.
+// 0.03476 ms, while the softmax's work per score stays the same. At D =
+// 256 (the heads of a d_model-1024 transformer, and Gemma 7B's) it is
+// 68.7 GFLOP: 0.0695 ms at peak, against 0.040 ms for the bytes.
 //
 // Design:
 // - One CTA of 288 threads per (batch*head, 128 query rows): two consumer
-//   warpgroups of 64 rows each and one producer warp. The heaviest causal
+//   warpgroups of 64 rows each and one producer warp (a producer
+//   warpgroup, 384 threads, past D 128; below). The heaviest causal
 //   query tiles are launched first (grid y runs from the last tile down).
 // - The producer's lane 0 loads the CTA's Q tile once and streams the K
 //   and V tiles (64 keys each) by TMA into a 4-stage shared-memory ring
@@ -37,6 +40,22 @@
 //   `wgmma` reads without bank conflicts. At D = 128, Q takes 32 KB and a
 //   K or V tile 16 KB, so Q and the ring take 160 KB of the 227 KB, and
 //   the two sanitized V tiles of the non-finite rules (below) 32 KB more.
+// - Past D 128 the K and V tiles hold 32 keys (`Cfg::kBK`). With 64, D
+//   256 would need Q 64 KB + a 4-stage ring of 32 KB K and V tiles (256
+//   KB) + two sanitized tiles (64 KB): 385 KB. With 32 the ring takes 128
+//   KB and the sanitized tiles 32 KB: 64 + 128 + 32 + 1 (alignment) = 225
+//   KB, 230,400 B of the 232,448 a block may take (D 192: 169 KB). The
+//   halved tile also halves S and P in registers: at D 256 a consumer
+//   thread holds O of m64n256 (128 float32), S of m64n32 (16) and the two
+//   P halves (16). ptxas gives every thread of a 288-thread CTA 168
+//   registers (it counts whole warpgroups: 65,536 / 384); there the D-256
+//   instance spilled 1,772 bytes and ptxas serialized its `wgmma`s (1.93
+//   ms a launch at (8, 2048, 4, 256), PERF.md). So past D 128 the
+//   producer is a whole warpgroup that keeps 24 registers a thread
+//   (`setmaxnreg`) and the consumers take 240: no spill.
+//   S is `wgmma m64n32k16`; P V one `m64n128k16` per pair of V's atoms
+//   (and an `m64n64k16` for D 192's third), each on its own 64 columns
+//   of the accumulators, the descriptor stepping two atoms at a time.
 // - S = Q K^T: D / 16 `wgmma m64n64k16` from shared memory into float32
 //   accumulators, the descriptors stepping 32 bytes along an atom's rows
 //   and then to the next atom; then the scale; the causal mask only on
@@ -50,8 +69,8 @@
 //   float32 bar plus one bf16 spacing of o). Both halves go through
 //   `wgmma m64nDk16` with A from registers (the S accumulator fragment
 //   re-packed as the A operand) and V from shared memory through the
-//   transpose bit; at D = 128 the descriptor's leading byte offset steps
-//   from V's first atom to its second. l is summed in float32 from p
+//   transpose bit; from D = 128 on the descriptor's leading byte offset
+//   steps from one of V's atoms to the next. l is summed in float32 from p
 //   before the split.
 // - Inside a warpgroup, tile i's P V and tile i + 1's S are issued
 //   together, and tile i + 1's softmax runs while P V is on the tensor
@@ -61,7 +80,7 @@
 //   max, expf, sum, the split of p) bound it, not the tensor cores: it
 //   runs at ~6.6x the bound (PERF.md). 288 threads a CTA leave one CTA (8
 //   consumer warps) per SM; at D = 128 the O accumulators double to 64
-//   float32 a thread, within the 224 registers a thread may hold.
+//   float32 a thread, within the 168 registers ptxas gives a thread.
 //
 // Non-finite rules, those of `flash_fwd_tf32.cu` (and of `_fwd_xla`):
 // - the running max keeps NaN; m_safe = m where finite, else 0;
@@ -85,8 +104,10 @@
 //   each V tile into its warpgroup's own 1024-aligned buffer (the same
 //   swizzled bytes, non-finite bf16 zeroed) before P V, and marks NaN
 //   each causal column whose last such key lies past the warpgroup's
-//   tiles. The two copies take 16 KB (D 64) or 32 KB (D 128) of shared
-//   memory beside the ring.
+//   tiles. The two copies take 16 KB (D 64), 32 KB (D 128 and 256: 32-key
+//   tiles) or 24 KB (D 192) of shared memory beside the ring. The tiles a
+//   warpgroup scores, and so the keys past them, follow the instance's
+//   kBK.
 //
 // Rounding: compiled without --fmad=false (build.py): attention has no
 // rounding contract beyond its tolerance, and splitting the multiply-adds
@@ -99,32 +120,43 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90_ptx.cuh"
 
 namespace {
 
 constexpr int kBQ = 128;                    // query rows per CTA
-constexpr int kBK = 64;                     // keys per K/V tile
-constexpr int kSN = kBK / 2;                // S accumulators a thread
-constexpr int kPN = kBK / 4;                // bf16 pairs of P a thread
 constexpr int kStages = 4;                  // K/V ring depth
 constexpr int kConsumers = 256;             // two warpgroups
-constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr int kAtomCols = 64;               // bf16 columns of one atom
 constexpr int kRowBytes = kAtomCols * 2;    // one 128-byte swizzle row
 constexpr int kQAtomBytes = kBQ * kRowBytes;   // 16 KB
-constexpr int kKVAtomBytes = kBK * kRowBytes;  // 8 KB
 
 template <int kD>
 struct Cfg {
   static_assert(kD % kAtomCols == 0, "head dim: whole 64-column atoms");
+  // keys per K/V tile: 64 up to D 128, 32 past it (the header's budget)
+  static constexpr int kBK = kD > 128 ? 32 : 64;
+  static constexpr int kSN = kBK / 2;  // S accumulators a thread
+  static constexpr int kPN = kBK / 4;  // bf16 pairs of P a thread
+  // the producer: one warp up to D 128; past it a whole warpgroup, whose
+  // registers `setmaxnreg` hands to the consumers (the header's budget)
+  static constexpr bool kRegSplit = kD > 128;
+  static constexpr int kThreads = kConsumers + (kRegSplit ? 128 : 32);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static_assert(!kRegSplit || 128 * kProducerRegs + kConsumers *
+                kConsumerRegs <= 65536, "the register file");
   static constexpr int kAtoms = kD / kAtomCols;
+  static constexpr int kKVAtomBytes = kBK * kRowBytes;  // 8 or 4 KB
   static constexpr int kQBytes = kAtoms * kQAtomBytes;
   static constexpr int kKVBytes = kAtoms * kKVAtomBytes;  // a K or V tile
   // Q, the K and V ring, one sanitized V tile per consumer warpgroup,
   // and the alignment
   static constexpr int kSmemBytes =
       kQBytes + 2 * kStages * kKVBytes + 2 * kKVBytes + 1024;
+  // what a block may take, less the static barriers
+  static_assert(kSmemBytes <= 232448 - 128, "shared memory");
 };
 
 __device__ __forceinline__ bool is_finite(float x) {
@@ -180,27 +212,40 @@ __device__ __forceinline__ void sanitize_v(uint32_t dst, uint32_t src,
   __syncwarp();
 }
 
+// one k16 step of S = Q K^T over a tile of 64 or 32 keys
+__device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  sm90::wgmma_ss(s, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_qk(float (&s)[16], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  sm90::wgmma_m64n32k16_ss(s, da, db, scale_d);
+}
+
 // S = Q K^T of one key tile into `s` (uncommitted): D / 16 k16 steps,
 // each 32 bytes along the swizzled 128-byte rows of one atom of Q and K
 template <int kD>
-__device__ __forceinline__ void issue_qk(float (&s)[kSN], uint32_t q_wg,
-                                         uint32_t k_tile) {
+__device__ __forceinline__ void issue_qk(float (&s)[Cfg<kD>::kSN],
+                                         uint32_t q_wg, uint32_t k_tile) {
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
     const int atom = kk / 4, step = kk % 4;
-    sm90::wgmma_ss(s, sm90::desc_sw128(q_wg + atom * kQAtomBytes) + 2 * step,
-                   sm90::desc_sw128(k_tile + atom * kKVAtomBytes) + 2 * step,
-                   kk);
+    wgmma_qk(s, sm90::desc_sw128(q_wg + atom * kQAtomBytes) + 2 * step,
+             sm90::desc_sw128(k_tile + atom * Cfg<kD>::kKVAtomBytes) +
+                 2 * step,
+             kk);
   }
 }
 
-// The online-softmax update of one tile, in place: s holds a thread's
-// raw products of rows row0 and row0 + 8 (d[4 j + 2 r + e] is row row0 +
-// 8 r, key k0 + 8 j + 2 t4 + e) and leaves with their p; m and l move,
-// and corr[r] is the factor the accumulators of row r take. The two rows
-// go through each step together, so their shuffles and exps overlap.
-__device__ __forceinline__ void softmax(float (&s)[kSN], float (&m)[2],
+// The online-softmax update of one tile of kBK keys, in place: s holds a
+// thread's raw products of rows row0 and row0 + 8 (d[4 j + 2 r + e] is
+// row row0 + 8 r, key k0 + 8 j + 2 t4 + e) and leaves with their p; m and
+// l move, and corr[r] is the factor the accumulators of row r take. The
+// two rows go through each step together, so their shuffles and exps
+// overlap.
+template <int kBK>
+__device__ __forceinline__ void softmax(float (&s)[kBK / 2], float (&m)[2],
                                        float (&l)[2], float (&corr)[2],
                                        int k0, int row0, int wg_first, int T,
                                        float scale, int causal) {
@@ -263,11 +308,12 @@ __device__ __forceinline__ void softmax(float (&s)[kSN], float (&m)[2],
 
 // p (in s) as the A fragments of P V, split into bf16 halves: the
 // fragment of k16 step kk is the pairs (s[8 kk + 2 a], +1), a < 4
+template <int kSN>
 __device__ __forceinline__ void split_p(const float (&s)[kSN],
-                                        uint32_t (&p_hi)[kPN],
-                                        uint32_t (&p_lo)[kPN]) {
+                                        uint32_t (&p_hi)[kSN / 2],
+                                        uint32_t (&p_lo)[kSN / 2]) {
 #pragma unroll
-  for (int a = 0; a < kPN; ++a) {
+  for (int a = 0; a < kSN / 2; ++a) {
     const float x0 = s[2 * a], x1 = s[2 * a + 1];
     const uint32_t hi = pack_bf16(x0, x1);
     // a bf16 widens to float32 exactly: its bits in the high half
@@ -277,33 +323,41 @@ __device__ __forceinline__ void split_p(const float (&s)[kSN],
   }
 }
 
-// one k16 step of P V: 16 V rows (2048 bytes into each atom)
+// one k16 step of P V: 16 V rows (2048 bytes into each atom). The
+// accumulator's columns 128 c.. are entries 64 c.. of `acc`, so D 192 and
+// 256 issue a 128-column product per pair of atoms (and a 64-column one
+// for a last odd atom), the descriptor stepping two atoms along
 template <int kD>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[kD / 2],
-                                         const uint32_t* a, uint64_t desc);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32],
-                                             const uint32_t* a,
-                                             uint64_t desc) {
-  sm90::wgmma_m64n64k16_rs_tb(acc, a, desc);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
-                                              const uint32_t* a,
-                                              uint64_t desc) {
-  sm90::wgmma_m64n128k16_rs_tb(acc, a, desc);
+                                         const uint32_t* a, uint64_t desc) {
+  if constexpr (kD == 64) {
+    sm90::wgmma_m64n64k16_rs_tb(acc, a, desc);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kD / 128; ++c) {
+      sm90::wgmma_m64n128k16_rs_tb(
+          *reinterpret_cast<float(*)[64]>(acc + 64 * c), a,
+          desc + ((2 * c * Cfg<kD>::kKVAtomBytes) >> 4));
+    }
+    if constexpr (kD % 128 != 0) {
+      sm90::wgmma_m64n64k16_rs_tb(
+          *reinterpret_cast<float(*)[32]>(acc + kD / 2 - 32), a,
+          desc + (((kD / 64 - 1) * Cfg<kD>::kKVAtomBytes) >> 4));
+    }
+  }
 }
 
-// O = corr O + P_hi V + P_lo V_lo for one 64-key tile (uncommitted):
-// four k16 steps per half; V's two atoms (D = 128) are the descriptor's
+// O = corr O + P_hi V + P_lo V_lo for one key tile (uncommitted): kBK /
+// 16 k16 steps per half; V's atoms (D >= 128) are the descriptor's
 // leading byte offset apart. V_lo is V, or its sanitized copy (the
 // header's non-finite rules)
 template <int kD>
 __device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
-                                         uint32_t (&p_hi)[kPN],
-                                         uint32_t (&p_lo)[kPN],
+                                         uint32_t (&p_hi)[Cfg<kD>::kPN],
+                                         uint32_t (&p_lo)[Cfg<kD>::kPN],
                                          const float (&corr)[2],
                                          uint32_t v_tile, uint32_t v_lo) {
+  constexpr int kBK = Cfg<kD>::kBK;
 #pragma unroll
   for (int j = 0; j < kD / 8; ++j) {
 #pragma unroll
@@ -312,7 +366,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
       acc[4 * j + 2 * r + 1] *= corr[r];
     }
   }
-  const uint32_t lbo = kD > kAtomCols ? kKVAtomBytes : 1024;
+  const uint32_t lbo = kD > kAtomCols ? Cfg<kD>::kKVAtomBytes : 1024;
   const uint64_t desc_v = sm90::desc_sw128(v_tile, lbo);
   const uint64_t desc_lo = sm90::desc_sw128(v_lo, lbo);
   sm90::fence_regs(acc);
@@ -361,10 +415,11 @@ __device__ __forceinline__ void consume(
     const int* __restrict__ last, float scale, int causal,
     bool dirty_flag) {
   using C = Cfg<kD>;
+  constexpr int kBK = C::kBK, kSN = C::kSN;
   const bool dirty = kDirty == kRuntime ? dirty_flag : kDirty == kNonfinite;
   // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
   float acc[kD / 2], s[kSN];
-  uint32_t p_hi[kPN], p_lo[kPN];
+  uint32_t p_hi[C::kPN], p_lo[C::kPN];
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -378,7 +433,7 @@ __device__ __forceinline__ void consume(
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(s);
-  softmax(s, m, l, corr, 0, row0, wg_first, T, scale, causal);
+  softmax<kBK>(s, m, l, corr, 0, row0, wg_first, T, scale, causal);
   split_p(s, p_hi, p_lo);
 
   // Tile i's P V runs under tile i + 1's softmax, and tile i + 1's S
@@ -398,7 +453,8 @@ __device__ __forceinline__ void consume(
 
     sm90::wgmma_wait<1>();  // S of tile i + 1
     sm90::fence_regs(s);
-    softmax(s, m, l, corr, (i + 1) * kBK, row0, wg_first, T, scale, causal);
+    softmax<kBK>(s, m, l, corr, (i + 1) * kBK, row0, wg_first, T, scale,
+                 causal);
 
     sm90::wgmma_wait<0>();  // P V of tile i: its stage and P are free
     sm90::fence_regs(acc);
@@ -455,7 +511,7 @@ __device__ __forceinline__ void consume(
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<kD>::kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
@@ -463,6 +519,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const int* __restrict__ last, int H, int T, float scale,
                     int causal) {
   using C = Cfg<kD>;
+  constexpr int kBK = C::kBK;
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -493,6 +550,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (threadIdx.x >= kConsumers) {
     // producer: one lane issues every load
+    if constexpr (C::kRegSplit) sm90::setmaxnreg_dec<C::kProducerRegs>();
     if (threadIdx.x != kConsumers) return;
     sm90::mbar_expect_tx(sm90::smem_addr(&q_full), C::kQBytes);
     tma_tile<kD>(q_s, &qmap, sm90::smem_addr(&q_full), kQAtomBytes, h, q0,
@@ -504,14 +562,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_wait(sm90::smem_addr(&empty[s]), ((i / kStages) & 1) ^ 1);
       const uint32_t bar = sm90::smem_addr(&full[s]);
       sm90::mbar_expect_tx(bar, 2 * C::kKVBytes);
-      tma_tile<kD>(k_s + s * C::kKVBytes, &kmap, bar, kKVAtomBytes, h,
+      tma_tile<kD>(k_s + s * C::kKVBytes, &kmap, bar, C::kKVAtomBytes, h,
                    i * kBK, b);
-      tma_tile<kD>(v_s + s * C::kKVBytes, &vmap, bar, kKVAtomBytes, h,
+      tma_tile<kD>(v_s + s * C::kKVBytes, &vmap, bar, C::kKVAtomBytes, h,
                    i * kBK, b);
     }
     return;
   }
 
+  if constexpr (C::kRegSplit) sm90::setmaxnreg_inc<C::kConsumerRegs>();
   // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; in the
   // accumulator layout lane (g, t4) of warp w holds rows 16 w + g and
   // 16 w + g + 8, columns 8 j + 2 t4 + {0, 1}: d[4 j + 2 r + e] is row
@@ -668,18 +727,31 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int64_t B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the maps (K and V in tiles of the instance's kBK keys), the pre-pass
+// and the kernel at head dim kD
 template <int kD>
-int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, void* o, float* lse, const int* last,
-           int64_t B, int64_t T_len, int64_t H, float scale, int causal,
-           cudaStream_t stream) {
+int launch(EncodeTiled enc, const void* q, const void* k, const void* v,
+           void* o, float* lse, int* last, int64_t B, int64_t T_len,
+           int64_t H, int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
+           int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
+           float scale, int causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!make_map(enc, &qm, q, B, T_len, H, kD, sqb, sqt, sqh, kBQ) ||
+      !make_map(enc, &km, k, B, T_len, H, kD, skb, skt, skh, Cfg<kD>::kBK) ||
+      !make_map(enc, &vm, v, B, T_len, H, kD, svb, svt, svh, Cfg<kD>::kBK)) {
+    return -3;
+  }
+  const int pre = launch_last(v, last, B, T_len, H, kD, svb, svt, svh,
+                              stream);
+  if (pre != 0) return pre;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg<kD>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(B * H),
                   static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
-  flash_fwd_tc_kernel<kD><<<grid, kThreads, Cfg<kD>::kSmemBytes, stream>>>(
+  flash_fwd_tc_kernel<kD>
+      <<<grid, Cfg<kD>::kThreads, Cfg<kD>::kSmemBytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, last,
       static_cast<int>(H), static_cast<int>(T_len), scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -687,9 +759,9 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 
 }  // namespace
 
-// q, k, v: bfloat16 [B, T, H, D] views (D = 64 or 128) on the current
-// device with the given element strides for b, t and h and a d stride of
-// 1; base pointers 16-byte aligned and strides multiples of 8 (the Python
+// q, k, v: bfloat16 [B, T, H, D] views (D = 64, 128, 192 or 256) on the
+// current device with the given element strides for b, t and h and a d
+// stride of 1; base pointers 16-byte aligned and strides multiples of 8 (the Python
 // wrapper checks both). o: contiguous bf16 [B, T, H, D]; lse: contiguous
 // float32 [B, H, T]; last: B * H * D int32 of scratch for the pre-pass.
 // T >= 1. Launches the pre-pass and the kernel on `stream`; returns
@@ -702,23 +774,26 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
                             int64_t skt, int64_t skh, int64_t svb,
                             int64_t svt, int64_t svh, float scale,
                             int causal, void* stream) {
-  if (D != 64 && D != 128) return -1;
+  if (D != 64 && D != 128 && D != 192 && D != 256) return -1;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return -2;
-  CUtensorMap qm, km, vm;
-  if (!make_map(enc, &qm, q, B, T_len, H, D, sqb, sqt, sqh, kBQ) ||
-      !make_map(enc, &km, k, B, T_len, H, D, skb, skt, skh, kBK) ||
-      !make_map(enc, &vm, v, B, T_len, H, D, svb, svt, svh, kBK)) {
-    return -3;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* lst = static_cast<int*>(last);
-  const int err = launch_last(v, lst, B, T_len, H, D, svb, svt, svh, st);
-  if (err != 0) return err;
-  return D == 64 ? launch<64>(qm, km, vm, o, lse, lst, B, T_len, H, scale,
-                              causal, st)
-                 : launch<128>(qm, km, vm, o, lse, lst, B, T_len, H, scale,
-                               causal, st);
+  auto go = [&](auto d) {
+    return launch<decltype(d)::value>(enc, q, k, v, o, lse, lst, B, T_len, H,
+                                      sqb, sqt, sqh, skb, skt, skh, svb, svt,
+                                      svh, scale, causal, st);
+  };
+  switch (D) {
+    case 64:
+      return go(std::integral_constant<int, 64>());
+    case 128:
+      return go(std::integral_constant<int, 128>());
+    case 192:
+      return go(std::integral_constant<int, 192>());
+    default:
+      return go(std::integral_constant<int, 256>());
+  }
 }
 
 // The pre-pass alone, as flash_fwd_tc launches it (for timing it apart):
@@ -727,7 +802,7 @@ extern "C" int flash_tc_last_nonfinite(const void* v, void* last, int64_t B,
                                        int64_t T_len, int64_t H, int64_t D,
                                        int64_t svb, int64_t svt, int64_t svh,
                                        void* stream) {
-  if (D != 64 && D != 128) return -1;
+  if (D != 64 && D != 128 && D != 192 && D != 256) return -1;
   return launch_last(v, static_cast<int*>(last), B, T_len, H, D, svb, svt,
                      svh, static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,13 @@
 // Exact attention forward with the online softmax on Hopper's tensor cores
-// in TF32 (sm_90a): float32 at any head dim up to 128, and every bfloat16
+// in TF32 (sm_90a): float32 at any head dim up to 256, and every bfloat16
 // input the wgmma kernel (`flash_fwd_sm90.cu`) does not take.
 //
 // Replaces the TPU Pallas kernel `_fwd_kernel`
 // (fedtorch_tpu/ops/pallas/flash_attention.py:82), which the JAX package
 // launches through `_fwd_pallas` (`pallas_call` at :168), for the inputs
 // that `ops/cuda/flash_attention.py::_route` sends to "tf32": float32 (the
-// library's default dtype), bfloat16 at head dims other than 64 and 128,
-// and views that are misaligned or strided past what TMA takes. It
+// library's default dtype), bfloat16 at head dims other than 64, 128, 192
+// and 256, and views that are misaligned or strided past what TMA takes. It
 // computes what that kernel and its oracle `_fwd_xla` compute: for each
 // (batch, head) and query row i, over the keys j it sees (j <= i when
 // causal),
@@ -36,26 +36,37 @@
 //   16 rows and runs `mma.sync.m16n8k8` TF32 with float32 accumulators,
 //   and each K/V tile in shared memory feeds all 8. The heaviest causal
 //   query tiles are launched first (grid y runs from the last tile down).
-//   Registers are capped at 128 a thread (2 CTAs an SM) below D 128; at
-//   D 128 one CTA an SM takes what it needs.
+//   Registers are capped at 128 a thread (2 CTAs an SM) below D 128; from
+//   D 128 on one CTA an SM takes what it needs (up to 255 a thread: a
+//   warp's O at D 256 is 16 rows x 256 columns, 128 float32 a thread).
 // - Q is read once into shared memory as float32 (bf16 widened exactly),
-//   columns >= D and rows >= T zero. K and V tiles of 32 keys come in by
+//   columns >= D and rows >= T zero. K and V tiles of 32 keys (16 past D
+//   128) come in by
 //   `cp.async` into a two-stage ring, tile i + 1's copy in flight while
 //   tile i is computed: 16-byte copies where every pointer, stride and row
 //   allows, 4-byte copies otherwise (any float32 view; bf16 with 4-byte
 //   pointers and even strides), element loads for the rest (misaligned
 //   bf16). The CTA's threads take a tile's pieces in turn, with constant
 //   loop bounds over the padded width. Rows past T are zero-filled by the
-//   copy itself, columns >= D were zeroed once, so any D <= 128 (padded to
-//   16, 32, 64 or 128) and any T >= 1 work.
+//   copy itself, columns >= D were zeroed once, so any D <= 256 (padded to
+//   16, 32, 64, 128, 192 or 256) and any T >= 1 work.
+// - Shared memory past D 128: Q as float32 at padded width 256 takes 128
+//   rows x 264 x 4 = 135,168 B; two stages of 32-key float32 K and V tiles
+//   would take 2 x 32 x (264 + 260) x 4 = 134,144 B more, 269,312 in all,
+//   past the 232,448 B a block may take. So the tiles past D 128 hold 16
+//   keys: 2 x 16 x (264 + 260) x 4 = 67,072 B, 202,240 in all (bf16:
+//   135,168 + 2 x 16 x (264 + 264) x 2 = 168,960; D 192 in float32:
+//   102,400 + 2 x 16 x (200 + 196) x 4 = 153,088). The query tile, the
+//   grid and the warps stay; S shrinks to 8 accumulators a thread, which
+//   the 128 of O need.
 // - S = Q K^T with d paired as (2t, 2t + 1) in both operands, so each
 //   fragment is one 64-bit (float32) or 32-bit (bf16) shared load. P V
 //   takes P straight from the S accumulators: the keys of a k8 step are
 //   permuted so that the accumulator's columns (2t, 2t + 1) are the A
 //   operand's (t, t + 4), and V's rows are read in the same order. Row
 //   strides are padded so both fragment loads are free of bank conflicts.
-// - Q, K, V and p are split into hi and lo where they are loaded; at D =
-//   128 the Q fragments of a warp's 16 rows would not fit in registers as
+// - Q, K, V and p are split into hi and lo where they are loaded; from D
+//   = 128 on the Q fragments of a warp's 16 rows would not fit in registers as
 //   hi and lo, so Q stays in shared memory as float32 and is split per
 //   k8 step, once for all the tile's keys.
 // - Causal: tiles wholly past the query tile's last row are not loaded,
@@ -105,20 +116,22 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;  // query rows per CTA
-constexpr int kBK = 32;           // keys per K/V tile
-constexpr int kSN = kBK / 2;      // S accumulators a thread
 
 struct Strides {
   int64_t b, t, h;  // element strides of a [B, T, H, D] view (d's is 1)
 };
 
 // Shared memory of one CTA at padded head dim DP: Q as float32, then two
-// stages of a K and a V tile in the input type. Row strides (elements)
-// keep the fragment loads conflict-free: Q and K are read as (2t, 2t + 1)
-// pairs of rows g (stride = 8 words mod 32), V as single values of rows
-// 2t and 2t + 1 (stride = 4 words mod 32 in float32, 8 halves in bf16).
+// stages of a K and a V tile of kBK keys in the input type. Row strides
+// (elements) keep the fragment loads conflict-free: Q and K are read as
+// (2t, 2t + 1) pairs of rows g (stride = 8 words mod 32), V as single
+// values of rows 2t and 2t + 1 (stride = 4 words mod 32 in float32, 8
+// halves in bf16). Past DP 128 the tiles hold 16 keys (the header's
+// arithmetic).
 template <typename T, int DP>
 struct Layout {
+  static constexpr int kBK = DP > 128 ? 16 : 32;  // keys per K/V tile
+  static constexpr int kSN = kBK / 2;             // S accumulators a thread
   static constexpr int kQS = DP + 8;
   static constexpr int kKS = DP + 8;
   static constexpr int kVS = sizeof(T) == 4 ? DP + 4 : DP + 8;
@@ -127,6 +140,7 @@ struct Layout {
   static constexpr int kVBytes = kBK * kVS * static_cast<int>(sizeof(T));
   static constexpr int kStage = kKBytes + kVBytes;
   static constexpr int kBytes = kQBytes + 2 * kStage;
+  static_assert(kBytes <= 232448, "the shared memory a block may take");
 };
 
 __device__ __forceinline__ bool is_finite(float x) {
@@ -231,6 +245,7 @@ template <typename T, int DP, int kS>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
                                           int r0, int T_len, int D,
                                           int mode) {
+  constexpr int kBK = Layout<T, DP>::kBK;
   auto piece = [&](auto bytes) {
     constexpr int E = decltype(bytes)::value / sizeof(T);  // elements
     constexpr int kC = DP / E;                              // a row's
@@ -260,7 +275,8 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
 // products of rows row0 and row0 + 8 (s[4 j + 2 r + e] is row row0 + 8 r,
 // key k0 + 8 j + 2 t + e) and leaves with their p; m and l move, and
 // corr[r] is the factor the accumulators of row r take.
-__device__ __forceinline__ void softmax(float (&s)[kSN], float (&m)[2],
+template <int kBK>
+__device__ __forceinline__ void softmax(float (&s)[kBK / 2], float (&m)[2],
                                        float (&l)[2], float (&corr)[2],
                                        int k0, int row0, int w_first,
                                        int T_len, float scale, int causal) {
@@ -325,9 +341,10 @@ __device__ __forceinline__ void softmax(float (&s)[kSN], float (&m)[2],
 // products go to sx and are added where the hi products' sum is finite
 // (the header's non-finite rules).
 template <typename T, int DP>
-__device__ __forceinline__ void qk(float (&s)[kSN], const float* q_row,
-                                   const T* ks) {
+__device__ __forceinline__ void qk(float (&s)[Layout<T, DP>::kSN],
+                                   const float* q_row, const T* ks) {
   using L = Layout<T, DP>;
+  constexpr int kBK = L::kBK, kSN = L::kSN;
   constexpr bool kF32 = sizeof(T) == 4;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   float sx[kSN];
@@ -392,9 +409,10 @@ __device__ __forceinline__ uint32_t finite_mask(uint32_t bits) {
 // t + 4: the accumulator column 2t + 1); V's rows are read in that order.
 template <typename T, int DP, bool kMask>
 __device__ __forceinline__ void pv(float (&acc)[DP / 2],
-                                   const float (&s)[kSN],
+                                   const float (&s)[Layout<T, DP>::kSN],
                                    const float (&corr)[2], const T* vs) {
   using L = Layout<T, DP>;
+  constexpr int kBK = L::kBK;
   constexpr bool kF32 = sizeof(T) == 4;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -447,7 +465,7 @@ __device__ __forceinline__ void pv(float (&acc)[DP / 2],
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, DP == 128 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, DP >= 128 ? 1 : 2)
 flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse,
@@ -455,6 +473,7 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       Strides sv, int H, int T_len, int D, float scale,
                       int causal, int mode) {
   using L = Layout<T, DP>;
+  constexpr int kBK = L::kBK;
   extern __shared__ __align__(16) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem);
   T* ks[2];
@@ -515,7 +534,7 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // anywhere (the flags follow the B*H*D table)
   const bool dirty = last[static_cast<int64_t>(gridDim.x) * D + bh] >= 0;
 
-  float acc[DP / 2], s[kSN];
+  float acc[DP / 2], s[L::kSN];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
@@ -531,7 +550,7 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = i * kBK;
     if (k0 < w_end) {
       qk<T, DP>(s, q_row, ks[i & 1]);
-      softmax(s, m, l, corr, k0, row0, w_first, T_len, scale, causal);
+      softmax<kBK>(s, m, l, corr, k0, row0, w_first, T_len, scale, causal);
       if (dirty) {
         pv<T, DP, true>(acc, s, corr, vs[i & 1]);
       } else {
@@ -574,26 +593,31 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The pre-pass: last[bh * D + c] = the last key whose v[b, key, h, c] is
 // not finite, and last[B * H * D + bh] = the last such key of any column
 // (both -1 where there is none; the caller sets -1). One block per
-// (batch*head, kLastRows keys), one thread per column; non-finite values
-// are rare, so the atomics are too.
+// (batch*head, kLastRows keys); its 128 threads take the columns in turn
+// (two each past D 128); non-finite values are rare, so the atomics are
+// too.
 constexpr int kLastRows = 64;
+constexpr int kLastThreads = 128;
 
 template <typename T>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kLastThreads)
 v_last_nonfinite_kernel(const T* __restrict__ v, Strides sv, int H,
                         int T_len, int D, int* __restrict__ last) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, c = threadIdx.x;
-  if (c >= D) return;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int r0 = blockIdx.y * kLastRows;
   const int r1 = min(r0 + kLastRows, T_len);
-  const T* col = v + b * sv.b + h * sv.h + c;
-  int found = -1;
-  for (int r = r0; r < r1; ++r) {
-    if (!is_finite(to_float(col[static_cast<int64_t>(r) * sv.t]))) found = r;
-  }
-  if (found >= 0) {
-    atomicMax(last + static_cast<int64_t>(bh) * D + c, found);
-    atomicMax(last + static_cast<int64_t>(gridDim.x) * D + bh, found);
+  for (int c = threadIdx.x; c < D; c += kLastThreads) {
+    const T* col = v + b * sv.b + h * sv.h + c;
+    int found = -1;
+    for (int r = r0; r < r1; ++r) {
+      if (!is_finite(to_float(col[static_cast<int64_t>(r) * sv.t]))) {
+        found = r;
+      }
+    }
+    if (found >= 0) {
+      atomicMax(last + static_cast<int64_t>(bh) * D + c, found);
+      atomicMax(last + static_cast<int64_t>(gridDim.x) * D + bh, found);
+    }
   }
 }
 
@@ -610,7 +634,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 pre(static_cast<unsigned int>(B * H),
                  static_cast<unsigned int>((T_len + kLastRows - 1) /
                                            kLastRows));
-  v_last_nonfinite_kernel<T><<<pre, 128, 0, stream>>>(
+  v_last_nonfinite_kernel<T><<<pre, kLastThreads, 0, stream>>>(
       static_cast<const T*>(v), sv, static_cast<int>(H),
       static_cast<int>(T_len), static_cast<int>(D), last);
   cudaError_t err = cudaFuncSetAttribute(
@@ -649,6 +673,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     return launch<T, 128>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
                           scale, causal, mode, st);
   }
+  if (D <= 192) {
+    return launch<T, 192>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
+                          scale, causal, mode, st);
+  }
+  if (D <= 256) {
+    return launch<T, 256>(q, k, v, o, lse, last, B, T_len, H, D, sq, sk, sv,
+                          scale, causal, mode, st);
+  }
   return -1;
 }
 
@@ -658,7 +690,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // strides for b, t and h and a d stride of 1, float32 (bf16 = 0) or
 // bfloat16 (bf16 = 1); o: contiguous [B, T, H, D] of the same dtype; lse:
 // contiguous float32 [B, H, T]; last: B * H * (D + 1) int32 of scratch
-// for the pre-pass. 1 <= D <= 128, 1 <= T <= 65535 * 128.
+// for the pre-pass. 1 <= D <= 256, 1 <= T <= 65535 * 128.
 // mode: 2 if every pointer, b/t/h stride and D elements are 16-byte
 // multiples, 1 if they are 4-byte multiples, else 0 (the Python wrapper
 // checks all of it). Launches on `stream` and returns cudaGetLastError()

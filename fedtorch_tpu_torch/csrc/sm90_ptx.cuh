@@ -104,6 +104,20 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return d;
 }
 
+// -- register reallocation ---------------------------------------------------
+
+// this warpgroup's registers a thread, down to or up to N (a multiple of
+// 8 in 24..256); every thread of the warpgroup executes it. `inc` waits
+// until the registers that another warpgroup's `dec` freed are there
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a tile stored as 128-byte rows with
@@ -169,6 +183,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       : SM90_ACC32(d)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
+#define SM90_ACC16(d) SM90_R8(d, 0), SM90_R8(d, 8)
+#define SM90_D16                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32], as wgmma_ss at 32 columns (16
+// accumulators a thread): the head-dim-256 kernel's 32-key S tile.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}"
+      : SM90_ACC16(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (four bf16 pairs
 // a thread, the accumulator's own layout), B MN-major in shared memory
 // (the transpose bit: B's rows are K, its 64 columns contiguous).
@@ -208,6 +240,8 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
 }
 
 #undef SM90_R8
+#undef SM90_ACC16
+#undef SM90_D16
 #undef SM90_ACC32
 #undef SM90_ACC64
 #undef SM90_D32

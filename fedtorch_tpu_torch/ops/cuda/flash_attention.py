@@ -8,17 +8,19 @@ built. :func:`flash_fwd` picks one by :func:`_route`, from the inputs
 alone:
 
 - ``"tc"``, ``csrc/flash_fwd_sm90.cu`` (``flash_fwd_tc``): bfloat16 with
-  head dim 64 or 128, base pointers 16-byte aligned and the b, t and h
-  strides multiples of 8 elements (what its TMA loads need). bf16
-  ``wgmma`` on the tensor cores, p split in two bf16 halves for P V.
+  head dim 64, 128, 192 or 256, base pointers 16-byte aligned and the b,
+  t and h strides multiples of 8 elements (what its TMA loads need).
+  bf16 ``wgmma`` on the tensor cores, p split in two bf16 halves for
+  P V; 64-key tiles up to head dim 128, 32-key tiles past it.
 - ``"tf32"``, ``csrc/flash_fwd_tf32.cu`` (``flash_fwd_tf32``):
-  everything else the wrapper takes: float32 at any head dim up to 128,
+  everything else the wrapper takes: float32 at any head dim up to 256,
   bfloat16 at the other head dims, misaligned or oddly strided views.
   ``mma.sync`` TF32 on the tensor cores with the 3xTF32 split, which
-  keeps the float32 bar (one TF32 product would break it).
+  keeps the float32 bar (one TF32 product would break it); 32-key tiles
+  up to head dim 128, 16-key tiles past it.
 
 Each launch counts in ``flash_launches``, and in ``flash_tc_launches``
-or ``flash_tf32_launches`` by its kernel. Head dims past 128 are refused
+or ``flash_tf32_launches`` by its kernel. Head dims past 256 are refused
 by name: the JAX package takes them, the port does not yet. On CPU
 tensors :func:`flash_fwd` runs :func:`flash_fwd_ref`, the port of the
 JAX package's dense oracle ``_fwd_xla``. There is no fallback: a CUDA
@@ -53,8 +55,8 @@ flash_launches = 0
 flash_tc_launches = 0
 flash_tf32_launches = 0
 
-MAX_HEAD_DIM = 128        # the widest head either kernel takes
-TC_HEAD_DIMS = (64, 128)  # the bf16 wgmma kernel's instantiations
+MAX_HEAD_DIM = 256                  # the widest head either kernel takes
+TC_HEAD_DIMS = (64, 128, 192, 256)  # the bf16 wgmma kernel's instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_T = 65535 * 128  # gridDim.y: query tiles of 128 rows (both kernels)
 
@@ -173,10 +175,10 @@ def _tc_strides(t):
 
 
 def _route(q, k, v) -> str:
-    """``"tc"`` for bfloat16 q, k, v with head dim 64 or 128 whose base
-    pointers are 16-byte aligned and whose b, t, h strides are multiples
-    of 8 elements (sizes of 1 excepted); ``"tf32"`` for anything else.
-    Depends on dtype, head dim and alignment only."""
+    """``"tc"`` for bfloat16 q, k, v with a head dim of ``TC_HEAD_DIMS``
+    whose base pointers are 16-byte aligned and whose b, t, h strides are
+    multiples of 8 elements (sizes of 1 excepted); ``"tf32"`` for anything
+    else. Depends on dtype, head dim and alignment only."""
     if q.dtype != torch.bfloat16 or q.shape[3] not in TC_HEAD_DIMS \
             or any(t.dtype != torch.bfloat16 for t in (k, v)):
         return "tf32"

@@ -21,8 +21,11 @@ program, so the port measures the same quantities:
 * **Peak**: the H100's by compute dtype (:data:`H100_PEAK_TFLOPS`: 989
   TFLOP/s bf16 dense, 495 TF32 when float32 matmuls may use TF32, 67
   float32), or ``BENCH_PEAK_TFLOPS``. A round's flash forward is held
-  to its own kernel's rate (:data:`FLASH_PEAK_TFLOPS`; float32's TF32
-  kernel does three TF32 products for each), so the document's peak is
+  to the rate of the kernel ``_route`` picks for the model's attention
+  (:data:`FLASH_PEAK_TFLOPS` by route and dtype, :func:`flash_route`:
+  the TF32 kernel does three TF32 products for each in float32, 1.5 in
+  bfloat16, at head dims the wgmma kernel has no instance for), so the
+  document's peak is
   the one that the round's FLOPs at their parts' rates would take
   (:func:`round_peak_tflops`). A run without a card is held to
   the H100's peak, the port's target (the source string says so);
@@ -63,10 +66,13 @@ _TRAIN_STEP_OVER_FWD = 3 * 2
 
 # NVIDIA H100 SXM dense peaks, TFLOP/s
 H100_PEAK_TFLOPS = {"bfloat16": 989.0, "tf32": 495.0, "float32": 67.0}
-# the flash forward's rate by compute dtype, TFLOP/s: the bf16 wgmma
-# kernel at the bf16 peak; float32's TF32 kernel splits each product
-# into three TF32 products (3xTF32)
-FLASH_PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 495.0 / 3}
+# the flash forward's rate by (route, compute dtype), TFLOP/s: the bf16
+# wgmma kernel at the bf16 peak; the TF32 kernel issues TF32 products,
+# three for each useful one in float32 (3xTF32), and in bfloat16 one for
+# q K^T and two for P V (p split in two): 1.5 on average
+FLASH_PEAK_TFLOPS = {("tc", "bfloat16"): 989.0,
+                     ("tf32", "float32"): 495.0 / 3,
+                     ("tf32", "bfloat16"): 495.0 / 1.5}
 # the ragged quantizer's operations an element: 3 in the stats pass
 # (min, max, sum), 9 in the round trip
 QDQ_OPS_PER_ELEM = 3 + 9
@@ -141,25 +147,50 @@ def resolve_peak_tflops(dtype: str = "float32",
     return None, f"no peak known for {device_name!r}"
 
 
+def flash_route(dtype: str, head_dim: Optional[float] = None) -> str:
+    """The flash forward kernel ``ops/cuda/flash_attention._route``
+    picks for a model's attention: ``"tc"`` (the wgmma kernel) for
+    bfloat16 at a head dim of ``TC_HEAD_DIMS`` (the model's q, k, v are
+    thirds of one projection, aligned at those widths), ``"tf32"``
+    otherwise; without a head dim, by dtype alone."""
+    from fedtorch_tpu_torch.ops.cuda.flash_attention import TC_HEAD_DIMS
+    if dtype != "bfloat16":
+        return "tf32"
+    return "tc" if not head_dim or int(head_dim) in TC_HEAD_DIMS else "tf32"
+
+
 def round_peak_tflops(counted: Dict[str, float], dtype: str = "float32",
                       device_name: Optional[str] = None
                       ) -> Tuple[Optional[float], str]:
     """(peak TFLOP/s, source) for :func:`round_flops`'s breakdown: the
     peak at which the round's FLOPs take as long as its parts at their
-    own rates, the flash forward at :data:`FLASH_PEAK_TFLOPS` and the
-    rest at :func:`resolve_peak_tflops`'s; that peak alone where no
-    flash forward ran or ``BENCH_PEAK_TFLOPS`` is set."""
+    own rates, the flash forward at its route's
+    :data:`FLASH_PEAK_TFLOPS` (``flash_head_dim`` of the breakdown picks
+    the route) and the rest at :func:`resolve_peak_tflops`'s; that peak
+    alone where no flash forward ran or ``BENCH_PEAK_TFLOPS`` is set."""
     peak, source = resolve_peak_tflops(dtype, device_name)
     flash = counted.get("step_flash_kernel", 0.0) * counted.get("steps", 0.0)
     if peak is None or not flash or source.startswith("env:"):
         return peak, source
-    fpeak = FLASH_PEAK_TFLOPS.get(dtype, FLASH_PEAK_TFLOPS["float32"])
+    key = dtype if dtype == "bfloat16" else "float32"
+    fpeak = FLASH_PEAK_TFLOPS[(flash_route(key, counted.get(
+        "flash_head_dim")), key)]
     rest = counted["round"] - flash
     return (counted["round"] / (rest / peak + flash / fpeak),
             f"{source}; the flash forward at {fpeak:g}")
 
 
 # -- the count ----------------------------------------------------------
+
+
+def flash_head_dim(model) -> int:
+    """The head dim of the transformer's attention; 0 for any other
+    model."""
+    from fedtorch_tpu_torch.models.transformer import TransformerLM
+    m = getattr(model, "module", None)
+    if not isinstance(m, TransformerLM):
+        return 0
+    return m.pos_embed.shape[1] // m.num_heads
 
 
 def flash_kernel_ops(model, bx) -> float:
@@ -169,18 +200,16 @@ def flash_kernel_ops(model, bx) -> float:
     is the transformer, its attention takes the flash route at T and the
     batch lies on a card; else 0 (on the CPU the plain version's matmuls
     are aten ops, counted)."""
-    from fedtorch_tpu_torch.models.transformer import TransformerLM
     from fedtorch_tpu_torch.ops.attention_dispatch import resolve_attention
     from fedtorch_tpu_torch.ops.cuda.flash_attention import fwd_ops
-    m = getattr(model, "module", None)
-    if not isinstance(m, TransformerLM) or bx.device.type != "cuda":
+    D = flash_head_dim(model)
+    if not D or bx.device.type != "cuda":
         return 0.0
+    m = model.module
     B, T = bx.shape[:2]
     if resolve_attention(m.attention, T) != "flash":
         return 0.0
-    d = m.pos_embed.shape[1]
-    return m.num_layers * fwd_ops(B, T, m.num_heads, d // m.num_heads,
-                                  True)
+    return m.num_layers * fwd_ops(B, T, m.num_heads, D, True)
 
 
 def train_step_flops(model, params: Dict, bx, by) -> Dict[str, float]:
@@ -212,7 +241,8 @@ def train_step_flops(model, params: Dict, bx, by) -> Dict[str, float]:
 
 def round_flops(trainer, params: Dict, bx, by) -> Dict[str, float]:
     """The breakdown of one round's (one commit's) FLOPs: a step's
-    counted and flash FLOPs, the steps a round takes (the dispatched
+    counted and flash FLOPs (and the attention's head dim, which picks
+    the flash forward's rate), the steps a round takes (the dispatched
     clients' or a commit's buffer, times K), the quantizer's elementwise
     operations and the ``round`` total."""
     step = train_step_flops(trainer.model, params, bx, by)
@@ -225,7 +255,9 @@ def round_flops(trainer, params: Dict, bx, by) -> Dict[str, float]:
         if fed.quantized else 0.0
     total = steps * (step["counted"] + step["flash_kernel"]) + quant
     return {"step_counted": step["counted"],
-            "step_flash_kernel": step["flash_kernel"], "steps": steps,
+            "step_flash_kernel": step["flash_kernel"],
+            "flash_head_dim": float(flash_head_dim(trainer.model)),
+            "steps": steps,
             "quantizer": quant, "round": total}
 
 

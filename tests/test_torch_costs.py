@@ -210,6 +210,34 @@ def _events(run):
     return events
 
 
+@pytest.mark.parametrize("hidden, head_dim, route", [
+    (50, 25, "tf32"), (512, 256, "tc")])
+def test_the_flash_peak_follows_the_route_of_the_model_s_heads(
+        monkeypatch, hidden, head_dim, route):
+    """A bfloat16 transformer's flash forward at the rate of the kernel
+    its heads take: the default width's heads of 25 go to the TF32
+    kernel (1.5 TF32 products a useful one in bfloat16: 330 TFLOP/s),
+    heads of 256 (rnn_hidden_size 512) to the wgmma kernel (989)."""
+    monkeypatch.delenv("BENCH_PEAK_TFLOPS", raising=False)
+    cfg = tcfg.ExperimentConfig(
+        data=tcfg.DataConfig(dataset="shakespeare"),
+        model=tcfg.ModelConfig(arch="transformer", rnn_hidden_size=hidden,
+                               mlp_num_layers=1, rnn_seq_len=16,
+                               attention="flash"),
+        mesh=tcfg.MeshConfig(compute_dtype="bfloat16")).finalize()
+    model = define_model(cfg, batch_size=1, device="cpu")
+    assert tcosts.flash_head_dim(model) == head_dim
+    assert tcosts.flash_route("bfloat16", head_dim) == route
+    assert tcosts.flash_route("float32", head_dim) == "tf32"
+    counted = {"step_flash_kernel": 1e9, "steps": 10.0, "round": 1e11,
+               "flash_head_dim": float(head_dim)}
+    peak, src = tcosts.round_peak_tflops(counted, "bfloat16",
+                                         "NVIDIA H100 80GB HBM3")
+    fpeak = 989.0 if route == "tc" else 330.0
+    assert peak == pytest.approx(1e11 / (9e10 / 989.0 + 1e10 / fpeak))
+    assert f"flash forward at {fpeak:g}" in src
+
+
 def test_the_cli_rows_carry_the_gauges_and_a_resume_adopts(tmp_path):
     """The rows against the JAX CLI's (the same fields but the CUDA
     memory pair) are ``test_torch_telemetry.py``'s

@@ -384,34 +384,41 @@ def _assert_bf16_close(o, ro):
 
 _TC_CASES = [(torch.bfloat16, causal, T, D, 0)
              for T in (1, 63, 65, 300, 2048) for causal in (True, False)
-             for D in (64, 128)]
+             for D in (64, 128, 256)]
 # the TF32 kernel: every padded head dim and the default model's 25
 _TF32_CASES = [(dtype, causal, T, D, 0)
                for dtype in (torch.float32, torch.bfloat16)
                for causal in (True, False) for T in (1, 50, 257)
                for D in (8, 25, 100)]
+# past head dim 128: both kernels' wide instances (bf16 at 192 and 256
+# on the wgmma kernel, the rest on the TF32 kernel's 16-key tiles)
+_WIDE_CASES = [(dtype, causal, T, D, 0)
+               for dtype in (torch.float32, torch.bfloat16)
+               for causal in (True, False) for T in (1, 129, 2048)
+               for D in (136, 192, 200, 256)]
 
 
 @pytest.mark.parametrize("dtype, causal, T, D, offset", [
     (torch.float32, True, 257, 64, 0), (torch.float32, False, 50, 32, 0),
     (torch.bfloat16, True, 300, 64, 0), (torch.float32, True, 1, 16, 0),
     (torch.bfloat16, False, 129, 128, 0), (torch.float32, True, 129, 64, 1),
-] + _TC_CASES + _TF32_CASES + [
+] + _TC_CASES + _TF32_CASES + _WIDE_CASES + [
     (torch.bfloat16, True, 129, 64, 1), (torch.bfloat16, True, 129, 25, 2),
+    (torch.bfloat16, True, 129, 256, 1), (torch.bfloat16, False, 300, 200, 2),
     (torch.float32, True, 2048, 128, 0), (torch.bfloat16, False, 2048, 25, 0)])
 def test_flash_kernel_matches_plain_version(cuda, dtype, causal, T, D,
                                             offset):
     """On strided q, k, v chunks of one projection (``offset`` 1:
     misaligned, the element loads for bfloat16); float32 within 2e-5,
     bfloat16 o within that plus one bfloat16 spacing. TF32 off for the
-    plain version. Aligned bfloat16 at head dim 64 or 128 takes the
-    wgmma kernel, the rest the TF32 kernel."""
+    plain version. Aligned bfloat16 at a head dim of ``TC_HEAD_DIMS``
+    takes the wgmma kernel, the rest the TF32 kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(T + D)
     x = torch.from_numpy(rng.randn(2, T, 3 * 4 * D + offset).astype(
         np.float32)).to(cuda, dtype)[..., offset:]
     q, k, v = (c.view(2, T, 4, D) for c in x.chunk(3, dim=-1))
-    tc = dtype == torch.bfloat16 and D in (64, 128) and offset == 0
+    tc = dtype == torch.bfloat16 and D in fa.TC_HEAD_DIMS and offset == 0
     before = (fa.flash_launches, fa.flash_tc_launches,
               fa.flash_tf32_launches)
     o, lse = fa.flash_fwd(q, k, v, D ** -0.5, causal)
@@ -456,7 +463,7 @@ def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     assert float(o[0, 5, 1].abs().max()) == 0.0
     assert bool(lse[1, 3].isfinite().all())
     assert bool(o[1, :, 3].isfinite().all())
-    for D in (64, 128) if dtype == torch.bfloat16 else (64,):
+    for D in (64, 128, 256) if dtype == torch.bfloat16 else (64, 256):
         _check_infinite_v(cuda, dtype, D)
 
 
@@ -467,7 +474,7 @@ def _check_infinite_v(cuda, dtype, D):
     plain version's p > 0 meets them and NaN where it computes 0 inf,
     including the rows before the key, whose tiles past the diagonal the
     kernel skips (its pre-pass marks those columns); causal and not,
-    over three query tiles, a column of V's second atom at D 128."""
+    over three query tiles, a column of V's last atom at D 128 and 256."""
     rng = np.random.RandomState(8)
     q, k, v = (torch.from_numpy(rng.randn(2, 300, 4, D).astype(
         np.float32)).to(cuda, dtype) for _ in range(3))
@@ -499,12 +506,18 @@ def _check_infinite_v(cuda, dtype, D):
         assert bool((o[1, 150:, 0, D - 1] == float("inf")).all())
 
 
-@pytest.mark.parametrize("D, dtype", [(136, torch.float32),
+@pytest.mark.parametrize("D, dtype", [(257, torch.float32),
+                                      (257, torch.bfloat16),
                                       (64, torch.float16)])
 def test_flash_kernel_refuses_by_name(cuda, D, dtype):
+    """Past head dim 256 (and in float16) on the card: refused by name,
+    nothing launched."""
     q = torch.zeros(1, 8, 2, D, device=cuda, dtype=dtype)
-    with pytest.raises(ValueError, match="head dims|float32 or bfloat16"):
+    before = fa.flash_launches
+    with pytest.raises(ValueError, match="head dims up to 256|float32 or "
+                                         "bfloat16"):
         fa.flash_fwd(q, q, q, 1.0, True)
+    assert fa.flash_launches == before
 
 
 def test_flash_attention_gradients_on_the_card_match_the_cpu(cuda):

@@ -7,7 +7,8 @@ The kernels run only on the card (``tests/test_torch_cuda.py`` and
 :func:`_route` and :func:`_check_inputs` are checked on CPU tensors laid
 out as the model makes them,
 and :func:`_emulate` repeats the kernel's arithmetic in float32 torch ops
-(64-key tiles, online softmax, p split into bf16 hi + lo for P V, float32
+(64-key tiles up to head dim 128 and 32-key tiles past it, 64-row
+warpgroups, online softmax, p split into bf16 hi + lo for P V, float32
 sums) on the same numpy inputs as the JAX package's ``_fwd_xla``. The bar
 is the card's: lse within 2e-5 (abs and rel), bfloat16 o within the
 float32 bar plus one bfloat16 spacing, the same NaN pattern.
@@ -21,7 +22,12 @@ import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
 from fedtorch_tpu_torch.ops.cuda import flash_attention as fa
 
-BK = 64  # the kernel's keys per tile
+WG = 64  # query rows of a consumer warpgroup
+
+
+def _bk(D):
+    """The instance's keys per tile (``Cfg::kBK``)."""
+    return 32 if D > 128 else 64
 
 
 def _qkv_views(B, T, H, D, dtype, offset=0, seed=0):
@@ -55,7 +61,20 @@ def test_route_sends_everything_else_to_the_simt_kernel(dtype, D, offset):
     """Everything but aligned bf16 at head dim 64 or 128 takes the TF32
     kernel, which replaced the SIMT one (the name is the test's first)."""
     q, k, v = _qkv_views(2, 129, 4, D, dtype, offset)
-    tc = dtype == torch.bfloat16 and D in (64, 128) and offset == 0
+    tc = dtype == torch.bfloat16 and D in fa.TC_HEAD_DIMS and offset == 0
+    assert fa._route(q, k, v) == ("tc" if tc else "tf32")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [136, 192, 256])
+def test_route_past_head_dim_128(D, dtype, offset):
+    """Aligned bf16 at 192 and 256 takes the wgmma kernel's wide
+    instances; float32, bf16 at 136 and misaligned views the TF32
+    kernel."""
+    q, k, v = _qkv_views(2, 129, 4, D, dtype, offset)
+    fa._check_inputs(q, k, v)
+    tc = dtype == torch.bfloat16 and D in (192, 256) and offset == 0
     assert fa._route(q, k, v) == ("tc" if tc else "tf32")
 
 
@@ -80,11 +99,28 @@ def test_every_head_dim_up_to_128_takes_a_kernel(D, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_head_dim_up_to_256_takes_a_kernel(dtype):
+    """Past 128: the TF32 kernel's padded widths 192 and 256 and the
+    wgmma kernel's instances at 192 and 256."""
+    for D in (129, 136, 192, 200, 255, 256):
+        for offset in (0, 1):
+            q, k, v = _qkv_views(1, 9, 2, D, dtype, offset)
+            fa._check_inputs(q, k, v)
+            want = "tc" if dtype == torch.bfloat16 and D in (192, 256) \
+                and offset == 0 else "tf32"
+            assert fa._route(q, k, v) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dims_past_128_are_refused_by_name(dtype):
-    q, k, v = _qkv_views(1, 8, 2, 136, dtype)
-    with pytest.raises(ValueError, match="head dims up to 128.*JAX package"):
+    """The refusal now starts past 256 (the name keeps the limit it was
+    written for): 257 is refused with the pointer to the JAX package,
+    136 and 256 pass."""
+    q, k, v = _qkv_views(1, 8, 2, 257, dtype)
+    with pytest.raises(ValueError, match="head dims up to 256.*JAX package"):
         fa._check_inputs(q, k, v)
-    fa._check_inputs(*_qkv_views(1, 8, 2, 128, dtype))
+    for D in (136, 256):
+        fa._check_inputs(*_qkv_views(1, 8, 2, D, dtype))
 
 
 def test_load_mode_follows_the_alignment():
@@ -101,14 +137,18 @@ def test_load_mode_follows_the_alignment():
 
 def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
     """The kernel's arithmetic on float32 [BH, T, D] tensors holding
-    bf16 values: o (float32, before its bf16 rounding) and lse. Causal,
-    the rows of each 64-row warpgroup take no tile wholly past their
-    last row. ``sanitize``: the non-finite v rule (the p_lo product reads
-    the tile with non-finite elements 0, and a causal column is NaN in
-    the rows of a warpgroup whose skipped tiles hold a non-finite v);
-    without it, the kernel before that rule."""
+    bf16 values, in the instance's key tiles (:func:`_bk`): o (float32,
+    before its bf16 rounding) and lse. Causal, the rows of each 64-row
+    warpgroup take no tile wholly past their last row. ``sanitize``: the
+    non-finite v rule (the p_lo product reads the tile with non-finite
+    elements 0, and a causal column is NaN in the rows of a warpgroup
+    whose skipped tiles hold a non-finite v); without it, the kernel
+    before that rule."""
     BH, T, D = q.shape
+    BK = _bk(D)
     rows = torch.arange(T)
+    # each row's warpgroup's last row: its last tile is that row's
+    wg_tile = (rows // WG * WG + WG - 1) // BK
     m = torch.full((BH, T), -np.inf)
     l = torch.zeros(BH, T)
     acc = torch.zeros(BH, T, D)
@@ -128,7 +168,7 @@ def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
         if split:
             v_lo = torch.where(vt.isfinite(), vt, 0.0) if sanitize else vt
             pv = pv + (p - hi).to(torch.bfloat16).float() @ v_lo
-        take = (rows // BK >= k0 // BK) if causal \
+        take = (wg_tile >= k0 // BK) if causal \
             else torch.ones(T, dtype=torch.bool)
         l = torch.where(take, l * corr + p.sum(dim=-1), l)
         acc = torch.where(take[:, None], acc * corr[..., None] + pv, acc)
@@ -141,7 +181,7 @@ def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
         # a row's warpgroup skips
         bad = ~v.isfinite()
         last = torch.where(bad, torch.arange(T)[None, :, None], -1).amax(1)
-        kc = (rows // BK + 1) * BK
+        kc = (wg_tile + 1) * BK
         o = torch.where(last[:, None, :] >= kc[None, :, None], np.nan, o)
     return o, lse
 
@@ -197,6 +237,23 @@ def test_emulated_kernel_holds_the_bf16_bar_against_the_oracle(causal,
           f"spacings past the float32 bar")
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [192, 256])
+def test_emulated_wide_instances_hold_the_bf16_bar(D, causal):
+    """The instances past head dim 128 (32-key tiles, P V over two or
+    three of V's atoms) at BH 2, T 130: lse within 2e-5, o within one
+    bf16 spacing past the float32 bar of the oracle."""
+    q, k, v = _inputs(False, B=1, T=130, H=2, D=D)
+    scale = D ** -0.5
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
+                        for t in (q, k, v)), scale, causal)
+    o, lse = _emulate(q, k, v, scale, causal)
+    torch.testing.assert_close(lse, torch.from_numpy(np.array(jl)),
+                               rtol=2e-5, atol=2e-5)
+    assert _bf16_excess(o.to(torch.bfloat16).float(),
+                        torch.from_numpy(np.array(jo, np.float32))) <= 1.0
+
+
 def test_emulated_single_bf16_p_breaks_the_bar_at_the_main_path_length():
     """At T 2048 (the transformer path's length) one bf16 rounding of p
     lands outputs several bf16 spacings past the bar; the split stays
@@ -228,7 +285,7 @@ def _infinite_v(D, B=2, T=300, H=2):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_emulated_kernel_follows_the_infinite_v_rule(D, causal):
     """+inf and -inf v elements: with the p_lo product on the sanitized
     tile and the pre-pass's NaN columns, the kernel's arithmetic has the

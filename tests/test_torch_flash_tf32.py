@@ -9,9 +9,10 @@ bit operations (round to nearest on 10 mantissa bits, ties away from
 zero, as ``cvt.rna.tf32.f32``), the split x = hi + lo with hi = tf32(x)
 and lo = x - hi, which the tensor cores read truncated to TF32 (its low
 13 bits dropped), each product a_hi b_hi + a_hi b_lo + a_lo b_hi (TF32
-products are exact in float32), 32-key tiles with the online softmax, l
-summed from p before its split. The bar is the card's: o and lse within
-atol = rtol = 2e-5.
+products are exact in float32), 32-key tiles (16 past head dim 128) with
+the online softmax, l summed from p before its split. The bar is the
+card's: o and lse within atol = rtol = 2e-5 (bfloat16 o: one bfloat16
+spacing past that).
 
 What the CPU cannot show is the tensor cores' own accumulation (its order
 and rounding inside an ``mma.sync``); only the card checks that, in the
@@ -25,7 +26,9 @@ import torch
 import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
 
-BK = 32  # the kernel's keys per tile
+def _bk(D):
+    """The kernel's keys per tile at head dim D (``Layout::kBK``)."""
+    return 16 if D > 128 else 32
 
 
 def _tf32(x):
@@ -73,6 +76,7 @@ def _emulate(q, k, v, scale, causal, split=True, guard=True,
     a tile past a warp's rows, its pre-pass reproduces what a masked
     tile gives (a non-finite v there makes the column NaN)."""
     BH, T, D = q.shape
+    BK = _bk(D)
     rows = torch.arange(T)
     m = torch.full((BH, T), -np.inf)
     l = torch.zeros(BH, T)
@@ -210,3 +214,54 @@ def test_an_infinite_v_enters_only_the_hi_product():
     o, _ = _emulate(q, k, v, 0.125, True, v_guard=False)
     assert bool(o[0, :, 11].isnan().any())
     assert bool(o[0, 200:, 9].isnan().any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [136, 200, 256])
+def test_wide_instances_hold_the_bar(D, causal, dtype):
+    """The padded widths 192 and 256 (16-key tiles) at BH 2, T 130:
+    3xTF32 in float32; in bfloat16 (values exact in TF32) one product
+    for q K^T and the two of the p split for P V, o within one bfloat16
+    spacing past the float32 bar."""
+    rng = np.random.RandomState(D)
+    q, k, v = (torch.from_numpy(rng.randn(2, 130, D).astype(np.float32))
+               for _ in range(3))
+    if dtype == "bfloat16":
+        q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    scale = D ** -0.5
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), dtype) for t in (q, k, v)),
+                      scale, causal)
+    want_o = torch.from_numpy(np.array(jo, np.float32))
+    o, lse = _emulate(q, k, v, scale, causal)
+    assert _excess(lse, torch.from_numpy(np.array(jl))) <= 0.0
+    if dtype == "float32":
+        assert _excess(o, want_o) <= 0.0
+    else:
+        got = o.to(torch.bfloat16).float()
+        spacing = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            got.abs(), want_o.abs()).clamp_min(2.0 ** -126))) - 7)
+        excess = ((got - want_o).abs() - 2e-5 - 2e-5 * want_o.abs())
+        assert float((excess / spacing).max()) <= 1.0
+
+
+def test_an_infinite_v_at_head_dim_256():
+    """The infinite-v rule in 16-key tiles: the oracle's +-inf and NaN
+    pattern, the finite elements within the bar."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(1, 130, 256).astype(np.float32))
+               for _ in range(3))
+    v[0, 0, 11] = np.inf
+    v[0, 40, 255] = np.inf
+    v[0, 100, 255] = -np.inf
+    v[0, 70, 200] = -np.inf
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                      256 ** -0.5, True)
+    want_o = torch.from_numpy(np.array(jo))
+    assert bool((want_o[0, :, 11] == np.inf).all())
+    assert bool(want_o[0, :, 255].isnan().all())
+    assert bool(want_o[0, :70, 200].isnan().all())
+    assert bool((want_o[0, 70:, 200] == -np.inf).all())
+    o, lse = _emulate(q, k, v, 256 ** -0.5, True)
+    _hold_nonfinite(o, want_o)
+    assert _excess(lse, torch.from_numpy(np.array(jl))) <= 0.0

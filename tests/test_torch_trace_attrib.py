@@ -92,6 +92,19 @@ def test_the_jax_fixture_capture_attributes_equally():
     assert got["hand_kernels"] == {}
 
 
+@pytest.mark.parametrize("name, row", [
+    ("void (anonymous namespace)::flash_fwd_tc_kernel<256>(CUtensorMap)",
+     "flash_fwd_tc"),
+    ("void (anonymous namespace)::flash_fwd_tf32_kernel<float, 256>("
+     "float const*)", "flash_fwd_tf32"),
+    ("void (anonymous namespace)::v_last_nonfinite_kernel<float>("
+     "float const*)", "flash_prepass")])
+def test_the_head_dim_256_instances_take_their_kernels_rows(name, row):
+    """The instances past head dim 128 land in their kernel's row (and so
+    in PERF.md's F column, or E for the pre-pass)."""
+    assert tta.hand_kernel(name) == row
+
+
 @pytest.mark.parametrize("name, cat", _jax_category_names())
 def test_every_xla_name_gets_the_jax_category(name, cat):
     assert tta.categorize(name) == jta.categorize(name) == cat
@@ -103,6 +116,11 @@ def test_every_xla_name_gets_the_jax_category(name, cat):
      "matmul_conv_mxu"),
     ("void flash_fwd_tf32_kernel<float, 64>(float const*, float const*)",
      "matmul_conv_mxu"),
+    ("void (anonymous namespace)::flash_fwd_tc_kernel<256>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, __nv_bfloat16*, float*, int const*, int, "
+     "int, float, int)", "matmul_conv_mxu"),
+    ("void (anonymous namespace)::flash_fwd_tf32_kernel<__nv_bfloat16, "
+     "256>(__nv_bfloat16 const*)", "matmul_conv_mxu"),
     ("void qdq_ragged_stats_kernel(LeafTable, float*, long)", "elementwise"),
     ("void qdq_ragged_apply_kernel(LeafTable, float const*, long, int)",
      "elementwise"),

@@ -27,6 +27,7 @@ from fedtorch_tpu.core import losses as jlosses
 from fedtorch_tpu.core.optim import _wd_coef as j_wd_coef
 from fedtorch_tpu.data.batching import stack_partitions as jstack
 from fedtorch_tpu.models import define_model as jdefine
+from fedtorch_tpu.models.transformer import TransformerLM as JTransformerLM
 from fedtorch_tpu.parallel import FederatedTrainer as JTrainer
 from fedtorch_tpu_torch import config as tcfg
 from fedtorch_tpu_torch.algorithms import make_algorithm as tmake
@@ -35,6 +36,7 @@ from fedtorch_tpu_torch.core import losses as tlosses
 from fedtorch_tpu_torch.core.optim import _wd_coef as t_wd_coef
 from fedtorch_tpu_torch.data.batching import stack_partitions as tstack
 from fedtorch_tpu_torch.models import define_model as tdefine
+from fedtorch_tpu_torch.models.transformer import TransformerLM
 from fedtorch_tpu_torch.parallel import FederatedTrainer
 from test_torch_round import _assert_params_close, _flat, _run
 
@@ -65,8 +67,33 @@ def _models(attention="flash", dtype="float32", hidden=32, layers=2):
     return jm, tm, jp, tp
 
 
-def _tokens(B=3, seed=0):
-    return np.random.RandomState(seed).randint(0, V, (B, T))
+def _tokens(B=3, seed=0, seq=T):
+    return np.random.RandomState(seed).randint(0, V, (B, seq))
+
+
+def _d256_modules(jm, tm):
+    """The ModelDefs with their modules swapped for d_model 512 in 2
+    heads of 256, 1 layer, flash (define_model gives 4 heads; heads of
+    256 from it need d_model 1024)."""
+    return (jm._replace(module=JTransformerLM(
+                vocab_size=V, d_model=512, num_heads=2, num_layers=1,
+                attention="flash")),
+            tm._replace(module=TransformerLM(V, 512, 2, 1,
+                                             attention="flash")))
+
+
+@functools.lru_cache(maxsize=None)
+def _d256_models():
+    """Both packages' d_model-512, 2-head (head dim 256) models on the
+    same (bridged) weights, T 64."""
+    jm, tm = _d256_modules(
+        jdefine(_cfg(jcfg, hidden=256, layers=1, seq=64), batch_size=2),
+        tdefine(_cfg(tcfg, hidden=256, layers=1, seq=64), batch_size=2,
+                device="cpu"))
+    jp = jax.jit(jm.init)(jax.random.key(5))
+    tp = params_from_jax(_flat(jp), expect=tm.init(torch.Generator()),
+                         module=tm.module)
+    return jm, tm, jp, tp
 
 
 def test_bridge_round_trip():
@@ -111,6 +138,42 @@ def test_logits_match(attention, dtype, hidden, layers):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     else:
         assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+
+
+def test_head_dim_256_logits_and_gradients_match():
+    """d_model 512 in 2 heads of 256, 1 layer, T 64, flash attention,
+    float32: logits and the char-LM loss's gradients, at the tolerances
+    above."""
+    jm, tm, jp, tp = _d256_models()
+    assert tm.module.block_0.attn.num_heads == 2
+    assert tp["block_0.attn.qkv.weight"].shape == (3 * 512, 512)
+    toks = _tokens(B=2, seed=2, seq=64)
+    labels = np.roll(toks, -1, axis=1)
+    want = np.asarray(jm.apply(jp, jnp.asarray(toks, jnp.int32)))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    logits = tm.apply(leaves, torch.from_numpy(toks))
+    np.testing.assert_allclose(logits.detach().numpy(), want, rtol=1e-4,
+                               atol=1e-5)
+    jg = jax.grad(lambda p: jlosses.softmax_cross_entropy(
+        jm.apply(p, jnp.asarray(toks, jnp.int32)),
+        jnp.asarray(labels, jnp.int32)))(jp)
+    loss = tlosses.softmax_cross_entropy(logits, torch.from_numpy(labels))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    tg = params_to_jax(dict(zip(leaves, grads)), tm.module)
+    for k, v in _flat(jg).items():
+        np.testing.assert_allclose(tg[k], v, rtol=1e-3, atol=1e-5,
+                                   err_msg=k)
+
+
+def test_rnn_hidden_size_512_gives_4_heads_of_256():
+    """The d_model-1024 transformer cell: both packages derive 4 heads
+    of 256 from rnn_hidden_size 512."""
+    tm = tdefine(_cfg(tcfg, hidden=512, layers=1), batch_size=1,
+                 device="cpu").module
+    jm = jdefine(_cfg(jcfg, hidden=512, layers=1), batch_size=1).module
+    assert tm.pos_embed.shape == (2048, 1024)
+    assert tm.block_0.attn.num_heads == jm.num_heads == 4
+    assert jm.d_model // jm.num_heads == 256
 
 
 def test_dense_and_flash_agree():
@@ -222,32 +285,38 @@ def test_losses_and_accuracy_match(shape):
 C, N, B, K = 4, 8, 4, 2
 
 
-def _round_build(quantized):
+def _round_build(quantized, clients=C, steps=K, seq=16, rate=0.5,
+                 d256=False):
     """Both trainers on d_model 16, 1 layer, T 16, 4 clients of 8
     windows, k = 2, batch 4, 2 local steps, SGD lr 0.05 without weight
-    decay, flash attention; the port on the JAX package's weights."""
+    decay, flash attention; the port on the JAX package's weights.
+    ``d256``: the model of :func:`_d256_modules` (heads of 256) instead,
+    at the given clients, online rate, steps and T."""
     def cfg(mod):
         return _cfg(
-            mod, hidden=8, layers=1, seq=16,
+            mod, hidden=8, layers=1, seq=seq,
             data=lambda m: m.DataConfig(dataset="shakespeare", batch_size=B),
             federated=lambda m: m.FederatedConfig(
-                federated=True, num_clients=C, online_client_rate=0.5,
+                federated=True, num_clients=clients, online_client_rate=rate,
                 algorithm="fedavg", sync_type="local_step",
                 quantized=quantized),
             optim=lambda m: m.OptimConfig(lr=0.05, weight_decay=0.0),
-            train=lambda m: m.TrainConfig(local_step=K))
+            train=lambda m: m.TrainConfig(local_step=steps))
 
     jc, tc = cfg(jcfg), cfg(tcfg)
     rng = np.random.RandomState(2)
-    stream = rng.randint(0, V, C * N * 16 + 1)
-    x = stream[:-1].reshape(C * N, 16).astype(np.int32)
-    y = stream[1:].reshape(C * N, 16).astype(np.int32)
-    parts = [np.arange(i * N, (i + 1) * N) for i in range(C)]
-    jtr = JTrainer(jc, jdefine(jc, batch_size=B), jmake(jc),
-                   jstack(x, y, parts))
+    stream = rng.randint(0, V, clients * N * seq + 1)
+    x = stream[:-1].reshape(clients * N, seq).astype(np.int32)
+    y = stream[1:].reshape(clients * N, seq).astype(np.int32)
+    parts = [np.arange(i * N, (i + 1) * N) for i in range(clients)]
+    jm, tm = jdefine(jc, batch_size=B), tdefine(tc, batch_size=B,
+                                                device="cpu")
+    if d256:
+        jm, tm = _d256_modules(jm, tm)
+    jtr = JTrainer(jc, jm, jmake(jc), jstack(x, y, parts))
     js, jcl = jtr.init_state(jax.random.key(0))
-    ttr = FederatedTrainer(tc, tdefine(tc, batch_size=B, device="cpu"),
-                           tmake(tc), tstack(x, y, parts), device="cpu")
+    ttr = FederatedTrainer(tc, tm, tmake(tc), tstack(x, y, parts),
+                           device="cpu")
     ts, tcl = ttr.init_state(0)
     bridged = params_from_jax(_flat(js.params), expect=ts.params,
                               module=ttr.model.module)
@@ -263,12 +332,8 @@ def test_fedavg_round_matches():
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-6)
 
 
-def test_quantized_fedavg_rounds_match():
-    """int8 uplink and downlink, each round restarted from the JAX
-    state: the update within 1e-3 relative L2 and every element within
-    two downlink steps."""
-    trace = _run(*_round_build(True), num_rounds=2, resync=True)
-    for r in (1, 2):
+def _hold_quantized_rounds(trace, rounds):
+    for r in rounds:
         (jp0, tp0, _, _), (jp, tp, jl, tl) = trace[r - 1], trace[r]
         ju = np.concatenate([(jp[k] - jp0[k]).ravel() for k in jp])
         tu = np.concatenate([(tp[k] - tp0[k]).ravel() for k in jp])
@@ -278,3 +343,21 @@ def test_quantized_fedavg_rounds_match():
             step = (u.max() - u.min()) / 255.0
             assert np.abs((tp[k] - tp0[k]) - u).max() <= 2 * step + 1e-7, k
         np.testing.assert_allclose(tl, jl, rtol=1e-3, atol=1e-5)
+
+
+def test_quantized_fedavg_rounds_match():
+    """int8 uplink and downlink, each round restarted from the JAX
+    state: the update within 1e-3 relative L2 and every element within
+    two downlink steps."""
+    _hold_quantized_rounds(
+        _run(*_round_build(True), num_rounds=2, resync=True), (1, 2))
+
+
+def test_quantized_fedavg_round_at_head_dim_256():
+    """One int8 round of the heads-of-256 model (2 clients, both
+    online, 1 local step, T 32) from the JAX state, held as above: its
+    qkv (786,432 elements) and MLP weights (1,048,576) take the tiled
+    quantizer, its other leaves the ragged one."""
+    _hold_quantized_rounds(
+        _run(*_round_build(True, clients=2, steps=1, seq=32, rate=1.0,
+                           d256=True), num_rounds=1, resync=True), (1,))
