@@ -38,32 +38,35 @@ line. Phases, each fatal on failure:
    - the flash attention forward against its plain version (TF32 off) on
      strided q, k, v views of one projection, bfloat16 and float32, each
      case through the kernel ``_route`` picks (the wgmma kernel for aligned
-     bfloat16 at head dim 64, 128, 192 or 256, the TF32 kernel otherwise)
-     and checked to have taken it: each kernel at the shape its
+     bfloat16 at head dim 64, 128, 192, 256 or 512, the TF32 kernel
+     otherwise) and checked to have taken it: each kernel at the shape its
      transformer path gives it ((8, 2048, 4, 64) bfloat16 and float32,
-     (8, 2048, 4, 128) bfloat16, (8, 2048, 4, 256) bfloat16 and float32)
-     causal and not; the wgmma kernel at D 64, 128, 192 and 256, T in {1,
-     63, 65, 300, 2048}, causal and not; both dtypes at D in {16, 24, 25,
-     32, 64, 100, 128} and T in {1, 50, 257, 2048}, causal and not, and at
-     D in {136, 192, 200, 256} (the kernels' instances past 128) and T in
-     {1, 129, 2048}, causal and not; misaligned views; a NaN q row with a
-     +inf k row and a -inf k element whose scores stay -inf beside scores
-     that overflow exp unless the running max is kept (D 64 and 256);
-     +inf and -inf v elements in both dtypes (the wgmma kernel at D 64,
-     128 and 256, the TF32 kernel at 64 and 256, causal and not), o +-inf
-     where p > 0 meets them and NaN where the plain version computes 0
-     inf or inf - inf. lse and float32 o within atol = rtol = 2e-5,
-     bfloat16 o within one bfloat16 spacing past that bar, the NaN and
-     +-inf patterns identical. Timed
+     (8, 2048, 4, 128) bfloat16, (8, 2048, 4, 256) and (8, 2048, 4, 512)
+     bfloat16 and float32) causal and not; the wgmma kernel at D 64, 128,
+     192, 256 and 512, T in {1, 63, 65, 300, 2048}, causal and not; both
+     dtypes at D in {16, 24, 25, 32, 64, 100, 128} and T in {1, 50, 257,
+     2048}, causal and not, and at ``FLASH_WIDE_DIMS`` (the kernels'
+     instances past 128, and past 256 the TF32 kernel's column blocks and
+     the wgmma kernel's D-512 instance) and T in {1, 129, 2048}, causal
+     and not; misaligned views; a NaN q row with a +inf k row and a -inf
+     k element whose scores stay -inf beside scores that overflow exp
+     unless the running max is kept (D 64, 256, 384 and 512); +inf and
+     -inf v elements in both dtypes (the wgmma kernel at D 64, 128, 256
+     and 512, the TF32 kernel at 64, 256, 384 and 512, past 256 one in a
+     second column block; causal and not), o +-inf where p > 0 meets them
+     and NaN where the plain version computes 0 inf or inf - inf. lse and
+     float32 o within atol = rtol = 2e-5, bfloat16 o within one bfloat16
+     spacing past that bar, the NaN and +-inf patterns identical. Timed
      (inputs rotating over at least 128 MB) against the plain version: the
-     wgmma kernel at (8, 2048, 4, D) bfloat16, D in {64, 128, 256},
-     against ``F.scaled_dot_product_attention`` at each head dim; the TF32
-     kernel at (8, 2048, 4, 64) in float32 (against float32 SDPA, TF32 off,
-     against the 3xTF32 bound, the smaller of it and the CUDA-core float32
-     bound) and in bfloat16 (its launcher, as the route would pick the
-     wgmma kernel), and at (8, 2048, 4, 25) and (8, 2048, 4, 256) in
-     float32 (the default width's heads and heads of 256, against float32
-     SDPA); the wgmma kernel's non-finite-v pre-pass alone at its three
+     wgmma kernel at (8, 2048, 4, D) bfloat16, D in {64, 128, 256, 512},
+     against ``F.scaled_dot_product_attention`` at each head dim (the
+     backend it took named); the TF32 kernel at (8, 2048, 4, 64) in
+     float32 (against float32 SDPA, TF32 off, against the 3xTF32 bound,
+     the smaller of it and the CUDA-core float32 bound) and in bfloat16
+     (its launcher, as the route would pick the wgmma kernel), and at
+     (8, 2048, 4, 25), (8, 2048, 4, 256) and (8, 2048, 4, 512) in float32
+     (the default width's heads and heads of 256 and 512, against float32
+     SDPA); the wgmma kernel's non-finite-v pre-pass alone at its four
      main-path head dims;
 4. reference: a float32 ResNet-20 forward, one quantized ResNet-8 round
    and one quantized WideResNet-16-4 round (whose stage-3 convs go
@@ -345,6 +348,17 @@ line. Phases, each fatal on failure:
     2 local steps, T 128, 1 layer) in float32 (TF32 off): logits and the
     FedAvg round's update card (the TF32 kernel at D 256) vs CPU within
     1e-4, as the reference phase holds its transformers;
+11c. transformer_d2048: the same round at ``rnn_hidden_size`` 1024
+    (d_model 2048, 4 heads of 512, 4 layers, T 2048, 205,951,062
+    params, bfloat16), its population cut to 10 clients, all online
+    (``D2048_POPULATION``: k = 10 as in the other cells; the client
+    state of 100 would not fit the card); 1 warm-up, timed and 1
+    profiled round. The counters must read 400 flash launches a round,
+    all on the wgmma kernel's head-dim-512 instance, 2 + 2 ragged
+    launches and, for its 17 leaves past 524,288 elements (three sizes),
+    6 + 6 tiled launches. Then its round cut by ``D2048_CUT`` in float32
+    card (the TF32 kernel's column blocks at D 512, 4 launches) vs CPU
+    within 1e-4, as item 11b's;
 12. transformer_f32: the path of item 10 in float32, the library's
     default ``compute_dtype``; 1 warm-up, timed and 1 profiled round.
     The counters must read 400 flash launches a round, all on the TF32
@@ -411,7 +425,8 @@ Prints a ``{"kernels": [...]}`` line, then ``main_path``, ``profile``,
 ``transformer_main_path``,
 ``transformer_profile``, ``transformer_d512_main_path``,
 ``transformer_d512_profile``, ``transformer_d1024_main_path``,
-``transformer_d1024_profile``, ``transformer_f32_main_path``,
+``transformer_d1024_profile``, ``transformer_d2048_main_path``,
+``transformer_d2048_profile``, ``transformer_f32_main_path``,
 ``transformer_f32_profile``, ``moe``, ``podscale`` and ``observability``
 lines, the card's name and power limit and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -457,7 +472,7 @@ RAGGED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_ragged.cu"
 TILED_SOURCE = "fedtorch_tpu_torch/csrc/qdq_tiled.cu"
 NO_LIBRARY = ("no single PyTorch call computes a per-row adaptive "
               "quantize -> dequantize round trip")
-FLASH_TF32_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd_tf32.cu"
+FLASH_TF32_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd_tf32.cuh"
 FLASH_TC_SOURCE = "fedtorch_tpu_torch/csrc/flash_fwd_sm90.cu"
 FLASH_TPU_KERNEL = "fedtorch_tpu/ops/pallas/flash_attention.py:82"
 # timed inputs of the quantizer pairs rotate over at least this many
@@ -488,9 +503,20 @@ LM_D1024 = dict(LM, rnn_hidden_size=512)
 LM_D1024_SHAPE = (LM_BATCH, 2048, 4, 256)
 D1024_TIMED_ROUNDS = 1
 D1024_CUT = dict(hidden=512, layers=1, T=128, clients=2, rate=1.0)
-# the flash phase's head dims past 128 (both kernels' wide instances) and
-# their sequence lengths
-FLASH_WIDE_DIMS = (136, 192, 200, 256)
+# transformer_d2048: d_model 2048, 4 heads of 512, bf16 (the wgmma
+# kernel's D-512 instance), its population cut from 100 clients to 10,
+# all online (k = 10 as in every transformer cell: the client state of
+# 100 would not fit the card); beside it its float32 cut card vs CPU (the
+# TF32 kernel's column blocks at D 512 inside a round)
+LM_D2048 = dict(LM, rnn_hidden_size=1024)
+LM_D2048_SHAPE = (LM_BATCH, 2048, 4, 512)
+D2048_POPULATION = (10, 1.0)
+D2048_TIMED_ROUNDS = 1
+D2048_CUT = dict(hidden=1024, layers=1, T=128, clients=2, rate=1.0)
+# the flash phase's head dims past 128 (both kernels' wide instances, and
+# past 256 the TF32 kernel's column blocks and the wgmma kernel's D-512
+# instance) and their sequence lengths; B.H 4 past 576
+FLASH_WIDE_DIMS = (136, 192, 200, 256, 257, 320, 384, 512, 576, 1024)
 FLASH_WIDE_TS = (1, 129, 2048)
 # the moe phase: the transformer cell with Switch MoE blocks (MOE_AB.json's
 # 16 experts, the README's capacity factor 1.25 for E >= 8, Switch's aux
@@ -1313,7 +1339,7 @@ def sdpa_backend(q, k, v) -> str:
 # the kernels-line entries of the flash forward: the wgmma kernel at each
 # head dim of a main path, the TF32 kernel; the wgmma kernel's instance at
 # 192, on no main path, is checked and reported inside the tc256 entry
-FLASH_KEYS = ("tc64", "tc128", "tc256", "tf32")
+FLASH_KEYS = ("tc64", "tc128", "tc256", "tc512", "tf32")
 
 
 def flash_phase(fa):
@@ -1321,7 +1347,8 @@ def flash_phase(fa):
     off for the plain version), each case through the route ``_route``
     picks; then timed at the transformer paths' shapes against the plain
     version and PyTorch's SDPA. Returns the kernels-line fields of the
-    wgmma kernel at head dim 64 and 128 and of the TF32 kernel."""
+    wgmma kernel at each head dim of a main path and of the TF32
+    kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0)
@@ -1362,7 +1389,7 @@ def flash_phase(fa):
         w["cases"] += 1
 
     def want(dtype, d, offset=0):
-        # aligned bf16 views at head dim 64, 128, 192 or 256 take the
+        # aligned bf16 views at head dim 64, 128, 192, 256 or 512 take the
         # wgmma kernel
         return "tc" if dtype == torch.bfloat16 and d in fa.TC_HEAD_DIMS \
             and offset == 0 else "tf32"
@@ -1372,7 +1399,9 @@ def flash_phase(fa):
                                 (LM_SHAPE, torch.float32, "tf32"),
                                 (LM_D512_SHAPE, torch.bfloat16, "tc"),
                                 (LM_D1024_SHAPE, torch.bfloat16, "tc"),
-                                (LM_D1024_SHAPE, torch.float32, "tf32")):
+                                (LM_D1024_SHAPE, torch.float32, "tf32"),
+                                (LM_D2048_SHAPE, torch.bfloat16, "tc"),
+                                (LM_D2048_SHAPE, torch.float32, "tf32")):
         for causal in (True, False):
             check(*qkv_views(gen, *shape, dtype), causal, "main path", route)
     B, T, H, D = LM_SHAPE
@@ -1390,16 +1419,20 @@ def flash_phase(fa):
             check(*qkv_views(gen, 2, 129, H, d, dtype, offset=1), True,
                   "misaligned", "tf32")
         # past head dim 128: the TF32 kernel's 16-key tiles at padded
-        # widths 192 and 256, the wgmma kernel's 32-key instances
+        # widths 192 and 256 and its 256-column blocks past 256, the wgmma
+        # kernel's 32-key instances
         for d in FLASH_WIDE_DIMS:
+            b = 1 if d > 576 else 2
             for t in FLASH_WIDE_TS:
                 for causal in (True, False):
-                    check(*qkv_views(gen, 2, t, H, d, dtype), causal,
+                    check(*qkv_views(gen, b, t, H, d, dtype), causal,
                           "wide head dim, T", want(dtype, d))
             for offset in (1, 2):
-                check(*qkv_views(gen, 2, 129, H, d, dtype, offset), True,
+                check(*qkv_views(gen, b, 129, H, d, dtype, offset), True,
                       "wide misaligned", "tf32")
-        for offset, d in itertools.product((0, 1), (D, 256)):
+        # the non-finite rules: at 512 on both kernels, at 384 on the TF32
+        # kernel (bf16 at 384 is the TF32 kernel's too)
+        for offset, d in itertools.product((0, 1), (D, 256, 384, 512)):
             q, k, v = qkv_views(gen, 2, 257, H, d, dtype, offset)
             q[0, 5, 1] = float("nan")
             k[1, 3, 2] = float("inf")
@@ -1416,10 +1449,12 @@ def flash_phase(fa):
             # infinite v: +-inf where p > 0 meets it, NaN where the plain
             # version computes 0 inf (the rows before the key, whose tiles
             # the kernels' causal loops skip) or inf - inf; the wgmma
-            # kernel (aligned bf16) at 64, 128 and 256, the TF32 kernel
-            # at 64 and 256
-            for d in (D, 128, 256) if want(dtype, D, offset) == "tc" \
-                    else (D, 256):
+            # kernel (aligned bf16) at 64, 128, 256 and 512, the TF32
+            # kernel at 64, 256, 384 and 512 (past 256 an infinity in a
+            # second column block)
+            for d in (D, 128, 256, 384, 512) \
+                    if want(dtype, D, offset) == "tc" \
+                    else (D, 256, 384, 512):
                 q, k, v = qkv_views(gen, 2, 300, H, d, dtype, offset)
                 v[0, 0, 1, 11] = float("inf")
                 v[0, 40, 1, 3] = float("inf")
@@ -1428,6 +1463,8 @@ def flash_phase(fa):
                 v[1, 200, 2, 9] = float("inf")
                 v[1, 299, 3, 0] = float("-inf")
                 v[1, 150, 0, d - 1] = float("inf")
+                if d > 300:
+                    v[1, 77, 2, 300] = float("-inf")
                 for causal in (True, False):
                     check(q, k, v, causal, "+-inf v elements",
                           want(dtype, d, offset))
@@ -1446,19 +1483,21 @@ def flash_phase(fa):
             ("tc64", LM_SHAPE, torch.bfloat16, fa._launch_tc),
             ("tc128", LM_D512_SHAPE, torch.bfloat16, fa._launch_tc),
             ("tc256", LM_D1024_SHAPE, torch.bfloat16, fa._launch_tc),
+            ("tc512", LM_D2048_SHAPE, torch.bfloat16, fa._launch_tc),
             ("tf32", LM_SHAPE, torch.float32, fa._launch_tf32)):
         out[key].update(time_flash(fa, gen, shape, dtype, launch))
     # the TF32 kernel beside its float32 line: bfloat16 at head dim 64
-    # (through its launcher), the default width's heads and heads of 256
-    # (its 16-key tiles) in float32
+    # (through its launcher), the default width's heads, heads of 256
+    # (its 16-key tiles) and of 512 (its column blocks) in float32
     for tag, shape, dtype in (("bf16", LM_SHAPE, torch.bfloat16),
                               ("d25", DEFAULT_WIDTH_SHAPE, torch.float32),
-                              ("d256", LM_D1024_SHAPE, torch.float32)):
+                              ("d256", LM_D1024_SHAPE, torch.float32),
+                              ("d512", LM_D2048_SHAPE, torch.float32)):
         t = time_flash(fa, gen, shape, dtype, fa._launch_tf32)
         out["tf32"].update({f"{tag}_{k}": v for k, v in t.items()})
     # the wgmma kernel's non-finite pre-pass alone (inside "ms" above)
     for key, shape in (("tc64", LM_SHAPE), ("tc128", LM_D512_SHAPE),
-                       ("tc256", LM_D1024_SHAPE)):
+                       ("tc256", LM_D1024_SHAPE), ("tc512", LM_D2048_SHAPE)):
         out[key]["prepass_ms"] = time_prepass(fa, gen, shape)
         log(f"flash_fwd_tc's pre-pass at {shape}: "
             f"{out[key]['prepass_ms']:.5f} ms of {out[key]['ms']:.4f}")
@@ -1776,14 +1815,14 @@ def lm_reference_phase(tcfg, define_model, make_algorithm,
 
 
 def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16",
-                model=None):
+                model=None, population=(NUM_CLIENTS, ONLINE_RATE)):
     """The quantized FedAvg round of a main path: the north-star round
     (bench.py) on a CIFAR model (``model``: more of its ModelConfig), or
     a transformer path's round (``lm``: its model sizes, ``dtype`` its
-    compute dtype)."""
+    compute dtype); ``population``: clients and online rate."""
     fed = tcfg.FederatedConfig(
-        federated=True, num_clients=NUM_CLIENTS,
-        online_client_rate=ONLINE_RATE, algorithm="fedavg",
+        federated=True, num_clients=population[0],
+        online_client_rate=population[1], algorithm="fedavg",
         sync_type="local_step", quantized=True)
     train = tcfg.TrainConfig(local_step=LOCAL_STEPS)
     mesh = tcfg.MeshConfig(compute_dtype=dtype)
@@ -1804,35 +1843,37 @@ def path_config(tcfg, arch, widen=None, lm=LM, dtype="bfloat16",
         mesh=mesh).finalize()
 
 
-def path_data(cfg, seed, stack_partitions):
-    """``NUM_CLIENTS`` clients' data made from ``seed``: CIFAR-10-shaped
+def path_data(cfg, seed, stack_partitions, clients=NUM_CLIENTS):
+    """``clients`` clients' data made from ``seed``: CIFAR-10-shaped
     images and labels, or next-character windows of a random character
     stream with their next-token labels."""
     rng = np.random.RandomState(seed)
     if cfg.model.arch == "transformer":
         T, per = cfg.model.rnn_seq_len, LM_WINDOWS
         stream = rng.randint(0, cfg.model.vocab_size,
-                             NUM_CLIENTS * per * T + 1).astype(np.int32)
+                             clients * per * T + 1).astype(np.int32)
         feats = stream[:-1].reshape(-1, T)
         labels = stream[1:].reshape(-1, T)
     else:
         per = SAMPLES
-        feats = rng.randn(NUM_CLIENTS * per, 32, 32, 3).astype(np.float32)
-        labels = rng.randint(0, 10, NUM_CLIENTS * per)
-    parts = [np.arange(i * per, (i + 1) * per) for i in range(NUM_CLIENTS)]
+        feats = rng.randn(clients * per, 32, 32, 3).astype(np.float32)
+        labels = rng.randint(0, 10, clients * per)
+    parts = [np.arange(i * per, (i + 1) * per) for i in range(clients)]
     return stack_partitions(feats, labels, parts)
 
 
 def main_path_phase(seed, tcfg, define_model, make_algorithm,
                     stack_partitions, FederatedTrainer, qk, fa,
                     arch="resnet20", widen=None, timed_rounds=TIMED_ROUNDS,
-                    lm=LM, dtype="bfloat16", model=None):
+                    lm=LM, dtype="bfloat16", model=None,
+                    population=(NUM_CLIENTS, ONLINE_RATE)):
     """A quantized FedAvg main path on ``arch`` through the library entry
-    points; returns (numbers, trainer, server, clients)."""
-    cfg = path_config(tcfg, arch, widen, lm, dtype, model)
+    points (``population``: clients and online rate); returns (numbers,
+    trainer, server, clients)."""
+    cfg = path_config(tcfg, arch, widen, lm, dtype, model, population)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    data = path_data(cfg, seed, stack_partitions)
+    data = path_data(cfg, seed, stack_partitions, population[0])
     model = define_model(cfg, batch_size=cfg.data.batch_size)
     trainer = FederatedTrainer(cfg, model, make_algorithm(cfg), data)
     del data
@@ -1840,8 +1881,8 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     init = {k: v.clone() for k, v in server.params.items()}
     expect = launches_per_round(qk, [v.numel() for v in init.values()])
     # one forward per attention layer and local step of each online client,
-    # all on one kernel: bfloat16 at head dim 64 or 128 on the wgmma
-    # kernel, anything else on the TF32 kernel
+    # all on one kernel: bfloat16 at a head dim of TC_HEAD_DIMS on the
+    # wgmma kernel, anything else on the TF32 kernel
     expect["flash"] = (cfg.model.mlp_num_layers * trainer.local_steps
                        * trainer.k_online if arch == "transformer" else 0)
     head_dim = 2 * lm["rnn_hidden_size"] // 4
@@ -1849,9 +1890,10 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
     expect["flash_tc"] = expect["flash"] if tc else 0
     expect["flash_tf32"] = expect["flash"] - expect["flash_tc"]
     setup_s = time.perf_counter() - t0
+    init_mib = torch.cuda.memory_allocated() / 2**20
     log(f"{arch}: set-up {setup_s:.2f} s (data, model, state; "
         f"{sum(v.numel() for v in init.values()):,} params; "
-        f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB on the card)")
+        f"{init_mib:.0f} MiB on the card)")
 
     reset_counters(qk, fa)
     torch.cuda.synchronize()
@@ -1901,7 +1943,9 @@ def main_path_phase(seed, tcfg, define_model, make_algorithm,
                launches_per_round={c: n / rounds
                                    for c, n in launched.items()},
                mean_loss=float(losses.mean()),
-               max_param_change=moved,
+               max_param_change=moved, num_clients=population[0],
+               online_rate=population[1], k_online=trainer.k_online,
+               init_state_mib=init_mib,
                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
     out["costs"] = round_costs(trainer, server, round_ms, dtype)
     log(f"{arch} main path: {round_ms:.1f} ms/round, "
@@ -6380,7 +6424,7 @@ def check_lm_launches(out, route):
 PHASES = ("kernels", "reference", "main", "stream", "cli", "zoo", "localsgd",
           "tasks", "models", "faults", "lifecycle", "federation", "fusion",
           "wideresnet", "transformer", "transformer_d512", "transformer_d1024",
-          "transformer_f32", "moe", "podscale")
+          "transformer_d2048", "transformer_f32", "moe", "podscale")
 PHASE_NEEDS = {"faults": ("main",)}
 
 
@@ -6404,9 +6448,11 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
     run's)."""
     main, cli_out = results["main_path"], results["cli"]
     wrn, lm = results["wrn_main_path"], results["transformer_main_path"]
-    d512, d1024, f32 = (results[f"{n}_main_path"]
-                        for n in ("transformer_d512", "transformer_d1024",
-                                  "transformer_f32"))
+    d512, d1024, d2048, f32 = (results[f"{n}_main_path"]
+                               for n in ("transformer_d512",
+                                         "transformer_d1024",
+                                         "transformer_d2048",
+                                         "transformer_f32"))
     zoo, tasks, models = (results[n] for n in ("zoo", "tasks", "models"))
     faults, stream = results["faults"], results["stream"]
     federation, fusion = results["federation"], results["fusion"]
@@ -6416,7 +6462,8 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
              ("cli_apfl", results["cli_apfl"]),
              ("localsgd", results["localsgd"]), ("wideresnet28_10", wrn),
              ("transformer", lm), ("transformer_d512", d512),
-             ("transformer_d1024", d1024), ("transformer_f32", f32),
+             ("transformer_d1024", d1024), ("transformer_d2048", d2048),
+             ("transformer_f32", f32),
              ("cli_stream_mmap", cli_out["stream_mmap"])) + tuple(
                  (f"zoo_{n}", r) for n, r in zoo["paths"].items()) + tuple(
                  (f"tasks_{n}", r) for n, r in tasks["paths"].items()) + tuple(
@@ -6441,13 +6488,19 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
     single_by_path = {p: r["launches"]["ragged_apply"]
                       - r["tree_launches"]["ragged_apply"] for p, r in paths}
     # one counter for every head dim of the wgmma kernel: a path's
-    # launches go to its head dim's entry (64 but on these two)
-    dims = {"transformer_d512": 128, "transformer_d1024": 256}
+    # launches go to its head dim's entry (64 but on these three)
+    dims = {"transformer_d512": 128, "transformer_d1024": 256,
+            "transformer_d2048": 512}
     tc_by_dim = {d: {p: n for p, n in by_path["flash_tc"].items()
-                     if dims.get(p, 64) == d} for d in (64, 128, 256)}
-    # the TF32 kernel at D 256: the float32 cut of transformer_d1024
-    tf32_by_path = dict(by_path["flash_tf32"], transformer_d1024_f32_cut=(
-        d1024["f32_cut"]["round_flash_launches"]["flash_tf32"]))
+                     if dims.get(p, 64) == d} for d in (64, 128, 256, 512)}
+    # the TF32 kernel at D 256 and 512: the float32 cuts of
+    # transformer_d1024 and transformer_d2048
+    tf32_by_path = dict(
+        by_path["flash_tf32"],
+        transformer_d1024_f32_cut=(
+            d1024["f32_cut"]["round_flash_launches"]["flash_tf32"]),
+        transformer_d2048_f32_cut=(
+            d2048["f32_cut"]["round_flash_launches"]["flash_tf32"]))
     kernels = [
         dict(name="qdq_ragged_stats_f32", route="cuda", source=RAGGED_SOURCE,
              replaces=TPU_KERNEL, launches=main["launches"]["ragged_stats"],
@@ -6476,7 +6529,8 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
              launches_by_path=single_by_path, on_main_path=False,
              library_ms=None, library_note=NO_LIBRARY, **single_fields),
         # the wgmma kernel: head dim 64 on the transformer path, 128 on
-        # transformer_d512, 256 on transformer_d1024 (one counter for all)
+        # transformer_d512, 256 on transformer_d1024, 512 on
+        # transformer_d2048 (one counter for all)
         dict(name="flash_fwd_tc (D 64)", route="cuda",
              source=FLASH_TC_SOURCE, replaces=FLASH_TPU_KERNEL,
              launches=lm["launches"]["flash_tc"],
@@ -6497,9 +6551,15 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
              launches_by_path=tc_by_dim[256],
              launches_per_round=d1024["launches_per_round"]["flash_tc"],
              **flash_fields["tc256"]),
+        dict(name="flash_fwd_tc (D 512)", route="cuda",
+             source=FLASH_TC_SOURCE, replaces=FLASH_TPU_KERNEL,
+             launches=d2048["launches"]["flash_tc"],
+             launches_by_path=tc_by_dim[512],
+             launches_per_round=d2048["launches_per_round"]["flash_tc"],
+             **flash_fields["tc512"]),
         # the TF32 kernel: float32 (transformer_f32, the reference phase,
-        # transformer_d1024's float32 cut at D 256), other head dims,
-        # misaligned views
+        # the float32 cuts of transformer_d1024 at D 256 and
+        # transformer_d2048 at D 512), other head dims, misaligned views
         dict(name="flash_fwd_tf32", route="cuda", source=FLASH_TF32_SOURCE,
              replaces=FLASH_TPU_KERNEL,
              launches=f32["launches"]["flash_tf32"],
@@ -6824,13 +6884,19 @@ def main(argv=None) -> int:
         results["transformer_profile"] = lm_prof
         del trainer, server, clients
 
-    for name, sizes, dtype, rounds, route in (
+    # the wide cells' float32 cuts (the TF32 kernel at D 256 and 512
+    # inside a round, card vs CPU) and tiled launches a round
+    cuts = {"transformer_d1024": (D1024_CUT, 8),
+            "transformer_d2048": (D2048_CUT, 6)}
+    for name, sizes, dtype, rounds, route, population in (
             ("transformer_d512", LM_D512, "bfloat16", D512_TIMED_ROUNDS,
-             "flash_tc"),
+             "flash_tc", (NUM_CLIENTS, ONLINE_RATE)),
             ("transformer_d1024", LM_D1024, "bfloat16", D1024_TIMED_ROUNDS,
-             "flash_tc"),
+             "flash_tc", (NUM_CLIENTS, ONLINE_RATE)),
+            ("transformer_d2048", LM_D2048, "bfloat16", D2048_TIMED_ROUNDS,
+             "flash_tc", D2048_POPULATION),
             ("transformer_f32", LM, "float32", F32_TIMED_ROUNDS,
-             "flash_tf32")):
+             "flash_tf32", (NUM_CLIENTS, ONLINE_RATE))):
         if not want(name):
             continue
         phase(f"{name} main path")
@@ -6839,24 +6905,29 @@ def main(argv=None) -> int:
         out, trainer, server, clients = main_path_phase(
             args.seed, tcfg, define_model, make_algorithm, stack_partitions,
             FederatedTrainer, qk, fa, arch="transformer",
-            timed_rounds=rounds, lm=sizes, dtype=dtype)
+            timed_rounds=rounds, lm=sizes, dtype=dtype,
+            population=population)
         check_lm_launches(out, route)
         results[f"{name}_main_path"] = out
         results[f"{name}_profile"] = profile_phase(
             trainer, server, clients, out["launches_per_round"])
         del trainer, server, clients
-        if name == "transformer_d1024":
+        if name in cuts:
+            cut, tiled = cuts[name]
             gc.collect()
             torch.cuda.empty_cache()
-            log(f"{name}: tiled launches a round "
-                f"{out['launches_per_round']['stats']:g} + "
-                f"{out['launches_per_round']['apply']:g} (one of each per "
-                f"leaf size past {qk._MAX_ROW_ELEMS:,}, uplink and downlink)")
-            # its round cut in float32: the TF32 kernel at D 256, card vs
-            # CPU
+            per = out["launches_per_round"]
+            log(f"{name}: tiled launches a round {per['stats']:g} + "
+                f"{per['apply']:g} (one of each per leaf size past "
+                f"{qk._MAX_ROW_ELEMS:,}, uplink and downlink)")
+            if (per["stats"], per["apply"]) != (tiled, tiled):
+                raise AssertionError(f"{name}: expected {tiled} + {tiled} "
+                                     f"tiled launches a round, got {per}")
+            # its round cut in float32: the TF32 kernel inside a round,
+            # card vs CPU
             out["f32_cut"] = lm_reference_phase(
                 tcfg, define_model, make_algorithm, stack_partitions,
-                FederatedTrainer, fa, **D1024_CUT)
+                FederatedTrainer, fa, **cut)
 
     if want("moe"):
         phase("moe")

@@ -1,9 +1,9 @@
 // Exact attention forward with the online softmax on Hopper's tensor cores
-// (sm_90a): bfloat16 q, k, v with head dim 64, 128, 192 or 256.
+// (sm_90a): bfloat16 q, k, v with head dim 64, 128, 192, 256 or 512.
 //
 // Replaces the TPU Pallas kernel `_fwd_kernel`
 // (fedtorch_tpu/ops/pallas/flash_attention.py:82), for the inputs that
-// `ops/cuda/flash_attention.py::_route` sends here; `flash_fwd_tf32.cu`
+// `ops/cuda/flash_attention.py::_route` sends here; `flash_fwd_tf32.cuh`
 // takes the rest (float32, other head dims, misaligned views). It computes
 // what that kernel and its oracle `_fwd_xla` compute: for each (batch,
 // head) and query row i, over the keys j it sees (j <= i when causal),
@@ -22,7 +22,9 @@
 // of a d_model-512 transformer) the products double, 34.4 GFLOP useful:
 // 0.03476 ms, while the softmax's work per score stays the same. At D =
 // 256 (the heads of a d_model-1024 transformer, and Gemma 7B's) it is
-// 68.7 GFLOP: 0.0695 ms at peak, against 0.040 ms for the bytes.
+// 68.7 GFLOP: 0.0695 ms at peak, against 0.040 ms for the bytes; at D =
+// 512 (a d_model-2048 transformer's) 137.5 GFLOP: 0.1390 ms, against
+// 0.080 ms for the 268 MB.
 //
 // Design:
 // - One CTA of 288 threads per (batch*head, 128 query rows): two consumer
@@ -56,6 +58,19 @@
 //   S is `wgmma m64n32k16`; P V one `m64n128k16` per pair of V's atoms
 //   (and an `m64n64k16` for D 192's third), each on its own 64 columns
 //   of the accumulators, the descriptor stepping two atoms at a time.
+// - At D 512 (`Cfg::kColSplit`) a warpgroup cannot hold O for 64 rows:
+//   256 float32 a thread. So a CTA takes 64 query rows (`Cfg::kBQ`) and
+//   its two consumer warpgroups split O's columns: each owns 256 of them
+//   (`Cfg::kDV`: 128 float32 a thread, as at D 256), and both compute
+//   the same S of the 64 rows (`m64n32k16` over 32 k-steps, 8 atoms), so
+//   their m and l agree bitwise and warpgroup 0 writes the lse. Shared
+//   memory: Q 64 x 512 x 2 = 64 KB; a 2-stage ring (`Cfg::kStages`) of
+//   32-key K and V tiles, 2 x (32 + 32) KB = 128 KB; each warpgroup's
+//   sanitized half of a V tile, 2 x 16 KB; 1 KB of alignment: 225 KB,
+//   230,400 B, as at D 256. Registers as at D 256 (setmaxnreg 24/240: O
+//   128, S 16, P 16). S is issued twice, so the tensor cores do 2x the
+//   useful work (1.5x at D 256): 275 GFLOP at (8, 2048, 4, 512), 0.278
+//   ms at peak.
 // - S = Q K^T: D / 16 `wgmma m64n64k16` from shared memory into float32
 //   accumulators, the descriptors stepping 32 bytes along an atom's rows
 //   and then to the next atom; then the scale; the causal mask only on
@@ -82,7 +97,7 @@
 //   consumer warps) per SM; at D = 128 the O accumulators double to 64
 //   float32 a thread, within the 168 registers ptxas gives a thread.
 //
-// Non-finite rules, those of `flash_fwd_tf32.cu` (and of `_fwd_xla`):
+// Non-finite rules, those of `flash_fwd_tf32.cuh` (and of `_fwd_xla`):
 // - the running max keeps NaN; m_safe = m where finite, else 0;
 // - p = exp(s - m_safe) where s is finite, else 0;
 // - corr = exp(m_old - m_safe) where the old max is finite, 0 where it is
@@ -105,9 +120,9 @@
 //   swizzled bytes, non-finite bf16 zeroed) before P V, and marks NaN
 //   each causal column whose last such key lies past the warpgroup's
 //   tiles. The two copies take 16 KB (D 64), 32 KB (D 128 and 256: 32-key
-//   tiles) or 24 KB (D 192) of shared memory beside the ring. The tiles a
-//   warpgroup scores, and so the keys past them, follow the instance's
-//   kBK.
+//   tiles; D 512: each warpgroup's 256 columns) or 24 KB (D 192) of shared
+//   memory beside the ring. The tiles a warpgroup scores, and so the keys
+//   past them, follow the instance's kBK and query tile.
 //
 // Rounding: compiled without --fmad=false (build.py): attention has no
 // rounding contract beyond its tolerance, and splitting the multiply-adds
@@ -126,16 +141,20 @@
 
 namespace {
 
-constexpr int kBQ = 128;                    // query rows per CTA
-constexpr int kStages = 4;                  // K/V ring depth
 constexpr int kConsumers = 256;             // two warpgroups
 constexpr int kAtomCols = 64;               // bf16 columns of one atom
 constexpr int kRowBytes = kAtomCols * 2;    // one 128-byte swizzle row
-constexpr int kQAtomBytes = kBQ * kRowBytes;   // 16 KB
 
 template <int kD>
 struct Cfg {
   static_assert(kD % kAtomCols == 0, "head dim: whole 64-column atoms");
+  // past D 256 the warpgroups split O's columns, not the query rows (the
+  // header's budget): query rows per CTA, K/V ring depth, and the columns
+  // of O (and of V) a warpgroup owns
+  static constexpr bool kColSplit = kD > 256;
+  static constexpr int kBQ = kColSplit ? 64 : 128;
+  static constexpr int kStages = kColSplit ? 2 : 4;
+  static constexpr int kDV = kColSplit ? kD / 2 : kD;
   // keys per K/V tile: 64 up to D 128, 32 past it (the header's budget)
   static constexpr int kBK = kD > 128 ? 32 : 64;
   static constexpr int kSN = kBK / 2;  // S accumulators a thread
@@ -148,13 +167,16 @@ struct Cfg {
   static_assert(!kRegSplit || 128 * kProducerRegs + kConsumers *
                 kConsumerRegs <= 65536, "the register file");
   static constexpr int kAtoms = kD / kAtomCols;
+  static constexpr int kQAtomBytes = kBQ * kRowBytes;   // 16 or 8 KB
   static constexpr int kKVAtomBytes = kBK * kRowBytes;  // 8 or 4 KB
   static constexpr int kQBytes = kAtoms * kQAtomBytes;
   static constexpr int kKVBytes = kAtoms * kKVAtomBytes;  // a K or V tile
-  // Q, the K and V ring, one sanitized V tile per consumer warpgroup,
-  // and the alignment
+  // the bytes of a V tile a warpgroup reads (its columns' atoms)
+  static constexpr int kVWgBytes = kDV / kAtomCols * kKVAtomBytes;
+  // Q, the K and V ring, one sanitized V tile (or half) per consumer
+  // warpgroup, and the alignment
   static constexpr int kSmemBytes =
-      kQBytes + 2 * kStages * kKVBytes + 2 * kKVBytes + 1024;
+      kQBytes + 2 * kStages * kKVBytes + 2 * kVWgBytes + 1024;
   // what a block may take, less the static barriers
   static_assert(kSmemBytes <= 232448 - 128, "shared memory");
 };
@@ -187,15 +209,15 @@ __device__ __forceinline__ uint32_t finite_pair(uint32_t w) {
   return w & ~(lo | hi);
 }
 
-// The V tile at `src` into `dst` with every non-finite element 0: the
-// p_lo product's operand. Both are 1024-byte aligned, so a byte-for-byte
-// copy keeps the 128-byte swizzle. The warpgroup's 128 threads copy it,
-// fence it to the async proxy and meet at named barrier `bar` before any
-// of them issues the wgmma that reads it.
+// The warpgroup's atoms of the V tile at `src` into `dst` with every
+// non-finite element 0: the p_lo product's operand. Both are 1024-byte
+// aligned, so a byte-for-byte copy keeps the 128-byte swizzle. The
+// warpgroup's 128 threads copy it, fence it to the async proxy and meet at
+// named barrier `bar` before any of them issues the wgmma that reads it.
 template <int kD>
 __device__ __forceinline__ void sanitize_v(uint32_t dst, uint32_t src,
                                            uint32_t bar) {
-  constexpr int kChunks = Cfg<kD>::kKVBytes / (16 * 128);
+  constexpr int kChunks = Cfg<kD>::kVWgBytes / (16 * 128);
   const uint32_t t = threadIdx.x % 128;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
@@ -231,7 +253,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[Cfg<kD>::kSN],
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
     const int atom = kk / 4, step = kk % 4;
-    wgmma_qk(s, sm90::desc_sw128(q_wg + atom * kQAtomBytes) + 2 * step,
+    wgmma_qk(s,
+             sm90::desc_sw128(q_wg + atom * Cfg<kD>::kQAtomBytes) + 2 * step,
              sm90::desc_sw128(k_tile + atom * Cfg<kD>::kKVAtomBytes) +
                  2 * step,
              kk);
@@ -323,43 +346,45 @@ __device__ __forceinline__ void split_p(const float (&s)[kSN],
   }
 }
 
-// one k16 step of P V: 16 V rows (2048 bytes into each atom). The
-// accumulator's columns 128 c.. are entries 64 c.. of `acc`, so D 192 and
-// 256 issue a 128-column product per pair of atoms (and a 64-column one
-// for a last odd atom), the descriptor stepping two atoms along
+// one k16 step of P V over the warpgroup's kDV columns: 16 V rows (2048
+// bytes into each atom). The accumulator's columns 128 c.. are entries
+// 64 c.. of `acc`, so a kDV of 192 or 256 (D 256 and 512) issues a
+// 128-column product per pair of atoms (and a 64-column one for a last
+// odd atom), the descriptor stepping two atoms along
 template <int kD>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[kD / 2],
+__device__ __forceinline__ void wgmma_pv(float (&acc)[Cfg<kD>::kDV / 2],
                                          const uint32_t* a, uint64_t desc) {
-  if constexpr (kD == 64) {
+  constexpr int kDV = Cfg<kD>::kDV;
+  if constexpr (kDV == 64) {
     sm90::wgmma_m64n64k16_rs_tb(acc, a, desc);
   } else {
 #pragma unroll
-    for (int c = 0; c < kD / 128; ++c) {
+    for (int c = 0; c < kDV / 128; ++c) {
       sm90::wgmma_m64n128k16_rs_tb(
           *reinterpret_cast<float(*)[64]>(acc + 64 * c), a,
           desc + ((2 * c * Cfg<kD>::kKVAtomBytes) >> 4));
     }
-    if constexpr (kD % 128 != 0) {
+    if constexpr (kDV % 128 != 0) {
       sm90::wgmma_m64n64k16_rs_tb(
-          *reinterpret_cast<float(*)[32]>(acc + kD / 2 - 32), a,
-          desc + (((kD / 64 - 1) * Cfg<kD>::kKVAtomBytes) >> 4));
+          *reinterpret_cast<float(*)[32]>(acc + kDV / 2 - 32), a,
+          desc + (((kDV / 64 - 1) * Cfg<kD>::kKVAtomBytes) >> 4));
     }
   }
 }
 
 // O = corr O + P_hi V + P_lo V_lo for one key tile (uncommitted): kBK /
 // 16 k16 steps per half; V's atoms (D >= 128) are the descriptor's
-// leading byte offset apart. V_lo is V, or its sanitized copy (the
-// header's non-finite rules)
+// leading byte offset apart. v_tile is the warpgroup's first atom of the
+// tile; V_lo is V, or its sanitized copy (the header's non-finite rules)
 template <int kD>
-__device__ __forceinline__ void issue_pv(float (&acc)[kD / 2],
+__device__ __forceinline__ void issue_pv(float (&acc)[Cfg<kD>::kDV / 2],
                                          uint32_t (&p_hi)[Cfg<kD>::kPN],
                                          uint32_t (&p_lo)[Cfg<kD>::kPN],
                                          const float (&corr)[2],
                                          uint32_t v_tile, uint32_t v_lo) {
   constexpr int kBK = Cfg<kD>::kBK;
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
+  for (int j = 0; j < Cfg<kD>::kDV / 8; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       acc[4 * j + 2 * r] *= corr[r];
@@ -415,13 +440,17 @@ __device__ __forceinline__ void consume(
     const int* __restrict__ last, float scale, int causal,
     bool dirty_flag) {
   using C = Cfg<kD>;
-  constexpr int kBK = C::kBK, kSN = C::kSN;
+  constexpr int kBK = C::kBK, kSN = C::kSN, kDV = C::kDV;
+  constexpr int kStages = C::kStages;
   const bool dirty = kDirty == kRuntime ? dirty_flag : kDirty == kNonfinite;
+  // the warpgroup's columns of O and V: all, or its half at D 512
+  const int col0 = C::kColSplit ? wg * kDV : 0;
+  const uint32_t v_col = C::kColSplit ? wg * C::kVWgBytes : 0;
   // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
-  float acc[kD / 2], s[kSN];
+  float acc[kDV / 2], s[kSN];
   uint32_t p_hi[C::kPN], p_lo[C::kPN];
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDV / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kSN; ++i) s[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
@@ -441,7 +470,7 @@ __device__ __forceinline__ void consume(
   // each wait retires a known group (else ptxas serializes the wgmmas).
   for (int i = 0; i + 1 < n_wg; ++i) {
     const int nst = (i + 1) % kStages;
-    const uint32_t v_tile = v_s + (i % kStages) * C::kKVBytes;
+    const uint32_t v_tile = v_s + (i % kStages) * C::kKVBytes + v_col;
     if (dirty) sanitize_v<kD>(v_clean, v_tile, 1 + wg);
     sm90::mbar_wait(full + 8 * nst, ((i + 1) / kStages) & 1);
     __syncwarp();
@@ -463,7 +492,8 @@ __device__ __forceinline__ void consume(
     sm90::mbar_arrive(empty + 8 * (i % kStages));
     split_p(s, p_hi, p_lo);
   }
-  const uint32_t v_tile = v_s + ((n_wg - 1) % kStages) * C::kKVBytes;
+  const uint32_t v_tile =
+      v_s + ((n_wg - 1) % kStages) * C::kKVBytes + v_col;
   if (dirty) sanitize_v<kD>(v_clean, v_tile, 1 + wg);
   __syncwarp();
   issue_pv<kD>(acc, p_hi, p_lo, corr, v_tile, dirty ? v_clean : v_tile);
@@ -493,8 +523,8 @@ __device__ __forceinline__ void consume(
     __nv_bfloat16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h)
                                   * kD;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      const int c = 8 * j + 2 * t4;
+    for (int j = 0; j < kDV / 8; ++j) {
+      const int c = col0 + 8 * j + 2 * t4;
       float x0 = acc[4 * j + 2 * r] / l_safe;
       float x1 = acc[4 * j + 2 * r + 1] / l_safe;
       if (last_bh != nullptr) {
@@ -503,7 +533,7 @@ __device__ __forceinline__ void consume(
       }
       *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(x0, x1);
     }
-    if (t4 == 0) {
+    if (t4 == 0 && (!C::kColSplit || wg == 0)) {  // one writer a row
       lse[static_cast<int64_t>(bh) * T + row] =
           (is_finite(m[r]) ? m[r] : 0.f) + logf(l_safe);
     }
@@ -519,7 +549,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const int* __restrict__ last, int H, int T, float scale,
                     int causal) {
   using C = Cfg<kD>;
-  constexpr int kBK = C::kBK;
+  constexpr int kBK = C::kBK, kBQ = C::kBQ, kStages = C::kStages;
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
@@ -553,8 +583,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if constexpr (C::kRegSplit) sm90::setmaxnreg_dec<C::kProducerRegs>();
     if (threadIdx.x != kConsumers) return;
     sm90::mbar_expect_tx(sm90::smem_addr(&q_full), C::kQBytes);
-    tma_tile<kD>(q_s, &qmap, sm90::smem_addr(&q_full), kQAtomBytes, h, q0,
-                 b);
+    tma_tile<kD>(q_s, &qmap, sm90::smem_addr(&q_full), C::kQAtomBytes, h,
+                 q0, b);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       // the consumers' release of tile i - kStages (passes at once for
@@ -571,7 +601,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   if constexpr (C::kRegSplit) sm90::setmaxnreg_inc<C::kConsumerRegs>();
-  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; in the
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 (at D
+  // 512 both own rows q0.. + 63 and wg its columns 256 wg..); in the
   // accumulator layout lane (g, t4) of warp w holds rows 16 w + g and
   // 16 w + g + 8, columns 8 j + 2 t4 + {0, 1}: d[4 j + 2 r + e] is row
   // 16 w + g + 8 r, column 8 j + 2 t4 + e
@@ -579,7 +610,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int wg_first = q0 + 64 * wg;
+  const int wg_first = q0 + (C::kColSplit ? 0 : 64 * wg);
   const int wg_last = wg_first + 63;
   const int row0 = wg_first + 16 * warp + g;
 
@@ -587,8 +618,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // (`_fwd_kernel`'s loop bound, :128-131)
   const int n_wg = causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
   // this warpgroup's 64 rows of each Q atom, and its sanitized V tile
-  const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
-  const uint32_t v_clean = v_s + (kStages + wg) * C::kKVBytes;
+  const uint32_t q_wg = q_s + (C::kColSplit ? 0 : wg * 64 * kRowBytes);
+  const uint32_t v_clean =
+      v_s + kStages * C::kKVBytes + wg * C::kVWgBytes;
   // the pre-pass's verdict on this (batch, head): a non-finite v in any
   // column (the same in every thread of the CTA)
   int last_any = -1;
@@ -736,7 +768,8 @@ int launch(EncodeTiled enc, const void* q, const void* k, const void* v,
            int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
            float scale, int causal, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!make_map(enc, &qm, q, B, T_len, H, kD, sqb, sqt, sqh, kBQ) ||
+  if (!make_map(enc, &qm, q, B, T_len, H, kD, sqb, sqt, sqh,
+                Cfg<kD>::kBQ) ||
       !make_map(enc, &km, k, B, T_len, H, kD, skb, skt, skh, Cfg<kD>::kBK) ||
       !make_map(enc, &vm, v, B, T_len, H, kD, svb, svt, svh, Cfg<kD>::kBK)) {
     return -3;
@@ -748,8 +781,9 @@ int launch(EncodeTiled enc, const void* q, const void* k, const void* v,
       flash_fwd_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg<kD>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned int>(B * H),
-                  static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
+  const dim3 grid(
+      static_cast<unsigned int>(B * H),
+      static_cast<unsigned int>((T_len + Cfg<kD>::kBQ - 1) / Cfg<kD>::kBQ));
   flash_fwd_tc_kernel<kD>
       <<<grid, Cfg<kD>::kThreads, Cfg<kD>::kSmemBytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, last,
@@ -757,14 +791,20 @@ int launch(EncodeTiled enc, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instances' head dims
+bool tc_head_dim(int64_t D) {
+  return D == 64 || D == 128 || D == 192 || D == 256 || D == 512;
+}
+
 }  // namespace
 
-// q, k, v: bfloat16 [B, T, H, D] views (D = 64, 128, 192 or 256) on the
+// q, k, v: bfloat16 [B, T, H, D] views (D = 64, 128, 192, 256 or 512) on the
 // current device with the given element strides for b, t and h and a d
 // stride of 1; base pointers 16-byte aligned and strides multiples of 8 (the Python
 // wrapper checks both). o: contiguous bf16 [B, T, H, D]; lse: contiguous
 // float32 [B, H, T]; last: B * H * D int32 of scratch for the pre-pass.
-// T >= 1. Launches the pre-pass and the kernel on `stream`; returns
+// 1 <= T <= 65535 x the instance's query tile (128 rows; 64 at D 512).
+// Launches the pre-pass and the kernel on `stream`; returns
 // cudaGetLastError() (0 on success), -1 for another head dim, -2 if
 // cuTensorMapEncodeTiled is missing, -3 if it refuses a map.
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
@@ -774,7 +814,7 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
                             int64_t skt, int64_t skh, int64_t svb,
                             int64_t svt, int64_t svh, float scale,
                             int causal, void* stream) {
-  if (D != 64 && D != 128 && D != 192 && D != 256) return -1;
+  if (!tc_head_dim(D)) return -1;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -791,8 +831,10 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
       return go(std::integral_constant<int, 128>());
     case 192:
       return go(std::integral_constant<int, 192>());
-    default:
+    case 256:
       return go(std::integral_constant<int, 256>());
+    default:
+      return go(std::integral_constant<int, 512>());
   }
 }
 
@@ -802,7 +844,7 @@ extern "C" int flash_tc_last_nonfinite(const void* v, void* last, int64_t B,
                                        int64_t T_len, int64_t H, int64_t D,
                                        int64_t svb, int64_t svt, int64_t svh,
                                        void* stream) {
-  if (D != 64 && D != 128 && D != 192 && D != 256) return -1;
+  if (!tc_head_dim(D)) return -1;
   return launch_last(v, static_cast<int*>(last), B, T_len, H, D, svb, svt,
                      svh, static_cast<cudaStream_t>(stream));
 }

@@ -48,6 +48,9 @@ SOURCE_FLAGS = {
     "qdq_tiled.cu": ("--fmad=false",),
     "flash_fwd_sm90.cu": (),
     "flash_fwd_tf32.cu": (),
+    "flash_fwd_tf32_f32.cu": (),
+    "flash_fwd_tf32_bf16.cu": (),
+    "flash_fwd_tf32_wide.cu": (),
 }
 
 

@@ -8,24 +8,29 @@ built. :func:`flash_fwd` picks one by :func:`_route`, from the inputs
 alone:
 
 - ``"tc"``, ``csrc/flash_fwd_sm90.cu`` (``flash_fwd_tc``): bfloat16 with
-  head dim 64, 128, 192 or 256, base pointers 16-byte aligned and the b,
-  t and h strides multiples of 8 elements (what its TMA loads need).
-  bf16 ``wgmma`` on the tensor cores, p split in two bf16 halves for
-  P V; 64-key tiles up to head dim 128, 32-key tiles past it.
-- ``"tf32"``, ``csrc/flash_fwd_tf32.cu`` (``flash_fwd_tf32``):
-  everything else the wrapper takes: float32 at any head dim up to 256,
-  bfloat16 at the other head dims, misaligned or oddly strided views.
-  ``mma.sync`` TF32 on the tensor cores with the 3xTF32 split, which
-  keeps the float32 bar (one TF32 product would break it); 32-key tiles
-  up to head dim 128, 16-key tiles past it.
+  head dim 64, 128, 192, 256 or 512, base pointers 16-byte aligned and
+  the b, t and h strides multiples of 8 elements (what its TMA loads
+  need). bf16 ``wgmma`` on the tensor cores, p split in two bf16 halves
+  for P V; 64-key tiles up to head dim 128, 32-key tiles past it; at 512
+  a CTA's two warpgroups split O's columns over 64 query rows.
+- ``"tf32"``, ``csrc/flash_fwd_tf32.cuh`` (``flash_fwd_tf32``, whose
+  entry is ``csrc/flash_fwd_tf32.cu``):
+  everything else: float32 at any head dim, bfloat16 at the other head
+  dims, misaligned or oddly strided views. ``mma.sync`` TF32 on the
+  tensor cores with the 3xTF32 split, which keeps the float32 bar (one
+  TF32 product would break it); 32-key tiles up to head dim 128, 16-key
+  tiles past it; past 256 each CTA owns a block of 256 of O's columns
+  and sums S over the head dim in 64-column chunks.
 
 Each launch counts in ``flash_launches``, and in ``flash_tc_launches``
-or ``flash_tf32_launches`` by its kernel. Head dims past 256 are refused
-by name: the JAX package takes them, the port does not yet. On CPU
-tensors :func:`flash_fwd` runs :func:`flash_fwd_ref`, the port of the
-JAX package's dense oracle ``_fwd_xla``. There is no fallback: a CUDA
-tensor goes to its route's kernel or raises, and a failed launch is
-never retried on the other.
+or ``flash_tf32_launches`` by its kernel. No head dim is refused: the
+JAX package's kernel takes any, and so do the port's routes together.
+What is refused by name: a dtype other than float32 and bfloat16, mixed
+dtypes, a last-dim stride other than 1, and T past the route's grid
+(:func:`_max_t`). On CPU tensors :func:`flash_fwd` runs
+:func:`flash_fwd_ref`, the port of the JAX package's dense oracle
+``_fwd_xla``. There is no fallback: a CUDA tensor goes to its route's
+kernel or raises, and a failed launch is never retried on the other.
 
 The backward is the JAX package's ``_bwd_chunked``: the probabilities
 are recomputed from the saved logsumexp one ``block_q`` chunk of query
@@ -55,10 +60,14 @@ flash_launches = 0
 flash_tc_launches = 0
 flash_tf32_launches = 0
 
-MAX_HEAD_DIM = 256                  # the widest head either kernel takes
-TC_HEAD_DIMS = (64, 128, 192, 256)  # the bf16 wgmma kernel's instances
+TC_HEAD_DIMS = (64, 128, 192, 256, 512)  # the bf16 wgmma kernel's instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_T = 65535 * 128  # gridDim.y: query tiles of 128 rows (both kernels)
+
+
+def _max_t(route: str, D: int) -> int:
+    """The longest T a route's grid takes: gridDim.y counts query tiles,
+    of 128 rows but in the wgmma kernel's D-512 instance (64)."""
+    return 65535 * (64 if route == "tc" and D == 512 else 128)
 
 
 def _default_blocks(T: int):
@@ -135,9 +144,9 @@ def flash_fwd_ref(q, k, v, scale: float, causal: bool):
 
 
 def _check_inputs(q, k, v) -> None:
-    """What both kernels take, on any device: one dtype of float32 or
-    bfloat16, head dims 1..``MAX_HEAD_DIM``, a last-dim stride of 1,
-    1 <= T <= ``_MAX_T`` and at least one (batch, head) pair."""
+    """What the kernels take, on any device: one dtype of float32 or
+    bfloat16, any head dim >= 1, a last-dim stride of 1, 1 <= T <= the
+    route's :func:`_max_t` and at least one (batch, head) pair."""
     B, T, H, D = q.shape
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_fwd takes float32 or bfloat16, got "
@@ -145,15 +154,15 @@ def _check_inputs(q, k, v) -> None:
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_fwd needs one dtype, got q {q.dtype}, k "
                          f"{k.dtype}, v {v.dtype}")
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_fwd takes head dims up to {MAX_HEAD_DIM} "
-                         f"on the card, got D = {D}; the JAX package "
-                         f"takes any head dim, the port not yet")
+    if D < 1:
+        raise ValueError(f"flash_fwd needs a head dim >= 1, got {D}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_fwd needs a last-dim stride of 1")
-    if not 1 <= T <= _MAX_T or B * H < 1:
-        raise ValueError(f"flash_fwd needs 1 <= T <= {_MAX_T} and B*H >= 1,"
-                         f" got shape {tuple(q.shape)}")
+    route = _route(q, k, v)
+    if not 1 <= T <= _max_t(route, D) or B * H < 1:
+        raise ValueError(f"flash_fwd needs 1 <= T <= {_max_t(route, D)} "
+                         f"(route {route!r}) and B*H >= 1, got shape "
+                         f"{tuple(q.shape)}")
 
 
 def _check_kernel_inputs(q, k, v) -> None:
@@ -219,7 +228,7 @@ def fwd_ops(B: int, T: int, H: int, D: int, causal: bool) -> float:
 
 
 def _launch_tf32(q, k, v, scale: float, causal: bool):
-    """``csrc/flash_fwd_tf32.cu`` on checked CUDA inputs."""
+    """``csrc/flash_fwd_tf32.cuh`` on checked CUDA inputs."""
     global flash_launches, flash_tf32_launches
     B, T, H, D = q.shape
     o, lse = _outputs(q)
@@ -235,8 +244,7 @@ def _launch_tf32(q, k, v, scale: float, causal: bool):
             _load_mode(q, k, v), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_tf32 launch failed: error {err} "
-                           "(-1: a head dim it does not take, else a CUDA "
-                           "error)")
+                           "(-1: a head dim below 1, else a CUDA error)")
     flash_launches += 1
     flash_tf32_launches += 1
     return o, lse
@@ -270,8 +278,8 @@ def _launch_tc(q, k, v, scale: float, causal: bool):
 def flash_fwd(q, k, v, scale: float, causal: bool):
     """The forward on ``[B, T, H, D]`` q, k, v (any strides with a
     last-dim stride of 1): ``(o [B, T, H, D], lse [B, H, T] float32)``.
-    On CUDA tensors the kernel :func:`_route` picks, which raises on a
-    head dim, dtype or layout it does not take; the plain version on CPU
+    On CUDA tensors the kernel :func:`_route` picks (a dtype, layout or
+    length that no kernel takes raises); the plain version on CPU
     tensors."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, scale, causal)

@@ -6,11 +6,13 @@ CUDA card.
 Times each kernel through its wrapper's whole launch, causal, on strided
 q, k, v views of one projection rotating over at least 128 MB (twice
 the L2): the TF32 kernel (``flash_attention._launch_tf32``) in float32
-and in bfloat16 at (8, 2048, 4, 64) and in float32 at (8, 2048, 4, 25)
-and (8, 2048, 4, 256); the wgmma kernel (``_launch_tc``, its non-finite
-pre-pass included) in bfloat16 at (8, 2048, 4, D), D in {64, 128, 256},
-and that pre-pass alone where the checkout has one (a checkout whose
-kernels stop below a head dim reports None there); and
+and in bfloat16 at (8, 2048, 4, 64) and in float32 at (8, 2048, 4, 25),
+(8, 2048, 4, 256) and (8, 2048, 4, 512) (its column blocks); the wgmma
+kernel (``_launch_tc``, its non-finite pre-pass included) in bfloat16
+at (8, 2048, 4, D), D in {64, 128, 256, 512}, and that pre-pass alone
+where the checkout has one (a checkout whose kernels stop below a head
+dim, as the ones before every head dim was taken did, reports None
+there); and
 ``F.scaled_dot_product_attention(is_causal=True)`` in float32 (TF32
 off) at (8, 2048, 4, 25), the TF32 kernel's yardstick at the default
 transformer width, with the backend it takes. Each figure is the median
@@ -43,10 +45,14 @@ SHAPES = (("float32_d64", (8, 2048, 4, 64), torch.float32, "tf32"),
           ("tc_bfloat16_d128", (8, 2048, 4, 128), torch.bfloat16, "tc"),
           ("float32_d256", (8, 2048, 4, 256), torch.float32, "tf32"),
           ("tc_bfloat16_d256", (8, 2048, 4, 256), torch.bfloat16, "tc"),
+          ("float32_d512", (8, 2048, 4, 512), torch.float32, "tf32"),
+          ("tc_bfloat16_d512", (8, 2048, 4, 512), torch.bfloat16, "tc"),
           ("tc_prepass_d64", (8, 2048, 4, 64), torch.bfloat16, "prepass"),
           ("tc_prepass_d128", (8, 2048, 4, 128), torch.bfloat16,
            "prepass"),
           ("tc_prepass_d256", (8, 2048, 4, 256), torch.bfloat16,
+           "prepass"),
+          ("tc_prepass_d512", (8, 2048, 4, 512), torch.bfloat16,
            "prepass"),
           ("sdpa_float32_d25", (8, 2048, 4, 25), torch.float32, "sdpa"))
 ROTATE_BYTES = 128 * 2 ** 20
@@ -82,13 +88,14 @@ def graph_ms(fn, inner: int = 10, reps: int = 15) -> float:
 def _launcher(what, D):
     """``fn(q, k, v)`` for one of SHAPES' kinds, or None where this
     checkout lacks it (a parent without the pre-pass, or whose kernels
-    stop below head dim D)."""
+    stop below head dim D: those name their limit in ``MAX_HEAD_DIM``)."""
     import torch.nn.functional as F
 
     from fedtorch_tpu_torch.ops.cuda import build
     from fedtorch_tpu_torch.ops.cuda import flash_attention as fa
     scale = 1.0 / math.sqrt(D)
-    if what != "sdpa" and D > getattr(fa, "MAX_HEAD_DIM", 128):
+    if what != "sdpa" and (D > getattr(fa, "MAX_HEAD_DIM", D) or (
+            what != "tf32" and D not in fa.TC_HEAD_DIMS)):
         return None
     if what == "tf32":
         return lambda q, k, v: fa._launch_tf32(q, k, v, scale, True)

@@ -211,13 +211,15 @@ def _events(run):
 
 
 @pytest.mark.parametrize("hidden, head_dim, route", [
-    (50, 25, "tf32"), (512, 256, "tc")])
+    (50, 25, "tf32"), (512, 256, "tc"), (768, 384, "tf32"),
+    (1024, 512, "tc")])
 def test_the_flash_peak_follows_the_route_of_the_model_s_heads(
         monkeypatch, hidden, head_dim, route):
     """A bfloat16 transformer's flash forward at the rate of the kernel
-    its heads take: the default width's heads of 25 go to the TF32
-    kernel (1.5 TF32 products a useful one in bfloat16: 330 TFLOP/s),
-    heads of 256 (rnn_hidden_size 512) to the wgmma kernel (989)."""
+    its heads take: the default width's heads of 25 and heads of 384
+    (rnn_hidden_size 768) go to the TF32 kernel (1.5 TF32 products a
+    useful one in bfloat16: 330 TFLOP/s), heads of 256 and 512
+    (rnn_hidden_size 512 and 1024) to the wgmma kernel (989)."""
     monkeypatch.delenv("BENCH_PEAK_TFLOPS", raising=False)
     cfg = tcfg.ExperimentConfig(
         data=tcfg.DataConfig(dataset="shakespeare"),

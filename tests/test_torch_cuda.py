@@ -396,13 +396,22 @@ _WIDE_CASES = [(dtype, causal, T, D, 0)
                for dtype in (torch.float32, torch.bfloat16)
                for causal in (True, False) for T in (1, 129, 2048)
                for D in (136, 192, 200, 256)]
+# past head dim 256: the TF32 kernel's column blocks (both dtypes) and the
+# wgmma kernel's D-512 instance (aligned bfloat16 at 512), and misaligned
+# bfloat16 at 512 on the TF32 kernel
+_PAST_256_CASES = [(dtype, causal, T, D, 0)
+                   for dtype in (torch.float32, torch.bfloat16)
+                   for causal in (True, False) for T in (1, 129, 300)
+                   for D in (257, 384, 512, 1024)] + [
+    (torch.bfloat16, True, 129, 512, 1), (torch.bfloat16, False, 300, 512, 2),
+    (torch.float32, True, 2048, 512, 0), (torch.bfloat16, True, 2048, 512, 0)]
 
 
 @pytest.mark.parametrize("dtype, causal, T, D, offset", [
     (torch.float32, True, 257, 64, 0), (torch.float32, False, 50, 32, 0),
     (torch.bfloat16, True, 300, 64, 0), (torch.float32, True, 1, 16, 0),
     (torch.bfloat16, False, 129, 128, 0), (torch.float32, True, 129, 64, 1),
-] + _TC_CASES + _TF32_CASES + _WIDE_CASES + [
+] + _TC_CASES + _TF32_CASES + _WIDE_CASES + _PAST_256_CASES + [
     (torch.bfloat16, True, 129, 64, 1), (torch.bfloat16, True, 129, 25, 2),
     (torch.bfloat16, True, 129, 256, 1), (torch.bfloat16, False, 300, 200, 2),
     (torch.float32, True, 2048, 128, 0), (torch.bfloat16, False, 2048, 25, 0)])
@@ -441,29 +450,32 @@ def test_flash_kernel_follows_the_nonfinite_rules(cuda, dtype):
     -inf k element under q elements > 0 scores -inf: p = 0 and the
     running max stays where it was, so the scores of key 5 (>= 125) do
     not overflow exp. float32 goes through the TF32 kernel, bfloat16
-    through the wgmma kernel."""
+    through the wgmma kernel; at head dim 64 and 512 (the TF32 kernel's
+    column blocks, the wgmma kernel's D-512 instance)."""
     rng = np.random.RandomState(7)
-    q, k, v = (torch.from_numpy(rng.randn(2, 257, 4, 64).astype(
-        np.float32)).to(cuda, dtype) for _ in range(3))
-    q[0, 5, 1] = float("nan")
-    k[1, 3, 2] = float("inf")
-    q[1, :, 3, 0] = q[1, :, 3, 0].abs() + 1
-    k[1, 3, 3, 0] = float("-inf")
-    k[1, 5, 3] = 0.0
-    k[1, 5, 3, 0] = 1000.0
-    before = fa.flash_tc_launches
-    o, lse = fa.flash_fwd(q, k, v, 0.125, True)
-    assert fa.flash_tc_launches == before + int(dtype == torch.bfloat16)
-    ro, rl = fa.flash_fwd_ref(q, k, v, 0.125, True)
-    torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
-    if dtype == torch.float32:
-        torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
-    else:
-        _assert_bf16_close(o, ro)
-    assert float(o[0, 5, 1].abs().max()) == 0.0
-    assert bool(lse[1, 3].isfinite().all())
-    assert bool(o[1, :, 3].isfinite().all())
-    for D in (64, 128, 256) if dtype == torch.bfloat16 else (64, 256):
+    for D in (64, 512):
+        q, k, v = (torch.from_numpy(rng.randn(2, 257, 4, D).astype(
+            np.float32)).to(cuda, dtype) for _ in range(3))
+        q[0, 5, 1] = float("nan")
+        k[1, 3, 2] = float("inf")
+        q[1, :, 3, 0] = q[1, :, 3, 0].abs() + 1
+        k[1, 3, 3, 0] = float("-inf")
+        k[1, 5, 3] = 0.0
+        k[1, 5, 3, 0] = 1000.0
+        before = fa.flash_tc_launches
+        o, lse = fa.flash_fwd(q, k, v, D ** -0.5, True)
+        assert fa.flash_tc_launches == before + int(dtype == torch.bfloat16)
+        ro, rl = fa.flash_fwd_ref(q, k, v, D ** -0.5, True)
+        torch.testing.assert_close(lse, rl, rtol=2e-5, atol=2e-5)
+        if dtype == torch.float32:
+            torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+        else:
+            _assert_bf16_close(o, ro)
+        assert float(o[0, 5, 1].abs().max()) == 0.0
+        assert bool(lse[1, 3].isfinite().all())
+        assert bool(o[1, :, 3].isfinite().all())
+    for D in (64, 128, 256, 512) if dtype == torch.bfloat16 \
+            else (64, 256, 384, 512):
         _check_infinite_v(cuda, dtype, D)
 
 
@@ -474,7 +486,9 @@ def _check_infinite_v(cuda, dtype, D):
     plain version's p > 0 meets them and NaN where it computes 0 inf,
     including the rows before the key, whose tiles past the diagonal the
     kernel skips (its pre-pass marks those columns); causal and not,
-    over three query tiles, a column of V's last atom at D 128 and 256."""
+    over three query tiles, a column of V's last atom at D 128 and 256,
+    and past 256 a column of the second column block (the TF32 kernel)
+    or of the second warpgroup's half (the wgmma kernel at 512)."""
     rng = np.random.RandomState(8)
     q, k, v = (torch.from_numpy(rng.randn(2, 300, 4, D).astype(
         np.float32)).to(cuda, dtype) for _ in range(3))
@@ -506,17 +520,27 @@ def _check_infinite_v(cuda, dtype, D):
         assert bool((o[1, 150:, 0, D - 1] == float("inf")).all())
 
 
-@pytest.mark.parametrize("D, dtype", [(257, torch.float32),
-                                      (257, torch.bfloat16),
-                                      (64, torch.float16)])
-def test_flash_kernel_refuses_by_name(cuda, D, dtype):
-    """Past head dim 256 (and in float16) on the card: refused by name,
+@pytest.mark.parametrize("what", ["mixed dtypes", "last-dim stride",
+                                  "float16"])
+def test_flash_kernel_refuses_by_name(cuda, what):
+    """What no kernel takes, on the card (every head dim is taken): mixed
+    dtypes, a last-dim stride other than 1, float16; refused by name,
     nothing launched."""
-    q = torch.zeros(1, 8, 2, D, device=cuda, dtype=dtype)
+    q = torch.zeros(1, 8, 2, 512, device=cuda, dtype=torch.bfloat16)
+    k = v = q
+    if what == "mixed dtypes":
+        k, match = q.float(), "one dtype"
+    elif what == "last-dim stride":
+        q = torch.zeros(1, 8, 2, 1024, device=cuda,
+                        dtype=torch.bfloat16)[..., ::2]
+        k = v = q
+        match = "last-dim stride of 1"
+    else:
+        q = k = v = q.half()
+        match = "float32 or bfloat16"
     before = fa.flash_launches
-    with pytest.raises(ValueError, match="head dims up to 256|float32 or "
-                                         "bfloat16"):
-        fa.flash_fwd(q, q, q, 1.0, True)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_fwd(q, k, v, 1.0, True)
     assert fa.flash_launches == before
 
 

@@ -47,8 +47,10 @@ def _np(t):
     pytest.param(c, d, 64, id=f"{c}-{d}") for d in ("float32", "bfloat16")
     for c in (False, True)] + [
     # the default transformer's heads (d_model 100: 4 of 25) and those of
-    # d_model 512 (4 of 128), which the port's kernels take on the card
-    pytest.param(c, d, D, id=f"{c}-{d}-D{D}") for D in (25, 128)
+    # d_model 512 (4 of 128), which the port's kernels take on the card;
+    # past 256 (320: the TF32 kernel's column blocks; 512: d_model 2048's
+    # heads)
+    pytest.param(c, d, D, id=f"{c}-{d}-D{D}") for D in (25, 128, 320, 512)
     for d in ("float32", "bfloat16") for c in (False, True)])
 def test_matches_the_interpret_kernel(causal, dtype, D):
     """T 256 in 128-blocks: the JAX kernel's multi-block online softmax

@@ -8,8 +8,10 @@ The kernels run only on the card (``tests/test_torch_cuda.py`` and
 out as the model makes them,
 and :func:`_emulate` repeats the kernel's arithmetic in float32 torch ops
 (64-key tiles up to head dim 128 and 32-key tiles past it, 64-row
-warpgroups, online softmax, p split into bf16 hi + lo for P V, float32
-sums) on the same numpy inputs as the JAX package's ``_fwd_xla``. The bar
+warpgroups, at head dim 512 two warpgroups on the same 64 rows, each P V
+on its half of the columns; online softmax, p split into bf16 hi + lo for
+P V, float32 sums) on the same numpy inputs as the JAX package's
+``_fwd_xla``. The bar
 is the card's: lse within 2e-5 (abs and rel), bfloat16 o within the
 float32 bar plus one bfloat16 spacing, the same NaN pattern.
 """
@@ -28,6 +30,12 @@ WG = 64  # query rows of a consumer warpgroup
 def _bk(D):
     """The instance's keys per tile (``Cfg::kBK``)."""
     return 32 if D > 128 else 64
+
+
+def _dv(D):
+    """The columns of O a warpgroup owns (``Cfg::kDV``): all of them, or
+    at head dim 512 (``Cfg::kColSplit``) its half."""
+    return D // 2 if D > 256 else D
 
 
 def _qkv_views(B, T, H, D, dtype, offset=0, seed=0):
@@ -111,16 +119,43 @@ def test_every_head_dim_up_to_256_takes_a_kernel(dtype):
             assert fa._route(q, k, v) == want
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_head_dims_past_128_are_refused_by_name(dtype):
-    """The refusal now starts past 256 (the name keeps the limit it was
-    written for): 257 is refused with the pointer to the JAX package,
-    136 and 256 pass."""
-    q, k, v = _qkv_views(1, 8, 2, 257, dtype)
-    with pytest.raises(ValueError, match="head dims up to 256.*JAX package"):
-        fa._check_inputs(q, k, v)
-    for D in (136, 256):
+@pytest.mark.parametrize("D", [257, 320, 384, 512, 1024])
+def test_route_past_head_dim_256(D, dtype, offset):
+    """Aligned bf16 at 512 takes the wgmma kernel's D-512 instance;
+    float32, bf16 at 257, 320, 384 and 1024, and misaligned views the
+    TF32 kernel's column blocks."""
+    q, k, v = _qkv_views(1, 9, 2, D, dtype, offset)
+    fa._check_inputs(q, k, v)
+    tc = dtype == torch.bfloat16 and D == 512 and offset == 0
+    assert fa._route(q, k, v) == ("tc" if tc else "tf32")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_no_head_dim_is_refused(dtype):
+    """The JAX package's kernel takes any head dim, and so do the port's
+    routes: 257, 512 and 1024 pass the input check as 136 and 256 do.
+    What stays refused by name: float16, mixed dtypes, and T past the
+    route's grid (65,535 query tiles: of 64 rows in the wgmma kernel's
+    D-512 instance, so 4,194,240 rows, which the TF32 kernel's 128-row
+    tiles take)."""
+    for D in (136, 256, 257, 512, 1024):
         fa._check_inputs(*_qkv_views(1, 8, 2, D, dtype))
+    half = _qkv_views(1, 8, 2, 512, torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._check_inputs(*half)
+    q, k, v = _qkv_views(1, 8, 2, 512, dtype)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa._check_inputs(q, k.to(torch.float16), v)
+    T = 65535 * 64 + 1  # zero-stride views: no memory behind the rows
+    big = torch.zeros(1, 1, 1, 512, dtype=dtype).expand(1, T, 1, 512)
+    if dtype == torch.bfloat16:
+        assert fa._route(big, big, big) == "tc"
+        with pytest.raises(ValueError, match="4194240 .route 'tc'"):
+            fa._check_inputs(big, big, big)
+    else:
+        fa._check_inputs(big, big, big)
 
 
 def test_load_mode_follows_the_alignment():
@@ -139,13 +174,15 @@ def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
     """The kernel's arithmetic on float32 [BH, T, D] tensors holding
     bf16 values, in the instance's key tiles (:func:`_bk`): o (float32,
     before its bf16 rounding) and lse. Causal, the rows of each 64-row
-    warpgroup take no tile wholly past their last row. ``sanitize``: the
-    non-finite v rule (the p_lo product reads the tile with non-finite
-    elements 0, and a causal column is NaN in the rows of a warpgroup
-    whose skipped tiles hold a non-finite v); without it, the kernel
-    before that rule."""
+    warpgroup (at head dim 512: of each 64-row CTA, whose two warpgroups
+    score the same tiles) take no tile wholly past their last row; P V
+    runs on each warpgroup's columns (:func:`_dv`). ``sanitize``: the
+    non-finite v rule (the p_lo product reads the warpgroup's columns of
+    the tile with non-finite elements 0, and a causal column is NaN in
+    the rows of a warpgroup whose skipped tiles hold a non-finite v);
+    without it, the kernel before that rule."""
     BH, T, D = q.shape
-    BK = _bk(D)
+    BK, DV = _bk(D), _dv(D)
     rows = torch.arange(T)
     # each row's warpgroup's last row: its last tile is that row's
     wg_tile = (rows // WG * WG + WG - 1) // BK
@@ -164,10 +201,16 @@ def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
                            torch.where(m == -np.inf, 0.0, 1.0))
         p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
         hi = p.to(torch.bfloat16).float()
-        pv = hi @ vt
-        if split:
-            v_lo = torch.where(vt.isfinite(), vt, 0.0) if sanitize else vt
-            pv = pv + (p - hi).to(torch.bfloat16).float() @ v_lo
+        halves = []
+        for c0 in range(0, D, DV):  # each warpgroup's columns
+            vc = vt[..., c0:c0 + DV]
+            pv = hi @ vc
+            if split:
+                v_lo = torch.where(vc.isfinite(), vc, 0.0) if sanitize \
+                    else vc
+                pv = pv + (p - hi).to(torch.bfloat16).float() @ v_lo
+            halves.append(pv)
+        pv = torch.cat(halves, dim=-1)
         take = (wg_tile >= k0 // BK) if causal \
             else torch.ones(T, dtype=torch.bool)
         l = torch.where(take, l * corr + p.sum(dim=-1), l)
@@ -238,11 +281,12 @@ def test_emulated_kernel_holds_the_bf16_bar_against_the_oracle(causal,
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 512])
 def test_emulated_wide_instances_hold_the_bf16_bar(D, causal):
     """The instances past head dim 128 (32-key tiles, P V over two or
-    three of V's atoms) at BH 2, T 130: lse within 2e-5, o within one
-    bf16 spacing past the float32 bar of the oracle."""
+    three of V's atoms; at 512 each warpgroup's P V over four atoms of
+    its half) at BH 2, T 130: lse within 2e-5, o within one bf16 spacing
+    past the float32 bar of the oracle."""
     q, k, v = _inputs(False, B=1, T=130, H=2, D=D)
     scale = D ** -0.5
     jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
@@ -285,14 +329,15 @@ def _infinite_v(D, B=2, T=300, H=2):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
 def test_emulated_kernel_follows_the_infinite_v_rule(D, causal):
     """+inf and -inf v elements: with the p_lo product on the sanitized
     tile and the pre-pass's NaN columns, the kernel's arithmetic has the
     oracle's +-inf and NaN pattern and holds the bf16 bar elsewhere;
     without them (the kernel before the rule) p_lo beside an infinite v
     makes NaN where the oracle has +-inf, and the rows whose warpgroup
-    skips the key's tile miss the oracle's NaN."""
+    skips the key's tile miss the oracle's NaN. At 512 the column D - 1
+    lies in the second warpgroup's half."""
     q, k, v = _infinite_v(D)
     scale = D ** -0.5
     jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)

@@ -1,4 +1,4 @@
-"""The TF32 flash forward (``csrc/flash_fwd_tf32.cu``) on the CPU: why its
+"""The TF32 flash forward (``csrc/flash_fwd_tf32.cuh``) on the CPU: why its
 products are 3xTF32, by emulation against the JAX package's oracle.
 
 The kernel runs only on the card (``tests/test_torch_cuda.py`` and
@@ -10,7 +10,10 @@ zero, as ``cvt.rna.tf32.f32``), the split x = hi + lo with hi = tf32(x)
 and lo = x - hi, which the tensor cores read truncated to TF32 (its low
 13 bits dropped), each product a_hi b_hi + a_hi b_lo + a_lo b_hi (TF32
 products are exact in float32), 32-key tiles (16 past head dim 128) with
-the online softmax, l summed from p before its split. The bar is the
+the online softmax, l summed from p before its split; past head dim 256
+the wide kernel's layout: S summed over 64-column chunks of D (the hi
+and the cross products each in their own sum, added at the end) and P V
+in blocks of 256 of O's columns. The bar is the
 card's: o and lse within atol = rtol = 2e-5 (bfloat16 o: one bfloat16
 spacing past that).
 
@@ -27,8 +30,16 @@ import torch_threads  # noqa: F401 (two torch threads a worker)
 from fedtorch_tpu.ops.pallas.flash_attention import _fwd_xla
 
 def _bk(D):
-    """The kernel's keys per tile at head dim D (``Layout::kBK``)."""
+    """The kernel's keys per tile at head dim D (``Layout::kBK``, and
+    ``Wide::kBK`` past 256)."""
     return 16 if D > 128 else 32
+
+
+def _layout(D):
+    """(columns of a chunk of S's sum over D, columns of O a CTA owns):
+    the whole head dim up to 256, past it ``Wide::kDC`` and
+    ``Wide::kDV``."""
+    return (64, 256) if D > 256 else (D, D)
 
 
 def _tf32(x):
@@ -49,21 +60,28 @@ def _split(x):
     return hi, _truncate(x - hi)
 
 
-def _product(eq, a, b, split, guard=False, b_guard=False):
+def _product(eq, a, b, split, guard=False, b_guard=False, chunk=None):
     """einsum of TF32 operands: three products of the split, or one of
     the rounded values. ``guard``: the cross products are added only
     where the hi products' sum is finite, as the kernel's q K^T adds
     them. ``b_guard``: a non-finite element of b enters only the hi
     product (its hi and lo are 0 in the cross products), as the kernel's
-    P V takes v."""
+    P V takes v. ``chunk``: the contraction (a's and b's last dim, as in
+    q K^T) summed chunk by chunk, the hi and the cross products each in
+    their own sum."""
     if not split:
         return torch.einsum(eq, _tf32(a), _tf32(b))
     (ah, al), (bh, bl) = _split(a), _split(b)
-    hi = torch.einsum(eq, ah, bh)
+    bhx, blx = bh, bl  # the cross products' b
     if b_guard:
         fin = b.isfinite()
-        bh, bl = torch.where(fin, bh, 0.0), torch.where(fin, bl, 0.0)
-    cross = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+        bhx, blx = torch.where(fin, bh, 0.0), torch.where(fin, bl, 0.0)
+    hi = cross = 0.0
+    for c0 in range(0, a.shape[-1], chunk or a.shape[-1]):
+        c = slice(c0, c0 + chunk) if chunk else slice(None)
+        hi = hi + torch.einsum(eq, ah[..., c], bh[..., c])
+        cross = cross + torch.einsum(eq, al[..., c], bhx[..., c]) \
+            + torch.einsum(eq, ah[..., c], blx[..., c])
     return torch.where(hi.isfinite(), hi + cross, hi) if guard \
         else cross + hi
 
@@ -71,19 +89,20 @@ def _product(eq, a, b, split, guard=False, b_guard=False):
 def _emulate(q, k, v, scale, causal, split=True, guard=True,
              v_guard=True):
     """The kernel's arithmetic on float32 [BH, T, D] tensors: o, lse
-    (``guard`` for q K^T and ``v_guard`` for P V: see :func:`_product`).
-    It computes every tile, the masked ones too: where the kernel skips
-    a tile past a warp's rows, its pre-pass reproduces what a masked
-    tile gives (a non-finite v there makes the column NaN)."""
+    (``guard`` for q K^T and ``v_guard`` for P V: see :func:`_product`),
+    in the layout of :func:`_layout`. It computes every tile, the masked
+    ones too: where the kernel skips a tile past a warp's rows, its
+    pre-pass reproduces what a masked tile gives (a non-finite v there
+    makes the column NaN)."""
     BH, T, D = q.shape
-    BK = _bk(D)
+    BK, (DC, DV) = _bk(D), _layout(D)
     rows = torch.arange(T)
     m = torch.full((BH, T), -np.inf)
     l = torch.zeros(BH, T)
     acc = torch.zeros(BH, T, D)
     for k0 in range(0, T, BK):
         kt, vt = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
-        s = _product("bqd,bkd->bqk", q, kt, split, guard) * scale
+        s = _product("bqd,bkd->bqk", q, kt, split, guard, chunk=DC) * scale
         if causal:
             keys = torch.arange(k0, k0 + kt.shape[1])
             s = s.masked_fill(keys[None, :] > rows[:, None], -np.inf)
@@ -93,8 +112,9 @@ def _emulate(q, k, v, scale, causal, split=True, guard=True,
                            torch.where(m == -np.inf, 0.0, 1.0))
         p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + _product("bqk,bkd->bqd", p, vt, split,
-                                               b_guard=v_guard)
+        acc = acc * corr[..., None] + torch.cat([
+            _product("bqk,bkd->bqd", p, vt[..., c0:c0 + DV], split,
+                     b_guard=v_guard) for c0 in range(0, D, DV)], dim=-1)
         m = m_new
     l_safe = torch.where(l.isnan(), l, l.clamp_min(1e-30))
     lse = torch.where(m.isfinite(), m, 0.0) + torch.log(l_safe)
@@ -218,11 +238,12 @@ def test_an_infinite_v_enters_only_the_hi_product():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [136, 200, 256])
+@pytest.mark.parametrize("D", [136, 200, 256, 257, 384, 512, 1024])
 def test_wide_instances_hold_the_bar(D, causal, dtype):
-    """The padded widths 192 and 256 (16-key tiles) at BH 2, T 130:
-    3xTF32 in float32; in bfloat16 (values exact in TF32) one product
-    for q K^T and the two of the p split for P V, o within one bfloat16
+    """The padded widths 192 and 256 (16-key tiles) and, past 256, the
+    column blocks with S over 64-column chunks, at BH 2, T 130: 3xTF32
+    in float32; in bfloat16 (values exact in TF32) one product for
+    q K^T and the two of the p split for P V, o within one bfloat16
     spacing past the float32 bar."""
     rng = np.random.RandomState(D)
     q, k, v = (torch.from_numpy(rng.randn(2, 130, D).astype(np.float32))
@@ -265,3 +286,31 @@ def test_an_infinite_v_at_head_dim_256():
     o, lse = _emulate(q, k, v, 256 ** -0.5, True)
     _hold_nonfinite(o, want_o)
     assert _excess(lse, torch.from_numpy(np.array(jl))) <= 0.0
+
+
+def test_an_infinite_v_past_head_dim_256():
+    """The infinite-v rule in the column blocks at head dim 512: +-inf
+    v elements in the second block (columns 256..511) and one in the
+    first, causal; the oracle's +-inf and NaN pattern, the finite
+    elements within the bar, lse within it; without the rule (the cross
+    products on the infinite v) the second block's columns go NaN."""
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(1, 130, 512).astype(np.float32))
+               for _ in range(3))
+    v[0, 0, 11] = np.inf
+    v[0, 0, 300] = np.inf
+    v[0, 40, 511] = np.inf
+    v[0, 100, 511] = -np.inf
+    v[0, 70, 400] = -np.inf
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                      512 ** -0.5, True)
+    want_o = torch.from_numpy(np.array(jo))
+    assert bool((want_o[0, :, 300] == np.inf).all())
+    assert bool(want_o[0, :, 511].isnan().all())
+    assert bool(want_o[0, :70, 400].isnan().all())
+    assert bool((want_o[0, 70:, 400] == -np.inf).all())
+    o, lse = _emulate(q, k, v, 512 ** -0.5, True)
+    _hold_nonfinite(o, want_o)
+    assert _excess(lse, torch.from_numpy(np.array(jl))) <= 0.0
+    o, _ = _emulate(q, k, v, 512 ** -0.5, True, v_guard=False)
+    assert bool(o[0, :, 300].isnan().any())

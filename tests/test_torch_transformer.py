@@ -71,25 +71,27 @@ def _tokens(B=3, seed=0, seq=T):
     return np.random.RandomState(seed).randint(0, V, (B, seq))
 
 
-def _d256_modules(jm, tm):
-    """The ModelDefs with their modules swapped for d_model 512 in 2
-    heads of 256, 1 layer, flash (define_model gives 4 heads; heads of
-    256 from it need d_model 1024)."""
+def _wide_modules(jm, tm, head_dim):
+    """The ModelDefs with their modules swapped for d_model 2 x
+    ``head_dim`` in 2 heads of ``head_dim``, 1 layer, flash (define_model
+    gives 4 heads; heads of 256 from it need d_model 1024, heads of 512
+    d_model 2048)."""
+    d = 2 * head_dim
     return (jm._replace(module=JTransformerLM(
-                vocab_size=V, d_model=512, num_heads=2, num_layers=1,
+                vocab_size=V, d_model=d, num_heads=2, num_layers=1,
                 attention="flash")),
-            tm._replace(module=TransformerLM(V, 512, 2, 1,
+            tm._replace(module=TransformerLM(V, d, 2, 1,
                                              attention="flash")))
 
 
 @functools.lru_cache(maxsize=None)
-def _d256_models():
-    """Both packages' d_model-512, 2-head (head dim 256) models on the
+def _wide_models(head_dim):
+    """Both packages' d_model 2 x ``head_dim``, 2-head models on the
     same (bridged) weights, T 64."""
-    jm, tm = _d256_modules(
-        jdefine(_cfg(jcfg, hidden=256, layers=1, seq=64), batch_size=2),
-        tdefine(_cfg(tcfg, hidden=256, layers=1, seq=64), batch_size=2,
-                device="cpu"))
+    jm, tm = _wide_modules(
+        jdefine(_cfg(jcfg, hidden=head_dim, layers=1, seq=64), batch_size=2),
+        tdefine(_cfg(tcfg, hidden=head_dim, layers=1, seq=64), batch_size=2,
+                device="cpu"), head_dim)
     jp = jax.jit(jm.init)(jax.random.key(5))
     tp = params_from_jax(_flat(jp), expect=tm.init(torch.Generator()),
                          module=tm.module)
@@ -144,9 +146,21 @@ def test_head_dim_256_logits_and_gradients_match():
     """d_model 512 in 2 heads of 256, 1 layer, T 64, flash attention,
     float32: logits and the char-LM loss's gradients, at the tolerances
     above."""
-    jm, tm, jp, tp = _d256_models()
+    _hold_wide_logits_and_gradients(256)
+
+
+def test_head_dim_512_logits_and_gradients_match():
+    """d_model 1024 in 2 heads of 512 (the TF32 kernel's column blocks
+    on the card), 1 layer, T 64, flash attention, float32: logits and
+    gradients at the tolerances above."""
+    _hold_wide_logits_and_gradients(512)
+
+
+def _hold_wide_logits_and_gradients(head_dim):
+    jm, tm, jp, tp = _wide_models(head_dim)
+    d = 2 * head_dim
     assert tm.module.block_0.attn.num_heads == 2
-    assert tp["block_0.attn.qkv.weight"].shape == (3 * 512, 512)
+    assert tp["block_0.attn.qkv.weight"].shape == (3 * d, d)
     toks = _tokens(B=2, seed=2, seq=64)
     labels = np.roll(toks, -1, axis=1)
     want = np.asarray(jm.apply(jp, jnp.asarray(toks, jnp.int32)))
@@ -174,6 +188,30 @@ def test_rnn_hidden_size_512_gives_4_heads_of_256():
     assert tm.pos_embed.shape == (2048, 1024)
     assert tm.block_0.attn.num_heads == jm.num_heads == 4
     assert jm.d_model // jm.num_heads == 256
+
+
+def _heads(hidden):
+    """(d_model, heads) that both packages' define_model derive from
+    ``rnn_hidden_size`` (meta device for the port: no weights)."""
+    tm = tdefine(_cfg(tcfg, hidden=hidden, layers=1), batch_size=1,
+                 device="meta").module
+    jm = jdefine(_cfg(jcfg, hidden=hidden, layers=1), batch_size=1).module
+    assert tm.pos_embed.shape[1] == jm.d_model
+    assert tm.block_0.attn.num_heads == jm.num_heads
+    return jm.d_model, jm.num_heads
+
+
+def test_rnn_hidden_size_1024_gives_4_heads_of_512():
+    """The d_model-2048 transformer cell: both packages derive 4 heads
+    of 512 from rnn_hidden_size 1024."""
+    assert _heads(1024) == (2048, 4)
+
+
+def test_rnn_hidden_size_257_gives_2_heads_of_257():
+    """An odd rnn_hidden_size from 257 up: d_model 514, which 4 does not
+    divide, in 2 heads of 257 (the TF32 kernel's column blocks on the
+    card), in both packages."""
+    assert _heads(257) == (514, 2)
 
 
 def test_dense_and_flash_agree():
@@ -286,12 +324,12 @@ C, N, B, K = 4, 8, 4, 2
 
 
 def _round_build(quantized, clients=C, steps=K, seq=16, rate=0.5,
-                 d256=False):
+                 head_dim=None):
     """Both trainers on d_model 16, 1 layer, T 16, 4 clients of 8
     windows, k = 2, batch 4, 2 local steps, SGD lr 0.05 without weight
     decay, flash attention; the port on the JAX package's weights.
-    ``d256``: the model of :func:`_d256_modules` (heads of 256) instead,
-    at the given clients, online rate, steps and T."""
+    ``head_dim``: the model of :func:`_wide_modules` (2 heads of that
+    width) instead, at the given clients, online rate, steps and T."""
     def cfg(mod):
         return _cfg(
             mod, hidden=8, layers=1, seq=seq,
@@ -311,8 +349,8 @@ def _round_build(quantized, clients=C, steps=K, seq=16, rate=0.5,
     parts = [np.arange(i * N, (i + 1) * N) for i in range(clients)]
     jm, tm = jdefine(jc, batch_size=B), tdefine(tc, batch_size=B,
                                                 device="cpu")
-    if d256:
-        jm, tm = _d256_modules(jm, tm)
+    if head_dim:
+        jm, tm = _wide_modules(jm, tm, head_dim)
     jtr = JTrainer(jc, jm, jmake(jc), jstack(x, y, parts))
     js, jcl = jtr.init_state(jax.random.key(0))
     ttr = FederatedTrainer(tc, tm, tmake(tc), tstack(x, y, parts),
@@ -360,4 +398,14 @@ def test_quantized_fedavg_round_at_head_dim_256():
     quantizer, its other leaves the ragged one."""
     _hold_quantized_rounds(
         _run(*_round_build(True, clients=2, steps=1, seq=32, rate=1.0,
-                           d256=True), num_rounds=1, resync=True), (1,))
+                           head_dim=256), num_rounds=1, resync=True), (1,))
+
+
+def test_quantized_fedavg_round_at_head_dim_512():
+    """One int8 round of the heads-of-512 model (d_model 1024, 2
+    clients, both online, 1 local step, T 32) from the JAX state, held
+    as above: its qkv (3,145,728 elements) and MLP weights (4,194,304)
+    take the tiled quantizer, its other leaves the ragged one."""
+    _hold_quantized_rounds(
+        _run(*_round_build(True, clients=2, steps=1, seq=32, rate=1.0,
+                           head_dim=512), num_rounds=1, resync=True), (1,))
