@@ -46,14 +46,16 @@ line. Phases, each fatal on failure:
      192, 256 and 512, T in {1, 63, 65, 300, 2048}, causal and not; both
      dtypes at D in {16, 24, 25, 32, 64, 100, 128} and T in {1, 50, 257,
      2048}, causal and not, and at ``FLASH_WIDE_DIMS`` (the kernels'
-     instances past 128, and past 256 the TF32 kernel's column blocks and
-     the wgmma kernel's D-512 instance) and T in {1, 129, 2048}, causal
+     instances past 128, and past 256 the TF32 kernel's clusters of 2 to
+     4 CTAs and its chunked kernel past 2048, the wgmma kernel's D-512
+     cluster; each cluster's size and cudaOccupancyMaxActiveClusters
+     logged first) and T in {1, 129, 2048}, causal
      and not; misaligned views; a NaN q row with a +inf k row and a -inf
      k element whose scores stay -inf beside scores that overflow exp
      unless the running max is kept (D 64, 256, 384 and 512); +inf and
      -inf v elements in both dtypes (the wgmma kernel at D 64, 128, 256
      and 512, the TF32 kernel at 64, 256, 384 and 512, past 256 one in a
-     second column block; causal and not), o +-inf where p > 0 meets them
+     second CTA's columns; causal and not), o +-inf where p > 0 meets them
      and NaN where the plain version computes 0 inf or inf - inf. lse and
      float32 o within atol = rtol = 2e-5, bfloat16 o within one bfloat16
      spacing past that bar, the NaN and +-inf patterns identical. Timed
@@ -357,7 +359,7 @@ line. Phases, each fatal on failure:
     all on the wgmma kernel's head-dim-512 instance, 2 + 2 ragged
     launches and, for its 17 leaves past 524,288 elements (three sizes),
     6 + 6 tiled launches. Then its round cut by ``D2048_CUT`` in float32
-    card (the TF32 kernel's column blocks at D 512, 4 launches) vs CPU
+    card (the TF32 kernel's clusters at D 512, 4 launches) vs CPU
     within 1e-4, as item 11b's;
 12. transformer_f32: the path of item 10 in float32, the library's
     default ``compute_dtype``; 1 warm-up, timed and 1 profiled round.
@@ -507,16 +509,17 @@ D1024_CUT = dict(hidden=512, layers=1, T=128, clients=2, rate=1.0)
 # kernel's D-512 instance), its population cut from 100 clients to 10,
 # all online (k = 10 as in every transformer cell: the client state of
 # 100 would not fit the card); beside it its float32 cut card vs CPU (the
-# TF32 kernel's column blocks at D 512 inside a round)
+# TF32 kernel's clusters at D 512 inside a round)
 LM_D2048 = dict(LM, rnn_hidden_size=1024)
 LM_D2048_SHAPE = (LM_BATCH, 2048, 4, 512)
 D2048_POPULATION = (10, 1.0)
 D2048_TIMED_ROUNDS = 1
 D2048_CUT = dict(hidden=1024, layers=1, T=128, clients=2, rate=1.0)
-# the flash phase's head dims past 128 (both kernels' wide instances, and
-# past 256 the TF32 kernel's column blocks and the wgmma kernel's D-512
-# instance) and their sequence lengths; B.H 4 past 576
-FLASH_WIDE_DIMS = (136, 192, 200, 256, 257, 320, 384, 512, 576, 1024)
+# the flash phase's head dims past 128 (both kernels' wide instances; past
+# 256 the TF32 kernel's clusters and, past 2048, its chunked kernel, and
+# the wgmma kernel's D-512 cluster) and their sequence lengths; B.H 4
+# past 576
+FLASH_WIDE_DIMS = (136, 192, 200, 256, 257, 320, 384, 512, 576, 1024, 2056)
 FLASH_WIDE_TS = (1, 129, 2048)
 # the moe phase: the transformer cell with Switch MoE blocks (MOE_AB.json's
 # 16 experts, the README's capacity factor 1.25 for E >= 8, Switch's aux
@@ -1353,6 +1356,20 @@ def flash_phase(fa):
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {r: dict(abs=0.0, bf16_steps=0.0, cases=0)
              for r in FLASH_KEYS + ("tc192",)}
+    # each cluster launch past head dim 256, as its kernel reports it:
+    # (CTAs a cluster, bytes of shared memory a CTA, the most clusters the
+    # card holds at once)
+    clusters = {}
+    for route, dtype, d in [("tc", torch.bfloat16, 512)] + [
+            ("tf32", dt, d) for dt in (torch.float32, torch.bfloat16)
+            for d in FLASH_WIDE_DIMS if d > 256]:
+        plan = fa.cluster_plan(route, dtype, d)
+        clusters[f"{route}_{str(dtype)[6:]}_d{d}"] = plan and dict(
+            zip(("ctas", "smem_bytes", "max_active_clusters"), plan))
+        log(f"flash {route} {str(dtype)[6:]} at head dim {d}: "
+            + (f"a cluster of {plan[0]} CTAs, {plan[1]} B of shared memory "
+               f"a CTA, cudaOccupancyMaxActiveClusters {plan[2]}"
+               if plan else "no cluster (the chunked kernel)"))
 
     def check(q, k, v, causal, what, want):
         """One case, which must take route ``want``."""
@@ -1419,8 +1436,8 @@ def flash_phase(fa):
             check(*qkv_views(gen, 2, 129, H, d, dtype, offset=1), True,
                   "misaligned", "tf32")
         # past head dim 128: the TF32 kernel's 16-key tiles at padded
-        # widths 192 and 256 and its 256-column blocks past 256, the wgmma
-        # kernel's 32-key instances
+        # widths 192 and 256, its clusters past 256 and its chunked kernel
+        # past 2048, the wgmma kernel's 32-key instances
         for d in FLASH_WIDE_DIMS:
             b = 1 if d > 576 else 2
             for t in FLASH_WIDE_TS:
@@ -1476,6 +1493,8 @@ def flash_phase(fa):
     out = {r: dict(max_abs_err=worst[r]["abs"],
                    max_bf16_steps=worst[r]["bf16_steps"],
                    cases=worst[r]["cases"]) for r in FLASH_KEYS}
+    out["tc512"]["cluster"] = clusters.pop("tc_bfloat16_d512")
+    out["tf32"]["clusters"] = clusters
     out["tc256"]["d192"] = dict(max_abs_err=worst["tc192"]["abs"],
                                 max_bf16_steps=worst["tc192"]["bf16_steps"],
                                 cases=worst["tc192"]["cases"])
@@ -1488,7 +1507,7 @@ def flash_phase(fa):
         out[key].update(time_flash(fa, gen, shape, dtype, launch))
     # the TF32 kernel beside its float32 line: bfloat16 at head dim 64
     # (through its launcher), the default width's heads, heads of 256
-    # (its 16-key tiles) and of 512 (its column blocks) in float32
+    # (its 16-key tiles) and of 512 (its clusters) in float32
     for tag, shape, dtype in (("bf16", LM_SHAPE, torch.bfloat16),
                               ("d25", DEFAULT_WIDTH_SHAPE, torch.float32),
                               ("d256", LM_D1024_SHAPE, torch.float32),

@@ -29,7 +29,8 @@
 // Design:
 // - One CTA of 288 threads per (batch*head, 128 query rows): two consumer
 //   warpgroups of 64 rows each and one producer warp (a producer
-//   warpgroup, 384 threads, past D 128; below). The heaviest causal
+//   warpgroup, 384 threads, past D 128; at D 512 a cluster of two such
+//   CTAs; below). The heaviest causal
 //   query tiles are launched first (grid y runs from the last tile down).
 // - The producer's lane 0 loads the CTA's Q tile once and streams the K
 //   and V tiles (64 keys each) by TMA into a 4-stage shared-memory ring
@@ -58,20 +59,31 @@
 //   S is `wgmma m64n32k16`; P V one `m64n128k16` per pair of V's atoms
 //   (and an `m64n64k16` for D 192's third), each on its own 64 columns
 //   of the accumulators, the descriptor stepping two atoms at a time.
-// - At D 512 (`Cfg::kColSplit`) a warpgroup cannot hold O for 64 rows:
-//   256 float32 a thread. So a CTA takes 64 query rows (`Cfg::kBQ`) and
-//   its two consumer warpgroups split O's columns: each owns 256 of them
-//   (`Cfg::kDV`: 128 float32 a thread, as at D 256), and both compute
-//   the same S of the 64 rows (`m64n32k16` over 32 k-steps, 8 atoms), so
-//   their m and l agree bitwise and warpgroup 0 writes the lse. Shared
-//   memory: Q 64 x 512 x 2 = 64 KB; a 2-stage ring (`Cfg::kStages`) of
-//   32-key K and V tiles, 2 x (32 + 32) KB = 128 KB; each warpgroup's
-//   sanitized half of a V tile, 2 x 16 KB; 1 KB of alignment: 225 KB,
-//   230,400 B, as at D 256. Registers as at D 256 (setmaxnreg 24/240: O
-//   128, S 16, P 16). S is issued twice, so the tensor cores do 2x the
-//   useful work (1.5x at D 256): 275 GFLOP at (8, 2048, 4, 512), 0.278
-//   ms at peak.
-// - S = Q K^T: D / 16 `wgmma m64n64k16` from shared memory into float32
+// - At D 512 a warpgroup cannot hold O for 64 rows (256 float32 a
+//   thread), so a cluster of two CTAs (`Cfg::kCluster`, launched with
+//   cudaLaunchKernelEx) splits the head dim: CTA r holds columns 256 r ..
+//   256 r + 255 of Q, K, V and O (`Cfg::kDC`), its TMA boxes offset by
+//   256 r, and is the D-256 layout on them: 128 query rows, two consumer
+//   warpgroups of 64, a producer warpgroup, 32-key tiles. A warpgroup's S
+//   over its CTA's columns is a partial (16 k-steps of `m64n32k16`); it
+//   pushes the partial (64 x 32 float32, 8 KB) by `st.async` into the
+//   warpgroup of the same rows in the other CTA, takes that one's from
+//   its own shared memory, and both sum the two in rank order, so their
+//   m and l agree bitwise; rank 0 writes the lse. The handshake is per
+//   warpgroup pair (`exchange`): the two warpgroups of a CTA score
+//   different numbers of causal tiles, so a CTA- or cluster-wide barrier
+//   per tile would deadlock. S is computed once per (query rows, key
+//   tile): the tensor cores issue 1.5x the useful work, as at D 256, and
+//   K and V are read once per 128 query rows. Shared
+//   memory: Q 64 KB; a 3-stage ring (`Cfg::kStages`) of 32-key K and V
+//   tiles, 96 KB; the two sanitized V tiles, 32 KB; two 8 KB buffers of
+//   the peer's partials for each warpgroup, 32 KB; 1 KB of alignment:
+//   225 KB, 230,400 B, as at D 256 (a 4-stage ring beside the buffers
+//   would take 257 KB). Registers as at D 256 (setmaxnreg 24/240: O 128,
+//   S 16, P 16). The partials' trip between the SMs stays on each tile's
+//   path, about a quarter of the launch (PERF.md); running S two tiles
+//   ahead of P V to hide it needs a second S array, which spilled.
+// - S = Q K^T: kDC / 16 `wgmma m64n64k16` from shared memory into float32
 //   accumulators, the descriptors stepping 32 bytes along an atom's rows
 //   and then to the next atom; then the scale; the causal mask only on
 //   tiles that cross the diagonal (or T), and tiles wholly past the
@@ -120,7 +132,7 @@
 //   swizzled bytes, non-finite bf16 zeroed) before P V, and marks NaN
 //   each causal column whose last such key lies past the warpgroup's
 //   tiles. The two copies take 16 KB (D 64), 32 KB (D 128 and 256: 32-key
-//   tiles; D 512: each warpgroup's 256 columns) or 24 KB (D 192) of shared
+//   tiles; D 512: the CTA's 256 columns) or 24 KB (D 192) of shared
 //   memory beside the ring. The tiles a warpgroup scores, and so the keys
 //   past them, follow the instance's kBK and query tile.
 //
@@ -148,13 +160,15 @@ constexpr int kRowBytes = kAtomCols * 2;    // one 128-byte swizzle row
 template <int kD>
 struct Cfg {
   static_assert(kD % kAtomCols == 0, "head dim: whole 64-column atoms");
-  // past D 256 the warpgroups split O's columns, not the query rows (the
-  // header's budget): query rows per CTA, K/V ring depth, and the columns
-  // of O (and of V) a warpgroup owns
-  static constexpr bool kColSplit = kD > 256;
-  static constexpr int kBQ = kColSplit ? 64 : 128;
-  static constexpr int kStages = kColSplit ? 2 : 4;
-  static constexpr int kDV = kColSplit ? kD / 2 : kD;
+  // past D 256 a cluster of two CTAs splits the head dim (the header's
+  // budget): CTAs a cluster, the columns of Q, K, V and O a CTA holds, and
+  // the K/V ring's depth
+  static constexpr int kCluster = kD > 256 ? 2 : 1;
+  static_assert(kD <= 256 * kCluster, "a CTA holds at most 256 columns");
+  static constexpr int kDC = kD / kCluster;
+  static constexpr int kStages = kCluster > 1 ? 3 : 4;
+  static constexpr int kBQ = 128;   // query rows per CTA
+  static constexpr int kDV = kDC;   // columns of O (and of V) a warpgroup owns
   // keys per K/V tile: 64 up to D 128, 32 past it (the header's budget)
   static constexpr int kBK = kD > 128 ? 32 : 64;
   static constexpr int kSN = kBK / 2;  // S accumulators a thread
@@ -166,17 +180,18 @@ struct Cfg {
   static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
   static_assert(!kRegSplit || 128 * kProducerRegs + kConsumers *
                 kConsumerRegs <= 65536, "the register file");
-  static constexpr int kAtoms = kD / kAtomCols;
-  static constexpr int kQAtomBytes = kBQ * kRowBytes;   // 16 or 8 KB
-  static constexpr int kKVAtomBytes = kBK * kRowBytes;  // 8 or 4 KB
+  static constexpr int kAtoms = kDC / kAtomCols;           // a CTA's
+  static constexpr int kQAtomBytes = kBQ * kRowBytes;      // 16 KB
+  static constexpr int kKVAtomBytes = kBK * kRowBytes;     // 8 or 4 KB
   static constexpr int kQBytes = kAtoms * kQAtomBytes;
   static constexpr int kKVBytes = kAtoms * kKVAtomBytes;  // a K or V tile
-  // the bytes of a V tile a warpgroup reads (its columns' atoms)
-  static constexpr int kVWgBytes = kDV / kAtomCols * kKVAtomBytes;
-  // Q, the K and V ring, one sanitized V tile (or half) per consumer
-  // warpgroup, and the alignment
-  static constexpr int kSmemBytes =
-      kQBytes + 2 * kStages * kKVBytes + 2 * kVWgBytes + 1024;
+  // a consumer warpgroup's partial S of a tile (64 rows x kBK float32) as
+  // the peer CTA pushes it, into one of two buffers
+  static constexpr int kXBytes = kCluster > 1 ? 64 * kBK * 4 : 0;
+  // Q, the K and V ring, one sanitized V tile per consumer warpgroup, its
+  // two buffers of partials from the peer, and the alignment
+  static constexpr int kSmemBytes = kQBytes + 2 * kStages * kKVBytes +
+                                    2 * kKVBytes + 4 * kXBytes + 1024;
   // what a block may take, less the static barriers
   static_assert(kSmemBytes <= 232448 - 128, "shared memory");
 };
@@ -217,7 +232,7 @@ __device__ __forceinline__ uint32_t finite_pair(uint32_t w) {
 template <int kD>
 __device__ __forceinline__ void sanitize_v(uint32_t dst, uint32_t src,
                                            uint32_t bar) {
-  constexpr int kChunks = Cfg<kD>::kVWgBytes / (16 * 128);
+  constexpr int kChunks = Cfg<kD>::kKVBytes / (16 * 128);
   const uint32_t t = threadIdx.x % 128;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
@@ -244,14 +259,15 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[16], uint64_t da,
   sm90::wgmma_m64n32k16_ss(s, da, db, scale_d);
 }
 
-// S = Q K^T of one key tile into `s` (uncommitted): D / 16 k16 steps,
-// each 32 bytes along the swizzled 128-byte rows of one atom of Q and K
+// S = Q K^T of one key tile into `s` (uncommitted) over the CTA's
+// columns: kDC / 16 k16 steps, each 32 bytes along the swizzled 128-byte
+// rows of one atom of Q and K
 template <int kD>
 __device__ __forceinline__ void issue_qk(float (&s)[Cfg<kD>::kSN],
                                          uint32_t q_wg, uint32_t k_tile) {
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < Cfg<kD>::kDC / 16; ++kk) {
     const int atom = kk / 4, step = kk % 4;
     wgmma_qk(s,
              sm90::desc_sw128(q_wg + atom * Cfg<kD>::kQAtomBytes) + 2 * step,
@@ -391,7 +407,8 @@ __device__ __forceinline__ void issue_pv(float (&acc)[Cfg<kD>::kDV / 2],
       acc[4 * j + 2 * r + 1] *= corr[r];
     }
   }
-  const uint32_t lbo = kD > kAtomCols ? Cfg<kD>::kKVAtomBytes : 1024;
+  const uint32_t lbo =
+      Cfg<kD>::kDC > kAtomCols ? Cfg<kD>::kKVAtomBytes : 1024;
   const uint64_t desc_v = sm90::desc_sw128(v_tile, lbo);
   const uint64_t desc_lo = sm90::desc_sw128(v_lo, lbo);
   sm90::fence_regs(acc);
@@ -408,15 +425,67 @@ __device__ __forceinline__ void issue_pv(float (&acc)[Cfg<kD>::kDV / 2],
   }
 }
 
-// one tile of `rows` rows from (h, row, b) into `dst`, an atom at a time
+// one tile of the CTA's columns c0.. and `rows` rows from (h, row, b)
+// into `dst`, an atom at a time
 template <int kD>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int atom_bytes, int h,
-                                         int row, int b) {
+                                         uint32_t bar, int atom_bytes, int c0,
+                                         int h, int row, int b) {
 #pragma unroll
-  for (int a = 0; a < kD / kAtomCols; ++a) {
-    sm90::tma_load_4d(dst + a * atom_bytes, map, bar, a * kAtomCols, h, row,
-                      b);
+  for (int a = 0; a < Cfg<kD>::kAtoms; ++a) {
+    sm90::tma_load_4d(dst + a * atom_bytes, map, bar, c0 + a * kAtomCols, h,
+                      row, b);
+  }
+}
+
+// The cluster's exchange of S (the header's design): a consumer
+// warpgroup's peer is the warpgroup of the same rows in the other CTA.
+// Each pushes its partial of tile i (its 64 rows over its CTA's columns)
+// into the peer's buffer i % 2 by `st.async`, whose bytes complete that
+// buffer's `full` barrier in the peer (armed there for those bytes); then
+// waits on its own `full` of the buffer for the peer's partial, sums the
+// two in rank order, re-arms the buffer for tile i + 2, and hands it back
+// with one arrival on the peer's `empty` of the buffer. A push into a
+// buffer waits on this warpgroup's own `empty` of it (the peer took tile
+// i - 2 from it). Every barrier takes one arrival a phase.
+struct Exchange {
+  uint32_t x_in, x_peer;           // buffer 0 here and in the peer
+  uint32_t full, empty;            // barriers of buffer 0 here
+  uint32_t full_peer, empty_peer;  // and in the peer
+  uint32_t rank, bar;              // this CTA's rank; a named barrier
+};
+
+template <int kD>
+__device__ __forceinline__ void exchange(float (&s)[Cfg<kD>::kSN], int i,
+                                         int n_wg, const Exchange& x) {
+  constexpr int kSN = Cfg<kD>::kSN;
+  constexpr uint32_t kBytes = Cfg<kD>::kXBytes;
+  const uint32_t t = threadIdx.x % 128;
+  const uint32_t b = i & 1, off = b * kBytes;
+  if (i >= 2) sm90::mbar_wait_cluster(x.empty + 8 * b, ((i >> 1) - 1) & 1);
+#pragma unroll
+  for (int j = 0; j < kSN / 4; ++j) {
+    sm90::st_async_f4(x.x_peer + off + (j * 128 + t) * 16,
+                      make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2],
+                                  s[4 * j + 3]),
+                      x.full_peer + 8 * b);
+  }
+  sm90::mbar_wait_cluster(x.full + 8 * b, (i >> 1) & 1);
+#pragma unroll
+  for (int j = 0; j < kSN / 4; ++j) {
+    const float4 p = sm90::lds128f(x.x_in + off + (j * 128 + t) * 16);
+    const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // rank 0's partial first
+      s[4 * j + e] =
+          x.rank == 0 ? s[4 * j + e] + pv[e] : pv[e] + s[4 * j + e];
+    }
+  }
+  // every thread of the warpgroup has read the buffer
+  sm90::bar_sync(x.bar, 128);
+  if (t == 0) {
+    if (i + 2 < n_wg) sm90::mbar_expect_tx(x.full + 8 * b, kBytes);
+    sm90::mbar_arrive_remote(x.empty_peer + 8 * b);
   }
 }
 
@@ -438,14 +507,13 @@ __device__ __forceinline__ void consume(
     int row0, int wg_first, int wg, int t4, int T, int H, int h, int b,
     int bh, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
     const int* __restrict__ last, float scale, int causal,
-    bool dirty_flag) {
+    bool dirty_flag, const Exchange& x) {
   using C = Cfg<kD>;
   constexpr int kBK = C::kBK, kSN = C::kSN, kDV = C::kDV;
   constexpr int kStages = C::kStages;
   const bool dirty = kDirty == kRuntime ? dirty_flag : kDirty == kNonfinite;
-  // the warpgroup's columns of O and V: all, or its half at D 512
-  const int col0 = C::kColSplit ? wg * kDV : 0;
-  const uint32_t v_col = C::kColSplit ? wg * C::kVWgBytes : 0;
+  // the CTA's first column of O: 0, or 256 in the second CTA of a cluster
+  const int col0 = static_cast<int>(x.rank) * C::kDC;
   // s: the scores, then p, of the tile in hand; p_hi/p_lo: its P split
   float acc[kDV / 2], s[kSN];
   uint32_t p_hi[C::kPN], p_lo[C::kPN];
@@ -454,6 +522,12 @@ __device__ __forceinline__ void consume(
 #pragma unroll
   for (int i = 0; i < kSN; ++i) s[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  if constexpr (C::kCluster > 1) {
+    if (threadIdx.x % 128 == 0) {  // the buffers' bytes of tiles 0 and 1
+      sm90::mbar_expect_tx(x.full, C::kXBytes);
+      if (n_wg > 1) sm90::mbar_expect_tx(x.full + 8, C::kXBytes);
+    }
+  }
 
   sm90::mbar_wait(q_full, 0);
   sm90::mbar_wait(full, 0);
@@ -462,6 +536,7 @@ __device__ __forceinline__ void consume(
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(s);
+  if constexpr (C::kCluster > 1) exchange<kD>(s, 0, n_wg, x);
   softmax<kBK>(s, m, l, corr, 0, row0, wg_first, T, scale, causal);
   split_p(s, p_hi, p_lo);
 
@@ -470,7 +545,7 @@ __device__ __forceinline__ void consume(
   // each wait retires a known group (else ptxas serializes the wgmmas).
   for (int i = 0; i + 1 < n_wg; ++i) {
     const int nst = (i + 1) % kStages;
-    const uint32_t v_tile = v_s + (i % kStages) * C::kKVBytes + v_col;
+    const uint32_t v_tile = v_s + (i % kStages) * C::kKVBytes;
     if (dirty) sanitize_v<kD>(v_clean, v_tile, 1 + wg);
     sm90::mbar_wait(full + 8 * nst, ((i + 1) / kStages) & 1);
     __syncwarp();
@@ -482,6 +557,7 @@ __device__ __forceinline__ void consume(
 
     sm90::wgmma_wait<1>();  // S of tile i + 1
     sm90::fence_regs(s);
+    if constexpr (C::kCluster > 1) exchange<kD>(s, i + 1, n_wg, x);
     softmax<kBK>(s, m, l, corr, (i + 1) * kBK, row0, wg_first, T, scale,
                  causal);
 
@@ -492,8 +568,7 @@ __device__ __forceinline__ void consume(
     sm90::mbar_arrive(empty + 8 * (i % kStages));
     split_p(s, p_hi, p_lo);
   }
-  const uint32_t v_tile =
-      v_s + ((n_wg - 1) % kStages) * C::kKVBytes + v_col;
+  const uint32_t v_tile = v_s + ((n_wg - 1) % kStages) * C::kKVBytes;
   if (dirty) sanitize_v<kD>(v_clean, v_tile, 1 + wg);
   __syncwarp();
   issue_pv<kD>(acc, p_hi, p_lo, corr, v_tile, dirty ? v_clean : v_tile);
@@ -507,6 +582,13 @@ __device__ __forceinline__ void consume(
   for (int i = n_wg; i < n_tiles; ++i) {
     sm90::mbar_wait(full + 8 * (i % kStages), (i / kStages) & 1);
     sm90::mbar_arrive(empty + 8 * (i % kStages));
+  }
+  // the peer has taken the last pushes: nothing more comes into this
+  // CTA's shared memory from it, so the CTA may exit
+  if constexpr (C::kCluster > 1) {
+    for (int i = max(n_wg - 2, 0); i < n_wg; ++i) {
+      sm90::mbar_wait_cluster(x.empty + 8 * (i & 1), (i >> 1) & 1);
+    }
   }
 
   // causal: the keys from kc on lie past every row of the warpgroup and
@@ -533,7 +615,7 @@ __device__ __forceinline__ void consume(
       }
       *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(x0, x1);
     }
-    if (t4 == 0 && (!C::kColSplit || wg == 0)) {  // one writer a row
+    if (t4 == 0 && x.rank == 0) {  // one writer a row
       lse[static_cast<int64_t>(bh) * T + row] =
           (is_finite(m[r]) ? m[r] : 0.f) + logf(l_safe);
     }
@@ -553,6 +635,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ __align__(8) uint64_t empty[kStages];
+  // the cluster's exchange: a pair of barriers for each buffer of each
+  // consumer warpgroup
+  __shared__ __align__(8) uint64_t x_full[4];
+  __shared__ __align__(8) uint64_t x_empty[4];
   extern __shared__ uint8_t smem_raw[];
 
   // 1024-byte aligned tiles: the 128-byte swizzle repeats every 8 rows
@@ -560,8 +646,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t q_s = base;
   const uint32_t k_s = base + C::kQBytes;
   const uint32_t v_s = k_s + kStages * C::kKVBytes;
+  // after the ring and the two sanitized V tiles: the peer's partials,
+  // two buffers a consumer warpgroup
+  const uint32_t x_s = v_s + (kStages + 2) * C::kKVBytes;
 
-  const int bh = blockIdx.x;
+  // the CTA's rank in its cluster holds columns rank * kDC.. of Q, K, V
+  // and O; the cluster's CTAs share the (batch*head, query rows)
+  const uint32_t rank = C::kCluster > 1 ? sm90::cluster_rank() : 0;
+  const int bh = blockIdx.x / C::kCluster;
+  const int c0 = static_cast<int>(rank) * C::kDC;
   const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
   // causal: no key past the tile's last row
@@ -574,17 +667,30 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_init(sm90::smem_addr(&full[s]), 1);
       sm90::mbar_init(sm90::smem_addr(&empty[s]), kConsumers);
     }
+    if constexpr (C::kCluster > 1) {
+      for (int w = 0; w < 4; ++w) {
+        sm90::mbar_init(sm90::smem_addr(&x_full[w]), 1);
+        sm90::mbar_init(sm90::smem_addr(&x_empty[w]), 1);
+      }
+    }
     sm90::fence_barrier_init();
   }
-  __syncthreads();
+  if constexpr (C::kCluster > 1) {
+    // every CTA of the cluster runs, its barriers initialised, before any
+    // reaches into another's shared memory
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+  } else {
+    __syncthreads();
+  }
 
   if (threadIdx.x >= kConsumers) {
     // producer: one lane issues every load
     if constexpr (C::kRegSplit) sm90::setmaxnreg_dec<C::kProducerRegs>();
     if (threadIdx.x != kConsumers) return;
     sm90::mbar_expect_tx(sm90::smem_addr(&q_full), C::kQBytes);
-    tma_tile<kD>(q_s, &qmap, sm90::smem_addr(&q_full), C::kQAtomBytes, h,
-                 q0, b);
+    tma_tile<kD>(q_s, &qmap, sm90::smem_addr(&q_full), C::kQAtomBytes, c0,
+                 h, q0, b);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
       // the consumers' release of tile i - kStages (passes at once for
@@ -592,35 +698,46 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_wait(sm90::smem_addr(&empty[s]), ((i / kStages) & 1) ^ 1);
       const uint32_t bar = sm90::smem_addr(&full[s]);
       sm90::mbar_expect_tx(bar, 2 * C::kKVBytes);
-      tma_tile<kD>(k_s + s * C::kKVBytes, &kmap, bar, C::kKVAtomBytes, h,
-                   i * kBK, b);
-      tma_tile<kD>(v_s + s * C::kKVBytes, &vmap, bar, C::kKVAtomBytes, h,
-                   i * kBK, b);
+      tma_tile<kD>(k_s + s * C::kKVBytes, &kmap, bar, C::kKVAtomBytes, c0,
+                   h, i * kBK, b);
+      tma_tile<kD>(v_s + s * C::kKVBytes, &vmap, bar, C::kKVAtomBytes, c0,
+                   h, i * kBK, b);
     }
     return;
   }
 
   if constexpr (C::kRegSplit) sm90::setmaxnreg_inc<C::kConsumerRegs>();
-  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 (at D
-  // 512 both own rows q0.. + 63 and wg its columns 256 wg..); in the
-  // accumulator layout lane (g, t4) of warp w holds rows 16 w + g and
-  // 16 w + g + 8, columns 8 j + 2 t4 + {0, 1}: d[4 j + 2 r + e] is row
-  // 16 w + g + 8 r, column 8 j + 2 t4 + e
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 (of the
+  // CTA's columns, in a cluster); in the accumulator layout lane (g, t4)
+  // of warp w holds rows 16 w + g and 16 w + g + 8, columns 8 j + 2 t4 +
+  // {0, 1}: d[4 j + 2 r + e] is row 16 w + g + 8 r, column 8 j + 2 t4 + e
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int wg_first = q0 + (C::kColSplit ? 0 : 64 * wg);
+  const int wg_first = q0 + 64 * wg;
   const int wg_last = wg_first + 63;
   const int row0 = wg_first + 16 * warp + g;
 
   // tiles this warpgroup scores: causal, none wholly past its last row
-  // (`_fwd_kernel`'s loop bound, :128-131)
+  // (`_fwd_kernel`'s loop bound, :128-131); the same for its peer, whose
+  // rows these are
   const int n_wg = causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
   // this warpgroup's 64 rows of each Q atom, and its sanitized V tile
-  const uint32_t q_wg = q_s + (C::kColSplit ? 0 : wg * 64 * kRowBytes);
-  const uint32_t v_clean =
-      v_s + kStages * C::kKVBytes + wg * C::kVWgBytes;
+  const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
+  const uint32_t v_clean = v_s + (kStages + wg) * C::kKVBytes;
+  Exchange x{};
+  x.rank = rank;
+  if constexpr (C::kCluster > 1) {
+    const uint32_t peer = rank ^ 1u;
+    x.x_in = x_s + 2 * wg * C::kXBytes;
+    x.x_peer = sm90::mapa(x.x_in, peer);
+    x.full = sm90::smem_addr(&x_full[2 * wg]);
+    x.empty = sm90::smem_addr(&x_empty[2 * wg]);
+    x.full_peer = sm90::mapa(x.full, peer);
+    x.empty_peer = sm90::mapa(x.empty, peer);
+    x.bar = 3 + wg;  // 1 + wg is sanitize_v's
+  }
   // the pre-pass's verdict on this (batch, head): a non-finite v in any
   // column (the same in every thread of the CTA)
   int last_any = -1;
@@ -636,16 +753,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     if (dirty) {
       consume<kD, kNonfinite>(q_wg, k_s, v_s, v_clean, qf, fl, em, n_wg,
                               n_tiles, row0, wg_first, wg, t4, T, H, h, b, bh,
-                              o, lse, last, scale, causal, dirty);
+                              o, lse, last, scale, causal, dirty, x);
     } else {
       consume<kD, kFinite>(q_wg, k_s, v_s, v_clean, qf, fl, em, n_wg,
                            n_tiles, row0, wg_first, wg, t4, T, H, h, b, bh, o,
-                           lse, last, scale, causal, dirty);
+                           lse, last, scale, causal, dirty, x);
     }
   } else {
     consume<kD, kRuntime>(q_wg, k_s, v_s, v_clean, qf, fl, em, n_wg, n_tiles,
                           row0, wg_first, wg, t4, T, H, h, b, bh, o, lse, last,
-                          scale, causal, dirty);
+                          scale, causal, dirty, x);
   }
 }
 
@@ -759,6 +876,33 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int64_t B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The launch at head dim kD: the (batch*head, 128 query rows) CTAs, past D
+// 256 in clusters of kCluster side by side on x (`cfg` then points at
+// `attr`; a cluster that cannot be placed makes the launch fail, and the
+// error is returned)
+template <int kD>
+cudaError_t config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                   int64_t BH, int64_t T_len, cudaStream_t stream) {
+  using C = Cfg<kD>;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned int>(BH * C::kCluster),
+                     static_cast<unsigned int>((T_len + C::kBQ - 1) / C::kBQ));
+  cfg.blockDim = dim3(C::kThreads);
+  cfg.dynamicSmemBytes = C::kSmemBytes;
+  cfg.stream = stream;
+  if constexpr (C::kCluster > 1) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C::kCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  return cudaFuncSetAttribute(flash_fwd_tc_kernel<kD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              C::kSmemBytes);
+}
+
 // the maps (K and V in tiles of the instance's kBK keys), the pre-pass
 // and the kernel at head dim kD
 template <int kD>
@@ -777,17 +921,23 @@ int launch(EncodeTiled enc, const void* q, const void* k, const void* v,
   const int pre = launch_last(v, last, B, T_len, H, kD, svb, svt, svh,
                               stream);
   if (pre != 0) return pre;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<kD>::kSmemBytes);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = config<kD>(cfg, attr, B * H, T_len, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(
-      static_cast<unsigned int>(B * H),
-      static_cast<unsigned int>((T_len + Cfg<kD>::kBQ - 1) / Cfg<kD>::kBQ));
-  flash_fwd_tc_kernel<kD>
-      <<<grid, Cfg<kD>::kThreads, Cfg<kD>::kSmemBytes, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, last,
-      static_cast<int>(H), static_cast<int>(T_len), scale, causal);
+  if constexpr (Cfg<kD>::kCluster > 1) {
+    err = cudaLaunchKernelEx(&cfg, flash_fwd_tc_kernel<kD>, qm, km, vm,
+                             static_cast<__nv_bfloat16*>(o), lse,
+                             static_cast<const int*>(last),
+                             static_cast<int>(H), static_cast<int>(T_len),
+                             scale, causal);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    flash_fwd_tc_kernel<kD>
+        <<<cfg.gridDim, cfg.blockDim, cfg.dynamicSmemBytes, stream>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, last,
+        static_cast<int>(H), static_cast<int>(T_len), scale, causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -803,7 +953,7 @@ bool tc_head_dim(int64_t D) {
 // stride of 1; base pointers 16-byte aligned and strides multiples of 8 (the Python
 // wrapper checks both). o: contiguous bf16 [B, T, H, D]; lse: contiguous
 // float32 [B, H, T]; last: B * H * D int32 of scratch for the pre-pass.
-// 1 <= T <= 65535 x the instance's query tile (128 rows; 64 at D 512).
+// 1 <= T <= 65535 x 128 (the query tiles).
 // Launches the pre-pass and the kernel on `stream`; returns
 // cudaGetLastError() (0 on success), -1 for another head dim, -2 if
 // cuTensorMapEncodeTiled is missing, -3 if it refuses a map.
@@ -836,6 +986,21 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
     default:
       return go(std::integral_constant<int, 512>());
   }
+}
+
+// The cluster launch at head dim D (512): out = {CTAs a cluster, dynamic
+// shared memory of a CTA in bytes, cudaOccupancyMaxActiveClusters}.
+// Returns a CUDA error (0 on success), or -1 for a head dim without one.
+extern "C" int flash_tc_cluster_info(int64_t D, int* out) {
+  if (D != 512) return -1;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = config<512>(cfg, attr, 1, 1, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = Cfg<512>::kCluster;
+  out[1] = Cfg<512>::kSmemBytes;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      out + 2, flash_fwd_tc_kernel<512>, &cfg));
 }
 
 // The pre-pass alone, as flash_fwd_tc launches it (for timing it apart):

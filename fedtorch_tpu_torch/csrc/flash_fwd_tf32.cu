@@ -1,7 +1,7 @@
 // The entry of the TF32 flash forward. The kernels, what they replace,
 // what bounds them and their design are in flash_fwd_tf32.cuh; their
-// instances compile in flash_fwd_tf32_f32.cu, flash_fwd_tf32_bf16.cu and
-// flash_fwd_tf32_wide.cu.
+// instances compile in flash_fwd_tf32_f32.cu, flash_fwd_tf32_bf16.cu,
+// flash_fwd_tf32_cluster.cu and flash_fwd_tf32_chunked.cu.
 
 #include "flash_fwd_tf32.cuh"
 
@@ -12,8 +12,11 @@
 // for the pre-pass. D >= 1, 1 <= T <= 65535 * 128.
 // mode: 2 if every pointer, b/t/h stride and D elements are 16-byte
 // multiples, 1 if they are 4-byte multiples, else 0 (the Python wrapper
-// checks all of it). Launches on `stream` and returns cudaGetLastError()
-// (0 on success), or -1 for D < 1.
+// checks all of it). Head dims up to 256 take the narrow kernel, up to
+// kMaxCluster x 256 a cluster of ceil(D / 256) CTAs, past it the chunked
+// kernel. Launches on `stream` and returns the first CUDA error (0 on
+// success; a cluster launch that cannot be placed fails here), or -1 for
+// D < 1.
 extern "C" int flash_fwd_tf32(const void* q, const void* k, const void* v,
                               void* o, float* lse, void* last, int64_t B,
                               int64_t T_len, int64_t H, int64_t D,
@@ -25,8 +28,19 @@ extern "C" int flash_fwd_tf32(const void* q, const void* k, const void* v,
   using namespace flash_tf32;
   if (D < 1) return -1;
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh};
-  Launcher* go = D > 256 ? (bf16 ? wide_bf16 : wide_f32)
-                         : (bf16 ? narrow_bf16 : narrow_f32);
+  Launcher* go = D > 256 * kMaxCluster ? (bf16 ? chunked_bf16 : chunked_f32)
+                 : D > 256             ? (bf16 ? cluster_bf16 : cluster_f32)
+                                       : (bf16 ? narrow_bf16 : narrow_f32);
   return go(q, k, v, o, lse, static_cast<int*>(last), B, T_len, H, D, sq, sk,
             sv, scale, causal, mode, static_cast<cudaStream_t>(stream));
+}
+
+// The cluster launch at head dim D (256 < D <= kMaxCluster x 256) in
+// float32 (bf16 = 0) or bfloat16: out = {CTAs a cluster, dynamic shared
+// memory of a CTA in bytes, cudaOccupancyMaxActiveClusters}. Returns a
+// CUDA error (0 on success), or -1 for a D that takes no cluster.
+extern "C" int flash_tf32_cluster_info(int64_t D, int bf16, int* out) {
+  using namespace flash_tf32;
+  if (D <= 256 || D > 256 * kMaxCluster) return -1;
+  return bf16 ? cluster_info_bf16(D, out) : cluster_info_f32(D, out);
 }

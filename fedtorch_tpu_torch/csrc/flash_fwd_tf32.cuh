@@ -60,6 +60,32 @@
 //   102,400 + 2 x 16 x (200 + 196) x 4 = 153,088). The query tile, the
 //   grid and the warps stay; S shrinks to 8 accumulators a thread, which
 //   the 128 of O need.
+// - Past D 256 a cluster of n = ceil(D / 256) CTAs (up to kMaxCluster =
+//   8, the portable cluster size: D <= 2048), launched with
+//   cudaLaunchKernelEx, takes each (batch*head, 128 query rows): CTA r
+//   holds columns 256 r .. 256 r + 255 of Q, K, V and O and is the D-256
+//   layout on them (`flash_fwd_tf32_kernel<T, 256, true>`). Each tile,
+//   every warp computes its partial S over the CTA's columns, the hi and
+//   the cross products apart, into its threads' slots; after a cluster
+//   barrier each CTA reads every rank's slots through distributed shared
+//   memory and sums them in rank order 0..n-1, then adds the cross
+//   products (the rule below) and runs the softmax, so m and l agree
+//   bitwise across the cluster; each CTA takes P V on its own columns,
+//   and rank 0 writes the lse. So S is computed once per (query rows, key
+//   tile), and Q is read from device memory once a CTA. The CTAs of a
+//   cluster share their query rows, so all step through the same tiles
+//   and cross the same cluster barriers, causal or not. Shared memory:
+//   the D-256 layout and the slots, 256 threads x 16 float32 (s and sx)
+//   = 16,384 B: 218,624 B in float32 (bf16, s only: 168,960 + 8,192 =
+//   177,152). Two sets of slots would take 235,008 B in float32, past
+//   the 232,448, so there is one: a CTA waits on the barrier's next
+//   arrival (every CTA has read the slots), after the next tile's S,
+//   before it stores again.
+// - Past 2048 the chunked kernel (`flash_fwd_tf32_chunked_kernel`): one
+//   CTA per (batch*head, 256 of O's columns, 128 query rows), S summed
+//   over D in 64-column chunks of Q and K staged for every key tile, so
+//   each column block computes all of S and re-reads Q from L2 a tile
+//   (116,224 B of shared memory in float32).
 // - S = Q K^T with d paired as (2t, 2t + 1) in both operands, so each
 //   fragment is one 64-bit (float32) or 32-bit (bf16) shared load. P V
 //   takes P straight from the S accumulators: the keys of a k8 step are
@@ -100,8 +126,10 @@
 // (batch*head, column) whose v is not finite, and of each (batch*head):
 // a causal column whose last such key lies past the warp's tiles is NaN,
 // and a (batch, head) with none takes P V without the masks. Past D 256
-// each column block applies the rules to its own columns of V and O (the
-// table is indexed by the column in D).
+// the rule for q K^T holds on the cluster's summed partials, and each CTA
+// of a cluster (each column block of the chunked kernel) applies the
+// rules for v to its own columns of V and O (the table is indexed by the
+// column in D).
 //
 // Rounding: compiled without --fmad=false (build.py), as the other
 // attention kernel. expf, logf and the division by l_safe are the
@@ -116,6 +144,8 @@
 
 #include <type_traits>
 
+#include "sm90_ptx.cuh"
+
 namespace flash_tf32 {
 
 struct Strides {
@@ -125,14 +155,26 @@ struct Strides {
 // The launchers, each compiled in a source of its own so that the build
 // (one nvcc a source, all at once) compiles the instances side by side:
 // head dims up to 256 in float32 (flash_fwd_tf32_f32.cu) and in bfloat16
-// (flash_fwd_tf32_bf16.cu), past 256 in both (flash_fwd_tf32_wide.cu).
-// The entry, flash_fwd_tf32.cu, picks one.
+// (flash_fwd_tf32_bf16.cu), the clusters past 256 in both
+// (flash_fwd_tf32_cluster.cu), the chunked kernel past kMaxCluster x 256
+// in both (flash_fwd_tf32_chunked.cu). The entry, flash_fwd_tf32.cu, picks
+// one.
 using Launcher = int(const void* q, const void* k, const void* v, void* o,
                      float* lse, int* last, int64_t B, int64_t T_len,
                      int64_t H, int64_t D, Strides sq, Strides sk,
                      Strides sv, float scale, int causal, int mode,
                      cudaStream_t stream);
-Launcher narrow_f32, narrow_bf16, wide_f32, wide_bf16;
+Launcher narrow_f32, narrow_bf16, cluster_f32, cluster_bf16, chunked_f32,
+    chunked_bf16;
+// A cluster launch's plan at head dim D (256 < D <= kMaxCluster x 256):
+// out = {CTAs a cluster, dynamic shared memory of a CTA in bytes,
+// cudaOccupancyMaxActiveClusters}; returns a CUDA error (0 on success)
+int cluster_info_f32(int64_t D, int* out);
+int cluster_info_bf16(int64_t D, int* out);
+
+// The largest cluster that every Hopper part schedules (the portable
+// size): the cluster kernel takes head dims up to kMaxCluster x 256
+constexpr int kMaxCluster = 8;
 
 namespace {
 
@@ -162,13 +204,26 @@ struct Layout {
   static_assert(kBytes <= 232448, "the shared memory a block may take");
 };
 
-// Shared memory of one CTA past D 256 (the header's arithmetic): two
-// stages of a kDC-column chunk of Q (kBQ rows) and of the K tile, then two
-// stages of the V tile's kDV columns of the CTA's block. The chunks' row
-// stride kCS keeps the (2t, 2t + 1) fragment loads conflict-free, as kQS
-// and kKS do; V is read as at D 256.
+// The cluster kernel's CTA (past D 256, the header's arithmetic): the
+// layout at DP 256, then the exchange of S's partials, each thread's
+// kVecs float4 slots (its s and, in float32, its cross products sx)
 template <typename T>
-struct Wide {
+struct Cluster {
+  using L = Layout<T, 256>;
+  static constexpr int kVecs = (sizeof(T) == 4 ? 2 : 1) * L::kSN / 4;
+  static constexpr int kXBytes = kVecs * kThreads * 16;
+  static constexpr int kBytes = L::kBytes + kXBytes;
+  static_assert(L::kBytes % 16 == 0, "the slots' float4 alignment");
+  static_assert(kBytes <= 232448, "the shared memory a block may take");
+};
+
+// Shared memory of one CTA of the chunked kernel (past kMaxCluster x 256;
+// the header's arithmetic): two stages of a kDC-column chunk of Q (kBQ
+// rows) and of the K tile, then two stages of the V tile's kDV columns of
+// the CTA's block. The chunks' row stride kCS keeps the (2t, 2t + 1)
+// fragment loads conflict-free, as kQS and kKS do; V is read as at D 256.
+template <typename T>
+struct Chunked {
   static constexpr int kDV = 256;  // O columns of a CTA
   static constexpr int kDC = 64;   // columns of a chunk of S's sum over D
   static constexpr int kBK = Layout<T, kDV>::kBK;  // 16 keys a tile
@@ -313,7 +368,8 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int64_t st,
 
 // R rows r0.. and W columns c0.. of one [T, D] slice into a tile of row
 // stride kS, pieces as in load_rows; rows past T and columns >= D become
-// zeros (the wide kernel's chunks and column blocks reuse their buffers).
+// zeros (the chunked kernel's chunks and column blocks reuse their
+// buffers).
 // load_rows stays for the narrow kernel: through this loader its float32
 // D-256 instance ran 1.8% slower on an NVIDIA H100 80GB HBM3 at 700 W
 // (PERF.md section 6).
@@ -414,8 +470,8 @@ __device__ __forceinline__ void softmax(float (&s)[kBK / 2], float (&m)[2],
 // tile's kBK / 8 key groups: the hi products into s, in float32 the cross
 // products into sx. Q (q_row: the warp's row g, column 2t; row stride kQS)
 // is float32 in shared memory (the narrow kernel), or a chunk in the input
-// type (the wide kernel), whose bf16 pair (d, d + 1) is one 32-bit load,
-// widened exactly; bf16 K is exact in TF32.
+// type (the chunked kernel), whose bf16 pair (d, d + 1) is one 32-bit
+// load, widened exactly; bf16 K is exact in TF32.
 template <typename T, typename TQ, int kBK, int kSteps, int kQS, int kKS>
 __device__ __forceinline__ void qk_steps(float (&s)[kBK / 2],
                                          float (&sx)[kBK / 2],
@@ -483,17 +539,75 @@ __device__ __forceinline__ void add_cross(float (&s)[kSN],
   }
 }
 
-// S = Q K^T of one tile for a warp's 16 rows in the narrow kernel: DP / 8
-// k8 steps over its resident float32 Q
+// S = Q K^T of one tile for a warp's 16 rows in the narrow and cluster
+// kernels, before add_cross: DP / 8 k8 steps over the resident float32 Q
 template <typename T, int DP>
 __device__ __forceinline__ void qk(float (&s)[Layout<T, DP>::kSN],
+                                   float (&sx)[Layout<T, DP>::kSN],
                                    const float* q_row, const T* ks) {
   using L = Layout<T, DP>;
-  float sx[L::kSN];
 #pragma unroll
   for (int i = 0; i < L::kSN; ++i) s[i] = sx[i] = 0.f;
   qk_steps<T, float, L::kBK, DP / 8, L::kQS, L::kKS>(s, sx, q_row, ks);
-  add_cross<T>(s, sx);
+}
+
+// S of a tile summed over the cluster (the header's design): the thread's
+// partials over its CTA's columns go to its slots; once every CTA's are
+// there (the cluster barrier), each CTA reads every rank's slots through
+// distributed shared memory and sums them in rank order 0..n-1, so all
+// hold the same S, and so the same m and l, bitwise. The barrier's next
+// arrival marks this CTA's reads done: each CTA waits on it before it
+// stores the next tile's partials (and before it exits), so no slot is
+// overwritten while a peer reads it. Every thread takes every barrier,
+// its warp scoring the tile (`mine`) or not.
+template <typename T, int kSN>
+__device__ __forceinline__ void cluster_sum(float (&s)[kSN],
+                                            float (&sx)[kSN], float4* xs,
+                                            int i, int n, bool mine) {
+  constexpr int kV = kSN / 4;  // a thread's float4 slots of s (and of sx)
+  constexpr bool kF32 = sizeof(T) == 4;
+  float4* slot = xs + threadIdx.x;
+  if (i > 0) sm90::cluster_wait();
+  if (mine) {
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      slot[j * kThreads] =
+          make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      if constexpr (kF32) {
+        slot[(kV + j) * kThreads] = make_float4(sx[4 * j], sx[4 * j + 1],
+                                                sx[4 * j + 2], sx[4 * j + 3]);
+      }
+    }
+  }
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+  if (mine) {
+    const uint32_t own = sm90::smem_addr(slot);
+    auto take = [&](int r, bool add) {
+      const uint32_t at = sm90::mapa(own, static_cast<uint32_t>(r));
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        const float4 x = sm90::ld_cluster_f4(at + j * kThreads * 16);
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = add ? s[4 * j + e] + xv[e] : xv[e];
+        }
+        if constexpr (kF32) {
+          const float4 y =
+              sm90::ld_cluster_f4(at + (kV + j) * kThreads * 16);
+          const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sx[4 * j + e] = add ? sx[4 * j + e] + yv[e] : yv[e];
+          }
+        }
+      }
+    };
+    take(0, false);
+    for (int r = 1; r < n; ++r) take(r, true);
+  }
+  sm90::cluster_arrive();
 }
 
 __device__ __forceinline__ uint32_t widen(__nv_bfloat16 x) {
@@ -566,7 +680,9 @@ __device__ __forceinline__ void pv(float (&acc)[DP / 2],
   }
 }
 
-template <typename T, int DP>
+// kCluster: past D 256, one CTA of a cluster of n = ceil(D / 256) (the
+// header's design), with DP 256 and the exchange after Layout's bytes
+template <typename T, int DP, bool kCluster = false>
 __global__ void __launch_bounds__(kThreads, DP >= 128 ? 1 : 2)
 flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
@@ -587,37 +703,44 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  L::kKBytes);
   }
 
-  const int bh = blockIdx.x;
+  // the cluster's CTA `rank` of n holds columns c0.. c0 + Dc - 1 of Q, K,
+  // V and O (the whole head dim without a cluster)
+  const int n = kCluster ? static_cast<int>(sm90::cluster_size()) : 1;
+  const int rank = kCluster ? static_cast<int>(sm90::cluster_rank()) : 0;
+  const int bh = blockIdx.x / n;
+  const int c0 = rank * DP;
+  const int Dc = min(D - c0, DP);
   const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
-  // causal: no key past the tile's last row
+  // causal: no key past the tile's last row (the same count in every CTA
+  // of a cluster: they share the query rows)
   const int k_end = causal ? min(q0 + kBQ, T_len) : T_len;
   const int n_tiles = (k_end + kBK - 1) / kBK;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const T* qb = q + b * sq.b + h * sq.h + c0;
+  const T* kb = k + b * sk.b + h * sk.h + c0;
+  const T* vb = v + b * sv.b + h * sv.h + c0;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 
   auto load_tile = [&](int i) {
-    load_rows<T, DP, L::kKS>(ks[i & 1], kb, sk.t, i * kBK, T_len, D, mode);
-    load_rows<T, DP, L::kVS>(vs[i & 1], vb, sv.t, i * kBK, T_len, D, mode);
+    load_rows<T, DP, L::kKS>(ks[i & 1], kb, sk.t, i * kBK, T_len, Dc, mode);
+    load_rows<T, DP, L::kVS>(vs[i & 1], vb, sv.t, i * kBK, T_len, Dc, mode);
     cp_async_commit();
   };
   load_tile(0);
 
-  // Q as float32, zero past D and T; K and V columns >= D zero in both
-  // stages (the copies never write them)
+  // Q as float32, zero past the CTA's columns and T; K and V columns past
+  // them zero in both stages (the copies never write them)
   for (int r = warp; r < kBQ; r += kWarps) {
     const bool ok = q0 + r < T_len;
     const T* row = qb + static_cast<int64_t>(ok ? q0 + r : 0) * sq.t;
     for (int c = lane; c < DP; c += 32) {
-      qs[r * L::kQS + c] = ok && c < D ? to_float(row[c]) : 0.f;
+      qs[r * L::kQS + c] = ok && c < Dc ? to_float(row[c]) : 0.f;
     }
   }
   for (int r = warp; r < 2 * kBK; r += kWarps) {
-    for (int c = D + lane; c < DP; c += 32) {
+    for (int c = Dc + lane; c < DP; c += 32) {
       ks[r / kBK][(r % kBK) * L::kKS + c] = from_float<T>(0.f);
       vs[r / kBK][(r % kBK) * L::kVS + c] = from_float<T>(0.f);
     }
@@ -634,9 +757,10 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the pre-pass's verdict on this (batch, head): a non-finite v
   // anywhere (the flags follow the B*H*D table)
-  const bool dirty = last[static_cast<int64_t>(gridDim.x) * D + bh] >= 0;
+  const bool dirty =
+      last[static_cast<int64_t>(gridDim.x / n) * D + bh] >= 0;
 
-  float acc[DP / 2], s[L::kSN];
+  float acc[DP / 2], s[L::kSN], sx[L::kSN];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
@@ -650,8 +774,14 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // tile i (and Q, the zeroed columns) visible
     const int k0 = i * kBK;
-    if (k0 < w_end) {
-      qk<T, DP>(s, q_row, ks[i & 1]);
+    const bool mine = k0 < w_end;  // this warp scores tile i
+    if (mine) qk<T, DP>(s, sx, q_row, ks[i & 1]);
+    if constexpr (kCluster) {
+      cluster_sum<T>(s, sx, reinterpret_cast<float4*>(smem + L::kBytes), i,
+                     n, mine);
+    }
+    if (mine) {
+      add_cross<T>(s, sx);
       softmax<kBK>(s, m, l, corr, k0, row0, w_first, T_len, scale, causal);
       if (dirty) {
         pv<T, DP, true>(acc, s, corr, vs[i & 1]);
@@ -661,50 +791,55 @@ flash_fwd_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // every warp is done with the stage tile i + 2 takes
   }
+  // no CTA leaves while a peer may still read its slots
+  if constexpr (kCluster) sm90::cluster_wait();
 
   // causal: the keys from kc on lie past every row of the warp and were
   // not computed; a non-finite v among them makes the column NaN
   const int kc = (w_end + kBK - 1) / kBK * kBK;
   const int* last_bh = causal && dirty && kc < T_len
-                           ? last + static_cast<int64_t>(bh) * D
+                           ? last + static_cast<int64_t>(bh) * D + c0
                            : nullptr;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= T_len) continue;
     const float l_safe = l[r] != l[r] ? l[r] : fmaxf(l[r], 1e-30f);
-    T* orow = o + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
+    T* orow =
+        o + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D + c0;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int j = 0; j < DP / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = 8 * n + 2 * t + e;
-        if (c >= D) continue;
-        float x = acc[4 * n + 2 * r + e] / l_safe;
+        const int c = 8 * j + 2 * t + e;
+        if (c >= Dc) continue;
+        float x = acc[4 * j + 2 * r + e] / l_safe;
         if (last_bh != nullptr && last_bh[c] >= kc) x = NAN;
         orow[c] = from_float<T>(x);
       }
     }
-    if (t == 0) {
+    if (t == 0 && rank == 0) {  // one writer a row
       lse[static_cast<int64_t>(bh) * T_len + row] =
           (is_finite(m[r]) ? m[r] : 0.f) + logf(l_safe);
     }
   }
 }
 
-// Past D 256: one CTA per (batch*head, column block of kDV, 128 query
-// rows); the header's design. Warps, rows, causal skips, softmax, P V and
-// the non-finite rules are the narrow kernel's; S is summed over D in
-// kDC-column chunks, one (key tile, chunk) step at a time.
+// Past kMaxCluster x 256: one CTA per (batch*head, column block of kDV,
+// 128 query rows); the header's design. Warps, rows, causal skips,
+// softmax, P V and the non-finite rules are the narrow kernel's; S is
+// summed over D in kDC-column chunks, one (key tile, chunk) step at a
+// time.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_tf32_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse,
-                           const int* __restrict__ last, Strides sq,
-                           Strides sk, Strides sv, int H, int T_len, int D,
-                           float scale, int causal, int mode) {
-  using W = Wide<T>;
+flash_fwd_tf32_chunked_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v, T* __restrict__ o,
+                              float* __restrict__ lse,
+                              const int* __restrict__ last, Strides sq,
+                              Strides sk, Strides sv, int H, int T_len,
+                              int D, float scale, int causal, int mode) {
+  using W = Chunked<T>;
   constexpr int kBK = W::kBK;
   extern __shared__ __align__(16) uint8_t smem[];
   T* vs[2];
@@ -892,28 +1027,87 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// past D 256: the column blocks of each (batch*head) side by side on x
+// past kMaxCluster x 256: the column blocks of each (batch*head) side by
+// side on x
 template <typename T>
-int launch_wide(const void* q, const void* k, const void* v, void* o,
-                float* lse, int* last, int64_t B, int64_t T_len, int64_t H,
-                int64_t D, Strides sq, Strides sk, Strides sv, float scale,
-                int causal, int mode, cudaStream_t stream) {
-  constexpr int bytes = Wide<T>::kBytes;
+int launch_chunked(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int* last, int64_t B, int64_t T_len,
+                   int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
+                   float scale, int causal, int mode, cudaStream_t stream) {
+  constexpr int bytes = Chunked<T>::kBytes;
   const int pre = prepass<T>(v, last, B, T_len, H, D, sv, stream);
   if (pre != 0) return pre;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32_wide_kernel<T>,
+      flash_fwd_tf32_chunked_kernel<T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_cb = (D + Wide<T>::kDV - 1) / Wide<T>::kDV;
+  const int64_t n_cb = (D + Chunked<T>::kDV - 1) / Chunked<T>::kDV;
   const dim3 grid(static_cast<unsigned int>(B * H * n_cb),
                   static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
-  flash_fwd_tf32_wide_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_tf32_chunked_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, last, sq, sk, sv,
       static_cast<int>(H), static_cast<int>(T_len), static_cast<int>(D),
       scale, causal, mode);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster launch past D 256 (up to kMaxCluster x 256): the cluster's
+// n CTAs of each (batch*head, 128 query rows) side by side on x; `cfg`
+// points at `attr`. A cluster that cannot be placed (shared memory,
+// occupancy) makes the launch fail, and the error is returned.
+template <typename T>
+cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                           int64_t BH, int64_t T_len, int64_t D,
+                           cudaStream_t stream) {
+  const unsigned int n = static_cast<unsigned int>((D + 255) / 256);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned int>(BH) * n,
+                     static_cast<unsigned int>((T_len + kBQ - 1) / kBQ));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Cluster<T>::kBytes;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = n;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaFuncSetAttribute(flash_fwd_tf32_kernel<T, 256, true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Cluster<T>::kBytes);
+}
+
+template <typename T>
+int launch_cluster(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int* last, int64_t B, int64_t T_len,
+                   int64_t H, int64_t D, Strides sq, Strides sk, Strides sv,
+                   float scale, int causal, int mode, cudaStream_t stream) {
+  const int pre = prepass<T>(v, last, B, T_len, H, D, sv, stream);
+  if (pre != 0) return pre;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<T>(cfg, attr, B * H, T_len, D, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(
+      &cfg, flash_fwd_tf32_kernel<T, 256, true>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+      lse, static_cast<const int*>(last), sq, sk, sv, static_cast<int>(H),
+      static_cast<int>(T_len), static_cast<int>(D), scale, causal, mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int cluster_info(int64_t D, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<T>(cfg, attr, 1, 1, D, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(attr.val.clusterDim.x);
+  out[1] = Cluster<T>::kBytes;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      out + 2, flash_fwd_tf32_kernel<T, 256, true>, &cfg));
 }
 
 // head dims 1..256: the instance of D's padded width

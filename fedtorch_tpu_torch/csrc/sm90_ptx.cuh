@@ -1,6 +1,7 @@
-// Raw PTX helpers for Hopper (sm_90a): mbarriers, TMA tensor loads and
-// warpgroup matrix multiplies (wgmma), written out so that a kernel needs
-// no CUTLASS/CuTe headers and compiles in seconds.
+// Raw PTX helpers for Hopper (sm_90a): mbarriers, thread-block clusters
+// and their distributed shared memory, TMA tensor loads and warpgroup
+// matrix multiplies (wgmma), written out so that a kernel needs no
+// CUTLASS/CuTe headers and compiles in seconds.
 #pragma once
 
 #include <stdint.h>
@@ -55,6 +56,89 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// -- thread-block clusters ---------------------------------------------------
+
+// this CTA's rank in its cluster, and the cluster's CTAs
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// the cluster barrier: every thread of every CTA arrives (releasing its
+// earlier memory operations), then waits (acquiring the others'); each
+// thread alternates the two
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// a shared-memory address of this CTA as the same offset in CTA `rank`'s
+// shared memory (distributed shared memory)
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(d)
+               : "r"(addr), "r"(rank));
+  return d;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// 16 bytes into another CTA's shared memory (a shared::cluster address
+// from mapa), counted as 16 bytes of transaction on that CTA's mbarrier
+// `bar` when they land; the barrier's phase completes once its arrivals
+// and its expected bytes are all in
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// one arrival on an mbarrier of another CTA of the cluster (a
+// shared::cluster address from mapa), releasing this thread's earlier
+// memory operations to the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait that acquires what the cluster's threads released by their
+// arrivals
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // -- TMA ---------------------------------------------------------------------
 
 // a 4-D box at coordinates (c0 innermost .. c3) into shared memory; the
@@ -78,6 +162,14 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 lds128f(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
   return v;
 }
 __device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {

@@ -14,9 +14,10 @@ the quantizer ``--fmad=false``, which keeps its ``scale*(q - zp) + mean``
 rounding as written, and leave the attention kernels free to contract
 their multiply-adds (each source's header says why). The bf16 attention
 kernel writes its ``wgmma``, TMA and ``mbarrier`` PTX by hand
-(``csrc/sm90_ptx.cuh``) and looks up ``cuTensorMapEncodeTiled``
-through the runtime; the TF32 one writes its ``mma.sync`` and
-``cp.async`` PTX inline. So no CUTLASS header and no ``-lcuda`` is
+(``csrc/sm90_ptx.cuh``, which also holds the cluster PTX of both
+attention kernels) and looks up ``cuTensorMapEncodeTiled`` through the
+runtime; the TF32 one writes its ``mma.sync`` and ``cp.async`` PTX
+inline. So no CUTLASS header and no ``-lcuda`` is
 needed.
 The library goes to ``fedtorch_tpu_torch/_build/`` (git-ignored) under a
 name keyed by a hash of the sources (``*.cu`` and the ``*.cuh`` they
@@ -50,7 +51,8 @@ SOURCE_FLAGS = {
     "flash_fwd_tf32.cu": (),
     "flash_fwd_tf32_f32.cu": (),
     "flash_fwd_tf32_bf16.cu": (),
-    "flash_fwd_tf32_wide.cu": (),
+    "flash_fwd_tf32_chunked.cu": (),
+    "flash_fwd_tf32_cluster.cu": (),
 }
 
 
@@ -158,6 +160,10 @@ def load_library() -> ctypes.CDLL:
                 #  t, h, scale, causal, bf16, load mode, stream)
                 "flash_fwd_tf32": [ptr] * 6 + [i64] * 13
                 + [ctypes.c_float, i32, i32, i32, ptr],
+                # (D, bf16, out: 3 int32) and (D, out): each kernel's
+                # cluster launch at head dim D
+                "flash_tf32_cluster_info": [i64, i32, ptr],
+                "flash_tc_cluster_info": [i64, ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(lib, name)

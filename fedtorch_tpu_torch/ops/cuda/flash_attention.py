@@ -12,15 +12,20 @@ alone:
   the b, t and h strides multiples of 8 elements (what its TMA loads
   need). bf16 ``wgmma`` on the tensor cores, p split in two bf16 halves
   for P V; 64-key tiles up to head dim 128, 32-key tiles past it; at 512
-  a CTA's two warpgroups split O's columns over 64 query rows.
+  a cluster of two CTAs, each holding 256 of the columns, sums S's two
+  partials through distributed shared memory.
 - ``"tf32"``, ``csrc/flash_fwd_tf32.cuh`` (``flash_fwd_tf32``, whose
   entry is ``csrc/flash_fwd_tf32.cu``):
   everything else: float32 at any head dim, bfloat16 at the other head
   dims, misaligned or oddly strided views. ``mma.sync`` TF32 on the
   tensor cores with the 3xTF32 split, which keeps the float32 bar (one
   TF32 product would break it); 32-key tiles up to head dim 128, 16-key
-  tiles past it; past 256 each CTA owns a block of 256 of O's columns
-  and sums S over the head dim in 64-column chunks.
+  tiles past it. From 257 to 2048 a cluster of ceil(D / 256) CTAs (8 at
+  most, the portable cluster size), each holding 256 of the columns,
+  sums S's partials in rank order; past 2048 the chunked kernel gives each
+  CTA a block of 256 of O's columns and sums S over the head dim in
+  64-column chunks. :func:`cluster_plan` reads a cluster launch's plan
+  on the card.
 
 Each launch counts in ``flash_launches``, and in ``flash_tc_launches``
 or ``flash_tf32_launches`` by its kernel. No head dim is refused: the
@@ -47,6 +52,7 @@ logsumexp ``[B, T, H]``; inside, the logsumexp is ``[B, H, T]`` float32.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -65,9 +71,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _max_t(route: str, D: int) -> int:
-    """The longest T a route's grid takes: gridDim.y counts query tiles,
-    of 128 rows but in the wgmma kernel's D-512 instance (64)."""
-    return 65535 * (64 if route == "tc" and D == 512 else 128)
+    """The longest T a route's grid takes: gridDim.y counts query tiles of
+    128 rows in every kernel and instance (the wgmma kernel's D-512
+    instance too, since its cluster of two CTAs holds 128 rows)."""
+    return 65535 * 128
 
 
 def _default_blocks(T: int):
@@ -227,6 +234,23 @@ def fwd_ops(B: int, T: int, H: int, D: int, causal: bool) -> float:
     return 4.0 * B * H * D * pairs
 
 
+def cluster_plan(route: str, dtype: torch.dtype, D: int):
+    """A route's cluster launch at head dim D on the current card, as its
+    kernel reports it: ``(CTAs a cluster, a CTA's dynamic shared memory in
+    bytes, cudaOccupancyMaxActiveClusters)``, or None where the route
+    launches no cluster at D (the wgmma kernel but at 512; the TF32
+    kernel up to 256 and past 2048), as the kernel says (-1)."""
+    lib = load_library()
+    out = (ctypes.c_int * 3)()
+    err = lib.flash_tc_cluster_info(D, out) if route == "tc" \
+        else lib.flash_tf32_cluster_info(D, _DTYPES[dtype], out)
+    if err == -1:
+        return None
+    if err != 0:
+        raise RuntimeError(f"flash {route} cluster query failed: error {err}")
+    return tuple(out)
+
+
 def _launch_tf32(q, k, v, scale: float, causal: bool):
     """``csrc/flash_fwd_tf32.cuh`` on checked CUDA inputs."""
     global flash_launches, flash_tf32_launches
@@ -244,7 +268,8 @@ def _launch_tf32(q, k, v, scale: float, causal: bool):
             _load_mode(q, k, v), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_tf32 launch failed: error {err} "
-                           "(-1: a head dim below 1, else a CUDA error)")
+                           "(-1: a head dim below 1, else a CUDA error, "
+                           "such as a cluster that cannot be placed)")
     flash_launches += 1
     flash_tf32_launches += 1
     return o, lse

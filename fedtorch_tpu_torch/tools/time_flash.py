@@ -6,12 +6,13 @@ CUDA card.
 Times each kernel through its wrapper's whole launch, causal, on strided
 q, k, v views of one projection rotating over at least 128 MB (twice
 the L2): the TF32 kernel (``flash_attention._launch_tf32``) in float32
-and in bfloat16 at (8, 2048, 4, 64) and in float32 at (8, 2048, 4, 25),
-(8, 2048, 4, 256) and (8, 2048, 4, 512) (its column blocks); the wgmma
-kernel (``_launch_tc``, its non-finite pre-pass included) in bfloat16
-at (8, 2048, 4, D), D in {64, 128, 256, 512}, and that pre-pass alone
-where the checkout has one (a checkout whose kernels stop below a head
-dim, as the ones before every head dim was taken did, reports None
+and in bfloat16 at (8, 2048, 4, 64), in float32 at (8, 2048, 4, D), D in
+{25, 256, 320, 384, 512} (past 256 its clusters, or the column blocks of
+a checkout that has none), and in bfloat16 at (8, 2048, 4, 512); the
+wgmma kernel (``_launch_tc``, its non-finite pre-pass included) in
+bfloat16 at (8, 2048, 4, D), D in {64, 128, 256, 512}, and that pre-pass
+alone where the checkout has one (a checkout whose kernels stop below a
+head dim, as the ones before every head dim was taken did, reports None
 there); and
 ``F.scaled_dot_product_attention(is_causal=True)`` in float32 (TF32
 off) at (8, 2048, 4, 25), the TF32 kernel's yardstick at the default
@@ -45,7 +46,10 @@ SHAPES = (("float32_d64", (8, 2048, 4, 64), torch.float32, "tf32"),
           ("tc_bfloat16_d128", (8, 2048, 4, 128), torch.bfloat16, "tc"),
           ("float32_d256", (8, 2048, 4, 256), torch.float32, "tf32"),
           ("tc_bfloat16_d256", (8, 2048, 4, 256), torch.bfloat16, "tc"),
+          ("float32_d320", (8, 2048, 4, 320), torch.float32, "tf32"),
+          ("float32_d384", (8, 2048, 4, 384), torch.float32, "tf32"),
           ("float32_d512", (8, 2048, 4, 512), torch.float32, "tf32"),
+          ("bfloat16_d512", (8, 2048, 4, 512), torch.bfloat16, "tf32"),
           ("tc_bfloat16_d512", (8, 2048, 4, 512), torch.bfloat16, "tc"),
           ("tc_prepass_d64", (8, 2048, 4, 64), torch.bfloat16, "prepass"),
           ("tc_prepass_d128", (8, 2048, 4, 128), torch.bfloat16,

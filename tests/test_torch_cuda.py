@@ -396,15 +396,17 @@ _WIDE_CASES = [(dtype, causal, T, D, 0)
                for dtype in (torch.float32, torch.bfloat16)
                for causal in (True, False) for T in (1, 129, 2048)
                for D in (136, 192, 200, 256)]
-# past head dim 256: the TF32 kernel's column blocks (both dtypes) and the
-# wgmma kernel's D-512 instance (aligned bfloat16 at 512), and misaligned
-# bfloat16 at 512 on the TF32 kernel
+# past head dim 256: the TF32 kernel's clusters of 2 to 8 CTAs (both
+# dtypes) and its chunked kernel past 2048, the wgmma kernel's D-512
+# cluster (aligned bfloat16 at 512), and misaligned bfloat16 at 512 on
+# the TF32 kernel
 _PAST_256_CASES = [(dtype, causal, T, D, 0)
                    for dtype in (torch.float32, torch.bfloat16)
                    for causal in (True, False) for T in (1, 129, 300)
-                   for D in (257, 384, 512, 1024)] + [
+                   for D in (257, 320, 384, 512, 576, 1024, 2056)] + [
     (torch.bfloat16, True, 129, 512, 1), (torch.bfloat16, False, 300, 512, 2),
-    (torch.float32, True, 2048, 512, 0), (torch.bfloat16, True, 2048, 512, 0)]
+    (torch.float32, True, 2048, 512, 0), (torch.bfloat16, True, 2048, 512, 0),
+    (torch.float32, False, 300, 2048, 0), (torch.float32, True, 129, 576, 1)]
 
 
 @pytest.mark.parametrize("dtype, causal, T, D, offset", [
@@ -441,6 +443,25 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, causal, T, D,
         torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
     else:
         _assert_bf16_close(o, ro)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cluster_plans_fit_on_the_card(cuda, dtype):
+    """Each cluster launch as its kernel reports it: ceil(D / 256) CTAs
+    of the TF32 kernel from 257 to 2048 (218,624 B a CTA in float32,
+    177,152 in bfloat16), two of the wgmma kernel at 512 (230,400 B),
+    each with at least one cluster that fits on the card; no cluster
+    below 257 or past 2048 (the chunked kernel)."""
+    for D in (257, 512, 576, 1024, 2048):
+        n, smem, active = fa.cluster_plan("tf32", dtype, D)
+        assert n == -(-D // 256) and active >= 1
+        assert smem == (218624 if dtype == torch.float32 else 177152)
+    assert fa.cluster_plan("tf32", dtype, 256) is None
+    assert fa.cluster_plan("tf32", dtype, 2049) is None
+    if dtype == torch.bfloat16:
+        n, smem, active = fa.cluster_plan("tc", dtype, 512)
+        assert (n, smem) == (2, 230400) and active >= 1
+        assert fa.cluster_plan("tc", dtype, 256) is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -8,10 +8,10 @@ The kernels run only on the card (``tests/test_torch_cuda.py`` and
 out as the model makes them,
 and :func:`_emulate` repeats the kernel's arithmetic in float32 torch ops
 (64-key tiles up to head dim 128 and 32-key tiles past it, 64-row
-warpgroups, at head dim 512 two warpgroups on the same 64 rows, each P V
-on its half of the columns; online softmax, p split into bf16 hi + lo for
-P V, float32 sums) on the same numpy inputs as the JAX package's
-``_fwd_xla``. The bar
+warpgroups; at head dim 512 a cluster of two CTAs, S as their partials
+over 256 columns each summed in rank order, each CTA's P V on its 256
+columns; online softmax, p split into bf16 hi + lo for P V, float32 sums)
+on the same numpy inputs as the JAX package's ``_fwd_xla``. The bar
 is the card's: lse within 2e-5 (abs and rel), bfloat16 o within the
 float32 bar plus one bfloat16 spacing, the same NaN pattern.
 """
@@ -33,8 +33,9 @@ def _bk(D):
 
 
 def _dv(D):
-    """The columns of O a warpgroup owns (``Cfg::kDV``): all of them, or
-    at head dim 512 (``Cfg::kColSplit``) its half."""
+    """The columns of S's partials, of V and of O a CTA holds
+    (``Cfg::kDC``): all of them, or at head dim 512 (a cluster of
+    ``Cfg::kCluster`` = 2 CTAs) its half."""
     return D // 2 if D > 256 else D
 
 
@@ -125,7 +126,7 @@ def test_every_head_dim_up_to_256_takes_a_kernel(dtype):
 def test_route_past_head_dim_256(D, dtype, offset):
     """Aligned bf16 at 512 takes the wgmma kernel's D-512 instance;
     float32, bf16 at 257, 320, 384 and 1024, and misaligned views the
-    TF32 kernel's column blocks."""
+    TF32 kernel's clusters."""
     q, k, v = _qkv_views(1, 9, 2, D, dtype, offset)
     fa._check_inputs(q, k, v)
     tc = dtype == torch.bfloat16 and D == 512 and offset == 0
@@ -137,9 +138,8 @@ def test_no_head_dim_is_refused(dtype):
     """The JAX package's kernel takes any head dim, and so do the port's
     routes: 257, 512 and 1024 pass the input check as 136 and 256 do.
     What stays refused by name: float16, mixed dtypes, and T past the
-    route's grid (65,535 query tiles: of 64 rows in the wgmma kernel's
-    D-512 instance, so 4,194,240 rows, which the TF32 kernel's 128-row
-    tiles take)."""
+    route's grid (65,535 query tiles of 128 rows on both routes, the
+    wgmma kernel's D-512 cluster too: 8,388,480 rows)."""
     for D in (136, 256, 257, 512, 1024):
         fa._check_inputs(*_qkv_views(1, 8, 2, D, dtype))
     half = _qkv_views(1, 8, 2, 512, torch.float16)
@@ -148,14 +148,13 @@ def test_no_head_dim_is_refused(dtype):
     q, k, v = _qkv_views(1, 8, 2, 512, dtype)
     with pytest.raises(ValueError, match="one dtype"):
         fa._check_inputs(q, k.to(torch.float16), v)
-    T = 65535 * 64 + 1  # zero-stride views: no memory behind the rows
+    T = 65535 * 128 + 1  # zero-stride views: no memory behind the rows
     big = torch.zeros(1, 1, 1, 512, dtype=dtype).expand(1, T, 1, 512)
-    if dtype == torch.bfloat16:
-        assert fa._route(big, big, big) == "tc"
-        with pytest.raises(ValueError, match="4194240 .route 'tc'"):
-            fa._check_inputs(big, big, big)
-    else:
+    route = "tc" if dtype == torch.bfloat16 else "tf32"
+    assert fa._route(big, big, big) == route
+    with pytest.raises(ValueError, match=f"8388480 .route '{route}'"):
         fa._check_inputs(big, big, big)
+    fa._check_inputs(*(t[:, :T - 1] for t in (big, big, big)))
 
 
 def test_load_mode_follows_the_alignment():
@@ -173,10 +172,11 @@ def test_load_mode_follows_the_alignment():
 def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
     """The kernel's arithmetic on float32 [BH, T, D] tensors holding
     bf16 values, in the instance's key tiles (:func:`_bk`): o (float32,
-    before its bf16 rounding) and lse. Causal, the rows of each 64-row
-    warpgroup (at head dim 512: of each 64-row CTA, whose two warpgroups
-    score the same tiles) take no tile wholly past their last row; P V
-    runs on each warpgroup's columns (:func:`_dv`). ``sanitize``: the
+    before its bf16 rounding) and lse. S is the CTAs' partials over
+    their columns (:func:`_dv`: at head dim 512 the cluster's two),
+    summed in rank order. Causal, the rows of each 64-row warpgroup (and
+    of its peer in the other CTA) take no tile wholly past their last
+    row; P V runs on each CTA's columns. ``sanitize``: the
     non-finite v rule (the p_lo product reads the warpgroup's columns of
     the tile with non-finite elements 0, and a causal column is NaN in
     the rows of a warpgroup whose skipped tiles hold a non-finite v);
@@ -191,7 +191,11 @@ def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
     acc = torch.zeros(BH, T, D)
     for k0 in range(0, T, BK):
         kt, vt = k[:, k0:k0 + BK], v[:, k0:k0 + BK]
-        s = torch.einsum("bqd,bkd->bqk", q, kt) * scale
+        s = 0.0
+        for c0 in range(0, D, DV):  # each CTA's partial, in rank order
+            s = s + torch.einsum("bqd,bkd->bqk", q[..., c0:c0 + DV],
+                                 kt[..., c0:c0 + DV])
+        s = s * scale
         if causal:
             keys = torch.arange(k0, k0 + kt.shape[1])
             s = s.masked_fill(keys[None, :] > rows[:, None], -np.inf)
@@ -202,7 +206,7 @@ def _emulate(q, k, v, scale, causal, split=True, sanitize=True):
         p = torch.where(s.isfinite(), torch.exp(s - m_safe[..., None]), 0.0)
         hi = p.to(torch.bfloat16).float()
         halves = []
-        for c0 in range(0, D, DV):  # each warpgroup's columns
+        for c0 in range(0, D, DV):  # each CTA's columns
             vc = vt[..., c0:c0 + DV]
             pv = hi @ vc
             if split:
@@ -284,8 +288,8 @@ def test_emulated_kernel_holds_the_bf16_bar_against_the_oracle(causal,
 @pytest.mark.parametrize("D", [192, 256, 512])
 def test_emulated_wide_instances_hold_the_bf16_bar(D, causal):
     """The instances past head dim 128 (32-key tiles, P V over two or
-    three of V's atoms; at 512 each warpgroup's P V over four atoms of
-    its half) at BH 2, T 130: lse within 2e-5, o within one bf16 spacing
+    three of V's atoms; at 512 each CTA's P V over the four atoms of its
+    half) at BH 2, T 130: lse within 2e-5, o within one bf16 spacing
     past the float32 bar of the oracle."""
     q, k, v = _inputs(False, B=1, T=130, H=2, D=D)
     scale = D ** -0.5
@@ -337,7 +341,7 @@ def test_emulated_kernel_follows_the_infinite_v_rule(D, causal):
     without them (the kernel before the rule) p_lo beside an infinite v
     makes NaN where the oracle has +-inf, and the rows whose warpgroup
     skips the key's tile miss the oracle's NaN. At 512 the column D - 1
-    lies in the second warpgroup's half."""
+    lies in the second CTA's half."""
     q, k, v = _infinite_v(D)
     scale = D ** -0.5
     jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
@@ -359,3 +363,138 @@ def test_emulated_kernel_follows_the_infinite_v_rule(D, causal):
     old = _emulate(q, k, v, scale, causal, sanitize=False)[0].to(
         torch.bfloat16).float()
     assert not torch.equal(old.isnan(), want.isnan())
+
+
+def test_max_t_at_head_dim_512():
+    """The wgmma kernel's D-512 cluster holds 128 query rows, as every
+    other instance and the TF32 kernel do: 65,535 query tiles of 128
+    rows on both routes."""
+    assert fa._max_t("tc", 512) == fa._max_t("tf32", 512) == 65535 * 128
+    assert all(fa._max_t(r, d) == 65535 * 128
+               for r in ("tc", "tf32") for d in (64, 256, 512, 1024))
+
+
+def _oracles(q, k, v, scale, causal):
+    """(o, lse) as float32 of the JAX package's ``_fwd_xla`` and of the
+    port's ``flash_fwd_ref`` on the same bf16 [BH, T, D] values as [B,
+    T, H, D] (one head)."""
+    jo, jl = _fwd_xla(*(jnp.asarray(t.numpy(), jnp.bfloat16)
+                        for t in (q, k, v)), scale, causal)
+    ro, rl = fa.flash_fwd_ref(*(t.to(torch.bfloat16)[:, :, None]
+                                for t in (q, k, v)), scale, causal)
+    return ((torch.from_numpy(np.array(jo, np.float32)),
+             torch.from_numpy(np.array(jl))),
+            (ro[:, :, 0].float(), rl[:, 0]))
+
+
+@pytest.mark.parametrize("T", [63, 130])
+@pytest.mark.parametrize("causal", [False, True])
+def test_emulated_cluster_holds_the_bf16_bar_against_both_oracles(causal,
+                                                                  T):
+    """The D-512 cluster: the two CTAs' partial S over 256 columns each,
+    summed in rank order, and each CTA's P V on its columns, against
+    the JAX package's ``_fwd_xla`` and the port's ``flash_fwd_ref``:
+    lse within 2e-5, o within one bf16 spacing past the float32 bar."""
+    q, k, v = _inputs(False, B=1, T=T, H=2, D=512)
+    scale = 512 ** -0.5
+    o, lse = _emulate(q, k, v, scale, causal)
+    got = o.to(torch.bfloat16).float()
+    for want_o, want_l in _oracles(q, k, v, scale, causal):
+        torch.testing.assert_close(lse, want_l, rtol=2e-5, atol=2e-5)
+        assert _bf16_excess(got, want_o) <= 1.0
+
+
+def test_emulated_cluster_keeps_the_nonfinite_rules_across_partials():
+    """Non-finite inputs in the two CTAs' columns at head dim 512,
+    causal: a NaN q element in rank 0's columns (the row attends to
+    nothing: o 0), a +inf k row element in rank 1's (the key scores NaN
+    or +-inf), a -inf k element under q elements > 0 in rank 1's (p = 0,
+    the max unmoved, so key 5's large scores do not overflow exp), and
+    an infinite v in rank 1's columns at a key past the causal tiles of
+    the earlier warpgroups' rows (NaN there). The rank-order sum keeps
+    the oracles' NaN and +-inf pattern and the bar elsewhere."""
+    q, k, v = _inputs(False, B=2, T=300, H=2, D=512)
+    q[0, 9, 100] = np.nan
+    k[1, 3, 400] = np.inf
+    q[2, :, 300] = q[2, :, 300].abs() + 1
+    k[2, 3, 300] = -np.inf
+    k[2, 5] = 0.0
+    k[2, 5, 300] = 1000.0
+    v[3, 200, 450] = np.inf
+    # bf16 values, as the kernel reads them
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    o, lse = _emulate(q, k, v, 512 ** -0.5, True)
+    got = o.to(torch.bfloat16).float()
+    for want_o, want_l in _oracles(q, k, v, 512 ** -0.5, True):
+        assert float(want_o[0, 9].abs().max()) == 0.0
+        assert bool(want_o[3, :200, 450].isnan().all())
+        assert bool((want_o[3, 200:, 450] == np.inf).all())
+        assert bool(want_o[2].isfinite().all())
+        assert torch.equal(lse.isnan(), want_l.isnan())
+        fin = want_l.isfinite()
+        torch.testing.assert_close(lse[fin], want_l[fin], rtol=2e-5,
+                                   atol=2e-5)
+        assert torch.equal(got.isnan(), want_o.isnan())
+        assert torch.equal(got.isinf(), want_o.isinf())
+        assert torch.equal(got[got.isinf()], want_o[want_o.isinf()])
+        ok = want_o.isfinite()
+        assert _bf16_excess(got[ok], want_o[ok]) <= 1.0
+
+
+def _cfg_smem(D):
+    """A mirror of ``Cfg<D>::kSmemBytes`` (``flash_fwd_sm90.cu``): Q, the
+    K and V ring, the two sanitized V tiles, at D 512 (a cluster of two
+    CTAs, 256 columns each) the two buffers of the peer's partial S for
+    each consumer warpgroup, and 1 KB of alignment."""
+    cluster = 2 if D > 256 else 1
+    dc = D // cluster
+    bk = 32 if D > 128 else 64
+    stages = 3 if cluster > 1 else 4
+    atoms = dc // 64
+    q_bytes, kv_bytes = atoms * 128 * 128, atoms * bk * 128
+    x_bytes = 64 * bk * 4 if cluster > 1 else 0
+    return q_bytes + 2 * stages * kv_bytes + 2 * kv_bytes + 4 * x_bytes \
+        + 1024
+
+
+def test_cluster_instance_shared_memory_fits():
+    """Every instance within the 232,448 B a block may take less the
+    static barriers (128 B); D 256 at 230,400 B as before, and the D-512
+    cluster's CTA (D 256's layout with a 3-stage ring and the exchange's
+    buffers) at 230,400 B too; a 4-stage ring would not fit beside
+    them."""
+    sizes = {d: _cfg_smem(d) for d in fa.TC_HEAD_DIMS}
+    assert all(v <= 232448 - 128 for v in sizes.values())
+    assert sizes[256] == sizes[512] == 230400
+    assert sizes[512] + 2 * 256 // 64 * 32 * 128 > 232448 - 128
+
+
+def _wg_tiles(T, causal, block_y, grid_y, wg):
+    """The tiles a consumer warpgroup of the wgmma kernel scores (n_wg),
+    as the kernel computes them: from its CTA's query tile (blockIdx.y)
+    and its warpgroup index, not the CTA's rank."""
+    q0 = (grid_y - 1 - block_y) * 128
+    k_end = min(q0 + 128, T) if causal else T
+    n_tiles = -(-k_end // 32)
+    last = q0 + 64 * wg + 63
+    return min(n_tiles, last // 32 + 1) if causal else n_tiles
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cluster_warpgroup_pairs_exchange_equal_tile_counts(causal):
+    """Each warpgroup of a D-512 CTA exchanges one partial a tile with
+    the warpgroup of the same rows in the other CTA of its cluster, which
+    shares its blockIdx.y: the pair scores the same tiles for every T,
+    while the two warpgroups of one CTA may not (so the handshake is per
+    pair, never CTA- or cluster-wide per tile)."""
+    unequal = 0
+    for T in range(1, 700):
+        grid_y = -(-T // 128)
+        for y in range(grid_y):
+            for wg in (0, 1):
+                pair = {_wg_tiles(T, causal, y, grid_y, wg)
+                        for _rank in (0, 1)}
+                assert len(pair) == 1 and min(pair) >= 1
+            unequal += _wg_tiles(T, causal, y, grid_y, 0) \
+                != _wg_tiles(T, causal, y, grid_y, 1)
+    assert (unequal > 0) == causal
