@@ -387,18 +387,24 @@ line. Phases, each fatal on failure:
     (``MOE_CLI_WORDS``). Within ``MOE_BUDGET_S``.
 14. podscale (``podscale_phase``): client sharding on the ResNet-20 main
     path's round, cuDNN deterministic: ``client_shards`` 1 in this
-    process (the armed twin, no collective), then S=2 as two spawned
-    ranks on the one card over gloo (``init_multihost`` on a ``file://``
-    store), each running its 5 clients on the device plane and then on
-    the stream plane: every rank's server params, generator, client
-    state and metrics bitwise the S=1 twin's, 2 + 2 ragged launches and
-    1 collective a round a rank, the gather's gauges; round ms at S 0
-    (the main path's), 1 and 2, nothing else running beside them. And
-    the CLI on two ranks (``--client_shards 2 --num_processes 2
-    --coordinator_address 127.0.0.1:<a free port>``, synthetic data, 2
-    rounds and a resume; run beside the lifecycle phase's untimed runs):
-    equal metric lines, rank 0's checkpoints the only ones. Within
-    ``PODSCALE_BUDGET_S``.
+    process (the armed twin, no collective), plain and with the update
+    guards judging a 'gauss' attack, then S=2 as two spawned ranks on
+    the one card over gloo (``init_multihost`` on a ``file://`` store),
+    each running its 5 clients on the device plane, on the stream plane
+    and guarded under attack: the client state and the population
+    sharded (each rank holds its 50 clients' rows, the two cover the 100
+    once), every rank's hash of its own rows, server params, generator
+    and metrics bitwise the S=1 twin's of the same rows, 2 + 2 ragged
+    launches, 1 seam collective, 1 exchange and (guarded) 1 norm gather
+    a round a rank, the collectives' bytes and the gather's gauges, the
+    resident MiB of the client state and the population and
+    ``memory_allocated`` at S 1 and 2 (S 2's client state half of S
+    1's); round ms at S 0 (the main path's), 1 and 2, nothing else
+    running beside them. And the CLI on two ranks (``--client_shards 2
+    --num_processes 2 --coordinator_address 127.0.0.1:<a free port>``,
+    synthetic data, 2 rounds and a resume; run beside the lifecycle
+    phase's untimed runs): equal metric lines, rank 0's checkpoints the
+    only ones. Within ``PODSCALE_BUDGET_S``.
 
 The observability checks (``fedtorch_tpu_torch/utils/tracing.py``,
 ``tools/trace_attrib.py``, ``telemetry/costs.py``,
@@ -6068,19 +6074,36 @@ PODSCALE_CLI = ["-d", "synthetic", "-a", "logistic_regression", "-f",
                 "--debug", "false"]
 
 
-def podscale_config(tcfg, shards, plane="device", **mesh):
-    """The ResNet-20 main path's quantized round at ``shards``."""
+# the guarded round under attack: the update guards judging a 'gauss'
+# attack from 30% of the population
+PODSCALE_GUARDED = dict(guard_updates=True, byzantine_rate=0.3,
+                        byzantine_mode="gauss")
+
+
+def podscale_config(tcfg, shards, plane="device", guarded=False, **mesh):
+    """The ResNet-20 main path's quantized round at ``shards``
+    (``guarded``: with :data:`PODSCALE_GUARDED`)."""
     cfg = path_config(tcfg, "resnet20")
+    fault = dataclasses.replace(cfg.fault, **PODSCALE_GUARDED) \
+        if guarded else cfg.fault
     return dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, data_plane=plane),
-        mesh=dataclasses.replace(cfg.mesh, client_shards=shards, **mesh))
+        mesh=dataclasses.replace(cfg.mesh, client_shards=shards, **mesh),
+        fault=fault)
 
 
-def state_hashes(server, clients, metrics) -> dict:
+def state_hashes(server, clients, metrics, rows=None) -> dict:
     """sha256 of the server params and generator (:func:`leaf_hashes`),
-    of every client-state leaf, and of each round's metrics: the
-    round's bitwise fingerprint, small enough to send between ranks."""
-    from fedtorch_tpu_torch.core.state import tree_leaves
+    of every client-state leaf (``rows`` = ``(lo, hi)``: of those rows of
+    the params, optimizer and aux trees, with the whole replicated epoch
+    and local index), and of each round's metrics: the round's bitwise
+    fingerprint, small enough to send between ranks."""
+    from fedtorch_tpu_torch.core.state import tree_leaves, tree_map
+    if rows is not None:
+        lo, hi = rows
+        clients = clients._replace(**{f: tree_map(
+            lambda t: t[lo:hi] if isinstance(t, torch.Tensor) else t,
+            getattr(clients, f)) for f in ("params", "opt", "aux")})
     out = leaf_hashes(server.params, server.rng.get_state())
     for what, tree in (("clients", clients), ("metrics", tuple(metrics))):
         h = hashlib.sha256()
@@ -6093,12 +6116,17 @@ def state_hashes(server, clients, metrics) -> dict:
     return out
 
 
-def podscale_rounds(cfg, seed, qk, fa, data=None):
+def podscale_rounds(cfg, seed, qk, fa, data=None, hash_rows=()):
     """``PODSCALE_ROUNDS`` rounds of the main path's round at ``cfg``
     through ``run_round``, cuDNN deterministic: each round's ms, the
-    ragged launches and collectives each round issued (counters set to 0
-    just before it), the gauges, and :func:`state_hashes` at the end.
-    ``data``: the path's data, when already built."""
+    ragged launches and the collectives of each kind each round issued
+    (the seam's, the exchange's and the guards' norm gather's, with
+    their bytes; counters set to 0 just before it), the gauges, the
+    memory the trainer and its state took (``torch.cuda.
+    memory_allocated`` after ``init_state``, and its growth since
+    before the trainer was built), and :func:`state_hashes` at the end:
+    of the client rows this process holds, and of each ``(lo, hi)`` of
+    ``hash_rows``. ``data``: the path's data, when already built."""
     from fedtorch_tpu_torch.algorithms import make_algorithm
     from fedtorch_tpu_torch.data.batching import stack_partitions
     from fedtorch_tpu_torch.models import define_model
@@ -6106,11 +6134,20 @@ def podscale_rounds(cfg, seed, qk, fa, data=None):
 
     if data is None:
         data = path_data(cfg, seed, stack_partitions)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     trainer = FederatedTrainer(cfg, define_model(
         cfg, batch_size=cfg.data.batch_size), make_algorithm(cfg), data)
     del data
     server, clients = trainer.init_state(seed)
-    ms, launches, collectives, metrics = [], [], [], []
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    mib = 1 << 20
+    memory = dict(allocated_after_init_mib=mem / mib,
+                  trainer_and_state_mib=(mem - mem0) / mib)
+    ms, launches, metrics = [], [], []
+    kinds = {kind: dict(count=[], bytes=[])
+             for kind in ("seam", "exchange", "norms")}
     try:
         for _ in range(PODSCALE_ROUNDS):
             torch.cuda.synchronize()
@@ -6121,23 +6158,42 @@ def podscale_rounds(cfg, seed, qk, fa, data=None):
             trainer.round_host_scalars(clients, m)
             ms.append((time.perf_counter() - t0) * 1e3)
             launches.append(counters(qk, fa))
-            collectives.append(podscale.collective_count())
+            for kind, c in kinds.items():
+                c["count"].append(podscale.collective_count(kind))
+                c["bytes"].append(podscale.gathered_bytes(kind))
             metrics.append(m)
         gauges = trainer.telemetry_gauges()
     finally:
         trainer.close()
+    from fedtorch_tpu_torch.core.state import tree_leaves
+    memory.update(
+        client_state_mib=sum(t.numel() * t.element_size()
+                             for t in tree_leaves(clients)) / mib,
+        population_mib=sum(t.numel() * t.element_size()
+                           for t in trainer.data) / mib
+        if trainer.data is not None else 0.0)
     hashes = state_hashes(server, clients, metrics)
-    return dict(round_ms=ms, launches=launches, collectives=collectives,
+    by_rows = {f"{lo}:{hi}": state_hashes(server, clients, metrics,
+                                          rows=(lo, hi))
+               for lo, hi in hash_rows}
+    return dict(round_ms=ms, launches=launches,
+                collectives=kinds["seam"]["count"],
+                exchange=kinds["exchange"], norm_gather=kinds["norms"],
                 gauges=gauges, client_shards=trainer.client_shards,
                 rows=list(trainer.cohort_rows(trainer.k_dispatch)),
-                hashes=hashes, fingerprint=hashlib.sha256(json.dumps(
+                client_rows=list(trainer.client_rows), memory=memory,
+                guard_counts=[[float(m.byzantine_clients),
+                               float(m.rejected_updates)] for m in metrics],
+                hashes=hashes, hashes_by_rows=by_rows,
+                fingerprint=hashlib.sha256(json.dumps(
                     hashes, sort_keys=True).encode()).hexdigest())
 
 
 def podscale_rank(rank, store, seed, queue):
     """One spawned rank of the S=2 rounds: the process group through
     ``init_multihost`` (a ``file://`` store), then
-    :func:`podscale_rounds` on the device plane and on the stream plane
+    :func:`podscale_rounds` on the device plane, on the stream plane and
+    guarded under attack on the device plane (:data:`PODSCALE_GUARDED`)
     from one build of the path's data; its results (or its traceback)
     on ``queue``."""
     import traceback
@@ -6151,16 +6207,19 @@ def podscale_rank(rank, store, seed, queue):
         torch.backends.cudnn.deterministic = True
         out = {}
         data = None
-        for plane in ("device", "stream"):
+        for name, plane, guarded in (("device", "device", False),
+                                     ("stream", "stream", False),
+                                     ("guarded", "device", True)):
             cfg = podscale_config(
-                tcfg, 2, plane, coordinator_address=f"file://{store}",
+                tcfg, 2, plane, guarded,
+                coordinator_address=f"file://{store}",
                 num_processes=2, process_id=rank,
                 init_timeout_s=float(PODSCALE_TIMEOUT_S))
             if data is None:
                 out["backend"] = init_multihost(cfg.mesh)
                 data = path_data(cfg, seed, stack_partitions)
-            out[plane] = podscale_rounds(cfg, seed, qk, fa, data)
-            out[plane]["backend"] = out["backend"]
+            out[name] = podscale_rounds(cfg, seed, qk, fa, data)
+            out[name]["backend"] = out["backend"]
             gc.collect()
             torch.cuda.empty_cache()
         queue.put((rank, "ok", out))
@@ -6317,22 +6376,32 @@ def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
     path's round (quantized FedAvg, int8 both ways, bf16, 100 clients, k
     = 10, batch 50, 10 local steps), cuDNN deterministic:
 
-    * ``S0`` and ``S1``: ``PODSCALE_ROUNDS`` rounds in this process at
-      ``client_shards`` 0 and 1 (the armed twin: the grouped sum, no
-      collective); each round's ms, 2 + 2 ragged launches a round. With
-      ``s0_round_ms`` (the main path's round ms: the same round at
-      ``client_shards`` 0, in the same process) the S0 run is not
-      repeated;
-    * ``S2_resident`` and ``S2_feed``: two spawned ranks on this card
-      (``init_multihost`` through a ``file://`` store, the backend gloo by
-      the module's rule), each running its 5 clients of the cohort on the
-      device plane, then on the stream plane (``feed``: its producer
-      packing only its rows): after the rounds every rank's server
-      params, generator, client state and metrics hash bitwise the S1
-      twin's; each rank launches the ragged pair 2 + 2 times a round (its
-      [5]-row uplink, the downlink) and issues 1 collective a round;
-      ``cohort_allreduce_bytes`` and ``cohort_gather_bytes`` as the
-      gauges say;
+    * ``S0``, ``S1`` and ``S1_guarded``: ``PODSCALE_ROUNDS`` rounds in
+      this process at ``client_shards`` 0 and 1 (the armed twin: the
+      grouped sum, no collective), and at 1 with the update guards
+      judging a 'gauss' attack (:data:`PODSCALE_GUARDED`); each round's
+      ms, 2 + 2 ragged launches a round. With ``s0_round_ms`` (the main
+      path's round ms: the same round at ``client_shards`` 0, in the
+      same process) the S0 run is not repeated;
+    * ``S2_resident``, ``S2_feed`` and ``S2_guarded``: two spawned ranks
+      on this card (``init_multihost`` through a ``file://`` store, the
+      backend gloo by the module's rule), each running its 5 clients of
+      the cohort on the device plane, on the stream plane (its producer
+      packing only its rows) and guarded under attack on the device
+      plane. The client state and the device plane's population are
+      sharded: each rank holds its 50 clients' rows
+      (``owned_client_rows``), the two ranks' rows cover the 100 once,
+      and each rank's hash of its rows (with the server params,
+      generator and metrics) equals the twin's hash of the same rows.
+      Each rank launches the ragged pair 2 + 2 times a round (its
+      [5]-row uplink, the downlink) and issues 1 seam collective, 1
+      exchange and, guarded, 1 norm gather a round; the collectives'
+      bytes, ``cohort_allreduce_bytes`` and ``cohort_gather_bytes`` as
+      the counters and gauges say;
+    * memory at S = 1 and S = 2 (each rank): the client-state trees'
+      and the population's resident MiB and ``memory_allocated`` after
+      ``init_state``; the S = 2 client-state trees must be half of S =
+      1's (the replicated [C] epoch and local index aside);
     * ``cli``: what :func:`podscale_cli` returned, run beside the
       lifecycle phase's untimed runs (:func:`start_podscale_cli`), so
       that nothing runs beside the timed rounds above.
@@ -6340,82 +6409,132 @@ def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
     Two processes on one card: their round ms is no multi-card speed. No
     NCCL collective crosses two cards here (this machine has one)."""
     import tempfile
+    from fedtorch_tpu_torch.parallel.mesh import owned_client_rows
     t0 = time.perf_counter()
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     out = {}
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
+    rank_rows = [owned_client_rows(NUM_CLIENTS, 2, r) for r in (0, 1)]
     try:
         from fedtorch_tpu_torch.data.batching import stack_partitions
         data = path_data(podscale_config(tcfg, 0), seed, stack_partitions)
-        for shards in (0, 1) if s0_round_ms is None else (1,):
+        runs = [(f"S{shards}", shards, False)
+                for shards in ((0, 1) if s0_round_ms is None else (1,))]
+        for name, shards, guarded in runs + [("S1_guarded", 1, True)]:
             gc.collect()
             torch.cuda.empty_cache()
-            out[f"S{shards}"] = podscale_rounds(
-                podscale_config(tcfg, shards), seed, qk, fa, data)
+            out[name] = podscale_rounds(
+                podscale_config(tcfg, shards, guarded=guarded), seed, qk,
+                fa, data, hash_rows=rank_rows if shards else ())
         del data
         gc.collect()
         torch.cuda.empty_cache()
         ranks = podscale_pair(root, seed)
-        out["S2_resident"] = [r["device"] for r in ranks]
-        out["S2_feed"] = [r["stream"] for r in ranks]
+        for name, key in (("S2_resident", "device"), ("S2_feed", "stream"),
+                          ("S2_guarded", "guarded")):
+            out[name] = [r[key] for r in ranks]
         out["cli"] = cli
     finally:
         tmp.cleanup()
         torch.backends.cudnn.deterministic = deterministic
     want = dict(ragged_stats=2, ragged_apply=2, stats=0, apply=0, flash=0,
                 flash_tc=0, flash_tf32=0)
-    twin = out["S1"]["hashes"]
-    for name in [n for n in ("S0", "S1") if n in out]:
-        if any(l != want for l in out[name]["launches"]) \
-                or any(out[name]["collectives"]):
-            raise AssertionError(f"podscale {name}: {out[name]}")
-    for name in ("S2_resident", "S2_feed"):
+    ones, zeros = [1] * PODSCALE_ROUNDS, [0] * PODSCALE_ROUNDS
+    for name in [n for n in ("S0", "S1", "S1_guarded") if n in out]:
+        r = out[name]
+        if any(l != want for l in r["launches"]) or any(r["collectives"]) \
+                or any(r["exchange"]["count"]) \
+                or any(r["norm_gather"]["count"]):
+            raise AssertionError(f"podscale {name}: {r}")
+    if not any(b for b, _ in out["S1_guarded"]["guard_counts"]):
+        raise AssertionError("podscale S1_guarded: no attacker in a cohort "
+                             f"{out['S1_guarded']['guard_counts']}")
+    for name, twin in (("S2_resident", "S1"), ("S2_feed", "S1"),
+                       ("S2_guarded", "S1_guarded")):
+        ranges = [tuple(r["client_rows"]) for r in out[name]]
+        # the ranks' rows cover the 100 clients once, in rank order
+        if ranges != [tuple(x) for x in rank_rows] or ranges[0][0] != 0 \
+                or ranges[0][1] != ranges[1][0] \
+                or ranges[1][1] != NUM_CLIENTS:
+            raise AssertionError(f"podscale {name}: client rows {ranges}")
         for rank, r in enumerate(out[name]):
-            if r["hashes"] != twin:
-                diff = [k for k in twin if r["hashes"].get(k) != twin[k]]
+            mine = out[twin]["hashes_by_rows"]["%d:%d" % ranges[rank]]
+            if r["hashes"] != mine:
+                diff = [k for k in mine if r["hashes"].get(k) != mine[k]]
                 raise AssertionError(
-                    f"podscale {name} rank {rank}: not bitwise the S=1 twin "
-                    f"({len(diff)} of {len(twin)} hashes differ: {diff[:8]})")
+                    f"podscale {name} rank {rank}: not bitwise the {twin} "
+                    f"twin on its rows ({len(diff)} of {len(mine)} hashes "
+                    f"differ: {diff[:8]})")
+            norms = ones if name == "S2_guarded" else zeros
             if any(l != want for l in r["launches"]) \
-                    or r["collectives"] != [1] * PODSCALE_ROUNDS \
+                    or r["collectives"] != ones \
+                    or r["exchange"]["count"] != ones \
+                    or r["norm_gather"]["count"] != norms \
                     or r["backend"] != "gloo" or r["client_shards"] != 2 \
                     or r["rows"] != [5 * rank, 5 * rank + 5]:
                 raise AssertionError(f"podscale {name} rank {rank}: {r}")
+    memory = dict(S1=out["S1"]["memory"],
+                  S2=[r["memory"] for r in out["S2_resident"]])
+    # the trees hold 100 -> 50 clients' rows; the replicated [C] epoch
+    # and local index (800 B) ride in both
+    for m in memory["S2"]:
+        if abs(2 * m["client_state_mib"] - memory["S1"]["client_state_mib"]) \
+                > 0.01 * memory["S1"]["client_state_mib"] \
+                or abs(2 * m["population_mib"]
+                       - memory["S1"]["population_mib"]) \
+                > 0.01 * memory["S1"]["population_mib"]:
+            raise AssertionError(f"podscale memory: {memory}")
     gauges = out["S2_resident"][0]["gauges"]
     out.update(
         cohort_allreduce_bytes=gauges["cohort_allreduce_bytes"],
         cohort_gather_bytes=gauges["cohort_gather_bytes"],
+        exchange=dict((name, [dict(count=r["exchange"]["count"],
+                                   bytes=r["exchange"]["bytes"])
+                              for r in out[name]])
+                      for name in ("S2_resident", "S2_feed", "S2_guarded")),
+        norm_gather=[dict(count=r["norm_gather"]["count"],
+                          bytes=r["norm_gather"]["bytes"])
+                     for r in out["S2_guarded"]],
+        guard_counts=out["S1_guarded"]["guard_counts"], memory=memory,
         round_ms=dict(S0=out["S0"]["round_ms"][-1] if "S0" in out
-                      else s0_round_ms, S1=out["S1"]["round_ms"][-1]),
+                      else s0_round_ms, S1=out["S1"]["round_ms"][-1],
+                      S1_guarded=out["S1_guarded"]["round_ms"][-1]),
         launches_per_round_a_rank=out["S2_resident"][0]["launches"][-1],
         collectives_per_round=out["S2_resident"][0]["collectives"][-1],
         backend=out["S2_resident"][0]["backend"], bitwise=True,
         phase_s=time.perf_counter() - t0, budget_s=PODSCALE_BUDGET_S)
-    for name in ("S2_resident", "S2_feed"):
+    for name in ("S2_resident", "S2_feed", "S2_guarded"):
         out["round_ms"][name] = [r["round_ms"][-1] for r in out[name]]
     # the per-leaf hashes are held above; the output keeps each run's
     # fingerprint of them
-    for name in [n for n in ("S0", "S1") if n in out]:
-        del out[name]["hashes"]
-    for name in ("S2_resident", "S2_feed"):
+    for name in [n for n in ("S0", "S1", "S1_guarded") if n in out]:
+        del out[name]["hashes"], out[name]["hashes_by_rows"]
+    for name in ("S2_resident", "S2_feed", "S2_guarded"):
         for r in out[name]:
-            del r["hashes"]
+            del r["hashes"], r["hashes_by_rows"]
     # rank 0's launches over its rounds (the kernels line's
     # launches_by_path); each rank's a round are checked above
     out["launches"] = {c: sum(l[c] for l in out["S2_resident"][0]["launches"])
                        for c in want}
     out["tree_launches"] = out["launches"]
+    g = {c: sum(l[c] for l in out["S2_guarded"][0]["launches"])
+         for c in want}
+    out["guarded"] = dict(launches=g, tree_launches=g)
     log(f"podscale phase: {out['phase_s']:.1f} s (budget "
-        f"{PODSCALE_BUDGET_S}); backend {out['backend']}; S=2 resident and "
-        "feed bitwise the S=1 twin on every rank; a rank a round: ragged "
-        f"{out['launches_per_round_a_rank']}, collectives "
-        f"{out['collectives_per_round']}; cohort_allreduce_bytes "
+        f"{PODSCALE_BUDGET_S}); backend {out['backend']}; S=2 resident, "
+        "feed and guarded (gauss attack) bitwise the S=1 twin on every "
+        "rank's own client rows, the ranks' rows covering the 100 once; a "
+        f"rank a round: ragged {out['launches_per_round_a_rank']}, seam "
+        f"collectives {out['collectives_per_round']}, exchange "
+        f"{out['exchange']} (count and bytes a round), guards' norm gather "
+        f"{out['norm_gather']}; attackers and rejected a round (S1 "
+        f"guarded) {out['guard_counts']}; cohort_allreduce_bytes "
         f"{out['cohort_allreduce_bytes']:.0f}, cohort_gather_bytes "
-        f"{out['cohort_gather_bytes']:.0f}; round ms {out['round_ms']} "
-        "(two ranks share one card: no multi-card speed); cli "
-        f"{out['cli']['s']:.1f} s, rank 0's checkpoints "
+        f"{out['cohort_gather_bytes']:.0f}; memory (MiB) {memory}; round ms "
+        f"{out['round_ms']} (two ranks share one card: no multi-card "
+        f"speed); cli {out['cli']['s']:.1f} s, rank 0's checkpoints "
         f"{out['cli']['rank0_ckpts']}, rank 1 wrote {out['cli']['rank1_files']}")
     if out["phase_s"] > PODSCALE_BUDGET_S:
         log(json.dumps(out))
@@ -6501,7 +6620,8 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
                  ("fusion_cnn_cifar", fusion["cnn_cifar"]),
                  ("cli_fused", cli_out["fused"]),
                  ("moe_transformer", moe), ("cli_moe", moe["cli"]),
-                 ("podscale_S2_rank0", podscale))
+                 ("podscale_S2_rank0", podscale),
+                 ("podscale_S2_guarded_rank0", podscale["guarded"]))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]

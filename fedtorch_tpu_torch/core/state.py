@@ -4,12 +4,15 @@ Port of ``fedtorch_tpu/core/state.py``. A parameter tree is a flat
 ``dict[str, Tensor]`` keyed by the model's ``state_dict`` names; the
 JAX package's pytrees map onto it leaf by leaf (``bridge.py``).
 
-* :class:`ClientState` — every tensor has a leading ``[C]`` client axis
-  and lives on the device: all clients' params and both momentum
-  buffers (~330 MB at ResNet-20 x 100 clients). The round writes the
-  online clients' rows back in place instead of rebuilding the [C]
-  tensors as the JAX package's ``.at[idx].set`` does, which saves one
-  copy of the whole client state per round.
+* :class:`ClientState` — every tensor has a leading client axis and
+  lives on the device: the clients' params and both momentum buffers
+  (~330 MB at ResNet-20 x 100 clients). On several ranks the params,
+  optimizer and aux trees hold this rank's ``C_pad/W`` rows of the
+  padded client axis (``parallel/mesh.py`` ``owned_client_rows``) and
+  ``epoch``/``local_index`` every client's. The round writes the online
+  clients' rows back in place instead of rebuilding the tensors as the
+  JAX package's ``.at[idx].set`` does, which saves one copy of the whole
+  client state per round.
 * :class:`ServerState` — the aggregated model, its optimizer state, the
   algorithm's server aux, the round counter and the ``torch.Generator``
   the round plans are drawn from.
@@ -24,7 +27,9 @@ Tree = Dict[str, torch.Tensor]
 
 
 class ClientState(NamedTuple):
-    """Per-client state; every tensor has leading axis [C]."""
+    """Per-client state; every tensor has a leading client axis: [C],
+    or this rank's rows of the padded axis for the three trees on
+    several ranks (module docstring)."""
     params: Any        # dict name -> [C, ...] working model copies
     opt: Any           # optimizer state (SGDState/AdamState of [C] dicts)
     aux: Any           # algorithm aux (() for fedavg/fedprox/fedadam)
@@ -109,6 +114,14 @@ def tree_leaves(tree) -> list:
     tree_map(lambda x: out.append(x) if isinstance(x, torch.Tensor)
              else None, tree)
     return out
+
+
+def tree_fill(tree, values):
+    """``tree`` with its tensor leaves replaced, in :func:`tree_leaves`'
+    order, by the tensors of the iterable ``values``."""
+    it = iter(values)
+    return tree_map(lambda x: next(it) if isinstance(x, torch.Tensor)
+                    else x, tree)
 
 
 def tree_sub(a: Tree, b: Tree) -> Tree:

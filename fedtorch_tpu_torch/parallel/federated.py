@@ -107,16 +107,27 @@ through its commit seam.
 
 Pod-scale client sharding (``mesh.client_shards`` S, the JAX package's
 ``federated.py:341-371``; ``parallel/podscale.py``, ``parallel/mesh.py``):
-one process a rank, each holding the whole replicated server and client
-state. Every rank draws the whole :class:`RoundPlan` from the server's
+one process a rank, each holding the whole replicated server state and
+its own rows of the client state (the params, optimizer and aux trees)
+and, on the device data plane, of the population, placed as the JAX
+package's ``client_sharding`` places them (``parallel/mesh.py``
+``owned_client_rows``: ``C_pad/W`` contiguous rows a rank of W, whatever
+S); the per-client ``epoch`` and ``local_index`` ([C]) stay replicated.
+Every rank draws the whole :class:`RoundPlan` from the server's
 generator (so every draw is S-invariant) and runs only its contiguous
 block of the cohort's rows through the local loops (the stream plane's
-producer packs only those rows); the aggregation seam's grouped sum,
+producer packs only those rows). Before the loops one exchange
+(``podscale.exchange_rows``, an ``all_to_all_single`` over every rank)
+brings the block's optimizer and aux rows, and on the device plane its
+data rows, from the ranks that own them. With the guards on, each
+rank's ``[k/S]`` update norms are gathered before the screen
+(``podscale.gather_row_stats``). The aggregation seam's grouped sum,
 whose association depends on k alone, issues the round's one
 ``all_gather``, which also brings every rank the per-client rows the
 replicated rest of the round reads (metrics, client state, DP clip
-flags). S = 1 (armed) runs the same sum with no collective, the twin the
-sharded rounds are bitwise equal to. On the stream plane a producer that
+flags); each rank writes back the rows it owns. S = 1 (armed) runs the
+same sum with no collective, the twin the sharded rounds are bitwise
+equal to. On the stream plane a producer that
 died (its gather exhausted the ``stream.gather`` retries, it wedged past
 ``stream_timeout_s``, or it desynced) is rebuilt from the live
 (generator, round) up to ``fault.host_retry_max`` times a pop
@@ -148,7 +159,8 @@ from fedtorch_tpu_torch.core.losses import (
 from fedtorch_tpu_torch.core.schedule import compile_schedule, lr_at
 from fedtorch_tpu_torch.core.state import (
     ClientState, RoundMetrics, ServerState, tree_broadcast_clients,
-    tree_bytes, tree_map, tree_put, tree_stack, tree_sub, tree_take,
+    tree_bytes, tree_fill, tree_leaves, tree_map, tree_put, tree_stack,
+    tree_sub, tree_take,
 )
 from fedtorch_tpu_torch.data.batching import ClientData, round_row_plan
 from fedtorch_tpu_torch.data.streaming import (
@@ -159,10 +171,13 @@ from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
 from fedtorch_tpu_torch.parallel.fusion import resolve_client_fusion
 from fedtorch_tpu_torch.parallel.mesh import (
-    cohort_sharding, make_mesh, mesh_client_shards, world_size,
+    client_owner, cohort_sharding, make_mesh, mesh_client_shards,
+    owned_client_rows, rank, world_size,
 )
 from fedtorch_tpu_torch.parallel.podscale import (
-    cohort_allreduce_bytes, cohort_hierarchical_sum, gathered_bytes,
+    bytes_as_rows, cohort_allreduce_bytes, cohort_hierarchical_sum,
+    exchange_rows, gather_row_stats, gathered_bytes, row_bytes,
+    rows_as_bytes,
 )
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
@@ -423,6 +438,16 @@ class FederatedTrainer:
         # gauges
         self._allreduce_bytes: Optional[float] = None
         self._gather_bytes: Optional[float] = None
+        # the client state (and on the device plane the population)
+        # sharded over the ranks by the JAX package's placement
+        # (parallel/mesh.py): this rank's [lo, hi) of the padded client
+        # axis; the exchange's and the guards' norm gather's bytes a
+        # round (set by the first round that issues them)
+        self.state_sharded = self.mesh_devices > 1
+        self.client_rows = owned_client_rows(data.num_clients)
+        self._exchange_bytes: Optional[float] = None
+        self._norm_bytes: Optional[float] = None
+        self._client_state_bytes = 0
         self.participation_mode = cfg.federated.participation_mode
         self.epoch_sync = cfg.federated.sync_type == "epoch"
         if self.epoch_sync:
@@ -478,7 +503,7 @@ class FederatedTrainer:
             self.data = self.val_data = None
         else:
             self.host_store = None
-            self.data = data.to(self.device)
+            self.data = self._owned_population(data).to(self.device)
             self.val_data = val_data.to(self.device) \
                 if val_data is not None else None
         self.feed_layout = feed_layout(algorithm)
@@ -489,6 +514,16 @@ class FederatedTrainer:
         self._stream: Optional[StreamFeedProducer] = None
         self._stream_finalizer = None
         self._stream_rebuilds = 0
+
+    def _owned_population(self, data: ClientData) -> ClientData:
+        """This rank's clients of the population: the real rows of its
+        ``[lo, hi)`` (the pad rows are never read, so not held); all of
+        them unsharded."""
+        if not self.state_sharded:
+            return data
+        lo, hi = self.client_rows
+        hi = min(hi, data.num_clients)
+        return ClientData(*(t[lo:hi] for t in data))
 
     @staticmethod
     def _open_store(cfg, data: ClientData):
@@ -516,7 +551,11 @@ class FederatedTrainer:
     def init_state(self, rng):
         """Fresh (server, clients). ``rng`` is a ``torch.Generator`` or
         an int seed; the server keeps the generator and draws the round
-        plans from it."""
+        plans from it. The clients' params, optimizer and aux trees hold
+        this rank's rows of the padded client axis (``client_rows``:
+        every client on one rank); ``epoch`` and ``local_index`` (8 B a
+        client) hold every client's on every rank, so the round's mean
+        epoch is the one-rank twin's, bit for bit."""
         gen = rng if isinstance(rng, torch.Generator) \
             else torch.Generator().manual_seed(int(rng))
         params = self.model.init(gen)
@@ -539,8 +578,12 @@ class FederatedTrainer:
         server = ServerState(
             params=params, opt=optim.init_opt_state(params, ocfg),
             aux=aux, round=0, rng=gen)
+        # the params, optimizer and aux trees: this rank's C_pad/W rows
+        # of the padded client axis (all C unsharded); epoch and
+        # local_index: every client's, replicated
         C = self.num_clients
-        cparams = tree_broadcast_clients(params, C)
+        lo, hi = self.client_rows
+        cparams = tree_broadcast_clients(params, hi - lo)
         copt = optim.init_client_opt_state(cparams, ocfg)
         clients = ClientState(
             params=cparams, opt=copt,
@@ -548,6 +591,8 @@ class FederatedTrainer:
             epoch=torch.zeros(C, device=self.device),
             local_index=torch.zeros(C, dtype=torch.int32,
                                     device=self.device))
+        self._client_state_bytes = sum(
+            t.numel() * t.element_size() for t in tree_leaves(clients))
         return server, clients
 
     def plan_drawer(self) -> PlanDrawer:
@@ -598,7 +643,12 @@ class FederatedTrainer:
 
     def gather_resident(self, plan: RoundPlan):
         """This rank's rows of the plan from the population on the
-        device: (x, y, pre_x, pre_y, shards) for :meth:`_round_core`."""
+        device: (x, y, pre_x, pre_y, shards) for :meth:`_round_core`.
+        With the population sharded over the ranks all five are None:
+        the rows come with the round's exchange
+        (:meth:`_cohort_block`)."""
+        if self.state_sharded:
+            return None, None, None, None, None
         data, dev = self.data, self.device
         lo, hi = self.cohort_rows(plan.idx.shape[0])
         idx = plan.idx[lo:hi].to(torch.int64)
@@ -737,9 +787,15 @@ class FederatedTrainer:
         lo, hi = self.cohort_rows(k)
         mine = idx[lo:hi]
 
+        # this rank's block of the cohort's optimizer and aux rows (and,
+        # the population sharded, its data rows): the round's one
+        # exchange
+        block_opt, on_aux, block_xy = self._cohort_block(
+            clients, plan, lo, hi, with_data=x is None)
+        if block_xy is not None:
+            x, y = block_xy
         # the cross-client hook on the dispatched clients' gathered aux
         # and first B storage rows
-        on_aux = tree_take(clients.aux, mine.to(dev))
         if self._pre_round:
             on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
                                   for c in idx.tolist()])
@@ -763,7 +819,8 @@ class FederatedTrainer:
                 plan = plan._replace(drop_keys=plan.drop_keys[lo:hi])
             (stacked, wire_deltas, client_opts, client_aux, epochs,
              local_index, losses, accs, kept) = self._client_loops(
-                server, clients, plan, mine, x, y, on_aux, weights[lo:hi],
+                server, clients, plan, mine, x, y, block_opt, on_aux,
+                weights[lo:hi],
                 budgets[lo:hi], shards,
                 None if base_params is None else base_params[lo:hi],
                 None if base_aux is None else base_aux[lo:hi],
@@ -777,7 +834,7 @@ class FederatedTrainer:
                 wire_deltas, stacked = chaos.apply_byzantine(
                     chaos.ChaosPlan(*(t[lo:hi].to(dev) for t in cplan)),
                     wire_deltas, stacked, weights[lo:hi], flt,
-                    seed=plan.byz_seed, noise=plan.noise)
+                    seed=plan.byz_seed, noise=plan.noise, rows=(lo, hi, k))
             nan_dev = cplan.nan_inject[lo:hi].to(dev) \
                 if flt.nan_inject_rate > 0.0 else None
             if nan_dev is not None and wire_deltas is not None:
@@ -838,7 +895,8 @@ class FederatedTrainer:
             # the clients that keep their round leave holding the
             # aggregated server model (model_server =
             # deepcopy(model_client), fedavg.py:97); a crashed or
-            # dropped-out client's rows are not written
+            # dropped-out client's rows are not written, and a rank
+            # writes the state trees' rows it holds only
             js = [j for j in range(k) if keep[j]]
             if js:
                 whole = len(js) == k
@@ -847,10 +905,23 @@ class FederatedTrainer:
 
                 def kept_rows(tree):
                     return tree if whole else tree_take(tree, sel)
-                for n, p in clients.params.items():
-                    p[rows_keep] = new_params[n]
-                tree_put(clients.opt, rows_keep, kept_rows(client_opts))
-                tree_put(clients.aux, rows_keep, kept_rows(client_aux))
+                c_lo, c_hi = self.client_rows
+                # lint: disable=FTL001 — the plan's ids lie on the host
+                ids = idx.tolist()
+                own = [j for j in js if c_lo <= ids[j] < c_hi]
+                # lint: disable=FTL005 — a host list of cohort positions
+                if own:
+                    every = len(own) == k
+                    local = (rows_dev if every else idx[own].to(dev)) - c_lo
+                    sel_own = None if every \
+                        else torch.tensor(own, device=dev)
+
+                    def own_rows(tree):
+                        return tree if every else tree_take(tree, sel_own)
+                    for n, p in clients.params.items():
+                        p[local] = new_params[n]
+                    tree_put(clients.opt, local, own_rows(client_opts))
+                    tree_put(clients.aux, local, own_rows(client_aux))
                 clients.epoch[rows_keep] = kept_rows(epochs)
                 clients.local_index[rows_keep] = kept_rows(local_index)
 
@@ -873,6 +944,77 @@ class FederatedTrainer:
             new_server = new_server._replace(
                 aux={"alg": new_server.aux, **extras})
         return new_server, clients, metrics
+
+    def _cohort_block(self, clients: ClientState, plan: RoundPlan,
+                      lo: int, hi: int, with_data: bool):
+        """This rank's block ``[lo, hi)`` of the cohort: each client's
+        optimizer rows (a list of trees), the clients' stacked aux rows
+        and, ``with_data``, the ``(x, y)`` rows of their plan (None
+        without). Unsharded they are read off the state (each client's
+        optimizer rows a view: a stacked copy would hold k clients'
+        optimizer state twice) and the caller's rows. Sharded, one
+        exchange brings each
+        row from the rank that owns it (``podscale.exchange_rows``):
+        every rank takes part, each sending the rows it owns of every
+        rank's block. A client's data travels as its plan's K*B rows, or
+        as its whole shard where that is fewer rows (``n_max`` <= K*B)
+        and is indexed by the plan on arrival."""
+        idx, dev = plan.idx.to(torch.int64), self.device
+        if not self.state_sharded:
+            # lint: disable=FTL001 — the plan's ids lie on the host
+            mine = idx[lo:hi].tolist()
+            return [tree_take(clients.opt, c) for c in mine], \
+                tree_take(clients.aux, idx[lo:hi].to(dev)), None
+        if self._pre_round or self.algorithm.needs_full_loss:
+            raise ValueError(
+                f"{self.algorithm.name} reads the population outside the "
+                "round's exchange (validate_cell refuses it on several "
+                "ranks)")
+        W, S, k = self.mesh_devices, self.client_shards, idx.shape[0]
+        # lint: disable=FTL001 — the plan's ids lie on the host
+        ids = idx.tolist()
+        owner = [client_owner(c, self.num_clients, W) for c in ids]
+        # rank r runs the block of its shard s = r // (W/S) (row-major
+        # [S, W/S] mesh); every rank of a shard wants the same rows
+        per, reps = k // S, W // S
+        want = [list(range((r // reps) * per, (r // reps + 1) * per))
+                for r in range(W)]
+        trees = (clients.opt, clients.aux)
+        leaves = [t for tree in trees for t in tree_leaves(tree)]
+        likes = [(t.shape[1:], t.dtype) for t in leaves]
+        whole = with_data and self.data.n_max <= plan.rows.shape[1]
+        if with_data:
+            n = self.data.n_max if whole else plan.rows.shape[1]
+            likes += [((n,) + tuple(t.shape[2:]), t.dtype)
+                      for t in (self.data.x, self.data.y)]
+        c_lo = self.client_rows[0]
+
+        def pack(keys):
+            loc = torch.tensor([ids[j] - c_lo for j in keys],
+                               dtype=torch.int64, device=dev)
+            rows = [t[loc] for t in leaves]
+            if whole:
+                rows += [self.data.x[loc], self.data.y[loc]]
+            elif with_data:
+                r = plan.rows[keys].to(dev)
+                rows += [self.data.x[loc[:, None], r],
+                         self.data.y[loc[:, None], r]]
+            return rows_as_bytes(rows, len(keys))
+
+        before = gathered_bytes("exchange")
+        block = iter(bytes_as_rows(exchange_rows(
+            pack, row_bytes(likes), want, owner, rank(), W, dev), likes))
+        self._exchange_bytes = float(gathered_bytes("exchange") - before)
+        opt, aux = (tree_fill(tree, block) for tree in trees)
+        opt = [tree_take(opt, j) for j in range(hi - lo)]
+        if not with_data:
+            return opt, aux, None
+        x, y = next(block), next(block)
+        if whole:
+            on = torch.arange(hi - lo, device=dev)[:, None]
+            r = plan.rows[lo:hi].to(dev)
+            x, y = x[on, r], y[on, r]
+        return opt, aux, (x, y)
 
     def _step_budget(self, size: int, scale: float) -> int:
         """A client's local steps this round: ``K``, or under epoch sync
@@ -979,12 +1121,14 @@ class FederatedTrainer:
         return (payloads, deltas if self.guard_on else None, opt, aux,
                 epoch, li, losses, accs, kept)
 
-    def _client_loops(self, server, clients, plan, idx, x, y, on_aux,
-                      weights, budgets, shards, base_params, base_aux,
-                      draws, vrows):
+    def _client_loops(self, server, clients, plan, idx, x, y, block_opt,
+                      on_aux, weights, budgets, shards, base_params,
+                      base_aux, draws, vrows):
         """The dispatched clients' local loops, one client after another
         (the 'vmap' execution): each client's ``budgets[j]`` steps
-        through ``alg.local_step``, then its payload. Returns the stacked
+        through ``alg.local_step`` from its optimizer rows
+        ``block_opt[j]`` and aux row of ``on_aux``, then its payload.
+        Returns the stacked
         payloads, the stacked raw deltas (guards on, else None), the
         stacked optimizer state and aux, the round-end epochs and local
         indices [k], the mean loss and accuracy over the steps taken [k]
@@ -1010,7 +1154,7 @@ class FederatedTrainer:
                 vx = self.val_data.x[c][vrows[j]]
                 vy = self.val_data.y[c][vrows[j]]
             params, aux = base_p, tree_take(on_aux, j)
-            opt = tree_take(clients.opt, c)
+            opt = block_opt[j]
             epoch, li = clients.epoch[c], clients.local_index[c]
             # a recurrent model's hidden state: fresh each round, carried
             # through this client's steps
@@ -1160,15 +1304,29 @@ class FederatedTrainer:
         Under client sharding ``stacked`` holds this rank's rows of the
         cohort (``weights`` and ``survive`` stay [k']), and ``riders``, a
         dict of per-client trees of those rows, rides the seam's one
-        gather: its entries are replaced in place by all k' rows."""
+        gather: its entries are replaced in place by all k' rows. The
+        guards' screen gathers the whole cohort's update norms first
+        (``podscale.gather_row_stats``)."""
         k = weights.shape[0]
         lo, hi = self.cohort_rows(k)
         counts = torch.zeros(4, device=weights.device)
         accept = None
         if self.guard_on:
+            gather = None
+            if self.client_shards > 1:
+                # the median is over the whole cohort's norms: each
+                # rank's [k/S] come to every rank of its shard group
+                def gather(norms, finite):
+                    before = gathered_bytes("norms")
+                    out = gather_row_stats(norms, finite, self.mesh,
+                                           self.client_shards)
+                    self._norm_bytes = float(gathered_bytes("norms")
+                                             - before)
+                    return out
             stacked, report = screen_payloads(
                 wire_deltas, stacked, survive if survive is not None
-                else torch.ones(k, device=weights.device), self.fault)
+                else torch.ones(k, device=weights.device), self.fault,
+                rows=(lo, hi), gather=gather)
             accept = report.accept
             counts[0], counts[1] = report.rejected, report.clipped
         elif survive is not None:
@@ -1469,11 +1627,22 @@ class FederatedTrainer:
         if self.podscale_armed:
             # the shard count, the [G, P] bytes of the seam's gather and
             # the bytes of its whole buffer a round (both absent before
-            # the first round)
+            # the first round); the bytes this rank holds of the client
+            # state and of the population (device plane); the bytes the
+            # exchange and the guards' norm gather brought it a round
+            # (absent until one ran)
             out["client_shards"] = float(self.client_shards)
             if self._allreduce_bytes is not None:
                 out["cohort_allreduce_bytes"] = self._allreduce_bytes
                 out["cohort_gather_bytes"] = self._gather_bytes
+            out["client_state_bytes"] = float(self._client_state_bytes)
+            out["population_bytes"] = float(sum(
+                t.numel() * t.element_size() for t in self.data)) \
+                if self.data is not None else 0.0
+            if self._exchange_bytes is not None:
+                out["client_exchange_bytes"] = self._exchange_bytes
+            if self._norm_bytes is not None:
+                out["guard_norm_gather_bytes"] = self._norm_bytes
         return out
 
     def staleness_histogram(self) -> Optional[dict]:

@@ -20,11 +20,18 @@ choice is printed, and it never changes because a call failed.
 **Where the rows live.** The JAX package places arrays with shardings;
 here each rank holds tensors:
 
-* the ``[C]`` client state: every row on every rank. The state is
-  replicated (the JAX package shards it), and the rows a round's cohort
-  updates reach every rank through the round's one gather
-  (``parallel/podscale.py``), so a rank's memory does not shrink as S
-  grows;
+* the ``[C]`` client state (the params, optimizer and aux trees) and,
+  on the device data plane, the ``[C, n_max, ...]`` population: sharded
+  over every rank as the JAX package's ``client_sharding`` places them.
+  The client axis is padded to ``C_pad``, the smallest multiple of the
+  rank count W (:func:`padded_client_count`), and rank r holds rows
+  ``[r*C_pad/W, (r+1)*C_pad/W)`` (:func:`owned_client_rows`): the
+  row-major flattening of the ``[S, W/S]`` mesh, so a rank's rows do not
+  depend on S and a checkpoint re-slices at any S. Pad rows are never
+  sampled. A round's cohort rows reach the ranks that run them through
+  one exchange (``parallel/podscale.py`` :func:`~fedtorch_tpu_torch.
+  parallel.podscale.exchange_rows`); the per-client scalars ``epoch``
+  and ``local_index`` ([C], 8 B a client) stay replicated;
 * the ``[k]`` cohort (:func:`cohort_sharding`): the contiguous block
   ``[s*k/S, (s+1)*k/S)`` of the rank's shard s; its local loops, its
   feed rows and its level-1 partials;
@@ -190,8 +197,9 @@ def make_mesh(cfg: MeshConfig):
     axis_name + '_rep')`` for ``cfg.client_shards`` S >= 1 (S = 1 keeps
     the 2-D layout of its S-shard siblings), else 1-D over every rank.
     None in a single process at S <= 1, which needs no process group.
-    The port's client state is replicated, so the client count does
-    not constrain the mesh."""
+    The client axis is padded to the rank count
+    (:func:`padded_client_count`), so the client count does not
+    constrain the mesh."""
     n = world_size()
     if cfg.num_devices is not None and cfg.num_devices != n:
         raise ValueError(
@@ -213,6 +221,31 @@ def make_mesh(cfg: MeshConfig):
     if n == 1:
         return None
     return _device_mesh((n,), (cfg.axis_name,))
+
+
+def padded_client_count(num_clients: int, world: int) -> int:
+    """``C_pad``: the smallest multiple of the rank count ``world`` that
+    holds ``num_clients`` (the JAX package's ``padded_client_count``)."""
+    return -(-num_clients // world) * world
+
+
+def owned_client_rows(num_clients: int, world: Optional[int] = None,
+                      rank_: Optional[int] = None):
+    """``[lo, hi)``: the rows of the padded ``[C_pad]`` client axis that
+    rank ``rank_`` of ``world`` holds (by default this process in the
+    default process group): ``C_pad/W`` contiguous rows in rank order.
+    Rows at or past ``num_clients`` are padding."""
+    world = world_size() if world is None else world
+    rank_ = rank() if rank_ is None else rank_
+    per = padded_client_count(num_clients, world) // world
+    return rank_ * per, (rank_ + 1) * per
+
+
+def client_owner(client: int, num_clients: int,
+                 world: Optional[int] = None) -> int:
+    """The rank that holds client ``client``'s rows."""
+    world = world_size() if world is None else world
+    return client // (padded_client_count(num_clients, world) // world)
 
 
 def mesh_client_shards(mesh) -> int:
@@ -240,6 +273,7 @@ def cohort_sharding(mesh, k: int):
     return local_cohort_rows(mesh, k, mesh_client_shards(mesh))
 
 
-__all__ = ["choose_backend", "cohort_sharding", "init_multihost",
-           "local_cohort_rows", "make_mesh", "mesh_client_shards", "rank",
-           "ranks_on_host", "world_size"]
+__all__ = ["choose_backend", "client_owner", "cohort_sharding",
+           "init_multihost", "local_cohort_rows", "make_mesh",
+           "mesh_client_shards", "owned_client_rows", "padded_client_count",
+           "rank", "ranks_on_host", "world_size"]

@@ -35,6 +35,22 @@ integer leaves' rows and the per-client rows the caller names). The
 gather is staged through a pinned host buffer when the process group is
 gloo and the rows lie on a card (gloo's all-gather takes host tensors);
 NCCL gathers on the card.
+
+Two more collectives carry what GSPMD moves for the JAX package, each
+with a counter and a byte count of its own (the JAX
+``collective_budget``, and so :func:`collective_count`, counts the
+seam's gather alone):
+
+* **the exchange** (:func:`exchange_rows`): the client state and, on the
+  device data plane, the population are sharded over the ranks
+  (``parallel/mesh.py`` :func:`~fedtorch_tpu_torch.parallel.mesh.
+  owned_client_rows`), so once a round, before the local loops, one
+  ``all_to_all_single`` over every rank brings each rank its cohort
+  block's rows from their owners;
+* **the guards' norm gather** (:func:`gather_row_stats`): the update
+  guards take the median over the whole cohort's update norms, so each
+  rank's ``[k/S]`` norms and candidate flags are gathered to every rank
+  of its shard group before the screen.
 """
 from __future__ import annotations
 
@@ -43,33 +59,42 @@ import math
 import numpy as np
 import torch
 
-from fedtorch_tpu_torch.core.state import tree_leaves, tree_map
+from fedtorch_tpu_torch.core.state import tree_fill, tree_leaves
 
 # cap on the group count: bounds the level-2 chain while leaving every
 # shard count up to 64 a whole number of groups per shard
 MAX_AGG_GROUPS = 64
 
-# the all_gathers :func:`cohort_hierarchical_sum` has issued and the
-# bytes they brought this rank (the tests, the chip check and the
-# trainer's ``cohort_gather_bytes`` gauge read them)
-_gathers = 0
-_gathered_bytes = 0
+# [collectives, bytes] this rank has issued and received, by kind:
+# 'seam' the all_gathers of :func:`cohort_hierarchical_sum` (the tests,
+# the chip check and the trainer's ``cohort_gather_bytes`` gauge read
+# them), 'exchange' :func:`exchange_rows`, 'norms'
+# :func:`gather_row_stats`
+_COUNTS = {"seam": [0, 0], "exchange": [0, 0], "norms": [0, 0]}
 
 
 def reset_collective_count() -> None:
-    global _gathers, _gathered_bytes
-    _gathers = 0
-    _gathered_bytes = 0
+    for c in _COUNTS.values():
+        c[0] = c[1] = 0
 
 
-def collective_count() -> int:
-    return _gathers
+def collective_count(kind: str = "seam") -> int:
+    """Collectives of ``kind`` issued since the last reset: by default
+    the seam's gathers, the count the JAX ``collective_budget`` gives."""
+    return _COUNTS[kind][0]
 
 
-def gathered_bytes() -> int:
-    """Bytes of the whole ``[S, n]`` buffers the gathers brought this
-    rank: the partials and every rider, this rank's own rows included."""
-    return _gathered_bytes
+def gathered_bytes(kind: str = "seam") -> int:
+    """Bytes the collectives of ``kind`` brought this rank. The seam's:
+    the whole ``[S, n]`` buffers, the partials and every rider, this
+    rank's own rows included; the exchange's: the rows that came from
+    other ranks; the norm gather's: the whole ``[S, n]`` buffers."""
+    return _COUNTS[kind][1]
+
+
+def _count(kind: str, nbytes: int) -> None:
+    _COUNTS[kind][0] += 1
+    _COUNTS[kind][1] += int(nbytes)
 
 
 def cohort_group_count(k: int) -> int:
@@ -97,13 +122,6 @@ def _group_partials(flat: torch.Tensor, groups: int) -> torch.Tensor:
     for j in range(1, per):
         acc = acc + xg[:, j]
     return acc
-
-
-def _rebuild(tree, values):
-    """``tree`` with its tensor leaves replaced by ``values`` in order."""
-    it = iter(values)
-    return tree_map(lambda x: next(it) if isinstance(x, torch.Tensor)
-                    else x, tree)
 
 
 def cohort_allreduce_bytes(payloads, k: int) -> float:
@@ -140,25 +158,121 @@ def _from_bytes(b: torch.Tensor, like: torch.Tensor, lead: int):
     return b.view(like.dtype).reshape(shape)
 
 
-def _all_gather_bytes(buf: torch.Tensor, group, shards: int
-                      ) -> torch.Tensor:
-    """[n] uint8 on this rank -> [shards, n] uint8, rank order along the
-    group: one ``all_gather``. A gloo group takes host tensors, so rows
-    on a card are staged through a pinned host buffer and copied back."""
+def host_staged(buf: torch.Tensor, group) -> torch.Tensor:
+    """``buf`` where the group's collectives take it: a gloo group takes
+    host tensors, so rows on a card are copied into a pinned host
+    buffer."""
     import torch.distributed as dist
-    stage = buf.device.type == "cuda" \
-        and dist.get_backend(group) == dist.Backend.GLOO
-    src = buf
-    if stage:
+    if buf.device.type == "cuda" \
+            and dist.get_backend(group) == dist.Backend.GLOO:
         src = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
         src.copy_(buf)
+        return src
+    return buf
+
+
+def _all_gather_bytes(buf: torch.Tensor, group, shards: int,
+                      kind: str = "seam") -> torch.Tensor:
+    """[n] uint8 on this rank -> [shards, n] uint8, rank order along the
+    group: one ``all_gather`` (staged through host memory on gloo,
+    :func:`host_staged`), counted under ``kind``."""
+    import torch.distributed as dist
+    src = host_staged(buf, group)
     out = torch.empty((shards,) + tuple(src.shape), dtype=torch.uint8,
                       device=src.device)
     dist.all_gather(list(out.unbind(0)), src, group=group)
-    global _gathers, _gathered_bytes
-    _gathers += 1
-    _gathered_bytes += out.numel()
-    return out.to(buf.device) if stage else out
+    _count(kind, out.numel())
+    return out.to(buf.device)
+
+
+def rows_as_bytes(tensors, n: int) -> torch.Tensor:
+    """Tensors of ``n`` leading rows -> ``[n, row_bytes]`` uint8, each
+    row the concatenation of every tensor's row bytes."""
+    parts = []
+    for t in tensors:
+        t = t.contiguous()
+        if t.dtype == torch.bool:
+            t = t.to(torch.uint8)
+        parts.append(t.reshape(n, math.prod(t.shape[1:])).view(torch.uint8))
+    return torch.cat(parts, dim=1) if parts \
+        else torch.empty((n, 0), dtype=torch.uint8)
+
+
+def row_bytes(likes) -> int:
+    """Bytes of one row of :func:`rows_as_bytes` over tensors of the
+    ``(row_shape, dtype)`` of ``likes`` (a bool as one byte)."""
+    return sum(math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+               for shape, dtype in likes)
+
+
+def bytes_as_rows(rows: torch.Tensor, likes) -> list:
+    """The inverse of :func:`rows_as_bytes`: ``[n, row_bytes]`` uint8 ->
+    one tensor a ``(row_shape, dtype)`` of ``likes``, ``n`` rows each."""
+    n, out, off = rows.shape[0], [], 0
+    for shape, dtype in likes:
+        width = row_bytes([(shape, dtype)])
+        # a fresh copy: a column slice is neither contiguous nor aligned
+        # for ``dtype``
+        b = rows[:, off:off + width].contiguous()
+        t = b.view(torch.uint8 if dtype == torch.bool else dtype)
+        t = t.reshape((n,) + tuple(shape))
+        out.append(t.to(torch.bool) if dtype == torch.bool else t)
+        off += width
+    return out
+
+
+def gather_row_stats(norms: torch.Tensor, flags: torch.Tensor, mesh,
+                     shards: int):
+    """This rank's ``[k/S]`` float32 ``norms`` and bool ``flags`` ->
+    the whole cohort's ``[k]`` of each, in cohort order: one
+    ``all_gather`` over mesh dimension 0 (the guards' norm gather,
+    counted under 'norms')."""
+    n = norms.shape[0]
+    buf = rows_as_bytes([norms.to(torch.float32), flags.to(torch.bool)], n)
+    full = _all_gather_bytes(buf.reshape(-1), mesh.get_group(0), shards,
+                             kind="norms")
+    norms_k, flags_k = bytes_as_rows(
+        full.reshape(shards * n, -1), [((), torch.float32),
+                                       ((), torch.bool)])
+    return norms_k, flags_k
+
+
+def exchange_rows(pack, row_bytes: int, want, owner, me: int,
+                  world: int, device) -> torch.Tensor:
+    """Each rank's rows from their owners: one ``all_to_all_single`` over
+    the default process group (counted under 'exchange'; staged through
+    pinned host memory on gloo).
+
+    ``want[r]`` lists the keys (cohort positions) rank r needs, in its
+    order, the same list on every rank; ``owner[key]`` the rank that
+    holds each key's row; ``pack(keys)`` gives this rank's rows of
+    ``keys`` (all its own) as ``[len(keys), row_bytes]`` uint8 on
+    ``device``. Returns ``[len(want[me]), row_bytes]`` uint8 in
+    ``want[me]``'s order. The byte count is of the rows that came from
+    other ranks."""
+    import torch.distributed as dist
+    send_keys = [key for r in range(world) for key in want[r]
+                 if owner[key] == me]
+    send_split = [sum(owner[key] == me for key in want[r]) * row_bytes
+                  for r in range(world)]
+    # what arrives: grouped by the sending rank, each group in want[me]'s
+    # order
+    arrive = [i for o in range(world) for i, key in enumerate(want[me])
+              if owner[key] == o]
+    recv_split = [sum(owner[key] == o for key in want[me]) * row_bytes
+                  for o in range(world)]
+    send = pack(send_keys).reshape(-1) if send_keys \
+        else torch.empty(0, dtype=torch.uint8, device=device)
+    group = dist.group.WORLD
+    src = host_staged(send, group)
+    recv = torch.empty(sum(recv_split), dtype=torch.uint8,
+                       device=src.device)
+    dist.all_to_all_single(recv, src, recv_split, send_split, group=group)
+    _count("exchange", sum(recv_split) - recv_split[me])
+    recv = recv.to(device).reshape(len(arrive), row_bytes)
+    out = torch.empty_like(recv)
+    out[torch.tensor(arrive, dtype=torch.int64, device=device)] = recv
+    return out
 
 
 def cohort_hierarchical_sum(payloads, mesh=None, shards: int = 1,
@@ -226,7 +340,7 @@ def cohort_hierarchical_sum(payloads, mesh=None, shards: int = 1,
             out[i] = rows_of(j, leaves[i]).sum(dim=0,
                                                dtype=leaves[i].dtype)
             j += 1
-        gathered_riders = _rebuild(riders, [
+        gathered_riders = tree_fill(riders, [
             rows_of(j + n, t) for n, t in enumerate(rider_leaves)]) \
             if riders is not None else None
     if float_ix:
@@ -236,10 +350,12 @@ def cohort_hierarchical_sum(payloads, mesh=None, shards: int = 1,
             size = int(math.prod(shape))
             out[i] = summed[off:off + size].reshape(shape)
             off += size
-    total = _rebuild(payloads, out)
+    total = tree_fill(payloads, out)
     return total if riders is None else (total, gathered_riders)
 
 
-__all__ = ["MAX_AGG_GROUPS", "cohort_allreduce_bytes", "cohort_group_count",
-           "cohort_hierarchical_sum", "collective_count", "gathered_bytes",
-           "reset_collective_count"]
+__all__ = ["MAX_AGG_GROUPS", "bytes_as_rows", "cohort_allreduce_bytes",
+           "cohort_group_count", "cohort_hierarchical_sum",
+           "collective_count", "exchange_rows", "gather_row_stats",
+           "gathered_bytes", "host_staged", "reset_collective_count",
+           "row_bytes", "rows_as_bytes"]

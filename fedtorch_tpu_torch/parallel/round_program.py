@@ -19,11 +19,14 @@ JAX package's word for word, but one: the port has no ``gather_mode``
 (its one gather selects the rows of the JAX 'batch' mode), so the JAX
 rule against ``gather_mode='shard'`` has nothing to refuse. Three more
 are the port's own, each for a cross-rank exchange the JAX package
-leaves to GSPMD and the port's one gather does not carry: the update
-guards (their median over the cohort's norms precedes the sum), the
-'gauss' byzantine attack (its noise is drawn over the whole ``[k]``
-stack) and, on more than one rank, ``client_shards`` 0 (the JAX
-package's 1-D multi-device mesh).
+leaves to GSPMD and the port does not make: the 'collude' byzantine
+attack under S > 1 (its crafted update is the honest mean over the
+whole cohort, taken before the wire format); on several ranks at S = 1,
+what the S > 1 rules refuse for reading the whole population or
+cross-client state outside the seam (the client state and the
+population are sharded over the ranks, ``parallel/mesh.py``); and, on
+more than one rank, ``client_shards`` 0 (the JAX package's 1-D
+multi-device mesh).
 
 On the port a "scan" is a host loop over the R rounds (over one feed
 window on the feed source), not a captured graph: the per-client loop
@@ -235,19 +238,27 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
                         "program's hierarchical sum (set "
                         "async_buffer_size to a multiple of the "
                         "shard count)")
-        # the port's own rules (module docstring)
-        if cfg.fault.guard_updates:
-            return ("fault.guard_updates screens each update against the "
-                    "median norm of the whole cohort before the sum, a "
-                    "cross-rank exchange the client-shard seam's one "
-                    "gather does not carry — disable the guards under "
-                    "mesh.client_shards > 1 (ROADMAP A10)")
+        # the port's own rule (module docstring)
         if cfg.fault.byzantine_rate > 0.0 \
-                and cfg.fault.byzantine_mode == "gauss":
-            return ("byzantine_mode='gauss' draws its noise over the "
-                    "whole [k] payload stack, which no rank holds under "
-                    f"mesh.client_shards={shards} — use another "
-                    "byzantine_mode under client sharding (ROADMAP A10)")
+                and cfg.fault.byzantine_mode == "collude":
+            return ("byzantine_mode='collude' crafts the honest mean "
+                    "update over the whole cohort before the wire "
+                    "format, a cross-rank reduction the client-shard "
+                    "seam does not make — use another byzantine_mode "
+                    f"under mesh.client_shards={shards} (ROADMAP A10)")
+    elif shards == 1 and mesh_devices > 1:
+        # the port's own rule (module docstring): the client state and
+        # the population are sharded over the ranks
+        alg_name = cfg.effective_algorithm
+        if alg_name not in ASYNC_ALGORITHMS or has_val \
+                or algorithm.needs_val_batch or cfg.federated.personal:
+            return (f"mesh.client_shards=1 on {mesh_devices} ranks shards "
+                    "the client state and the population over the ranks, "
+                    f"and algorithm {alg_name!r} (or its per-client "
+                    "validation splits) reads them outside the round's "
+                    "exchange — only the FedAvg family "
+                    f"({', '.join(ASYNC_ALGORITHMS)}) without personal "
+                    "splits runs on several ranks (ROADMAP A10)")
 
     # -- execution axis: the JAX package's rules -------------------------
     if execution == "fused" and mesh_devices > 1:

@@ -181,7 +181,7 @@ def leaf_normals(seed: int, shape, device) -> torch.Tensor:
 
 def apply_byzantine(plan: ChaosPlan, deltas, payloads,
                     weights: torch.Tensor, fault, seed: Optional[int] = None,
-                    noise: Optional[dict] = None):
+                    noise: Optional[dict] = None, rows=None):
     """Replace the byzantine clients' uploads with crafted vectors, at the
     wire: ``deltas`` (the updates the guards judge; None when nothing
     judges them) and ``payloads`` (the weighted wire contributions,
@@ -192,7 +192,14 @@ def apply_byzantine(plan: ChaosPlan, deltas, payloads,
     :func:`leaf_normals` from ``seed`` (the delta tree's leaf i at
     ``fold_key(seed, i)``, the payload tree's at ``fold_key(seed,
     PAYLOAD_NOISE_BASE + i)``), or takes it from ``noise``
-    (``{"deltas": {name: normals}, "payloads": {...}}``)."""
+    (``{"deltas": {name: normals}, "payloads": {...}}``).
+
+    Under client sharding the trees, ``plan`` and ``weights`` hold this
+    rank's cohort rows ``[lo, hi)`` of ``k``, ``rows`` = ``(lo, hi,
+    k)``: 'gauss' draws each leaf at the whole stack's ``[k, ...]``
+    shape (and takes the injected ``[k, ...]`` normals), then keeps rows
+    ``[lo, hi)``, so every shard count draws what the unsharded round
+    draws."""
     mode = fault.byzantine_mode
     if mode not in BYZANTINE_MODES:
         raise ValueError(f"unknown byzantine_mode {mode!r}; expected one "
@@ -233,10 +240,13 @@ def apply_byzantine(plan: ChaosPlan, deltas, payloads,
             def draw(name, x):
                 i = counter[0]
                 counter[0] += 1
+                lo, hi, k = rows if rows is not None \
+                    else (0, x.shape[0], x.shape[0])
                 xi = given[name].to(x.device, torch.float32) \
                     if given is not None else \
-                    leaf_normals(fold_key(seed, base + i), x.shape, x.device)
-                v = g * xi
+                    leaf_normals(fold_key(seed, base + i),
+                                 (k,) + tuple(x.shape[1:]), x.device)
+                v = g * xi[lo:hi]
                 return v * mask_bcast(weights, x) if weighted else v
             return tree_map_named(
                 lambda n, x: draw(n, x) if _is_float(x) else x, tree)

@@ -12,6 +12,14 @@ screen the stacked per-client deltas before aggregation.
 The engine renormalizes the aggregation weights over the accepted
 clients (:func:`renormalize_accepted`) and reports the counts in
 ``RoundMetrics``. Everything stays on the device: no host sync.
+
+Under client sharding a rank holds only its ``[k/S]`` rows of the
+deltas: :func:`screen_payloads` takes the gather that brings the whole
+cohort's norms (``parallel/podscale.py`` ``gather_row_stats``), takes
+the median of the ``[k]`` norms as every rank does, and screens its own
+rows. Each row's norm is reduced on its own (:func:`client_delta_stats`),
+so its float association does not depend on how many rows a rank holds
+and S ranks judge as the unsharded twin does, bit for bit.
 """
 from __future__ import annotations
 
@@ -87,9 +95,16 @@ def all_rejected_scalars(sc: dict) -> bool:
         or (sc["n_online"] <= 0 and sc["dropped"] > 0)
 
 
+def _row_square_sums(x: torch.Tensor) -> torch.Tensor:
+    """[n, P] -> [n]: each row's sum of squares, reduced row by row (a
+    batched reduction may split a row's sum by the row count)."""
+    return torch.stack([torch.square(r).sum() for r in x.unbind(0)])
+
+
 def client_delta_stats(deltas) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-client (finite, l2 norm) over a tree of [k]-leading deltas;
-    non-float leaves are left out of the norm."""
+    non-float leaves are left out of the norm. A row's norm depends on
+    that row alone, bit for bit (:func:`_row_square_sums`)."""
     leaves = [x for x in tree_leaves(deltas) if _is_float(x)]
     if not leaves:
         first = tree_leaves(deltas)[0]
@@ -99,18 +114,27 @@ def client_delta_stats(deltas) -> Tuple[torch.Tensor, torch.Tensor]:
     flat = [x.reshape(x.shape[0], -1) for x in leaves]
     finite = torch.stack([torch.isfinite(x).all(dim=1)
                           for x in flat]).all(dim=0)
-    sq = sum(torch.square(x).sum(dim=1) for x in flat)
+    sq = sum(_row_square_sums(x) for x in flat)
     return finite, torch.sqrt(sq)
 
 
-def screen_payloads(deltas, payloads, survive: torch.Tensor, fault):
+def screen_payloads(deltas, payloads, survive: torch.Tensor, fault,
+                    rows=None, gather=None):
     """Screen the round's client updates: ``deltas`` the [k] raw client
     deltas the verdict is judged on, ``payloads`` the [k] wire payloads
     it is applied to, ``survive`` [k] the clients that reported (crashed
     ones stay out of the median). Returns (payloads', GuardReport);
     ``accept`` excludes the crashed clients, so it is the engine's
-    aggregation mask."""
+    aggregation mask.
+
+    Under client sharding ``deltas`` and ``payloads`` hold this rank's
+    cohort rows ``rows`` = ``(lo, hi)`` only, and ``gather(norms,
+    finite)`` brings the whole cohort's ``[k]`` of each: the report is
+    of all k clients, the screened payloads are this rank's rows."""
     finite, norms = client_delta_stats(deltas)
+    if gather is not None:
+        norms, finite = gather(norms, finite)
+    lo, hi = rows if rows is not None else (0, norms.shape[0])
     alive = survive.to(torch.bool)
     candidate = alive & finite
     nan = torch.full_like(norms, float("nan"))
@@ -121,7 +145,7 @@ def screen_payloads(deltas, payloads, survive: torch.Tensor, fault):
     if fault.guard_mode == "clip":
         accept = candidate
         scale = torch.where(exploded, thresh / torch.clamp(norms, min=1e-30),
-                            torch.ones_like(norms))
+                            torch.ones_like(norms))[lo:hi]
         payloads = tree_map(
             lambda x: x * mask_bcast(scale, x).to(x.dtype) if _is_float(x)
             else x, payloads)
@@ -131,8 +155,9 @@ def screen_payloads(deltas, payloads, survive: torch.Tensor, fault):
         clipped = torch.zeros((), dtype=torch.int64, device=norms.device)
     # zero the rejected payloads with a select, not a multiply: 0 * NaN
     # is NaN and would defeat the guard
+    mine = accept[lo:hi]
     payloads = tree_map(
-        lambda x: torch.where(mask_bcast(accept, x), x, torch.zeros_like(x)),
+        lambda x: torch.where(mask_bcast(mine, x), x, torch.zeros_like(x)),
         payloads)
     rejected = alive.sum() - accept.sum()
     return payloads, GuardReport(

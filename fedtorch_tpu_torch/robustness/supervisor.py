@@ -49,7 +49,9 @@ What differs from the JAX package, and why:
   plan on a clone of the generator (``trainer.plan_drawer()``, the
   drawer both data planes use) before the attempt runs; a rollback
   writes every attempt's saved rows back in place (each was taken from
-  the pre-round state, so their order does not matter).
+  the pre-round state, so their order does not matter). With the client
+  state sharded over ranks (``parallel/mesh.py``) a rank saves and
+  restores the rows it holds.
 * **The retry reseed.** JAX folds ``RESEED_SALT + attempt`` into the
   round key. The port's generator is a CPU ``torch.Generator``, so its
   reseed is the port's own deterministic function of the snapshot's
@@ -231,9 +233,13 @@ class RoundSupervisor:
         return plan.idx.to(torch.int64).to(t.device), gen.get_state()
 
     def _save_rows(self, snap: _Snapshot, server, clients) -> torch.Tensor:
-        """Add the rows the attempt on ``server`` will write; returns the
-        generator state the attempt's plan draw leaves."""
+        """Add the rows the attempt on ``server`` will write, of those
+        this rank holds (the trainer's ``client_rows``: every row
+        unsharded), by their local row; returns the generator state the
+        attempt's plan draw leaves."""
         idx, after = self._dispatched(server)
+        lo, hi = self.trainer.client_rows
+        idx = idx[(idx >= lo) & (idx < hi)] - lo
         snap.rows.append((idx, {
             "params": tree_take(clients.params, idx),
             "opt": tree_take(clients.opt, idx),

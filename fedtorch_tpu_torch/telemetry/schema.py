@@ -108,6 +108,21 @@ METRICS_OPTIONAL = {
                            "partials and the per-client rows that ride "
                            "with them (0 at client_shards 1; the port's "
                            "own gauge)",
+    "client_state_bytes": "bytes of the client-state trees this rank "
+                          "holds: its C_pad/W rows of the params, "
+                          "optimizer and aux trees and the replicated "
+                          "[C] epoch and local index (the port's own "
+                          "gauge)",
+    "population_bytes": "bytes of the population this rank holds on "
+                        "the device (its clients' rows; 0 on the "
+                        "stream plane; the port's own gauge)",
+    "client_exchange_bytes": "bytes of the cohort rows the round's "
+                             "exchange brought this rank from their "
+                             "owners (the port's own gauge)",
+    "guard_norm_gather_bytes": "bytes of the buffer the guards' norm "
+                               "gather brings each rank per round "
+                               "(client_shards > 1; the port's own "
+                               "gauge)",
     "stream_shard_rows": "cohort rows THIS host's producer packed "
                          "(its owned shard slices; k/S per shard)",
     "stream_shard_pack_s": "producer wall spent packing this host's "

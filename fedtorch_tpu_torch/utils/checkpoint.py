@@ -44,6 +44,16 @@ Where trouble lies, and what the module does about it:
   memory on the current stream, an event is recorded after the copies
   and waited on (the JAX package's ``_owning_host_copy``); CPU tensors
   are cloned.
+* **Sharded client state.** On several ranks each holds its own rows of
+  the client trees (``parallel/mesh.py`` ``owned_client_rows``). The
+  snapshot is then a collective, as the JAX package's ``_snapshot`` is:
+  every rank calls :func:`save_checkpoint` (and
+  :meth:`AsyncCheckpointer.save`), one ``gather`` brings every rank's
+  rows to rank 0 (:func:`_gather_clients`), and rank 0 alone writes the
+  whole real ``[C]`` state, the padding left out. The file is the same
+  as one process writes: it loads in one process, and a resume on any
+  number of ranks keeps each rank's own rows of it
+  (:func:`_owned_clients`).
 * **Size.** At the ResNet-20 main path the client state is 100 clients
   x (params + 2 momentum buffers) x 272,474 x 4 B ≈ 327 MB; a sync save
   is that copy, one ``torch.save`` into memory, one sha256 pass and one
@@ -70,7 +80,9 @@ import torch
 
 from fedtorch_tpu_torch import telemetry
 from fedtorch_tpu_torch.config import ExperimentConfig
-from fedtorch_tpu_torch.core.state import ClientState, ServerState
+from fedtorch_tpu_torch.core.state import (
+    ClientState, ServerState, tree_fill, tree_leaves,
+)
 from fedtorch_tpu_torch.telemetry import faults as _tel_faults
 
 #: the payload's format tag (the JAX package's payload is flax msgpack)
@@ -186,12 +198,61 @@ def _graft(template, plain, where: str = "", write: bool = True):
     return plain
 
 
-def _snapshot(server: ServerState, clients: ClientState) -> dict:
+_SHARDED = ("params", "opt", "aux")
+
+
+def _gather_clients(clients: ClientState, num_clients: int):
+    """The whole real ``[C]`` client state on rank 0, from every rank's
+    rows of the sharded trees (``params``, ``opt``, ``aux``): one
+    ``gather`` of each rank's rows as raw bytes (staged through pinned
+    host memory on gloo); ``epoch`` and ``local_index`` are replicated
+    and taken as they are. A collective: every rank calls it; None on
+    the other ranks."""
+    import torch.distributed as dist
+    from fedtorch_tpu_torch.parallel.mesh import rank, world_size
+    from fedtorch_tpu_torch.parallel.podscale import (
+        bytes_as_rows, host_staged, rows_as_bytes,
+    )
+    trees = [getattr(clients, f) for f in _SHARDED]
+    leaves = [t for tree in trees for t in tree_leaves(tree)]
+    per = leaves[0].shape[0]
+    with torch.no_grad():
+        buf = host_staged(rows_as_bytes(leaves, per).reshape(-1),
+                          dist.group.WORLD)
+    W = world_size()
+    parts = [torch.empty_like(buf) for _ in range(W)] \
+        if rank() == 0 else None
+    dist.gather(buf, parts, dst=0)
+    if parts is None:
+        return None
+    whole = torch.cat(parts).reshape(W * per, -1)[:num_clients].cpu()
+    it = iter(bytes_as_rows(whole, [(t.shape[1:], t.dtype)
+                                    for t in leaves]))
+    full = {f: tree_fill(tree, it) for f, tree in zip(_SHARDED, trees)}
+    return clients._replace(**full)
+
+
+def _client_state_sharded() -> bool:
+    """Whether the client trees are sharded over ranks: on every
+    multi-rank run (``parallel/mesh.py``)."""
+    from fedtorch_tpu_torch.parallel.mesh import world_size
+    return world_size() > 1
+
+
+def _snapshot(server: ServerState, clients: ClientState,
+              num_clients: Optional[int] = None) -> Optional[dict]:
     """The serializable round state as an OWNING host copy (see the
     module docstring): device tensors copied into pinned host memory on
     the current stream, then an event after the copies is waited on, so
     the next round may rewrite the state in place as soon as this
-    returns; CPU tensors cloned."""
+    returns; CPU tensors cloned. With the client state sharded over
+    ranks it is a collective (:func:`_gather_clients`, ``num_clients``
+    the real client count) and only rank 0 gets the state (None
+    elsewhere)."""
+    if _client_state_sharded():
+        clients = _gather_clients(clients, num_clients)
+        if clients is None:
+            return None
     events = {}
 
     def copy(x):
@@ -422,8 +483,9 @@ def _meta_for(cfg: ExperimentConfig, round_idx: int,
 
 def is_writer_process() -> bool:
     """Only rank 0 writes (the reference's rank-0 checkpointing,
-    eval.py:120-144): under client sharding every rank holds the same
-    replicated state, and N writers would race on the same files."""
+    eval.py:120-144): under client sharding the snapshot gathers every
+    rank's client rows to rank 0, and N writers would race on the same
+    files."""
     from fedtorch_tpu_torch.parallel.mesh import rank
     return rank() == 0
 
@@ -434,13 +496,13 @@ def save_checkpoint(directory: str, server, clients,
                     save_some_rounds: Tuple[int, ...] = ()) -> str:
     """Write the full round state (checkpoint.py:68-82 semantics),
     synchronously. See :class:`AsyncCheckpointer` for the non-blocking
-    variant. Only rank 0 of a process group writes
-    (:func:`is_writer_process`); every rank holds the same replicated
-    state."""
+    variant. Every rank of a process group calls it (the snapshot
+    gathers the sharded client state, :func:`_snapshot`); only rank 0
+    writes (:func:`is_writer_process`)."""
+    with telemetry.span("checkpoint.snapshot"):
+        host_state = _snapshot(server, clients, cfg.federated.num_clients)
     if not is_writer_process():
         return os.path.join(directory, "checkpoint.ckpt")
-    with telemetry.span("checkpoint.snapshot"):
-        host_state = _snapshot(server, clients)
     round_idx = int(server.round)
     with telemetry.span("checkpoint.write", round=round_idx):
         return _write_checkpoint(
@@ -543,10 +605,11 @@ class AsyncCheckpointer:
              cfg: ExperimentConfig, best_prec1: float, is_best: bool,
              save_all: bool = False,
              save_some_rounds: Tuple[int, ...] = ()) -> None:
+        with telemetry.span("checkpoint.snapshot"):
+            host_state = _snapshot(server, clients,
+                                   cfg.federated.num_clients)
         if not is_writer_process():
             return
-        with telemetry.span("checkpoint.snapshot"):
-            host_state = _snapshot(server, clients)
         round_idx = int(server.round)
         job = (directory, host_state,
                _meta_for(cfg, round_idx, best_prec1), is_best,
@@ -636,6 +699,29 @@ def _load_payload(data: bytes, path: str) -> dict:
                          f"{state.get('format') if isinstance(state, dict) else type(state).__name__!r}"
                          f" != {PAYLOAD_FORMAT!r}")
     return state
+
+
+def _owned_clients(plain, num_clients: int):
+    """The payload's client state cut to this rank's rows of the sharded
+    trees (``parallel/mesh.py`` ``owned_client_rows``; the whole payload
+    on one rank), zero rows standing for the padding past the real
+    clients (never read)."""
+    if not _client_state_sharded() or not isinstance(plain, dict):
+        return plain
+    from fedtorch_tpu_torch.parallel.mesh import owned_client_rows
+    lo, hi = owned_client_rows(num_clients)
+
+    def cut(p):
+        if isinstance(p, dict):
+            return {k: cut(v) for k, v in p.items()}
+        if isinstance(p, list):
+            return [cut(v) for v in p]
+        if not isinstance(p, torch.Tensor):
+            return p
+        mine = p[lo:min(hi, num_clients)]
+        pad = mine.new_zeros((hi - lo - mine.shape[0],) + mine.shape[1:])
+        return torch.cat([mine, pad]) if pad.shape[0] else mine
+    return {f: cut(v) if f in _SHARDED else v for f, v in plain.items()}
 
 
 def maybe_resume(directory: Optional[str], server, clients,
@@ -752,8 +838,9 @@ def maybe_resume(directory: Optional[str], server, clients,
         for write in (False, True):
             params, opt, aux = (_graft(t, s[k], f"server/{k}", write)
                                 for t, k in pairs)
-            new_clients = _graft(clients, restored["clients"], "clients",
-                                 write)
+            new_clients = _graft(clients, _owned_clients(
+                restored["clients"], cfg.federated.num_clients),
+                "clients", write)
         rng = torch.Generator(device=server.rng.device)
         rng.set_state(s["rng_state"])
         round_idx = int(s["round"])

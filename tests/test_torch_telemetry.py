@@ -51,11 +51,13 @@ def test_the_catalog_and_the_schema_names_are_the_jax_package_s():
     assert tschema.EVENTS_SCHEMA == jtel.EVENTS_SCHEMA
     assert tschema.HEALTH_SCHEMA == jtel.HEALTH_SCHEMA
     assert tschema.METRICS_REQUIRED == jtel.METRICS_REQUIRED
-    # the port's one gauge of its own: the bytes of the client-shard
+    # the port's gauges of its own: the bytes of the client-shard
     # seam's whole gather (its riders ride where GSPMD moves the JAX
-    # package's)
+    # package's), of the client state and population a rank holds, of
+    # the exchange of cohort rows and of the guards' norm gather
     assert set(tschema.METRICS_OPTIONAL) == set(jtel.METRICS_OPTIONAL) \
-        | {"cohort_gather_bytes"}
+        | {"cohort_gather_bytes", "client_state_bytes", "population_bytes",
+           "client_exchange_bytes", "guard_norm_gather_bytes"}
     assert tschema.HEALTH_INTENTS == jtel.HEALTH_INTENTS
 
 

@@ -219,11 +219,11 @@ def pipeline(mesh_of, world, model, params, tokens, num_microbatches):
 
 def pod_cfg(source, dispatch, shards, *, num_clients=8, rate=0.5,
             store="ram", store_dir="", algorithm="fedavg", buffer_size=4,
-            fault_kw=None, telemetry_kw=None, mod=None):
+            fault_kw=None, telemetry_kw=None, local_step=2, mod=None):
     """The JAX package's ``tests/test_podscale.py`` cell (``make_cfg``):
     synthetic 16 features, ``logistic_regression``, 8 clients at rate
-    0.5, batch 8, 2 local steps; in the config module ``mod`` (the
-    port's by default, or the JAX package's)."""
+    0.5, batch 8, 2 local steps (``local_step``); in the config module
+    ``mod`` (the port's by default, or the JAX package's)."""
     if mod is None:
         from fedtorch_tpu_torch import config as mod
     c = mod
@@ -241,7 +241,7 @@ def pod_cfg(source, dispatch, shards, *, num_clients=8, rate=0.5,
             async_buffer_size=buffer_size, async_concurrency=4),
         model=c.ModelConfig(arch="logistic_regression"),
         optim=c.OptimConfig(lr=0.3, weight_decay=0.0),
-        train=c.TrainConfig(local_step=2),
+        train=c.TrainConfig(local_step=local_step),
         mesh=c.MeshConfig(client_shards=shards),
         fault=c.FaultConfig(**(fault_kw or {})),
         telemetry=c.TelemetryConfig(**(telemetry_kw or {}))).finalize()
@@ -265,41 +265,48 @@ def pod_trainer(cfg, data=None):
 
 def pod_run(trainer, dispatch, rounds=2, seed=3, state=None):
     """``rounds`` rounds (one ``run_rounds`` for 'scan'): the server
-    params and aux, the client state, the metrics, and the collectives
-    the client-shard seam issued each round."""
+    params and aux, the client state (this rank's rows of its trees,
+    ``rows``), the metrics, and the collectives each round issued: the
+    client-shard seam's, the exchanges and the guards' norm gathers."""
     from fedtorch_tpu_torch.parallel import podscale
     server, clients = state if state is not None \
         else trainer.init_state(seed)
-    metrics, counts = [], []
+    metrics = []
+    counts = {kind: [] for kind in ("seam", "exchange", "norms")}
+
+    def note(n):
+        for kind, c in counts.items():
+            c.append(podscale.collective_count(kind) / n)
     try:
         if dispatch == "scan":
             podscale.reset_collective_count()
             server, clients, m = trainer.run_rounds(server, clients, rounds)
             metrics.append(m)
-            counts.append(podscale.collective_count() / rounds)
+            note(rounds)
         else:
             for _ in range(rounds):
                 podscale.reset_collective_count()
                 server, clients, m = trainer.run_round(server, clients)
                 metrics.append(m)
-                counts.append(podscale.collective_count())
+                note(1)
         gauges = trainer.telemetry_gauges()
     finally:
         trainer.invalidate_stream()
     return dict(params=server.params, aux=server.aux, clients=clients,
-                metrics=metrics, collectives=counts, gauges=gauges,
-                rng=server.rng.get_state())
+                metrics=metrics, collectives=counts["seam"],
+                exchanges=counts["exchange"], norm_gathers=counts["norms"],
+                gauges=gauges, rng=server.rng.get_state(),
+                rows=list(trainer.client_rows))
 
 
 def podscale_cell(mesh_of, source, dispatch, shards, algorithm="fedavg",
-                  fault_kw=None):
+                  fault_kw=None, local_step=2):
     """A cell at S=``shards`` and its armed S=1 twin on every rank."""
-    got = pod_run(pod_trainer(pod_cfg(source, dispatch, shards,
-                                      algorithm=algorithm,
-                                      fault_kw=fault_kw)), dispatch)
-    twin = pod_run(pod_trainer(pod_cfg(source, dispatch, 1,
-                                       algorithm=algorithm,
-                                       fault_kw=fault_kw)), dispatch)
+    kw = dict(algorithm=algorithm, fault_kw=fault_kw, local_step=local_step)
+    got = pod_run(pod_trainer(pod_cfg(source, dispatch, shards, **kw)),
+                  dispatch)
+    twin = pod_run(pod_trainer(pod_cfg(source, dispatch, 1, **kw)),
+                   dispatch)
     return dict(got=got, twin=twin)
 
 
@@ -326,6 +333,52 @@ def podscale_sum(mesh_of, shards, k, seed):
         {n: v[lo:hi] for n, v in riders.items()})
     return dict(got=got, ride=ride, twin=cohort_hierarchical_sum(payloads),
                 riders=riders, rows=[lo, hi], gathered=gathered_bytes())
+
+
+def podscale_save(mesh_of, store_dir):
+    """2 rounds at S=2 and a checkpoint of them into ``store_dir``'s
+    ``ckpt_s2``, and by the async writer into ``ckpt_s2_async`` (every
+    rank joins each gather, rank 0 writes)."""
+    import torch.distributed as dist
+    from fedtorch_tpu_torch.utils.checkpoint import (
+        AsyncCheckpointer, save_checkpoint,
+    )
+    cfg = pod_cfg("resident", "round", 2)
+    t = pod_trainer(cfg)
+    server, clients = t.init_state(7)
+    for _ in range(2):
+        server, clients, _ = t.run_round(server, clients)
+    save_checkpoint(os.path.join(str(store_dir), "ckpt_s2"), server,
+                    clients, cfg, 0.5, False)
+    writer = AsyncCheckpointer()
+    writer.save(os.path.join(str(store_dir), "ckpt_s2_async"), server,
+                clients, cfg, 0.5, False)
+    writer.close()
+    dist.barrier()
+    return dict(rows=list(t.client_rows))
+
+
+def podscale_supervisor(mesh_of):
+    """The supervisor's snapshot at S=2 before a round and its rollback
+    after it: this rank's client rows before, after the round and after
+    the rollback, and the local rows the snapshot saved."""
+    from fedtorch_tpu_torch.core.state import tree_map
+    from fedtorch_tpu_torch.robustness.supervisor import RoundSupervisor
+    t = pod_trainer(pod_cfg("resident", "round", 2))
+    server, clients = t.init_state(3)
+    server, clients, _ = t.run_round(server, clients)
+
+    def copy(c):
+        return _numpy(tree_map(torch.clone, c))
+    before = copy(clients)
+    sup = RoundSupervisor(t)
+    snap = sup._snapshot(server, clients)
+    after_round, clients, _ = t.run_round(server, clients)
+    changed = copy(clients)
+    _, clients = sup._restore(snap, after_round, clients)
+    return dict(before=before, changed=changed, after=copy(clients),
+                saved=[idx for idx, _ in snap.rows],
+                rows=list(t.client_rows))
 
 
 def podscale_resume(mesh_of, store_dir):
