@@ -162,8 +162,10 @@ line. Phases, each fatal on failure:
    holds quantized FedAvg's;
 8b. localsgd: ``LocalSGDTrainer.fit`` (``build_local_sgd``) on the zoo's
    data pooled over 10 ResNet-20 workers, all online, 10 local steps of
-   batch 50 a round (iteration mode: 2 rounds, the second timed), no
-   kernel launched; finite losses, moved params;
+   batch 50 a round (iteration mode: 2 rounds, the second timed), cuDNN
+   deterministic, no kernel launched; finite losses, moved params; the
+   hashes of each rank's workers' rows at two ranks, which the
+   ``podscale`` phase's ``localsgd_W2`` is held to;
 8c. tasks: the federated tasks through the library entry points
    (``define_model`` -> ``make_algorithm`` -> ``FederatedTrainer`` ->
    ``run_rounds`` -> ``evaluate``), int8 both ways, k = 10, batch 50, 10
@@ -386,9 +388,10 @@ line. Phases, each fatal on failure:
     forward; and the CLI on the cell at T 256 for one round
     (``MOE_CLI_WORDS``). Within ``MOE_BUDGET_S``.
 14. podscale (``podscale_phase``): client sharding on the ResNet-20 main
-    path's round, cuDNN deterministic: ``client_shards`` 1 in this
-    process (the armed twin, no collective), plain and with the update
-    guards judging a 'gauss' attack, then S=2 as two spawned ranks on
+    path's round, cuDNN deterministic: ``client_shards`` 0 and 1 in this
+    process (1: the armed twin, no collective), plain, at 1 with the
+    update guards judging a 'gauss' attack and at 0 robust, then S=2 as
+    two spawned ranks on
     the one card over gloo (``init_multihost`` on a ``file://`` store),
     each running its 5 clients on the device plane, on the stream plane
     and guarded under attack: the client state and the population
@@ -396,10 +399,19 @@ line. Phases, each fatal on failure:
     once), every rank's hash of its own rows, server params, generator
     and metrics bitwise the S=1 twin's of the same rows, 2 + 2 ragged
     launches, 1 seam collective, 1 exchange and (guarded) 1 norm gather
-    a round a rank, the collectives' bytes and the gather's gauges, the
-    resident MiB of the client state and the population and
-    ``memory_allocated`` at S 1 and 2 (S 2's client state half of S
-    1's); round ms at S 0 (the main path's), 1 and 2, nothing else
+    a round a rank, the collectives' bytes and the gather's gauges; in
+    the same pair, S=0 (the JAX package's 1-D mesh: each rank's 5
+    clients' loops, then one cohort gather and the rest of the round on
+    all 10) plain (``S0_resident``) and with ``trimmed_mean`` and the
+    cohort statistics (``S0_robust``), each rank bitwise the S=0 round
+    in this process on its rows, 2 + 2 ragged launches, 0 seam
+    collectives, 1 exchange and 1 cohort gather a round a rank with
+    their bytes, and local-SGD mode on the two ranks (``localsgd_W2``,
+    the ``localsgd`` phase's configuration, 5 workers a rank) bitwise
+    the ``localsgd`` phase's in-process ``fit``; the resident MiB of the
+    client state and the population and ``memory_allocated`` at S 1, 2
+    and 0 (S 2's client state half of S 1's, S 0's equal to S 2's);
+    round ms at S 0, 1 and 2 and of local SGD a rank, nothing else
     running beside them. And the CLI on two ranks (``--client_shards 2
     --num_processes 2 --coordinator_address 127.0.0.1:<a free port>``,
     synthetic data, 2 rounds and a resume; run beside the lifecycle
@@ -2815,15 +2827,13 @@ def zoo_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
     return out
 
 
-def localsgd_phase(seed, tcfg, define_model, stack_partitions, qk, fa):
-    """Local-SGD mode through its entry points (``build_local_sgd`` ->
-    ``LocalSGDTrainer.fit``): ResNet-20 in bf16 on the north-star data
-    pooled and re-partitioned IID over ``LOCALSGD_WORKERS`` workers, all
-    online, 10 local steps of batch 50 a round (iteration mode, so
-    ``fit`` stops after ``LOCALSGD_ROUNDS`` rounds), the counters set to
-    0 just before and read just after (no kernel: unquantized); finite
-    losses, every round K = 10, moved server params, the second round
-    timed."""
+def localsgd_trainer(seed, tcfg, define_model, stack_partitions):
+    """The local-SGD path's trainer (``build_local_sgd``): ResNet-20 in
+    bf16 on the north-star data pooled and re-partitioned IID over
+    ``LOCALSGD_WORKERS`` workers, 10 local steps of batch 50 a round in
+    iteration mode (``fit`` stops after ``LOCALSGD_ROUNDS`` rounds); on
+    the ranks of the process group where one is up. Returns it and the
+    seconds its data took."""
     from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
     cfg = tcfg.ExperimentConfig(
         data=tcfg.DataConfig(dataset="cifar10", batch_size=BATCH),
@@ -2842,18 +2852,52 @@ def localsgd_phase(seed, tcfg, define_model, stack_partitions, qk, fa):
     x = data.x.reshape((-1,) + tuple(data.x.shape[2:])).numpy()
     trainer = build_local_sgd(cfg, define_model(cfg, batch_size=BATCH), x,
                               data.y.reshape(-1).numpy())
-    del data, x
-    data_s = time.perf_counter() - t0
+    return trainer, time.perf_counter() - t0
+
+
+def localsgd_fit(trainer, seed, hash_rows=()):
+    """``trainer.fit`` from ``seed``, cuDNN deterministic (so that a run
+    on two ranks can be held bitwise to it): the server, clients and
+    history, each round's end on the host clock, and
+    :func:`state_hashes` of the rows this process holds and of each
+    ``(lo, hi)`` of ``hash_rows``."""
     ends = []
 
     def tick(server, clients, metrics):
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server, clients, history = trainer.fit(seed, callback=tick)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return dict(
+        server=server, clients=clients, history=history, t0=t0, ends=ends,
+        hashes=state_hashes(server, clients, history),
+        hashes_by_rows={f"{lo}:{hi}": state_hashes(
+            server, clients, history, rows=(lo, hi)) for lo, hi in hash_rows})
+
+
+def localsgd_phase(seed, tcfg, define_model, stack_partitions, qk, fa):
+    """Local-SGD mode through its entry points (``build_local_sgd`` ->
+    ``LocalSGDTrainer.fit``, :func:`localsgd_trainer`), cuDNN
+    deterministic, the counters set to 0 just before and read just after
+    (no kernel: unquantized); finite losses, every round K = 10, moved
+    server params, the second round timed; the hashes of each rank's
+    workers' rows at two ranks (the ``podscale`` phase's ``localsgd_W2``
+    twin)."""
+    from fedtorch_tpu_torch.parallel.mesh import owned_client_rows
+    trainer, data_s = localsgd_trainer(seed, tcfg, define_model,
+                                       stack_partitions)
     reset_counters(qk, fa)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server, clients, history = trainer.fit(seed, callback=tick)
+    run = localsgd_fit(trainer, seed, hash_rows=[
+        owned_client_rows(LOCALSGD_WORKERS, 2, r) for r in (0, 1)])
     launched = counters(qk, fa)
+    server, clients, history = run["server"], run["clients"], run["history"]
+    ends, t0 = run["ends"], run["t0"]
     init = trainer.init_state(seed)[0].params
     moved = max(float((server.params[k] - init[k]).abs().max())
                 for k in init)
@@ -2874,6 +2918,7 @@ def localsgd_phase(seed, tcfg, define_model, stack_partitions, qk, fa):
                / (round_ms / 1e3),
                mean_loss=float(losses[-1].mean()), max_param_change=moved,
                launches=launched, tree_launches=launched,
+               hashes_by_rows=run["hashes_by_rows"],
                reduced="num_clients 100 -> 10 workers, so that a round is "
                        "the FedAvg round's 100 client-steps")
     log(f"localsgd: {LOCALSGD_WORKERS} workers x {trainer.sizes[0]} rows, "
@@ -6062,9 +6107,10 @@ def moe_phase(seed, tcfg, define_model, make_algorithm, stack_partitions,
 
 
 # the podscale phase: the ResNet-20 main path's round at client_shards S
-# in {0, 1} in this process and S=2 as two spawned ranks on the one card
-# (gloo: NCCL refuses two ranks on one device), resident and feed; the
-# CLI on two ranks; rounds each, the ranks' collective timeout, budget
+# in {0, 1} in this process and S=2 and S=0 as two spawned ranks on the
+# one card (gloo: NCCL refuses two ranks on one device), resident and
+# feed, and local-SGD mode on the two ranks; the CLI on two ranks;
+# rounds each, the ranks' collective timeout, budget
 PODSCALE_ROUNDS = 2
 PODSCALE_TIMEOUT_S = 180
 PODSCALE_BUDGET_S = 90.0
@@ -6078,18 +6124,27 @@ PODSCALE_CLI = ["-d", "synthetic", "-a", "logistic_regression", "-f",
 # attack from 30% of the population
 PODSCALE_GUARDED = dict(guard_updates=True, byzantine_rate=0.3,
                         byzantine_mode="gauss")
+# the robust round: a rule and the cohort statistics the client-shard
+# seam refuses, served at client_shards 0
+PODSCALE_ROBUST = dict(robust_agg="trimmed_mean")
 
 
-def podscale_config(tcfg, shards, plane="device", guarded=False, **mesh):
+def podscale_config(tcfg, shards, plane="device", guarded=False,
+                    robust=False, **mesh):
     """The ResNet-20 main path's quantized round at ``shards``
-    (``guarded``: with :data:`PODSCALE_GUARDED`)."""
+    (``guarded``: with :data:`PODSCALE_GUARDED`; ``robust``: with
+    :data:`PODSCALE_ROBUST` and ``cohort_stats``)."""
     cfg = path_config(tcfg, "resnet20")
     fault = dataclasses.replace(cfg.fault, **PODSCALE_GUARDED) \
         if guarded else cfg.fault
+    telemetry = cfg.telemetry
+    if robust:
+        fault = dataclasses.replace(fault, **PODSCALE_ROBUST)
+        telemetry = dataclasses.replace(telemetry, cohort_stats=True)
     return dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, data_plane=plane),
         mesh=dataclasses.replace(cfg.mesh, client_shards=shards, **mesh),
-        fault=fault)
+        fault=fault, telemetry=telemetry)
 
 
 def state_hashes(server, clients, metrics, rows=None) -> dict:
@@ -6120,8 +6175,9 @@ def podscale_rounds(cfg, seed, qk, fa, data=None, hash_rows=()):
     """``PODSCALE_ROUNDS`` rounds of the main path's round at ``cfg``
     through ``run_round``, cuDNN deterministic: each round's ms, the
     ragged launches and the collectives of each kind each round issued
-    (the seam's, the exchange's and the guards' norm gather's, with
-    their bytes; counters set to 0 just before it), the gauges, the
+    (the seam's, the exchange's, the guards' norm gather's and the 1-D
+    mesh's cohort gather and layout, with their bytes; counters set to
+    0 just before it), the gauges, the
     memory the trainer and its state took (``torch.cuda.
     memory_allocated`` after ``init_state``, and its growth since
     before the trainer was built), and :func:`state_hashes` at the end:
@@ -6147,7 +6203,7 @@ def podscale_rounds(cfg, seed, qk, fa, data=None, hash_rows=()):
                   trainer_and_state_mib=(mem - mem0) / mib)
     ms, launches, metrics = [], [], []
     kinds = {kind: dict(count=[], bytes=[])
-             for kind in ("seam", "exchange", "norms")}
+             for kind in ("seam", "exchange", "norms", "cohort", "layout")}
     try:
         for _ in range(PODSCALE_ROUNDS):
             torch.cuda.synchronize()
@@ -6179,6 +6235,7 @@ def podscale_rounds(cfg, seed, qk, fa, data=None, hash_rows=()):
     return dict(round_ms=ms, launches=launches,
                 collectives=kinds["seam"]["count"],
                 exchange=kinds["exchange"], norm_gather=kinds["norms"],
+                cohort_gather=kinds["cohort"], layout=kinds["layout"],
                 gauges=gauges, client_shards=trainer.client_shards,
                 rows=list(trainer.cohort_rows(trainer.k_dispatch)),
                 client_rows=list(trainer.client_rows), memory=memory,
@@ -6190,28 +6247,37 @@ def podscale_rounds(cfg, seed, qk, fa, data=None, hash_rows=()):
 
 
 def podscale_rank(rank, store, seed, queue):
-    """One spawned rank of the S=2 rounds: the process group through
+    """One spawned rank of the two-rank runs: the process group through
     ``init_multihost`` (a ``file://`` store), then
-    :func:`podscale_rounds` on the device plane, on the stream plane and
-    guarded under attack on the device plane (:data:`PODSCALE_GUARDED`)
-    from one build of the path's data; its results (or its traceback)
-    on ``queue``."""
+    :func:`podscale_rounds` at S=2 on the device plane, on the stream
+    plane and guarded under attack on the device plane
+    (:data:`PODSCALE_GUARDED`), and at S=0 on the device plane plain
+    (``S0_resident``) and robust (``S0_robust``,
+    :data:`PODSCALE_ROBUST` with ``cohort_stats``), from one build of
+    the path's data; then local-SGD mode (``localsgd_W2``:
+    :func:`localsgd_trainer` and :func:`localsgd_fit`, the counters set
+    to 0 just before); its results (or its traceback) on ``queue``."""
     import traceback
     try:
         from fedtorch_tpu_torch import config as tcfg
         from fedtorch_tpu_torch.data.batching import stack_partitions
+        from fedtorch_tpu_torch.models import define_model
         from fedtorch_tpu_torch.ops.cuda import (
             flash_attention as fa, quant_kernel as qk,
         )
+        from fedtorch_tpu_torch.parallel import podscale
         from fedtorch_tpu_torch.parallel.mesh import init_multihost
         torch.backends.cudnn.deterministic = True
         out = {}
         data = None
-        for name, plane, guarded in (("device", "device", False),
-                                     ("stream", "stream", False),
-                                     ("guarded", "device", True)):
+        for name, shards, plane, guarded, robust in (
+                ("device", 2, "device", False, False),
+                ("stream", 2, "stream", False, False),
+                ("guarded", 2, "device", True, False),
+                ("S0_resident", 0, "device", False, False),
+                ("S0_robust", 0, "device", False, True)):
             cfg = podscale_config(
-                tcfg, 2, plane, guarded,
+                tcfg, shards, plane, guarded, robust,
                 coordinator_address=f"file://{store}",
                 num_processes=2, process_id=rank,
                 init_timeout_s=float(PODSCALE_TIMEOUT_S))
@@ -6222,6 +6288,28 @@ def podscale_rank(rank, store, seed, queue):
             out[name]["backend"] = out["backend"]
             gc.collect()
             torch.cuda.empty_cache()
+        del data
+        gc.collect()
+        trainer, data_s = localsgd_trainer(seed, tcfg, define_model,
+                                           stack_partitions)
+        reset_counters(qk, fa)
+        podscale.reset_collective_count()
+        run = localsgd_fit(trainer, seed)
+        ends = [run["t0"]] + run["ends"]
+        out["localsgd_W2"] = dict(
+            rounds=len(run["history"]), hashes=run["hashes"],
+            round_ms=[(b - a) * 1e3 for a, b in zip(ends, ends[1:])],
+            launches=counters(qk, fa), data_s=data_s,
+            collectives={kind: dict(count=podscale.collective_count(kind),
+                                    bytes=podscale.gathered_bytes(kind))
+                         for kind in ("seam", "exchange", "norms", "cohort",
+                                      "layout")},
+            client_rows=list(trainer.client_rows),
+            rows=list(trainer.cohort_rows(trainer.k_dispatch)),
+            gauges=trainer.telemetry_gauges())
+        del trainer, run
+        gc.collect()
+        torch.cuda.empty_cache()
         queue.put((rank, "ok", out))
     except BaseException:
         queue.put((rank, "error", traceback.format_exc()))
@@ -6232,7 +6320,7 @@ def podscale_rank(rank, store, seed, queue):
 
 
 def podscale_pair(root, seed) -> list:
-    """Both ranks' :func:`podscale_rank` at S=2, spawned together;
+    """Both ranks' :func:`podscale_rank`, spawned together;
     raises with a rank's traceback, or when a rank is silent for
     ``PODSCALE_TIMEOUT_S`` (both are killed)."""
     import multiprocessing
@@ -6255,11 +6343,11 @@ def podscale_pair(root, seed) -> list:
                 if time.monotonic() > deadline or any(
                         p.exitcode not in (None, 0) for p in procs):
                     raise AssertionError(
-                        f"podscale S=2: a rank died or hung "
+                        f"podscale pair: a rank died or hung "
                         f"(exit codes {[p.exitcode for p in procs]})")
                 continue
             if status != "ok":
-                raise AssertionError(f"podscale S=2 rank {rank}:\n{value}")
+                raise AssertionError(f"podscale pair rank {rank}:\n{value}")
             got[rank] = value
     finally:
         for p in procs:
@@ -6371,18 +6459,19 @@ def start_podscale_cli():
     return join
 
 
-def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
-    """Client sharding (``parallel/podscale.py``) on the ResNet-20 main
-    path's round (quantized FedAvg, int8 both ways, bf16, 100 clients, k
-    = 10, batch 50, 10 local steps), cuDNN deterministic:
+def podscale_phase(seed, tcfg, qk, fa, cli, localsgd=None):
+    """Client sharding (``parallel/podscale.py``) and the 1-D mesh on the
+    ResNet-20 main path's round (quantized FedAvg, int8 both ways, bf16,
+    100 clients, k = 10, batch 50, 10 local steps), cuDNN deterministic:
 
-    * ``S0``, ``S1`` and ``S1_guarded``: ``PODSCALE_ROUNDS`` rounds in
-      this process at ``client_shards`` 0 and 1 (the armed twin: the
-      grouped sum, no collective), and at 1 with the update guards
-      judging a 'gauss' attack (:data:`PODSCALE_GUARDED`); each round's
-      ms, 2 + 2 ragged launches a round. With ``s0_round_ms`` (the main
-      path's round ms: the same round at ``client_shards`` 0, in the
-      same process) the S0 run is not repeated;
+    * ``S0``, ``S1``, ``S1_guarded`` and ``S0_robust``:
+      ``PODSCALE_ROUNDS`` rounds in this process at ``client_shards`` 0
+      and 1 (the armed twin: the grouped sum, no collective), at 1 with
+      the update guards judging a 'gauss' attack
+      (:data:`PODSCALE_GUARDED`), and at 0 with ``trimmed_mean`` and the
+      cohort statistics (:data:`PODSCALE_ROBUST`, which the seam
+      refuses); each round's ms, 2 + 2 ragged launches a round; the
+      hashes of each rank's rows at two ranks;
     * ``S2_resident``, ``S2_feed`` and ``S2_guarded``: two spawned ranks
       on this card (``init_multihost`` through a ``file://`` store, the
       backend gloo by the module's rule), each running its 5 clients of
@@ -6398,10 +6487,24 @@ def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
       exchange and, guarded, 1 norm gather a round; the collectives'
       bytes, ``cohort_allreduce_bytes`` and ``cohort_gather_bytes`` as
       the counters and gauges say;
-    * memory at S = 1 and S = 2 (each rank): the client-state trees'
-      and the population's resident MiB and ``memory_allocated`` after
+    * ``S0_resident`` and ``S0_robust``: the same pair at
+      ``client_shards`` 0 (the JAX package's 1-D mesh), each rank running
+      its 5 clients' loops, then one cohort gather bringing it the whole
+      cohort, and the rest of the round on all 10: each rank's hashes
+      bitwise ``S0``'s (``S0_robust``'s) of its rows, the ragged pair 2 +
+      2 a round (the whole [10]-row uplink on every rank), 0 seam
+      collectives, 1 exchange and 1 cohort gather a round, with bytes;
+    * ``localsgd_W2``: local-SGD mode on the two ranks
+      (:func:`localsgd_trainer`, 5 of the 10 workers a rank, 2 rounds of
+      K = 10), each rank's hashes bitwise the ``localsgd`` phase's
+      in-process ``fit`` (``localsgd``; run here when that phase did not
+      run), one exchange and one cohort gather a round, each rank's
+      round ms;
+    * memory at S = 1, 2 and 0 (each rank): the client-state trees' and
+      the population's resident MiB and ``memory_allocated`` after
       ``init_state``; the S = 2 client-state trees must be half of S =
-      1's (the replicated [C] epoch and local index aside);
+      1's (the replicated [C] epoch and local index aside), and S = 0's
+      equal S = 2's (the owner rule does not depend on S);
     * ``cli``: what :func:`podscale_cli` returned, run beside the
       lifecycle phase's untimed runs (:func:`start_podscale_cli`), so
       that nothing runs beside the timed rounds above.
@@ -6417,23 +6520,36 @@ def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
     tmp = tempfile.TemporaryDirectory()
     root = tmp.name
     rank_rows = [owned_client_rows(NUM_CLIENTS, 2, r) for r in (0, 1)]
+    lsgd_rows = [owned_client_rows(LOCALSGD_WORKERS, 2, r) for r in (0, 1)]
     try:
         from fedtorch_tpu_torch.data.batching import stack_partitions
         data = path_data(podscale_config(tcfg, 0), seed, stack_partitions)
-        runs = [(f"S{shards}", shards, False)
-                for shards in ((0, 1) if s0_round_ms is None else (1,))]
-        for name, shards, guarded in runs + [("S1_guarded", 1, True)]:
+        for name, shards, guarded, robust in (
+                ("S0", 0, False, False), ("S1", 1, False, False),
+                ("S1_guarded", 1, True, False),
+                ("S0_robust", 0, False, True)):
             gc.collect()
             torch.cuda.empty_cache()
             out[name] = podscale_rounds(
-                podscale_config(tcfg, shards, guarded=guarded), seed, qk,
-                fa, data, hash_rows=rank_rows if shards else ())
+                podscale_config(tcfg, shards, guarded=guarded,
+                                robust=robust), seed, qk, fa, data,
+                hash_rows=rank_rows)
         del data
+        if localsgd is None or "hashes_by_rows" not in localsgd:
+            from fedtorch_tpu_torch.models import define_model
+            trainer, _ = localsgd_trainer(seed, tcfg, define_model,
+                                          stack_partitions)
+            localsgd = localsgd_fit(trainer, seed, hash_rows=lsgd_rows)
+            del trainer
+        lsgd_twin = localsgd.pop("hashes_by_rows")
         gc.collect()
         torch.cuda.empty_cache()
         ranks = podscale_pair(root, seed)
         for name, key in (("S2_resident", "device"), ("S2_feed", "stream"),
-                          ("S2_guarded", "guarded")):
+                          ("S2_guarded", "guarded"),
+                          ("S0_resident", "S0_resident"),
+                          ("S0_robust_W2", "S0_robust"),
+                          ("localsgd_W2", "localsgd_W2")):
             out[name] = [r[key] for r in ranks]
         out["cli"] = cli
     finally:
@@ -6442,23 +6558,26 @@ def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
     want = dict(ragged_stats=2, ragged_apply=2, stats=0, apply=0, flash=0,
                 flash_tc=0, flash_tf32=0)
     ones, zeros = [1] * PODSCALE_ROUNDS, [0] * PODSCALE_ROUNDS
-    for name in [n for n in ("S0", "S1", "S1_guarded") if n in out]:
+    for name in ("S0", "S1", "S1_guarded", "S0_robust"):
         r = out[name]
         if any(l != want for l in r["launches"]) or any(r["collectives"]) \
                 or any(r["exchange"]["count"]) \
-                or any(r["norm_gather"]["count"]):
+                or any(r["norm_gather"]["count"]) \
+                or any(r["cohort_gather"]["count"]):
             raise AssertionError(f"podscale {name}: {r}")
     if not any(b for b, _ in out["S1_guarded"]["guard_counts"]):
         raise AssertionError("podscale S1_guarded: no attacker in a cohort "
                              f"{out['S1_guarded']['guard_counts']}")
     for name, twin in (("S2_resident", "S1"), ("S2_feed", "S1"),
-                       ("S2_guarded", "S1_guarded")):
+                       ("S2_guarded", "S1_guarded"), ("S0_resident", "S0"),
+                       ("S0_robust_W2", "S0_robust")):
         ranges = [tuple(r["client_rows"]) for r in out[name]]
         # the ranks' rows cover the 100 clients once, in rank order
         if ranges != [tuple(x) for x in rank_rows] or ranges[0][0] != 0 \
                 or ranges[0][1] != ranges[1][0] \
                 or ranges[1][1] != NUM_CLIENTS:
             raise AssertionError(f"podscale {name}: client rows {ranges}")
+        flat = name.startswith("S0")
         for rank, r in enumerate(out[name]):
             mine = out[twin]["hashes_by_rows"]["%d:%d" % ranges[rank]]
             if r["hashes"] != mine:
@@ -6469,71 +6588,120 @@ def podscale_phase(seed, tcfg, qk, fa, cli, s0_round_ms=None):
                     f"differ: {diff[:8]})")
             norms = ones if name == "S2_guarded" else zeros
             if any(l != want for l in r["launches"]) \
-                    or r["collectives"] != ones \
+                    or r["collectives"] != (zeros if flat else ones) \
                     or r["exchange"]["count"] != ones \
                     or r["norm_gather"]["count"] != norms \
-                    or r["backend"] != "gloo" or r["client_shards"] != 2 \
+                    or r["cohort_gather"]["count"] != (ones if flat
+                                                       else zeros) \
+                    or any(r["layout"]["count"]) \
+                    or r["backend"] != "gloo" \
+                    or r["client_shards"] != (1 if flat else 2) \
                     or r["rows"] != [5 * rank, 5 * rank + 5]:
                 raise AssertionError(f"podscale {name} rank {rank}: {r}")
+    for rank, r in enumerate(out["localsgd_W2"]):
+        rows = lsgd_rows[rank]
+        mine = lsgd_twin["%d:%d" % rows]
+        if r["hashes"] != mine:
+            diff = [k for k in mine if r["hashes"].get(k) != mine[k]]
+            raise AssertionError(
+                f"podscale localsgd_W2 rank {rank}: not bitwise the "
+                f"in-process fit on its rows ({len(diff)} of {len(mine)} "
+                f"hashes differ: {diff[:8]})")
+        c = r["collectives"]
+        if r["rounds"] != LOCALSGD_ROUNDS or any(r["launches"].values()) \
+                or c["seam"]["count"] or c["norms"]["count"] \
+                or c["layout"]["count"] \
+                or c["exchange"]["count"] != LOCALSGD_ROUNDS \
+                or c["cohort"]["count"] != LOCALSGD_ROUNDS \
+                or r["client_rows"] != list(rows) \
+                or r["rows"] != [5 * rank, 5 * rank + 5]:
+            raise AssertionError(f"podscale localsgd_W2 rank {rank}: {r}")
     memory = dict(S1=out["S1"]["memory"],
-                  S2=[r["memory"] for r in out["S2_resident"]])
+                  S2=[r["memory"] for r in out["S2_resident"]],
+                  S0=[r["memory"] for r in out["S0_resident"]])
     # the trees hold 100 -> 50 clients' rows; the replicated [C] epoch
-    # and local index (800 B) ride in both
-    for m in memory["S2"]:
+    # and local index (800 B) ride in both; S = 0 holds what S = 2 does
+    for m, m0 in zip(memory["S2"], memory["S0"]):
         if abs(2 * m["client_state_mib"] - memory["S1"]["client_state_mib"]) \
                 > 0.01 * memory["S1"]["client_state_mib"] \
                 or abs(2 * m["population_mib"]
                        - memory["S1"]["population_mib"]) \
-                > 0.01 * memory["S1"]["population_mib"]:
+                > 0.01 * memory["S1"]["population_mib"] \
+                or m0["client_state_mib"] != m["client_state_mib"] \
+                or m0["population_mib"] != m["population_mib"]:
             raise AssertionError(f"podscale memory: {memory}")
     gauges = out["S2_resident"][0]["gauges"]
     out.update(
         cohort_allreduce_bytes=gauges["cohort_allreduce_bytes"],
         cohort_gather_bytes=gauges["cohort_gather_bytes"],
+        flat_cohort_gather_bytes=dict(
+            (name, [r["gauges"]["flat_cohort_gather_bytes"]
+                    for r in out[name]])
+            for name in ("S0_resident", "S0_robust_W2")),
         exchange=dict((name, [dict(count=r["exchange"]["count"],
                                    bytes=r["exchange"]["bytes"])
                               for r in out[name]])
-                      for name in ("S2_resident", "S2_feed", "S2_guarded")),
+                      for name in ("S2_resident", "S2_feed", "S2_guarded",
+                                   "S0_resident", "S0_robust_W2")),
+        cohort_gather=dict((name, [dict(count=r["cohort_gather"]["count"],
+                                        bytes=r["cohort_gather"]["bytes"])
+                                   for r in out[name]])
+                           for name in ("S0_resident", "S0_robust_W2")),
         norm_gather=[dict(count=r["norm_gather"]["count"],
                           bytes=r["norm_gather"]["bytes"])
                      for r in out["S2_guarded"]],
+        localsgd_collectives=[r["collectives"]
+                              for r in out["localsgd_W2"]],
         guard_counts=out["S1_guarded"]["guard_counts"], memory=memory,
-        round_ms=dict(S0=out["S0"]["round_ms"][-1] if "S0" in out
-                      else s0_round_ms, S1=out["S1"]["round_ms"][-1],
-                      S1_guarded=out["S1_guarded"]["round_ms"][-1]),
+        round_ms=dict(S0=out["S0"]["round_ms"][-1],
+                      S1=out["S1"]["round_ms"][-1],
+                      S1_guarded=out["S1_guarded"]["round_ms"][-1],
+                      S0_robust=out["S0_robust"]["round_ms"][-1],
+                      localsgd_W2=[r["round_ms"][-1]
+                                   for r in out["localsgd_W2"]]),
         launches_per_round_a_rank=out["S2_resident"][0]["launches"][-1],
         collectives_per_round=out["S2_resident"][0]["collectives"][-1],
         backend=out["S2_resident"][0]["backend"], bitwise=True,
         phase_s=time.perf_counter() - t0, budget_s=PODSCALE_BUDGET_S)
-    for name in ("S2_resident", "S2_feed", "S2_guarded"):
+    for name in ("S2_resident", "S2_feed", "S2_guarded", "S0_resident",
+                 "S0_robust_W2"):
         out["round_ms"][name] = [r["round_ms"][-1] for r in out[name]]
     # the per-leaf hashes are held above; the output keeps each run's
     # fingerprint of them
-    for name in [n for n in ("S0", "S1", "S1_guarded") if n in out]:
+    for name in ("S0", "S1", "S1_guarded", "S0_robust"):
         del out[name]["hashes"], out[name]["hashes_by_rows"]
-    for name in ("S2_resident", "S2_feed", "S2_guarded"):
+    for name in ("S2_resident", "S2_feed", "S2_guarded", "S0_resident",
+                 "S0_robust_W2"):
         for r in out[name]:
             del r["hashes"], r["hashes_by_rows"]
+    for r in out["localsgd_W2"]:
+        del r["hashes"]
     # rank 0's launches over its rounds (the kernels line's
     # launches_by_path); each rank's a round are checked above
     out["launches"] = {c: sum(l[c] for l in out["S2_resident"][0]["launches"])
                        for c in want}
     out["tree_launches"] = out["launches"]
-    g = {c: sum(l[c] for l in out["S2_guarded"][0]["launches"])
-         for c in want}
-    out["guarded"] = dict(launches=g, tree_launches=g)
+    for key, name in (("guarded", "S2_guarded"), ("S0_rank0", "S0_resident")):
+        g = {c: sum(l[c] for l in out[name][0]["launches"]) for c in want}
+        out[key] = dict(launches=g, tree_launches=g)
     log(f"podscale phase: {out['phase_s']:.1f} s (budget "
         f"{PODSCALE_BUDGET_S}); backend {out['backend']}; S=2 resident, "
-        "feed and guarded (gauss attack) bitwise the S=1 twin on every "
-        "rank's own client rows, the ranks' rows covering the 100 once; a "
-        f"rank a round: ragged {out['launches_per_round_a_rank']}, seam "
-        f"collectives {out['collectives_per_round']}, exchange "
-        f"{out['exchange']} (count and bytes a round), guards' norm gather "
-        f"{out['norm_gather']}; attackers and rejected a round (S1 "
+        "feed and guarded (gauss attack) bitwise the S=1 twin, S=0 "
+        "resident and robust (trimmed_mean, cohort_stats) bitwise the "
+        "one-process S=0 round, and local SGD on two ranks bitwise the "
+        "one-process fit, on every rank's own client rows, the ranks' "
+        "rows covering the 100 once; a rank a round: ragged "
+        f"{out['launches_per_round_a_rank']}, seam collectives "
+        f"{out['collectives_per_round']} (S=0: 0), exchange "
+        f"{out['exchange']} (count and bytes a round), cohort gather "
+        f"{out['cohort_gather']}, guards' norm gather "
+        f"{out['norm_gather']}; local SGD collectives "
+        f"{out['localsgd_collectives']}; attackers and rejected a round (S1 "
         f"guarded) {out['guard_counts']}; cohort_allreduce_bytes "
         f"{out['cohort_allreduce_bytes']:.0f}, cohort_gather_bytes "
-        f"{out['cohort_gather_bytes']:.0f}; memory (MiB) {memory}; round ms "
-        f"{out['round_ms']} (two ranks share one card: no multi-card "
+        f"{out['cohort_gather_bytes']:.0f}, flat_cohort_gather_bytes "
+        f"{out['flat_cohort_gather_bytes']}; memory (MiB) {memory}; round "
+        f"ms {out['round_ms']} (two ranks share one card: no multi-card "
         f"speed); cli {out['cli']['s']:.1f} s, rank 0's checkpoints "
         f"{out['cli']['rank0_ckpts']}, rank 1 wrote {out['cli']['rank1_files']}")
     if out["phase_s"] > PODSCALE_BUDGET_S:
@@ -6621,7 +6789,8 @@ def kernels_line(results, fa, ragged_stats_fields, ragged_apply_fields,
                  ("cli_fused", cli_out["fused"]),
                  ("moe_transformer", moe), ("cli_moe", moe["cli"]),
                  ("podscale_S2_rank0", podscale),
-                 ("podscale_S2_guarded_rank0", podscale["guarded"]))
+                 ("podscale_S2_guarded_rank0", podscale["guarded"]),
+                 ("podscale_S0_rank0", podscale["S0_rank0"]))
     by_path = {c: {p: r["launches"][c] for p, r in paths}
                for c in main["launches"]}
     single_by_path = {p: r["launches"]["ragged_apply"]
@@ -7082,7 +7251,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         results["podscale"] = podscale_phase(
             args.seed, tcfg, qk, fa, podscale_cli_out,
-            main["round_ms"] if main else None)
+            results.get("localsgd"))
     beside_dir.cleanup()
 
     if full:

@@ -569,6 +569,14 @@ def refused_flags(cfg: ExperimentConfig) -> list:
     if cfg.mesh.backend not in (None, "cpu", "cuda", "gpu"):
         out.append(f"--backend {cfg.mesh.backend!r}: the port runs on "
                    "CUDA or, asked with --backend cpu, on the CPU")
+    procs = cfg.mesh.num_processes or 1
+    if procs > 1 and cfg.federated.federated and cfg.federated.personal \
+            and cfg.effective_algorithm in PERSONALIZED_ALGORITHMS:
+        out.append(f"--federated_type {cfg.effective_algorithm!r} on "
+                   f"--num_processes {procs}: its personal evaluation "
+                   "(evaluate_personal) reads every client's personalized "
+                   "models, which the ranks hold sharded (run it in one "
+                   "process; ROADMAP A10)")
     return out
 
 

@@ -1,6 +1,6 @@
 """Synchronization-frequency scheme (the port's copy of
-``fedtorch_tpu/core/sync.py``, numpy only; its user, local-SGD mode, is
-not ported yet).
+``fedtorch_tpu/core/sync.py``, numpy only; its user is local-SGD mode,
+``parallel/local_sgd.py``, in one process or on several ranks).
 
 Rebuild of the reference sync scheduler (its ``comms/algorithms/
 distributed.py:17-106``): a per-epoch list of local-step counts

@@ -214,19 +214,28 @@ class ClientStore:
         rows = np.asarray(rows, np.int64)
         k, num_rows = rows.shape
         flat = (idx[:, None] * self.n_max + rows).reshape(-1)
+        pre_x, pre_y = self.pack_pre(idx, batch_size, alloc)
+        return RoundFeed(
+            idx=torch.from_numpy(idx.astype(np.int32)),
+            sizes=torch.from_numpy(self.sizes[idx]),
+            x=self._gather("x", flat, (k, num_rows), alloc),
+            y=self._gather("y", flat, (k, num_rows), alloc),
+            pre_x=pre_x, pre_y=pre_y)
+
+    def pack_pre(self, idx, batch_size: int,
+                 alloc: Callable = _alloc_plain):
+        """``pre_round``'s batches: client ``idx[i]``'s first
+        ``batch_size`` storage rows, as (x, y)."""
+        idx = np.asarray(idx, np.int64)
         # clamped as the device plane's gather clamps: with batch_size >
         # n_max the hook batch repeats the last row instead of walking
         # into the next client's shard
         pre_cols = np.minimum(np.arange(batch_size, dtype=np.int64),
                               self.n_max - 1)
         pre = (idx[:, None] * self.n_max + pre_cols[None, :]).reshape(-1)
-        return RoundFeed(
-            idx=torch.from_numpy(idx.astype(np.int32)),
-            sizes=torch.from_numpy(self.sizes[idx]),
-            x=self._gather("x", flat, (k, num_rows), alloc),
-            y=self._gather("y", flat, (k, num_rows), alloc),
-            pre_x=self._gather("x", pre, (k, batch_size), alloc),
-            pre_y=self._gather("y", pre, (k, batch_size), alloc))
+        lead = (idx.shape[0], batch_size)
+        return (self._gather("x", pre, lead, alloc),
+                self._gather("y", pre, lead, alloc))
 
     def pack_shards(self, idx, batch_size: int,
                     alloc: Callable = _alloc_plain) -> RoundFeed:
@@ -255,8 +264,9 @@ class ClientStore:
         gather per tensor: the ``[R, k]`` ids and ``[R, k, rows]`` plans
         flatten to one ``[R*k]``-client pack."""
         R, k = np.asarray(idxs).shape
+        rowss = np.asarray(rowss)
         feed = self.pack(np.asarray(idxs).reshape(-1),
-                         np.asarray(rowss).reshape(R * k, -1),
+                         rowss.reshape(R * k, rowss.shape[-1]),
                          batch_size, alloc)
         return RoundFeed(*(t.view((R, k) + t.shape[1:])
                            if t is not None else None for t in feed))
@@ -575,9 +585,12 @@ class StreamFeedProducer:
     order from ``start_round``; a consumer that sees another label must
     drop the producer (``FederatedTrainer.invalidate_stream``).
 
-    ``cohort_rows = (lo, hi)`` (client sharding, ``parallel/mesh.py``):
-    the producer packs, pins and copies only the rows ``[lo, hi)`` of
-    each round's cohort into ``x``/``y``/``pre_x``/``pre_y``; the plan,
+    ``cohort_rows = (lo, hi)`` (client sharding, or the block a rank
+    runs on the 1-D mesh, ``parallel/mesh.py``; ``lo == hi`` where the
+    block is empty): the producer packs, pins and copies only the rows
+    ``[lo, hi)`` of each round's cohort into ``x``/``y``/``pre_x``/
+    ``pre_y`` (``whole_pre``: ``pre_x``/``pre_y`` of the whole cohort,
+    since ``pre_round`` reads every dispatched client); the plan,
     ``idx`` and ``sizes`` stay whole (every rank reads them), as the
     JAX package's ``podscale_feed_placer`` replicates its ``[k]``
     vectors."""
@@ -588,7 +601,8 @@ class StreamFeedProducer:
                  plan_fn: Optional[Callable] = None, depth: int = 2,
                  window: int = 0, feed_layout: str = "batch",
                  device=None, timeout_s: float = 120.0,
-                 cohort_rows: Optional[Tuple[int, int]] = None):
+                 cohort_rows: Optional[Tuple[int, int]] = None,
+                 whole_pre: bool = False):
         if (schedule is None) == (plan_fn is None):
             raise ValueError("give the producer a schedule or a plan_fn")
         if feed_layout not in FEED_LAYOUTS:
@@ -607,12 +621,13 @@ class StreamFeedProducer:
         self._schedule, self._plan_fn = schedule, plan_fn
         if cohort_rows is not None:
             lo, hi = int(cohort_rows[0]), int(cohort_rows[1])
-            if not 0 <= lo < hi:
+            if not 0 <= lo <= hi:
                 raise ValueError(
                     f"cohort_rows must be a [lo, hi) block with "
-                    f"0 <= lo < hi, got {cohort_rows!r}")
+                    f"0 <= lo <= hi, got {cohort_rows!r}")
             cohort_rows = (lo, hi)
         self._cohort_rows = cohort_rows
+        self._whole_pre = whole_pre
         self.shard_pack_s = 0.0  # producer: this rank's block's packs
         self._timeout_s = timeout_s
         self._stride = max(self.window, 1)
@@ -651,6 +666,9 @@ class StreamFeedProducer:
             feed = feed._replace(
                 idx=torch.from_numpy(full.astype(np.int32)),
                 sizes=torch.from_numpy(self.store.sizes[full]))
+            if self._whole_pre:
+                pre_x, pre_y = self.store.pack_pre(full, B, alloc)
+                feed = feed._replace(pre_x=pre_x, pre_y=pre_y)
             self.shard_pack_s += time.perf_counter() - t0
         if plan.probe_idx is not None:
             qi, qx, qy = self.store.pack_probe(
@@ -688,6 +706,12 @@ class StreamFeedProducer:
             feed = feed._replace(
                 idx=torch.from_numpy(full.astype(np.int32)),
                 sizes=torch.from_numpy(self.store.sizes[full]))
+            if self._whole_pre:
+                pre_x, pre_y = self.store.pack_pre(full.reshape(-1), B,
+                                                   alloc)
+                feed = feed._replace(
+                    pre_x=pre_x.view(full.shape + pre_x.shape[1:]),
+                    pre_y=pre_y.view(full.shape + pre_y.shape[1:]))
             self.shard_pack_s += time.perf_counter() - t0
 
         def stacked(name):

@@ -210,7 +210,16 @@ def evaluate_personal(model: ModelDef, client_aux, client_params, data,
     * perfedavg: the adapted local model before the sync;
     * any other algorithm: ``client_params``.
 
-    Returns what :func:`evaluate_clients` returns."""
+    Returns what :func:`evaluate_clients` returns. Refused on several
+    ranks, whose client state is sharded (``parallel/mesh.py``
+    ``owned_client_rows``; ROADMAP A10)."""
+    from fedtorch_tpu_torch.parallel.mesh import world_size
+    if world_size() > 1:
+        raise ValueError(
+            f"evaluate_personal on {world_size()} ranks is not yet "
+            "ported: it reads every client's personalized models, and "
+            "each rank holds its own rows of the client state (run the "
+            "personal evaluation in one process; ROADMAP A10)")
     apply_fn = None
     if algorithm_name == "apfl":
         eval_params = (client_aux["personal"],

@@ -119,7 +119,27 @@ block of the cohort's rows through the local loops (the stream plane's
 producer packs only those rows). Before the loops one exchange
 (``podscale.exchange_rows``, an ``all_to_all_single`` over every rank)
 brings the block's optimizer and aux rows, and on the device plane its
-data rows, from the ranks that own them. With the guards on, each
+data rows, from the ranks that own them; for the algorithms that read
+the population outside the loops it also brings every dispatched
+client's aux rows and first B storage rows (``pre_round``: APFL's
+adaptive alpha is the cohort's mean, so every rank runs the hook on the
+whole cohort and keeps its block's rows), each block client's whole
+shard (qFFL's full loss) and every probe client's batch (DRFA's dual
+update). The validation split stays replicated on every rank (it is
+read a client at a time, by PerFedAvg's steps), so it needs no
+exchange. At ``client_shards`` 0 on W > 1 ranks (the JAX package's 1-D
+mesh, where GSPMD places every cross-client sum) rank r runs the
+``ceil(k/W)`` cohort rows from ``r*ceil(k/W)`` (``parallel/mesh.py``
+``cohort_block``; the last ranks' blocks shorter or empty), and after
+the local loops one ``all_gather`` (``podscale.gather_cohort``, the
+cohort gather) brings every rank every client's payload, raw delta,
+optimizer and aux rows, epoch, local index, loss and accuracy (and the
+round-end params ``client_post`` reads); every rank then runs the rest
+of the round (the byzantine step, the wire format, the guards, DP, the
+robust rule or the plain sum, the cohort statistics, the server step,
+``client_post``, the metrics, the write-back of its own rows) on the
+whole cohort, as one rank does: each client's loop depends on the plan
+alone, so the round is bitwise the one-rank round. With the guards on, each
 rank's ``[k/S]`` update norms are gathered before the screen
 (``podscale.gather_row_stats``). The aggregation seam's grouped sum,
 whose association depends on k alone, issues the round's one
@@ -171,13 +191,13 @@ from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.ops.augment import augment_image_batch, draw_augment
 from fedtorch_tpu_torch.parallel.fusion import resolve_client_fusion
 from fedtorch_tpu_torch.parallel.mesh import (
-    client_owner, cohort_sharding, make_mesh, mesh_client_shards,
-    owned_client_rows, rank, world_size,
+    client_owner, cohort_block, cohort_sharding, make_mesh,
+    mesh_client_shards, owned_client_rows, rank, world_size,
 )
 from fedtorch_tpu_torch.parallel.podscale import (
     bytes_as_rows, cohort_allreduce_bytes, cohort_hierarchical_sum,
-    exchange_rows, gather_row_stats, gathered_bytes, row_bytes,
-    rows_as_bytes,
+    cohort_layout, exchange_rows, gather_cohort, gather_row_stats,
+    gathered_bytes, row_bytes, rows_as_bytes,
 )
 from fedtorch_tpu_torch.parallel.round_program import (
     RoundProgramBuilder, feed_layout,
@@ -352,6 +372,27 @@ class PlanDrawer:
         return plan
 
 
+class CohortProbe(NamedTuple):
+    """DRFA's probe batches as the exchange brings them: what
+    ``post_round_global_feed`` reads of a feed."""
+    probe_idx: torch.Tensor  # [k] int64 probe cohort
+    probe_x: torch.Tensor    # [k, B, ...]
+    probe_y: torch.Tensor
+
+
+class CohortBlock(NamedTuple):
+    """What a rank's block of the cohort reads of the client state and
+    the population (:meth:`FederatedTrainer._cohort_block`)."""
+    opt: list                      # each block client's optimizer rows
+    aux: object                    # stacked aux rows ([k] with pre_round)
+    x: Optional[torch.Tensor] = None      # [n, K*B, ...] the block's rows
+    y: Optional[torch.Tensor] = None
+    pre_x: Optional[torch.Tensor] = None  # [k, B, ...] pre_round's rows
+    pre_y: Optional[torch.Tensor] = None
+    shards: Optional[list] = None  # each block client's (x, y) shard
+    probe: Optional[CohortProbe] = None
+
+
 class FederatedTrainer:
     """Runs the round program on ``device`` (``cuda`` unless the caller
     asks for another).
@@ -432,6 +473,15 @@ class FederatedTrainer:
         self.client_shards = mesh_client_shards(self.mesh)
         self.podscale_armed = self.client_shards > 1 \
             or cfg.mesh.client_shards >= 1
+        # client_shards 0 on several ranks (the JAX package's 1-D mesh):
+        # each rank runs its ceil(k/W) rows of the cohort, and one
+        # gather after the local loops brings every rank the whole
+        # cohort (parallel/podscale.py gather_cohort); the gather's
+        # bytes a round (set by the first round), and the rows' layout
+        # for a rank whose block is empty (sent once by rank 0)
+        self.flat_ranks = self.mesh is not None and self.mesh.ndim == 1
+        self._cohort_bytes: Optional[float] = None
+        self._cohort_layout = None
         # the [G, P] bytes the seam's gather moves a round, and the
         # bytes of its whole buffer (the partials and the riders; 0
         # without a gather): set by the first armed round, telemetry
@@ -638,8 +688,19 @@ class FederatedTrainer:
 
     def cohort_rows(self, k: int):
         """``[lo, hi)``, the rows of a k-wide cohort this rank runs (all
-        of them unless the cohort is sharded)."""
+        of them on one rank; ``parallel/mesh.py`` ``cohort_sharding``)."""
         return cohort_sharding(self.mesh, k)
+
+    def cohort_block_of(self, k: int, r: int):
+        """``[lo, hi)``, the rows of a k-wide cohort rank ``r`` runs."""
+        return cohort_block(k, self.mesh_devices,
+                            0 if self.flat_ranks else self.client_shards, r)
+
+    def seam_rows(self, k: int):
+        """``[lo, hi)``, the cohort rows this rank holds at the
+        aggregation seam: its shard's under client sharding, all k
+        otherwise (on the 1-D mesh the cohort gather brought them)."""
+        return self.cohort_rows(k) if self.client_shards > 1 else (0, k)
 
     def gather_resident(self, plan: RoundPlan):
         """This rank's rows of the plan from the population on the
@@ -684,8 +745,10 @@ class FederatedTrainer:
         plan's rows selected from its whole shards ('shard')."""
         if self.feed_layout != "shard":
             return feed.x, feed.y, None
-        on = torch.arange(plan.idx.shape[0], device=self.device)[:, None]
-        rows = plan.rows.to(self.device)
+        # the feed holds this rank's rows of the cohort
+        lo, hi = self.cohort_rows(plan.idx.shape[0])
+        on = torch.arange(hi - lo, device=self.device)[:, None]
+        rows = plan.rows[lo:hi].to(self.device)
         return feed.x[on, rows], feed.y[on, rows], list(zip(feed.x, feed.y))
 
     def round_stream_fn(self, server: ServerState, clients: ClientState,
@@ -713,7 +776,10 @@ class FederatedTrainer:
         per-client inputs are this rank's rows of the cohort only
         (:meth:`cohort_rows`): the rank runs those clients' loops, and
         the aggregation seam's one gather brings every rank the rest of
-        what the replicated remainder of the round reads.
+        what the replicated remainder of the round reads. At
+        ``client_shards`` 0 on several ranks the rank runs its block's
+        loops too, and the cohort gather (:meth:`_gather_cohort`) brings
+        every rank the whole cohort's outputs before the remainder.
 
         The commit seam (``parallel/round_program.py``, the async
         plane's commit): ``base_params``/``base_aux`` give each client
@@ -788,20 +854,27 @@ class FederatedTrainer:
         mine = idx[lo:hi]
 
         # this rank's block of the cohort's optimizer and aux rows (and,
-        # the population sharded, its data rows): the round's one
-        # exchange
-        block_opt, on_aux, block_xy = self._cohort_block(
-            clients, plan, lo, hi, with_data=x is None)
-        if block_xy is not None:
-            x, y = block_xy
+        # the population sharded, its data rows, pre_round's rows and
+        # DRFA's probe batches): the round's one exchange
+        blk = self._cohort_block(clients, plan, lo, hi, with_data=x is None)
+        on_aux = blk.aux
+        if blk.x is not None:
+            x, y, shards = blk.x, blk.y, blk.shards
+        if blk.pre_x is not None:
+            pre_x, pre_y = blk.pre_x, blk.pre_y
+        if blk.probe is not None:
+            probe = blk.probe
         # the cross-client hook on the dispatched clients' gathered aux
-        # and first B storage rows
+        # and first B storage rows: every client's on every rank, each
+        # rank keeping its block's rows
         if self._pre_round:
             on_lrs = torch.stack([lr_at(self.schedule, clients.epoch[c])
                                   for c in idx.tolist()])
             on_aux = alg.pre_round(
                 on_aux, server=server, x=pre_x, y=pre_y, sizes=on_sizes,
                 lr=on_lrs, plan=plan)
+            if (lo, hi) != (0, k):
+                on_aux = tree_take(on_aux, slice(lo, hi))
 
         # each client's steps this round: its epoch-sync budget, cut for a
         # straggler
@@ -809,23 +882,30 @@ class FederatedTrainer:
                    for j, c in enumerate(idx.tolist())]
         if self.augment:
             draws = [d[lo:hi] for d in draws]
+        outs = None  # an empty block runs no client
         if self.client_fusion == "fused":
-            (stacked, wire_deltas, client_opts, client_aux, epochs,
-             local_index, losses, accs, kept) = self._fused_client_round(
+            outs = self._fused_client_round(
                 server, clients, idx, x, y, on_aux, weights, budgets,
                 draws if self.augment else None)
-        else:
-            if plan.drop_keys is not None:
-                plan = plan._replace(drop_keys=plan.drop_keys[lo:hi])
-            (stacked, wire_deltas, client_opts, client_aux, epochs,
-             local_index, losses, accs, kept) = self._client_loops(
-                server, clients, plan, mine, x, y, block_opt, on_aux,
+        elif hi > lo:
+            loop_plan = plan if plan.drop_keys is None \
+                else plan._replace(drop_keys=plan.drop_keys[lo:hi])
+            outs = self._client_loops(
+                server, clients, loop_plan, mine, x, y, blk.opt, on_aux,
                 weights[lo:hi],
                 budgets[lo:hi], shards,
                 None if base_params is None else base_params[lo:hi],
                 None if base_aux is None else base_aux[lo:hi],
                 draws if self.augment else None,
-                vrows if alg.needs_val_batch else None)
+                vrows[lo:hi] if alg.needs_val_batch else None)
+        if self.flat_ranks:
+            # the 1-D mesh: every client's rows of what the rest of the
+            # round reads come to every rank, which then runs that rest
+            # on the whole cohort
+            outs = self._gather_cohort(outs, k, lo, hi)
+            lo, hi = 0, k
+        (stacked, wire_deltas, client_opts, client_aux, epochs,
+         local_index, losses, accs, kept) = outs
 
         with torch.no_grad():
             if flt.byzantine_rate > 0.0:
@@ -946,75 +1026,196 @@ class FederatedTrainer:
         return new_server, clients, metrics
 
     def _cohort_block(self, clients: ClientState, plan: RoundPlan,
-                      lo: int, hi: int, with_data: bool):
-        """This rank's block ``[lo, hi)`` of the cohort: each client's
-        optimizer rows (a list of trees), the clients' stacked aux rows
-        and, ``with_data``, the ``(x, y)`` rows of their plan (None
-        without). Unsharded they are read off the state (each client's
-        optimizer rows a view: a stacked copy would hold k clients'
-        optimizer state twice) and the caller's rows. Sharded, one
-        exchange brings each
-        row from the rank that owns it (``podscale.exchange_rows``):
-        every rank takes part, each sending the rows it owns of every
-        rank's block. A client's data travels as its plan's K*B rows, or
-        as its whole shard where that is fewer rows (``n_max`` <= K*B)
-        and is indexed by the plan on arrival."""
+                      lo: int, hi: int, with_data: bool) -> "CohortBlock":
+        """What this rank's block ``[lo, hi)`` of the cohort reads of the
+        client state and the population (:class:`CohortBlock`). Unsharded
+        it is read off the state (each client's optimizer rows a view: a
+        stacked copy would hold k clients' optimizer state twice); the
+        data rows are the caller's. Sharded, one exchange brings each row
+        from the rank that owns it (``podscale.exchange_rows``): every
+        rank takes part, each sending the rows it owns of what every rank
+        wants. A rank wants
+
+        * its block's optimizer rows, its aux rows and, ``with_data``,
+          its data: each client's plan rows, or its whole shard where
+          that is fewer rows (``n_max`` <= K*B) or the algorithm reads
+          it (qFFL's full loss), indexed by the plan on arrival;
+        * with ``pre_round`` (APFL, DRFA), every dispatched client's aux
+          rows and, ``with_data``, first B storage rows in place of the
+          block's aux: the hook reads the whole cohort (APFL's adaptive
+          alpha is the cohort's mean), so every rank runs it on every
+          client and keeps its block's rows;
+        * with ``with_data`` and a probe in the plan (DRFA's dual
+          update), every probe client's batch."""
         idx, dev = plan.idx.to(torch.int64), self.device
+        alg = self.algorithm
         if not self.state_sharded:
             # lint: disable=FTL001 — the plan's ids lie on the host
             mine = idx[lo:hi].tolist()
-            return [tree_take(clients.opt, c) for c in mine], \
-                tree_take(clients.aux, idx[lo:hi].to(dev)), None
-        if self._pre_round or self.algorithm.needs_full_loss:
-            raise ValueError(
-                f"{self.algorithm.name} reads the population outside the "
-                "round's exchange (validate_cell refuses it on several "
-                "ranks)")
-        W, S, k = self.mesh_devices, self.client_shards, idx.shape[0]
+            return CohortBlock([tree_take(clients.opt, c) for c in mine],
+                               tree_take(clients.aux, idx[lo:hi].to(dev)))
+        W, k = self.mesh_devices, idx.shape[0]
         # lint: disable=FTL001 — the plan's ids lie on the host
         ids = idx.tolist()
-        owner = [client_owner(c, self.num_clients, W) for c in ids]
-        # rank r runs the block of its shard s = r // (W/S) (row-major
-        # [S, W/S] mesh); every rank of a shard wants the same rows
-        per, reps = k // S, W // S
-        want = [list(range((r // reps) * per, (r // reps + 1) * per))
-                for r in range(W)]
-        trees = (clients.opt, clients.aux)
-        leaves = [t for tree in trees for t in tree_leaves(tree)]
-        likes = [(t.shape[1:], t.dtype) for t in leaves]
-        whole = with_data and self.data.n_max <= plan.rows.shape[1]
+        probing = with_data and plan.probe_idx is not None \
+            and alg.needs_post_probe
+        # lint: disable=FTL001 — the plan's ids lie on the host
+        probe_ids = plan.probe_idx.tolist() if probing else []
+        c_lo, B = self.client_rows[0], self.batch_size
+        data = self.data
+        opt_leaves, aux_leaves = (tree_leaves(clients.opt),
+                                  tree_leaves(clients.aux))
+
+        def row_likes(ts, n=None):
+            return [(((n,) if n is not None else ()) + tuple(
+                t.shape[2 if n is not None else 1:]), t.dtype) for t in ts]
+        whole = with_data and (data.n_max <= plan.rows.shape[1]
+                               or alg.needs_full_loss)
+        # the segments of the exchange: (name, the client of each of its
+        # positions, the row layout, the positions each rank wants); a
+        # key is the segment's offset plus a position
+        run = opt_leaves + ([] if self._pre_round else aux_leaves)
+        run_likes = row_likes(run)
         if with_data:
-            n = self.data.n_max if whole else plan.rows.shape[1]
-            likes += [((n,) + tuple(t.shape[2:]), t.dtype)
-                      for t in (self.data.x, self.data.y)]
-        c_lo = self.client_rows[0]
+            n = data.n_max if whole else plan.rows.shape[1]
+            run_likes += row_likes((data.x, data.y), n)
+        blocks = [self.cohort_block_of(k, r) for r in range(W)]
+        segments = [("run", ids, run_likes,
+                     [list(range(a, b)) for a, b in blocks])]
+        if self._pre_round:
+            pre_likes = row_likes(aux_leaves) + (
+                row_likes((data.x, data.y), B) if with_data else [])
+            segments.append(("pre", ids, pre_likes, [list(range(k))] * W))
+        if probing:
+            segments.append(("probe", probe_ids, row_likes(
+                (data.x, data.y), plan.probe_rows.shape[1]),
+                [list(range(len(probe_ids)))] * W))
+        offsets, owner, sizes, want = [], [], [], [[] for _ in range(W)]
+        for _, seg_ids, likes, keys in segments:
+            offsets.append(len(owner))
+            owner += [client_owner(c, self.num_clients, W) for c in seg_ids]
+            sizes += [row_bytes(likes)] * len(seg_ids)
+            for r in range(W):
+                want[r] += [offsets[-1] + j for j in keys[r]]
+        first = torch.arange(B, device=dev).clamp_max(
+            data.n_max - 1)[None, :] if with_data else None
+
+        def pack_segment(s, pos):
+            name, seg_ids = segments[s][:2]
+            loc = torch.tensor([seg_ids[j] - c_lo for j in pos],
+                               dtype=torch.int64, device=dev)
+            # lint: disable=FTL005 — a segment's name, a host string
+            if name == "probe":
+                r = plan.probe_rows[pos].to(dev)
+                rows = [data.x[loc[:, None], r], data.y[loc[:, None], r]]
+            # lint: disable=FTL005 — a segment's name, a host string
+            elif name == "pre":
+                rows = [t[loc] for t in aux_leaves]
+                if with_data:
+                    rows += [data.x[loc[:, None], first],
+                             data.y[loc[:, None], first]]
+            else:
+                rows = [t[loc] for t in run]
+                if whole:
+                    rows += [data.x[loc], data.y[loc]]
+                elif with_data:
+                    r = plan.rows[pos].to(dev)
+                    rows += [data.x[loc[:, None], r],
+                             data.y[loc[:, None], r]]
+            return rows_as_bytes(rows, len(pos)).reshape(-1)
 
         def pack(keys):
-            loc = torch.tensor([ids[j] - c_lo for j in keys],
-                               dtype=torch.int64, device=dev)
-            rows = [t[loc] for t in leaves]
-            if whole:
-                rows += [self.data.x[loc], self.data.y[loc]]
-            elif with_data:
-                r = plan.rows[keys].to(dev)
-                rows += [self.data.x[loc[:, None], r],
-                         self.data.y[loc[:, None], r]]
-            return rows_as_bytes(rows, len(keys))
+            # runs of one segment's keys, each packed in one gather
+            out, s, pos = [], None, []
+            for key in keys:
+                ks = bisect.bisect_right(offsets, key) - 1
+                if ks != s and pos:
+                    out.append(pack_segment(s, pos))
+                    pos = []
+                s = ks
+                pos.append(key - offsets[ks])
+            out.append(pack_segment(s, pos))
+            return torch.cat(out)
 
         before = gathered_bytes("exchange")
-        block = iter(bytes_as_rows(exchange_rows(
-            pack, row_bytes(likes), want, owner, rank(), W, dev), likes))
+        flat = exchange_rows(pack, sizes, want, owner, rank(), W, dev)
         self._exchange_bytes = float(gathered_bytes("exchange") - before)
-        opt, aux = (tree_fill(tree, block) for tree in trees)
+        got, off = {}, 0
+        for (name, _, likes, keys) in segments:
+            n, width = len(keys[rank()]), row_bytes(likes)
+            got[name] = iter(bytes_as_rows(
+                flat[off:off + n * width].reshape(n, width), likes))
+            off += n * width
+        block = got["run"]
+        opt = tree_fill(clients.opt, block)
         opt = [tree_take(opt, j) for j in range(hi - lo)]
-        if not with_data:
-            return opt, aux, None
-        x, y = next(block), next(block)
-        if whole:
-            on = torch.arange(hi - lo, device=dev)[:, None]
-            r = plan.rows[lo:hi].to(dev)
-            x, y = x[on, r], y[on, r]
-        return opt, aux, (x, y)
+        if self._pre_round:
+            aux = tree_fill(clients.aux, got["pre"])
+        else:
+            aux = tree_fill(clients.aux, block)
+        out = CohortBlock(opt, aux)
+        if with_data:
+            x, y = next(block), next(block)
+            if whole:
+                if alg.needs_full_loss:
+                    out = out._replace(shards=list(zip(x, y)))
+                on = torch.arange(hi - lo, device=dev)[:, None]
+                r = plan.rows[lo:hi].to(dev)
+                x, y = x[on, r], y[on, r]
+            out = out._replace(x=x, y=y)
+            if self._pre_round:
+                out = out._replace(pre_x=next(got["pre"]),
+                                   pre_y=next(got["pre"]))
+        if probing:
+            out = out._replace(probe=CohortProbe(
+                plan.probe_idx, next(got["probe"]), next(got["probe"])))
+        return out
+
+    def _gather_cohort(self, outs, k: int, lo: int, hi: int):
+        """The 1-D mesh's cohort gather: this rank's block ``[lo, hi)``
+        of the local loops' outputs (``outs``, as :meth:`_client_loops`
+        returns them; None for an empty block) -> the same for all k
+        clients, on every rank, through one ``podscale.gather_cohort``.
+        What rides: the payloads, the raw deltas (guards on), the
+        optimizer and aux rows, the epochs, local indices, losses and
+        accuracies and (``client_post`` runs) each client's round-end
+        params and delta (the raw deltas' rows where the guards ride
+        them)."""
+        parts = None
+        if outs is not None:
+            (stacked, wire_deltas, client_opts, client_aux, epochs,
+             local_index, losses, accs, kept) = outs
+            parts = {"payload": stacked, "opt": client_opts,
+                     "aux": client_aux, "epoch": epochs,
+                     "local_index": local_index, "loss": losses,
+                     "acc": accs}
+            if wire_deltas is not None:
+                parts["delta"] = wire_deltas
+            if self._client_post:
+                parts["kept_params"] = tree_stack([p for _, p in kept])
+                if wire_deltas is None:
+                    parts["kept_delta"] = tree_stack([d for d, _ in kept])
+        blocks = [self.cohort_block_of(k, r) for r in range(self.mesh_devices)]
+        if any(b == a for a, b in blocks) and self._cohort_layout is None:
+            # a rank runs no client this round: rank 0 sends the rows'
+            # layout, once a run
+            self._cohort_layout = cohort_layout(parts)
+        layout = None
+        if parts is None:
+            layout = tree_map(lambda t: t.to(self.device)
+                              if isinstance(t, torch.Tensor) else t,
+                              self._cohort_layout)
+        before = gathered_bytes("cohort")
+        full = gather_cohort(parts, k, self.device, layout)
+        self._cohort_bytes = float(gathered_bytes("cohort") - before)
+        kept = []
+        if self._client_post:
+            deltas = full.get("kept_delta", full.get("delta"))
+            kept = [(tree_take(deltas, j), tree_take(full["kept_params"], j))
+                    for j in range(k)]
+        return (full["payload"], full.get("delta"), full["opt"],
+                full["aux"], full["epoch"], full["local_index"],
+                full["loss"], full["acc"], kept)
 
     def _step_budget(self, size: int, scale: float) -> int:
         """A client's local steps this round: ``K``, or under epoch sync
@@ -1308,7 +1509,7 @@ class FederatedTrainer:
         guards' screen gathers the whole cohort's update norms first
         (``podscale.gather_row_stats``)."""
         k = weights.shape[0]
-        lo, hi = self.cohort_rows(k)
+        lo, hi = self.seam_rows(k)
         counts = torch.zeros(4, device=weights.device)
         accept = None
         if self.guard_on:
@@ -1539,7 +1740,8 @@ class FederatedTrainer:
                 feed_layout=self.feed_layout, device=self.device,
                 timeout_s=self.stream_timeout_s,
                 cohort_rows=self.cohort_rows(self.cohort_width)
-                if self.podscale_armed else None)
+                if self.podscale_armed or self.flat_ranks else None,
+                whole_pre=self._pre_round)
             # a trainer dropped without close() must not leave the
             # producer thread running (the producer holds no reference
             # back to the trainer)
@@ -1627,14 +1829,16 @@ class FederatedTrainer:
         if self.podscale_armed:
             # the shard count, the [G, P] bytes of the seam's gather and
             # the bytes of its whole buffer a round (both absent before
-            # the first round); the bytes this rank holds of the client
-            # state and of the population (device plane); the bytes the
-            # exchange and the guards' norm gather brought it a round
-            # (absent until one ran)
+            # the first round)
             out["client_shards"] = float(self.client_shards)
             if self._allreduce_bytes is not None:
                 out["cohort_allreduce_bytes"] = self._allreduce_bytes
                 out["cohort_gather_bytes"] = self._gather_bytes
+        if self.podscale_armed or self.state_sharded:
+            # the bytes this rank holds of the client state and of the
+            # population (device plane); the bytes the exchange, the
+            # guards' norm gather and the 1-D mesh's cohort gather
+            # brought it a round (absent until one ran)
             out["client_state_bytes"] = float(self._client_state_bytes)
             out["population_bytes"] = float(sum(
                 t.numel() * t.element_size() for t in self.data)) \
@@ -1643,6 +1847,8 @@ class FederatedTrainer:
                 out["client_exchange_bytes"] = self._exchange_bytes
             if self._norm_bytes is not None:
                 out["guard_norm_gather_bytes"] = self._norm_bytes
+            if self._cohort_bytes is not None:
+                out["flat_cohort_gather_bytes"] = self._cohort_bytes
         return out
 
     def staleness_histogram(self) -> Optional[dict]:

@@ -17,6 +17,17 @@ on the federated engine with:
   needs none;
 * with ``reshuffle_per_epoch`` the data re-partitioned IID across the
   workers at each new epoch (distributed.py:129-134).
+
+On several ranks (``mesh.client_shards`` 0, the JAX package's 1-D mesh)
+it is the engine's round with k = C: the workers' state and shards are
+sharded over the ranks by the owner rule (``parallel/mesh.py``
+``owned_client_rows``), each rank runs its ``ceil(C/W)`` workers of the
+round, and the cohort gather brings every rank every worker's rows
+before the average (``parallel/federated.py``). A reshuffle keeps this
+rank's workers' rows of the new partition, as the JAX package's
+re-shards it. The loop control reads the replicated ``[C]`` epochs and
+local indices, which hold the real workers only, so the stop counts no
+padding row.
 """
 from __future__ import annotations
 
@@ -35,7 +46,6 @@ from fedtorch_tpu_torch.data.batching import (
 from fedtorch_tpu_torch.data.partition import iid_partition
 from fedtorch_tpu_torch.models.common import ModelDef
 from fedtorch_tpu_torch.parallel.federated import FederatedTrainer, RoundPlan
-from fedtorch_tpu_torch.parallel.mesh import world_size
 
 
 class LocalSGDAggregation(FedAvg):
@@ -56,14 +66,6 @@ class LocalSGDTrainer(FederatedTrainer):
 
     def __init__(self, cfg: ExperimentConfig, model: ModelDef,
                  data: ClientData, raw_splits=None, device=None):
-        if world_size() > 1:
-            # the JAX package shards the workers over its mesh
-            # (shard_clients); the port has no such placement yet
-            raise ValueError(
-                f"local-SGD mode on {world_size()} ranks is not yet ported: "
-                "its workers would shard over the JAX package's 1-D "
-                "device mesh, which the port does not build (run it in "
-                "one process; ROADMAP A10)")
         if cfg.data.data_plane != "device":
             raise ValueError("local-SGD mode runs on the device data "
                              "plane; data_plane='stream' is for "
@@ -124,12 +126,12 @@ class LocalSGDTrainer(FederatedTrainer):
 
     def _reshuffle(self, epoch_seed: int) -> None:
         """reshuffle_per_epoch: a new IID partition across the workers
-        (distributed.py:129-134)."""
+        (distributed.py:129-134); this rank keeps its workers' rows."""
         feats, labels = self._raw_splits
         parts = iid_partition(len(labels), self.num_clients, seed=epoch_seed)
         data = stack_partitions(feats, labels, parts)
         self.sizes = [int(s) for s in data.sizes]
-        self.data = data.to(self.device)
+        self.data = self._owned_population(data).to(self.device)
 
     def fit(self, rng, callback=None):
         """Rounds until the stop criterion (distributed.py:107-120): the
@@ -142,7 +144,9 @@ class LocalSGDTrainer(FederatedTrainer):
         history = []
         last_epoch_int = 0
         while True:
-            # the two loop-control scalars in one transfer
+            # the two loop-control scalars in one transfer (the [C]
+            # epochs and local indices are every real worker's, on every
+            # rank)
             epoch, it = torch.stack([
                 clients.epoch.mean(),
                 clients.local_index.max().to(torch.float32)]).tolist()

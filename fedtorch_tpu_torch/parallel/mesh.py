@@ -34,7 +34,12 @@ here each rank holds tensors:
   and ``local_index`` ([C], 8 B a client) stay replicated;
 * the ``[k]`` cohort (:func:`cohort_sharding`): the contiguous block
   ``[s*k/S, (s+1)*k/S)`` of the rank's shard s; its local loops, its
-  feed rows and its level-1 partials;
+  feed rows and its level-1 partials. At ``client_shards`` 0 on W > 1
+  ranks (the JAX package's 1-D mesh) rank r runs the block of
+  ``ceil(k/W)`` rows from ``r*ceil(k/W)`` (:func:`cohort_block`), and
+  one gather after the local loops brings every rank the whole cohort
+  (``parallel/podscale.py`` :func:`~fedtorch_tpu_torch.parallel.
+  podscale.gather_cohort`);
 * everything else (the server state, the plan, the ``[k]`` vectors):
   replicated, the same on every rank, since every rank draws the whole
   plan from the same generator.
@@ -256,24 +261,47 @@ def mesh_client_shards(mesh) -> int:
     return int(mesh.shape[0])
 
 
-def local_cohort_rows(mesh, k: int, shards: int):
-    """``[lo, hi)``, the cohort rows this rank runs and packs under
-    S-way client sharding: shard s's contiguous block of k/S rows (s is
-    the rank's coordinate along mesh dimension 0). The full range when
-    unsharded."""
-    if shards <= 1 or k % shards or mesh is None or mesh.ndim < 2:
+def cohort_block(k: int, world: int, shards: int, rank_: int):
+    """``[lo, hi)``, the cohort rows rank ``rank_`` of ``world`` runs:
+
+    * ``shards`` S >= 1 (the ``[S, world/S]`` mesh): shard s = rank //
+      (world/S) runs the contiguous block of k/S rows (all k at S = 1);
+    * ``shards`` 0 on several ranks (the 1-D mesh): rank r runs the
+      contiguous block of ``ceil(k/world)`` rows from ``r*ceil(k/world)``,
+      the last ranks' shorter or empty, as GSPMD pads a ``[k]`` axis
+      over ``world`` devices (k = 10 on 4 ranks: 3, 3, 3, 1);
+    * one rank: all k."""
+    if world <= 1 or shards == 1 or (shards > 1 and k % shards):
         return 0, k
-    per = k // shards
-    s = mesh.get_local_rank(0)
-    return s * per, (s + 1) * per
+    if shards > 1:
+        per = k // shards
+        s = rank_ // (world // shards)
+        return s * per, (s + 1) * per
+    per = -(-k // world)
+    return min(rank_ * per, k), min((rank_ + 1) * per, k)
+
+
+def local_cohort_rows(mesh, k: int, shards: int):
+    """``[lo, hi)``, the cohort rows this rank runs and packs:
+    :func:`cohort_block` of its place on ``mesh`` (S-way client sharding
+    on a 2-D mesh, the ``ceil(k/W)`` block on a 1-D mesh of W ranks).
+    The full range without a mesh."""
+    if mesh is None:
+        return 0, k
+    if mesh.ndim < 2:
+        return cohort_block(k, mesh.size(), 0, mesh.get_local_rank(0))
+    # shard s is the rank's coordinate along mesh dimension 0: the block
+    # of rank s of S ranks at S shards
+    return cohort_block(k, shards, shards, mesh.get_local_rank(0))
 
 
 def cohort_sharding(mesh, k: int):
-    """The ``[k]`` cohort rows a rank holds: its shard's block."""
+    """The ``[k]`` cohort rows a rank runs: its shard's block, or its
+    ``ceil(k/W)`` block on a 1-D mesh (:func:`cohort_block`)."""
     return local_cohort_rows(mesh, k, mesh_client_shards(mesh))
 
 
-__all__ = ["choose_backend", "client_owner", "cohort_sharding",
+__all__ = ["choose_backend", "client_owner", "cohort_block", "cohort_sharding",
            "init_multihost", "local_cohort_rows", "make_mesh",
            "mesh_client_shards", "owned_client_rows", "padded_client_count",
            "rank", "ranks_on_host", "world_size"]

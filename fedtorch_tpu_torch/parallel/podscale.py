@@ -36,10 +36,9 @@ gather is staged through a pinned host buffer when the process group is
 gloo and the rows lie on a card (gloo's all-gather takes host tensors);
 NCCL gathers on the card.
 
-Two more collectives carry what GSPMD moves for the JAX package, each
-with a counter and a byte count of its own (the JAX
-``collective_budget``, and so :func:`collective_count`, counts the
-seam's gather alone):
+More collectives carry what GSPMD moves for the JAX package, each with
+a counter and a byte count of its own (the JAX ``collective_budget``,
+and so :func:`collective_count`, counts the seam's gather alone):
 
 * **the exchange** (:func:`exchange_rows`): the client state and, on the
   device data plane, the population are sharded over the ranks
@@ -50,7 +49,17 @@ seam's gather alone):
 * **the guards' norm gather** (:func:`gather_row_stats`): the update
   guards take the median over the whole cohort's update norms, so each
   rank's ``[k/S]`` norms and candidate flags are gathered to every rank
-  of its shard group before the screen.
+  of its shard group before the screen;
+* **the cohort gather** (:func:`gather_cohort`), at ``client_shards`` 0
+  on W > 1 ranks (the JAX package's 1-D mesh, where GSPMD places every
+  cross-client reduction and no seam runs): each rank runs its
+  ``ceil(k/W)`` rows of the cohort, then one ``all_gather`` brings
+  every rank every client's rows of what the rest of the round reads,
+  and every rank runs that rest on the whole cohort, as one rank does.
+  Where a rank's block is empty (k not above ``(W-1)*ceil(k/W)``) it
+  cannot know the rows' layout: rank 0 sends it once, by one
+  ``broadcast_object_list`` (:func:`cohort_layout`, counted under
+  'layout').
 """
 from __future__ import annotations
 
@@ -59,7 +68,8 @@ import math
 import numpy as np
 import torch
 
-from fedtorch_tpu_torch.core.state import tree_fill, tree_leaves
+from fedtorch_tpu_torch.core.state import tree_fill, tree_leaves, tree_map
+from fedtorch_tpu_torch.parallel.mesh import cohort_block
 
 # cap on the group count: bounds the level-2 chain while leaving every
 # shard count up to 64 a whole number of groups per shard
@@ -69,8 +79,10 @@ MAX_AGG_GROUPS = 64
 # 'seam' the all_gathers of :func:`cohort_hierarchical_sum` (the tests,
 # the chip check and the trainer's ``cohort_gather_bytes`` gauge read
 # them), 'exchange' :func:`exchange_rows`, 'norms'
-# :func:`gather_row_stats`
-_COUNTS = {"seam": [0, 0], "exchange": [0, 0], "norms": [0, 0]}
+# :func:`gather_row_stats`, 'cohort' :func:`gather_cohort`, 'layout'
+# :func:`cohort_layout`
+_COUNTS = {"seam": [0, 0], "exchange": [0, 0], "norms": [0, 0],
+           "cohort": [0, 0], "layout": [0, 0]}
 
 
 def reset_collective_count() -> None:
@@ -237,31 +249,30 @@ def gather_row_stats(norms: torch.Tensor, flags: torch.Tensor, mesh,
     return norms_k, flags_k
 
 
-def exchange_rows(pack, row_bytes: int, want, owner, me: int,
-                  world: int, device) -> torch.Tensor:
+def exchange_rows(pack, sizes, want, owner, me: int, world: int,
+                  device) -> torch.Tensor:
     """Each rank's rows from their owners: one ``all_to_all_single`` over
     the default process group (counted under 'exchange'; staged through
     pinned host memory on gloo).
 
-    ``want[r]`` lists the keys (cohort positions) rank r needs, in its
-    order, the same list on every rank; ``owner[key]`` the rank that
-    holds each key's row; ``pack(keys)`` gives this rank's rows of
-    ``keys`` (all its own) as ``[len(keys), row_bytes]`` uint8 on
-    ``device``. Returns ``[len(want[me]), row_bytes]`` uint8 in
-    ``want[me]``'s order. The byte count is of the rows that came from
-    other ranks."""
+    ``want[r]`` lists the keys rank r needs, in its order, the same
+    lists on every rank; ``owner[key]`` the rank that holds each key's
+    row and ``sizes[key]`` its bytes; ``pack(keys)`` gives this rank's
+    rows of ``keys`` (all its own), concatenated as flat uint8 on
+    ``device``. Returns the rows of ``want[me]``, concatenated in its
+    order. The byte count is of the rows that came from other ranks."""
     import torch.distributed as dist
     send_keys = [key for r in range(world) for key in want[r]
                  if owner[key] == me]
-    send_split = [sum(owner[key] == me for key in want[r]) * row_bytes
+    send_split = [sum(sizes[key] for key in want[r] if owner[key] == me)
                   for r in range(world)]
     # what arrives: grouped by the sending rank, each group in want[me]'s
     # order
     arrive = [i for o in range(world) for i, key in enumerate(want[me])
               if owner[key] == o]
-    recv_split = [sum(owner[key] == o for key in want[me]) * row_bytes
+    recv_split = [sum(sizes[key] for key in want[me] if owner[key] == o)
                   for o in range(world)]
-    send = pack(send_keys).reshape(-1) if send_keys \
+    send = pack(send_keys) if send_keys \
         else torch.empty(0, dtype=torch.uint8, device=device)
     group = dist.group.WORLD
     src = host_staged(send, group)
@@ -269,10 +280,55 @@ def exchange_rows(pack, row_bytes: int, want, owner, me: int,
                        device=src.device)
     dist.all_to_all_single(recv, src, recv_split, send_split, group=group)
     _count("exchange", sum(recv_split) - recv_split[me])
-    recv = recv.to(device).reshape(len(arrive), row_bytes)
-    out = torch.empty_like(recv)
-    out[torch.tensor(arrive, dtype=torch.int64, device=device)] = recv
-    return out
+    recv = recv.to(device)
+    rows, off = [None] * len(want[me]), 0
+    for i in arrive:
+        n = sizes[want[me][i]]
+        rows[i] = recv[off:off + n]
+        off += n
+    return torch.cat(rows) if rows \
+        else torch.empty(0, dtype=torch.uint8, device=device)
+
+
+def cohort_layout(parts):
+    """The tree ``parts`` as rank 0 holds it, with zero-row host leaves:
+    what a rank with an empty cohort block needs to read the cohort
+    gather's rows (one ``broadcast_object_list`` from rank 0, counted
+    under 'layout'; ``parts`` is read on rank 0 only)."""
+    import torch.distributed as dist
+    box = [None]
+    if dist.get_rank() == 0:
+        box[0] = tree_map(lambda t: t[:0].cpu()
+                          if isinstance(t, torch.Tensor) else t, parts)
+    dist.broadcast_object_list(box, src=0)
+    _count("layout", 0)
+    return box[0]
+
+
+def gather_cohort(parts, k: int, device, layout=None):
+    """The whole ``[k]`` cohort's rows of a tree on every rank of a 1-D
+    mesh: ``parts`` holds this rank's rows, its block of
+    :func:`~fedtorch_tpu_torch.parallel.mesh.cohort_block` (None where
+    the block is empty; ``layout``, from :func:`cohort_layout`, then
+    gives the tree). One ``all_gather`` over the default process group
+    of ``ceil(k/W)`` rows a rank, each row every leaf's row bytes, the
+    short blocks padded (counted under 'cohort', the whole buffer);
+    returns the tree with every leaf's k rows in cohort order, on
+    ``device``."""
+    import torch.distributed as dist
+    world, me = dist.get_world_size(), dist.get_rank()
+    blocks = [cohort_block(k, world, 0, r) for r in range(world)]
+    tree = parts if parts is not None else layout
+    likes = [(tuple(t.shape[1:]), t.dtype) for t in tree_leaves(tree)]
+    per, width = -(-k // world), row_bytes(likes)
+    lo, hi = blocks[me]
+    buf = torch.zeros((per, width), dtype=torch.uint8, device=device)
+    if hi > lo:
+        buf[:hi - lo] = rows_as_bytes(tree_leaves(parts), hi - lo)
+    full = _all_gather_bytes(buf.reshape(-1), dist.group.WORLD, world,
+                             kind="cohort").reshape(world, per, width)
+    rows = torch.cat([full[r, :b - a] for r, (a, b) in enumerate(blocks)])
+    return tree_fill(tree, bytes_as_rows(rows, likes))
 
 
 def cohort_hierarchical_sum(payloads, mesh=None, shards: int = 1,
@@ -356,6 +412,7 @@ def cohort_hierarchical_sum(payloads, mesh=None, shards: int = 1,
 
 __all__ = ["MAX_AGG_GROUPS", "bytes_as_rows", "cohort_allreduce_bytes",
            "cohort_group_count", "cohort_hierarchical_sum",
-           "collective_count", "exchange_rows", "gather_row_stats",
+           "cohort_layout", "collective_count", "exchange_rows",
+           "gather_cohort", "gather_row_stats",
            "gathered_bytes", "host_staged", "reset_collective_count",
            "row_bytes", "rows_as_bytes"]

@@ -17,16 +17,21 @@ package's reason where the JAX package refuses it. Its client-shard
 rules (``mesh.client_shards`` S > 1, ``parallel/podscale.py``) are the
 JAX package's word for word, but one: the port has no ``gather_mode``
 (its one gather selects the rows of the JAX 'batch' mode), so the JAX
-rule against ``gather_mode='shard'`` has nothing to refuse. Three more
-are the port's own, each for a cross-rank exchange the JAX package
-leaves to GSPMD and the port does not make: the 'collude' byzantine
-attack under S > 1 (its crafted update is the honest mean over the
-whole cohort, taken before the wire format); on several ranks at S = 1,
-what the S > 1 rules refuse for reading the whole population or
-cross-client state outside the seam (the client state and the
-population are sharded over the ranks, ``parallel/mesh.py``); and, on
-more than one rank, ``client_shards`` 0 (the JAX package's 1-D
-multi-device mesh).
+rule against ``gather_mode='shard'`` has nothing to refuse. One more is
+the port's own: the 'collude' byzantine attack under S > 1 (its crafted
+update is the honest mean over the whole cohort, taken before the wire
+format, a cross-rank reduction the seam does not make; ROADMAP A10).
+``client_shards`` 0 on several ranks (the JAX package's 1-D mesh, where
+GSPMD places every cross-client sum) is served: each rank runs its
+``ceil(k/W)`` rows of the cohort and one gather brings every rank the
+whole cohort before the rest of the round (``parallel/podscale.py``
+``gather_cohort``), so every algorithm, robust rule, ``cohort_stats``
+and byzantine mode runs there, and so does local-SGD mode; on several
+ranks at S = 1 the exchange also brings the rows the population readers
+take (``pre_round``'s batches, qFFL's shards, DRFA's probe batches).
+The personal evaluation (``parallel/evaluate.py`` ``evaluate_personal``,
+which reads every client's models) is refused on several ranks where it
+runs (ROADMAP A10).
 
 On the port a "scan" is a host loop over the R rounds (over one feed
 window on the feed source), not a captured graph: the per-client loop
@@ -246,20 +251,6 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
                     "format, a cross-rank reduction the client-shard "
                     "seam does not make — use another byzantine_mode "
                     f"under mesh.client_shards={shards} (ROADMAP A10)")
-    elif shards == 1 and mesh_devices > 1:
-        # the port's own rule (module docstring): the client state and
-        # the population are sharded over the ranks
-        alg_name = cfg.effective_algorithm
-        if alg_name not in ASYNC_ALGORITHMS or has_val \
-                or algorithm.needs_val_batch or cfg.federated.personal:
-            return (f"mesh.client_shards=1 on {mesh_devices} ranks shards "
-                    "the client state and the population over the ranks, "
-                    f"and algorithm {alg_name!r} (or its per-client "
-                    "validation splits) reads them outside the round's "
-                    "exchange — only the FedAvg family "
-                    f"({', '.join(ASYNC_ALGORITHMS)}) without personal "
-                    "splits runs on several ranks (ROADMAP A10)")
-
     # -- execution axis: the JAX package's rules -------------------------
     if execution == "fused" and mesh_devices > 1:
         return ("mesh.client_fusion='fused' is unsupported: mesh has "
@@ -272,15 +263,6 @@ def illegal_reason(source: str, dispatch: str, execution: str, *, cfg,
                                       mesh_devices, k_online)
         if fused is None:
             return f"mesh.client_fusion='fused' is unsupported: {why}"
-
-    # -- the port's own rule of the rank count (module docstring) -------
-    if shards == 0 and mesh_devices > 1:
-        return (f"mesh.client_shards=0 on {mesh_devices} ranks is the JAX "
-                "package's 1-D multi-device mesh, where GSPMD places "
-                "every cross-client sum; the port spreads a round over "
-                "ranks only through the client-shard seam (set "
-                "mesh.client_shards to a power of two dividing the "
-                "rank count)")
     return None
 
 

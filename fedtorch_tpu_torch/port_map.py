@@ -66,7 +66,9 @@ MODULE_MAP = {
     # seeded permutation and svmlight parser) has no counterpart.
     # round_program.collective_budget is ported (ROADMAP A10): the port
     # counts the collectives its client-shard seam issues
-    # (podscale.collective_count), where the JAX package's program audit
+    # (podscale.collective_count), and at client_shards 0 on several
+    # ranks its cohort gathers (collective_count('cohort'), one a round,
+    # the JAX budget there), where the JAX package's program audit
     # (FTP004) certifies them
     **_ported("native/__init__.py", "native/host_pipeline.py"),
     # the run lifecycle and the telemetry writer (ROADMAP A7, first half)
@@ -101,7 +103,10 @@ MODULE_MAP = {
     # per-block rematerialization) in each model family's module
     **_ported("parallel/fusion.py"),
     # ROADMAP A10: pod-scale client sharding on torch.distributed (a
-    # DeviceMesh over the ranks, the grouped sum's one all_gather)
+    # DeviceMesh over the ranks, the grouped sum's one all_gather), and
+    # the JAX package's 1-D mesh at client_shards 0 (each rank's
+    # ceil(k/W) rows of the cohort, one gather of them after the local
+    # loops), local-SGD mode on it too
     **_ported("parallel/mesh.py", "parallel/podscale.py"),
     # ROADMAP A11: the model-parallel forwards on torch.distributed, a
     # DeviceMesh in place of jax.sharding.Mesh

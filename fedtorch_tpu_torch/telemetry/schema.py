@@ -123,6 +123,12 @@ METRICS_OPTIONAL = {
                                "gather brings each rank per round "
                                "(client_shards > 1; the port's own "
                                "gauge)",
+    "flat_cohort_gather_bytes": "bytes of the buffer the cohort gather "
+                                "of the 1-D mesh (client_shards 0 on "
+                                "several ranks) brings each rank per "
+                                "round: every client's rows of what the "
+                                "round reads after the local loops (the "
+                                "port's own gauge)",
     "stream_shard_rows": "cohort rows THIS host's producer packed "
                          "(its owned shard slices; k/S per shard)",
     "stream_shard_pack_s": "producer wall spent packing this host's "

@@ -273,12 +273,12 @@ def test_collude_under_client_shards_is_refused_by_name():
 @pytest.mark.parametrize("facts", [dict(algorithm="qffl"),
                                    dict(algorithm="apfl")],
                          ids=["qffl", "apfl"])
-def test_sharded_state_at_one_shard_refuses_population_readers(facts):
+def test_population_readers_at_one_shard_are_served_on_ranks(facts):
     """At S=1 on several ranks the population and the client state are
-    sharded too: an algorithm that reads them outside the exchange is
-    refused there, and served in one process."""
-    reason = _port_reason(1, 2, **facts)
-    assert reason.startswith("mesh.client_shards=1 on 2 ranks shards")
+    sharded; the exchange brings the rows an algorithm reads of them
+    (``tests/test_torch_flat_mesh.py`` runs them bitwise), so the
+    validator serves them there as in one process."""
+    assert _port_reason(1, 2, **facts) is None
     assert _port_reason(1, 1, **facts) is None
 
 
@@ -312,13 +312,16 @@ def test_the_owner_rule_is_the_jax_placement(clients, world):
                 tmesh.owned_client_rows(clients, world, rank)
 
 
-def test_several_ranks_without_client_shards_are_refused():
+def test_several_ranks_without_client_shards_are_served():
+    """The JAX package's 1-D mesh (``tests/test_torch_flat_mesh.py``
+    runs it); the fused execution there keeps the JAX refusal."""
     cfg = pod_cfg("resident", "round", 0)
-    reason = trp.illegal_reason(
-        "resident", "round", "vmap", cfg=cfg, algorithm=tmake(cfg),
-        model=tdefine(cfg, batch_size=8, device="cpu"), mesh_devices=2,
-        k_online=4)
-    assert reason.startswith("mesh.client_shards=0 on 2 ranks")
+    kw = dict(cfg=cfg, algorithm=tmake(cfg),
+              model=tdefine(cfg, batch_size=8, device="cpu"),
+              mesh_devices=2, k_online=4)
+    assert trp.illegal_reason("resident", "round", "vmap", **kw) is None
+    assert "mesh has 2 devices" in trp.illegal_reason(
+        "resident", "round", "fused", **kw)
 
 
 @pytest.mark.parametrize("shards, devices, want", [

@@ -54,10 +54,12 @@ def test_the_catalog_and_the_schema_names_are_the_jax_package_s():
     # the port's gauges of its own: the bytes of the client-shard
     # seam's whole gather (its riders ride where GSPMD moves the JAX
     # package's), of the client state and population a rank holds, of
-    # the exchange of cohort rows and of the guards' norm gather
+    # the exchange of cohort rows, of the guards' norm gather and of the
+    # 1-D mesh's cohort gather
     assert set(tschema.METRICS_OPTIONAL) == set(jtel.METRICS_OPTIONAL) \
         | {"cohort_gather_bytes", "client_state_bytes", "population_bytes",
-           "client_exchange_bytes", "guard_norm_gather_bytes"}
+           "client_exchange_bytes", "guard_norm_gather_bytes",
+           "flat_cohort_gather_bytes"}
     assert tschema.HEALTH_INTENTS == jtel.HEALTH_INTENTS
 
 

@@ -219,11 +219,13 @@ def pipeline(mesh_of, world, model, params, tokens, num_microbatches):
 
 def pod_cfg(source, dispatch, shards, *, num_clients=8, rate=0.5,
             store="ram", store_dir="", algorithm="fedavg", buffer_size=4,
-            fault_kw=None, telemetry_kw=None, local_step=2, mod=None):
+            fault_kw=None, telemetry_kw=None, local_step=2, mod=None,
+            fed_kw=None, optim_kw=None):
     """The JAX package's ``tests/test_podscale.py`` cell (``make_cfg``):
     synthetic 16 features, ``logistic_regression``, 8 clients at rate
     0.5, batch 8, 2 local steps (``local_step``); in the config module
-    ``mod`` (the port's by default, or the JAX package's)."""
+    ``mod`` (the port's by default, or the JAX package's); ``fed_kw``
+    and ``optim_kw`` add federated and optimizer fields."""
     if mod is None:
         from fedtorch_tpu_torch import config as mod
     c = mod
@@ -238,9 +240,11 @@ def pod_cfg(source, dispatch, shards, *, num_clients=8, rate=0.5,
             online_client_rate=rate, algorithm=algorithm,
             sync_type="local_step",
             sync_mode="async" if dispatch == "commit" else "sync",
-            async_buffer_size=buffer_size, async_concurrency=4),
+            async_buffer_size=buffer_size, async_concurrency=4,
+            **(fed_kw or {})),
         model=c.ModelConfig(arch="logistic_regression"),
-        optim=c.OptimConfig(lr=0.3, weight_decay=0.0),
+        optim=c.OptimConfig(**dict(dict(lr=0.3, weight_decay=0.0),
+                                   **(optim_kw or {}))),
         train=c.TrainConfig(local_step=local_step),
         mesh=c.MeshConfig(client_shards=shards),
         fault=c.FaultConfig(**(fault_kw or {})),
@@ -248,31 +252,41 @@ def pod_cfg(source, dispatch, shards, *, num_clients=8, rate=0.5,
 
 
 def pod_trainer(cfg, data=None):
+    """The cell's trainer on the CPU (with the validation split where
+    the config builds one)."""
     from fedtorch_tpu_torch.algorithms import make_algorithm
     from fedtorch_tpu_torch.data import build_federated_data
     from fedtorch_tpu_torch.models import define_model
     from fedtorch_tpu_torch.parallel import FederatedTrainer
-    data = data if data is not None else build_federated_data(cfg).train
+    val = None
+    if data is None:
+        fed = build_federated_data(cfg)
+        data, val = fed.train, fed.val
     model = define_model(cfg, batch_size=cfg.data.batch_size, device="cpu")
     cls = FederatedTrainer
     if cfg.federated.sync_mode == "async":
         from fedtorch_tpu_torch.async_plane import AsyncFederatedTrainer
         cls = AsyncFederatedTrainer
-    t = cls(cfg, model, make_algorithm(cfg), data, device="cpu")
+    t = cls(cfg, model, make_algorithm(cfg), data, val_data=val,
+            device="cpu")
     t.stream_timeout_s = COLLECTIVE_TIMEOUT_S
     return t
+
+
+KINDS = ("seam", "exchange", "norms", "cohort", "layout")
 
 
 def pod_run(trainer, dispatch, rounds=2, seed=3, state=None):
     """``rounds`` rounds (one ``run_rounds`` for 'scan'): the server
     params and aux, the client state (this rank's rows of its trees,
     ``rows``), the metrics, and the collectives each round issued: the
-    client-shard seam's, the exchanges and the guards' norm gathers."""
+    client-shard seam's, the exchanges, the guards' norm gathers, the
+    1-D mesh's cohort gathers and its layout broadcasts."""
     from fedtorch_tpu_torch.parallel import podscale
     server, clients = state if state is not None \
         else trainer.init_state(seed)
     metrics = []
-    counts = {kind: [] for kind in ("seam", "exchange", "norms")}
+    counts = {kind: [] for kind in KINDS}
 
     def note(n):
         for kind, c in counts.items():
@@ -295,8 +309,10 @@ def pod_run(trainer, dispatch, rounds=2, seed=3, state=None):
     return dict(params=server.params, aux=server.aux, clients=clients,
                 metrics=metrics, collectives=counts["seam"],
                 exchanges=counts["exchange"], norm_gathers=counts["norms"],
+                cohort_gathers=counts["cohort"], layouts=counts["layout"],
                 gauges=gauges, rng=server.rng.get_state(),
-                rows=list(trainer.client_rows))
+                rows=list(trainer.client_rows),
+                block=list(trainer.cohort_rows(trainer.cohort_width)))
 
 
 def podscale_cell(mesh_of, source, dispatch, shards, algorithm="fedavg",
@@ -456,3 +472,153 @@ def podscale_torn(mesh_of, store_dir):
     got = pod_run(t, "round", state=(server, clients))
     return dict(ref=ref, got=got, seam=seam, chain=" | ".join(chain),
                 rows=list(rows), rank=dist.get_rank())
+
+
+# -- the 1-D mesh (client_shards 0 on several ranks) -------------------------
+
+def flat_cell(mesh_of, source, dispatch, rounds=2, seed=3, **kw):
+    """A cell at ``client_shards`` 0 on this group's ranks (``kw``:
+    :func:`pod_cfg`'s): what :func:`pod_run` returns."""
+    return pod_run(pod_trainer(pod_cfg(source, dispatch, 0, **kw)),
+                   dispatch, rounds=rounds, seed=seed)
+
+
+def flat_cell_s1(mesh_of, source, dispatch, **kw):
+    """The same cell at ``client_shards`` 1 on this group's ranks."""
+    return pod_run(pod_trainer(pod_cfg(source, dispatch, 1, **kw)),
+                   dispatch)
+
+
+def flat_save(mesh_of, store_dir):
+    """2 rounds at S=0 and a checkpoint of them into ``store_dir``'s
+    ``ckpt_s0`` (every rank joins the gather, rank 0 writes)."""
+    import torch.distributed as dist
+    from fedtorch_tpu_torch.utils.checkpoint import save_checkpoint
+    cfg = pod_cfg("resident", "round", 0)
+    t = pod_trainer(cfg)
+    server, clients = t.init_state(7)
+    for _ in range(2):
+        server, clients, _ = t.run_round(server, clients)
+    save_checkpoint(os.path.join(str(store_dir), "ckpt_s0"), server,
+                    clients, cfg, 0.5, False)
+    dist.barrier()
+    return dict(rows=list(t.client_rows))
+
+
+def flat_resume(mesh_of, store_dir):
+    """The S=0 checkpoint of :func:`flat_save` (written by the group of
+    2 before) resumed at S=2 for 2 rounds."""
+    from fedtorch_tpu_torch.utils.checkpoint import maybe_resume
+    path = os.path.join(str(store_dir), "ckpt_s0")
+    cfg = pod_cfg("resident", "round", 2)
+    t = pod_trainer(cfg)
+    server, clients = t.init_state(1)
+    server, clients, best, resumed = maybe_resume(path, server, clients,
+                                                  cfg, None)
+    got = pod_run(t, "round", rounds=2, state=(server, clients))
+    return dict(got=got, resumed=resumed, best=best)
+
+
+def flat_refusal(mesh_of, algorithm):
+    """What the personal evaluation says on this group's ranks, after a
+    round of ``algorithm`` at S=0 (which runs)."""
+    from fedtorch_tpu_torch.parallel.evaluate import evaluate_personal
+    t = pod_trainer(pod_cfg("resident", "round", 0, algorithm=algorithm))
+    server, clients = t.init_state(3)
+    server, clients, _ = t.run_round(server, clients)
+    try:
+        evaluate_personal(t.model, clients.aux, clients.params, t.val_data,
+                          algorithm)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("evaluate_personal ran on several ranks")
+
+
+def local_sgd_cfg(*, num_clients=4, avg_model=True, reshuffle=False,
+                  growing=False, num_epochs=2, local_step=2, mod=None):
+    """Local-SGD mode on the JAX package's ``test_mesh_padding.py``
+    task: ``logistic_regression`` on 12 synthetic features, batch 10;
+    ``growing`` batches of base 2 up to 16 in iteration mode."""
+    if mod is None:
+        from fedtorch_tpu_torch import config as mod
+    c = mod
+    data = dict(dataset="synthetic", synthetic_dim=12, batch_size=10,
+                reshuffle_per_epoch=reshuffle)
+    train = dict(num_epochs=num_epochs, local_step=local_step,
+                 avg_model=avg_model)
+    if growing:
+        data.update(growing_batch_size=True, base_batch_size=2,
+                    max_batch_size=16)
+        train.update(stop_criteria="iteration", num_iterations=12)
+    return c.ExperimentConfig(
+        data=c.DataConfig(**data),
+        federated=c.FederatedConfig(federated=False,
+                                    num_clients=num_clients),
+        model=c.ModelConfig(arch="logistic_regression"),
+        optim=c.OptimConfig(lr=0.2, weight_decay=0.0),
+        train=c.TrainConfig(**train)).finalize()
+
+
+def local_sgd_data():
+    """The pooled synthetic task (4 tasks of 12 features)."""
+    from fedtorch_tpu_torch.data.synthetic import generate_synthetic
+    d = generate_synthetic(num_tasks=4, alpha=0.0, beta=0.0, num_dim=12)
+    return np.concatenate(d.client_x), np.concatenate(d.client_y)
+
+
+def bridged(trainer, weights):
+    """``trainer.init_state`` starting from ``weights`` (the JAX
+    package's, flattened by name)."""
+    from fedtorch_tpu_torch.bridge import params_from_jax
+    init_state = trainer.init_state
+
+    def init(rng):
+        server, clients = init_state(rng)
+        params = params_from_jax(weights, expect=server.params,
+                                 module=trainer.model.module)
+        for n, p in clients.params.items():
+            p[:] = params[n]
+        return server._replace(params=params), clients
+    trainer.init_state = init
+
+
+def flat_replay(mesh_of, weights, plans, **kw):
+    """The resident round at ``client_shards`` 0 from ``weights``, each
+    round on its injected plan: each round's server params and metrics,
+    and this rank's client rows at the end."""
+    t = pod_trainer(pod_cfg("resident", "round", 0, **kw))
+    bridged(t, weights)
+    server, clients = t.init_state(3)
+    rounds = []
+    for plan in plans:
+        server, clients, m = t.round_fn(server, clients, plan)
+        rounds.append(dict(params=server.params, metrics=m))
+    return dict(rounds=rounds, clients=clients, rows=list(t.client_rows))
+
+
+def local_sgd_fit(mesh_of, seed=0, plans=None, weights=None, **kw):
+    """``build_local_sgd`` -> ``fit`` on this group's ranks (``plans``:
+    round r on ``plans[r]``; ``weights``: from these): each round's
+    server params, this rank's client rows, the replicated epochs and
+    local indices, every round's metrics and the collectives of each
+    kind."""
+    from fedtorch_tpu_torch.models import define_model
+    from fedtorch_tpu_torch.parallel import podscale
+    from fedtorch_tpu_torch.parallel.local_sgd import build_local_sgd
+    cfg = local_sgd_cfg(**kw)
+    feats, labels = local_sgd_data()
+    t = build_local_sgd(cfg, define_model(cfg, batch_size=10,
+                                          device="cpu"),
+                        feats, labels, device="cpu")
+    if plans is not None:
+        t.draw_plan = lambda server: plans[server.round]
+    if weights is not None:
+        bridged(t, weights)
+    podscale.reset_collective_count()
+    steps = []
+    server, clients, history = t.fit(seed, callback=lambda s, c, m: (
+        steps.append({n: v.clone() for n, v in s.params.items()})))
+    return dict(params=server.params, clients=clients, metrics=history,
+                steps=steps, rows=list(t.client_rows),
+                counts={k: podscale.collective_count(k) for k in KINDS},
+                rounds=len(history))
